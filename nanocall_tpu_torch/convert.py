@@ -1,0 +1,69 @@
+"""Carry the JAX package's parameters and state over to the port's tensors.
+
+Every function takes numpy arrays (or anything `np.asarray` reads, such as
+the JAX package's arrays) and returns tensors on the given device; the
+`*_numpy` functions go back.  The decode path and the tests use them to feed
+both packages identical inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops import hmm
+
+BANK_FIELDS = ("level_mean", "level_stdv", "sd_mean", "sd_lambda")
+
+
+def tensor(x, device, dtype=torch.float32) -> torch.Tensor:
+    """One array as a contiguous tensor of `dtype` on `device`."""
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def model_bank(models: dict, names, device) -> dict:
+    """{level_mean, level_stdv, sd_mean, sd_lambda}: (M, n) float32 tensors,
+    row i from the PoreModel `models[names[i]]` (as
+    nanocall_tpu.models.load_builtin_models returns them)."""
+    return {
+        f: tensor(np.stack([getattr(models[name], f) for name in names]),
+                  device)
+        for f in BANK_FIELDS
+    }
+
+
+def model_arrays(m, device) -> hmm.ModelArrays:
+    """A ModelArrays from the six fields of the JAX package's
+    hmm.ModelArrays (or any object with those attributes)."""
+    return hmm.ModelArrays(*(tensor(getattr(m, f), device)
+                             for f in hmm.ModelArrays._fields))
+
+
+def grouped_trans(gt, device) -> hmm.GroupedTrans:
+    """A GroupedTrans from the JAX package's hmm.GroupedTrans."""
+    return hmm.GroupedTrans(
+        stay_lp=tensor(gt.stay_lp, device), step_lp=tensor(gt.step_lp, device),
+        skip_lp=tensor(gt.skip_lp, device), K=int(gt.K),
+    )
+
+
+def pm_rows(params, device) -> torch.Tensor:
+    """(B, 6) float32 scaling rows from PoreModelParams (`as_array()`)."""
+    return tensor(np.stack([p.as_array() for p in params]), device)
+
+
+def st_rows(params, device) -> torch.Tensor:
+    """(B, 2) float32 (p_stay, p_skip) rows from TransitionParams or pairs."""
+    rows = [(p.p_stay, p.p_skip) if hasattr(p, "p_stay") else tuple(p)
+            for p in params]
+    return tensor(np.asarray(rows, np.float64).astype(np.float32), device)
+
+
+def model_arrays_numpy(m: hmm.ModelArrays) -> dict:
+    return {f: getattr(m, f).cpu().numpy() for f in hmm.ModelArrays._fields}
+
+
+def grouped_trans_numpy(gt: hmm.GroupedTrans) -> dict:
+    return {"stay_lp": gt.stay_lp.cpu().numpy(),
+            "step_lp": gt.step_lp.cpu().numpy(),
+            "skip_lp": gt.skip_lp.cpu().numpy(), "K": gt.K}

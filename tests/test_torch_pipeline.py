@@ -1,0 +1,186 @@
+"""The port's untrained decode pipeline against nanocall_tpu, on the CPU.
+
+The fixture follows tests/test_pipeline.py: two 1D reads and one 2-strand
+(hairpin) read simulated from the builtin r73 models.  Both CLIs run with
+the same flags and must write byte-identical FASTA and stats.
+"""
+
+import functools
+import os
+
+import numpy as np
+import pytest
+
+from nanocall_tpu import fast5_io, ingest as jingest, read_pipeline, simulate
+from nanocall_tpu.cli import main as jax_main
+from nanocall_tpu.config import Config
+from nanocall_tpu.models import load_builtin_models
+from nanocall_tpu_torch import basecall, ingest
+from nanocall_tpu_torch.cli import main as torch_main
+
+FLAG_SETS = {
+    "1d": ("--1d",),
+    "two_strand_joint": ("--double-strand-scaling",),
+    "two_strand_per_strand": (),
+}
+
+
+@pytest.fixture(scope="module")
+def models():
+    return load_builtin_models("r73")
+
+
+@pytest.fixture(scope="module")
+def sim(tmp_path_factory, models):
+    """Reads as fast5 files, and the same reads as in-memory arrays."""
+    d = tmp_path_factory.mktemp("fast5")
+    rng = np.random.default_rng(123)
+    arrays, truths = {}, {}
+    for name, comp, n in (("read_t0", None, 400), ("read_t1", None, 400),
+                          ("read_2d", "r73.c.p1.006", 600)):
+        mean, stdv, start, length, truth = simulate.simulate_read(
+            models, "r73.t.006", comp, n, rng, noise_scale=0.5)
+        fast5_io.write_fast5(str(d / f"{name}.fast5"), mean, stdv, start,
+                             length, sampling_rate=4000.0, read_id=name)
+        arrays[name] = (mean, stdv, start, length)
+        truths[name] = truth
+    return d, arrays, truths
+
+
+@functools.lru_cache(maxsize=None)
+def _run(main, d, flags, out_dir):
+    out = f"{out_dir}/{main.__module__}.{main.__name__}." \
+        f"{'_'.join(flags) or 'default'}"
+    rc = main([d, "--no-train", "--pore", "r73", "-t", "1", "-o", out + ".fa",
+               "--stats", out + ".tsv", *flags])
+    assert rc == 0
+    with open(out + ".fa") as fa, open(out + ".tsv") as st:
+        return fa.read(), st.read()
+
+
+def _torch_cpu_main(argv):
+    return torch_main(argv + ["--device", "cpu"])
+
+
+def _both(sim, tmp_path_factory, key):
+    d = str(sim[0])
+    out_dir = str(tmp_path_factory.getbasetemp())
+    return (_run(jax_main, d, FLAG_SETS[key], out_dir),
+            _run(_torch_cpu_main, d, FLAG_SETS[key], out_dir))
+
+
+@pytest.mark.parametrize("key", sorted(FLAG_SETS))
+def test_fasta_byte_equal_to_jax(sim, tmp_path_factory, key):
+    (jax_fa, _), (torch_fa, _) = _both(sim, tmp_path_factory, key)
+    assert jax_fa.count(">") >= 3
+    assert torch_fa == jax_fa
+
+
+@pytest.mark.parametrize("key", sorted(FLAG_SETS))
+def test_stats_equal_to_jax(sim, tmp_path_factory, key):
+    (_, jax_st), (_, torch_st) = _both(sim, tmp_path_factory, key)
+    assert len(torch_st.splitlines()) == 4
+    assert torch_st == jax_st
+
+
+def test_resume_stats_decode_equal_to_jax(sim, tmp_path):
+    """--resume-stats decodes from recorded parameters without training."""
+    d = str(sim[0])
+    stats = tmp_path / "s.tsv"
+    assert jax_main([d, "--no-train", "--pore", "r73", "-t", "1", "-o",
+                     str(tmp_path / "a.fa"), "--stats", str(stats)]) == 0
+    outs = []
+    for main, extra in ((jax_main, []), (torch_main, ["--device", "cpu"])):
+        out = tmp_path / f"{len(outs)}.fa"
+        assert main([d, "--pore", "r73", "-t", "1", "-o", str(out),
+                     "--resume-stats", str(stats), *extra]) == 0
+        outs.append(out.read_text())
+    assert outs[0].count(">") >= 3
+    assert outs[1] == outs[0]
+
+
+def test_default_run_raises_not_implemented(sim, tmp_path):
+    with pytest.raises(NotImplementedError, match="--no-train"):
+        torch_main([str(sim[0]), "--pore", "r73", "--device", "cpu", "-o",
+                    str(tmp_path / "x.fa")])
+    assert not (tmp_path / "x.fa").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ("-s", "trans.tsv"), ("--dump-training-data", "dump"),
+    ("--num-hosts", "2"), ("--trace-dir", "trace"),
+])
+def test_unported_flags_raise(sim, tmp_path, flags):
+    with pytest.raises(NotImplementedError):
+        torch_main([str(sim[0]), "--no-train", "--pore", "r73", "--device",
+                    "cpu", "-o", str(tmp_path / "x.fa"), *flags])
+
+
+@pytest.mark.parametrize("double", [False, True])
+def test_summarize_ed_matches_fast5_summarize(sim, models, double):
+    d, arrays, _ = sim
+    cfg = Config(pore="r73", train=False,
+                 double_strand_scaling=double).apply_pore_preset()
+    for name, (mean, stdv, start, length) in arrays.items():
+        path = str(d / f"{name}.fast5")
+        want_s, want_evs = read_pipeline.summarize(path, models, cfg,
+                                                   return_events=True)
+        ed = ingest.ed_from_arrays(mean, stdv, start, length, 4000.0, name)
+        got_s, got_evs = ingest.summarize_ed(path, ed, models, cfg)
+        assert got_s == want_s
+        for a, b in zip(got_evs, want_evs):
+            for f in ("mean", "stdv", "start", "length"):
+                assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
+
+
+def test_array_stream_pipeline_matches_fast5_stream(sim, models):
+    """run_pipeline gives the same results from an in-memory stream (the
+    route for machines without h5py) as from ingest_stream over the files,
+    with identity to the simulated template above 0.6."""
+    d, arrays, truths = sim
+    cfg = Config(pore="r73", train=False, ingest_workers=1).apply_pore_preset()
+    files = read_pipeline.init_files([str(d)])
+    _, want = basecall.run_pipeline(jingest.ingest_stream(files, models, cfg),
+                                    models, cfg, "cpu")
+    names = [os.path.basename(f)[: -len(".fast5")] for f in files]
+    stream = (ingest.summarize_ed(
+        f, ingest.ed_from_arrays(*arrays[name], 4000.0, name), models, cfg)
+        for f, name in zip(files, names))
+    summaries, got = basecall.run_pipeline(stream, models, cfg, "cpu")
+    assert len(summaries) == 3
+    assert [(r.seq_name, r.base_seq, r.logp) for r in got] == \
+        [(r.seq_name, r.base_seq, r.logp) for r in want]
+    t0 = [r for r in got if r.seq_name.startswith("read_t0:")]
+    assert len(t0) == 1
+    assert simulate.identity(t0[0].base_seq,
+                             truths["read_t0"].base_seqs[0]) > 0.6
+
+
+def test_decode_tasks_match_jax_winners(sim, models):
+    """Task level: the port's build_decode_tasks + run_decode_tasks pick the
+    same winners with the same paths as nanocall_tpu.basecall's."""
+    import copy
+
+    from nanocall_tpu import basecall as jbasecall
+
+    d = sim[0]
+    cfg = Config(pore="r73", train=False).apply_pore_preset()
+    files = read_pipeline.init_files([str(d)])
+    summaries = [read_pipeline.summarize(f, models, cfg) for f in files]
+    jsums, tsums = copy.deepcopy(summaries), copy.deepcopy(summaries)
+    jtasks, _ = jbasecall.build_decode_tasks(jsums, models, cfg)
+    want = jbasecall.run_decode_tasks(jtasks, jsums, models, cfg)
+    pool = basecall.EventPool("cpu")
+    ttasks = basecall.build_decode_tasks(tsums, cfg, pool)
+    assert len(ttasks) == len(jtasks) > len(want)  # contests were scored
+    got = basecall.run_decode_tasks(ttasks, tsums, models, cfg, pool)
+
+    def key(t):
+        return (t.read_idx, t.strand, t.key)
+
+    assert sorted(map(key, got)) == sorted(map(key, want))
+    want_by = {key(t): t for t in want}
+    for t in got:
+        w = want_by[key(t)]
+        assert np.array_equal(t.path, w.path), key(t)
+        assert np.isclose(t.logp, w.logp, rtol=1e-5), key(t)

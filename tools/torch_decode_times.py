@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Time the port's decode on one NVIDIA GPU at main-path shapes.
+
+    python3 tools/torch_decode_times.py [--B 128] [--T 8192] [--reads 256]
+                                        [--profile] [--long 100000]
+
+1. K1 (path and score-only) and K2 against their plain PyTorch versions at
+   B reads x T events (n = 4096): bit-equality and milliseconds per call
+   (CUDA events), built with chip_smoke.py's inputs;
+2. the untrained pipeline (nanocall_tpu_torch.basecall.run_pipeline,
+   `--no-train --pore r73`) on `--reads` simulated reads (80% 1D reads of
+   2,000-8,000 events, 20% hairpin reads of 3,000 + 3,000): wall seconds
+   per stage and events/s; with --profile, device time by kernel from
+   torch.profiler over that run;
+3. with --long N, one 1D read of N events through the same pipeline (the
+   full-scan K1/K2 at the long bucket): wall seconds and peak device
+   memory.
+
+--B 0 or --reads 0 skips phase 1 or 2.
+
+Every line carries the card's nvidia-smi name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--B", type=int, default=128)
+    ap.add_argument("--T", type=int, default=8192)
+    ap.add_argument("--reads", type=int, default=256)
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--long", type=int, default=0)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    from nanocall_tpu.models import load_builtin_models
+    from nanocall_tpu.observe import StageTimer
+    from nanocall_tpu_torch import basecall, cli, ingest
+    from nanocall_tpu_torch.ops import _cuda
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    card = chip_smoke.smi_line()
+    device = torch.device("cuda", 0)
+    _cuda.load()
+    models = load_builtin_models("r73")
+    rng = np.random.default_rng(11)
+
+    if args.B:
+        gt, model, ev = chip_smoke.kernel_inputs(models, device, args.B,
+                                                 args.T, rng)
+        for name, r in chip_smoke.check_kernels(gt, model, ev).items():
+            print(f"kernel {name} B={args.B} T={args.T}: {r['ms']:.3f} ms, "
+                  f"plain {r['plain_ms']:.3f} ms, bit-equal [{card}]",
+                  flush=True)
+        del gt, model, ev
+        torch.cuda.empty_cache()
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["sim", "--no-train", "--pore", "r73", "-t", "1"]))
+
+    def run(reads, timer=None):
+        stream = (ingest.summarize_ed(f"{name}.fast5", ed, models, cfg)
+                  for name, ed, _ in reads)
+        t = time.perf_counter()
+        _, results = basecall.run_pipeline(stream, models, cfg, device,
+                                           timer=timer)
+        return results, time.perf_counter() - t
+
+    if args.reads:
+        n_1d = args.reads * 4 // 5
+        t0 = time.perf_counter()
+        reads = chip_smoke.simulated_reads(models, rng, n_1d,
+                                           args.reads - n_1d)
+        print(f"simulated {len(reads)} reads in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for rep in range(2):
+            timer = StageTimer()
+            results, wall = run(reads, timer)
+            events = sum(len(r.ev) for r in results)
+            stages = {k: round(v["wall_s"], 3)
+                      for k, v in timer.stages.items()}
+            print(f"pipeline run {rep}: {len(results)} strands, {events} "
+                  f"events, {wall:.3f} s = {events / wall:.0f} events/s; "
+                  f"stages {stages} [{card}]", flush=True)
+        if args.profile:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, wall = run(reads)
+            print(f"profiled run: {wall:.3f} s [{card}]")
+            print(prof.key_averages().table(sort_by="cuda_time_total",
+                                            row_limit=15))
+
+    if args.long:
+        from nanocall_tpu import batching, simulate
+
+        mean, stdv, start, length, truth = simulate.simulate_read(
+            models, "r73.t.006", None, args.long, rng, noise_scale=0.5)
+        reads = [("long", ingest.ed_from_arrays(mean, stdv, start, length,
+                                                4000.0, "long"), truth)]
+        for rep in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            results, wall = run(reads)
+            (r,) = results
+            window = chip_smoke.IDENTITY_WINDOW
+            ident = simulate.identity(
+                r.base_seq[:window],
+                truth.base_seqs[0][:round(window * len(truth.base_seqs[0])
+                                          / len(r.base_seq))])
+            print(f"long read run {rep}: {len(r.ev)} events (bucket T="
+                  f"{batching.bucket_length(len(r.ev))}), {wall:.3f} s = "
+                  f"{len(r.ev) / wall:.0f} events/s, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+                  f"identity {ident:.3f} [{card}]", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
