@@ -5,33 +5,51 @@
 
 from the root of a checkout.  It
 
-  1. prints the card (nvidia-smi name and power limit), the CUDA and nvcc
-     versions, and whether the native host library built;
+  1. prints the card (nvidia-smi name and power limit), and the CUDA and
+     nvcc versions;
   2. builds the CUDA kernels from nanocall_tpu_torch/csrc and prints the
      build seconds and ptxas' register / spill report;
-  3. runs each kernel on the card at the decode's full width (n = 4096
-     states, B = 16 reads of up to T = 2048 events, lengths from 0 to T,
-     per-read scaling and transitions) and holds it to its plain PyTorch
-     version on the same inputs: tolerance 0, every output bit-equal;
-     prints both times;
-  4. drives the untrained decode end to end (nanocall_tpu_torch.basecall.
-     run_pipeline with the flags `--no-train --pore r73 -t 1`) on 24
-     simulated reads: 1D reads of 2,000-8,000 events and 2-strand hairpin
-     reads of 3,000 + 3,000, whose complement strands go through model
-     contests; the reads enter as in-memory event arrays
-     (nanocall_tpu_torch.ingest), since fast5 reading needs h5py.  It checks
-     one FASTA record per decoded strand, identity to the simulated truth,
-     and that every kernel was launched by that run;
-  5. prints a JSON line of the kernels, the card line, and last
-     {"ok": true, "device": {...}}.
+  3. runs each decode kernel (K1, K2) on the card at the decode's full
+     width (n = 4096 states, B = 16 reads of up to T = 2048 events, lengths
+     from 0 to T, per-read scaling and transitions) and holds it to its
+     plain PyTorch version on the same inputs: tolerance 0, every output
+     bit-equal; prints both times;
+  4. runs the EM kernels (K4 forward, with and without the alpha store; K5
+     fused backward with all statistics, with train_transitions off and
+     with train_scaling off) at the EM chunk's full width: n = 4096,
+     128 training groups x 4 = 512 rows of T = 128 events, packed by
+     nanocall_tpu_torch.basecall.pack_train_batch from the simulated reads
+     below, with rows of length 0, 1, T-1 and T, invalid rows, both r73
+     strands' models and varied scaling and transition parameters; holds
+     each to its plain version (tolerance 0) and prints both times;
+  5. drives the pipeline end to end (nanocall_tpu_torch.basecall.
+     run_pipeline, `--pore r73 -t 1`) on 24 simulated reads (1D reads of
+     2,000-8,000 events and 2-strand hairpin reads of 3,000 + 3,000, fed as
+     in-memory event arrays through nanocall_tpu_torch.ingest, since fast5
+     reading needs h5py) and writes FASTA and stats with the port CLI's
+     writer into build/chip_smoke/: first untrained (`--no-train`; K1 path
+     and score-only, K2), then the default trained run (EM training, then
+     the decode; K4, K5, K1, K2).  Each run checks one FASTA record per
+     decoded strand, identity to the simulated truth above 0.6, and that
+     each of its kernels launched; the trained run also checks that every
+     trained 1D read's best candidate has 0.8 < scale < 1.2 and
+     |shift| < 10 (the reads are simulated at identity scaling) and prints
+     its stage times;
+  6. prints a JSON line of the kernels (launch counts: the two end-to-end
+     runs' sum, and each run's), the card line, and last
+     {"ok": true, ...}.
 
-Nothing is caught: any failure exits non-zero before the last line.  With
-no CUDA device it exits 2 and prints no result.
+The script imports nothing of JAX and nothing of the JAX package
+nanocall_tpu: it reaches the system only through nanocall_tpu_torch, and
+simulates its reads itself.  Nothing is caught: any failure exits non-zero
+before the last line.  With no CUDA device it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
 
-import io
+import contextlib
+import difflib
 import json
 import os
 import subprocess
@@ -40,9 +58,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_KERNEL, T_KERNEL = 16, 2048
+G_EM, T_EM = 128, 128  # the default EM chunk: 128 groups x 4 rows, T = 128
 N_1D, N_2STRAND = 18, 6
+P_STAY, P_SKIP = 0.1, 0.3  # the simulated reads' kinetics (the defaults)
+NOISE = 0.5  # the simulated event means' noise, in model level stdvs
 IDENTITY_MIN = 0.6  # tests/test_pipeline.py's bar for untrained decodes
 IDENTITY_WINDOW = 2000  # called bases compared per strand (difflib is quadratic)
+#: kernels each end-to-end run must launch
+UNTRAINED_KERNELS = ("viterbi_forward_path", "viterbi_forward_score",
+                     "viterbi_traceback")
+TRAINED_KERNELS = ("fwbw_forward", "em_backward", "viterbi_forward_path",
+                   "viterbi_traceback")
 
 
 def smi_line() -> str:
@@ -158,32 +184,233 @@ def check_kernels(gt, model, ev) -> dict:
     return rec
 
 
+def max_err(a, b) -> float:
+    """Largest |a - b|, counting equal values (infinities included) as 0."""
+    import torch
+
+    same = a == b
+    return float(torch.where(same, 0.0, (a - b).abs()).max()) \
+        if a.numel() else 0.0
+
+
+def em_kernel_inputs(models, reads, device, rng) -> dict:
+    """The inputs of one EM round's K4 and K5 for G_EM training groups of
+    the simulated reads (repeated to fill the chunk), packed by the port's
+    pack_train_batch at T = T_EM, with varied parameters, and group 0's
+    rows replaced by rows of length 0, 1, T-1 and T."""
+    import numpy as np
+
+    from nanocall_tpu_torch import basecall, convert, ingest, train
+
+    cfg = smoke_config()
+    summaries, groups, strands = [], [], []
+    for name, ed, _ in reads:
+        s, evs = ingest.summarize_ed(f"{name}.fast5", ed, models, cfg)
+        summaries.append(s)
+        if s.num_ed_events:
+            strands.append(evs[0])
+            groups += basecall._read_train_groups(len(summaries) - 1, s,
+                                                  models, cfg, evs)
+    groups = (groups * -(-G_EM // len(groups)))[:G_EM]
+    ev, mdl, pm0, st0 = basecall.pack_train_batch(groups, summaries, models,
+                                                  cfg, pad_T=T_EM)
+    G = len(groups)
+    pm0[:, 0] *= rng.uniform(0.95, 1.05, G)
+    pm0[:, 1] += rng.uniform(-1.0, 1.0, G)
+    pm0[:, 2] = rng.uniform(-0.01, 0.01, G)
+    pm0[:, 3] *= rng.uniform(0.9, 1.1, G)
+    st0[:] = np.stack([rng.uniform(0.05, 0.2, (G, 2)),
+                       rng.uniform(0.2, 0.4, (G, 2))], -1)
+    long_ev = max(strands, key=len)
+    for si, L in enumerate((0, 1, T_EM - 1, T_EM)):
+        for f, pad in (("mean", 1.0), ("stdv", 1.0), ("log_stdv", 0.0),
+                       ("start", 0.0)):
+            ev[f][0, si] = pad
+            ev[f][0, si, :L] = getattr(long_ev, f)[:L]
+        ev["length"][0, si] = L
+        ev["strand"][0, si] = si % 2
+        ev["valid"][0, si] = True
+    batch = convert.train_batch(ev, mdl, pm0, st0, device)
+    return train.round_inputs(*batch, K=6)
+
+
+def check_em_kernels(inp) -> dict:
+    """K4 and K5 against their plain versions on the same card, at the EM
+    chunk's shape: outputs bit-equal (tolerance 0), and times.  Returns
+    {kernel name: record}."""
+    import torch
+
+    from nanocall_tpu_torch import train
+    from nanocall_tpu_torch.ops import em, hmm
+
+    gtf, model, ev = inp["gtf"], inp["model"], inp["ev"]
+    a_p, lpd_p = hmm.fwbw_grouped_forward_plain(gtf, model, ev)
+    a_k, lpd_k = hmm.fwbw_forward_kernel(gtf, model, ev)
+    none, lpd_f = hmm.fwbw_forward_kernel(gtf, model, ev, with_alphas=False)
+    torch.cuda.synchronize()
+    assert none is None
+    errs = {"K4 alphas": max_err(a_k, a_p), "K4 log_pr_data":
+            max_err(lpd_k, lpd_p), "K4 log_pr_data, no alphas stored":
+            max_err(lpd_f, lpd_p)}
+    outs = {}
+    for flags, tag in (((True, True), "all statistics"),
+                       ((True, False), "train_transitions off"),
+                       ((False, True), "train_scaling off")):
+        case = inp if flags[0] else {**inp, "W": None}
+        args = train.em_backward_args(case, lpd_k, a_k, *flags)
+        outs[tag] = (em.fused_bwd_mstats_plain(*args),
+                     em.em_backward_kernel(*args))
+    torch.cuda.synchronize()
+    for tag, ((s_p, st_p), (s_k, st_k)) in outs.items():
+        errs[f"K5 moments, {tag}"] = max_err(s_k, s_p)
+        errs[f"K5 log totals, {tag}"] = max_err(st_k, st_p)
+        assert torch.isfinite(s_k).all(), "K5 moments are not finite"
+    print(f"em kernels: max |kernel - plain| {errs}")
+    for what, e in errs.items():
+        assert e == 0.0, f"{what} differ from plain by {e}"
+    args = train.em_backward_args(inp, lpd_k, a_k, True, True)
+    return {
+        "fwbw_forward": {
+            "max_abs_err": max(v for k, v in errs.items() if "K4" in k),
+            "ms": cuda_ms(lambda: hmm.fwbw_forward_kernel(gtf, model, ev), 3),
+            "plain_ms": cuda_ms(lambda: hmm.fwbw_grouped_forward_plain(
+                gtf, model, ev), 1)},
+        "em_backward": {
+            "max_abs_err": max(v for k, v in errs.items() if "K5" in k),
+            "ms": cuda_ms(lambda: em.em_backward_kernel(*args), 3),
+            "plain_ms": cuda_ms(lambda: em.fused_bwd_mstats_plain(*args), 1)},
+    }
+
+
+def _walk(n: int, rng):
+    """(states (n,), bases): a stay/step/skip walk over 6-mers and the bases
+    it reads.  A step appends one random base to the sequence, a skip two,
+    and state i is the 6-mer ending at the walk's position after event i
+    (most significant base first, A, C, G, T = 0..3)."""
+    import numpy as np
+
+    u = rng.random(n)
+    moves = np.where(u < P_STAY, 0, np.where(u < 1.0 - P_SKIP, 1, 2))
+    moves[0] = 0
+    new = rng.integers(0, 4, (n, 2))
+    seq = np.concatenate([rng.integers(0, 4, 6),
+                          new[np.arange(2) < moves[:, None]]])
+    L = len(seq)
+    kmers = sum(seq[j:L - 5 + j] << 2 * (5 - j) for j in range(6))
+    return kmers[np.cumsum(moves)], "".join(np.array(list("ACGT"))[seq])
+
+
+def _emit(model, states, rng):
+    """Event means and stdvs drawn from a pore model at identity scaling:
+    normal means with NOISE x the level stdv, inverse-Gaussian stdvs."""
+    import numpy as np
+
+    mean = rng.normal(model.level_mean[states],
+                      NOISE * model.level_stdv[states])
+    stdv = np.maximum(rng.wald(model.sd_mean[states],
+                               model.sd_lambda[states]), 0.05)
+    return mean, stdv
+
+
+def simulate_read(models, rng, n_events: int, two_strand: bool):
+    """One read's event-detection arrays and its strands' true bases:
+    (mean, stdv, start, length, [template bases, complement bases]).
+    70 events of random r73 template signal pad each end; a 2-strand read
+    has its complement after an 8-event abasic hairpin at 110 pA; event
+    lengths are 10..39 samples."""
+    import numpy as np
+
+    tmpl, comp = models["r73.t.006"], models["r73.c.p1.006"]
+    parts = [_emit(tmpl, rng.integers(0, 4096, 70), rng)]
+    truths = []
+    for strand, model in enumerate((tmpl, comp) if two_strand else (tmpl,)):
+        if strand:
+            parts.append((rng.normal(110.0, 0.5, 8), rng.uniform(0.3, 0.8, 8)))
+        states, bases = _walk(n_events, rng)
+        parts.append(_emit(model, states, rng))
+        truths.append(bases)
+    parts.append(_emit(tmpl, rng.integers(0, 4096, 70), rng))
+    mean = np.maximum(np.concatenate([p[0] for p in parts]), 1.0)
+    stdv = np.concatenate([p[1] for p in parts])
+    length = rng.integers(10, 40, len(mean)).astype(np.float64)
+    start = np.concatenate([[0.0], np.cumsum(length)[:-1]])
+    return mean, stdv, start, length, truths
+
+
 def simulated_reads(models, rng, n_1d: int = N_1D,
                     n_2strand: int = N_2STRAND):
-    """[(name, EdEventData, truth)]: n_1d 1D reads of 2,000-8,000 events
-    and n_2strand 2-strand hairpin reads of 3,000 + 3,000."""
-    from nanocall_tpu import simulate
+    """[(name, EdEventData, [true bases per strand])]: n_1d 1D reads of
+    2,000-8,000 events and n_2strand 2-strand hairpin reads of 3,000 +
+    3,000."""
     from nanocall_tpu_torch import ingest
 
     reads = []
-    specs = ([(None, int(n)) for n in rng.integers(2000, 8001, n_1d)]
-             + [("r73.c.p1.006", 3000)] * n_2strand)
-    for i, (comp, n) in enumerate(specs):
+    specs = ([(False, int(n)) for n in rng.integers(2000, 8001, n_1d)]
+             + [(True, 3000)] * n_2strand)
+    for i, (two_strand, n) in enumerate(specs):
         name = f"sim{i:02d}"
-        mean, stdv, start, length, truth = simulate.simulate_read(
-            models, "r73.t.006", comp, n, rng, noise_scale=0.5)
+        mean, stdv, start, length, truths = simulate_read(models, rng, n,
+                                                          two_strand)
         ed = ingest.ed_from_arrays(mean, stdv, start, length, 4000.0, name)
-        reads.append((name, ed, truth))
+        reads.append((name, ed, truths))
     return reads
 
 
-def run_end_to_end(models, reads, device) -> dict:
-    from nanocall_tpu import output, simulate
-    from nanocall_tpu_torch import basecall, cli, ingest
-    from nanocall_tpu_torch.ops import hmm
+def identity(a: str, b: str) -> float:
+    """difflib's similarity ratio of two base sequences."""
+    return difflib.SequenceMatcher(None, a, b, autojunk=False).ratio()
 
-    cfg = cli.config_from_args(cli.build_parser().parse_args(
-        ["sim", "--no-train", "--pore", "r73", "-t", "1"]))
+
+class StageTimer:
+    """Wall seconds per named stage: the `timer` run_pipeline takes."""
+
+    def __init__(self):
+        self.stages: dict = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stages[name] = (self.stages.get(name, 0.0)
+                                 + time.perf_counter() - t0)
+
+
+def smoke_config(*flags):
+    """The port CLI's Config for `sim --pore r73 -t 1 <flags>`."""
+    from nanocall_tpu_torch import cli
+
+    return cli.config_from_args(cli.build_parser().parse_args(
+        ["sim", "--pore", "r73", "-t", "1", *flags]))
+
+
+def read_fasta(path: str) -> dict:
+    """{record name: sequence} of a FASTA file."""
+    records, name = {}, None
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if line.startswith(">"):
+                name = line[1:]
+                records[name] = ""
+            elif line:
+                records[name] += line
+    return records
+
+
+def run_end_to_end(models, reads, device, train: bool, must_launch) -> dict:
+    """run_pipeline over the reads, untrained (`--no-train`) or with the
+    default EM training, with FASTA and stats written by the port CLI's
+    writer; checks the records, identity and launches."""
+    from nanocall_tpu_torch import basecall, cli, ingest
+    from nanocall_tpu_torch.ops import kernels
+
+    out = os.path.join(ROOT, "build", "chip_smoke",
+                       "trained" if train else "untrained")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cfg = smoke_config("-o", out + ".fa", "--stats", out + ".tsv",
+                       *([] if train else ["--no-train"]))
     decoded = {}  # strands the decode must write, with their event counts
 
     def stream():
@@ -195,38 +422,63 @@ def run_end_to_end(models, reads, device) -> dict:
                         decoded[(name, st)] = len(evs[st])
             yield s, evs
 
-    hmm.reset_launches()
+    timer = StageTimer()
+    kernels.reset_launches()
     t0 = time.perf_counter()
-    summaries, results = basecall.run_pipeline(stream(), models, cfg, device)
+    summaries, results = basecall.run_pipeline(stream(), models, cfg, device,
+                                               timer=timer)
     wall = time.perf_counter() - t0
-    launches = {k.name: k.wrapper.launches for k in hmm.KERNELS}
+    launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
 
-    fasta = io.StringIO()
-    output.write_results_fasta(fasta, results, cfg.fasta_line_width)
-    n_records = fasta.getvalue().count(">")
-    assert len(summaries) == len(reads)
+    cli.write_outputs(summaries, results, models, cfg)
+    fasta = read_fasta(cfg.output)
+    with open(cfg.stats_fn) as fh:
+        n_stats = len(fh.read().strip().splitlines()) - 1
+    assert len(summaries) == len(reads) == n_stats
     assert decoded, "no strand was decodable"
-    assert n_records == len(decoded), (n_records, sorted(decoded))
+    assert len(fasta) == len(decoded), (len(fasta), sorted(decoded))
     assert {(r.seq_name.split(":")[0], r.strand) for r in results} == \
         set(decoded)
-    for k, n in launches.items():
-        assert n > 0, f"kernel {k} was not launched by the end-to-end run"
+    for k in must_launch:
+        assert launches[k] > 0, f"kernel {k} was not launched by the run"
+    if train:
+        trained = [s for s in summaries if s.fits]
+        assert trained, "no read was trained"
+        for s in trained:
+            if not s.scale_strands_together:  # a 1D read
+                best = max(s.fits, key=lambda k: s.fits[k])
+                p = s.pm_params[best]
+                assert 0.8 < p.scale < 1.2 and abs(p.shift) < 10.0, \
+                    (s.read_id, p)
 
     truths = {name: truth for name, _, truth in reads}
     idents = []
     for r in results:
-        truth = truths[r.seq_name.split(":")[0]].base_seqs[r.strand]
-        assert len(r.path) == len(r.ev) and r.base_seq
+        seq = fasta[r.seq_name]
+        truth = truths[r.seq_name.split(":")[0]][r.strand]
+        assert len(r.path) == len(r.ev) and seq and seq == r.base_seq
         # the same stretch of both: the truth's window scaled by the lengths
-        w = round(IDENTITY_WINDOW * len(truth) / len(r.base_seq))
-        idents.append(simulate.identity(r.base_seq[:IDENTITY_WINDOW],
-                                        truth[:w]))
+        w = round(IDENTITY_WINDOW * len(truth) / len(seq))
+        idents.append(identity(seq[:IDENTITY_WINDOW], truth[:w]))
     events = sum(decoded.values())
-    return {"reads": len(reads), "records": n_records, "events": events,
+    assert min(idents) > IDENTITY_MIN, idents
+    return {"reads": len(reads), "records": len(fasta), "events": events,
             "wall_s": wall, "events_per_s": events / wall,
-            "identity_min": min(idents),
+            "stages": timer.stages, "identity_min": min(idents),
             "identity_mean": sum(idents) / len(idents),
             "launches": launches}
+
+
+def print_run(what: str, e2e: dict, card: str) -> None:
+    stages = ", ".join(
+        f"{k} {v:.3f} s = {e2e['events'] / v:.0f} events/s"
+        for k, v in e2e["stages"].items())
+    print(f"end_to_end {what}: {e2e['reads']} reads, {e2e['records']} FASTA "
+          f"records, {e2e['events']} events in {e2e['wall_s']:.3f} s = "
+          f"{e2e['events_per_s']:.0f} events/s ({stages}); identity min "
+          f"{e2e['identity_min']:.3f} mean {e2e['identity_mean']:.3f} "
+          f"(first {IDENTITY_WINDOW} bases); launches {e2e['launches']} "
+          f"[{card}]")
 
 
 def main() -> int:
@@ -238,9 +490,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from nanocall_tpu import native
-    from nanocall_tpu.models import load_builtin_models
-    from nanocall_tpu_torch.ops import _cuda, hmm
+    from nanocall_tpu_torch import cli
+    from nanocall_tpu_torch.ops import _cuda, kernels
 
     device = torch.device("cuda", 0)
     card = smi_line()
@@ -250,8 +501,7 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}; nvcc: "
-          f"{[l for l in nvcc.splitlines() if 'release' in l][0]}; "
-          f"native.available()={native.available()}")
+          f"{[l for l in nvcc.splitlines() if 'release' in l][0]}")
 
     t0 = time.perf_counter()
     _cuda.load()
@@ -261,7 +511,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             print(f"  ptxas: {line.strip()}")
 
-    models = load_builtin_models("r73")
+    models = cli.init_models(smoke_config())
     rng = np.random.default_rng(2024)
     gt, model, ev = kernel_inputs(models, device, B_KERNEL, T_KERNEL, rng)
     recs = check_kernels(gt, model, ev)
@@ -270,21 +520,31 @@ def main() -> int:
               f"plain; {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
               f"[{card}]")
     del gt, model, ev
+
+    reads = simulated_reads(models, rng)
+    em = check_em_kernels(em_kernel_inputs(models, reads, device, rng))
+    for name, r in em.items():
+        print(f"kernel {name}: B={4 * G_EM} T={T_EM} n=4096 bit-equal to "
+              f"plain; {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
+              f"[{card}]")
+    recs.update(em)
     torch.cuda.empty_cache()
 
-    e2e = run_end_to_end(models, simulated_reads(models, rng), device)
-    print(f"end_to_end: {e2e['reads']} reads, {e2e['records']} FASTA records, "
-          f"{e2e['events']} events in {e2e['wall_s']:.3f} s = "
-          f"{e2e['events_per_s']:.0f} events/s; identity min "
-          f"{e2e['identity_min']:.3f} mean {e2e['identity_mean']:.3f} "
-          f"(first {IDENTITY_WINDOW} bases); launches {e2e['launches']} "
-          f"[{card}]")
-    assert e2e["identity_min"] > IDENTITY_MIN, e2e
+    untrained = run_end_to_end(models, reads, device, False,
+                               UNTRAINED_KERNELS)
+    print_run("untrained (--no-train)", untrained, card)
+    trained = run_end_to_end(models, reads, device, True, TRAINED_KERNELS)
+    print_run("trained (default)", trained, card)
+    print(f"identity mean: trained {trained['identity_mean']:.3f}, "
+          f"untrained {untrained['identity_mean']:.3f}")
 
-    kernels = [{"name": k.name, "route": "cuda", "source": k.source,
-                "replaces": k.replaces, "launches": e2e["launches"][k.name],
-                **recs[k.name]} for k in hmm.KERNELS]
-    print(json.dumps({"kernels": kernels}))
+    runs = {"untrained": untrained["launches"], "trained": trained["launches"]}
+    records = [{"name": k.name, "route": "cuda", "source": k.source,
+                "replaces": k.replaces,
+                "launches": sum(r[k.name] for r in runs.values()),
+                "launches_by_run": {w: r[k.name] for w, r in runs.items()},
+                **recs[k.name]} for k in kernels.KERNELS]
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

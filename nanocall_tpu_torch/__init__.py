@@ -6,11 +6,13 @@ sm_90a at first use).  The host-only modules (fast5 ingest, pore models,
 events, batching, output, the native C++ helpers) are imported from
 `nanocall_tpu` rather than copied; they import no JAX.
 
-What runs today is the untrained decode path (`--no-train`): ingest, model
-contests scored by the grouped Viterbi forward, path decode of the winners
-with the grouped traceback, and FASTA output.  Every device function takes
-an explicit device; CPU tensors run the plain PyTorch version of each
-kernel, CUDA tensors run the kernel.
+It runs the default pipeline: ingest, per-read EM training (the grouped
+log-sum-exp forward and the fused backward with the M-step statistics),
+model selection, model contests scored by the grouped Viterbi forward,
+path decode of the winners with the grouped traceback, and FASTA output;
+`--no-train` skips the training.  Every device function takes an explicit
+device; CPU tensors run the plain PyTorch version of each kernel, CUDA
+tensors run the kernel.
 
 This package never imports jax.
 """

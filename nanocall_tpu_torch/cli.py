@@ -1,10 +1,11 @@
 """Command-line interface: `python -m nanocall_tpu_torch ...`.
 
 The flag surface of `python -m nanocall_tpu` (nanocall_tpu/cli.py, which
-imports JAX and so cannot be imported here), plus `--device`.  What the port
-runs today is the untrained decode (`--no-train`) and the decode of a
-`--resume-stats` run; flags whose paths are not ported yet raise
-NotImplementedError instead of running something else.
+imports JAX and so cannot be imported here), plus `--device`.  The port runs
+the default trained pipeline (EM training, then decode), the untrained
+decode (`--no-train`) and the decode of a `--resume-stats` run; flags whose
+paths are not ported yet (`--trans`, `--dump-training-data`, `--trace-dir`,
+multi-host) raise NotImplementedError instead of running something else.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="version", version=get_version())
     p.add_argument("inputs", nargs="+", help="directories, fast5 files, or fofn files ('-' = stdin)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device for the decode (default: cuda; a missing "
-                   "GPU is an error, never a silent CPU run)")
+                   help="device for training and decode (default: cuda; "
+                   "a missing GPU is an error, never a silent CPU run)")
     p.add_argument("--ed-group", default="", help="EventDetection group to use")
     p.add_argument("--chunk-size", type=int, default=1,
                    help="(accepted for CLI parity; device bucketing replaces thread chunking)")
@@ -146,9 +147,6 @@ def config_from_args(args) -> Config:
 def _refuse_unported(args, cfg: Config) -> None:
     """Raise for every flag whose path the port does not run yet."""
     missing = []
-    if cfg.train and not args.resume_stats:
-        missing.append("EM training (run with --no-train, or decode a "
-                       "--resume-stats file)")
     if args.trans_fn:
         missing.append("--trans (the sparse-transition decode)")
     if args.dump_training_data:
@@ -275,6 +273,13 @@ def main(argv=None) -> int:
             with timer.stage("basecalling"):
                 results = basecall.basecall_reads(summaries, models, cfg, pool)
 
+    write_outputs(summaries, results, models, cfg)
+    return 0
+
+
+def write_outputs(summaries, results, models, cfg: Config) -> None:
+    """A run's basecalls (fast5 files, cfg.output or stdout) and its stats
+    TSV (cfg.stats_fn), as nanocall_tpu/cli.py writes them."""
     if cfg.basecall:
         if cfg.write_fast5:
             output.write_results_fast5(results, summaries, models, cfg)
@@ -288,8 +293,8 @@ def main(argv=None) -> int:
             output.write_results_fasta(sys.stdout, results, cfg.fasta_line_width)
     if cfg.stats_fn:
         with open(cfg.stats_fn, "w") as fh:
-            output.write_stats(fh, summaries, defaults)
-    return 0
+            output.write_stats(fh, summaries,
+                               TransitionParams(cfg.pr_stay, cfg.pr_skip))
 
 
 if __name__ == "__main__":

@@ -59,6 +59,21 @@ def st_rows(params, device) -> torch.Tensor:
     return tensor(np.asarray(rows, np.float64).astype(np.float32), device)
 
 
+def train_batch(ev: dict, models: dict, pm0, st0, device):
+    """A packed training batch as the port's tensors: (ev, models, pm_params,
+    st_params) for train.train_one_round / train.run_em, from the arrays
+    that basecall.pack_train_batch (or the JAX package's) returns.  ev's
+    float fields stay float32, length and strand int32, valid bool; models
+    are the (M or G, 2, n) float32 tables, plus an int32 'model_idx' when
+    the batch carries a model bank."""
+    ev_t = {k: tensor(v, device, torch.int32 if k in ("length", "strand")
+                      else torch.bool if k == "valid" else torch.float32)
+            for k, v in ev.items()}
+    mdl_t = {k: tensor(v, device, torch.int32 if k == "model_idx"
+                       else torch.float32) for k, v in models.items()}
+    return ev_t, mdl_t, tensor(pm0, device), tensor(st0, device)
+
+
 def model_arrays_numpy(m: hmm.ModelArrays) -> dict:
     return {f: getattr(m, f).cpu().numpy() for f in hmm.ModelArrays._fields}
 

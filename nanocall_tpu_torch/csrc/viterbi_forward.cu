@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int N = 4096;
@@ -40,17 +42,7 @@ constexpr int N16 = N / 16;
 constexpr int THREADS = 1024;
 constexpr int BIG = 0x7fffffff;
 
-// log_emission in the op order of nanocall_tpu/ops/hmm.py:230-244
-__device__ __forceinline__ float emission(float x, float y, float ly, float lm,
-                                          float ls, float lls, float sm,
-                                          float slam, float lsl,
-                                          float log2pi) {
-  const float a = (x - lm) / ls;
-  const float lnorm = -lls - (log2pi + a * a) * 0.5f;
-  const float b = (y - sm) / sm;
-  const float linv = (lsl - log2pi - 3.0f * ly - slam * b * b / y) * 0.5f;
-  return lnorm + linv;
-}
+using nc::emission;
 
 __global__ void __launch_bounds__(THREADS, 1)
 viterbi_forward_kernel(const float* __restrict__ ev_mean,

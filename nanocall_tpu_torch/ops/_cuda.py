@@ -1,10 +1,12 @@
 """Build and bind the hand-written CUDA kernels of `nanocall_tpu_torch/csrc`.
 
-The sources are compiled by nvcc at first use into one shared library with
-a plain C interface under `build/nanocall_tpu_torch/` of the checkout, and
-loaded with ctypes.  The library's name carries a hash of the sources and
-flags, so a stale build is never loaded.  A failed build raises: there is no
-fallback to the plain PyTorch versions for CUDA tensors.
+The sources are compiled by nvcc at first use, one nvcc process per source
+and all of them at once, then linked into one shared library with a plain C
+interface under `build/nanocall_tpu_torch/` of the checkout, and loaded
+with ctypes.  The library's name carries a hash of the sources, the shared
+header and the flags, so a stale build is never loaded.  A failed build
+raises: there is no fallback to the plain PyTorch versions for CUDA
+tensors.
 
 Flags: sm_90a (Hopper), and -fmad=false so that every float operation of a
 kernel rounds on its own, as each elementwise PyTorch op does; that keeps
@@ -23,11 +25,14 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
-SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu")
+SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
+           "em_backward.cu")
+HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "nanocall_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -48,25 +53,44 @@ def _nvcc() -> str:
 
 def _lib_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"libnc_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _run_all(cmds) -> str:
+    """Run the commands at once; their output, or raise if any failed."""
+    cmds = list(cmds)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
+    return log
 
 
 def _build(path: str) -> None:
     global build_seconds, build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, path)
+    try:
+        build_log = _run_all(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+            for s, o in zip(SOURCES, objs))
+        build_log += _run_all([[nvcc, *ARCH, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, path)
+    finally:
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.remove(f)
     build_seconds = time.perf_counter() - t0
 
 
@@ -87,6 +111,13 @@ def load():
         lib.nc_viterbi_traceback.restype = ci
         lib.nc_viterbi_traceback.argtypes = (
             [vp] * 3 + [ci, ci, ci] + [vp] * 3 + [ci, vp])
+        lib.nc_fwbw_forward.restype = ci
+        lib.nc_fwbw_forward.argtypes = (
+            [vp] * 4 + [ci, ci] + [vp] * 10 + [cf, cf] + [vp, vp] + [ci, vp])
+        lib.nc_em_backward.restype = ci
+        lib.nc_em_backward.argtypes = (
+            [vp] * 4 + [ci, ci] + [vp] * 18 + [ci, ci, cf] + [vp, vp]
+            + [ci, vp])
         lib.nc_error_string.restype = ctypes.c_char_p
         lib.nc_error_string.argtypes = [ci]
         _lib = lib

@@ -1,7 +1,8 @@
-"""Grouped Viterbi decode on PyTorch tensors, with hand-written CUDA kernels.
+"""Grouped HMM kernels on PyTorch tensors, with hand-written CUDA kernels.
 
-Port of the decode half of nanocall_tpu/ops/hmm.py.  Every function takes
-tensors on one device and dispatches by that device:
+Port of nanocall_tpu/ops/hmm.py's grouped Viterbi decode and the grouped
+log-sum-exp forward of EM training.  Every function takes tensors on one
+device and dispatches by that device:
 
   - CPU tensors run the plain PyTorch version (a Python loop over events on
     (B, n) tensors, in the JAX scan body's op order);
@@ -14,20 +15,25 @@ Kernels and their plain versions, side by side below:
   K1  viterbi_forward.cu    forward_path_kernel / forward_score_kernel
                             vs viterbi_forward_grouped_plain
   K2  viterbi_traceback.cu  traceback_kernel vs viterbi_traceback_grouped_plain
+  K4  fwbw_forward.cu       fwbw_forward_kernel vs fwbw_grouped_forward_plain
+  (K5, the fused EM backward, is in ops/em.py; ops/kernels.py lists them all.)
 
 Each kernel wrapper counts its launches in a plain int attribute
 (`wrapper.launches`), incremented only where it launches the kernel.
 
 Numerics: the kernels are built with -fmad=false, so on the same card they
-are bit-identical to the plain versions.  Against the JAX package the port
-agrees to float32 rounding: XLA fuses and reorders the jitted emission
-expression, and jnp.log and torch.log differ in the last bit on some inputs.
+are bit-identical to the plain versions.  Sums whose order torch leaves
+undefined are written out in the plain versions in one fixed order that the
+kernels follow: r-ordered 4- and 16-way sums, and full-width sums as a
+pairwise tree (`tree_sum`).  Against the JAX package the port agrees to
+float32 rounding: XLA fuses and reorders the jitted emission expression and
+its sums, and jnp.log and torch.log differ in the last bit on some inputs.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import torch
 
@@ -62,6 +68,19 @@ class GroupedTrans(NamedTuple):
     K: int
 
 
+class GroupedTransFull(NamedTuple):
+    """Grouped tables for both recursion directions, (..., n) float32
+    (nanocall_tpu/ops/hmm.py:866): the from-side (stay, step, skip) and the
+    to-side (step_to, skip_to); the stay table serves both."""
+
+    stay_lp: torch.Tensor
+    step_lp: torch.Tensor
+    skip_lp: torch.Tensor
+    step_to_lp: torch.Tensor
+    skip_to_lp: torch.Tensor
+    K: int
+
+
 # ---------------------------------------------------------------------------
 # tables and scaled models on the device (plain torch, no kernels: the
 # JAX package leaves these to XLA)
@@ -81,11 +100,10 @@ def _ipow(x: torch.Tensor, y: int) -> torch.Tensor:
     return acc
 
 
-def grouped_tables(p_stay: torch.Tensor, p_skip: torch.Tensor, K: int):
-    """(stay_lp, step_lp, skip_lp), each (..., n) float32: the float32
-    pipeline of transitions.grouped_tables(..., xp=jnp)
-    (nanocall_tpu/transitions.py:342-389) over the same condition masks."""
-    masks = transitions.grouped_condition_masks(K)
+def _grouped_tables(p_stay, p_skip, K: int, masks: dict, with_stay: bool):
+    """The float32 pipeline of transitions.grouped_tables(..., xp=jnp) and
+    grouped_tables_to(..., xp=jnp) over their condition masks: (stay_lp
+    when with_stay,) step_lp, skip_lp, each (..., n)."""
     n = kmer.n_states(K)
     dev = p_stay.device
 
@@ -101,9 +119,12 @@ def grouped_tables(p_stay: torch.Tensor, p_skip: torch.Tensor, K: int):
     def term(l):
         return _ipow(p_skip_1, l - 1) / (1 << (2 * l))
 
-    stay = p_stay + mask("stay_l1") * (p_step / 4.0) + bg
-    for l in range(2, K):
-        stay = stay + mask(f"stay_l{l}") * term(l)
+    out = []
+    if with_stay:
+        stay = p_stay + mask("stay_l1") * (p_step / 4.0) + bg
+        for l in range(2, K):
+            stay = stay + mask(f"stay_l{l}") * term(l)
+        out.append(torch.log(stay))
     step = p_step / 4.0 + bg
     for l in range(2, K):
         step = step + mask(f"step_l{l}") * term(l)
@@ -111,7 +132,15 @@ def grouped_tables(p_stay: torch.Tensor, p_skip: torch.Tensor, K: int):
     for l in range(3, K):
         skip = skip + mask(f"skip_l{l}") * term(l)
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
-    return torch.log(stay), torch.log(step + zeros), torch.log(skip + zeros)
+    return (*out, torch.log(step + zeros), torch.log(skip + zeros))
+
+
+def grouped_tables(p_stay: torch.Tensor, p_skip: torch.Tensor, K: int):
+    """(stay_lp, step_lp, skip_lp), each (..., n) float32: the float32
+    pipeline of transitions.grouped_tables(..., xp=jnp)
+    (nanocall_tpu/transitions.py:342-389) over the same condition masks."""
+    return _grouped_tables(p_stay, p_skip, K,
+                           transitions.grouped_condition_masks(K), True)
 
 
 def make_grouped_trans_device(p_stay, p_skip, K: int = 6) -> GroupedTrans:
@@ -119,6 +148,41 @@ def make_grouped_trans_device(p_stay, p_skip, K: int = 6) -> GroupedTrans:
     (nanocall_tpu/ops/hmm.py:199-206)."""
     stay, step, skip = grouped_tables(p_stay, p_skip, K)
     return GroupedTrans(stay_lp=stay, step_lp=step, skip_lp=skip, K=K)
+
+
+def grouped_tables_to(p_stay: torch.Tensor, p_skip: torch.Tensor, K: int):
+    """(step_to_lp, skip_to_lp), each (..., n) float32: the float32 pipeline
+    of transitions.grouped_tables_to(..., xp=jnp)
+    (nanocall_tpu/transitions.py:414-439)."""
+    return _grouped_tables(p_stay, p_skip, K,
+                           transitions.grouped_condition_masks_to(K), False)
+
+
+def make_grouped_full_device(p_stay, p_skip, K: int = 6) -> GroupedTransFull:
+    """Both directions' grouped tables from (...,) params, built on their
+    device (nanocall_tpu/ops/hmm.py:878-887)."""
+    stay, step, skip = grouped_tables(p_stay, p_skip, K)
+    step_to, skip_to = grouped_tables_to(p_stay, p_skip, K)
+    return GroupedTransFull(stay_lp=stay, step_lp=step, skip_lp=skip,
+                            step_to_lp=step_to, skip_to_lp=skip_to, K=K)
+
+
+def correction_masks(K: int, device) -> dict:
+    """{H, P2mH, S5, S5T}: (n,) float32 0/1 tensors on `device`, the
+    exceptional-state masks of the grouped log-sum-exp decomposition
+    (transitions.grouped_correction_masks)."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in transitions.grouped_correction_masks(K).items()}
+
+
+def mask_flags(masks: dict, bits: dict) -> torch.Tensor:
+    """(n,) uint8: bit `bits[name]` set where masks[name] is 1 — the masks
+    as one byte per state, as the kernels read them."""
+    flags = None
+    for name, bit in bits.items():
+        f = (masks[name] > 0).to(torch.uint8) << bit
+        flags = f if flags is None else flags | f
+    return flags.contiguous()
 
 
 def make_scaled_model_arrays(bank: dict, model_idx, params) -> ModelArrays:
@@ -230,6 +294,30 @@ def _check(name, x: torch.Tensor, dtype, shape, device) -> None:
             f"{'' if x.is_contiguous() else ' (not contiguous)'}")
 
 
+def _check_tables(tables, B: int, n: int, dev) -> None:
+    for i, x in enumerate(tables):
+        _check(f"table {i}", x, torch.float32, (B, n), dev)
+        if x.data_ptr() % 16:  # the kernels read the tables as float4
+            raise ValueError(f"table {i} is not 16-byte aligned")
+
+
+def _check_events(ev: dict, B: int, T: int, dev) -> None:
+    for name in ("mean", "stdv", "log_stdv"):
+        _check(f"ev[{name!r}]", ev[name], torch.float32, (B, T), dev)
+    _check("ev['length']", ev["length"], torch.int32, (B,), dev)
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _require_cuda(dev, what: str) -> None:
+    """Kernel wrappers launch on CUDA tensors only; a CPU tensor never
+    reaches a plain version through them."""
+    if dev.type != "cuda":
+        raise ValueError(f"the {what} kernel takes CUDA tensors, got {dev}")
+
+
 def _forward_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
                     with_path: bool):
     mean = ev["mean"]
@@ -240,14 +328,10 @@ def _forward_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
         raise ValueError(f"the CUDA forward kernel takes K=6, got K={gt.K}")
     if T < 1:
         raise ValueError("the forward pass needs at least one event column")
-    for name in ("mean", "stdv", "log_stdv"):
-        _check(f"ev[{name!r}]", ev[name], torch.float32, (B, T), dev)
-    _check("ev['length']", ev["length"], torch.int32, (B,), dev)
+    _check_events(ev, B, T, dev)
     tables = (gt.stay_lp, gt.step_lp, gt.skip_lp, *model)
-    for i, x in enumerate(tables):
-        _check(f"table {i}", x, torch.float32, (B, n), dev)
-        if x.data_ptr() % 16:  # the kernel reads the tables as float4
-            raise ValueError(f"table {i} is not 16-byte aligned")
+    _check_tables(tables, B, n, dev)
+    _require_cuda(dev, "viterbi forward")
     final = torch.empty((B, n), dtype=torch.float32, device=dev)
     bps = (torch.empty((T - 1, B, n), dtype=torch.uint8, device=dev)
            if with_path else None)
@@ -257,8 +341,7 @@ def _forward_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
         ev["length"].data_ptr(), B, T, *(x.data_ptr() for x in tables),
         LOG_2PI, math.log(n), final.data_ptr(),
         bps.data_ptr() if with_path and bps.numel() else None,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "viterbi_forward kernel launch")
     return final, bps
@@ -356,6 +439,7 @@ def _traceback_kernel(K: int, final_alpha, bps, lengths):
     _check("final_alpha", final_alpha, torch.float32, (B, n), dev)
     _check("bps", bps, torch.uint8, (Tm, B, n), dev)
     _check("lengths", lengths, torch.int32, (B,), dev)
+    _require_cuda(dev, "viterbi traceback")
     code_bytes = 3 * (-(-Tm // 4))
     path0 = torch.empty(B, dtype=torch.int32, device=dev)
     codes = torch.empty((B, code_bytes), dtype=torch.uint8, device=dev)
@@ -365,8 +449,7 @@ def _traceback_kernel(K: int, final_alpha, bps, lengths):
         final_alpha.data_ptr(), bps.data_ptr() if bps.numel() else None,
         lengths.data_ptr(), B, Tm + 1, code_bytes, path0.data_ptr(),
         codes.data_ptr() if codes.numel() else None, logp.data_ptr(),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "viterbi_traceback kernel launch")
     return path0, codes, logp
@@ -407,30 +490,131 @@ def viterbi_decode_grouped(gt: GroupedTrans, model: ModelArrays, ev: dict,
 
 
 # ---------------------------------------------------------------------------
-# kernel registry
+# K4: grouped log-sum-exp forward (the EM E-step's forward half)
 # ---------------------------------------------------------------------------
 
-
-class Kernel(NamedTuple):
-    name: str
-    wrapper: Callable  # carries the `launches` counter
-    source: str  # path in the repository
-    replaces: str  # file:line of the JAX kernel it replaces
+#: bits of the forward kernel's per-state flag byte
+FWD_FLAG_BITS = {"H": 0, "P2mH": 1, "S5": 2}
 
 
-KERNELS = (
-    Kernel("viterbi_forward_path", forward_path_kernel,
-           "nanocall_tpu_torch/csrc/viterbi_forward.cu",
-           "nanocall_tpu/ops/hmm.py:286"),
-    Kernel("viterbi_forward_score", forward_score_kernel,
-           "nanocall_tpu_torch/csrc/viterbi_forward.cu",
-           "nanocall_tpu/ops/hmm.py:598"),
-    Kernel("viterbi_traceback", traceback_kernel,
-           "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
-           "nanocall_tpu/ops/hmm.py:517"),
-)
+def strided_sum(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, n) -> (B, n/r): out[c] = sum over k = 0, 1, .., r-1 (added in
+    that order) of x[k * n/r + c] — the strided column sums of the forward
+    pass (`x.reshape(B, r, n/r).sum(1)`)."""
+    xs = x.view(x.shape[0], r, -1)
+    s = xs[:, 0]
+    for k in range(1, r):
+        s = s + xs[:, k]
+    return s
 
 
-def reset_launches() -> None:
-    for k in KERNELS:
-        k.wrapper.launches = 0
+def block_sum(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, n) -> (B, n/r): out[c] = sum over k = 0, 1, .., r-1 (added in
+    that order) of x[r * c + k] — the contiguous block sums of the backward
+    pass (`x.reshape(B, n/r, r).sum(-1)`)."""
+    xs = x.view(x.shape[0], -1, r)
+    s = xs[..., 0]
+    for k in range(1, r):
+        s = s + xs[..., k]
+    return s
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim (a power of two) as a pairwise tree: adjacent
+    pairs first, x[2i] + x[2i+1], level by level.  The kernels reduce a row
+    in exactly this pairing (each thread's 4 states, then warp shuffles,
+    then the warps' partial sums)."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _fwd_exp_tables(gtf: GroupedTransFull):
+    return (torch.exp(gtf.stay_lp), torch.exp(gtf.step_lp),
+            torch.exp(gtf.skip_lp))
+
+
+def fwbw_grouped_forward_plain(gtf: GroupedTransFull, model: ModelArrays,
+                               ev: dict, with_alphas: bool = True):
+    """Plain version of K4 (nanocall_tpu/ops/hmm.py:890-953): a loop over
+    events, in the scan body's op order.  Returns (alphas (T, B, n) float32
+    — row t holds the carry after event t, frozen where t >= length — or
+    None when with_alphas is False, log_pr_data (B,) float32, the
+    log-sum-exp of the final alpha)."""
+    n = model.level_mean.shape[-1]
+    mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    lengths = ev["length"]
+    B, T = mean.shape
+    m_ = correction_masks(gtf.K, mean.device)
+    mH, mP2, mS5 = m_["H"], m_["P2mH"], m_["S5"]
+    e_stay, e_step, e_skip = _fwd_exp_tables(gtf)
+    alphas = (torch.empty((T, B, n), dtype=torch.float32, device=mean.device)
+              if with_alphas else None)
+    alpha = log_emission(model, mean[:, 0], stdv[:, 0], log_stdv[:, 0]) \
+        - math.log(n)
+    if with_alphas:
+        alphas[0] = alpha
+    for t in range(1, T):
+        m = torch.amax(alpha, dim=-1, keepdim=True)
+        E = torch.exp(alpha - m)
+        S4 = strided_sum(E, 4).repeat_interleave(4, dim=1)
+        S16 = strided_sum(E, 16).repeat_interleave(16, dim=1)
+        total = (e_stay * E + e_step * (S4 - mH * E)
+                 + e_skip * (S16 - mP2 * E - mS5 * S4))
+        em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
+        new_alpha = em + m + torch.log(total)
+        alpha = torch.where((t < lengths)[:, None], new_alpha, alpha)
+        if with_alphas:
+            alphas[t] = alpha
+    mfin = torch.amax(alpha, dim=-1)
+    lpd = mfin + torch.log(tree_sum(torch.exp(alpha - mfin[:, None])))
+    return alphas, lpd
+
+
+def fwbw_forward_kernel(gtf: GroupedTransFull, model: ModelArrays, ev: dict,
+                        with_alphas: bool = True):
+    """K4 on the card: (alphas (T, B, n) or None, log_pr_data (B,)); without
+    alphas the kernel stores nothing per step (the fit-only round)."""
+    mean = ev["mean"]
+    dev = mean.device
+    B, T = mean.shape
+    n = 4096
+    if gtf.K != 6:
+        raise ValueError(f"the CUDA fwbw forward kernel takes K=6, got "
+                         f"K={gtf.K}")
+    if T < 1:
+        raise ValueError("the forward pass needs at least one event column")
+    _check_events(ev, B, T, dev)
+    tables = (*_fwd_exp_tables(gtf), *model)
+    _check_tables(tables, B, n, dev)
+    _require_cuda(dev, "fwbw forward")
+    flags = mask_flags(correction_masks(6, dev), FWD_FLAG_BITS)
+    alphas = (torch.empty((T, B, n), dtype=torch.float32, device=dev)
+              if with_alphas else None)
+    lpd = torch.empty(B, dtype=torch.float32, device=dev)
+    lib = _cuda.load()
+    err = lib.nc_fwbw_forward(
+        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
+        ev["length"].data_ptr(), B, T, *(x.data_ptr() for x in tables),
+        flags.data_ptr(), LOG_2PI, math.log(n),
+        alphas.data_ptr() if with_alphas else None, lpd.data_ptr(),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "fwbw_forward kernel launch")
+    fwbw_forward_kernel.launches += 1
+    return alphas, lpd
+
+
+fwbw_forward_kernel.launches = 0
+
+
+def fwbw_grouped_forward(gtf: GroupedTransFull, model: ModelArrays, ev: dict,
+                         with_alphas: bool = True):
+    """K4 on the tensors' device: (alphas (T, B, n) or None,
+    log_pr_data (B,))."""
+    dev = ev["mean"].device
+    if dev.type == "cpu":
+        return fwbw_grouped_forward_plain(gtf, model, ev, with_alphas)
+    if dev.type != "cuda":
+        raise ValueError(f"no grouped fwbw forward for device {dev}")
+    return fwbw_forward_kernel(gtf, model, ev, with_alphas)

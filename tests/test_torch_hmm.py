@@ -23,6 +23,7 @@ from nanocall_tpu.models import load_builtin_models
 from nanocall_tpu.ops import hmm as jhmm
 from nanocall_tpu_torch import convert
 from nanocall_tpu_torch.ops import hmm
+from torch_helpers import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 NAMES = ("r73.t.006", "r73.c.p1.006")

@@ -20,7 +20,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _run_python(code: str, *args) -> subprocess.CompletedProcess:
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    # one intra-op thread: the suite runs several workers on one host
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
     return subprocess.run([sys.executable, "-c", code, *map(str, args)],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)
@@ -50,6 +51,25 @@ def test_cli_runs_on_cpu_without_importing_jax(reads, tmp_path):
         reads, out)
     assert proc.returncode == 0, proc.stderr
     assert "NOJAX_OK" in proc.stdout
+    assert out.read_text().count(">") == 1
+
+
+def test_trained_cli_runs_on_cpu_without_importing_jax(reads, tmp_path):
+    """The default run trains by EM before the decode; still no jax."""
+    out = tmp_path / "out.fa"
+    proc = _run_python(
+        "import sys\n"
+        "from nanocall_tpu_torch.cli import main\n"
+        "rc = main([sys.argv[1], '--pore', 'r73', '--device', 'cpu', '-t',"
+        " '1', '-o', sys.argv[2]])\n"
+        "assert rc == 0\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
+        " if m.startswith('jax'))\n"
+        "print('NOJAX_OK')\n",
+        reads, out)
+    assert proc.returncode == 0, proc.stderr
+    assert "NOJAX_OK" in proc.stdout
+    assert "scaling_result" in proc.stderr  # EM ran
     assert out.read_text().count(">") == 1
 
 
@@ -85,3 +105,12 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
         _cuda.load()
     assert _cuda._lib is None
     assert not list(tmp_path.glob("*.so"))
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """chip_smoke.py reaches the system only through nanocall_tpu_torch."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|nanocall_tpu)\b(?!_torch)",
+                     re.M)
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "nanocall_tpu_torch" in src
+    assert not pat.search(src), pat.search(src)

@@ -1,4 +1,5 @@
-"""The port's untrained decode pipeline against nanocall_tpu, on the CPU.
+"""The port's untrained decode pipeline against nanocall_tpu, on the CPU
+(the trained pipeline: tests/test_torch_pipeline_trained.py).
 
 The fixture follows tests/test_pipeline.py: two 1D reads and one 2-strand
 (hairpin) read simulated from the builtin r73 models.  Both CLIs run with
@@ -17,6 +18,7 @@ from nanocall_tpu.config import Config
 from nanocall_tpu.models import load_builtin_models
 from nanocall_tpu_torch import basecall, ingest
 from nanocall_tpu_torch.cli import main as torch_main
+from torch_helpers import one_torch_thread  # noqa: F401
 
 FLAG_SETS = {
     "1d": ("--1d",),
@@ -99,21 +101,17 @@ def test_resume_stats_decode_equal_to_jax(sim, tmp_path):
     assert outs[1] == outs[0]
 
 
-def test_default_run_raises_not_implemented(sim, tmp_path):
-    with pytest.raises(NotImplementedError, match="--no-train"):
-        torch_main([str(sim[0]), "--pore", "r73", "--device", "cpu", "-o",
-                    str(tmp_path / "x.fa")])
-    assert not (tmp_path / "x.fa").exists()
-
-
 @pytest.mark.parametrize("flags", [
-    ("-s", "trans.tsv"), ("--dump-training-data", "dump"),
-    ("--num-hosts", "2"), ("--trace-dir", "trace"),
+    ("-s", "trans.tsv", "--no-train"),
+    ("--dump-training-data", "dump", "--no-train"),
+    ("--num-hosts", "2", "--no-train"), ("--trace-dir", "trace", "--no-train"),
+    ("-s", "trans.tsv"),  # --trans with EM training
 ])
 def test_unported_flags_raise(sim, tmp_path, flags):
     with pytest.raises(NotImplementedError):
-        torch_main([str(sim[0]), "--no-train", "--pore", "r73", "--device",
-                    "cpu", "-o", str(tmp_path / "x.fa"), *flags])
+        torch_main([str(sim[0]), "--pore", "r73", "--device", "cpu", "-o",
+                    str(tmp_path / "x.fa"), *flags])
+    assert not (tmp_path / "x.fa").exists()
 
 
 @pytest.mark.parametrize("double", [False, True])

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's decode on one NVIDIA GPU at main-path shapes.
+"""Time the port's decode and pipeline on one NVIDIA GPU at main-path shapes.
 
     python3 tools/torch_decode_times.py [--B 128] [--T 8192] [--reads 256]
-                                        [--profile] [--long 100000]
+                                        [--train] [--profile] [--long 100000]
 
 1. K1 (path and score-only) and K2 against their plain PyTorch versions at
    B reads x T events (n = 4096): bit-equality and milliseconds per call
@@ -10,8 +10,11 @@
 2. the untrained pipeline (nanocall_tpu_torch.basecall.run_pipeline,
    `--no-train --pore r73`) on `--reads` simulated reads (80% 1D reads of
    2,000-8,000 events, 20% hairpin reads of 3,000 + 3,000): wall seconds
-   per stage and events/s; with --profile, device time by kernel from
-   torch.profiler over that run;
+   per stage and events/s; with --train, the default trained pipeline
+   instead (EM training by K4 + K5, then the decode); with --profile,
+   device time by kernel from torch.profiler over a third run, and the
+   device's busy share of that run's wall time (the summed device time of
+   the device-side events: kernels and copies);
 3. with --long N, one 1D read of N events through the same pipeline (the
    full-scan K1/K2 at the long bucket): wall seconds and peak device
    memory.
@@ -39,6 +42,7 @@ def main() -> int:
     ap.add_argument("--B", type=int, default=128)
     ap.add_argument("--T", type=int, default=8192)
     ap.add_argument("--reads", type=int, default=256)
+    ap.add_argument("--train", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--long", type=int, default=0)
     args = ap.parse_args()
@@ -46,8 +50,6 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from nanocall_tpu.models import load_builtin_models
-    from nanocall_tpu.observe import StageTimer
     from nanocall_tpu_torch import basecall, cli, ingest
     from nanocall_tpu_torch.ops import _cuda
 
@@ -56,7 +58,7 @@ def main() -> int:
     card = chip_smoke.smi_line()
     device = torch.device("cuda", 0)
     _cuda.load()
-    models = load_builtin_models("r73")
+    models = cli.init_models(chip_smoke.smoke_config())
     rng = np.random.default_rng(11)
 
     if args.B:
@@ -69,8 +71,7 @@ def main() -> int:
         del gt, model, ev
         torch.cuda.empty_cache()
 
-    cfg = cli.config_from_args(cli.build_parser().parse_args(
-        ["sim", "--no-train", "--pore", "r73", "-t", "1"]))
+    cfg = chip_smoke.smoke_config(*([] if args.train else ["--no-train"]))
 
     def run(reads, timer=None):
         stream = (ingest.summarize_ed(f"{name}.fast5", ed, models, cfg)
@@ -88,40 +89,46 @@ def main() -> int:
         print(f"simulated {len(reads)} reads in "
               f"{time.perf_counter() - t0:.1f} s")
         for rep in range(2):
-            timer = StageTimer()
+            timer = chip_smoke.StageTimer()
             results, wall = run(reads, timer)
             events = sum(len(r.ev) for r in results)
-            stages = {k: round(v["wall_s"], 3)
-                      for k, v in timer.stages.items()}
+            stages = {k: round(v, 3) for k, v in timer.stages.items()}
             print(f"pipeline run {rep}: {len(results)} strands, {events} "
                   f"events, {wall:.3f} s = {events / wall:.0f} events/s; "
                   f"stages {stages} [{card}]", flush=True)
         if args.profile:
+            from torch.autograd import DeviceType
             from torch.profiler import ProfilerActivity, profile
 
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 _, wall = run(reads)
-            print(f"profiled run: {wall:.3f} s [{card}]")
-            print(prof.key_averages().table(sort_by="cuda_time_total",
-                                            row_limit=15))
+            avgs = prof.key_averages()
+            # only the device-side rows, as the table's "Self CUDA time
+            # total": a CPU op's row repeats the device time of the kernels
+            # it launched
+            busy = sum(e.self_device_time_total for e in avgs
+                       if e.device_type == DeviceType.CUDA
+                       and not e.is_user_annotation) / 1e6
+            print(f"profiled run: {wall:.3f} s, device time {busy:.4f} s = "
+                  f"{100 * busy / wall:.1f}% busy [{card}]")
+            print(avgs.table(sort_by="self_device_time_total", row_limit=25))
 
     if args.long:
-        from nanocall_tpu import batching, simulate
+        from nanocall_tpu import batching
 
-        mean, stdv, start, length, truth = simulate.simulate_read(
-            models, "r73.t.006", None, args.long, rng, noise_scale=0.5)
+        mean, stdv, start, length, truths = chip_smoke.simulate_read(
+            models, rng, args.long, False)
         reads = [("long", ingest.ed_from_arrays(mean, stdv, start, length,
-                                                4000.0, "long"), truth)]
+                                                4000.0, "long"), truths)]
         for rep in range(2):
             torch.cuda.reset_peak_memory_stats()
             results, wall = run(reads)
             (r,) = results
             window = chip_smoke.IDENTITY_WINDOW
-            ident = simulate.identity(
+            ident = chip_smoke.identity(
                 r.base_seq[:window],
-                truth.base_seqs[0][:round(window * len(truth.base_seqs[0])
-                                          / len(r.base_seq))])
+                truths[0][:round(window * len(truths[0]) / len(r.base_seq))])
             print(f"long read run {rep}: {len(r.ev)} events (bucket T="
                   f"{batching.bucket_length(len(r.ev))}), {wall:.3f} s = "
                   f"{len(r.ev) / wall:.0f} events/s, peak device memory "
