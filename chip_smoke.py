@@ -9,33 +9,44 @@ from the root of a checkout.  It
      nvcc versions;
   2. builds the CUDA kernels from nanocall_tpu_torch/csrc and prints the
      build seconds and ptxas' register / spill report;
-  3. runs each decode kernel (K1, K2) on the card at the decode's full
-     width (n = 4096 states, B = 16 reads of up to T = 2048 events, lengths
-     from 0 to T, per-read scaling and transitions) and holds it to its
-     plain PyTorch version on the same inputs: tolerance 0, every output
-     bit-equal; prints both times;
-  4. runs the EM kernels (K4 forward, with and without the alpha store; K5
-     fused backward with all statistics, with train_transitions off and
-     with train_scaling off) at the EM chunk's full width: n = 4096,
-     128 training groups x 4 = 512 rows of T = 128 events, packed by
+  3. writes the 21-neighbour transition table of (p_stay 0.14, p_skip
+     0.21) as a transitions TSV and loads it back through the port CLI's
+     `-s/--trans` loader: the loaded table of the r73 width, in-degree 21;
+  4. runs each decode kernel on the card at the decode's full width
+     (n = 4096 states, B = 16 reads of up to T = 2048 events, lengths from
+     0 to T, per-read scaling and transitions): the grouped K1 (path and
+     score-only) and K2, and under the loaded table the generic K6a (path
+     and score-only) and K6b; holds each to its plain PyTorch version on
+     the same inputs: tolerance 0, every output bit-equal; prints both
+     times;
+  5. runs the EM kernels at the EM chunk's full width: n = 4096, 128
+     training groups x 4 = 512 rows of T = 128 events, packed by
      nanocall_tpu_torch.basecall.pack_train_batch from the simulated reads
      below, with rows of length 0, 1, T-1 and T, invalid rows, both r73
-     strands' models and varied scaling and transition parameters; holds
-     each to its plain version (tolerance 0) and prints both times;
-  5. drives the pipeline end to end (nanocall_tpu_torch.basecall.
+     strands' models and varied scaling and transition parameters: K4
+     forward, with and without the alpha store; K5 fused backward with all
+     statistics, with train_transitions off and with train_scaling off;
+     K6d, the grouped backward with its betas stored; and K6c, the generic
+     forward-backward under the loaded table (alpha, beta and em of
+     3 x 1.07 GB); holds each to its plain version (tolerance 0) and prints
+     both times;
+  6. drives the pipeline end to end (nanocall_tpu_torch.basecall.
      run_pipeline, `--pore r73 -t 1`) on 24 simulated reads (1D reads of
      2,000-8,000 events and 2-strand hairpin reads of 3,000 + 3,000, fed as
      in-memory event arrays through nanocall_tpu_torch.ingest, since fast5
      reading needs h5py) and writes FASTA and stats with the port CLI's
-     writer into build/chip_smoke/: first untrained (`--no-train`; K1 path
-     and score-only, K2), then the default trained run (EM training, then
-     the decode; K4, K5, K1, K2).  Each run checks one FASTA record per
-     decoded strand, identity to the simulated truth above 0.6, and that
-     each of its kernels launched; the trained run also checks that every
-     trained 1D read's best candidate has 0.8 < scale < 1.2 and
-     |shift| < 10 (the reads are simulated at identity scaling) and prints
-     its stage times;
-  6. prints a JSON line of the kernels (launch counts: the two end-to-end
+     writer into build/chip_smoke/, four times: untrained (`--no-train`;
+     K1 path and score-only, K2); the default trained run (EM training,
+     then the decode; K4, K5, K1, K2); trained under the loaded table
+     (`-s`: legacy EM rounds with K4, K6d and K6c, then the decode of the
+     trained tasks by K1 and K2); and untrained under it (`-s --no-train`:
+     every task at the priors, so K6a path and score-only, and K6b).  Each
+     run checks one FASTA record per decoded strand, identity to the
+     simulated truth above 0.6, and that each of its kernels launched; a
+     trained run also checks that every trained 1D read's best candidate
+     has 0.8 < scale < 1.2 and |shift| < 10 (the reads are simulated at
+     identity scaling); each prints its stage times;
+  7. prints a JSON line of the kernels (launch counts: the end-to-end
      runs' sum, and each run's), the card line, and last
      {"ok": true, ...}.
 
@@ -69,6 +80,15 @@ UNTRAINED_KERNELS = ("viterbi_forward_path", "viterbi_forward_score",
                      "viterbi_traceback")
 TRAINED_KERNELS = ("fwbw_forward", "em_backward", "viterbi_forward_path",
                    "viterbi_traceback")
+TRANS_TRAINED_KERNELS = ("fwbw_forward", "fwbw_grouped_backward",
+                         "fwbw_generic", "viterbi_forward_path",
+                         "viterbi_traceback")
+TRANS_UNTRAINED_KERNELS = ("viterbi_generic_forward_path",
+                           "viterbi_generic_forward_score",
+                           "viterbi_generic_traceback")
+#: the loaded table's kinetics: not the CLI priors (0.1, 0.3), so a task
+#: routed to the wrong kernel would decode under other transitions
+TRANS_P_STAY, TRANS_P_SKIP = 0.14, 0.21
 
 
 def smi_line() -> str:
@@ -184,6 +204,64 @@ def check_kernels(gt, model, ev) -> dict:
     return rec
 
 
+def load_trans_table(device):
+    """The 21-neighbour table of (TRANS_P_STAY, TRANS_P_SKIP), written as a
+    transitions TSV and loaded back by the port CLI's `-s` loader: (the TSV
+    path, the loaded table, its TransOps on `device`)."""
+    from nanocall_tpu_torch import cli, convert
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "trans.tsv")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    convert.write_fast_transitions(path, TRANS_P_STAY, TRANS_P_SKIP)
+    table = cli.init_transitions(smoke_config("-s", path))
+    ops = convert.trans_ops(table, device)
+    assert tuple(ops.from_idx.shape) == (21, 4096), ops.from_idx.shape
+    return path, table, ops
+
+
+def check_generic_kernels(ops, model, ev) -> dict:
+    """K6a (path and score-only) and K6b against their plain versions on
+    the same card under the loaded table: bit-equal outputs (tolerance 0)
+    and times.  Returns {kernel name: record}."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    lengths = ev["length"]
+    fa_p, bps_p = hmm.viterbi_forward_plain(ops, model, ev, True)
+    fa_k, bps_k = hmm.generic_forward_path_kernel(ops, model, ev)
+    fa_s = hmm.generic_forward_score_kernel(ops, model, ev)
+    torch.cuda.synchronize()
+    assert torch.equal(fa_k, fa_p), "K6a final alpha differs from plain"
+    assert torch.equal(bps_k, bps_p), "K6a backpointers differ from plain"
+    assert torch.equal(fa_s, fa_p), "K6a score-only alpha differs from plain"
+    path_p, logp_p = hmm.viterbi_traceback_plain(ops, fa_p, bps_p, lengths)
+    path_k, logp_k = hmm.generic_traceback_kernel(ops, fa_k, bps_k, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(path_k, path_p), "K6b path differs from plain"
+    assert torch.equal(logp_k, logp_p), "K6b logp differs from plain"
+    return {
+        "viterbi_generic_forward_path": {
+            "max_abs_err": max_err(fa_k, fa_p),
+            "ms": cuda_ms(lambda: hmm.generic_forward_path_kernel(
+                ops, model, ev), 3),
+            "plain_ms": cuda_ms(lambda: hmm.viterbi_forward_plain(
+                ops, model, ev, True), 1)},
+        "viterbi_generic_forward_score": {
+            "max_abs_err": max_err(fa_s, fa_p),
+            "ms": cuda_ms(lambda: hmm.generic_forward_score_kernel(
+                ops, model, ev), 3),
+            "plain_ms": cuda_ms(lambda: hmm.viterbi_forward_plain(
+                ops, model, ev, False), 1)},
+        "viterbi_generic_traceback": {
+            "max_abs_err": max_err(logp_k, logp_p),
+            "ms": cuda_ms(lambda: hmm.generic_traceback_kernel(
+                ops, fa_k, bps_k, lengths), 3),
+            "plain_ms": cuda_ms(lambda: hmm.viterbi_traceback_plain(
+                ops, fa_p, bps_p, lengths), 1)},
+    }
+
+
 def max_err(a, b) -> float:
     """Largest |a - b|, counting equal values (infinities included) as 0."""
     import torch
@@ -279,6 +357,45 @@ def check_em_kernels(inp) -> dict:
             "max_abs_err": max(v for k, v in errs.items() if "K5" in k),
             "ms": cuda_ms(lambda: em.em_backward_kernel(*args), 3),
             "plain_ms": cuda_ms(lambda: em.fused_bwd_mstats_plain(*args), 1)},
+    }
+
+
+def check_fwbw_kernels(inp, ops) -> dict:
+    """K6d (the grouped backward, betas stored) and K6c (the generic
+    forward-backward under the loaded table) against their plain versions
+    on the same card, at the EM chunk's shape: outputs bit-equal
+    (tolerance 0), and times.  Returns {kernel name: record}."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    gtf, model, ev = inp["gtf"], inp["model"], inp["ev"]
+    b_p = hmm.fwbw_grouped_backward_plain(gtf, model, ev)
+    b_k = hmm.fwbw_backward_kernel(gtf, model, ev)
+    torch.cuda.synchronize()
+    errs = {"K6d beta": max_err(b_k, b_p)}
+    del b_p, b_k
+    f_p = hmm.fwbw_plain(ops, model, ev)
+    f_k = hmm.fwbw_generic_kernel(ops, model, ev)
+    torch.cuda.synchronize()
+    for k in ("alpha", "beta", "em", "log_pr_data"):
+        errs[f"K6c {k}"] = max_err(f_k[k], f_p[k])
+    assert torch.isfinite(f_k["log_pr_data"]).all(), "K6c lpd not finite"
+    del f_p, f_k
+    print(f"fwbw kernels: max |kernel - plain| {errs}")
+    for what, e in errs.items():
+        assert e == 0.0, f"{what} differs from plain by {e}"
+    return {
+        "fwbw_grouped_backward": {
+            "max_abs_err": errs["K6d beta"],
+            "ms": cuda_ms(lambda: hmm.fwbw_backward_kernel(gtf, model, ev),
+                          3),
+            "plain_ms": cuda_ms(lambda: hmm.fwbw_grouped_backward_plain(
+                gtf, model, ev), 1)},
+        "fwbw_generic": {
+            "max_abs_err": max(v for k, v in errs.items() if "K6c" in k),
+            "ms": cuda_ms(lambda: hmm.fwbw_generic_kernel(ops, model, ev), 3),
+            "plain_ms": cuda_ms(lambda: hmm.fwbw_plain(ops, model, ev), 1)},
     }
 
 
@@ -399,18 +516,22 @@ def read_fasta(path: str) -> dict:
     return records
 
 
-def run_end_to_end(models, reads, device, train: bool, must_launch) -> dict:
+def run_end_to_end(models, reads, device, train: bool, must_launch,
+                   trans=None) -> dict:
     """run_pipeline over the reads, untrained (`--no-train`) or with the
-    default EM training, with FASTA and stats written by the port CLI's
-    writer; checks the records, identity and launches."""
+    default EM training, under the loaded table when `trans` (the TSV
+    path and the table load_trans_table returns), with FASTA and stats
+    written by the port CLI's writer; checks the records, identity and
+    launches."""
     from nanocall_tpu_torch import basecall, cli, ingest
     from nanocall_tpu_torch.ops import kernels
 
-    out = os.path.join(ROOT, "build", "chip_smoke",
-                       "trained" if train else "untrained")
+    name = ("trained" if train else "untrained") + ("_trans" if trans else "")
+    out = os.path.join(ROOT, "build", "chip_smoke", name)
     os.makedirs(os.path.dirname(out), exist_ok=True)
     cfg = smoke_config("-o", out + ".fa", "--stats", out + ".tsv",
-                       *([] if train else ["--no-train"]))
+                       *([] if train else ["--no-train"]),
+                       *(["-s", trans[0]] if trans else []))
     decoded = {}  # strands the decode must write, with their event counts
 
     def stream():
@@ -425,8 +546,9 @@ def run_end_to_end(models, reads, device, train: bool, must_launch) -> dict:
     timer = StageTimer()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    summaries, results = basecall.run_pipeline(stream(), models, cfg, device,
-                                               timer=timer)
+    summaries, results = basecall.run_pipeline(
+        stream(), models, cfg, device, timer=timer,
+        default_transitions=trans[1] if trans else None)
     wall = time.perf_counter() - t0
     launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
 
@@ -512,9 +634,16 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     models = cli.init_models(smoke_config())
+    t0 = time.perf_counter()
+    trans = load_trans_table(device)
+    print(f"transitions: 21-neighbour table of p_stay {TRANS_P_STAY}, "
+          f"p_skip {TRANS_P_SKIP} written and loaded back in "
+          f"{time.perf_counter() - t0:.2f} s; from_idx "
+          f"{tuple(trans[2].from_idx.shape)}")
     rng = np.random.default_rng(2024)
     gt, model, ev = kernel_inputs(models, device, B_KERNEL, T_KERNEL, rng)
     recs = check_kernels(gt, model, ev)
+    recs.update(check_generic_kernels(trans[2], model, ev))
     for name, r in recs.items():
         print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} n=4096 bit-equal to "
               f"plain; {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
@@ -522,7 +651,10 @@ def main() -> int:
     del gt, model, ev
 
     reads = simulated_reads(models, rng)
-    em = check_em_kernels(em_kernel_inputs(models, reads, device, rng))
+    inp = em_kernel_inputs(models, reads, device, rng)
+    em = check_em_kernels(inp)
+    em.update(check_fwbw_kernels(inp, trans[2]))
+    del inp
     for name, r in em.items():
         print(f"kernel {name}: B={4 * G_EM} T={T_EM} n=4096 bit-equal to "
               f"plain; {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
@@ -535,10 +667,21 @@ def main() -> int:
     print_run("untrained (--no-train)", untrained, card)
     trained = run_end_to_end(models, reads, device, True, TRAINED_KERNELS)
     print_run("trained (default)", trained, card)
+    trans_trained = run_end_to_end(models, reads, device, True,
+                                   TRANS_TRAINED_KERNELS, trans)
+    print_run("trained under the loaded table (-s)", trans_trained, card)
+    trans_untrained = run_end_to_end(models, reads, device, False,
+                                     TRANS_UNTRAINED_KERNELS, trans)
+    print_run("untrained under the loaded table (-s --no-train)",
+              trans_untrained, card)
     print(f"identity mean: trained {trained['identity_mean']:.3f}, "
-          f"untrained {untrained['identity_mean']:.3f}")
+          f"untrained {untrained['identity_mean']:.3f}; under the loaded "
+          f"table trained {trans_trained['identity_mean']:.3f}, untrained "
+          f"{trans_untrained['identity_mean']:.3f}")
 
-    runs = {"untrained": untrained["launches"], "trained": trained["launches"]}
+    runs = {"untrained": untrained["launches"], "trained": trained["launches"],
+            "trained_trans": trans_trained["launches"],
+            "untrained_trans": trans_untrained["launches"]}
     records = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces,
                 "launches": sum(r[k.name] for r in runs.values()),

@@ -3,9 +3,10 @@
 The flag surface of `python -m nanocall_tpu` (nanocall_tpu/cli.py, which
 imports JAX and so cannot be imported here), plus `--device`.  The port runs
 the default trained pipeline (EM training, then decode), the untrained
-decode (`--no-train`) and the decode of a `--resume-stats` run; flags whose
-paths are not ported yet (`--trans`, `--dump-training-data`, `--trace-dir`,
-multi-host) raise NotImplementedError instead of running something else.
+decode (`--no-train`) and the decode of a `--resume-stats` run, each also
+under a loaded transition table (`-s/--trans`); flags whose paths are not
+ported yet (`--dump-training-data`, `--trace-dir`, multi-host) raise
+NotImplementedError instead of running something else.
 """
 
 from __future__ import annotations
@@ -17,11 +18,11 @@ import sys
 
 import torch
 
-from nanocall_tpu import fast5_io, ingest, output, pore_model, read_pipeline
+from nanocall_tpu import fast5_io, ingest, output, pore_model, \
+    read_pipeline, transitions
 from nanocall_tpu.config import Config
 from nanocall_tpu.models import load_builtin_models
 from nanocall_tpu.observe import StageTimer, set_levels_from_options
-from nanocall_tpu.transitions import TransitionParams
 from nanocall_tpu.version import get_version
 
 from . import basecall
@@ -147,8 +148,6 @@ def config_from_args(args) -> Config:
 def _refuse_unported(args, cfg: Config) -> None:
     """Raise for every flag whose path the port does not run yet."""
     missing = []
-    if args.trans_fn:
-        missing.append("--trans (the sparse-transition decode)")
     if args.dump_training_data:
         missing.append("--dump-training-data")
     if args.num_hosts > 1 or args.coordinator:
@@ -207,6 +206,21 @@ def init_models(cfg: Config) -> dict:
     return dict(sorted(models.items()))
 
 
+def init_transitions(cfg: Config):
+    """The default transition table (nanocall_tpu/cli.py:195-205,
+    nanocall.cpp:180-193): a `--trans` file's SparseTransitions, or the
+    structured table of the priors."""
+    if cfg.trans_file:
+        st = transitions.load_tsv(cfg.trans_file, cfg.kmer_size)
+        log.info("loaded state transitions from [%s]", cfg.trans_file)
+        return st
+    st = transitions.build_structured(
+        transitions.TransitionParams(cfg.pr_stay, cfg.pr_skip), cfg.kmer_size)
+    log.info("init_state_transitions pr_skip=[%g], pr_stay=[%g]",
+             cfg.pr_skip, cfg.pr_stay)
+    return st
+
+
 def _echo_options(args, argv, cfg: Config) -> None:
     """Resolved-option echo lines (nanocall_tpu/cli.py:216-254)."""
     log.info("program: %s", PROG)
@@ -247,8 +261,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
 
     models = init_models(cfg)
-    log.info("init_state_transitions pr_skip=[%g], pr_stay=[%g]",
-             cfg.pr_skip, cfg.pr_stay)
+    default_transitions = init_transitions(cfg)
     files = read_pipeline.init_files(args.inputs)
     if not files:
         raise SystemExit("no fast5 files to process")
@@ -257,11 +270,12 @@ def main(argv=None) -> int:
 
     timer = StageTimer()
     stream = ingest.ingest_stream(files, models, cfg)
-    defaults = TransitionParams(cfg.pr_stay, cfg.pr_skip)
+    defaults = transitions.TransitionParams(cfg.pr_stay, cfg.pr_skip)
     results = []
     if not args.resume_stats:
-        summaries, results = basecall.run_pipeline(stream, models, cfg, device,
-                                                   timer=timer)
+        summaries, results = basecall.run_pipeline(
+            stream, models, cfg, device, timer=timer,
+            default_transitions=default_transitions)
     else:
         with timer.stage("init_reads"):
             summaries, pool = basecall.ingest_reads(stream, cfg, device)
@@ -271,7 +285,8 @@ def main(argv=None) -> int:
                  n, args.resume_stats)
         if cfg.basecall:
             with timer.stage("basecalling"):
-                results = basecall.basecall_reads(summaries, models, cfg, pool)
+                results = basecall.basecall_reads(summaries, models, cfg, pool,
+                                                  default_transitions)
 
     write_outputs(summaries, results, models, cfg)
     return 0
@@ -293,8 +308,8 @@ def write_outputs(summaries, results, models, cfg: Config) -> None:
             output.write_results_fasta(sys.stdout, results, cfg.fasta_line_width)
     if cfg.stats_fn:
         with open(cfg.stats_fn, "w") as fh:
-            output.write_stats(fh, summaries,
-                               TransitionParams(cfg.pr_stay, cfg.pr_skip))
+            output.write_stats(fh, summaries, transitions.TransitionParams(
+                cfg.pr_stay, cfg.pr_skip))
 
 
 if __name__ == "__main__":

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nanocall_tpu import transitions
+
 from .ops import hmm
 
 BANK_FIELDS = ("level_mean", "level_stdv", "sd_mean", "sd_lambda")
@@ -45,6 +47,39 @@ def grouped_trans(gt, device) -> hmm.GroupedTrans:
         stay_lp=tensor(gt.stay_lp, device), step_lp=tensor(gt.step_lp, device),
         skip_lp=tensor(gt.skip_lp, device), K=int(gt.K),
     )
+
+
+def trans_ops(table, device) -> hmm.TransOps:
+    """A TransOps on `device` from the JAX package's numpy tables: a
+    SparseTransitions (a loaded `--trans` table, transitions.load_tsv) or a
+    StructuredTransitions, whose slot maps are the fixed 21-slot layout
+    (transitions.slot_from_state; nanocall_tpu/ops/hmm.py:153-157).  Raises
+    ValueError for a table with more than hmm.MAX_SLOTS predecessors of a
+    state, which a uint8 backpointer cannot name."""
+    if isinstance(table, transitions.StructuredTransitions):
+        from_idx = transitions.slot_from_state(table.K)
+        to_idx = transitions._slot_maps(table.K)[1]
+    else:
+        from_idx, to_idx = table.from_idx, table.to_idx
+    deg = np.shape(from_idx)[0]
+    if deg > hmm.MAX_SLOTS:
+        raise ValueError(
+            f"transition table with in-degree {deg}: the Viterbi "
+            f"backpointers hold at most {hmm.MAX_SLOTS} slots")
+    return hmm.TransOps(
+        from_idx=tensor(from_idx, device, torch.int32),
+        from_logp=tensor(table.from_logp, device),
+        to_idx=tensor(to_idx, device, torch.int32),
+        to_logp=tensor(table.to_logp, device), K=int(table.K))
+
+
+def write_fast_transitions(path, p_stay: float, p_skip: float,
+                           K: int = 6) -> None:
+    """Write the 21-neighbour table of (p_stay, p_skip) as a transitions
+    TSV, which `-s/--trans` loads: what the reference's
+    `compute-state-transitions --fast -t p_stay -k p_skip` writes."""
+    transitions.save_tsv(transitions.build_structured(
+        transitions.TransitionParams(p_stay, p_skip), K), path)
 
 
 def pm_rows(params, device) -> torch.Tensor:

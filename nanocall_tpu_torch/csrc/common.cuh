@@ -47,6 +47,19 @@ __device__ __forceinline__ void unpack4(float (&d)[4], const float4 v) {
   d[3] = v.w;
 }
 
+// torch.amax of two values: NaN-propagating (fmaxf drops a NaN)
+__device__ __forceinline__ float amax(float m, float v) {
+  return (v > m || v != v) ? v : m;
+}
+
+// the NaN-propagating max over the warp, in every lane (torch.amax)
+__device__ __forceinline__ float warp_amax(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = amax(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
 // the max over the warp, in every lane
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -26,7 +26,8 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
-           "em_backward.cu")
+           "em_backward.cu", "viterbi_generic.cu", "fwbw_generic.cu",
+           "fwbw_backward.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "nanocall_tpu_torch")
@@ -118,6 +119,20 @@ def load():
         lib.nc_em_backward.argtypes = (
             [vp] * 4 + [ci, ci] + [vp] * 18 + [ci, ci, cf] + [vp, vp]
             + [ci, vp])
+        lib.nc_viterbi_generic_forward.restype = ci
+        lib.nc_viterbi_generic_forward.argtypes = (
+            [vp] * 4 + [ci, ci, ci] + [vp] * 8 + [cf, cf] + [vp, vp]
+            + [ci, vp])
+        lib.nc_viterbi_generic_traceback.restype = ci
+        lib.nc_viterbi_generic_traceback.argtypes = (
+            [vp] * 3 + [ci, ci] + [vp] * 3 + [ci, vp])
+        lib.nc_fwbw_generic.restype = ci
+        lib.nc_fwbw_generic.argtypes = (
+            [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
+            + [vp] * 4 + [ci, vp])
+        lib.nc_fwbw_backward.restype = ci
+        lib.nc_fwbw_backward.argtypes = (
+            [vp] * 4 + [ci, ci] + [vp] * 10 + [cf] + [vp] + [ci, vp])
         lib.nc_error_string.restype = ctypes.c_char_p
         lib.nc_error_string.argtypes = [ci]
         _lib = lib

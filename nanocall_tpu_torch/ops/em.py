@@ -23,8 +23,9 @@ SCAL_NAMES = ("A00", "A01", "A11", "A02", "A12", "A22", "B0", "B1", "B2",
               "D", "Vn", "Vd", "Up", "Ne")
 #: the 3 per-row log-space transition totals K5 returns, in column order
 ST_NAMES = ("denom", "stay", "skip")
-#: bits of the backward kernel's per-state flag byte
-BWD_FLAG_BITS = {"H": 0, "P2mH": 1, "S5T": 2, "subset": 3}
+#: bits of the backward kernel's per-state flag byte: K6d's, and the
+#: transition-training subset
+BWD_FLAG_BITS = {**hmm.GROUPED_BWD_FLAG_BITS, "subset": 3}
 
 _NEG_INF = float("-inf")
 
@@ -33,8 +34,7 @@ def _bwd_tables(gtf: hmm.GroupedTransFull, p_stay_seq, p_skip_seq):
     """The backward pass's derived inputs, made by the same torch ops for
     the plain version and the kernel: exp of the stay and to-side tables,
     and the per-row log rates log p_stay and log(p_step / 4)."""
-    return (torch.exp(gtf.stay_lp), torch.exp(gtf.step_to_lp),
-            torch.exp(gtf.skip_to_lp), torch.log(p_stay_seq),
+    return (*hmm.bwd_exp_tables(gtf), torch.log(p_stay_seq),
             torch.log(1.0 - p_stay_seq - p_skip_seq) - math.log(4.0))
 
 

@@ -1,7 +1,8 @@
-"""Grouped HMM kernels on PyTorch tensors, with hand-written CUDA kernels.
+"""HMM kernels on PyTorch tensors, with hand-written CUDA kernels.
 
-Port of nanocall_tpu/ops/hmm.py's grouped Viterbi decode and the grouped
-log-sum-exp forward of EM training.  Every function takes tensors on one
+Port of nanocall_tpu/ops/hmm.py's Viterbi decode and forward-backward: the
+grouped kernels of the default path, and the generic kernels that run under
+a loaded transition table.  Every function takes tensors on one
 device and dispatches by that device:
 
   - CPU tensors run the plain PyTorch version (a Python loop over events on
@@ -16,7 +17,17 @@ Kernels and their plain versions, side by side below:
                             vs viterbi_forward_grouped_plain
   K2  viterbi_traceback.cu  traceback_kernel vs viterbi_traceback_grouped_plain
   K4  fwbw_forward.cu       fwbw_forward_kernel vs fwbw_grouped_forward_plain
+  K6a viterbi_generic.cu    generic_forward_path_kernel /
+                            generic_forward_score_kernel
+                            vs viterbi_forward_plain
+  K6b viterbi_generic.cu    generic_traceback_kernel vs viterbi_traceback_plain
+  K6c fwbw_generic.cu       fwbw_generic_kernel vs fwbw_plain
+  K6d fwbw_backward.cu      fwbw_backward_kernel
+                            vs fwbw_grouped_backward_plain
   (K5, the fused EM backward, is in ops/em.py; ops/kernels.py lists them all.)
+
+K6a-K6c run under a loaded transition table (TransOps, `--trans`): every
+state's in- and out-neighbours are gathered through (deg, n) index tables.
 
 Each kernel wrapper counts its launches in a plain int attribute
 (`wrapper.launches`), incremented only where it launches the kernel.
@@ -78,6 +89,21 @@ class GroupedTransFull(NamedTuple):
     skip_lp: torch.Tensor
     step_to_lp: torch.Tensor
     skip_to_lp: torch.Tensor
+    K: int
+
+
+class TransOps(NamedTuple):
+    """A transition table as (deg, n) slot tables on the device
+    (nanocall_tpu/ops/hmm.py:42-79, one layout for the sparse and the
+    structured form): destination j's slot k comes from state
+    from_idx[k, j] (int32) with log-prob from_logp[k, j] (float32); source
+    i's slot k goes to to_idx[k, i] with to_logp[k, i].  Padded slots have
+    log-prob -inf and index 0.  convert.trans_ops builds one."""
+
+    from_idx: torch.Tensor
+    from_logp: torch.Tensor
+    to_idx: torch.Tensor
+    to_logp: torch.Tensor
     K: int
 
 
@@ -618,3 +644,410 @@ def fwbw_grouped_forward(gtf: GroupedTransFull, model: ModelArrays, ev: dict,
     if dev.type != "cuda":
         raise ValueError(f"no grouped fwbw forward for device {dev}")
     return fwbw_forward_kernel(gtf, model, ev, with_alphas)
+
+
+# ---------------------------------------------------------------------------
+# K6: the generic kernels under a loaded transition table (TransOps)
+# ---------------------------------------------------------------------------
+
+
+def slot_sum(x: torch.Tensor) -> torch.Tensor:
+    """(B, deg, n) -> (B, n): the sum over the slot axis, added in slot
+    order k = 0, 1, .., deg-1 (the kernels' order)."""
+    s = x[:, 0]
+    for k in range(1, x.shape[1]):
+        s = s + x[:, k]
+    return s
+
+
+def gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, n) values gathered through a (deg, n) slot table: out[b, k, j] =
+    x[b, idx[k, j]], as (B, deg, n)."""
+    return torch.index_select(x, 1, idx.reshape(-1)).view(x.shape[0],
+                                                           *idx.shape)
+
+
+def logsumexp_slots(vals: torch.Tensor) -> torch.Tensor:
+    """log-sum-exp over the slot axis of vals (B, deg, n), -inf-safe
+    (nanocall_tpu/ops/hmm.py:776-781): m = max over slots (NaN-propagating),
+    s = the slot-order sum of exp(vals - safe_m), m where m is not finite."""
+    m = torch.amax(vals, dim=1)
+    finite = torch.isfinite(m)
+    safe_m = torch.where(finite, m, 0.0)
+    s = slot_sum(torch.exp(vals - safe_m[:, None]))
+    return torch.where(finite, safe_m + torch.log(s), m)
+
+
+def _check_ops(ops: TransOps, dev) -> None:
+    """The kernels take K=6 tables of at most 256 slots, as contiguous
+    int32 / float32 (deg, 4096) tensors on the launch device."""
+    if ops.K != 6:
+        raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
+    for side in ("from", "to"):
+        idx, logp = getattr(ops, f"{side}_idx"), getattr(ops, f"{side}_logp")
+        deg = idx.shape[0]
+        if not 1 <= deg <= MAX_SLOTS:
+            raise ValueError(f"{side} table: {deg} slots, the kernels take "
+                             f"1 to {MAX_SLOTS}")
+        _check(f"{side}_idx", idx, torch.int32, (deg, 4096), dev)
+        _check(f"{side}_logp", logp, torch.float32, (deg, 4096), dev)
+
+
+# K6a: generic Viterbi forward ------------------------------------------------
+
+
+def viterbi_forward_plain(ops: TransOps, model: ModelArrays, ev: dict,
+                          with_path: bool = True):
+    """Plain version of K6a (nanocall_tpu/ops/hmm.py:673-711): a loop over
+    events.  Per state, the max over slots of from_logp + alpha[from_idx];
+    the backpointer is the slot of the lowest from-state among the maxima,
+    the lowest slot among equal from-states.  Returns (final_alpha (B, n)
+    float32, bps (T-1, B, n) uint8 slot ids, or None when with_path is
+    False)."""
+    n = model.level_mean.shape[-1]
+    lengths = ev["length"]
+    mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    B, T = mean.shape
+    alpha = log_emission(model, mean[:, 0], stdv[:, 0], log_stdv[:, 0]) \
+        - math.log(n)
+    bps = (torch.empty((max(T - 1, 0), B, n), dtype=torch.uint8,
+                       device=mean.device) if with_path else None)
+    for t in range(1, T):
+        vals = ops.from_logp + gather_slots(alpha, ops.from_idx)
+        best = torch.amax(vals, dim=1)
+        if with_path:
+            masked = torch.where(vals == best[:, None], ops.from_idx, _BIG)
+            bps[t - 1] = torch.argmin(masked, dim=1).to(torch.uint8)
+        em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
+        alpha = torch.where((t < lengths)[:, None], best + em, alpha)
+    return alpha, bps
+
+
+def _generic_forward_kernel(ops: TransOps, model: ModelArrays, ev: dict,
+                            with_path: bool):
+    mean = ev["mean"]
+    dev = mean.device
+    B, T = mean.shape
+    n = 4096
+    if T < 1:
+        raise ValueError("the forward pass needs at least one event column")
+    _check_events(ev, B, T, dev)
+    _check_ops(ops, dev)
+    _check_tables(tuple(model), B, n, dev)
+    _require_cuda(dev, "generic viterbi forward")
+    final = torch.empty((B, n), dtype=torch.float32, device=dev)
+    bps = (torch.empty((T - 1, B, n), dtype=torch.uint8, device=dev)
+           if with_path else None)
+    lib = _cuda.load()
+    err = lib.nc_viterbi_generic_forward(
+        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
+        ev["length"].data_ptr(), B, T, ops.from_idx.shape[0],
+        ops.from_idx.data_ptr(), ops.from_logp.data_ptr(),
+        *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
+        final.data_ptr(),
+        bps.data_ptr() if with_path and bps.numel() else None,
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "viterbi_generic_forward kernel launch")
+    return final, bps
+
+
+def generic_forward_path_kernel(ops: TransOps, model: ModelArrays, ev: dict):
+    """K6a on the card, with backpointers: (final_alpha, bps)."""
+    out = _generic_forward_kernel(ops, model, ev, with_path=True)
+    generic_forward_path_kernel.launches += 1
+    return out
+
+
+def generic_forward_score_kernel(ops: TransOps, model: ModelArrays,
+                                 ev: dict):
+    """K6a on the card, score-only (no backpointer stores): final_alpha."""
+    final, _ = _generic_forward_kernel(ops, model, ev, with_path=False)
+    generic_forward_score_kernel.launches += 1
+    return final
+
+
+generic_forward_path_kernel.launches = 0
+generic_forward_score_kernel.launches = 0
+
+
+def viterbi_forward(ops: TransOps, model: ModelArrays, ev: dict,
+                    with_path: bool = True):
+    """K6a on the tensors' device: (final_alpha (B, n), bps (T-1, B, n)
+    uint8 slot ids or None when with_path is False)."""
+    dev = ev["mean"].device
+    if dev.type == "cpu":
+        return viterbi_forward_plain(ops, model, ev, with_path)
+    if dev.type != "cuda":
+        raise ValueError(f"no generic Viterbi forward for device {dev}")
+    if with_path:
+        return generic_forward_path_kernel(ops, model, ev)
+    return generic_forward_score_kernel(ops, model, ev), None
+
+
+# K6b: generic traceback ------------------------------------------------------
+
+
+def viterbi_traceback_plain(ops: TransOps, final_alpha, bps, lengths):
+    """Plain version of K6b (nanocall_tpu/ops/hmm.py:714-753): returns
+    (path (B, T) uint16, logp (B,) float32).  The walk starts at the first
+    argmax of the final alpha; at t = length-1 it restarts there, so the
+    path past a read's length repeats that state."""
+    Tm, B, _ = bps.shape
+    dev = final_alpha.device
+    end_state = torch.argmax(final_alpha, dim=-1).to(torch.int32)
+    logp = torch.amax(final_alpha, dim=-1)
+    lengths = lengths.to(torch.int32)
+    rows = torch.arange(B, device=dev)
+    path = torch.empty((B, Tm + 1), dtype=torch.int32, device=dev)
+    s = end_state
+    for t in range(Tm, 0, -1):
+        s_eff = torch.where(t == lengths - 1, end_state, s)
+        k = bps[t - 1, rows, s_eff.long()].long()
+        s_prev = ops.from_idx[k, s_eff.long()]
+        s = torch.where(t <= lengths - 1, s_prev, s_eff)
+        path[:, t] = s_eff
+    path[:, 0] = s
+    return path.to(torch.uint16), logp
+
+
+def generic_traceback_kernel(ops: TransOps, final_alpha, bps, lengths):
+    """K6b on the card: (path (B, T) uint16, logp (B,))."""
+    dev = final_alpha.device
+    B, n = final_alpha.shape
+    if n != 4096:
+        raise ValueError(f"the CUDA generic traceback takes n=4096, got {n}")
+    Tm = bps.shape[0]
+    _check("final_alpha", final_alpha, torch.float32, (B, n), dev)
+    _check("bps", bps, torch.uint8, (Tm, B, n), dev)
+    _check("lengths", lengths, torch.int32, (B,), dev)
+    _check_ops(ops, dev)
+    _require_cuda(dev, "generic viterbi traceback")
+    path = torch.empty((B, Tm + 1), dtype=torch.uint16, device=dev)
+    logp = torch.empty(B, dtype=torch.float32, device=dev)
+    lib = _cuda.load()
+    err = lib.nc_viterbi_generic_traceback(
+        final_alpha.data_ptr(), bps.data_ptr() if bps.numel() else None,
+        lengths.data_ptr(), B, Tm + 1, ops.from_idx.data_ptr(),
+        path.data_ptr(), logp.data_ptr(),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "viterbi_generic_traceback kernel launch")
+    generic_traceback_kernel.launches += 1
+    return path, logp
+
+
+generic_traceback_kernel.launches = 0
+
+
+def viterbi_traceback(ops: TransOps, final_alpha, bps, lengths):
+    """K6b on the tensors' device: (path (B, T) uint16, logp (B,))."""
+    dev = final_alpha.device
+    if dev.type == "cpu":
+        return viterbi_traceback_plain(ops, final_alpha, bps, lengths)
+    if dev.type != "cuda":
+        raise ValueError(f"no generic traceback for device {dev}")
+    return generic_traceback_kernel(ops, final_alpha, bps, lengths)
+
+
+def viterbi_decode(ops: TransOps, model: ModelArrays, ev: dict,
+                   with_path: bool = True) -> dict:
+    """Viterbi decode under a loaded table (nanocall_tpu/ops/hmm.py:759-768):
+    {"logp"} when with_path is False, else {"path" (B, T) uint16, "logp"}."""
+    final_alpha, bps = viterbi_forward(ops, model, ev, with_path)
+    if not with_path:
+        return {"logp": torch.amax(final_alpha, dim=-1)}
+    path, logp = viterbi_traceback(ops, final_alpha, bps, ev["length"])
+    return {"path": path, "logp": logp}
+
+
+# K6c: generic forward-backward -----------------------------------------------
+
+
+def fwbw_plain(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
+    """Plain version of K6c (nanocall_tpu/ops/hmm.py:784-849, with
+    keep_emissions): exact log-space forward and backward over the slot
+    tables, loops over events.  Returns {alpha, beta, em: (B, T, n)
+    float32, log_pr_data: (B,)}; alpha rows past a read's length repeat its
+    last alpha, beta is 0 from t = length-1 on."""
+    n = model.level_mean.shape[-1]
+    mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    lengths = ev["length"]
+    B, T = mean.shape
+    dev = mean.device
+    alphas = torch.empty((B, T, n), dtype=torch.float32, device=dev)
+    betas = torch.empty((B, T, n), dtype=torch.float32, device=dev)
+    ems = torch.empty((B, T, n), dtype=torch.float32, device=dev)
+    em = log_emission(model, mean[:, 0], stdv[:, 0], log_stdv[:, 0])
+    alpha = em - math.log(n)
+    alphas[:, 0], ems[:, 0] = alpha, em
+    for t in range(1, T):
+        vals = ops.from_logp + gather_slots(alpha, ops.from_idx)
+        em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
+        new_alpha = em + logsumexp_slots(vals)
+        alpha = torch.where((t < lengths)[:, None], new_alpha, alpha)
+        alphas[:, t], ems[:, t] = alpha, em
+    mfin = torch.amax(alpha, dim=-1)
+    lpd = mfin + torch.log(tree_sum(torch.exp(alpha - mfin[:, None])))
+    beta = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    betas[:, T - 1] = beta
+    for t in range(T - 2, -1, -1):
+        g = ems[:, t + 1] + beta
+        cand = logsumexp_slots(ops.to_logp + gather_slots(g, ops.to_idx))
+        beta = torch.where((t >= lengths - 1)[:, None], 0.0, cand)
+        betas[:, t] = beta
+    return {"alpha": alphas, "beta": betas, "em": ems, "log_pr_data": lpd}
+
+
+def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
+    """K6c on the card: the forward and the backward pass in one launch,
+    {alpha, beta, em (B, T, n), log_pr_data (B,)} as the plain version."""
+    mean = ev["mean"]
+    dev = mean.device
+    B, T = mean.shape
+    n = 4096
+    if T < 1:
+        raise ValueError("forward-backward needs at least one event column")
+    _check_events(ev, B, T, dev)
+    _check_ops(ops, dev)
+    _check_tables(tuple(model), B, n, dev)
+    _require_cuda(dev, "generic fwbw")
+    out = {k: torch.empty((B, T, n), dtype=torch.float32, device=dev)
+           for k in ("alpha", "beta", "em")}
+    out["log_pr_data"] = torch.empty(B, dtype=torch.float32, device=dev)
+    lib = _cuda.load()
+    err = lib.nc_fwbw_generic(
+        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
+        ev["length"].data_ptr(), B, T, ops.from_idx.shape[0],
+        ops.from_idx.data_ptr(), ops.from_logp.data_ptr(),
+        ops.to_idx.shape[0], ops.to_idx.data_ptr(), ops.to_logp.data_ptr(),
+        *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
+        *(out[k].data_ptr() for k in ("alpha", "beta", "em", "log_pr_data")),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "fwbw_generic kernel launch")
+    fwbw_generic_kernel.launches += 1
+    return out
+
+
+fwbw_generic_kernel.launches = 0
+
+
+def fwbw(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
+    """K6c on the tensors' device: {alpha, beta, em (B, T, n),
+    log_pr_data (B,)}."""
+    dev = ev["mean"].device
+    if dev.type == "cpu":
+        return fwbw_plain(ops, model, ev)
+    if dev.type != "cuda":
+        raise ValueError(f"no generic fwbw for device {dev}")
+    return fwbw_generic_kernel(ops, model, ev)
+
+
+# K6d: grouped log-sum-exp backward -------------------------------------------
+
+#: bits of the grouped backward kernel's per-state flag byte
+GROUPED_BWD_FLAG_BITS = {"H": 0, "P2mH": 1, "S5T": 2}
+
+#: the most slots a transition table may give one state: the Viterbi
+#: backpointers are uint8 slot ids
+MAX_SLOTS = 256
+
+
+def bwd_exp_tables(gtf: GroupedTransFull):
+    """exp of the stay and to-side tables: the backward pass's transition
+    weights (K6d here, K5 in ops/em.py)."""
+    return (torch.exp(gtf.stay_lp), torch.exp(gtf.step_to_lp),
+            torch.exp(gtf.skip_to_lp))
+
+
+def fwbw_grouped_backward_plain(gtf: GroupedTransFull, model: ModelArrays,
+                                ev: dict) -> torch.Tensor:
+    """Plain version of K6d (the reverse scan of nanocall_tpu/ops/hmm.py:
+    1014-1035), a loop over events from T-2 down to 0: g = em(t+1) + beta,
+    m = max g, G = exp(g - m), the contiguous 4- and 16-block sums of G
+    tiled over the states, the H / P2mH / S5T corrections, beta = m +
+    log(total), 0 from t = length-1 on.  Returns beta (B, T, n) float32."""
+    mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    lengths = ev["length"]
+    B, T = mean.shape
+    n = model.level_mean.shape[-1]
+    dev = mean.device
+    m_ = correction_masks(gtf.K, dev)
+    mH, mP2, mS5T = m_["H"], m_["P2mH"], m_["S5T"]
+    e_stay, e_step_to, e_skip_to = bwd_exp_tables(gtf)
+    betas = torch.empty((B, T, n), dtype=torch.float32, device=dev)
+    beta = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    betas[:, T - 1] = beta
+    for t in range(T - 2, -1, -1):
+        g = log_emission(model, mean[:, t + 1], stdv[:, t + 1],
+                         log_stdv[:, t + 1]) + beta
+        m = torch.amax(g, dim=-1, keepdim=True)
+        G = torch.exp(g - m)
+        T4 = block_sum(G, 4).repeat(1, 4)
+        T16 = block_sum(G, 16).repeat(1, 16)
+        total = (e_stay * G + e_step_to * (T4 - mH * G)
+                 + e_skip_to * (T16 - mP2 * G - mS5T * T4))
+        beta = torch.where((t >= lengths - 1)[:, None], 0.0,
+                           m + torch.log(total))
+        betas[:, t] = beta
+    return betas
+
+
+def fwbw_backward_kernel(gtf: GroupedTransFull, model: ModelArrays,
+                         ev: dict) -> torch.Tensor:
+    """K6d on the card: beta (B, T, n) float32, as the plain version."""
+    mean = ev["mean"]
+    dev = mean.device
+    B, T = mean.shape
+    n = 4096
+    if gtf.K != 6:
+        raise ValueError(f"the CUDA grouped backward kernel takes K=6, got "
+                         f"K={gtf.K}")
+    if T < 1:
+        raise ValueError("the backward pass needs at least one event column")
+    _check_events(ev, B, T, dev)
+    tables = (*bwd_exp_tables(gtf), *model)
+    _check_tables(tables, B, n, dev)
+    _require_cuda(dev, "grouped fwbw backward")
+    flags = mask_flags(correction_masks(6, dev), GROUPED_BWD_FLAG_BITS)
+    betas = torch.empty((B, T, n), dtype=torch.float32, device=dev)
+    lib = _cuda.load()
+    err = lib.nc_fwbw_backward(
+        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
+        ev["length"].data_ptr(), B, T, *(x.data_ptr() for x in tables),
+        flags.data_ptr(), LOG_2PI, betas.data_ptr(),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "fwbw_backward kernel launch")
+    fwbw_backward_kernel.launches += 1
+    return betas
+
+
+fwbw_backward_kernel.launches = 0
+
+
+def fwbw_grouped_backward(gtf: GroupedTransFull, model: ModelArrays,
+                          ev: dict) -> torch.Tensor:
+    """K6d on the tensors' device: beta (B, T, n)."""
+    dev = ev["mean"].device
+    if dev.type == "cpu":
+        return fwbw_grouped_backward_plain(gtf, model, ev)
+    if dev.type != "cuda":
+        raise ValueError(f"no grouped fwbw backward for device {dev}")
+    return fwbw_backward_kernel(gtf, model, ev)
+
+
+def fwbw_grouped(gtf: GroupedTransFull, model: ModelArrays, ev: dict) -> dict:
+    """Exact forward-backward by the grouped decomposition
+    (nanocall_tpu/ops/hmm.py:956-1044, with keep_emissions): K4's alphas,
+    K6d's betas, and the emissions of every event, an elementwise pass of
+    log_emission in the kernels' op order.  Returns {alpha, beta, em:
+    (B, T, n) float32, log_pr_data: (B,)}; alpha is a (B, T, n) view of
+    K4's (T, B, n) store."""
+    alphas, lpd = fwbw_grouped_forward(gtf, model, ev)
+    beta = fwbw_grouped_backward(gtf, model, ev)
+    rows = ModelArrays(*(x[:, None, :] for x in model))
+    em = log_emission(rows, ev["mean"], ev["stdv"], ev["log_stdv"])
+    return {"alpha": alphas.transpose(0, 1), "beta": beta, "em": em,
+            "log_pr_data": lpd}

@@ -32,6 +32,21 @@ KERNELS = (
     Kernel("em_backward", em.em_backward_kernel,
            "nanocall_tpu_torch/csrc/em_backward.cu",
            "nanocall_tpu/train.py:159"),
+    Kernel("viterbi_generic_forward_path", hmm.generic_forward_path_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_generic.cu",
+           "nanocall_tpu/ops/hmm.py:673"),
+    Kernel("viterbi_generic_forward_score", hmm.generic_forward_score_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_generic.cu",
+           "nanocall_tpu/ops/hmm.py:759"),
+    Kernel("viterbi_generic_traceback", hmm.generic_traceback_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_generic.cu",
+           "nanocall_tpu/ops/hmm.py:714"),
+    Kernel("fwbw_generic", hmm.fwbw_generic_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_generic.cu",
+           "nanocall_tpu/ops/hmm.py:784"),
+    Kernel("fwbw_grouped_backward", hmm.fwbw_backward_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_backward.cu",
+           "nanocall_tpu/ops/hmm.py:1016"),
 )
 
 

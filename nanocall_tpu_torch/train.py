@@ -16,6 +16,11 @@ subsequences; a batch of G groups trains at once as G*S rows:
     as masked tensor updates, one host read per round for the all-frozen
     exit.
 
+Under a loaded transition table (`--trans`) a round is the legacy one
+instead: the rows at the priors E-step under the table (K6c), the others by
+the grouped kernels (K4 + K6d); both store alpha, beta and em, and the
+statistics are reduced from those tensors in plain torch.
+
 None of this imports nanocall_tpu.train (which imports jax); the numpy-only
 helpers of that module are written out here.
 """
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -214,13 +220,211 @@ def em_backward_args(inp: dict, lpd, alphas, train_scaling: bool,
             train_transitions)
 
 
+def _matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in full float32: TF32 off for the call, as the JAX package's
+    precision="highest" einsum (nanocall_tpu/train.py:609-612)."""
+    if a.device.type != "cuda":
+        return torch.matmul(a, b)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _select_rows(inp: dict, rows: torch.Tensor) -> tuple:
+    """round_inputs' E-step inputs (gtf, model, ev) of the given rows."""
+    def sel(x):
+        return x.index_select(0, rows)
+
+    gtf = inp["gtf"]
+    return (hmm.GroupedTransFull(*(sel(x) for x in gtf[:5]), K=gtf.K),
+            hmm.ModelArrays(*(sel(x) for x in inp["model"])),
+            {k: sel(v) for k, v in inp["ev"].items()})
+
+
+def _legacy_estep(inp: dict, default_ops, default_priors) -> dict:
+    """The E-step of a round under a loaded table (nanocall_tpu/train.py:
+    566-580): a row whose strand's (p_stay, p_skip) equal the CLI priors in
+    float32 takes the generic forward-backward over default_ops (K6c),
+    every other row the grouped one (K4, K6d).  The JAX package runs both
+    over every row and selects; rows are independent, so running each only
+    over its own rows gives the same values.  Returns {alpha, beta, em
+    (B, T, n), log_pr_data (B,)}."""
+    pri_stay, pri_skip = (float(p) for p in np.float32(default_priors))
+    use_seq = ((inp["p_stay_seq"] == pri_stay)
+               & (inp["p_skip_seq"] == pri_skip))
+    B, T = inp["x_unc"].shape
+    n = inp["model"].level_mean.shape[-1]
+    out = {k: torch.empty((B, T, n), dtype=torch.float32,
+                          device=use_seq.device)
+           for k in ("alpha", "beta", "em")}
+    out["log_pr_data"] = torch.empty(B, dtype=torch.float32,
+                                     device=use_seq.device)
+    for generic in (True, False):
+        rows = torch.nonzero(use_seq == generic)[:, 0]
+        if not len(rows):
+            continue
+        gtf, model, ev = _select_rows(inp, rows)
+        fb = (hmm.fwbw(default_ops, model, ev) if generic
+              else hmm.fwbw_grouped(gtf, model, ev))
+        for k, v in fb.items():
+            out[k].index_copy_(0, rows, v)
+        del fb
+    return out
+
+
+def _legacy_moments(fb: dict, inp: dict, G: int) -> dict:
+    """The 14 per-group scaling moments of em.SCAL_NAMES from materialized
+    posteriors (nanocall_tpu/train.py:591-640): exp(alpha + beta - lpd)
+    over the valid events, contracted with the state weights W in full
+    float32, then summed over each group's rows and events."""
+    lengths, valid = inp["ev"]["length"], inp["valid"]
+    B, T = inp["x_unc"].shape
+    t_idx = torch.arange(T, device=lengths.device)
+    w = (t_idx[None, :] < lengths[:, None]) & valid[:, None]  # (B, T)
+    post = torch.exp(fb["alpha"] + fb["beta"]
+                     - fb["log_pr_data"][:, None, None]) * w[:, :, None]
+    stats = _matmul_fp32(post, inp["W"].transpose(1, 2))  # (B, T, 6)
+    del post
+    s0, s1, s2, l0, l1, l2 = stats.unbind(-1)
+    x, ts, y = inp["x_unc"], inp["t_start"], inp["ev"]["stdv"]
+
+    def acc(v):  # (B, T) -> (G,): each group's rows and events
+        return v.reshape(G, -1).sum(dim=1)
+
+    return {"A00": acc(s0), "A01": acc(s1), "A11": acc(s2),
+            "A02": acc(s0 * ts), "A12": acc(s1 * ts), "A22": acc(s0 * ts * ts),
+            "B0": acc(s0 * x), "B1": acc(s1 * x), "B2": acc(s0 * x * ts),
+            "D": acc(s0 * x * x), "Vn": acc(l2 * y), "Vd": acc(l1),
+            "Up": acc(l0 / y), "Ne": acc(w.to(torch.float32))}
+
+
+def _legacy_st_totals(fb: dict, inp: dict, strand, G: int) -> list:
+    """Per strand, the (denom, stay, skip) log totals of the transition
+    update from materialized posteriors (nanocall_tpu/train.py:700-786,
+    _train_st_params): the stay and step joints of each transition t in
+    log space over all states, masked to the training k-mers and the valid
+    transitions, each reduced over a group's rows, transitions and states.
+    strand (G, S) is each row's strand.  Returns [(denom, stay, skip) of
+    (G,) for strand 0, for strand 1]."""
+    alpha, beta, em = fb["alpha"], fb["beta"], fb["em"]
+    B, T, n = alpha.shape
+    lpd_b = fb["log_pr_data"][:, None, None]
+    a_i = alpha[:, :-1]
+    lp_j1 = a_i + beta[:, :-1] - lpd_b  # log Pr[S_t = j1]
+    p_stay, p_skip = inp["p_stay_seq"], inp["p_skip_seq"]
+    log_p_stay = torch.log(p_stay)[:, None, None]
+    log_p_step4 = (torch.log(1.0 - p_stay - p_skip)
+                   - math.log(4.0))[:, None, None]
+    g = em[:, 1:] + beta[:, 1:]
+    lp_stay = torch.minimum(a_i + log_p_stay + g - lpd_b, lp_j1)
+    # the 4 step successors of j1 are the contiguous 4-block at
+    # suffix(j1, K-1) << 2: 4-block sums of exp(g), tiled over the states
+    m_g = torch.amax(g, dim=-1, keepdim=True)
+    safe_m = torch.where(torch.isfinite(m_g), m_g, 0.0)
+    eg4 = torch.exp(g - safe_m).reshape(B, T - 1, n // 4, 4).sum(dim=-1)
+    lsum4 = safe_m + torch.log(eg4).repeat(1, 1, 4)
+    lp_steps = a_i + log_p_step4 + lsum4 - lpd_b
+    del g, eg4, lsum4
+    lp_d01 = torch.minimum(torch.logaddexp(lp_stay, lp_steps), lp_j1)
+    del lp_steps
+    lp_d2 = torch.log(torch.clamp_min(torch.exp(lp_j1) - torch.exp(lp_d01),
+                                      0.0))
+    del lp_d01
+    t_idx = torch.arange(T - 1, device=alpha.device)
+    w_tr = ((t_idx[None, :] < inp["ev"]["length"][:, None] - 1)
+            & inp["valid"][:, None])
+    w_tr = w_tr[:, :, None] & inp["subset"][None, None, :]  # (B, T-1, n)
+    totals = []
+    for st in (0, 1):
+        mask = ((strand == st).reshape(B)[:, None, None] & w_tr) \
+            .reshape(G, -1)
+
+        def red(x):
+            return _masked_lse(x.reshape(G, -1), mask, 1)
+
+        totals.append((red(lp_j1), red(lp_stay), red(lp_d2)))
+    return totals
+
+
+def _scaling_mstep(acc: dict, pm_params, train_drift: bool):
+    """The scaling M-step from a group's moments (hpp:300-430): the 3x3
+    weighted-least-squares solve for (shift, scale, drift) and the var,
+    scale_sd and var_sd updates.  Returns (new pm_params (G, 6), done (G,)
+    bool); a singular solve, or a non-finite or non-positive var or var_sd,
+    keeps the group's current params and sets done, so NaN params never
+    reach decode."""
+    A00, A01, A11 = acc["A00"], acc["A01"], acc["A11"]
+    B0, B1 = acc["B0"], acc["B1"]
+    if train_drift:
+        A02, A12, A22, B2 = acc["A02"], acc["A12"], acc["A22"], acc["B2"]
+    else:
+        Z = torch.zeros_like(A00)
+        A02, A12, B2 = Z, Z, Z
+        A22 = torch.ones_like(A00)  # hpp:318-321
+    D = acc["D"]
+    V_numer, V_denom = acc["Vn"], acc["Vd"]
+    U_pos = acc["Up"]
+    n_events_tot = acc["Ne"]
+    A = torch.stack([
+        torch.stack([A00, A01, A02], dim=-1),
+        torch.stack([A01, A11, A12], dim=-1),
+        torch.stack([A02, A12, A22], dim=-1),
+    ], dim=-2)
+    x_hat, done = _solve3_pivoted(A, torch.stack([B0, B1, B2], dim=-1),
+                                  train_drift)
+    a_hat, b_hat, c_hat = x_hat[:, 0], x_hat[:, 1], x_hat[:, 2]
+    # var update (hpp:406-418)
+    d_numer = (
+        D
+        + a_hat * a_hat * A00
+        + b_hat * b_hat * A11
+        + c_hat * c_hat * A22
+        + 2.0 * a_hat * b_hat * A01
+        + 2.0 * a_hat * c_hat * A02
+        + 2.0 * b_hat * c_hat * A12
+        - 2.0 * (a_hat * B0 + b_hat * B1 + c_hat * B2)
+    )
+    d_hat = torch.sqrt(torch.clamp_min(d_numer, 0.0) / n_events_tot)
+    v_hat = V_numer / V_denom  # scale_sd (hpp:422)
+    u_hat = n_events_tot / (U_pos - V_denom / v_hat)  # var_sd (hpp:426)
+    new_pm = torch.stack([b_hat, a_hat, c_hat, d_hat, v_hat, u_hat], dim=-1)
+    bad = (~torch.isfinite(new_pm).all(dim=-1) | (d_hat <= 0.0)
+           | (u_hat <= 0.0))
+    done = done | bad
+    return torch.where(done[:, None], pm_params, new_pm), done
+
+
+def _st_mstep(totals: list, ev: dict, st_params):
+    """The transition M-step (hpp:514-530): per strand, p_stay and p_skip
+    from the (denom, stay, skip) log totals, clamped to [0.05, 0.4]; a
+    strand with no training rows in a group keeps its current params.
+    Returns new st_params (G, 2, 2)."""
+    strand = ev["strand"].long()
+    has_rows = ev["valid"] & (ev["length"] > 1)
+    new_st = []
+    for st, (denom, num_stay, num_skip) in enumerate(totals):
+        p_stay_new = torch.clamp(torch.exp(num_stay - denom), ST_CLAMP_LO,
+                                 ST_CLAMP_HI)
+        p_skip_new = torch.clamp(torch.exp(num_skip - denom), ST_CLAMP_LO,
+                                 ST_CLAMP_HI)
+        has_seqs = torch.any((strand == st) & has_rows, dim=1)
+        p_stay_new = torch.where(has_seqs, p_stay_new, st_params[:, st, 0])
+        p_skip_new = torch.where(has_seqs, p_skip_new, st_params[:, st, 1])
+        new_st.append(torch.stack([p_stay_new, p_skip_new], dim=-1))
+    return torch.stack(new_st, dim=1)
+
+
 def train_one_round(ev: dict, models: dict, pm_params: torch.Tensor,
                     st_params: torch.Tensor, K: int = 6,
                     train_drift: bool = True, train_scaling: bool = True,
-                    train_transitions: bool = True, default_ops=None) -> dict:
+                    train_transitions: bool = True, default_ops=None,
+                    default_priors=None) -> dict:
     """One EM round over a batch of training groups
-    (Parameter_Trainer::train_one_round, hpp:541-579; the fused branch of
-    nanocall_tpu/train.py:323-564).
+    (Parameter_Trainer::train_one_round, hpp:541-579;
+    nanocall_tpu/train.py:323-697).
 
     ev: (G, S, T) float32 {mean, stdv, log_stdv, start} with the
     UNCORRECTED means, and (G, S) int32 length / strand and bool valid.
@@ -229,99 +433,57 @@ def train_one_round(ev: dict, models: dict, pm_params: torch.Tensor,
     (G, 6) scaling rows (scale, shift, drift, var, scale_sd, var_sd);
     st_params (G, 2, 2) (p_stay, p_skip) per strand.
 
+    Without default_ops, the fused round: K4 stores the alphas and K5 folds
+    the backward pass into the statistics; with neither train flag the
+    round only scores (K4 stores no alphas, K5 does not run).
+
+    default_ops / default_priors: a loaded table (`--trans`, a TransOps)
+    and the (2,) CLI priors (p_stay, p_skip).  The reference E-steps under
+    the loaded table while a strand's st params are still the priors,
+    round 1 of every group included (Parameter_Trainer.hpp:117-133), so
+    the round is the legacy one: each row E-steps under the loaded table
+    while its strand is at the priors and by the grouped tables otherwise
+    (_legacy_estep), and the statistics are reduced from the materialized
+    alpha, beta and em.
+
     Returns {fit (G,), new_pm_params (G, 6), done (G,) bool,
     new_st_params (G, 2, 2)}; fit is the summed log Pr[data] of the valid
-    rows under the current parameters.  With neither train flag the round
-    only scores: K4 stores no alphas and K5 does not run."""
-    if default_ops is not None:
-        raise NotImplementedError(
-            "EM under a loaded transition table (--trans) needs the generic "
-            "kernels, which are not ported to nanocall_tpu_torch yet")
+    rows under the current parameters."""
     G, S, T = ev["mean"].shape
     dev = pm_params.device
     inp = round_inputs(ev, models, pm_params, st_params, K, train_scaling)
     train_any = train_scaling or train_transitions
-    alphas, lpd = hmm.fwbw_grouped_forward(inp["gtf"], inp["model"],
-                                           inp["ev"], with_alphas=train_any)
-    out = {"fit": _sum_seqs(torch.where(inp["valid"], lpd, 0.0), G),
-           "new_pm_params": pm_params,
+    out = {"new_pm_params": pm_params,
            "done": torch.zeros(G, dtype=torch.bool, device=dev),
            "new_st_params": st_params}
-    if not train_any:
-        return out
-    scal, st3 = em.fused_bwd_mstats(*em_backward_args(
-        inp, lpd, alphas, train_scaling, train_transitions))
-    del alphas
-
-    if train_scaling:
+    if default_ops is None:
+        alphas, lpd = hmm.fwbw_grouped_forward(inp["gtf"], inp["model"],
+                                               inp["ev"],
+                                               with_alphas=train_any)
+        out["fit"] = _sum_seqs(torch.where(inp["valid"], lpd, 0.0), G)
+        if not train_any:
+            return out
+        scal, st3 = em.fused_bwd_mstats(*em_backward_args(
+            inp, lpd, alphas, train_scaling, train_transitions))
+        del alphas
         acc = {k: _sum_seqs(scal[:, i], G)
                for i, k in enumerate(em.SCAL_NAMES)}
-        A00, A01, A11 = acc["A00"], acc["A01"], acc["A11"]
-        B0, B1 = acc["B0"], acc["B1"]
-        if train_drift:
-            A02, A12, A22, B2 = acc["A02"], acc["A12"], acc["A22"], acc["B2"]
-        else:
-            Z = torch.zeros_like(A00)
-            A02, A12, B2 = Z, Z, Z
-            A22 = torch.ones_like(A00)  # hpp:318-321
-        D = acc["D"]
-        V_numer, V_denom = acc["Vn"], acc["Vd"]
-        U_pos = acc["Up"]
-        n_events_tot = acc["Ne"]
-        A = torch.stack([
-            torch.stack([A00, A01, A02], dim=-1),
-            torch.stack([A01, A11, A12], dim=-1),
-            torch.stack([A02, A12, A22], dim=-1),
-        ], dim=-2)
-        x_hat, done = _solve3_pivoted(A, torch.stack([B0, B1, B2], dim=-1),
-                                      train_drift)
-        a_hat, b_hat, c_hat = x_hat[:, 0], x_hat[:, 1], x_hat[:, 2]
-        # var update (hpp:406-418); a non-positive or non-finite var or
-        # var_sd counts as a singularity, so NaN params never reach decode
-        d_numer = (
-            D
-            + a_hat * a_hat * A00
-            + b_hat * b_hat * A11
-            + c_hat * c_hat * A22
-            + 2.0 * a_hat * b_hat * A01
-            + 2.0 * a_hat * c_hat * A02
-            + 2.0 * b_hat * c_hat * A12
-            - 2.0 * (a_hat * B0 + b_hat * B1 + c_hat * B2)
-        )
-        d_hat = torch.sqrt(torch.clamp_min(d_numer, 0.0) / n_events_tot)
-        v_hat = V_numer / V_denom  # scale_sd (hpp:422)
-        u_hat = n_events_tot / (U_pos - V_denom / v_hat)  # var_sd (hpp:426)
-        new_pm = torch.stack([b_hat, a_hat, c_hat, d_hat, v_hat, u_hat],
-                             dim=-1)
-        bad = (~torch.isfinite(new_pm).all(dim=-1) | (d_hat <= 0.0)
-               | (u_hat <= 0.0))
-        done = done | bad
-        out["new_pm_params"] = torch.where(done[:, None], pm_params, new_pm)
-        out["done"] = done
-
+        seq_masks = [ev["strand"] == st for st in (0, 1)]
+        totals = [tuple(_masked_lse(st3[:, q].reshape(G, S), m, 1)
+                        for q in range(3)) for m in seq_masks]
+    else:
+        fb = _legacy_estep(inp, default_ops, default_priors)
+        out["fit"] = _sum_seqs(
+            torch.where(inp["valid"], fb["log_pr_data"], 0.0), G)
+        acc = _legacy_moments(fb, inp, G) if train_scaling else None
+        totals = (_legacy_st_totals(fb, inp, ev["strand"], G)
+                  if train_transitions else None)
+        del fb
+    if train_scaling:
+        out["new_pm_params"], out["done"] = _scaling_mstep(acc, pm_params,
+                                                           train_drift)
     if train_transitions:
-        new_st = []
-        strand = ev["strand"].long()
-        has_rows = ev["valid"] & (ev["length"] > 1)
-        for st in (0, 1):
-            seq_mask = strand == st
-
-            def red_g(v):
-                return _masked_lse(v.reshape(G, S), seq_mask, 1)
-
-            denom = red_g(st3[:, 0])
-            num_stay = red_g(st3[:, 1])
-            num_skip = red_g(st3[:, 2])
-            p_stay_new = torch.clamp(torch.exp(num_stay - denom),
-                                     ST_CLAMP_LO, ST_CLAMP_HI)
-            p_skip_new = torch.clamp(torch.exp(num_skip - denom),
-                                     ST_CLAMP_LO, ST_CLAMP_HI)
-            # strands with no training rows keep their current params
-            has_seqs = torch.any(seq_mask & has_rows, dim=1)
-            p_stay_new = torch.where(has_seqs, p_stay_new, st_params[:, st, 0])
-            p_skip_new = torch.where(has_seqs, p_skip_new, st_params[:, st, 1])
-            new_st.append(torch.stack([p_stay_new, p_skip_new], dim=-1))
-        out["new_st_params"] = torch.stack(new_st, dim=1)
+        out["new_st_params"] = _st_mstep(totals, ev, st_params)
     return out
 
 
@@ -350,7 +512,8 @@ class EMConfig:
 
 def run_em(ev: dict, models: dict, pm_params0: torch.Tensor,
            st_params0: torch.Tensor, cfg: EMConfig, caps=None,
-           state0: tuple | None = None, round_limit: int | None = None):
+           state0: tuple | None = None, round_limit: int | None = None,
+           default_ops=None, default_priors=None):
     """The EM loop for a batch of G training groups on their device
     (nanocall_tpu/train.py:909-1036 with run_em_device's loop body).
 
@@ -365,7 +528,8 @@ def run_em(ev: dict, models: dict, pm_params0: torch.Tensor,
     state0 = (fit, frozen, rounds) resumes a previous call's per-group
     carry and round_limit caps this call's rounds without changing the
     caps: a run split that way follows the same trajectory as one
-    uninterrupted run (two-phase EM).
+    uninterrupted run (two-phase EM).  default_ops / default_priors: a
+    loaded table and the CLI priors, for train_one_round.
 
     Returns (pm_params (G, 6), st_params (G, 2, 2), fit (G,) float32,
     rounds (G,) int32, frozen (G,) bool), tensors on the batch's device."""
@@ -399,7 +563,8 @@ def run_em(ev: dict, models: dict, pm_params0: torch.Tensor,
         out = train_one_round(
             ev, models, pm, st, K=cfg.K, train_drift=cfg.train_drift,
             train_scaling=cfg.train_scaling,
-            train_transitions=cfg.train_transitions)
+            train_transitions=cfg.train_transitions,
+            default_ops=default_ops, default_priors=default_priors)
         done = out["done"]
         active = ~frozen
         crt_fit = torch.where(active, out["fit"], fit)

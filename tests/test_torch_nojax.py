@@ -73,6 +73,31 @@ def test_trained_cli_runs_on_cpu_without_importing_jax(reads, tmp_path):
     assert out.read_text().count(">") == 1
 
 
+def test_trans_cli_runs_on_cpu_without_importing_jax(reads, tmp_path):
+    """`-s/--trans`: the loaded table's EM rounds and decode; still no
+    jax."""
+    out = tmp_path / "out.fa"
+    trans = tmp_path / "trans.tsv"
+    proc = _run_python(
+        "import sys\n"
+        "from nanocall_tpu_torch import convert\n"
+        "from nanocall_tpu_torch.cli import main\n"
+        "convert.write_fast_transitions(sys.argv[3], 0.14, 0.21)\n"
+        "rc = main([sys.argv[1], '--pore', 'r73', '--device', 'cpu', '-t',"
+        " '1', '--scaling-max-rounds', '2', '-s', sys.argv[3], '-o',"
+        " sys.argv[2]])\n"
+        "assert rc == 0\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
+        " if m.startswith('jax'))\n"
+        "print('NOJAX_OK')\n",
+        reads, out, trans)
+    assert proc.returncode == 0, proc.stderr
+    assert "NOJAX_OK" in proc.stdout
+    assert "loaded state transitions from" in proc.stderr
+    assert "scaling_result" in proc.stderr  # EM ran
+    assert out.read_text().count(">") == 1
+
+
 def test_device_cuda_without_gpu_raises(reads, tmp_path):
     proc = _run_python(
         "import sys, torch\n"

@@ -102,10 +102,8 @@ def test_resume_stats_decode_equal_to_jax(sim, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ("-s", "trans.tsv", "--no-train"),
     ("--dump-training-data", "dump", "--no-train"),
     ("--num-hosts", "2", "--no-train"), ("--trace-dir", "trace", "--no-train"),
-    ("-s", "trans.tsv"),  # --trans with EM training
 ])
 def test_unported_flags_raise(sim, tmp_path, flags):
     with pytest.raises(NotImplementedError):

@@ -2,24 +2,32 @@
 """Time the port's decode and pipeline on one NVIDIA GPU at main-path shapes.
 
     python3 tools/torch_decode_times.py [--B 128] [--T 8192] [--reads 256]
-                                        [--train] [--profile] [--long 100000]
+                                        [--train] [--trans FILE] [--profile]
+                                        [--long 100000]
 
 1. K1 (path and score-only) and K2 against their plain PyTorch versions at
    B reads x T events (n = 4096): bit-equality and milliseconds per call
-   (CUDA events), built with chip_smoke.py's inputs;
+   (CUDA events), built with chip_smoke.py's inputs; with --trans, also
+   K6a (path and score-only) and K6b under that table;
 2. the untrained pipeline (nanocall_tpu_torch.basecall.run_pipeline,
    `--no-train --pore r73`) on `--reads` simulated reads (80% 1D reads of
    2,000-8,000 events, 20% hairpin reads of 3,000 + 3,000): wall seconds
    per stage and events/s; with --train, the default trained pipeline
-   instead (EM training by K4 + K5, then the decode); with --profile,
-   device time by kernel from torch.profiler over a third run, and the
+   instead (EM training by K4 + K5, then the decode); with --trans FILE, the
+   same run under the transitions table FILE (`-s FILE`: legacy EM rounds
+   by K6c, K4 and K6d, and the decode of the tasks at the priors by K6a and
+   K6b); with --profile, device time by kernel from torch.profiler over a
+   third run, each hand-written kernel's share of the device time, and the
    device's busy share of that run's wall time (the summed device time of
    the device-side events: kernels and copies);
 3. with --long N, one 1D read of N events through the same pipeline (the
    full-scan K1/K2 at the long bucket): wall seconds and peak device
    memory.
 
---B 0 or --reads 0 skips phase 1 or 2.
+--B 0 or --reads 0 skips phase 1 or 2.  A table for --trans:
+`python3 -c 'from nanocall_tpu_torch import convert;
+convert.write_fast_transitions("trans.tsv", 0.14, 0.21)'` writes what
+`compute-state-transitions --fast -t 0.14 -k 0.21` does.
 
 Every line carries the card's nvidia-smi name and power limit.
 """
@@ -36,6 +44,13 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
+#: the hand-written kernels' function names in nanocall_tpu_torch/csrc
+KERNEL_FUNCTIONS = ("viterbi_forward_kernel", "viterbi_traceback_kernel",
+                    "fwbw_forward_kernel", "em_backward_kernel",
+                    "viterbi_generic_forward_kernel",
+                    "viterbi_generic_traceback_kernel",
+                    "fwbw_generic_kernel", "fwbw_backward_kernel")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -43,6 +58,8 @@ def main() -> int:
     ap.add_argument("--T", type=int, default=8192)
     ap.add_argument("--reads", type=int, default=256)
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--trans", default="", metavar="FILE",
+                    help="run under this transitions table (-s FILE)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--long", type=int, default=0)
     args = ap.parse_args()
@@ -59,26 +76,38 @@ def main() -> int:
     device = torch.device("cuda", 0)
     _cuda.load()
     models = cli.init_models(chip_smoke.smoke_config())
+    # the reads do not depend on --B: phase 1 draws from its own generator
     rng = np.random.default_rng(11)
+    trans_flags = ["-s", args.trans] if args.trans else []
+    table = (cli.init_transitions(chip_smoke.smoke_config(*trans_flags))
+             if args.trans else None)
 
     if args.B:
-        gt, model, ev = chip_smoke.kernel_inputs(models, device, args.B,
-                                                 args.T, rng)
-        for name, r in chip_smoke.check_kernels(gt, model, ev).items():
+        gt, model, ev = chip_smoke.kernel_inputs(
+            models, device, args.B, args.T, np.random.default_rng(11))
+        recs = chip_smoke.check_kernels(gt, model, ev)
+        if table is not None:
+            from nanocall_tpu_torch import convert
+
+            recs.update(chip_smoke.check_generic_kernels(
+                convert.trans_ops(table, device), model, ev))
+        for name, r in recs.items():
             print(f"kernel {name} B={args.B} T={args.T}: {r['ms']:.3f} ms, "
                   f"plain {r['plain_ms']:.3f} ms, bit-equal [{card}]",
                   flush=True)
         del gt, model, ev
         torch.cuda.empty_cache()
 
-    cfg = chip_smoke.smoke_config(*([] if args.train else ["--no-train"]))
+    cfg = chip_smoke.smoke_config(*([] if args.train else ["--no-train"]),
+                                  *trans_flags)
 
     def run(reads, timer=None):
         stream = (ingest.summarize_ed(f"{name}.fast5", ed, models, cfg)
                   for name, ed, _ in reads)
         t = time.perf_counter()
         _, results = basecall.run_pipeline(stream, models, cfg, device,
-                                           timer=timer)
+                                           timer=timer,
+                                           default_transitions=table)
         return results, time.perf_counter() - t
 
     if args.reads:
@@ -112,6 +141,18 @@ def main() -> int:
                        and not e.is_user_annotation) / 1e6
             print(f"profiled run: {wall:.3f} s, device time {busy:.4f} s = "
                   f"{100 * busy / wall:.1f}% busy [{card}]")
+            split = {}
+            for e in avgs:
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                for fn in KERNEL_FUNCTIONS:
+                    if fn in e.key:
+                        ms, n = split.get(fn, (0.0, 0))
+                        split[fn] = (ms + e.self_device_time_total / 1e3,
+                                     n + e.count)
+            for fn, (ms, n) in sorted(split.items(), key=lambda x: -x[1][0]):
+                print(f"  {fn}: {ms:.3f} ms in {n} launches = "
+                      f"{100 * ms / 1e3 / busy:.1f}% of device time")
             print(avgs.table(sort_by="self_device_time_total", row_limit=25))
 
     if args.long:
