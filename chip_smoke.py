@@ -18,8 +18,16 @@ from the root of a checkout.  It
      score-only) and K2, and under the loaded table the generic K6a (path
      and score-only) and K6b; holds each to its plain PyTorch version on
      the same inputs: tolerance 0, every output bit-equal; prints both
-     times;
-  5. runs the EM kernels at the EM chunk's full width: n = 4096, 128
+     times; then K3, the chunked-time decode's forward and traceback
+     kernels, at the same shape in chunks of 600 events (a short last
+     chunk): each chunk's outputs against the plain versions (tolerance 0)
+     and the chunked decode against K1 + K2 (path0, codes, logp
+     bit-equal);
+  5. runs K3 at long-read widths, B = 4 reads x T = 40,960 events in chunks
+     of 8,192: the chunked decode bit-equal to K1 + K2 (the plain versions
+     would take minutes there; they are held to K1/K2's above), one
+     chunk's times against its plain versions, and both decodes' times;
+  6. runs the EM kernels at the EM chunk's full width: n = 4096, 128
      training groups x 4 = 512 rows of T = 128 events, packed by
      nanocall_tpu_torch.basecall.pack_train_batch from the simulated reads
      below, with rows of length 0, 1, T-1 and T, invalid rows, both r73
@@ -30,7 +38,7 @@ from the root of a checkout.  It
      forward-backward under the loaded table (alpha, beta and em of
      3 x 1.07 GB); holds each to its plain version (tolerance 0) and prints
      both times;
-  6. drives the pipeline end to end (nanocall_tpu_torch.basecall.
+  7. drives the pipeline end to end (nanocall_tpu_torch.basecall.
      run_pipeline, `--pore r73 -t 1`) on 24 simulated reads (1D reads of
      2,000-8,000 events and 2-strand hairpin reads of 3,000 + 3,000, fed as
      in-memory event arrays through nanocall_tpu_torch.ingest, since fast5
@@ -45,10 +53,16 @@ from the root of a checkout.  It
      simulated truth above 0.6, and that each of its kernels launched; a
      trained run also checks that every trained 1D read's best candidate
      has 0.8 < scale < 1.2 and |shift| < 10 (the reads are simulated at
-     identity scaling); each prints its stage times;
-  7. prints a JSON line of the kernels (launch counts: the end-to-end
-     runs' sum, and each run's), the card line, and last
-     {"ok": true, ...}.
+     identity scaling); each prints its stage times and peak device memory;
+  8. a fifth run, "long": the default trained run on 4 long reads (1D
+     reads of 33,000, 60,000 and 99,000 events, a hairpin read of 40,000 +
+     40,000), whose path chunks all take the chunked decode: it must
+     launch K4, K5 and both K3 kernels, and neither K1 with backpointers
+     nor K2;
+  9. prints a JSON line of the kernels (launch counts: the end-to-end
+     runs' sum, and each run's; each kernel's time, its plain version's,
+     its shape and its bound on the H100's published peaks), the card
+     line, and last {"ok": true, ...}.
 
 The script imports nothing of JAX and nothing of the JAX package
 nanocall_tpu: it reaches the system only through nanocall_tpu_torch, and
@@ -69,6 +83,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_KERNEL, T_KERNEL = 16, 2048
+TC_KERNEL = 600  # K3's chunk at the kernel phase's shape: a short last chunk
+B_LONG, T_LONG, TC_LONG = 4, 40960, 8192  # K3 at long-read widths
+#: the long run's reads: (2-strand, events per strand)
+LONG_READS = ((False, 33000), (False, 60000), (False, 99000), (True, 40000))
 G_EM, T_EM = 128, 128  # the default EM chunk: 128 groups x 4 rows, T = 128
 N_1D, N_2STRAND = 18, 6
 P_STAY, P_SKIP = 0.1, 0.3  # the simulated reads' kinetics (the defaults)
@@ -86,9 +104,67 @@ TRANS_TRAINED_KERNELS = ("fwbw_forward", "fwbw_grouped_backward",
 TRANS_UNTRAINED_KERNELS = ("viterbi_generic_forward_path",
                            "viterbi_generic_forward_score",
                            "viterbi_generic_traceback")
+LONG_KERNELS = ("fwbw_forward", "em_backward", "viterbi_forward_chunk",
+                "viterbi_traceback_chunk")
 #: the loaded table's kinetics: not the CLI priors (0.1, 0.3), so a task
 #: routed to the wrong kernel would decode under other transitions
 TRANS_P_STAY, TRANS_P_SKIP = 0.14, 0.21
+
+
+#: the H100 SXM's published peaks: HBM3 bytes/s, float32 operations/s
+#: outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+#: float32 operations per (event, state) cell, counted from each kernel's
+#: source: the emission is 18 (log_emission's subtractions, divisions,
+#: products and sums); K1's step adds 3 sums, 2 maxima, 3 equality tests,
+#: the column maxima (3/4 + 15/16 comparisons) and the update; K4 and K6d
+#: the max, exp, block sums, the 11-operation correction and log; K5 K6d's
+#: recursion plus the posterior (3) and 14 moments and 3 log totals (about
+#: 37); K6a a sum and a max per slot (21 slots) and 21 equality tests; K6c
+#: 5 per slot and pass (sum, max, difference, exp, sum) over both passes
+CELL_OPS = {
+    "viterbi_forward_path": 28.6875, "viterbi_forward_score": 28.6875,
+    "viterbi_forward_chunk": 28.6875, "fwbw_forward": 36.6875,
+    "fwbw_grouped_backward": 37.6875, "em_backward": 77.6875,
+    "viterbi_generic_forward_path": 82.0,
+    "viterbi_generic_forward_score": 61.0, "fwbw_generic": 235.0,
+}
+
+
+def bound(name: str, B: int, T: int, deg: int = 21) -> dict:
+    """{"bound_ms", "bound_by"}: the least time the card could take for one
+    call of kernel `name` on B rows of T events (for a chunk kernel, T is
+    the chunk's events) at n = 4096 states: the larger of the bytes it
+    must move (each input read once, each output written once; a
+    traceback reads one backpointer byte per event) over the memory rate,
+    and its float32 operations over the float32 rate."""
+    n = 4096
+    cells = B * T * n
+    ev = 12 * B * T + 4 * B  # mean, stdv, log_stdv, length
+    codes = 3 * B * (-(-(T - 1) // 4))
+    nbytes = {
+        "viterbi_forward_path": ev + 40 * B * n + (T - 1) * B * n,
+        "viterbi_forward_score": ev + 40 * B * n,
+        "viterbi_forward_chunk": ev + 44 * B * n + T * B * n,
+        "viterbi_traceback": 4 * B * n + B * (T - 1) + 12 * B + codes,
+        "viterbi_traceback_chunk": B * T + 16 * B + 3 * B * T // 4,
+        "fwbw_forward": ev + 36 * B * n + n + 4 * T * B * n + 4 * B,
+        "em_backward": ev + 4 * T * B * n + 60 * B * n,
+        "fwbw_grouped_backward": ev + 36 * B * n + n + 4 * T * B * n,
+        "viterbi_generic_forward_path": (ev + 28 * B * n + 8 * deg * n
+                                         + (T - 1) * B * n),
+        "viterbi_generic_forward_score": ev + 28 * B * n + 8 * deg * n,
+        "viterbi_generic_traceback": (4 * B * n + 5 * B * (T - 1) + 8 * B
+                                      + 2 * B * T),
+        "fwbw_generic": ev + 24 * B * n + 16 * deg * n + 12 * T * B * n,
+    }[name]
+    ops = CELL_OPS.get(name, 0.0) * cells
+    if name in ("viterbi_traceback", "viterbi_generic_traceback"):
+        ops = B * n  # the end state's argmax
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def smi_line() -> str:
@@ -98,12 +174,13 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     """Mean milliseconds per call over `reps` calls, timed with CUDA events
-    after one warm-up call."""
+    after one warm-up call (unless warm_up is False)."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -201,7 +278,118 @@ def check_kernels(gt, model, ev) -> dict:
             "plain_ms": cuda_ms(lambda: hmm.viterbi_traceback_grouped_plain(
                 6, fa_p, bps_p, lengths), 1)},
     }
-    return rec
+    return with_shape(rec, ev)
+
+
+def with_shape(recs: dict, ev) -> dict:
+    """The records, each with the [B, T] of the events it was timed on."""
+    return {k: {**r, "shape": list(ev["mean"].shape)} for k, r in recs.items()}
+
+
+def chunk_events(ev: dict, t0: int, Tc: int) -> dict:
+    """Events [t0, t0+Tc) of ev, with the global lengths: what K3's plain
+    forward takes."""
+    out = {k: ev[k][:, t0:t0 + Tc] for k in ("mean", "stdv", "log_stdv")}
+    out["length"] = ev["length"]
+    return out
+
+
+def check_tchunk_kernels(gt, model, ev, Tc: int) -> None:
+    """K3's two kernels against their plain versions on the same card, chunk
+    by chunk as viterbi_decode_grouped_tchunk links them (tolerance 0: the
+    carried alpha, every chunk's backpointers, the carried state and the
+    packed codes bit-equal), then the chunked decode against the full
+    scan."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    lengths = ev["length"]
+    B, T = ev["mean"].shape
+    alpha_k = alpha_p = torch.zeros((B, 4096), device=lengths.device)
+    chunks = []
+    for t0 in range(0, T, Tc):
+        alpha_k, bps_k = hmm.forward_chunk_kernel(gt, model, ev, alpha_k, t0,
+                                                  Tc)
+        alpha_p, bps_p = hmm.viterbi_forward_grouped_chunk_plain(
+            gt, model, chunk_events(ev, t0, Tc), alpha_p, t0)
+        torch.cuda.synchronize()
+        assert torch.equal(alpha_k, alpha_p), f"K3 alpha differs at {t0}"
+        assert torch.equal(bps_k, bps_p), f"K3 backpointers differ at {t0}"
+        chunks.append((t0, bps_k))
+    end = torch.argmax(alpha_k, dim=-1).to(torch.int32)
+    codes_k, codes_p = (torch.zeros((B, 3 * (-(-(T - 1) // 4))),
+                                    dtype=torch.uint8, device=end.device)
+                        for _ in range(2))
+    s_k, s_p = end.clone(), end.clone()
+    for t0, bps in reversed(chunks):
+        s_k = hmm.traceback_chunk_kernel(6, end, s_k, bps, t0, lengths,
+                                         codes_k)
+        s_p, c = hmm.viterbi_traceback_grouped_chunk_plain(6, end, s_p, bps,
+                                                           t0, lengths)
+        hmm.or_packed_codes(codes_p, c, t0)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, s_p), f"K3 traceback state differs at {t0}"
+        assert torch.equal(codes_k, codes_p), f"K3 codes differ at {t0}"
+    check_tchunk_vs_full_scan(gt, model, ev, Tc)
+
+
+def check_tchunk_vs_full_scan(gt, model, ev, Tc: int) -> None:
+    """The chunked decode through K3's kernels against the full scan
+    through K1 + K2 on the card: path0, codes and logp bit-equal."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    chunked = hmm.viterbi_decode_grouped_tchunk(gt, model, ev, Tc)
+    full = hmm.viterbi_decode_grouped(gt, model, ev)
+    torch.cuda.synchronize()
+    for what in ("path0", "codes", "logp"):
+        assert torch.equal(chunked[what], full[what]), \
+            f"K3 {what} differs from K1 + K2 at Tc={Tc}"
+
+
+def time_tchunk_kernels(gt, model, ev, Tc: int) -> dict:
+    """Times on the card of K3's kernels and their plain versions, one chunk
+    each (the second, events [Tc, 2 Tc)), and of the whole chunked decode
+    and the full scan (K1 + K2): ({kernel name: record}, {"full_scan_ms",
+    "chunked_ms"})."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    lengths = ev["length"]
+    B = lengths.shape[0]
+    zeros = torch.zeros((B, 4096), device=lengths.device)
+    carry, _ = hmm.forward_chunk_kernel(gt, model, ev, zeros, 0, Tc)
+    alpha, bps = hmm.forward_chunk_kernel(gt, model, ev, carry, Tc, Tc)
+    end = torch.argmax(alpha, dim=-1).to(torch.int32)
+    codes = torch.zeros((B, 3 * Tc), dtype=torch.uint8, device=end.device)
+    evc = chunk_events(ev, Tc, Tc)
+    recs = {
+        "viterbi_forward_chunk": {
+            "ms": cuda_ms(lambda: hmm.forward_chunk_kernel(
+                gt, model, ev, carry, Tc, Tc), 3),
+            "plain_ms": cuda_ms(lambda: hmm.viterbi_forward_grouped_chunk_plain(
+                gt, model, evc, carry, Tc), 1, warm_up=False)},
+        "viterbi_traceback_chunk": {
+            "ms": cuda_ms(lambda: hmm.traceback_chunk_kernel(
+                6, end, end.clone(), bps, Tc, lengths, codes), 3),
+            "plain_ms": cuda_ms(
+                lambda: hmm.viterbi_traceback_grouped_chunk_plain(
+                    6, end, end.clone(), bps, Tc, lengths), 1,
+                warm_up=False)},
+    }
+    for r in recs.values():
+        r["shape"] = [B, Tc]
+        r["max_abs_err"] = 0.0  # check_tchunk_kernels: bit-equal
+    del bps
+    decode = {
+        "full_scan_ms": cuda_ms(lambda: hmm.viterbi_decode_grouped(
+            gt, model, ev), 1),
+        "chunked_ms": cuda_ms(lambda: hmm.viterbi_decode_grouped_tchunk(
+            gt, model, ev, Tc), 1)}
+    return recs, decode
 
 
 def load_trans_table(device):
@@ -240,7 +428,7 @@ def check_generic_kernels(ops, model, ev) -> dict:
     torch.cuda.synchronize()
     assert torch.equal(path_k, path_p), "K6b path differs from plain"
     assert torch.equal(logp_k, logp_p), "K6b logp differs from plain"
-    return {
+    return with_shape({
         "viterbi_generic_forward_path": {
             "max_abs_err": max_err(fa_k, fa_p),
             "ms": cuda_ms(lambda: hmm.generic_forward_path_kernel(
@@ -259,7 +447,7 @@ def check_generic_kernels(ops, model, ev) -> dict:
                 ops, fa_k, bps_k, lengths), 3),
             "plain_ms": cuda_ms(lambda: hmm.viterbi_traceback_plain(
                 ops, fa_p, bps_p, lengths), 1)},
-    }
+    }, ev)
 
 
 def max_err(a, b) -> float:
@@ -278,12 +466,13 @@ def em_kernel_inputs(models, reads, device, rng) -> dict:
     rows replaced by rows of length 0, 1, T-1 and T."""
     import numpy as np
 
-    from nanocall_tpu_torch import basecall, convert, ingest, train
+    from nanocall_tpu_torch import basecall, convert, read_pipeline, train
 
     cfg = smoke_config()
     summaries, groups, strands = [], [], []
     for name, ed, _ in reads:
-        s, evs = ingest.summarize_ed(f"{name}.fast5", ed, models, cfg)
+        s, evs = read_pipeline.summarize_ed(f"{name}.fast5", ed, models,
+                                            cfg)
         summaries.append(s)
         if s.num_ed_events:
             strands.append(evs[0])
@@ -347,7 +536,7 @@ def check_em_kernels(inp) -> dict:
     for what, e in errs.items():
         assert e == 0.0, f"{what} differ from plain by {e}"
     args = train.em_backward_args(inp, lpd_k, a_k, True, True)
-    return {
+    return with_shape({
         "fwbw_forward": {
             "max_abs_err": max(v for k, v in errs.items() if "K4" in k),
             "ms": cuda_ms(lambda: hmm.fwbw_forward_kernel(gtf, model, ev), 3),
@@ -357,7 +546,7 @@ def check_em_kernels(inp) -> dict:
             "max_abs_err": max(v for k, v in errs.items() if "K5" in k),
             "ms": cuda_ms(lambda: em.em_backward_kernel(*args), 3),
             "plain_ms": cuda_ms(lambda: em.fused_bwd_mstats_plain(*args), 1)},
-    }
+    }, ev)
 
 
 def check_fwbw_kernels(inp, ops) -> dict:
@@ -385,7 +574,7 @@ def check_fwbw_kernels(inp, ops) -> dict:
     print(f"fwbw kernels: max |kernel - plain| {errs}")
     for what, e in errs.items():
         assert e == 0.0, f"{what} differs from plain by {e}"
-    return {
+    return with_shape({
         "fwbw_grouped_backward": {
             "max_abs_err": errs["K6d beta"],
             "ms": cuda_ms(lambda: hmm.fwbw_backward_kernel(gtf, model, ev),
@@ -396,7 +585,7 @@ def check_fwbw_kernels(inp, ops) -> dict:
             "max_abs_err": max(v for k, v in errs.items() if "K6c" in k),
             "ms": cuda_ms(lambda: hmm.fwbw_generic_kernel(ops, model, ev), 3),
             "plain_ms": cuda_ms(lambda: hmm.fwbw_plain(ops, model, ev), 1)},
-    }
+    }, ev)
 
 
 def _walk(n: int, rng):
@@ -455,17 +644,19 @@ def simulate_read(models, rng, n_events: int, two_strand: bool):
 
 
 def simulated_reads(models, rng, n_1d: int = N_1D,
-                    n_2strand: int = N_2STRAND):
+                    n_2strand: int = N_2STRAND, specs=None,
+                    prefix: str = "sim"):
     """[(name, EdEventData, [true bases per strand])]: n_1d 1D reads of
     2,000-8,000 events and n_2strand 2-strand hairpin reads of 3,000 +
-    3,000."""
+    3,000, or the reads of specs, (2-strand, events per strand) each."""
     from nanocall_tpu_torch import ingest
 
     reads = []
-    specs = ([(False, int(n)) for n in rng.integers(2000, 8001, n_1d)]
-             + [(True, 3000)] * n_2strand)
+    if specs is None:
+        specs = ([(False, int(n)) for n in rng.integers(2000, 8001, n_1d)]
+                 + [(True, 3000)] * n_2strand)
     for i, (two_strand, n) in enumerate(specs):
-        name = f"sim{i:02d}"
+        name = f"{prefix}{i:02d}"
         mean, stdv, start, length, truths = simulate_read(models, rng, n,
                                                           two_strand)
         ed = ingest.ed_from_arrays(mean, stdv, start, length, 4000.0, name)
@@ -517,16 +708,19 @@ def read_fasta(path: str) -> dict:
 
 
 def run_end_to_end(models, reads, device, train: bool, must_launch,
-                   trans=None) -> dict:
+                   trans=None, tag: str = "") -> dict:
     """run_pipeline over the reads, untrained (`--no-train`) or with the
     default EM training, under the loaded table when `trans` (the TSV
     path and the table load_trans_table returns), with FASTA and stats
-    written by the port CLI's writer; checks the records, identity and
-    launches."""
-    from nanocall_tpu_torch import basecall, cli, ingest
+    written by the port CLI's writer into build/chip_smoke/<tag>; checks
+    the records, identity and launches."""
+    import torch
+
+    from nanocall_tpu_torch import basecall, cli, read_pipeline
     from nanocall_tpu_torch.ops import kernels
 
-    name = ("trained" if train else "untrained") + ("_trans" if trans else "")
+    name = tag or (("trained" if train else "untrained")
+                   + ("_trans" if trans else ""))
     out = os.path.join(ROOT, "build", "chip_smoke", name)
     os.makedirs(os.path.dirname(out), exist_ok=True)
     cfg = smoke_config("-o", out + ".fa", "--stats", out + ".tsv",
@@ -536,7 +730,8 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
 
     def stream():
         for name, ed, _ in reads:
-            s, evs = ingest.summarize_ed(f"{name}.fast5", ed, models, cfg)
+            s, evs = read_pipeline.summarize_ed(f"{name}.fast5", ed, models,
+                                                cfg)
             if s.num_ed_events:
                 for st in (0, 1):
                     if len(evs[st]) >= cfg.min_ed_events:
@@ -544,6 +739,7 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
             yield s, evs
 
     timer = StageTimer()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     summaries, results = basecall.run_pipeline(
@@ -551,6 +747,7 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
         default_transitions=trans[1] if trans else None)
     wall = time.perf_counter() - t0
     launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
 
     cli.write_outputs(summaries, results, models, cfg)
     fasta = read_fasta(cfg.output)
@@ -588,7 +785,7 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
             "wall_s": wall, "events_per_s": events / wall,
             "stages": timer.stages, "identity_min": min(idents),
             "identity_mean": sum(idents) / len(idents),
-            "launches": launches}
+            "launches": launches, "peak_gib": peak / 2**30}
 
 
 def print_run(what: str, e2e: dict, card: str) -> None:
@@ -599,8 +796,8 @@ def print_run(what: str, e2e: dict, card: str) -> None:
           f"records, {e2e['events']} events in {e2e['wall_s']:.3f} s = "
           f"{e2e['events_per_s']:.0f} events/s ({stages}); identity min "
           f"{e2e['identity_min']:.3f} mean {e2e['identity_mean']:.3f} "
-          f"(first {IDENTITY_WINDOW} bases); launches {e2e['launches']} "
-          f"[{card}]")
+          f"(first {IDENTITY_WINDOW} bases); peak device memory "
+          f"{e2e['peak_gib']:.3f} GiB; launches {e2e['launches']} [{card}]")
 
 
 def main() -> int:
@@ -648,7 +845,24 @@ def main() -> int:
         print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} n=4096 bit-equal to "
               f"plain; {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
               f"[{card}]")
+    check_tchunk_kernels(gt, model, ev, TC_KERNEL)
+    print(f"kernel K3: B={B_KERNEL} T={T_KERNEL} Tc={TC_KERNEL} forward and "
+          f"traceback chunks bit-equal to plain, the chunked decode to "
+          f"K1 + K2 [{card}]")
     del gt, model, ev
+
+    gt, model, ev = kernel_inputs(models, device, B_LONG, T_LONG, rng)
+    check_tchunk_vs_full_scan(gt, model, ev, TC_LONG)
+    k3, decode = time_tchunk_kernels(gt, model, ev, TC_LONG)
+    for name, r in k3.items():
+        print(f"kernel {name}: B={B_LONG} one chunk of {TC_LONG} events "
+              f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms [{card}]")
+    print(f"kernel K3: B={B_LONG} T={T_LONG} Tc={TC_LONG} decode bit-equal "
+          f"to K1 + K2; chunked {decode['chunked_ms']:.3f} ms, full scan "
+          f"{decode['full_scan_ms']:.3f} ms [{card}]")
+    recs.update(k3)
+    del gt, model, ev
+    torch.cuda.empty_cache()
 
     reads = simulated_reads(models, rng)
     inp = em_kernel_inputs(models, reads, device, rng)
@@ -674,19 +888,29 @@ def main() -> int:
                                      TRANS_UNTRAINED_KERNELS, trans)
     print_run("untrained under the loaded table (-s --no-train)",
               trans_untrained, card)
+    long_reads = simulated_reads(models, rng, specs=LONG_READS,
+                                 prefix="long")
+    long = run_end_to_end(models, long_reads, device, True, LONG_KERNELS,
+                          tag="long")
+    for k in ("viterbi_forward_path", "viterbi_traceback"):
+        assert long["launches"][k] == 0, f"a long path chunk ran {k}"
+    print_run("long reads, trained (default)", long, card)
     print(f"identity mean: trained {trained['identity_mean']:.3f}, "
           f"untrained {untrained['identity_mean']:.3f}; under the loaded "
           f"table trained {trans_trained['identity_mean']:.3f}, untrained "
-          f"{trans_untrained['identity_mean']:.3f}")
+          f"{trans_untrained['identity_mean']:.3f}; long reads "
+          f"{long['identity_mean']:.3f}")
 
     runs = {"untrained": untrained["launches"], "trained": trained["launches"],
             "trained_trans": trans_trained["launches"],
-            "untrained_trans": trans_untrained["launches"]}
+            "untrained_trans": trans_untrained["launches"],
+            "long": long["launches"]}
     records = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces,
                 "launches": sum(r[k.name] for r in runs.values()),
                 "launches_by_run": {w: r[k.name] for w, r in runs.items()},
-                **recs[k.name]} for k in kernels.KERNELS]
+                **recs[k.name], **bound(k.name, *recs[k.name]["shape"]),
+                "library_ms": None} for k in kernels.KERNELS]
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

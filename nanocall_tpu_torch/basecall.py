@@ -8,7 +8,8 @@ then selects its best candidate by fit.  Decode: reads expand into
 per-(strand, candidate model) Viterbi tasks; tasks bucket by padded length;
 contested candidates are scored with the forward pass alone (K1,
 score-only) and the winners are decoded with backpointers and a traceback
-(K1 + K2).  Results come back in read order for FASTA output.
+(K1 + K2; chunk by chunk in time, K3, for buckets of 32768 events and
+more).  Results come back in read order for FASTA output.
 
 Under a loaded transition table (`--trans`), EM rounds run the legacy
 round (train.train_one_round with default_ops: K4 + K6d and K6c), and a
@@ -36,14 +37,12 @@ import time
 import numpy as np
 import torch
 
-from nanocall_tpu import batching, events as events_mod, kmer, native, \
-    read_pipeline
-from nanocall_tpu.config import Config
-from nanocall_tpu.observe import Progress, read_context
-from nanocall_tpu.pore_model import PoreModelParams
-from nanocall_tpu.transitions import SparseTransitions, TransitionParams
-
-from . import convert, train
+from . import batching, convert, events as events_mod, kmer, native, \
+    read_pipeline, train
+from .config import Config
+from .observe import Progress, read_context
+from .pore_model import PoreModelParams
+from .transitions import SparseTransitions, TransitionParams
 from .ops import hmm
 
 log = logging.getLogger("nanocall")
@@ -51,7 +50,10 @@ log = logging.getLogger("nanocall")
 #: backpointer bytes one path chunk may hold.  A chunk's bps are exactly
 #: B * (T-1) * 4096 bytes, so the budget caps B only for long buckets
 #: (batching.batch_size_for) and leaves the rest of an 80 GB card to the
-#: event pool, the tables and the chunks in flight.
+#: event pool, the tables and the chunks in flight.  The chunked-time decode
+#: of long buckets holds the same bytes (every chunk's bps live until its
+#: traceback), so the cap is the same for both; the JAX package's larger
+#: cap for that decode bounds an XLA layout copy that the port never makes.
 BP_BUDGET = 32 << 30
 
 #: alpha bytes one EM chunk may hold.  A round stores the alphas of its
@@ -481,16 +483,22 @@ def decode_chunk_pooled(pool_mean, pool_stdv, pool_start, idx, drifts, bank,
                         model_idx, pm_params, stp, lengths, K: int = 6,
                         with_path: bool = True, sparse_ops=None) -> dict:
     """One decode chunk on the pool's device: scaled models, event gather,
-    and the decode (nanocall_tpu/basecall.py:1051-1075, 1143-1152): under
+    and the decode (nanocall_tpu/basecall.py:1051-1075, 1143-1158): under
     sparse_ops (a loaded table's TransOps) the generic decode, {"path"
     (B, T) uint16, "logp"} or {"logp"}; else the grouped decode over the
-    per-task tables of stp."""
+    per-task tables of stp, chunk by chunk in time (K3) for a path chunk
+    of a bucket of batching.TCHUNK_MIN_T events or more, as the JAX package
+    selects it.  Both grouped forms give the same bits."""
     model = hmm.make_scaled_model_arrays(bank, model_idx, pm_params)
     ev = pooled_ev_batch(pool_mean, pool_stdv, pool_start, idx, drifts,
                          lengths)
     if sparse_ops is not None:
         return hmm.viterbi_decode(sparse_ops, model, ev, with_path=with_path)
     gt = hmm.make_grouped_trans_device(stp[:, 0], stp[:, 1], K)
+    T = ev["mean"].shape[1]
+    if with_path and T >= batching.TCHUNK_MIN_T:
+        return hmm.viterbi_decode_grouped_tchunk(gt, model, ev,
+                                                 batching.tchunk_len(T))
     return hmm.viterbi_decode_grouped(gt, model, ev, with_path=with_path)
 
 
@@ -786,7 +794,7 @@ def select_and_assemble(winners, summaries, cfg: Config) -> list:
 def ingest_reads(stream, cfg: Config, device, train_models=None,
                  default_transitions=None):
     """Collect the (summary, per-strand events) stream that
-    nanocall_tpu.ingest.ingest_stream yields: summaries in stream order, and
+    ingest.ingest_stream yields: summaries in stream order, and
     an EventPool on `device` holding every decodable strand
     (nanocall_tpu/basecall.py:599-636).
 
@@ -836,7 +844,7 @@ def run_pipeline(stream, models, cfg: Config, device, timer=None,
     results) like nanocall_tpu.basecall.run_pipeline.
 
     `stream` yields (summary, per-strand events) per read, as
-    nanocall_tpu.ingest.ingest_stream does; `timer` (observe.StageTimer)
+    ingest.ingest_stream does; `timer` (observe.StageTimer)
     gets a "training" stage (ingest and EM; "init_reads" when training is
     off) and a "basecalling" stage.  default_transitions is the CLI's
     table (cli.init_transitions): a loaded `--trans` table runs the legacy

@@ -18,14 +18,13 @@ import sys
 
 import torch
 
-from nanocall_tpu import fast5_io, ingest, output, pore_model, \
+from . import basecall, fast5_io, ingest, output, pore_model, \
     read_pipeline, transitions
-from nanocall_tpu.config import Config
-from nanocall_tpu.models import load_builtin_models
-from nanocall_tpu.observe import StageTimer, set_levels_from_options
-from nanocall_tpu.version import get_version
-
-from . import basecall
+from .config import Config
+from .models import load_builtin_models
+from .observe import StageTimer, set_levels_from_options
+from .util import zopen
+from .version import get_version
 
 log = logging.getLogger("nanocall")
 
@@ -174,8 +173,6 @@ def init_models(cfg: Config) -> dict:
     nanocall.cpp:97-178)."""
     specs = list(cfg.model_files)
     if cfg.model_fofn:
-        from nanocall_tpu.util import zopen
-
         with zopen(cfg.model_fofn) as fh:
             specs += [line.strip() for line in fh if line.strip()]
     models = {}

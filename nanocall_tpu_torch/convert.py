@@ -11,8 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nanocall_tpu import transitions
-
+from . import transitions
 from .ops import hmm
 
 BANK_FIELDS = ("level_mean", "level_stdv", "sd_mean", "sd_lambda")
@@ -26,7 +25,7 @@ def tensor(x, device, dtype=torch.float32) -> torch.Tensor:
 def model_bank(models: dict, names, device) -> dict:
     """{level_mean, level_stdv, sd_mean, sd_lambda}: (M, n) float32 tensors,
     row i from the PoreModel `models[names[i]]` (as
-    nanocall_tpu.models.load_builtin_models returns them)."""
+    models.load_builtin_models returns them)."""
     return {
         f: tensor(np.stack([getattr(models[name], f) for name in names]),
                   device)

@@ -1,29 +1,42 @@
-// K1: grouped max-plus Viterbi forward over all T events of a read.
+// K1: grouped max-plus Viterbi forward over all T events of a read, and
+// K3's forward half: the same scan over one chunk of events [t0, t1), with
+// alpha carried in from the chunk before.
 //
-// Replaces nanocall_tpu/ops/hmm.py _grouped_step_core + viterbi_forward_grouped
-// (+ log_emission, inlined), a lax.scan body that XLA compiled for the TPU.
-// Semantics, per step t = 1..T-1 and destination state j (n = 4096, K = 6):
+// K1 replaces nanocall_tpu/ops/hmm.py _grouped_step_core +
+// viterbi_forward_grouped (+ log_emission, inlined), a lax.scan body that
+// XLA compiled for the TPU; the chunk form replaces
+// viterbi_forward_grouped_chunk (hmm.py:389), the forward half of
+// viterbi_decode_grouped_tchunk (hmm.py:614).
+// Semantics, per step t >= 1 and destination state j (n = 4096, K = 6):
 //   m4[c],  g4[c]  = max / first argmax over r of alpha[r*1024 + c], r < 4
 //   m16[c], g16[c] = max / first argmax over r of alpha[r*256 + c],  r < 16
 //   v0 = stay[j] + alpha[j]; v1 = step[j] + m4[j>>2]; v2 = skip[j] + m16[j>>4]
 //   best = max(v0, v1, v2); ties go to the lowest from-state
 //   bp = 0 | 64 + g4[j>>2] | 128 + g16[j>>4]   (group << 6 | within-group arg)
 //   alpha'[j] = t < length ? best + emission(t, j) : alpha[j]
-// and alpha0 = emission(0, j) - log(n).  bps are written for every t < T,
-// padded steps included, exactly like the JAX scan.
+// and at t = 0, alpha = emission(0, j) - log(n).  bps are written for every
+// step, padded steps included, exactly like the JAX scans: K1 writes event
+// t's row at bps[t-1] (event 0 has none); a chunk writes event t's row at
+// bps[t - t0], and the row of event 0, in the chunk with t0 = 0, is zeros.
 //
 // Design: one block per read, 1024 threads, 4 states per thread; the time
-// loop runs inside the block, so a whole read is one launch.  alpha lives in
-// shared memory (16 KB; one buffer suffices because each thread keeps its own
-// 4 states in registers and the two barriers per step separate the column
-// reductions from the updates).  The 9 per-read tables are loaded once into
-// registers.  Each thread stores its 4 backpointer bytes as one 32-bit word,
-// so a warp writes 128 contiguous bytes of bps[t-1, b, :].
+// loop runs inside the block, so a whole read (or chunk) is one launch.
+// alpha lives in shared memory (16 KB; one buffer suffices because each
+// thread keeps its own 4 states in registers and the two barriers per step
+// separate the column reductions from the updates).  The 9 per-read tables
+// are loaded once into registers.  Each thread stores its 4 backpointer
+// bytes as one 32-bit word, so a warp writes 128 contiguous bytes of a bp
+// row.  The chunk form is the template instance CHUNK = true of the same
+// kernel: it reads alpha from the carry at t0 > 0 and reads events t0..t1-1
+// of the (B, ev_stride) event rows in place, and runs the one step body, so
+// chunked and full scans are bit-identical by construction.
 //
 // What bounds it: the two block barriers per step and the serial 16-row
-// column max (256 threads do it while 768 wait), plus T*4096 bytes of
-// backpointer stores per read.  Making it fast (several reads per block,
-// warp-level column reductions, fewer barriers) is later work.
+// column max (256 threads do it while 768 wait), plus 4096 bytes of
+// backpointer stores per read and step.  A chunk of 8192 events bounds one
+// launch's length (a 100k-event read is 13 launches, not one); the bytes
+// and operations are those of the full scan.  Making it fast (several reads
+// per block, warp-level column reductions, fewer barriers) is later work.
 //
 // Build with -fmad=false: every float operation then rounds on its own, as
 // each elementwise PyTorch op does, so the kernel is bit-identical to the
@@ -44,11 +57,15 @@ constexpr int BIG = 0x7fffffff;
 
 using nc::emission;
 
+// CHUNK = false: K1, events [0, t1) with t0 = 0; CHUNK = true: one chunk.
+template <bool CHUNK>
 __global__ void __launch_bounds__(THREADS, 1)
 viterbi_forward_kernel(const float* __restrict__ ev_mean,
                        const float* __restrict__ ev_stdv,
                        const float* __restrict__ ev_log_stdv,
-                       const int32_t* __restrict__ length, int B, int T,
+                       const int32_t* __restrict__ length, int B,
+                       int ev_stride, int t0, int t1,
+                       const float* __restrict__ carry_alpha,
                        const float* __restrict__ stay,
                        const float* __restrict__ step,
                        const float* __restrict__ skip,
@@ -98,13 +115,16 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
     NC_UNPACK(r_lsl, v8)
 #undef NC_UNPACK
   }
-  const float* evm = ev_mean + (size_t)b * T;
-  const float* evs = ev_stdv + (size_t)b * T;
-  const float* evl = ev_log_stdv + (size_t)b * T;
+  const float* evm = ev_mean + (size_t)b * ev_stride;
+  const float* evs = ev_stdv + (size_t)b * ev_stride;
+  const float* evl = ev_log_stdv + (size_t)b * ev_stride;
   const int len = length[b];
+  // bp row of event t: bps[t - row0]
+  const int row0 = CHUNK ? t0 : 1;
 
   float a[4];
-  {
+  int t = t0;
+  if (t0 == 0) {
     const float x = evm[0], y = evs[0], ly = evl[0];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -113,10 +133,21 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
              log_n;
       alpha[4 * tid + i] = a[i];
     }
+    if (CHUNK && bps != nullptr)
+      reinterpret_cast<uint32_t*>(bps + (size_t)b * N)[tid] = 0u;
+    t = 1;
+  } else {
+    const float4 v = *reinterpret_cast<const float4*>(carry_alpha + row);
+    a[0] = v.x;
+    a[1] = v.y;
+    a[2] = v.z;
+    a[3] = v.w;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) alpha[4 * tid + i] = a[i];
   }
   __syncthreads();
 
-  for (int t = 1; t < T; ++t) {
+  for (; t < t1; ++t) {
     // column maxima with first-occurrence argmax (strict > in increasing r)
     {
       float m = alpha[tid];
@@ -174,7 +205,7 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
       if (active) a[i] = best + em;
     }
     if (bps != nullptr) {
-      reinterpret_cast<uint32_t*>(bps + ((size_t)(t - 1) * B + b) * N)[tid] =
+      reinterpret_cast<uint32_t*>(bps + ((size_t)(t - row0) * B + b) * N)[tid] =
           packed;
     }
 #pragma unroll
@@ -187,8 +218,8 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
 
 }  // namespace
 
-// Plain C entry for ctypes.  bps == nullptr runs the score-only variant (no
-// backpointer stores).  Returns cudaGetLastError() after the launch.
+// Plain C entries for ctypes.  bps == nullptr runs the score-only variant (no
+// backpointer stores).  Each returns cudaGetLastError() after the launch.
 extern "C" int nc_viterbi_forward(
     const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
     const int32_t* length, int B, int T, const float* stay, const float* step,
@@ -199,10 +230,32 @@ extern "C" int nc_viterbi_forward(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B > 0 && T > 0) {
-    viterbi_forward_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        ev_mean, ev_stdv, ev_log_stdv, length, B, T, stay, step, skip,
-        level_mean, level_stdv, log_level_stdv, sd_mean, sd_lambda,
-        log_sd_lambda, log2pi, log_n, final_alpha, bps);
+    viterbi_forward_kernel<false><<<B, THREADS, 0, (cudaStream_t)stream>>>(
+        ev_mean, ev_stdv, ev_log_stdv, length, B, T, 0, T, nullptr, stay,
+        step, skip, level_mean, level_stdv, log_level_stdv, sd_mean,
+        sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One chunk, events [t0, t1) of (B, ev_stride) event rows; carry_alpha
+// (B, 4096) is alpha at event t0 - 1 (unread when t0 == 0); bps holds
+// t1 - t0 rows of (B, 4096).
+extern "C" int nc_viterbi_forward_chunk(
+    const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
+    const int32_t* length, int B, int ev_stride, int t0, int t1,
+    const float* carry_alpha, const float* stay, const float* step,
+    const float* skip, const float* level_mean, const float* level_stdv,
+    const float* log_level_stdv, const float* sd_mean, const float* sd_lambda,
+    const float* log_sd_lambda, float log2pi, float log_n, float* final_alpha,
+    uint8_t* bps, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0 && t1 > t0) {
+    viterbi_forward_kernel<true><<<B, THREADS, 0, (cudaStream_t)stream>>>(
+        ev_mean, ev_stdv, ev_log_stdv, length, B, ev_stride, t0, t1,
+        carry_alpha, stay, step, skip, level_mean, level_stdv, log_level_stdv,
+        sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps);
   }
   return (int)cudaGetLastError();
 }

@@ -1,90 +1,178 @@
-"""Ingest from event arrays in memory, without a fast5 file.
+"""Read ingestion: summarize + event filtering in worker processes (a copy
+of nanocall_tpu/ingest.py), and event-detection data from arrays in
+memory.
 
-`summarize_ed` is nanocall_tpu.read_pipeline._summarize_impl from the point
-where the fast5 has been read (read_pipeline.py:286-339): the same checks,
-abasic level, strand detection, event filtering and initial scaling, on an
-EdEventData the caller already holds.  It lets a machine without h5py feed
-the decode pipeline the same (summary, per-strand events) stream that
-nanocall_tpu.ingest.ingest_stream yields from fast5 files.
+The per-read host work (h5py parsing, abasic/hairpin island detection, event
+filtering, initial moment-matching scaling — Fast5_Summary.hpp:138-319) is
+GIL-bound numpy/h5py, so it runs in fork()ed worker processes, and results
+stream back in file order so the EM driver consumes them as they arrive.
+The pool must be forked while the process is still single-threaded, before
+anything initialises CUDA: the CLI calls ensure_pool() first.
+
+`ed_from_arrays` builds the EdEventData that a fast5 file would give, so a
+machine without h5py can feed read_pipeline.summarize_ed, and through it
+the pipeline, the same (summary, per-strand events) stream.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import os
 
 import numpy as np
 
-from nanocall_tpu import fast5_io, native, read_pipeline
-from nanocall_tpu.config import Config
-from nanocall_tpu.events import EventSequence
+from . import fast5_io, read_pipeline
 
-log = logging.getLogger("Fast5_Summary")
+log = logging.getLogger("nanocall")
 
-_NO_EVENTS = [EventSequence(np.zeros(0), np.zeros(0), np.zeros(0),
-                            np.zeros(0))] * 2
+_executor = None
+_executor_workers = 0
+
+# files per task: large enough to amortize the (models, cfg) pickle per
+# task, small enough to stream results back promptly
+_CHUNK = 8
 
 
-def summarize_ed(file_name: str, ed: fast5_io.EdEventData, models: dict,
-                 cfg: Config, analyses=("EventDetection_000",)):
-    """(ReadSummary, per-strand events) of one read's event-detection data,
-    as read_pipeline.summarize(..., return_events=True) gives for a fast5
-    file holding `ed` and the analysis groups `analyses`."""
-    s = read_pipeline.ReadSummary(file_name=file_name, valid=True)
-    base = os.path.basename(file_name)
-    if base.endswith(".fast5"):
-        base = base[: -len(".fast5")]
-    s.base_file_name = base
-    s.read_id = ed.read_id or base
-    s.sampling_rate = ed.sampling_rate
-    if not (1000.0 <= s.sampling_rate <= 10000.0):
-        log.warning("%s: unexpected sampling rate: %s", file_name,
-                    s.sampling_rate)
-        return s, _NO_EVENTS
-    num = min(len(ed.mean), cfg.max_ed_events)
-    trim = cfg.trim_margins
-    if num < trim[0] + trim[1] + cfg.min_ed_events:
-        log.info("%s: not enough eventdetection events: %d", file_name, num)
-        return s, _NO_EVENTS
-    s.num_ed_events = num
-    means = ed.mean[:num]
-    s.abasic_level = native.abasic_level(
-        means, cfg.abasic_level_top_percent, cfg.abasic_level_top_offset)
-    if s.abasic_level <= 1.0:
-        log.info("%s: abasic level too low: %s", file_name, s.abasic_level)
-        s.num_ed_events = 0
-        return s, _NO_EVENTS
-    bounds = (trim[0], num - trim[1], 0, 0)
-    if not cfg.template_only:
-        bounds = read_pipeline.detect_strands(num, means, s.abasic_level, trim)
-    if bounds[1] <= bounds[0]:
-        log.info("%s: no template strand detected", file_name)
-        s.num_ed_events = 0
-        return s, _NO_EVENTS
-    s.strand_bounds = bounds
-    s.scale_strands_together = (
-        cfg.double_strand_scaling
-        and bounds[1] - bounds[0] >= cfg.min_ed_events
-        and bounds[3] - bounds[2] >= cfg.min_ed_events
+def auto_workers() -> int:
+    n = os.cpu_count() or 1
+    return max(1, min(n - 1, 6))
+
+
+def _resolve_workers(workers: int) -> int:
+    return auto_workers() if workers < 0 else workers
+
+
+def _get_executor(workers: int):
+    global _executor, _executor_workers
+    if _executor is not None and _executor_workers == workers:
+        return _executor
+    if _executor is not None:
+        _executor.shutdown(wait=False, cancel_futures=True)
+        _executor = None
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    _executor = ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("fork")
     )
-    evs = read_pipeline.filter_and_build_events(
-        read_pipeline._truncate(ed, num), bounds, s.abasic_level,
-        s.sampling_rate, s.scale_strands_together,
-    )
-    s.time_length = tuple(
-        evs[st].time_length() if len(evs[st]) >= cfg.min_ed_events else 0.0
-        for st in (0, 1)
-    )
-    read_pipeline.initial_scaling(s, evs, models, cfg)
-    s.bc_grp = fast5_io.next_basecall_group(list(analyses))
-    return s, evs
+    _executor_workers = workers
+    return _executor
+
+
+def _discard_executor() -> None:
+    """Drop a failed pool so the next ingest_stream rebuilds it instead of
+    getting the same broken executor back from the cache."""
+    global _executor, _executor_workers
+    if _executor is not None:
+        _executor.shutdown(wait=False, cancel_futures=True)
+    _executor = None
+    _executor_workers = 0
+
+
+def ensure_pool(workers: int = -1) -> None:
+    """Fork the pool's workers now, while the process is still
+    single-threaded (call before anything initialises CUDA)."""
+    workers = _resolve_workers(workers)
+    if workers > 1:
+        try:
+            pool = _get_executor(workers)
+            # ProcessPoolExecutor forks workers lazily at first submit(),
+            # not at construction: run one trivial task per worker and
+            # wait, so every worker process exists before we return
+            list(pool.map(_warm_task, range(workers)))
+        except Exception as e:  # pool is an optimization, never fatal
+            log.warning("ingest pool pre-create failed (%s)", e)
+            _discard_executor()
+
+
+def _warm_task(_i):
+    """Trivial picklable task used to force eager worker fork (ensure_pool)."""
+    return os.getpid()
+
+
+def _worker_chunk(paths, models, cfg):
+    return [
+        read_pipeline.summarize(p, models, cfg, return_events=True)
+        for p in paths
+    ]
+
+
+def ingest_stream(files, models, cfg):
+    """Yield (summary, per-strand events) per fast5 file, in file order.
+
+    With cfg.ingest_workers > 1 (default: auto), files are summarized by a
+    persistent fork pool; any pool failure falls back to in-process
+    ingestion for the remaining files (per-read errors never surface here —
+    summarize catches them and returns num_ed_events == 0, matching
+    Fast5_Summary.hpp:311-315 semantics)."""
+    workers = _resolve_workers(cfg.ingest_workers)
+    if workers <= 1 or len(files) <= _CHUNK:
+        for p in files:
+            yield read_pipeline.summarize(p, models, cfg, return_events=True)
+        return
+    chunks = [files[i : i + _CHUNK] for i in range(0, len(files), _CHUNK)]
+    done = 0
+    # bounded in-flight window: enough chunks to keep every worker busy
+    # while the consumer drains, without buffering the whole dataset's
+    # event arrays in parent RAM
+    window = workers * 4
+    next_ci = 0
+    futs: "collections.deque" = collections.deque()
+    try:
+        pool = _get_executor(workers)
+        while next_ci < len(chunks) and len(futs) < window:
+            futs.append(pool.submit(_worker_chunk, chunks[next_ci], models, cfg))
+            next_ci += 1
+    except Exception as e:
+        log.warning("ingest pool unavailable (%s); ingesting in-process", e)
+        _discard_executor()
+        futs.clear()
+        next_ci = len(chunks)
+    while futs:
+        fut = futs.popleft()
+        try:
+            results = fut.result()
+        except Exception as e:
+            log.warning(
+                "ingest pool failed (%s); ingesting remaining %d files "
+                "in-process", e, len(files) - done,
+            )
+            for f2 in futs:
+                f2.cancel()
+            _discard_executor()
+            futs.clear()
+            break
+        del fut  # release the Future's result reference promptly
+        try:
+            while next_ci < len(chunks) and len(futs) < window:
+                futs.append(
+                    pool.submit(_worker_chunk, chunks[next_ci], models, cfg)
+                )
+                next_ci += 1
+        except Exception as e:
+            log.warning(
+                "ingest submit failed (%s); finishing in-process", e
+            )
+            _discard_executor()
+            next_ci = len(chunks)
+        for r in results:
+            done += 1
+            yield r
+    for p in files[done:]:
+        yield read_pipeline.summarize(p, models, cfg, return_events=True)
+
+
+def shutdown() -> None:
+    """Tear down the worker pool (tests / process exit hygiene)."""
+    _discard_executor()
 
 
 def ed_from_arrays(mean, stdv, start, length, sampling_rate: float,
                    read_id: str = "") -> fast5_io.EdEventData:
-    """EdEventData as fast5_io.Fast5File reads back what
-    fast5_io.write_fast5 wrote: float64 mean/stdv, and start/length stored
-    as int64 sample counts."""
+    """EdEventData as fast5_io.Fast5File reads back a file that holds these
+    events: float64 mean/stdv, and start/length stored as int64 sample
+    counts."""
     return fast5_io.EdEventData(
         read_id=read_id, sampling_rate=float(sampling_rate),
         mean=np.asarray(mean, np.float64), stdv=np.asarray(stdv, np.float64),

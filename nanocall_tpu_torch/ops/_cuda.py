@@ -109,6 +109,12 @@ def load():
         lib.nc_viterbi_forward.restype = ci
         lib.nc_viterbi_forward.argtypes = (
             [vp] * 4 + [ci, ci] + [vp] * 9 + [cf, cf] + [vp, vp] + [ci, vp])
+        lib.nc_viterbi_forward_chunk.restype = ci
+        lib.nc_viterbi_forward_chunk.argtypes = (
+            [vp] * 4 + [ci] * 4 + [vp] * 10 + [cf, cf] + [vp, vp] + [ci, vp])
+        lib.nc_viterbi_traceback_chunk.restype = ci
+        lib.nc_viterbi_traceback_chunk.argtypes = (
+            [vp] * 4 + [ci] * 4 + [vp] + [ci, vp])
         lib.nc_viterbi_traceback.restype = ci
         lib.nc_viterbi_traceback.argtypes = (
             [vp] * 3 + [ci, ci, ci] + [vp] * 3 + [ci, vp])

@@ -14,8 +14,7 @@ import math
 
 import torch
 
-from nanocall_tpu.pore_model import LOG_2PI
-
+from ..pore_model import LOG_2PI
 from . import _cuda, hmm
 
 #: the 14 per-row scaling moments K5 returns, in column order

@@ -16,6 +16,10 @@ Kernels and their plain versions, side by side below:
   K1  viterbi_forward.cu    forward_path_kernel / forward_score_kernel
                             vs viterbi_forward_grouped_plain
   K2  viterbi_traceback.cu  traceback_kernel vs viterbi_traceback_grouped_plain
+  K3  viterbi_forward.cu    forward_chunk_kernel
+                            vs viterbi_forward_grouped_chunk_plain
+      viterbi_traceback.cu  traceback_chunk_kernel
+                            vs viterbi_traceback_grouped_chunk_plain
   K4  fwbw_forward.cu       fwbw_forward_kernel vs fwbw_grouped_forward_plain
   K6a viterbi_generic.cu    generic_forward_path_kernel /
                             generic_forward_score_kernel
@@ -48,9 +52,8 @@ from typing import NamedTuple
 
 import torch
 
-from nanocall_tpu import kmer, transitions
-from nanocall_tpu.pore_model import LOG_2PI
-
+from .. import kmer, transitions
+from ..pore_model import LOG_2PI
 from . import _cuda
 
 #: from-state sentinel for the lowest-from-state tie-break
@@ -506,13 +509,226 @@ def viterbi_decode_grouped(gt: GroupedTrans, model: ModelArrays, ev: dict,
     """Grouped Viterbi decode (nanocall_tpu/ops/hmm.py:580-606 with
     compact_path=True): {"logp"} when with_path is False, else {"path0",
     "codes", "logp"}; rebuild state paths on the host with
-    nanocall_tpu.native.path_from_packed_codes."""
+    native.path_from_packed_codes."""
     final_alpha, bps = viterbi_forward_grouped(gt, model, ev, with_path)
     if not with_path:
         return {"logp": torch.amax(final_alpha, dim=-1)}
     path0, codes, logp = viterbi_traceback_grouped(gt.K, final_alpha, bps,
                                                    ev["length"])
     return {"path0": path0, "codes": codes, "logp": logp}
+
+
+# ---------------------------------------------------------------------------
+# K3: the grouped decode chunk by chunk in time (long reads)
+# ---------------------------------------------------------------------------
+
+
+def viterbi_forward_grouped_chunk_plain(gt: GroupedTrans, model: ModelArrays,
+                                        ev_chunk: dict, carry_alpha, t0: int):
+    """Plain version of K3's forward half (nanocall_tpu/ops/hmm.py:389-434):
+    ev_chunk holds the (B, Tc) events [t0, t0+Tc) and the global lengths;
+    carry_alpha (B, n) is alpha at event t0-1 (unread when t0 == 0).
+    Returns (alpha at event t0+Tc-1, bps (Tc, B, n) uint8): row i holds
+    event t0+i's backpointers, and the row of event 0 is zeros.  Chunks
+    scanned left to right reproduce viterbi_forward_grouped_plain."""
+    n = model.level_mean.shape[-1]
+    lengths = ev_chunk["length"]
+    mean, stdv, log_stdv = (ev_chunk["mean"], ev_chunk["stdv"],
+                            ev_chunk["log_stdv"])
+    B, Tc = mean.shape
+    alpha = carry_alpha
+    bps = torch.empty((Tc, B, n), dtype=torch.uint8, device=mean.device)
+    for i in range(Tc):
+        t = t0 + i
+        if t == 0:
+            alpha = log_emission(model, mean[:, 0], stdv[:, 0],
+                                 log_stdv[:, 0]) - math.log(n)
+            bps[0] = 0
+            continue
+        best, bp = _grouped_step_core(gt, alpha)
+        em = log_emission(model, mean[:, i], stdv[:, i], log_stdv[:, i])
+        alpha = torch.where((t < lengths)[:, None], best + em, alpha)
+        bps[i] = bp
+    return alpha, bps
+
+
+def forward_chunk_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
+                         carry_alpha, t0: int, Tc: int):
+    """K3's forward half on the card: events [t0, min(t0+Tc, T)) of the
+    (B, T) event rows, read in place; (alpha, bps (rows, B, n))."""
+    mean = ev["mean"]
+    dev = mean.device
+    B, T = mean.shape
+    n = 4096
+    t1 = min(t0 + Tc, T)
+    if gt.K != 6:
+        raise ValueError(f"the CUDA forward kernel takes K=6, got K={gt.K}")
+    if not 0 <= t0 < t1:
+        raise ValueError(f"empty chunk [{t0}, {t1}) of {T} events")
+    _check_events(ev, B, T, dev)
+    tables = (gt.stay_lp, gt.step_lp, gt.skip_lp, *model)
+    _check_tables(tables, B, n, dev)
+    if t0 > 0:
+        _check_tables((carry_alpha,), B, n, dev)
+    _require_cuda(dev, "viterbi forward chunk")
+    final = torch.empty((B, n), dtype=torch.float32, device=dev)
+    bps = torch.empty((t1 - t0, B, n), dtype=torch.uint8, device=dev)
+    lib = _cuda.load()
+    err = lib.nc_viterbi_forward_chunk(
+        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
+        ev["length"].data_ptr(), B, T, t0, t1,
+        carry_alpha.data_ptr() if t0 > 0 else None,
+        *(x.data_ptr() for x in tables), LOG_2PI, math.log(n),
+        final.data_ptr(), bps.data_ptr(),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "viterbi_forward_chunk kernel launch")
+    forward_chunk_kernel.launches += 1
+    return final, bps
+
+
+forward_chunk_kernel.launches = 0
+
+
+def viterbi_forward_grouped_chunk(gt: GroupedTrans, model: ModelArrays,
+                                  ev: dict, carry_alpha, t0: int, Tc: int):
+    """K3's forward half on the tensors' device over events [t0, t0+Tc) of
+    the (B, T) events `ev` (the last chunk is shorter): (alpha, bps)."""
+    dev = ev["mean"].device
+    if dev.type == "cpu":
+        sl = slice(t0, t0 + Tc)
+        ev_chunk = {k: ev[k][:, sl] for k in ("mean", "stdv", "log_stdv")}
+        ev_chunk["length"] = ev["length"]
+        return viterbi_forward_grouped_chunk_plain(gt, model, ev_chunk,
+                                                   carry_alpha, t0)
+    if dev.type != "cuda":
+        raise ValueError(f"no grouped Viterbi forward chunk for device {dev}")
+    return forward_chunk_kernel(gt, model, ev, carry_alpha, t0, Tc)
+
+
+def viterbi_traceback_grouped_chunk_plain(K: int, end_state, carry_state,
+                                          bps, t0: int, lengths):
+    """Plain version of K3's traceback half (nanocall_tpu/ops/hmm.py:
+    437-483, compact=True): walks the chunk's rows bps (Tc, B, n) of events
+    [t0, t0+Tc) backwards from carry_state (end_state for the last chunk).
+    Returns (the state for the chunk to the left — path0 after the chunk
+    with t0 == 0 —, codes (Tc, B) uint8, row i the 6-bit code of event
+    t0+i, 0 at event 0)."""
+    Tc, B, _ = bps.shape
+    rows = torch.arange(B, device=bps.device)
+    lengths = lengths.to(torch.int32)
+    codes = torch.zeros((Tc, B), dtype=torch.uint8, device=bps.device)
+    s = carry_state
+    for i in range(Tc - 1, -1, -1):
+        t = t0 + i
+        s_eff = torch.where(t == lengths - 1, end_state, s)
+        k = bps[i, rows, s_eff.long()].to(torch.int32)
+        # event 0's row is filler: it passes s_eff through
+        real = (t <= lengths - 1) & (t >= 1)
+        s = torch.where(real, grouped_from_state(k, s_eff, K), s_eff)
+        codes[i] = torch.where(real, ((k >> 6) << 4) | (s_eff & 15), 0)
+    return s, codes
+
+
+def traceback_chunk_kernel(K: int, end_state, state, bps, t0: int, lengths,
+                           codes):
+    """K3's traceback half on the card: walks the chunk's rows of events
+    [t0, t0+rows) from `state`, which it updates in place, and ORs the
+    chunk's codes into the packed codes (B, 3*ceil((T-1)/4))."""
+    dev = bps.device
+    Tc, B, n = bps.shape
+    if K != 6 or n != 4096:
+        raise ValueError(f"the CUDA traceback kernel takes K=6, n=4096; "
+                         f"got K={K}, n={n}")
+    for name, x in (("end_state", end_state), ("state", state),
+                    ("lengths", lengths)):
+        _check(name, x, torch.int32, (B,), dev)
+    _check("bps", bps, torch.uint8, (Tc, B, n), dev)
+    _check("codes", codes, torch.uint8, (B, codes.shape[1]), dev)
+    if codes.shape[1] < 3 * -(-(t0 + Tc - 1) // 4):
+        raise ValueError(f"codes of {codes.shape[1]} bytes per read cannot "
+                         f"hold events up to {t0 + Tc}")
+    _require_cuda(dev, "viterbi traceback chunk")
+    lib = _cuda.load()
+    err = lib.nc_viterbi_traceback_chunk(
+        end_state.data_ptr(), state.data_ptr(), bps.data_ptr(),
+        lengths.data_ptr(), B, t0, t0 + Tc, codes.shape[1],
+        codes.data_ptr() if codes.numel() else None,
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "viterbi_traceback_chunk kernel launch")
+    traceback_chunk_kernel.launches += 1
+    return state
+
+
+traceback_chunk_kernel.launches = 0
+
+
+def or_packed_codes(codes, chunk_codes, t0: int) -> None:
+    """OR a chunk's (Tc, B) codes of events [t0, t0+Tc) into the packed
+    codes (B, 3*ceil((T-1)/4)) at their global places (event t's code is
+    code t-1 of the packed row), as the traceback chunk kernel does."""
+    B, nbytes = codes.shape
+    full = torch.zeros((nbytes // 3 * 4, B), dtype=torch.uint8,
+                       device=codes.device)
+    lo = max(t0, 1)
+    full[lo - 1:t0 + chunk_codes.shape[0] - 1] = chunk_codes[lo - t0:]
+    codes |= pack_codes(full)
+
+
+def viterbi_traceback_grouped_chunk(K: int, end_state, state, bps, t0: int,
+                                    lengths, codes):
+    """K3's traceback half on the tensors' device: the state for the chunk
+    to the left (in place on the card), with the chunk's codes ORed into
+    the packed codes."""
+    dev = bps.device
+    if dev.type == "cpu":
+        s, chunk_codes = viterbi_traceback_grouped_chunk_plain(
+            K, end_state, state, bps, t0, lengths)
+        or_packed_codes(codes, chunk_codes, t0)
+        return s
+    if dev.type != "cuda":
+        raise ValueError(f"no grouped traceback chunk for device {dev}")
+    return traceback_chunk_kernel(K, end_state, state, bps, t0, lengths,
+                                  codes)
+
+
+def viterbi_decode_grouped_tchunk(gt: GroupedTrans, model: ModelArrays,
+                                  ev: dict, Tc: int,
+                                  with_path: bool = True) -> dict:
+    """Grouped Viterbi decode in chunks of Tc events (nanocall_tpu/ops/
+    hmm.py:614-670, compact_path=True): C = ceil(T/Tc) forward chunks
+    linked by their alpha carry, then C traceback chunks right to left
+    linked by their state carry; the last chunk is shorter.  The output is
+    bit-identical to viterbi_decode_grouped: {"logp"} when with_path is
+    False, else {"path0", "codes", "logp"}.
+
+    All chunks' backpointers live until their traceback, B * T * n bytes as
+    in the full scan; each chunk's are freed as soon as it is traced back.
+    The end state and logp come once, from the last chunk's alpha."""
+    n = model.level_mean.shape[-1]
+    lengths = ev["length"]
+    B, T = ev["mean"].shape
+    dev = ev["mean"].device
+    t0s = range(0, T, Tc)
+    alpha = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    bps = []
+    for t0 in t0s:
+        alpha, bps_c = viterbi_forward_grouped_chunk(gt, model, ev, alpha,
+                                                     t0, Tc)
+        bps.append(bps_c)
+    logp = torch.amax(alpha, dim=-1)
+    if not with_path:
+        return {"logp": logp}
+    end_state = torch.argmax(alpha, dim=-1).to(torch.int32)
+    codes = torch.zeros((B, 3 * (-(-(T - 1) // 4))), dtype=torch.uint8,
+                        device=dev)
+    s = end_state.clone()
+    for c in reversed(range(len(bps))):
+        s = viterbi_traceback_grouped_chunk(gt.K, end_state, s, bps[c],
+                                            t0s[c], lengths, codes)
+        bps[c] = None
+    return {"path0": s, "codes": codes, "logp": logp}
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,12 @@ KERNELS = (
     Kernel("viterbi_traceback", hmm.traceback_kernel,
            "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
            "nanocall_tpu/ops/hmm.py:517"),
+    Kernel("viterbi_forward_chunk", hmm.forward_chunk_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_forward.cu",
+           "nanocall_tpu/ops/hmm.py:389"),
+    Kernel("viterbi_traceback_chunk", hmm.traceback_chunk_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
+           "nanocall_tpu/ops/hmm.py:437"),
     Kernel("fwbw_forward", hmm.fwbw_forward_kernel,
            "nanocall_tpu_torch/csrc/fwbw_forward.cu",
            "nanocall_tpu/ops/hmm.py:890"),

@@ -34,8 +34,7 @@ import math
 import numpy as np
 import torch
 
-from nanocall_tpu import kmer
-
+from . import kmer
 from .convert import BANK_FIELDS
 from .ops import em, hmm
 

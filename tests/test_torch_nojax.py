@@ -1,7 +1,9 @@
-"""nanocall_tpu_torch runs without JAX, and never falls back from CUDA.
+"""nanocall_tpu_torch runs without JAX and without the JAX package
+nanocall_tpu, and never falls back from CUDA.
 
-The CLI runs in a fresh interpreter, so the JAX this test process imports
-(tests/conftest.py) cannot hide an import made by the port.
+The CLI runs in a fresh interpreter, so the JAX and nanocall_tpu modules
+this test process imports (tests/conftest.py) cannot hide an import made
+by the port.
 """
 
 import os
@@ -17,6 +19,17 @@ from nanocall_tpu import simulate
 from nanocall_tpu.models import load_builtin_models
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+#: the end of each CLI script: no module of jax or of nanocall_tpu (but
+#: nanocall_tpu_torch) was loaded
+_ASSERT_NO_JAX = (
+    "assert rc == 0\n"
+    "bad = sorted(m for m in sys.modules"
+    " if m.split('.')[0] in ('jax', 'nanocall_tpu'))\n"
+    "assert not bad, bad\n"
+    "print('NOJAX_OK')\n")
+#: an import of jax or of the JAX package in a source line
+_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|nanocall_tpu)\b", re.M)
 
 
 def _run_python(code: str, *args) -> subprocess.CompletedProcess:
@@ -44,10 +57,7 @@ def test_cli_runs_on_cpu_without_importing_jax(reads, tmp_path):
         "from nanocall_tpu_torch.cli import main\n"
         "rc = main([sys.argv[1], '--no-train', '--pore', 'r73', '--device',"
         " 'cpu', '-t', '1', '-o', sys.argv[2]])\n"
-        "assert rc == 0\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
-        " if m.startswith('jax'))\n"
-        "print('NOJAX_OK')\n",
+        + _ASSERT_NO_JAX,
         reads, out)
     assert proc.returncode == 0, proc.stderr
     assert "NOJAX_OK" in proc.stdout
@@ -62,10 +72,7 @@ def test_trained_cli_runs_on_cpu_without_importing_jax(reads, tmp_path):
         "from nanocall_tpu_torch.cli import main\n"
         "rc = main([sys.argv[1], '--pore', 'r73', '--device', 'cpu', '-t',"
         " '1', '-o', sys.argv[2]])\n"
-        "assert rc == 0\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
-        " if m.startswith('jax'))\n"
-        "print('NOJAX_OK')\n",
+        + _ASSERT_NO_JAX,
         reads, out)
     assert proc.returncode == 0, proc.stderr
     assert "NOJAX_OK" in proc.stdout
@@ -86,10 +93,7 @@ def test_trans_cli_runs_on_cpu_without_importing_jax(reads, tmp_path):
         "rc = main([sys.argv[1], '--pore', 'r73', '--device', 'cpu', '-t',"
         " '1', '--scaling-max-rounds', '2', '-s', sys.argv[3], '-o',"
         " sys.argv[2]])\n"
-        "assert rc == 0\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
-        " if m.startswith('jax'))\n"
-        "print('NOJAX_OK')\n",
+        + _ASSERT_NO_JAX,
         reads, out, trans)
     assert proc.returncode == 0, proc.stderr
     assert "NOJAX_OK" in proc.stdout
@@ -112,11 +116,12 @@ def test_device_cuda_without_gpu_raises(reads, tmp_path):
 
 
 def test_package_source_names_no_jax():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    """No source of the port, nor its timing tool, imports jax or the JAX
+    package nanocall_tpu."""
     files = sorted((ROOT / "nanocall_tpu_torch").rglob("*.py"))
-    assert len(files) >= 8
-    for f in files:
-        assert not pat.search(f.read_text()), f
+    assert len(files) >= 20
+    for f in [*files, ROOT / "tools" / "torch_decode_times.py"]:
+        assert not _JAX_IMPORT.search(f.read_text()), f
 
 
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):
@@ -134,8 +139,6 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     """chip_smoke.py reaches the system only through nanocall_tpu_torch."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|nanocall_tpu)\b(?!_torch)",
-                     re.M)
     src = (ROOT / "chip_smoke.py").read_text()
     assert "nanocall_tpu_torch" in src
-    assert not pat.search(src), pat.search(src)
+    assert not _JAX_IMPORT.search(src), _JAX_IMPORT.search(src)

@@ -12,12 +12,14 @@ import os
 import numpy as np
 import pytest
 
-from nanocall_tpu import fast5_io, ingest as jingest, read_pipeline, simulate
+from nanocall_tpu import fast5_io, read_pipeline as jread_pipeline, simulate
 from nanocall_tpu.cli import main as jax_main
-from nanocall_tpu.config import Config
+from nanocall_tpu.config import Config as JConfig
 from nanocall_tpu.models import load_builtin_models
-from nanocall_tpu_torch import basecall, ingest
+from nanocall_tpu_torch import basecall, ingest, models as tmodels_mod, \
+    read_pipeline
 from nanocall_tpu_torch.cli import main as torch_main
+from nanocall_tpu_torch.config import Config
 from torch_helpers import one_torch_thread  # noqa: F401
 
 FLAG_SETS = {
@@ -30,6 +32,12 @@ FLAG_SETS = {
 @pytest.fixture(scope="module")
 def models():
     return load_builtin_models("r73")
+
+
+@pytest.fixture(scope="module")
+def tmodels():
+    """The port's own builtin models."""
+    return tmodels_mod.load_builtin_models("r73")
 
 
 @pytest.fixture(scope="module")
@@ -113,8 +121,9 @@ def test_unported_flags_raise(sim, tmp_path, flags):
 
 
 @pytest.mark.parametrize("double", [False, True])
-def test_summarize_ed_matches_fast5_summarize(sim, models, double):
+def test_summarize_ed_matches_fast5_summarize(sim, tmodels, double):
     d, arrays, _ = sim
+    models = tmodels
     cfg = Config(pore="r73", train=False,
                  double_strand_scaling=double).apply_pore_preset()
     for name, (mean, stdv, start, length) in arrays.items():
@@ -122,24 +131,25 @@ def test_summarize_ed_matches_fast5_summarize(sim, models, double):
         want_s, want_evs = read_pipeline.summarize(path, models, cfg,
                                                    return_events=True)
         ed = ingest.ed_from_arrays(mean, stdv, start, length, 4000.0, name)
-        got_s, got_evs = ingest.summarize_ed(path, ed, models, cfg)
+        got_s, got_evs = read_pipeline.summarize_ed(path, ed, models, cfg)
         assert got_s == want_s
         for a, b in zip(got_evs, want_evs):
             for f in ("mean", "stdv", "start", "length"):
                 assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
 
 
-def test_array_stream_pipeline_matches_fast5_stream(sim, models):
+def test_array_stream_pipeline_matches_fast5_stream(sim, tmodels):
     """run_pipeline gives the same results from an in-memory stream (the
     route for machines without h5py) as from ingest_stream over the files,
     with identity to the simulated template above 0.6."""
     d, arrays, truths = sim
+    models = tmodels
     cfg = Config(pore="r73", train=False, ingest_workers=1).apply_pore_preset()
     files = read_pipeline.init_files([str(d)])
-    _, want = basecall.run_pipeline(jingest.ingest_stream(files, models, cfg),
+    _, want = basecall.run_pipeline(ingest.ingest_stream(files, models, cfg),
                                     models, cfg, "cpu")
     names = [os.path.basename(f)[: -len(".fast5")] for f in files]
-    stream = (ingest.summarize_ed(
+    stream = (read_pipeline.summarize_ed(
         f, ingest.ed_from_arrays(*arrays[name], 4000.0, name), models, cfg)
         for f, name in zip(files, names))
     summaries, got = basecall.run_pipeline(stream, models, cfg, "cpu")
@@ -152,24 +162,23 @@ def test_array_stream_pipeline_matches_fast5_stream(sim, models):
                              truths["read_t0"].base_seqs[0]) > 0.6
 
 
-def test_decode_tasks_match_jax_winners(sim, models):
+def test_decode_tasks_match_jax_winners(sim, models, tmodels):
     """Task level: the port's build_decode_tasks + run_decode_tasks pick the
     same winners with the same paths as nanocall_tpu.basecall's."""
-    import copy
-
     from nanocall_tpu import basecall as jbasecall
 
     d = sim[0]
+    jcfg = JConfig(pore="r73", train=False).apply_pore_preset()
     cfg = Config(pore="r73", train=False).apply_pore_preset()
     files = read_pipeline.init_files([str(d)])
-    summaries = [read_pipeline.summarize(f, models, cfg) for f in files]
-    jsums, tsums = copy.deepcopy(summaries), copy.deepcopy(summaries)
-    jtasks, _ = jbasecall.build_decode_tasks(jsums, models, cfg)
-    want = jbasecall.run_decode_tasks(jtasks, jsums, models, cfg)
+    jsums = [jread_pipeline.summarize(f, models, jcfg) for f in files]
+    tsums = [read_pipeline.summarize(f, tmodels, cfg) for f in files]
+    jtasks, _ = jbasecall.build_decode_tasks(jsums, models, jcfg)
+    want = jbasecall.run_decode_tasks(jtasks, jsums, models, jcfg)
     pool = basecall.EventPool("cpu")
     ttasks = basecall.build_decode_tasks(tsums, cfg, pool)
     assert len(ttasks) == len(jtasks) > len(want)  # contests were scored
-    got = basecall.run_decode_tasks(ttasks, tsums, models, cfg, pool)
+    got = basecall.run_decode_tasks(ttasks, tsums, tmodels, cfg, pool)
 
     def key(t):
         return (t.read_idx, t.strand, t.key)

@@ -160,11 +160,17 @@ STAGED = {  # Config overrides: 1D, joint and per-strand scaling
 }
 
 
-def _summaries(reads_dir, key, **kw):
-    from nanocall_tpu import read_pipeline
-    from nanocall_tpu.config import Config
+def _summaries(reads_dir, key, port=False, **kw):
+    """(models, Config, read summaries) of the fixture, by the JAX package
+    or, with port, by the port's own copies of the host modules."""
+    if port:
+        from nanocall_tpu_torch import models as models_mod, read_pipeline
+        from nanocall_tpu_torch.config import Config
+    else:
+        from nanocall_tpu import models as models_mod, read_pipeline
+        from nanocall_tpu.config import Config
 
-    models = load_builtin_models("r73")
+    models = models_mod.load_builtin_models("r73")
     cfg = Config(pore="r73", **STAGED[key], **kw).apply_pore_preset()
     files = read_pipeline.init_files([reads_dir])
     return models, cfg, [read_pipeline.summarize(f, models, cfg)
@@ -189,8 +195,9 @@ def test_train_groups_and_packed_batch_match_jax(reads_dir, key):
     from nanocall_tpu_torch import basecall
 
     models, cfg, sums = _summaries(reads_dir, key)
+    tmodels, tcfg, tsums = _summaries(reads_dir, key, port=True)
     want = jbasecall.build_train_groups(sums, models, cfg)
-    got = _port_groups(sums, models, cfg)
+    got = _port_groups(tsums, tmodels, tcfg)
     assert [(g.read_idx, g.key, g.model_names, g.joint) for g in got] == \
         [(g.read_idx, g.key, g.model_names, g.joint) for g in want]
     assert len(got) >= 3
@@ -199,8 +206,8 @@ def test_train_groups_and_packed_batch_match_jax(reads_dir, key):
             [(len(e), st) for e, st in w.seqs]
     ev_w, mdl_w, pm_w, st_w = jbasecall.pack_train_batch(want, sums, models,
                                                          cfg, pad_T=128)
-    ev_g, mdl_g, pm_g, st_g = basecall.pack_train_batch(got, sums, models,
-                                                        cfg, pad_T=128)
+    ev_g, mdl_g, pm_g, st_g = basecall.pack_train_batch(got, tsums, tmodels,
+                                                        tcfg, pad_T=128)
     for k in ev_w:
         assert np.array_equal(ev_g[k], ev_w[k]), k
     assert np.array_equal(pm_g, pm_w) and np.array_equal(st_g, st_w)
@@ -217,17 +224,17 @@ def test_train_reads_matches_jax(reads_dir, key):
     with the pore models) at fixed rounds: the same selected models as
     nanocall_tpu's staged train_reads, fits within rtol 1e-4, parameters
     within the stats tolerances."""
-    from nanocall_tpu import basecall as jbasecall, read_pipeline
-    from nanocall_tpu_torch import basecall
+    from nanocall_tpu import basecall as jbasecall
+    from nanocall_tpu_torch import basecall, read_pipeline
 
     fixed = dict(scaling_min_progress=0.0, scaling_max_rounds=3)
     models, cfg, want = _summaries(reads_dir, key, **fixed)
-    _, _, sums = _summaries(reads_dir, key, **fixed)
+    tmodels, tcfg, sums = _summaries(reads_dir, key, port=True, **fixed)
     assert all(s.num_ed_events for s in sums)
     jbasecall.train_reads(want, models, cfg)
     got, _ = basecall.ingest_reads(
-        ((s, read_pipeline.load_events(s, cfg)) for s in sums), cfg, "cpu",
-        train_models=models)
+        ((s, read_pipeline.load_events(s, tcfg)) for s in sums), tcfg, "cpu",
+        train_models=tmodels)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.preferred_model == w.preferred_model
@@ -266,7 +273,7 @@ def test_moment_sums_closer_to_float64_than_jax(reads_dir, monkeypatch):
     from nanocall_tpu_torch import basecall, convert, train
     from nanocall_tpu_torch.ops import em, hmm
 
-    models, cfg, sums = _summaries(reads_dir, "joint")
+    models, cfg, sums = _summaries(reads_dir, "joint", port=True)
     groups = _port_groups(sums, models, cfg)
     assert any(g.joint for g in groups)
     batch = basecall.pack_train_batch(groups, sums, models, cfg, pad_T=128)

@@ -37,7 +37,7 @@ import torch
 import oracle
 from nanocall_tpu import pore_model, train as jtrain, transitions
 from nanocall_tpu.ops import hmm as jhmm
-from nanocall_tpu_torch import convert, train
+from nanocall_tpu_torch import convert, train, transitions as ttransitions
 from nanocall_tpu_torch.ops import hmm, kernels
 from test_torch_train import _assert_alphas_close, _rows
 from test_train import K, build_train_batch, make_models, sample_events
@@ -55,7 +55,8 @@ KINDS = ("structured", "loaded", "dense")
 
 @pytest.fixture(scope="module")
 def tables(tmp_path_factory):
-    """(K, kind) -> table, built once per module."""
+    """(K, kind) -> (the JAX package's table, the port's), built once per
+    module; the port loads a TSV with its own loader."""
     d = tmp_path_factory.mktemp("trans")
 
     @functools.lru_cache(maxsize=None)
@@ -63,19 +64,23 @@ def tables(tmp_path_factory):
         st = transitions.build_structured(
             transitions.TransitionParams(P_STAY, P_SKIP), K_)
         if kind == "structured":
-            return st
+            return st, ttransitions.build_structured(
+                ttransitions.TransitionParams(P_STAY, P_SKIP), K_)
         if kind == "loaded":
             path = str(d / f"trans{K_}.tsv")
             transitions.save_tsv(st, path)
-            return transitions.load_tsv(path, K_)
-        return transitions.compute_transitions_dense(P_SKIP, P_STAY, 1e-3,
-                                                     K_)
+            return (transitions.load_tsv(path, K_),
+                    ttransitions.load_tsv(path, K_))
+        dense = transitions.compute_transitions_dense(P_SKIP, P_STAY, 1e-3,
+                                                      K_)
+        return dense, ttransitions.SparseTransitions(
+            dense.from_idx, dense.from_logp, dense.to_idx, dense.to_logp, K_)
 
     return get
 
 
-def _both_ops(table):
-    return jhmm.make_trans_ops(table), convert.trans_ops(table, CPU)
+def _both_ops(tables):
+    return jhmm.make_trans_ops(tables[0]), convert.trans_ops(tables[1], CPU)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -110,7 +115,7 @@ def test_trans_ops_refuses_more_than_256_slots(deg):
     n = 64
     idx = np.tile(np.arange(deg, dtype=np.int32)[:, None] % n, (1, n))
     lp = np.full((deg, n), -5.0, np.float32)
-    table = transitions.SparseTransitions(
+    table = ttransitions.SparseTransitions(
         from_idx=idx, from_logp=lp, to_idx=idx[:1], to_logp=lp[:1], K=3)
     if deg > 256:
         with pytest.raises(ValueError, match="in-degree 257"):
@@ -166,7 +171,7 @@ def test_generic_kernels_match_the_oracle(tables, kind):
     Forward_Backward.hpp's loops): equal paths over each read's events,
     logp and log Pr[data] within rtol 1e-5."""
     table = tables(3, kind)
-    M = oracle.dense_logp(table, 3)
+    M = oracle.dense_logp(table[0], 3)
     _, ops_t = _both_ops(table)
     (_, _, _), (_, m_t, ev_t), _ = _case(3, 23)
     dec = hmm.viterbi_decode(ops_t, m_t, ev_t)

@@ -3,7 +3,7 @@
 
     python3 tools/torch_decode_times.py [--B 128] [--T 8192] [--reads 256]
                                         [--train] [--trans FILE] [--profile]
-                                        [--long 100000]
+                                        [--long 100000] [--long-batch B]
 
 1. K1 (path and score-only) and K2 against their plain PyTorch versions at
    B reads x T events (n = 4096): bit-equality and milliseconds per call
@@ -20,9 +20,19 @@
    third run, each hand-written kernel's share of the device time, and the
    device's busy share of that run's wall time (the summed device time of
    the device-side events: kernels and copies);
-3. with --long N, one 1D read of N events through the same pipeline (the
-   full-scan K1/K2 at the long bucket): wall seconds and peak device
-   memory.
+3. with --long N, the long-read decode at the bucket of N events (N =
+   100000 gives T = 100352) and the path batch cap there (83 reads under
+   basecall.BP_BUDGET; --long-batch sets another): the chunked-time decode
+   (K3, chunks of batching.tchunk_len(T) events) against the full scan
+   (K1 + K2) on chip_smoke.py's inputs, in the order full, chunked,
+   chunked, full: bit-equality, wall milliseconds and peak device memory of
+   each, and the kernels' bounds there; then one 1D read of N events
+   through the pipeline (which takes K3 there): wall seconds and peak
+   device memory.
+
+Phase 1 prints each kernel's bound (chip_smoke.bound: the H100's published
+memory and float32 rates) beside its time; every pipeline run prints the
+launches of each hand-written kernel.
 
 --B 0 or --reads 0 skips phase 1 or 2.  A table for --trans:
 `python3 -c 'from nanocall_tpu_torch import convert;
@@ -46,6 +56,7 @@ import chip_smoke  # noqa: E402
 
 #: the hand-written kernels' function names in nanocall_tpu_torch/csrc
 KERNEL_FUNCTIONS = ("viterbi_forward_kernel", "viterbi_traceback_kernel",
+                    "viterbi_traceback_chunk_kernel",
                     "fwbw_forward_kernel", "em_backward_kernel",
                     "viterbi_generic_forward_kernel",
                     "viterbi_generic_traceback_kernel",
@@ -62,13 +73,15 @@ def main() -> int:
                     help="run under this transitions table (-s FILE)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--long", type=int, default=0)
+    ap.add_argument("--long-batch", type=int, default=0)
     args = ap.parse_args()
 
     import numpy as np
     import torch
 
-    from nanocall_tpu_torch import basecall, cli, ingest
-    from nanocall_tpu_torch.ops import _cuda
+    from nanocall_tpu_torch import basecall, batching, cli, ingest, \
+        read_pipeline
+    from nanocall_tpu_torch.ops import _cuda, hmm, kernels
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -92,9 +105,10 @@ def main() -> int:
             recs.update(chip_smoke.check_generic_kernels(
                 convert.trans_ops(table, device), model, ev))
         for name, r in recs.items():
+            b = chip_smoke.bound(name, args.B, args.T)
             print(f"kernel {name} B={args.B} T={args.T}: {r['ms']:.3f} ms, "
-                  f"plain {r['plain_ms']:.3f} ms, bit-equal [{card}]",
-                  flush=True)
+                  f"plain {r['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} "
+                  f"ms ({b['bound_by']}), bit-equal [{card}]", flush=True)
         del gt, model, ev
         torch.cuda.empty_cache()
 
@@ -102,13 +116,20 @@ def main() -> int:
                                   *trans_flags)
 
     def run(reads, timer=None):
-        stream = (ingest.summarize_ed(f"{name}.fast5", ed, models, cfg)
+        stream = (read_pipeline.summarize_ed(f"{name}.fast5", ed, models,
+                                             cfg)
                   for name, ed, _ in reads)
+        kernels.reset_launches()
         t = time.perf_counter()
         _, results = basecall.run_pipeline(stream, models, cfg, device,
                                            timer=timer,
                                            default_transitions=table)
         return results, time.perf_counter() - t
+
+    def launched() -> dict:
+        """The hand-written kernels' launches in the last run."""
+        return {k.name: k.wrapper.launches for k in kernels.KERNELS
+                if k.wrapper.launches}
 
     if args.reads:
         n_1d = args.reads * 4 // 5
@@ -124,7 +145,8 @@ def main() -> int:
             stages = {k: round(v, 3) for k, v in timer.stages.items()}
             print(f"pipeline run {rep}: {len(results)} strands, {events} "
                   f"events, {wall:.3f} s = {events / wall:.0f} events/s; "
-                  f"stages {stages} [{card}]", flush=True)
+                  f"stages {stages}; launches {launched()} [{card}]",
+                  flush=True)
         if args.profile:
             from torch.autograd import DeviceType
             from torch.profiler import ProfilerActivity, profile
@@ -156,7 +178,44 @@ def main() -> int:
             print(avgs.table(sort_by="self_device_time_total", row_limit=25))
 
     if args.long:
-        from nanocall_tpu import batching
+        T = batching.bucket_length(args.long)
+        B = args.long_batch or batching.batch_size_for(
+            T, cfg.bucket_max_batch, basecall.BP_BUDGET, 4096)
+        Tc = batching.tchunk_len(T)
+        gt, model, ev = chip_smoke.kernel_inputs(
+            models, device, B, T, np.random.default_rng(12))
+        decodes = {
+            "full scan (K1 + K2)": lambda: hmm.viterbi_decode_grouped(
+                gt, model, ev),
+            f"chunked (K3, Tc={Tc})": lambda: hmm.viterbi_decode_grouped_tchunk(
+                gt, model, ev, Tc)}
+        outs = {}
+        for name in [*decodes, *reversed(decodes)]:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            out = {k: v.cpu() for k, v in decodes[name]().items()}
+            ms = 1e3 * (time.perf_counter() - t)
+            peak = torch.cuda.max_memory_allocated() - base
+            print(f"long decode {name}: B={B} T={T} {ms:.3f} ms, peak device "
+                  f"memory above the inputs {peak / 2**30:.3f} GiB "
+                  f"[{card}]", flush=True)
+            outs.setdefault(name, out)
+        want, got = outs.values()
+        for k in want:
+            assert torch.equal(got[k], want[k]), f"{k} differs"
+        print(f"long decode: chunked bit-equal to full scan (path0, codes, "
+              f"logp) [{card}]")
+        for name, t in (("viterbi_forward_chunk", Tc),
+                        ("viterbi_traceback_chunk", Tc),
+                        ("viterbi_forward_path", T), ("viterbi_traceback", T)):
+            b = chip_smoke.bound(name, B, t)
+            print(f"bound of {name} at B={B} T={t}: {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})")
+        del gt, model, ev, outs
+        torch.cuda.empty_cache()
 
         mean, stdv, start, length, truths = chip_smoke.simulate_read(
             models, rng, args.long, False)
@@ -174,7 +233,8 @@ def main() -> int:
                   f"{batching.bucket_length(len(r.ev))}), {wall:.3f} s = "
                   f"{len(r.ev) / wall:.0f} events/s, peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
-                  f"identity {ident:.3f} [{card}]", flush=True)
+                  f"identity {ident:.3f}; launches {launched()} [{card}]",
+                  flush=True)
     return 0
 
 
