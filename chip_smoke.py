@@ -26,7 +26,8 @@ from the root of a checkout.  It
   5. runs K3 at long-read widths, B = 4 reads x T = 40,960 events in chunks
      of 8,192: the chunked decode bit-equal to K1 + K2 (the plain versions
      would take minutes there; they are held to K1/K2's above), one
-     chunk's times against its plain versions, and both decodes' times;
+     chunk (events [8192, 16384)) against its plain versions on the same
+     carry (tolerance 0) with both times, and both decodes' times;
   6. runs the EM kernels at the EM chunk's full width: n = 4096, 128
      training groups x 4 = 512 rows of T = 128 events, packed by
      nanocall_tpu_torch.basecall.pack_train_batch from the simulated reads
@@ -174,13 +175,12 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
+def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over `reps` calls, timed with CUDA events
-    after one warm-up call (unless warm_up is False)."""
+    after one warm-up call."""
     import torch
 
-    if warm_up:
-        fn()
+    fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -189,6 +189,20 @@ def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_ms_once(fn):
+    """(milliseconds, result) of one call, timed with CUDA events and no
+    warm-up: for plain versions too slow to run twice."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), out
 
 
 def kernel_inputs(models, device, B: int, T: int, rng):
@@ -350,10 +364,11 @@ def check_tchunk_vs_full_scan(gt, model, ev, Tc: int) -> None:
 
 
 def time_tchunk_kernels(gt, model, ev, Tc: int) -> dict:
-    """Times on the card of K3's kernels and their plain versions, one chunk
-    each (the second, events [Tc, 2 Tc)), and of the whole chunked decode
-    and the full scan (K1 + K2): ({kernel name: record}, {"full_scan_ms",
-    "chunked_ms"})."""
+    """K3's kernels on one chunk (the second, events [Tc, 2 Tc)) against
+    their plain versions on the same carry (tolerance 0: alpha, backpointers,
+    the carried state and the ORed codes bit-equal), with both times, and
+    the times of the whole chunked decode and of the full scan (K1 + K2):
+    ({kernel name: record}, {"full_scan_ms", "chunked_ms"})."""
     import torch
 
     from nanocall_tpu_torch.ops import hmm
@@ -363,26 +378,38 @@ def time_tchunk_kernels(gt, model, ev, Tc: int) -> dict:
     zeros = torch.zeros((B, 4096), device=lengths.device)
     carry, _ = hmm.forward_chunk_kernel(gt, model, ev, zeros, 0, Tc)
     alpha, bps = hmm.forward_chunk_kernel(gt, model, ev, carry, Tc, Tc)
+    fwd_plain_ms, (alpha_p, bps_p) = cuda_ms_once(
+        lambda: hmm.viterbi_forward_grouped_chunk_plain(
+            gt, model, chunk_events(ev, Tc, Tc), carry, Tc))
+    assert torch.equal(alpha, alpha_p), "K3 alpha differs from plain"
+    assert torch.equal(bps, bps_p), "K3 backpointers differ from plain"
+    del bps_p
     end = torch.argmax(alpha, dim=-1).to(torch.int32)
-    codes = torch.zeros((B, 3 * Tc), dtype=torch.uint8, device=end.device)
-    evc = chunk_events(ev, Tc, Tc)
+    codes, codes_p = (torch.zeros((B, 3 * Tc), dtype=torch.uint8,
+                                  device=end.device) for _ in range(2))
+    s = hmm.traceback_chunk_kernel(6, end, end.clone(), bps, Tc, lengths,
+                                   codes)
+    tb_plain_ms, (s_p, c) = cuda_ms_once(
+        lambda: hmm.viterbi_traceback_grouped_chunk_plain(
+            6, end, end.clone(), bps, Tc, lengths))
+    hmm.or_packed_codes(codes_p, c, Tc)
+    assert torch.equal(s, s_p), "K3 traceback state differs from plain"
+    assert torch.equal(codes, codes_p), "K3 codes differ from plain"
     recs = {
         "viterbi_forward_chunk": {
+            "max_abs_err": max_err(alpha, alpha_p),
             "ms": cuda_ms(lambda: hmm.forward_chunk_kernel(
                 gt, model, ev, carry, Tc, Tc), 3),
-            "plain_ms": cuda_ms(lambda: hmm.viterbi_forward_grouped_chunk_plain(
-                gt, model, evc, carry, Tc), 1, warm_up=False)},
+            "plain_ms": fwd_plain_ms},
         "viterbi_traceback_chunk": {
+            "max_abs_err": max(max_err(s, s_p),
+                                max_err(codes.int(), codes_p.int())),
             "ms": cuda_ms(lambda: hmm.traceback_chunk_kernel(
                 6, end, end.clone(), bps, Tc, lengths, codes), 3),
-            "plain_ms": cuda_ms(
-                lambda: hmm.viterbi_traceback_grouped_chunk_plain(
-                    6, end, end.clone(), bps, Tc, lengths), 1,
-                warm_up=False)},
+            "plain_ms": tb_plain_ms},
     }
     for r in recs.values():
         r["shape"] = [B, Tc]
-        r["max_abs_err"] = 0.0  # check_tchunk_kernels: bit-equal
     del bps
     decode = {
         "full_scan_ms": cuda_ms(lambda: hmm.viterbi_decode_grouped(
@@ -856,7 +883,8 @@ def main() -> int:
     k3, decode = time_tchunk_kernels(gt, model, ev, TC_LONG)
     for name, r in k3.items():
         print(f"kernel {name}: B={B_LONG} one chunk of {TC_LONG} events "
-              f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms [{card}]")
+              f"bit-equal to plain; {r['ms']:.3f} ms vs plain "
+              f"{r['plain_ms']:.3f} ms [{card}]")
     print(f"kernel K3: B={B_LONG} T={T_LONG} Tc={TC_LONG} decode bit-equal "
           f"to K1 + K2; chunked {decode['chunked_ms']:.3f} ms, full scan "
           f"{decode['full_scan_ms']:.3f} ms [{card}]")

@@ -6,13 +6,15 @@ The fixture follows tests/test_pipeline.py: two 1D reads and one 2-strand
 the same flags and must write byte-identical FASTA and stats.
 """
 
+import dataclasses
 import functools
 import os
 
 import numpy as np
 import pytest
 
-from nanocall_tpu import fast5_io, read_pipeline as jread_pipeline, simulate
+from nanocall_tpu import fast5_io, ingest as jingest, \
+    read_pipeline as jread_pipeline, simulate
 from nanocall_tpu.cli import main as jax_main
 from nanocall_tpu.config import Config as JConfig
 from nanocall_tpu.models import load_builtin_models
@@ -120,39 +122,56 @@ def test_unported_flags_raise(sim, tmp_path, flags):
     assert not (tmp_path / "x.fa").exists()
 
 
+def _assert_same_summary(got, want, name):
+    """A port summary and its events against the JAX package's: equal
+    fields, strand bounds and event arrays."""
+    (got_s, got_evs), (want_s, want_evs) = got, want
+    assert dataclasses.asdict(got_s) == dataclasses.asdict(want_s), name
+    assert len(got_evs) == len(want_evs), name
+    for a, b in zip(got_evs, want_evs):
+        for f in ("mean", "stdv", "start", "length"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
+
+
 @pytest.mark.parametrize("double", [False, True])
-def test_summarize_ed_matches_fast5_summarize(sim, tmodels, double):
+def test_summarize_ed_matches_fast5_summarize(sim, models, tmodels, double):
+    """The port's summarize_ed on in-memory arrays against the JAX
+    package's summarize of the same read's fast5 file."""
     d, arrays, _ = sim
-    models = tmodels
+    jcfg = JConfig(pore="r73", train=False,
+                   double_strand_scaling=double).apply_pore_preset()
     cfg = Config(pore="r73", train=False,
                  double_strand_scaling=double).apply_pore_preset()
     for name, (mean, stdv, start, length) in arrays.items():
         path = str(d / f"{name}.fast5")
-        want_s, want_evs = read_pipeline.summarize(path, models, cfg,
-                                                   return_events=True)
+        want = jread_pipeline.summarize(path, models, jcfg,
+                                        return_events=True)
         ed = ingest.ed_from_arrays(mean, stdv, start, length, 4000.0, name)
-        got_s, got_evs = read_pipeline.summarize_ed(path, ed, models, cfg)
-        assert got_s == want_s
-        for a, b in zip(got_evs, want_evs):
-            for f in ("mean", "stdv", "start", "length"):
-                assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
+        got = read_pipeline.summarize_ed(path, ed, tmodels, cfg)
+        _assert_same_summary(got, want, name)
 
 
-def test_array_stream_pipeline_matches_fast5_stream(sim, tmodels):
-    """run_pipeline gives the same results from an in-memory stream (the
-    route for machines without h5py) as from ingest_stream over the files,
-    with identity to the simulated template above 0.6."""
+def test_array_stream_pipeline_matches_fast5_stream(sim, models, tmodels):
+    """The in-memory stream (the route for machines without h5py) gives the
+    summaries and events of the JAX package's ingest_stream over the files,
+    and run_pipeline the same results from it as from the port's
+    ingest_stream, with identity to the simulated template above 0.6."""
     d, arrays, truths = sim
-    models = tmodels
+    jcfg = JConfig(pore="r73", train=False,
+                   ingest_workers=1).apply_pore_preset()
     cfg = Config(pore="r73", train=False, ingest_workers=1).apply_pore_preset()
     files = read_pipeline.init_files([str(d)])
-    _, want = basecall.run_pipeline(ingest.ingest_stream(files, models, cfg),
-                                    models, cfg, "cpu")
     names = [os.path.basename(f)[: -len(".fast5")] for f in files]
-    stream = (read_pipeline.summarize_ed(
-        f, ingest.ed_from_arrays(*arrays[name], 4000.0, name), models, cfg)
-        for f, name in zip(files, names))
-    summaries, got = basecall.run_pipeline(stream, models, cfg, "cpu")
+    stream = [read_pipeline.summarize_ed(
+        f, ingest.ed_from_arrays(*arrays[name], 4000.0, name), tmodels, cfg)
+        for f, name in zip(files, names)]
+    jstream = list(jingest.ingest_stream(files, models, jcfg))
+    assert len(jstream) == len(stream) == 3
+    for got, want, name in zip(stream, jstream, names):
+        _assert_same_summary(got, want, name)
+    _, want = basecall.run_pipeline(ingest.ingest_stream(files, tmodels, cfg),
+                                    tmodels, cfg, "cpu")
+    summaries, got = basecall.run_pipeline(iter(stream), tmodels, cfg, "cpu")
     assert len(summaries) == 3
     assert [(r.seq_name, r.base_seq, r.logp) for r in got] == \
         [(r.seq_name, r.base_seq, r.logp) for r in want]

@@ -3,7 +3,7 @@
 
     python3 tools/torch_decode_times.py [--B 128] [--T 8192] [--reads 256]
                                         [--train] [--trans FILE] [--profile]
-                                        [--long 100000] [--long-batch B]
+                                        [--long 100000]
 
 1. K1 (path and score-only) and K2 against their plain PyTorch versions at
    B reads x T events (n = 4096): bit-equality and milliseconds per call
@@ -22,7 +22,7 @@
    the device-side events: kernels and copies);
 3. with --long N, the long-read decode at the bucket of N events (N =
    100000 gives T = 100352) and the path batch cap there (83 reads under
-   basecall.BP_BUDGET; --long-batch sets another): the chunked-time decode
+   basecall.BP_BUDGET): the chunked-time decode
    (K3, chunks of batching.tchunk_len(T) events) against the full scan
    (K1 + K2) on chip_smoke.py's inputs, in the order full, chunked,
    chunked, full: bit-equality, wall milliseconds and peak device memory of
@@ -73,7 +73,6 @@ def main() -> int:
                     help="run under this transitions table (-s FILE)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--long", type=int, default=0)
-    ap.add_argument("--long-batch", type=int, default=0)
     args = ap.parse_args()
 
     import numpy as np
@@ -179,7 +178,7 @@ def main() -> int:
 
     if args.long:
         T = batching.bucket_length(args.long)
-        B = args.long_batch or batching.batch_size_for(
+        B = batching.batch_size_for(
             T, cfg.bucket_max_batch, basecall.BP_BUDGET, 4096)
         Tc = batching.tchunk_len(T)
         gt, model, ev = chip_smoke.kernel_inputs(
