@@ -16,9 +16,11 @@ from the root of a checkout.  It
      (n = 4096 states, B = 16 reads of up to T = 2048 events, lengths from
      0 to T, per-read scaling and transitions): the grouped K1 (path and
      score-only) and K2, and under the loaded table the generic K6a (path
-     and score-only) and K6b; holds each to its plain PyTorch version on
-     the same inputs: tolerance 0, every output bit-equal; prints both
-     times; then K3, the chunked-time decode's forward and traceback
+     and score-only), K6b and K6e (the per-step-normalized
+     forward-backward of `run-fwbw --custom-fwbw`: alpha, beta and gamma
+     of 3 x 0.54 GB); holds each to its plain PyTorch version on the same
+     inputs: tolerance 0, every output bit-equal; prints both times; then
+     K3, the chunked-time decode's forward and traceback
      kernels, at the same shape in chunks of 600 events (a short last
      chunk): each chunk's outputs against the plain versions (tolerance 0)
      and the chunked decode against K1 + K2 (path0, codes, logp
@@ -60,15 +62,33 @@ from the root of a checkout.  It
      40,000), whose path chunks all take the chunked decode: it must
      launch K4, K5 and both K3 kernels, and neither K1 with backpointers
      nor K2;
-  9. prints a JSON line of the kernels (launch counts: the end-to-end
-     runs' sum, and each run's; each kernel's time, its plain version's,
-     its shape and its bound on the H100's published peaks), the card
-     line, and last {"ok": true, ...}.
+  9. the dev tools on the card (nanocall_tpu_torch.tools.main in
+     process, stdout captured), on TSVs it writes into
+     build/chip_smoke/tools/: the builtin r73 template model
+     (pore_model.save_tsv), the loaded table above, and one 1D read of
+     4,000 events simulated from that model: run-viterbi (K6a with
+     backpointers and K6b; identity to the truth above 0.6), run-fwbw (K6c)
+     and run-fwbw --custom-fwbw (K6e), each printed posterior in [0.1, 1]
+     and descending; both fwbw runs again with -o on a 200-event read,
+     whose matrix dumps must give posteriors that sum to 1; and -K 3 on the
+     card, which must raise the kernels' ValueError and launch nothing;
+ 10. basecall.dump_training_data (`--dump-training-data`) on the in-memory
+     summaries of two simulated reads: it must launch K6c, and its TSVs
+     meet the reference's invariants (fw[0] = em[0] - log n, posteriors
+     summing to 1 within 1e-3, dense transition rows of mass in (0.9, 1]);
+ 11. one more untrained run of the 24 reads (right after the first)
+     inside observe.device_trace (`--trace-dir`, torch.profiler): its
+     FASTA must equal the untrained run's byte for byte, and the Chrome
+     trace it writes must name the K1 and K2 kernels;
+ 12. prints a JSON line of the kernels (launch counts: the sum over the
+     end-to-end runs, the tools and the dump, and each run's; each
+     kernel's time, its plain version's, its shape and its bound on the
+     H100's published peaks), the card line, and last {"ok": true, ...}.
 
 The script imports nothing of JAX and nothing of the JAX package
 nanocall_tpu: it reaches the system only through nanocall_tpu_torch, and
-simulates its reads itself.  Nothing is caught: any failure exits non-zero
-before the last line.  With no CUDA device it exits 2 and prints no
+simulates its reads itself.  Nothing is caught but the ValueError that the
+-K 3 check expects: any failure exits non-zero before the last line.  With no CUDA device it exits 2 and prints no
 result.
 """
 
@@ -110,6 +130,15 @@ LONG_KERNELS = ("fwbw_forward", "em_backward", "viterbi_forward_chunk",
 #: the loaded table's kinetics: not the CLI priors (0.1, 0.3), so a task
 #: routed to the wrong kernel would decode under other transitions
 TRANS_P_STAY, TRANS_P_SKIP = 0.14, 0.21
+#: the dev tools' read, and the shorter read of their -o matrix dumps
+TOOLS_EVENTS, TOOLS_DUMP_EVENTS = 4000, 200
+#: kernels each dev tool run must launch
+TOOL_KERNELS = {
+    "run_viterbi": ("viterbi_generic_forward_path",
+                    "viterbi_generic_traceback"),
+    "run_fwbw": ("fwbw_generic",),
+    "run_fwbw_custom": ("fwbw_custom",),
+}
 
 
 #: the H100 SXM's published peaks: HBM3 bytes/s, float32 operations/s
@@ -123,13 +152,17 @@ PEAK_F32_PER_S = 67e12
 #: the max, exp, block sums, the 11-operation correction and log; K5 K6d's
 #: recursion plus the posterior (3) and 14 moments and 3 log totals (about
 #: 37); K6a a sum and a max per slot (21 slots) and 21 equality tests; K6c
-#: 5 per slot and pass (sum, max, difference, exp, sum) over both passes
+#: 5 per slot and pass (sum, max, difference, exp, sum) over both passes;
+#: K6e the same 210 slot operations, one emission, the norm (max,
+#: difference, exp, sum, difference) and 3 more (em + alpha, gamma - alpha,
+#: beta + lse)
 CELL_OPS = {
     "viterbi_forward_path": 28.6875, "viterbi_forward_score": 28.6875,
     "viterbi_forward_chunk": 28.6875, "fwbw_forward": 36.6875,
     "fwbw_grouped_backward": 37.6875, "em_backward": 77.6875,
     "viterbi_generic_forward_path": 82.0,
     "viterbi_generic_forward_score": 61.0, "fwbw_generic": 235.0,
+    "fwbw_custom": 236.0,
 }
 
 
@@ -159,6 +192,8 @@ def bound(name: str, B: int, T: int, deg: int = 21) -> dict:
         "viterbi_generic_traceback": (4 * B * n + 5 * B * (T - 1) + 8 * B
                                       + 2 * B * T),
         "fwbw_generic": ev + 24 * B * n + 16 * deg * n + 12 * T * B * n,
+        # alpha, beta, gamma stored; alpha and beta read back by the backward
+        "fwbw_custom": ev + 24 * B * n + 16 * deg * n + 20 * T * B * n,
     }[name]
     ops = CELL_OPS.get(name, 0.0) * cells
     if name in ("viterbi_traceback", "viterbi_generic_traceback"):
@@ -477,11 +512,35 @@ def check_generic_kernels(ops, model, ev) -> dict:
     }, ev)
 
 
-def max_err(a, b) -> float:
-    """Largest |a - b|, counting equal values (infinities included) as 0."""
+def check_custom_kernel(ops, model, ev) -> dict:
+    """K6e against its plain version on the same card under the loaded
+    table: alpha, beta and gamma bit-equal (tolerance 0, NaN where the plain
+    version has NaN), and times.  Returns {kernel name: record}."""
     import torch
 
-    same = a == b
+    from nanocall_tpu_torch.ops import hmm
+
+    plain_ms, f_p = cuda_ms_once(lambda: hmm.fwbw_custom_plain(ops, model,
+                                                               ev))
+    f_k = hmm.fwbw_custom_kernel(ops, model, ev)
+    torch.cuda.synchronize()
+    errs = {k: max_err(f_k[k], f_p[k]) for k in ("alpha", "beta", "gamma")}
+    for k, e in errs.items():
+        assert e == 0.0, f"K6e {k} differs from plain by {e}"
+        assert torch.equal(torch.isnan(f_k[k]), torch.isnan(f_p[k])), k
+    del f_p, f_k
+    return with_shape({"fwbw_custom": {
+        "max_abs_err": max(errs.values()),
+        "ms": cuda_ms(lambda: hmm.fwbw_custom_kernel(ops, model, ev), 3),
+        "plain_ms": plain_ms}}, ev)
+
+
+def max_err(a, b) -> float:
+    """Largest |a - b|, counting equal values (infinities included) and
+    NaN against NaN as 0."""
+    import torch
+
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
     return float(torch.where(same, 0.0, (a - b).abs()).max()) \
         if a.numel() else 0.0
 
@@ -691,6 +750,205 @@ def simulated_reads(models, rng, n_1d: int = N_1D,
     return reads
 
 
+def write_tool_inputs(models, rng, n_events: int, tag: str):
+    """The dev tools' inputs as TSVs in build/chip_smoke/tools/: the r73
+    template model (unscaled: the read is simulated at identity scaling)
+    and one 1D read of n_events simulated from it.  Returns (model path,
+    events path, the read's true bases)."""
+    import numpy as np
+
+    from nanocall_tpu_torch import events, pore_model
+
+    d = os.path.join(ROOT, "build", "chip_smoke", "tools")
+    os.makedirs(d, exist_ok=True)
+    tmpl = models["r73.t.006"]
+    pm_path = os.path.join(d, "r73.t.006.tsv")
+    pore_model.save_tsv(tmpl, pm_path)
+    states, bases = _walk(n_events, rng)
+    mean, stdv = _emit(tmpl, states, rng)
+    length = rng.integers(10, 40, n_events) / 4000.0
+    ev_path = os.path.join(d, f"events_{tag}.tsv")
+    events.save_tsv(events.EventSequence(
+        mean, stdv, np.concatenate([[0.0], np.cumsum(length)[:-1]]), length),
+        ev_path)
+    return pm_path, ev_path, bases
+
+
+def call_tool(argv) -> tuple:
+    """(stdout, launches by kernel, wall seconds) of one tools.main call on
+    the card, in process; the launch counts start from 0."""
+    import io
+
+    import torch
+
+    from nanocall_tpu_torch import tools
+    from nanocall_tpu_torch.ops import kernels
+
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tools.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert rc == 0, (argv, rc)
+    return (buf.getvalue(), {k.name: k.wrapper.launches
+                             for k in kernels.KERNELS}, wall)
+
+
+def check_posteriors(text: str) -> list:
+    """run-fwbw's printed posteriors: at least one, each in [0.1, 1], in
+    descending order.  Returns them."""
+    post = [float(line.split("\t")[1]) for line in text.strip().splitlines()]
+    assert post, "run-fwbw printed no posterior"
+    assert all(0.1 <= p <= 1.0 + 1e-6 for p in post), post
+    assert post == sorted(post, reverse=True), post
+    return post
+
+
+def check_matrix_dump(path: str, custom: bool) -> None:
+    """run-fwbw's -o dump of a TOOLS_DUMP_EVENTS read: every (event, state)
+    line once, in order, and posteriors that sum to 1 per event within
+    1e-3 (exp(gamma), or exp(alpha + beta - log Pr[data]))."""
+    import numpy as np
+
+    n = 4096
+    m = np.loadtxt(path, delimiter="\t")
+    assert m.shape == (TOOLS_DUMP_EVENTS * n, 5 if custom else 4), m.shape
+    assert np.array_equal(m[:, 0], np.repeat(np.arange(TOOLS_DUMP_EVENTS), n))
+    assert np.array_equal(m[:, 1], np.tile(np.arange(n), TOOLS_DUMP_EVENTS))
+    vals = m[:, 2:].reshape(TOOLS_DUMP_EVENTS, n, -1)
+    if custom:
+        post = np.exp(vals[..., 2])
+    else:
+        lpd = np.logaddexp.reduce(vals[-1, :, 0])
+        post = np.exp(vals[..., 0] + vals[..., 1] - lpd)
+    sums = post.sum(1)
+    assert np.allclose(sums, 1.0, atol=1e-3), (path, sums.min(), sums.max())
+
+
+def check_k3_refused(d: str, ev_path: str) -> None:
+    """The decoding tools with -K 3 on the card: the K = 6 kernels raise
+    their ValueError, and nothing is launched or falls back."""
+    import numpy as np
+
+    from nanocall_tpu_torch import kmer, pore_model, transitions
+    from nanocall_tpu_torch.ops import kernels
+
+    n3 = kmer.n_states(3)
+    pore_model.save_tsv(pore_model.PoreModel(*(
+        np.full(n3, v, np.float32) for v in (80.0, 1.5, 1.0, 0.3)), K=3),
+        os.path.join(d, "k3_model.tsv"))
+    transitions.save_tsv(transitions.build_structured(K=3),
+                         os.path.join(d, "k3_trans.tsv"))
+    args = ["-p", os.path.join(d, "k3_model.tsv"), "-s",
+            os.path.join(d, "k3_trans.tsv"), "-e", ev_path, "-K", "3",
+            "--device", "cuda"]
+    for tool in (["run-viterbi"], ["run-fwbw"], ["run-fwbw", "--custom-fwbw"]):
+        kernels.reset_launches()
+        try:
+            call_tool([*tool, *args])
+        except ValueError as e:
+            assert "K=6" in str(e), e
+        else:
+            raise AssertionError(f"{' '.join(tool)} -K 3 ran on the card")
+        assert not any(k.wrapper.launches for k in kernels.KERNELS)
+
+
+def run_tools(models, trans_path: str, rng) -> dict:
+    """run-viterbi, run-fwbw and run-fwbw --custom-fwbw on the card at full
+    width (n = 4096, the loaded table, a read of TOOLS_EVENTS), each
+    checked and required to launch its kernels; each fwbw run again with -o
+    on a read of TOOLS_DUMP_EVENTS (check_matrix_dump); then -K 3
+    (check_k3_refused).  Returns {run: {"launches" (both calls of a fwbw
+    run), "wall_s" (the TOOLS_EVENTS call), ...}}."""
+    pm_path, ev_long, truth = write_tool_inputs(models, rng, TOOLS_EVENTS,
+                                                "long")
+    _, ev_short, _ = write_tool_inputs(models, rng, TOOLS_DUMP_EVENTS,
+                                       "short")
+
+    def args(ev_path):
+        return ["-p", pm_path, "-s", trans_path, "-e", ev_path, "--device",
+                "cuda"]
+
+    out, launches, wall = call_tool(["run-viterbi", *args(ev_long)])
+    seq = out.strip()
+    w = round(IDENTITY_WINDOW * len(truth) / max(len(seq), 1))
+    ident = identity(seq[:IDENTITY_WINDOW], truth[:w])
+    assert ident > IDENTITY_MIN, ident
+    runs = {"run_viterbi": {"launches": launches, "wall_s": wall,
+                            "bases": len(seq), "identity": ident}}
+    for name, extra in (("run_fwbw", []),
+                        ("run_fwbw_custom", ["--custom-fwbw"])):
+        out, launches, wall = call_tool(["run-fwbw", *args(ev_long), *extra])
+        post = check_posteriors(out)
+        dump = os.path.join(os.path.dirname(pm_path), f"{name}_o.tsv")
+        out, launches_o, _ = call_tool(["run-fwbw", *args(ev_short), *extra,
+                                        "-o", dump])
+        check_posteriors(out)
+        check_matrix_dump(dump, bool(extra))
+        runs[name] = {"launches": {k: c + launches_o[k]
+                                   for k, c in launches.items()},
+                      "wall_s": wall, "top_posterior": post[0],
+                      "printed": len(post)}
+    for name, must in TOOL_KERNELS.items():
+        for k in must:
+            assert runs[name]["launches"][k] > 0, f"{name} did not launch {k}"
+    check_k3_refused(os.path.dirname(pm_path), ev_short)
+    return runs
+
+
+def run_dump(models, reads, device) -> dict:
+    """basecall.dump_training_data on the in-memory summaries of two
+    simulated reads, into build/chip_smoke/dump/: it must launch K6c once
+    per subsequence, and its TSVs meet the reference's invariants
+    (tests/test_pipeline.py:626-646).  Returns {"launches", "wall_s",
+    "subsequences"}."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import basecall, read_pipeline
+    from nanocall_tpu_torch.ops import kernels
+
+    cfg = smoke_config()
+    out = os.path.join(ROOT, "build", "chip_smoke", "dump")
+    shutil.rmtree(out, ignore_errors=True)
+    stream = [read_pipeline.summarize_ed(f"{name}.fast5", ed, models, cfg)
+              for name, ed, _ in reads[:2]]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    grp = basecall.dump_training_data(stream, models, cfg, device, out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+    assert grp is not None, "no read was trainable"
+    S = len(grp.seqs)
+    assert launches["fwbw_generic"] == S, launches
+    n = 4096
+    assert sorted(os.listdir(out)) == sorted(
+        f"{s}.{k}.tab" for k in range(S)
+        for s in ("emissions", "transitions", "fw", "bw"))
+    for k, (ev, _) in enumerate(grp.seqs):
+        em, fw, bw = (np.loadtxt(os.path.join(out, f"{s}.{k}.tab"))
+                      for s in ("emissions", "fw", "bw"))
+        assert em.shape == fw.shape == bw.shape == (len(ev), n)
+        assert np.allclose(fw[0], em[0] - np.log(n), atol=2e-4)
+        post = np.exp(fw + bw - np.logaddexp.reduce(fw[-1]))
+        assert np.allclose(post.sum(1), 1.0, atol=1e-3)
+        with open(os.path.join(out, f"transitions.{k}.tab")) as fh:
+            rows = 0
+            for i, line in enumerate(fh):
+                rows += 1
+                if i < 64:
+                    row = np.array(line.split("\t"), np.float64)
+                    mass = np.exp(row).sum()
+                    assert row.shape == (n,) and 0.9 < mass <= 1.0 + 1e-4
+        assert rows == n
+    return {"launches": launches, "wall_s": wall, "subsequences": S}
+
+
 def identity(a: str, b: str) -> float:
     """difflib's similarity ratio of two base sequences."""
     return difflib.SequenceMatcher(None, a, b, autojunk=False).ratio()
@@ -735,15 +993,16 @@ def read_fasta(path: str) -> dict:
 
 
 def run_end_to_end(models, reads, device, train: bool, must_launch,
-                   trans=None, tag: str = "") -> dict:
+                   trans=None, tag: str = "", trace_dir: str = "") -> dict:
     """run_pipeline over the reads, untrained (`--no-train`) or with the
     default EM training, under the loaded table when `trans` (the TSV
-    path and the table load_trans_table returns), with FASTA and stats
-    written by the port CLI's writer into build/chip_smoke/<tag>; checks
-    the records, identity and launches."""
+    path and the table load_trans_table returns), inside
+    observe.device_trace(trace_dir) when trace_dir is given (`--trace-dir`),
+    with FASTA and stats written by the port CLI's writer into
+    build/chip_smoke/<tag>; checks the records, identity and launches."""
     import torch
 
-    from nanocall_tpu_torch import basecall, cli, read_pipeline
+    from nanocall_tpu_torch import basecall, cli, observe, read_pipeline
     from nanocall_tpu_torch.ops import kernels
 
     name = tag or (("trained" if train else "untrained")
@@ -769,9 +1028,10 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    summaries, results = basecall.run_pipeline(
-        stream(), models, cfg, device, timer=timer,
-        default_transitions=trans[1] if trans else None)
+    with observe.device_trace(trace_dir, device):
+        summaries, results = basecall.run_pipeline(
+            stream(), models, cfg, device, timer=timer,
+            default_transitions=trans[1] if trans else None)
     wall = time.perf_counter() - t0
     launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated()
@@ -813,6 +1073,22 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
             "stages": timer.stages, "identity_min": min(idents),
             "identity_mean": sum(idents) / len(idents),
             "launches": launches, "peak_gib": peak / 2**30}
+
+
+def check_trace(trace_dir: str) -> None:
+    """The traced run wrote a Chrome trace that names the K1 and K2
+    kernels (CUPTI records the kernels the ctypes library launches), and
+    its FASTA equals the untrained run's byte for byte."""
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        text = fh.read()
+    for k in ("viterbi_forward_kernel", "viterbi_traceback_kernel"):
+        assert k in text, f"the trace names no {k}"
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    with open(os.path.join(out, "untrained.fa"), "rb") as a, \
+            open(os.path.join(out, "traced.fa"), "rb") as b:
+        assert a.read() == b.read(), "the traced run's FASTA differs"
+    print(f"trace: {len(text)} bytes of Chrome trace names the K1 and K2 "
+          f"kernels; FASTA byte-equal to the untrained run's")
 
 
 def print_run(what: str, e2e: dict, card: str) -> None:
@@ -868,6 +1144,7 @@ def main() -> int:
     gt, model, ev = kernel_inputs(models, device, B_KERNEL, T_KERNEL, rng)
     recs = check_kernels(gt, model, ev)
     recs.update(check_generic_kernels(trans[2], model, ev))
+    recs.update(check_custom_kernel(trans[2], model, ev))
     for name, r in recs.items():
         print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} n=4096 bit-equal to "
               f"plain; {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
@@ -907,6 +1184,11 @@ def main() -> int:
     untrained = run_end_to_end(models, reads, device, False,
                                UNTRAINED_KERNELS)
     print_run("untrained (--no-train)", untrained, card)
+    trace_dir = os.path.join(ROOT, "build", "chip_smoke", "trace")
+    traced = run_end_to_end(models, reads, device, False, UNTRAINED_KERNELS,
+                            tag="traced", trace_dir=trace_dir)
+    check_trace(trace_dir)
+    print_run("untrained inside --trace-dir (torch.profiler)", traced, card)
     trained = run_end_to_end(models, reads, device, True, TRAINED_KERNELS)
     print_run("trained (default)", trained, card)
     trans_trained = run_end_to_end(models, reads, device, True,
@@ -923,6 +1205,20 @@ def main() -> int:
     for k in ("viterbi_forward_path", "viterbi_traceback"):
         assert long["launches"][k] == 0, f"a long path chunk ran {k}"
     print_run("long reads, trained (default)", long, card)
+    tool_runs = run_tools(models, trans[0], rng)
+    for name, r in tool_runs.items():
+        extra = {k: v for k, v in r.items() if k not in ("launches",
+                                                          "wall_s")}
+        print(f"tool {name}: {r['wall_s']:.3f} s of wall on a read of "
+              f"{TOOLS_EVENTS} events {extra}; launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} } (fwbw: "
+              f"with the -o run on {TOOLS_DUMP_EVENTS} events) [{card}]")
+    print("tools: -o matrix dumps give posteriors summing to 1; -K 3 on the "
+          "card raised the kernels' ValueError and launched nothing")
+    dump = run_dump(models, reads, device)
+    print(f"dump_training_data: {dump['subsequences']} subsequences in "
+          f"{dump['wall_s']:.3f} s, invariants hold; launches "
+          f"{ {k: v for k, v in dump['launches'].items() if v} } [{card}]")
     print(f"identity mean: trained {trained['identity_mean']:.3f}, "
           f"untrained {untrained['identity_mean']:.3f}; under the loaded "
           f"table trained {trans_trained['identity_mean']:.3f}, untrained "
@@ -932,7 +1228,9 @@ def main() -> int:
     runs = {"untrained": untrained["launches"], "trained": trained["launches"],
             "trained_trans": trans_trained["launches"],
             "untrained_trans": trans_untrained["launches"],
-            "long": long["launches"]}
+            "long": long["launches"], "traced": traced["launches"],
+            **{name: r["launches"] for name, r in tool_runs.items()},
+            "dump": dump["launches"]}
     records = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces,
                 "launches": sum(r[k.name] for r in runs.values()),

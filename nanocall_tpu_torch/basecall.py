@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from . import batching, convert, events as events_mod, kmer, native, \
-    read_pipeline, train
+    read_pipeline, train, transitions
 from .config import Config
 from .observe import Progress, read_context
 from .pore_model import PoreModelParams
@@ -70,7 +70,7 @@ LEGACY_BYTES_PER_CELL = 96
 
 
 # ---------------------------------------------------------------------------
-# training groups (nanocall_tpu/basecall.py:42-131)
+# training groups and the training-data dump (nanocall_tpu/basecall.py:42-219)
 # ---------------------------------------------------------------------------
 
 
@@ -131,6 +131,97 @@ def _read_train_groups(ridx, s, models, cfg: Config, evs) -> list:
                     read_idx=ridx, key=key, seqs=[(e, st) for e in sub[st]],
                     model_names=(m, m), joint=False))
     return groups
+
+
+def _dump_group_training_data(grp, summary, models, cfg: Config, device,
+                              out_dir) -> None:
+    """Write the reference's DUMP_TRAINING_DATA TSVs for one (read,
+    candidate) group (Parameter_Trainer.hpp:157-221;
+    nanocall_tpu/basecall.py:134-192): per training subsequence k,
+    emissions.k.tab (T x n log emission of the drift-corrected events under
+    the scaled candidate model), transitions.k.tab (dense n x n log
+    transition table, -1000 filler for absent transitions), and fw.k.tab /
+    bw.k.tab (the forward-backward alpha/beta matrices), from hmm.fwbw
+    under the structured table of the group's transition params (K6c on
+    the card, one row per subsequence)."""
+    import io
+    import os
+
+    params = summary.pm_params[grp.key]
+    stp = summary.st_params[grp.key]
+    _, to_idx, _, _ = transitions._slot_maps(cfg.kmer_size)
+    dense_cache = {}  # formatted dense table bytes per (p_stay, p_skip)
+
+    def dense_bytes(table):
+        key = (table.params.p_stay, table.params.p_skip)
+        if key not in dense_cache:
+            # n x n rows are the -1000 filler except <= 21 real neighbours:
+            # format only those (np.savetxt on 4096^2 values takes ~30 s)
+            n = table.n_states
+            filler = ["-1000"] * n
+            out = io.StringIO()
+            for i in range(n):
+                row = filler.copy()
+                for k in range(to_idx.shape[0]):
+                    v = table.to_logp[k, i]
+                    if np.isfinite(v):
+                        row[to_idx[k, i]] = "%g" % v
+                out.write("\t".join(row))
+                out.write("\n")
+            dense_cache[key] = out.getvalue().encode()
+        return dense_cache[key]
+
+    for k, (ev, strand) in enumerate(grp.seqs):
+        pm = models[grp.model_names[strand]].scaled(params)
+        table = transitions.build_structured(stp[strand], cfg.kmer_size)
+        batch = events_mod.pad_batch(
+            [ev], drifts=np.asarray([params.drift], np.float32))
+        out = hmm.fwbw(convert.trans_ops(table, device),
+                       convert.model_arrays_from_pore_model(pm, device),
+                       convert.event_batch(batch, device))
+        T = len(ev)
+
+        def save(name, mat):
+            np.savetxt(os.path.join(out_dir, f"{name}.{k}.tab"),
+                       mat[0, :T].cpu().numpy(), fmt="%g", delimiter="\t")
+
+        save("emissions", out["em"])
+        with open(os.path.join(out_dir, f"transitions.{k}.tab"), "wb") as fh:
+            # chunked: one >50MB write() measures ~40x slower than 1MB
+            # chunks on some filesystems
+            mv = memoryview(dense_bytes(table))
+            for off in range(0, len(mv), 1 << 20):
+                fh.write(mv[off:off + (1 << 20)])
+        save("fw", out["alpha"])
+        save("bw", out["beta"])
+
+
+def dump_training_data(reads, models, cfg: Config, device, out_dir="."):
+    """DUMP_TRAINING_DATA parity (nanocall_tpu/basecall.py:195-219): dump
+    the first trainable read's first candidate group's training-round inputs
+    as TSVs, then stop (the reference abort()s after dumping,
+    Parameter_Trainer.hpp:220).  `reads` yields (summary, per-strand
+    events), as ingest.ingest_stream does.  Returns the dumped group, or
+    None if no read can train."""
+    import os
+
+    os.makedirs(out_dir, exist_ok=True)
+    for ridx, (s, evs) in enumerate(reads):
+        if s.num_ed_events == 0:
+            continue
+        groups = _read_train_groups(ridx, s, models, cfg, evs)
+        if not groups:
+            continue
+        grp = groups[0]
+        _dump_group_training_data(grp, s, models, cfg, device, out_dir)
+        log.info(
+            "dumped training data for read [%s] model [%s] (%d subsequences)"
+            " to [%s]",
+            s.read_id, "+".join(n for n in grp.key if n), len(grp.seqs),
+            out_dir,
+        )
+        return grp
+    return None
 
 
 def pack_train_batch(groups, summaries, models, cfg: Config, pad_T=None):

@@ -4,9 +4,11 @@ The flag surface of `python -m nanocall_tpu` (nanocall_tpu/cli.py, which
 imports JAX and so cannot be imported here), plus `--device`.  The port runs
 the default trained pipeline (EM training, then decode), the untrained
 decode (`--no-train`) and the decode of a `--resume-stats` run, each also
-under a loaded transition table (`-s/--trans`); flags whose paths are not
-ported yet (`--dump-training-data`, `--trace-dir`, multi-host) raise
-NotImplementedError instead of running something else.
+under a loaded transition table (`-s/--trans`); `--dump-training-data DIR`
+(the first trainable read's training inputs as TSVs, then exit) and
+`--trace-dir DIR` (a torch.profiler trace of the run).  The multi-host
+flags, whose paths are not ported yet, raise NotImplementedError instead of
+running something else.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from . import basecall, fast5_io, ingest, output, pore_model, \
     read_pipeline, transitions
 from .config import Config
 from .models import load_builtin_models
-from .observe import StageTimer, set_levels_from_options
+from .observe import StageTimer, device_trace, set_levels_from_options
 from .util import zopen
 from .version import get_version
 
@@ -80,11 +82,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--threads", type=int, default=-1,
                    help="host ingest worker processes (default: auto)")
     p.add_argument("--batch", type=int, default=256, help="decode bucket batch size")
-    p.add_argument("--trace-dir", default="", help="(not ported yet)")
+    p.add_argument("--trace-dir", default="",
+                   help="write a torch.profiler trace of the run (CPU, and "
+                   "the card's kernels on cuda) to DIR/trace.json")
     p.add_argument("--resume-stats", default="",
                    help="resume from a --stats TSV of a previous run (skips training)")
     p.add_argument("--dump-training-data", default="", metavar="DIR",
-                   help="(not ported yet)")
+                   help="dump the first trainable read's training inputs "
+                   "(emissions, transitions, fw, bw TSVs) to DIR and exit")
     p.add_argument("--coordinator", default="", help="(not ported yet)")
     p.add_argument("--num-hosts", type=int, default=1, help="(not ported yet)")
     p.add_argument("--host-id", type=int, default=0, help="(not ported yet)")
@@ -144,18 +149,13 @@ def config_from_args(args) -> Config:
     return cfg
 
 
-def _refuse_unported(args, cfg: Config) -> None:
-    """Raise for every flag whose path the port does not run yet."""
-    missing = []
-    if args.dump_training_data:
-        missing.append("--dump-training-data")
+def _refuse_unported(args) -> None:
+    """Raise for the flags whose path the port does not run yet: the
+    multi-host ones."""
     if args.num_hosts > 1 or args.coordinator:
-        missing.append("multi-host runs (--num-hosts, --coordinator)")
-    if args.trace_dir:
-        missing.append("--trace-dir")
-    if missing:
         raise NotImplementedError(
-            "not ported to nanocall_tpu_torch yet: " + "; ".join(missing))
+            "not ported to nanocall_tpu_torch yet: multi-host runs "
+            "(--num-hosts, --coordinator)")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -248,7 +248,7 @@ def main(argv=None) -> int:
     level = set_levels_from_options(args.log)
     logging.basicConfig(level=level, format="%(name)s: %(levelname)s: %(message)s")
     cfg = config_from_args(args)
-    _refuse_unported(args, cfg)
+    _refuse_unported(args)
     _echo_options(args, argv, cfg)
     if fast5_io.h5py is None:
         raise RuntimeError("reading fast5 files needs h5py, which is not installed")
@@ -264,26 +264,37 @@ def main(argv=None) -> int:
         raise SystemExit("no fast5 files to process")
     for f in files:
         log.info("adding input file [%s]", f)
+    stream = ingest.ingest_stream(files, models, cfg)
+
+    if args.dump_training_data:
+        # every file is summarized first, as nanocall_tpu/cli.py:290-300
+        grp = basecall.dump_training_data(list(stream), models, cfg, device,
+                                          args.dump_training_data)
+        if grp is None:
+            raise SystemExit("no trainable read to dump")
+        return 0
 
     timer = StageTimer()
-    stream = ingest.ingest_stream(files, models, cfg)
     defaults = transitions.TransitionParams(cfg.pr_stay, cfg.pr_skip)
     results = []
-    if not args.resume_stats:
-        summaries, results = basecall.run_pipeline(
-            stream, models, cfg, device, timer=timer,
-            default_transitions=default_transitions)
-    else:
-        with timer.stage("init_reads"):
-            summaries, pool = basecall.ingest_reads(stream, cfg, device)
-        n = output.apply_resume(summaries, output.load_stats(args.resume_stats),
-                                defaults)
-        log.info("resumed trained parameters for %d reads from [%s]",
-                 n, args.resume_stats)
-        if cfg.basecall:
-            with timer.stage("basecalling"):
-                results = basecall.basecall_reads(summaries, models, cfg, pool,
-                                                  default_transitions)
+    # --trace-dir spans the whole run: in the resume flow both stages (a
+    # trace that stopped before the decode would leave out the decode)
+    with device_trace(args.trace_dir, device):
+        if not args.resume_stats:
+            summaries, results = basecall.run_pipeline(
+                stream, models, cfg, device, timer=timer,
+                default_transitions=default_transitions)
+        else:
+            with timer.stage("init_reads"):
+                summaries, pool = basecall.ingest_reads(stream, cfg, device)
+            n = output.apply_resume(
+                summaries, output.load_stats(args.resume_stats), defaults)
+            log.info("resumed trained parameters for %d reads from [%s]",
+                     n, args.resume_stats)
+            if cfg.basecall:
+                with timer.stage("basecalling"):
+                    results = basecall.basecall_reads(
+                        summaries, models, cfg, pool, default_transitions)
 
     write_outputs(summaries, results, models, cfg)
     return 0

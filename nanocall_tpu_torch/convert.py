@@ -22,6 +22,14 @@ def tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+def event_batch(batch: dict, device) -> dict:
+    """The (B, T) event arrays of events.pad_batch as tensors on `device`:
+    mean, stdv and log_stdv float32, length int32 (start is left out)."""
+    ev = {k: tensor(batch[k], device) for k in ("mean", "stdv", "log_stdv")}
+    ev["length"] = tensor(batch["length"], device, torch.int32)
+    return ev
+
+
 def model_bank(models: dict, names, device) -> dict:
     """{level_mean, level_stdv, sd_mean, sd_lambda}: (M, n) float32 tensors,
     row i from the PoreModel `models[names[i]]` (as
@@ -38,6 +46,14 @@ def model_arrays(m, device) -> hmm.ModelArrays:
     hmm.ModelArrays (or any object with those attributes)."""
     return hmm.ModelArrays(*(tensor(getattr(m, f), device)
                              for f in hmm.ModelArrays._fields))
+
+
+def model_arrays_from_pore_model(pm, device) -> hmm.ModelArrays:
+    """A PoreModel's tables, as it stands (scale it first with pm.scaled),
+    as the one (1, n) row of a read that the kernels take
+    (hmm.make_model_arrays)."""
+    return hmm.make_model_arrays(*(tensor(x, device)
+                                   for x in pm.state_arrays()))
 
 
 def grouped_trans(gt, device) -> hmm.GroupedTrans:

@@ -1,5 +1,6 @@
 """Observability: log levels, per-read context, stage timing, progress (a
-copy of nanocall_tpu/observe.py without its JAX profiling helpers).
+copy of nanocall_tpu/observe.py), and a device trace on torch.profiler in
+place of its JAX profiling helpers.
 
 The reference logs `training user_cpu_secs=` / `basecalling user_cpu_secs=`
 (nanocall.cpp:580-581,867-868) and prints `Processed N reads in S seconds`
@@ -12,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import logging
+import os
 import sys
 import threading
 import time
@@ -143,3 +145,32 @@ class Progress:
             f"{int(time.time() - self.t0):6d} seconds\n"
         )
         self.stream.flush()
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None, device=None):
+    """torch.profiler trace of the block, written as a Chrome trace to
+    `<trace_dir>/trace.json` (open it in chrome://tracing or Perfetto):
+    CPU activities, and CUDA activities (the kernels, by name) when
+    `device` is a CUDA device; a no-op if trace_dir is empty
+    (nanocall_tpu/observe.py:174-187, on jax.profiler).  Profiling only
+    records: the block's results are the same with or without it."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(trace_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        log.info("device trace written to %s", path)

@@ -27,7 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
            "em_backward.cu", "viterbi_generic.cu", "fwbw_generic.cu",
-           "fwbw_backward.cu")
+           "fwbw_backward.cu", "fwbw_custom.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "nanocall_tpu_torch")
@@ -136,6 +136,10 @@ def load():
         lib.nc_fwbw_generic.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
             + [vp] * 4 + [ci, vp])
+        lib.nc_fwbw_custom.restype = ci
+        lib.nc_fwbw_custom.argtypes = (
+            [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
+            + [vp] * 3 + [ci, vp])
         lib.nc_fwbw_backward.restype = ci
         lib.nc_fwbw_backward.argtypes = (
             [vp] * 4 + [ci, ci] + [vp] * 10 + [cf] + [vp] + [ci, vp])

@@ -28,10 +28,12 @@ Kernels and their plain versions, side by side below:
   K6c fwbw_generic.cu       fwbw_generic_kernel vs fwbw_plain
   K6d fwbw_backward.cu      fwbw_backward_kernel
                             vs fwbw_grouped_backward_plain
+  K6e fwbw_custom.cu        fwbw_custom_kernel vs fwbw_custom_plain
   (K5, the fused EM backward, is in ops/em.py; ops/kernels.py lists them all.)
 
-K6a-K6c run under a loaded transition table (TransOps, `--trans`): every
-state's in- and out-neighbours are gathered through (deg, n) index tables.
+K6a-K6c and K6e run under a loaded transition table (TransOps, `--trans`,
+and the dev tools): every state's in- and out-neighbours are gathered
+through (deg, n) index tables.
 
 Each kernel wrapper counts its launches in a plain int attribute
 (`wrapper.launches`), incremented only where it launches the kernel.
@@ -212,6 +214,18 @@ def mask_flags(masks: dict, bits: dict) -> torch.Tensor:
         f = (masks[name] > 0).to(torch.uint8) << bit
         flags = f if flags is None else flags | f
     return flags.contiguous()
+
+
+def make_model_arrays(level_mean, level_stdv, sd_mean, sd_lambda,
+                      B: int = 1) -> ModelArrays:
+    """One model's tables as the (B, n) rows the kernels read
+    (nanocall_tpu/ops/hmm.py:184-196, whose (n,) arrays broadcast against
+    the batch): the four (n,) tensors on one device as float32, with
+    torch.log of level_stdv and sd_lambda, each repeated in B rows."""
+    lm, ls, sm, slam = (x.to(torch.float32)
+                        for x in (level_mean, level_stdv, sd_mean, sd_lambda))
+    return ModelArrays(*(x.expand(B, -1).contiguous() for x in (
+        lm, ls, torch.log(ls), sm, slam, torch.log(slam))))
 
 
 def make_scaled_model_arrays(bank: dict, model_idx, params) -> ModelArrays:
@@ -1158,6 +1172,103 @@ def fwbw(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     if dev.type != "cuda":
         raise ValueError(f"no generic fwbw for device {dev}")
     return fwbw_generic_kernel(ops, model, ev)
+
+
+# K6e: per-step-normalized forward-backward -----------------------------------
+
+
+def log_normalize(x: torch.Tensor) -> torch.Tensor:
+    """x minus its log-sum-exp over the states (the last dim), as `norm` of
+    nanocall_tpu/ops/hmm.py:1064-1066, with no -inf guard: m is the
+    NaN-propagating max, the sum of exp(x - m) the pairwise tree_sum."""
+    m = torch.amax(x, dim=-1, keepdim=True)
+    return x - (m + torch.log(tree_sum(torch.exp(x - m)))[..., None])
+
+
+def fwbw_custom_plain(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
+    """Plain version of K6e (nanocall_tpu/ops/hmm.py:1047-1106,
+    Forward_Backward_Custom.hpp): the forward-backward normalized at every
+    step, loops over events.  With lse the slot log-sum-exp of
+    logsumexp_slots and norm = log_normalize,
+      alpha_0 = -log n,  beta_0 = norm(em_0 + alpha_0),
+      alpha_t = lse(from_logp + beta_{t-1}[from_idx]),
+      beta_t  = norm(em_t + alpha_t)   (t >= 1; frozen from t = length on),
+      gamma_{T-1} = beta_{T-1},
+      gamma_t = beta_t + lse(to_logp + (gamma_{t+1} - alpha_{t+1})[to_idx])
+                (t <= T-2; beta_t from t = length-1 on).
+    alpha_t is stored as computed, also past a read's length.  Returns
+    {alpha, beta, gamma}: (B, T, n) float32 log probabilities."""
+    n = model.level_mean.shape[-1]
+    mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    lengths = ev["length"]
+    B, T = mean.shape
+    dev = mean.device
+    out = {k: torch.empty((B, T, n), dtype=torch.float32, device=dev)
+           for k in ("alpha", "beta", "gamma")}
+    alphas, betas, gammas = out["alpha"], out["beta"], out["gamma"]
+    alpha = torch.full((B, n), -math.log(n), dtype=torch.float32, device=dev)
+    em = log_emission(model, mean[:, 0], stdv[:, 0], log_stdv[:, 0])
+    beta = log_normalize(em + alpha)
+    alphas[:, 0], betas[:, 0] = alpha, beta
+    for t in range(1, T):
+        alpha = logsumexp_slots(ops.from_logp
+                                + gather_slots(beta, ops.from_idx))
+        em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
+        beta = torch.where((t < lengths)[:, None],
+                           log_normalize(em + alpha), beta)
+        alphas[:, t], betas[:, t] = alpha, beta
+    gamma = beta
+    gammas[:, T - 1] = gamma
+    for t in range(T - 2, -1, -1):
+        g = gamma - alphas[:, t + 1]
+        cand = betas[:, t] + logsumexp_slots(ops.to_logp
+                                             + gather_slots(g, ops.to_idx))
+        gamma = torch.where((t >= lengths - 1)[:, None], betas[:, t], cand)
+        gammas[:, t] = gamma
+    return out
+
+
+def fwbw_custom_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
+    """K6e on the card: both passes in one launch, {alpha, beta, gamma}
+    (B, T, n) as the plain version."""
+    mean = ev["mean"]
+    dev = mean.device
+    B, T = mean.shape
+    n = 4096
+    if T < 1:
+        raise ValueError("forward-backward needs at least one event column")
+    _check_events(ev, B, T, dev)
+    _check_ops(ops, dev)
+    _check_tables(tuple(model), B, n, dev)
+    _require_cuda(dev, "custom fwbw")
+    out = {k: torch.empty((B, T, n), dtype=torch.float32, device=dev)
+           for k in ("alpha", "beta", "gamma")}
+    lib = _cuda.load()
+    err = lib.nc_fwbw_custom(
+        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
+        ev["length"].data_ptr(), B, T, ops.from_idx.shape[0],
+        ops.from_idx.data_ptr(), ops.from_logp.data_ptr(),
+        ops.to_idx.shape[0], ops.to_idx.data_ptr(), ops.to_logp.data_ptr(),
+        *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
+        *(out[k].data_ptr() for k in ("alpha", "beta", "gamma")),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "fwbw_custom kernel launch")
+    fwbw_custom_kernel.launches += 1
+    return out
+
+
+fwbw_custom_kernel.launches = 0
+
+
+def fwbw_custom(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
+    """K6e on the tensors' device: {alpha, beta, gamma (B, T, n)}."""
+    dev = ev["mean"].device
+    if dev.type == "cpu":
+        return fwbw_custom_plain(ops, model, ev)
+    if dev.type != "cuda":
+        raise ValueError(f"no custom fwbw for device {dev}")
+    return fwbw_custom_kernel(ops, model, ev)
 
 
 # K6d: grouped log-sum-exp backward -------------------------------------------

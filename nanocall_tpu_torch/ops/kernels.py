@@ -53,6 +53,9 @@ KERNELS = (
     Kernel("fwbw_grouped_backward", hmm.fwbw_backward_kernel,
            "nanocall_tpu_torch/csrc/fwbw_backward.cu",
            "nanocall_tpu/ops/hmm.py:1016"),
+    Kernel("fwbw_custom", hmm.fwbw_custom_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_custom.cu",
+           "nanocall_tpu/ops/hmm.py:1047"),
 )
 
 

@@ -107,6 +107,28 @@ class PoreModel:
 
         return native.mean_stdv_f32(self.level_mean)[1]
 
+    def scaled(self, params: PoreModelParams) -> "PoreModel":
+        """Return a new model with per-read scaling applied
+        (Pore_Model_State::scale, Pore_Model.hpp:126-138):
+          level_mean <- level_mean * scale + shift
+          level_stdv <- level_stdv * var
+          sd_mean    <- sd_mean * scale_sd
+          sd_lambda  <- sd_lambda * var_sd   (via sd_stdv update)
+        """
+        lm = self.level_mean * np.float32(params.scale) + np.float32(params.shift)
+        ls = self.level_stdv * np.float32(params.var)
+        sm = self.sd_mean * np.float32(params.scale_sd)
+        new_lambda = self.sd_lambda * np.float32(params.var_sd)
+        # sd_stdv from (sd_mean^3 / lambda)^0.5 (Pore_Model.hpp:115)
+        ss = np.sqrt(sm.astype(np.float64) ** 3 / new_lambda.astype(np.float64)).astype(np.float32)
+        return dataclasses.replace(
+            self, level_mean=lm, level_stdv=ls, sd_mean=sm, sd_stdv=ss
+        )
+
+    def state_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """(level_mean, level_stdv, sd_mean, sd_lambda) for the DP kernels."""
+        return self.level_mean, self.level_stdv, self.sd_mean, self.sd_lambda
+
 
 def load_tsv(path, K: int = 6, strand: int = BOTH, name: str = "") -> PoreModel:
     """Load a pore-model TSV (kmer, level_mean, level_stdv, sd_mean, sd_stdv),
@@ -138,3 +160,14 @@ def load_tsv(path, K: int = 6, strand: int = BOTH, name: str = "") -> PoreModel:
         name=name or base,
     )
 
+
+def save_tsv(pm: PoreModel, path) -> None:
+    """Write a pore model in the reference TSV format (Pore_Model.hpp:151-159,
+    241-249): kmer, level_mean, level_stdv, sd_mean, sd_stdv per line."""
+    kmers = kmer.all_kmer_strings(pm.K)
+    with open(path, "w") as fh:
+        for i in range(pm.n_states):
+            fh.write(
+                f"{kmers[i]}\t{pm.level_mean[i]:g}\t{pm.level_stdv[i]:g}"
+                f"\t{pm.sd_mean[i]:g}\t{pm.sd_stdv[i]:g}\n"
+            )

@@ -408,6 +408,29 @@ def sparse_from_pairs(pairs, K: int) -> SparseTransitions:
     )
 
 
+def compute_transitions_dense(
+    p_skip: float, p_stay: float, p_cutoff: float, K: int = 6
+) -> SparseTransitions:
+    """Exact O(N^2) table with probability cutoff
+    (State_Transitions.hpp:147-178), as a SparseTransitions."""
+    n = kmer.n_states(K)
+    p_step, p_skip_1 = _skip_geometry(p_stay, p_skip)
+    states = np.arange(n, dtype=np.int64)
+    pairs = []
+    # row-block so peak memory is a (block, n) slab, not n x n plus its
+    # broadcast temporaries (matters above K=6)
+    blk = 256
+    for r0 in range(0, n, blk):
+        rows = states[r0 : r0 + blk]
+        P = trans_prob(rows[:, None], states[None, :], p_stay, p_step,
+                       p_skip_1, K)
+        ii, jj = np.nonzero(P > p_cutoff)
+        lp = np.log(P[ii, jj].astype(np.float32))
+        for i, j, v in zip((ii + r0).tolist(), jj.tolist(), lp.tolist()):
+            pairs.append((i, j, v))
+    return sparse_from_pairs(pairs, K)
+
+
 def structured_to_pairs(st: StructuredTransitions):
     """Yield (i, j, logp) entries of a structured table in the reference's
     output order (ascending i, then ascending j — std::set iteration,

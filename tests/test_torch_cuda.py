@@ -1,0 +1,84 @@
+"""Checks of the port's CUDA kernels that need the card (marker `cuda`).
+
+Each test skips without a CUDA device.  The file imports neither JAX nor
+nanocall_tpu, so it also runs on a machine that has only the port's
+dependencies (tests/conftest.py imports JAX: pass --noconftest there):
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+chip_smoke.py runs the same checks at the main path's full shapes; these
+are small and quick.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nanocall_tpu_torch import convert, events, kmer, pore_model, tools, \
+    transitions
+from nanocall_tpu_torch.models import load_builtin_models
+from nanocall_tpu_torch.ops import hmm
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _k6_inputs(dev, B: int, T: int, lengths, seed: int):
+    """The loaded 21-neighbour table of (0.14, 0.21), per-read scaled r73
+    models and noisy events of random states, on `dev`."""
+    rng = np.random.default_rng(seed)
+    ops = convert.trans_ops(transitions.sparse_from_pairs(
+        transitions.structured_to_pairs(transitions.build_structured(
+            transitions.TransitionParams(0.14, 0.21), 6)), 6), dev)
+    models = load_builtin_models("r73")
+    bank = convert.model_bank(models, ("r73.t.006", "r73.c.p1.006"), dev)
+    params = np.zeros((B, 6), np.float32)
+    params[:, 0] = rng.uniform(0.95, 1.05, B)
+    params[:, 1] = rng.uniform(-1.0, 1.0, B)
+    params[:, 3:] = rng.uniform(0.9, 1.1, (B, 3))
+    model = hmm.make_scaled_model_arrays(
+        bank, convert.tensor(np.arange(B) % 2, dev, torch.int32),
+        convert.tensor(params, dev))
+    lm = models["r73.t.006"].level_mean
+    seqs = [events.EventSequence(
+        lm[rng.integers(0, 4096, L)] + rng.normal(0.0, 1.0, L),
+        rng.uniform(0.6, 1.8, L), np.arange(L) / 4000.0, np.full(L, 0.002))
+        for L in lengths]
+    return ops, model, convert.event_batch(events.pad_batch(seqs, T), dev)
+
+
+@pytest.mark.cuda
+def test_fwbw_custom_kernel_bit_equal_on_the_card(card):
+    """K6e bit-equal to its plain version on the same card (tolerance 0),
+    lengths 0, 1, T-1 and T among the reads; one launch counted."""
+    ops, model, ev = _k6_inputs(card, 4, 40, [40, 0, 1, 39], 3)
+    want = hmm.fwbw_custom_plain(ops, model, ev)
+    n0 = hmm.fwbw_custom_kernel.launches
+    got = hmm.fwbw_custom(ops, model, ev)
+    torch.cuda.synchronize()
+    assert hmm.fwbw_custom_kernel.launches == n0 + 1
+    for k in ("alpha", "beta", "gamma"):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_tools_refuse_k3_on_the_card(card, tmp_path):
+    """On the card the tools run the K = 6 kernels: `-K 3` raises their
+    ValueError instead of falling back to the plain versions."""
+    n = kmer.n_states(3)
+    pore_model.save_tsv(pore_model.PoreModel(*(
+        np.full(n, v, np.float32) for v in (80.0, 1.5, 1.0, 0.3)), K=3),
+        tmp_path / "m.tsv")
+    transitions.save_tsv(transitions.build_structured(K=3),
+                         tmp_path / "s.tsv")
+    events.save_tsv(events.EventSequence(*(np.full(9, v) for v in (
+        80.0, 1.0, 0.0, 0.002))), tmp_path / "e.tsv")
+    args = ["-p", str(tmp_path / "m.tsv"), "-s", str(tmp_path / "s.tsv"),
+            "-e", str(tmp_path / "e.tsv"), "-K", "3", "--device", "cuda"]
+    for tool in (["run-viterbi"], ["run-fwbw"], ["run-fwbw", "--custom-fwbw"]):
+        with pytest.raises(ValueError, match="K=6"):
+            tools.main([*tool, *args])

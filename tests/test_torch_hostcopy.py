@@ -2,13 +2,15 @@
 nanocall_tpu, on the same inputs, on the CPU.
 
 nanocall_tpu_torch imports nothing of nanocall_tpu: it keeps copies of the
-numpy and C++ host modules (kmer, config, batching, native, events,
-pore_model, transitions, models, fast5_io, read_pipeline, ingest, output,
+numpy and C++ host modules (kmer, config, batching, native, events with its
+TSV I/O and pad_batch, pore_model with scaling and save_tsv, transitions
+with the dense table, models, fast5_io, read_pipeline, ingest, output,
 observe, version).  Each copy must give what its original gives, bit for
 bit: tolerance 0 everywhere below.
 """
 
 import dataclasses
+import gzip
 import io
 import logging
 
@@ -340,3 +342,60 @@ def test_output_writers_byte_equal(fast5_dir, tmp_path):
         output.write_results_fasta(fh, results, width)
         joutput.write_results_fasta(jfh, results, width)
         assert fh.getvalue() == jfh.getvalue()
+
+
+def test_event_tsv_and_pad_batch_equal(tmp_path):
+    """events.save_tsv / load_tsv (gzip and empty files too) and pad_batch
+    with and without drifts and pad_to: the same bytes and arrays; log_stdv
+    is np.log of the padded stdv on the host in both."""
+    rng = np.random.default_rng(11)
+    seqs = [[rng.uniform(0.1, 90.0, n) for _ in range(4)] for n in (7, 13)]
+    seqs[0][1][2] = 0.0  # clamped to 0.01
+    ts = [events.EventSequence(*a) for a in seqs]
+    js = [jevents.EventSequence(*a) for a in seqs]
+    events.save_tsv(ts[1], tmp_path / "t.tsv")
+    jevents.save_tsv(js[1], tmp_path / "j.tsv")
+    assert (tmp_path / "t.tsv").read_bytes() == (tmp_path / "j.tsv").read_bytes()
+    with open(tmp_path / "j.tsv", "rb") as fi, \
+            gzip.open(tmp_path / "j.tsv.gz", "wb") as fo:
+        fo.write(fi.read())
+    (tmp_path / "empty.tsv").write_text("")
+    for name in ("j.tsv", "j.tsv.gz", "empty.tsv"):
+        a, b = events.load_tsv(tmp_path / name), jevents.load_tsv(tmp_path / name)
+        for f in ("mean", "stdv", "start", "length"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (name, f)
+    drifts = np.float32([0.002, -0.001])
+    for kw in ({}, {"drifts": drifts}, {"pad_to": 20, "drifts": drifts}):
+        got, want = events.pad_batch(ts, **kw), jevents.pad_batch(js, **kw)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            assert np.array_equal(got[k], want[k]), (kw, k)
+    with pytest.raises(ValueError, match="longer"):
+        events.pad_batch(ts, pad_to=5)
+
+
+def test_pore_model_scaling_and_save_equal(tmp_path):
+    """PoreModel.scaled, state_arrays and pore_model.save_tsv: the same
+    arrays and bytes."""
+    jpm = jload_models("r73")["r73.c.p1.006"]
+    pm = load_builtin_models("r73")["r73.c.p1.006"]
+    params = (1.07, -2.5, 0.001, 1.2, 0.95, 1.1)
+    got = pm.scaled(pore_model.PoreModelParams(*params))
+    want = jpm.scaled(jpore_model.PoreModelParams(*params))
+    for a, b in zip(got.state_arrays(), want.state_arrays()):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(got.sd_stdv, want.sd_stdv)
+    pore_model.save_tsv(got, tmp_path / "t.tsv")
+    jpore_model.save_tsv(want, tmp_path / "j.tsv")
+    assert (tmp_path / "t.tsv").read_bytes() == (tmp_path / "j.tsv").read_bytes()
+
+
+@pytest.mark.parametrize("K_", [3, 6])
+def test_compute_transitions_dense_equal(K_):
+    """The exact table with its probability cutoff: the same slots."""
+    got = transitions.compute_transitions_dense(0.21, 0.14, 1e-3, K_)
+    want = jtransitions.compute_transitions_dense(0.21, 0.14, 1e-3, K_)
+    assert isinstance(got, transitions.SparseTransitions)
+    for f in ("from_idx", "from_logp", "to_idx", "to_logp"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f

@@ -102,6 +102,48 @@ def test_trans_cli_runs_on_cpu_without_importing_jax(reads, tmp_path):
     assert out.read_text().count(">") == 1
 
 
+def test_tools_run_on_cpu_without_importing_jax(tmp_path):
+    """`python -m nanocall_tpu_torch.tools run-viterbi ... --device cpu`
+    (run as __main__ by runpy), then run-fwbw --custom-fwbw, the dev tools'
+    K6a/K6b and K6e paths: still no jax and no nanocall_tpu."""
+    from nanocall_tpu import events, pore_model, transitions
+
+    K, n, T = 3, 64, 15
+    rng = np.random.default_rng(4)
+    lm = rng.uniform(40, 90, n).astype(np.float32)
+    pore_model.save_tsv(pore_model.PoreModel(
+        lm, rng.uniform(0.8, 2.0, n).astype(np.float32),
+        rng.uniform(0.5, 1.5, n).astype(np.float32),
+        rng.uniform(0.1, 0.4, n).astype(np.float32), K=K),
+        tmp_path / "m.tsv")
+    transitions.save_tsv(transitions.build_structured(K=K),
+                         tmp_path / "s.tsv")
+    events.save_tsv(events.EventSequence(
+        rng.choice(lm, T) + rng.normal(0, 0.5, T), rng.uniform(0.5, 1.5, T),
+        np.cumsum(rng.uniform(0.01, 0.05, T)), rng.uniform(0.01, 0.05, T)),
+        tmp_path / "e.tsv")
+    args = ["-p", tmp_path / "m.tsv", "-s", tmp_path / "s.tsv", "-e",
+            tmp_path / "e.tsv", "-K", str(K), "--device", "cpu"]
+    proc = _run_python(
+        "import runpy, sys\n"
+        "args = sys.argv[1:]\n"
+        "sys.argv = ['tools', 'run-viterbi', *args]\n"
+        "try:\n"
+        "    runpy.run_module('nanocall_tpu_torch.tools', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "assert rc == 0\n"
+        "from nanocall_tpu_torch import tools\n"
+        "rc = tools.main(['run-fwbw', '--custom-fwbw', *args])\n"
+        + _ASSERT_NO_JAX,
+        *args)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "NOJAX_OK"
+    assert set(lines[0]) <= set("ACGT") and len(lines[0]) >= K
+    assert len(lines) >= 3  # a base string, posteriors, the marker
+
+
 def test_device_cuda_without_gpu_raises(reads, tmp_path):
     proc = _run_python(
         "import sys, torch\n"
