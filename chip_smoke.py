@@ -8,7 +8,8 @@ from the root of a checkout.  It
   1. prints the card (nvidia-smi name and power limit), and the CUDA and
      nvcc versions;
   2. builds the CUDA kernels from nanocall_tpu_torch/csrc and prints the
-     build seconds and ptxas' register / spill report;
+     build seconds, ptxas' register / spill report, and the FFMA count of
+     K8's SASS (cuobjdump -sass);
   3. writes the 21-neighbour transition table of (p_stay 0.14, p_skip
      0.21) as a transitions TSV and loads it back through the port CLI's
      `-s/--trans` loader: the loaded table of the r73 width, in-degree 21;
@@ -25,6 +26,18 @@ from the root of a checkout.  It
      chunk): each chunk's outputs against the plain versions (tolerance 0)
      and the chunked decode against K1 + K2 (path0, codes, logp
      bit-equal);
+     then the measurement path: K8, the FMA chain of
+     roofline.measure_fma_peak, at B = 16 rows x n = 4096 lanes x T = 2048
+     steps of k = 24 FMAs (K1's step's work) against its plain version
+     (tolerance 0: both round once per FMA), both times, and a counting
+     run (x = 0, c = 1, d = 2^-10, exact in float32) that must give
+     T k d in every lane; measure_fma_peak itself at each shape the kernels are
+     timed at (16 x 2048, K3's chunk 4 x 8192, the EM chunk 512 x 128),
+     and K1's share of the measured peak and of the 67 TFLOP/s spec; then
+     K10, the repro's (8, 128, 4) -> (8, 512)
+     reshape copy, bit-equal to its plain version, with the library
+     call's time (x.reshape(8, 512).clone()), and
+     tools/torch_reshape_repro.py's main on the card (PASS);
   5. runs K3 at long-read widths, B = 4 reads x T = 40,960 events in chunks
      of 8,192: the chunked decode bit-equal to K1 + K2 (the plain versions
      would take minutes there; they are held to K1/K2's above), one
@@ -40,10 +53,12 @@ from the root of a checkout.  It
      K6d, the grouped backward with its betas stored; and K6c, the generic
      forward-backward under the loaded table (alpha, beta and em of
      3 x 1.07 GB); holds each to its plain version (tolerance 0) and prints
-     both times;
+     both times, and roofline.em_mfu_report for K4 + K5 from their times
+     (against the measured K8 peak at that shape and the spec);
   7. drives the pipeline end to end (nanocall_tpu_torch.basecall.
      run_pipeline, `--pore r73 -t 1`) on 24 simulated reads (1D reads of
-     2,000-8,000 events and 2-strand hairpin reads of 3,000 + 3,000, fed as
+     2,000-8,000 events and 2-strand hairpin reads of 3,000 + 3,000, drawn
+     by nanocall_tpu_torch.simulate.simulate_read and fed as
      in-memory event arrays through nanocall_tpu_torch.ingest, since fast5
      reading needs h5py) and writes FASTA and stats with the port CLI's
      writer into build/chip_smoke/, four times: untrained (`--no-train`;
@@ -81,21 +96,24 @@ from the root of a checkout.  It
      FASTA must equal the untrained run's byte for byte, and the Chrome
      trace it writes must name the K1 and K2 kernels;
  12. prints a JSON line of the kernels (launch counts: the sum over the
-     end-to-end runs, the tools and the dump, and each run's; each
-     kernel's time, its plain version's, its shape and its bound on the
-     H100's published peaks), the card line, and last {"ok": true, ...}.
+     end-to-end runs, the tools, the dump, the measurement path and the
+     repro tool, and each run's; each kernel's time, its plain version's,
+     its shape, its bound on the H100's published peaks
+     (roofline.kernel_bound), its achieved float32 rate and that rate's
+     share of 67 TFLOP/s and of the K8 peak at its shape, each also
+     printed on a line of its own), the card line, and last
+     {"ok": true, ...}.
 
 The script imports nothing of JAX and nothing of the JAX package
-nanocall_tpu: it reaches the system only through nanocall_tpu_torch, and
-simulates its reads itself.  Nothing is caught but the ValueError that the
--K 3 check expects: any failure exits non-zero before the last line.  With no CUDA device it exits 2 and prints no
-result.
+nanocall_tpu: it reaches the system only through nanocall_tpu_torch, whose
+simulator draws its reads.  Nothing is caught but the ValueError that the
+-K 3 check expects: any failure exits non-zero before the last line.  With
+no CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
-import difflib
 import json
 import os
 import subprocess
@@ -110,8 +128,11 @@ B_LONG, T_LONG, TC_LONG = 4, 40960, 8192  # K3 at long-read widths
 LONG_READS = ((False, 33000), (False, 60000), (False, 99000), (True, 40000))
 G_EM, T_EM = 128, 128  # the default EM chunk: 128 groups x 4 rows, T = 128
 N_1D, N_2STRAND = 18, 6
-P_STAY, P_SKIP = 0.1, 0.3  # the simulated reads' kinetics (the defaults)
 NOISE = 0.5  # the simulated event means' noise, in model level stdvs
+SIM_PAD = 70  # simulate_read's pad events at each end of a read
+#: the (B, T) shapes at which the kernels are timed, where the measurement
+#: path measures K8's peak: the decode kernels', K3's chunk, the EM chunk
+PEAK_SHAPES = ((B_KERNEL, T_KERNEL), (B_LONG, TC_LONG), (4 * G_EM, T_EM))
 IDENTITY_MIN = 0.6  # tests/test_pipeline.py's bar for untrained decodes
 IDENTITY_WINDOW = 2000  # called bases compared per strand (difflib is quadratic)
 #: kernels each end-to-end run must launch
@@ -139,68 +160,6 @@ TOOL_KERNELS = {
     "run_fwbw": ("fwbw_generic",),
     "run_fwbw_custom": ("fwbw_custom",),
 }
-
-
-#: the H100 SXM's published peaks: HBM3 bytes/s, float32 operations/s
-#: outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-#: float32 operations per (event, state) cell, counted from each kernel's
-#: source: the emission is 18 (log_emission's subtractions, divisions,
-#: products and sums); K1's step adds 3 sums, 2 maxima, 3 equality tests,
-#: the column maxima (3/4 + 15/16 comparisons) and the update; K4 and K6d
-#: the max, exp, block sums, the 11-operation correction and log; K5 K6d's
-#: recursion plus the posterior (3) and 14 moments and 3 log totals (about
-#: 37); K6a a sum and a max per slot (21 slots) and 21 equality tests; K6c
-#: 5 per slot and pass (sum, max, difference, exp, sum) over both passes;
-#: K6e the same 210 slot operations, one emission, the norm (max,
-#: difference, exp, sum, difference) and 3 more (em + alpha, gamma - alpha,
-#: beta + lse)
-CELL_OPS = {
-    "viterbi_forward_path": 28.6875, "viterbi_forward_score": 28.6875,
-    "viterbi_forward_chunk": 28.6875, "fwbw_forward": 36.6875,
-    "fwbw_grouped_backward": 37.6875, "em_backward": 77.6875,
-    "viterbi_generic_forward_path": 82.0,
-    "viterbi_generic_forward_score": 61.0, "fwbw_generic": 235.0,
-    "fwbw_custom": 236.0,
-}
-
-
-def bound(name: str, B: int, T: int, deg: int = 21) -> dict:
-    """{"bound_ms", "bound_by"}: the least time the card could take for one
-    call of kernel `name` on B rows of T events (for a chunk kernel, T is
-    the chunk's events) at n = 4096 states: the larger of the bytes it
-    must move (each input read once, each output written once; a
-    traceback reads one backpointer byte per event) over the memory rate,
-    and its float32 operations over the float32 rate."""
-    n = 4096
-    cells = B * T * n
-    ev = 12 * B * T + 4 * B  # mean, stdv, log_stdv, length
-    codes = 3 * B * (-(-(T - 1) // 4))
-    nbytes = {
-        "viterbi_forward_path": ev + 40 * B * n + (T - 1) * B * n,
-        "viterbi_forward_score": ev + 40 * B * n,
-        "viterbi_forward_chunk": ev + 44 * B * n + T * B * n,
-        "viterbi_traceback": 4 * B * n + B * (T - 1) + 12 * B + codes,
-        "viterbi_traceback_chunk": B * T + 16 * B + 3 * B * T // 4,
-        "fwbw_forward": ev + 36 * B * n + n + 4 * T * B * n + 4 * B,
-        "em_backward": ev + 4 * T * B * n + 60 * B * n,
-        "fwbw_grouped_backward": ev + 36 * B * n + n + 4 * T * B * n,
-        "viterbi_generic_forward_path": (ev + 28 * B * n + 8 * deg * n
-                                         + (T - 1) * B * n),
-        "viterbi_generic_forward_score": ev + 28 * B * n + 8 * deg * n,
-        "viterbi_generic_traceback": (4 * B * n + 5 * B * (T - 1) + 8 * B
-                                      + 2 * B * T),
-        "fwbw_generic": ev + 24 * B * n + 16 * deg * n + 12 * T * B * n,
-        # alpha, beta, gamma stored; alpha and beta read back by the backward
-        "fwbw_custom": ev + 24 * B * n + 16 * deg * n + 20 * T * B * n,
-    }[name]
-    ops = CELL_OPS.get(name, 0.0) * cells
-    if name in ("viterbi_traceback", "viterbi_generic_traceback"):
-        ops = B * n  # the end state's argmax
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def smi_line() -> str:
@@ -674,59 +633,139 @@ def check_fwbw_kernels(inp, ops) -> dict:
     }, ev)
 
 
-def _walk(n: int, rng):
-    """(states (n,), bases): a stay/step/skip walk over 6-mers and the bases
-    it reads.  A step appends one random base to the sequence, a skip two,
-    and state i is the 6-mer ending at the walk's position after event i
-    (most significant base first, A, C, G, T = 0..3)."""
+def check_fma_kernel(device) -> dict:
+    """K8 against its plain version on the same card at B_KERNEL rows of
+    n = 4096 lanes, T_KERNEL steps of roofline.FMA_K FMAs, on
+    measure_fma_peak's inputs: bit-equal (tolerance 0: both round once per
+    FMA, ops/fma.py), with both times; then a counting run (x = 0, c = 1,
+    d = 2^-10: every FMA exact in float32) whose every lane must hold
+    T k d, so a kernel that runs another number of FMAs fails.  Returns
+    {kernel name: record}."""
     import numpy as np
+    import torch
 
-    u = rng.random(n)
-    moves = np.where(u < P_STAY, 0, np.where(u < 1.0 - P_SKIP, 1, 2))
-    moves[0] = 0
-    new = rng.integers(0, 4, (n, 2))
-    seq = np.concatenate([rng.integers(0, 4, 6),
-                          new[np.arange(2) < moves[:, None]]])
-    L = len(seq)
-    kmers = sum(seq[j:L - 5 + j] << 2 * (5 - j) for j in range(6))
-    return kmers[np.cumsum(moves)], "".join(np.array(list("ACGT"))[seq])
+    from nanocall_tpu_torch import roofline
+    from nanocall_tpu_torch.ops import fma
+
+    B, n, T, k = B_KERNEL, 4096, T_KERNEL, roofline.FMA_K
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.9, 1.1, (B, n)).astype(np.float32)).to(device)
+    c, d = np.float32(0.9999), np.float32(1e-4)
+    plain_ms, want = cuda_ms_once(lambda: fma.fma_chain_plain(x, c, d, T, k))
+    got = fma.fma_chain_kernel(x, c, d, T, k)
+    count = fma.fma_chain_kernel(torch.zeros_like(x), 1.0, 2.0**-10, T, k)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    lanes = int((got != want).sum())
+    print(f"kernel K8: B={B} n={n} T={T} k={k}: max |kernel - plain| {err!r} "
+          f"in {lanes} lanes (tolerance 0); counting run "
+          f"{float(count.min())!r}..{float(count.max())!r} (want "
+          f"{T * k * 2.0**-10!r})")
+    assert torch.equal(got, want), f"K8 differs from plain by {err}"
+    assert torch.all(count == T * k * 2.0**-10), "K8 ran another FMA count"
+    return {"fma_chain": {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: fma.fma_chain_kernel(x, c, d, T, k), 3),
+        "plain_ms": plain_ms, "shape": [B, T]}}
 
 
-def _emit(model, states, rng):
-    """Event means and stdvs drawn from a pore model at identity scaling:
-    normal means with NOISE x the level stdv, inverse-Gaussian stdvs."""
+def check_reshape_kernel(device) -> dict:
+    """K10 against its plain version on the same card at the repro's
+    (8, 128, 4) -> (8, 512): bit-equal (tolerance 0), with the kernel's,
+    the plain version's and the library call's (x.reshape(8, 512).clone(),
+    which is also the plain version) times.  Returns {kernel name:
+    record}."""
     import numpy as np
+    import torch
 
-    mean = rng.normal(model.level_mean[states],
-                      NOISE * model.level_stdv[states])
-    stdv = np.maximum(rng.wald(model.sd_mean[states],
-                               model.sd_lambda[states]), 0.05)
-    return mean, stdv
+    from nanocall_tpu_torch.ops import repro
+
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0.0, 1.0, (8, 128, 4)).astype(np.float32)).to(device)
+    want = repro.reshape_copy_plain(x)
+    got = repro.reshape_copy_kernel(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "K10 differs from plain"
+    return {"reshape_copy": {
+        "max_abs_err": max_err(got, want),
+        "ms": cuda_ms(lambda: repro.reshape_copy_kernel(x), 100),
+        "plain_ms": cuda_ms(lambda: repro.reshape_copy_plain(x), 100),
+        "library_ms": cuda_ms(lambda: x.reshape(8, 512).clone(), 100),
+        "shape": [8, 512]}}
 
 
-def simulate_read(models, rng, n_events: int, two_strand: bool):
-    """One read's event-detection arrays and its strands' true bases:
-    (mean, stdv, start, length, [template bases, complement bases]).
-    70 events of random r73 template signal pad each end; a 2-strand read
-    has its complement after an 8-event abasic hairpin at 110 pA; event
-    lengths are 10..39 samples."""
-    import numpy as np
+def fma_sass() -> dict:
+    """{"ffma", "instructions"}: the FFMA and all SASS instructions of K8's
+    n = 4096 instance (fma_chain_kernel<4>) in the built library, by
+    cuobjdump -sass."""
+    from nanocall_tpu_torch.ops import _cuda
 
-    tmpl, comp = models["r73.t.006"], models["r73.c.p1.006"]
-    parts = [_emit(tmpl, rng.integers(0, 4096, 70), rng)]
-    truths = []
-    for strand, model in enumerate((tmpl, comp) if two_strand else (tmpl,)):
-        if strand:
-            parts.append((rng.normal(110.0, 0.5, 8), rng.uniform(0.3, 0.8, 8)))
-        states, bases = _walk(n_events, rng)
-        parts.append(_emit(model, states, rng))
-        truths.append(bases)
-    parts.append(_emit(tmpl, rng.integers(0, 4096, 70), rng))
-    mean = np.maximum(np.concatenate([p[0] for p in parts]), 1.0)
-    stdv = np.concatenate([p[1] for p in parts])
-    length = rng.integers(10, 40, len(mean)).astype(np.float64)
-    start = np.concatenate([[0.0], np.cumsum(length)[:-1]])
-    return mean, stdv, start, length, truths
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _cuda._lib_path()],
+                          capture_output=True, text=True, check=True).stdout
+    body = sass.split("fma_chain_kernelILi4E", 1)[1].split("Function :")[0]
+    lines = [ln for ln in body.splitlines() if ln.strip().startswith("/*")
+             and ";" in ln]
+    return {"ffma": sum(" FFMA " in ln for ln in lines),
+            "instructions": len(lines)}
+
+
+def run_measure(device) -> dict:
+    """The measurement path (roofline.measure_fma_peak, K8 behind it) at
+    each of PEAK_SHAPES, with the launch counts set to 0 before it:
+    {"peaks": {(B, T): ops/s}, "seconds": {(B, T): per call},
+    "launches"}."""
+    from nanocall_tpu_torch import roofline
+    from nanocall_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    peaks, seconds = {}, {}
+    for B, T in PEAK_SHAPES:
+        peaks[(B, T)], seconds[(B, T)] = roofline.measure_fma_peak(
+            B, 4096, T, k=roofline.FMA_K, device=device)
+    launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+    assert launches["fma_chain"] == 5 * len(PEAK_SHAPES), launches
+    return {"peaks": peaks, "seconds": seconds, "launches": launches}
+
+
+def run_repro_tool() -> dict:
+    """tools/torch_reshape_repro.py's main on the card, in process (stdout
+    captured), with the launch counts set to 0 before it: it must print
+    PASS and launch K10 once.  Returns the launches."""
+    import importlib.util
+    import io
+
+    import torch
+
+    from nanocall_tpu_torch.ops import kernels
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_reshape_repro",
+        os.path.join(ROOT, "tools", "torch_reshape_repro.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    buf = io.StringIO()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+    print(f"repro tool: {buf.getvalue().strip()}")
+    assert rc == 0 and buf.getvalue().startswith("PASS"), buf.getvalue()
+    assert launches["reshape_copy"] == 1, launches
+    return launches
+
+
+def share_line(name: str, rec: dict, peak: float) -> str:
+    """A kernel's float32 rate and its shares (roofline.kernel_shares) of
+    67 TFLOP/s and of the K8 peak at its shape, as one line of text."""
+    from nanocall_tpu_torch import roofline
+
+    sh = roofline.kernel_shares(name, *rec["shape"], rec["ms"], peak)
+    return (f"{sh['f32_ops_per_s'] / 1e12:.3f} TFLOP/s = "
+            f"{100 * sh['share_of_f32_spec']:.2f}% of the 67 TFLOP/s spec, "
+            f"{100 * sh['share_of_k8_peak']:.2f}% of the measured K8 peak "
+            f"{peak / 1e12:.3f} TFLOP/s")
 
 
 def simulated_reads(models, rng, n_1d: int = N_1D,
@@ -734,8 +773,11 @@ def simulated_reads(models, rng, n_1d: int = N_1D,
                     prefix: str = "sim"):
     """[(name, EdEventData, [true bases per strand])]: n_1d 1D reads of
     2,000-8,000 events and n_2strand 2-strand hairpin reads of 3,000 +
-    3,000, or the reads of specs, (2-strand, events per strand) each."""
-    from nanocall_tpu_torch import ingest
+    3,000, or the reads of specs, (2-strand, events per strand) each, drawn
+    by the package simulator (nanocall_tpu_torch.simulate.simulate_read at
+    identity scaling, noise NOISE: 70 pad events at each end, a hairpin of
+    8 events at 110 pA, event lengths of 10..39 samples at 4 kHz)."""
+    from nanocall_tpu_torch import ingest, simulate
 
     reads = []
     if specs is None:
@@ -743,35 +785,34 @@ def simulated_reads(models, rng, n_1d: int = N_1D,
                  + [(True, 3000)] * n_2strand)
     for i, (two_strand, n) in enumerate(specs):
         name = f"{prefix}{i:02d}"
-        mean, stdv, start, length, truths = simulate_read(models, rng, n,
-                                                          two_strand)
+        mean, stdv, start, length, truth = simulate.simulate_read(
+            models, "r73.t.006", "r73.c.p1.006" if two_strand else None, n,
+            rng, noise_scale=NOISE)
         ed = ingest.ed_from_arrays(mean, stdv, start, length, 4000.0, name)
-        reads.append((name, ed, truths))
+        reads.append((name, ed, truth.base_seqs))
     return reads
 
 
 def write_tool_inputs(models, rng, n_events: int, tag: str):
     """The dev tools' inputs as TSVs in build/chip_smoke/tools/: the r73
     template model (unscaled: the read is simulated at identity scaling)
-    and one 1D read of n_events simulated from it.  Returns (model path,
-    events path, the read's true bases)."""
-    import numpy as np
-
-    from nanocall_tpu_torch import events, pore_model
+    and one 1D read of n_events simulated from it (simulate_read, its pads
+    cut off; times in seconds).  Returns (model path, events path, the
+    read's true bases)."""
+    from nanocall_tpu_torch import events, pore_model, simulate
 
     d = os.path.join(ROOT, "build", "chip_smoke", "tools")
     os.makedirs(d, exist_ok=True)
-    tmpl = models["r73.t.006"]
     pm_path = os.path.join(d, "r73.t.006.tsv")
-    pore_model.save_tsv(tmpl, pm_path)
-    states, bases = _walk(n_events, rng)
-    mean, stdv = _emit(tmpl, states, rng)
-    length = rng.integers(10, 40, n_events) / 4000.0
+    pore_model.save_tsv(models["r73.t.006"], pm_path)
+    mean, stdv, start, length, truth = simulate.simulate_read(
+        models, "r73.t.006", None, n_events, rng, noise_scale=NOISE)
+    strand = slice(SIM_PAD, SIM_PAD + n_events)
     ev_path = os.path.join(d, f"events_{tag}.tsv")
     events.save_tsv(events.EventSequence(
-        mean, stdv, np.concatenate([[0.0], np.cumsum(length)[:-1]]), length),
-        ev_path)
-    return pm_path, ev_path, bases
+        mean[strand], stdv[strand], start[strand] / 4000.0,
+        length[strand] / 4000.0), ev_path)
+    return pm_path, ev_path, truth.base_seqs[0]
 
 
 def call_tool(argv) -> tuple:
@@ -862,6 +903,8 @@ def run_tools(models, trans_path: str, rng) -> dict:
     on a read of TOOLS_DUMP_EVENTS (check_matrix_dump); then -K 3
     (check_k3_refused).  Returns {run: {"launches" (both calls of a fwbw
     run), "wall_s" (the TOOLS_EVENTS call), ...}}."""
+    from nanocall_tpu_torch import simulate
+
     pm_path, ev_long, truth = write_tool_inputs(models, rng, TOOLS_EVENTS,
                                                 "long")
     _, ev_short, _ = write_tool_inputs(models, rng, TOOLS_DUMP_EVENTS,
@@ -874,7 +917,7 @@ def run_tools(models, trans_path: str, rng) -> dict:
     out, launches, wall = call_tool(["run-viterbi", *args(ev_long)])
     seq = out.strip()
     w = round(IDENTITY_WINDOW * len(truth) / max(len(seq), 1))
-    ident = identity(seq[:IDENTITY_WINDOW], truth[:w])
+    ident = simulate.identity(seq[:IDENTITY_WINDOW], truth[:w])
     assert ident > IDENTITY_MIN, ident
     runs = {"run_viterbi": {"launches": launches, "wall_s": wall,
                             "bases": len(seq), "identity": ident}}
@@ -949,11 +992,6 @@ def run_dump(models, reads, device) -> dict:
     return {"launches": launches, "wall_s": wall, "subsequences": S}
 
 
-def identity(a: str, b: str) -> float:
-    """difflib's similarity ratio of two base sequences."""
-    return difflib.SequenceMatcher(None, a, b, autojunk=False).ratio()
-
-
 class StageTimer:
     """Wall seconds per named stage: the `timer` run_pipeline takes."""
 
@@ -1002,7 +1040,8 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
     build/chip_smoke/<tag>; checks the records, identity and launches."""
     import torch
 
-    from nanocall_tpu_torch import basecall, cli, observe, read_pipeline
+    from nanocall_tpu_torch import basecall, cli, observe, read_pipeline, \
+        simulate
     from nanocall_tpu_torch.ops import kernels
 
     name = tag or (("trained" if train else "untrained")
@@ -1065,7 +1104,7 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
         assert len(r.path) == len(r.ev) and seq and seq == r.base_seq
         # the same stretch of both: the truth's window scaled by the lengths
         w = round(IDENTITY_WINDOW * len(truth) / len(seq))
-        idents.append(identity(seq[:IDENTITY_WINDOW], truth[:w]))
+        idents.append(simulate.identity(seq[:IDENTITY_WINDOW], truth[:w]))
     events = sum(decoded.values())
     assert min(idents) > IDENTITY_MIN, idents
     return {"reads": len(reads), "records": len(fasta), "events": events,
@@ -1112,7 +1151,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from nanocall_tpu_torch import cli
+    from nanocall_tpu_torch import cli, roofline
     from nanocall_tpu_torch.ops import _cuda, kernels
 
     device = torch.device("cuda", 0)
@@ -1132,6 +1171,9 @@ def main() -> int:
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print(f"  ptxas: {line.strip()}")
+    sass = fma_sass()
+    print(f"K8 SASS (fma_chain_kernel<4>, cuobjdump -sass): {sass['ffma']} "
+          f"FFMA of {sass['instructions']} instructions")
 
     models = cli.init_models(smoke_config())
     t0 = time.perf_counter()
@@ -1149,6 +1191,33 @@ def main() -> int:
         print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} n=4096 bit-equal to "
               f"plain; {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
               f"[{card}]")
+    recs.update(check_fma_kernel(device))
+    measure = run_measure(device)
+    peak = measure["peaks"][(B_KERNEL, T_KERNEL)]
+    k8, k8_bound = recs["fma_chain"], roofline.kernel_bound(
+        "fma_chain", B_KERNEL, T_KERNEL)
+    print(f"kernel fma_chain (K8): B={B_KERNEL} n=4096 T={T_KERNEL} "
+          f"k={roofline.FMA_K} bit-equal to plain; {k8['ms']:.3f} ms vs plain "
+          f"{k8['plain_ms']:.3f} ms; bound {k8_bound['bound_ms']:.4f} ms "
+          f"({k8_bound['bound_by']}); {share_line('fma_chain', k8, peak)} "
+          f"[{card}]")
+    for (B, T), pk in measure["peaks"].items():
+        print(f"measured K8 peak (roofline.measure_fma_peak) at B={B} x "
+              f"T={T} x k={roofline.FMA_K}: {pk / 1e12:.3f} TFLOP/s = "
+              f"{100 * pk / roofline.H100_F32_OPS_PER_S:.2f}% of 67 TFLOP/s, "
+              f"{measure['seconds'][(B, T)] * 1e3:.3f} ms per call [{card}]")
+    for name in ("viterbi_forward_path", "viterbi_forward_score"):
+        print(f"kernel {name} at B={B_KERNEL} T={T_KERNEL}: "
+              f"{share_line(name, recs[name], peak)} [{card}]")
+    recs.update(check_reshape_kernel(device))
+    k10 = recs["reshape_copy"]
+    k10_bound = roofline.kernel_bound("reshape_copy", 8, 512)
+    print(f"kernel reshape_copy (K10): (8, 128, 4) -> (8, 512) bit-equal to "
+          f"plain; {k10['ms']:.4f} ms vs plain {k10['plain_ms']:.4f} ms, "
+          f"library call x.reshape(8, 512).clone() {k10['library_ms']:.4f} "
+          f"ms; bound {k10_bound['bound_ms']:.6f} ms "
+          f"({k10_bound['bound_by']}) [{card}]")
+    repro_launches = run_repro_tool()
     check_tchunk_kernels(gt, model, ev, TC_KERNEL)
     print(f"kernel K3: B={B_KERNEL} T={T_KERNEL} Tc={TC_KERNEL} forward and "
           f"traceback chunks bit-equal to plain, the chunked decode to "
@@ -1180,6 +1249,18 @@ def main() -> int:
               f"[{card}]")
     recs.update(em)
     torch.cuda.empty_cache()
+    em_s = (em["fwbw_forward"]["ms"] + em["em_backward"]["ms"]) / 1e3
+    for against, pk in (("the measured K8 peak at the EM chunk",
+                         measure["peaks"][(4 * G_EM, T_EM)]),
+                        ("the 67 TFLOP/s spec", None)):
+        rep = roofline.em_mfu_report(4 * G_EM * T_EM / em_s, 4096,
+                                     fma_peak_ops_per_s=pk)
+        print(f"em_mfu_report (K4 + K5 at {4 * G_EM} x T={T_EM}, "
+              f"{em_s * 1e3:.3f} ms per round) against {against}: "
+              f"{rep['achieved_vpu_ops_per_s'] / 1e12:.3f} TFLOP/s = "
+              f"{100 * rep['mfu_vs_fma_peak']:.2f}%; HBM "
+              f"{100 * rep['hbm_utilization_vs_spec']:.2f}% of 3.35 TB/s; "
+              f"binding {rep['binding_resource']} [{card}]")
 
     untrained = run_end_to_end(models, reads, device, False,
                                UNTRAINED_KERNELS)
@@ -1230,13 +1311,28 @@ def main() -> int:
             "untrained_trans": trans_untrained["launches"],
             "long": long["launches"], "traced": traced["launches"],
             **{name: r["launches"] for name, r in tool_runs.items()},
-            "dump": dump["launches"]}
+            "dump": dump["launches"], "measure": measure["launches"],
+            "repro": repro_launches}
     records = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces,
                 "launches": sum(r[k.name] for r in runs.values()),
                 "launches_by_run": {w: r[k.name] for w, r in runs.items()},
-                **recs[k.name], **bound(k.name, *recs[k.name]["shape"]),
-                "library_ms": None} for k in kernels.KERNELS]
+                "library_ms": None, **recs[k.name],
+                **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
+               for k in kernels.KERNELS]
+    assert len(records) == 15 and all(r["launches"] for r in records), \
+        {r["name"]: r["launches"] for r in records}
+    for r in records:
+        shape = tuple(r["shape"])
+        r.update(roofline.kernel_shares(r["name"], *shape, r["ms"],
+                                        measure["peaks"].get(shape)))
+        k8 = (f"{100 * r['share_of_k8_peak']:.2f}% of the K8 peak at that "
+              f"shape" if r["share_of_k8_peak"] is not None
+              else "K8 not measured at that shape")
+        print(f"share {r['name']} at B={shape[0]} T={shape[1]}: "
+              f"{r['f32_ops_per_s'] / 1e12:.4f} TFLOP/s = "
+              f"{100 * r['share_of_f32_spec']:.3f}% of 67 TFLOP/s, {k8} "
+              f"[{card}]")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -240,6 +240,16 @@ def _echo_options(args, argv, cfg: Config) -> None:
     else:
         log.info("hairpin_detection: disabled")
     log.info("train=%d", cfg.train)
+    if cfg.train:
+        log.info("train_scaling=%d", cfg.train_scaling)
+        log.info("train_transitions=%d", cfg.train_transitions)
+        if cfg.train_scaling:
+            log.info("double_strands_scaling=%d", cfg.double_strand_scaling)
+            log.info("scaling_num_events=%d", cfg.scaling_num_events)
+            log.info("scaling_max_rounds=%d", cfg.scaling_max_rounds)
+            log.info("scaling_min_progress=%g", cfg.scaling_min_progress)
+            log.info("scaling_select_threshold=%g", cfg.scaling_select_threshold)
+            log.info("train_drift=%d", bool(cfg.train_drift))
     log.info("basecall=%d", cfg.basecall)
 
 

@@ -1,5 +1,5 @@
 """fast5 (HDF5) reading and writing via h5py (a copy of
-nanocall_tpu/fast5_io.py, without the simulator's writer).
+nanocall_tpu/fast5_io.py).
 
 Replaces the reference's vendored mateidavid/fast5 header library (see
 SURVEY.md section 2.9; call sites cited below are where nanocall consumes
@@ -242,3 +242,33 @@ def model_table(pm) -> np.ndarray:
     out["sd_stdv"] = pm.sd_stdv
     return out
 
+
+
+def write_fast5(
+    path: str,
+    mean,
+    stdv,
+    start,
+    length,
+    sampling_rate: float = 4000.0,
+    read_id: str = "",
+    ed_group: str = "000",
+    read_number: int = 0,
+) -> None:
+    """Create a synthetic fast5 file with an EventDetection group (used by
+    tests and the data simulator)."""
+    with h5py.File(path, "w") as f:
+        ch = f.create_group("/UniqueGlobalKey/channel_id")
+        ch.attrs["sampling_rate"] = float(sampling_rate)
+        rg = f.create_group(f"/Analyses/EventDetection_{ed_group}/Reads/Read_{read_number}")
+        if read_id:
+            rg.attrs["read_id"] = np.bytes_(read_id.encode())
+        dt = np.dtype(
+            [("mean", "<f8"), ("stdv", "<f8"), ("start", "<i8"), ("length", "<i8")]
+        )
+        tbl = np.zeros(len(mean), dtype=dt)
+        tbl["mean"] = mean
+        tbl["stdv"] = stdv
+        tbl["start"] = start
+        tbl["length"] = length
+        rg.create_dataset("Events", data=tbl)

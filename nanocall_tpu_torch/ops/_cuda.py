@@ -10,7 +10,9 @@ tensors.
 
 Flags: sm_90a (Hopper), and -fmad=false so that every float operation of a
 kernel rounds on its own, as each elementwise PyTorch op does; that keeps
-the kernels bit-identical to their plain versions on the same card.
+the kernels bit-identical to their plain versions on the same card.  K8
+(fma_chain.cu) writes its FMAs as explicit __fmaf_rn, which the flag
+leaves fused.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
            "em_backward.cu", "viterbi_generic.cu", "fwbw_generic.cu",
-           "fwbw_backward.cu", "fwbw_custom.cu")
+           "fwbw_backward.cu", "fwbw_custom.cu", "fma_chain.cu",
+           "reshape_copy.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "nanocall_tpu_torch")
@@ -143,6 +146,10 @@ def load():
         lib.nc_fwbw_backward.restype = ci
         lib.nc_fwbw_backward.argtypes = (
             [vp] * 4 + [ci, ci] + [vp] * 10 + [cf] + [vp] + [ci, vp])
+        lib.nc_fma_chain.restype = ci
+        lib.nc_fma_chain.argtypes = [vp, ci, ci, ci, ci, cf, cf, vp, ci, vp]
+        lib.nc_reshape_copy.restype = ci
+        lib.nc_reshape_copy.argtypes = [vp, ci, ci, ci, vp, ci, vp]
         lib.nc_error_string.restype = ctypes.c_char_p
         lib.nc_error_string.argtypes = [ci]
         _lib = lib

@@ -1,12 +1,13 @@
-"""The port's hand-written CUDA kernels, in main-path order: each kernel's
-wrapper (which carries its `launches` counter), its source, and the JAX
-function it replaces."""
+"""The port's hand-written CUDA kernels, in main-path order (then the
+measurement path's K8 and the repro tool's K10): each kernel's wrapper
+(which carries its `launches` counter), its source, and the JAX function
+it replaces."""
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from . import em, hmm
+from . import em, fma, hmm, repro
 
 
 class Kernel(NamedTuple):
@@ -56,6 +57,12 @@ KERNELS = (
     Kernel("fwbw_custom", hmm.fwbw_custom_kernel,
            "nanocall_tpu_torch/csrc/fwbw_custom.cu",
            "nanocall_tpu/ops/hmm.py:1047"),
+    Kernel("fma_chain", fma.fma_chain_kernel,
+           "nanocall_tpu_torch/csrc/fma_chain.cu",
+           "nanocall_tpu/roofline.py:340"),
+    Kernel("reshape_copy", repro.reshape_copy_kernel,
+           "nanocall_tpu_torch/csrc/reshape_copy.cu",
+           "tools/exp_mosaic_repro.py:31"),
 )
 
 

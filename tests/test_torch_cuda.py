@@ -82,3 +82,46 @@ def test_tools_refuse_k3_on_the_card(card, tmp_path):
     for tool in (["run-viterbi"], ["run-fwbw"], ["run-fwbw", "--custom-fwbw"]):
         with pytest.raises(ValueError, match="K=6"):
             tools.main([*tool, *args])
+
+
+@pytest.mark.cuda
+def test_fma_chain_kernel_bit_equal_on_the_card(card):
+    """K8 bit-equal to its plain version (both round once per FMA:
+    ops/fma.py) on measure_fma_peak's inputs at every lane count the
+    kernel takes, and a counting run (x = 0, c = 1, d = 2^-10, exact in
+    float32) equal to T k d in every lane; one launch each."""
+    from nanocall_tpu_torch.ops import fma
+
+    rng = np.random.default_rng(0)
+    c, d = np.float32(0.9999), np.float32(1e-4)
+    T, k = 8, 24
+    for n in (1024, 2048, 4096, 8192):
+        x = torch.from_numpy(rng.uniform(0.9, 1.1, (3, n)).astype(
+            np.float32)).to(card)
+        want = fma.fma_chain_plain(x, c, d, T, k)
+        n0 = fma.fma_chain_kernel.launches
+        got = fma.fma_chain(x, c, d, T, k)
+        count = fma.fma_chain(torch.zeros_like(x), 1.0, 2.0**-10, T, k)
+        torch.cuda.synchronize()
+        assert fma.fma_chain_kernel.launches == n0 + 2
+        assert torch.equal(got, want), n
+        assert torch.all(count == T * k * 2.0**-10), n
+    with pytest.raises(ValueError, match="lanes"):
+        fma.fma_chain(torch.ones((2, 512), device=card), c, d, 1, 1)
+
+
+@pytest.mark.cuda
+def test_reshape_copy_kernel_bit_equal_on_the_card(card):
+    """K10 bit-equal to x.reshape(R, M * L) at the repro's shape and a
+    ragged one; one launch each."""
+    from nanocall_tpu_torch.ops import repro
+
+    rng = np.random.default_rng(1)
+    for shape in ((8, 128, 4), (3, 5, 7)):
+        x = torch.from_numpy(rng.normal(0.0, 1.0, shape).astype(
+            np.float32)).to(card)
+        n0 = repro.reshape_copy_kernel.launches
+        got = repro.reshape_copy(x)
+        torch.cuda.synchronize()
+        assert repro.reshape_copy_kernel.launches == n0 + 1
+        assert torch.equal(got, x.reshape(shape[0], -1)), shape

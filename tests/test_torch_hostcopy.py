@@ -5,7 +5,7 @@ nanocall_tpu_torch imports nothing of nanocall_tpu: it keeps copies of the
 numpy and C++ host modules (kmer, config, batching, native, events with its
 TSV I/O and pad_batch, pore_model with scaling and save_tsv, transitions
 with the dense table, models, fast5_io, read_pipeline, ingest, output,
-observe, version).  Each copy must give what its original gives, bit for
+observe, version) and of the read simulator (simulate).  Each copy must give what its original gives, bit for
 bit: tolerance 0 everywhere below.
 """
 
@@ -24,8 +24,8 @@ from nanocall_tpu import batching as jbatching, config as jconfig, \
     transitions as jtransitions, version as jversion
 from nanocall_tpu.models import load_builtin_models as jload_models
 from nanocall_tpu_torch import batching, config, events, fast5_io, ingest, \
-    kmer, native, observe, output, pore_model, read_pipeline, transitions, \
-    version
+    kmer, native, observe, output, pore_model, read_pipeline, \
+    simulate as tsimulate, transitions, version
 from nanocall_tpu_torch.models import load_builtin_models
 
 K = 6
@@ -399,3 +399,78 @@ def test_compute_transitions_dense_equal(K_):
     assert isinstance(got, transitions.SparseTransitions)
     for f in ("from_idx", "from_logp", "to_idx", "to_logp"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("comp", [None, "r73.c.p1.006"], ids=["1d", "2strand"])
+def test_simulate_read_bit_equal(comp):
+    """simulate_read from one seed, 1D and 2-strand (with drift and scaling
+    and the default noise, and at chip_smoke.py's noise 0.5): the same
+    arrays, truth paths and bases, and the same draws left in the
+    generator."""
+    models, jmodels = load_builtin_models("r73"), jload_models("r73")
+    for kw in ({}, {"noise_scale": 0.5, "p_stay": 0.2, "p_skip": 0.25,
+                    "params": (1.05, -2.0, 0.01, 1.1, 1.0, 1.0)}):
+        rngs = (np.random.default_rng(21), np.random.default_rng(21))
+        outs = []
+        for mod, pm_mod, ms, rng in ((tsimulate, pore_model, models, rngs[0]),
+                                     (simulate, jpore_model, jmodels, rngs[1])):
+            args = dict(kw)
+            if "params" in args:
+                args["params"] = pm_mod.PoreModelParams(*args["params"])
+            outs.append(mod.simulate_read(ms, "r73.t.006", comp, 900, rng,
+                                          **args))
+        got, want = outs
+        for a, b in zip(got[:4], want[:4]):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert got[4].hairpin == want[4].hairpin == (comp is not None)
+        assert got[4].base_seqs == want[4].base_seqs
+        assert len(got[4].state_paths) == (2 if comp else 1)
+        for a, b in zip(got[4].state_paths, want[4].state_paths):
+            assert np.array_equal(a, b)
+        assert rngs[0].random() == rngs[1].random()
+
+
+def test_state_walks_and_identity_equal():
+    for K_ in (3, 6):
+        a, b = np.random.default_rng(4), np.random.default_rng(4)
+        assert np.array_equal(
+            tsimulate._sample_state_walk(300, K_, 0.1, 0.3, a),
+            simulate._sample_state_walk(300, K_, 0.1, 0.3, b))
+        got = tsimulate.sample_state_walk_batch(5, 64, K_, 0.15, 0.25, a)
+        want = simulate.sample_state_walk_batch(5, 64, K_, 0.15, 0.25, b)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    for x, y in (("ACGTTGCA", "ACGTGCA"), ("", "A"), ("AAAA", "AAAA")):
+        assert tsimulate.identity(x, y) == simulate.identity(x, y)
+
+
+@pytest.mark.parametrize("comp", [None, "r73.c.p1.006"], ids=["1d", "2strand"])
+def test_write_sim_fast5_datasets_equal(tmp_path, comp):
+    """write_sim_fast5 from one seed: the same truth, and the written files'
+    datasets and attributes equal, group by group."""
+    import h5py
+
+    truths = []
+    for mod, ms, name in ((tsimulate, load_builtin_models("r73"), "t"),
+                          (simulate, jload_models("r73"), "j")):
+        truths.append(mod.write_sim_fast5(
+            str(tmp_path / f"{name}.fast5"), ms, "r73.t.006", comp, 500,
+            np.random.default_rng(8), read_id="r0", noise_scale=0.5))
+    assert truths[0].base_seqs == truths[1].base_seqs
+
+    def items(path):
+        out = {}
+        with h5py.File(path, "r") as f:
+            def visit(name, obj):
+                attrs = {k: obj.attrs[k] for k in obj.attrs}
+                data = obj[()] if isinstance(obj, h5py.Dataset) else None
+                out[name] = (attrs, data)
+            f.visititems(visit)
+        return out
+
+    got, want = items(tmp_path / "t.fast5"), items(tmp_path / "j.fast5")
+    assert sorted(got) == sorted(want) and len(want) >= 6
+    for name, (attrs, data) in want.items():
+        assert got[name][0] == attrs, name
+        if data is not None:
+            assert got[name][1].dtype == data.dtype, name
+            assert np.array_equal(got[name][1], data), name

@@ -158,12 +158,44 @@ def test_device_cuda_without_gpu_raises(reads, tmp_path):
 
 
 def test_package_source_names_no_jax():
-    """No source of the port, nor its timing tool, imports jax or the JAX
-    package nanocall_tpu."""
+    """No source of the port, nor its tools (the timing tool, the reshape
+    repro), imports jax or the JAX package nanocall_tpu."""
     files = sorted((ROOT / "nanocall_tpu_torch").rglob("*.py"))
     assert len(files) >= 20
-    for f in [*files, ROOT / "tools" / "torch_decode_times.py"]:
+    pkg = ROOT / "nanocall_tpu_torch"
+    assert {pkg / "simulate.py", pkg / "roofline.py", pkg / "ops" / "fma.py",
+            pkg / "ops" / "repro.py"} <= set(files)
+    tools = sorted((ROOT / "tools").glob("torch_*.py"))
+    assert {t.name for t in tools} >= {"torch_decode_times.py",
+                                       "torch_reshape_repro.py"}
+    for f in [*files, *tools]:
         assert not _JAX_IMPORT.search(f.read_text()), f
+
+
+def test_measurement_path_and_repro_run_on_cpu_without_importing_jax():
+    """roofline.measure_fma_peak (K8's plain version), the simulator and
+    tools/torch_reshape_repro.py (K10's) in a fresh interpreter: no jax and
+    no nanocall_tpu."""
+    proc = _run_python(
+        "import runpy, sys\n"
+        "import numpy as np\n"
+        "from nanocall_tpu_torch import roofline, simulate\n"
+        "from nanocall_tpu_torch.models import load_builtin_models\n"
+        "rate, s = roofline.measure_fma_peak(2, 64, 4, k=3, n_iter=1,"
+        " device='cpu')\n"
+        "assert rate > 0\n"
+        "simulate.simulate_read(load_builtin_models('r73'), 'r73.t.006',"
+        " None, 50, np.random.default_rng(0))\n"
+        "sys.argv = ['torch_reshape_repro.py', '--device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_path('tools/torch_reshape_repro.py',"
+        " run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        + _ASSERT_NO_JAX)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[0].startswith("PASS")
+    assert proc.stdout.splitlines()[-1] == "NOJAX_OK"
 
 
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):
@@ -184,3 +216,15 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     src = (ROOT / "chip_smoke.py").read_text()
     assert "nanocall_tpu_torch" in src
     assert not _JAX_IMPORT.search(src), _JAX_IMPORT.search(src)
+
+
+def test_chip_smoke_keeps_no_counts_or_simulator_of_its_own():
+    """The kernels' bounds and the reads come from the package
+    (roofline.kernel_bound, simulate.simulate_read): chip_smoke.py defines
+    neither a bound, CELL_OPS nor a read simulator."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    for name in ("def bound(", "CELL_OPS", "def simulate_read(", "def _walk(",
+                 "def _emit(", "def identity(", "PEAK_F32_PER_S"):
+        assert name not in src, name
+    assert "roofline.kernel_bound(" in src
+    assert "simulate.simulate_read(" in src

@@ -5,13 +5,22 @@
                                         [--train] [--trans FILE] [--profile]
                                         [--long 100000]
 
-1. K1 (path and score-only) and K2 against their plain PyTorch versions at
-   B reads x T events (n = 4096): bit-equality and milliseconds per call
-   (CUDA events), built with chip_smoke.py's inputs; with --trans, also
-   K6a (path and score-only) and K6b under that table;
+1. K8, the measured float32 peak at the decode's shape
+   (nanocall_tpu_torch.roofline.measure_fma_peak: B rows x n = 4096 lanes
+   x T steps of k FMAs, k = roofline.FMA_K = matched_fma_k(4096) = 24, K1's
+   step's work, as bench.py matches it); then K1 (path and score-only) and K2
+   against their plain PyTorch versions at B reads x T events (n = 4096):
+   bit-equality and milliseconds per call (CUDA events), built with
+   chip_smoke.py's inputs; with --trans, also K6a (path and score-only)
+   and K6b under that table.  For each kernel: its bound, its achieved
+   float32 operations per second (roofline.kernel_shares: its count
+   over its time) and that rate's share of the H100's 67 TFLOP/s and of
+   the measured K8 peak; then roofline.mfu_report for the decode (K1 +
+   K2) at B x T;
 2. the untrained pipeline (nanocall_tpu_torch.basecall.run_pipeline,
-   `--no-train --pore r73`) on `--reads` simulated reads (80% 1D reads of
-   2,000-8,000 events, 20% hairpin reads of 3,000 + 3,000): wall seconds
+   `--no-train --pore r73`) on `--reads` reads drawn by
+   nanocall_tpu_torch.simulate (80% 1D reads of 2,000-8,000 events, 20%
+   hairpin reads of 3,000 + 3,000): wall seconds
    per stage and events/s; with --train, the default trained pipeline
    instead (EM training by K4 + K5, then the decode); with --trans FILE, the
    same run under the transitions table FILE (`-s FILE`: legacy EM rounds
@@ -30,9 +39,9 @@
    through the pipeline (which takes K3 there): wall seconds and peak
    device memory.
 
-Phase 1 prints each kernel's bound (chip_smoke.bound: the H100's published
-memory and float32 rates) beside its time; every pipeline run prints the
-launches of each hand-written kernel.
+Phase 1 prints each kernel's bound (roofline.kernel_bound: the H100's
+published memory and float32 rates) beside its time; every pipeline run
+prints the launches of each hand-written kernel.
 
 --B 0 or --reads 0 skips phase 1 or 2.  A table for --trans:
 `python3 -c 'from nanocall_tpu_torch import convert;
@@ -79,7 +88,7 @@ def main() -> int:
     import torch
 
     from nanocall_tpu_torch import basecall, batching, cli, ingest, \
-        read_pipeline
+        read_pipeline, roofline, simulate
     from nanocall_tpu_torch.ops import _cuda, hmm, kernels
 
     if not torch.cuda.is_available():
@@ -95,6 +104,14 @@ def main() -> int:
              if args.trans else None)
 
     if args.B:
+        k = roofline.FMA_K
+        peak, seconds = roofline.measure_fma_peak(args.B, 4096, args.T, k=k)
+        print(f"K8 peak (measure_fma_peak) B={args.B} n=4096 T={args.T} "
+              f"k={k}: {peak / 1e12:.3f} TFLOP/s = "
+              f"{100 * peak / roofline.H100_F32_OPS_PER_S:.2f}% of 67 "
+              f"TFLOP/s, {seconds * 1e3:.3f} ms per call; bound "
+              f"{roofline.kernel_bound('fma_chain', args.B, args.T)} "
+              f"[{card}]", flush=True)
         gt, model, ev = chip_smoke.kernel_inputs(
             models, device, args.B, args.T, np.random.default_rng(11))
         recs = chip_smoke.check_kernels(gt, model, ev)
@@ -104,10 +121,24 @@ def main() -> int:
             recs.update(chip_smoke.check_generic_kernels(
                 convert.trans_ops(table, device), model, ev))
         for name, r in recs.items():
-            b = chip_smoke.bound(name, args.B, args.T)
+            b = roofline.kernel_bound(name, args.B, args.T)
+            sh = roofline.kernel_shares(name, args.B, args.T, r["ms"], peak)
             print(f"kernel {name} B={args.B} T={args.T}: {r['ms']:.3f} ms, "
                   f"plain {r['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} "
-                  f"ms ({b['bound_by']}), bit-equal [{card}]", flush=True)
+                  f"ms ({b['bound_by']}), bit-equal; "
+                  f"{sh['f32_ops_per_s'] / 1e12:.3f} TFLOP/s = "
+                  f"{100 * sh['share_of_f32_spec']:.2f}% of 67 TFLOP/s, "
+                  f"{100 * sh['share_of_k8_peak']:.2f}% of the measured K8 "
+                  f"peak {peak / 1e12:.3f} TFLOP/s [{card}]", flush=True)
+        decode_s = (recs["viterbi_forward_path"]["ms"]
+                    + recs["viterbi_traceback"]["ms"]) / 1e3
+        rep = roofline.mfu_report(args.B, args.T, 4096, decode_s, peak)
+        print(f"mfu_report decode (K1 + K2) B={args.B} T={args.T}: "
+              f"{decode_s * 1e3:.3f} ms, "
+              f"{rep['achieved_vpu_ops_per_s'] / 1e12:.3f} TFLOP/s, "
+              f"{100 * rep['mfu_vs_h100_f32_spec']:.2f}% of 67 TFLOP/s, "
+              f"{100 * rep['mfu_vs_measured_fma_peak']:.2f}% of the "
+              f"measured K8 peak [{card}]", flush=True)
         del gt, model, ev
         torch.cuda.empty_cache()
 
@@ -210,14 +241,16 @@ def main() -> int:
         for name, t in (("viterbi_forward_chunk", Tc),
                         ("viterbi_traceback_chunk", Tc),
                         ("viterbi_forward_path", T), ("viterbi_traceback", T)):
-            b = chip_smoke.bound(name, B, t)
+            b = roofline.kernel_bound(name, B, t)
             print(f"bound of {name} at B={B} T={t}: {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']})")
         del gt, model, ev, outs
         torch.cuda.empty_cache()
 
-        mean, stdv, start, length, truths = chip_smoke.simulate_read(
-            models, rng, args.long, False)
+        mean, stdv, start, length, truth = simulate.simulate_read(
+            models, "r73.t.006", None, args.long, rng,
+            noise_scale=chip_smoke.NOISE)
+        truths = truth.base_seqs
         reads = [("long", ingest.ed_from_arrays(mean, stdv, start, length,
                                                 4000.0, "long"), truths)]
         for rep in range(2):
@@ -225,7 +258,7 @@ def main() -> int:
             results, wall = run(reads)
             (r,) = results
             window = chip_smoke.IDENTITY_WINDOW
-            ident = chip_smoke.identity(
+            ident = simulate.identity(
                 r.base_seq[:window],
                 truths[0][:round(window * len(truths[0]) / len(r.base_seq))])
             print(f"long read run {rep}: {len(r.ev)} events (bucket T="
