@@ -42,7 +42,19 @@ from the root of a checkout.  It
      of 8,192: the chunked decode bit-equal to K1 + K2 (the plain versions
      would take minutes there; they are held to K1/K2's above), one
      chunk (events [8192, 16384)) against its plain versions on the same
-     carry (tolerance 0) with both times, and both decodes' times;
+     carry (tolerance 0) with both times, K9's traceback chunk (the states
+     twin) on the same rows against its plain version, and both decodes'
+     times; then K9, the sequence-parallel decode
+     (parallel.seqpar.viterbi_decode_seqpar), with every rank on the one
+     card on a stream of its own: at 16 x 2048 over 2 and 4 ranks with
+     n_blocks 1 and D, path and logp bit-equal to its plain version
+     (viterbi_decode_seqpar_plain; both times and K9's bound printed), logp
+     bit-equal to K1's and each path,
+     up to the read's length, equal to the states rebuilt from K2's codes
+     and past it the end state; at 4 x 40,960 over 4 ranks, n_blocks 1 and
+     4, the same against K3's decode, with K9's time beside K3's, its
+     bound and its peak memory, and one more decode counted as K9's path
+     (16 launches of each kernel);
   6. runs the EM kernels at the EM chunk's full width: n = 4096, 128
      training groups x 4 = 512 rows of T = 128 events, packed by
      nanocall_tpu_torch.basecall.pack_train_batch from the simulated reads
@@ -76,7 +88,13 @@ from the root of a checkout.  It
      reads of 33,000, 60,000 and 99,000 events, a hairpin read of 40,000 +
      40,000), whose path chunks all take the chunked decode: it must
      launch K4, K5 and both K3 kernels, and neither K1 with backpointers
-     nor K2;
+     nor K2; then the untrained and the trained runs of the 24 reads again
+     over the data sharder (parallel.mesh.DataSharder) of two shards on
+     the one card: the untrained FASTA byte-equal, the trained stats within
+     rtol 2e-3 of the unsharded runs', decode and EM chunks cut into
+     shards; and two hosts emulated in process (parallel.multihost:
+     partition_files, a run per host into its shard, merge_shards): the
+     merged FASTA byte-equal to the untrained run's;
   9. the dev tools on the card (nanocall_tpu_torch.tools.main in
      process, stdout captured), on TSVs it writes into
      build/chip_smoke/tools/: the builtin r73 template model
@@ -96,8 +114,9 @@ from the root of a checkout.  It
      FASTA must equal the untrained run's byte for byte, and the Chrome
      trace it writes must name the K1 and K2 kernels;
  12. prints a JSON line of the kernels (launch counts: the sum over the
-     end-to-end runs, the tools, the dump, the measurement path and the
-     repro tool, and each run's; each kernel's time, its plain version's,
+     end-to-end runs, the tools, the dump, the measurement path, the
+     repro tool, K9's counted decode, the sharded runs and the two hosts'
+     runs, and each run's; each kernel's time, its plain version's,
      its shape, its bound on the H100's published peaks
      (roofline.kernel_bound), its achieved float32 rate and that rate's
      share of 67 TFLOP/s and of the K8 peak at its shape, each also
@@ -124,6 +143,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B_KERNEL, T_KERNEL = 16, 2048
 TC_KERNEL = 600  # K3's chunk at the kernel phase's shape: a short last chunk
 B_LONG, T_LONG, TC_LONG = 4, 40960, 8192  # K3 at long-read widths
+#: K9's ranks (all on the one card) at the kernel phase's shape; at the
+#: long-read width, D_LONG ranks; n_blocks 1 and D each time
+D_KERNEL, D_LONG = (2, 4), 4
 #: the long run's reads: (2-strand, events per strand)
 LONG_READS = ((False, 33000), (False, 60000), (False, 99000), (True, 40000))
 G_EM, T_EM = 128, 128  # the default EM chunk: 128 groups x 4 rows, T = 128
@@ -148,6 +170,11 @@ TRANS_UNTRAINED_KERNELS = ("viterbi_generic_forward_path",
                            "viterbi_generic_traceback")
 LONG_KERNELS = ("fwbw_forward", "em_backward", "viterbi_forward_chunk",
                 "viterbi_traceback_chunk")
+#: kernels K9's decode must launch
+SEQPAR_KERNELS = ("viterbi_forward_chunk", "viterbi_traceback_chunk_states")
+#: kernels each host's half of the multi-host emulation must launch (its
+#: reads may hold no contest, so no score-only chunk)
+HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
 #: the loaded table's kinetics: not the CLI priors (0.1, 0.3), so a task
 #: routed to the wrong kernel would decode under other transitions
 TRANS_P_STAY, TRANS_P_SKIP = 0.14, 0.21
@@ -389,6 +416,18 @@ def time_tchunk_kernels(gt, model, ev, Tc: int) -> dict:
     hmm.or_packed_codes(codes_p, c, Tc)
     assert torch.equal(s, s_p), "K3 traceback state differs from plain"
     assert torch.equal(codes, codes_p), "K3 codes differ from plain"
+    # K9's traceback chunk on the same rows: states bit-equal to its plain
+    # version's and the carried state to K3's
+    states = torch.empty((Tc, B), dtype=torch.uint16, device=end.device)
+    s9 = hmm.traceback_chunk_states_kernel(6, end, end.clone(), bps, Tc,
+                                           lengths, states)
+    tb9_plain_ms, (s9_p, states_p) = cuda_ms_once(
+        lambda: hmm.viterbi_traceback_grouped_chunk_plain(
+            6, end, end.clone(), bps, Tc, lengths, compact=False))
+    assert torch.equal(s9, s9_p) and torch.equal(s9, s), \
+        "K9 traceback state differs"
+    assert torch.equal(states.int(), states_p.int()), \
+        "K9 traceback states differ from plain"
     recs = {
         "viterbi_forward_chunk": {
             "max_abs_err": max_err(alpha, alpha_p),
@@ -401,6 +440,12 @@ def time_tchunk_kernels(gt, model, ev, Tc: int) -> dict:
             "ms": cuda_ms(lambda: hmm.traceback_chunk_kernel(
                 6, end, end.clone(), bps, Tc, lengths, codes), 3),
             "plain_ms": tb_plain_ms},
+        "viterbi_traceback_chunk_states": {
+            "max_abs_err": max(max_err(s9, s9_p),
+                                max_err(states.int(), states_p.int())),
+            "ms": cuda_ms(lambda: hmm.traceback_chunk_states_kernel(
+                6, end, end.clone(), bps, Tc, lengths, states), 3),
+            "plain_ms": tb9_plain_ms},
     }
     for r in recs.values():
         r["shape"] = [B, Tc]
@@ -411,6 +456,93 @@ def time_tchunk_kernels(gt, model, ev, Tc: int) -> dict:
         "chunked_ms": cuda_ms(lambda: hmm.viterbi_decode_grouped_tchunk(
             gt, model, ev, Tc), 1)}
     return recs, decode
+
+
+def check_seqpar(gt, model, ev, D: int, n_blocks: int, ref: dict,
+                 plain: bool, devices=None) -> dict:
+    """K9 over D ranks (`devices`; default every rank on the events' card,
+    a stream each): with `plain`, path and logp bit-equal to its plain
+    version (seqpar.viterbi_decode_seqpar_plain, the same schedule over the
+    plain chunk functions; tolerance 0); logp bit-equal to ref's, the decode of
+    K1 + K2 or K3 ({"path0", "codes", "logp"}); each read's path up to its
+    length equal to the states rebuilt from ref's packed codes
+    (native.path_from_packed_codes), and past it the end state.  Returns
+    {"ms", "plain_ms"}: K9's time (after a warm-up) and, with `plain`, its
+    plain version's on the same inputs (CUDA events)."""
+    import torch
+
+    from nanocall_tpu_torch import native
+    from nanocall_tpu_torch.parallel import seqpar
+
+    devices = devices or [ev["mean"].device] * D
+    out = seqpar.viterbi_decode_seqpar(gt, model, ev, devices, n_blocks)
+    torch.cuda.synchronize()
+    what = f"K9 (D={D}, n_blocks={n_blocks})"
+    times = {"ms": None, "plain_ms": None}
+    if plain:
+        times["plain_ms"], want = cuda_ms_once(
+            lambda: seqpar.viterbi_decode_seqpar_plain(gt, model, ev,
+                                                       devices, n_blocks))
+        times["ms"] = cuda_ms(lambda: seqpar.viterbi_decode_seqpar(
+            gt, model, ev, devices, n_blocks), 3)
+        assert torch.equal(out["path"].int(), want["path"].int()), \
+            f"{what} path differs from plain"
+        assert torch.equal(out["logp"], want["logp"]), \
+            f"{what} logp differs from plain"
+    assert torch.equal(out["logp"], ref["logp"]), f"{what} logp differs"
+    path = out["path"].cpu().numpy().astype("int32")
+    path0, codes = ref["path0"].cpu().numpy(), ref["codes"].cpu().numpy()
+    for b, L in enumerate(ev["length"].tolist()):
+        if L:
+            want_b = native.path_from_packed_codes(int(path0[b]), codes[b],
+                                                   L, 6)
+            assert (path[b, :L] == want_b).all(), f"{what} path of read {b}"
+        end = path[b, L - 1] if L else path[b, -1]
+        assert (path[b, max(L, 1) - 1:] == end).all(), \
+            f"{what} path past the length of read {b}"
+    return times
+
+
+def run_seqpar(gt, model, ev, card: str) -> dict:
+    """K9 at long-read width, B_LONG x T_LONG over D_LONG ranks, n_blocks 1
+    and D_LONG, against K3's chunked decode (check_seqpar), with its time
+    beside K3's and its peak memory; then one decode (n_blocks D_LONG)
+    counted as the K9 path: {"launches", "ms", "k3_ms", "peak_gib"}."""
+    import torch
+
+    from nanocall_tpu_torch import roofline
+    from nanocall_tpu_torch.ops import hmm, kernels
+    from nanocall_tpu_torch.parallel import seqpar
+
+    k3 = hmm.viterbi_decode_grouped_tchunk(gt, model, ev, TC_LONG)
+    for M in (1, D_LONG):
+        check_seqpar(gt, model, ev, D_LONG, M, k3, plain=False)
+    del k3
+    devices = [ev["mean"].device] * D_LONG
+    k3_ms = cuda_ms(lambda: hmm.viterbi_decode_grouped_tchunk(
+        gt, model, ev, TC_LONG), 1)
+    times = {M: cuda_ms(lambda M=M: seqpar.viterbi_decode_seqpar(
+        gt, model, ev, devices, M), 1) for M in (1, D_LONG)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    seqpar.viterbi_decode_seqpar(gt, model, ev, devices, D_LONG)
+    torch.cuda.synchronize()
+    launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k in SEQPAR_KERNELS:
+        assert launches[k] == D_LONG * D_LONG, (k, launches[k])
+    bound = roofline.seqpar_bound(B_LONG, T_LONG)
+    print(f"K9 (viterbi_decode_seqpar): B={B_LONG} T={T_LONG} over "
+          f"{D_LONG} ranks on one card: logp bit-equal to K3's, paths to "
+          f"K3's codes, for n_blocks 1 and {D_LONG}; "
+          f"{times[1]:.3f} ms (n_blocks 1), {times[D_LONG]:.3f} ms "
+          f"(n_blocks {D_LONG}) vs K3's chunked decode {k3_ms:.3f} ms; "
+          f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}); peak "
+          f"device memory {peak:.3f} GiB; launches "
+          f"{ {k: launches[k] for k in SEQPAR_KERNELS} } [{card}]")
+    return {"launches": launches, "ms": times[D_LONG], "k3_ms": k3_ms,
+            "peak_gib": peak, "bound": bound}
 
 
 def load_trans_table(device):
@@ -1031,13 +1163,16 @@ def read_fasta(path: str) -> dict:
 
 
 def run_end_to_end(models, reads, device, train: bool, must_launch,
-                   trans=None, tag: str = "", trace_dir: str = "") -> dict:
+                   trans=None, tag: str = "", trace_dir: str = "",
+                   sharder=None, fasta: str = "") -> dict:
     """run_pipeline over the reads, untrained (`--no-train`) or with the
     default EM training, under the loaded table when `trans` (the TSV
     path and the table load_trans_table returns), inside
     observe.device_trace(trace_dir) when trace_dir is given (`--trace-dir`),
-    with FASTA and stats written by the port CLI's writer into
-    build/chip_smoke/<tag>; checks the records, identity and launches."""
+    over the data sharder `sharder` when given, with FASTA and stats
+    written by the port CLI's writer into build/chip_smoke/<tag> (or the
+    FASTA to `fasta`, the stats beside it); checks the records, identity
+    and launches."""
     import torch
 
     from nanocall_tpu_torch import basecall, cli, observe, read_pipeline, \
@@ -1048,7 +1183,8 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
                    + ("_trans" if trans else ""))
     out = os.path.join(ROOT, "build", "chip_smoke", name)
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    cfg = smoke_config("-o", out + ".fa", "--stats", out + ".tsv",
+    cfg = smoke_config("-o", fasta or out + ".fa",
+                       "--stats", (fasta or out) + ".tsv",
                        *([] if train else ["--no-train"]),
                        *(["-s", trans[0]] if trans else []))
     decoded = {}  # strands the decode must write, with their event counts
@@ -1070,7 +1206,7 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
     with observe.device_trace(trace_dir, device):
         summaries, results = basecall.run_pipeline(
             stream(), models, cfg, device, timer=timer,
-            default_transitions=trans[1] if trans else None)
+            default_transitions=trans[1] if trans else None, sharder=sharder)
     wall = time.perf_counter() - t0
     launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated()
@@ -1114,6 +1250,97 @@ def run_end_to_end(models, reads, device, train: bool, must_launch,
             "launches": launches, "peak_gib": peak / 2**30}
 
 
+def stats_close(a_path: str, b_path: str, rtol: float) -> None:
+    """Two stats TSVs: the same rows and text fields, numbers within
+    rtol."""
+    with open(a_path) as fa, open(b_path) as fb:
+        rows_a = [r.split("\t") for r in fa.read().splitlines()]
+        rows_b = [r.split("\t") for r in fb.read().splitlines()]
+    assert len(rows_a) == len(rows_b) and rows_a[0] == rows_b[0]
+    for ra, rb in zip(rows_a[1:], rows_b[1:]):
+        assert len(ra) == len(rb), (ra, rb)
+        for x, y in zip(ra, rb):
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                assert x == y, (ra, rb)
+                continue
+            assert abs(fx - fy) <= rtol * max(abs(fx), abs(fy)) or fx == fy, \
+                (ra, rb)
+
+
+def run_sharded(models, reads, device, card: str) -> dict:
+    """The untrained and the trained runs of the reads again over a data
+    sharder of two shards on the one card (DataSharder(devices=[cuda:0,
+    cuda:0])): the untrained FASTA byte-equal to the unsharded run's, the
+    trained stats within rtol 2e-3 of its (with the identity checks of
+    every run), decode chunks (and in the trained run EM chunks) cut into
+    shards, and each run's kernels launched.  {run name: result}."""
+    from nanocall_tpu_torch.parallel import mesh
+
+    class CountingSharder(mesh.DataSharder):
+        """Counts the chunks it cut, EM (an event dict first) and decode."""
+
+        def __init__(self, devices):
+            super().__init__(devices=devices)
+            self.cut = {"em": 0, "decode": 0}
+
+        def shard(self, tree, batch_size: int) -> list:
+            self.cut["em" if isinstance(tree[0], dict) else "decode"] += 1
+            return super().shard(tree, batch_size)
+
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    runs = {}
+    for train, kernels_, tag in ((False, UNTRAINED_KERNELS, "untrained"),
+                                 (True, TRAINED_KERNELS, "trained")):
+        sharder = CountingSharder([device, device])
+        assert sharder.active and sharder.align == 2
+        runs[tag] = run_end_to_end(models, reads, device, train, kernels_,
+                                   tag=f"{tag}_sharded", sharder=sharder)
+        assert sharder.cut["decode"] > 0, sharder.cut
+        assert sharder.cut["em"] > 0 or not train, sharder.cut
+        runs[tag]["cut"] = dict(sharder.cut)
+        print_run(f"{tag} over 2 shards on one card", runs[tag], card)
+    with open(os.path.join(out, "untrained.fa"), "rb") as a, \
+            open(os.path.join(out, "untrained_sharded.fa"), "rb") as b:
+        assert a.read() == b.read(), "the sharded untrained FASTA differs"
+    stats = [os.path.join(out, f"trained{x}.tsv") for x in ("", "_sharded")]
+    stats_close(*stats, 2e-3)
+    with open(stats[0], "rb") as a, open(stats[1], "rb") as b:
+        same = a.read() == b.read()
+    print(f"sharder: untrained FASTA byte-equal, trained stats within rtol "
+          f"2e-3 of the unsharded runs (byte-equal: {same}); chunks cut "
+          f"{ {k: r['cut'] for k, r in runs.items()} }")
+    return runs
+
+
+def run_multihost(models, reads, device, card: str) -> dict:
+    """Two hosts emulated in this process: multihost.partition_files over
+    the reads, run_pipeline untrained per host into its
+    multihost.shard_output_path, then multihost.merge_shards; the merged
+    FASTA must equal the untrained run's byte for byte.  Returns the
+    launches of both hosts' runs."""
+    from nanocall_tpu_torch.parallel import multihost
+
+    out = os.path.join(ROOT, "build", "chip_smoke", "multihost.fa")
+    launches = {}
+    for host in range(2):
+        part = multihost.partition_files(list(reads), host, 2)
+        multihost.remove_stale_shard(out, host, 2)
+        r = run_end_to_end(models, part, device, False, HOST_KERNELS,
+                           tag=f"host{host}",
+                           fasta=multihost.shard_output_path(out, host, 2))
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    multihost.merge_shards(out, 2)
+    with open(os.path.join(os.path.dirname(out), "untrained.fa"), "rb") as a, \
+            open(out, "rb") as b:
+        assert a.read() == b.read(), "the merged multi-host FASTA differs"
+    print(f"multihost: 2 hosts' shards ({len(reads)} reads) merged; FASTA "
+          f"byte-equal to the untrained run's [{card}]")
+    return launches
+
+
 def check_trace(trace_dir: str) -> None:
     """The traced run wrote a Chrome trace that names the K1 and K2
     kernels (CUPTI records the kernels the ctypes library launches), and
@@ -1152,7 +1379,7 @@ def main() -> int:
     import numpy as np
 
     from nanocall_tpu_torch import cli, roofline
-    from nanocall_tpu_torch.ops import _cuda, kernels
+    from nanocall_tpu_torch.ops import _cuda, hmm, kernels
 
     device = torch.device("cuda", 0)
     card = smi_line()
@@ -1222,7 +1449,7 @@ def main() -> int:
     print(f"kernel K3: B={B_KERNEL} T={T_KERNEL} Tc={TC_KERNEL} forward and "
           f"traceback chunks bit-equal to plain, the chunked decode to "
           f"K1 + K2 [{card}]")
-    del gt, model, ev
+    small = (gt, model, ev)  # K9 takes them again after K3's long phase
 
     gt, model, ev = kernel_inputs(models, device, B_LONG, T_LONG, rng)
     check_tchunk_vs_full_scan(gt, model, ev, TC_LONG)
@@ -1235,6 +1462,24 @@ def main() -> int:
           f"to K1 + K2; chunked {decode['chunked_ms']:.3f} ms, full scan "
           f"{decode['full_scan_ms']:.3f} ms [{card}]")
     recs.update(k3)
+    t0 = time.perf_counter()
+    k1k2 = hmm.viterbi_decode_grouped(*small)
+    k9_bound = roofline.seqpar_bound(B_KERNEL, T_KERNEL)
+    for D in D_KERNEL:
+        for M in (1, D):
+            t = check_seqpar(*small, D, M, k1k2, plain=True)
+            print(f"K9 (viterbi_decode_seqpar): B={B_KERNEL} T={T_KERNEL} "
+                  f"over {D} ranks on one card, n_blocks {M}: path and logp "
+                  f"bit-equal to the plain version, logp to K1's, paths to "
+                  f"K2's codes; {t['ms']:.3f} ms vs plain "
+                  f"{t['plain_ms']:.3f} ms; bound {k9_bound['bound_ms']:.4f} "
+                  f"ms ({k9_bound['bound_by']}) [{card}]")
+    print(f"K9 at B={B_KERNEL} T={T_KERNEL}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    del small, k1k2
+    t0 = time.perf_counter()
+    seq = run_seqpar(gt, model, ev, card)
+    print(f"K9 at long-read width: {time.perf_counter() - t0:.1f} s")
     del gt, model, ev
     torch.cuda.empty_cache()
 
@@ -1286,6 +1531,10 @@ def main() -> int:
     for k in ("viterbi_forward_path", "viterbi_traceback"):
         assert long["launches"][k] == 0, f"a long path chunk ran {k}"
     print_run("long reads, trained (default)", long, card)
+    t0 = time.perf_counter()
+    sharded = run_sharded(models, reads, device, card)
+    multihost_launches = run_multihost(models, reads, device, card)
+    print(f"sharder and multihost phases: {time.perf_counter() - t0:.1f} s")
     tool_runs = run_tools(models, trans[0], rng)
     for name, r in tool_runs.items():
         extra = {k: v for k, v in r.items() if k not in ("launches",
@@ -1312,7 +1561,10 @@ def main() -> int:
             "long": long["launches"], "traced": traced["launches"],
             **{name: r["launches"] for name, r in tool_runs.items()},
             "dump": dump["launches"], "measure": measure["launches"],
-            "repro": repro_launches}
+            "repro": repro_launches, "seqpar": seq["launches"],
+            "sharded_untrained": sharded["untrained"]["launches"],
+            "sharded_trained": sharded["trained"]["launches"],
+            "multihost": multihost_launches}
     records = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces,
                 "launches": sum(r[k.name] for r in runs.values()),
@@ -1320,7 +1572,7 @@ def main() -> int:
                 "library_ms": None, **recs[k.name],
                 **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
                for k in kernels.KERNELS]
-    assert len(records) == 15 and all(r["launches"] for r in records), \
+    assert len(records) == 16 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])

@@ -6,9 +6,11 @@ the default trained pipeline (EM training, then decode), the untrained
 decode (`--no-train`) and the decode of a `--resume-stats` run, each also
 under a loaded transition table (`-s/--trans`); `--dump-training-data DIR`
 (the first trainable read's training inputs as TSVs, then exit) and
-`--trace-dir DIR` (a torch.profiler trace of the run).  The multi-host
-flags, whose paths are not ported yet, raise NotImplementedError instead of
-running something else.
+`--trace-dir DIR` (a torch.profiler trace of the run).  With `--num-hosts
+N --host-id I` each host runs its share of the input files into shard
+outputs and host 0 merges the FASTA shards (parallel/multihost.py); with
+`--coordinator host:port` the hosts join a gloo process group and wait for
+one another before the merge.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from . import basecall, fast5_io, ingest, output, pore_model, \
 from .config import Config
 from .models import load_builtin_models
 from .observe import StageTimer, device_trace, set_levels_from_options
+from .parallel import mesh, multihost
 from .util import zopen
 from .version import get_version
 
@@ -90,9 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump-training-data", default="", metavar="DIR",
                    help="dump the first trainable read's training inputs "
                    "(emissions, transitions, fw, bw TSVs) to DIR and exit")
-    p.add_argument("--coordinator", default="", help="(not ported yet)")
-    p.add_argument("--num-hosts", type=int, default=1, help="(not ported yet)")
-    p.add_argument("--host-id", type=int, default=0, help="(not ported yet)")
+    # multi-host execution
+    p.add_argument("--coordinator", default="",
+                   help="multi-host coordinator address host:port")
+    p.add_argument("--num-hosts", type=int, default=1)
+    p.add_argument("--host-id", type=int, default=0)
     return p
 
 
@@ -149,23 +154,15 @@ def config_from_args(args) -> Config:
     return cfg
 
 
-def _refuse_unported(args) -> None:
-    """Raise for the flags whose path the port does not run yet: the
-    multi-host ones."""
-    if args.num_hosts > 1 or args.coordinator:
-        raise NotImplementedError(
-            "not ported to nanocall_tpu_torch yet: multi-host runs "
-            "(--num-hosts, --coordinator)")
-
-
 def resolve_device(name: str) -> torch.device:
-    """The decode device; `cuda` without a usable GPU raises."""
+    """The decode device, indexed (`cuda` is the current card); `cuda`
+    without a usable GPU raises."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda: no CUDA device is available (pass --device cpu "
             "to run the plain PyTorch versions of the kernels on the CPU)")
-    return device
+    return mesh.indexed(device)
 
 
 def init_models(cfg: Config) -> dict:
@@ -258,20 +255,44 @@ def main(argv=None) -> int:
     level = set_levels_from_options(args.log)
     logging.basicConfig(level=level, format="%(name)s: %(levelname)s: %(message)s")
     cfg = config_from_args(args)
-    _refuse_unported(args)
     _echo_options(args, argv, cfg)
     if fast5_io.h5py is None:
         raise RuntimeError("reading fast5 files needs h5py, which is not installed")
     # fork the ingest workers while the process is still single-threaded,
-    # before anything initialises CUDA
+    # before anything initialises CUDA or gloo starts its threads
     ingest.ensure_pool(cfg.ingest_workers)
-    device = resolve_device(args.device)
+    multi = args.num_hosts > 1
+    if multi and args.coordinator:
+        multihost.init_distributed(args.coordinator, args.num_hosts,
+                                   args.host_id)
+    try:
+        return _run(args, cfg, multi)
+    finally:
+        multihost.shutdown_distributed()
 
+
+def _run(args, cfg: Config, multi: bool) -> int:
+    """The run of `main` after its set-up: this host's files, the pipeline,
+    the outputs, and under --num-hosts the barrier and host 0's merge
+    (nanocall_tpu/cli.py:270-375)."""
+    device = resolve_device(args.device)
     models = init_models(cfg)
     default_transitions = init_transitions(cfg)
     files = read_pipeline.init_files(args.inputs)
     if not files:
         raise SystemExit("no fast5 files to process")
+    if multi:
+        files = multihost.partition_files(files, args.host_id, args.num_hosts)
+        # clear this host's stale shard before any work: the merge treats
+        # shard existence as completeness
+        multihost.remove_stale_shard(args.output or "out.fa", args.host_id,
+                                     args.num_hosts)
+        cfg.output = multihost.shard_output_path(
+            args.output or "out.fa", args.host_id, args.num_hosts)
+        cfg.stats_fn = multihost.shard_output_path(
+            cfg.stats_fn, args.host_id, args.num_hosts) if cfg.stats_fn else ""
+        log.info("host %d/%d: %d files -> %s",
+                 args.host_id, args.num_hosts, len(files), cfg.output)
     for f in files:
         log.info("adding input file [%s]", f)
     stream = ingest.ingest_stream(files, models, cfg)
@@ -307,6 +328,15 @@ def main(argv=None) -> int:
                         summaries, models, cfg, pool, default_transitions)
 
     write_outputs(summaries, results, models, cfg)
+    if multi:
+        if args.coordinator:
+            multihost.barrier()
+        # FASTA shards exist only when basecalling to files (not
+        # --no-basecall, not --write-fast5)
+        if args.host_id == 0 and cfg.basecall and not cfg.write_fast5:
+            multihost.merge_shards(args.output or "out.fa", args.num_hosts)
+            log.info("merged %d shards into %s", args.num_hosts,
+                     args.output or "out.fa")
     return 0
 
 

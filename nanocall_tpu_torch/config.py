@@ -57,7 +57,7 @@ class Config:
     # execution
     kmer_size: int = 6
     # most tasks in one decode chunk (path chunks are further capped by
-    # basecall.BP_BUDGET)
+    # shapes.BP_BUDGET)
     bucket_max_batch: int = 256
     # most tasks in one score-only chunk; 0 = the path chunks' cap
     score_max_batch: int = 0
@@ -71,6 +71,9 @@ class Config:
     # ingest worker processes (-1 = auto: cpu_count-1 capped at 6; 0/1 =
     # in-process); see ingest.py
     ingest_workers: int = -1
+    # devices the data sharder splits chunks over (parallel/mesh.py):
+    # 0 = every local device of the run's kind
+    num_shards: int = 0
 
     def apply_pore_preset(self) -> "Config":
         """r73/r9 presets for abasic/hairpin/drift knobs (nanocall.cpp:943-964)."""

@@ -40,6 +40,7 @@
 // fused_bwd_mstats_plain in nanocall_tpu_torch/ops/em.py on the card.
 
 #include "common.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -318,8 +319,8 @@ extern "C" int nc_em_backward(
     const float* log_p_stay, const float* log_p_step4, const uint8_t* flags,
     int train_scaling, int train_transitions, float log2pi, float* scal,
     float* st, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && T > 0) {
     em_backward_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
         ev_mean, ev_stdv, ev_log_stdv, length, B, T, e_stay, e_step_to,

@@ -26,6 +26,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int THREADS = 1024;
@@ -56,8 +58,8 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" int nc_fma_chain(const float* x, int B, int n, int T, int k,
                             float c, float d, float* out, int device,
                             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     switch (n / THREADS) {

@@ -31,6 +31,7 @@
 // fwbw_grouped_backward_plain in nanocall_tpu_torch/ops/hmm.py on the card.
 
 #include "common.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -150,8 +151,8 @@ extern "C" int nc_fwbw_backward(
     const float* sd_mean, const float* sd_lambda, const float* log_sd_lambda,
     const uint8_t* flags, float log2pi, float* betas, int device,
     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && T > 0) {
     fwbw_backward_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
         ev_mean, ev_stdv, ev_log_stdv, length, B, T, e_stay, e_step_to,

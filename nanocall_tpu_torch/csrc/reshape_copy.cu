@@ -14,6 +14,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -32,8 +34,8 @@ __global__ void reshape_copy_kernel(const float* __restrict__ x, int R, int M,
 // Plain C entry for ctypes.  Returns cudaGetLastError() after the launch.
 extern "C" int nc_reshape_copy(const float* x, int R, int M, int L,
                                float* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const int count = R * M * L;
   if (count > 0) {
     reshape_copy_kernel<<<(count + THREADS - 1) / THREADS, THREADS, 0,

@@ -18,6 +18,9 @@
 // step, padded steps included, exactly like the JAX scans: K1 writes event
 // t's row at bps[t-1] (event 0 has none); a chunk writes event t's row at
 // bps[t - t0], and the row of event 0, in the chunk with t0 = 0, is zeros.
+// A chunk reads event t at column t - ev_t0 of its event rows: 0 when the
+// rows hold the whole read (K3), the rank's first event when they hold only
+// its slice of the read (K9, parallel/seqpar.py).
 //
 // Design: one block per read, 1024 threads, 4 states per thread; the time
 // loop runs inside the block, so a whole read (or chunk) is one launch.
@@ -46,6 +49,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -64,7 +68,7 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
                        const float* __restrict__ ev_stdv,
                        const float* __restrict__ ev_log_stdv,
                        const int32_t* __restrict__ length, int B,
-                       int ev_stride, int t0, int t1,
+                       int ev_stride, int ev_t0, int t0, int t1,
                        const float* __restrict__ carry_alpha,
                        const float* __restrict__ stay,
                        const float* __restrict__ step,
@@ -115,6 +119,7 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
     NC_UNPACK(r_lsl, v8)
 #undef NC_UNPACK
   }
+  // event t of read b: column t - ev_t0 of its row
   const float* evm = ev_mean + (size_t)b * ev_stride;
   const float* evs = ev_stdv + (size_t)b * ev_stride;
   const float* evl = ev_log_stdv + (size_t)b * ev_stride;
@@ -125,7 +130,8 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
   float a[4];
   int t = t0;
   if (t0 == 0) {
-    const float x = evm[0], y = evs[0], ly = evl[0];
+    const int c = -ev_t0;
+    const float x = evm[c], y = evs[c], ly = evl[c];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       a[i] = emission(x, y, ly, r_lm[i], r_ls[i], r_lls[i], r_sm[i],
@@ -179,7 +185,8 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
     }
     __syncthreads();
 
-    const float x = evm[t], y = evs[t], ly = evl[t];
+    const int c = t - ev_t0;
+    const float x = evm[c], y = evs[c], ly = evl[c];
     const bool active = t < len;
     const float mm4 = m4[tid];
     const int gg4 = g4[tid];
@@ -227,33 +234,33 @@ extern "C" int nc_viterbi_forward(
     const float* log_level_stdv, const float* sd_mean, const float* sd_lambda,
     const float* log_sd_lambda, float log2pi, float log_n, float* final_alpha,
     uint8_t* bps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && T > 0) {
     viterbi_forward_kernel<false><<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        ev_mean, ev_stdv, ev_log_stdv, length, B, T, 0, T, nullptr, stay,
+        ev_mean, ev_stdv, ev_log_stdv, length, B, T, 0, 0, T, nullptr, stay,
         step, skip, level_mean, level_stdv, log_level_stdv, sd_mean,
         sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps);
   }
   return (int)cudaGetLastError();
 }
 
-// One chunk, events [t0, t1) of (B, ev_stride) event rows; carry_alpha
-// (B, 4096) is alpha at event t0 - 1 (unread when t0 == 0); bps holds
-// t1 - t0 rows of (B, 4096).
+// One chunk, events [t0, t1) of (B, ev_stride) event rows whose column 0
+// holds event ev_t0 (ev_t0 <= t0); carry_alpha (B, 4096) is alpha at event
+// t0 - 1 (unread when t0 == 0); bps holds t1 - t0 rows of (B, 4096).
 extern "C" int nc_viterbi_forward_chunk(
     const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
-    const int32_t* length, int B, int ev_stride, int t0, int t1,
+    const int32_t* length, int B, int ev_stride, int ev_t0, int t0, int t1,
     const float* carry_alpha, const float* stay, const float* step,
     const float* skip, const float* level_mean, const float* level_stdv,
     const float* log_level_stdv, const float* sd_mean, const float* sd_lambda,
     const float* log_sd_lambda, float log2pi, float log_n, float* final_alpha,
     uint8_t* bps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && t1 > t0) {
     viterbi_forward_kernel<true><<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        ev_mean, ev_stdv, ev_log_stdv, length, B, ev_stride, t0, t1,
+        ev_mean, ev_stdv, ev_log_stdv, length, B, ev_stride, ev_t0, t0, t1,
         carry_alpha, stay, step, skip, level_mean, level_stdv, log_level_stdv,
         sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps);
   }

@@ -46,6 +46,7 @@
 // nanocall_tpu_torch/ops/hmm.py on the card.
 
 #include "common.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -233,8 +234,8 @@ extern "C" int nc_viterbi_generic_forward(
     const float* log_level_stdv, const float* sd_mean, const float* sd_lambda,
     const float* log_sd_lambda, float log2pi, float log_n, float* final_alpha,
     uint8_t* bps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && T > 0) {
     if (bps != nullptr) {
       viterbi_generic_forward_kernel<true>
@@ -257,8 +258,8 @@ extern "C" int nc_viterbi_generic_traceback(
     const float* final_alpha, const uint8_t* bps, const int32_t* length,
     int B, int T, const int32_t* from_idx, uint16_t* path, float* logp,
     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0) {
     viterbi_generic_traceback_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
         final_alpha, bps, length, B, T, from_idx, path, logp);

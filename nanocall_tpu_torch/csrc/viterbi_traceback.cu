@@ -29,6 +29,15 @@
 // packed on the card (0.75 byte per event) with no unpacked (T-1, B) buffer
 // and no second packing pass.
 //
+// K9's traceback chunk (parallel/seqpar.py, replacing the traceback of
+// nanocall_tpu/parallel/seqpar.py:40) is the template twin STATES = true of
+// the chunk kernel: the same step, but it writes the state s_eff of every
+// event t0 .. t1-1 (event 0 included, where it passes s_eff through) as a
+// uint16 into row t - t0 of a (t1 - t0, row_stride) states buffer, JAX's
+// non-compact output (nanocall_tpu/ops/hmm.py:464-483).  States, not packed
+// codes, because K9's ranks walk their slices on streams of their own, so
+// two ranks must never share a 3-byte group, and JAX's K9 returns states.
+//
 // Design: one block per read.  For K2, all 1024 threads reduce the final
 // alpha (4 states each, then warp shuffles, ties to the lower index,
 // matching argmax's first occurrence); one thread then walks the read
@@ -38,9 +47,17 @@
 // What bounds it: the walk is a chain of dependent byte loads from device
 // memory, one per event, so a read takes T load latencies; reads run in
 // parallel, one block each.  Nothing here is tuned yet.
+//
+// What bounds K9 as a whole: K3's forward operations (one chunk kernel per
+// rank and block) and this walk's dependent byte loads, over D * M launches
+// of each half for D ranks and M blocks, with a pipeline fill of
+// (D - 1) / (M + D - 1) of the microsteps in which some rank waits.  The
+// design does nothing about it yet: it is the simple kernel that is right.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -55,6 +72,28 @@ __device__ __forceinline__ void take_better(float& best, int& idx, float ob,
   }
 }
 
+// One step of every walk, at event t from state s: s_eff (the state at
+// event t, clamped to the end state at the read's last event), the state at
+// event t - 1, and the 6-bit code.  Event 0's row and padded events pass
+// s_eff through with code 0.
+struct Step {
+  int s_eff, s, code;
+};
+
+__device__ __forceinline__ Step step(const uint8_t* __restrict__ bp_row,
+                                     int t, int len, int end_state, int s) {
+  const int s_eff = t == len - 1 ? end_state : s;
+  const int k = bp_row[s_eff];
+  const bool real = t >= 1 && t <= len - 1;
+  const int group = k >> 6;
+  const int arg = k & 63;
+  const int s_prev = group == 0   ? s_eff
+                     : group == 1 ? ((arg << 10) | (s_eff >> 2))
+                                  : ((arg << 8) | (s_eff >> 4));
+  return {s_eff, real ? s_prev : s_eff,
+          real ? ((group << 4) | (s_eff & 15)) : 0};
+}
+
 // The walk over events t_hi-1 .. t_lo (t_lo >= 1) of one read from state s;
 // event t's bp row is bp_b[(t - row0) * row_stride].  Codes are stored into
 // `out`, or ORed into it when OR_CODES (a group shared with another chunk).
@@ -66,16 +105,10 @@ __device__ __forceinline__ int walk(const uint8_t* __restrict__ bp_b,
                                     uint8_t* __restrict__ out) {
   uint32_t w = 0;
   for (int t = t_hi - 1; t >= t_lo; --t) {
-    const int s_eff = t == len - 1 ? end_state : s;
-    const int k = bp_b[(size_t)(t - row0) * row_stride + s_eff];
-    const bool real = t <= len - 1;
-    const int group = k >> 6;
-    const int arg = k & 63;
-    const int s_prev = group == 0   ? s_eff
-                       : group == 1 ? ((arg << 10) | (s_eff >> 2))
-                                    : ((arg << 8) | (s_eff >> 4));
-    s = real ? s_prev : s_eff;
-    const uint32_t code = real ? (uint32_t)((group << 4) | (s_eff & 15)) : 0u;
+    const Step st =
+        step(bp_b + (size_t)(t - row0) * row_stride, t, len, end_state, s);
+    s = st.s;
+    const uint32_t code = (uint32_t)st.code;
     const int i = t - 1;
     w |= code << (6 * (i & 3));
     if ((i & 3) == 0 || t == t_lo) {
@@ -150,19 +183,39 @@ viterbi_traceback_kernel(const float* __restrict__ final_alpha,
 
 // One chunk of rows, events [t0, t1): one thread per read walks from
 // state[b] and leaves the state for the chunk to its left in state[b].
+// STATES = false (K3) ORs the packed codes into `codes`; STATES = true (K9)
+// writes the states into `states` (row t - t0, column b, rows of
+// states_stride).
+template <bool STATES>
 __global__ void __launch_bounds__(32)
 viterbi_traceback_chunk_kernel(const int32_t* __restrict__ end_state,
                                int32_t* __restrict__ state,
                                const uint8_t* __restrict__ bps,
                                const int32_t* __restrict__ length, int B,
                                int t0, int t1, int code_bytes,
-                               uint8_t* __restrict__ codes) {
+                               uint8_t* __restrict__ codes,
+                               uint16_t* __restrict__ states,
+                               int states_stride) {
   const int b = blockIdx.x * 32 + threadIdx.x;
   if (b >= B) return;
+  const uint8_t* bp_b = bps + (size_t)b * N;
+  const size_t row_stride = (size_t)B * N;
+  if (STATES) {
+    const int len = length[b], end = end_state[b];
+    int s = state[b];
+    for (int t = t1 - 1; t >= t0; --t) {
+      const Step st =
+          step(bp_b + (size_t)(t - t0) * row_stride, t, len, end, s);
+      states[(size_t)(t - t0) * states_stride + b] = (uint16_t)st.s_eff;
+      s = st.s;
+    }
+    state[b] = s;
+    return;
+  }
   // event 0's row is filler that passes the state through (JAX: real is
   // false at t = 0), so the walk stops at event 1
-  state[b] = walk<true>(bps + (size_t)b * N, (size_t)B * N, t0, t1,
-                        t0 > 1 ? t0 : 1, length[b], end_state[b], state[b],
+  state[b] = walk<true>(bp_b, row_stride, t0, t1, t0 > 1 ? t0 : 1, length[b],
+                        end_state[b], state[b],
                         codes + (size_t)b * code_bytes);
 }
 
@@ -174,8 +227,8 @@ extern "C" int nc_viterbi_traceback(const float* final_alpha,
                                     int B, int T, int code_bytes,
                                     int32_t* path0, uint8_t* codes,
                                     float* logp, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0) {
     viterbi_traceback_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
         final_alpha, bps, length, B, T, code_bytes, path0, codes, logp);
@@ -192,12 +245,31 @@ extern "C" int nc_viterbi_traceback_chunk(const int32_t* end_state,
                                           int t1, int code_bytes,
                                           uint8_t* codes, int device,
                                           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && t1 > (t0 > 1 ? t0 : 1)) {
-    viterbi_traceback_chunk_kernel<<<(B + 31) / 32, 32, 0,
-                                     (cudaStream_t)stream>>>(
-        end_state, state, bps, length, B, t0, t1, code_bytes, codes);
+    viterbi_traceback_chunk_kernel<false><<<(B + 31) / 32, 32, 0,
+                                            (cudaStream_t)stream>>>(
+        end_state, state, bps, length, B, t0, t1, code_bytes, codes, nullptr,
+        0);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K9's chunk: as above, but the states of events [t0, t1) go to `states`
+// (t1 - t0 rows of states_stride uint16, the read's column b).  Returns
+// cudaGetLastError() after the launch.
+extern "C" int nc_viterbi_traceback_chunk_states(
+    const int32_t* end_state, int32_t* state, const uint8_t* bps,
+    const int32_t* length, int B, int t0, int t1, uint16_t* states,
+    int states_stride, int device, void* stream) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (B > 0 && t1 > t0) {
+    viterbi_traceback_chunk_kernel<true><<<(B + 31) / 32, 32, 0,
+                                           (cudaStream_t)stream>>>(
+        end_state, state, bps, length, B, t0, t1, 0, nullptr, states,
+        states_stride);
   }
   return (int)cudaGetLastError();
 }

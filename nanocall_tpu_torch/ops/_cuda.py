@@ -31,7 +31,7 @@ SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
            "em_backward.cu", "viterbi_generic.cu", "fwbw_generic.cu",
            "fwbw_backward.cu", "fwbw_custom.cu", "fma_chain.cu",
            "reshape_copy.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "device_guard.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "nanocall_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -114,10 +114,13 @@ def load():
             [vp] * 4 + [ci, ci] + [vp] * 9 + [cf, cf] + [vp, vp] + [ci, vp])
         lib.nc_viterbi_forward_chunk.restype = ci
         lib.nc_viterbi_forward_chunk.argtypes = (
-            [vp] * 4 + [ci] * 4 + [vp] * 10 + [cf, cf] + [vp, vp] + [ci, vp])
+            [vp] * 4 + [ci] * 5 + [vp] * 10 + [cf, cf] + [vp, vp] + [ci, vp])
         lib.nc_viterbi_traceback_chunk.restype = ci
         lib.nc_viterbi_traceback_chunk.argtypes = (
             [vp] * 4 + [ci] * 4 + [vp] + [ci, vp])
+        lib.nc_viterbi_traceback_chunk_states.restype = ci
+        lib.nc_viterbi_traceback_chunk_states.argtypes = (
+            [vp] * 4 + [ci] * 3 + [vp] + [ci, ci, vp])
         lib.nc_viterbi_traceback.restype = ci
         lib.nc_viterbi_traceback.argtypes = (
             [vp] * 3 + [ci, ci, ci] + [vp] * 3 + [ci, vp])
@@ -154,6 +157,17 @@ def load():
         lib.nc_error_string.argtypes = [ci]
         _lib = lib
         return _lib
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches`.  Under a lock: the EM
+    sharder launches from one host thread per device, and `+=` on an
+    attribute is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(err: int, what: str) -> None:

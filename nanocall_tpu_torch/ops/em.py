@@ -185,7 +185,7 @@ def em_backward_kernel(gtf: hmm.GroupedTransFull, model: hmm.ModelArrays,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "em_backward kernel launch")
-    em_backward_kernel.launches += 1
+    _cuda.count_launch(em_backward_kernel)
     return scal, st3
 
 

@@ -54,7 +54,7 @@ def fma_chain_kernel(x: torch.Tensor, c, d, T: int, k: int) -> torch.Tensor:
         x.data_ptr(), B, n, T, k, float(c), float(d), out.data_ptr(),
         hmm._device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(err, "fma_chain kernel launch")
-    fma_chain_kernel.launches += 1
+    _cuda.count_launch(fma_chain_kernel)
     return out
 
 

@@ -20,6 +20,10 @@ Kernels and their plain versions, side by side below:
                             vs viterbi_forward_grouped_chunk_plain
       viterbi_traceback.cu  traceback_chunk_kernel
                             vs viterbi_traceback_grouped_chunk_plain
+  K9  (parallel/seqpar.py, over K3's forward chunk)
+      viterbi_traceback.cu  traceback_chunk_states_kernel vs
+                            viterbi_traceback_grouped_chunk_plain
+                            (compact=False)
   K4  fwbw_forward.cu       fwbw_forward_kernel vs fwbw_grouped_forward_plain
   K6a viterbi_generic.cu    generic_forward_path_kernel /
                             generic_forward_score_kernel
@@ -36,7 +40,8 @@ and the dev tools): every state's in- and out-neighbours are gathered
 through (deg, n) index tables.
 
 Each kernel wrapper counts its launches in a plain int attribute
-(`wrapper.launches`), incremented only where it launches the kernel.
+(`wrapper.launches`), incremented (by _cuda.count_launch, under a lock) only
+where it launches the kernel.
 
 Numerics: the kernels are built with -fmad=false, so on the same card they
 are bit-identical to the plain versions.  Sums whose order torch leaves
@@ -393,14 +398,14 @@ def _forward_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
 def forward_path_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict):
     """K1 on the card, with backpointers: (final_alpha, bps)."""
     out = _forward_kernel(gt, model, ev, with_path=True)
-    forward_path_kernel.launches += 1
+    _cuda.count_launch(forward_path_kernel)
     return out
 
 
 def forward_score_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict):
     """K1 on the card, score-only (no backpointer stores): final_alpha."""
     final, _ = _forward_kernel(gt, model, ev, with_path=False)
-    forward_score_kernel.launches += 1
+    _cuda.count_launch(forward_score_kernel)
     return final
 
 
@@ -501,7 +506,7 @@ def _traceback_kernel(K: int, final_alpha, bps, lengths):
 def traceback_kernel(K: int, final_alpha, bps, lengths):
     """K2 on the card: (path0, codes, logp)."""
     out = _traceback_kernel(K, final_alpha, bps, lengths)
-    traceback_kernel.launches += 1
+    _cuda.count_launch(traceback_kernel)
     return out
 
 
@@ -567,19 +572,21 @@ def viterbi_forward_grouped_chunk_plain(gt: GroupedTrans, model: ModelArrays,
 
 
 def forward_chunk_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
-                         carry_alpha, t0: int, Tc: int):
-    """K3's forward half on the card: events [t0, min(t0+Tc, T)) of the
-    (B, T) event rows, read in place; (alpha, bps (rows, B, n))."""
+                         carry_alpha, t0: int, Tc: int, ev_t0: int = 0):
+    """K3's forward half on the card: events [t0, min(t0+Tc, ev_t0+W)) of
+    the (B, W) event rows, whose column 0 holds event ev_t0 (0: the whole
+    read; K9's ranks pass their slice and its first event), read in place;
+    (alpha, bps (rows, B, n))."""
     mean = ev["mean"]
     dev = mean.device
-    B, T = mean.shape
+    B, W = mean.shape
     n = 4096
-    t1 = min(t0 + Tc, T)
+    t1 = min(t0 + Tc, ev_t0 + W)
     if gt.K != 6:
         raise ValueError(f"the CUDA forward kernel takes K=6, got K={gt.K}")
-    if not 0 <= t0 < t1:
-        raise ValueError(f"empty chunk [{t0}, {t1}) of {T} events")
-    _check_events(ev, B, T, dev)
+    if not 0 <= ev_t0 <= t0 < t1:
+        raise ValueError(f"empty chunk [{t0}, {t1}) of events from {ev_t0}")
+    _check_events(ev, B, W, dev)
     tables = (gt.stay_lp, gt.step_lp, gt.skip_lp, *model)
     _check_tables(tables, B, n, dev)
     if t0 > 0:
@@ -590,14 +597,14 @@ def forward_chunk_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
     lib = _cuda.load()
     err = lib.nc_viterbi_forward_chunk(
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, t0, t1,
+        ev["length"].data_ptr(), B, W, ev_t0, t0, t1,
         carry_alpha.data_ptr() if t0 > 0 else None,
         *(x.data_ptr() for x in tables), LOG_2PI, math.log(n),
         final.data_ptr(), bps.data_ptr(),
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "viterbi_forward_chunk kernel launch")
-    forward_chunk_kernel.launches += 1
+    _cuda.count_launch(forward_chunk_kernel)
     return final, bps
 
 
@@ -621,17 +628,20 @@ def viterbi_forward_grouped_chunk(gt: GroupedTrans, model: ModelArrays,
 
 
 def viterbi_traceback_grouped_chunk_plain(K: int, end_state, carry_state,
-                                          bps, t0: int, lengths):
+                                          bps, t0: int, lengths,
+                                          compact: bool = True):
     """Plain version of K3's traceback half (nanocall_tpu/ops/hmm.py:
-    437-483, compact=True): walks the chunk's rows bps (Tc, B, n) of events
-    [t0, t0+Tc) backwards from carry_state (end_state for the last chunk).
-    Returns (the state for the chunk to the left — path0 after the chunk
-    with t0 == 0 —, codes (Tc, B) uint8, row i the 6-bit code of event
-    t0+i, 0 at event 0)."""
+    437-483): walks the chunk's rows bps (Tc, B, n) of events [t0, t0+Tc)
+    backwards from carry_state (end_state for the last chunk).  Returns
+    (the state for the chunk to the left — path0 after the chunk with
+    t0 == 0 —, ys (Tc, B)): with compact, uint8 codes, row i the 6-bit code
+    of event t0+i, 0 at event 0; else (K9's) uint16 states, row i the state
+    s_eff of event t0+i."""
     Tc, B, _ = bps.shape
     rows = torch.arange(B, device=bps.device)
     lengths = lengths.to(torch.int32)
-    codes = torch.zeros((Tc, B), dtype=torch.uint8, device=bps.device)
+    ys = torch.zeros((Tc, B), dtype=torch.uint8 if compact else torch.int32,
+                     device=bps.device)
     s = carry_state
     for i in range(Tc - 1, -1, -1):
         t = t0 + i
@@ -640,8 +650,9 @@ def viterbi_traceback_grouped_chunk_plain(K: int, end_state, carry_state,
         # event 0's row is filler: it passes s_eff through
         real = (t <= lengths - 1) & (t >= 1)
         s = torch.where(real, grouped_from_state(k, s_eff, K), s_eff)
-        codes[i] = torch.where(real, ((k >> 6) << 4) | (s_eff & 15), 0)
-    return s, codes
+        ys[i] = (torch.where(real, ((k >> 6) << 4) | (s_eff & 15), 0)
+                 if compact else s_eff)
+    return s, ys if compact else ys.to(torch.uint16)
 
 
 def traceback_chunk_kernel(K: int, end_state, state, bps, t0: int, lengths,
@@ -671,11 +682,48 @@ def traceback_chunk_kernel(K: int, end_state, state, bps, t0: int, lengths,
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "viterbi_traceback_chunk kernel launch")
-    traceback_chunk_kernel.launches += 1
+    _cuda.count_launch(traceback_chunk_kernel)
     return state
 
 
 traceback_chunk_kernel.launches = 0
+
+
+def traceback_chunk_states_kernel(K: int, end_state, state, bps, t0: int,
+                                  lengths, states):
+    """K9's traceback chunk on the card: walks the chunk's rows of events
+    [t0, t0+Tc) from `state`, which it updates in place, and writes the
+    state of event t0+i into row i of `states`, a (Tc, B) uint16 view whose
+    rows may be strided (K9 writes a block's columns of a rank's (Tc, B_all)
+    buffer)."""
+    dev = bps.device
+    Tc, B, n = bps.shape
+    if K != 6 or n != 4096:
+        raise ValueError(f"the CUDA traceback kernel takes K=6, n=4096; "
+                         f"got K={K}, n={n}")
+    for name, x in (("end_state", end_state), ("state", state),
+                    ("lengths", lengths)):
+        _check(name, x, torch.int32, (B,), dev)
+    _check("bps", bps, torch.uint8, (Tc, B, n), dev)
+    if (states.dtype != torch.uint16 or tuple(states.shape) != (Tc, B)
+            or states.device != dev or states.stride(1) != 1):
+        raise ValueError(f"states: expected uint16 {(Tc, B)} rows on {dev}, "
+                         f"got {states.dtype} {tuple(states.shape)} strides "
+                         f"{states.stride()} on {states.device}")
+    _require_cuda(dev, "viterbi traceback chunk (states)")
+    lib = _cuda.load()
+    err = lib.nc_viterbi_traceback_chunk_states(
+        end_state.data_ptr(), state.data_ptr(), bps.data_ptr(),
+        lengths.data_ptr(), B, t0, t0 + Tc, states.data_ptr(),
+        states.stride(0), _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda.check(err, "viterbi_traceback_chunk_states kernel launch")
+    _cuda.count_launch(traceback_chunk_states_kernel)
+    return state
+
+
+traceback_chunk_states_kernel.launches = 0
 
 
 def or_packed_codes(codes, chunk_codes, t0: int) -> None:
@@ -857,7 +905,7 @@ def fwbw_forward_kernel(gtf: GroupedTransFull, model: ModelArrays, ev: dict,
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "fwbw_forward kernel launch")
-    fwbw_forward_kernel.launches += 1
+    _cuda.count_launch(fwbw_forward_kernel)
     return alphas, lpd
 
 
@@ -985,7 +1033,7 @@ def _generic_forward_kernel(ops: TransOps, model: ModelArrays, ev: dict,
 def generic_forward_path_kernel(ops: TransOps, model: ModelArrays, ev: dict):
     """K6a on the card, with backpointers: (final_alpha, bps)."""
     out = _generic_forward_kernel(ops, model, ev, with_path=True)
-    generic_forward_path_kernel.launches += 1
+    _cuda.count_launch(generic_forward_path_kernel)
     return out
 
 
@@ -993,7 +1041,7 @@ def generic_forward_score_kernel(ops: TransOps, model: ModelArrays,
                                  ev: dict):
     """K6a on the card, score-only (no backpointer stores): final_alpha."""
     final, _ = _generic_forward_kernel(ops, model, ev, with_path=False)
-    generic_forward_score_kernel.launches += 1
+    _cuda.count_launch(generic_forward_score_kernel)
     return final
 
 
@@ -1063,7 +1111,7 @@ def generic_traceback_kernel(ops: TransOps, final_alpha, bps, lengths):
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "viterbi_generic_traceback kernel launch")
-    generic_traceback_kernel.launches += 1
+    _cuda.count_launch(generic_traceback_kernel)
     return path, logp
 
 
@@ -1156,7 +1204,7 @@ def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "fwbw_generic kernel launch")
-    fwbw_generic_kernel.launches += 1
+    _cuda.count_launch(fwbw_generic_kernel)
     return out
 
 
@@ -1254,7 +1302,7 @@ def fwbw_custom_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "fwbw_custom kernel launch")
-    fwbw_custom_kernel.launches += 1
+    _cuda.count_launch(fwbw_custom_kernel)
     return out
 
 
@@ -1347,7 +1395,7 @@ def fwbw_backward_kernel(gtf: GroupedTransFull, model: ModelArrays,
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(err, "fwbw_backward kernel launch")
-    fwbw_backward_kernel.launches += 1
+    _cuda.count_launch(fwbw_backward_kernel)
     return betas
 
 

@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels, in main-path order (then the
-measurement path's K8 and the repro tool's K10): each kernel's wrapper
+"""The port's hand-written CUDA kernels, in main-path order (K9's
+traceback chunk after K3's, then the measurement path's K8 and the repro
+tool's K10): each kernel's wrapper
 (which carries its `launches` counter), its source, and the JAX function
 it replaces."""
 
@@ -33,6 +34,9 @@ KERNELS = (
     Kernel("viterbi_traceback_chunk", hmm.traceback_chunk_kernel,
            "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
            "nanocall_tpu/ops/hmm.py:437"),
+    Kernel("viterbi_traceback_chunk_states", hmm.traceback_chunk_states_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
+           "nanocall_tpu/parallel/seqpar.py:40"),
     Kernel("fwbw_forward", hmm.fwbw_forward_kernel,
            "nanocall_tpu_torch/csrc/fwbw_forward.cu",
            "nanocall_tpu/ops/hmm.py:890"),

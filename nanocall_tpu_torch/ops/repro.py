@@ -35,7 +35,7 @@ def reshape_copy_kernel(x: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), R, M, L, out.data_ptr(), hmm._device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(err, "reshape_copy kernel launch")
-    reshape_copy_kernel.launches += 1
+    _cuda.count_launch(reshape_copy_kernel)
     return out
 
 

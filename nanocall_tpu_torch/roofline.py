@@ -491,6 +491,25 @@ def viterbi_traceback_chunk_counts(B: int, T: int) -> tuple:
     return B * T + 16 * B + 3 * B * T // 4, 0.0
 
 
+def viterbi_traceback_chunk_states_counts(B: int, T: int) -> tuple:
+    """K9's traceback on a chunk of T events: a backpointer byte per event,
+    the states and lengths, a uint16 state per event; no float work."""
+    return B * T + 16 * B + 2 * B * T, 0.0
+
+
+def seqpar_bound(B: int, T: int) -> dict:
+    """{"bound_ms", "bound_by"} of one K9 decode of B reads of T events,
+    whatever its ranks and blocks: K3's forward chunks over all T events
+    (their bytes and operations) and the states traceback's bytes, as
+    kernel_bound counts one kernel."""
+    fb, fo = viterbi_forward_chunk_counts(B, T)
+    tb, to = viterbi_traceback_chunk_states_counts(B, T)
+    t_bytes = (fb + tb) / H100_HBM_BYTES_PER_S
+    t_ops = (fo + to) / H100_F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def fwbw_forward_counts(B: int, T: int) -> tuple:
     """K4: events, 9 tables, the flags, the alphas (T, B, n) and
     log Pr[data]."""
@@ -577,6 +596,7 @@ KERNEL_COUNTS = {
     "viterbi_traceback": viterbi_traceback_counts,
     "viterbi_forward_chunk": viterbi_forward_chunk_counts,
     "viterbi_traceback_chunk": viterbi_traceback_chunk_counts,
+    "viterbi_traceback_chunk_states": viterbi_traceback_chunk_states_counts,
     "fwbw_forward": fwbw_forward_counts,
     "em_backward": em_backward_counts,
     "viterbi_generic_forward_path": viterbi_generic_forward_path_counts,

@@ -125,3 +125,55 @@ def test_reshape_copy_kernel_bit_equal_on_the_card(card):
         torch.cuda.synchronize()
         assert repro.reshape_copy_kernel.launches == n0 + 1
         assert torch.equal(got, x.reshape(shape[0], -1)), shape
+
+
+@pytest.mark.cuda
+def test_seqpar_kernels_bit_equal_on_the_card(card):
+    """K9 over 2 and 4 ranks on one card (a stream each) against its plain
+    version: path and logp bit-equal, logp bit-equal to K1's; D * M
+    launches of each half."""
+    from nanocall_tpu_torch.ops import hmm as khmm
+    from nanocall_tpu_torch.parallel import seqpar
+
+    _, model, ev = _k6_inputs(card, 4, 40, [40, 0, 1, 39], 5)
+    gt = khmm.make_grouped_trans_device(
+        torch.full((4,), 0.12, device=card),
+        torch.full((4,), 0.28, device=card), 6)
+    full = khmm.viterbi_decode_grouped(gt, model, ev)
+    for D, M in ((2, 1), (2, 2), (4, 4)):
+        want = seqpar.viterbi_decode_seqpar_plain(gt, model, ev, [card] * D,
+                                                  M)
+        n0 = (khmm.forward_chunk_kernel.launches,
+              khmm.traceback_chunk_states_kernel.launches)
+        got = seqpar.viterbi_decode_seqpar(gt, model, ev, [card] * D, M)
+        torch.cuda.synchronize()
+        assert khmm.forward_chunk_kernel.launches == n0[0] + D * M
+        assert khmm.traceback_chunk_states_kernel.launches == n0[1] + D * M
+        assert torch.equal(got["path"].int(), want["path"].int()), (D, M)
+        assert torch.equal(got["logp"], want["logp"]), (D, M)
+        assert torch.equal(got["logp"], full["logp"]), (D, M)
+
+
+@pytest.mark.cuda
+def test_kernel_launch_leaves_the_current_device(card):
+    """A C entry makes its tensors' card current for the launch and hands
+    the caller's device back: after launches on every visible card, the
+    current device, and so where a bare "cuda" allocates, is unchanged.
+    A run's pool and drivers hold their device indexed."""
+    from nanocall_tpu_torch import basecall
+    from nanocall_tpu_torch.ops import repro
+
+    torch.cuda.set_device(0)
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        got = repro.reshape_copy(torch.ones((2, 3, 4), device=dev))
+        assert got.device == dev
+        _, model, ev = _k6_inputs(dev, 2, 8, [8, 5], i)
+        gt = hmm.make_grouped_trans_device(torch.full((2,), 0.1, device=dev),
+                                           torch.full((2,), 0.3, device=dev),
+                                           6)
+        hmm.viterbi_decode_grouped(gt, model, ev)
+        assert torch.cuda.current_device() == 0, i
+        assert torch.empty(1, device="cuda").device == card, i
+    torch.cuda.synchronize()
+    assert basecall.EventPool("cuda").device == card

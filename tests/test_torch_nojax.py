@@ -164,7 +164,9 @@ def test_package_source_names_no_jax():
     assert len(files) >= 20
     pkg = ROOT / "nanocall_tpu_torch"
     assert {pkg / "simulate.py", pkg / "roofline.py", pkg / "ops" / "fma.py",
-            pkg / "ops" / "repro.py"} <= set(files)
+            pkg / "ops" / "repro.py", pkg / "shapes.py",
+            pkg / "parallel" / "seqpar.py", pkg / "parallel" / "mesh.py",
+            pkg / "parallel" / "multihost.py"} <= set(files)
     tools = sorted((ROOT / "tools").glob("torch_*.py"))
     assert {t.name for t in tools} >= {"torch_decode_times.py",
                                        "torch_reshape_repro.py"}
@@ -195,6 +197,46 @@ def test_measurement_path_and_repro_run_on_cpu_without_importing_jax():
         + _ASSERT_NO_JAX)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines()[0].startswith("PASS")
+    assert proc.stdout.splitlines()[-1] == "NOJAX_OK"
+
+
+def test_parallel_path_runs_on_cpu_without_importing_jax():
+    """K9's plain version over 2 CPU ranks, a decode chunk over the data
+    sharder of 2 CPU devices, shapes.py and multihost's file partition in a
+    fresh interpreter: no jax and no nanocall_tpu."""
+    proc = _run_python(
+        "import sys, torch\n"
+        "from nanocall_tpu_torch import basecall, convert, shapes\n"
+        "from nanocall_tpu_torch.config import Config\n"
+        "from nanocall_tpu_torch.models import load_builtin_models\n"
+        "from nanocall_tpu_torch.ops import hmm\n"
+        "from nanocall_tpu_torch.parallel import mesh, multihost, seqpar\n"
+        "cpu = torch.device('cpu')\n"
+        "B, T = 2, 16\n"
+        "gt = hmm.make_grouped_trans_device(torch.full((B,), 0.1),"
+        " torch.full((B,), 0.3), 6)\n"
+        "bank = convert.model_bank(load_builtin_models('r73'),"
+        " ('r73.t.006',), cpu)\n"
+        "pm = torch.tensor([[1.0, 0, 0, 1, 1, 1]] * B)\n"
+        "model = hmm.make_scaled_model_arrays(bank,"
+        " torch.zeros(B, dtype=torch.int32), pm)\n"
+        "stdv = torch.ones(B, T)\n"
+        "ev = {'mean': torch.full((B, T), 60.0), 'stdv': stdv,"
+        " 'log_stdv': torch.log(stdv),"
+        " 'length': torch.tensor([T, 5], dtype=torch.int32)}\n"
+        "out = seqpar.viterbi_decode_seqpar(gt, model, ev, [cpu] * 2)\n"
+        "assert out['path'].shape == (B, T)\n"
+        "shards = basecall.decode_chunk_pooled(ev['mean'], stdv,"
+        " torch.zeros(B, T), torch.arange(B), torch.zeros(B), bank,"
+        " torch.zeros(B, dtype=torch.int32), pm,"
+        " torch.tensor([[0.1, 0.3]] * B), ev['length'],"
+        " sharder=mesh.DataSharder(devices=[cpu] * 2))\n"
+        "assert torch.equal(mesh.join(shards)['logp'], out['logp'])\n"
+        "assert shapes.path_chunk_cap(Config(), 8192, 2) == 256\n"
+        "assert multihost.partition_files(['a', 'b', 'c'], 1, 2) == ['c']\n"
+        "rc = 0\n"
+        + _ASSERT_NO_JAX)
+    assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines()[-1] == "NOJAX_OK"
 
 

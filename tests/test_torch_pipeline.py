@@ -111,21 +111,6 @@ def test_resume_stats_decode_equal_to_jax(sim, tmp_path):
     assert outs[1] == outs[0]
 
 
-@pytest.mark.parametrize("flags", [
-    ("--coordinator", "localhost:1234", "--no-train"),
-    ("--num-hosts", "2", "--no-train"),
-    ("--num-hosts", "2", "--host-id", "1", "--trace-dir", "trace"),
-])
-def test_unported_flags_raise(sim, tmp_path, flags):
-    """Only the multi-host flags are left unported (--dump-training-data
-    and --trace-dir run: tests/test_torch_tools.py); they raise before any
-    output is written."""
-    with pytest.raises(NotImplementedError):
-        torch_main([str(sim[0]), "--pore", "r73", "--device", "cpu", "-o",
-                    str(tmp_path / "x.fa"), *flags])
-    assert not (tmp_path / "x.fa").exists()
-
-
 def _assert_same_summary(got, want, name):
     """A port summary and its events against the JAX package's: equal
     fields, strand bounds and event arrays."""

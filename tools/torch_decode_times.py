@@ -31,7 +31,7 @@
    the device-side events: kernels and copies);
 3. with --long N, the long-read decode at the bucket of N events (N =
    100000 gives T = 100352) and the path batch cap there (83 reads under
-   basecall.BP_BUDGET): the chunked-time decode
+   shapes.BP_BUDGET): the chunked-time decode
    (K3, chunks of batching.tchunk_len(T) events) against the full scan
    (K1 + K2) on chip_smoke.py's inputs, in the order full, chunked,
    chunked, full: bit-equality, wall milliseconds and peak device memory of
@@ -88,7 +88,7 @@ def main() -> int:
     import torch
 
     from nanocall_tpu_torch import basecall, batching, cli, ingest, \
-        read_pipeline, roofline, simulate
+        read_pipeline, roofline, shapes, simulate
     from nanocall_tpu_torch.ops import _cuda, hmm, kernels
 
     if not torch.cuda.is_available():
@@ -210,7 +210,7 @@ def main() -> int:
     if args.long:
         T = batching.bucket_length(args.long)
         B = batching.batch_size_for(
-            T, cfg.bucket_max_batch, basecall.BP_BUDGET, 4096)
+            T, cfg.bucket_max_batch, shapes.BP_BUDGET, 4096)
         Tc = batching.tchunk_len(T)
         gt, model, ev = chip_smoke.kernel_inputs(
             models, device, B, T, np.random.default_rng(12))
