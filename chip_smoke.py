@@ -16,11 +16,17 @@ from the root of a checkout.  It
   4. runs each decode kernel on the card at the decode's full width
      (n = 4096 states, B = 16 reads of up to T = 2048 events, lengths from
      0 to T, per-read scaling and transitions): the grouped K1 (path and
-     score-only) and K2, and under the loaded table the generic K6a (path
-     and score-only), K6b and K6e (the per-step-normalized
-     forward-backward of `run-fwbw --custom-fwbw`: alpha, beta and gamma
-     of 3 x 0.54 GB); holds each to its plain PyTorch version on the same
-     inputs: tolerance 0, every output bit-equal; prints both times; then
+     score-only) and K2, and under the loaded table the generic K6a's two
+     kernels (streaming and resident, path and score-only, timed in turns:
+     streaming, resident, resident, streaming), K6b and K6e (the
+     per-step-normalized forward-backward of `run-fwbw --custom-fwbw`:
+     alpha, beta and gamma of 3 x 0.54 GB); holds each to its plain
+     PyTorch version on the same inputs: tolerance 0, every output
+     bit-equal; prints both times; then K6a through viterbi_forward under
+     a random table of 24 slots x 16 log-probs (the resident kernel's
+     widest layout) and under the in-memory 21-neighbour pairs, whose
+     slots hold up to 17 log-probs (the streaming kernel), each bit-equal
+     to the plain version; then
      K3, the chunked-time decode's forward and traceback
      kernels, at the same shape in chunks of 600 events (a short last
      chunk): each chunk's outputs against the plain versions (tolerance 0)
@@ -35,8 +41,9 @@ from the root of a checkout.  It
      timed at (16 x 2048, K3's chunk 4 x 8192, the EM chunk 512 x 128),
      and K1's share of the measured peak and of the 67 TFLOP/s spec; then
      K10, the repro's (8, 128, 4) -> (8, 512)
-     reshape copy, bit-equal to its plain version, with the library
-     call's time (x.reshape(8, 512).clone()), and
+     reshape copy, bit-equal to its plain version, timed in turns with the
+     library call (x.reshape(8, 512).clone()), each split into host
+     enqueue and device time (torch.profiler), and
      tools/torch_reshape_repro.py's main on the card (PASS);
   5. runs K3 at long-read widths, B = 4 reads x T = 40,960 events in chunks
      of 8,192: the chunked decode bit-equal to K1 + K2 (the plain versions
@@ -78,7 +85,9 @@ from the root of a checkout.  It
      then the decode; K4, K5, K1, K2); trained under the loaded table
      (`-s`: legacy EM rounds with K4, K6d and K6c, then the decode of the
      trained tasks by K1 and K2); and untrained under it (`-s --no-train`:
-     every task at the priors, so K6a path and score-only, and K6b).  Each
+     every task at the priors, so K6a's resident kernel path and
+     score-only, and K6b), then that run again with the table's packed
+     layout taken away (K6a's streaming kernel; FASTA byte-equal).  Each
      run checks one FASTA record per decoded strand, identity to the
      simulated truth above 0.6, and that each of its kernels launched; a
      trained run also checks that every trained 1D read's best candidate
@@ -165,9 +174,17 @@ TRAINED_KERNELS = ("fwbw_forward", "em_backward", "viterbi_forward_path",
 TRANS_TRAINED_KERNELS = ("fwbw_forward", "fwbw_grouped_backward",
                          "fwbw_generic", "viterbi_forward_path",
                          "viterbi_traceback")
-TRANS_UNTRAINED_KERNELS = ("viterbi_generic_forward_path",
-                           "viterbi_generic_forward_score",
+TRANS_UNTRAINED_KERNELS = ("viterbi_resident_forward_path",
+                           "viterbi_resident_forward_score",
                            "viterbi_generic_traceback")
+#: kernels the same run must launch with the table's packed layout taken
+#: away (K6a's streaming kernel)
+STREAMING_KERNELS = ("viterbi_generic_forward_path",
+                     "viterbi_generic_forward_score",
+                     "viterbi_generic_traceback")
+#: K6a's resident kernel under a random table of its widest layout: slots,
+#: distinct log-probs per slot
+RANDOM_DEG, RANDOM_VALUES = 24, 16
 LONG_KERNELS = ("fwbw_forward", "em_backward", "viterbi_forward_chunk",
                 "viterbi_traceback_chunk")
 #: kernels K9's decode must launch
@@ -182,7 +199,7 @@ TRANS_P_STAY, TRANS_P_SKIP = 0.14, 0.21
 TOOLS_EVENTS, TOOLS_DUMP_EVENTS = 4000, 200
 #: kernels each dev tool run must launch
 TOOL_KERNELS = {
-    "run_viterbi": ("viterbi_generic_forward_path",
+    "run_viterbi": ("viterbi_resident_forward_path",
                     "viterbi_generic_traceback"),
     "run_fwbw": ("fwbw_generic",),
     "run_fwbw_custom": ("fwbw_custom",),
@@ -550,6 +567,7 @@ def load_trans_table(device):
     transitions TSV and loaded back by the port CLI's `-s` loader: (the TSV
     path, the loaded table, its TransOps on `device`)."""
     from nanocall_tpu_torch import cli, convert
+    from nanocall_tpu_torch.ops import hmm
 
     path = os.path.join(ROOT, "build", "chip_smoke", "trans.tsv")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -557,50 +575,154 @@ def load_trans_table(device):
     table = cli.init_transitions(smoke_config("-s", path))
     ops = convert.trans_ops(table, device)
     assert tuple(ops.from_idx.shape) == (21, 4096), ops.from_idx.shape
+    assert hmm.generic_forward_route(ops) == "resident"
     return path, table, ops
 
 
-def check_generic_kernels(ops, model, ev) -> dict:
-    """K6a (path and score-only) and K6b against their plain versions on
-    the same card under the loaded table: bit-equal outputs (tolerance 0)
-    and times.  Returns {kernel name: record}."""
+#: K6a's kernels by name: (wrapper, with backpointers)
+K6A = {"viterbi_generic_forward_path": ("generic_forward_path_kernel", True),
+       "viterbi_resident_forward_path": ("resident_forward_path_kernel", True),
+       "viterbi_generic_forward_score": ("generic_forward_score_kernel",
+                                         False),
+       "viterbi_resident_forward_score": ("resident_forward_score_kernel",
+                                          False)}
+
+
+def k6a_call(name: str, ops, model, ev):
+    """(final_alpha, bps or None) of K6a's kernel `name`."""
+    from nanocall_tpu_torch.ops import hmm
+
+    wrapper, path = K6A[name]
+    out = getattr(hmm, wrapper)(ops, model, ev)
+    return out if path else (out, None)
+
+
+def time_k6a_in_turns(ops, model, ev, reps: int = 3,
+                      sample=None) -> dict:
+    """K6a's streaming and resident kernels timed in turns under one table,
+    path and score-only each: streaming, resident, resident, streaming
+    (cuda_ms over reps calls each).  With `sample` (a function of no
+    argument), its value is recorded beside every time.  Returns {kernel
+    name: {"ms": the mean of its two turns, "ms_turns", "samples"}}."""
+    out = {}
+    for kind in ("path", "score"):
+        names = (f"viterbi_generic_forward_{kind}",
+                 f"viterbi_resident_forward_{kind}")
+        for name in (*names, *reversed(names)):
+            ms = cuda_ms(lambda: k6a_call(name, ops, model, ev), reps)
+            r = out.setdefault(name, {"ms_turns": []})
+            r["ms_turns"].append(ms)
+            if sample:
+                r.setdefault("samples", []).append(sample())
+    for r in out.values():
+        r["ms"] = sum(r["ms_turns"]) / len(r["ms_turns"])
+    return out
+
+
+def check_generic_kernels(ops, model, ev, sample=None) -> dict:
+    """K6a's two kernels (streaming and resident, path and score-only) and
+    K6b against their plain versions on the same card under the loaded
+    table: bit-equal outputs (tolerance 0); K6a's kernels timed in turns
+    (time_k6a_in_turns, with `sample`).  Returns {kernel name: record}."""
     import torch
 
     from nanocall_tpu_torch.ops import hmm
 
     lengths = ev["length"]
-    fa_p, bps_p = hmm.viterbi_forward_plain(ops, model, ev, True)
-    fa_k, bps_k = hmm.generic_forward_path_kernel(ops, model, ev)
-    fa_s = hmm.generic_forward_score_kernel(ops, model, ev)
+    path_ms, (fa_p, bps_p) = cuda_ms_once(lambda: hmm.viterbi_forward_plain(
+        ops, model, ev, True))
+    plain_ms = {True: path_ms, False: cuda_ms(
+        lambda: hmm.viterbi_forward_plain(ops, model, ev, False), 1)}
+    outs = {name: k6a_call(name, ops, model, ev) for name in K6A}
     torch.cuda.synchronize()
-    assert torch.equal(fa_k, fa_p), "K6a final alpha differs from plain"
-    assert torch.equal(bps_k, bps_p), "K6a backpointers differ from plain"
-    assert torch.equal(fa_s, fa_p), "K6a score-only alpha differs from plain"
+    recs = {}
+    for name, (fa, bps) in outs.items():
+        assert torch.equal(fa, fa_p), f"{name} final alpha differs from plain"
+        if bps is not None:
+            assert torch.equal(bps, bps_p), f"{name} backpointers differ"
+        recs[name] = {"max_abs_err": max_err(fa, fa_p),
+                      "plain_ms": plain_ms[K6A[name][1]]}
+    fa_k, bps_k = outs["viterbi_generic_forward_path"]
+    del outs
     path_p, logp_p = hmm.viterbi_traceback_plain(ops, fa_p, bps_p, lengths)
     path_k, logp_k = hmm.generic_traceback_kernel(ops, fa_k, bps_k, lengths)
     torch.cuda.synchronize()
     assert torch.equal(path_k, path_p), "K6b path differs from plain"
     assert torch.equal(logp_k, logp_p), "K6b logp differs from plain"
-    return with_shape({
-        "viterbi_generic_forward_path": {
-            "max_abs_err": max_err(fa_k, fa_p),
-            "ms": cuda_ms(lambda: hmm.generic_forward_path_kernel(
-                ops, model, ev), 3),
-            "plain_ms": cuda_ms(lambda: hmm.viterbi_forward_plain(
-                ops, model, ev, True), 1)},
-        "viterbi_generic_forward_score": {
-            "max_abs_err": max_err(fa_s, fa_p),
-            "ms": cuda_ms(lambda: hmm.generic_forward_score_kernel(
-                ops, model, ev), 3),
-            "plain_ms": cuda_ms(lambda: hmm.viterbi_forward_plain(
-                ops, model, ev, False), 1)},
-        "viterbi_generic_traceback": {
-            "max_abs_err": max_err(logp_k, logp_p),
-            "ms": cuda_ms(lambda: hmm.generic_traceback_kernel(
-                ops, fa_k, bps_k, lengths), 3),
-            "plain_ms": cuda_ms(lambda: hmm.viterbi_traceback_plain(
-                ops, fa_p, bps_p, lengths), 1)},
-    }, ev)
+    for name, r in time_k6a_in_turns(ops, model, ev, sample=sample).items():
+        recs[name].update(r)
+    recs["viterbi_generic_traceback"] = {
+        "max_abs_err": max_err(logp_k, logp_p),
+        "ms": cuda_ms(lambda: hmm.generic_traceback_kernel(
+            ops, fa_k, bps_k, lengths), 3),
+        "plain_ms": cuda_ms(lambda: hmm.viterbi_traceback_plain(
+            ops, fa_p, bps_p, lengths), 1)}
+    return with_shape(recs, ev)
+
+
+def random_resident_table(device, seed: int = 5):
+    """A TransOps of RANDOM_DEG slots, RANDOM_VALUES distinct log-probs
+    (one of them -inf padding) in every slot, on random from-states, made
+    from a numpy seed: the resident kernel's widest layout."""
+    import numpy as np
+
+    from nanocall_tpu_torch import convert, transitions
+
+    rng = np.random.default_rng(seed)
+    deg, values, n = RANDOM_DEG, RANDOM_VALUES, 4096
+    idx = rng.integers(0, n, (deg, n)).astype(np.int32)
+    pool = np.log(rng.uniform(0.01, 1.0, (deg, values))).astype(np.float32)
+    pool[:, 0] = -np.inf
+    pick = np.concatenate([np.tile(np.arange(values), (deg, 1)),
+                           rng.integers(0, values, (deg, n - values))], 1)
+    lp = np.take_along_axis(pool, rng.permuted(pick, axis=1), axis=1)
+    return convert.trans_ops(transitions.SparseTransitions(
+        from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), device)
+
+
+def check_table_routes(ops, model, ev, device) -> None:
+    """viterbi_forward against its plain version (tolerance 0: the final
+    alpha's bits and the backpointers, path and score-only) where the
+    resident kernel's NaN tracking and the other kernel run: under the
+    loaded table `ops` with a NaN event in one read (NaN alphas from there
+    on) and a +inf one at the start of another (alphas of -inf: every slot
+    ties); under a random table of the
+    resident layout's widest (random_resident_table); and under the
+    21-neighbour table of (TRANS_P_STAY, TRANS_P_SKIP) as sparse pairs in
+    memory, whose slots hold up to 17 distinct log-probs (no text round
+    trip merges them), so it takes the streaming kernel."""
+    import torch
+
+    from nanocall_tpu_torch import convert, transitions
+    from nanocall_tpu_torch.ops import hmm
+
+    pairs = transitions.sparse_from_pairs(transitions.structured_to_pairs(
+        transitions.build_structured(transitions.TransitionParams(
+            TRANS_P_STAY, TRANS_P_SKIP), 6)), 6)
+    ev_nan = {**ev, "mean": ev["mean"].clone()}
+    ev_nan["mean"][0, ev["mean"].shape[1] // 2] = float("nan")
+    ev_nan["mean"][5, 0] = float("inf")
+    for what, ops_, ev_, route in (
+            ("loaded, NaN and +inf events", ops, ev_nan, "resident"),
+            (f"random {RANDOM_DEG} slots x {RANDOM_VALUES} values",
+             random_resident_table(device), ev, "resident"),
+            ("in-memory 21-neighbour pairs", convert.trans_ops(pairs, device),
+             ev, "streaming")):
+        assert hmm.generic_forward_route(ops_) == route, what
+        counts = {k: ops_.from_logp[k].view(torch.int32).unique().numel()
+                  for k in range(ops_.from_logp.shape[0])}
+        fa_p, bps_p = hmm.viterbi_forward_plain(ops_, model, ev_, True)
+        fa_k, bps_k = hmm.viterbi_forward(ops_, model, ev_)
+        fa_s, _ = hmm.viterbi_forward(ops_, model, ev_, with_path=False)
+        torch.cuda.synchronize()
+        bits = fa_p.view(torch.int32)
+        assert torch.equal(fa_k.view(torch.int32), bits), what
+        assert torch.equal(fa_s.view(torch.int32), bits), what
+        assert torch.equal(bps_k, bps_p), what
+        print(f"kernel K6a ({route}) under the {what} table (most distinct "
+              f"log-probs in a slot: {max(counts.values())}; NaN final "
+              f"alphas: {int(torch.isnan(fa_p).sum())}): B={B_KERNEL} "
+              f"T={T_KERNEL} path and score-only bit-equal to plain")
 
 
 def check_custom_kernel(ops, model, ev) -> dict:
@@ -801,12 +923,40 @@ def check_fma_kernel(device) -> dict:
         "plain_ms": plain_ms, "shape": [B, T]}}
 
 
+def launch_split(fn, reps: int = 100) -> dict:
+    """Where a call of `fn` spends its time: {"host_us": host clock per
+    call over reps calls back to back (the enqueue: no synchronize inside),
+    "device_us": the device time per call of the kernels it launches
+    (torch.profiler over reps calls), "device_kernels": their names}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"host_us": 1e6 * host,
+            "device_us": sum(e.self_device_time_total for e in dev) / reps,
+            "device_kernels": sorted(e.key for e in dev)}
+
+
 def check_reshape_kernel(device) -> dict:
     """K10 against its plain version on the same card at the repro's
-    (8, 128, 4) -> (8, 512): bit-equal (tolerance 0), with the kernel's,
-    the plain version's and the library call's (x.reshape(8, 512).clone(),
-    which is also the plain version) times.  Returns {kernel name:
-    record}."""
+    (8, 128, 4) -> (8, 512): bit-equal (tolerance 0); the kernel and the
+    library call (x.reshape(8, 512).clone(), which is also the plain
+    version) timed in turns (library, kernel, kernel, library; cuda_ms over
+    1000 calls each: host-bound, so as many as the noise of a few
+    microseconds asks), and each call split into host and device time
+    (launch_split).  Returns {kernel name: record}."""
     import numpy as np
     import torch
 
@@ -818,28 +968,79 @@ def check_reshape_kernel(device) -> dict:
     got = repro.reshape_copy_kernel(x)
     torch.cuda.synchronize()
     assert torch.equal(got, want), "K10 differs from plain"
+    calls = {"kernel": lambda: repro.reshape_copy_kernel(x),
+             "library": lambda: x.reshape(8, 512).clone()}
+    turns = {"kernel": [], "library": []}
+    for who in ("library", "kernel", "kernel", "library"):
+        turns[who].append(cuda_ms(calls[who], 1000))
     return {"reshape_copy": {
         "max_abs_err": max_err(got, want),
-        "ms": cuda_ms(lambda: repro.reshape_copy_kernel(x), 100),
+        "ms": sum(turns["kernel"]) / 2, "ms_turns": turns["kernel"],
         "plain_ms": cuda_ms(lambda: repro.reshape_copy_plain(x), 100),
-        "library_ms": cuda_ms(lambda: x.reshape(8, 512).clone(), 100),
+        "library_ms": sum(turns["library"]) / 2,
+        "library_ms_turns": turns["library"],
+        "split": {who: launch_split(fn) for who, fn in calls.items()},
         "shape": [8, 512]}}
 
 
-def fma_sass() -> dict:
-    """{"ffma", "instructions"}: the FFMA and all SASS instructions of K8's
-    n = 4096 instance (fma_chain_kernel<4>) in the built library, by
-    cuobjdump -sass."""
+def sass_lines(marker: str) -> list:
+    """The SASS instructions ((address, text) in order) of the first
+    kernel of the built library whose name contains `marker`, by cuobjdump
+    -sass."""
+    import re
+
     from nanocall_tpu_torch.ops import _cuda
 
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", _cuda._lib_path()],
                           capture_output=True, text=True, check=True).stdout
-    body = sass.split("fma_chain_kernelILi4E", 1)[1].split("Function :")[0]
-    lines = [ln for ln in body.splitlines() if ln.strip().startswith("/*")
-             and ";" in ln]
-    return {"ffma": sum(" FFMA " in ln for ln in lines),
+    body = sass.split(marker, 1)[1].split("Function :")[0]
+    return [(int(m.group(1), 16), m.group(2).strip()) for m in (
+        re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?);", ln)
+        for ln in body.splitlines()) if m]
+
+
+def fma_sass() -> dict:
+    """{"ffma", "instructions"}: the FFMA and all SASS instructions of K8's
+    n = 4096 instance (fma_chain_kernel<4>)."""
+    lines = [t for _, t in sass_lines("fma_chain_kernelILi4E")]
+    return {"ffma": sum(" FFMA " in f" {t} " for t in lines),
             "instructions": len(lines)}
+
+
+#: SASS opcodes that issue to the 16-lane integer and compare pipe
+ALU_OPS = ("FSETP", "ISETP", "LOP3", "SHF", "FSEL", "SEL", "PRMT", "PLOP3",
+           "LEA", "IADD3", "FMNMX", "IMNMX")
+
+
+def resident_sass() -> dict:
+    """Instructions per slot and state in the slot loops of K6a's resident
+    kernel (each instance's fastest loop: the body of a backward branch
+    that reads table words, LDS.64, one per slot and thread), all of them
+    and those on the integer and compare pipe (ALU_OPS):
+    {"path" / "score": {"per_slot_state", "alu_per_slot_state"}}."""
+    import re
+
+    out = {}
+    for kind, marker in (("path", "viterbi_resident_forward_kernelILb1"),
+                         ("score", "viterbi_resident_forward_kernelILb0")):
+        ins = sass_lines(marker)
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        loops = []
+        for i, (a, t) in enumerate(ins):
+            m = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?(0x[0-9a-f]+)", t)
+            if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
+                body = [x for _, x in ins[at[int(m.group(1), 16)]:i + 1]]
+                words = sum("LDS.64" in x for x in body)
+                if words:
+                    ops = [re.sub(r"^@!?U?P\w+\s+", "", x).split()[0]
+                           .split(".")[0] for x in body]
+                    alu = sum(o in ALU_OPS for o in ops)
+                    loops.append((len(body) / (4 * words),
+                                  alu / (4 * words)))
+        per, alu = min(loops)
+        out[kind] = {"per_slot_state": per, "alu_per_slot_state": alu}
+    return out
 
 
 def run_measure(device) -> dict:
@@ -1269,6 +1470,34 @@ def stats_close(a_path: str, b_path: str, rtol: float) -> None:
                 (ra, rb)
 
 
+def run_trans_streaming(models, reads, device, trans) -> dict:
+    """The untrained run under the loaded table again, with its TransOps
+    built without the packed layout (convert.trans_ops wrapped for the
+    run): K6a's streaming kernels decode it.  The resident run (the one
+    before) launched no streaming K6a, this one no resident K6a, and the
+    two FASTA files are byte-equal.  Returns the run's result."""
+    from unittest import mock
+
+    from nanocall_tpu_torch import convert
+
+    make = convert.trans_ops
+
+    def bare(table, dev):
+        return make(table, dev)._replace(from_packed=None, from_codebook=None)
+
+    with mock.patch.object(convert, "trans_ops", bare):
+        r = run_end_to_end(models, reads, device, False, STREAMING_KERNELS,
+                           trans, tag="untrained_trans_streaming")
+    for k in ("viterbi_resident_forward_path",
+              "viterbi_resident_forward_score"):
+        assert r["launches"][k] == 0, f"the streaming run launched {k}"
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    with open(os.path.join(out, "untrained_trans.fa"), "rb") as a, \
+            open(os.path.join(out, "untrained_trans_streaming.fa"), "rb") as b:
+        assert a.read() == b.read(), "the streaming run's FASTA differs"
+    return r
+
+
 def run_sharded(models, reads, device, card: str) -> dict:
     """The untrained and the trained runs of the reads again over a data
     sharder of two shards on the one card (DataSharder(devices=[cuda:0,
@@ -1401,6 +1630,11 @@ def main() -> int:
     sass = fma_sass()
     print(f"K8 SASS (fma_chain_kernel<4>, cuobjdump -sass): {sass['ffma']} "
           f"FFMA of {sass['instructions']} instructions")
+    for kind, c in resident_sass().items():
+        print(f"K6a resident SASS ({kind}): {c['per_slot_state']:.2f} "
+              f"instructions per slot and state in its fastest slot loop, "
+              f"{c['alu_per_slot_state']:.2f} of them on the integer and "
+              f"compare pipe")
 
     models = cli.init_models(smoke_config())
     t0 = time.perf_counter()
@@ -1413,11 +1647,13 @@ def main() -> int:
     gt, model, ev = kernel_inputs(models, device, B_KERNEL, T_KERNEL, rng)
     recs = check_kernels(gt, model, ev)
     recs.update(check_generic_kernels(trans[2], model, ev))
+    check_table_routes(trans[2], model, ev, device)
     recs.update(check_custom_kernel(trans[2], model, ev))
     for name, r in recs.items():
+        turns = f" (in turns: {r['ms_turns']})" if "ms_turns" in r else ""
         print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} n=4096 bit-equal to "
-              f"plain; {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
-              f"[{card}]")
+              f"plain; {r['ms']:.3f} ms{turns} vs plain {r['plain_ms']:.3f} "
+              f"ms [{card}]")
     recs.update(check_fma_kernel(device))
     measure = run_measure(device)
     peak = measure["peaks"][(B_KERNEL, T_KERNEL)]
@@ -1439,11 +1675,20 @@ def main() -> int:
     recs.update(check_reshape_kernel(device))
     k10 = recs["reshape_copy"]
     k10_bound = roofline.kernel_bound("reshape_copy", 8, 512)
+    split = k10["split"]
     print(f"kernel reshape_copy (K10): (8, 128, 4) -> (8, 512) bit-equal to "
           f"plain; {k10['ms']:.4f} ms vs plain {k10['plain_ms']:.4f} ms, "
           f"library call x.reshape(8, 512).clone() {k10['library_ms']:.4f} "
-          f"ms; bound {k10_bound['bound_ms']:.6f} ms "
-          f"({k10_bound['bound_by']}) [{card}]")
+          f"ms (in turns: library {k10['library_ms_turns']}, kernel "
+          f"{k10['ms_turns']}); per call, host enqueue kernel "
+          f"{split['kernel']['host_us']:.2f} us vs library "
+          f"{split['library']['host_us']:.2f} us, device time kernel "
+          f"{split['kernel']['device_us']:.3f} us "
+          f"{split['kernel']['device_kernels']} vs library "
+          f"{split['library']['device_us']:.3f} us "
+          f"{split['library']['device_kernels']}; bound "
+          f"{k10_bound['bound_ms']:.6f} ms ({k10_bound['bound_by']}) "
+          f"[{card}]")
     repro_launches = run_repro_tool()
     check_tchunk_kernels(gt, model, ev, TC_KERNEL)
     print(f"kernel K3: B={B_KERNEL} T={T_KERNEL} Tc={TC_KERNEL} forward and "
@@ -1522,8 +1767,13 @@ def main() -> int:
     print_run("trained under the loaded table (-s)", trans_trained, card)
     trans_untrained = run_end_to_end(models, reads, device, False,
                                      TRANS_UNTRAINED_KERNELS, trans)
+    for k in ("viterbi_generic_forward_path", "viterbi_generic_forward_score"):
+        assert trans_untrained["launches"][k] == 0, f"the -s run launched {k}"
     print_run("untrained under the loaded table (-s --no-train)",
               trans_untrained, card)
+    trans_streaming = run_trans_streaming(models, reads, device, trans)
+    print_run("untrained under the loaded table without its packed layout "
+              "(FASTA byte-equal)", trans_streaming, card)
     long_reads = simulated_reads(models, rng, specs=LONG_READS,
                                  prefix="long")
     long = run_end_to_end(models, long_reads, device, True, LONG_KERNELS,
@@ -1558,6 +1808,7 @@ def main() -> int:
     runs = {"untrained": untrained["launches"], "trained": trained["launches"],
             "trained_trans": trans_trained["launches"],
             "untrained_trans": trans_untrained["launches"],
+            "untrained_trans_streaming": trans_streaming["launches"],
             "long": long["launches"], "traced": traced["launches"],
             **{name: r["launches"] for name, r in tool_runs.items()},
             "dump": dump["launches"], "measure": measure["launches"],
@@ -1572,7 +1823,7 @@ def main() -> int:
                 "library_ms": None, **recs[k.name],
                 **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
                for k in kernels.KERNELS]
-    assert len(records) == 16 and all(r["launches"] for r in records), \
+    assert len(records) == 18 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])

@@ -1,4 +1,5 @@
 // K6a: generic max-plus Viterbi forward under a loaded transition table,
+// in two kernels chosen by the table (the streaming and the resident one),
 // and K6b: its traceback into a full state path.
 //
 // K6a replaces nanocall_tpu/ops/hmm.py viterbi_forward (+ log_emission,
@@ -24,21 +25,47 @@
 //     path[t] = s_eff
 //   path[0] = s.
 //
-// Design: one block per read, 1024 threads x 4 contiguous states, the time
-// loop inside the block, as K1.  alpha lives in shared memory (16 KB), since
-// any state may be any state's predecessor; each thread keeps its own 4
-// states in registers, and two barriers per step separate the gathers
-// from the update.  The slot tables (21 x 4096 x 8 B = 688 KB for the r73
-// tables) do not fit on chip: each thread reads its 4 states' slots as one
-// int4 and one float4 per slot, coalesced over j, from L2, where the tables
-// stay resident.  The traceback reduces the final alpha with all threads
-// and walks the read with one, as K2.
+// Both forward kernels: one block per read, 1024 threads x 4 contiguous
+// states, the time loop inside the block, as K1; alpha lives in shared
+// memory, since any state may be any state's predecessor, and each thread
+// keeps its own 4 states in registers.  They differ in where the slot
+// table lives.
 //
-// What bounds it: per step, deg x 32 KB of table reads from L2 per read and
-// deg x 4096 shared-memory gathers; the traceback's chain of 2(T-1)
-// dependent loads (backpointer, then from_idx).  Only B of the 132 SMs
-// work when B < 132.  Speed work (several reads per block sharing one table
-// read, tables in fewer bits) is later work.
+// The streaming kernel (viterbi_generic_forward_kernel) reads the int32 /
+// float32 tables (21 x 4096 x 8 B = 688 KB for the r73 tables) from L2 at
+// every step: one int4 and one float4 per slot and thread, coalesced over
+// j; two barriers per step separate the gathers from the update.  It takes
+// any table of 1..256 slots.
+//
+// The resident kernel (viterbi_resident_forward_kernel) holds the whole
+// table in shared memory.  A table has that layout (ops/hmm.py
+// pack_from_slots) when every slot holds at most 16 distinct float32 bit
+// patterns and the from-states fit 12 bits (n = 4096): entry [k, j] is 16
+// bits, the from-state in the low 12 and a code into slot k's codebook of
+// 16 float32 values in the high 4.  At deg slots the block holds 2 deg n B
+// of table, 64 deg B of codebooks and two 16 KiB alpha buffers: at most
+// 24 slots fit the 227 KB of one block (168 KiB + 1.3 KiB at the r73
+// tables' 21).  The prologue copies table and codebooks with cp.async.bulk
+// into shared memory, completing on an mbarrier, while the threads compute
+// the first emission; no table byte crosses L2 after it.  A step reads per
+// slot one 8-byte word of a thread's 4 entries, cuts them into byte
+// offsets into alpha and the codebook, and gathers both.  alpha is
+// double-buffered, so a step needs one barrier, which also reduces whether
+// a new alpha is NaN or +inf: only then (or when the codebooks hold NaN or
+// +inf) can a v be NaN, and only then does the step track NaN (max_slots).
+//
+// What bounds the resident kernel: issue, and the 16-lane integer and
+// compare pipe, on the read's one SM.  Per slot and state its loop issues
+// about 17 instructions with backpointers (2 shared loads and the 8-byte
+// word's share, 4 to cut the entry, the add, 7 of max and tie logic) and
+// about 10 without, 9 and 6 of them on that pipe; 8 warps per scheduler
+// (1024 threads a block, one block an SM at 206 KB of shared memory) hide
+// most of the loads' latency.  Only B of the 132 SMs work when B < 132.
+//
+// Both forward kernels evaluate the slots in slot order, with take_slot's
+// NaN, max and tie rules (max_slots restates them in fewer operations), so
+// they agree bit for bit.  The traceback reduces the final alpha with all
+// threads and walks the read with one, as K2.
 //
 // Build with -fmad=false: every float operation then rounds on its own, as
 // each elementwise PyTorch op does, so the kernels are bit-identical to
@@ -51,6 +78,151 @@
 namespace {
 
 using namespace nc;
+
+// codes per slot of the resident layout
+constexpr int CODES = 16;
+
+// The scaled model's 6 tables at a thread's 4 states.
+struct StateRows {
+  float lm[4], ls[4], lls[4], sm[4], slam[4], lsl[4];
+
+  __device__ StateRows(const float* level_mean, const float* level_stdv,
+                       const float* log_level_stdv, const float* sd_mean,
+                       const float* sd_lambda, const float* log_sd_lambda,
+                       size_t row) {
+    unpack4(lm, load4(level_mean + row));
+    unpack4(ls, load4(level_stdv + row));
+    unpack4(lls, load4(log_level_stdv + row));
+    unpack4(sm, load4(sd_mean + row));
+    unpack4(slam, load4(sd_lambda + row));
+    unpack4(lsl, load4(log_sd_lambda + row));
+  }
+
+  __device__ __forceinline__ float em(int i, float x, float y, float ly,
+                                      float log2pi) const {
+    return emission(x, y, ly, lm[i], ls[i], lls[i], sm[i], slam[i], lsl[i],
+                    log2pi);
+  }
+};
+
+// Slot k's value v from state id, folded into one state's running max:
+// NaN-propagating, the lowest from-state (then the lowest slot) on ties.
+template <bool kPath>
+__device__ __forceinline__ void take_slot(int k, float v, int id,
+                                          float& best, int& bfrom,
+                                          int& bslot) {
+  if (k == 0) {
+    best = v;
+    bfrom = id;
+    bslot = 0;
+  } else if (v > best || (v != v && best == best)) {
+    best = v;
+    bfrom = id;
+    bslot = k;
+  } else if (kPath && v == best && id < bfrom) {
+    bfrom = id;
+    bslot = k;
+  }
+}
+
+// A resident table word: 4 entries (from-state in bits 0-11, code in bits
+// 12-15 of each 16), as byte offsets into alpha and into the slot's
+// codebook.
+struct Entries {
+  uint32_t from[4], code[4];
+
+  __device__ __forceinline__ explicit Entries(const uint2 w) {
+    from[0] = (w.x << 2) & 0x3ffc;
+    from[1] = (w.x >> 14) & 0x3ffc;
+    from[2] = (w.y << 2) & 0x3ffc;
+    from[3] = (w.y >> 14) & 0x3ffc;
+    code[0] = (w.x >> 10) & 0x3c;
+    code[1] = (w.x >> 26) & 0x3c;
+    code[2] = (w.y >> 10) & 0x3c;
+    code[3] = (w.y >> 26) & 0x3c;
+  }
+};
+
+__device__ __forceinline__ float at_byte(const float* base, uint32_t ofs) {
+  return *reinterpret_cast<const float*>(
+      reinterpret_cast<const char*>(base) + ofs);
+}
+
+// NaN or +inf: a value that a sum with a slot's log-prob may turn into NaN
+__device__ __forceinline__ bool nan_prone(float x) {
+  return !(x < __int_as_float(0x7f800000));
+}
+
+// The resident kernel's slot loop at one step, for the thread's 4 states:
+// best and (kPath) the slot of take_slot, in fewer operations, to the same
+// bits.  The from-state comes as its byte offset into alpha, which orders
+// as the state does.  kNan: a v may be NaN.  Then a NaN only sets a flag,
+// and after the last slot a flagged state's best is NaN (any NaN: best +
+// emission then gives the card's one NaN, as the sum of take_slot's NaN
+// does) and its slot 0, as take_slot ends.  Without kNan (no codebook
+// value and no alpha is NaN or +inf, so no v is NaN) the flags go.
+template <bool kPath, bool kNan>
+__device__ __forceinline__ void max_slots(const uint2* words,
+                                          const float* book, const float* cur,
+                                          int deg, float (&best)[4],
+                                          int (&bslot)[4]) {
+  uint32_t bofs[4];
+  bool nan[4];
+  {
+    const Entries e(words[0]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      best[i] = at_byte(book, e.code[i]) + at_byte(cur, e.from[i]);
+      bofs[i] = e.from[i];
+      bslot[i] = 0;
+      nan[i] = kNan && best[i] != best[i];
+    }
+  }
+#pragma unroll 3
+  for (int k = 1; k < deg; ++k) {
+    const Entries e(words[k * N4]);
+    const float* bk = book + k * CODES;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = at_byte(bk, e.code[i]) + at_byte(cur, e.from[i]);
+      if (kPath) {
+        const bool take =
+            v > best[i] || (v == best[i] && e.from[i] < bofs[i]);
+        bofs[i] = take ? e.from[i] : bofs[i];
+        bslot[i] = take ? k : bslot[i];
+      }
+      best[i] = v > best[i] ? v : best[i];
+      if (kNan) nan[i] = nan[i] || v != v;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (kNan && nan[i]) best[i] = __int_as_float(0x7fffffff);
+}
+
+// The end of step t for a thread's 4 states: alpha' into a (unchanged past
+// the read's length), and with kPath the 4 slot ids into bps.
+template <bool kPath>
+__device__ __forceinline__ void finish_step(
+    const StateRows& rows, const float* evm, const float* evs,
+    const float* evl, int t, int len, float log2pi, const float (&best)[4],
+    const int (&bslot)[4], float (&a)[4], uint8_t* bps, int B, int b,
+    int tid) {
+  const float x = evm[t], y = evs[t], ly = evl[t];
+  const bool active = t < len;
+  uint32_t packed = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int slot = best[i] != best[i] ? 0 : bslot[i];
+    packed |= (uint32_t)slot << (8 * i);
+    const float em = rows.em(i, x, y, ly, log2pi);
+    if (active) a[i] = best[i] + em;
+  }
+  if (kPath) {
+    reinterpret_cast<uint32_t*>(bps + ((size_t)(t - 1) * B + b) * N)[tid] =
+        packed;
+  }
+}
 
 template <bool kPath>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -76,13 +248,8 @@ viterbi_generic_forward_kernel(const float* __restrict__ ev_mean,
   const int tid = threadIdx.x;
   const size_t row = (size_t)b * N + 4 * tid;
 
-  float r_lm[4], r_ls[4], r_lls[4], r_sm[4], r_slam[4], r_lsl[4];
-  unpack4(r_lm, load4(level_mean + row));
-  unpack4(r_ls, load4(level_stdv + row));
-  unpack4(r_lls, load4(log_level_stdv + row));
-  unpack4(r_sm, load4(sd_mean + row));
-  unpack4(r_slam, load4(sd_lambda + row));
-  unpack4(r_lsl, load4(log_sd_lambda + row));
+  const StateRows rows(level_mean, level_stdv, log_level_stdv, sd_mean,
+                       sd_lambda, log_sd_lambda, row);
   const int4* fidx = reinterpret_cast<const int4*>(from_idx) + tid;
   const float4* flp = reinterpret_cast<const float4*>(from_logp) + tid;
   const float* evm = ev_mean + (size_t)b * T;
@@ -91,15 +258,10 @@ viterbi_generic_forward_kernel(const float* __restrict__ ev_mean,
   const int len = length[b];
 
   float a[4];
-  {
-    const float x = evm[0], y = evs[0], ly = evl[0];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = emission(x, y, ly, r_lm[i], r_ls[i], r_lls[i], r_sm[i],
-                      r_slam[i], r_lsl[i], log2pi) -
-             log_n;
-      alpha[4 * tid + i] = a[i];
-    }
+  for (int i = 0; i < 4; ++i) {
+    a[i] = rows.em(i, evm[0], evs[0], evl[0], log2pi) - log_n;
+    alpha[4 * tid + i] = a[i];
   }
   __syncthreads();
 
@@ -112,44 +274,145 @@ viterbi_generic_forward_kernel(const float* __restrict__ ev_mean,
       const int id[4] = {iv.x, iv.y, iv.z, iv.w};
       const float lp[4] = {lv.x, lv.y, lv.z, lv.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float v = lp[i] + alpha[id[i]];
-        if (k == 0) {
-          best[i] = v;
-          bfrom[i] = id[i];
-          bslot[i] = 0;
-        } else if (v > best[i] || (v != v && best[i] == best[i])) {
-          best[i] = v;
-          bfrom[i] = id[i];
-          bslot[i] = k;
-        } else if (kPath && v == best[i] && id[i] < bfrom[i]) {
-          bfrom[i] = id[i];
-          bslot[i] = k;
-        }
-      }
+      for (int i = 0; i < 4; ++i)
+        take_slot<kPath>(k, lp[i] + alpha[id[i]], id[i], best[i], bfrom[i],
+                         bslot[i]);
     }
-    const float x = evm[t], y = evs[t], ly = evl[t];
-    const bool active = t < len;
-    uint32_t packed = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int slot = best[i] != best[i] ? 0 : bslot[i];
-      packed |= (uint32_t)slot << (8 * i);
-      const float em = emission(x, y, ly, r_lm[i], r_ls[i], r_lls[i],
-                                r_sm[i], r_slam[i], r_lsl[i], log2pi);
-      if (active) a[i] = best[i] + em;
-    }
-    if (kPath) {
-      reinterpret_cast<uint32_t*>(bps + ((size_t)(t - 1) * B + b) * N)[tid] =
-          packed;
-    }
+    finish_step<kPath>(rows, evm, evs, evl, t, len, log2pi, best, bslot, a,
+                       bps, B, b, tid);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) alpha[4 * tid + i] = a[i];
     __syncthreads();
   }
-  *reinterpret_cast<float4*>(final_alpha + row) =
-      make_float4(a[0], a[1], a[2], a[3]);
+  store4(final_alpha + row, a);
+}
+
+// --- the resident kernel's asynchronous prologue (PTX, sm_90) -------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// one arrival expected, then `bytes` of bulk copies to complete the phase
+__device__ __forceinline__ void mbar_init_expect(uint32_t bar,
+                                                 uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(1u)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory, reported to the mbarrier at `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// Dynamic shared memory: alpha (2 x N float32, double-buffered), the
+// codebooks (deg x CODES float32), the packed table (deg x N uint16).
+template <bool kPath>
+__global__ void __launch_bounds__(THREADS, 1)
+viterbi_resident_forward_kernel(const float* __restrict__ ev_mean,
+                                const float* __restrict__ ev_stdv,
+                                const float* __restrict__ ev_log_stdv,
+                                const int32_t* __restrict__ length, int B,
+                                int T, int deg,
+                                const uint16_t* __restrict__ packed,
+                                const float* __restrict__ codebook,
+                                const float* __restrict__ level_mean,
+                                const float* __restrict__ level_stdv,
+                                const float* __restrict__ log_level_stdv,
+                                const float* __restrict__ sd_mean,
+                                const float* __restrict__ sd_lambda,
+                                const float* __restrict__ log_sd_lambda,
+                                float log2pi, float log_n,
+                                float* __restrict__ final_alpha,
+                                uint8_t* __restrict__ bps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  float* alpha = reinterpret_cast<float*>(smem);
+  float* book = alpha + 2 * N;
+  uint16_t* table = reinterpret_cast<uint16_t*>(book + deg * CODES);
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t row = (size_t)b * N + 4 * tid;
+  const uint32_t bar_addr = smem_addr(&bar);
+
+  if (tid == 0) {
+    const uint32_t book_bytes = deg * CODES * 4, slot_bytes = N * 2;
+    mbar_init_expect(bar_addr, book_bytes + deg * slot_bytes);
+    bulk_copy(smem_addr(book), codebook, book_bytes, bar_addr);
+    for (int k = 0; k < deg; ++k)
+      bulk_copy(smem_addr(table + k * N), packed + (size_t)k * N, slot_bytes,
+                bar_addr);
+  }
+
+  const StateRows rows(level_mean, level_stdv, log_level_stdv, sd_mean,
+                       sd_lambda, log_sd_lambda, row);
+  const float* evm = ev_mean + (size_t)b * T;
+  const float* evs = ev_stdv + (size_t)b * T;
+  const float* evl = ev_log_stdv + (size_t)b * T;
+  const int len = length[b];
+
+  float a[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[i] = rows.em(i, evm[0], evs[0], evl[0], log2pi) - log_n;
+    alpha[4 * tid + i] = a[i];
+  }
+  __syncthreads();  // also orders the barrier's init before every wait
+  mbar_wait(bar_addr, 0);
+  const bool book_prone = __syncthreads_or(
+      tid < deg * CODES && nan_prone(book[tid]));
+  bool alpha_prone = __syncthreads_or(
+      nan_prone(a[0]) || nan_prone(a[1]) || nan_prone(a[2]) ||
+      nan_prone(a[3]));
+
+  // the thread's 4 entries of slot 0; slot k's are k * N4 words on
+  const uint2* words = reinterpret_cast<const uint2*>(table) + tid;
+  float* cur = alpha;
+  float* nxt = alpha + N;
+  for (int t = 1; t < T; ++t) {
+    float best[4];
+    int bslot[4];
+    if (book_prone || alpha_prone)
+      max_slots<kPath, true>(words, book, cur, deg, best, bslot);
+    else
+      max_slots<kPath, false>(words, book, cur, deg, best, bslot);
+    finish_step<kPath>(rows, evm, evs, evl, t, len, log2pi, best, bslot, a,
+                       bps, B, b, tid);
+    // nxt was last read in step t-1, which every thread has left: the
+    // barrier below (of step t-1) separates the two
+    store4(nxt + 4 * tid, a);
+    alpha_prone = __syncthreads_or(nan_prone(a[0]) || nan_prone(a[1]) ||
+                                   nan_prone(a[2]) || nan_prone(a[3]));
+    float* const done = cur;
+    cur = nxt;
+    nxt = done;
+  }
+  store4(final_alpha + row, a);
 }
 
 // torch.argmax's order: a NaN above every number, ties to the lower index
@@ -237,19 +500,39 @@ extern "C" int nc_viterbi_generic_forward(
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && T > 0) {
-    if (bps != nullptr) {
-      viterbi_generic_forward_kernel<true>
-          <<<B, THREADS, 0, (cudaStream_t)stream>>>(
-              ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg, from_idx,
-              from_logp, level_mean, level_stdv, log_level_stdv, sd_mean,
-              sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps);
-    } else {
-      viterbi_generic_forward_kernel<false>
-          <<<B, THREADS, 0, (cudaStream_t)stream>>>(
-              ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg, from_idx,
-              from_logp, level_mean, level_stdv, log_level_stdv, sd_mean,
-              sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps);
-    }
+    auto kernel = bps != nullptr ? viterbi_generic_forward_kernel<true>
+                                 : viterbi_generic_forward_kernel<false>;
+    kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+        ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg, from_idx, from_logp,
+        level_mean, level_stdv, log_level_stdv, sd_mean, sd_lambda,
+        log_sd_lambda, log2pi, log_n, final_alpha, bps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The resident kernel: `packed` (deg, N) uint16 and `codebook` (deg,
+// CODES) float32 as ops/hmm.py pack_from_slots lays them out, both 16-byte
+// aligned.  Its dynamic shared memory is set for every launch.
+extern "C" int nc_viterbi_resident_forward(
+    const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
+    const int32_t* length, int B, int T, int deg, const uint16_t* packed,
+    const float* codebook, const float* level_mean, const float* level_stdv,
+    const float* log_level_stdv, const float* sd_mean, const float* sd_lambda,
+    const float* log_sd_lambda, float log2pi, float log_n, float* final_alpha,
+    uint8_t* bps, int device, void* stream) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (B > 0 && T > 0) {
+    auto kernel = bps != nullptr ? viterbi_resident_forward_kernel<true>
+                                 : viterbi_resident_forward_kernel<false>;
+    const int smem = 2 * N * 4 + deg * (CODES * 4 + N * 2);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
+        ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg, packed, codebook,
+        level_mean, level_stdv, log_level_stdv, sd_mean, sd_lambda,
+        log_sd_lambda, log2pi, log_n, final_alpha, bps);
   }
   return (int)cudaGetLastError();
 }

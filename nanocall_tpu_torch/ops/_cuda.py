@@ -25,6 +25,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
@@ -99,8 +101,11 @@ def _build(path: str) -> None:
 
 
 def load():
-    """The kernel library, built on first call in this checkout."""
+    """The kernel library, built on first call in this checkout.  Once it
+    is loaded, a call returns it without taking the lock."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -135,6 +140,10 @@ def load():
         lib.nc_viterbi_generic_forward.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 8 + [cf, cf] + [vp, vp]
             + [ci, vp])
+        lib.nc_viterbi_resident_forward.restype = ci
+        lib.nc_viterbi_resident_forward.argtypes = (
+            [vp] * 4 + [ci, ci, ci] + [vp] * 8 + [cf, cf] + [vp, vp]
+            + [ci, vp])
         lib.nc_viterbi_generic_traceback.restype = ci
         lib.nc_viterbi_generic_traceback.argtypes = (
             [vp] * 3 + [ci, ci] + [vp] * 3 + [ci, vp])
@@ -152,11 +161,20 @@ def load():
         lib.nc_fma_chain.restype = ci
         lib.nc_fma_chain.argtypes = [vp, ci, ci, ci, ci, cf, cf, vp, ci, vp]
         lib.nc_reshape_copy.restype = ci
-        lib.nc_reshape_copy.argtypes = [vp, ci, ci, ci, vp, ci, vp]
+        lib.nc_reshape_copy.argtypes = [vp, ci, vp, ci, vp]
         lib.nc_error_string.restype = ctypes.c_char_p
         lib.nc_error_string.argtypes = [ci]
         _lib = lib
         return _lib
+
+
+def target(dev) -> tuple:
+    """The last two arguments of every C entry for tensors on the CUDA
+    device `dev`: its index and the raw handle of PyTorch's current stream
+    there (torch.cuda.current_stream(dev).cuda_stream, without building a
+    Stream object per launch)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
 
 
 _count_lock = threading.Lock()

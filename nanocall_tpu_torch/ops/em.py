@@ -181,8 +181,7 @@ def em_backward_kernel(gtf: hmm.GroupedTransFull, model: hmm.ModelArrays,
         lpd.data_ptr(), x_unc.data_ptr(), t_start.data_ptr(),
         valid.data_ptr(), log_p_stay.data_ptr(), log_p_step4.data_ptr(),
         flags.data_ptr(), int(train_scaling), int(train_transitions), LOG_2PI,
-        scal.data_ptr(), st3.data_ptr(), hmm._device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream,
+        scal.data_ptr(), st3.data_ptr(), *_cuda.target(dev),
     )
     _cuda.check(err, "em_backward kernel launch")
     _cuda.count_launch(em_backward_kernel)

@@ -52,7 +52,7 @@ def fma_chain_kernel(x: torch.Tensor, c, d, T: int, k: int) -> torch.Tensor:
     lib = _cuda.load()
     err = lib.nc_fma_chain(
         x.data_ptr(), B, n, T, k, float(c), float(d), out.data_ptr(),
-        hmm._device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+        *_cuda.target(dev))
     _cuda.check(err, "fma_chain kernel launch")
     _cuda.count_launch(fma_chain_kernel)
     return out

@@ -26,7 +26,10 @@ Kernels and their plain versions, side by side below:
                             (compact=False)
   K4  fwbw_forward.cu       fwbw_forward_kernel vs fwbw_grouped_forward_plain
   K6a viterbi_generic.cu    generic_forward_path_kernel /
-                            generic_forward_score_kernel
+                            generic_forward_score_kernel (streaming),
+                            resident_forward_path_kernel /
+                            resident_forward_score_kernel (the table in
+                            shared memory; generic_forward_route picks)
                             vs viterbi_forward_plain
   K6b viterbi_generic.cu    generic_traceback_kernel vs viterbi_traceback_plain
   K6c fwbw_generic.cu       fwbw_generic_kernel vs fwbw_plain
@@ -57,6 +60,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import kmer, transitions
@@ -108,13 +112,17 @@ class TransOps(NamedTuple):
     structured form): destination j's slot k comes from state
     from_idx[k, j] (int32) with log-prob from_logp[k, j] (float32); source
     i's slot k goes to to_idx[k, i] with to_logp[k, i].  Padded slots have
-    log-prob -inf and index 0.  convert.trans_ops builds one."""
+    log-prob -inf and index 0.  from_packed / from_codebook: the from side
+    in the resident K6a's layout (pack_from_slots), computed once per table,
+    or None for a table without one.  convert.trans_ops builds one."""
 
     from_idx: torch.Tensor
     from_logp: torch.Tensor
     to_idx: torch.Tensor
     to_logp: torch.Tensor
     K: int
+    from_packed: torch.Tensor | None = None
+    from_codebook: torch.Tensor | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -355,10 +363,6 @@ def _check_events(ev: dict, B: int, T: int, dev) -> None:
     _check("ev['length']", ev["length"], torch.int32, (B,), dev)
 
 
-def _device_index(dev) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
-
-
 def _require_cuda(dev, what: str) -> None:
     """Kernel wrappers launch on CUDA tensors only; a CPU tensor never
     reaches a plain version through them."""
@@ -389,7 +393,7 @@ def _forward_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
         ev["length"].data_ptr(), B, T, *(x.data_ptr() for x in tables),
         LOG_2PI, math.log(n), final.data_ptr(),
         bps.data_ptr() if with_path and bps.numel() else None,
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
     _cuda.check(err, "viterbi_forward kernel launch")
     return final, bps
@@ -497,7 +501,7 @@ def _traceback_kernel(K: int, final_alpha, bps, lengths):
         final_alpha.data_ptr(), bps.data_ptr() if bps.numel() else None,
         lengths.data_ptr(), B, Tm + 1, code_bytes, path0.data_ptr(),
         codes.data_ptr() if codes.numel() else None, logp.data_ptr(),
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
     _cuda.check(err, "viterbi_traceback kernel launch")
     return path0, codes, logp
@@ -601,7 +605,7 @@ def forward_chunk_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
         carry_alpha.data_ptr() if t0 > 0 else None,
         *(x.data_ptr() for x in tables), LOG_2PI, math.log(n),
         final.data_ptr(), bps.data_ptr(),
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
     _cuda.check(err, "viterbi_forward_chunk kernel launch")
     _cuda.count_launch(forward_chunk_kernel)
@@ -679,7 +683,7 @@ def traceback_chunk_kernel(K: int, end_state, state, bps, t0: int, lengths,
         end_state.data_ptr(), state.data_ptr(), bps.data_ptr(),
         lengths.data_ptr(), B, t0, t0 + Tc, codes.shape[1],
         codes.data_ptr() if codes.numel() else None,
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
     _cuda.check(err, "viterbi_traceback_chunk kernel launch")
     _cuda.count_launch(traceback_chunk_kernel)
@@ -715,8 +719,7 @@ def traceback_chunk_states_kernel(K: int, end_state, state, bps, t0: int,
     err = lib.nc_viterbi_traceback_chunk_states(
         end_state.data_ptr(), state.data_ptr(), bps.data_ptr(),
         lengths.data_ptr(), B, t0, t0 + Tc, states.data_ptr(),
-        states.stride(0), _device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream,
+        states.stride(0), *_cuda.target(dev),
     )
     _cuda.check(err, "viterbi_traceback_chunk_states kernel launch")
     _cuda.count_launch(traceback_chunk_states_kernel)
@@ -902,7 +905,7 @@ def fwbw_forward_kernel(gtf: GroupedTransFull, model: ModelArrays, ev: dict,
         ev["length"].data_ptr(), B, T, *(x.data_ptr() for x in tables),
         flags.data_ptr(), LOG_2PI, math.log(n),
         alphas.data_ptr() if with_alphas else None, lpd.data_ptr(),
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
     _cuda.check(err, "fwbw_forward kernel launch")
     _cuda.count_launch(fwbw_forward_kernel)
@@ -1001,8 +1004,87 @@ def viterbi_forward_plain(ops: TransOps, model: ModelArrays, ev: dict,
     return alpha, bps
 
 
+#: codes per slot of the resident layout: a 4-bit code into the slot's
+#: codebook of float32 log-probs
+RESIDENT_CODES = 16
+#: shared memory one block may use on Hopper (bytes)
+SMEM_PER_BLOCK = 232448
+#: the resident kernel's static shared memory: its mbarrier
+_RESIDENT_STATIC_SMEM = 8
+
+
+def resident_smem_bytes(deg: int, n: int = 4096) -> int:
+    """The resident K6a's dynamic shared memory at `deg` slots: two float32
+    alpha buffers, the codebooks and the 16-bit table."""
+    return 2 * 4 * n + deg * (4 * RESIDENT_CODES + 2 * n)
+
+
+#: the most slots whose resident layout fits one block's shared memory: 24
+MAX_RESIDENT_SLOTS = ((SMEM_PER_BLOCK - _RESIDENT_STATIC_SMEM
+                       - resident_smem_bytes(0))
+                      // (resident_smem_bytes(1) - resident_smem_bytes(0)))
+
+
+def pack_from_slots(from_idx, from_logp):
+    """The resident K6a's layout of a (deg, 4096) from-side slot table
+    (host arrays), or None when the table has none:
+    (packed (deg, 4096) int16, codebook (deg, RESIDENT_CODES) float32), as
+    numpy arrays.  Entry [k, j] holds from_idx[k, j] in its low 12 bits and
+    in its high 4 the code c with codebook[k, c] == from_logp[k, j] bit for
+    bit (-inf and NaN kept as their bit patterns; a slot's codes in the
+    ascending order of its bit patterns as int32, unused codebook entries
+    0).  Slot order is kept: the backpointers are slot ids.  None unless
+    the table is 4096 wide, has 1 to MAX_RESIDENT_SLOTS slots and from-states
+    in [0, 4096), and every slot holds at most RESIDENT_CODES distinct bit
+    patterns."""
+    idx = np.asarray(from_idx).astype(np.int64)
+    bits = np.ascontiguousarray(from_logp, np.float32).view(np.int32)
+    deg, n = idx.shape
+    if n != 4096 or not 1 <= deg <= MAX_RESIDENT_SLOTS \
+            or idx.min() < 0 or idx.max() >= n:
+        return None
+    packed = np.empty((deg, n), np.uint16)
+    book = np.zeros((deg, RESIDENT_CODES), np.int32)
+    for k in range(deg):
+        vals, codes = np.unique(bits[k], return_inverse=True)
+        if len(vals) > RESIDENT_CODES:
+            return None
+        book[k, :len(vals)] = vals
+        packed[k] = (codes.reshape(n) << 12) | idx[k]
+    return packed.view(np.int16), book.view(np.float32)
+
+
+def generic_forward_route(ops: TransOps) -> str:
+    """Which K6a kernel runs on the card under `ops`, fixed by the table:
+    "resident" (the table in shared memory) when it has the packed layout,
+    which convert.trans_ops gives every table that fits, else "streaming"
+    (the table read from L2 at every step)."""
+    return "streaming" if ops.from_packed is None else "resident"
+
+
+def _check_resident(ops: TransOps, dev) -> None:
+    """The resident kernel takes a K=6 table's packed layout of 1 to
+    MAX_RESIDENT_SLOTS slots, contiguous and 16-byte aligned (its bulk
+    copies) on the launch device."""
+    if ops.K != 6:
+        raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
+    if ops.from_packed is None:
+        raise ValueError("the resident generic forward needs the table's "
+                         "packed layout (hmm.pack_from_slots)")
+    deg = ops.from_packed.shape[0]
+    if not 1 <= deg <= MAX_RESIDENT_SLOTS:
+        raise ValueError(f"packed table: {deg} slots, the resident kernel "
+                         f"takes 1 to {MAX_RESIDENT_SLOTS}")
+    _check("from_packed", ops.from_packed, torch.int16, (deg, 4096), dev)
+    _check("from_codebook", ops.from_codebook, torch.float32,
+           (deg, RESIDENT_CODES), dev)
+    for name in ("from_packed", "from_codebook"):
+        if getattr(ops, name).data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
 def _generic_forward_kernel(ops: TransOps, model: ModelArrays, ev: dict,
-                            with_path: bool):
+                            with_path: bool, resident: bool):
     mean = ev["mean"]
     dev = mean.device
     B, T = mean.shape
@@ -1010,57 +1092,91 @@ def _generic_forward_kernel(ops: TransOps, model: ModelArrays, ev: dict,
     if T < 1:
         raise ValueError("the forward pass needs at least one event column")
     _check_events(ev, B, T, dev)
-    _check_ops(ops, dev)
+    if resident:
+        _check_resident(ops, dev)
+        table = (ops.from_packed, ops.from_codebook)
+    else:
+        _check_ops(ops, dev)
+        table = (ops.from_idx, ops.from_logp)
     _check_tables(tuple(model), B, n, dev)
     _require_cuda(dev, "generic viterbi forward")
     final = torch.empty((B, n), dtype=torch.float32, device=dev)
     bps = (torch.empty((T - 1, B, n), dtype=torch.uint8, device=dev)
            if with_path else None)
     lib = _cuda.load()
-    err = lib.nc_viterbi_generic_forward(
+    entry = (lib.nc_viterbi_resident_forward if resident
+             else lib.nc_viterbi_generic_forward)
+    err = entry(
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, ops.from_idx.shape[0],
-        ops.from_idx.data_ptr(), ops.from_logp.data_ptr(),
+        ev["length"].data_ptr(), B, T, table[0].shape[0],
+        *(x.data_ptr() for x in table),
         *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
         final.data_ptr(),
         bps.data_ptr() if with_path and bps.numel() else None,
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
-    _cuda.check(err, "viterbi_generic_forward kernel launch")
+    _cuda.check(err, f"viterbi_{'resident' if resident else 'generic'}"
+                     f"_forward kernel launch")
     return final, bps
 
 
 def generic_forward_path_kernel(ops: TransOps, model: ModelArrays, ev: dict):
-    """K6a on the card, with backpointers: (final_alpha, bps)."""
-    out = _generic_forward_kernel(ops, model, ev, with_path=True)
+    """K6a on the card, the streaming kernel, with backpointers:
+    (final_alpha, bps)."""
+    out = _generic_forward_kernel(ops, model, ev, True, resident=False)
     _cuda.count_launch(generic_forward_path_kernel)
     return out
 
 
 def generic_forward_score_kernel(ops: TransOps, model: ModelArrays,
                                  ev: dict):
-    """K6a on the card, score-only (no backpointer stores): final_alpha."""
-    final, _ = _generic_forward_kernel(ops, model, ev, with_path=False)
+    """K6a on the card, the streaming kernel, score-only (no backpointer
+    stores): final_alpha."""
+    final, _ = _generic_forward_kernel(ops, model, ev, False, resident=False)
     _cuda.count_launch(generic_forward_score_kernel)
+    return final
+
+
+def resident_forward_path_kernel(ops: TransOps, model: ModelArrays,
+                                 ev: dict):
+    """K6a on the card, the resident kernel (the packed table in shared
+    memory), with backpointers: (final_alpha, bps)."""
+    out = _generic_forward_kernel(ops, model, ev, True, resident=True)
+    _cuda.count_launch(resident_forward_path_kernel)
+    return out
+
+
+def resident_forward_score_kernel(ops: TransOps, model: ModelArrays,
+                                  ev: dict):
+    """K6a on the card, the resident kernel, score-only: final_alpha."""
+    final, _ = _generic_forward_kernel(ops, model, ev, False, resident=True)
+    _cuda.count_launch(resident_forward_score_kernel)
     return final
 
 
 generic_forward_path_kernel.launches = 0
 generic_forward_score_kernel.launches = 0
+resident_forward_path_kernel.launches = 0
+resident_forward_score_kernel.launches = 0
 
 
 def viterbi_forward(ops: TransOps, model: ModelArrays, ev: dict,
                     with_path: bool = True):
     """K6a on the tensors' device: (final_alpha (B, n), bps (T-1, B, n)
-    uint8 slot ids or None when with_path is False)."""
+    uint8 slot ids or None when with_path is False).  On the card the
+    table picks the kernel (generic_forward_route); both give the plain
+    version's bits."""
     dev = ev["mean"].device
     if dev.type == "cpu":
         return viterbi_forward_plain(ops, model, ev, with_path)
     if dev.type != "cuda":
         raise ValueError(f"no generic Viterbi forward for device {dev}")
+    resident = generic_forward_route(ops) == "resident"
     if with_path:
-        return generic_forward_path_kernel(ops, model, ev)
-    return generic_forward_score_kernel(ops, model, ev), None
+        return (resident_forward_path_kernel if resident
+                else generic_forward_path_kernel)(ops, model, ev)
+    return (resident_forward_score_kernel if resident
+            else generic_forward_score_kernel)(ops, model, ev), None
 
 
 # K6b: generic traceback ------------------------------------------------------
@@ -1108,7 +1224,7 @@ def generic_traceback_kernel(ops: TransOps, final_alpha, bps, lengths):
         final_alpha.data_ptr(), bps.data_ptr() if bps.numel() else None,
         lengths.data_ptr(), B, Tm + 1, ops.from_idx.data_ptr(),
         path.data_ptr(), logp.data_ptr(),
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
     _cuda.check(err, "viterbi_generic_traceback kernel launch")
     _cuda.count_launch(generic_traceback_kernel)
@@ -1201,7 +1317,7 @@ def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
         ops.to_idx.shape[0], ops.to_idx.data_ptr(), ops.to_logp.data_ptr(),
         *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
         *(out[k].data_ptr() for k in ("alpha", "beta", "em", "log_pr_data")),
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
     _cuda.check(err, "fwbw_generic kernel launch")
     _cuda.count_launch(fwbw_generic_kernel)
@@ -1299,7 +1415,7 @@ def fwbw_custom_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
         ops.to_idx.shape[0], ops.to_idx.data_ptr(), ops.to_logp.data_ptr(),
         *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
         *(out[k].data_ptr() for k in ("alpha", "beta", "gamma")),
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
     _cuda.check(err, "fwbw_custom kernel launch")
     _cuda.count_launch(fwbw_custom_kernel)
@@ -1392,7 +1508,7 @@ def fwbw_backward_kernel(gtf: GroupedTransFull, model: ModelArrays,
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
         ev["length"].data_ptr(), B, T, *(x.data_ptr() for x in tables),
         flags.data_ptr(), LOG_2PI, betas.data_ptr(),
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *_cuda.target(dev),
     )
     _cuda.check(err, "fwbw_backward kernel launch")
     _cuda.count_launch(fwbw_backward_kernel)

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels, in main-path order (K9's
-traceback chunk after K3's, then the measurement path's K8 and the repro
-tool's K10): each kernel's wrapper
+traceback chunk after K3's, K6a's resident kernels after its streaming
+ones, then the measurement path's K8 and the repro tool's K10): each
+kernel's wrapper
 (which carries its `launches` counter), its source, and the JAX function
 it replaces."""
 
@@ -47,6 +48,13 @@ KERNELS = (
            "nanocall_tpu_torch/csrc/viterbi_generic.cu",
            "nanocall_tpu/ops/hmm.py:673"),
     Kernel("viterbi_generic_forward_score", hmm.generic_forward_score_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_generic.cu",
+           "nanocall_tpu/ops/hmm.py:759"),
+    Kernel("viterbi_resident_forward_path", hmm.resident_forward_path_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_generic.cu",
+           "nanocall_tpu/ops/hmm.py:673"),
+    Kernel("viterbi_resident_forward_score",
+           hmm.resident_forward_score_kernel,
            "nanocall_tpu_torch/csrc/viterbi_generic.cu",
            "nanocall_tpu/ops/hmm.py:759"),
     Kernel("viterbi_generic_traceback", hmm.generic_traceback_kernel,

@@ -53,13 +53,17 @@ class DataSharder:
 
     n_devices: how many of `devices` to use (None or 0: all; the
     --num-shards / Config.num_shards of the JAX package); devices: default
-    every visible GPU, or the CPU when there is none.  Active when it uses
-    more than one device."""
+    every visible GPU, and a RuntimeError where there is none (a CPU
+    sharder names its devices).  Active when it uses more than one
+    device."""
 
     def __init__(self, n_devices: int | None = None, devices=None):
         if devices is None:
-            devices = local_devices(
-                "cuda" if torch.cuda.is_available() else "cpu")
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "DataSharder() shards over the visible GPUs and there is "
+                    "none; pass devices= to shard over others")
+            devices = local_devices("cuda")
         devices = [torch.device(d) for d in devices]
         if not devices:
             raise ValueError("no devices to shard over")

@@ -429,7 +429,8 @@ N_STATES = 4096
 #: the column maxima (3/4 + 15/16 comparisons) and the update; K4 and K6d
 #: the max, exp, block sums, the 11-operation correction and log; K5 K6d's
 #: recursion plus the posterior (3) and 14 moments and 3 log totals (about
-#: 37); K6a a sum and a max per slot (21 slots) and 21 equality tests; K6c
+#: 37); K6a (both kernels) a sum and a max per slot (21 slots) and 21
+#: equality tests; K6c
 #: 5 per slot and pass (sum, max, difference, exp, sum) over both passes;
 #: K6e the same 210 slot operations, one emission, the norm (max,
 #: difference, exp, sum, difference) and 3 more (em + alpha, gamma - alpha,
@@ -439,7 +440,9 @@ CELL_OPS = {
     "viterbi_forward_chunk": 28.6875, "fwbw_forward": 36.6875,
     "fwbw_grouped_backward": 37.6875, "em_backward": 77.6875,
     "viterbi_generic_forward_path": 82.0,
-    "viterbi_generic_forward_score": 61.0, "fwbw_generic": 235.0,
+    "viterbi_generic_forward_score": 61.0,
+    "viterbi_resident_forward_path": 82.0,
+    "viterbi_resident_forward_score": 61.0, "fwbw_generic": 235.0,
     "fwbw_custom": 236.0,
 }
 
@@ -549,6 +552,25 @@ def viterbi_generic_forward_score_counts(B: int, T: int,
             _cell_ops("viterbi_generic_forward_score", B, T))
 
 
+def viterbi_resident_forward_path_counts(B: int, T: int,
+                                         deg: int = 21) -> tuple:
+    """K6a's resident kernel with backpointers: K6a's operations; its
+    table is the packed layout, 2 bytes per slot entry and a codebook of
+    16 float32 per slot."""
+    n = N_STATES
+    return (_event_bytes(B, T) + 28 * B * n + deg * (2 * n + 64)
+            + (T - 1) * B * n,
+            _cell_ops("viterbi_resident_forward_path", B, T))
+
+
+def viterbi_resident_forward_score_counts(B: int, T: int,
+                                          deg: int = 21) -> tuple:
+    """K6a's resident kernel, score-only."""
+    return (_event_bytes(B, T) + 28 * B * N_STATES
+            + deg * (2 * N_STATES + 64),
+            _cell_ops("viterbi_resident_forward_score", B, T))
+
+
 def viterbi_generic_traceback_counts(B: int, T: int) -> tuple:
     """K6b: the final alpha, a backpointer byte and a from-index per event,
     lengths and logp, the (B, T) uint16 path; the end state's argmax."""
@@ -601,6 +623,8 @@ KERNEL_COUNTS = {
     "em_backward": em_backward_counts,
     "viterbi_generic_forward_path": viterbi_generic_forward_path_counts,
     "viterbi_generic_forward_score": viterbi_generic_forward_score_counts,
+    "viterbi_resident_forward_path": viterbi_resident_forward_path_counts,
+    "viterbi_resident_forward_score": viterbi_resident_forward_score_counts,
     "viterbi_generic_traceback": viterbi_generic_traceback_counts,
     "fwbw_generic": fwbw_generic_counts,
     "fwbw_grouped_backward": fwbw_grouped_backward_counts,
@@ -610,7 +634,9 @@ KERNEL_COUNTS = {
 }
 #: the kernels that read a loaded table's (deg, n) slot tables
 TABLE_KERNELS = ("viterbi_generic_forward_path",
-                 "viterbi_generic_forward_score", "fwbw_generic",
+                 "viterbi_generic_forward_score",
+                 "viterbi_resident_forward_path",
+                 "viterbi_resident_forward_score", "fwbw_generic",
                  "fwbw_custom")
 
 

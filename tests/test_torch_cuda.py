@@ -28,8 +28,9 @@ def card():
 
 
 def _k6_inputs(dev, B: int, T: int, lengths, seed: int):
-    """The loaded 21-neighbour table of (0.14, 0.21), per-read scaled r73
-    models and noisy events of random states, on `dev`."""
+    """The 21-neighbour table of (0.14, 0.21) as sparse pairs in memory
+    (17 distinct log-probs in some slots: no packed layout), per-read
+    scaled r73 models and noisy events of random states, on `dev`."""
     rng = np.random.default_rng(seed)
     ops = convert.trans_ops(transitions.sparse_from_pairs(
         transitions.structured_to_pairs(transitions.build_structured(
@@ -111,20 +112,77 @@ def test_fma_chain_kernel_bit_equal_on_the_card(card):
 
 
 @pytest.mark.cuda
+def test_resident_forward_bit_equal_on_the_card(card, tmp_path):
+    """K6a's resident kernel, path and score-only, bit-equal to its plain
+    version (final alpha and backpointers, tolerance 0) at 16 x 2048 under
+    the 21-neighbour table of (0.14, 0.21) written as a TSV and loaded back
+    (`-s`), lengths 0, 1, T-1 and T among the reads; viterbi_forward takes
+    it for that table, one launch each; the streaming kernel gives the same
+    bits."""
+    lengths = [2048, 0, 1, 2047] + list(
+        np.random.default_rng(4).integers(2, 2048, 12))
+    _, model, ev = _k6_inputs(card, 16, 2048, lengths, 4)
+    transitions.save_tsv(transitions.build_structured(
+        transitions.TransitionParams(0.14, 0.21), 6), tmp_path / "s.tsv")
+    ops = convert.trans_ops(transitions.load_tsv(str(tmp_path / "s.tsv"), 6),
+                            card)
+    assert hmm.generic_forward_route(ops) == "resident"
+    fa_p, bps_p = hmm.viterbi_forward_plain(ops, model, ev, True)
+    n0 = (hmm.resident_forward_path_kernel.launches,
+          hmm.resident_forward_score_kernel.launches)
+    fa_k, bps_k = hmm.viterbi_forward(ops, model, ev)
+    fa_s, none = hmm.viterbi_forward(ops, model, ev, with_path=False)
+    fa_g, bps_g = hmm.generic_forward_path_kernel(ops, model, ev)
+    torch.cuda.synchronize()
+    assert none is None
+    assert (hmm.resident_forward_path_kernel.launches,
+            hmm.resident_forward_score_kernel.launches) == (n0[0] + 1,
+                                                            n0[1] + 1)
+    for got in (fa_k, fa_s, fa_g):
+        assert torch.equal(got, fa_p)
+    assert torch.equal(bps_k, bps_p) and torch.equal(bps_g, bps_p)
+    # the in-memory table of the same kinetics has 17 values in a slot:
+    # viterbi_forward takes the streaming kernel there
+    ops17, _, _ = _k6_inputs(card, 1, 1, [1], 4)
+    assert hmm.generic_forward_route(ops17) == "streaming"
+    fa_p, bps_p = hmm.viterbi_forward_plain(ops17, model, ev, True)
+    n0 = hmm.generic_forward_path_kernel.launches
+    fa_g, bps_g = hmm.viterbi_forward(ops17, model, ev)
+    torch.cuda.synchronize()
+    assert hmm.generic_forward_path_kernel.launches == n0 + 1
+    assert torch.equal(fa_g, fa_p) and torch.equal(bps_g, bps_p)
+    # a NaN event in one read (the resident kernel tracks NaN from there)
+    # and a +inf one starting another (alphas of -inf: every slot ties)
+    ev["mean"][0, 100] = float("nan")
+    ev["mean"][5, 0] = float("inf")
+    fa_p, bps_p = hmm.viterbi_forward_plain(ops, model, ev, True)
+    fa_k, bps_k = hmm.viterbi_forward(ops, model, ev)
+    fa_s, _ = hmm.viterbi_forward(ops, model, ev, with_path=False)
+    torch.cuda.synchronize()
+    assert torch.isnan(fa_p).any()
+    for got in (fa_k, fa_s):
+        assert torch.equal(got.view(torch.int32), fa_p.view(torch.int32))
+    assert torch.equal(bps_k, bps_p)
+
+
+@pytest.mark.cuda
 def test_reshape_copy_kernel_bit_equal_on_the_card(card):
-    """K10 bit-equal to x.reshape(R, M * L) at the repro's shape and a
-    ragged one; one launch each."""
+    """K10 bit-equal to its plain version, x.reshape(R, M * L).clone(), at
+    the repro's shape, a ragged one and a view that is not 16-byte
+    aligned; one launch each."""
     from nanocall_tpu_torch.ops import repro
 
     rng = np.random.default_rng(1)
-    for shape in ((8, 128, 4), (3, 5, 7)):
-        x = torch.from_numpy(rng.normal(0.0, 1.0, shape).astype(
-            np.float32)).to(card)
+    base = torch.from_numpy(rng.normal(0.0, 1.0, 1 + 2 * 3 * 8).astype(
+        np.float32)).to(card)
+    xs = [torch.from_numpy(rng.normal(0.0, 1.0, shape).astype(
+        np.float32)).to(card) for shape in ((8, 128, 4), (3, 5, 7))]
+    for x in (*xs, base[1:].view(2, 3, 8)):
         n0 = repro.reshape_copy_kernel.launches
         got = repro.reshape_copy(x)
         torch.cuda.synchronize()
         assert repro.reshape_copy_kernel.launches == n0 + 1
-        assert torch.equal(got, x.reshape(shape[0], -1)), shape
+        assert torch.equal(got, repro.reshape_copy_plain(x)), x.shape
 
 
 @pytest.mark.cuda

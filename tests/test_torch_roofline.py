@@ -87,10 +87,21 @@ def test_kernel_bound_k8_and_k10():
 
 
 def test_table_kernels_count_their_slots():
+    """Bytes per slot: 16 per state for both directions' int32 / float32
+    tables (K6c, K6e), 8 for the from side (K6a's streaming kernel), 2 per
+    state and a 64-byte codebook for the packed from side (K6a's resident
+    kernel), which does K6a's operations."""
     for name in roofline.TABLE_KERNELS:
         b21, b42 = (roofline.kernel_counts(name, 8, 64, deg=d)[0]
                     for d in (21, 42))
-        assert b42 - b21 == (16 if "fwbw" in name else 8) * 21 * 4096
+        per_slot = (2 * 4096 + 64 if "resident" in name
+                    else (16 if "fwbw" in name else 8) * 4096)
+        assert b42 - b21 == per_slot * 21
+    for kind in ("path", "score"):
+        assert roofline.kernel_counts(f"viterbi_resident_forward_{kind}",
+                                      128, 8192)[1] == \
+            roofline.kernel_counts(f"viterbi_generic_forward_{kind}",
+                                   128, 8192)[1]
 
 
 def test_mfu_report_arithmetic():

@@ -46,6 +46,17 @@ class CountingSharder(mesh.DataSharder):
         return super().shard(tree, batch_size)
 
 
+def test_default_sharder_raises_without_a_gpu(monkeypatch):
+    """DataSharder() shards over the visible GPUs: on a host without one
+    it raises, and never picks the CPU by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no"):
+        mesh.DataSharder()
+    with pytest.raises(RuntimeError, match="no"):
+        mesh.DataSharder(2)
+    assert mesh.DataSharder(devices=[CPU] * 2).devices == [CPU] * 2
+
+
 def test_sharder_splits_contiguously_and_replicates_the_rest():
     """n_devices caps the device list; batch-leading tensors split into
     contiguous, near-equal slices (empty ones left out), everything else

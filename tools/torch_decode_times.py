@@ -11,8 +11,11 @@
    step's work, as bench.py matches it); then K1 (path and score-only) and K2
    against their plain PyTorch versions at B reads x T events (n = 4096):
    bit-equality and milliseconds per call (CUDA events), built with
-   chip_smoke.py's inputs; with --trans, also K6a (path and score-only)
-   and K6b under that table.  For each kernel: its bound, its achieved
+   chip_smoke.py's inputs; with --trans, also K6a's two kernels
+   (streaming and resident, path and score-only: timed in turns, streaming,
+   resident, resident, streaming, with the card's nvidia-smi line sampled
+   beside each time) and K6b under that table.  For each kernel: its
+   bound, its achieved
    float32 operations per second (roofline.kernel_shares: its count
    over its time) and that rate's share of the H100's 67 TFLOP/s and of
    the measured K8 peak; then roofline.mfu_report for the decode (K1 +
@@ -68,6 +71,7 @@ KERNEL_FUNCTIONS = ("viterbi_forward_kernel", "viterbi_traceback_kernel",
                     "viterbi_traceback_chunk_kernel",
                     "fwbw_forward_kernel", "em_backward_kernel",
                     "viterbi_generic_forward_kernel",
+                    "viterbi_resident_forward_kernel",
                     "viterbi_generic_traceback_kernel",
                     "fwbw_generic_kernel", "fwbw_backward_kernel")
 
@@ -119,7 +123,14 @@ def main() -> int:
             from nanocall_tpu_torch import convert
 
             recs.update(chip_smoke.check_generic_kernels(
-                convert.trans_ops(table, device), model, ev))
+                convert.trans_ops(table, device), model, ev,
+                sample=chip_smoke.smi_line))
+            for name in chip_smoke.K6A:
+                r = recs[name]
+                turns = ", ".join(f"{ms:.3f} ms [{smi}]" for ms, smi in
+                                  zip(r["ms_turns"], r["samples"]))
+                print(f"K6a in turns, {name} B={args.B} T={args.T}: "
+                      f"{turns}", flush=True)
         for name, r in recs.items():
             b = roofline.kernel_bound(name, args.B, args.T)
             sh = roofline.kernel_shares(name, args.B, args.T, r["ms"], peak)
