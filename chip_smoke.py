@@ -8,8 +8,10 @@ from the root of a checkout.  It
   1. prints the card (nvidia-smi name and power limit), and the CUDA and
      nvcc versions;
   2. builds the CUDA kernels from nanocall_tpu_torch/csrc and prints the
-     build seconds, ptxas' register / spill report, and the FFMA count of
-     K8's SASS (cuobjdump -sass);
+     build seconds, ptxas' register / spill report, the FFMA count of
+     K8's SASS (cuobjdump -sass), and a static census of the time loops of
+     K1 (path and score-only), K3's forward chunk and K5: instructions per
+     state and step, by class (step_loop_sass);
   3. writes the 21-neighbour transition table of (p_stay 0.14, p_skip
      0.21) as a transitions TSV and loads it back through the port CLI's
      `-s/--trans` loader: the loaded table of the r73 width, in-degree 21;
@@ -22,7 +24,10 @@ from the root of a checkout.  It
      per-step-normalized forward-backward of `run-fwbw --custom-fwbw`:
      alpha, beta and gamma of 3 x 0.54 GB); holds each to its plain
      PyTorch version on the same inputs: tolerance 0, every output
-     bit-equal; prints both times; then K6a through viterbi_forward under
+     bit-equal; prints both times; K1 (path and score-only), K3's forward
+     chunk and K9 (2 ranks) again on the inputs with NaN events in one
+     read, a NaN stay entry in another and a NaN model entry in a third,
+     bit-equal to their plain versions; then K6a through viterbi_forward under
      a random table of 24 slots x 16 log-probs (the resident kernel's
      widest layout) and under the in-memory 21-neighbour pairs, whose
      slots hold up to 17 log-probs (the streaming kernel), each bit-equal
@@ -144,6 +149,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -331,6 +337,54 @@ def check_kernels(gt, model, ev) -> dict:
                 6, fa_p, bps_p, lengths), 1)},
     }
     return with_shape(rec, ev)
+
+
+def check_forward_under_nan(gt, model, ev) -> None:
+    """K1 (path and score-only), K3's forward chunk (chunks of TC_KERNEL)
+    and K9 (2 ranks on the card) on copies of the inputs with NaN events
+    in read 4 from event 700 on, a NaN stay entry in read 5 (alpha NaN at
+    some states only: the kernel's serial column order) and a NaN model
+    entry in read 6, those three of full length: each bit-equal to its
+    plain version (tolerance 0; NaN bits compared as bits)."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+    from nanocall_tpu_torch.parallel import seqpar
+
+    gt = hmm.GroupedTrans(*(x.clone() for x in gt[:3]), K=gt.K)
+    model = hmm.ModelArrays(*(x.clone() for x in model))
+    ev = {k: v.clone() for k, v in ev.items()}
+    ev["length"][4:7] = ev["mean"].shape[1]
+    ev["mean"][4, 700:] = float("nan")
+    gt.stay_lp[5, 1234] = float("nan")
+    model.level_mean[6, 99] = float("nan")
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    fa_p, bps_p = hmm.viterbi_forward_grouped_plain(gt, model, ev, True)
+    assert torch.isnan(fa_p[5]).any() and not torch.isnan(fa_p[5]).all()
+    fa_k, bps_k = hmm.forward_path_kernel(gt, model, ev)
+    fa_s = hmm.forward_score_kernel(gt, model, ev)
+    alpha, rows = None, []
+    for t0 in range(0, ev["mean"].shape[1], TC_KERNEL):
+        alpha, bps = hmm.forward_chunk_kernel(gt, model, ev, alpha, t0,
+                                              TC_KERNEL)
+        rows.append(bps)
+    torch.cuda.synchronize()
+    for what, (fa, bps) in (("K1", (fa_k, bps_k)), ("K1 score", (fa_s, None)),
+                            ("K3 forward", (alpha, torch.cat(rows)[1:]))):
+        assert torch.equal(bits(fa), bits(fa_p)), f"{what} alpha under NaN"
+        if bps is not None:
+            assert torch.equal(bps, bps_p), f"{what} bps under NaN"
+    devices = [ev["mean"].device] * 2
+    got = seqpar.viterbi_decode_seqpar(gt, model, ev, devices, 1)
+    want = seqpar.viterbi_decode_seqpar_plain(gt, model, ev, devices, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got["path"].int(), want["path"].int()), \
+        "K9 path under NaN"
+    assert torch.equal(bits(got["logp"]), bits(want["logp"])), \
+        "K9 logp under NaN"
 
 
 def with_shape(recs: dict, ev) -> dict:
@@ -987,8 +1041,6 @@ def sass_lines(marker: str) -> list:
     """The SASS instructions ((address, text) in order) of the first
     kernel of the built library whose name contains `marker`, by cuobjdump
     -sass."""
-    import re
-
     from nanocall_tpu_torch.ops import _cuda
 
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
@@ -1019,8 +1071,6 @@ def resident_sass() -> dict:
     that reads table words, LDS.64, one per slot and thread), all of them
     and those on the integer and compare pipe (ALU_OPS):
     {"path" / "score": {"per_slot_state", "alu_per_slot_state"}}."""
-    import re
-
     out = {}
     for kind, marker in (("path", "viterbi_resident_forward_kernelILb1"),
                          ("score", "viterbi_resident_forward_kernelILb0")):
@@ -1041,6 +1091,74 @@ def resident_sass() -> dict:
         per, alu = min(loops)
         out[kind] = {"per_slot_state": per, "alu_per_slot_state": alu}
     return out
+
+
+def _opcode(text: str) -> str:
+    return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+
+
+def natural_loops(ins: list) -> list:
+    """The loops of a kernel's SASS (sass_lines' (address, text) list): for
+    each back edge, the instructions that can reach its branch without
+    passing its target (the natural loop), as sorted indices into `ins`.
+    A CALL returns to the next instruction; the callee is not followed."""
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    succ = [[] for _ in ins]
+    for i, (_, t) in enumerate(ins):
+        op = _opcode(t)
+        m = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?(0x[0-9a-f]+)", t)
+        if op == "BRA" and m and int(m.group(1), 16) in at:
+            succ[i].append(at[int(m.group(1), 16)])
+        if (op not in ("BRA", "EXIT", "RET", "BRX", "JMX")
+                or t.startswith("@")) and i + 1 < len(ins):
+            succ[i].append(i + 1)
+    pred = [[] for _ in ins]
+    for i, ss in enumerate(succ):
+        for j in ss:
+            pred[j].append(i)
+    loops = []
+    for i, ss in enumerate(succ):
+        for h in ss:
+            if h <= i:
+                body, stack = {h, i}, [i]
+                while stack:
+                    for p in pred[stack.pop()]:
+                        if p not in body:
+                            body.add(p)
+                            stack.append(p)
+                loops.append(sorted(body))
+    return loops
+
+
+def step_loop_sass(marker: str) -> dict:
+    """A static census of the time loop of the first kernel of the built
+    library whose name contains `marker`: the largest natural loop that
+    holds a block barrier, every branch inside it counted (the inactive-
+    step and NaN paths among them; a division's out-of-line slow path is a
+    CALL, counted once).  Returns {"instructions", "per_state" (a thread
+    holds 4 states), and per state the block barriers ("bar"), shuffles
+    ("shfl"), shared loads ("lds") and stores ("sts"), global loads
+    ("ldg") and stores ("stg"), local loads and stores (spills, "local"),
+    MUFU ("mufu") and float adds, multiplies and FMAs ("ffma")}."""
+    ins = sass_lines(marker)
+    body = max((lp for lp in natural_loops(ins)
+                if any(_opcode(ins[k][1]) == "BAR" for k in lp)), key=len)
+    ops = [_opcode(ins[k][1]) for k in body]
+    out = {"instructions": len(body), "per_state": len(body) / 4}
+    for key, names in (("bar", ("BAR",)), ("shfl", ("SHFL",)),
+                       ("lds", ("LDS",)), ("sts", ("STS",)),
+                       ("ldg", ("LDG",)), ("stg", ("STG",)),
+                       ("local", ("LDL", "STL")), ("mufu", ("MUFU",)),
+                       ("ffma", ("FADD", "FMUL", "FFMA"))):
+        out[key] = sum(o in names for o in ops) / 4
+    return out
+
+
+#: the time loops of the redesigned K1 (its three instances) and K5
+STEP_LOOPS = (("K1 path", "viterbi_forward_kernelILb0ELb1E"),
+              ("K1 score", "viterbi_forward_kernelILb0ELb0E"),
+              ("K3 forward chunk", "viterbi_forward_kernelILb1ELb1E"),
+              ("K5", "em_backward_kernel"))
 
 
 def run_measure(device) -> dict:
@@ -1636,6 +1754,14 @@ def main() -> int:
               f"{c['alu_per_slot_state']:.2f} of them on the integer and "
               f"compare pipe")
 
+    for what, marker in STEP_LOOPS:
+        c = step_loop_sass(marker)
+        per = ", ".join(f"{k} {v:g}" for k, v in c.items()
+                        if k not in ("instructions", "per_state"))
+        print(f"{what} SASS (cuobjdump -sass): {c['instructions']} "
+              f"instructions in its time loop, {c['per_state']:g} per state "
+              f"and step; per state {per}")
+
     models = cli.init_models(smoke_config())
     t0 = time.perf_counter()
     trans = load_trans_table(device)
@@ -1646,6 +1772,10 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     gt, model, ev = kernel_inputs(models, device, B_KERNEL, T_KERNEL, rng)
     recs = check_kernels(gt, model, ev)
+    check_forward_under_nan(gt, model, ev)
+    print(f"K1 (path, score), K3's forward chunk and K9 (2 ranks) at "
+          f"B={B_KERNEL} T={T_KERNEL} with NaN events, a NaN stay entry and "
+          f"a NaN model entry: bit-equal to their plain versions [{card}]")
     recs.update(check_generic_kernels(trans[2], model, ev))
     check_table_routes(trans[2], model, ev, device)
     recs.update(check_custom_kernel(trans[2], model, ev))

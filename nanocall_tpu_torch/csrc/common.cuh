@@ -36,6 +36,21 @@ __device__ __forceinline__ float emission(float x, float y, float ly, float lm,
   return lnorm + linv;
 }
 
+// The same emission with the state's loop-invariant parts taken out once
+// per read: nlls = -log_level_stdv and c1 = log_sd_lambda - log2pi (the
+// first operation of each chain, so the bits are emission()'s), and
+// ly3 = 3 * log(event stdv), the event's share.
+__device__ __forceinline__ float emission_pre(float x, float y, float ly3,
+                                              float lm, float ls, float nlls,
+                                              float sm, float slam, float c1,
+                                              float log2pi) {
+  const float a = (x - lm) / ls;
+  const float lnorm = nlls - (log2pi + a * a) * 0.5f;
+  const float b = (y - sm) / sm;
+  const float linv = ((c1 - ly3) - slam * b * b / y) * 0.5f;
+  return lnorm + linv;
+}
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -126,6 +141,47 @@ __device__ __forceinline__ void lse_slots(const int4* idx, const float4* lp,
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// --- asynchronous bulk copies into shared memory (PTX, sm_90) -------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// one arrival expected, then `bytes` of bulk copies to complete the phase
+__device__ __forceinline__ void mbar_init_expect(uint32_t bar,
+                                                 uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(1u)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory, reported to the mbarrier at `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }
 
 }  // namespace nc

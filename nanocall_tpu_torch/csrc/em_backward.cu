@@ -20,20 +20,37 @@
 // running totals with logaddexp.  All full-width sums follow the pairwise
 // tree of ops/hmm.py tree_sum; nothing uses atomics.
 //
-// Design: one block per read, 1024 threads x 4 contiguous states; the time
-// loop runs inside the block.  The backward's block sums are contiguous, so
-// a thread's sum4 is its own; sum16 and the tiled reads (i % 1024, i % 256)
-// cross threads and go through shared memory.  The per-read tables (9 of
-// them, plus W's 6 rows) are read from global memory at every step (L2
-// resident), which keeps the registers free for beta and the statistics;
-// alphas[t] is read once.  Thread 0 keeps the 14 + 3 running totals in
-// shared memory.
+// Design (for the H100): one block per read, 1024 threads x 4 contiguous
+// states, the time loop inside the block.
+//   - The read's tables live on chip for the whole loop.  The prologue
+//     copies the 6 model rows and W's 6 rows (192 KB) into dynamic shared
+//     memory with cp.async.bulk on one mbarrier; each thread then takes the
+//     emission's loop-invariant parts of its own 4 states (-log_level_stdv,
+//     log_sd_lambda - log2pi) in place.  The three transition tables take
+//     few values: a state's value is fixed by its overlap-condition pattern
+//     (one byte per state, the same for every read) and the read's
+//     (p_stay, p_skip), so each is a 32-entry codebook per read
+//     (ops/hmm.py bwd_codebooks), in shared memory.
+//   - alphas[t-1] (16 KB of the read's row, from HBM) and the next step's
+//     events are loaded into registers one step ahead.
+//   - 3 block barriers a step (2 without train_transitions): the max of g;
+//     sum4 and sum16 (sum16[c] continues sum4[4c]'s chain through the 3
+//     threads after it by shuffles: the same float sequence as block_sum,
+//     and no 16 KB G buffer); the 6 post sums and 3 transition maxima per
+//     warp, published together.
+//   - Each value is computed once: log(sum4[c]), which 4 states read, by
+//     the thread that sums it; exp(lp_j1) for both statistics.
+//   - No serial fold in the step: each step's per-warp partial sums are
+//     reduced across the warps by 9 warps at the next step (after its first
+//     barrier) into a per-step buffer `red` (B, T, 9) in global memory;
+//     after the loop, threads 0..13 fold one moment each and threads 14..16
+//     one logaddexp total each, over the steps in the plain version's
+//     order: the same float sequence, so the same bits.
 //
-// What bounds it: per step, 3 block barriers (+1 for the scaling moments,
-// +2 for the transition totals), about 10 transcendental functions per
-// state, and 256 KB of table and alpha reads per read.  Only B of the 132
-// SMs work when B < 132.  Speed work (tables in registers or shared
-// memory, several reads per block, fewer barriers) is later work.
+// What bounds it: issue on the read's one SM, about 10 transcendental
+// functions and 3 IEEE divisions per state and step; then the barriers,
+// with one 1024-thread block per SM (the tables take 192 KB).  Only B of
+// the 132 SMs work when B < 132.
 //
 // Build with -fmad=false: every float operation then rounds on its own, as
 // each elementwise PyTorch op does, so the kernel is bit-identical to
@@ -49,6 +66,13 @@ using namespace nc;
 // bits of the per-state flag byte (ops/em.py BWD_FLAG_BITS)
 constexpr unsigned F_H = 1u, F_P2 = 2u, F_S5T = 4u, F_SUB = 8u;
 constexpr int NSCAL = 14, NST = 3, NW = 6;
+// per-step sums kept for the fold: the 6 post sums, the 3 transition parts
+constexpr int NRED = NW + NST;
+// the transition codebooks' width (ops/hmm.py BWD_CODES)
+constexpr int CODES = 32;
+// model rows in shared memory: level_mean, level_stdv, -log_level_stdv,
+// sd_mean, sd_lambda, log_sd_lambda - log2pi
+constexpr int NTAB = 6;
 
 // torch.minimum: NaN-propagating
 __device__ __forceinline__ float tmin(float a, float b) {
@@ -62,20 +86,30 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
-// thread 0: fold one event's contraction sums s[6] = s0 s1 s2 l0 l1 l2
-// into the 14 moments, in _post_stats' op order; `first` assigns
-__device__ __forceinline__ void add_stats(float* sc, const float (&s)[NW],
-                                          float x, float ts, float y,
-                                          float cnt, bool first) {
-  const float s0 = s[0], s1 = s[1], s2 = s[2], l0 = s[3], l1 = s[4],
-              l2 = s[5];
-  const float v[NSCAL] = {s0,           s1,          s2,
-                          s0 * ts,      s1 * ts,     (s0 * ts) * ts,
-                          s0 * x,       s1 * x,      (s0 * x) * ts,
-                          (s0 * x) * x, l2 * y,      l1,
-                          l0 / y,       cnt};
-#pragma unroll
-  for (int k = 0; k < NSCAL; ++k) sc[k] = first ? v[k] : sc[k] + v[k];
+// moment k of one event's contraction sums s = s0 s1 s2 l0 l1 l2, in
+// _post_stats' op order
+__device__ __forceinline__ float moment(int k, const float (&s)[NW], float x,
+                                        float ts, float y, float cnt) {
+  switch (k) {
+    case 0: return s[0];
+    case 1: return s[1];
+    case 2: return s[2];
+    case 3: return s[0] * ts;
+    case 4: return s[1] * ts;
+    case 5: return (s[0] * ts) * ts;
+    case 6: return s[0] * x;
+    case 7: return s[1] * x;
+    case 8: return (s[0] * x) * ts;
+    case 9: return (s[0] * x) * x;
+    case 10: return s[5] * y;
+    case 11: return s[4];
+    case 12: return s[3] / y;
+    default: return cnt;
+  }
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -83,9 +117,8 @@ em_backward_kernel(const float* __restrict__ ev_mean,
                    const float* __restrict__ ev_stdv,
                    const float* __restrict__ ev_log_stdv,
                    const int32_t* __restrict__ length, int B, int T,
-                   const float* __restrict__ e_stay,
-                   const float* __restrict__ e_step_to,
-                   const float* __restrict__ e_skip_to,
+                   const float* __restrict__ e_codes,
+                   const uint8_t* __restrict__ pattern,
                    const float* __restrict__ level_mean,
                    const float* __restrict__ level_stdv,
                    const float* __restrict__ log_level_stdv,
@@ -102,22 +135,48 @@ em_backward_kernel(const float* __restrict__ ev_mean,
                    const float* __restrict__ log_p_step4,
                    const uint8_t* __restrict__ flags, int train_scaling,
                    int train_transitions, float log2pi,
-                   float* __restrict__ scal_out, float* __restrict__ st_out) {
-  __shared__ float sG[N];
-  __shared__ float sS4[N4];
-  __shared__ float sS16[N16];
+                   float* __restrict__ red, float* __restrict__ scal_out,
+                   float* __restrict__ st_out) {
+  // NTAB model rows, then (with train_scaling) W's NW rows, of N each
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ __align__(16) float sS4[N4];
+  __shared__ __align__(16) float sS16[N16];
+  __shared__ __align__(16) float sLS4[N4];  // logf(sum4), for the transitions
+  __shared__ float sBook[NST][CODES];
   __shared__ float sMax[WARPS];
-  __shared__ float sPost[WARPS][NW];
-  __shared__ float sTrMax[WARPS][NST];
-  __shared__ float sTrSum[WARPS][NST];
-  __shared__ float sScal[NSCAL];
-  __shared__ float sSt[NST];
+  // each warp's partial sums of one step: the 6 post sums, then the 3
+  // transition sums
+  __shared__ float sPart[NRED][WARPS];
+  __shared__ float sTrMax[NST][WARPS];
+  __shared__ float sTrM[NST];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const uint32_t bar_addr = smem_addr(&bar);
   const size_t row = (size_t)b * N + 4 * tid;
+  const size_t astride = (size_t)B * N;
+
+  if (tid == 0) {
+    const uint32_t row_bytes = N * 4;
+    mbar_init_expect(bar_addr,
+                     (NTAB + (train_scaling ? NW : 0)) * row_bytes);
+    const float* const src[NTAB] = {level_mean, level_stdv, log_level_stdv,
+                                    sd_mean,    sd_lambda,  log_sd_lambda};
+#pragma unroll
+    for (int k = 0; k < NTAB; ++k)
+      bulk_copy(smem_addr(smem + k * N), src[k] + (size_t)b * N, row_bytes,
+                bar_addr);
+    if (train_scaling)
+      bulk_copy(smem_addr(smem + NTAB * N), W + (size_t)b * NW * N,
+                NW * row_bytes, bar_addr);
+  }
+  if (tid < NST * CODES)
+    sBook[tid / CODES][tid % CODES] = e_codes[(size_t)b * NST * CODES + tid];
+
   const uint32_t fl = *reinterpret_cast<const uint32_t*>(flags + 4 * tid);
+  const uint32_t pat = *reinterpret_cast<const uint32_t*>(pattern + 4 * tid);
   const int len = length[b];
   const bool ok = valid[b] != 0;
   const float lpd_b = lpd[b];
@@ -125,41 +184,62 @@ em_backward_kernel(const float* __restrict__ ev_mean,
   const float* evm = ev_mean + (size_t)b * T;
   const float* evs = ev_stdv + (size_t)b * T;
   const float* evl = ev_log_stdv + (size_t)b * T;
-  const float* Wb = W == nullptr ? nullptr : W + (size_t)b * NW * N;
+  float* redb = red + (size_t)b * T * NRED;
+  const float* sW = smem + NTAB * N + 4 * tid;
 
-  if (tid == 0) {
-#pragma unroll
-    for (int k = 0; k < NSCAL; ++k) sScal[k] = 0.0f;
-#pragma unroll
-    for (int q = 0; q < NST; ++q) sSt[q] = -INFINITY;
+  // alphas[T-1] for the t = T-1 term, alphas[T-2] for the first step
+  float4 a_last = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (train_scaling) a_last = load4(alphas + (size_t)(T - 1) * astride + row);
+  float4 a_cur = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (T >= 2) a_cur = load4(alphas + (size_t)(T - 2) * astride + row);
+  float xn = 0.0f, yn = 0.0f, lyn = 0.0f;
+  if (T >= 2) {
+    xn = evm[T - 1];
+    yn = evs[T - 1];
+    lyn = evl[T - 1];
   }
 
-  // contract post (the thread's 4 states) with W and reduce over the
-  // block; thread 0 folds the sums into the moments of event t
-  auto post_stats = [&](const float (&post)[4], int t, bool first) {
-    float s[NW];
+  __syncthreads();  // orders the mbarrier's init before every wait; sBook
+  mbar_wait(bar_addr, 0);
+  {
+    float4* nlls = reinterpret_cast<float4*>(smem + 2 * N) + tid;
+    float4* c1 = reinterpret_cast<float4*>(smem + 5 * N) + tid;
+    const float4 v = *nlls, w = *c1;
+    *nlls = make_float4(-v.x, -v.y, -v.z, -v.w);
+    *c1 = make_float4(w.x - log2pi, w.y - log2pi, w.z - log2pi,
+                      w.w - log2pi);
+  }
+  // each thread reads only its own 4 states of the model rows and W, so
+  // the in-place update above needs no barrier
+
+  // contract post (the thread's 4 states) with W; each warp's 6 tree sums
+  // go to sPart for the next step's cross-warp reduction
+  auto post_sums = [&](const float (&post)[4]) {
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
       float w[4];
-      unpack4(w, load4(Wb + (size_t)k * N + 4 * tid));
+      unpack4(w, lds4(sW + k * N));
       const float p[4] = {post[0] * w[0], post[1] * w[1], post[2] * w[2],
                           post[3] * w[3]};
-      s[k] = warp_tree_sum(quad_sum(p));
+      const float s = warp_tree_sum(quad_sum(p));
+      if (lane == 0) sPart[k][warp] = s;
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < NW; ++k) sPost[warp][k] = s[k];
-    }
-    __syncthreads();
-    if (warp == 0) {
-#pragma unroll
-      for (int k = 0; k < NW; ++k) s[k] = warp_tree_sum(sPost[lane][k]);
-      if (lane == 0) {
-        const bool w_t = (t < len) && ok;
-        add_stats(sScal, s, x_unc[(size_t)b * T + t],
-                  t_start[(size_t)b * T + t], evs[t], w_t ? 1.0f : 0.0f,
-                  first);
+  };
+  // the cross-warp sums of step tp's partials (published before the
+  // barrier just passed) into red[b, tp]: warp k < NRED reduces row k of
+  // sPart.  Every warp runs the shuffles (converged, no collective code);
+  // warps NRED.. reduce row 0 again and store nothing.
+  auto reduce_pending = [&](int tp, bool post, bool tr) {
+    const int k = warp < NRED ? warp : 0;
+    const float s = warp_tree_sum(sPart[k][lane]);
+    if (lane == 0 && warp < NRED && (warp < NW ? post : tr)) {
+      float v = s;
+      if (warp >= NW) {
+        const float mm = sTrM[warp - NW];
+        const float safe = isfinite(mm) ? mm : 0.0f;
+        v = isfinite(mm) ? safe + logf(s) : mm;
       }
+      redb[(size_t)tp * NRED + warp] = v;
     }
   };
 
@@ -167,167 +247,207 @@ em_backward_kernel(const float* __restrict__ ev_mean,
   if (train_scaling) {
     const float wf = ((T - 1 < len) && ok) ? 1.0f : 0.0f;
     float a[4], post[4];
-    unpack4(a, load4(alphas + (size_t)(T - 1) * B * N + 4 * tid +
-                     (size_t)b * N));
+    unpack4(a, a_last);
 #pragma unroll
     for (int i = 0; i < 4; ++i) post[i] = expf(a[i] - lpd_b) * wf;
-    post_stats(post, T - 1, true);
+    post_sums(post);
   }
+  int pend_t = T - 1;
+  bool pend_post = train_scaling != 0, pend_tr = false;
 
   float beta[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int t = T - 2; t >= 0; --t) {
+    // the next step's alpha row and event, one step ahead
+    float4 a_nxt = a_cur;
+    const float x = xn, y = yn, ly3 = 3.0f * lyn;
+    if (t > 0) {
+      a_nxt = load4(alphas + (size_t)(t - 1) * astride + row);
+      xn = evm[t];
+      yn = evs[t];
+      lyn = evl[t];
+    }
+
     // g = em(t+1) + beta; m = max g
     float g[4];
     {
-      float lm[4], ls[4], lls[4], sm[4], slam[4], lsl[4];
-      unpack4(lm, load4(level_mean + row));
-      unpack4(ls, load4(level_stdv + row));
-      unpack4(lls, load4(log_level_stdv + row));
-      unpack4(sm, load4(sd_mean + row));
-      unpack4(slam, load4(sd_lambda + row));
-      unpack4(lsl, load4(log_sd_lambda + row));
-      const float x = evm[t + 1], y = evs[t + 1], ly = evl[t + 1];
+      float lm[4], ls[4], nlls[4], sm[4], slam[4], c1[4];
+      unpack4(lm, lds4(smem + 0 * N + 4 * tid));
+      unpack4(ls, lds4(smem + 1 * N + 4 * tid));
+      unpack4(nlls, lds4(smem + 2 * N + 4 * tid));
+      unpack4(sm, lds4(smem + 3 * N + 4 * tid));
+      unpack4(slam, lds4(smem + 4 * N + 4 * tid));
+      unpack4(c1, lds4(smem + 5 * N + 4 * tid));
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        g[i] = emission(x, y, ly, lm[i], ls[i], lls[i], sm[i], slam[i],
-                        lsl[i], log2pi) +
+        g[i] = emission_pre(x, y, ly3, lm[i], ls[i], nlls[i], sm[i], slam[i],
+                            c1[i], log2pi) +
                beta[i];
     }
     const float mx = warp_max(fmaxf(fmaxf(g[0], g[1]), fmaxf(g[2], g[3])));
     if (lane == 0) sMax[warp] = mx;
-    __syncthreads();
-    float m = sMax[0];
-#pragma unroll 8
-    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, sMax[w]);
+    __syncthreads();  // 1
+    const float m = warp_max(sMax[lane]);
+    reduce_pending(pend_t, pend_post, pend_tr);
 
     float G[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      G[i] = expf(g[i] - m);
-      sG[4 * tid + i] = G[i];
-    }
-    sS4[tid] = ((G[0] + G[1]) + G[2]) + G[3];
-    __syncthreads();
-    if (tid < N16) {
-      float s = sG[16 * tid];
+    for (int i = 0; i < 4; ++i) G[i] = expf(g[i] - m);
+    const float s4 = ((G[0] + G[1]) + G[2]) + G[3];
+    sS4[tid] = s4;
+    if (train_transitions) sLS4[tid] = logf(s4);
+    {
+      // sum16 of the 16 states of threads 4c..4c+3: sum4 of thread 4c,
+      // then the next threads' states one by one, in order
+      const int qi = tid & 3;
+      float s = s4;
 #pragma unroll
-      for (int k = 1; k < 16; ++k) s = s + sG[16 * tid + k];
-      sS16[tid] = s;
+      for (int k = 1; k < 4; ++k) {
+        const float prev = __shfl_up_sync(FULL, s, 1);
+        if (qi == k) s = (((prev + G[0]) + G[1]) + G[2]) + G[3];
+      }
+      if (qi == 3) sS16[tid >> 2] = s;
     }
-    __syncthreads();
+    __syncthreads();  // 2
 
-    float est[4], estep[4], eskip[4], a[4];
-    unpack4(est, load4(e_stay + row));
-    unpack4(estep, load4(e_step_to + row));
-    unpack4(eskip, load4(e_skip_to + row));
-    unpack4(a, load4(alphas + (size_t)t * B * N + row));
+    float a[4], T4[4], T16[4];
+    unpack4(a, a_cur);
+    unpack4(T4, lds4(sS4 + ((4 * tid) & (N4 - 1))));
+    unpack4(T16, lds4(sS16 + ((4 * tid) & (N16 - 1))));
     const bool last = t >= len - 1;
-    const float safe_m = isfinite(m) ? m : 0.0f;
-    float lp_j1[4], T4[4];
+    float lp_j1[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int j = 4 * tid + i;
       const unsigned f = (fl >> (8 * i)) & 0xffu;
-      T4[i] = sS4[j & (N4 - 1)];
-      const float T16 = sS16[j & (N16 - 1)];
+      const unsigned p = (pat >> (8 * i)) & 0xffu;
       const float hG = (f & F_H) ? G[i] : 0.0f;
       const float p2G = (f & F_P2) ? G[i] : 0.0f;
       const float s5T4 = (f & F_S5T) ? T4[i] : 0.0f;
-      const float total = (est[i] * G[i] + estep[i] * (T4[i] - hG)) +
-                          eskip[i] * ((T16 - p2G) - s5T4);
+      const float total = (sBook[0][p] * G[i] + sBook[1][p] * (T4[i] - hG)) +
+                          sBook[2][p] * ((T16[i] - p2G) - s5T4);
       beta[i] = last ? 0.0f : m + logf(total);
       lp_j1[i] = (a[i] + beta[i]) - lpd_b;
     }
 
+    float e_j1[4];  // exp(lp_j1), for both statistics
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e_j1[i] = expf(lp_j1[i]);
     if (train_scaling) {
       const float wf = ((t < len) && ok) ? 1.0f : 0.0f;
       float post[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) post[i] = expf(lp_j1[i]) * wf;
-      post_stats(post, t, false);  // one barrier
+      for (int i = 0; i < 4; ++i) post[i] = e_j1[i] * wf;
+      post_sums(post);
     }
 
     if (train_transitions) {
       const bool win = (t < len - 1) && ok;
-      float v[NST][4];
+      const float safe_m = isfinite(m) ? m : 0.0f;
+      float v[NST][4], LS4[4];
+      unpack4(LS4, lds4(sLS4 + ((4 * tid) & (N4 - 1))));
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const unsigned f = (fl >> (8 * i)) & 0xffu;
         const float lp_stay = tmin(((a[i] + lps) + g[i]) - lpd_b, lp_j1[i]);
-        const float lsum4 = safe_m + logf(T4[i]);
+        const float lsum4 = safe_m + LS4[i];
         const float lp_steps = ((a[i] + lpst4) + lsum4) - lpd_b;
         const float lp_d01 = tmin(logaddexp(lp_stay, lp_steps), lp_j1[i]);
-        const float d = expf(lp_j1[i]) - expf(lp_d01);
+        const float d = e_j1[i] - expf(lp_d01);
         const float lp_d2 = logf(d != d ? d : fmaxf(d, 0.0f));
         const bool w = win && (f & F_SUB);
         v[0][i] = w ? lp_j1[i] : -INFINITY;
         v[1][i] = w ? lp_stay : -INFINITY;
         v[2][i] = w ? lp_d2 : -INFINITY;
       }
-      // masked max, then the tree sum of exp(v - max), per total
 #pragma unroll
       for (int q = 0; q < NST; ++q) {
         const float mq =
             warp_max(fmaxf(fmaxf(v[q][0], v[q][1]), fmaxf(v[q][2], v[q][3])));
-        if (lane == 0) sTrMax[warp][q] = mq;
+        if (lane == 0) sTrMax[q][warp] = mq;
       }
-      __syncthreads();
-      float mm[NST], safe[NST];
+      __syncthreads();  // 3
+      // masked max over the block, then each warp's tree sum of
+      // exp(v - max); the cross-warp sum waits for the next step
 #pragma unroll
       for (int q = 0; q < NST; ++q) {
-        float mq = sTrMax[0][q];
-#pragma unroll 8
-        for (int w = 1; w < WARPS; ++w) mq = fmaxf(mq, sTrMax[w][q]);
-        mm[q] = mq;
-        safe[q] = isfinite(mq) ? mq : 0.0f;
+        const float mm = warp_max(sTrMax[q][lane]);
+        const float safe = isfinite(mm) ? mm : 0.0f;
         float e[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) e[i] = expf(v[q][i] - safe[q]);
+        for (int i = 0; i < 4; ++i) e[i] = expf(v[q][i] - safe);
         const float ws = warp_tree_sum(quad_sum(e));
-        if (lane == 0) sTrSum[warp][q] = ws;
-      }
-      __syncthreads();
-      if (warp == 0) {
-#pragma unroll
-        for (int q = 0; q < NST; ++q) {
-          const float s = warp_tree_sum(sTrSum[lane][q]);
-          if (lane == 0) {
-            const float part = isfinite(mm[q]) ? safe[q] + logf(s) : mm[q];
-            sSt[q] = logaddexp(sSt[q], part);
-          }
-        }
+        if (lane == 0) sPart[NW + q][warp] = ws;
+        if (tid == 0) sTrM[q] = mm;
       }
     }
+    pend_t = t;
+    pend_post = train_scaling != 0;
+    pend_tr = train_transitions != 0;
+    a_cur = a_nxt;
   }
   __syncthreads();
-  if (tid < NSCAL) scal_out[(size_t)b * NSCAL + tid] = sScal[tid];
-  if (tid < NST) st_out[(size_t)b * NST + tid] = sSt[tid];
+  reduce_pending(pend_t, pend_post, pend_tr);
+  __syncthreads();  // red's writes are visible to the block after it
+
+  // the fold, over the steps in the plain version's order
+  if (tid < NSCAL) {
+    float sc = 0.0f;
+    if (train_scaling) {
+#pragma unroll 4
+      for (int t = T - 1; t >= 0; --t) {
+        float s[NW];
+#pragma unroll
+        for (int k = 0; k < NW; ++k) s[k] = redb[(size_t)t * NRED + k];
+        const size_t e = (size_t)b * T + t;
+        const float cnt = ((t < len) && ok) ? 1.0f : 0.0f;
+        const float v = moment(tid, s, x_unc[e], t_start[e], evs[t], cnt);
+        sc = t == T - 1 ? v : sc + v;
+      }
+    }
+    scal_out[(size_t)b * NSCAL + tid] = sc;
+  } else if (tid < NSCAL + NST) {
+    const int q = tid - NSCAL;
+    float acc = -INFINITY;
+    if (train_transitions) {
+#pragma unroll 4
+      for (int t = T - 2; t >= 0; --t)
+        acc = logaddexp(acc, redb[(size_t)t * NRED + NW + q]);
+    }
+    st_out[(size_t)b * NST + q] = acc;
+  }
 }
 
 }  // namespace
 
-// Plain C entry for ctypes.  W may be nullptr when train_scaling is 0.
-// Returns cudaGetLastError() after the launch.
+// Plain C entry for ctypes.  e_codes (B, 3, 32) and pattern (4096,) are
+// ops/hmm.py bwd_codebooks' transition codebooks and pattern bytes; W may
+// be nullptr when train_scaling is 0; red (B, T, 9) float32 is scratch.
+// The model rows and W must be 16-byte aligned.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int nc_em_backward(
     const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
-    const int32_t* length, int B, int T, const float* e_stay,
-    const float* e_step_to, const float* e_skip_to, const float* level_mean,
-    const float* level_stdv, const float* log_level_stdv,
-    const float* sd_mean, const float* sd_lambda, const float* log_sd_lambda,
-    const float* W, const float* alphas, const float* lpd,
-    const float* x_unc, const float* t_start, const uint8_t* valid,
-    const float* log_p_stay, const float* log_p_step4, const uint8_t* flags,
-    int train_scaling, int train_transitions, float log2pi, float* scal,
-    float* st, int device, void* stream) {
+    const int32_t* length, int B, int T, const float* e_codes,
+    const uint8_t* pattern, const float* level_mean, const float* level_stdv,
+    const float* log_level_stdv, const float* sd_mean, const float* sd_lambda,
+    const float* log_sd_lambda, const float* W, const float* alphas,
+    const float* lpd, const float* x_unc, const float* t_start,
+    const uint8_t* valid, const float* log_p_stay, const float* log_p_step4,
+    const uint8_t* flags, int train_scaling, int train_transitions,
+    float log2pi, float* red, float* scal, float* st, int device,
+    void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && T > 0) {
-    em_backward_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        ev_mean, ev_stdv, ev_log_stdv, length, B, T, e_stay, e_step_to,
-        e_skip_to, level_mean, level_stdv, log_level_stdv, sd_mean, sd_lambda,
+    const int smem = (NTAB + (train_scaling ? NW : 0)) * nc::N * 4;
+    const cudaError_t err = cudaFuncSetAttribute(
+        em_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    em_backward_kernel<<<B, nc::THREADS, smem, (cudaStream_t)stream>>>(
+        ev_mean, ev_stdv, ev_log_stdv, length, B, T, e_codes, pattern,
+        level_mean, level_stdv, log_level_stdv, sd_mean, sd_lambda,
         log_sd_lambda, W, alphas, lpd, x_unc, t_start, valid, log_p_stay,
-        log_p_step4, flags, train_scaling, train_transitions, log2pi, scal,
-        st);
+        log_p_step4, flags, train_scaling, train_transitions, log2pi, red,
+        scal, st);
   }
   return (int)cudaGetLastError();
 }

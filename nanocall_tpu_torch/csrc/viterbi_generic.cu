@@ -288,47 +288,6 @@ viterbi_generic_forward_kernel(const float* __restrict__ ev_mean,
   store4(final_alpha + row, a);
 }
 
-// --- the resident kernel's asynchronous prologue (PTX, sm_90) -------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// one arrival expected, then `bytes` of bulk copies to complete the phase
-__device__ __forceinline__ void mbar_init_expect(uint32_t bar,
-                                                 uint32_t bytes) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(1u)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
-// to shared memory, reported to the mbarrier at `bar`
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
 // Dynamic shared memory: alpha (2 x N float32, double-buffered), the
 // codebooks (deg x CODES float32), the packed table (deg x N uint16).
 template <bool kPath>

@@ -134,7 +134,7 @@ def load():
             [vp] * 4 + [ci, ci] + [vp] * 10 + [cf, cf] + [vp, vp] + [ci, vp])
         lib.nc_em_backward.restype = ci
         lib.nc_em_backward.argtypes = (
-            [vp] * 4 + [ci, ci] + [vp] * 18 + [ci, ci, cf] + [vp, vp]
+            [vp] * 4 + [ci, ci] + [vp] * 17 + [ci, ci, cf] + [vp] * 3
             + [ci, vp])
         lib.nc_viterbi_generic_forward.restype = ci
         lib.nc_viterbi_generic_forward.argtypes = (

@@ -5,7 +5,9 @@ The reverse recursion keeps beta on chip and never stores it, recomputes
 each emission, and folds the posteriors into 14 scaling moments and 3
 log-space transition totals per row.  The plain PyTorch version runs on
 CPU tensors; CUDA tensors go to the kernel of csrc/em_backward.cu.  K4, the
-forward half whose alphas this pass reads, is in ops/hmm.py.
+forward half whose alphas this pass reads, is in ops/hmm.py.  The kernel
+reads the three transition tables as per-row codebooks over the states'
+overlap-condition patterns (hmm.bwd_codebooks).
 """
 
 from __future__ import annotations
@@ -33,7 +35,12 @@ def _bwd_tables(gtf: hmm.GroupedTransFull, p_stay_seq, p_skip_seq):
     """The backward pass's derived inputs, made by the same torch ops for
     the plain version and the kernel: exp of the stay and to-side tables,
     and the per-row log rates log p_stay and log(p_step / 4)."""
-    return (*hmm.bwd_exp_tables(gtf), torch.log(p_stay_seq),
+    return (*hmm.bwd_exp_tables(gtf), *_log_rates(p_stay_seq, p_skip_seq))
+
+
+def _log_rates(p_stay_seq, p_skip_seq):
+    """The per-row log p_stay and log(p_step / 4)."""
+    return (torch.log(p_stay_seq),
             torch.log(1.0 - p_stay_seq - p_skip_seq) - math.log(4.0))
 
 
@@ -154,12 +161,14 @@ def em_backward_kernel(gtf: hmm.GroupedTransFull, model: hmm.ModelArrays,
     if T < 1:
         raise ValueError("the backward pass needs at least one event column")
     hmm._check_events(ev, B, T, dev)
-    e_stay, e_step_to, e_skip_to, log_p_stay, log_p_step4 = _bwd_tables(
-        gtf, p_stay_seq, p_skip_seq)
-    tables = (e_stay, e_step_to, e_skip_to, *model)
-    hmm._check_tables(tables, B, n, dev)
+    log_p_stay, log_p_step4 = _log_rates(p_stay_seq, p_skip_seq)
+    pattern, books = hmm.bwd_codebooks(gtf)
+    hmm._check("codebooks", books, torch.float32, (B, 3, hmm.BWD_CODES), dev)
+    hmm._check_tables(tuple(model), B, n, dev)
     if train_scaling:
         hmm._check("W", W, torch.float32, (B, 6, n), dev)
+        if W.data_ptr() % 16:  # copied to shared memory in 16-byte units
+            raise ValueError("W is not 16-byte aligned")
     hmm._check("alphas", alphas, torch.float32, (T, B, n), dev)
     for name, x in (("lpd", lpd), ("log_p_stay", log_p_stay),
                     ("log_p_step4", log_p_step4)):
@@ -171,17 +180,19 @@ def em_backward_kernel(gtf: hmm.GroupedTransFull, model: hmm.ModelArrays,
     hmm._require_cuda(dev, "EM backward")
     masks = {**hmm.correction_masks(6, dev), "subset": subset}
     flags = hmm.mask_flags(masks, BWD_FLAG_BITS)
+    red = torch.empty((B, T, 9), dtype=torch.float32, device=dev)
     scal = torch.empty((B, 14), dtype=torch.float32, device=dev)
     st3 = torch.empty((B, 3), dtype=torch.float32, device=dev)
     lib = _cuda.load()
     err = lib.nc_em_backward(
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, *(x.data_ptr() for x in tables),
+        ev["length"].data_ptr(), B, T, books.data_ptr(), pattern.data_ptr(),
+        *(x.data_ptr() for x in model),
         W.data_ptr() if train_scaling else None, alphas.data_ptr(),
         lpd.data_ptr(), x_unc.data_ptr(), t_start.data_ptr(),
         valid.data_ptr(), log_p_stay.data_ptr(), log_p_step4.data_ptr(),
         flags.data_ptr(), int(train_scaling), int(train_transitions), LOG_2PI,
-        scal.data_ptr(), st3.data_ptr(), *_cuda.target(dev),
+        red.data_ptr(), scal.data_ptr(), st3.data_ptr(), *_cuda.target(dev),
     )
     _cuda.check(err, "em_backward kernel launch")
     _cuda.count_launch(em_backward_kernel)

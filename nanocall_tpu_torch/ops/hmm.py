@@ -57,6 +57,7 @@ its sums, and jnp.log and torch.log differ in the last bit on some inputs.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -1450,6 +1451,46 @@ def bwd_exp_tables(gtf: GroupedTransFull):
     weights (K6d here, K5 in ops/em.py)."""
     return (torch.exp(gtf.stay_lp), torch.exp(gtf.step_to_lp),
             torch.exp(gtf.skip_to_lp))
+
+
+#: width of K5's per-row transition codebooks (bwd_codebooks)
+BWD_CODES = 32
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_patterns(K: int):
+    """(pattern (n,) uint8, rep (P,) int64): each state's pattern of the
+    overlap conditions that bwd_exp_tables' three tables depend on (the
+    stay conditions of transitions.grouped_condition_masks and all of
+    grouped_condition_masks_to), numbered 0 .. P-1 (P = 27 at K = 6), and
+    one state of each pattern."""
+    m = transitions.grouped_condition_masks(K)
+    cols = [m[f"stay_l{l}"] for l in range(1, K)]
+    cols += list(transitions.grouped_condition_masks_to(K).values())
+    _, rep, pattern = np.unique(np.stack(cols, 1), axis=0,
+                                return_index=True, return_inverse=True)
+    if len(rep) > BWD_CODES:
+        raise ValueError(f"{len(rep)} transition patterns at K={K}, more "
+                         f"than the codebooks' {BWD_CODES}")
+    return pattern.reshape(-1).astype(np.uint8), rep
+
+
+def bwd_codebooks(gtf: GroupedTransFull):
+    """bwd_exp_tables' tables as K5 reads them: (pattern (n,) uint8,
+    codebooks (..., 3, BWD_CODES) float32).  A table's value at a state is
+    fixed by the state's pattern and the row's (p_stay, p_skip), so
+    codebooks[..., q, :P] holds table q at one state of each pattern
+    and codebooks[..., q, pattern] rebuilds table q bit for bit; the
+    entries past P are 0."""
+    pattern, rep = bwd_patterns(gtf.K)
+    tables = bwd_exp_tables(gtf)
+    dev = tables[0].device
+    idx = torch.from_numpy(rep).to(dev)
+    books = torch.zeros((*tables[0].shape[:-1], 3, BWD_CODES),
+                        dtype=torch.float32, device=dev)
+    for q, x in enumerate(tables):
+        books[..., q, :len(rep)] = x[..., idx]
+    return torch.from_numpy(pattern).to(dev), books
 
 
 def fwbw_grouped_backward_plain(gtf: GroupedTransFull, model: ModelArrays,

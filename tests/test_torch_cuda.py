@@ -235,3 +235,91 @@ def test_kernel_launch_leaves_the_current_device(card):
         assert torch.empty(1, device="cuda").device == card, i
     torch.cuda.synchronize()
     assert basecall.EventPool("cuda").device == card
+
+
+def _grouped_inputs(dev, lengths, T: int, seed: int):
+    """K1's inputs for len(lengths) reads of T events: per-read grouped
+    tables, scaled models and noisy events (_k6_inputs')."""
+    B = len(lengths)
+    rng = np.random.default_rng(seed)
+    _, model, ev = _k6_inputs(dev, B, T, lengths, seed)
+    gt = hmm.make_grouped_trans_device(
+        convert.tensor(rng.uniform(0.05, 0.2, B).astype(np.float32), dev),
+        convert.tensor(rng.uniform(0.2, 0.4, B).astype(np.float32), dev), 6)
+    return gt, model, ev
+
+
+def _forward_all_ways(gt, model, ev, Tc: int):
+    """K1 (path, score), K3's chunks of Tc events and the plain version:
+    {what: (final alpha, bps or None)}, the chunks' bps joined as K1's."""
+    out = {"plain": hmm.viterbi_forward_grouped_plain(gt, model, ev, True),
+           "path": hmm.forward_path_kernel(gt, model, ev),
+           "score": (hmm.forward_score_kernel(gt, model, ev), None)}
+    T = ev["mean"].shape[1]
+    alpha, rows = None, []
+    for t0 in range(0, T, Tc):
+        alpha, bps = hmm.forward_chunk_kernel(gt, model, ev, alpha, t0, Tc)
+        rows.append(bps)
+    out["chunk"] = (alpha, torch.cat(rows)[1:])
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+def test_viterbi_forward_bit_equal_under_nan_on_the_card(card):
+    """K1 (path and score-only) and K3's forward chunk bit-equal to K1's
+    plain version and to each other (tolerance 0): reads of lengths 0, 1,
+    T-1 and T, one with NaN events from event 7 on, one with a NaN stay
+    entry (alpha NaN at some states only: the serial column order) and one
+    with a NaN model entry; chunks of 11 events."""
+    T = 40
+    lengths = [T, 0, 1, T - 1, T, T, T, 23]
+    gt, model, ev = _grouped_inputs(card, lengths, T, 7)
+    ev["mean"][4, 7:] = float("nan")
+    gt.stay_lp[5, 1234] = float("nan")
+    model.level_mean[6, 99] = float("nan")
+    out = _forward_all_ways(gt, model, ev, 11)
+    fa_p, bps_p = out["plain"]
+    assert torch.isnan(fa_p[5]).any() and not torch.isnan(fa_p[5]).all()
+    for what in ("path", "score", "chunk"):
+        fa, bps = out[what]
+        assert torch.equal(fa.view(torch.int32), fa_p.view(torch.int32)), what
+        if bps is not None:
+            assert torch.equal(bps, bps_p), what
+
+
+@pytest.mark.cuda
+def test_em_backward_bit_equal_under_all_flags_on_the_card(card):
+    """K5 bit-equal to its plain version (tolerance 0) under all three flag
+    sets, on rows of lengths 0, 1, T-1 and T and an invalid row, with K4's
+    alphas; one launch counted per call."""
+    from nanocall_tpu_torch.ops import em
+
+    T = 24
+    lengths = [T, 0, 1, T - 1, T, 9]
+    B = len(lengths)
+    rng = np.random.default_rng(9)
+    _, model, ev = _k6_inputs(card, B, T, lengths, 9)
+    ps = convert.tensor(rng.uniform(0.05, 0.2, B).astype(np.float32), card)
+    pk = convert.tensor(rng.uniform(0.2, 0.4, B).astype(np.float32), card)
+    gtf = hmm.make_grouped_full_device(ps, pk, 6)
+    alphas, lpd = hmm.fwbw_forward_kernel(gtf, model, ev)
+    W = convert.tensor(rng.uniform(0.0, 2.0, (B, 6, 4096)).astype(np.float32),
+                       card)
+    x_unc = convert.tensor(rng.normal(80.0, 5.0, (B, T)).astype(np.float32),
+                           card)
+    t_start = convert.tensor(
+        np.cumsum(rng.uniform(0.001, 0.01, (B, T)), 1).astype(np.float32),
+        card)
+    valid = torch.tensor([True] * (B - 1) + [False], device=card)
+    subset = torch.from_numpy(rng.random(4096) < 0.5).to(card)
+    for flags in ((True, True), (True, False), (False, True)):
+        args = (gtf, model, ev, lpd, alphas, W if flags[0] else None, x_unc,
+                t_start, valid, subset, ps, pk, *flags)
+        want = em.fused_bwd_mstats_plain(*args)
+        n0 = em.em_backward_kernel.launches
+        got = em.em_backward_kernel(*args)
+        torch.cuda.synchronize()
+        assert em.em_backward_kernel.launches == n0 + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), flags

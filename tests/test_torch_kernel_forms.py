@@ -1,0 +1,250 @@
+"""The plain-torch forms behind K1's and K5's designs for the H100
+(csrc/viterbi_forward.cu, csrc/em_backward.cu), checked on the CPU:
+
+- K5's transition codebooks (hmm.bwd_codebooks) rebuild the three
+  backward tables bit for bit;
+- K5's sum16, continued from sum4 by a chain through 4 threads, is
+  hmm.block_sum(G, 16) bit for bit;
+- K1's column maxima m16 / g16 composed from m4 / g4 equal the serial
+  16-row order, and where a NaN could hide values the kernel's warp vote
+  routes the columns to the serial order;
+- K1's tie rule as one minimum of integer keys, its thread layout and
+  padded shared-memory slots.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nanocall_tpu_torch import transitions
+from nanocall_tpu_torch.ops import hmm
+
+N = 4096
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, "priors"])
+def test_bwd_codebooks_rebuild_the_tables_bitwise(seed):
+    """codebooks[:, q, pattern] == bwd_exp_tables' table q, bit for bit,
+    over seeded random (p_stay, p_skip) rows or the CLI priors (0.1, 0.3);
+    27 patterns at K = 6, fixed by the overlap conditions."""
+    if seed == "priors":
+        ps, pk = np.full(4, 0.1, np.float32), np.full(4, 0.3, np.float32)
+    else:
+        rng = np.random.default_rng(seed)
+        ps = rng.uniform(0.001, 0.6, 64).astype(np.float32)
+        pk = rng.uniform(0.001, 0.39, 64).astype(np.float32)
+    gtf = hmm.make_grouped_full_device(torch.from_numpy(ps),
+                                       torch.from_numpy(pk), 6)
+    pattern, books = hmm.bwd_codebooks(gtf)
+    assert pattern.dtype == torch.uint8 and int(pattern.max()) == 26
+    assert books.shape == (len(ps), 3, hmm.BWD_CODES)
+    assert torch.all(books[:, :, 27:] == 0)
+    for q, table in enumerate(hmm.bwd_exp_tables(gtf)):
+        got = books[:, q, pattern.long()]
+        assert torch.equal(got.view(torch.int32), table.view(torch.int32)), q
+    # the pattern is the states' overlap conditions, and nothing else
+    m = transitions.grouped_condition_masks(6)
+    mt = transitions.grouped_condition_masks_to(6)
+    cols = np.stack([m[f"stay_l{l}"] for l in range(1, 6)]
+                    + list(mt.values()), 1)
+    pat = pattern.numpy()
+    for p in range(27):
+        assert (cols[pat == p] == cols[pat == p][0]).all()
+
+
+def _sum16_chain(G: torch.Tensor) -> torch.Tensor:
+    """K5's sum16: thread 4c's sum4 = ((G0 + G1) + G2) + G3, then threads
+    4c+1 .. 4c+3 in turn add their 4 states one by one to the sum passed
+    up to them."""
+    g = G.view(G.shape[0], N // 16, 4, 4)  # (B, block, thread, state)
+    s = ((g[..., 0, 0] + g[..., 0, 1]) + g[..., 0, 2]) + g[..., 0, 3]
+    for k in range(1, 4):
+        s = (((s + g[..., k, 0]) + g[..., k, 1]) + g[..., k, 2]) + g[..., k, 3]
+    return s
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sum16_chain_equals_block_sum_bitwise(seed):
+    """The chain through 4 threads is block_sum(G, 16)'s float sequence,
+    and its first link is block_sum(G, 4), on exp(g - max g) of seeded
+    random g of a wide range (tiny and large terms mixed)."""
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.normal(0.0, 8.0, (16, N)).astype(np.float32))
+    G = torch.exp(g - torch.amax(g, dim=-1, keepdim=True))
+    want = hmm.block_sum(G, 16)
+    assert torch.equal(_sum16_chain(G).view(torch.int32),
+                       want.view(torch.int32))
+    s4 = ((G[:, 0::4] + G[:, 1::4]) + G[:, 2::4]) + G[:, 3::4]
+    assert torch.equal(s4.view(torch.int32),
+                       hmm.block_sum(G, 4).view(torch.int32))
+
+
+def _colmax_serial(a: torch.Tensor):
+    """(B, R, m) -> max, first argmax over R (strict > in r): the plain
+    version's order (hmm._grouped_step_core's colmax)."""
+    m = a[:, 0]
+    g = torch.zeros_like(m, dtype=torch.int64)
+    for r in range(1, a.shape[1]):
+        take = a[:, r] > m
+        m = torch.where(take, a[:, r], m)
+        g = torch.where(take, r, g)
+    return m, g
+
+
+def _m16_composed(alpha: torch.Tensor):
+    """K1's m16 / g16 from m4 / g4: over q < 4, the max of m4[256 q + c]
+    and the lowest r = q + 4 g4 among the q that reach it."""
+    m4, g4 = _colmax_serial(alpha.view(-1, 4, N // 4))
+    m = m4.view(-1, 4, N // 16)
+    r = torch.arange(4)[None, :, None] + 4 * g4.view(-1, 4, N // 16)
+    M, R = m[:, 0], r[:, 0]
+    for q in range(1, 4):
+        take = (m[:, q] > M) | ((m[:, q] == M) & (r[:, q] < R))
+        M = torch.where(take, m[:, q], M)
+        R = torch.where(take, r[:, q], R)
+    return M, R
+
+
+def _warp_nan_vote(alpha: torch.Tensor) -> torch.Tensor:
+    """(B, 256): True for the m16 columns of a warp that holds a NaN in
+    alpha; warp w owns columns c16 = 8 w + k (k < 8) of every row r < 16."""
+    nan = torch.isnan(alpha).view(-1, 16, 32, 8)  # (B, r, warp, k)
+    return nan.any(dim=3).any(dim=1).repeat_interleave(8, dim=1)
+
+
+def _m16_kernel(alpha: torch.Tensor):
+    """K1's m16 / g16: composed, or the serial order in a flagged warp."""
+    M, R = _m16_composed(alpha)
+    Ms, Rs = _colmax_serial(alpha.view(-1, 16, N // 16))
+    vote = _warp_nan_vote(alpha)
+    return torch.where(vote, Ms, M), torch.where(vote, Rs, R)
+
+
+def _same(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_composed_column_max_equals_the_serial_order(seed):
+    """On seeded random alphas with forced ties (values on a coarse grid,
+    -inf and +inf among them), m16 / g16 composed from m4 / g4 equal the
+    serial 16-row order bit for bit."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-6, 3, (32, N)).astype(np.float32)
+    a[rng.random((32, N)) < 0.02] = -np.inf
+    a[rng.random((32, N)) < 0.002] = np.inf
+    a[0] = -np.inf  # a row of ties only
+    alpha = torch.from_numpy(a)
+    Ms, Rs = _colmax_serial(alpha.view(-1, 16, N // 16))
+    M, R = _m16_composed(alpha)
+    assert _same(M, Ms) and torch.equal(R, Rs)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nan_columns_take_the_serial_order(seed):
+    """Rows with NaN at several positions (row 0 of a column, later rows,
+    everywhere): the composed max alone differs from the serial order
+    where a NaN at r > 0 of a column lies in front of larger values, and
+    the kernel's warp vote, which sends every warp holding a NaN to the
+    serial order, keeps the serial order's bits everywhere."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-6, 3, (8, N)).astype(np.float32)
+    alpha = torch.from_numpy(a)
+    for b, states in enumerate(([5], [1024 + 7, 3 * 1024 + 300],
+                                [256 + 9], list(range(0, N, 97)),
+                                list(range(N)))):
+        alpha[b, states] = float("nan")
+    # the composed max alone is wrong behind a NaN at r = 1 of m16 column 9
+    # (state 256 + 9, row 0 of m4 column 265): it hides that m4 column's
+    # later rows, among them the max, row 5 of column 9 (state 5 * 256 + 9)
+    alpha[2, 5 * 256 + 9] = 10.0
+    Ms, Rs = _colmax_serial(alpha.view(-1, 16, N // 16))
+    M, R = _m16_composed(alpha)
+    assert not (_same(M, Ms) and torch.equal(R, Rs))
+    Mk, Rk = _m16_kernel(alpha)
+    assert _same(Mk, Ms) and torch.equal(Rk, Rs)
+    # the rows without NaN (5..7) never take the serial order
+    assert not _warp_nan_vote(alpha[5:]).any()
+
+
+def _bp_by_keys(gt: hmm.GroupedTrans, alpha: torch.Tensor):
+    """K1's tie rule as one integer minimum: key = (from-state << 8) | bp
+    code per candidate (0x7fffff00 where its value is not the best), the
+    least key's low byte the bp.  Returns (best, bp uint8)."""
+    B, n = alpha.shape
+    m4, g4 = _colmax_serial(alpha.view(B, 4, n // 4))
+    m16, g16 = _colmax_serial(alpha.view(B, 16, n // 16))
+    j = torch.arange(n)
+    r4 = g4[:, j >> 2]
+    r16 = g16[:, j >> 4]
+    v0 = gt.stay_lp + alpha
+    v1 = gt.step_lp + m4[:, j >> 2]
+    v2 = gt.skip_lp + m16[:, j >> 4]
+    best = torch.maximum(torch.maximum(v0, v1), v2)
+    nokey = 0x7FFFFF00
+    k0 = torch.where(v0 == best, j << 8, nokey)
+    k1 = torch.where(v1 == best, (((r4 << 10) | (j >> 2)) << 8) | (64 + r4),
+                     nokey)
+    k2 = torch.where(v2 == best, (((r16 << 8) | (j >> 4)) << 8) | (128 + r16),
+                     nokey)
+    key = torch.minimum(torch.minimum(k0, k1), k2)
+    return best, (key & 0xFF).to(torch.uint8)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k1_key_tie_rule_equals_the_plain_bps(seed):
+    """The key minimum gives _grouped_step_core's bp bytes and best scores
+    bit for bit, on alphas and tables of a coarse grid (many ties between
+    stay, step and skip and between rows), with -inf, NaN table entries
+    and NaN alphas at a few states."""
+    rng = np.random.default_rng(seed)
+    B = 8
+    alpha = torch.from_numpy(rng.integers(-4, 1, (B, N)).astype(np.float32))
+    tabs = [torch.from_numpy(rng.integers(-2, 1, (B, N)).astype(np.float32))
+            for _ in range(3)]
+    alpha[0, rng.integers(0, N, 40)] = -np.inf
+    alpha[1, rng.integers(0, N, 5)] = np.nan
+    tabs[0][2, rng.integers(0, N, 5)] = np.nan
+    tabs[1][3, rng.integers(0, N, 5)] = np.nan
+    tabs[2][4, rng.integers(0, N, 5)] = -np.inf
+    gt = hmm.GroupedTrans(*tabs, K=6)
+    want_best, want_bp = hmm._grouped_step_core(gt, alpha)
+    best, bp = _bp_by_keys(gt, alpha)
+    assert _same(best, want_best)
+    assert torch.equal(bp, want_bp)
+
+
+def test_k1_thread_layout_and_padded_slots():
+    """K1's thread layout (warp w, lane 8 q + k owns column c = 256 q +
+    8 w + k and states 1024 r + c) covers every state once; the padded
+    slots of m4 (i + 2 (i >> 6)) and m16 (i + (i >> 4)) are distinct and
+    those of state 1024 r + c are its column's plus r times a constant
+    (264, 68); each warp's reads of its states' m4 and m16 slots (8-byte
+    entries, per half-warp) and its staged bp words (4-byte, per warp) hit
+    distinct banks."""
+    w, lane = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    q, k = lane >> 3, lane & 7
+    c = 256 * q + 8 * w + k
+    states = np.concatenate([(1024 * r + c).ravel() for r in range(4)])
+    assert np.array_equal(np.sort(states), np.arange(N))
+
+    def p4(i):
+        return i + 2 * (i >> 6)
+
+    def p16(i):
+        return i + (i >> 4)
+
+    assert len(set(p4(np.arange(1024)))) == 1024
+    assert len(set(p16(np.arange(256)))) == 256
+    for r in range(4):
+        j = 1024 * r + c  # (warp, lane)
+        assert np.array_equal(p4(j >> 2), p4(c >> 2) + 264 * r)
+        assert np.array_equal(p16(j >> 4), p16(c >> 4) + 68 * r)
+        for slots in (p4(j >> 2), p16(j >> 4)):
+            for half in (slice(0, 16), slice(16, 32)):
+                for wi in range(32):
+                    s = np.unique(slots[wi, half])
+                    assert len(np.unique(s % 16)) == len(s), (r, wi)
+        for wi in range(32):
+            s = np.unique(p4(j >> 2)[wi])
+            assert len(np.unique(s % 32)) == len(s), (r, wi)

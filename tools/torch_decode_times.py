@@ -3,7 +3,8 @@
 
     python3 tools/torch_decode_times.py [--B 128] [--T 8192] [--reads 256]
                                         [--train] [--trans FILE] [--profile]
-                                        [--long 100000]
+                                        [--long 100000] [--em]
+                                        [--tree DIR | --turns DIR]
 
 1. K8, the measured float32 peak at the decode's shape
    (nanocall_tpu_torch.roofline.measure_fma_peak: B rows x n = 4096 lanes
@@ -42,6 +43,20 @@
    through the pipeline (which takes K3 there): wall seconds and peak
    device memory.
 
+With --em, also K4 and K5 at the EM chunk's shape (chip_smoke.py's 128
+training groups x 4 = 512 rows of T = 128 events, packed from simulated
+reads): bit-equality with the plain versions, milliseconds per call, bounds
+and kernel_shares against the K8 peak measured at 512 x 128.  Phase 1 also
+times K3's forward chunk (events [8192, 16384) of 4 reads, chunks of 8192)
+and probes K1 under a NaN stay entry (16 x 512): bit-equal or not.
+
+--tree DIR runs all of it on the checkout in DIR (its package and its
+chip_smoke.py), e.g. the parent commit unpacked by `git archive`;
+--turns DIR runs the tool with the other flags on DIR, on this checkout,
+on this checkout again and on DIR (parent, change, change, parent), one
+process each, so that two commits' kernels are timed on one card in one
+call.
+
 Phase 1 prints each kernel's bound (roofline.kernel_bound: the H100's
 published memory and float32 rates) beside its time; every pipeline run
 prints the launches of each hand-written kernel.
@@ -58,13 +73,12 @@ from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-import chip_smoke  # noqa: E402
+chip_smoke = None  # the checkout's chip_smoke module, imported by main()
 
 #: the hand-written kernels' function names in nanocall_tpu_torch/csrc
 KERNEL_FUNCTIONS = ("viterbi_forward_kernel", "viterbi_traceback_kernel",
@@ -86,7 +100,21 @@ def main() -> int:
                     help="run under this transitions table (-s FILE)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--long", type=int, default=0)
+    ap.add_argument("--em", action="store_true")
+    ap.add_argument("--census", action="store_true",
+                    help="print the SASS census of K1's and K5's time loops")
+    ap.add_argument("--tree", default="", metavar="DIR",
+                    help="run on the checkout in DIR")
+    ap.add_argument("--turns", default="", metavar="DIR",
+                    help="run on DIR, here, here, DIR")
     args = ap.parse_args()
+    if args.turns:
+        return run_turns(args.turns)
+
+    global chip_smoke
+    root = os.path.abspath(args.tree) if args.tree else ROOT
+    sys.path.insert(0, root)
+    import chip_smoke
 
     import numpy as np
     import torch
@@ -106,6 +134,9 @@ def main() -> int:
     trans_flags = ["-s", args.trans] if args.trans else []
     table = (cli.init_transitions(chip_smoke.smoke_config(*trans_flags))
              if args.trans else None)
+
+    if args.census:
+        print_census()
 
     if args.B:
         k = roofline.FMA_K
@@ -141,6 +172,7 @@ def main() -> int:
                   f"{100 * sh['share_of_f32_spec']:.2f}% of 67 TFLOP/s, "
                   f"{100 * sh['share_of_k8_peak']:.2f}% of the measured K8 "
                   f"peak {peak / 1e12:.3f} TFLOP/s [{card}]", flush=True)
+        time_chunk_and_probe_nan(models, device, card)
         decode_s = (recs["viterbi_forward_path"]["ms"]
                     + recs["viterbi_traceback"]["ms"]) / 1e3
         rep = roofline.mfu_report(args.B, args.T, 4096, decode_s, peak)
@@ -152,6 +184,9 @@ def main() -> int:
               f"measured K8 peak [{card}]", flush=True)
         del gt, model, ev
         torch.cuda.empty_cache()
+
+    if args.em:
+        time_em_kernels(models, device, card)
 
     cfg = chip_smoke.smoke_config(*([] if args.train else ["--no-train"]),
                                   *trans_flags)
@@ -279,6 +314,117 @@ def main() -> int:
                   f"identity {ident:.3f}; launches {launched()} [{card}]",
                   flush=True)
     return 0
+
+
+def run_turns(other: str) -> int:
+    """This tool with the same flags (but --turns) on `other`, here, here
+    and `other`, one process each; each process's output is printed as it
+    ends, under a header naming its tree."""
+    argv = sys.argv[1:]
+    i = argv.index("--turns")
+    rest = argv[:i] + argv[i + 2:]
+    for n, tree in enumerate((other, ROOT, ROOT, other)):
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               *rest, "--tree", tree], capture_output=True,
+                              text=True)
+        print(f"=== turn {n + 1} of 4: {tree} (exit {proc.returncode}, "
+              f"{time.perf_counter() - t:.1f} s)", flush=True)
+        print(proc.stdout, flush=True)
+        if proc.returncode:
+            print(proc.stderr[-4000:], flush=True)
+            return proc.returncode
+    return 0
+
+
+#: the time loops of K1 (path, score-only; one runtime-switched instance
+#: before the redesign), K3's forward chunk and K5, by kernel name marker
+CENSUS_LOOPS = (("K1 path", ("viterbi_forward_kernelILb0ELb1E",
+                             "viterbi_forward_kernelILb0E")),
+                ("K1 score", ("viterbi_forward_kernelILb0ELb0E",)),
+                ("K3 forward chunk", ("viterbi_forward_kernelILb1ELb1E",
+                                      "viterbi_forward_kernelILb1E")),
+                ("K5", ("em_backward_kernel",)))
+
+
+def print_census() -> None:
+    """The static SASS census (this checkout's chip_smoke.step_loop_sass)
+    of the time loops of the built kernels of the tree run on."""
+    import importlib.util
+
+    from nanocall_tpu_torch.ops import _cuda
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_census", os.path.join(ROOT, "chip_smoke.py"))
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump"), "-sass",
+         _cuda._lib_path()], capture_output=True, text=True,
+        check=True).stdout
+    for what, markers in CENSUS_LOOPS:
+        marker = next((m for m in markers if m in sass), None)
+        if marker is None:
+            continue
+        c = here.step_loop_sass(marker)
+        print(f"census {what} ({marker}): {c}", flush=True)
+
+
+def time_chunk_and_probe_nan(models, device, card: str) -> None:
+    """K3's forward chunk at B = 4 over events [8192, 16384), timed; and
+    K1 (path) against its plain version at 16 x 512 with one NaN stay
+    entry: bit-equal or not (torch.maximum propagates the NaN)."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    B, Tc = chip_smoke.B_LONG, chip_smoke.TC_LONG
+    gt, model, ev = chip_smoke.kernel_inputs(
+        models, device, B, 2 * Tc, np.random.default_rng(13))
+    carry, _ = hmm.forward_chunk_kernel(gt, model, ev, None, 0, Tc)
+    ms = chip_smoke.cuda_ms(lambda: hmm.forward_chunk_kernel(
+        gt, model, ev, carry, Tc, Tc), 5)
+    print(f"kernel viterbi_forward_chunk B={B} events [{Tc}, {2 * Tc}): "
+          f"{ms:.3f} ms [{card}]", flush=True)
+    gt, model, ev = chip_smoke.kernel_inputs(
+        models, device, 16, 512, np.random.default_rng(14))
+    gt.stay_lp[0, 1234] = float("nan")
+    fa_p, bps_p = hmm.viterbi_forward_grouped_plain(gt, model, ev, True)
+    fa_k, bps_k = hmm.forward_path_kernel(gt, model, ev)
+    same = (torch.equal(fa_k.view(torch.int32), fa_p.view(torch.int32))
+            and torch.equal(bps_k, bps_p))
+    print(f"K1 under a NaN stay entry (16 x 512): "
+          f"{'bit-equal to' if same else 'DIFFERS from'} the plain version "
+          f"[{card}]", flush=True)
+
+
+def time_em_kernels(models, device, card: str) -> None:
+    """K4 and K5 at the EM chunk's shape against their plain versions,
+    with bounds and shares of the K8 peak measured there."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import roofline
+
+    rng = np.random.default_rng(15)
+    reads = chip_smoke.simulated_reads(models, rng)
+    inp = chip_smoke.em_kernel_inputs(models, reads, device, rng)
+    B, T = inp["ev"]["mean"].shape
+    peak, _ = roofline.measure_fma_peak(B, 4096, T, k=roofline.FMA_K)
+    recs = chip_smoke.check_em_kernels(inp)
+    for name, r in recs.items():
+        b = roofline.kernel_bound(name, B, T)
+        sh = roofline.kernel_shares(name, B, T, r["ms"], peak)
+        print(f"kernel {name} B={B} T={T}: {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}), bit-equal; "
+              f"{sh['f32_ops_per_s'] / 1e12:.3f} TFLOP/s = "
+              f"{100 * sh['share_of_f32_spec']:.2f}% of 67 TFLOP/s, "
+              f"{100 * sh['share_of_k8_peak']:.2f}% of the measured K8 peak "
+              f"{peak / 1e12:.3f} TFLOP/s [{card}]", flush=True)
+    del inp
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
