@@ -10,11 +10,16 @@ from the root of a checkout.  It
   2. builds the CUDA kernels from nanocall_tpu_torch/csrc and prints the
      build seconds, ptxas' register / spill report, the FFMA count of
      K8's SASS (cuobjdump -sass), and a static census of the time loops of
-     K1 (path and score-only), K3's forward chunk and K5: instructions per
-     state and step, by class (step_loop_sass);
-  3. writes the 21-neighbour transition table of (p_stay 0.14, p_skip
-     0.21) as a transitions TSV and loads it back through the port CLI's
-     `-s/--trans` loader: the loaded table of the r73 width, in-degree 21;
+     K1 (path and score-only), K3's forward chunk, K4 and K5: instructions
+     per state and step, by class (step_loop_sass), and of the resident
+     K6c's two time loops (barrier_loops_sass): K4's loop must hold at most
+     2 block barriers, the resident K6c's no global load but the stored
+     emissions' (no slot-table byte);
+  3. writes the 21-neighbour transition tables of (p_stay 0.14, p_skip
+     0.21) and of the CLI priors (0.1, 0.3) as transitions TSVs and loads
+     them back through the port CLI's `-s/--trans` loader: loaded tables
+     of the r73 width, in-degree 21 (K6a resident under the first,
+     streaming under the priors'; K6c resident under both);
   4. runs each decode kernel on the card at the decode's full width
      (n = 4096 states, B = 16 reads of up to T = 2048 events, lengths from
      0 to T, per-read scaling and transitions): the grouped K1 (path and
@@ -74,22 +79,29 @@ from the root of a checkout.  It
      strands' models and varied scaling and transition parameters: K4
      forward, with and without the alpha store; K5 fused backward with all
      statistics, with train_transitions off and with train_scaling off;
-     K6d, the grouped backward with its betas stored; and K6c, the generic
-     forward-backward under the loaded table (alpha, beta and em of
-     3 x 1.07 GB); holds each to its plain version (tolerance 0) and prints
-     both times, and roofline.em_mfu_report for K4 + K5 from their times
-     (against the measured K8 peak at that shape and the spec);
+     K4 and K5 again on inputs with NaN events in one row, a NaN model
+     entry in another and a +inf event in a third (bits compared); K6d,
+     the grouped backward with its betas stored; and K6c, the generic
+     forward-backward (alpha, beta and em of 3 x 1.07 GB) on events with a
+     NaN and a +inf event, its resident kernel under both loaded tables and
+     its streaming kernel under the first without its packed layout
+     (bits compared), then its two kernels timed in turns (streaming,
+     resident, resident, streaming); holds each to its plain version
+     (tolerance 0) and prints both times, and roofline.em_mfu_report for
+     K4 + K5 from their times (against the measured K8 peak at that shape
+     and the spec);
   7. drives the pipeline end to end (nanocall_tpu_torch.basecall.
      run_pipeline, `--pore r73 -t 1`) on 24 simulated reads (1D reads of
      2,000-8,000 events and 2-strand hairpin reads of 3,000 + 3,000, drawn
      by nanocall_tpu_torch.simulate.simulate_read and fed as
      in-memory event arrays through nanocall_tpu_torch.ingest, since fast5
      reading needs h5py) and writes FASTA and stats with the port CLI's
-     writer into build/chip_smoke/, four times: untrained (`--no-train`;
+     writer into build/chip_smoke/, five times: untrained (`--no-train`;
      K1 path and score-only, K2); the default trained run (EM training,
-     then the decode; K4, K5, K1, K2); trained under the loaded table
-     (`-s`: legacy EM rounds with K4, K6d and K6c, then the decode of the
-     trained tasks by K1 and K2); and untrained under it (`-s --no-train`:
+     then the decode; K4, K5, K1, K2); trained under the loaded table and
+     under the priors' loaded table (`-s`: legacy EM rounds with K4, K6d
+     and the resident K6c, never the streaming one, then the decode of the
+     trained tasks by K1 and K2); and untrained under the first (`-s --no-train`:
      every task at the priors, so K6a's resident kernel path and
      score-only, and K6b), then that run again with the table's packed
      layout taken away (K6a's streaming kernel; FASTA byte-equal).  Each
@@ -114,13 +126,16 @@ from the root of a checkout.  It
      build/chip_smoke/tools/: the builtin r73 template model
      (pore_model.save_tsv), the loaded table above, and one 1D read of
      4,000 events simulated from that model: run-viterbi (K6a with
-     backpointers and K6b; identity to the truth above 0.6), run-fwbw (K6c)
-     and run-fwbw --custom-fwbw (K6e), each printed posterior in [0.1, 1]
-     and descending; both fwbw runs again with -o on a 200-event read,
-     whose matrix dumps must give posteriors that sum to 1; and -K 3 on the
-     card, which must raise the kernels' ValueError and launch nothing;
+     backpointers and K6b; identity to the truth above 0.6), run-fwbw (the
+     resident K6c) and run-fwbw --custom-fwbw (K6e), each printed posterior
+     in [0.1, 1] and descending; both fwbw runs again with -o on a
+     200-event read, whose matrix dumps must give posteriors that sum to 1;
+     run-fwbw once more with the table's K6c layout taken away (the
+     streaming K6c: the same output byte for byte); and -K 3 on the card,
+     which must raise the kernels' ValueError and launch nothing;
  10. basecall.dump_training_data (`--dump-training-data`) on the in-memory
-     summaries of two simulated reads: it must launch K6c, and its TSVs
+     summaries of two simulated reads: it must launch the resident K6c
+     once per subsequence, and its TSVs
      meet the reference's invariants (fw[0] = em[0] - log n, posteriors
      summing to 1 within 1e-3, dense transition rows of mass in (0.9, 1]);
  11. one more untrained run of the 24 reads (right after the first)
@@ -178,7 +193,7 @@ UNTRAINED_KERNELS = ("viterbi_forward_path", "viterbi_forward_score",
 TRAINED_KERNELS = ("fwbw_forward", "em_backward", "viterbi_forward_path",
                    "viterbi_traceback")
 TRANS_TRAINED_KERNELS = ("fwbw_forward", "fwbw_grouped_backward",
-                         "fwbw_generic", "viterbi_forward_path",
+                         "fwbw_resident", "viterbi_forward_path",
                          "viterbi_traceback")
 TRANS_UNTRAINED_KERNELS = ("viterbi_resident_forward_path",
                            "viterbi_resident_forward_score",
@@ -201,14 +216,18 @@ HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
 #: the loaded table's kinetics: not the CLI priors (0.1, 0.3), so a task
 #: routed to the wrong kernel would decode under other transitions
 TRANS_P_STAY, TRANS_P_SKIP = 0.14, 0.21
+#: the CLI priors: their loaded table holds 17 log-probs in some slots, so
+#: K6a takes its streaming kernel under it, and K6c its resident one
+PRIORS_P_STAY, PRIORS_P_SKIP = 0.1, 0.3
 #: the dev tools' read, and the shorter read of their -o matrix dumps
 TOOLS_EVENTS, TOOLS_DUMP_EVENTS = 4000, 200
 #: kernels each dev tool run must launch
 TOOL_KERNELS = {
     "run_viterbi": ("viterbi_resident_forward_path",
                     "viterbi_generic_traceback"),
-    "run_fwbw": ("fwbw_generic",),
+    "run_fwbw": ("fwbw_resident",),
     "run_fwbw_custom": ("fwbw_custom",),
+    "run_fwbw_streaming": ("fwbw_generic",),
 }
 
 
@@ -358,9 +377,6 @@ def check_forward_under_nan(gt, model, ev) -> None:
     ev["mean"][4, 700:] = float("nan")
     gt.stay_lp[5, 1234] = float("nan")
     model.level_mean[6, 99] = float("nan")
-
-    def bits(x):
-        return x.view(torch.int32) if x.dtype == torch.float32 else x
 
     fa_p, bps_p = hmm.viterbi_forward_grouped_plain(gt, model, ev, True)
     assert torch.isnan(fa_p[5]).any() and not torch.isnan(fa_p[5]).all()
@@ -616,20 +632,27 @@ def run_seqpar(gt, model, ev, card: str) -> dict:
             "peak_gib": peak, "bound": bound}
 
 
-def load_trans_table(device):
-    """The 21-neighbour table of (TRANS_P_STAY, TRANS_P_SKIP), written as a
-    transitions TSV and loaded back by the port CLI's `-s` loader: (the TSV
-    path, the loaded table, its TransOps on `device`)."""
+def load_trans_table(device, p_stay: float = TRANS_P_STAY,
+                     p_skip: float = TRANS_P_SKIP, name: str = "trans.tsv"):
+    """The 21-neighbour table of (p_stay, p_skip), written as a transitions
+    TSV build/chip_smoke/<name> and loaded back by the port CLI's `-s`
+    loader: (the TSV path, the loaded table, its TransOps on `device`).
+    K6c takes its resident kernel under the table of (TRANS_P_STAY,
+    TRANS_P_SKIP) and of the priors; K6a its resident kernel under the
+    former and its streaming one under the priors'."""
     from nanocall_tpu_torch import cli, convert
     from nanocall_tpu_torch.ops import hmm
 
-    path = os.path.join(ROOT, "build", "chip_smoke", "trans.tsv")
+    path = os.path.join(ROOT, "build", "chip_smoke", name)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    convert.write_fast_transitions(path, TRANS_P_STAY, TRANS_P_SKIP)
+    convert.write_fast_transitions(path, p_stay, p_skip)
     table = cli.init_transitions(smoke_config("-s", path))
     ops = convert.trans_ops(table, device)
     assert tuple(ops.from_idx.shape) == (21, 4096), ops.from_idx.shape
-    assert hmm.generic_forward_route(ops) == "resident"
+    priors = (p_stay, p_skip) == (PRIORS_P_STAY, PRIORS_P_SKIP)
+    assert hmm.generic_forward_route(ops) == (
+        "streaming" if priors else "resident")
+    assert hmm.fwbw_route(ops) == "resident"
     return path, table, ops
 
 
@@ -902,11 +925,130 @@ def check_em_kernels(inp) -> dict:
     }, ev)
 
 
-def check_fwbw_kernels(inp, ops) -> dict:
-    """K6d (the grouped backward, betas stored) and K6c (the generic
-    forward-backward under the loaded table) against their plain versions
-    on the same card, at the EM chunk's shape: outputs bit-equal
-    (tolerance 0), and times.  Returns {kernel name: record}."""
+def bits(x):
+    """A float32 tensor's bit patterns (NaN payloads and zero signs
+    included), other tensors as they are."""
+    import torch
+
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def check_em_under_nan(inp) -> None:
+    """K4 (with and without stored alphas) and K5 (all three flag sets) at
+    the EM chunk's shape on copies of the inputs with NaN events in row 5
+    from event T_EM / 2 on, a NaN model entry at one state of row 6 (alpha
+    NaN everywhere from the first step: torch.amax keeps it) and a +inf
+    event in row 7, those three valid rows of full length: each bit-equal
+    to its plain version (tolerance 0, compared as bits), K5 on the plain
+    version's alphas: a max by fmaxf alone would drop the NaN."""
+    import torch
+
+    from nanocall_tpu_torch import train
+    from nanocall_tpu_torch.ops import em, hmm
+
+    model = hmm.ModelArrays(*(x.clone() for x in inp["model"]))
+    ev = {k: v.clone() for k, v in inp["ev"].items()}
+    valid = inp["valid"].clone()
+    ev["length"][5:8] = T_EM
+    valid[5:8] = True
+    ev["mean"][5, T_EM // 2:] = float("nan")
+    model.level_mean[6, 1234] = float("nan")
+    ev["mean"][7, 40] = float("inf")
+    case = {**inp, "model": model, "ev": ev, "valid": valid}
+    gtf = inp["gtf"]
+    a_p, lpd_p = hmm.fwbw_grouped_forward_plain(gtf, model, ev)
+    a_k, lpd_k = hmm.fwbw_forward_kernel(gtf, model, ev)
+    none, lpd_f = hmm.fwbw_forward_kernel(gtf, model, ev, with_alphas=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.isnan(a_p[T_EM - 1, 6]).all()
+    assert torch.equal(bits(a_k), bits(a_p)), "K4 alphas under NaN"
+    assert torch.equal(bits(lpd_k), bits(lpd_p)), "K4 log_pr_data under NaN"
+    assert torch.equal(bits(lpd_f), bits(lpd_p)), \
+        "K4 log_pr_data under NaN, no alphas stored"
+    del a_k
+    for flags in ((True, True), (True, False), (False, True)):
+        args = train.em_backward_args(case if flags[0] else {**case,
+                                                             "W": None},
+                                      lpd_p, a_p, *flags)
+        want = em.fused_bwd_mstats_plain(*args)
+        got = em.em_backward_kernel(*args)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("moments", "log totals"), got, want):
+            assert torch.equal(bits(g), bits(w)), \
+                f"K5 {what} under NaN, flags {flags}"
+
+
+def time_k6c_in_turns(ops, model, ev, reps: int = 3) -> dict:
+    """K6c's streaming and resident kernels timed in turns under one table
+    (the streaming kernel on the table's TransOps without its packed
+    layout): streaming, resident, resident, streaming (cuda_ms over reps
+    calls each).  Returns {kernel name: {"ms": the mean of its two turns,
+    "ms_turns"}}."""
+    from nanocall_tpu_torch.ops import hmm
+
+    calls = {"fwbw_generic": (hmm.fwbw_generic_kernel,
+                              ops._replace(fwbw_packed=None)),
+             "fwbw_resident": (hmm.fwbw_resident_kernel, ops)}
+    out = {}
+    for name in (*calls, *reversed(list(calls))):
+        fn, ops_ = calls[name]
+        ms = cuda_ms(lambda: fn(ops_, model, ev), reps)
+        out.setdefault(name, {"ms_turns": []})["ms_turns"].append(ms)
+    for r in out.values():
+        r["ms"] = sum(r["ms_turns"]) / len(r["ms_turns"])
+    return out
+
+
+def random_block_table(rng, deg: int, values: int = 16, groups: int = 4):
+    """A (deg, 4096) slot table (states, float32 log-probs) of random states
+    whose every (slot, block of 4096 / groups states) holds `values`
+    distinct log-probs of its own, one of them -inf: at values <= 16 it has
+    the resident K6c's layout (hmm.pack_fwbw_sides) at deg <= 23."""
+    import numpy as np
+
+    n = 4096
+    w = n // groups
+    idx = rng.integers(0, n, (deg, n)).astype(np.int32)
+    lp = np.empty((deg, n), np.float32)
+    for g in range(groups):
+        pool = np.log(rng.uniform(0.01, 1.0, (deg, values))).astype(
+            np.float32)
+        pool[:, 0] = -np.inf
+        pick = np.concatenate([np.tile(np.arange(values), (deg, 1)),
+                               rng.integers(0, values, (deg, w - values))], 1)
+        lp[:, g * w:(g + 1) * w] = np.take_along_axis(
+            pool, rng.permuted(pick, axis=1), axis=1)
+    return idx, lp
+
+
+def random_packed_ops(rng, deg_from: int, deg_to: int, device):
+    """TransOps of a random table of deg_from from-side and deg_to to-side
+    slots (random_block_table) with the resident K6c's layout."""
+    from nanocall_tpu_torch import convert, transitions
+
+    (fi, fl), (ti, tl) = (random_block_table(rng, d) for d in (deg_from,
+                                                               deg_to))
+    return convert.trans_ops(transitions.SparseTransitions(
+        from_idx=fi, from_logp=fl, to_idx=ti, to_logp=tl, K=6), device)
+
+
+#: the slot counts (from side, to side) of the random packed tables the
+#: resident K6c is checked under besides the loaded tables' 21 / 21
+K6C_RANDOM_DEGS = ((12, 23), (23, 12))
+
+
+def check_fwbw_kernels(inp, ops, priors_ops) -> dict:
+    """K6d (the grouped backward, betas stored) and K6c against their plain
+    versions on the same card, at the EM chunk's shape: outputs bit-equal
+    (tolerance 0), and times.  K6c runs through hmm.fwbw on the events with
+    a NaN event in row 3 (of full length) and a +inf event opening row 2:
+    its resident kernel under the loaded tables `ops` (TRANS_P_STAY,
+    TRANS_P_SKIP) and `priors_ops` (the CLI priors) and under random packed
+    tables of K6C_RANDOM_DEGS slots, its streaming kernel under `ops`
+    without its packed layout; alpha, beta, em and log_pr_data compared as
+    bits.  Then both kernels timed in turns under `ops`
+    (time_k6c_in_turns).  Returns {kernel name: record}."""
+    import numpy as np
     import torch
 
     from nanocall_tpu_torch.ops import hmm
@@ -917,28 +1059,49 @@ def check_fwbw_kernels(inp, ops) -> dict:
     torch.cuda.synchronize()
     errs = {"K6d beta": max_err(b_k, b_p)}
     del b_p, b_k
-    f_p = hmm.fwbw_plain(ops, model, ev)
-    f_k = hmm.fwbw_generic_kernel(ops, model, ev)
-    torch.cuda.synchronize()
-    for k in ("alpha", "beta", "em", "log_pr_data"):
-        errs[f"K6c {k}"] = max_err(f_k[k], f_p[k])
-    assert torch.isfinite(f_k["log_pr_data"]).all(), "K6c lpd not finite"
-    del f_p, f_k
+    ev_nan = {**ev, "mean": ev["mean"].clone()}
+    assert int(ev["length"][3]) == T_EM and int(ev["length"][2]) == T_EM - 1
+    ev_nan["mean"][3, T_EM // 2] = float("nan")
+    ev_nan["mean"][2, 0] = float("inf")
+    plain_ms = None
+    for what, ops_, route in (
+            (f"({TRANS_P_STAY}, {TRANS_P_SKIP})", ops, "resident"),
+            (f"priors ({PRIORS_P_STAY}, {PRIORS_P_SKIP})", priors_ops,
+             "resident"),
+            *((f"random packed {d_from} / {d_to}", random_packed_ops(
+                np.random.default_rng(d_from), d_from, d_to,
+                ev["mean"].device), "resident")
+              for d_from, d_to in K6C_RANDOM_DEGS),
+            (f"({TRANS_P_STAY}, {TRANS_P_SKIP}) without its packed layout",
+             ops._replace(fwbw_packed=None), "streaming")):
+        assert hmm.fwbw_route(ops_) == route, what
+        ms, f_p = cuda_ms_once(lambda: hmm.fwbw_plain(ops_, model, ev_nan))
+        plain_ms = plain_ms or ms
+        wrapper = (hmm.fwbw_resident_kernel if route == "resident"
+                   else hmm.fwbw_generic_kernel)
+        n0 = wrapper.launches
+        f_k = hmm.fwbw(ops_, model, ev_nan)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1, what
+        assert torch.isnan(f_p["alpha"][3]).any(), what
+        for k in ("alpha", "beta", "em", "log_pr_data"):
+            assert torch.equal(bits(f_k[k]), bits(f_p[k])), \
+                f"K6c ({route}) {k} under the {what} table"
+            errs[f"K6c {route} {k}, {what}"] = max_err(f_k[k], f_p[k])
+        del f_p, f_k
     print(f"fwbw kernels: max |kernel - plain| {errs}")
     for what, e in errs.items():
         assert e == 0.0, f"{what} differs from plain by {e}"
-    return with_shape({
-        "fwbw_grouped_backward": {
-            "max_abs_err": errs["K6d beta"],
-            "ms": cuda_ms(lambda: hmm.fwbw_backward_kernel(gtf, model, ev),
-                          3),
-            "plain_ms": cuda_ms(lambda: hmm.fwbw_grouped_backward_plain(
-                gtf, model, ev), 1)},
-        "fwbw_generic": {
-            "max_abs_err": max(v for k, v in errs.items() if "K6c" in k),
-            "ms": cuda_ms(lambda: hmm.fwbw_generic_kernel(ops, model, ev), 3),
-            "plain_ms": cuda_ms(lambda: hmm.fwbw_plain(ops, model, ev), 1)},
-    }, ev)
+    recs = {"fwbw_grouped_backward": {
+        "max_abs_err": errs["K6d beta"],
+        "ms": cuda_ms(lambda: hmm.fwbw_backward_kernel(gtf, model, ev), 3),
+        "plain_ms": cuda_ms(lambda: hmm.fwbw_grouped_backward_plain(
+            gtf, model, ev), 1)}}
+    for name, r in time_k6c_in_turns(ops, model, ev).items():
+        route = "resident" if name == "fwbw_resident" else "streaming"
+        recs[name] = {**r, "plain_ms": plain_ms, "max_abs_err": max(
+            v for k, v in errs.items() if k.startswith(f"K6c {route}"))}
+    return with_shape(recs, ev)
 
 
 def check_fma_kernel(device) -> dict:
@@ -1037,16 +1200,27 @@ def check_reshape_kernel(device) -> dict:
         "shape": [8, 512]}}
 
 
+def built_sass() -> str:
+    """The SASS of the built library, by cuobjdump -sass."""
+    from nanocall_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", _cuda._lib_path()],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def kernel_instances(marker: str) -> list:
+    """The (mangled) names of the built library's kernels whose name
+    contains `marker`, sorted: each instance of a template kernel."""
+    return sorted(set(re.findall(rf"Function : (\S*{marker}\S*)",
+                                 built_sass())))
+
+
 def sass_lines(marker: str) -> list:
     """The SASS instructions ((address, text) in order) of the first
     kernel of the built library whose name contains `marker`, by cuobjdump
     -sass."""
-    from nanocall_tpu_torch.ops import _cuda
-
-    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", _cuda._lib_path()],
-                          capture_output=True, text=True, check=True).stdout
-    body = sass.split(marker, 1)[1].split("Function :")[0]
+    body = built_sass().split(marker, 1)[1].split("Function :")[0]
     return [(int(m.group(1), 16), m.group(2).strip()) for m in (
         re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?);", ln)
         for ln in body.splitlines()) if m]
@@ -1154,11 +1328,60 @@ def step_loop_sass(marker: str) -> dict:
     return out
 
 
-#: the time loops of the redesigned K1 (its three instances) and K5
+#: the time loops of the redesigned K1 (its three instances), K4 and K5
 STEP_LOOPS = (("K1 path", "viterbi_forward_kernelILb0ELb1E"),
               ("K1 score", "viterbi_forward_kernelILb0ELb0E"),
               ("K3 forward chunk", "viterbi_forward_kernelILb1ELb1E"),
+              ("K4", "fwbw_forward_kernel"),
               ("K5", "em_backward_kernel"))
+
+
+def barrier_loops_sass(marker: str) -> list:
+    """The time loops of a kernel with several (the natural loops that hold
+    a block barrier and a shared-memory load and lie in no larger such
+    loop), in address order: for
+    each {"instructions", and the count of block barriers ("bar"), shared
+    loads ("lds"), global loads ("ldg", with "ldg_16" of them 16-bit) and
+    stores ("stg"), MUFU ("mufu") and local loads and stores ("local")}, the
+    whole loop counted once (an inner loop's body once, however often it
+    runs)."""
+    ins = sass_lines(marker)
+    loops = {frozenset(lp) for lp in natural_loops(ins)
+             if {"BAR", "LDS"} <= {_opcode(ins[k][1]) for k in lp}}
+    out = []
+    for lp in sorted((sorted(x) for x in loops
+                      if not any(x < o for o in loops)), key=min):
+        ops = [_opcode(ins[k][1]) for k in lp]
+        rec = {"instructions": len(lp)}
+        for key, names in (("bar", ("BAR",)), ("lds", ("LDS",)),
+                           ("ldg", ("LDG",)), ("stg", ("STG",)),
+                           ("mufu", ("MUFU",)), ("local", ("LDL", "STL"))):
+            rec[key] = sum(o in names for o in ops)
+        rec["ldg_16"] = sum(_opcode(ins[k][1]) == "LDG" and "16" in re.sub(
+            r"^@!?U?P\w+\s+", "", ins[k][1]).split()[0] for k in lp)
+        out.append(rec)
+    return out
+
+
+def check_k4_k6c_sass() -> dict:
+    """The census claims of K4's and the resident K6c's headers: K4's time
+    loop holds at most 2 block barriers; each instance of the resident K6c
+    has two time loops (forward, backward) that hold a barrier each and
+    read global memory only by the 4 loads of the stored emissions (a
+    thread's states): no 16-bit load, no slot-table byte (the table and
+    codebooks are read by LDS).  Returns {"K4": step_loop_sass, "K6c
+    resident": {instance: [loop records]}}."""
+    k4 = step_loop_sass("fwbw_forward_kernel")
+    assert k4["bar"] * 4 <= 2, k4
+    k6c = {}
+    for name in kernel_instances("fwbw_resident_kernel"):
+        loops = k6c[name] = barrier_loops_sass(name)
+        assert len(loops) == 2, (name, loops)
+        for lp in loops:
+            assert lp["bar"] >= 1 and lp["ldg"] <= 4 and not lp["ldg_16"], \
+                (name, loops)
+    assert k6c, "no resident K6c in the built library"
+    return {"K4": k4, "K6c resident": k6c}
 
 
 def run_measure(device) -> dict:
@@ -1351,8 +1574,10 @@ def run_tools(models, trans_path: str, rng) -> dict:
     """run-viterbi, run-fwbw and run-fwbw --custom-fwbw on the card at full
     width (n = 4096, the loaded table, a read of TOOLS_EVENTS), each
     checked and required to launch its kernels; each fwbw run again with -o
-    on a read of TOOLS_DUMP_EVENTS (check_matrix_dump); then -K 3
-    (check_k3_refused).  Returns {run: {"launches" (both calls of a fwbw
+    on a read of TOOLS_DUMP_EVENTS (check_matrix_dump); run-fwbw once more
+    with the table's K6c layout taken away (convert.trans_ops wrapped):
+    the streaming K6c prints the resident one's posteriors byte for byte;
+    then -K 3 (check_k3_refused).  Returns {run: {"launches" (both calls of a fwbw
     run), "wall_s" (the TOOLS_EVENTS call), ...}}."""
     from nanocall_tpu_torch import simulate
 
@@ -1375,6 +1600,8 @@ def run_tools(models, trans_path: str, rng) -> dict:
     for name, extra in (("run_fwbw", []),
                         ("run_fwbw_custom", ["--custom-fwbw"])):
         out, launches, wall = call_tool(["run-fwbw", *args(ev_long), *extra])
+        if not extra:
+            fwbw_out = out
         post = check_posteriors(out)
         dump = os.path.join(os.path.dirname(pm_path), f"{name}_o.tsv")
         out, launches_o, _ = call_tool(["run-fwbw", *args(ev_short), *extra,
@@ -1385,6 +1612,19 @@ def run_tools(models, trans_path: str, rng) -> dict:
                                    for k, c in launches.items()},
                       "wall_s": wall, "top_posterior": post[0],
                       "printed": len(post)}
+    # run-fwbw again with the table's K6c layout taken away: the streaming
+    # K6c prints the same posteriors
+    from unittest import mock
+
+    from nanocall_tpu_torch import convert
+
+    make = convert.trans_ops
+    with mock.patch.object(convert, "trans_ops", lambda table, dev: make(
+            table, dev)._replace(fwbw_packed=None)):
+        out_s, launches, wall = call_tool(["run-fwbw", *args(ev_long)])
+    assert out_s == fwbw_out, "run-fwbw differs on the streaming K6c"
+    assert launches["fwbw_resident"] == 0, launches
+    runs["run_fwbw_streaming"] = {"launches": launches, "wall_s": wall}
     for name, must in TOOL_KERNELS.items():
         for k in must:
             assert runs[name]["launches"][k] > 0, f"{name} did not launch {k}"
@@ -1394,8 +1634,8 @@ def run_tools(models, trans_path: str, rng) -> dict:
 
 def run_dump(models, reads, device) -> dict:
     """basecall.dump_training_data on the in-memory summaries of two
-    simulated reads, into build/chip_smoke/dump/: it must launch K6c once
-    per subsequence, and its TSVs meet the reference's invariants
+    simulated reads, into build/chip_smoke/dump/: it must launch K6c's
+    resident kernel once per subsequence, and its TSVs meet the reference's invariants
     (tests/test_pipeline.py:626-646).  Returns {"launches", "wall_s",
     "subsequences"}."""
     import shutil
@@ -1419,7 +1659,10 @@ def run_dump(models, reads, device) -> dict:
     launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
     assert grp is not None, "no read was trainable"
     S = len(grp.seqs)
-    assert launches["fwbw_generic"] == S, launches
+    # the structured tables of trained parameters pack (at most 8
+    # log-probs a slot): the resident K6c
+    assert launches["fwbw_resident"] == S, launches
+    assert launches["fwbw_generic"] == 0, launches
     n = 4096
     assert sorted(os.listdir(out)) == sorted(
         f"{s}.{k}.tab" for k in range(S)
@@ -1761,14 +2004,28 @@ def main() -> int:
         print(f"{what} SASS (cuobjdump -sass): {c['instructions']} "
               f"instructions in its time loop, {c['per_state']:g} per state "
               f"and step; per state {per}")
+    census = check_k4_k6c_sass()
+    print(f"K4 SASS: {census['K4']['bar'] * 4:g} block barriers in its time "
+          f"loop (at most 2)")
+    for name, loops in census["K6c resident"].items():
+        for what, lp in zip(("forward", "backward"), loops):
+            print(f"K6c resident SASS ({name}), {what} time loop (its state "
+                  f"loop counted once): {lp}; its only global loads are the "
+                  f"{lp['ldg']} loads of the stored emissions")
+    for what, marker in (("K6c streaming", "fwbw_generic_kernel"),):
+        print(f"{what} SASS: {step_loop_sass(marker)}")
 
     models = cli.init_models(smoke_config())
     t0 = time.perf_counter()
     trans = load_trans_table(device)
-    print(f"transitions: 21-neighbour table of p_stay {TRANS_P_STAY}, "
-          f"p_skip {TRANS_P_SKIP} written and loaded back in "
+    priors = load_trans_table(device, PRIORS_P_STAY, PRIORS_P_SKIP,
+                              "trans_priors.tsv")
+    print(f"transitions: 21-neighbour tables of (p_stay, p_skip) = "
+          f"({TRANS_P_STAY}, {TRANS_P_SKIP}) and the priors "
+          f"({PRIORS_P_STAY}, {PRIORS_P_SKIP}) written and loaded back in "
           f"{time.perf_counter() - t0:.2f} s; from_idx "
-          f"{tuple(trans[2].from_idx.shape)}")
+          f"{tuple(trans[2].from_idx.shape)}; K6a resident / streaming, K6c "
+          f"resident under both")
     rng = np.random.default_rng(2024)
     gt, model, ev = kernel_inputs(models, device, B_KERNEL, T_KERNEL, rng)
     recs = check_kernels(gt, model, ev)
@@ -1861,12 +2118,17 @@ def main() -> int:
     reads = simulated_reads(models, rng)
     inp = em_kernel_inputs(models, reads, device, rng)
     em = check_em_kernels(inp)
-    em.update(check_fwbw_kernels(inp, trans[2]))
+    check_em_under_nan(inp)
+    print(f"K4 (alphas stored and not) and K5 (all three flag sets) at "
+          f"B={4 * G_EM} T={T_EM} with NaN events, a NaN model entry and a "
+          f"+inf event: bit-equal to their plain versions [{card}]")
+    em.update(check_fwbw_kernels(inp, trans[2], priors[2]))
     del inp
     for name, r in em.items():
+        turns = f" (in turns: {r['ms_turns']})" if "ms_turns" in r else ""
         print(f"kernel {name}: B={4 * G_EM} T={T_EM} n=4096 bit-equal to "
-              f"plain; {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms "
-              f"[{card}]")
+              f"plain; {r['ms']:.3f} ms{turns} vs plain {r['plain_ms']:.3f} "
+              f"ms [{card}]")
     recs.update(em)
     torch.cuda.empty_cache()
     em_s = (em["fwbw_forward"]["ms"] + em["em_backward"]["ms"]) / 1e3
@@ -1895,6 +2157,13 @@ def main() -> int:
     trans_trained = run_end_to_end(models, reads, device, True,
                                    TRANS_TRAINED_KERNELS, trans)
     print_run("trained under the loaded table (-s)", trans_trained, card)
+    priors_trained = run_end_to_end(models, reads, device, True,
+                                    TRANS_TRAINED_KERNELS, priors,
+                                    tag="trained_trans_priors")
+    print_run("trained under the loaded table of the priors (-s)",
+              priors_trained, card)
+    for r in (trans_trained, priors_trained):
+        assert r["launches"]["fwbw_generic"] == 0, r["launches"]
     trans_untrained = run_end_to_end(models, reads, device, False,
                                      TRANS_UNTRAINED_KERNELS, trans)
     for k in ("viterbi_generic_forward_path", "viterbi_generic_forward_score"):
@@ -1937,6 +2206,7 @@ def main() -> int:
 
     runs = {"untrained": untrained["launches"], "trained": trained["launches"],
             "trained_trans": trans_trained["launches"],
+            "trained_trans_priors": priors_trained["launches"],
             "untrained_trans": trans_untrained["launches"],
             "untrained_trans_streaming": trans_streaming["launches"],
             "long": long["launches"], "traced": traced["launches"],
@@ -1953,7 +2223,7 @@ def main() -> int:
                 "library_ms": None, **recs[k.name],
                 **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
                for k in kernels.KERNELS]
-    assert len(records) == 18 and all(r["launches"] for r in records), \
+    assert len(records) == 19 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])

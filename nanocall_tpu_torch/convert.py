@@ -69,8 +69,9 @@ def trans_ops(table, device) -> hmm.TransOps:
     SparseTransitions (a loaded `--trans` table, transitions.load_tsv) or a
     StructuredTransitions, whose slot maps are the fixed 21-slot layout
     (transitions.slot_from_state; nanocall_tpu/ops/hmm.py:153-157), with
-    the from side's resident layout (hmm.pack_from_slots) where the table
-    has one.  Raises ValueError for a table with more than hmm.MAX_SLOTS
+    the from side's resident K6a layout (hmm.pack_slots) and both sides'
+    resident K6c layout (hmm.pack_fwbw_sides) where the table has them.
+    Raises ValueError for a table with more than hmm.MAX_SLOTS
     predecessors of a state, which a uint8 backpointer cannot name."""
     if isinstance(table, transitions.StructuredTransitions):
         from_idx = transitions.slot_from_state(table.K)
@@ -82,15 +83,19 @@ def trans_ops(table, device) -> hmm.TransOps:
         raise ValueError(
             f"transition table with in-degree {deg}: the Viterbi "
             f"backpointers hold at most {hmm.MAX_SLOTS} slots")
-    layout = hmm.pack_from_slots(from_idx, table.from_logp)
+    layout = hmm.pack_slots(from_idx, table.from_logp)
     packed, book = ((None, None) if layout is None else
                     (torch.from_numpy(x).to(device) for x in layout))
+    sides = hmm.pack_fwbw_sides(from_idx, table.from_logp, to_idx,
+                                table.to_logp)
     return hmm.TransOps(
         from_idx=tensor(from_idx, device, torch.int32),
         from_logp=tensor(table.from_logp, device),
         to_idx=tensor(to_idx, device, torch.int32),
         to_logp=tensor(table.to_logp, device), K=int(table.K),
-        from_packed=packed, from_codebook=book)
+        from_packed=packed, from_codebook=book,
+        fwbw_packed=None if sides is None else hmm.PackedSides(
+            *(torch.from_numpy(x).to(device) for x in sides)))
 
 
 def write_fast_transitions(path, p_stay: float, p_skip: float,

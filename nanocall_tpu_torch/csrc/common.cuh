@@ -67,6 +67,17 @@ __device__ __forceinline__ float amax(float m, float v) {
   return (v > m || v != v) ? v : m;
 }
 
+// NaN or +inf: a value that a sum with a slot's log-prob may turn into NaN
+// (the resident K6a and K6c take the NaN-propagating max only after one)
+__device__ __forceinline__ bool nan_prone(float x) {
+  return !(x < __int_as_float(0x7f800000));
+}
+
+__device__ __forceinline__ bool any_prone(const float (&v)[4]) {
+  return nan_prone(v[0]) || nan_prone(v[1]) || nan_prone(v[2]) ||
+         nan_prone(v[3]);
+}
+
 // the NaN-propagating max over the warp, in every lane (torch.amax)
 __device__ __forceinline__ float warp_amax(float v) {
 #pragma unroll
@@ -75,12 +86,25 @@ __device__ __forceinline__ float warp_amax(float v) {
   return v;
 }
 
-// the max over the warp, in every lane
-__device__ __forceinline__ float warp_max(float v) {
+// torch.amax over the warp at fmaxf's cost, in every lane: the max of the
+// lanes' m by fmaxf, or NaN when any lane's `nan` is set (one vote; fmaxf
+// alone drops a NaN).  Against warp_amax it may differ only in the sign of
+// a zero max (a tie of -0 and +0) and in a NaN's payload: K4 and K5 use it
+// where neither shows (exp(x - m), m + log(s) with s >= 1, NaN through a
+// float operation).
+__device__ __forceinline__ float warp_max_nan(float m, bool nan) {
+  const bool any = __any_sync(FULL, nan);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
+    m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+  return any ? __int_as_float(0x7fffffff) : m;
+}
+
+// warp_max_nan of a thread's 4 values
+__device__ __forceinline__ float warp_max_nan4(const float (&v)[4]) {
+  return warp_max_nan(fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3])),
+                      (v[0] != v[0]) || (v[1] != v[1]) || (v[2] != v[2]) ||
+                          (v[3] != v[3]));
 }
 
 // the pairwise-tree sum of the warp's 32 values, in lane 0 (other lanes
@@ -171,6 +195,21 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// the next phase of an initialised mbarrier: one arrival, then `bytes` of
+// bulk copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// orders this thread's view of shared memory (after a block barrier: every
+// thread's reads) before bulk copies it issues next into the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {

@@ -38,6 +38,9 @@
 //     threads after it by shuffles: the same float sequence as block_sum,
 //     and no 16 KB G buffer); the 6 post sums and 3 transition maxima per
 //     warp, published together.
+//   - The maxima (of g, and the transitions' masked maxima) propagate NaN
+//     as torch.amax does, at fmaxf's cost: fmaxf and one vote for NaN
+//     (common.cuh warp_max_nan; fmaxf alone drops a NaN).
 //   - Each value is computed once: log(sum4[c]), which 4 states read, by
 //     the thread that sums it; exp(lp_j1) for both statistics.
 //   - No serial fold in the step: each step's per-warp partial sums are
@@ -283,10 +286,10 @@ em_backward_kernel(const float* __restrict__ ev_mean,
                             c1[i], log2pi) +
                beta[i];
     }
-    const float mx = warp_max(fmaxf(fmaxf(g[0], g[1]), fmaxf(g[2], g[3])));
+    const float mx = warp_max_nan4(g);
     if (lane == 0) sMax[warp] = mx;
     __syncthreads();  // 1
-    const float m = warp_max(sMax[lane]);
+    const float m = warp_max_nan(sMax[lane], sMax[lane] != sMax[lane]);
     reduce_pending(pend_t, pend_post, pend_tr);
 
     float G[4];
@@ -360,8 +363,7 @@ em_backward_kernel(const float* __restrict__ ev_mean,
       }
 #pragma unroll
       for (int q = 0; q < NST; ++q) {
-        const float mq =
-            warp_max(fmaxf(fmaxf(v[q][0], v[q][1]), fmaxf(v[q][2], v[q][3])));
+        const float mq = warp_max_nan4(v[q]);
         if (lane == 0) sTrMax[q][warp] = mq;
       }
       __syncthreads();  // 3
@@ -369,7 +371,8 @@ em_backward_kernel(const float* __restrict__ ev_mean,
       // exp(v - max); the cross-warp sum waits for the next step
 #pragma unroll
       for (int q = 0; q < NST; ++q) {
-        const float mm = warp_max(sTrMax[q][lane]);
+        const float mm =
+            warp_max_nan(sTrMax[q][lane], sTrMax[q][lane] != sTrMax[q][lane]);
         const float safe = isfinite(mm) ? mm : 0.0f;
         float e[4];
 #pragma unroll

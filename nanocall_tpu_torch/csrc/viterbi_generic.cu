@@ -39,8 +39,9 @@
 //
 // The resident kernel (viterbi_resident_forward_kernel) holds the whole
 // table in shared memory.  A table has that layout (ops/hmm.py
-// pack_from_slots) when every slot holds at most 16 distinct float32 bit
-// patterns and the from-states fit 12 bits (n = 4096): entry [k, j] is 16
+// pack_slots, one codebook a slot) when every slot holds at most 16
+// distinct float32 bit patterns and the from-states fit 12 bits
+// (n = 4096): entry [k, j] is 16
 // bits, the from-state in the low 12 and a code into slot k's codebook of
 // 16 float32 values in the high 4.  At deg slots the block holds 2 deg n B
 // of table, 64 deg B of codebooks and two 16 KiB alpha buffers: at most
@@ -146,11 +147,6 @@ struct Entries {
 __device__ __forceinline__ float at_byte(const float* base, uint32_t ofs) {
   return *reinterpret_cast<const float*>(
       reinterpret_cast<const char*>(base) + ofs);
-}
-
-// NaN or +inf: a value that a sum with a slot's log-prob may turn into NaN
-__device__ __forceinline__ bool nan_prone(float x) {
-  return !(x < __int_as_float(0x7f800000));
 }
 
 // The resident kernel's slot loop at one step, for the thread's 4 states:
@@ -345,9 +341,7 @@ viterbi_resident_forward_kernel(const float* __restrict__ ev_mean,
   mbar_wait(bar_addr, 0);
   const bool book_prone = __syncthreads_or(
       tid < deg * CODES && nan_prone(book[tid]));
-  bool alpha_prone = __syncthreads_or(
-      nan_prone(a[0]) || nan_prone(a[1]) || nan_prone(a[2]) ||
-      nan_prone(a[3]));
+  bool alpha_prone = __syncthreads_or(any_prone(a));
 
   // the thread's 4 entries of slot 0; slot k's are k * N4 words on
   const uint2* words = reinterpret_cast<const uint2*>(table) + tid;
@@ -365,8 +359,7 @@ viterbi_resident_forward_kernel(const float* __restrict__ ev_mean,
     // nxt was last read in step t-1, which every thread has left: the
     // barrier below (of step t-1) separates the two
     store4(nxt + 4 * tid, a);
-    alpha_prone = __syncthreads_or(nan_prone(a[0]) || nan_prone(a[1]) ||
-                                   nan_prone(a[2]) || nan_prone(a[3]));
+    alpha_prone = __syncthreads_or(any_prone(a));
     float* const done = cur;
     cur = nxt;
     nxt = done;
@@ -470,7 +463,7 @@ extern "C" int nc_viterbi_generic_forward(
 }
 
 // The resident kernel: `packed` (deg, N) uint16 and `codebook` (deg,
-// CODES) float32 as ops/hmm.py pack_from_slots lays them out, both 16-byte
+// CODES) float32 as ops/hmm.py pack_slots lays them out, both 16-byte
 // aligned.  Its dynamic shared memory is set for every launch.
 extern "C" int nc_viterbi_resident_forward(
     const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,

@@ -151,6 +151,10 @@ def load():
         lib.nc_fwbw_generic.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
             + [vp] * 4 + [ci, vp])
+        lib.nc_fwbw_resident.restype = ci
+        lib.nc_fwbw_resident.argtypes = (
+            [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
+            + [vp] * 4 + [ci, vp])
         lib.nc_fwbw_custom.restype = ci
         lib.nc_fwbw_custom.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]

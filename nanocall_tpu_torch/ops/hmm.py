@@ -32,7 +32,10 @@ Kernels and their plain versions, side by side below:
                             shared memory; generic_forward_route picks)
                             vs viterbi_forward_plain
   K6b viterbi_generic.cu    generic_traceback_kernel vs viterbi_traceback_plain
-  K6c fwbw_generic.cu       fwbw_generic_kernel vs fwbw_plain
+  K6c fwbw_generic.cu       fwbw_generic_kernel (streaming),
+                            fwbw_resident_kernel (both sides' tables in
+                            shared memory in turn; fwbw_route picks)
+                            vs fwbw_plain
   K6d fwbw_backward.cu      fwbw_backward_kernel
                             vs fwbw_grouped_backward_plain
   K6e fwbw_custom.cu        fwbw_custom_kernel vs fwbw_custom_plain
@@ -107,6 +110,17 @@ class GroupedTransFull(NamedTuple):
     K: int
 
 
+class PackedSides(NamedTuple):
+    """Both sides of a table in the resident K6c's layout (pack_slots with
+    groups = FWBW_GROUPS): (deg, 4096) int16 entries and (deg, FWBW_GROUPS
+    * RESIDENT_CODES) float32 codebooks a side."""
+
+    from_packed: torch.Tensor
+    from_codebook: torch.Tensor
+    to_packed: torch.Tensor
+    to_codebook: torch.Tensor
+
+
 class TransOps(NamedTuple):
     """A transition table as (deg, n) slot tables on the device
     (nanocall_tpu/ops/hmm.py:42-79, one layout for the sparse and the
@@ -114,8 +128,10 @@ class TransOps(NamedTuple):
     from_idx[k, j] (int32) with log-prob from_logp[k, j] (float32); source
     i's slot k goes to to_idx[k, i] with to_logp[k, i].  Padded slots have
     log-prob -inf and index 0.  from_packed / from_codebook: the from side
-    in the resident K6a's layout (pack_from_slots), computed once per table,
-    or None for a table without one.  convert.trans_ops builds one."""
+    in the resident K6a's layout (pack_slots, one codebook a slot),
+    computed once per table, or None for a table without one; fwbw_packed:
+    both sides in the resident K6c's layout (FWBW_GROUPS codebooks a slot),
+    or None unless both sides have it.  convert.trans_ops builds one."""
 
     from_idx: torch.Tensor
     from_logp: torch.Tensor
@@ -124,6 +140,7 @@ class TransOps(NamedTuple):
     K: int
     from_packed: torch.Tensor | None = None
     from_codebook: torch.Tensor | None = None
+    fwbw_packed: PackedSides | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -1026,33 +1043,40 @@ MAX_RESIDENT_SLOTS = ((SMEM_PER_BLOCK - _RESIDENT_STATIC_SMEM
                       // (resident_smem_bytes(1) - resident_smem_bytes(0)))
 
 
-def pack_from_slots(from_idx, from_logp):
-    """The resident K6a's layout of a (deg, 4096) from-side slot table
-    (host arrays), or None when the table has none:
-    (packed (deg, 4096) int16, codebook (deg, RESIDENT_CODES) float32), as
-    numpy arrays.  Entry [k, j] holds from_idx[k, j] in its low 12 bits and
-    in its high 4 the code c with codebook[k, c] == from_logp[k, j] bit for
-    bit (-inf and NaN kept as their bit patterns; a slot's codes in the
-    ascending order of its bit patterns as int32, unused codebook entries
-    0).  Slot order is kept: the backpointers are slot ids.  None unless
-    the table is 4096 wide, has 1 to MAX_RESIDENT_SLOTS slots and from-states
-    in [0, 4096), and every slot holds at most RESIDENT_CODES distinct bit
-    patterns."""
-    idx = np.asarray(from_idx).astype(np.int64)
-    bits = np.ascontiguousarray(from_logp, np.float32).view(np.int32)
+def pack_slots(idx, logp, groups: int = 1,
+               max_slots: int = MAX_RESIDENT_SLOTS):
+    """A (deg, 4096) slot table (host arrays: the state of each entry and its
+    log-prob) in the resident kernels' layout, or None when it has none:
+    (packed (deg, 4096) int16, codebook (deg, groups * RESIDENT_CODES)
+    float32), as numpy arrays, with `groups` codebooks per slot, one per
+    block of 4096 / groups states.  Entry [k, j] holds idx[k, j] in its low
+    12 bits and in its high 4 the code c with codebook[k, g * RESIDENT_CODES
+    + c] == logp[k, j] bit for bit, g = j's block (-inf and NaN kept as
+    their bit patterns; a codebook's codes in the ascending order of its bit
+    patterns as int32, unused entries 0).  Slot order is kept: K6a's
+    backpointers are slot ids.  None unless the table is 4096 wide, has 1 to
+    `max_slots` slots and states in [0, 4096), and every (slot, block) holds
+    at most RESIDENT_CODES distinct bit patterns.  groups = 1 is K6a's
+    layout, FWBW_GROUPS K6c's."""
+    idx = np.asarray(idx).astype(np.int64)
+    bits = np.ascontiguousarray(logp, np.float32).view(np.int32)
     deg, n = idx.shape
-    if n != 4096 or not 1 <= deg <= MAX_RESIDENT_SLOTS \
+    if n != 4096 or not 1 <= deg <= max_slots \
             or idx.min() < 0 or idx.max() >= n:
         return None
+    w = n // groups
     packed = np.empty((deg, n), np.uint16)
-    book = np.zeros((deg, RESIDENT_CODES), np.int32)
+    book = np.zeros((deg, groups, RESIDENT_CODES), np.int32)
     for k in range(deg):
-        vals, codes = np.unique(bits[k], return_inverse=True)
-        if len(vals) > RESIDENT_CODES:
-            return None
-        book[k, :len(vals)] = vals
-        packed[k] = (codes.reshape(n) << 12) | idx[k]
-    return packed.view(np.int16), book.view(np.float32)
+        for g in range(groups):
+            blk = slice(g * w, (g + 1) * w)
+            vals, codes = np.unique(bits[k, blk], return_inverse=True)
+            if len(vals) > RESIDENT_CODES:
+                return None
+            book[k, g, :len(vals)] = vals
+            packed[k, blk] = (codes.reshape(w) << 12) | idx[k, blk]
+    return (packed.view(np.int16),
+            book.reshape(deg, groups * RESIDENT_CODES).view(np.float32))
 
 
 def generic_forward_route(ops: TransOps) -> str:
@@ -1071,7 +1095,7 @@ def _check_resident(ops: TransOps, dev) -> None:
         raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
     if ops.from_packed is None:
         raise ValueError("the resident generic forward needs the table's "
-                         "packed layout (hmm.pack_from_slots)")
+                         "packed layout (hmm.pack_slots)")
     deg = ops.from_packed.shape[0]
     if not 1 <= deg <= MAX_RESIDENT_SLOTS:
         raise ValueError(f"packed table: {deg} slots, the resident kernel "
@@ -1294,9 +1318,60 @@ def fwbw_plain(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     return {"alpha": alphas, "beta": betas, "em": ems, "log_pr_data": lpd}
 
 
+#: codebooks per slot of K6c's resident layout, one per block of 1024
+#: states: the fewest for which both sides of the loaded tables of the CLI
+#: priors (0.1, 0.3) and of (0.14, 0.21) pack (tests/test_torch_packed.py)
+FWBW_GROUPS = 4
+#: the resident K6c's static shared memory: its mbarrier and two (32,)
+#: float32 arrays of per-warp partials
+_FWBW_RESIDENT_STATIC_SMEM = 8 + 2 * 4 * 32
+
+
+def fwbw_resident_smem_bytes(deg: int, n: int = 4096) -> int:
+    """The resident K6c's dynamic shared memory at `deg` slots (the larger
+    side's): two float32 buffers of the gathered vector, one side's
+    codebooks and 16-bit table."""
+    return 2 * 4 * n + deg * (4 * FWBW_GROUPS * RESIDENT_CODES + 2 * n)
+
+
+#: the most slots a side of the resident K6c's layout may have: 23
+MAX_FWBW_RESIDENT_SLOTS = ((SMEM_PER_BLOCK - _FWBW_RESIDENT_STATIC_SMEM
+                            - fwbw_resident_smem_bytes(0))
+                           // (fwbw_resident_smem_bytes(1)
+                               - fwbw_resident_smem_bytes(0)))
+
+
+def pack_fwbw_sides(from_idx, from_logp, to_idx, to_logp):
+    """Both sides of a table in the resident K6c's layout, as four numpy
+    arrays (from_packed, from_codebook, to_packed, to_codebook), or None
+    unless both sides have it (pack_slots with groups = FWBW_GROUPS and at
+    most MAX_FWBW_RESIDENT_SLOTS slots)."""
+    sides = [pack_slots(idx, lp, FWBW_GROUPS, MAX_FWBW_RESIDENT_SLOTS)
+             for idx, lp in ((from_idx, from_logp), (to_idx, to_logp))]
+    if None in sides:
+        return None
+    return (*sides[0], *sides[1])
+
+
+def fwbw_route(ops: TransOps) -> str:
+    """Which K6c kernel runs on the card under `ops`, fixed by the table:
+    "resident" (a side's table in shared memory at a time) when it has both
+    sides' packed layout, which convert.trans_ops gives every table that
+    fits, else "streaming" (the tables read from L2 at every step)."""
+    return "streaming" if ops.fwbw_packed is None else "resident"
+
+
+def _fwbw_outputs(B: int, T: int, n: int, dev) -> dict:
+    out = {k: torch.empty((B, T, n), dtype=torch.float32, device=dev)
+           for k in ("alpha", "beta", "em")}
+    out["log_pr_data"] = torch.empty(B, dtype=torch.float32, device=dev)
+    return out
+
+
 def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
-    """K6c on the card: the forward and the backward pass in one launch,
-    {alpha, beta, em (B, T, n), log_pr_data (B,)} as the plain version."""
+    """K6c on the card, the streaming kernel: the forward and the backward
+    pass in one launch, {alpha, beta, em (B, T, n), log_pr_data (B,)} as the
+    plain version."""
     mean = ev["mean"]
     dev = mean.device
     B, T = mean.shape
@@ -1307,9 +1382,7 @@ def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     _check_ops(ops, dev)
     _check_tables(tuple(model), B, n, dev)
     _require_cuda(dev, "generic fwbw")
-    out = {k: torch.empty((B, T, n), dtype=torch.float32, device=dev)
-           for k in ("alpha", "beta", "em")}
-    out["log_pr_data"] = torch.empty(B, dtype=torch.float32, device=dev)
+    out = _fwbw_outputs(B, T, n, dev)
     lib = _cuda.load()
     err = lib.nc_fwbw_generic(
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
@@ -1328,14 +1401,79 @@ def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
 fwbw_generic_kernel.launches = 0
 
 
+def _check_fwbw_resident(ops: TransOps, dev) -> None:
+    """The resident K6c takes a K=6 table's packed layout of both sides, 1
+    to MAX_FWBW_RESIDENT_SLOTS slots a side, contiguous and 16-byte aligned
+    (its bulk copies) on the launch device."""
+    if ops.K != 6:
+        raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
+    if ops.fwbw_packed is None:
+        raise ValueError("the resident generic fwbw needs the table's "
+                         "packed layout of both sides (hmm.pack_fwbw_sides)")
+    width = FWBW_GROUPS * RESIDENT_CODES
+    for side in ("from", "to"):
+        packed = getattr(ops.fwbw_packed, f"{side}_packed")
+        book = getattr(ops.fwbw_packed, f"{side}_codebook")
+        deg = packed.shape[0]
+        if not 1 <= deg <= MAX_FWBW_RESIDENT_SLOTS:
+            raise ValueError(f"packed {side} table: {deg} slots, the "
+                             f"resident fwbw takes 1 to "
+                             f"{MAX_FWBW_RESIDENT_SLOTS}")
+        _check(f"{side}_packed", packed, torch.int16, (deg, 4096), dev)
+        _check(f"{side}_codebook", book, torch.float32, (deg, width), dev)
+        for name, x in ((f"{side}_packed", packed),
+                        (f"{side}_codebook", book)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def fwbw_resident_kernel(ops: TransOps, model: ModelArrays,
+                         ev: dict) -> dict:
+    """K6c on the card, the resident kernel (each side's packed table in
+    shared memory in turn): {alpha, beta, em (B, T, n), log_pr_data (B,)}
+    as the plain version."""
+    mean = ev["mean"]
+    dev = mean.device
+    B, T = mean.shape
+    n = 4096
+    if T < 1:
+        raise ValueError("forward-backward needs at least one event column")
+    _check_events(ev, B, T, dev)
+    _check_fwbw_resident(ops, dev)
+    _check_tables(tuple(model), B, n, dev)
+    _require_cuda(dev, "resident generic fwbw")
+    p = ops.fwbw_packed
+    out = _fwbw_outputs(B, T, n, dev)
+    lib = _cuda.load()
+    err = lib.nc_fwbw_resident(
+        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
+        ev["length"].data_ptr(), B, T, p.from_packed.shape[0],
+        p.from_packed.data_ptr(), p.from_codebook.data_ptr(),
+        p.to_packed.shape[0], p.to_packed.data_ptr(),
+        p.to_codebook.data_ptr(),
+        *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
+        *(out[k].data_ptr() for k in ("alpha", "beta", "em", "log_pr_data")),
+        *_cuda.target(dev),
+    )
+    _cuda.check(err, "fwbw_resident kernel launch")
+    _cuda.count_launch(fwbw_resident_kernel)
+    return out
+
+
+fwbw_resident_kernel.launches = 0
+
+
 def fwbw(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     """K6c on the tensors' device: {alpha, beta, em (B, T, n),
-    log_pr_data (B,)}."""
+    log_pr_data (B,)}.  On the card the table picks the kernel
+    (fwbw_route); both give the plain version's bits."""
     dev = ev["mean"].device
     if dev.type == "cpu":
         return fwbw_plain(ops, model, ev)
     if dev.type != "cuda":
         raise ValueError(f"no generic fwbw for device {dev}")
+    if fwbw_route(ops) == "resident":
+        return fwbw_resident_kernel(ops, model, ev)
     return fwbw_generic_kernel(ops, model, ev)
 
 

@@ -1,9 +1,8 @@
 """The port's hand-written CUDA kernels, in main-path order (K9's
-traceback chunk after K3's, K6a's resident kernels after its streaming
-ones, then the measurement path's K8 and the repro tool's K10): each
-kernel's wrapper
-(which carries its `launches` counter), its source, and the JAX function
-it replaces."""
+traceback chunk after K3's, K6a's and K6c's resident kernels after their
+streaming ones, then the measurement path's K8 and the repro tool's K10):
+each kernel's wrapper (which carries its `launches` counter), its source,
+and the JAX function it replaces."""
 
 from __future__ import annotations
 
@@ -61,6 +60,9 @@ KERNELS = (
            "nanocall_tpu_torch/csrc/viterbi_generic.cu",
            "nanocall_tpu/ops/hmm.py:714"),
     Kernel("fwbw_generic", hmm.fwbw_generic_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_generic.cu",
+           "nanocall_tpu/ops/hmm.py:784"),
+    Kernel("fwbw_resident", hmm.fwbw_resident_kernel,
            "nanocall_tpu_torch/csrc/fwbw_generic.cu",
            "nanocall_tpu/ops/hmm.py:784"),
     Kernel("fwbw_grouped_backward", hmm.fwbw_backward_kernel,

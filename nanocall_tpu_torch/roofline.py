@@ -430,7 +430,7 @@ N_STATES = 4096
 #: the max, exp, block sums, the 11-operation correction and log; K5 K6d's
 #: recursion plus the posterior (3) and 14 moments and 3 log totals (about
 #: 37); K6a (both kernels) a sum and a max per slot (21 slots) and 21
-#: equality tests; K6c
+#: equality tests; K6c (both kernels)
 #: 5 per slot and pass (sum, max, difference, exp, sum) over both passes;
 #: K6e the same 210 slot operations, one emission, the norm (max,
 #: difference, exp, sum, difference) and 3 more (em + alpha, gamma - alpha,
@@ -443,7 +443,7 @@ CELL_OPS = {
     "viterbi_generic_forward_score": 61.0,
     "viterbi_resident_forward_path": 82.0,
     "viterbi_resident_forward_score": 61.0, "fwbw_generic": 235.0,
-    "fwbw_custom": 236.0,
+    "fwbw_resident": 235.0, "fwbw_custom": 236.0,
 }
 
 
@@ -586,6 +586,15 @@ def fwbw_generic_counts(B: int, T: int, deg: int = 21) -> tuple:
             _cell_ops("fwbw_generic", B, T))
 
 
+def fwbw_resident_counts(B: int, T: int, deg: int = 21) -> tuple:
+    """K6c's resident kernel: K6c's operations; both sides' tables in the
+    packed layout, 2 bytes per slot entry and 4 codebooks of 16 float32
+    per slot (hmm.FWBW_GROUPS)."""
+    n = N_STATES
+    return (_event_bytes(B, T) + 24 * B * n + 2 * deg * (2 * n + 256)
+            + 12 * T * B * n, _cell_ops("fwbw_resident", B, T))
+
+
 def fwbw_custom_counts(B: int, T: int, deg: int = 21) -> tuple:
     """K6e: alpha, beta and gamma stored, alpha and beta read back by the
     backward pass."""
@@ -627,6 +636,7 @@ KERNEL_COUNTS = {
     "viterbi_resident_forward_score": viterbi_resident_forward_score_counts,
     "viterbi_generic_traceback": viterbi_generic_traceback_counts,
     "fwbw_generic": fwbw_generic_counts,
+    "fwbw_resident": fwbw_resident_counts,
     "fwbw_grouped_backward": fwbw_grouped_backward_counts,
     "fwbw_custom": fwbw_custom_counts,
     "fma_chain": fma_chain_counts,
@@ -637,7 +647,7 @@ TABLE_KERNELS = ("viterbi_generic_forward_path",
                  "viterbi_generic_forward_score",
                  "viterbi_resident_forward_path",
                  "viterbi_resident_forward_score", "fwbw_generic",
-                 "fwbw_custom")
+                 "fwbw_resident", "fwbw_custom")
 
 
 def kernel_counts(name: str, B: int, T: int, deg: int = 21) -> tuple:

@@ -18,6 +18,7 @@ from nanocall_tpu_torch import convert, events, kmer, pore_model, tools, \
     transitions
 from nanocall_tpu_torch.models import load_builtin_models
 from nanocall_tpu_torch.ops import hmm
+from torch_helpers import random_block_table
 
 
 @pytest.fixture()
@@ -323,3 +324,113 @@ def test_em_backward_bit_equal_under_all_flags_on_the_card(card):
         assert em.em_backward_kernel.launches == n0 + 1
         for g, w in zip(got, want):
             assert torch.equal(g.view(torch.int32), w.view(torch.int32)), flags
+
+
+def _loaded_ops(dev, tmp_path, p_stay: float, p_skip: float):
+    """The 21-neighbour table of (p_stay, p_skip) written as a TSV and
+    loaded back (`-s`), as TransOps on `dev`."""
+    path = tmp_path / f"s_{p_stay}_{p_skip}.tsv"
+    transitions.save_tsv(transitions.build_structured(
+        transitions.TransitionParams(p_stay, p_skip), 6), path)
+    return convert.trans_ops(transitions.load_tsv(str(path), 6), dev)
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.cuda
+def test_fwbw_resident_bit_equal_on_the_card(card, tmp_path):
+    """K6c's resident kernel bit-equal to fwbw_plain (alpha, beta, em and
+    log_pr_data as bits, NaN included) under the loaded tables of
+    (0.14, 0.21) and of the CLI priors (0.1, 0.3), lengths 0, 1, T-1 and T
+    among the reads, a NaN event in one read and a +inf event in another;
+    hmm.fwbw takes it for both tables, one launch each.  Likewise under two
+    random tables that pack with other slot counts than the loaded tables'
+    21 (12 from-side and 23 to-side slots, and the reverse: the kernel's
+    instance for any slot count).  Under a random table that does not
+    pack, hmm.fwbw takes the streaming kernel, also bit-equal."""
+    T = 40
+    lengths = [T, 0, 1, T - 1, T, T, 17]
+    _, model, ev = _k6_inputs(card, len(lengths), T, lengths, 6)
+    ev["mean"][4, 20] = float("nan")
+    ev["mean"][5, 9] = float("inf")
+    rng = np.random.default_rng(6)
+    idx = rng.integers(0, 4096, (21, 4096)).astype(np.int32)
+    lp = np.log(rng.uniform(0.01, 1.0, (21, 4096))).astype(np.float32)
+    tables = {
+        "(0.14, 0.21)": _loaded_ops(card, tmp_path, 0.14, 0.21),
+        "(0.1, 0.3)": _loaded_ops(card, tmp_path, 0.1, 0.3),
+        "random": convert.trans_ops(transitions.SparseTransitions(
+            from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), card),
+    }
+    for d_from, d_to in ((12, 23), (23, 12)):
+        f_idx, f_lp = random_block_table(rng, d_from, 16, hmm.FWBW_GROUPS)
+        t_idx, t_lp = random_block_table(rng, d_to, 16, hmm.FWBW_GROUPS)
+        tables[f"random packed {d_from} / {d_to}"] = convert.trans_ops(
+            transitions.SparseTransitions(from_idx=f_idx, from_logp=f_lp,
+                                          to_idx=t_idx, to_logp=t_lp, K=6),
+            card)
+    for what, ops in tables.items():
+        route = "streaming" if what == "random" else "resident"
+        assert hmm.fwbw_route(ops) == route, what
+        wrapper = (hmm.fwbw_generic_kernel if route == "streaming"
+                   else hmm.fwbw_resident_kernel)
+        want = hmm.fwbw_plain(ops, model, ev)
+        n0 = wrapper.launches
+        got = hmm.fwbw(ops, model, ev)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1, what
+        assert torch.isnan(want["alpha"][4]).any(), what
+        for k in ("alpha", "beta", "em", "log_pr_data"):
+            assert torch.equal(_bits(got[k]), _bits(want[k])), (what, k)
+
+
+@pytest.mark.cuda
+def test_em_kernels_bit_equal_under_nan_on_the_card(card):
+    """K4 (with and without stored alphas) and K5 (all three flag sets)
+    bit-equal to their plain versions (tolerance 0, compared as bits) with
+    NaN events in one read from its middle on, a NaN model entry at one
+    state of another read and a +inf event in a third; K5 on the plain
+    version's alphas: a max by fmaxf alone would drop a NaN that
+    torch.amax keeps."""
+    from nanocall_tpu_torch.ops import em
+
+    T = 24
+    lengths = [T, 0, 1, T - 1, T, T, T, 9]
+    B = len(lengths)
+    rng = np.random.default_rng(10)
+    _, model, ev = _k6_inputs(card, B, T, lengths, 10)
+    ev["mean"][4, T // 2:] = float("nan")
+    model.level_mean[5, 321] = float("nan")
+    ev["mean"][6, 5] = float("inf")
+    ps = convert.tensor(rng.uniform(0.05, 0.2, B).astype(np.float32), card)
+    pk = convert.tensor(rng.uniform(0.2, 0.4, B).astype(np.float32), card)
+    gtf = hmm.make_grouped_full_device(ps, pk, 6)
+    alphas, lpd = hmm.fwbw_grouped_forward_plain(gtf, model, ev)
+    assert torch.isnan(alphas[T - 1, 5]).any()
+    got_a, got_lpd = hmm.fwbw_forward_kernel(gtf, model, ev)
+    none, fit_lpd = hmm.fwbw_forward_kernel(gtf, model, ev,
+                                            with_alphas=False)
+    torch.cuda.synchronize()
+    assert none is None
+    assert torch.equal(_bits(got_a), _bits(alphas))
+    assert torch.equal(_bits(got_lpd), _bits(lpd))
+    assert torch.equal(_bits(fit_lpd), _bits(lpd))
+    W = convert.tensor(rng.uniform(0.0, 2.0, (B, 6, 4096)).astype(np.float32),
+                       card)
+    x_unc = convert.tensor(rng.normal(80.0, 5.0, (B, T)).astype(np.float32),
+                           card)
+    t_start = convert.tensor(
+        np.cumsum(rng.uniform(0.001, 0.01, (B, T)), 1).astype(np.float32),
+        card)
+    valid = torch.ones(B, dtype=torch.bool, device=card)
+    subset = torch.from_numpy(rng.random(4096) < 0.5).to(card)
+    for flags in ((True, True), (True, False), (False, True)):
+        args = (gtf, model, ev, lpd, alphas, W if flags[0] else None, x_unc,
+                t_start, valid, subset, ps, pk, *flags)
+        want = em.fused_bwd_mstats_plain(*args)
+        got = em.em_backward_kernel(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w)), flags

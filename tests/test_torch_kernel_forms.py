@@ -1,5 +1,6 @@
-"""The plain-torch forms behind K1's and K5's designs for the H100
-(csrc/viterbi_forward.cu, csrc/em_backward.cu), checked on the CPU:
+"""The plain-torch forms behind K1's, K4's and K5's designs for the H100
+(csrc/viterbi_forward.cu, csrc/fwbw_forward.cu, csrc/em_backward.cu),
+checked on the CPU:
 
 - K5's transition codebooks (hmm.bwd_codebooks) rebuild the three
   backward tables bit for bit;
@@ -9,7 +10,11 @@
   16-row order, and where a NaN could hide values the kernel's warp vote
   routes the columns to the serial order;
 - K1's tie rule as one minimum of integer keys, its thread layout and
-  padded shared-memory slots.
+  padded shared-memory slots;
+- K4's column sums on K1's layout: S4 over a thread's own registers and
+  S16 gathered by shuffles in increasing row order are hmm.strided_sum's
+  float sequences bit for bit (NaN and +-inf entries included), and its
+  padded column arrays are free of bank conflicts.
 """
 
 import numpy as np
@@ -248,3 +253,74 @@ def test_k1_thread_layout_and_padded_slots():
         for wi in range(32):
             s = np.unique(p4(j >> 2)[wi])
             assert len(np.unique(s % 32)) == len(s), (r, wi)
+
+
+def _k4_columns(E: torch.Tensor):
+    """K4's S4 and S16 on K1's layout: lane 8q + k of warp w holds, in its
+    register r, E[1024 r + 256 q + 8 w + k].  S4 of column c = 256 q + 8 w
+    + k adds the thread's own registers in r order; S16 of column c16 =
+    8 w + k takes row r16 = 4 r + q' from register r of lane 8 q' + k (a
+    shuffle) and adds the rows in increasing r16 order.  Returns (S4 (B,
+    1024) by c, S16 (B, 256) by c16)."""
+    B = E.shape[0]
+    reg = E.view(B, 4, 4, 32, 8)  # (B, r, q, w, k)
+    s4 = ((reg[:, 0] + reg[:, 1]) + reg[:, 2]) + reg[:, 3]  # (B, q, w, k)
+    s16 = reg[:, 0, 0]  # row r16 = 0 of column 8 w + k: (B, w, k)
+    for r16 in range(1, 16):
+        s16 = s16 + reg[:, r16 >> 2, r16 & 3]
+    return s4.reshape(B, N // 4), s16.reshape(B, N // 16)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k4_column_sums_equal_strided_sum_bitwise(seed):
+    """K4's S4 and S16 in the column layout are hmm.strided_sum(E, 4) and
+    hmm.strided_sum(E, 16) bit for bit, on exp(a - max a) of seeded random
+    a of a wide range and on rows with NaN, +inf and -inf entries."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.normal(0.0, 8.0, (8, N)).astype(np.float32))
+    E = torch.exp(a - torch.amax(a, dim=-1, keepdim=True))
+    E[1, rng.integers(0, N, 7)] = np.nan
+    E[2, rng.integers(0, N, 5)] = np.inf
+    E[3, rng.integers(0, N, 5)] = -np.inf
+    E[4, rng.integers(0, N, 3)] = np.inf
+    E[4, rng.integers(0, N, 3)] = -np.inf
+    E[5] = np.nan
+    s4, s16 = _k4_columns(E)
+    for got, r in ((s4, 4), (s16, 16)):
+        want = hmm.strided_sum(E, r)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), r
+
+
+def test_k4_padded_columns_free_of_bank_conflicts():
+    """K4's S4 and S16 arrays (4-byte words, K1's p4 and p16 padding):
+    each warp's writes (S4 at its column c, S16 at c16 from the lanes
+    q = 0) and its reads of its states' columns (j >> 2, j >> 4 for
+    j = 1024 r + c) hit distinct banks, or one word that several lanes
+    read; the slots are distinct and state 1024 r + c reads its column's
+    plus r times 264 and 68."""
+    w, lane = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    q, k = lane >> 3, lane & 7
+    c16 = 8 * w + k
+    c = 256 * q + c16
+
+    def p4(i):
+        return i + 2 * (i >> 6)
+
+    def p16(i):
+        return i + (i >> 4)
+
+    assert len(set(p4(np.arange(1024)))) == 1024
+    assert len(set(p16(np.arange(256)))) == 256
+
+    def conflict_free(slots):
+        words = np.unique(slots)
+        return len(np.unique(words % 32)) == len(words)
+
+    for wi in range(32):
+        assert conflict_free(p4(c[wi]))
+        assert conflict_free(p16(c16[wi][q[wi] == 0]))
+        for r in range(4):
+            j = 1024 * r + c[wi]
+            assert conflict_free(p4(j >> 2)) and conflict_free(p16(j >> 4))
+            assert np.array_equal(p4(j >> 2), p4(c[wi] >> 2) + 264 * r)
+            assert np.array_equal(p16(j >> 4), p16(c[wi] >> 4) + 68 * r)

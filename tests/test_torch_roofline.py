@@ -88,13 +88,16 @@ def test_kernel_bound_k8_and_k10():
 
 def test_table_kernels_count_their_slots():
     """Bytes per slot: 16 per state for both directions' int32 / float32
-    tables (K6c, K6e), 8 for the from side (K6a's streaming kernel), 2 per
-    state and a 64-byte codebook for the packed from side (K6a's resident
-    kernel), which does K6a's operations."""
+    tables (K6c's streaming kernel, K6e), 8 for the from side (K6a's
+    streaming kernel), 2 per state and a 64-byte codebook for the packed
+    from side (K6a's resident kernel), 2 per state and four 64-byte
+    codebooks for each packed side (K6c's resident kernel); each resident
+    kernel does its streaming twin's operations."""
     for name in roofline.TABLE_KERNELS:
         b21, b42 = (roofline.kernel_counts(name, 8, 64, deg=d)[0]
                     for d in (21, 42))
-        per_slot = (2 * 4096 + 64 if "resident" in name
+        per_slot = (2 * (2 * 4096 + 256) if name == "fwbw_resident"
+                    else 2 * 4096 + 64 if "resident" in name
                     else (16 if "fwbw" in name else 8) * 4096)
         assert b42 - b21 == per_slot * 21
     for kind in ("path", "score"):
@@ -102,6 +105,8 @@ def test_table_kernels_count_their_slots():
                                       128, 8192)[1] == \
             roofline.kernel_counts(f"viterbi_generic_forward_{kind}",
                                    128, 8192)[1]
+    assert roofline.kernel_counts("fwbw_resident", 512, 128)[1] == \
+        roofline.kernel_counts("fwbw_generic", 512, 128)[1]
 
 
 def test_mfu_report_arithmetic():

@@ -3,7 +3,8 @@
 
     python3 tools/torch_decode_times.py [--B 128] [--T 8192] [--reads 256]
                                         [--train] [--trans FILE] [--profile]
-                                        [--long 100000] [--em]
+                                        [--long 100000] [--em] [--census]
+                                        [--k4-launches]
                                         [--tree DIR | --turns DIR]
 
 1. K8, the measured float32 peak at the decode's shape
@@ -45,8 +46,19 @@
 
 With --em, also K4 and K5 at the EM chunk's shape (chip_smoke.py's 128
 training groups x 4 = 512 rows of T = 128 events, packed from simulated
-reads): bit-equality with the plain versions, milliseconds per call, bounds
-and kernel_shares against the K8 peak measured at 512 x 128.  Phase 1 also
+reads): bit-equality with the plain versions, milliseconds per call (K4
+with and without its alpha store, and on the chunk with its second half
+of length 0, as 1D reads leave a trained run's chunks), bounds and
+kernel_shares against the K8 peak measured at 512 x 128; then K6c there
+under the loaded tables of (0.14, 0.21) and of the CLI priors (0.1,
+0.3): the streaming kernel (the
+table's TransOps without a K6c layout) and, in a tree that has it, the
+resident kernel, timed in turns (streaming, resident, resident, streaming)
+and bit-equal to each other, and the resident kernel under the (0.14,
+0.21) table cut to 19 slots a side and extended to 23 (slots 0 and 1
+repeated), the slot counts on either side of the loaded tables' 21.
+With --train --k4-launches, also K4 on the inputs of each of its launches
+in one more trained pipeline run: milliseconds per launch.  Phase 1 also
 times K3's forward chunk (events [8192, 16384) of 4 reads, chunks of 8192)
 and probes K1 under a NaN stay entry (16 x 512): bit-equal or not.
 
@@ -73,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
@@ -87,7 +100,8 @@ KERNEL_FUNCTIONS = ("viterbi_forward_kernel", "viterbi_traceback_kernel",
                     "viterbi_generic_forward_kernel",
                     "viterbi_resident_forward_kernel",
                     "viterbi_generic_traceback_kernel",
-                    "fwbw_generic_kernel", "fwbw_backward_kernel")
+                    "fwbw_generic_kernel", "fwbw_resident_kernel",
+                    "fwbw_backward_kernel")
 
 
 def main() -> int:
@@ -102,7 +116,9 @@ def main() -> int:
     ap.add_argument("--long", type=int, default=0)
     ap.add_argument("--em", action="store_true")
     ap.add_argument("--census", action="store_true",
-                    help="print the SASS census of K1's and K5's time loops")
+                    help="print the SASS census of the kernels' time loops")
+    ap.add_argument("--k4-launches", action="store_true",
+                    help="time K4 on each launch's inputs of a trained run")
     ap.add_argument("--tree", default="", metavar="DIR",
                     help="run on the checkout in DIR")
     ap.add_argument("--turns", default="", metavar="DIR",
@@ -252,6 +268,8 @@ def main() -> int:
                 print(f"  {fn}: {ms:.3f} ms in {n} launches = "
                       f"{100 * ms / 1e3 / busy:.1f}% of device time")
             print(avgs.table(sort_by="self_device_time_total", row_limit=25))
+        if args.k4_launches:
+            time_k4_launches(run, reads, card)
 
     if args.long:
         T = batching.bucket_length(args.long)
@@ -338,18 +356,22 @@ def run_turns(other: str) -> int:
 
 
 #: the time loops of K1 (path, score-only; one runtime-switched instance
-#: before the redesign), K3's forward chunk and K5, by kernel name marker
+#: before the redesign), K3's forward chunk, K4, K5 and K6c's streaming
+#: kernel, by kernel name marker
 CENSUS_LOOPS = (("K1 path", ("viterbi_forward_kernelILb0ELb1E",
                              "viterbi_forward_kernelILb0E")),
                 ("K1 score", ("viterbi_forward_kernelILb0ELb0E",)),
                 ("K3 forward chunk", ("viterbi_forward_kernelILb1ELb1E",
                                       "viterbi_forward_kernelILb1E")),
-                ("K5", ("em_backward_kernel",)))
+                ("K4", ("fwbw_forward_kernel",)),
+                ("K5", ("em_backward_kernel",)),
+                ("K6c streaming", ("fwbw_generic_kernel",)))
 
 
 def print_census() -> None:
     """The static SASS census (this checkout's chip_smoke.step_loop_sass)
-    of the time loops of the built kernels of the tree run on."""
+    of the time loops of the built kernels of the tree run on, and of the
+    resident K6c's two time loops (barrier_loops_sass) where it has one."""
     import importlib.util
 
     from nanocall_tpu_torch.ops import _cuda
@@ -368,6 +390,11 @@ def print_census() -> None:
             continue
         c = here.step_loop_sass(marker)
         print(f"census {what} ({marker}): {c}", flush=True)
+    for marker in sorted(set(re.findall(r"fwbw_resident_kernel\w*", sass))):
+        for what, lp in zip(("forward", "backward"),
+                            here.barrier_loops_sass(marker)):
+            print(f"census K6c resident ({marker}), {what} time loop: {lp}",
+                  flush=True)
 
 
 def time_chunk_and_probe_nan(models, device, card: str) -> None:
@@ -399,13 +426,21 @@ def time_chunk_and_probe_nan(models, device, card: str) -> None:
           f"[{card}]", flush=True)
 
 
+#: calls per time of K4 and K5 in time_em_kernels
+EM_REPS = 20
+
+
 def time_em_kernels(models, device, card: str) -> None:
     """K4 and K5 at the EM chunk's shape against their plain versions,
-    with bounds and shares of the K8 peak measured there."""
+    with bounds and shares of the K8 peak measured there; each kernel's
+    time the mean of 2 x EM_REPS calls, K4 with alphas, K4 without, K4 on
+    the chunk with half its rows of length 0, K5, then the same in reverse
+    (one card's clocks drift within a process)."""
     import numpy as np
     import torch
 
-    from nanocall_tpu_torch import roofline
+    from nanocall_tpu_torch import roofline, train
+    from nanocall_tpu_torch.ops import em, hmm
 
     rng = np.random.default_rng(15)
     reads = chip_smoke.simulated_reads(models, rng)
@@ -413,9 +448,39 @@ def time_em_kernels(models, device, card: str) -> None:
     B, T = inp["ev"]["mean"].shape
     peak, _ = roofline.measure_fma_peak(B, 4096, T, k=roofline.FMA_K)
     recs = chip_smoke.check_em_kernels(inp)
+    gtf, model, ev = inp["gtf"], inp["model"], inp["ev"]
+    recs["fwbw_forward, no alphas stored"] = {
+        "plain_ms": chip_smoke.cuda_ms(lambda: hmm.fwbw_grouped_forward_plain(
+            gtf, model, ev, with_alphas=False), 1)}
+    # the chunk with its second half as a trained run's chunks have it when
+    # 1D reads fill them: strands of length 0 on pack_train_batch's padding
+    # events (mean 1, stdv 1, log_stdv 0)
+    half = {k: v.clone() for k, v in ev.items()}
+    half["length"][B // 2:] = 0
+    for k, x in (("mean", 1.0), ("stdv", 1.0), ("log_stdv", 0.0)):
+        half[k][B // 2:] = x
+    recs["fwbw_forward, half the rows of length 0"] = {
+        "plain_ms": chip_smoke.cuda_ms(lambda: hmm.fwbw_grouped_forward_plain(
+            gtf, model, half), 1)}
+    for got, want in zip(hmm.fwbw_forward_kernel(gtf, model, half),
+                         hmm.fwbw_grouped_forward_plain(gtf, model, half)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    alphas, lpd = hmm.fwbw_forward_kernel(gtf, model, ev)
+    args = train.em_backward_args(inp, lpd, alphas, True, True)
+    calls = {"fwbw_forward": lambda: hmm.fwbw_forward_kernel(gtf, model, ev),
+             "fwbw_forward, no alphas stored": lambda: hmm.fwbw_forward_kernel(
+                 gtf, model, ev, with_alphas=False),
+             "fwbw_forward, half the rows of length 0":
+                 lambda: hmm.fwbw_forward_kernel(gtf, model, half),
+             "em_backward": lambda: em.em_backward_kernel(*args)}
+    turns = {name: [] for name in calls}
+    for name in (*calls, *reversed(list(calls))):
+        turns[name].append(chip_smoke.cuda_ms(calls[name], EM_REPS))
+    for name, ms in turns.items():
+        recs[name]["ms"] = sum(ms) / len(ms)
     for name, r in recs.items():
-        b = roofline.kernel_bound(name, B, T)
-        sh = roofline.kernel_shares(name, B, T, r["ms"], peak)
+        b = roofline.kernel_bound(name.split(",")[0], B, T)
+        sh = roofline.kernel_shares(name.split(",")[0], B, T, r["ms"], peak)
         print(f"kernel {name} B={B} T={T}: {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}), bit-equal; "
@@ -423,8 +488,161 @@ def time_em_kernels(models, device, card: str) -> None:
               f"{100 * sh['share_of_f32_spec']:.2f}% of 67 TFLOP/s, "
               f"{100 * sh['share_of_k8_peak']:.2f}% of the measured K8 peak "
               f"{peak / 1e12:.3f} TFLOP/s [{card}]", flush=True)
+    probe_em_under_nan(inp, card)
+    time_k6c(inp, device, card, peak)
     del inp
     torch.cuda.empty_cache()
+
+
+def probe_em_under_nan(inp, card: str) -> None:
+    """K4 (alphas stored) and K5 (all statistics) against their plain
+    versions on copies of the EM chunk's inputs with NaN events in row 5
+    from event T / 2 on, a NaN model entry in row 6 and a +inf event in
+    row 7, those valid rows of full length (chip_smoke.py's
+    check_em_under_nan, which asserts): bit-equal or not, as bits, for
+    either tree (a NaN that fmaxf drops and torch.amax keeps)."""
+    import torch
+
+    from nanocall_tpu_torch import train
+    from nanocall_tpu_torch.ops import em, hmm
+
+    model = hmm.ModelArrays(*(x.clone() for x in inp["model"]))
+    ev = {k: v.clone() for k, v in inp["ev"].items()}
+    valid = inp["valid"].clone()
+    T = ev["mean"].shape[1]
+    ev["length"][5:8] = T
+    valid[5:8] = True
+    ev["mean"][5, T // 2:] = float("nan")
+    model.level_mean[6, 1234] = float("nan")
+    ev["mean"][7, 40] = float("inf")
+    case = {**inp, "model": model, "ev": ev, "valid": valid}
+    a_p, lpd_p = hmm.fwbw_grouped_forward_plain(inp["gtf"], model, ev)
+    a_k, lpd_k = hmm.fwbw_forward_kernel(inp["gtf"], model, ev)
+    args = train.em_backward_args(case, lpd_p, a_p, True, True)
+    want, got = em.fused_bwd_mstats_plain(*args), em.em_backward_kernel(*args)
+    torch.cuda.synchronize()
+
+    def same(x, y):
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+    k4 = same(a_k, a_p) and same(lpd_k, lpd_p)
+    k5 = all(same(g, w) for g, w in zip(got, want))
+    for name, ok in (("K4", k4), ("K5", k5)):
+        print(f"{name} under NaN events, a NaN model entry and a +inf event "
+              f"({' x '.join(map(str, ev['mean'].shape))}): "
+              f"{'bit-equal to' if ok else 'DIFFERS from'} the plain version "
+              f"[{card}]", flush=True)
+
+
+def time_k4_launches(run, reads, card: str) -> None:
+    """K4 on the inputs of each of its launches in one more pipeline run
+    (cloned as the run makes them), in launch order: the milliseconds of
+    each (chip_smoke.cuda_ms over EM_REPS calls), with its shape and how
+    many of its rows are of length 0, and the sum over the launches, which
+    the profile's K4 device time should approach."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    kernel = hmm.fwbw_forward_kernel
+    calls = []
+
+    def clone(x):
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            vals = [clone(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        return x.clone() if torch.is_tensor(x) else x
+
+    def capture(gtf, model, ev, with_alphas=True):
+        calls.append((*clone((gtf, model, ev)), with_alphas))
+        return kernel(gtf, model, ev, with_alphas)
+
+    capture.launches = 0  # the kernel's own count_launch names this module
+    hmm.fwbw_forward_kernel = capture
+    try:
+        run(reads)
+    finally:
+        hmm.fwbw_forward_kernel = kernel
+    total = 0.0
+    for i, args in enumerate(calls):
+        ms = chip_smoke.cuda_ms(lambda: kernel(*args), EM_REPS)
+        total += ms
+        length = args[2]["length"]
+        B, T = args[2]["mean"].shape
+        print(f"K4 launch {i} of the run: B={B} T={T} alphas "
+              f"{'stored' if args[3] else 'not stored'}, "
+              f"{int((length == 0).sum())} rows of length 0, mean length "
+              f"{float(length.float().mean()):.1f}: {ms:.3f} ms [{card}]",
+              flush=True)
+    print(f"K4 over the run's {len(calls)} launches: {total:.3f} ms "
+          f"[{card}]", flush=True)
+
+
+def time_k6c(inp, device, card: str, peak: float) -> None:
+    """K6c at the EM chunk's shape under the loaded tables of (0.14, 0.21)
+    and of the CLI priors (0.1, 0.3): the streaming kernel (on the table's
+    TransOps without a K6c layout) and, where the tree has it and the table
+    takes it, the resident kernel; the two bit-equal (alpha, beta, em,
+    log_pr_data), then timed in turns (streaming, resident, resident,
+    streaming; chip_smoke.cuda_ms over 3 calls each)."""
+    import torch
+
+    from nanocall_tpu_torch import cli, convert, roofline, transitions
+    from nanocall_tpu_torch.ops import hmm
+
+    model, ev = inp["model"], inp["ev"]
+    B, T = ev["mean"].shape
+    resident = getattr(hmm, "fwbw_resident_kernel", None)
+    out_dir = os.path.join(ROOT, "build", "decode_times")
+    os.makedirs(out_dir, exist_ok=True)
+    for ps, pk in ((0.14, 0.21), (0.1, 0.3)):
+        path = os.path.join(out_dir, f"trans_{ps}_{pk}.tsv")
+        convert.write_fast_transitions(path, ps, pk)
+        ops = convert.trans_ops(cli.init_transitions(
+            chip_smoke.smoke_config("-s", path)), device)
+        bare = (ops._replace(fwbw_packed=None) if "fwbw_packed" in
+                ops._fields else ops)
+        calls = {"fwbw_generic": lambda: hmm.fwbw_generic_kernel(
+            bare, model, ev)}
+        if resident is not None and hmm.fwbw_route(ops) == "resident":
+            calls["fwbw_resident"] = lambda: resident(ops, model, ev)
+            got, want = calls["fwbw_resident"](), calls["fwbw_generic"]()
+            torch.cuda.synchronize()
+            for k in ("alpha", "beta", "em", "log_pr_data"):
+                assert torch.equal(got[k].view(torch.int32),
+                                   want[k].view(torch.int32)), k
+            del got, want
+        turns = {name: [] for name in calls}
+        for name in (*calls, *reversed(list(calls))):
+            turns[name].append(chip_smoke.cuda_ms(calls[name], 3))
+        for name, ms in turns.items():
+            mean = sum(ms) / len(ms)
+            b = roofline.kernel_bound(name, B, T)
+            sh = roofline.kernel_shares(name, B, T, mean, peak)
+            print(f"kernel {name} under the loaded table of ({ps}, {pk}) "
+                  f"B={B} T={T}: {mean:.3f} ms (turns "
+                  f"{', '.join(f'{x:.3f}' for x in ms)}), bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                  f"{100 * sh['share_of_f32_spec']:.2f}% of 67 TFLOP/s, "
+                  f"{100 * sh['share_of_k8_peak']:.2f}% of the K8 peak"
+                  f"{'; bit-equal to the streaming kernel' if len(calls) > 1 and name == 'fwbw_resident' else ''}"
+                  f" [{card}]", flush=True)
+    if resident is None:
+        return
+    path = os.path.join(out_dir, "trans_0.14_0.21.tsv")
+    table = cli.init_transitions(chip_smoke.smoke_config("-s", path))
+    for deg in (19, 23):
+        pick = list(range(21))[:deg] + list(range(max(deg - 21, 0)))
+        ops = convert.trans_ops(transitions.SparseTransitions(
+            from_idx=table.from_idx[pick], from_logp=table.from_logp[pick],
+            to_idx=table.to_idx[pick], to_logp=table.to_logp[pick], K=6),
+            device)
+        ms = chip_smoke.cuda_ms(lambda: resident(ops, model, ev), 6)
+        print(f"kernel fwbw_resident under the loaded table of (0.14, 0.21) "
+              f"at {deg} slots a side B={B} T={T}: {ms:.3f} ms = "
+              f"{ms / deg:.4f} ms a slot [{card}]", flush=True)
 
 
 if __name__ == "__main__":
