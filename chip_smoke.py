@@ -10,11 +10,13 @@ from the root of a checkout.  It
   2. builds the CUDA kernels from nanocall_tpu_torch/csrc and prints the
      build seconds, ptxas' register / spill report, the FFMA count of
      K8's SASS (cuobjdump -sass), and a static census of the time loops of
-     K1 (path and score-only), K3's forward chunk, K4 and K5: instructions
-     per state and step, by class (step_loop_sass), and of the resident
-     K6c's two time loops (barrier_loops_sass): K4's loop must hold at most
-     2 block barriers, the resident K6c's no global load but the stored
-     emissions' (no slot-table byte);
+     K1 (path and score-only), K3's forward chunk, K4, K5 and K6d:
+     instructions per state and step, by class (step_loop_sass), of the
+     traceback walks of K2, K3 and K9 (walk_loop_sass), and of the resident
+     K6c's two time loops (barrier_loops_sass): K4's and K6d's loops must
+     hold at most 2 block barriers, K2's walk no global load (its rows come
+     from shared memory), the resident K6c's loops no global load but the
+     stored emissions' (no slot-table byte);
   3. writes the 21-neighbour transition tables of (p_stay 0.14, p_skip
      0.21) and of the CLI priors (0.1, 0.3) as transitions TSVs and loads
      them back through the port CLI's `-s/--trans` loader: loaded tables
@@ -27,12 +29,16 @@ from the root of a checkout.  It
      kernels (streaming and resident, path and score-only, timed in turns:
      streaming, resident, resident, streaming), K6b and K6e (the
      per-step-normalized forward-backward of `run-fwbw --custom-fwbw`:
-     alpha, beta and gamma of 3 x 0.54 GB); holds each to its plain
+     alpha, beta and gamma of 3 x 0.54 GB; also on inputs with NaN events,
+     a +inf event and a NaN model entry); holds each to its plain
      PyTorch version on the same inputs: tolerance 0, every output
      bit-equal; prints both times; K1 (path and score-only), K3's forward
      chunk and K9 (2 ranks) again on the inputs with NaN events in one
      read, a NaN stay entry in another and a NaN model entry in a third,
-     bit-equal to their plain versions; then K6a through viterbi_forward under
+     bit-equal to their plain versions, and on them K2 (path0, codes,
+     logp; the NaN stay entry's read ends on a final alpha that is NaN at
+     some states) bit-equal to its plain version and K3's decode bit-equal
+     to K1 + K2; then K6a through viterbi_forward under
      a random table of 24 slots x 16 log-probs (the resident kernel's
      widest layout) and under the in-memory 21-neighbour pairs, whose
      slots hold up to 17 log-probs (the streaming kernel), each bit-equal
@@ -81,7 +87,10 @@ from the root of a checkout.  It
      statistics, with train_transitions off and with train_scaling off;
      K4 and K5 again on inputs with NaN events in one row, a NaN model
      entry in another and a +inf event in a third (bits compared); K6d,
-     the grouped backward with its betas stored; and K6c, the generic
+     the grouped backward with its betas stored, on the chunk, on NaN
+     events, a +inf event and a NaN model entry, and on the chunk with half
+     its rows of length 0 (bits compared; timed on the full and the
+     half-idle chunk); and K6c, the generic
      forward-backward (alpha, beta and em of 3 x 1.07 GB) on events with a
      NaN and a +inf event, its resident kernel under both loaded tables and
      its streaming kernel under the first without its packed layout
@@ -172,6 +181,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_KERNEL, T_KERNEL = 16, 2048
 TC_KERNEL = 600  # K3's chunk at the kernel phase's shape: a short last chunk
+# the traceback walks with more reads than the H100's 132 SMs, as the
+# CLI's short buckets batch them (bucket_max_batch 256): chunks of 21
+# events put a code group across each chunk border
+B_WIDE, T_WIDE, TC_WIDE = 300, 64, 21
 B_LONG, T_LONG, TC_LONG = 4, 40960, 8192  # K3 at long-read widths
 #: K9's ranks (all on the one card) at the kernel phase's shape; at the
 #: long-read width, D_LONG ranks; n_blocks 1 and D each time
@@ -364,7 +377,10 @@ def check_forward_under_nan(gt, model, ev) -> None:
     in read 4 from event 700 on, a NaN stay entry in read 5 (alpha NaN at
     some states only: the kernel's serial column order) and a NaN model
     entry in read 6, those three of full length: each bit-equal to its
-    plain version (tolerance 0; NaN bits compared as bits)."""
+    plain version (tolerance 0; NaN bits compared as bits).  Then K2 on
+    K1's output (path0, codes, logp bit-equal to its plain version: read
+    5's end state is its first NaN, as torch.argmax takes it) and K3's
+    decode in chunks of TC_KERNEL bit-equal to K1 + K2."""
     import torch
 
     from nanocall_tpu_torch.ops import hmm
@@ -401,6 +417,16 @@ def check_forward_under_nan(gt, model, ev) -> None:
         "K9 path under NaN"
     assert torch.equal(bits(got["logp"]), bits(want["logp"])), \
         "K9 logp under NaN"
+    tb_p = hmm.viterbi_traceback_grouped_plain(6, fa_p, bps_p, ev["length"])
+    tb_k = hmm.traceback_kernel(6, fa_k, bps_k, ev["length"])
+    full = hmm.viterbi_decode_grouped(gt, model, ev)
+    chunked = hmm.viterbi_decode_grouped_tchunk(gt, model, ev, TC_KERNEL)
+    torch.cuda.synchronize()
+    assert torch.isnan(tb_p[2][5]), "read 5's logp is not NaN"
+    for what, a, b in zip(("path0", "codes", "logp"), tb_k, tb_p):
+        assert torch.equal(bits(a), bits(b)), f"K2 {what} under NaN"
+        assert torch.equal(bits(chunked[what]), bits(full[what])), \
+            f"K3 decode {what} under NaN differs from K1 + K2"
 
 
 def with_shape(recs: dict, ev) -> dict:
@@ -454,6 +480,49 @@ def check_tchunk_kernels(gt, model, ev, Tc: int) -> None:
         assert torch.equal(s_k, s_p), f"K3 traceback state differs at {t0}"
         assert torch.equal(codes_k, codes_p), f"K3 codes differ at {t0}"
     check_tchunk_vs_full_scan(gt, model, ev, Tc)
+
+
+def check_ring_wide(models, device, rng) -> None:
+    """The traceback walks with more reads than SMs (B_WIDE reads of
+    T_WIDE events, lengths 0 to T_WIDE): K2 against its plain version
+    (path0, codes, logp as bits); K3's chunks of TC_WIDE events linked as
+    in its decode (check_tchunk_kernels) and K9's states chunk from random
+    carried states, each against its plain version."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    gt, model, ev = kernel_inputs(models, device, B_WIDE, T_WIDE, rng)
+    ev["length"] = torch.arange(B_WIDE, dtype=torch.int32,
+                                device=device) % (T_WIDE + 1)
+    lengths = ev["length"]
+    fa, bps = hmm.forward_path_kernel(gt, model, ev)
+    got = hmm.traceback_kernel(6, fa, bps, lengths)
+    want = hmm.viterbi_traceback_grouped_plain(6, fa, bps, lengths)
+    torch.cuda.synchronize()
+    for what, g, w in zip(("path0", "codes", "logp"), got, want):
+        assert torch.equal(bits(g), bits(w)), f"K2 {what} at B={B_WIDE}"
+    check_tchunk_kernels(gt, model, ev, TC_WIDE)
+    end = torch.argmax(fa, dim=-1).to(torch.int32)
+    filler = torch.zeros((1, B_WIDE, 4096), dtype=torch.uint8, device=device)
+    for t0 in range(0, T_WIDE, TC_WIDE):
+        t1 = min(t0 + TC_WIDE, T_WIDE)
+        rows = (torch.cat([filler, bps[:t1 - 1]]) if t0 == 0
+                else bps[t0 - 1:t1 - 1])
+        carry = torch.from_numpy(rng.integers(0, 4096, B_WIDE).astype(
+            np.int32)).to(device)
+        s_p, states_p = hmm.viterbi_traceback_grouped_chunk_plain(
+            6, end, carry, rows, t0, lengths, compact=False)
+        s_k = carry.clone()
+        states_k = torch.empty((t1 - t0, B_WIDE), dtype=torch.uint16,
+                               device=device)
+        hmm.traceback_chunk_states_kernel(6, end, s_k, rows, t0, lengths,
+                                          states_k)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, s_p.to(torch.int32)), f"K9 state at {t0}"
+        assert torch.equal(states_k.int(), states_p.int()), \
+            f"K9 states at {t0}"
 
 
 def check_tchunk_vs_full_scan(gt, model, ev, Tc: int) -> None:
@@ -802,27 +871,50 @@ def check_table_routes(ops, model, ev, device) -> None:
               f"T={T_KERNEL} path and score-only bit-equal to plain")
 
 
+def nan_fwbw_inputs(model, ev, rows):
+    """Copies of the model and events with NaN events in row rows[0] from
+    its middle on, a +inf event in row rows[1] and a NaN model entry at one
+    state of row rows[2], those three rows of full length."""
+    from nanocall_tpu_torch.ops import hmm
+
+    model = hmm.ModelArrays(*(x.clone() for x in model))
+    ev = {k: v.clone() for k, v in ev.items()}
+    T = ev["mean"].shape[1]
+    ev["length"][list(rows)] = T
+    ev["mean"][rows[0], T // 2:] = float("nan")
+    ev["mean"][rows[1], 5] = float("inf")
+    model.level_mean[rows[2], 1234] = float("nan")
+    return model, ev
+
+
 def check_custom_kernel(ops, model, ev) -> dict:
     """K6e against its plain version on the same card under the loaded
-    table: alpha, beta and gamma bit-equal (tolerance 0, NaN where the plain
-    version has NaN), and times.  Returns {kernel name: record}."""
+    table: alpha, beta and gamma bit-equal (tolerance 0, compared as bits),
+    on the inputs and on nan_fwbw_inputs' copies of them (NaN events, a
+    +inf event, a NaN model entry), and times.  Returns {kernel name:
+    record}."""
     import torch
 
     from nanocall_tpu_torch.ops import hmm
 
-    plain_ms, f_p = cuda_ms_once(lambda: hmm.fwbw_custom_plain(ops, model,
-                                                               ev))
-    f_k = hmm.fwbw_custom_kernel(ops, model, ev)
-    torch.cuda.synchronize()
-    errs = {k: max_err(f_k[k], f_p[k]) for k in ("alpha", "beta", "gamma")}
-    for k, e in errs.items():
-        assert e == 0.0, f"K6e {k} differs from plain by {e}"
-        assert torch.equal(torch.isnan(f_k[k]), torch.isnan(f_p[k])), k
-    del f_p, f_k
+    errs, plain_ms = {}, {}
+    for what, (m, e) in (("clean", (model, ev)),
+                         ("NaN", nan_fwbw_inputs(model, ev, (4, 5, 6)))):
+        plain_ms[what], f_p = cuda_ms_once(
+            lambda: hmm.fwbw_custom_plain(ops, m, e))
+        f_k = hmm.fwbw_custom_kernel(ops, m, e)
+        torch.cuda.synchronize()
+        if what == "NaN":
+            assert torch.isnan(f_p["gamma"][6]).any(), "no NaN gamma"
+        for k in ("alpha", "beta", "gamma"):
+            assert torch.equal(bits(f_k[k]), bits(f_p[k])), \
+                f"K6e {k} differs from plain ({what} inputs)"
+            errs[f"{k}, {what}"] = max_err(f_k[k], f_p[k])
+        del f_p, f_k
     return with_shape({"fwbw_custom": {
         "max_abs_err": max(errs.values()),
         "ms": cuda_ms(lambda: hmm.fwbw_custom_kernel(ops, model, ev), 3),
-        "plain_ms": plain_ms}}, ev)
+        "plain_ms": plain_ms["clean"]}}, ev)
 
 
 def max_err(a, b) -> float:
@@ -1037,10 +1129,26 @@ def random_packed_ops(rng, deg_from: int, deg_to: int, device):
 K6C_RANDOM_DEGS = ((12, 23), (23, 12))
 
 
+def half_idle(ev: dict) -> dict:
+    """The EM chunk's events with the second half of the rows of length 0
+    on pack_train_batch's padding events (mean 1, stdv 1, log_stdv 0), as
+    1D reads leave a trained run's chunks."""
+    half = {k: v.clone() for k, v in ev.items()}
+    B = half["mean"].shape[0]
+    half["length"][B // 2:] = 0
+    for k, x in (("mean", 1.0), ("stdv", 1.0), ("log_stdv", 0.0)):
+        half[k][B // 2:] = x
+    return half
+
+
 def check_fwbw_kernels(inp, ops, priors_ops) -> dict:
     """K6d (the grouped backward, betas stored) and K6c against their plain
     versions on the same card, at the EM chunk's shape: outputs bit-equal
-    (tolerance 0), and times.  K6c runs through hmm.fwbw on the events with
+    (tolerance 0), and times.  K6d runs on the chunk, on nan_fwbw_inputs'
+    copy (NaN events, a +inf event, a NaN model entry) and on the chunk
+    with half its rows of length 0 (half_idle), its betas compared as
+    bits; it is timed on the full and the half-idle chunk.  K6c runs
+    through hmm.fwbw on the events with
     a NaN event in row 3 (of full length) and a +inf event opening row 2:
     its resident kernel under the loaded tables `ops` (TRANS_P_STAY,
     TRANS_P_SKIP) and `priors_ops` (the CLI priors) and under random packed
@@ -1054,11 +1162,17 @@ def check_fwbw_kernels(inp, ops, priors_ops) -> dict:
     from nanocall_tpu_torch.ops import hmm
 
     gtf, model, ev = inp["gtf"], inp["model"], inp["ev"]
-    b_p = hmm.fwbw_grouped_backward_plain(gtf, model, ev)
-    b_k = hmm.fwbw_backward_kernel(gtf, model, ev)
-    torch.cuda.synchronize()
-    errs = {"K6d beta": max_err(b_k, b_p)}
-    del b_p, b_k
+    half = half_idle(ev)
+    errs = {}
+    for what, (m, e) in (("", (model, ev)),
+                         (", NaN", nan_fwbw_inputs(model, ev, (5, 7, 6))),
+                         (", half idle", (model, half))):
+        b_p = hmm.fwbw_grouped_backward_plain(gtf, m, e)
+        b_k = hmm.fwbw_backward_kernel(gtf, m, e)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(b_k), bits(b_p)), f"K6d beta{what}"
+        errs[f"K6d beta{what}"] = max_err(b_k, b_p)
+        del b_p, b_k
     ev_nan = {**ev, "mean": ev["mean"].clone()}
     assert int(ev["length"][3]) == T_EM and int(ev["length"][2]) == T_EM - 1
     ev_nan["mean"][3, T_EM // 2] = float("nan")
@@ -1093,8 +1207,10 @@ def check_fwbw_kernels(inp, ops, priors_ops) -> dict:
     for what, e in errs.items():
         assert e == 0.0, f"{what} differs from plain by {e}"
     recs = {"fwbw_grouped_backward": {
-        "max_abs_err": errs["K6d beta"],
+        "max_abs_err": max(v for k, v in errs.items() if "K6d" in k),
         "ms": cuda_ms(lambda: hmm.fwbw_backward_kernel(gtf, model, ev), 3),
+        "half_idle_ms": cuda_ms(lambda: hmm.fwbw_backward_kernel(
+            gtf, model, half), 3),
         "plain_ms": cuda_ms(lambda: hmm.fwbw_grouped_backward_plain(
             gtf, model, ev), 1)}}
     for name, r in time_k6c_in_turns(ops, model, ev).items():
@@ -1328,12 +1444,14 @@ def step_loop_sass(marker: str) -> dict:
     return out
 
 
-#: the time loops of the redesigned K1 (its three instances), K4 and K5
+#: the time loops of the redesigned K1 (its three instances), K4, K5 and
+#: K6d
 STEP_LOOPS = (("K1 path", "viterbi_forward_kernelILb0ELb1E"),
               ("K1 score", "viterbi_forward_kernelILb0ELb0E"),
               ("K3 forward chunk", "viterbi_forward_kernelILb1ELb1E"),
               ("K4", "fwbw_forward_kernel"),
-              ("K5", "em_backward_kernel"))
+              ("K5", "em_backward_kernel"),
+              ("K6d", "fwbw_backward_kernel"))
 
 
 def barrier_loops_sass(marker: str) -> list:
@@ -1363,16 +1481,40 @@ def barrier_loops_sass(marker: str) -> list:
     return out
 
 
-def check_k4_k6c_sass() -> dict:
-    """The census claims of K4's and the resident K6c's headers: K4's time
-    loop holds at most 2 block barriers; each instance of the resident K6c
+def walk_loop_sass(marker: str) -> dict:
+    """A static census of a traceback walk: the largest natural loop of the
+    built kernel whose name contains `marker` that holds a shared-memory
+    load (the row ring's byte) and issues no bulk copy (the producer's),
+    every branch inside it counted (the mbarrier wait's spin among them).
+    Returns {"instructions", and the count of shared loads ("lds"), global
+    loads ("ldg") and stores ("stg")}; all 0 when no loop qualifies."""
+    ins = sass_lines(marker)
+    body = max((lp for lp in natural_loops(ins)
+                if "LDS" in (ops := [_opcode(ins[k][1]) for k in lp])
+                and not any(o.startswith("UBLKCP") for o in ops)),
+               key=len, default=[])
+    ops = [_opcode(ins[k][1]) for k in body]
+    return {"instructions": len(body), "lds": ops.count("LDS"),
+            "ldg": ops.count("LDG"), "stg": ops.count("STG")}
+
+
+def check_sass_claims() -> dict:
+    """The census claims of the kernels' headers: K4's and K6d's time loops
+    hold at most 2 block barriers; K2's walk reads its rows from shared
+    memory and makes no load from global memory (the ring's bulk copies
+    fetch them); each instance of the resident K6c
     has two time loops (forward, backward) that hold a barrier each and
     read global memory only by the 4 loads of the stored emissions (a
     thread's states): no 16-bit load, no slot-table byte (the table and
-    codebooks are read by LDS).  Returns {"K4": step_loop_sass, "K6c
-    resident": {instance: [loop records]}}."""
+    codebooks are read by LDS).  Returns {"K4", "K6d": step_loop_sass,
+    "K2 walk": walk_loop_sass, "K6c resident": {instance: [loop
+    records]}}."""
     k4 = step_loop_sass("fwbw_forward_kernel")
     assert k4["bar"] * 4 <= 2, k4
+    k6d = step_loop_sass("fwbw_backward_kernel")
+    assert k6d["bar"] * 4 <= 2, k6d
+    k2 = walk_loop_sass("viterbi_traceback_kernel")
+    assert k2["lds"] >= 1 and k2["ldg"] == 0, k2
     k6c = {}
     for name in kernel_instances("fwbw_resident_kernel"):
         loops = k6c[name] = barrier_loops_sass(name)
@@ -1381,7 +1523,7 @@ def check_k4_k6c_sass() -> dict:
             assert lp["bar"] >= 1 and lp["ldg"] <= 4 and not lp["ldg_16"], \
                 (name, loops)
     assert k6c, "no resident K6c in the built library"
-    return {"K4": k4, "K6c resident": k6c}
+    return {"K4": k4, "K6d": k6d, "K2 walk": k2, "K6c resident": k6c}
 
 
 def run_measure(device) -> dict:
@@ -2004,9 +2146,14 @@ def main() -> int:
         print(f"{what} SASS (cuobjdump -sass): {c['instructions']} "
               f"instructions in its time loop, {c['per_state']:g} per state "
               f"and step; per state {per}")
-    census = check_k4_k6c_sass()
-    print(f"K4 SASS: {census['K4']['bar'] * 4:g} block barriers in its time "
-          f"loop (at most 2)")
+    census = check_sass_claims()
+    for what in ("K4", "K6d"):
+        print(f"{what} SASS: {census[what]['bar'] * 4:g} block barriers in "
+              f"its time loop (at most 2)")
+    print(f"K2 SASS, its walk loop: {census['K2 walk']} (no global load)")
+    for name in kernel_instances("viterbi_traceback_chunk_kernel"):
+        print(f"K3 / K9 traceback chunk SASS ({name}), its walk loop: "
+              f"{walk_loop_sass(name)}")
     for name, loops in census["K6c resident"].items():
         for what, lp in zip(("forward", "backward"), loops):
             print(f"K6c resident SASS ({name}), {what} time loop (its state "
@@ -2030,9 +2177,10 @@ def main() -> int:
     gt, model, ev = kernel_inputs(models, device, B_KERNEL, T_KERNEL, rng)
     recs = check_kernels(gt, model, ev)
     check_forward_under_nan(gt, model, ev)
-    print(f"K1 (path, score), K3's forward chunk and K9 (2 ranks) at "
+    print(f"K1 (path, score), K3's forward chunk, K9 (2 ranks) and K2 at "
           f"B={B_KERNEL} T={T_KERNEL} with NaN events, a NaN stay entry and "
-          f"a NaN model entry: bit-equal to their plain versions [{card}]")
+          f"a NaN model entry: bit-equal to their plain versions, K3's "
+          f"decode to K1 + K2 [{card}]")
     recs.update(check_generic_kernels(trans[2], model, ev))
     check_table_routes(trans[2], model, ev, device)
     recs.update(check_custom_kernel(trans[2], model, ev))
@@ -2082,6 +2230,10 @@ def main() -> int:
           f"traceback chunks bit-equal to plain, the chunked decode to "
           f"K1 + K2 [{card}]")
     small = (gt, model, ev)  # K9 takes them again after K3's long phase
+    check_ring_wide(models, device, np.random.default_rng(2025))
+    print(f"K2, K3's chunks (Tc={TC_WIDE}) and K9's states chunk at "
+          f"B={B_WIDE} T={T_WIDE}, lengths 0 to T: bit-equal to their plain "
+          f"versions [{card}]")
 
     gt, model, ev = kernel_inputs(models, device, B_LONG, T_LONG, rng)
     check_tchunk_vs_full_scan(gt, model, ev, TC_LONG)
@@ -2123,6 +2275,13 @@ def main() -> int:
           f"B={4 * G_EM} T={T_EM} with NaN events, a NaN model entry and a "
           f"+inf event: bit-equal to their plain versions [{card}]")
     em.update(check_fwbw_kernels(inp, trans[2], priors[2]))
+    print(f"K6d at B={4 * G_EM} T={T_EM} (clean, with NaN events, a +inf "
+          f"event and a NaN model entry, and with half the rows of length "
+          f"0) and K6e at B={B_KERNEL} T={T_KERNEL} (clean and NaN): "
+          f"bit-equal to their plain versions; K6d "
+          f"{em['fwbw_grouped_backward']['ms']:.3f} ms on the full chunk, "
+          f"{em['fwbw_grouped_backward']['half_idle_ms']:.3f} ms on the "
+          f"half-idle one [{card}]")
     del inp
     for name, r in em.items():
         turns = f" (in turns: {r['ms_turns']})" if "ms_turns" in r else ""

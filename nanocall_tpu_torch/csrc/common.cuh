@@ -173,16 +173,38 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// one arrival expected, then `bytes` of bulk copies to complete the phase
-__device__ __forceinline__ void mbar_init_expect(uint32_t bar,
-                                                 uint32_t bytes) {
+// an mbarrier initialised for `count` arrivals a phase (no bytes expected
+// yet); fence_mbarrier_init and a block barrier publish it
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(1u)
+               "r"(count)
                : "memory");
+}
+
+__device__ __forceinline__ void fence_mbarrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// the next phase of an initialised mbarrier: one arrival, then `bytes` of
+// bulk copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    bar),
                "r"(bytes)
+               : "memory");
+}
+
+// one arrival expected, then `bytes` of bulk copies to complete the phase
+__device__ __forceinline__ void mbar_init_expect(uint32_t bar,
+                                                 uint32_t bytes) {
+  mbar_init(bar, 1);
+  fence_mbarrier_init();
+  mbar_expect(bar, bytes);
+}
+
+// one arrival on an mbarrier (a consumer handing a buffer back)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
                : "memory");
 }
 
@@ -197,19 +219,18 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       : "memory");
 }
 
-// the next phase of an initialised mbarrier: one arrival, then `bytes` of
-// bulk copies
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
 // orders this thread's view of shared memory (after a block barrier: every
 // thread's reads) before bulk copies it issues next into the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// one byte of shared memory (ld.shared: no generic load that a census of
+// the SASS could not tell from a global one)
+__device__ __forceinline__ uint32_t lds_u8(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u8 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {

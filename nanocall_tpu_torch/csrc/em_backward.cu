@@ -21,23 +21,17 @@
 // tree of ops/hmm.py tree_sum; nothing uses atomics.
 //
 // Design (for the H100): one block per read, 1024 threads x 4 contiguous
-// states, the time loop inside the block.
-//   - The read's tables live on chip for the whole loop.  The prologue
-//     copies the 6 model rows and W's 6 rows (192 KB) into dynamic shared
-//     memory with cp.async.bulk on one mbarrier; each thread then takes the
-//     emission's loop-invariant parts of its own 4 states (-log_level_stdv,
-//     log_sd_lambda - log2pi) in place.  The three transition tables take
-//     few values: a state's value is fixed by its overlap-condition pattern
-//     (one byte per state, the same for every read) and the read's
-//     (p_stay, p_skip), so each is a 32-entry codebook per read
-//     (ops/hmm.py bwd_codebooks), in shared memory.
+// states, the time loop inside the block; the beta recursion is
+// csrc/beta_step.cuh's, which K6d shares.
+//   - The read's tables live on chip for the whole loop: the 6 model rows
+//     (beta_step.cuh) and W's 6 rows (192 KB) in dynamic shared memory,
+//     copied with cp.async.bulk on one mbarrier; the three transition
+//     tables as 32-entry codebooks per read.
 //   - alphas[t-1] (16 KB of the read's row, from HBM) and the next step's
 //     events are loaded into registers one step ahead.
-//   - 3 block barriers a step (2 without train_transitions): the max of g;
-//     sum4 and sum16 (sum16[c] continues sum4[4c]'s chain through the 3
-//     threads after it by shuffles: the same float sequence as block_sum,
-//     and no 16 KB G buffer); the 6 post sums and 3 transition maxima per
-//     warp, published together.
+//   - 3 block barriers a step (2 without train_transitions): the recursion's
+//     two, then the 6 post sums and 3 transition maxima per warp,
+//     published together.
 //   - The maxima (of g, and the transitions' masked maxima) propagate NaN
 //     as torch.amax does, at fmaxf's cost: fmaxf and one vote for NaN
 //     (common.cuh warp_max_nan; fmaxf alone drops a NaN).
@@ -59,23 +53,19 @@
 // each elementwise PyTorch op does, so the kernel is bit-identical to
 // fused_bwd_mstats_plain in nanocall_tpu_torch/ops/em.py on the card.
 
-#include "common.cuh"
+#include "beta_step.cuh"
 #include "device_guard.cuh"
 
 namespace {
 
 using namespace nc;
 
-// bits of the per-state flag byte (ops/em.py BWD_FLAG_BITS)
-constexpr unsigned F_H = 1u, F_P2 = 2u, F_S5T = 4u, F_SUB = 8u;
+// the transition-training bit of the per-state flag byte (ops/em.py
+// BWD_FLAG_BITS), above beta_step.cuh's
+constexpr unsigned F_SUB = 8u;
 constexpr int NSCAL = 14, NST = 3, NW = 6;
 // per-step sums kept for the fold: the 6 post sums, the 3 transition parts
 constexpr int NRED = NW + NST;
-// the transition codebooks' width (ops/hmm.py BWD_CODES)
-constexpr int CODES = 32;
-// model rows in shared memory: level_mean, level_stdv, -log_level_stdv,
-// sd_mean, sd_lambda, log_sd_lambda - log2pi
-constexpr int NTAB = 6;
 
 // torch.minimum: NaN-propagating
 __device__ __forceinline__ float tmin(float a, float b) {
@@ -111,10 +101,6 @@ __device__ __forceinline__ float moment(int k, const float (&s)[NW], float x,
   }
 }
 
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 em_backward_kernel(const float* __restrict__ ev_mean,
                    const float* __restrict__ ev_stdv,
@@ -140,14 +126,11 @@ em_backward_kernel(const float* __restrict__ ev_mean,
                    int train_transitions, float log2pi,
                    float* __restrict__ red, float* __restrict__ scal_out,
                    float* __restrict__ st_out) {
-  // NTAB model rows, then (with train_scaling) W's NW rows, of N each
+  // MODEL_ROWS model rows, then (with train_scaling) W's NW rows, of N each
   extern __shared__ __align__(16) float smem[];
   __shared__ __align__(8) uint64_t bar;
-  __shared__ __align__(16) float sS4[N4];
-  __shared__ __align__(16) float sS16[N16];
+  __shared__ __align__(16) BetaShared sh;
   __shared__ __align__(16) float sLS4[N4];  // logf(sum4), for the transitions
-  __shared__ float sBook[NST][CODES];
-  __shared__ float sMax[WARPS];
   // each warp's partial sums of one step: the 6 post sums, then the 3
   // transition sums
   __shared__ float sPart[NRED][WARPS];
@@ -162,21 +145,16 @@ em_backward_kernel(const float* __restrict__ ev_mean,
   const size_t astride = (size_t)B * N;
 
   if (tid == 0) {
-    const uint32_t row_bytes = N * 4;
-    mbar_init_expect(bar_addr,
-                     (NTAB + (train_scaling ? NW : 0)) * row_bytes);
-    const float* const src[NTAB] = {level_mean, level_stdv, log_level_stdv,
-                                    sd_mean,    sd_lambda,  log_sd_lambda};
-#pragma unroll
-    for (int k = 0; k < NTAB; ++k)
-      bulk_copy(smem_addr(smem + k * N), src[k] + (size_t)b * N, row_bytes,
-                bar_addr);
+    const uint32_t w_bytes = train_scaling ? NW * N * 4 : 0;
+    copy_model_rows(smem, bar_addr, b, w_bytes, level_mean, level_stdv,
+                    log_level_stdv, sd_mean, sd_lambda, log_sd_lambda);
     if (train_scaling)
-      bulk_copy(smem_addr(smem + NTAB * N), W + (size_t)b * NW * N,
-                NW * row_bytes, bar_addr);
+      bulk_copy(smem_addr(smem + MODEL_ROWS * N), W + (size_t)b * NW * N,
+                w_bytes, bar_addr);
   }
-  if (tid < NST * CODES)
-    sBook[tid / CODES][tid % CODES] = e_codes[(size_t)b * NST * CODES + tid];
+  if (tid < BWD_BOOKS * BWD_CODES)
+    sh.book[tid / BWD_CODES][tid % BWD_CODES] =
+        e_codes[(size_t)b * BWD_BOOKS * BWD_CODES + tid];
 
   const uint32_t fl = *reinterpret_cast<const uint32_t*>(flags + 4 * tid);
   const uint32_t pat = *reinterpret_cast<const uint32_t*>(pattern + 4 * tid);
@@ -188,7 +166,7 @@ em_backward_kernel(const float* __restrict__ ev_mean,
   const float* evs = ev_stdv + (size_t)b * T;
   const float* evl = ev_log_stdv + (size_t)b * T;
   float* redb = red + (size_t)b * T * NRED;
-  const float* sW = smem + NTAB * N + 4 * tid;
+  const float* sW = smem + MODEL_ROWS * N + 4 * tid;
 
   // alphas[T-1] for the t = T-1 term, alphas[T-2] for the first step
   float4 a_last = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -202,18 +180,9 @@ em_backward_kernel(const float* __restrict__ ev_mean,
     lyn = evl[T - 1];
   }
 
-  __syncthreads();  // orders the mbarrier's init before every wait; sBook
+  __syncthreads();  // orders the mbarrier's init before every wait; books
   mbar_wait(bar_addr, 0);
-  {
-    float4* nlls = reinterpret_cast<float4*>(smem + 2 * N) + tid;
-    float4* c1 = reinterpret_cast<float4*>(smem + 5 * N) + tid;
-    const float4 v = *nlls, w = *c1;
-    *nlls = make_float4(-v.x, -v.y, -v.z, -v.w);
-    *c1 = make_float4(w.x - log2pi, w.y - log2pi, w.z - log2pi,
-                      w.w - log2pi);
-  }
-  // each thread reads only its own 4 states of the model rows and W, so
-  // the in-place update above needs no barrier
+  prepare_model_rows(smem, tid, log2pi);
 
   // contract post (the thread's 4 states) with W; each warp's 6 tree sums
   // go to sPart for the next step's cross-warp reduction
@@ -270,66 +239,18 @@ em_backward_kernel(const float* __restrict__ ev_mean,
       lyn = evl[t];
     }
 
-    // g = em(t+1) + beta; m = max g
+    // g = em(t+1) + beta, then beta (2 barriers; the pending cross-warp
+    // sums after the first)
     float g[4];
-    {
-      float lm[4], ls[4], nlls[4], sm[4], slam[4], c1[4];
-      unpack4(lm, lds4(smem + 0 * N + 4 * tid));
-      unpack4(ls, lds4(smem + 1 * N + 4 * tid));
-      unpack4(nlls, lds4(smem + 2 * N + 4 * tid));
-      unpack4(sm, lds4(smem + 3 * N + 4 * tid));
-      unpack4(slam, lds4(smem + 4 * N + 4 * tid));
-      unpack4(c1, lds4(smem + 5 * N + 4 * tid));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        g[i] = emission_pre(x, y, ly3, lm[i], ls[i], nlls[i], sm[i], slam[i],
-                            c1[i], log2pi) +
-               beta[i];
-    }
-    const float mx = warp_max_nan4(g);
-    if (lane == 0) sMax[warp] = mx;
-    __syncthreads();  // 1
-    const float m = warp_max_nan(sMax[lane], sMax[lane] != sMax[lane]);
-    reduce_pending(pend_t, pend_post, pend_tr);
+    beta_g(smem, tid, x, y, ly3, beta, log2pi, g);
+    const float m = beta_step(
+        g, t >= len - 1, fl, pat, sh, train_transitions ? sLS4 : nullptr, tid,
+        beta, [&] { reduce_pending(pend_t, pend_post, pend_tr); });
 
-    float G[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) G[i] = expf(g[i] - m);
-    const float s4 = ((G[0] + G[1]) + G[2]) + G[3];
-    sS4[tid] = s4;
-    if (train_transitions) sLS4[tid] = logf(s4);
-    {
-      // sum16 of the 16 states of threads 4c..4c+3: sum4 of thread 4c,
-      // then the next threads' states one by one, in order
-      const int qi = tid & 3;
-      float s = s4;
-#pragma unroll
-      for (int k = 1; k < 4; ++k) {
-        const float prev = __shfl_up_sync(FULL, s, 1);
-        if (qi == k) s = (((prev + G[0]) + G[1]) + G[2]) + G[3];
-      }
-      if (qi == 3) sS16[tid >> 2] = s;
-    }
-    __syncthreads();  // 2
-
-    float a[4], T4[4], T16[4];
+    float a[4], lp_j1[4];
     unpack4(a, a_cur);
-    unpack4(T4, lds4(sS4 + ((4 * tid) & (N4 - 1))));
-    unpack4(T16, lds4(sS16 + ((4 * tid) & (N16 - 1))));
-    const bool last = t >= len - 1;
-    float lp_j1[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const unsigned f = (fl >> (8 * i)) & 0xffu;
-      const unsigned p = (pat >> (8 * i)) & 0xffu;
-      const float hG = (f & F_H) ? G[i] : 0.0f;
-      const float p2G = (f & F_P2) ? G[i] : 0.0f;
-      const float s5T4 = (f & F_S5T) ? T4[i] : 0.0f;
-      const float total = (sBook[0][p] * G[i] + sBook[1][p] * (T4[i] - hG)) +
-                          sBook[2][p] * ((T16[i] - p2G) - s5T4);
-      beta[i] = last ? 0.0f : m + logf(total);
-      lp_j1[i] = (a[i] + beta[i]) - lpd_b;
-    }
+    for (int i = 0; i < 4; ++i) lp_j1[i] = (a[i] + beta[i]) - lpd_b;
 
     float e_j1[4];  // exp(lp_j1), for both statistics
 #pragma unroll
@@ -440,7 +361,7 @@ extern "C" int nc_em_backward(
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && T > 0) {
-    const int smem = (NTAB + (train_scaling ? NW : 0)) * nc::N * 4;
+    const int smem = nc::MODEL_BYTES + (train_scaling ? NW * nc::N * 4 : 0);
     const cudaError_t err = cudaFuncSetAttribute(
         em_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);

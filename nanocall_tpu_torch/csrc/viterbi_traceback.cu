@@ -5,7 +5,8 @@
 // + _lookup_bp + grouped_from_state + _pack_codes; the chunk form replaces
 // viterbi_traceback_grouped_chunk (hmm.py:437), the traceback half of
 // viterbi_decode_grouped_tchunk (hmm.py:614).  Per read b:
-//   end_state = first argmax of final_alpha[b], logp = its max;
+//   end_state = first argmax of final_alpha[b], logp = its max (a NaN
+//               counts above every number, as torch.argmax / torch.amax);
 //   for t = T-1 .. 1:
 //     s_eff = t == length-1 ? end_state : s
 //     k     = bp row of event t, at s_eff
@@ -30,90 +31,227 @@
 // and no second packing pass.
 //
 // K9's traceback chunk (parallel/seqpar.py, replacing the traceback of
-// nanocall_tpu/parallel/seqpar.py:40) is the template twin STATES = true of
-// the chunk kernel: the same step, but it writes the state s_eff of every
-// event t0 .. t1-1 (event 0 included, where it passes s_eff through) as a
-// uint16 into row t - t0 of a (t1 - t0, row_stride) states buffer, JAX's
-// non-compact output (nanocall_tpu/ops/hmm.py:464-483).  States, not packed
-// codes, because K9's ranks walk their slices on streams of their own, so
-// two ranks must never share a 3-byte group, and JAX's K9 returns states.
+// nanocall_tpu/parallel/seqpar.py:40) is the third form of the same walk:
+// it writes the state s_eff of every event t0 .. t1-1 (event 0 included,
+// where it passes s_eff through) as a uint16 into row t - t0 of a
+// (t1 - t0, row_stride) states buffer, JAX's non-compact output
+// (nanocall_tpu/ops/hmm.py:464-483).  States, not packed codes, because
+// K9's ranks walk their slices on streams of their own, so two ranks must
+// never share a 3-byte group, and JAX's K9 returns states.
 //
-// Design: one block per read.  For K2, all 1024 threads reduce the final
-// alpha (4 states each, then warp shuffles, ties to the lower index,
-// matching argmax's first occurrence); one thread then walks the read
-// backwards.  A chunk's walk runs on one thread per read.  A direct byte
-// load of the bp row at s replaces the TPU kernel's two-stage one-hot lookup.
+// Design (for the H100): one block per read, and one walk (walk_ring) for
+// all three forms.  Only events t <= length-1 read a row (the others pass
+// the state through with code 0, and event 0's row is filler), so the
+// walk's rows are known before it starts: events min(length, t1) - 1 down
+// to max(t0, 1), each 4096 contiguous bytes of bps.  One thread (the
+// producer, thread 32) streams them by cp.async.bulk into a ring of shared
+// memory, RING_ROWS rows a stage, with a `full` and an `empty` mbarrier a
+// stage; thread 0 walks: it waits on a stage's `full` phase, takes its
+// rows' bytes at the current state from shared memory, and hands the stage
+// back on `empty`, after which the producer refills it with the rows
+// `stages` stages further down.  The walk never waits on a load from
+// device memory, nor on a copy's issue or the proxy fence before it.  K2's
+// block of 1024 threads takes the end argmax while the first copies are in
+// flight (4 states a thread, then the warp's shuffles, then the 32 warps,
+// by K6b's rule: a NaN above every number, ties to the lower index), and
+// writes the code groups past the read's last real code as zeros; K9's
+// chunk block writes the pass-through states of the events past the read's
+// end.  K3's chunk stores its code groups but the ones it shares with
+// another chunk (at most 2 a walk), which it reads back from device memory
+// and ORs in.
 //
-// What bounds it: the walk is a chain of dependent byte loads from device
-// memory, one per event, so a read takes T load latencies; reads run in
-// parallel, one block each.  Nothing here is tuned yet.
+// What bounds it: the rows streamed, (length - 1) x 4096 bytes a read,
+// over the card's memory rate when enough reads walk at once (128 reads of
+// 8192 events: 4.29 GB, 1.28 ms at 3.35 TB/s); a read alone is bound by
+// its walker, one dependent shared-memory byte load and a few integer
+// operations an event.  The stages a block gets (ring_stages) keep >= 64
+// KB in flight an SM: 12 (192 KB) when each SM holds one block, 6 for K2
+// at 2 blocks an SM.  The count is a kernel argument: a walk compiled for
+// a fixed count (6 or 12 stages) has 287 SASS instructions in its loop
+// against 269 and walks 5-13% slower on an H100.  A walk that loads each
+// event's byte from device memory instead is bound by T dependent round
+// trips (3.35 ms at 128 x 8192 on an H100, against 1.36 ms for the ring at
+// full lengths).
 //
 // What bounds K9 as a whole: K3's forward operations (one chunk kernel per
-// rank and block) and this walk's dependent byte loads, over D * M launches
-// of each half for D ranks and M blocks, with a pipeline fill of
-// (D - 1) / (M + D - 1) of the microsteps in which some rank waits.  The
-// design does nothing about it yet: it is the simple kernel that is right.
+// rank and block) and this walk, over D * M launches of each half for D
+// ranks and M blocks, with a pipeline fill of (D - 1) / (M + D - 1) of the
+// microsteps in which some rank waits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "device_guard.cuh"
 
 namespace {
 
-constexpr int N = 4096;
-constexpr int THREADS = 1024;
+using nc::N;
 
+constexpr int THREADS = 1024;  // K2: the end argmax's block
+constexpr int CHUNK_THREADS = 64;  // K3's and K9's chunks: two warps
+// rows a ring stage holds: the walk waits on a stage and hands it back
+// once per RING_ROWS events
+constexpr int RING_ROWS = 4;
+constexpr uint32_t STAGE_BYTES = RING_ROWS * N;
+constexpr int MAX_STAGES = 12;  // 192 KB of shared memory
+constexpr int MIN_STAGES = 2;
+
+// torch.argmax's order: a NaN above every number, ties to the lower index
+// (the rule of K6b, csrc/viterbi_generic.cu)
 __device__ __forceinline__ void take_better(float& best, int& idx, float ob,
                                             int oi) {
-  if (ob > best || (ob == best && oi < idx)) {
+  const bool o_nan = ob != ob, b_nan = best != best;
+  const bool take = (o_nan || b_nan) ? o_nan && (!b_nan || oi < idx)
+                                     : ob > best || (ob == best && oi < idx);
+  if (take) {
     best = ob;
     idx = oi;
   }
 }
 
-// One step of every walk, at event t from state s: s_eff (the state at
-// event t, clamped to the end state at the read's last event), the state at
-// event t - 1, and the 6-bit code.  Event 0's row and padded events pass
-// s_eff through with code 0.
-struct Step {
-  int s_eff, s, code;
+// The rows of one read's walk in global memory and the ring they pass
+// through.  Row j of the walk (j = 0, 1, ..) is event t_top - j, at
+// src - j * stride; it goes to slot j % RING_ROWS of stage
+// (j / RING_ROWS) % stages.  Each stage has two mbarriers: `full` (one
+// arrival and the stage's bytes: the producer's copies have landed) and
+// `empty` (one arrival: the walker is done with the stage).  One thread,
+// the producer, issues every copy; another, the walker, only waits on
+// `full` and arrives on `empty`, so no proxy fence or copy ever stalls the
+// walk behind its own stores.
+struct Ring {
+  uint8_t* buf;        // stages * STAGE_BYTES of shared memory
+  uint64_t* full;      // one mbarrier a stage
+  uint64_t* empty;     // one mbarrier a stage
+  int stages;
+  const uint8_t* src;  // the walk's first row
+  size_t stride;       // bytes between the rows of events t and t + 1
+  int n;               // rows of the walk
+
+  __device__ __forceinline__ int quads() const {
+    return (n + RING_ROWS - 1) / RING_ROWS;
+  }
+
+  // the rows of stage use q (rows RING_ROWS q ..) into stage st
+  __device__ __forceinline__ void fill(int q, int st) const {
+    const int j0 = q * RING_ROWS;
+    const int cnt = min(RING_ROWS, n - j0);
+    const uint32_t bar = nc::smem_addr(full + st);
+    nc::mbar_expect(bar, cnt * N);
+    const uint32_t dst = nc::smem_addr(buf) + st * STAGE_BYTES;
+    const uint8_t* row = src - (size_t)j0 * stride;
+    for (int r = 0; r < cnt; ++r, row -= stride)
+      nc::bulk_copy(dst + r * N, row, N, bar);
+  }
+
+  // The producer, before a block barrier that publishes the mbarriers:
+  // initialise them and start the copies of the first stages.
+  __device__ __forceinline__ void start() const {
+    for (int st = 0; st < stages; ++st) {
+      nc::mbar_init(nc::smem_addr(full + st), 1);
+      nc::mbar_init(nc::smem_addr(empty + st), 1);
+    }
+    nc::fence_mbarrier_init();
+    for (int q = 0; q < stages && q < quads(); ++q) fill(q, q);
+  }
+
+  // The producer, after that barrier: each later stage use once the walker
+  // has handed its stage back.
+  __device__ __forceinline__ void produce() const {
+    int st = 0;
+    uint32_t parity = 0;
+    for (int q = stages; q < quads(); ++q) {
+      nc::mbar_wait(nc::smem_addr(empty + st), parity);
+      nc::fence_proxy_async();  // the walk's reads of the stage came first
+      fill(q, st);
+      if (++st == stages) {
+        st = 0;
+        parity ^= 1;
+      }
+    }
+  }
 };
 
-__device__ __forceinline__ Step step(const uint8_t* __restrict__ bp_row,
-                                     int t, int len, int end_state, int s) {
-  const int s_eff = t == len - 1 ? end_state : s;
-  const int k = bp_row[s_eff];
-  const bool real = t >= 1 && t <= len - 1;
-  const int group = k >> 6;
-  const int arg = k & 63;
-  const int s_prev = group == 0   ? s_eff
-                     : group == 1 ? ((arg << 10) | (s_eff >> 2))
-                                  : ((arg << 8) | (s_eff >> 4));
-  return {s_eff, real ? s_prev : s_eff,
-          real ? ((group << 4) | (s_eff & 15)) : 0};
+// The ring for the walk over events t_top .. t_top - n + 1 of one read;
+// event t's row at bp_b + (t - row0) * stride.
+__device__ __forceinline__ Ring make_ring(uint8_t* buf, uint64_t* full,
+                                          uint64_t* empty, int stages,
+                                          const uint8_t* __restrict__ bp_b,
+                                          size_t stride, int row0, int t_top,
+                                          int n) {
+  return {buf, full, empty, stages,
+          n > 0 ? bp_b + (size_t)(t_top - row0) * stride : bp_b, stride, n};
 }
 
-// The walk over events t_hi-1 .. t_lo (t_lo >= 1) of one read from state s;
-// event t's bp row is bp_b[(t - row0) * row_stride].  Codes are stored into
-// `out`, or ORed into it when OR_CODES (a group shared with another chunk).
-// Returns the state before event t_lo.
+// The walk over the ring's n rows, events t_top, t_top - 1, .., all real
+// (1 <= t <= length - 1), from state s, which is s_eff at every event of
+// the walk; sink(t, s_eff, code) takes each event's state and code.
+// Returns the state before the last event walked.
+template <class Sink>
+__device__ __forceinline__ int walk_ring(const Ring& ring, int t_top, int s,
+                                         Sink sink) {
+  int st = 0;
+  uint32_t parity = 0;
+  for (int j = 0; j < ring.n; j += RING_ROWS) {
+    nc::mbar_wait(nc::smem_addr(ring.full + st), parity);
+    const uint32_t stage = nc::smem_addr(ring.buf) + st * STAGE_BYTES;
+#pragma unroll
+    for (int r = 0; r < RING_ROWS; ++r) {
+      if (j + r < ring.n) {
+        const int s_eff = s;
+        const int k = (int)nc::lds_u8(stage + r * N + s_eff);
+        const int group = k >> 6;
+        const int arg = k & 63;
+        s = group == 0   ? s_eff
+            : group == 1 ? ((arg << 10) | (s_eff >> 2))
+                         : ((arg << 8) | (s_eff >> 4));
+        sink(t_top - j - r, s_eff, (group << 4) | (s_eff & 15));
+      }
+    }
+    nc::mbar_arrive(nc::smem_addr(ring.empty + st));
+    if (++st == ring.stages) {
+      st = 0;
+      parity ^= 1;
+    }
+  }
+  return s;
+}
+
+// The walk's extent in a chunk of events [t0, t1) for a read of length
+// len: its rows are events t_top down to max(t0, 1), n of them, and the
+// state it starts from is end_state when event len - 1 lies in the chunk
+// (the events above it pass the carry through), else the carry s.
+struct Extent {
+  int t_top, n, s;
+};
+
+__device__ __forceinline__ Extent extent(int t0, int t1, int len,
+                                         int end_state, int s) {
+  const int t_top = min(len, t1) - 1;
+  const int t_lo = t0 > 1 ? t0 : 1;
+  if (len - 1 >= t0 && len - 1 < t1) s = end_state;
+  return {t_top, t_top >= t_lo ? t_top - t_lo + 1 : 0, s};
+}
+
+// Packs the walk's codes, event t's code as code t - 1 of the read's packed
+// row `out`: four codes to three bytes.  A group is flushed at its lowest
+// code or at the walk's last event, t_last.  K2 stores every group; K3's
+// chunks (OR_CODES) OR in a group that holds an event outside their
+// events [t0, t1), which another chunk may set, and store the others (the
+// packed row was zeroed, and only this chunk writes them).
 template <bool OR_CODES>
-__device__ __forceinline__ int walk(const uint8_t* __restrict__ bp_b,
-                                    size_t row_stride, int row0, int t_hi,
-                                    int t_lo, int len, int end_state, int s,
-                                    uint8_t* __restrict__ out) {
+struct PackCodes {
+  uint8_t* out;
+  int t_last, t0, t1;
   uint32_t w = 0;
-  for (int t = t_hi - 1; t >= t_lo; --t) {
-    const Step st =
-        step(bp_b + (size_t)(t - row0) * row_stride, t, len, end_state, s);
-    s = st.s;
-    const uint32_t code = (uint32_t)st.code;
+
+  __device__ __forceinline__ void operator()(int t, int, int code) {
     const int i = t - 1;
-    w |= code << (6 * (i & 3));
-    if ((i & 3) == 0 || t == t_lo) {
+    w |= (uint32_t)code << (6 * (i & 3));
+    if ((i & 3) == 0 || t == t_last) {
       uint8_t* o = out + 3 * (i >> 2);
-      if (OR_CODES) {
+      const int e = (i & ~3) + 1;  // the group's first event
+      if (OR_CODES && (e < t0 || e + 3 >= t1)) {
         o[0] |= (uint8_t)(w & 0xff);
         o[1] |= (uint8_t)((w >> 8) & 0xff);
         o[2] |= (uint8_t)((w >> 16) & 0xff);
@@ -125,103 +263,150 @@ __device__ __forceinline__ int walk(const uint8_t* __restrict__ bp_b,
       w = 0;
     }
   }
-  return s;
-}
+};
+
+// the thread that issues the ring's copies (warp 1's first lane)
+constexpr int PRODUCER = 32;
 
 __global__ void __launch_bounds__(THREADS)
 viterbi_traceback_kernel(const float* __restrict__ final_alpha,
                          const uint8_t* __restrict__ bps,
                          const int32_t* __restrict__ length, int B, int T,
-                         int code_bytes, int32_t* __restrict__ path0,
+                         int code_bytes, int stages,
+                         int32_t* __restrict__ path0,
                          uint8_t* __restrict__ codes,
                          float* __restrict__ logp) {
+  extern __shared__ __align__(128) uint8_t ring_buf[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
   __shared__ float w_best[THREADS / 32];
   __shared__ int w_idx[THREADS / 32];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const float* fa = final_alpha + (size_t)b * N;
+  const int len = length[b];
+  // the walk's rows: events min(len, T) - 1 .. 1 (row t - 1 of bps)
+  const Extent ex = extent(0, T, len, 0, 0);
+  const Ring ring = make_ring(ring_buf, full, empty, stages,
+                              bps + (size_t)b * N, (size_t)B * N, 1, ex.t_top,
+                              ex.n);
+  if (tid == PRODUCER) ring.start();
 
+  // the code groups past the last real code (and every group of a read
+  // without one) are zeros; the walk writes the groups below
+  uint8_t* out = codes + (size_t)b * code_bytes;
+  for (int i = 3 * (ex.n > 0 ? ((ex.t_top - 1) >> 2) + 1 : 0) + tid;
+       i < code_bytes; i += THREADS)
+    out[i] = 0;
+
+  // first argmax of the final alpha: 4 states each, then the warps
+  const float* fa = final_alpha + (size_t)b * N;
   float best = fa[4 * tid];
   int idx = 4 * tid;
 #pragma unroll
-  for (int i = 1; i < 4; ++i) {
-    const float v = fa[4 * tid + i];
-    if (v > best) {
-      best = v;
-      idx = 4 * tid + i;
-    }
-  }
+  for (int i = 1; i < 4; ++i)
+    take_better(best, idx, fa[4 * tid + i], 4 * tid + i);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_down_sync(0xffffffffu, best, off);
-    const int oi = __shfl_down_sync(0xffffffffu, idx, off);
+    const float ob = __shfl_down_sync(nc::FULL, best, off);
+    const int oi = __shfl_down_sync(nc::FULL, idx, off);
     take_better(best, idx, ob, oi);
   }
   if ((tid & 31) == 0) {
     w_best[tid >> 5] = best;
     w_idx[tid >> 5] = idx;
   }
-  __syncthreads();
+  __syncthreads();  // also publishes the ring's mbarriers
+  if (tid == PRODUCER) ring.produce();
   if (tid >= 32) return;
   best = w_best[tid];
   idx = w_idx[tid];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_down_sync(0xffffffffu, best, off);
-    const int oi = __shfl_down_sync(0xffffffffu, idx, off);
+    const float ob = __shfl_down_sync(nc::FULL, best, off);
+    const int oi = __shfl_down_sync(nc::FULL, idx, off);
     take_better(best, idx, ob, oi);
   }
   if (tid != 0) return;
 
-  const int end_state = idx;
   logp[b] = best;
-  path0[b] = walk<false>(bps + (size_t)b * N, (size_t)B * N, 1, T, 1,
-                         length[b], end_state, end_state,
-                         codes + (size_t)b * code_bytes);
+  path0[b] = walk_ring(ring, ex.t_top, idx, PackCodes<false>{out, 1, 0, T});
 }
 
-// One chunk of rows, events [t0, t1): one thread per read walks from
-// state[b] and leaves the state for the chunk to its left in state[b].
-// STATES = false (K3) ORs the packed codes into `codes`; STATES = true (K9)
-// writes the states into `states` (row t - t0, column b, rows of
-// states_stride).
+// One chunk of rows, events [t0, t1): a block per read walks from state[b]
+// and leaves the state for the chunk to its left in state[b].  STATES =
+// false (K3) ORs the packed codes into `codes`; STATES = true (K9) writes
+// the states into `states` (row t - t0, column b, rows of states_stride).
 template <bool STATES>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(CHUNK_THREADS)
 viterbi_traceback_chunk_kernel(const int32_t* __restrict__ end_state,
                                int32_t* __restrict__ state,
                                const uint8_t* __restrict__ bps,
                                const int32_t* __restrict__ length, int B,
-                               int t0, int t1, int code_bytes,
+                               int t0, int t1, int code_bytes, int stages,
                                uint8_t* __restrict__ codes,
                                uint16_t* __restrict__ states,
                                int states_stride) {
-  const int b = blockIdx.x * 32 + threadIdx.x;
-  if (b >= B) return;
-  const uint8_t* bp_b = bps + (size_t)b * N;
-  const size_t row_stride = (size_t)B * N;
+  extern __shared__ __align__(128) uint8_t ring_buf[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int len = length[b];
+  const int carry = state[b];
+  const Extent ex = extent(t0, t1, len, end_state[b], carry);
+  const Ring ring = make_ring(ring_buf, full, empty, stages,
+                              bps + (size_t)b * N, (size_t)B * N, t0,
+                              ex.t_top, ex.n);
+  if (tid == PRODUCER) ring.start();
   if (STATES) {
-    const int len = length[b], end = end_state[b];
-    int s = state[b];
-    for (int t = t1 - 1; t >= t0; --t) {
-      const Step st =
-          step(bp_b + (size_t)(t - t0) * row_stride, t, len, end, s);
-      states[(size_t)(t - t0) * states_stride + b] = (uint16_t)st.s_eff;
-      s = st.s;
-    }
-    state[b] = s;
-    return;
+    // events past the read's end (event 0 aside) pass the carry through
+    for (int t = max(max(len, t0), 1) + tid; t < t1; t += CHUNK_THREADS)
+      states[(size_t)(t - t0) * states_stride + b] = (uint16_t)carry;
   }
-  // event 0's row is filler that passes the state through (JAX: real is
-  // false at t = 0), so the walk stops at event 1
-  state[b] = walk<true>(bp_b, row_stride, t0, t1, t0 > 1 ? t0 : 1, length[b],
-                        end_state[b], state[b],
-                        codes + (size_t)b * code_bytes);
+  __syncthreads();  // publishes the ring's mbarriers
+  if (tid == PRODUCER) ring.produce();
+  if (tid != 0) return;
+  int s;
+  if (STATES) {
+    uint16_t* col = states + b;
+    const size_t stride = states_stride;
+    s = walk_ring(ring, ex.t_top, ex.s, [&](int t, int s_eff, int) {
+      col[(size_t)(t - t0) * stride] = (uint16_t)s_eff;
+    });
+    // event 0's row is filler: it passes s_eff through
+    if (t0 == 0) col[0] = (uint16_t)s;
+  } else {
+    s = walk_ring(ring, ex.t_top, ex.s,
+                  PackCodes<true>{codes + (size_t)b * code_bytes,
+                                  ex.t_top - ex.n + 1, t0, t1});
+  }
+  state[b] = s;
+}
+
+// The ring's stages for B blocks of `threads`: the most that fit the blocks
+// an SM holds at once, at most MAX_STAGES (192 KB: one block an SM), at
+// least MIN_STAGES.
+int ring_stages(int B, int threads, int device) {
+  int sms = 132;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int by_threads = 2048 / threads;
+  int per_sm = (B + sms - 1) / sms;
+  if (per_sm > by_threads) per_sm = by_threads;
+  const int s = MAX_STAGES / per_sm;
+  return s < MIN_STAGES ? MIN_STAGES : s;
+}
+
+template <class Kernel>
+cudaError_t set_ring_smem(Kernel kernel, int stages) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              stages * (int)STAGE_BYTES);
 }
 
 }  // namespace
 
-// Plain C entry for ctypes.  Returns cudaGetLastError() after the launch.
+// Plain C entry for ctypes.  bps (T-1, B, 4096) must be 16-byte aligned.
+// Returns cudaGetLastError() after the launch.
 extern "C" int nc_viterbi_traceback(const float* final_alpha,
                                     const uint8_t* bps, const int32_t* length,
                                     int B, int T, int code_bytes,
@@ -230,15 +415,21 @@ extern "C" int nc_viterbi_traceback(const float* final_alpha,
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0) {
-    viterbi_traceback_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        final_alpha, bps, length, B, T, code_bytes, path0, codes, logp);
+    const int stages = ring_stages(B, THREADS, device);
+    const cudaError_t err = set_ring_smem(viterbi_traceback_kernel, stages);
+    if (err != cudaSuccess) return (int)err;
+    viterbi_traceback_kernel<<<B, THREADS, stages * STAGE_BYTES,
+                               (cudaStream_t)stream>>>(
+        final_alpha, bps, length, B, T, code_bytes, stages, path0, codes,
+        logp);
   }
   return (int)cudaGetLastError();
 }
 
-// One chunk: bps holds the t1 - t0 rows of events [t0, t1); state (B,) is
-// read and written in place; codes (B, code_bytes) were zeroed before the
-// first chunk.  Returns cudaGetLastError() after the launch.
+// One chunk: bps holds the t1 - t0 rows of events [t0, t1) (16-byte
+// aligned); state (B,) is read and written in place; codes (B, code_bytes)
+// were zeroed before the first chunk.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int nc_viterbi_traceback_chunk(const int32_t* end_state,
                                           int32_t* state, const uint8_t* bps,
                                           const int32_t* length, int B, int t0,
@@ -248,10 +439,15 @@ extern "C" int nc_viterbi_traceback_chunk(const int32_t* end_state,
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && t1 > (t0 > 1 ? t0 : 1)) {
-    viterbi_traceback_chunk_kernel<false><<<(B + 31) / 32, 32, 0,
+    const int stages = ring_stages(B, CHUNK_THREADS, device);
+    const cudaError_t err =
+        set_ring_smem(viterbi_traceback_chunk_kernel<false>, stages);
+    if (err != cudaSuccess) return (int)err;
+    viterbi_traceback_chunk_kernel<false><<<B, CHUNK_THREADS,
+                                            stages * STAGE_BYTES,
                                             (cudaStream_t)stream>>>(
-        end_state, state, bps, length, B, t0, t1, code_bytes, codes, nullptr,
-        0);
+        end_state, state, bps, length, B, t0, t1, code_bytes, stages, codes,
+        nullptr, 0);
   }
   return (int)cudaGetLastError();
 }
@@ -266,9 +462,14 @@ extern "C" int nc_viterbi_traceback_chunk_states(
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && t1 > t0) {
-    viterbi_traceback_chunk_kernel<true><<<(B + 31) / 32, 32, 0,
+    const int stages = ring_stages(B, CHUNK_THREADS, device);
+    const cudaError_t err =
+        set_ring_smem(viterbi_traceback_chunk_kernel<true>, stages);
+    if (err != cudaSuccess) return (int)err;
+    viterbi_traceback_chunk_kernel<true><<<B, CHUNK_THREADS,
+                                           stages * STAGE_BYTES,
                                            (cudaStream_t)stream>>>(
-        end_state, state, bps, length, B, t0, t1, 0, nullptr, states,
+        end_state, state, bps, length, B, t0, t1, 0, stages, nullptr, states,
         states_stride);
   }
   return (int)cudaGetLastError();

@@ -33,7 +33,7 @@ SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
            "em_backward.cu", "viterbi_generic.cu", "fwbw_generic.cu",
            "fwbw_backward.cu", "fwbw_custom.cu", "fma_chain.cu",
            "reshape_copy.cu")
-HEADERS = ("common.cuh", "device_guard.cuh")
+HEADERS = ("common.cuh", "beta_step.cuh", "device_guard.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "nanocall_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -161,7 +161,7 @@ def load():
             + [vp] * 3 + [ci, vp])
         lib.nc_fwbw_backward.restype = ci
         lib.nc_fwbw_backward.argtypes = (
-            [vp] * 4 + [ci, ci] + [vp] * 10 + [cf] + [vp] + [ci, vp])
+            [vp] * 4 + [ci, ci] + [vp] * 9 + [cf] + [vp] + [ci, vp])
         lib.nc_fma_chain.restype = ci
         lib.nc_fma_chain.argtypes = [vp, ci, ci, ci, ci, cf, cf, vp, ci, vp]
         lib.nc_reshape_copy.restype = ci

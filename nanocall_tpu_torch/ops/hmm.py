@@ -499,6 +499,13 @@ def viterbi_traceback_grouped_plain(K: int, final_alpha, bps, lengths):
     return s, pack_codes(codes), logp
 
 
+def _check_rows_aligned(bps: torch.Tensor) -> None:
+    """The traceback kernels copy whole backpointer rows to shared memory
+    by cp.async.bulk, which takes 16-byte aligned addresses."""
+    if bps.data_ptr() % 16:
+        raise ValueError("bps is not 16-byte aligned")
+
+
 def _traceback_kernel(K: int, final_alpha, bps, lengths):
     dev = final_alpha.device
     B, n = final_alpha.shape
@@ -508,6 +515,7 @@ def _traceback_kernel(K: int, final_alpha, bps, lengths):
     Tm = bps.shape[0]
     _check("final_alpha", final_alpha, torch.float32, (B, n), dev)
     _check("bps", bps, torch.uint8, (Tm, B, n), dev)
+    _check_rows_aligned(bps)
     _check("lengths", lengths, torch.int32, (B,), dev)
     _require_cuda(dev, "viterbi traceback")
     code_bytes = 3 * (-(-Tm // 4))
@@ -691,6 +699,7 @@ def traceback_chunk_kernel(K: int, end_state, state, bps, t0: int, lengths,
                     ("lengths", lengths)):
         _check(name, x, torch.int32, (B,), dev)
     _check("bps", bps, torch.uint8, (Tc, B, n), dev)
+    _check_rows_aligned(bps)
     _check("codes", codes, torch.uint8, (B, codes.shape[1]), dev)
     if codes.shape[1] < 3 * -(-(t0 + Tc - 1) // 4):
         raise ValueError(f"codes of {codes.shape[1]} bytes per read cannot "
@@ -727,6 +736,7 @@ def traceback_chunk_states_kernel(K: int, end_state, state, bps, t0: int,
                     ("lengths", lengths)):
         _check(name, x, torch.int32, (B,), dev)
     _check("bps", bps, torch.uint8, (Tc, B, n), dev)
+    _check_rows_aligned(bps)
     if (states.dtype != torch.uint16 or tuple(states.shape) != (Tc, B)
             or states.device != dev or states.stride(1) != 1):
         raise ValueError(f"states: expected uint16 {(Tc, B)} rows on {dev}, "
@@ -1666,7 +1676,9 @@ def fwbw_grouped_backward_plain(gtf: GroupedTransFull, model: ModelArrays,
 
 def fwbw_backward_kernel(gtf: GroupedTransFull, model: ModelArrays,
                          ev: dict) -> torch.Tensor:
-    """K6d on the card: beta (B, T, n) float32, as the plain version."""
+    """K6d on the card: beta (B, T, n) float32, as the plain version.  The
+    kernel runs K5's beta step (csrc/beta_step.cuh) and reads the
+    transition tables as bwd_codebooks."""
     mean = ev["mean"]
     dev = mean.device
     B, T = mean.shape
@@ -1677,17 +1689,18 @@ def fwbw_backward_kernel(gtf: GroupedTransFull, model: ModelArrays,
     if T < 1:
         raise ValueError("the backward pass needs at least one event column")
     _check_events(ev, B, T, dev)
-    tables = (*bwd_exp_tables(gtf), *model)
-    _check_tables(tables, B, n, dev)
+    pattern, books = bwd_codebooks(gtf)
+    _check("codebooks", books, torch.float32, (B, 3, BWD_CODES), dev)
+    _check_tables(tuple(model), B, n, dev)
     _require_cuda(dev, "grouped fwbw backward")
     flags = mask_flags(correction_masks(6, dev), GROUPED_BWD_FLAG_BITS)
     betas = torch.empty((B, T, n), dtype=torch.float32, device=dev)
     lib = _cuda.load()
     err = lib.nc_fwbw_backward(
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, *(x.data_ptr() for x in tables),
-        flags.data_ptr(), LOG_2PI, betas.data_ptr(),
-        *_cuda.target(dev),
+        ev["length"].data_ptr(), B, T, books.data_ptr(), pattern.data_ptr(),
+        *(x.data_ptr() for x in model), flags.data_ptr(), LOG_2PI,
+        betas.data_ptr(), *_cuda.target(dev),
     )
     _cuda.check(err, "fwbw_backward kernel launch")
     _cuda.count_launch(fwbw_backward_kernel)

@@ -530,10 +530,12 @@ def em_backward_counts(B: int, T: int) -> tuple:
 
 
 def fwbw_grouped_backward_counts(B: int, T: int) -> tuple:
-    """K6d: events, 9 tables, the flags and the betas (B, T, n)."""
+    """K6d: events, the 6 model rows, the 3 transition codebooks of 32
+    float32 a read (hmm.bwd_codebooks), a flag and a pattern byte per
+    state, and the betas (B, T, n)."""
     n = N_STATES
-    return (_event_bytes(B, T) + 36 * B * n + n + 4 * T * B * n,
-            _cell_ops("fwbw_grouped_backward", B, T))
+    return (_event_bytes(B, T) + 24 * B * n + 384 * B + 2 * n
+            + 4 * T * B * n, _cell_ops("fwbw_grouped_backward", B, T))
 
 
 def viterbi_generic_forward_path_counts(B: int, T: int,

@@ -266,6 +266,20 @@ def _forward_all_ways(gt, model, ev, Tc: int):
     return out
 
 
+def _nan_decode_inputs(dev):
+    """The decode's NaN inputs, 8 reads of T = 40 events: lengths 0, 1,
+    T-1 and T among them, NaN events in read 4 from event 7 on, a NaN stay
+    entry in read 5 (final alpha NaN at some states only) and a NaN model
+    entry in read 6."""
+    T = 40
+    lengths = [T, 0, 1, T - 1, T, T, T, 23]
+    gt, model, ev = _grouped_inputs(dev, lengths, T, 7)
+    ev["mean"][4, 7:] = float("nan")
+    gt.stay_lp[5, 1234] = float("nan")
+    model.level_mean[6, 99] = float("nan")
+    return gt, model, ev
+
+
 @pytest.mark.cuda
 def test_viterbi_forward_bit_equal_under_nan_on_the_card(card):
     """K1 (path and score-only) and K3's forward chunk bit-equal to K1's
@@ -273,12 +287,7 @@ def test_viterbi_forward_bit_equal_under_nan_on_the_card(card):
     T-1 and T, one with NaN events from event 7 on, one with a NaN stay
     entry (alpha NaN at some states only: the serial column order) and one
     with a NaN model entry; chunks of 11 events."""
-    T = 40
-    lengths = [T, 0, 1, T - 1, T, T, T, 23]
-    gt, model, ev = _grouped_inputs(card, lengths, T, 7)
-    ev["mean"][4, 7:] = float("nan")
-    gt.stay_lp[5, 1234] = float("nan")
-    model.level_mean[6, 99] = float("nan")
+    gt, model, ev = _nan_decode_inputs(card)
     out = _forward_all_ways(gt, model, ev, 11)
     fa_p, bps_p = out["plain"]
     assert torch.isnan(fa_p[5]).any() and not torch.isnan(fa_p[5]).all()
@@ -336,7 +345,9 @@ def _loaded_ops(dev, tmp_path, p_stay: float, p_skip: float):
 
 
 def _bits(x):
-    return x.view(torch.int32)
+    """A float32 tensor's bit patterns (NaN payloads and zero signs
+    included), other tensors as they are."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
 @pytest.mark.cuda
@@ -434,3 +445,147 @@ def test_em_kernels_bit_equal_under_nan_on_the_card(card):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(_bits(g), _bits(w)), flags
+
+
+@pytest.mark.cuda
+def test_traceback_bit_equal_under_nan_on_the_card(card):
+    """K2 (path0, packed codes, logp as bits) bit-equal to its plain
+    version on K1's output for _nan_decode_inputs, whose read 5 ends with a
+    final alpha that is NaN at some states: its end state is the first NaN
+    (torch.argmax), its logp NaN; K3's decode (chunks of 11) bit-equal to
+    K1 + K2 there, its end argmax taken in torch."""
+    gt, model, ev = _nan_decode_inputs(card)
+    fa, bps = hmm.forward_path_kernel(gt, model, ev)
+    want = hmm.viterbi_traceback_grouped_plain(6, fa, bps, ev["length"])
+    n0 = hmm.traceback_kernel.launches
+    got = hmm.viterbi_traceback_grouped(6, fa, bps, ev["length"])
+    torch.cuda.synchronize()
+    assert hmm.traceback_kernel.launches == n0 + 1
+    assert torch.isnan(fa[5]).any() and not torch.isnan(fa[5]).all()
+    assert torch.isnan(want[2][5])
+    for what, g, w in zip(("path0", "codes", "logp"), got, want):
+        assert torch.equal(_bits(g), _bits(w)), what
+    full = hmm.viterbi_decode_grouped(gt, model, ev)
+    chunked = hmm.viterbi_decode_grouped_tchunk(gt, model, ev, 11)
+    torch.cuda.synchronize()
+    for k in ("path0", "codes", "logp"):
+        assert torch.equal(_bits(chunked[k]), _bits(full[k])), k
+
+
+#: (T, lengths, chunk borders, K3's decode chunk) of the ring cases: reads
+#: long enough to wrap the ring many times, and more reads than the H100's
+#: 132 SMs (the CLI batches 256 reads of a short bucket)
+RING_CASES = {
+    "long": (600, [600, 0, 1, 2, 3, 4, 5, 599, 130, 131, 132, 262, 263, 400],
+             (0, 131, 262, 600), 128),
+    "wide": (64, [i % 65 for i in range(300)], (0, 21, 42, 64), 21),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+def test_traceback_ring_bit_equal_on_the_card(card, case):
+    """The row ring of the traceback walks: K2 bit-equal to its plain
+    version; K3's traceback chunk and K9's states chunk bit-equal to their
+    plain versions on the case's chunks from random carried states (a
+    read's end inside, before and after a chunk); K3's decode in chunks
+    bit-equal to K1 + K2.  Cases: 14 reads of 600 events (lengths 0 to
+    T), and 300 reads of 64 events (lengths 0 to T), more blocks than
+    SMs."""
+    T, lengths, borders, tc = RING_CASES[case]
+    gt, model, ev = _grouped_inputs(card, lengths, T, 12)
+    fa, bps = hmm.forward_path_kernel(gt, model, ev)
+    want = hmm.viterbi_traceback_grouped_plain(6, fa, bps, ev["length"])
+    got = hmm.traceback_kernel(6, fa, bps, ev["length"])
+    torch.cuda.synchronize()
+    for what, g, w in zip(("path0", "codes", "logp"), got, want):
+        assert torch.equal(_bits(g), _bits(w)), what
+    B = len(lengths)
+    rng = np.random.default_rng(12)
+    end = torch.argmax(fa, dim=-1).to(torch.int32)
+    filler = torch.zeros((1, B, 4096), dtype=torch.uint8, device=card)
+    for t0, t1 in zip(borders[:-1], borders[1:]):
+        rows = (torch.cat([filler, bps[:t1 - 1]]) if t0 == 0
+                else bps[t0 - 1:t1 - 1])
+        carry = torch.from_numpy(rng.integers(0, 4096, B).astype(
+            np.int32)).to(card)
+        s_p, codes_p = hmm.viterbi_traceback_grouped_chunk_plain(
+            6, end, carry, rows, t0, ev["length"])
+        packed_p = torch.zeros_like(got[1])
+        hmm.or_packed_codes(packed_p, codes_p, t0)
+        s_k, packed_k = carry.clone(), torch.zeros_like(got[1])
+        hmm.traceback_chunk_kernel(6, end, s_k, rows, t0, ev["length"],
+                                   packed_k)
+        s_sp, states_p = hmm.viterbi_traceback_grouped_chunk_plain(
+            6, end, carry, rows, t0, ev["length"], compact=False)
+        s_sk = carry.clone()
+        states_k = torch.empty((t1 - t0, B), dtype=torch.uint16,
+                               device=card)
+        hmm.traceback_chunk_states_kernel(6, end, s_sk, rows, t0,
+                                          ev["length"], states_k)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, s_p.to(torch.int32)), (t0, t1)
+        assert torch.equal(packed_k, packed_p), (t0, t1)
+        assert torch.equal(s_sk, s_sp.to(torch.int32)), (t0, t1)
+        assert torch.equal(states_k.int(), states_p.int()), (t0, t1)
+    full = hmm.viterbi_decode_grouped(gt, model, ev)
+    chunked = hmm.viterbi_decode_grouped_tchunk(gt, model, ev, tc)
+    torch.cuda.synchronize()
+    for k in ("path0", "codes", "logp"):
+        assert torch.equal(_bits(chunked[k]), _bits(full[k])), k
+
+
+def _nan_fwbw_events(ev, rows):
+    """NaN events in rows[0] from its middle on and a +inf event in
+    rows[1], in place."""
+    T = ev["mean"].shape[1]
+    ev["mean"][rows[0], T // 2:] = float("nan")
+    ev["mean"][rows[1], 5] = float("inf")
+
+
+@pytest.mark.cuda
+def test_fwbw_backward_bit_equal_under_nan_on_the_card(card):
+    """K6d (K5's beta step, the betas stored) bit-equal to its plain
+    version (betas as bits, tolerance 0) on rows of lengths 0, 1, T-1 and
+    T, clean and with NaN events in one row from its middle on, a +inf
+    event in another and a NaN model entry at one state of a third; one
+    launch counted per call."""
+    T = 24
+    lengths = [T, 0, 1, T - 1, T, T, T, 9]
+    B = len(lengths)
+    rng = np.random.default_rng(11)
+    _, model, ev = _k6_inputs(card, B, T, lengths, 11)
+    gtf = hmm.make_grouped_full_device(
+        convert.tensor(rng.uniform(0.05, 0.2, B).astype(np.float32), card),
+        convert.tensor(rng.uniform(0.2, 0.4, B).astype(np.float32), card), 6)
+    for what in ("clean", "NaN"):
+        if what == "NaN":
+            _nan_fwbw_events(ev, (4, 6))
+            model.level_mean[5, 321] = float("nan")
+        want = hmm.fwbw_grouped_backward_plain(gtf, model, ev)
+        n0 = hmm.fwbw_backward_kernel.launches
+        got = hmm.fwbw_grouped_backward(gtf, model, ev)
+        torch.cuda.synchronize()
+        assert hmm.fwbw_backward_kernel.launches == n0 + 1
+        if what == "NaN":
+            assert torch.isnan(want[4]).any() and torch.isnan(want[5]).any()
+        assert torch.equal(_bits(got), _bits(want)), what
+
+
+@pytest.mark.cuda
+def test_fwbw_custom_kernel_bit_equal_under_nan_on_the_card(card):
+    """K6e bit-equal to its plain version (alpha, beta and gamma as bits)
+    with NaN events in one read from its middle on, a +inf event in
+    another and a NaN model entry at one state of a third, lengths 0, 1,
+    T-1 and T among the reads."""
+    T = 40
+    ops, model, ev = _k6_inputs(card, 7, T, [T, 0, 1, T - 1, T, T, T], 13)
+    _nan_fwbw_events(ev, (4, 6))
+    model.level_mean[5, 99] = float("nan")
+    want = hmm.fwbw_custom_plain(ops, model, ev)
+    got = hmm.fwbw_custom(ops, model, ev)
+    torch.cuda.synchronize()
+    assert torch.isnan(want["gamma"][4]).any()
+    assert torch.isnan(want["gamma"][5]).any()
+    for k in ("alpha", "beta", "gamma"):
+        assert torch.equal(_bits(got[k]), _bits(want[k])), k

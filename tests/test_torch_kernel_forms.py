@@ -14,7 +14,11 @@ checked on the CPU:
 - K4's column sums on K1's layout: S4 over a thread's own registers and
   S16 gathered by shuffles in increasing row order are hmm.strided_sum's
   float sequences bit for bit (NaN and +-inf entries included), and its
-  padded column arrays are free of bank conflicts.
+  padded column arrays are free of bank conflicts;
+- K2's end argmax (csrc/viterbi_traceback.cu): 4 states a thread, the
+  warp's shuffle-down tree, then the 32 warps, by the rule that counts a
+  NaN above every number and breaks ties to the lower index, is
+  torch.argmax / torch.amax (value as bits) under NaN, +-inf and ties.
 """
 
 import numpy as np
@@ -68,13 +72,42 @@ def _sum16_chain(G: torch.Tensor) -> torch.Tensor:
     return s
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+def _k6d_g(seed: int = 3) -> torch.Tensor:
+    """g = em(t+1) + beta of fwbw_grouped_backward_plain (K6d's plain
+    version) at every step of 4 random reads of 6 events: the values whose
+    exp(g - m) K6d sums by K5's chain (csrc/beta_step.cuh)."""
+    rng = np.random.default_rng(seed)
+    B, T = 4, 6
+    model = hmm.make_model_arrays(*(torch.from_numpy(
+        rng.uniform(lo, hi, N).astype(np.float32)) for lo, hi in (
+            (60.0, 120.0), (1.0, 3.0), (0.5, 2.0), (0.5, 2.0))), B=B)
+    stdv = torch.from_numpy(rng.uniform(0.6, 1.8, (B, T)).astype(np.float32))
+    ev = {"mean": torch.from_numpy(rng.uniform(60.0, 120.0, (B, T)).astype(
+              np.float32)),
+          "stdv": stdv, "log_stdv": torch.log(stdv),
+          "length": torch.full((B,), T, dtype=torch.int32)}
+    gtf = hmm.make_grouped_full_device(
+        torch.from_numpy(rng.uniform(0.05, 0.2, B).astype(np.float32)),
+        torch.from_numpy(rng.uniform(0.2, 0.4, B).astype(np.float32)), 6)
+    betas = hmm.fwbw_grouped_backward_plain(gtf, model, ev)
+    return torch.cat([hmm.log_emission(model, ev["mean"][:, t + 1],
+                                       ev["stdv"][:, t + 1],
+                                       ev["log_stdv"][:, t + 1])
+                      + betas[:, t + 1] for t in range(T - 1)])
+
+
+@pytest.mark.parametrize("seed", [0, 1, "k6d"])
 def test_sum16_chain_equals_block_sum_bitwise(seed):
     """The chain through 4 threads is block_sum(G, 16)'s float sequence,
     and its first link is block_sum(G, 4), on exp(g - max g) of seeded
-    random g of a wide range (tiny and large terms mixed)."""
-    rng = np.random.default_rng(seed)
-    g = torch.from_numpy(rng.normal(0.0, 8.0, (16, N)).astype(np.float32))
+    random g of a wide range (tiny and large terms mixed), and ("k6d") of
+    K6d's own g, which takes the same chain since K6d runs K5's step."""
+    if seed == "k6d":
+        g = _k6d_g()
+    else:
+        rng = np.random.default_rng(seed)
+        g = torch.from_numpy(rng.normal(0.0, 8.0, (16, N)).astype(
+            np.float32))
     G = torch.exp(g - torch.amax(g, dim=-1, keepdim=True))
     want = hmm.block_sum(G, 16)
     assert torch.equal(_sum16_chain(G).view(torch.int32),
@@ -324,3 +357,94 @@ def test_k4_padded_columns_free_of_bank_conflicts():
             assert conflict_free(p4(j >> 2)) and conflict_free(p16(j >> 4))
             assert np.array_equal(p4(j >> 2), p4(c[wi] >> 2) + 264 * r)
             assert np.array_equal(p16(j >> 4), p16(c[wi] >> 4) + 68 * r)
+
+
+def _take_better(best, idx, ob, oi):
+    """K2's take_better (K6b's rule) on tensors: the better of (best, idx)
+    and (ob, oi), a NaN above every number, ties to the lower index."""
+    o_nan, b_nan = torch.isnan(ob), torch.isnan(best)
+    take = torch.where(o_nan | b_nan, o_nan & (~b_nan | (oi < idx)),
+                       (ob > best) | ((ob == best) & (oi < idx)))
+    return torch.where(take, ob, best), torch.where(take, oi, idx)
+
+
+def _take_better_dropping_nan(best, idx, ob, oi):
+    """A rule by `ob > best` alone, which never takes a NaN."""
+    take = (ob > best) | ((ob == best) & (oi < idx))
+    return torch.where(take, ob, best), torch.where(take, oi, idx)
+
+
+def _shfl_down_tree(best, idx, rule):
+    """The 32-lane shuffle-down tree over the last dim: at offset 16, 8, ..
+    1 lane l takes lane l + off, or keeps its own value past lane 31 (what
+    __shfl_down_sync returns there); lane 0's result."""
+    for off in (16, 8, 4, 2, 1):
+        ob = torch.cat([best[..., off:], best[..., 32 - off:]], -1)
+        oi = torch.cat([idx[..., off:], idx[..., 32 - off:]], -1)
+        best, idx = rule(best, idx, ob, oi)
+    return best[..., 0], idx[..., 0]
+
+
+def _k2_end_argmax(fa: torch.Tensor, rule=_take_better):
+    """K2's end reduction in the kernel's order: thread t's states 4t ..
+    4t+3 in turn, the shuffle tree of each warp (threads 32 w .. 32 w + 31),
+    then the tree over the 32 warps' results.  Returns (best, idx)."""
+    B = fa.shape[0]
+    v = fa.view(B, 1024, 4)
+    i = torch.arange(N, dtype=torch.int64).view(1, 1024, 4).expand(B, -1, -1)
+    best, idx = v[..., 0], i[..., 0]
+    for k in range(1, 4):
+        best, idx = rule(best, idx, v[..., k], i[..., k])
+    best, idx = _shfl_down_tree(best.view(B, 32, 32), idx.view(B, 32, 32),
+                                rule)
+    return _shfl_down_tree(best, idx, rule)
+
+
+def _end_alpha(case: str, rng) -> torch.Tensor:
+    """Rows of final alphas for one case of the K2 argmax test."""
+    fa = torch.from_numpy(rng.normal(-5000.0, 50.0, (6, N)).astype(
+        np.float32))
+    nan, inf = float("nan"), float("inf")
+    if case == "nan_at_0":
+        fa[:, 0] = nan
+    elif case == "nan_middle":
+        fa[:, 1234] = nan
+        fa[:, 3801] = -1.0  # the largest number, above the NaN's index
+    elif case == "nan_several":
+        for r in range(6):
+            fa[r, rng.choice(N, 2 + r, replace=False)] = nan
+    elif case == "all_nan":
+        fa[:] = nan
+    elif case == "pm_inf":
+        fa[0, 77] = inf
+        fa[1, [5, 4000]] = inf
+        fa[2] = -inf
+        fa[3, :2048] = -inf
+        fa[4, 3000] = inf
+        fa[4, 2999] = nan
+        fa[5, rng.choice(N, 100, replace=False)] = -inf
+    elif case == "ties":
+        for r in range(6):
+            fa[r, rng.choice(N, 3 + r, replace=False)] = -7.5
+        fa[5, :] = -7.5
+    return fa
+
+
+@pytest.mark.parametrize("case", ["random", "nan_at_0", "nan_middle",
+                                  "nan_several", "all_nan", "pm_inf",
+                                  "ties"])
+def test_k2_end_argmax_equals_torch_argmax(case):
+    """K2's end state and logp, reduced in the kernel's order by its rule,
+    equal torch.argmax's index and torch.amax's value (as bits) on rows
+    with a NaN at state 0, at a middle state below a larger number, at
+    several states, at every state, with +-inf (an +inf beside a NaN, rows
+    of -inf), and with ties (first index wins)."""
+    fa = _end_alpha(case, np.random.default_rng(7))
+    best, idx = _k2_end_argmax(fa)
+    assert torch.equal(idx, torch.argmax(fa, dim=-1)), case
+    assert torch.equal(best.view(torch.int32),
+                       torch.amax(fa, dim=-1).view(torch.int32)), case
+    if case == "nan_middle":
+        # a rule by `>` alone drops that NaN: state 3801, logp -1
+        best, idx = _k2_end_argmax(fa, _take_better_dropping_nan)
+        assert torch.all(idx == 3801) and torch.all(best == -1.0)

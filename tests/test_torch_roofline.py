@@ -28,7 +28,8 @@ COPIED = ("log_emission_ops", "grouped_forward_ops_per_event",
           "em_fused_ops_per_event", "em_fused_hbm_bytes_per_event")
 
 #: kernel_bound at the shapes of PERF.md's kernel table: exactly what
-#: chip_smoke.bound returned before the counts moved into the package
+#: chip_smoke.bound returned before the counts moved into the package,
+#: but for counts that follow a kernel's redesign
 PINNED = {
     ("viterbi_forward_path", 128, 8192): (1.8389831985671643, "operations"),
     ("viterbi_forward_score", 128, 8192): (1.8389831985671643,
@@ -38,7 +39,8 @@ PINNED = {
                                          "operations"),
     ("fwbw_forward", 512, 128): (0.34329370746268656, "bytes"),
     ("em_backward", 512, 128): (0.35831624597014927, "bytes"),
-    ("fwbw_grouped_backward", 512, 128): (0.34329309611940295, "bytes"),
+    # K6d's count since its redesign: model rows and codebooks, no tables
+    ("fwbw_grouped_backward", 512, 128): (0.3358408214925373, "bytes"),
     ("viterbi_generic_forward_path", 128, 8192): (5.25652713838806,
                                                   "operations"),
     ("viterbi_generic_forward_score", 128, 8192): (3.910343359044776,

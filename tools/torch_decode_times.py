@@ -4,7 +4,7 @@
     python3 tools/torch_decode_times.py [--B 128] [--T 8192] [--reads 256]
                                         [--train] [--trans FILE] [--profile]
                                         [--long 100000] [--em] [--census]
-                                        [--k4-launches]
+                                        [--k4-launches] [--walks]
                                         [--tree DIR | --turns DIR]
 
 1. K8, the measured float32 peak at the decode's shape
@@ -57,6 +57,15 @@ resident kernel, timed in turns (streaming, resident, resident, streaming)
 and bit-equal to each other, and the resident kernel under the (0.14,
 0.21) table cut to 19 slots a side and extended to 23 (slots 0 and 1
 repeated), the slot counts on either side of the loaded tables' 21.
+With --em, K6d (the grouped backward, betas stored) too, on the full chunk
+and on the chunk with half its rows of length 0: bit-equal to its plain
+version, timed in the same turns as K4 and K5.
+With --walks, phase 1 is replaced by the traceback walks alone: K2 at
+--B x --T on K1's output, K3's traceback chunk and K9's states chunk on
+events [8192, 16384) of 4 reads, each bit-equal to its plain version and
+timed (the mean of 2 x WALK_REPS calls, in the order K2, K3, K9, K9, K3,
+K2), and K2 probed under a NaN stay entry (16 x 512): bit-equal to its
+plain version or not (torch.argmax takes the first NaN).
 With --train --k4-launches, also K4 on the inputs of each of its launches
 in one more trained pipeline run: milliseconds per launch.  Phase 1 also
 times K3's forward chunk (events [8192, 16384) of 4 reads, chunks of 8192)
@@ -119,6 +128,9 @@ def main() -> int:
                     help="print the SASS census of the kernels' time loops")
     ap.add_argument("--k4-launches", action="store_true",
                     help="time K4 on each launch's inputs of a trained run")
+    ap.add_argument("--walks", action="store_true",
+                    help="time the traceback walks (K2, K3, K9) alone in "
+                         "place of phase 1")
     ap.add_argument("--tree", default="", metavar="DIR",
                     help="run on the checkout in DIR")
     ap.add_argument("--turns", default="", metavar="DIR",
@@ -154,7 +166,9 @@ def main() -> int:
     if args.census:
         print_census()
 
-    if args.B:
+    if args.walks:
+        time_walks(models, device, card, args.B, args.T)
+    elif args.B:
         k = roofline.FMA_K
         peak, seconds = roofline.measure_fma_peak(args.B, 4096, args.T, k=k)
         print(f"K8 peak (measure_fma_peak) B={args.B} n=4096 T={args.T} "
@@ -356,8 +370,8 @@ def run_turns(other: str) -> int:
 
 
 #: the time loops of K1 (path, score-only; one runtime-switched instance
-#: before the redesign), K3's forward chunk, K4, K5 and K6c's streaming
-#: kernel, by kernel name marker
+#: before the redesign), K3's forward chunk, K4, K5, K6d and K6c's
+#: streaming kernel, by kernel name marker
 CENSUS_LOOPS = (("K1 path", ("viterbi_forward_kernelILb0ELb1E",
                              "viterbi_forward_kernelILb0E")),
                 ("K1 score", ("viterbi_forward_kernelILb0ELb0E",)),
@@ -365,6 +379,7 @@ CENSUS_LOOPS = (("K1 path", ("viterbi_forward_kernelILb0ELb1E",
                                       "viterbi_forward_kernelILb1E")),
                 ("K4", ("fwbw_forward_kernel",)),
                 ("K5", ("em_backward_kernel",)),
+                ("K6d", ("fwbw_backward_kernel",)),
                 ("K6c streaming", ("fwbw_generic_kernel",)))
 
 
@@ -431,11 +446,12 @@ EM_REPS = 20
 
 
 def time_em_kernels(models, device, card: str) -> None:
-    """K4 and K5 at the EM chunk's shape against their plain versions,
+    """K4, K5 and K6d at the EM chunk's shape against their plain versions,
     with bounds and shares of the K8 peak measured there; each kernel's
     time the mean of 2 x EM_REPS calls, K4 with alphas, K4 without, K4 on
-    the chunk with half its rows of length 0, K5, then the same in reverse
-    (one card's clocks drift within a process)."""
+    the chunk with half its rows of length 0, K5, K6d on the full and the
+    half-idle chunk, then the same in reverse (one card's clocks drift
+    within a process)."""
     import numpy as np
     import torch
 
@@ -452,19 +468,25 @@ def time_em_kernels(models, device, card: str) -> None:
     recs["fwbw_forward, no alphas stored"] = {
         "plain_ms": chip_smoke.cuda_ms(lambda: hmm.fwbw_grouped_forward_plain(
             gtf, model, ev, with_alphas=False), 1)}
-    # the chunk with its second half as a trained run's chunks have it when
-    # 1D reads fill them: strands of length 0 on pack_train_batch's padding
-    # events (mean 1, stdv 1, log_stdv 0)
-    half = {k: v.clone() for k, v in ev.items()}
-    half["length"][B // 2:] = 0
-    for k, x in (("mean", 1.0), ("stdv", 1.0), ("log_stdv", 0.0)):
-        half[k][B // 2:] = x
+    # the chunk as a trained run's chunks have it when 1D reads fill them
+    half = chip_smoke.half_idle(ev)
     recs["fwbw_forward, half the rows of length 0"] = {
         "plain_ms": chip_smoke.cuda_ms(lambda: hmm.fwbw_grouped_forward_plain(
             gtf, model, half), 1)}
     for got, want in zip(hmm.fwbw_forward_kernel(gtf, model, half),
                          hmm.fwbw_grouped_forward_plain(gtf, model, half)):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for name, e in (("fwbw_grouped_backward", ev),
+                    ("fwbw_grouped_backward, half the rows of length 0",
+                     half)):
+        ms, want = chip_smoke.cuda_ms_once(
+            lambda: hmm.fwbw_grouped_backward_plain(gtf, model, e))
+        got = hmm.fwbw_backward_kernel(gtf, model, e)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            name
+        recs[name] = {"plain_ms": ms}
+        del got, want
     alphas, lpd = hmm.fwbw_forward_kernel(gtf, model, ev)
     args = train.em_backward_args(inp, lpd, alphas, True, True)
     calls = {"fwbw_forward": lambda: hmm.fwbw_forward_kernel(gtf, model, ev),
@@ -472,7 +494,11 @@ def time_em_kernels(models, device, card: str) -> None:
                  gtf, model, ev, with_alphas=False),
              "fwbw_forward, half the rows of length 0":
                  lambda: hmm.fwbw_forward_kernel(gtf, model, half),
-             "em_backward": lambda: em.em_backward_kernel(*args)}
+             "em_backward": lambda: em.em_backward_kernel(*args),
+             "fwbw_grouped_backward": lambda: hmm.fwbw_backward_kernel(
+                 gtf, model, ev),
+             "fwbw_grouped_backward, half the rows of length 0":
+                 lambda: hmm.fwbw_backward_kernel(gtf, model, half)}
     turns = {name: [] for name in calls}
     for name in (*calls, *reversed(list(calls))):
         turns[name].append(chip_smoke.cuda_ms(calls[name], EM_REPS))
@@ -532,6 +558,140 @@ def probe_em_under_nan(inp, card: str) -> None:
               f"({' x '.join(map(str, ev['mean'].shape))}): "
               f"{'bit-equal to' if ok else 'DIFFERS from'} the plain version "
               f"[{card}]", flush=True)
+
+
+#: calls per time of the walks in time_walks
+WALK_REPS = 10
+#: K2's shape in time_walks as the CLI batches a short bucket
+#: (bucket_max_batch reads)
+WIDE = (256, 2048)
+
+
+def time_walks(models, device, card: str, B: int, T: int) -> None:
+    """K2 at B x T on K1's output (chip_smoke.kernel_inputs' lengths, and
+    again with every length T: T - 1 rows a read) and at WIDE, K3's
+    traceback chunk and K9's states chunk on events [8192, 16384) of 4
+    reads (K1's rows of those events, from random carried states), each
+    bit-equal to its plain version, then timed: the mean of 2 x WALK_REPS
+    calls, K2, K3, K9 and back (a chunk's call includes the carry's clone,
+    and K3's the zeroing of its 12 KB of codes); the rows each K2 walk at
+    B x T reads and their time at 3.35 TB/s are printed.  Then K2 against
+    its plain
+    version on K1's output at 16 x 512 under a NaN stay entry (the final
+    alpha NaN at some states): bit-equal or not."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import roofline
+    from nanocall_tpu_torch.ops import hmm
+
+    gt, model, ev = chip_smoke.kernel_inputs(models, device, B, T,
+                                             np.random.default_rng(11))
+    fa, bps = hmm.forward_path_kernel(gt, model, ev)
+    del gt, model
+    lengths = ev["length"]
+    got = hmm.traceback_kernel(6, fa, bps, lengths)
+    ms, want = chip_smoke.cuda_ms_once(
+        lambda: hmm.viterbi_traceback_grouped_plain(6, fa, bps, lengths))
+    for g, w in zip(got, want):
+        assert torch.equal(chip_smoke.bits(g), chip_smoke.bits(w))
+    # the same rows walked at full length: every read streams T - 1 rows
+    full = torch.full_like(lengths, T)
+    ms_full, want = chip_smoke.cuda_ms_once(
+        lambda: hmm.viterbi_traceback_grouped_plain(6, fa, bps, full))
+    for g, w in zip(hmm.traceback_kernel(6, fa, bps, full), want):
+        assert torch.equal(chip_smoke.bits(g), chip_smoke.bits(w))
+    del want
+    # K2 as the CLI's short buckets batch it: more reads than SMs
+    Bw, Tw = WIDE
+    gtw, modelw, evw = chip_smoke.kernel_inputs(models, device, Bw, Tw,
+                                                np.random.default_rng(16))
+    faw, bpsw = hmm.forward_path_kernel(gtw, modelw, evw)
+    lenw = evw["length"]
+    del gtw, modelw
+    ms_wide, want = chip_smoke.cuda_ms_once(
+        lambda: hmm.viterbi_traceback_grouped_plain(6, faw, bpsw, lenw))
+    for g, w in zip(hmm.traceback_kernel(6, faw, bpsw, lenw), want):
+        assert torch.equal(chip_smoke.bits(g), chip_smoke.bits(w))
+    del want
+    plain = {"viterbi_traceback": ms,
+             "viterbi_traceback, full lengths": ms_full,
+             f"viterbi_traceback, {Bw} reads": ms_wide}
+    calls = {"viterbi_traceback": (
+                 lambda: hmm.traceback_kernel(6, fa, bps, lengths), (B, T)),
+             "viterbi_traceback, full lengths": (
+                 lambda: hmm.traceback_kernel(6, fa, bps, full), (B, T)),
+             f"viterbi_traceback, {Bw} reads": (
+                 lambda: hmm.traceback_kernel(6, faw, bpsw, lenw), (Bw, Tw))}
+    for what, ln in (("", lengths), (", full lengths", full)):
+        rows_walked = int((ln.clamp(max=T) - 1).clamp(min=0).sum())
+        gb = rows_walked * 4096 / 1e9
+        print(f"kernel viterbi_traceback{what} B={B} T={T}: the walk reads "
+              f"{rows_walked} rows = {gb:.3f} GB, {gb / 3.35:.3f} ms at "
+              f"3.35 TB/s [{card}]", flush=True)
+
+    Bc, Tc = chip_smoke.B_LONG, chip_smoke.TC_LONG
+    gt4, model4, ev4 = chip_smoke.kernel_inputs(
+        models, device, Bc, 2 * Tc, np.random.default_rng(13))
+    fa4, bps4 = hmm.forward_path_kernel(gt4, model4, ev4)
+    rows = bps4[Tc - 1:2 * Tc - 1].contiguous()
+    del bps4
+    len4 = ev4["length"]
+    end = torch.argmax(fa4, dim=-1).to(torch.int32)
+    carry = torch.randint(0, 4096, (Bc,), dtype=torch.int32, device=device)
+    code_bytes = 3 * (-(-(2 * Tc - 1) // 4))
+    codes = torch.zeros((Bc, code_bytes), dtype=torch.uint8, device=device)
+    state = carry.clone()
+    hmm.traceback_chunk_kernel(6, end, state, rows, Tc, len4, codes)
+    ms, (s_p, codes_p) = chip_smoke.cuda_ms_once(
+        lambda: hmm.viterbi_traceback_grouped_chunk_plain(
+            6, end, carry, rows, Tc, len4))
+    packed_p = torch.zeros_like(codes)
+    hmm.or_packed_codes(packed_p, codes_p, Tc)
+    assert torch.equal(state, s_p.to(torch.int32))
+    assert torch.equal(codes, packed_p)
+    plain["viterbi_traceback_chunk"] = ms
+    states = torch.empty((Tc, Bc), dtype=torch.uint16, device=device)
+    state = carry.clone()
+    hmm.traceback_chunk_states_kernel(6, end, state, rows, Tc, len4, states)
+    ms, (s_p, states_p) = chip_smoke.cuda_ms_once(
+        lambda: hmm.viterbi_traceback_grouped_chunk_plain(
+            6, end, carry, rows, Tc, len4, compact=False))
+    assert torch.equal(state, s_p.to(torch.int32))
+    assert torch.equal(states.int(), states_p.int())
+    plain["viterbi_traceback_chunk_states"] = ms
+    calls["viterbi_traceback_chunk"] = (
+        lambda: hmm.traceback_chunk_kernel(6, end, carry.clone(), rows, Tc,
+                                           len4, codes.zero_()), (Bc, Tc))
+    calls["viterbi_traceback_chunk_states"] = (
+        lambda: hmm.traceback_chunk_states_kernel(
+            6, end, carry.clone(), rows, Tc, len4, states), (Bc, Tc))
+    turns = {name: [] for name in calls}
+    for name in (*calls, *reversed(list(calls))):
+        turns[name].append(chip_smoke.cuda_ms(calls[name][0], WALK_REPS))
+    for name, ms in turns.items():
+        shape = calls[name][1]
+        b = roofline.kernel_bound(name.split(",")[0], *shape)
+        print(f"kernel {name} B={shape[0]} T={shape[1]}: "
+              f"{sum(ms) / len(ms):.3f} ms (turns "
+              f"{', '.join(f'{x:.3f}' for x in ms)}), plain "
+              f"{plain[name]:.3f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}), bit-equal [{card}]", flush=True)
+    del fa, bps, rows, faw, bpsw
+    torch.cuda.empty_cache()
+
+    gt, model, ev = chip_smoke.kernel_inputs(
+        models, device, 16, 512, np.random.default_rng(14))
+    gt.stay_lp[0, 1234] = float("nan")
+    fa, bps = hmm.forward_path_kernel(gt, model, ev)
+    got = hmm.traceback_kernel(6, fa, bps, ev["length"])
+    want = hmm.viterbi_traceback_grouped_plain(6, fa, bps, ev["length"])
+    same = all(torch.equal(chip_smoke.bits(g), chip_smoke.bits(w))
+               for g, w in zip(got, want))
+    print(f"K2 under a NaN stay entry (16 x 512; final alpha NaN at "
+          f"{int(torch.isnan(fa[0]).sum())} of 4096 states of read 0): "
+          f"{'bit-equal to' if same else 'DIFFERS from'} the plain version "
+          f"[{card}]", flush=True)
 
 
 def time_k4_launches(run, reads, card: str) -> None:
