@@ -13,10 +13,13 @@ from the root of a checkout.  It
      K1 (path and score-only), K3's forward chunk, K4, K5 and K6d:
      instructions per state and step, by class (step_loop_sass), of the
      traceback walks of K2, K3 and K9 (walk_loop_sass), and of the resident
-     K6c's two time loops (barrier_loops_sass): K4's and K6d's loops must
-     hold at most 2 block barriers, K2's walk no global load (its rows come
-     from shared memory), the resident K6c's loops no global load but the
-     stored emissions' (no slot-table byte);
+     K6c's and K6e's two time loops (barrier_loops_sass): K4's and K6d's
+     loops must hold at most 2 block barriers, K2's walk and K6b's ring
+     walk no global load (their rows and K6b's from-state table come from
+     shared memory; K6b stores its path), the resident K6c's loops no
+     global load but the stored emissions' (no slot-table byte), the
+     resident K6e's forward loop 3 block barriers and its backward loop 1,
+     and no slot-table byte from global memory;
   3. writes the 21-neighbour transition tables of (p_stay 0.14, p_skip
      0.21) and of the CLI priors (0.1, 0.3) as transitions TSVs and loads
      them back through the port CLI's `-s/--trans` loader: loaded tables
@@ -27,10 +30,14 @@ from the root of a checkout.  It
      0 to T, per-read scaling and transitions): the grouped K1 (path and
      score-only) and K2, and under the loaded table the generic K6a's two
      kernels (streaming and resident, path and score-only, timed in turns:
-     streaming, resident, resident, streaming), K6b and K6e (the
-     per-step-normalized forward-backward of `run-fwbw --custom-fwbw`:
-     alpha, beta and gamma of 3 x 0.54 GB; also on inputs with NaN events,
-     a +inf event and a NaN model entry); holds each to its plain
+     streaming, resident, resident, streaming), K6b's two kernels
+     (streaming, and the ring the table takes; timed in turns) and K6e's
+     two (the per-step-normalized forward-backward of `run-fwbw
+     --custom-fwbw`: alpha, beta and gamma of 3 x 0.54 GB; the resident
+     kernel the table takes and the streaming one, timed in turns; both
+     also on inputs with NaN events, a +inf event and a NaN model entry,
+     and the resident one's instance for any slot count under a random
+     packed table of 12 / 23 slots); holds each to its plain
      PyTorch version on the same inputs: tolerance 0, every output
      bit-equal; prints both times; K1 (path and score-only), K3's forward
      chunk and K9 (2 ranks) again on the inputs with NaN events in one
@@ -40,9 +47,11 @@ from the root of a checkout.  It
      some states) bit-equal to its plain version and K3's decode bit-equal
      to K1 + K2; then K6a through viterbi_forward under
      a random table of 24 slots x 16 log-probs (the resident kernel's
-     widest layout) and under the in-memory 21-neighbour pairs, whose
-     slots hold up to 17 log-probs (the streaming kernel), each bit-equal
-     to the plain version; then
+     widest layout), under the in-memory 21-neighbour pairs, whose
+     slots hold up to 17 log-probs (the streaming kernel), and under a
+     random table of 25 slots (both streaming kernels), each bit-equal
+     to the plain version, with K6b (the ring, but the streaming kernel
+     under the 25 slots) on its output; then
      K3, the chunked-time decode's forward and traceback
      kernels, at the same shape in chunks of 600 events (a short last
      chunk): each chunk's outputs against the plain versions (tolerance 0)
@@ -112,8 +121,9 @@ from the root of a checkout.  It
      and the resident K6c, never the streaming one, then the decode of the
      trained tasks by K1 and K2); and untrained under the first (`-s --no-train`:
      every task at the priors, so K6a's resident kernel path and
-     score-only, and K6b), then that run again with the table's packed
-     layout taken away (K6a's streaming kernel; FASTA byte-equal).  Each
+     score-only, and K6b's ring), then that run again with the table's
+     packed layout and its from-state table taken away (K6a's and K6b's
+     streaming kernels; FASTA byte-equal).  Each
      run checks one FASTA record per decoded strand, identity to the
      simulated truth above 0.6, and that each of its kernels launched; a
      trained run also checks that every trained 1D read's best candidate
@@ -135,12 +145,13 @@ from the root of a checkout.  It
      build/chip_smoke/tools/: the builtin r73 template model
      (pore_model.save_tsv), the loaded table above, and one 1D read of
      4,000 events simulated from that model: run-viterbi (K6a with
-     backpointers and K6b; identity to the truth above 0.6), run-fwbw (the
-     resident K6c) and run-fwbw --custom-fwbw (K6e), each printed posterior
-     in [0.1, 1] and descending; both fwbw runs again with -o on a
-     200-event read, whose matrix dumps must give posteriors that sum to 1;
-     run-fwbw once more with the table's K6c layout taken away (the
-     streaming K6c: the same output byte for byte); and -K 3 on the card,
+     backpointers and K6b's ring; identity to the truth above 0.6),
+     run-fwbw (the resident K6c) and run-fwbw --custom-fwbw (the resident
+     K6e), each printed posterior in [0.1, 1] and descending; both fwbw
+     runs again with -o on a 200-event read, whose matrix dumps must give
+     posteriors that sum to 1; both fwbw runs once more with the table's
+     K6c layout taken away (the streaming K6c and K6e: the same output
+     byte for byte); and -K 3 on the card,
      which must raise the kernels' ValueError and launch nothing;
  10. basecall.dump_training_data (`--dump-training-data`) on the in-memory
      summaries of two simulated reads: it must launch the resident K6c
@@ -210,9 +221,9 @@ TRANS_TRAINED_KERNELS = ("fwbw_forward", "fwbw_grouped_backward",
                          "viterbi_traceback")
 TRANS_UNTRAINED_KERNELS = ("viterbi_resident_forward_path",
                            "viterbi_resident_forward_score",
-                           "viterbi_generic_traceback")
-#: kernels the same run must launch with the table's packed layout taken
-#: away (K6a's streaming kernel)
+                           "viterbi_generic_traceback_ring")
+#: kernels the same run must launch with the table's packed layout and its
+#: from-state table taken away (K6a's and K6b's streaming kernels)
 STREAMING_KERNELS = ("viterbi_generic_forward_path",
                      "viterbi_generic_forward_score",
                      "viterbi_generic_traceback")
@@ -237,10 +248,11 @@ TOOLS_EVENTS, TOOLS_DUMP_EVENTS = 4000, 200
 #: kernels each dev tool run must launch
 TOOL_KERNELS = {
     "run_viterbi": ("viterbi_resident_forward_path",
-                    "viterbi_generic_traceback"),
+                    "viterbi_generic_traceback_ring"),
     "run_fwbw": ("fwbw_resident",),
-    "run_fwbw_custom": ("fwbw_custom",),
+    "run_fwbw_custom": ("fwbw_custom_resident",),
     "run_fwbw_streaming": ("fwbw_generic",),
+    "run_fwbw_custom_streaming": ("fwbw_custom",),
 }
 
 
@@ -743,33 +755,52 @@ def k6a_call(name: str, ops, model, ev):
     return out if path else (out, None)
 
 
-def time_k6a_in_turns(ops, model, ev, reps: int = 3,
-                      sample=None) -> dict:
-    """K6a's streaming and resident kernels timed in turns under one table,
-    path and score-only each: streaming, resident, resident, streaming
-    (cuda_ms over reps calls each).  With `sample` (a function of no
-    argument), its value is recorded beside every time.  Returns {kernel
-    name: {"ms": the mean of its two turns, "ms_turns", "samples"}}."""
+def time_in_turns(calls: dict, reps: int = 3, sample=None) -> dict:
+    """Functions of no argument timed in turns: each in order, then each
+    in reverse (for two: a, b, b, a), cuda_ms over reps calls a turn.
+    With `sample` (a function of no argument), its value is recorded
+    beside every time.  Returns {name: {"ms": the mean of its turns,
+    "ms_turns", "samples" (with `sample`)}}."""
     out = {}
-    for kind in ("path", "score"):
-        names = (f"viterbi_generic_forward_{kind}",
-                 f"viterbi_resident_forward_{kind}")
-        for name in (*names, *reversed(names)):
-            ms = cuda_ms(lambda: k6a_call(name, ops, model, ev), reps)
-            r = out.setdefault(name, {"ms_turns": []})
-            r["ms_turns"].append(ms)
-            if sample:
-                r.setdefault("samples", []).append(sample())
+    for name in (*calls, *reversed(list(calls))):
+        ms = cuda_ms(calls[name], reps)
+        r = out.setdefault(name, {"ms_turns": []})
+        r["ms_turns"].append(ms)
+        if sample:
+            r.setdefault("samples", []).append(sample())
     for r in out.values():
         r["ms"] = sum(r["ms_turns"]) / len(r["ms_turns"])
     return out
 
 
+def time_k6a_in_turns(ops, model, ev, reps: int = 3,
+                      sample=None) -> dict:
+    """K6a's streaming and resident kernels timed in turns under one table
+    (time_in_turns), path and score-only each: streaming, resident,
+    resident, streaming.  Returns {kernel name: {"ms", "ms_turns",
+    "samples"}}."""
+    out = {}
+    for kind in ("path", "score"):
+        out.update(time_in_turns(
+            {name: (lambda name=name: k6a_call(name, ops, model, ev))
+             for name in (f"viterbi_generic_forward_{kind}",
+                          f"viterbi_resident_forward_{kind}")},
+            reps, sample))
+    return out
+
+
+#: K6b's kernels by name: the streaming one and the ring
+K6B = {"viterbi_generic_traceback": "generic_traceback_kernel",
+       "viterbi_generic_traceback_ring": "generic_traceback_ring_kernel"}
+
+
 def check_generic_kernels(ops, model, ev, sample=None) -> dict:
     """K6a's two kernels (streaming and resident, path and score-only) and
-    K6b against their plain versions on the same card under the loaded
-    table: bit-equal outputs (tolerance 0); K6a's kernels timed in turns
-    (time_k6a_in_turns, with `sample`).  Returns {kernel name: record}."""
+    K6b's two (streaming and the ring, which the table takes) against their
+    plain versions on the same card under the loaded table: bit-equal
+    outputs (tolerance 0); K6a's kernels timed in turns (time_k6a_in_turns,
+    with `sample`), K6b's too (streaming, ring, ring, streaming).  Returns
+    {kernel name: record}."""
     import torch
 
     from nanocall_tpu_torch.ops import hmm
@@ -790,19 +821,24 @@ def check_generic_kernels(ops, model, ev, sample=None) -> dict:
                       "plain_ms": plain_ms[K6A[name][1]]}
     fa_k, bps_k = outs["viterbi_generic_forward_path"]
     del outs
-    path_p, logp_p = hmm.viterbi_traceback_plain(ops, fa_p, bps_p, lengths)
-    path_k, logp_k = hmm.generic_traceback_kernel(ops, fa_k, bps_k, lengths)
-    torch.cuda.synchronize()
-    assert torch.equal(path_k, path_p), "K6b path differs from plain"
-    assert torch.equal(logp_k, logp_p), "K6b logp differs from plain"
+    assert hmm.generic_traceback_route(ops) == "ring"
+    k6b_plain_ms, (path_p, logp_p) = cuda_ms_once(
+        lambda: hmm.viterbi_traceback_plain(ops, fa_p, bps_p, lengths))
+    for name, wrapper in K6B.items():
+        path_k, logp_k = getattr(hmm, wrapper)(ops, fa_k, bps_k, lengths)
+        torch.cuda.synchronize()
+        assert torch.equal(path_k, path_p), f"{name} path differs from plain"
+        assert torch.equal(bits(logp_k), bits(logp_p)), \
+            f"{name} logp differs from plain"
+        recs[name] = {"max_abs_err": max_err(logp_k, logp_p),
+                      "plain_ms": k6b_plain_ms}
     for name, r in time_k6a_in_turns(ops, model, ev, sample=sample).items():
         recs[name].update(r)
-    recs["viterbi_generic_traceback"] = {
-        "max_abs_err": max_err(logp_k, logp_p),
-        "ms": cuda_ms(lambda: hmm.generic_traceback_kernel(
-            ops, fa_k, bps_k, lengths), 3),
-        "plain_ms": cuda_ms(lambda: hmm.viterbi_traceback_plain(
-            ops, fa_p, bps_p, lengths), 1)}
+    for name, r in time_in_turns(
+            {name: (lambda w=wrapper: getattr(hmm, w)(ops, fa_k, bps_k,
+                                                      lengths))
+             for name, wrapper in K6B.items()}).items():
+        recs[name].update(r)
     return with_shape(recs, ev)
 
 
@@ -826,17 +862,35 @@ def random_resident_table(device, seed: int = 5):
         from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), device)
 
 
+def random_table_ops(device, deg: int, seed: int):
+    """TransOps of a random table of `deg` slots of random states and
+    log-probs (no packed layout of any kind), made from a numpy seed."""
+    import numpy as np
+
+    from nanocall_tpu_torch import convert, transitions
+
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 4096, (deg, 4096)).astype(np.int32)
+    lp = np.log(rng.uniform(0.01, 1.0, (deg, 4096))).astype(np.float32)
+    return convert.trans_ops(transitions.SparseTransitions(
+        from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), device)
+
+
 def check_table_routes(ops, model, ev, device) -> None:
     """viterbi_forward against its plain version (tolerance 0: the final
     alpha's bits and the backpointers, path and score-only) where the
-    resident kernel's NaN tracking and the other kernel run: under the
-    loaded table `ops` with a NaN event in one read (NaN alphas from there
-    on) and a +inf one at the start of another (alphas of -inf: every slot
-    ties); under a random table of the
-    resident layout's widest (random_resident_table); and under the
-    21-neighbour table of (TRANS_P_STAY, TRANS_P_SKIP) as sparse pairs in
-    memory, whose slots hold up to 17 distinct log-probs (no text round
-    trip merges them), so it takes the streaming kernel."""
+    resident kernel's NaN tracking and the other kernel run, and
+    viterbi_traceback (K6b) on its output against the plain version (path,
+    logp as bits): under the loaded table `ops` with a NaN event in one
+    read (NaN alphas from there on, and NaN final alphas) and a +inf one at
+    the start of another (alphas of -inf: every slot ties); under a random
+    table of the resident layout's widest (random_resident_table: 24
+    slots, K6b's ring at 2 stages); under the 21-neighbour table of
+    (TRANS_P_STAY, TRANS_P_SKIP) as sparse pairs in memory, whose slots
+    hold up to 17 distinct log-probs (no text round trip merges them), so
+    K6a takes its streaming kernel; and under a random table of 25 slots,
+    whose from-state table does not fit beside K6b's ring: both streaming
+    kernels."""
     import torch
 
     from nanocall_tpu_torch import convert, transitions
@@ -848,27 +902,42 @@ def check_table_routes(ops, model, ev, device) -> None:
     ev_nan = {**ev, "mean": ev["mean"].clone()}
     ev_nan["mean"][0, ev["mean"].shape[1] // 2] = float("nan")
     ev_nan["mean"][5, 0] = float("inf")
-    for what, ops_, ev_, route in (
-            ("loaded, NaN and +inf events", ops, ev_nan, "resident"),
+    for what, ops_, ev_, route, k6b in (
+            ("loaded, NaN and +inf events", ops, ev_nan, "resident", "ring"),
             (f"random {RANDOM_DEG} slots x {RANDOM_VALUES} values",
-             random_resident_table(device), ev, "resident"),
+             random_resident_table(device), ev, "resident", "ring"),
             ("in-memory 21-neighbour pairs", convert.trans_ops(pairs, device),
-             ev, "streaming")):
+             ev, "streaming", "ring"),
+            ("random 25 slots", random_table_ops(device, 25, 25), ev,
+             "streaming", "streaming")):
         assert hmm.generic_forward_route(ops_) == route, what
+        assert hmm.generic_traceback_route(ops_) == k6b, what
         counts = {k: ops_.from_logp[k].view(torch.int32).unique().numel()
                   for k in range(ops_.from_logp.shape[0])}
         fa_p, bps_p = hmm.viterbi_forward_plain(ops_, model, ev_, True)
         fa_k, bps_k = hmm.viterbi_forward(ops_, model, ev_)
         fa_s, _ = hmm.viterbi_forward(ops_, model, ev_, with_path=False)
         torch.cuda.synchronize()
-        bits = fa_p.view(torch.int32)
-        assert torch.equal(fa_k.view(torch.int32), bits), what
-        assert torch.equal(fa_s.view(torch.int32), bits), what
+        fa_bits = fa_p.view(torch.int32)
+        assert torch.equal(fa_k.view(torch.int32), fa_bits), what
+        assert torch.equal(fa_s.view(torch.int32), fa_bits), what
         assert torch.equal(bps_k, bps_p), what
+        wrapper = {"ring": hmm.generic_traceback_ring_kernel,
+                   "streaming": hmm.generic_traceback_kernel}[k6b]
+        n0 = wrapper.launches
+        path_p, logp_p = hmm.viterbi_traceback_plain(ops_, fa_p, bps_p,
+                                                     ev_["length"])
+        path_k, logp_k = hmm.viterbi_traceback(ops_, fa_k, bps_k,
+                                               ev_["length"])
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1, what
+        assert torch.equal(path_k, path_p), what
+        assert torch.equal(bits(logp_k), bits(logp_p)), what
         print(f"kernel K6a ({route}) under the {what} table (most distinct "
               f"log-probs in a slot: {max(counts.values())}; NaN final "
               f"alphas: {int(torch.isnan(fa_p).sum())}): B={B_KERNEL} "
-              f"T={T_KERNEL} path and score-only bit-equal to plain")
+              f"T={T_KERNEL} path and score-only bit-equal to plain, and "
+              f"K6b ({k6b}) on its output")
 
 
 def nan_fwbw_inputs(model, ev, rows):
@@ -887,34 +956,106 @@ def nan_fwbw_inputs(model, ev, rows):
     return model, ev
 
 
+GUARD = 0x7FBADBAD  # a NaN payload that no kernel makes
+
+
+def guarded_call(wrapper, ops, model, ev, what) -> dict:
+    """K6e's `wrapper` with its outputs in rows 1 .. B of (B + 2, T, n)
+    buffers of GUARD bits (through hmm._custom_outputs); fails if the
+    kernel wrote row 0 or B + 1.  Returns the outputs."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    B, T = ev["mean"].shape
+    bufs = {k: torch.full((B + 2, T, 4096), GUARD, dtype=torch.int32,
+                          device=ev["mean"].device).view(torch.float32)
+            for k in ("alpha", "beta", "gamma")}
+    out = {k: v[1:B + 1] for k, v in bufs.items()}
+    alloc = hmm._custom_outputs
+    hmm._custom_outputs = lambda *_: out
+    try:
+        got = wrapper(ops, model, ev)
+    finally:
+        hmm._custom_outputs = alloc
+    torch.cuda.synchronize()
+    assert got is out, what
+    for k, v in bufs.items():
+        for row in (0, B + 1):
+            assert bool((v[row].view(torch.int32) == GUARD).all()), \
+                f"{what}: {k}'s guard row {row} was written"
+    return out
+
+
+def edge_length_inputs(ev):
+    """A copy of the events whose first reads have lengths 0, 1, 0, 2, 0:
+    a read of length 0 at b = 0 and right after reads of 1 and 2 (where a
+    row written before a read's own would land in a short read's rows)."""
+    ev = {k: v.clone() for k, v in ev.items()}
+    ev["length"][:5] = ev["length"].new_tensor([0, 1, 0, 2, 0])
+    return ev
+
+
 def check_custom_kernel(ops, model, ev) -> dict:
-    """K6e against its plain version on the same card under the loaded
-    table: alpha, beta and gamma bit-equal (tolerance 0, compared as bits),
-    on the inputs and on nan_fwbw_inputs' copies of them (NaN events, a
-    +inf event, a NaN model entry), and times.  Returns {kernel name:
-    record}."""
+    """K6e's two kernels against their plain version on the same card:
+    alpha, beta and gamma bit-equal (tolerance 0, compared as bits).  The
+    resident kernel (which hmm.fwbw_custom takes under the loaded table:
+    its <21> instance) and the streaming one on the inputs, on
+    nan_fwbw_inputs' copies of them (NaN events, a +inf event, a NaN model
+    entry) and on edge_length_inputs' (reads of length 0, 1 and 2 first,
+    every kernel's outputs between guard rows); the resident kernel's <0>
+    instance under a random packed table of 12 / 23 slots, on the inputs
+    and the edge lengths.  Then both kernels timed in turns under the
+    loaded table (streaming, resident, resident, streaming).  Returns
+    {kernel name: record}."""
+    import numpy as np
     import torch
 
     from nanocall_tpu_torch.ops import hmm
 
     errs, plain_ms = {}, {}
-    for what, (m, e) in (("clean", (model, ev)),
-                         ("NaN", nan_fwbw_inputs(model, ev, (4, 5, 6)))):
+    wrappers = {"fwbw_custom_resident": hmm.fwbw_custom_resident_kernel,
+                "fwbw_custom": hmm.fwbw_custom_kernel}
+    packed = random_packed_ops(np.random.default_rng(12), 12, 23,
+                               ev["mean"].device)
+    edge = edge_length_inputs(ev)
+    cases = (("clean", ops, (model, ev)),
+             ("NaN", ops, nan_fwbw_inputs(model, ev, (4, 5, 6))),
+             ("edge lengths", ops, (model, edge)),
+             ("random packed 12 / 23", packed, (model, ev)),
+             ("random packed 12 / 23, edge lengths", packed, (model, edge)))
+    for what, ops_, (m, e) in cases:
+        assert hmm.fwbw_route(ops_) == "resident", what
         plain_ms[what], f_p = cuda_ms_once(
-            lambda: hmm.fwbw_custom_plain(ops, m, e))
-        f_k = hmm.fwbw_custom_kernel(ops, m, e)
+            lambda: hmm.fwbw_custom_plain(ops_, m, e))
+        n0 = hmm.fwbw_custom_resident_kernel.launches
+        outs = [("fwbw_custom_resident", what, hmm.fwbw_custom(ops_, m, e))]
+        torch.cuda.synchronize()
+        assert hmm.fwbw_custom_resident_kernel.launches == n0 + 1, what
+        if ops_ is ops:
+            outs.append(("fwbw_custom", what,
+                         hmm.fwbw_custom_kernel(ops_, m, e)))
+        if "edge" in what:
+            for name, _, _ in list(outs):
+                outs.append((name, f"{what}, guarded", guarded_call(
+                    wrappers[name], ops_, m, e, f"{name} ({what})")))
         torch.cuda.synchronize()
         if what == "NaN":
             assert torch.isnan(f_p["gamma"][6]).any(), "no NaN gamma"
-        for k in ("alpha", "beta", "gamma"):
-            assert torch.equal(bits(f_k[k]), bits(f_p[k])), \
-                f"K6e {k} differs from plain ({what} inputs)"
-            errs[f"{k}, {what}"] = max_err(f_k[k], f_p[k])
-        del f_p, f_k
-    return with_shape({"fwbw_custom": {
-        "max_abs_err": max(errs.values()),
-        "ms": cuda_ms(lambda: hmm.fwbw_custom_kernel(ops, model, ev), 3),
-        "plain_ms": plain_ms["clean"]}}, ev)
+        for name, case, f_k in outs:
+            for k in ("alpha", "beta", "gamma"):
+                assert torch.equal(bits(f_k[k]), bits(f_p[k])), \
+                    f"{name} {k} differs from plain ({case} inputs)"
+                errs[name, k, case] = max_err(f_k[k], f_p[k])
+        del f_p, outs
+    recs = time_in_turns({
+        "fwbw_custom": lambda: hmm.fwbw_custom_kernel(ops, model, ev),
+        "fwbw_custom_resident": lambda: hmm.fwbw_custom_resident_kernel(
+            ops, model, ev)})
+    for name, r in recs.items():
+        r.update(plain_ms=plain_ms["clean"], max_abs_err=max(
+            v for k, v in errs.items() if k[0] == name))
+    return with_shape(recs, ev)
 
 
 def max_err(a, b) -> float:
@@ -1072,23 +1213,16 @@ def check_em_under_nan(inp) -> None:
 
 def time_k6c_in_turns(ops, model, ev, reps: int = 3) -> dict:
     """K6c's streaming and resident kernels timed in turns under one table
-    (the streaming kernel on the table's TransOps without its packed
-    layout): streaming, resident, resident, streaming (cuda_ms over reps
-    calls each).  Returns {kernel name: {"ms": the mean of its two turns,
-    "ms_turns"}}."""
+    (time_in_turns; the streaming kernel on the table's TransOps without
+    its packed layout): streaming, resident, resident, streaming.  Returns
+    {kernel name: {"ms", "ms_turns"}}."""
     from nanocall_tpu_torch.ops import hmm
 
-    calls = {"fwbw_generic": (hmm.fwbw_generic_kernel,
-                              ops._replace(fwbw_packed=None)),
-             "fwbw_resident": (hmm.fwbw_resident_kernel, ops)}
-    out = {}
-    for name in (*calls, *reversed(list(calls))):
-        fn, ops_ = calls[name]
-        ms = cuda_ms(lambda: fn(ops_, model, ev), reps)
-        out.setdefault(name, {"ms_turns": []})["ms_turns"].append(ms)
-    for r in out.values():
-        r["ms"] = sum(r["ms_turns"]) / len(r["ms_turns"])
-    return out
+    bare = ops._replace(fwbw_packed=None)
+    return time_in_turns({
+        "fwbw_generic": lambda: hmm.fwbw_generic_kernel(bare, model, ev),
+        "fwbw_resident": lambda: hmm.fwbw_resident_kernel(ops, model, ev)},
+        reps)
 
 
 def random_block_table(rng, deg: int, values: int = 16, groups: int = 4):
@@ -1500,21 +1634,28 @@ def walk_loop_sass(marker: str) -> dict:
 
 def check_sass_claims() -> dict:
     """The census claims of the kernels' headers: K4's and K6d's time loops
-    hold at most 2 block barriers; K2's walk reads its rows from shared
-    memory and makes no load from global memory (the ring's bulk copies
-    fetch them); each instance of the resident K6c
-    has two time loops (forward, backward) that hold a barrier each and
-    read global memory only by the 4 loads of the stored emissions (a
-    thread's states): no 16-bit load, no slot-table byte (the table and
-    codebooks are read by LDS).  Returns {"K4", "K6d": step_loop_sass,
-    "K2 walk": walk_loop_sass, "K6c resident": {instance: [loop
-    records]}}."""
+    hold at most 2 block barriers; K2's walk and K6b's ring walk read their
+    rows (and K6b its from-state table) from shared memory and make no load
+    from global memory (the ring's bulk copies fetch them), and K6b's walk
+    stores its path; each instance of the resident K6c has two time loops
+    (forward, backward) that hold a barrier each and read global memory
+    only by the 4 loads of the stored emissions (a thread's states): no
+    16-bit load, no slot-table byte (the table and codebooks are read by
+    LDS); each instance of the resident K6e has two time loops, the forward
+    with 3 block barriers (the norm's max and sums, the new beta) and
+    global loads only of the step's 3 event values, the backward with 1
+    barrier and loads only of the 8 stored alpha and beta values of a
+    thread's states: no 16-bit load, no slot-table byte.  Returns {"K4",
+    "K6d": step_loop_sass, "K2 walk", "K6b ring walk": walk_loop_sass,
+    "K6c resident", "K6e resident": {instance: [loop records]}}."""
     k4 = step_loop_sass("fwbw_forward_kernel")
     assert k4["bar"] * 4 <= 2, k4
     k6d = step_loop_sass("fwbw_backward_kernel")
     assert k6d["bar"] * 4 <= 2, k6d
     k2 = walk_loop_sass("viterbi_traceback_kernel")
     assert k2["lds"] >= 1 and k2["ldg"] == 0, k2
+    k6b = walk_loop_sass("viterbi_generic_traceback_ring_kernel")
+    assert k6b["lds"] >= 2 and k6b["ldg"] == 0 and k6b["stg"] >= 1, k6b
     k6c = {}
     for name in kernel_instances("fwbw_resident_kernel"):
         loops = k6c[name] = barrier_loops_sass(name)
@@ -1523,7 +1664,17 @@ def check_sass_claims() -> dict:
             assert lp["bar"] >= 1 and lp["ldg"] <= 4 and not lp["ldg_16"], \
                 (name, loops)
     assert k6c, "no resident K6c in the built library"
-    return {"K4": k4, "K6d": k6d, "K2 walk": k2, "K6c resident": k6c}
+    k6e = {}
+    for name in kernel_instances("fwbw_custom_resident_kernel"):
+        loops = k6e[name] = barrier_loops_sass(name)
+        assert len(loops) == 2, (name, loops)
+        (fwd, bwd) = loops
+        assert fwd["bar"] == 3 and fwd["ldg"] <= 3, (name, loops)
+        assert bwd["bar"] == 1 and bwd["ldg"] <= 8, (name, loops)
+        assert not fwd["ldg_16"] and not bwd["ldg_16"], (name, loops)
+    assert len(k6e) == 2, "not both resident K6e instances in the library"
+    return {"K4": k4, "K6d": k6d, "K2 walk": k2, "K6b ring walk": k6b,
+            "K6c resident": k6c, "K6e resident": k6e}
 
 
 def run_measure(device) -> dict:
@@ -1716,9 +1867,10 @@ def run_tools(models, trans_path: str, rng) -> dict:
     """run-viterbi, run-fwbw and run-fwbw --custom-fwbw on the card at full
     width (n = 4096, the loaded table, a read of TOOLS_EVENTS), each
     checked and required to launch its kernels; each fwbw run again with -o
-    on a read of TOOLS_DUMP_EVENTS (check_matrix_dump); run-fwbw once more
-    with the table's K6c layout taken away (convert.trans_ops wrapped):
-    the streaming K6c prints the resident one's posteriors byte for byte;
+    on a read of TOOLS_DUMP_EVENTS (check_matrix_dump); both fwbw runs once
+    more with the table's K6c layout taken away (convert.trans_ops
+    wrapped): the streaming K6c and K6e print the resident ones'
+    posteriors byte for byte;
     then -K 3 (check_k3_refused).  Returns {run: {"launches" (both calls of a fwbw
     run), "wall_s" (the TOOLS_EVENTS call), ...}}."""
     from nanocall_tpu_torch import simulate
@@ -1739,11 +1891,11 @@ def run_tools(models, trans_path: str, rng) -> dict:
     assert ident > IDENTITY_MIN, ident
     runs = {"run_viterbi": {"launches": launches, "wall_s": wall,
                             "bases": len(seq), "identity": ident}}
+    fwbw_out = {}
     for name, extra in (("run_fwbw", []),
                         ("run_fwbw_custom", ["--custom-fwbw"])):
         out, launches, wall = call_tool(["run-fwbw", *args(ev_long), *extra])
-        if not extra:
-            fwbw_out = out
+        fwbw_out[bool(extra)] = out
         post = check_posteriors(out)
         dump = os.path.join(os.path.dirname(pm_path), f"{name}_o.tsv")
         out, launches_o, _ = call_tool(["run-fwbw", *args(ev_short), *extra,
@@ -1754,8 +1906,8 @@ def run_tools(models, trans_path: str, rng) -> dict:
                                    for k, c in launches.items()},
                       "wall_s": wall, "top_posterior": post[0],
                       "printed": len(post)}
-    # run-fwbw again with the table's K6c layout taken away: the streaming
-    # K6c prints the same posteriors
+    # both fwbw runs again with the table's K6c layout taken away: the
+    # streaming K6c and K6e print the same posteriors
     from unittest import mock
 
     from nanocall_tpu_torch import convert
@@ -1763,10 +1915,16 @@ def run_tools(models, trans_path: str, rng) -> dict:
     make = convert.trans_ops
     with mock.patch.object(convert, "trans_ops", lambda table, dev: make(
             table, dev)._replace(fwbw_packed=None)):
-        out_s, launches, wall = call_tool(["run-fwbw", *args(ev_long)])
-    assert out_s == fwbw_out, "run-fwbw differs on the streaming K6c"
-    assert launches["fwbw_resident"] == 0, launches
-    runs["run_fwbw_streaming"] = {"launches": launches, "wall_s": wall}
+        for name, extra, resident in (
+                ("run_fwbw_streaming", [], "fwbw_resident"),
+                ("run_fwbw_custom_streaming", ["--custom-fwbw"],
+                 "fwbw_custom_resident")):
+            out_s, launches, wall = call_tool(["run-fwbw", *args(ev_long),
+                                               *extra])
+            assert out_s == fwbw_out[bool(extra)], \
+                f"{name}: run-fwbw {extra} differs on the streaming kernel"
+            assert launches[resident] == 0, launches
+            runs[name] = {"launches": launches, "wall_s": wall}
     for name, must in TOOL_KERNELS.items():
         for k in must:
             assert runs[name]["launches"][k] > 0, f"{name} did not launch {k}"
@@ -1975,9 +2133,10 @@ def stats_close(a_path: str, b_path: str, rtol: float) -> None:
 
 def run_trans_streaming(models, reads, device, trans) -> dict:
     """The untrained run under the loaded table again, with its TransOps
-    built without the packed layout (convert.trans_ops wrapped for the
-    run): K6a's streaming kernels decode it.  The resident run (the one
-    before) launched no streaming K6a, this one no resident K6a, and the
+    built without the packed layout and the from-state table
+    (convert.trans_ops wrapped for the run): K6a's and K6b's streaming
+    kernels decode it.  The resident run (the one before) launched no
+    streaming K6a or K6b, this one no resident K6a or ring K6b, and the
     two FASTA files are byte-equal.  Returns the run's result."""
     from unittest import mock
 
@@ -1986,13 +2145,15 @@ def run_trans_streaming(models, reads, device, trans) -> dict:
     make = convert.trans_ops
 
     def bare(table, dev):
-        return make(table, dev)._replace(from_packed=None, from_codebook=None)
+        return make(table, dev)._replace(from_packed=None, from_codebook=None,
+                                         from_states=None)
 
     with mock.patch.object(convert, "trans_ops", bare):
         r = run_end_to_end(models, reads, device, False, STREAMING_KERNELS,
                            trans, tag="untrained_trans_streaming")
     for k in ("viterbi_resident_forward_path",
-              "viterbi_resident_forward_score"):
+              "viterbi_resident_forward_score",
+              "viterbi_generic_traceback_ring"):
         assert r["launches"][k] == 0, f"the streaming run launched {k}"
     out = os.path.join(ROOT, "build", "chip_smoke")
     with open(os.path.join(out, "untrained_trans.fa"), "rb") as a, \
@@ -2154,11 +2315,18 @@ def main() -> int:
     for name in kernel_instances("viterbi_traceback_chunk_kernel"):
         print(f"K3 / K9 traceback chunk SASS ({name}), its walk loop: "
               f"{walk_loop_sass(name)}")
+    print(f"K6b ring SASS, its walk loop: {census['K6b ring walk']} (no "
+          f"global load; the path's stores)")
     for name, loops in census["K6c resident"].items():
         for what, lp in zip(("forward", "backward"), loops):
             print(f"K6c resident SASS ({name}), {what} time loop (its state "
                   f"loop counted once): {lp}; its only global loads are the "
                   f"{lp['ldg']} loads of the stored emissions")
+    for name, loops in census["K6e resident"].items():
+        for what, lp in zip(("forward", "backward"), loops):
+            print(f"K6e resident SASS ({name}), {what} time loop (its state "
+                  f"loop counted once): {lp}; {lp['bar']} block barriers, "
+                  f"no slot-table byte from global memory")
     for what, marker in (("K6c streaming", "fwbw_generic_kernel"),):
         print(f"{what} SASS: {step_loop_sass(marker)}")
 
@@ -2325,7 +2493,8 @@ def main() -> int:
         assert r["launches"]["fwbw_generic"] == 0, r["launches"]
     trans_untrained = run_end_to_end(models, reads, device, False,
                                      TRANS_UNTRAINED_KERNELS, trans)
-    for k in ("viterbi_generic_forward_path", "viterbi_generic_forward_score"):
+    for k in ("viterbi_generic_forward_path", "viterbi_generic_forward_score",
+              "viterbi_generic_traceback"):
         assert trans_untrained["launches"][k] == 0, f"the -s run launched {k}"
     print_run("untrained under the loaded table (-s --no-train)",
               trans_untrained, card)
@@ -2382,7 +2551,7 @@ def main() -> int:
                 "library_ms": None, **recs[k.name],
                 **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
                for k in kernels.KERNELS]
-    assert len(records) == 19 and all(r["launches"] for r in records), \
+    assert len(records) == 21 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])

@@ -69,8 +69,9 @@ def trans_ops(table, device) -> hmm.TransOps:
     SparseTransitions (a loaded `--trans` table, transitions.load_tsv) or a
     StructuredTransitions, whose slot maps are the fixed 21-slot layout
     (transitions.slot_from_state; nanocall_tpu/ops/hmm.py:153-157), with
-    the from side's resident K6a layout (hmm.pack_slots) and both sides'
-    resident K6c layout (hmm.pack_fwbw_sides) where the table has them.
+    the from side's resident K6a layout (hmm.pack_slots), both sides'
+    resident K6c / K6e layout (hmm.pack_fwbw_sides) and K6b's uint16
+    from-state table (hmm.from_state_table) where the table has them.
     Raises ValueError for a table with more than hmm.MAX_SLOTS
     predecessors of a state, which a uint8 backpointer cannot name."""
     if isinstance(table, transitions.StructuredTransitions):
@@ -88,6 +89,7 @@ def trans_ops(table, device) -> hmm.TransOps:
                     (torch.from_numpy(x).to(device) for x in layout))
     sides = hmm.pack_fwbw_sides(from_idx, table.from_logp, to_idx,
                                 table.to_logp)
+    states = hmm.from_state_table(from_idx)
     return hmm.TransOps(
         from_idx=tensor(from_idx, device, torch.int32),
         from_logp=tensor(table.from_logp, device),
@@ -95,7 +97,9 @@ def trans_ops(table, device) -> hmm.TransOps:
         to_logp=tensor(table.to_logp, device), K=int(table.K),
         from_packed=packed, from_codebook=book,
         fwbw_packed=None if sides is None else hmm.PackedSides(
-            *(torch.from_numpy(x).to(device) for x in sides)))
+            *(torch.from_numpy(x).to(device) for x in sides)),
+        from_states=None if states is None
+        else torch.from_numpy(states).to(device))
 
 
 def write_fast_transitions(path, p_stay: float, p_skip: float,

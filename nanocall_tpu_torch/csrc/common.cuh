@@ -121,6 +121,57 @@ __device__ __forceinline__ float quad_sum(const float (&v)[4]) {
   return (v[0] + v[1]) + (v[2] + v[3]);
 }
 
+// torch.argmax's order: a NaN above every number, ties to the lower index
+__device__ __forceinline__ void take_better(float& best, int& idx, float ob,
+                                            int oi) {
+  const bool o_nan = ob != ob, b_nan = best != best;
+  const bool take = (o_nan || b_nan) ? o_nan && (!b_nan || oi < idx)
+                                     : ob > best || (ob == best && oi < idx);
+  if (take) {
+    best = ob;
+    idx = oi;
+  }
+}
+
+// torch.argmax over the warp's (best, idx) pairs, in lane 0
+__device__ __forceinline__ void warp_argmax(float& best, int& idx) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ob = __shfl_down_sync(FULL, best, off);
+    const int oi = __shfl_down_sync(FULL, idx, off);
+    take_better(best, idx, ob, oi);
+  }
+}
+
+// The end argmax of a traceback (K2, K6b) over a read's final alpha `fa`
+// (N states) in a block of THREADS, in two phases around the caller's
+// barrier.  First each thread's 4 states, then its warp's: lane 0 writes
+// the warp's partial into w_best / w_idx (WARPS each).
+__device__ __forceinline__ void end_argmax_partials(const float* fa, int tid,
+                                                    float* w_best,
+                                                    int* w_idx) {
+  float best = fa[4 * tid];
+  int idx = 4 * tid;
+#pragma unroll
+  for (int i = 1; i < 4; ++i)
+    take_better(best, idx, fa[4 * tid + i], 4 * tid + i);
+  warp_argmax(best, idx);
+  if ((tid & 31) == 0) {
+    w_best[tid >> 5] = best;
+    w_idx[tid >> 5] = idx;
+  }
+}
+
+// Then, after the barrier, a warp's argmax over the WARPS partials: the
+// read's maximum and its first state, in lane 0.
+__device__ __forceinline__ void end_argmax(const float* w_best,
+                                          const int* w_idx, int lane,
+                                          float& best, int& idx) {
+  best = w_best[lane];
+  idx = w_idx[lane];
+  warp_argmax(best, idx);
+}
+
 // lse over the deg slots of lp[k, j] + x[idx[k, j]] for the thread's 4
 // states (idx / lp point at the thread's column of slot 0 of a (deg, n)
 // table; x in shared memory), in ops/hmm.py logsumexp_slots' order:
@@ -230,6 +281,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ uint32_t lds_u8(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.u8 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// two bytes of shared memory, as lds_u8
+__device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u16 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
   return v;
 }
 

@@ -34,7 +34,8 @@
 // L2 per read (about 4 TB/s of L2 over the card: L2-bound).
 //
 // The resident kernel (fwbw_resident_kernel) holds a whole side's table in
-// shared memory.  A table has that layout (ops/hmm.py pack_slots with
+// shared memory; its layout, side copy and slot arithmetic are
+// resident_slots.cuh's, which K6e's resident kernel shares.  A table has that layout (ops/hmm.py pack_slots with
 // groups = GROUPS) when every slot holds at most 16 distinct float32 bit
 // patterns in each block of n / GROUPS states, on both sides: entry [k, j]
 // is 16 bits, the state in the low 12 and a code into the codebook of
@@ -75,8 +76,8 @@
 // each elementwise PyTorch op does, so both kernels are bit-identical to
 // fwbw_plain in nanocall_tpu_torch/ops/hmm.py on the card.
 
-#include "common.cuh"
 #include "device_guard.cuh"
+#include "resident_slots.cuh"
 
 namespace {
 
@@ -201,83 +202,6 @@ fwbw_generic_kernel(const float* __restrict__ ev_mean,
   }
 }
 
-// The resident layout: codebooks per slot (one per block of N / GROUPS
-// states) and codes per codebook; the most slots whose layout fits one
-// block (ops/hmm.py MAX_FWBW_RESIDENT_SLOTS)
-constexpr int GROUPS = 4;
-constexpr int CODES = 16;
-constexpr int MAX_DEG = 23;
-static_assert(N / GROUPS == N4, "state 1024 i + tid lies in block i");
-
-// lse over the slots of one state from the resident table: ent points at
-// the state's entry of slot 0 (slot k's is k * N on), book at slot 0's
-// codebook of the state's block (slot k's is k * GROUPS * CODES on), x is
-// the gathered vector.  DEG > 0: the table has DEG slots; DEG == 0: deg
-// slots, at most MAX_DEG.  The candidates are taken once into registers;
-// kNan: a candidate may be NaN (then the max is NaN-propagating).
-template <bool kNan, int DEG>
-__device__ __forceinline__ float lse_resident(const uint16_t* ent,
-                                              const float* book,
-                                              const float* x, int deg) {
-  constexpr int D = DEG > 0 ? DEG : MAX_DEG;
-  float v[D];
-  float m = 0.0f;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    if (DEG > 0 || k < deg) {
-      const uint32_t e = ent[k * N];
-      v[k] = book[k * GROUPS * CODES + (e >> 12)] + x[e & 0xfffu];
-      // without NaN, fmaxf is the max (on a tie of +0 and -0 either zero
-      // gives the same lse: v - safe and safe + log(s) with s >= 1)
-      if (k == 0)
-        m = v[0];
-      else
-        m = kNan ? amax(m, v[k]) : fmaxf(m, v[k]);
-    }
-  }
-  const float safe = isfinite(m) ? m : 0.0f;
-  float s = 0.0f;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    if (DEG > 0 || k < deg) {
-      const float e = expf(v[k] - safe);
-      s = k == 0 ? e : s + e;
-    }
-  }
-  return isfinite(m) ? safe + logf(s) : m;
-}
-
-// The lse of the thread's 4 states, 1024 i + tid (block i), one state at a
-// time (ent and book at state tid, block 0): the loop is not unrolled, so
-// the results rotate through out[] (static indices: registers) and out[i]
-// ends as state i's.
-template <bool kNan, int DEG>
-__device__ __forceinline__ void lse4_states(const uint16_t* ent,
-                                            const float* book,
-                                            const float* x, int deg,
-                                            float (&out)[4]) {
-#pragma unroll 1
-  for (int i = 0; i < 4; ++i) {
-    const float r = lse_resident<kNan, DEG>(ent + i * N4, book + i * CODES,
-                                            x, deg);
-    out[0] = out[1];
-    out[1] = out[2];
-    out[2] = out[3];
-    out[3] = r;
-  }
-}
-
-template <int DEG>
-__device__ __forceinline__ void lse4_resident(bool nan, const uint16_t* ent,
-                                              const float* book,
-                                              const float* x, int deg,
-                                              float (&out)[4]) {
-  if (nan)
-    lse4_states<true, DEG>(ent, book, x, deg, out);
-  else
-    lse4_states<false, DEG>(ent, book, x, deg, out);
-}
-
 // Dynamic shared memory: the gathered vector (2 x N float32,
 // double-buffered), the codebooks (deg x GROUPS x CODES float32), the
 // packed table (deg x N uint16), deg the larger side's; one side at a time.
@@ -319,27 +243,10 @@ fwbw_resident_kernel(const float* __restrict__ ev_mean,
   const size_t rowb = (size_t)b * N;
   const uint32_t bar_addr = smem_addr(&bar);
 
-  // one side's codebooks and table into shared memory, on the mbarrier
-  auto copy_side = [&](int deg, const uint16_t* packed, const float* cb) {
-    const uint32_t book_bytes = deg * GROUPS * CODES * 4, slot_bytes = N * 2;
-    bulk_copy(smem_addr(book), cb, book_bytes, bar_addr);
-    for (int k = 0; k < deg; ++k)
-      bulk_copy(smem_addr(table + k * N), packed + (size_t)k * N, slot_bytes,
-                bar_addr);
-  };
-  auto side_bytes = [](int deg) {
-    return (uint32_t)(deg * (GROUPS * CODES * 4 + N * 2));
-  };
-  // whether the side's codebooks hold NaN or +inf (a block reduction)
-  auto book_prone = [&](int deg) {
-    bool p = false;
-    for (int e = tid; e < deg * GROUPS * CODES; e += THREADS)
-      p = p || nan_prone(book[e]);
-    return __syncthreads_or(p) != 0;
-  };
+  // the from side into shared memory (resident_slots.cuh)
   if (tid == 0) {
     mbar_init_expect(bar_addr, side_bytes(deg_from));
-    copy_side(deg_from, from_packed, from_book);
+    copy_side(book, table, deg_from, from_packed, from_book, bar_addr);
   }
 
   const int len = length[b];
@@ -401,7 +308,7 @@ fwbw_resident_kernel(const float* __restrict__ ev_mean,
   store_states(cur + tid, a);
   __syncthreads();  // also orders the barrier's init before every wait
   mbar_wait(bar_addr, 0);
-  const bool from_prone = book_prone(deg_from);
+  const bool from_prone = book_prone(book, deg_from, tid);
   bool prone = __syncthreads_or(any_prone(a)) != 0;
   float emn[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (T > 1) load_em(1, emn);
@@ -431,7 +338,7 @@ fwbw_resident_kernel(const float* __restrict__ ev_mean,
   if (tid == 0) {
     fence_proxy_async();
     mbar_expect(bar_addr, side_bytes(deg_to));
-    copy_side(deg_to, to_packed, to_book);
+    copy_side(book, table, deg_to, to_packed, to_book, bar_addr);
   }
   {
     const float mx = warp_amax(amax(amax(a[0], a[1]), amax(a[2], a[3])));
@@ -455,7 +362,7 @@ fwbw_resident_kernel(const float* __restrict__ ev_mean,
 
   // backward: g of step t goes to buffer par, gathered after its barrier
   mbar_wait(bar_addr, 1);
-  const bool to_prone = book_prone(deg_to);
+  const bool to_prone = book_prone(book, deg_to, tid);
   float beta[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   store_states(at(betas, T - 1), beta);
   if (T > 1) load_em(T - 1, emn);

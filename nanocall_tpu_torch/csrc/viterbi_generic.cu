@@ -367,18 +367,6 @@ viterbi_resident_forward_kernel(const float* __restrict__ ev_mean,
   store4(final_alpha + row, a);
 }
 
-// torch.argmax's order: a NaN above every number, ties to the lower index
-__device__ __forceinline__ void take_better(float& best, int& idx, float ob,
-                                            int oi) {
-  const bool o_nan = ob != ob, b_nan = best != best;
-  const bool take = (o_nan || b_nan) ? o_nan && (!b_nan || oi < idx)
-                                     : ob > best || (ob == best && oi < idx);
-  if (take) {
-    best = ob;
-    idx = oi;
-  }
-}
-
 __global__ void __launch_bounds__(THREADS)
 viterbi_generic_traceback_kernel(const float* __restrict__ final_alpha,
                                  const uint8_t* __restrict__ bps,
@@ -394,31 +382,12 @@ viterbi_generic_traceback_kernel(const float* __restrict__ final_alpha,
   const float* fa = final_alpha + (size_t)b * N;
 
   // first argmax: 4 states each, then the warps, ties to the lower index
-  float best = fa[4 * tid];
-  int idx = 4 * tid;
-#pragma unroll
-  for (int i = 1; i < 4; ++i)
-    take_better(best, idx, fa[4 * tid + i], 4 * tid + i);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_down_sync(FULL, best, off);
-    const int oi = __shfl_down_sync(FULL, idx, off);
-    take_better(best, idx, ob, oi);
-  }
-  if ((tid & 31) == 0) {
-    w_best[tid >> 5] = best;
-    w_idx[tid >> 5] = idx;
-  }
+  end_argmax_partials(fa, tid, w_best, w_idx);
   __syncthreads();
   if (tid >= 32) return;
-  best = w_best[tid];
-  idx = w_idx[tid];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_down_sync(FULL, best, off);
-    const int oi = __shfl_down_sync(FULL, idx, off);
-    take_better(best, idx, ob, oi);
-  }
+  float best;
+  int idx;
+  end_argmax(w_best, w_idx, tid, best, idx);
   if (tid != 0) return;
 
   const int end_state = idx;

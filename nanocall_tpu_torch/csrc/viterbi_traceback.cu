@@ -39,11 +39,24 @@
 // K9's ranks walk their slices on streams of their own, so two ranks must
 // never share a 3-byte group, and JAX's K9 returns states.
 //
+// K6b's ring kernel (viterbi_generic_traceback_ring_kernel) is the fourth
+// form: the traceback under a loaded transition table, replacing
+// nanocall_tpu/ops/hmm.py viterbi_traceback (hmm.py:714; its streaming
+// kernel is csrc/viterbi_generic.cu's).  Its backpointer byte k is a slot,
+// the state before s_eff is from_idx[k, s_eff], and it writes the uint16
+// state of every event (JAX's path (B, T)); past the read's length the path
+// holds the end state, and path[0] is the state before event 1.
+//
 // Design (for the H100): one block per read, and one walk (walk_ring) for
-// all three forms.  Only events t <= length-1 read a row (the others pass
-// the state through with code 0, and event 0's row is filler), so the
-// walk's rows are known before it starts: events min(length, t1) - 1 down
-// to max(t0, 1), each 4096 contiguous bytes of bps.  One thread (the
+// all four forms, templated on the predecessor rule: K2, K3 and K9 take
+// the grouped arithmetic (GroupedFrom), K6b reads its (deg, 4096) uint16
+// from-state table (ops/hmm.py from_state_table) from shared memory
+// (TableFrom), where the producer thread bulk-copies it beside the ring's
+// first stages while the block takes the end argmax.  Only events
+// t <= length-1 read a row (the others pass the state through with code
+// 0, and event 0's row is filler), so the walk's rows are known before it
+// starts: events min(length, t1) - 1 down to max(t0, 1), each 4096
+// contiguous bytes of bps.  One thread (the
 // producer, thread 32) streams them by cp.async.bulk into a ring of shared
 // memory, RING_ROWS rows a stage, with a `full` and an `empty` mbarrier a
 // stage; thread 0 walks: it waits on a stage's `full` phase, takes its
@@ -73,6 +86,14 @@
 // trips (3.35 ms at 128 x 8192 on an H100, against 1.36 ms for the ring at
 // full lengths).
 //
+// K6b's table takes deg x 8 KB beside the ring, so its block gets the
+// stages left of the 227 KB of one block (ring_stages): 3 at the r73
+// tables' 21 slots, 2 at 24, and a table of more slots than leave room for
+// MIN_STAGES takes the streaming kernel (ops/hmm.py
+// generic_traceback_route).  Its walk makes two dependent shared-memory
+// loads an event (the row's byte, then the table's state) and one 2-byte
+// path store; its block's other warps write the end state past the walk.
+//
 // What bounds K9 as a whole: K3's forward operations (one chunk kernel per
 // rank and block) and this walk, over D * M launches of each half for D
 // ranks and M blocks, with a pipeline fill of (D - 1) / (M + D - 1) of the
@@ -86,6 +107,8 @@
 
 namespace {
 
+using nc::end_argmax;
+using nc::end_argmax_partials;
 using nc::N;
 
 constexpr int THREADS = 1024;  // K2: the end argmax's block
@@ -96,19 +119,12 @@ constexpr int RING_ROWS = 4;
 constexpr uint32_t STAGE_BYTES = RING_ROWS * N;
 constexpr int MAX_STAGES = 12;  // 192 KB of shared memory
 constexpr int MIN_STAGES = 2;
-
-// torch.argmax's order: a NaN above every number, ties to the lower index
-// (the rule of K6b, csrc/viterbi_generic.cu)
-__device__ __forceinline__ void take_better(float& best, int& idx, float ob,
-                                            int oi) {
-  const bool o_nan = ob != ob, b_nan = best != best;
-  const bool take = (o_nan || b_nan) ? o_nan && (!b_nan || oi < idx)
-                                     : ob > best || (ob == best && oi < idx);
-  if (take) {
-    best = ob;
-    idx = oi;
-  }
-}
+// shared memory one block may use on Hopper, and the part of it K6b's ring
+// kernel leaves to its static arrays (456 bytes of mbarriers and argmax
+// partials): its table and ring share the rest (ops/hmm.py
+// traceback_ring_smem_bytes budgets the same)
+constexpr int SMEM_PER_BLOCK = 232448;
+constexpr int TABLE_RING_STATIC = 512;
 
 // The rows of one read's walk in global memory and the ring they pass
 // through.  Row j of the walk (j = 0, 1, ..) is event t_top - j, at
@@ -183,13 +199,37 @@ __device__ __forceinline__ Ring make_ring(uint8_t* buf, uint64_t* full,
           n > 0 ? bp_b + (size_t)(t_top - row0) * stride : bp_b, stride, n};
 }
 
+// The grouped predecessor rule (K2, K3, K9: ops/hmm.py grouped_from_state):
+// backpointer byte k = group << 6 | arg names the state before s_eff.
+struct GroupedFrom {
+  __device__ __forceinline__ int operator()(int k, int s_eff) const {
+    const int group = k >> 6;
+    const int arg = k & 63;
+    return group == 0   ? s_eff
+           : group == 1 ? ((arg << 10) | (s_eff >> 2))
+                        : ((arg << 8) | (s_eff >> 4));
+  }
+};
+
+// K6b's rule under a loaded table: backpointer byte k is a slot, and the
+// state before s_eff is from_idx[k, s_eff], read from the table's uint16
+// copy (ops/hmm.py from_state_table) in shared memory at `table`.
+struct TableFrom {
+  uint32_t table;  // shared address of the (deg, N) uint16 table
+  __device__ __forceinline__ int operator()(int k, int s_eff) const {
+    return (int)nc::lds_u16(table + 2u * (uint32_t)(k * N + s_eff));
+  }
+};
+
 // The walk over the ring's n rows, events t_top, t_top - 1, .., all real
 // (1 <= t <= length - 1), from state s, which is s_eff at every event of
-// the walk; sink(t, s_eff, code) takes each event's state and code.
-// Returns the state before the last event walked.
-template <class Sink>
+// the walk; from(k, s_eff) is the state before s_eff for its backpointer
+// byte k, and sink(t, s_eff, code) takes each event's state and its K2
+// code (group << 4 | s_eff & 15).  Returns the state before the last event
+// walked.
+template <class Sink, class From = GroupedFrom>
 __device__ __forceinline__ int walk_ring(const Ring& ring, int t_top, int s,
-                                         Sink sink) {
+                                         Sink sink, From from = From()) {
   int st = 0;
   uint32_t parity = 0;
   for (int j = 0; j < ring.n; j += RING_ROWS) {
@@ -200,12 +240,8 @@ __device__ __forceinline__ int walk_ring(const Ring& ring, int t_top, int s,
       if (j + r < ring.n) {
         const int s_eff = s;
         const int k = (int)nc::lds_u8(stage + r * N + s_eff);
-        const int group = k >> 6;
-        const int arg = k & 63;
-        s = group == 0   ? s_eff
-            : group == 1 ? ((arg << 10) | (s_eff >> 2))
-                         : ((arg << 8) | (s_eff >> 4));
-        sink(t_top - j - r, s_eff, (group << 4) | (s_eff & 15));
+        s = from(k, s_eff);
+        sink(t_top - j - r, s_eff, ((k >> 6) << 4) | (s_eff & 15));
       }
     }
     nc::mbar_arrive(nc::smem_addr(ring.empty + st));
@@ -299,33 +335,13 @@ viterbi_traceback_kernel(const float* __restrict__ final_alpha,
     out[i] = 0;
 
   // first argmax of the final alpha: 4 states each, then the warps
-  const float* fa = final_alpha + (size_t)b * N;
-  float best = fa[4 * tid];
-  int idx = 4 * tid;
-#pragma unroll
-  for (int i = 1; i < 4; ++i)
-    take_better(best, idx, fa[4 * tid + i], 4 * tid + i);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_down_sync(nc::FULL, best, off);
-    const int oi = __shfl_down_sync(nc::FULL, idx, off);
-    take_better(best, idx, ob, oi);
-  }
-  if ((tid & 31) == 0) {
-    w_best[tid >> 5] = best;
-    w_idx[tid >> 5] = idx;
-  }
+  end_argmax_partials(final_alpha + (size_t)b * N, tid, w_best, w_idx);
   __syncthreads();  // also publishes the ring's mbarriers
   if (tid == PRODUCER) ring.produce();
   if (tid >= 32) return;
-  best = w_best[tid];
-  idx = w_idx[tid];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_down_sync(nc::FULL, best, off);
-    const int oi = __shfl_down_sync(nc::FULL, idx, off);
-    take_better(best, idx, ob, oi);
-  }
+  float best;
+  int idx;
+  end_argmax(w_best, w_idx, tid, best, idx);
   if (tid != 0) return;
 
   logp[b] = best;
@@ -383,16 +399,93 @@ viterbi_traceback_chunk_kernel(const int32_t* __restrict__ end_state,
   state[b] = s;
 }
 
+// K6b on the ring: a block per read, which walks from the end argmax's
+// state (K6b's rule, as K2's) over its rows with the from-state table
+// `from_states` (deg, N) uint16 in shared memory after the ring's stages,
+// and writes the state of every event to path (B, T).
+__global__ void __launch_bounds__(THREADS)
+viterbi_generic_traceback_ring_kernel(const float* __restrict__ final_alpha,
+                                      const uint8_t* __restrict__ bps,
+                                      const int32_t* __restrict__ length,
+                                      int B, int T, int deg,
+                                      const uint16_t* __restrict__ from_states,
+                                      int stages, uint16_t* __restrict__ path,
+                                      float* __restrict__ logp) {
+  extern __shared__ __align__(128) uint8_t ring_buf[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
+  __shared__ __align__(8) uint64_t table_bar;
+  __shared__ float w_best[THREADS / 32];
+  __shared__ int w_idx[THREADS / 32];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int len = length[b];
+  // the walk's rows: events min(len, T) - 1 .. 1 (row t - 1 of bps)
+  const Extent ex = extent(0, T, len, 0, 0);
+  const Ring ring = make_ring(ring_buf, full, empty, stages,
+                              bps + (size_t)b * N, (size_t)B * N, 1, ex.t_top,
+                              ex.n);
+  uint8_t* table = ring_buf + stages * STAGE_BYTES;
+  const uint32_t tbar = nc::smem_addr(&table_bar);
+  if (tid == PRODUCER) {
+    // the table first (the walk's first event reads it), then the stages
+    if (ex.n > 0) {
+      nc::mbar_init_expect(tbar, deg * N * 2);
+      for (int k = 0; k < deg; ++k)
+        nc::bulk_copy(nc::smem_addr(table + k * N * 2),
+                      from_states + (size_t)k * N, N * 2, tbar);
+    }
+    ring.start();
+  }
+
+  // first argmax of the final alpha: 4 states each, then the warps
+  end_argmax_partials(final_alpha + (size_t)b * N, tid, w_best, w_idx);
+  __syncthreads();  // also publishes the mbarriers
+  if (tid == PRODUCER) ring.produce();
+  if (tid >= 32 && tid < 64) return;  // the producer's warp
+  // every other warp takes the argmax over the warps' partials
+  float best;
+  int idx;
+  end_argmax(w_best, w_idx, lane, best, idx);
+  uint16_t* out = path + (size_t)b * T;
+  if (tid >= 64) {
+    // past the walk's events the path holds the end state
+    const int end_state = __shfl_sync(nc::FULL, idx, 0);
+    for (int t = max(ex.t_top + 1, 1) + tid - 64; t < T; t += THREADS - 64)
+      out[t] = (uint16_t)end_state;
+    return;
+  }
+  if (tid != 0) return;
+
+  logp[b] = best;
+  int s = idx;
+  if (ex.n > 0) {
+    nc::mbar_wait(tbar, 0);
+    s = walk_ring(
+        ring, ex.t_top, idx,
+        [&](int t, int s_eff, int) { out[t] = (uint16_t)s_eff; },
+        TableFrom{nc::smem_addr(table)});
+  }
+  out[0] = (uint16_t)s;
+}
+
 // The ring's stages for B blocks of `threads`: the most that fit the blocks
 // an SM holds at once, at most MAX_STAGES (192 KB: one block an SM), at
-// least MIN_STAGES.
-int ring_stages(int B, int threads, int device) {
+// least MIN_STAGES; with a table of table_bytes beside the ring (K6b), at
+// most what the block's shared memory has left beside it.
+int ring_stages(int B, int threads, int device, int table_bytes = 0) {
   int sms = 132;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int by_threads = 2048 / threads;
   int per_sm = (B + sms - 1) / sms;
   if (per_sm > by_threads) per_sm = by_threads;
-  const int s = MAX_STAGES / per_sm;
+  int s = MAX_STAGES / per_sm;
+  if (table_bytes > 0) {
+    const int fit = (SMEM_PER_BLOCK - TABLE_RING_STATIC - table_bytes) /
+                    (int)STAGE_BYTES;
+    if (fit < s) s = fit;
+  }
   return s < MIN_STAGES ? MIN_STAGES : s;
 }
 
@@ -471,6 +564,33 @@ extern "C" int nc_viterbi_traceback_chunk_states(
                                            (cudaStream_t)stream>>>(
         end_state, state, bps, length, B, t0, t1, 0, stages, nullptr, states,
         states_stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K6b on the ring: from_states (deg, N) uint16 (16-byte aligned) is the
+// table's from-state copy, 1 to the most slots that leave MIN_STAGES stages
+// beside it (24); bps (T-1, B, 4096) must be 16-byte aligned.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int nc_viterbi_generic_traceback_ring(
+    const float* final_alpha, const uint8_t* bps, const int32_t* length,
+    int B, int T, int deg, const uint16_t* from_states, uint16_t* path,
+    float* logp, int device, void* stream) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (deg < 1 || deg * N * 2 + MIN_STAGES * (int)STAGE_BYTES >
+                     SMEM_PER_BLOCK - TABLE_RING_STATIC)
+    return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const int stages = ring_stages(B, THREADS, device, deg * N * 2);
+    const int smem = stages * (int)STAGE_BYTES + deg * N * 2;
+    const cudaError_t err = cudaFuncSetAttribute(
+        viterbi_generic_traceback_ring_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    viterbi_generic_traceback_ring_kernel<<<B, THREADS, smem,
+                                            (cudaStream_t)stream>>>(
+        final_alpha, bps, length, B, T, deg, from_states, stages, path, logp);
   }
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,8 @@ SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
            "em_backward.cu", "viterbi_generic.cu", "fwbw_generic.cu",
            "fwbw_backward.cu", "fwbw_custom.cu", "fma_chain.cu",
            "reshape_copy.cu")
-HEADERS = ("common.cuh", "beta_step.cuh", "device_guard.cuh")
+HEADERS = ("common.cuh", "beta_step.cuh", "resident_slots.cuh",
+           "device_guard.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "nanocall_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -147,6 +148,9 @@ def load():
         lib.nc_viterbi_generic_traceback.restype = ci
         lib.nc_viterbi_generic_traceback.argtypes = (
             [vp] * 3 + [ci, ci] + [vp] * 3 + [ci, vp])
+        lib.nc_viterbi_generic_traceback_ring.restype = ci
+        lib.nc_viterbi_generic_traceback_ring.argtypes = (
+            [vp] * 3 + [ci, ci, ci] + [vp] * 3 + [ci, vp])
         lib.nc_fwbw_generic.restype = ci
         lib.nc_fwbw_generic.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
@@ -157,6 +161,10 @@ def load():
             + [vp] * 4 + [ci, vp])
         lib.nc_fwbw_custom.restype = ci
         lib.nc_fwbw_custom.argtypes = (
+            [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
+            + [vp] * 3 + [ci, vp])
+        lib.nc_fwbw_custom_resident.restype = ci
+        lib.nc_fwbw_custom_resident.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
             + [vp] * 3 + [ci, vp])
         lib.nc_fwbw_backward.restype = ci

@@ -31,14 +31,20 @@ Kernels and their plain versions, side by side below:
                             resident_forward_score_kernel (the table in
                             shared memory; generic_forward_route picks)
                             vs viterbi_forward_plain
-  K6b viterbi_generic.cu    generic_traceback_kernel vs viterbi_traceback_plain
+  K6b viterbi_generic.cu    generic_traceback_kernel (streaming),
+      viterbi_traceback.cu  generic_traceback_ring_kernel (K2's row ring, the
+                            from-state table in shared memory;
+                            generic_traceback_route picks)
+                            vs viterbi_traceback_plain
   K6c fwbw_generic.cu       fwbw_generic_kernel (streaming),
                             fwbw_resident_kernel (both sides' tables in
                             shared memory in turn; fwbw_route picks)
                             vs fwbw_plain
   K6d fwbw_backward.cu      fwbw_backward_kernel
                             vs fwbw_grouped_backward_plain
-  K6e fwbw_custom.cu        fwbw_custom_kernel vs fwbw_custom_plain
+  K6e fwbw_custom.cu        fwbw_custom_kernel (streaming),
+                            fwbw_custom_resident_kernel (K6c's resident
+                            tables; fwbw_route picks) vs fwbw_custom_plain
   (K5, the fused EM backward, is in ops/em.py; ops/kernels.py lists them all.)
 
 K6a-K6c and K6e run under a loaded transition table (TransOps, `--trans`,
@@ -130,8 +136,11 @@ class TransOps(NamedTuple):
     log-prob -inf and index 0.  from_packed / from_codebook: the from side
     in the resident K6a's layout (pack_slots, one codebook a slot),
     computed once per table, or None for a table without one; fwbw_packed:
-    both sides in the resident K6c's layout (FWBW_GROUPS codebooks a slot),
-    or None unless both sides have it.  convert.trans_ops builds one."""
+    both sides in the resident K6c's and K6e's layout (FWBW_GROUPS
+    codebooks a slot), or None unless both sides have it; from_states: the
+    from-states as a (deg, n) uint16 table for K6b's ring kernel
+    (from_state_table), or None for a table of more slots than fit beside
+    its ring.  convert.trans_ops builds one."""
 
     from_idx: torch.Tensor
     from_logp: torch.Tensor
@@ -141,6 +150,7 @@ class TransOps(NamedTuple):
     from_packed: torch.Tensor | None = None
     from_codebook: torch.Tensor | None = None
     fwbw_packed: PackedSides | None = None
+    from_states: torch.Tensor | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -1241,7 +1251,9 @@ def viterbi_traceback_plain(ops: TransOps, final_alpha, bps, lengths):
 
 
 def generic_traceback_kernel(ops: TransOps, final_alpha, bps, lengths):
-    """K6b on the card: (path (B, T) uint16, logp (B,))."""
+    """K6b on the card, the streaming kernel (one thread walks by dependent
+    loads of the backpointer byte and from_idx): (path (B, T) uint16, logp
+    (B,))."""
     dev = final_alpha.device
     B, n = final_alpha.shape
     if n != 4096:
@@ -1268,14 +1280,112 @@ def generic_traceback_kernel(ops: TransOps, final_alpha, bps, lengths):
 
 generic_traceback_kernel.launches = 0
 
+#: backpointer rows a stage of the traceback walks' ring holds, the fewest
+#: stages a walk takes, and the shared memory that K6b's ring kernel leaves
+#: to its static arrays (csrc/viterbi_traceback.cu RING_ROWS, MIN_STAGES,
+#: TABLE_RING_STATIC)
+RING_ROWS = 4
+MIN_RING_STAGES = 2
+_TABLE_RING_STATIC_SMEM = 512
+
+
+def traceback_ring_smem_bytes(deg: int, stages: int = MIN_RING_STAGES,
+                              n: int = 4096) -> int:
+    """K6b's ring kernel's dynamic shared memory: `stages` ring stages of
+    RING_ROWS backpointer rows of n bytes, then the (deg, n) uint16
+    from-state table."""
+    return stages * RING_ROWS * n + deg * 2 * n
+
+
+#: the most slots whose from-state table fits beside MIN_RING_STAGES
+#: stages in one block's shared memory: 24
+MAX_TRACEBACK_RING_SLOTS = (
+    (SMEM_PER_BLOCK - _TABLE_RING_STATIC_SMEM - traceback_ring_smem_bytes(0))
+    // (traceback_ring_smem_bytes(1) - traceback_ring_smem_bytes(0)))
+
+
+def from_state_table(idx):
+    """The from-states of a (deg, 4096) slot table (host array) as K6b's
+    ring kernel reads them: a (deg, 4096) uint16 numpy array equal to idx,
+    or None unless the table is 4096 wide, has 1 to
+    MAX_TRACEBACK_RING_SLOTS slots and states in [0, 4096).  It holds no
+    log-prob: every table that small has it, whatever its log-probs."""
+    idx = np.asarray(idx)
+    deg, n = idx.shape
+    if n != 4096 or not 1 <= deg <= MAX_TRACEBACK_RING_SLOTS \
+            or idx.min() < 0 or idx.max() >= n:
+        return None
+    return np.ascontiguousarray(idx, np.uint16)
+
+
+def generic_traceback_route(ops: TransOps) -> str:
+    """Which K6b kernel runs on the card under `ops`, fixed by the table:
+    "ring" (K2's row ring, the from-state table in shared memory) when it
+    has from_states, which convert.trans_ops gives every table of at most
+    MAX_TRACEBACK_RING_SLOTS slots, else "streaming"."""
+    return "streaming" if ops.from_states is None else "ring"
+
+
+def _check_traceback_ring(ops: TransOps, dev) -> None:
+    """The ring kernel takes a K=6 table's from-state table of 1 to
+    MAX_TRACEBACK_RING_SLOTS slots, contiguous uint16 and 16-byte aligned
+    (its bulk copies) on the launch device."""
+    if ops.K != 6:
+        raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
+    if ops.from_states is None:
+        raise ValueError("the ring traceback needs the table's from-state "
+                         "table (hmm.from_state_table)")
+    deg = ops.from_states.shape[0]
+    if not 1 <= deg <= MAX_TRACEBACK_RING_SLOTS:
+        raise ValueError(f"from-state table: {deg} slots, the ring traceback "
+                         f"takes 1 to {MAX_TRACEBACK_RING_SLOTS}")
+    _check("from_states", ops.from_states, torch.uint16, (deg, 4096), dev)
+    if ops.from_states.data_ptr() % 16:
+        raise ValueError("from_states is not 16-byte aligned")
+
+
+def generic_traceback_ring_kernel(ops: TransOps, final_alpha, bps, lengths):
+    """K6b on the card, the ring kernel (K2's row ring, the from-state
+    table in shared memory): (path (B, T) uint16, logp (B,))."""
+    dev = final_alpha.device
+    B, n = final_alpha.shape
+    if n != 4096:
+        raise ValueError(f"the CUDA generic traceback takes n=4096, got {n}")
+    Tm = bps.shape[0]
+    _check("final_alpha", final_alpha, torch.float32, (B, n), dev)
+    _check("bps", bps, torch.uint8, (Tm, B, n), dev)
+    _check_rows_aligned(bps)
+    _check("lengths", lengths, torch.int32, (B,), dev)
+    _check_traceback_ring(ops, dev)
+    _require_cuda(dev, "ring generic viterbi traceback")
+    path = torch.empty((B, Tm + 1), dtype=torch.uint16, device=dev)
+    logp = torch.empty(B, dtype=torch.float32, device=dev)
+    lib = _cuda.load()
+    err = lib.nc_viterbi_generic_traceback_ring(
+        final_alpha.data_ptr(), bps.data_ptr() if bps.numel() else None,
+        lengths.data_ptr(), B, Tm + 1, ops.from_states.shape[0],
+        ops.from_states.data_ptr(), path.data_ptr(), logp.data_ptr(),
+        *_cuda.target(dev),
+    )
+    _cuda.check(err, "viterbi_generic_traceback_ring kernel launch")
+    _cuda.count_launch(generic_traceback_ring_kernel)
+    return path, logp
+
+
+generic_traceback_ring_kernel.launches = 0
+
 
 def viterbi_traceback(ops: TransOps, final_alpha, bps, lengths):
-    """K6b on the tensors' device: (path (B, T) uint16, logp (B,))."""
+    """K6b on the tensors' device: (path (B, T) uint16, logp (B,)).  On the
+    card the table picks the kernel (generic_traceback_route); both give
+    the plain version's bits."""
     dev = final_alpha.device
     if dev.type == "cpu":
         return viterbi_traceback_plain(ops, final_alpha, bps, lengths)
     if dev.type != "cuda":
         raise ValueError(f"no generic traceback for device {dev}")
+    if generic_traceback_route(ops) == "ring":
+        return generic_traceback_ring_kernel(ops, final_alpha, bps, lengths)
     return generic_traceback_kernel(ops, final_alpha, bps, lengths)
 
 
@@ -1364,7 +1474,8 @@ def pack_fwbw_sides(from_idx, from_logp, to_idx, to_logp):
 
 
 def fwbw_route(ops: TransOps) -> str:
-    """Which K6c kernel runs on the card under `ops`, fixed by the table:
+    """Which K6c (and K6e) kernel runs on the card under `ops`, fixed by
+    the table:
     "resident" (a side's table in shared memory at a time) when it has both
     sides' packed layout, which convert.trans_ops gives every table that
     fits, else "streaming" (the tables read from L2 at every step)."""
@@ -1541,9 +1652,16 @@ def fwbw_custom_plain(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     return out
 
 
+def _custom_outputs(B: int, T: int, n: int, dev) -> dict:
+    """K6e's outputs: {alpha, beta, gamma}, (B, T, n) float32 each on
+    `dev` (the card tests substitute views between guard rows)."""
+    return {k: torch.empty((B, T, n), dtype=torch.float32, device=dev)
+            for k in ("alpha", "beta", "gamma")}
+
+
 def fwbw_custom_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
-    """K6e on the card: both passes in one launch, {alpha, beta, gamma}
-    (B, T, n) as the plain version."""
+    """K6e on the card, the streaming kernel: both passes in one launch,
+    {alpha, beta, gamma} (B, T, n) as the plain version."""
     mean = ev["mean"]
     dev = mean.device
     B, T = mean.shape
@@ -1554,8 +1672,7 @@ def fwbw_custom_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     _check_ops(ops, dev)
     _check_tables(tuple(model), B, n, dev)
     _require_cuda(dev, "custom fwbw")
-    out = {k: torch.empty((B, T, n), dtype=torch.float32, device=dev)
-           for k in ("alpha", "beta", "gamma")}
+    out = _custom_outputs(B, T, n, dev)
     lib = _cuda.load()
     err = lib.nc_fwbw_custom(
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
@@ -1574,13 +1691,53 @@ def fwbw_custom_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
 fwbw_custom_kernel.launches = 0
 
 
+def fwbw_custom_resident_kernel(ops: TransOps, model: ModelArrays,
+                                ev: dict) -> dict:
+    """K6e on the card, the resident kernel (each side's packed table in
+    shared memory in turn, K6c's layout): {alpha, beta, gamma} (B, T, n) as
+    the plain version."""
+    mean = ev["mean"]
+    dev = mean.device
+    B, T = mean.shape
+    n = 4096
+    if T < 1:
+        raise ValueError("forward-backward needs at least one event column")
+    _check_events(ev, B, T, dev)
+    _check_fwbw_resident(ops, dev)
+    _check_tables(tuple(model), B, n, dev)
+    _require_cuda(dev, "resident custom fwbw")
+    p = ops.fwbw_packed
+    out = _custom_outputs(B, T, n, dev)
+    lib = _cuda.load()
+    err = lib.nc_fwbw_custom_resident(
+        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
+        ev["length"].data_ptr(), B, T, p.from_packed.shape[0],
+        p.from_packed.data_ptr(), p.from_codebook.data_ptr(),
+        p.to_packed.shape[0], p.to_packed.data_ptr(),
+        p.to_codebook.data_ptr(),
+        *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
+        *(out[k].data_ptr() for k in ("alpha", "beta", "gamma")),
+        *_cuda.target(dev),
+    )
+    _cuda.check(err, "fwbw_custom_resident kernel launch")
+    _cuda.count_launch(fwbw_custom_resident_kernel)
+    return out
+
+
+fwbw_custom_resident_kernel.launches = 0
+
+
 def fwbw_custom(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
-    """K6e on the tensors' device: {alpha, beta, gamma (B, T, n)}."""
+    """K6e on the tensors' device: {alpha, beta, gamma (B, T, n)}.  On the
+    card the table picks the kernel (fwbw_route, as K6c); both give the
+    plain version's bits."""
     dev = ev["mean"].device
     if dev.type == "cpu":
         return fwbw_custom_plain(ops, model, ev)
     if dev.type != "cuda":
         raise ValueError(f"no custom fwbw for device {dev}")
+    if fwbw_route(ops) == "resident":
+        return fwbw_custom_resident_kernel(ops, model, ev)
     return fwbw_custom_kernel(ops, model, ev)
 
 

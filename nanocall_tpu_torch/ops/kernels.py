@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels, in main-path order (K9's
-traceback chunk after K3's, K6a's and K6c's resident kernels after their
-streaming ones, then the measurement path's K8 and the repro tool's K10):
-each kernel's wrapper (which carries its `launches` counter), its source,
-and the JAX function it replaces."""
+traceback chunk after K3's, the redesigned kernels of K6a, K6b, K6c and
+K6e after their streaming ones, then the measurement path's K8 and the
+repro tool's K10): each kernel's wrapper (which carries its `launches`
+counter), its source, and the JAX function it replaces."""
 
 from __future__ import annotations
 
@@ -59,6 +59,10 @@ KERNELS = (
     Kernel("viterbi_generic_traceback", hmm.generic_traceback_kernel,
            "nanocall_tpu_torch/csrc/viterbi_generic.cu",
            "nanocall_tpu/ops/hmm.py:714"),
+    Kernel("viterbi_generic_traceback_ring",
+           hmm.generic_traceback_ring_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
+           "nanocall_tpu/ops/hmm.py:714"),
     Kernel("fwbw_generic", hmm.fwbw_generic_kernel,
            "nanocall_tpu_torch/csrc/fwbw_generic.cu",
            "nanocall_tpu/ops/hmm.py:784"),
@@ -69,6 +73,9 @@ KERNELS = (
            "nanocall_tpu_torch/csrc/fwbw_backward.cu",
            "nanocall_tpu/ops/hmm.py:1016"),
     Kernel("fwbw_custom", hmm.fwbw_custom_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_custom.cu",
+           "nanocall_tpu/ops/hmm.py:1047"),
+    Kernel("fwbw_custom_resident", hmm.fwbw_custom_resident_kernel,
            "nanocall_tpu_torch/csrc/fwbw_custom.cu",
            "nanocall_tpu/ops/hmm.py:1047"),
     Kernel("fma_chain", fma.fma_chain_kernel,

@@ -521,11 +521,20 @@ def fwbw_forward_counts(B: int, T: int) -> tuple:
             _cell_ops("fwbw_forward", B, T))
 
 
-def em_backward_counts(B: int, T: int) -> tuple:
-    """K5: events, the stored alphas read back, 15 (B, n) tables and
-    statistics."""
+def em_backward_counts(B: int, T: int, train_scaling: bool = True) -> tuple:
+    """K5: what csrc/em_backward.cu reads and writes.  It reads the events
+    and lengths, the stored alphas (T, B, n), log Pr[data] and the 6 model
+    rows of a read, W's 6 rows when it trains scaling (the default here:
+    the trained run's and the smoke's calls), the 3 transition codebooks
+    of 32 float32 a read (hmm.bwd_codebooks), a pattern and a flag byte
+    per state, x_unc and t_start per event, and per row valid, log p_stay
+    and log p_step / 4; it writes the per-step sums red (B, T, 9), scal
+    (B, 14) and st (B, 3)."""
     n = N_STATES
-    return (_event_bytes(B, T) + 4 * T * B * n + 60 * B * n,
+    rows = (12 if train_scaling else 6) * 4 * B * n
+    reads = (_event_bytes(B, T) + 4 * T * B * n + 4 * B + rows + 384 * B
+             + 2 * n + 8 * B * T + 9 * B)
+    return (reads + 36 * B * T + 4 * (14 + 3) * B,
             _cell_ops("em_backward", B, T))
 
 
@@ -580,6 +589,17 @@ def viterbi_generic_traceback_counts(B: int, T: int) -> tuple:
     return 4 * B * n + 5 * B * (T - 1) + 8 * B + 2 * B * T, B * n
 
 
+def viterbi_generic_traceback_ring_counts(B: int, T: int,
+                                          deg: int = 21) -> tuple:
+    """K6b's ring kernel: K6b's work with the table's uint16 from-state
+    copy read once (2 bytes per slot entry) in place of an int32
+    from-index per event: the final alpha, a backpointer byte per event,
+    lengths and logp, the (B, T) uint16 path; the end state's argmax."""
+    n = N_STATES
+    return (4 * B * n + B * (T - 1) + 2 * deg * n + 8 * B + 2 * B * T,
+            B * n)
+
+
 def fwbw_generic_counts(B: int, T: int, deg: int = 21) -> tuple:
     """K6c: events, model rows, both directions' slot tables, and alpha,
     beta and em (B, T, n) stored."""
@@ -603,6 +623,15 @@ def fwbw_custom_counts(B: int, T: int, deg: int = 21) -> tuple:
     n = N_STATES
     return (_event_bytes(B, T) + 24 * B * n + 16 * deg * n + 20 * T * B * n,
             _cell_ops("fwbw_custom", B, T))
+
+
+def fwbw_custom_resident_counts(B: int, T: int, deg: int = 21) -> tuple:
+    """K6e's resident kernel: K6e's operations; both sides' tables in the
+    packed layout, 2 bytes per slot entry and 4 codebooks of 16 float32
+    per slot (hmm.FWBW_GROUPS)."""
+    n = N_STATES
+    return (_event_bytes(B, T) + 24 * B * n + 2 * deg * (2 * n + 256)
+            + 20 * T * B * n, _cell_ops("fwbw_custom", B, T))
 
 
 #: K8's FMAs per step wherever the port measures its peak: K1's step's work
@@ -637,10 +666,12 @@ KERNEL_COUNTS = {
     "viterbi_resident_forward_path": viterbi_resident_forward_path_counts,
     "viterbi_resident_forward_score": viterbi_resident_forward_score_counts,
     "viterbi_generic_traceback": viterbi_generic_traceback_counts,
+    "viterbi_generic_traceback_ring": viterbi_generic_traceback_ring_counts,
     "fwbw_generic": fwbw_generic_counts,
     "fwbw_resident": fwbw_resident_counts,
     "fwbw_grouped_backward": fwbw_grouped_backward_counts,
     "fwbw_custom": fwbw_custom_counts,
+    "fwbw_custom_resident": fwbw_custom_resident_counts,
     "fma_chain": fma_chain_counts,
     "reshape_copy": reshape_copy_counts,
 }
@@ -648,8 +679,9 @@ KERNEL_COUNTS = {
 TABLE_KERNELS = ("viterbi_generic_forward_path",
                  "viterbi_generic_forward_score",
                  "viterbi_resident_forward_path",
-                 "viterbi_resident_forward_score", "fwbw_generic",
-                 "fwbw_resident", "fwbw_custom")
+                 "viterbi_resident_forward_score",
+                 "viterbi_generic_traceback_ring", "fwbw_generic",
+                 "fwbw_resident", "fwbw_custom", "fwbw_custom_resident")
 
 
 def kernel_counts(name: str, B: int, T: int, deg: int = 21) -> tuple:

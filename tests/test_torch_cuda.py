@@ -53,18 +53,63 @@ def _k6_inputs(dev, B: int, T: int, lengths, seed: int):
     return ops, model, convert.event_batch(events.pad_batch(seqs, T), dev)
 
 
-@pytest.mark.cuda
-def test_fwbw_custom_kernel_bit_equal_on_the_card(card):
-    """K6e bit-equal to its plain version on the same card (tolerance 0),
-    lengths 0, 1, T-1 and T among the reads; one launch counted."""
-    ops, model, ev = _k6_inputs(card, 4, 40, [40, 0, 1, 39], 3)
-    want = hmm.fwbw_custom_plain(ops, model, ev)
-    n0 = hmm.fwbw_custom_kernel.launches
-    got = hmm.fwbw_custom(ops, model, ev)
+#: lengths that put the short reads where a stray row of the one before
+#: or after would show: 0 at b = 0, 0 right after 1 and after 2, 1 last
+K6E_EDGE_LENGTHS = (0, 1, 0, "T", 2, 0, "T-1", 1)
+
+
+def _edge_lengths(T: int, extra=()) -> list:
+    return [{"T": T, "T-1": T - 1}.get(L, L) for L in K6E_EDGE_LENGTHS] \
+        + list(extra)
+
+
+def _guarded_call(monkeypatch, wrapper, ops, model, ev, what) -> dict:
+    """`wrapper`'s outputs written into rows 1 .. B of (B + 2, T, n)
+    buffers filled with a NaN of a payload no kernel makes (through
+    hmm._custom_outputs); fails if the kernel wrote row 0 or B + 1."""
+    B, T = ev["mean"].shape
+    bufs = {k: torch.full((B + 2, T, 4096), 0x7FBADBAD, dtype=torch.int32,
+                          device=ev["mean"].device).view(torch.float32)
+            for k in ("alpha", "beta", "gamma")}
+    out = {k: v[1:B + 1] for k, v in bufs.items()}
+    with monkeypatch.context() as m:
+        m.setattr(hmm, "_custom_outputs", lambda *_: out)
+        got = wrapper(ops, model, ev)
     torch.cuda.synchronize()
-    assert hmm.fwbw_custom_kernel.launches == n0 + 1
-    for k in ("alpha", "beta", "gamma"):
-        assert torch.equal(got[k], want[k]), k
+    assert got is out, what
+    for k, v in bufs.items():
+        for row in (0, B + 1):
+            assert bool((v[row].view(torch.int32) == 0x7FBADBAD).all()), \
+                (what, k, f"guard row {row} written")
+    return out
+
+
+@pytest.mark.cuda
+def test_fwbw_custom_kernel_bit_equal_on_the_card(card, monkeypatch):
+    """K6e bit-equal to its plain version on the same card (tolerance 0),
+    lengths 0, 1, 2, T-1 and T among the reads, 0 at b = 0 and right after
+    a read of 1 and of 2 (K6E_EDGE_LENGTHS): through hmm.fwbw_custom, which
+    takes the resident kernel for the in-memory table (it has K6c's
+    layout), one launch counted; and the streaming kernel on the same
+    inputs, one launch counted.  Both again into outputs between guard
+    rows, which neither writes."""
+    T = 40
+    lengths = _edge_lengths(T)
+    ops, model, ev = _k6_inputs(card, len(lengths), T, lengths, 3)
+    assert hmm.fwbw_route(ops) == "resident"
+    want = hmm.fwbw_custom_plain(ops, model, ev)
+    for wrapper, call in ((hmm.fwbw_custom_resident_kernel, hmm.fwbw_custom),
+                          (hmm.fwbw_custom_kernel, hmm.fwbw_custom_kernel)):
+        n0 = wrapper.launches
+        got = call(ops, model, ev)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1
+        out = _guarded_call(monkeypatch, wrapper, ops, model, ev,
+                            wrapper.__name__)
+        for k in ("alpha", "beta", "gamma"):
+            assert torch.equal(got[k], want[k]), (wrapper.__name__, k)
+            assert torch.equal(_bits(out[k]), _bits(want[k])), \
+                (wrapper.__name__, k, "guarded")
 
 
 @pytest.mark.cuda
@@ -589,3 +634,164 @@ def test_fwbw_custom_kernel_bit_equal_under_nan_on_the_card(card):
     assert torch.isnan(want["gamma"][5]).any()
     for k in ("alpha", "beta", "gamma"):
         assert torch.equal(_bits(got[k]), _bits(want[k])), k
+
+
+def _k6e_tables(dev, tmp_path, rng) -> dict:
+    """The tables K6e's resident kernel is held under: the loaded tables of
+    (0.14, 0.21) and of the CLI priors (21 slots a side: its <21>
+    instance) and random packed tables of 12 / 23 and 23 / 12 slots (its
+    <0> instance)."""
+    tables = {"(0.14, 0.21)": _loaded_ops(dev, tmp_path, 0.14, 0.21),
+              "(0.1, 0.3)": _loaded_ops(dev, tmp_path, 0.1, 0.3)}
+    for d_from, d_to in ((12, 23), (23, 12)):
+        f_idx, f_lp = random_block_table(rng, d_from, 16, hmm.FWBW_GROUPS)
+        t_idx, t_lp = random_block_table(rng, d_to, 16, hmm.FWBW_GROUPS)
+        tables[f"random packed {d_from} / {d_to}"] = convert.trans_ops(
+            transitions.SparseTransitions(from_idx=f_idx, from_logp=f_lp,
+                                          to_idx=t_idx, to_logp=t_lp, K=6),
+            dev)
+    return tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_fwbw_custom_resident_bit_equal_on_the_card(card, tmp_path, inputs,
+                                                   monkeypatch):
+    """K6e's resident kernel bit-equal to fwbw_custom_plain (alpha, beta and
+    gamma as bits, tolerance 0) under the loaded tables of (0.14, 0.21) and
+    of the priors (its <21> instance) and random packed tables of 12 / 23
+    and 23 / 12 slots (<0>), lengths 0, 1, 2, T-1 and T among the reads, 0
+    at b = 0 and right after a read of 1 and of 2 (K6E_EDGE_LENGTHS);
+    clean, and with NaN events in one read from its middle on, a +inf event
+    in another and a NaN model entry at one state of a third.
+    hmm.fwbw_custom takes it for every one of them, one launch each; the
+    kernel again into outputs between guard rows, which it leaves as they
+    were (a read of length 0 must not write the row before its own)."""
+    T = 40
+    # the NaN rows 8, 9 and 10 are full reads
+    lengths = _edge_lengths(T, (T, T, T, 17))
+    B = len(lengths)
+    _, model, ev = _k6_inputs(card, B, T, lengths, 14)
+    if inputs == "NaN":
+        _nan_fwbw_events(ev, (8, 10))
+        model.level_mean[9, 99] = float("nan")
+    for what, ops in _k6e_tables(card, tmp_path,
+                                 np.random.default_rng(14)).items():
+        assert hmm.fwbw_route(ops) == "resident", what
+        want = hmm.fwbw_custom_plain(ops, model, ev)
+        n0 = hmm.fwbw_custom_resident_kernel.launches
+        got = hmm.fwbw_custom(ops, model, ev)
+        torch.cuda.synchronize()
+        assert hmm.fwbw_custom_resident_kernel.launches == n0 + 1, what
+        out = _guarded_call(monkeypatch, hmm.fwbw_custom_resident_kernel,
+                            ops, model, ev, what)
+        if inputs == "NaN":
+            assert torch.isnan(want["gamma"][8]).any(), what
+            assert torch.isnan(want["gamma"][9]).any(), what
+        for k in ("alpha", "beta", "gamma"):
+            assert torch.equal(_bits(got[k]), _bits(want[k])), (what, k)
+            assert torch.equal(_bits(out[k]), _bits(want[k])), \
+                (what, k, "guarded")
+
+
+def _k6b_check(ops, fa, bps, lengths, route: str, what) -> None:
+    """hmm.viterbi_traceback on the card takes `route` under `ops`, one
+    launch of that kernel, and gives the plain version's path and logp
+    (logp as bits)."""
+    wrapper = {"ring": hmm.generic_traceback_ring_kernel,
+               "streaming": hmm.generic_traceback_kernel}[route]
+    assert hmm.generic_traceback_route(ops) == route, what
+    want = hmm.viterbi_traceback_plain(ops, fa, bps, lengths)
+    n0 = wrapper.launches
+    got = hmm.viterbi_traceback(ops, fa, bps, lengths)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1, what
+    assert torch.equal(got[0].int(), want[0].int()), (what, "path")
+    assert torch.equal(_bits(got[1]), _bits(want[1])), (what, "logp")
+
+
+@pytest.mark.cuda
+def test_generic_traceback_ring_bit_equal_on_the_card(card, tmp_path):
+    """K6b's ring kernel bit-equal to its plain version (path, logp) on
+    K6a's output under the loaded tables of (0.14, 0.21) and of the priors
+    (whose 17 log-probs a slot leave K6a on its streaming kernel; K6b takes
+    the ring all the same) and a random table of 24 slots (2 ring stages),
+    lengths 0, 1, 2, T-1 and T among the reads; K6b's streaming kernel, which
+    a table of 25 slots takes, bit-equal too."""
+    T = 300
+    lengths = [T, 0, 1, T - 1, 2, 150, 299, 77]
+    _, model, ev = _k6_inputs(card, len(lengths), T, lengths, 15)
+    rng = np.random.default_rng(15)
+
+    def random_ops(deg):
+        idx = rng.integers(0, 4096, (deg, 4096)).astype(np.int32)
+        lp = np.log(rng.uniform(0.01, 1.0, (deg, 4096))).astype(np.float32)
+        return convert.trans_ops(transitions.SparseTransitions(
+            from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), card)
+
+    for what, ops, route in (
+            ("(0.14, 0.21)", _loaded_ops(card, tmp_path, 0.14, 0.21), "ring"),
+            ("(0.1, 0.3)", _loaded_ops(card, tmp_path, 0.1, 0.3), "ring"),
+            ("random 24 slots", random_ops(24), "ring"),
+            ("random 25 slots", random_ops(25), "streaming")):
+        fa, bps = hmm.viterbi_forward(ops, model, ev)
+        _k6b_check(ops, fa, bps, ev["length"], route, what)
+
+
+def _random_walk_inputs(dev, B: int, T: int, lengths, deg: int, seed: int):
+    """A traceback's inputs drawn at random: final alphas (B, 4096) and
+    slot ids in [0, deg) as backpointers (T-1, B, 4096), made from a numpy
+    seed; any slot names a from-state, so every walk is valid."""
+    rng = np.random.default_rng(seed)
+    fa = convert.tensor(rng.normal(0.0, 10.0, (B, 4096)).astype(np.float32),
+                        dev)
+    bps = torch.from_numpy(rng.integers(0, deg, (T - 1, B, 4096)).astype(
+        np.uint8)).to(dev)
+    return fa, bps, convert.tensor(np.asarray(lengths), dev, torch.int32)
+
+
+@pytest.mark.cuda
+def test_generic_traceback_ring_under_nan_on_the_card(card, tmp_path):
+    """K6b's ring kernel on final alphas that are NaN at some states of one
+    read (its end state is the first NaN, its logp NaN: torch.argmax /
+    torch.amax), all NaN in another, all -inf in a third (every state
+    ties: state 0) and +inf at two states of a fourth (the first): path and
+    logp bit-equal to the plain version, as K6b's streaming kernel."""
+    T = 64
+    lengths = [T, T, T, T, 10, 1, 0, 33]
+    ops = _loaded_ops(card, tmp_path, 0.14, 0.21)
+    fa, bps, ln = _random_walk_inputs(card, len(lengths), T, lengths, 21, 16)
+    fa[0, [77, 3000, 12]] = float("nan")
+    fa[1] = float("nan")
+    fa[2] = float("-inf")
+    fa[3, [900, 40]] = float("inf")
+    want = hmm.viterbi_traceback_plain(ops, fa, bps, ln)
+    assert int(want[0][0, -1]) == 12 and torch.isnan(want[1][0])
+    assert int(want[0][2, -1]) == 0 and int(want[0][3, -1]) == 40
+    _k6b_check(ops, fa, bps, ln, "ring", "NaN final alphas")
+    _k6b_check(ops._replace(from_states=None), fa, bps, ln, "streaming",
+               "NaN final alphas, streaming")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+def test_generic_traceback_ring_cases_on_the_card(card, tmp_path, case):
+    """K6b's ring kernel on RING_CASES' shapes (14 reads of 600 events, and
+    300 reads of 64 events: more blocks than SMs; lengths 0 to T), on
+    random final alphas and slot ids under the loaded table of (0.14,
+    0.21) (3 stages) and a random table of 24 slots (2 stages): path and
+    logp bit-equal to the plain version."""
+    T, lengths, _, _ = RING_CASES[case]
+    rng = np.random.default_rng(17)
+    idx = rng.integers(0, 4096, (24, 4096)).astype(np.int32)
+    lp = np.log(rng.uniform(0.01, 1.0, (24, 4096))).astype(np.float32)
+    for what, ops in (
+            ("(0.14, 0.21)", _loaded_ops(card, tmp_path, 0.14, 0.21)),
+            ("random 24 slots", convert.trans_ops(
+                transitions.SparseTransitions(from_idx=idx, from_logp=lp,
+                                              to_idx=idx, to_logp=lp, K=6),
+                card))):
+        deg = ops.from_idx.shape[0]
+        fa, bps, ln = _random_walk_inputs(card, len(lengths), T, lengths,
+                                          deg, 18)
+        _k6b_check(ops, fa, bps, ln, "ring", (case, what))

@@ -360,8 +360,9 @@ def test_k4_padded_columns_free_of_bank_conflicts():
 
 
 def _take_better(best, idx, ob, oi):
-    """K2's take_better (K6b's rule) on tensors: the better of (best, idx)
-    and (ob, oi), a NaN above every number, ties to the lower index."""
+    """common.cuh's take_better (K6b's rule, K2's too) on tensors: the
+    better of (best, idx) and (ob, oi), a NaN above every number, ties to
+    the lower index."""
     o_nan, b_nan = torch.isnan(ob), torch.isnan(best)
     take = torch.where(o_nan | b_nan, o_nan & (~b_nan | (oi < idx)),
                        (ob > best) | ((ob == best) & (oi < idx)))
@@ -386,9 +387,10 @@ def _shfl_down_tree(best, idx, rule):
 
 
 def _k2_end_argmax(fa: torch.Tensor, rule=_take_better):
-    """K2's end reduction in the kernel's order: thread t's states 4t ..
-    4t+3 in turn, the shuffle tree of each warp (threads 32 w .. 32 w + 31),
-    then the tree over the 32 warps' results.  Returns (best, idx)."""
+    """K2's and K6b's end reduction (common.cuh end_argmax_partials, then
+    end_argmax) in the kernels' order: thread t's states 4t .. 4t+3 in
+    turn, the shuffle tree of each warp (threads 32 w .. 32 w + 31), then
+    the tree over the 32 warps' results.  Returns (best, idx)."""
     B = fa.shape[0]
     v = fa.view(B, 1024, 4)
     i = torch.arange(N, dtype=torch.int64).view(1, 1024, 4).expand(B, -1, -1)

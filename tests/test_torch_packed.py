@@ -17,6 +17,7 @@ alone.  The kernels themselves are held to the plain version on the card
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -378,12 +379,21 @@ def test_fwbw_resident_wrapper_refuses_cpu_and_bad_layouts(loaded_priors):
         assert k.wrapper.launches == 0, k.name
 
 
+def _csrc(*names) -> str:
+    """The CUDA sources `names` of nanocall_tpu_torch/csrc, concatenated."""
+    out = []
+    for name in names:
+        with open(os.path.join(ROOT, "nanocall_tpu_torch", "csrc",
+                               name)) as fh:
+            out.append(fh.read())
+    return "\n".join(out)
+
+
 def test_fwbw_kernel_source_states_the_layout():
-    """fwbw_generic.cu's resident layout constants and shared-memory size
+    """fwbw_generic.cu's resident layout constants (in the header it shares
+    with K6e's resident kernel, resident_slots.cuh) and shared-memory size
     are the ones hmm.py packs for and budgets."""
-    with open(os.path.join(ROOT, "nanocall_tpu_torch", "csrc",
-                           "fwbw_generic.cu")) as fh:
-        src = fh.read()
+    src = _csrc("fwbw_generic.cu", "resident_slots.cuh")
     assert f"constexpr int GROUPS = {hmm.FWBW_GROUPS};" in src
     assert f"constexpr int CODES = {hmm.RESIDENT_CODES};" in src
     assert f"constexpr int MAX_DEG = {hmm.MAX_FWBW_RESIDENT_SLOTS};" in src
@@ -391,3 +401,220 @@ def test_fwbw_kernel_source_states_the_layout():
             "nc::N * 2);") in src
     assert hmm.fwbw_resident_smem_bytes(21) == 2 * N * 4 + 21 * (
         4 * 16 * 4 + N * 2)
+
+
+# K6e's resident kernel (K6c's layout) and K6b's ring (the from-state table)
+
+
+def test_custom_resident_kernel_source_states_the_layout():
+    """fwbw_custom.cu's resident kernel takes K6c's layout from the shared
+    header and sets the same shared memory, one instance for 21 slots a
+    side and one for any count (<0>)."""
+    src = _csrc("fwbw_custom.cu")
+    assert '#include "resident_slots.cuh"' in src
+    assert ("const int smem = 2 * nc::N * 4 + deg * (GROUPS * CODES * 4 + "
+            "nc::N * 2);") in src
+    assert "fwbw_custom_resident_kernel<21>" in src
+    assert "fwbw_custom_resident_kernel<0>" in src
+    # no second copy of the slot arithmetic
+    for name in ("fwbw_custom.cu", "fwbw_generic.cu"):
+        assert "float lse_resident(" not in _csrc(name), name
+    assert "float lse_resident(" in _csrc("resident_slots.cuh")
+
+
+def test_custom_resident_backward_writes_each_gamma_row_once():
+    """The resident K6e's backward writes gamma rows T-1 .. t_top + 1 with
+    the frozen beta, then t_top .. 0 by steps: every row 0 .. T-1 once and
+    no other, for every length 0 .. T + 1 (a length-0 read must not write
+    row -1, the read before's last row).  t_top as fwbw_custom.cu computes
+    it, evaluated here."""
+    src = _csrc("fwbw_custom.cu")
+    expr = re.search(r"const int t_top = (.*);", src).group(1)
+    for T in range(1, 7):
+        for length in range(T + 2):
+            t_top = eval(expr, {"min": min, "max": max, "T": T,
+                                "len": length})
+            rows = list(range(T - 1, t_top, -1)) + list(range(t_top, -1, -1))
+            assert sorted(rows) == list(range(T)), (T, length, rows)
+
+
+def _route_of(call, *args):
+    """Which wrapper `call` (hmm.fwbw_custom or hmm.viterbi_traceback)
+    takes for tensors on a CUDA device, with every kernel wrapper of K6b and
+    K6e replaced by a recorder: the dispatch alone, no card needed."""
+    names = ("fwbw_custom_kernel", "fwbw_custom_resident_kernel",
+             "generic_traceback_kernel", "generic_traceback_ring_kernel")
+    taken = []
+    saved = {n: getattr(hmm, n) for n in names}
+    try:
+        for n in names:
+            setattr(hmm, n, lambda *a, n=n: taken.append(n))
+        call(*args)
+    finally:
+        for n, f in saved.items():
+            setattr(hmm, n, f)
+    return taken
+
+
+class _OnCard:
+    """A stand-in for a tensor on the card: the dispatch reads .device."""
+
+    device = torch.device("cuda", 0)
+
+
+def test_custom_fwbw_route_follows_fwbw_route(loaded_priors, loaded21):
+    """hmm.fwbw_custom takes the resident K6e exactly where hmm.fwbw takes
+    the resident K6c (hmm.fwbw_route): under the loaded tables of the CLI
+    priors and of (0.14, 0.21), and the streaming K6e without the layout
+    or under a table that does not pack."""
+    rng = np.random.default_rng(21)
+    tables = {"priors": convert.trans_ops(loaded_priors, CPU),
+              "(0.14, 0.21)": convert.trans_ops(loaded21, CPU),
+              "17 values a block": convert.trans_ops(
+                  _sparse(*random_block_table(rng, 21, 17,
+                                              hmm.FWBW_GROUPS)), CPU)}
+    tables["no layout"] = tables["priors"]._replace(fwbw_packed=None)
+    ev = {"mean": _OnCard()}
+    for what, ops in tables.items():
+        want = {"resident": "fwbw_custom_resident_kernel",
+                "streaming": "fwbw_custom_kernel"}[hmm.fwbw_route(ops)]
+        assert _route_of(hmm.fwbw_custom, ops, None, ev) == [want], what
+        assert (hmm.fwbw_route(ops) == "resident") == (
+            what in ("priors", "(0.14, 0.21)")), what
+
+
+def _structured_ops():
+    return convert.trans_ops(transitions.build_structured(
+        transitions.TransitionParams(0.14, 0.21), 6), CPU)
+
+
+def test_from_state_table_equals_from_idx(loaded21, loaded_priors):
+    """convert.trans_ops gives K6b's uint16 from-state table, equal to
+    from_idx, to the structured 21-slot table, the loaded tables of
+    (0.14, 0.21) and of the CLI priors (whose slots hold 17 log-probs, so
+    K6a's layout misses it) and a random table of 24 slots of random
+    log-probs: it holds no log-prob, so every table that small has it."""
+    rng = np.random.default_rng(22)
+    idx = rng.integers(0, N, (24, N)).astype(np.int32)
+    lp = np.log(rng.uniform(0.01, 1.0, (24, N))).astype(np.float32)
+    tables = {"structured": _structured_ops(),
+              "(0.14, 0.21)": convert.trans_ops(loaded21, CPU),
+              "priors": convert.trans_ops(loaded_priors, CPU),
+              "random 24 slots": convert.trans_ops(_sparse(idx, lp), CPU)}
+    assert tables["priors"].from_packed is None
+    for what, ops in tables.items():
+        st = ops.from_states
+        assert st is not None, what
+        assert st.dtype == torch.uint16 and st.is_contiguous(), what
+        assert tuple(st.shape) == tuple(ops.from_idx.shape), what
+        assert torch.equal(st.to(torch.int32), ops.from_idx), what
+        assert hmm.generic_traceback_route(ops) == "ring", what
+        assert np.array_equal(hmm.from_state_table(ops.from_idx.numpy()),
+                              ops.from_idx.numpy()), what
+
+
+@pytest.mark.parametrize("deg", [24, 25])
+def test_traceback_route_is_a_function_of_the_table(deg):
+    """K6b takes its ring kernel at 24 slots, the most whose from-state
+    table fits one block beside MIN_RING_STAGES ring stages, and its
+    streaming kernel at 25 (convert.trans_ops gives no from-state table
+    there) or on a TransOps without one."""
+    idx, lp = random_table(np.random.default_rng(deg), deg, 16)
+    ops = convert.trans_ops(_sparse(idx, lp), CPU)
+    assert hmm.MAX_TRACEBACK_RING_SLOTS == 24
+    want = "ring" if deg <= 24 else "streaming"
+    assert hmm.generic_traceback_route(ops) == want
+    assert (ops.from_states is None) == (want == "streaming")
+    assert (hmm.from_state_table(idx) is None) == (want == "streaming")
+    bare = ops._replace(from_states=None)
+    assert hmm.generic_traceback_route(bare) == "streaming"
+    fa = _OnCard()
+    assert _route_of(hmm.viterbi_traceback, ops, fa, None, None) == [
+        "generic_traceback_ring_kernel" if want == "ring"
+        else "generic_traceback_kernel"]
+    assert _route_of(hmm.viterbi_traceback, bare, fa, None, None) == [
+        "generic_traceback_kernel"]
+
+
+def test_from_state_table_refuses_other_widths_and_states():
+    """Only 4096-wide tables of from-states in [0, 4096) have one."""
+    st3 = transitions.build_structured(transitions.TransitionParams(0.14,
+                                                                    0.21), 3)
+    assert hmm.from_state_table(transitions.slot_from_state(3)) is None
+    assert convert.trans_ops(st3, CPU).from_states is None
+    idx, _ = random_table(np.random.default_rng(23), 4, 3)
+    idx[1, 9] = N
+    assert hmm.from_state_table(idx) is None
+    idx[1, 9] = -1
+    assert hmm.from_state_table(idx) is None
+
+
+def test_ring_kernel_source_states_its_shared_memory():
+    """viterbi_traceback.cu's ring constants and K6b's shared-memory size
+    are the ones hmm.py budgets: a stage of 4 rows of 4096 bytes, 2 to 12
+    stages, the table's deg x 4096 uint16 beside them in 232,448 B less
+    512 for the static arrays; 3 stages at 21 slots, 2 at 24, none left at
+    25."""
+    src = _csrc("viterbi_traceback.cu")
+    for line in (f"constexpr int RING_ROWS = {hmm.RING_ROWS};",
+                 f"constexpr int MIN_STAGES = {hmm.MIN_RING_STAGES};",
+                 f"constexpr int SMEM_PER_BLOCK = {hmm.SMEM_PER_BLOCK};",
+                 "constexpr int TABLE_RING_STATIC = "
+                 f"{hmm._TABLE_RING_STATIC_SMEM};",
+                 "const int smem = stages * (int)STAGE_BYTES + deg * N * 2;"):
+        assert line in src, line
+    assert hmm.traceback_ring_smem_bytes(21, 3) == 3 * 4 * N + 21 * 2 * N
+    # ring_stages: the stages that fit beside the table, at most 12
+    room = hmm.SMEM_PER_BLOCK - hmm._TABLE_RING_STATIC_SMEM
+    for deg, stages in ((21, 3), (24, 2), (25, 1)):
+        assert (room - deg * 2 * N) // (hmm.RING_ROWS * N) == stages, deg
+        assert hmm.traceback_ring_smem_bytes(deg, stages) <= room
+        assert hmm.traceback_ring_smem_bytes(deg, stages + 1) > room
+
+
+def test_end_argmax_has_one_implementation():
+    """K2's, K6b's ring and K6b's streaming kernels take their end argmax
+    from common.cuh (end_argmax_partials, a barrier, end_argmax), and no
+    kernel source holds a second copy of its rule or its shuffles."""
+    common = _csrc("common.cuh")
+    for name in ("void take_better(", "void warp_argmax(",
+                 "void end_argmax_partials(", "void end_argmax("):
+        assert name in common, name
+    for name, kernels in (("viterbi_traceback.cu", 2),
+                          ("viterbi_generic.cu", 1)):
+        src = _csrc(name)
+        assert "void take_better(" not in src, name
+        assert "__shfl_down_sync" not in src, name
+        assert src.count("end_argmax_partials(") == kernels, name
+        assert src.count("end_argmax(w_best, w_idx, ") == kernels, name
+
+
+def test_new_wrappers_refuse_cpu_and_bad_layouts(loaded_priors):
+    """K6b's ring wrapper and K6e's resident wrapper take CUDA tensors and
+    the table's layouts only (uint16 from-states; both packed sides);
+    nothing launches."""
+    (_, _, _), (_, m_t, ev_t), _ = _rows(6, np.random.default_rng(3), 2, 6,
+                                         [6, 3])
+    ops = convert.trans_ops(loaded_priors, CPU)
+    call = hmm.fwbw_custom_resident_kernel
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call(ops, m_t, ev_t)
+    with pytest.raises(ValueError, match="packed layout"):
+        call(ops._replace(fwbw_packed=None), m_t, ev_t)
+    with pytest.raises(ValueError, match="K=6"):
+        call(ops._replace(K=3), m_t, ev_t)
+    fa = torch.zeros((2, N), dtype=torch.float32)
+    bps = torch.zeros((5, 2, N), dtype=torch.uint8)
+    lengths = torch.tensor([6, 3], dtype=torch.int32)
+    ring = hmm.generic_traceback_ring_kernel
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ring(ops, fa, bps, lengths)
+    with pytest.raises(ValueError, match="from-state table"):
+        ring(ops._replace(from_states=None), fa, bps, lengths)
+    with pytest.raises(ValueError, match="uint16"):
+        ring(ops._replace(from_states=ops.from_states.to(torch.int32)), fa,
+             bps, lengths)
+    with pytest.raises(ValueError, match="K=6"):
+        ring(ops._replace(K=3), fa, bps, lengths)
+    for k in kernels.KERNELS:
+        assert k.wrapper.launches == 0, k.name

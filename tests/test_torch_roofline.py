@@ -38,7 +38,9 @@ PINNED = {
     ("viterbi_forward_chunk", 4, 8192): (0.057468224955223884,
                                          "operations"),
     ("fwbw_forward", 512, 128): (0.34329370746268656, "bytes"),
-    ("em_backward", 512, 128): (0.35831624597014927, "bytes"),
+    # K5's count since it was repaired: what em_backward.cu reads and
+    # writes (model rows, W, codebooks), not 15 (B, n) tables
+    ("em_backward", 512, 128): (0.35173834507462687, "bytes"),
     # K6d's count since its redesign: model rows and codebooks, no tables
     ("fwbw_grouped_backward", 512, 128): (0.3358408214925373, "bytes"),
     ("viterbi_generic_forward_path", 128, 8192): (5.25652713838806,
@@ -90,16 +92,19 @@ def test_kernel_bound_k8_and_k10():
 
 def test_table_kernels_count_their_slots():
     """Bytes per slot: 16 per state for both directions' int32 / float32
-    tables (K6c's streaming kernel, K6e), 8 for the from side (K6a's
+    tables (K6c's and K6e's streaming kernels), 8 for the from side (K6a's
     streaming kernel), 2 per state and a 64-byte codebook for the packed
     from side (K6a's resident kernel), 2 per state and four 64-byte
-    codebooks for each packed side (K6c's resident kernel); each resident
-    kernel does its streaming twin's operations."""
+    codebooks for each packed side (K6c's and K6e's resident kernels), 2
+    per state for the uint16 from-states (K6b's ring kernel); each
+    redesigned kernel does its streaming twin's operations."""
     for name in roofline.TABLE_KERNELS:
         b21, b42 = (roofline.kernel_counts(name, 8, 64, deg=d)[0]
                     for d in (21, 42))
-        per_slot = (2 * (2 * 4096 + 256) if name == "fwbw_resident"
+        per_slot = (2 * (2 * 4096 + 256)
+                    if name in ("fwbw_resident", "fwbw_custom_resident")
                     else 2 * 4096 + 64 if "resident" in name
+                    else 2 * 4096 if name.endswith("_ring")
                     else (16 if "fwbw" in name else 8) * 4096)
         assert b42 - b21 == per_slot * 21
     for kind in ("path", "score"):
@@ -109,6 +114,29 @@ def test_table_kernels_count_their_slots():
                                    128, 8192)[1]
     assert roofline.kernel_counts("fwbw_resident", 512, 128)[1] == \
         roofline.kernel_counts("fwbw_generic", 512, 128)[1]
+    assert roofline.kernel_counts("fwbw_custom_resident", 16, 2048)[1] == \
+        roofline.kernel_counts("fwbw_custom", 16, 2048)[1]
+    assert roofline.kernel_counts("viterbi_generic_traceback_ring", 128,
+                                  8192)[1] == \
+        roofline.kernel_counts("viterbi_generic_traceback", 128, 8192)[1]
+
+
+def test_em_backward_counts_what_k5_moves():
+    """K5's bytes at the EM chunk (512 rows x 128 events), part by part as
+    csrc/em_backward.cu reads and writes them: events and lengths, the
+    alphas, log Pr[data], the 6 model rows and W's 6 (W only when it trains
+    scaling), 3 x 32 codebook floats a row, a pattern and a flag byte per
+    state, x_unc and t_start, valid and the two log rates a row; red
+    (B, T, 9), scal (B, 14) and st (B, 3) written."""
+    B, T, n = 512, 128, 4096
+    common = (12 * B * T + 4 * B + 4 * T * B * n + 4 * B + 384 * B + 2 * n
+              + 8 * B * T + B + 8 * B + 36 * B * T + 4 * 14 * B + 4 * 3 * B)
+    assert roofline.em_backward_counts(B, T)[0] == \
+        common + 48 * B * n == 1178323456
+    assert roofline.em_backward_counts(B, T, train_scaling=False)[0] == \
+        common + 24 * B * n
+    assert roofline.kernel_counts("em_backward", B, T) == \
+        roofline.em_backward_counts(B, T)
 
 
 def test_mfu_report_arithmetic():

@@ -5,6 +5,7 @@
                                         [--train] [--trans FILE] [--profile]
                                         [--long 100000] [--em] [--census]
                                         [--k4-launches] [--walks]
+                                        [--custom]
                                         [--tree DIR | --turns DIR]
 
 1. K8, the measured float32 peak at the decode's shape
@@ -16,7 +17,11 @@
    chip_smoke.py's inputs; with --trans, also K6a's two kernels
    (streaming and resident, path and score-only: timed in turns, streaming,
    resident, resident, streaming, with the card's nvidia-smi line sampled
-   beside each time) and K6b under that table.  For each kernel: its
+   beside each time) and K6b under that table, then K6b's two kernels
+   (streaming and, in a tree that has it, the ring: streaming, ring, ring,
+   streaming) on K6a's output as drawn and with every length T, bit-equal
+   to each other, with the rows the ring streams and their time at 3.35
+   TB/s.  For each kernel: its
    bound, its achieved
    float32 operations per second (roofline.kernel_shares: its count
    over its time) and that rate's share of the H100's 67 TFLOP/s and of
@@ -66,6 +71,12 @@ events [8192, 16384) of 4 reads, each bit-equal to its plain version and
 timed (the mean of 2 x WALK_REPS calls, in the order K2, K3, K9, K9, K3,
 K2), and K2 probed under a NaN stay entry (16 x 512): bit-equal to its
 plain version or not (torch.argmax takes the first NaN).
+With --custom, also K6e (the per-step-normalized forward-backward of
+`run-fwbw --custom-fwbw`) under the loaded table of (0.14, 0.21) at 16
+reads x 2048 events (chip_smoke.py's inputs) and at 1 read x 4000 events
+(the smoke's run-fwbw read's length): the streaming kernel and, in a
+tree that has it, the resident one, bit-equal to each other and timed in
+turns (streaming, resident, resident, streaming).
 With --train --k4-launches, also K4 on the inputs of each of its launches
 in one more trained pipeline run: milliseconds per launch.  Phase 1 also
 times K3's forward chunk (events [8192, 16384) of 4 reads, chunks of 8192)
@@ -109,8 +120,10 @@ KERNEL_FUNCTIONS = ("viterbi_forward_kernel", "viterbi_traceback_kernel",
                     "viterbi_generic_forward_kernel",
                     "viterbi_resident_forward_kernel",
                     "viterbi_generic_traceback_kernel",
+                    "viterbi_generic_traceback_ring_kernel",
                     "fwbw_generic_kernel", "fwbw_resident_kernel",
-                    "fwbw_backward_kernel")
+                    "fwbw_backward_kernel", "fwbw_custom_kernel",
+                    "fwbw_custom_resident_kernel")
 
 
 def main() -> int:
@@ -131,6 +144,8 @@ def main() -> int:
     ap.add_argument("--walks", action="store_true",
                     help="time the traceback walks (K2, K3, K9) alone in "
                          "place of phase 1")
+    ap.add_argument("--custom", action="store_true",
+                    help="time K6e's kernels at 16 x 2048 and 1 x 4000")
     ap.add_argument("--tree", default="", metavar="DIR",
                     help="run on the checkout in DIR")
     ap.add_argument("--turns", default="", metavar="DIR",
@@ -192,6 +207,7 @@ def main() -> int:
                                   zip(r["ms_turns"], r["samples"]))
                 print(f"K6a in turns, {name} B={args.B} T={args.T}: "
                       f"{turns}", flush=True)
+            time_k6b(convert.trans_ops(table, device), model, ev, card)
         for name, r in recs.items():
             b = roofline.kernel_bound(name, args.B, args.T)
             sh = roofline.kernel_shares(name, args.B, args.T, r["ms"], peak)
@@ -217,6 +233,9 @@ def main() -> int:
 
     if args.em:
         time_em_kernels(models, device, card)
+
+    if args.custom:
+        time_custom(models, device, card)
 
     cfg = chip_smoke.smoke_config(*([] if args.train else ["--no-train"]),
                                   *trans_flags)
@@ -383,10 +402,19 @@ CENSUS_LOOPS = (("K1 path", ("viterbi_forward_kernelILb0ELb1E",
                 ("K6c streaming", ("fwbw_generic_kernel",)))
 
 
+#: the traceback walks' kernels, by name marker (the chunk kernel's two
+#: template instances: K3's codes, K9's states)
+WALK_MARKERS = (("K2", "24viterbi_traceback_kernel"),
+                ("K3 traceback chunk", "viterbi_traceback_chunk_kernelILb0E"),
+                ("K9 states chunk", "viterbi_traceback_chunk_kernelILb1E"),
+                ("K6b ring", "viterbi_generic_traceback_ring_kernel"))
+
+
 def print_census() -> None:
     """The static SASS census (this checkout's chip_smoke.step_loop_sass)
-    of the time loops of the built kernels of the tree run on, and of the
-    resident K6c's two time loops (barrier_loops_sass) where it has one."""
+    of the time loops of the built kernels of the tree run on, of the
+    resident K6c's and K6e's two time loops (barrier_loops_sass) where it
+    has them, and of the traceback walks' loops (walk_loop_sass)."""
     import importlib.util
 
     from nanocall_tpu_torch.ops import _cuda
@@ -405,11 +433,17 @@ def print_census() -> None:
             continue
         c = here.step_loop_sass(marker)
         print(f"census {what} ({marker}): {c}", flush=True)
-    for marker in sorted(set(re.findall(r"fwbw_resident_kernel\w*", sass))):
-        for what, lp in zip(("forward", "backward"),
-                            here.barrier_loops_sass(marker)):
-            print(f"census K6c resident ({marker}), {what} time loop: {lp}",
-                  flush=True)
+    for kernel, what_k in (("fwbw_resident_kernel", "K6c resident"),
+                           ("fwbw_custom_resident_kernel", "K6e resident")):
+        for marker in sorted(set(re.findall(rf"{kernel}\w*", sass))):
+            for what, lp in zip(("forward", "backward"),
+                                here.barrier_loops_sass(marker)):
+                print(f"census {what_k} ({marker}), {what} time loop: {lp}",
+                      flush=True)
+    for what, marker in WALK_MARKERS:
+        if marker in sass:
+            print(f"census {what} walk ({marker}): "
+                  f"{here.walk_loop_sass(marker)}", flush=True)
 
 
 def time_chunk_and_probe_nan(models, device, card: str) -> None:
@@ -803,6 +837,110 @@ def time_k6c(inp, device, card: str, peak: float) -> None:
         print(f"kernel fwbw_resident under the loaded table of (0.14, 0.21) "
               f"at {deg} slots a side B={B} T={T}: {ms:.3f} ms = "
               f"{ms / deg:.4f} ms a slot [{card}]", flush=True)
+
+
+def time_k6b(ops, model, ev, card: str) -> None:
+    """K6b's streaming kernel and, in a tree that has it, its ring kernel
+    on K6a's output under `ops`, with the drawn lengths and with every
+    length T: bit-equal to each other (path, logp), then timed in turns
+    (streaming, ring, ring, streaming; the mean of WALK_REPS calls each),
+    with the rows the ring streams and their time at 3.35 TB/s."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    B, T = ev["mean"].shape
+    ring = getattr(hmm, "generic_traceback_ring_kernel", None)
+    fa, bps = hmm.viterbi_forward(ops, model, ev)
+    full = torch.full_like(ev["length"], T)
+    for what, ln in (("drawn lengths", ev["length"]), ("full lengths", full)):
+        calls = {"viterbi_generic_traceback": lambda: (
+            hmm.generic_traceback_kernel(ops, fa, bps, ln))}
+        if ring is not None:
+            calls["viterbi_generic_traceback_ring"] = lambda: ring(
+                ops, fa, bps, ln)
+            (path_s, logp_s), (path_r, logp_r) = (c() for c in
+                                                  calls.values())
+            torch.cuda.synchronize()
+            assert torch.equal(path_r.int(), path_s.int()), what
+            assert torch.equal(logp_r.view(torch.int32),
+                               logp_s.view(torch.int32)), what
+        turns = {name: [] for name in calls}
+        for name in (*calls, *reversed(list(calls))):
+            turns[name].append(chip_smoke.cuda_ms(calls[name], WALK_REPS))
+        rows = int((ln.clamp(max=T) - 1).clamp(min=0).sum())
+        for name, ms in turns.items():
+            same = ("; bit-equal to the streaming kernel"
+                    if name.endswith("ring") else "")
+            print(f"kernel {name} B={B} T={T}, {what}: "
+                  f"{sum(ms) / len(ms):.3f} ms (turns "
+                  f"{', '.join(f'{x:.3f}' for x in ms)}){same}"
+                  f"; the ring's rows {rows} = {rows * 4096 / 1e9:.3f} GB, "
+                  f"{rows * 4096 / 3.35e9:.3f} ms at 3.35 TB/s [{card}]",
+                  flush=True)
+
+
+#: (B, T) of K6e's times in time_custom: chip_smoke.py's kernel shape, and
+#: one read of the smoke's run-fwbw read's length
+CUSTOM_SHAPES = ((16, 2048), (1, 4000))
+
+
+def time_custom(models, device, card: str) -> None:
+    """K6e under the loaded table of (0.14, 0.21) at CUSTOM_SHAPES
+    (chip_smoke.kernel_inputs; the 1-read shape is read 0 of 4, of length
+    T): the streaming kernel and, in a tree that has it, the resident one,
+    bit-equal to each other (alpha, beta, gamma as bits), timed in turns
+    (streaming, K6c's resident kernel on the same inputs, resident, then
+    back; chip_smoke.cuda_ms over 2 calls each)."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import cli, convert, roofline
+    from nanocall_tpu_torch.ops import hmm
+
+    out_dir = os.path.join(ROOT, "build", "decode_times")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trans_0.14_0.21.tsv")
+    convert.write_fast_transitions(path, 0.14, 0.21)
+    ops = convert.trans_ops(cli.init_transitions(
+        chip_smoke.smoke_config("-s", path)), device)
+    resident = getattr(hmm, "fwbw_custom_resident_kernel", None)
+    for B, T in CUSTOM_SHAPES:
+        _, model, ev = chip_smoke.kernel_inputs(
+            models, device, max(B, 4), T, np.random.default_rng(19))
+        if B < 4:
+            model = hmm.ModelArrays(*(x[:B].contiguous() for x in model))
+            ev = {k: v[:B].contiguous() for k, v in ev.items()}
+        calls = {"fwbw_custom": lambda: hmm.fwbw_custom_kernel(
+            ops, model, ev)}
+        # K6c's resident kernel on the same inputs: what a step of the
+        # same slot work costs without norm
+        calls["fwbw_resident"] = lambda: hmm.fwbw_resident_kernel(
+            ops, model, ev)
+        if resident is not None:
+            calls["fwbw_custom_resident"] = lambda: resident(ops, model, ev)
+            got, want = calls["fwbw_custom_resident"](), calls["fwbw_custom"]()
+            torch.cuda.synchronize()
+            for k in ("alpha", "beta", "gamma"):
+                assert torch.equal(got[k].view(torch.int32),
+                                   want[k].view(torch.int32)), k
+            del got, want
+        turns = {name: [] for name in calls}
+        for name in (*calls, *reversed(list(calls))):
+            turns[name].append(chip_smoke.cuda_ms(calls[name], 2))
+        for name, ms in turns.items():
+            b = roofline.kernel_bound(name, B, T)
+            same = ("; bit-equal to the streaming kernel"
+                    if name == "fwbw_custom_resident" else "")
+            print(f"kernel {name}{' (K6c)' * (name == 'fwbw_resident')} "
+                  f"under the loaded table of (0.14, 0.21) "
+                  f"B={B} T={T} (longest read {int(ev['length'].max())}): "
+                  f"{sum(ms) / len(ms):.3f} ms (turns "
+                  f"{', '.join(f'{x:.3f}' for x in ms)}), bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}){same} [{card}]",
+                  flush=True)
+        del model, ev
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
