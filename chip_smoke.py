@@ -86,7 +86,23 @@ from the root of a checkout.  It
      and past it the end state; at 4 x 40,960 over 4 ranks, n_blocks 1 and
      4, the same against K3's decode, with K9's time beside K3's, its
      bound and its peak memory, and one more decode counted as K9's path
-     (16 launches of each kernel);
+     (16 launches of each kernel); then the mesh's state axis
+     (parallel.mesh.make_mesh, shard_pooled_decode_inputs and
+     parallel.statepar: K1m and K2m, K1 and K2 with the 4096 states split
+     over the ranks of a data row, every rank on the one card on a stream
+     of its own): at 16 x 2048 over 2 and 4 ranks, path and score-only,
+     on the clean and the NaN inputs above, bit-equal to K1 + K2 and
+     (with backpointers, 2 ranks) to the plain versions, with K1m's time
+     per launch (one step of one rank; host enqueue and device time) and
+     K2m's per call against their plain versions' at 2 ranks; then the
+     path chunk, 128 reads x 8,192
+     events through basecall.decode_chunk_pooled placed on (data, model)
+     meshes of (1, 2), (1, 4) and (2, 2): path0, codes and logp (and the
+     score-only logp) bit-equal to the unplaced decode (K1 + K2), each
+     mesh's decode counted as the mesh path (T M launches of K1m and one of
+     K2m a data row), its wall and host enqueue seconds beside K1 + K2's,
+     its peak device memory, each rank's backpointer bytes and the bytes
+     its ranks exchange (roofline.statepar_exchange_bytes);
   6. runs the EM kernels at the EM chunk's full width: n = 4096, 128
      training groups x 4 = 512 rows of T = 128 events, packed by
      nanocall_tpu_torch.basecall.pack_train_batch from the simulated reads
@@ -234,6 +250,13 @@ LONG_KERNELS = ("fwbw_forward", "em_backward", "viterbi_forward_chunk",
                 "viterbi_traceback_chunk")
 #: kernels K9's decode must launch
 SEQPAR_KERNELS = ("viterbi_forward_chunk", "viterbi_traceback_chunk_states")
+#: the mesh phase: the (data, model) meshes on the one card, the path
+#: chunk they decode, the state-parallel kernels it must launch and the
+#: ranks K1m and K2m are held to their plain versions at
+MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
+B_MESH, T_MESH = 128, 8192
+MESH_KERNELS = ("viterbi_forward_slice", "viterbi_traceback_slices")
+MESH_RANKS = (2, 4)
 #: kernels each host's half of the multi-host emulation must launch (its
 #: reads may hold no contest, so no score-only chunk)
 HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
@@ -383,6 +406,22 @@ def check_kernels(gt, model, ev) -> dict:
     return with_shape(rec, ev)
 
 
+def nan_inputs(gt, model, ev):
+    """Copies of the kernel phase's inputs with NaN events in read 4 from
+    event 700 on, a NaN stay entry in read 5 and a NaN model entry in read
+    6, those three of full length."""
+    from nanocall_tpu_torch.ops import hmm
+
+    gt = hmm.GroupedTrans(*(x.clone() for x in gt[:3]), K=gt.K)
+    model = hmm.ModelArrays(*(x.clone() for x in model))
+    ev = {k: v.clone() for k, v in ev.items()}
+    ev["length"][4:7] = ev["mean"].shape[1]
+    ev["mean"][4, 700:] = float("nan")
+    gt.stay_lp[5, 1234] = float("nan")
+    model.level_mean[6, 99] = float("nan")
+    return gt, model, ev
+
+
 def check_forward_under_nan(gt, model, ev) -> None:
     """K1 (path and score-only), K3's forward chunk (chunks of TC_KERNEL)
     and K9 (2 ranks on the card) on copies of the inputs with NaN events
@@ -398,14 +437,7 @@ def check_forward_under_nan(gt, model, ev) -> None:
     from nanocall_tpu_torch.ops import hmm
     from nanocall_tpu_torch.parallel import seqpar
 
-    gt = hmm.GroupedTrans(*(x.clone() for x in gt[:3]), K=gt.K)
-    model = hmm.ModelArrays(*(x.clone() for x in model))
-    ev = {k: v.clone() for k, v in ev.items()}
-    ev["length"][4:7] = ev["mean"].shape[1]
-    ev["mean"][4, 700:] = float("nan")
-    gt.stay_lp[5, 1234] = float("nan")
-    model.level_mean[6, 99] = float("nan")
-
+    gt, model, ev = nan_inputs(gt, model, ev)
     fa_p, bps_p = hmm.viterbi_forward_grouped_plain(gt, model, ev, True)
     assert torch.isnan(fa_p[5]).any() and not torch.isnan(fa_p[5]).all()
     fa_k, bps_k = hmm.forward_path_kernel(gt, model, ev)
@@ -711,6 +743,217 @@ def run_seqpar(gt, model, ev, card: str) -> dict:
           f"{ {k: launches[k] for k in SEQPAR_KERNELS} } [{card}]")
     return {"launches": launches, "ms": times[D_LONG], "k3_ms": k3_ms,
             "peak_gib": peak, "bound": bound}
+
+
+def check_statepar(gt, model, ev) -> dict:
+    """K1m and K2m at the kernel phase's shape: the state-parallel decode
+    over MESH_RANKS ranks on the events' card, path and score-only, on the
+    clean inputs and on nan_inputs', bit-equal (as bits) to K1 + K2 and,
+    with backpointers at 2 ranks, to its plain version
+    (statepar.viterbi_decode_statepar_plain, the same schedule over the
+    plain K1m and K2m); then, at 2 ranks, one K1m
+    launch (event T/2 of rank 1, from the gathered column of a decode's
+    final alphas) against its plain version, and K2m on a decode's column
+    and slices against its plain version (tolerance 0).  Returns the two
+    kernels' records: K1m's "ms" is its device time per launch
+    (torch.profiler), with the host's enqueue per launch and the CUDA-event
+    time per launch back to back beside it."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    dev = ev["mean"].device
+    for what, (g, m, e) in (("clean", (gt, model, ev)),
+                            ("NaN", nan_inputs(gt, model, ev))):
+        for with_path in (True, False):
+            ref = hmm.viterbi_decode_grouped(g, m, e, with_path=with_path)
+            for M in MESH_RANKS:
+                rows = [statepar.split_states(g, m, e, [dev] * M)]
+                [got] = statepar.viterbi_decode_statepar(rows, with_path)
+                # the plain schedule (slow: ~10 s at 2 ranks) with
+                # backpointers at 2 ranks; score-only it is the same
+                # forward without them
+                [want] = (statepar.viterbi_decode_statepar_plain(rows)
+                          if with_path and M == 2 else [ref])
+                torch.cuda.synchronize()
+                for k in ref:
+                    tag = f"K1m + K2m {what} M={M} {k}"
+                    assert torch.equal(bits(got[k]), bits(want[k])), \
+                        f"{tag} differs from plain"
+                    assert torch.equal(bits(got[k]), bits(ref[k])), \
+                        f"{tag} differs from K1 + K2"
+
+    # the single kernels at 2 ranks, on a decode's own column and slices
+    B, T = ev["mean"].shape
+    parts = statepar.split_states(gt, model, ev, [dev] * 2)
+    fa, bps = hmm.viterbi_forward_grouped(gt, model, ev)
+    col = torch.stack([fa[:, :2048], fa[:, 2048:]]).contiguous()
+    slices = [bps[..., :2048].contiguous(), bps[..., 2048:].contiguous()]
+    del bps
+    p, t = parts[1], T // 2
+    outs = [(torch.empty((B, 2048), device=dev),
+             torch.empty((B, 2048), dtype=torch.uint8, device=dev))
+            for _ in range(2)]
+
+    def k1m(out=outs[0]):
+        hmm.forward_slice_kernel(p.gt, p.model, p.ev, col, t, 2048, *out)
+
+    def k1m_plain(out=outs[1]):
+        hmm.viterbi_forward_slice_plain(p.gt, p.model, p.ev, col, t, 2048,
+                                        *out)
+
+    k1m()
+    k1m_plain()
+    torch.cuda.synchronize()
+    assert torch.equal(bits(outs[0][0]), bits(outs[1][0])), \
+        "K1m alpha differs from plain"
+    assert torch.equal(outs[0][1], outs[1][1]), "K1m bps differ from plain"
+    split = launch_split(k1m, 200)
+    lengths = ev["length"]
+    tb_k = hmm.traceback_slices_kernel(6, col, slices, lengths)
+    plain_ms, tb_p = cuda_ms_once(lambda: hmm.viterbi_traceback_slices_plain(
+        6, col, slices, lengths))
+    torch.cuda.synchronize()
+    for what, a, b in zip(("path0", "codes", "logp"), tb_k, tb_p):
+        assert torch.equal(bits(a), bits(b)), f"K2m {what} differs from plain"
+    return {
+        "viterbi_forward_slice": {
+            "max_abs_err": max_err(outs[0][0], outs[1][0]),
+            "ms": (split["device_us"] / 1e3 if split["device_us"]
+                   else cuda_ms(k1m, 200)),
+            "event_ms": cuda_ms(k1m, 200), "host_us": split["host_us"],
+            "device_us": split["device_us"],
+            "plain_ms": cuda_ms(k1m_plain, 3), "shape": [B, 1], "ranks": 2},
+        "viterbi_traceback_slices": {
+            "max_abs_err": max_err(tb_k[2], tb_p[2]),
+            "ms": cuda_ms(lambda: hmm.traceback_slices_kernel(
+                6, col, slices, lengths), 3),
+            "plain_ms": plain_ms, "shape": [B, T], "ranks": 2}}
+
+
+def pooled_inputs(models, device, B: int, T: int, rng) -> tuple:
+    """basecall.decode_chunk_pooled's arguments for a path chunk of B tasks
+    of T events on `device`: the chunk's own rows as its event pool,
+    kernel_inputs' models, scaling, transitions, lengths and events."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import convert
+
+    names = ("r73.t.006", "r73.c.p1.006")
+    pm = np.zeros((B, 6), np.float32)
+    pm[:, 0] = rng.uniform(0.9, 1.1, B)
+    pm[:, 1] = rng.uniform(-3.0, 3.0, B)
+    pm[:, 3:] = rng.uniform(0.9, 1.1, (B, 3))
+    stp = np.stack([rng.uniform(0.05, 0.2, B),
+                    rng.uniform(0.2, 0.4, B)], 1).astype(np.float32)
+    lengths = rng.integers(1, T + 1, B).astype(np.int32)
+    lengths[:4] = [T, 0, 1, T - 1]
+    model_idx = np.arange(B, dtype=np.int32) % 2
+    lm = np.stack([models[n].level_mean for n in names])[model_idx]
+    states = rng.integers(0, 4096, (B, T))
+    mean = (lm[np.arange(B)[:, None], states] * pm[:, :1] + pm[:, 1:2]
+            + rng.normal(0.0, 1.0, (B, T))).astype(np.float32)
+    stdv = rng.uniform(0.5, 2.0, (B, T)).astype(np.float32)
+    start = np.cumsum(rng.uniform(0.01, 0.05, (B, T)), 1).astype(np.float32)
+    for b, L in enumerate(lengths):
+        mean[b, L:], stdv[b, L:], start[b, L:] = 1.0, 1.0, 0.0
+    return (convert.tensor(mean, device), convert.tensor(stdv, device),
+            convert.tensor(start, device),
+            torch.arange(B, device=device),
+            convert.tensor(rng.uniform(-0.01, 0.01, B).astype(np.float32),
+                           device),
+            convert.model_bank(models, names, device),
+            convert.tensor(model_idx, device, torch.int32),
+            convert.tensor(pm, device), convert.tensor(stp, device),
+            convert.tensor(lengths, device, torch.int32))
+
+
+def run_mesh(models, device, card: str, rng) -> dict:
+    """The mesh path at the path chunk, B_MESH x T_MESH: the unplaced
+    decode (K1 + K2) and, on each (data, model) mesh of MESH_SHAPES with
+    every rank on `device`, basecall.decode_chunk_pooled on the arguments
+    placed by mesh.shard_pooled_decode_inputs, path then score-only, each
+    pair of decodes counted as the mesh path (every kernel count set to 0
+    just before, read just after).  path0, codes and logp bit-equal to the
+    unplaced decode's.  Returns {"launches" (summed over the meshes),
+    "meshes": {(D, M): record}, "k1k2_s"}."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import basecall, native, roofline
+    from nanocall_tpu_torch.ops import kernels
+    from nanocall_tpu_torch.parallel import mesh
+
+    args = pooled_inputs(models, device, B_MESH, T_MESH, rng)
+    [ref] = basecall.decode_chunk_pooled(*args)
+    [ref_s] = basecall.decode_chunk_pooled(*args, with_path=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    basecall.decode_chunk_pooled(*args)
+    torch.cuda.synchronize()
+    k1k2_s = time.perf_counter() - t0
+    lengths = args[-1].cpu().numpy()
+    path0, codes = ref["path0"].cpu().numpy(), ref["codes"].cpu().numpy()
+    paths = [native.path_from_packed_codes(int(path0[b]), codes[b], int(L),
+                                           6) if L else np.zeros(0, np.int32)
+             for b, L in enumerate(lengths)]
+    total = {k.name: 0 for k in kernels.KERNELS}
+    meshes = {}
+    for D, M in MESH_SHAPES:
+        grid = mesh.make_mesh(D * M, model_axis=M, devices=[device] * (D * M))
+        placed = mesh.shard_pooled_decode_inputs(grid, *args)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = basecall.decode_chunk_pooled(*placed)
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        out_s = basecall.decode_chunk_pooled(*placed, with_path=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+        assert launches["viterbi_forward_slice"] == 2 * D * M * T_MESH, \
+            launches
+        assert launches["viterbi_traceback_slices"] == D, launches
+        assert len(out) == D and all(o["codes"].device == device
+                                     for o in out)
+        got, got_s = mesh.join(out), mesh.join(out_s)
+        for k in ("path0", "codes", "logp"):
+            assert torch.equal(bits(got[k]), bits(ref[k].cpu())), \
+                f"mesh {(D, M)} {k} differs from K1 + K2"
+        assert torch.equal(bits(got_s["logp"]), bits(ref_s["logp"].cpu())), \
+            f"mesh {(D, M)} score-only logp differs"
+        for k, v in launches.items():
+            total[k] += v
+        b = B_MESH // D
+        ex = roofline.statepar_exchange_bytes(b, T_MESH, M)
+        remote = sum(roofline.walk_remote_rows(
+            paths[d * b:(d + 1) * b], lengths[d * b:(d + 1) * b], M)
+            for d in range(D))
+        rec = {"wall_s": wall, "enqueue_s": enqueue, "score_wall_s": wall_s,
+               "peak_gib": peak / 2**30,
+               "bp_slice_bytes": b * (T_MESH - 1) * (4096 // M),
+               "column_exchange_bytes": D * ex["column"],
+               "walk_remote_rows": remote}
+        meshes[(D, M)] = rec
+        print(f"mesh {(D, M)} (data, model) on one card: B={B_MESH} "
+              f"T={T_MESH}, path0, codes and logp (and score-only logp) "
+              f"bit-equal to K1 + K2; decode {wall:.3f} s of wall "
+              f"({enqueue:.3f} s host enqueue) vs K1 + K2 {k1k2_s:.3f} s, "
+              f"score-only {wall_s:.3f} s; peak device memory "
+              f"{rec['peak_gib']:.3f} GiB; backpointer slice "
+              f"{rec['bp_slice_bytes'] / 2**30:.3f} GiB a rank; column "
+              f"exchange {rec['column_exchange_bytes'] / 1e9:.3f} GB, walk "
+              f"rows in other ranks' slices {remote}; launches "
+              f"{ {k: launches[k] for k in MESH_KERNELS} } [{card}]")
+    return {"launches": total, "meshes": meshes, "k1k2_s": k1k2_s}
 
 
 def load_trans_table(device, p_stay: float = TRANS_P_STAY,
@@ -1578,11 +1821,13 @@ def step_loop_sass(marker: str) -> dict:
     return out
 
 
-#: the time loops of the redesigned K1 (its three instances), K4, K5 and
-#: K6d
-STEP_LOOPS = (("K1 path", "viterbi_forward_kernelILb0ELb1E"),
-              ("K1 score", "viterbi_forward_kernelILb0ELb0E"),
-              ("K3 forward chunk", "viterbi_forward_kernelILb1ELb1E"),
+#: the time loops of the redesigned K1 (its five instances: K1 path and
+#: score-only, K3's forward chunk, K1m path and score-only), K4, K5 and K6d
+STEP_LOOPS = (("K1 path", "viterbi_forward_kernelILb0ELb1ELb0E"),
+              ("K1 score", "viterbi_forward_kernelILb0ELb0ELb0E"),
+              ("K3 forward chunk", "viterbi_forward_kernelILb1ELb1ELb0E"),
+              ("K1m path", "viterbi_forward_kernelILb0ELb1ELb1E"),
+              ("K1m score", "viterbi_forward_kernelILb0ELb0ELb1E"),
               ("K4", "fwbw_forward_kernel"),
               ("K5", "em_backward_kernel"),
               ("K6d", "fwbw_backward_kernel"))
@@ -2434,6 +2679,26 @@ def main() -> int:
     print(f"K9 at long-read width: {time.perf_counter() - t0:.1f} s")
     del gt, model, ev
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_rng = np.random.default_rng(2026)
+    sp = check_statepar(*kernel_inputs(models, device, B_KERNEL, T_KERNEL,
+                                       mesh_rng))
+    for name, r in sp.items():
+        extra = (f" (host enqueue {r['host_us']:.2f} us, device "
+                 f"{r['device_us']:.3f} us, CUDA events back to back "
+                 f"{r['event_ms']:.4f} ms a launch)" if "host_us" in r
+                 else "")
+        print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} over 2 ranks "
+              f"bit-equal to plain; {r['ms']:.4f} ms{extra} vs plain "
+              f"{r['plain_ms']:.3f} ms [{card}]")
+    print(f"K1m + K2m at B={B_KERNEL} T={T_KERNEL} over {MESH_RANKS} ranks "
+          f"on one card, path and score-only, clean and with NaN events, a "
+          f"NaN stay entry and a NaN model entry: bit-equal to K1 + K2 and "
+          f"(with backpointers, 2 ranks) to their plain versions [{card}]")
+    recs.update(sp)
+    mesh_run = run_mesh(models, device, card, mesh_rng)
+    torch.cuda.empty_cache()
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
 
     reads = simulated_reads(models, rng)
     inp = em_kernel_inputs(models, reads, device, rng)
@@ -2541,6 +2806,7 @@ def main() -> int:
             **{name: r["launches"] for name, r in tool_runs.items()},
             "dump": dump["launches"], "measure": measure["launches"],
             "repro": repro_launches, "seqpar": seq["launches"],
+            "mesh": mesh_run["launches"],
             "sharded_untrained": sharded["untrained"]["launches"],
             "sharded_trained": sharded["trained"]["launches"],
             "multihost": multihost_launches}
@@ -2549,14 +2815,16 @@ def main() -> int:
                 "launches": sum(r[k.name] for r in runs.values()),
                 "launches_by_run": {w: r[k.name] for w, r in runs.items()},
                 "library_ms": None, **recs[k.name],
-                **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
+                **roofline.kernel_bound(k.name, *recs[k.name]["shape"],
+                                        ranks=recs[k.name].get("ranks", 2))}
                for k in kernels.KERNELS]
-    assert len(records) == 21 and all(r["launches"] for r in records), \
+    assert len(records) == 23 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])
         r.update(roofline.kernel_shares(r["name"], *shape, r["ms"],
-                                        measure["peaks"].get(shape)))
+                                        measure["peaks"].get(shape),
+                                        ranks=r.get("ranks", 2)))
         k8 = (f"{100 * r['share_of_k8_peak']:.2f}% of the K8 peak at that "
               f"shape" if r["share_of_k8_peak"] is not None
               else "K8 not measured at that shape")

@@ -49,7 +49,7 @@ from . import batching, convert, events as events_mod, kmer, native, \
     read_pipeline, shapes, train, transitions
 from .config import Config
 from .observe import Progress, read_context
-from .parallel import mesh
+from .parallel import mesh, statepar
 from .pore_model import PoreModelParams
 from .transitions import SparseTransitions, TransitionParams
 from .ops import hmm
@@ -605,7 +605,19 @@ def decode_chunk_pooled(pool_mean, pool_stdv, pool_start, idx, drifts, bank,
     of a bucket of batching.TCHUNK_MIN_T events or more, as the JAX package
     selects it.  Both grouped forms give the same bits.  Returns the list
     of the shards' outputs, in order (mesh.join joins them): one shard
-    without an active sharder, else one per device."""
+    without an active sharder, else one per device.
+
+    Arguments placed on a (data, model) mesh by
+    mesh.shard_pooled_decode_inputs decode by decode_placed instead, one
+    output per data row (the JAX package's _decode_chunk_pooled under the
+    same placement)."""
+    if isinstance(idx, mesh.Sharded):
+        if sparse_ops is not None or (sharder is not None and sharder.active):
+            raise ValueError("a chunk placed on a mesh takes neither a "
+                             "loaded table nor a data sharder")
+        return decode_placed(pool_mean, pool_stdv, pool_start, idx, drifts,
+                             bank, model_idx, pm_params, stp, lengths, K,
+                             with_path)
     model = hmm.make_scaled_model_arrays(bank, model_idx, pm_params)
     ev = pooled_ev_batch(pool_mean, pool_stdv, pool_start, idx, drifts,
                          lengths)
@@ -617,6 +629,37 @@ def decode_chunk_pooled(pool_mean, pool_stdv, pool_start, idx, drifts, bank,
     ops = sharder.replicate(sparse_ops, len(shards))
     return [decode_gathered(g, m, e, with_path, o)
             for (g, m, e), o in zip(shards, ops)]
+
+
+def decode_placed(pool_mean, pool_stdv, pool_start, idx, drifts, bank,
+                  model_idx, pm_params, stp, lengths, K: int = 6,
+                  with_path: bool = True) -> list:
+    """The grouped decode of a chunk placed by
+    mesh.shard_pooled_decode_inputs: each rank gathers its data row's
+    events, scales its slice of the bank and takes its states' columns of
+    the row's transition tables, and each data row decodes with its states
+    split over its ranks (statepar.viterbi_decode_statepar: K1m, K2m).
+    Returns one output per data row, in order, on the row's first device,
+    bit-identical to the rows of the unplaced decode (K1 + K2)."""
+    grid = idx.mesh.ids.shape
+    rows = []
+    for d in range(grid[0]):
+        parts = []
+        for m in range(grid[1]):
+            pm_, ps, pst, ix, dr, mi, pp, sp, ln = (
+                x.shards[d][m] for x in (pool_mean, pool_stdv, pool_start,
+                                         idx, drifts, model_idx, pm_params,
+                                         stp, lengths))
+            model = hmm.make_scaled_model_arrays(
+                {k: v.shards[d][m] for k, v in bank.items()}, mi, pp)
+            W = model.level_mean.shape[-1]
+            gt = hmm.make_grouped_trans_device(sp[:, 0], sp[:, 1], K)
+            gt = hmm.GroupedTrans(*(x[:, m * W:(m + 1) * W].contiguous()
+                                    for x in gt[:3]), K=K)
+            parts.append(statepar.RankInputs(
+                gt, model, pooled_ev_batch(pm_, ps, pst, ix, dr, ln)))
+        rows.append(parts)
+    return statepar.viterbi_decode_statepar(rows, with_path)
 
 
 def decode_gathered(gt, model, ev: dict, with_path: bool,

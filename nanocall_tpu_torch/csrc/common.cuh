@@ -147,19 +147,27 @@ __device__ __forceinline__ void warp_argmax(float& best, int& idx) {
 // (N states) in a block of THREADS, in two phases around the caller's
 // barrier.  First each thread's 4 states, then its warp's: lane 0 writes
 // the warp's partial into w_best / w_idx (WARPS each).
-__device__ __forceinline__ void end_argmax_partials(const float* fa, int tid,
-                                                    float* w_best,
-                                                    int* w_idx) {
-  float best = fa[4 * tid];
+// The thread's 4 states are 4 tid .. 4 tid + 3, their values at q[0..3]
+// (K2m reads them from the slice of the rank that holds them).
+__device__ __forceinline__ void end_argmax_partials_at(const float* q,
+                                                       int tid,
+                                                       float* w_best,
+                                                       int* w_idx) {
+  float best = q[0];
   int idx = 4 * tid;
 #pragma unroll
-  for (int i = 1; i < 4; ++i)
-    take_better(best, idx, fa[4 * tid + i], 4 * tid + i);
+  for (int i = 1; i < 4; ++i) take_better(best, idx, q[i], 4 * tid + i);
   warp_argmax(best, idx);
   if ((tid & 31) == 0) {
     w_best[tid >> 5] = best;
     w_idx[tid >> 5] = idx;
   }
+}
+
+__device__ __forceinline__ void end_argmax_partials(const float* fa, int tid,
+                                                    float* w_best,
+                                                    int* w_idx) {
+  end_argmax_partials_at(fa + 4 * tid, tid, w_best, w_idx);
 }
 
 // Then, after the barrier, a warp's argmax over the WARPS partials: the

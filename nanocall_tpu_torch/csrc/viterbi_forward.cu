@@ -52,7 +52,24 @@
 // (B, ev_stride) event rows in place, and runs the one step body, so
 // chunked and full scans are bit-identical by construction.
 //
-// What bounds it: issue on the read's one SM: about 107 instructions per
+// K1m, the third instance (SLICE = true), is K1 with the 4096 states split
+// over M ranks (the production decode under nanocall_tpu/parallel/
+// mesh.py:103 shard_pooled_decode_inputs, whose 'model' axis cuts the
+// bank's states; parallel/statepar.py drives it).  A launch is one step of
+// one rank: it reads the whole column of event t - 1, gathered from every
+// rank's slice (state j's step and skip predecessors 1024 r + (j >> 2) and
+// 256 r + (j >> 4) lie in every slice), takes K1's column maxima over all
+// of it, and runs K1's step body only for its own destination states
+// (W = 4096 / M of them; thread c keeps those of its four states 1024 r +
+// c that lie in the slice), so it is bit-identical to K1 by construction.
+// Its tables, emissions and bp bytes are the slice's: (B, W) rows, and a
+// bp row of W bytes stored as W / 4 words.  What bounds K1m: a launch per
+// step and rank, and the host that enqueues them and the column's
+// exchange (M (M - 1) slice copies a step); on the card, K1's step issue
+// for W states plus the column (16 KB a read) and the rank's 9 tables
+// (36 W bytes a read) loaded again every step.
+//
+// What bounds K1: issue on the read's one SM: about 107 instructions per
 // state and step without backpointers, 148 with (chip_smoke.py's census of
 // the loop; the emission's 3 IEEE divisions are about 40 of them).  Only B
 // of the 132 SMs work when B < 132.  A chunk of 8192 events bounds one
@@ -102,8 +119,14 @@ struct __align__(8) MaxKey {
 };
 
 // CHUNK = false: K1, events [0, t1) with t0 = 0; CHUNK = true: one chunk.
-// kPath: write backpointers.
-template <bool CHUNK, bool kPath>
+// kPath: write backpointers.  SLICE = true: K1m, one step t = t0 (t1 = t0
+// + 1) for the rank that holds the states [slice_lo, slice_lo + W), W = 1
+// << slice_shift: it reads alpha of event t - 1 from carry_alpha, the
+// gathered column (N / W, B, W) whose slice m holds the states [m W, (m +
+// 1) W), and its (B, W) tables; it writes alpha of event t at its states
+// to final_alpha (B, W) and their bp bytes to bps, event t's (B, W) row.
+// At t = 0 it writes alpha = emission - log(n) at its states.
+template <bool CHUNK, bool kPath, bool SLICE = false>
 __global__ void __launch_bounds__(THREADS, 1)
 viterbi_forward_kernel(const float* __restrict__ ev_mean,
                        const float* __restrict__ ev_stdv,
@@ -121,7 +144,8 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
                        const float* __restrict__ sd_lambda,
                        const float* __restrict__ log_sd_lambda, float log2pi,
                        float log_n, float* __restrict__ final_alpha,
-                       uint8_t* __restrict__ bps) {
+                       uint8_t* __restrict__ bps, int slice_lo,
+                       int slice_shift) {
   __shared__ MaxKey s4[2][P4N];
   __shared__ MaxKey s16[2][P16N];
   __shared__ uint32_t stage[kPath ? 2 : 1][kPath ? P4N : 1];
@@ -133,12 +157,28 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
   const int c16 = warp * 8 + k;  // the thread's column of the 16 x 256 view
   const int c = q * N16 + c16;   // and of the 4 x 1024 view
   const size_t rowb = (size_t)b * N;
+  // SLICE: the thread's states 1024 r + c that lie in the rank's slice, and
+  // each one's index in the rank's (B, W) rows; else all four, in (B, N)
+  const int W = SLICE ? 1 << slice_shift : N;
+  bool own[4];
+  size_t at[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = r * N4 + c;
+    own[r] = !SLICE || (unsigned)(j - slice_lo) < (unsigned)W;
+    at[r] = SLICE ? (size_t)b * W + (j - slice_lo) : rowb + j;
+  }
 
   float r_stay[4], r_step[4], r_skip[4], r_lm[4], r_ls[4], r_nlls[4],
       r_sm[4], r_slam[4], r_c1[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const size_t j = rowb + r * N4 + c;
+    if (!own[r]) {
+      r_stay[r] = r_step[r] = r_skip[r] = r_lm[r] = r_ls[r] = r_nlls[r] =
+          r_sm[r] = r_slam[r] = r_c1[r] = 0.0f;
+      continue;
+    }
+    const size_t j = at[r];
     r_stay[r] = stay[j];
     r_step[r] = step[j];
     r_skip[r] = skip[j];
@@ -154,8 +194,8 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
   const float* evs = ev_stdv + (size_t)b * ev_stride - ev_t0;
   const float* evl = ev_log_stdv + (size_t)b * ev_stride - ev_t0;
   const int len = length[b];
-  // bp row of event t: bps[t - row0]
-  const int row0 = CHUNK ? t0 : 1;
+  // bp row of event t: bps[t - row0] (SLICE: bps is the step's row)
+  const int row0 = CHUNK || SLICE ? t0 : 1;
 
   float a[4];
   int t = t0;
@@ -163,20 +203,37 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
     const float x = evm[0], y = evs[0], ly3 = 3.0f * evl[0];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[r] = emission_pre(x, y, ly3, r_lm[r], r_ls[r], r_nlls[r], r_sm[r],
-                          r_slam[r], r_c1[r], log2pi) -
-             log_n;
+      a[r] = own[r] ? emission_pre(x, y, ly3, r_lm[r], r_ls[r], r_nlls[r],
+                                   r_sm[r], r_slam[r], r_c1[r], log2pi) -
+                          log_n
+                    : 0.0f;
     if (CHUNK && kPath) reinterpret_cast<uint32_t*>(bps + rowb)[tid] = 0u;
     t = 1;
+  } else if (SLICE) {
+    // every state of the gathered column: the maxima need them all
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = r * N4 + c;
+      a[r] = carry_alpha[((size_t)(j >> slice_shift) * B + b) * W +
+                         (j & (W - 1))];
+    }
   } else {
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[r] = carry_alpha[rowb + r * N4 + c];
   }
 
   // the staged bp bytes of step `ts` (parity `par`) to its row
+  // (SLICE: the words of the rank's states, W / 4 of them)
   auto store_stage = [&](int ts, int par) {
-    reinterpret_cast<uint32_t*>(bps + ((size_t)(ts - row0) * B + b) * N)[tid] =
-        stage[par][p4(tid)];
+    if (SLICE) {
+      if (tid < (W >> 2))
+        reinterpret_cast<uint32_t*>(bps + ((size_t)(ts - row0) * B + b) *
+                                              W)[tid] =
+            stage[par][p4((slice_lo >> 2) + tid)];
+    } else {
+      reinterpret_cast<uint32_t*>(bps + ((size_t)(ts - row0) * B + b) * N)
+          [tid] = stage[par][p4(tid)];
+    }
   };
 
   const int o4 = p4(c >> 2), o16 = p16(c >> 4), ost = 4 * o4 + (c & 3);
@@ -251,6 +308,7 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
         kPath ? reinterpret_cast<uint8_t*>(stage[par]) + ost : nullptr;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
+      if (!own[r]) continue;
       const MaxKey v4 = r4[r * R4];
       const MaxKey v16 = r16[r * R16];
       const float v0 = r_stay[r] + a[r];
@@ -274,7 +332,8 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
     store_stage(t1 - 1, par ^ 1);
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) final_alpha[rowb + r * N4 + c] = a[r];
+  for (int r = 0; r < 4; ++r)
+    if (own[r]) final_alpha[at[r]] = a[r];
 }
 
 }  // namespace
@@ -296,7 +355,7 @@ extern "C" int nc_viterbi_forward(
     kernel<<<B, nc::THREADS, 0, (cudaStream_t)stream>>>(
         ev_mean, ev_stdv, ev_log_stdv, length, B, T, 0, 0, T, nullptr, stay,
         step, skip, level_mean, level_stdv, log_level_stdv, sd_mean,
-        sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps);
+        sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps, 0, 12);
   }
   return (int)cudaGetLastError();
 }
@@ -322,7 +381,54 @@ extern "C" int nc_viterbi_forward_chunk(
             ev_mean, ev_stdv, ev_log_stdv, length, B, ev_stride, ev_t0, t0,
             t1, carry_alpha, stay, step, skip, level_mean, level_stdv,
             log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
-            final_alpha, bps);
+            final_alpha, bps, 0, 12);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K1m's column exchange: `bytes` from src on src_device to dst on
+// dst_device, on `stream` of dst_device (peer to peer across cards, with or
+// without peer access).  Returns the copy's enqueue error.
+extern "C" int nc_copy_async(void* dst, int dst_device, const void* src,
+                             int src_device, size_t bytes, void* stream) {
+  const nc::DeviceGuard guard(dst_device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  return (int)(dst_device == src_device
+                   ? cudaMemcpyAsync(dst, src, bytes,
+                                     cudaMemcpyDeviceToDevice,
+                                     (cudaStream_t)stream)
+                   : cudaMemcpyPeerAsync(dst, dst_device, src, src_device,
+                                         bytes, (cudaStream_t)stream));
+}
+
+// K1m: event t's step for the rank of the states [slice_lo, slice_lo + W),
+// W = 1 << slice_shift (64 <= W <= 4096, slice_lo a multiple of W): column
+// (N / W, B, W) is the gathered alpha of event t - 1 (unread at t = 0),
+// the tables (B, W) the rank's, alpha_out (B, W) its alpha of event t;
+// bps (B, W), or nullptr for the score-only instance, gets event t's
+// backpointers (t >= 1).  Events (B, T) are read in place.
+extern "C" int nc_viterbi_forward_slice(
+    const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
+    const int32_t* length, int B, int T, int t, const float* column,
+    const float* stay, const float* step, const float* skip,
+    const float* level_mean, const float* level_stdv,
+    const float* log_level_stdv, const float* sd_mean, const float* sd_lambda,
+    const float* log_sd_lambda, float log2pi, float log_n, float* alpha_out,
+    uint8_t* bps, int slice_lo, int slice_shift, int device, void* stream) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (slice_shift < 6 || slice_shift > 12 || t < 0 || t >= T ||
+      slice_lo < 0 || slice_lo >= nc::N ||
+      (slice_lo & ((1 << slice_shift) - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    auto kernel = bps != nullptr ? viterbi_forward_kernel<false, true, true>
+                                 : viterbi_forward_kernel<false, false, true>;
+    kernel<<<B, nc::THREADS, 0, (cudaStream_t)stream>>>(
+        ev_mean, ev_stdv, ev_log_stdv, length, B, T, 0, t, t + 1, column,
+        stay, step, skip, level_mean, level_stdv, log_level_stdv, sd_mean,
+        sd_lambda, log_sd_lambda, log2pi, log_n, alpha_out, bps, slice_lo,
+        slice_shift);
   }
   return (int)cudaGetLastError();
 }

@@ -94,6 +94,22 @@
 // loads an event (the row's byte, then the table's state) and one 2-byte
 // path store; its block's other warps write the end state past the walk.
 //
+// K2m (viterbi_traceback_slices_kernel) is K2 with the 4096 states split
+// over M ranks (parallel/statepar.py; the production decode under
+// nanocall_tpu/parallel/mesh.py:103 shard_pooled_decode_inputs): rank m
+// holds the backpointer bytes of the states [m W, (m + 1) W), W = 4096 /
+// M, as (T - 1, B, W) rows, and the final alpha comes as the gathered
+// column (M, B, W).  A block per read takes K2's end argmax (common.cuh's
+// helper: the same NaN and tie rules) over the column, and thread 0 walks
+// K2's events with K2's predecessor rule and code packing, reading event
+// t's byte at state s from the slice of rank s / W through a table of the
+// M slices' addresses.  So path0, codes and logp are K2's.  The walk is a
+// plain dependent load an event (no ring: a row of one rank holds only W
+// of the 4096 states, and the walk's rank changes from event to event);
+// across cards it reads the peers' slices over NVLink, which needs peer
+// access.  What bounds it: T dependent round trips a read (≈ 410 ns each
+// from the card's own memory, as K2's walk took before its row ring).
+//
 // What bounds K9 as a whole: K3's forward operations (one chunk kernel per
 // rank and block) and this walk, over D * M launches of each half for D
 // ranks and M blocks, with a pipeline fill of (D - 1) / (M + D - 1) of the
@@ -109,6 +125,7 @@ namespace {
 
 using nc::end_argmax;
 using nc::end_argmax_partials;
+using nc::end_argmax_partials_at;
 using nc::N;
 
 constexpr int THREADS = 1024;  // K2: the end argmax's block
@@ -470,6 +487,63 @@ viterbi_generic_traceback_ring_kernel(const float* __restrict__ final_alpha,
   out[0] = (uint16_t)s;
 }
 
+// K2m: a block per read; slices (M of them, M = N >> slice_shift <=
+// MAX_SLICES) are the ranks' (T - 1, B, W) backpointer rows, column the
+// gathered final alpha (M, B, W).
+constexpr int MAX_SLICES = 64;
+
+__global__ void __launch_bounds__(THREADS)
+viterbi_traceback_slices_kernel(const float* __restrict__ column,
+                                const uint8_t* const* __restrict__ slices,
+                                const int32_t* __restrict__ length, int B,
+                                int T, int code_bytes, int slice_shift,
+                                int32_t* __restrict__ path0,
+                                uint8_t* __restrict__ codes,
+                                float* __restrict__ logp) {
+  __shared__ const uint8_t* s_slices[MAX_SLICES];
+  __shared__ float w_best[THREADS / 32];
+  __shared__ int w_idx[THREADS / 32];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int W = 1 << slice_shift;
+  const int len = length[b];
+  // the walk's events: min(len, T) - 1 .. 1, as K2's
+  const Extent ex = extent(0, T, len, 0, 0);
+  if (tid < (N >> slice_shift)) s_slices[tid] = slices[tid];
+
+  uint8_t* out = codes + (size_t)b * code_bytes;
+  for (int i = 3 * (ex.n > 0 ? ((ex.t_top - 1) >> 2) + 1 : 0) + tid;
+       i < code_bytes; i += THREADS)
+    out[i] = 0;
+
+  // the thread's 4 states 4 tid .. 4 tid + 3 lie in one rank's slice
+  const int j0 = 4 * tid;
+  end_argmax_partials_at(
+      column + ((size_t)(j0 >> slice_shift) * B + b) * W + (j0 & (W - 1)),
+      tid, w_best, w_idx);
+  __syncthreads();  // also publishes the slice table
+  if (tid >= 32) return;
+  float best;
+  int idx;
+  end_argmax(w_best, w_idx, tid, best, idx);
+  if (tid != 0) return;
+
+  logp[b] = best;
+  const size_t row = (size_t)B * W;
+  PackCodes<false> sink{out, 1, 0, T};
+  const GroupedFrom from{};
+  int s = idx;
+  for (int t = ex.t_top; t > ex.t_top - ex.n; --t) {
+    const int s_eff = s;
+    const uint8_t* col_b = s_slices[s_eff >> slice_shift] + (size_t)b * W;
+    const int k = col_b[(size_t)(t - 1) * row + (s_eff & (W - 1))];
+    s = from(k, s_eff);
+    sink(t, s_eff, ((k >> 6) << 4) | (s_eff & 15));
+  }
+  path0[b] = s;
+}
+
 // The ring's stages for B blocks of `threads`: the most that fit the blocks
 // an SM holds at once, at most MAX_STAGES (192 KB: one block an SM), at
 // least MIN_STAGES; with a table of table_bytes beside the ring (K6b), at
@@ -593,6 +667,41 @@ extern "C" int nc_viterbi_generic_traceback_ring(
         final_alpha, bps, length, B, T, deg, from_states, stages, path, logp);
   }
   return (int)cudaGetLastError();
+}
+
+// K2m: slices is a device array of the M = 4096 >> slice_shift ranks'
+// backpointer rows (T - 1, B, 4096 / M) (6 <= slice_shift <= 12), on this
+// card or on peers it can reach (nc_enable_peer_access); column (M, B,
+// 4096 / M) the gathered final alpha.  Returns cudaGetLastError() after
+// the launch.
+extern "C" int nc_viterbi_traceback_slices(const float* column,
+                                           const void* slices,
+                                           const int32_t* length, int B,
+                                           int T, int code_bytes,
+                                           int slice_shift, int32_t* path0,
+                                           uint8_t* codes, float* logp,
+                                           int device, void* stream) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (slice_shift < 6 || slice_shift > 12) return (int)cudaErrorInvalidValue;
+  if (B > 0)
+    viterbi_traceback_slices_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+        column, static_cast<const uint8_t* const*>(slices), length, B, T,
+        code_bytes, slice_shift, path0, codes, logp);
+  return (int)cudaGetLastError();
+}
+
+// Lets kernels on `device` read the memory of `peer` (K2m's walk across
+// cards); a pair already enabled is not an error.
+extern "C" int nc_enable_peer_access(int device, int peer) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaError_t err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clears it
+    err = cudaSuccess;
+  }
+  return (int)err;
 }
 
 extern "C" const char* nc_error_string(int err) {

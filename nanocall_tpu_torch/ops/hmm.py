@@ -20,6 +20,11 @@ Kernels and their plain versions, side by side below:
                             vs viterbi_forward_grouped_chunk_plain
       viterbi_traceback.cu  traceback_chunk_kernel
                             vs viterbi_traceback_grouped_chunk_plain
+  K1m viterbi_forward.cu    forward_slice_kernel
+                            vs viterbi_forward_slice_plain
+  K2m viterbi_traceback.cu  traceback_slices_kernel
+                            vs viterbi_traceback_slices_plain
+      (parallel/statepar.py: K1 and K2 with the states split over ranks)
   K9  (parallel/seqpar.py, over K3's forward chunk)
       viterbi_traceback.cu  traceback_chunk_states_kernel vs
                             viterbi_traceback_grouped_chunk_plain
@@ -308,14 +313,18 @@ def log_emission(m: ModelArrays, ev_mean, ev_stdv, ev_log_stdv):
 # ---------------------------------------------------------------------------
 
 
-def _grouped_step_core(gt: GroupedTrans, alpha: torch.Tensor):
+def _grouped_step_core(gt: GroupedTrans, alpha: torch.Tensor, lo: int = 0):
     """One grouped max-plus step (nanocall_tpu/ops/hmm.py:286-347):
-    alpha (B, n) -> (best (B, n) pre-emission scores, bp (B, n) uint8),
-    bp = (group << 6) | within-group first argmax, ties to the lowest
-    from-state."""
+    alpha (B, n) -> (best (B, W) pre-emission scores, bp (B, W) uint8) for
+    the destination states [lo, lo + W) that gt's (B, W) tables hold (all
+    n by default; K1m's ranks step their slice of the states from the whole
+    column), bp = (group << 6) | within-group first argmax, ties to the
+    lowest from-state."""
     B, n = alpha.shape
+    W = gt.stay_lp.shape[-1]
     K = gt.K
-    j = torch.arange(n, dtype=torch.int32, device=alpha.device)
+    cols = slice(lo, lo + W)
+    j = torch.arange(lo, lo + W, dtype=torch.int32, device=alpha.device)
 
     def colmax(a):  # (B, R, m) -> max, first argmax over R (strict > in r)
         m = a[:, 0]
@@ -329,13 +338,13 @@ def _grouped_step_core(gt: GroupedTrans, alpha: torch.Tensor):
     m4, g4 = colmax(alpha.view(B, 4, n // 4))
     m16, g16 = colmax(alpha.view(B, 16, n // 16))
 
-    v0 = gt.stay_lp + alpha
-    v1 = gt.step_lp + m4.repeat_interleave(4, dim=1)
-    v2 = gt.skip_lp + m16.repeat_interleave(16, dim=1)
+    v0 = gt.stay_lp + alpha[:, cols]
+    v1 = gt.step_lp + m4.repeat_interleave(4, dim=1)[:, cols]
+    v2 = gt.skip_lp + m16.repeat_interleave(16, dim=1)[:, cols]
     best = torch.maximum(torch.maximum(v0, v1), v2)
 
-    arg4 = g4.repeat_interleave(4, dim=1)
-    arg16 = g16.repeat_interleave(16, dim=1)
+    arg4 = g4.repeat_interleave(4, dim=1)[:, cols]
+    arg16 = g16.repeat_interleave(16, dim=1)[:, cols]
     f1 = (arg4 << (2 * (K - 1))) | (j >> 2)
     f2 = (arg16 << (2 * (K - 2))) | (j >> 4)
     k0 = torch.where(v0 == best, j, _BIG)
@@ -492,7 +501,15 @@ def viterbi_traceback_grouped_plain(K: int, final_alpha, bps, lengths):
     returns (path0 (B,) int32, codes (B, 3*ceil((T-1)/4)) uint8, logp (B,)).
     bps[t-1, b, s] is read directly in place of the two-stage one-hot
     lookup (same bytes)."""
-    Tm, B, _ = bps.shape
+    return _grouped_walk_plain(
+        K, final_alpha, bps.shape[0],
+        lambda i, rows, s: bps[i, rows, s.long()], lengths)
+
+
+def _grouped_walk_plain(K: int, final_alpha, Tm: int, byte, lengths):
+    """K2's plain walk over Tm backpointer rows: byte(i, rows, s) gives row
+    i's bytes at states s (B,) of the reads `rows`."""
+    B = final_alpha.shape[0]
     dev = final_alpha.device
     end_state = torch.argmax(final_alpha, dim=-1).to(torch.int32)
     logp = torch.amax(final_alpha, dim=-1)
@@ -502,7 +519,7 @@ def viterbi_traceback_grouped_plain(K: int, final_alpha, bps, lengths):
     s = end_state
     for t in range(Tm, 0, -1):
         s_eff = torch.where(t == lengths - 1, end_state, s)
-        k = bps[t - 1, rows, s_eff.long()].to(torch.int32)
+        k = byte(t - 1, rows, s_eff).to(torch.int32)
         real = t <= lengths - 1
         s = torch.where(real, grouped_from_state(k, s_eff, K), s_eff)
         codes[t - 1] = torch.where(real, ((k >> 6) << 4) | (s_eff & 15), 0)
@@ -575,6 +592,165 @@ def viterbi_decode_grouped(gt: GroupedTrans, model: ModelArrays, ev: dict,
     path0, codes, logp = viterbi_traceback_grouped(gt.K, final_alpha, bps,
                                                    ev["length"])
     return {"path0": path0, "codes": codes, "logp": logp}
+
+
+# ---------------------------------------------------------------------------
+# K1m, K2m: K1 and K2 with the states split over M ranks (the state axis of
+# parallel/statepar.py).  Rank m holds the states [m W, (m + 1) W), W =
+# n / M: its (B, W) tables, its alpha slice and its (T - 1, B, W)
+# backpointer bytes.  A step reads the whole previous column, gathered from
+# every rank as an (M, B, W) tensor whose slice m is rank m's.
+# ---------------------------------------------------------------------------
+
+
+def gather_column(column: torch.Tensor) -> torch.Tensor:
+    """The gathered (M, B, W) column as (B, M W) states in order."""
+    M, B, W = column.shape
+    return column.permute(1, 0, 2).reshape(B, M * W)
+
+
+def viterbi_forward_slice_plain(gt: GroupedTrans, model: ModelArrays,
+                                ev: dict, column, t: int, lo: int,
+                                alpha_out, bp_out=None) -> None:
+    """Plain version of K1m: event t's alpha at the states [lo, lo + W) of
+    one rank into alpha_out (B, W), and at t >= 1 their backpointers into
+    bp_out (B, W) uint8 (None: score-only).  gt and model hold the rank's
+    (B, W) tables, ev the (B, T) events and lengths whole; column (M, B, W)
+    is the gathered alpha of event t - 1 (unread at t = 0).  The step of
+    viterbi_forward_grouped_plain for these states: -log(n) at t = 0 takes
+    n = M W, all the states."""
+    M, _, W = column.shape
+    mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    if t == 0:
+        alpha_out.copy_(log_emission(model, mean[:, 0], stdv[:, 0],
+                                     log_stdv[:, 0]) - math.log(M * W))
+        return
+    alpha = gather_column(column)
+    best, bp = _grouped_step_core(gt, alpha, lo)
+    em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
+    alpha_out.copy_(torch.where((t < ev["length"])[:, None], best + em,
+                                alpha[:, lo:lo + W]))
+    if bp_out is not None:
+        bp_out.copy_(bp)
+
+
+def _slice_shift(column) -> int:
+    """log2 of the slice width W of a gathered (M, B, W) column, for the
+    kernels: 4096 states in slices of a power of two from 64 to 4096."""
+    M, _, W = column.shape
+    shift = W.bit_length() - 1
+    if M * W != 4096 or W != 1 << shift or W < 64:
+        raise ValueError(f"the CUDA kernels take 4096 states in 1 to 64 "
+                         f"slices of a power of two; got {M} x {W}")
+    return shift
+
+
+def forward_slice_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
+                         column, t: int, lo: int, alpha_out,
+                         bp_out=None) -> None:
+    """K1m on the card (K1's kernel, one step of one rank): as
+    viterbi_forward_slice_plain; bp_out None launches the score-only
+    instance."""
+    mean = ev["mean"]
+    dev = mean.device
+    B, T = mean.shape
+    if gt.K != 6:
+        raise ValueError(f"the CUDA forward kernel takes K=6, got K={gt.K}")
+    shift = _slice_shift(column)
+    M, W = column.shape[0], column.shape[2]
+    if not 0 <= t < T or lo % W or not 0 <= lo < M * W:
+        raise ValueError(f"no step {t} of {T} events for the states from "
+                         f"{lo} in slices of {W}")
+    _check_events(ev, B, T, dev)
+    tables = (gt.stay_lp, gt.step_lp, gt.skip_lp, *model)
+    _check_tables(tables, B, W, dev)
+    _check("column", column, torch.float32, (M, B, W), dev)
+    _check("alpha_out", alpha_out, torch.float32, (B, W), dev)
+    if bp_out is not None:
+        _check("bp_out", bp_out, torch.uint8, (B, W), dev)
+        if bp_out.data_ptr() % 4:  # stored a 32-bit word a thread
+            raise ValueError("bp_out is not 4-byte aligned")
+    _require_cuda(dev, "viterbi forward slice")
+    lib = _cuda.load()
+    err = lib.nc_viterbi_forward_slice(
+        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
+        ev["length"].data_ptr(), B, T, t, column.data_ptr(),
+        *(x.data_ptr() for x in tables), LOG_2PI, math.log(M * W),
+        alpha_out.data_ptr(),
+        bp_out.data_ptr() if bp_out is not None and t else None, lo, shift,
+        *_cuda.target(dev),
+    )
+    _cuda.check(err, "viterbi_forward_slice kernel launch")
+    _cuda.count_launch(forward_slice_kernel)
+
+
+forward_slice_kernel.launches = 0
+
+
+def _slice_byte(bp_slices, W: int):
+    """byte(i, rows, s) of _grouped_walk_plain over the ranks' slices: row
+    i's byte at state s from the slice of rank s // W, on s's device."""
+    def byte(i, rows, s):
+        k = torch.zeros_like(s)
+        for m, sl in enumerate(bp_slices):
+            v = sl[i].to(s.device)[rows, (s - m * W).clamp(0, W - 1).long()]
+            k = torch.where(s // W == m, v.to(k.dtype), k)
+        return k
+    return byte
+
+
+def viterbi_traceback_slices_plain(K: int, column, bp_slices, lengths):
+    """Plain version of K2m: K2's end argmax and walk over the gathered
+    final column (M, B, W) and the M ranks' backpointer slices
+    bp_slices[m] (T - 1, B, W) uint8, rank m's holding the states [m W,
+    (m + 1) W): (path0, codes, logp) on the column's device, K2's."""
+    W = column.shape[2]
+    return _grouped_walk_plain(K, gather_column(column),
+                               bp_slices[0].shape[0],
+                               _slice_byte(bp_slices, W), lengths)
+
+
+def traceback_slices_kernel(K: int, column, bp_slices, lengths):
+    """K2m on the card: as viterbi_traceback_slices_plain, launched on the
+    column's card; a slice on another card is read there in place (peer
+    access, or a RuntimeError)."""
+    dev = column.device
+    shift = _slice_shift(column)
+    M, B, W = column.shape
+    if K != 6:
+        raise ValueError(f"the CUDA traceback kernel takes K=6, got K={K}")
+    if len(bp_slices) != M:
+        raise ValueError(f"{len(bp_slices)} backpointer slices for {M} ranks")
+    Tm = bp_slices[0].shape[0]
+    _check("column", column, torch.float32, (M, B, W), dev)
+    _check("lengths", lengths, torch.int32, (B,), dev)
+    for m, sl in enumerate(bp_slices):
+        _check(f"bp_slices[{m}]", sl, torch.uint8, (Tm, B, W), sl.device)
+    _require_cuda(dev, "viterbi traceback slices")
+    for sl in bp_slices:
+        _require_cuda(sl.device, "viterbi traceback slices")
+        _cuda.enable_peer_access(dev, sl.device)
+    code_bytes = 3 * (-(-Tm // 4))
+    path0 = torch.empty(B, dtype=torch.int32, device=dev)
+    codes = torch.empty((B, code_bytes), dtype=torch.uint8, device=dev)
+    logp = torch.empty(B, dtype=torch.float32, device=dev)
+    # pinned, so that the copy does not wait on the card
+    ptrs = torch.tensor([sl.data_ptr() for sl in bp_slices],
+                        dtype=torch.int64).pin_memory().to(dev,
+                                                           non_blocking=True)
+    lib = _cuda.load()
+    err = lib.nc_viterbi_traceback_slices(
+        column.data_ptr(), ptrs.data_ptr(), lengths.data_ptr(), B, Tm + 1,
+        code_bytes, shift, path0.data_ptr(),
+        codes.data_ptr() if codes.numel() else None, logp.data_ptr(),
+        *_cuda.target(dev),
+    )
+    _cuda.check(err, "viterbi_traceback_slices kernel launch")
+    _cuda.count_launch(traceback_slices_kernel)
+    return path0, codes, logp
+
+
+traceback_slices_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels, in main-path order (K9's
-traceback chunk after K3's, the redesigned kernels of K6a, K6b, K6c and
+traceback chunk after K3's, then K1m and K2m, K1 and K2 with the states
+split over a mesh's ranks, the redesigned kernels of K6a, K6b, K6c and
 K6e after their streaming ones, then the measurement path's K8 and the
 repro tool's K10): each kernel's wrapper (which carries its `launches`
 counter), its source, and the JAX function it replaces."""
@@ -15,7 +16,9 @@ class Kernel(NamedTuple):
     name: str
     wrapper: Callable  # carries the `launches` counter
     source: str  # path in the repository
-    replaces: str  # file:line of the JAX kernel it replaces
+    # file:line of the JAX kernel it replaces (K1m and K2m: K1's and K2's
+    # step and walk under shard_pooled_decode_inputs' state placement)
+    replaces: str
 
 
 KERNELS = (
@@ -37,6 +40,12 @@ KERNELS = (
     Kernel("viterbi_traceback_chunk_states", hmm.traceback_chunk_states_kernel,
            "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
            "nanocall_tpu/parallel/seqpar.py:40"),
+    Kernel("viterbi_forward_slice", hmm.forward_slice_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_forward.cu",
+           "nanocall_tpu/parallel/mesh.py:103"),
+    Kernel("viterbi_traceback_slices", hmm.traceback_slices_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
+           "nanocall_tpu/parallel/mesh.py:103"),
     Kernel("fwbw_forward", hmm.fwbw_forward_kernel,
            "nanocall_tpu_torch/csrc/fwbw_forward.cu",
            "nanocall_tpu/ops/hmm.py:890"),

@@ -14,15 +14,24 @@ A device may appear more than once in `devices` (several shards on one
 card, as chip_smoke.py checks the sharded runs on a one-GPU machine).  The
 sharder never moves work to the CPU: a CUDA run shards over GPUs only.
 
-Not ported: make_mesh, shard_decode_inputs, shard_pooled_decode_inputs and
-shard_train_inputs (nanocall_tpu/parallel/mesh.py:64-137).  They shard the
-4096-state axis through GSPMD's collectives, which a hand-written kernel
-does not have, and the JAX package reaches them only from
-tests/test_sharding.py.
+The 2-D mesh (nanocall_tpu/parallel/mesh.py:64-137): make_mesh builds a
+(data, model) grid of devices, and shard_pooled_decode_inputs places the
+production decode's inputs on it: the batch over 'data', the bank's
+4096-state axis over 'model'.  basecall.decode_chunk_pooled takes the
+placed arguments and decodes each data row with its states split over the
+row's ranks (parallel/statepar.py: K1m and K2m); where GSPMD inserts the
+collectives in JAX, the ranks all-gather the alpha column each step.  The
+JAX package's multi-chip entry point runs them (__graft_entry__.py:98-172,
+dryrun_multichip), as does tests/test_sharding.py.  Not ported yet:
+shard_decode_inputs (the generic decode, K6a + K6b) and shard_train_inputs
+(the EM round, K4 + K5) on the state axis (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .. import shapes
@@ -118,3 +127,102 @@ def join(outs: list) -> dict:
     """The shards' output dicts joined along the batch in shard order, on
     the host."""
     return {k: torch.cat([o[k].cpu() for o in outs]) for k in outs[0]}
+
+
+# ---------------------------------------------------------------------------
+# the (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+class Mesh:
+    """A (data, model) grid of devices, row-major as JAX reshapes the
+    device list (nanocall_tpu/parallel/mesh.py:64-72): devices[d][m] is
+    the device of data row d and model rank m, ids[d, m] its index in the
+    list the mesh was made from."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, devices: list, model: int):
+        n = len(devices)
+        if n < 1 or n % model:
+            raise ValueError(f"{n} devices do not make rows of {model}")
+        self.ids = np.arange(n).reshape(n // model, model)
+        self.devices = [[devices[i] for i in row] for row in self.ids]
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.ids.shape))
+
+
+def make_mesh(n_devices: int | None = None, model_axis: int = 1,
+              devices=None) -> Mesh:
+    """A (data, model) mesh over the first n_devices of `devices` (default
+    every visible GPU; a RuntimeError where there is none, as
+    DataSharder()).  model_axis falls back to 1 where it does not divide
+    n, as in JAX.  A device may repeat: [cuda:0] * n runs every rank on one
+    card (a stream each)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh() builds its mesh from the visible GPUs and there "
+                "is none; pass devices= to use others")
+        devices = local_devices("cuda")
+    devices = [indexed(d) for d in devices]
+    n = n_devices or len(devices)
+    if not 1 <= n <= len(devices):
+        raise ValueError(f"a mesh of {n} devices from {len(devices)}")
+    return Mesh(devices[:n], model_axis if n % model_axis == 0 else 1)
+
+
+class Sharded(NamedTuple):
+    """One argument placed on a mesh: spec names the mesh axis each of its
+    dimensions is cut over (JAX's PartitionSpec; None: whole), shards[d][m]
+    its part on mesh.devices[d][m] (JAX's addressable_shards)."""
+
+    mesh: Mesh
+    spec: tuple
+    shards: list
+
+
+def _cuts(size: int, parts: int, what: str) -> list:
+    """`parts` contiguous slices of `size`, as P(axis) cuts it (which, as
+    in JAX, must divide it)."""
+    if size % parts:
+        raise ValueError(f"{size} {what} do not split over {parts} ranks")
+    q = size // parts
+    return [slice(i * q, (i + 1) * q) for i in range(parts)]
+
+
+def shard_pooled_decode_inputs(mesh: Mesh, pool_mean, pool_stdv, pool_start,
+                               idx, drifts, bank, model_idx, pm_params, stp,
+                               lengths) -> tuple:
+    """Place the production decode's inputs (basecall.decode_chunk_pooled's
+    arguments, in its order; nanocall_tpu/parallel/mesh.py:103) on the
+    mesh.  Every batch-leading tensor is cut into contiguous rows over
+    'data' (P("data")), whole over 'model'; each bank table's state axis is
+    cut into contiguous slices over 'model' (P(None, "model")): rank m holds
+    the states [m W, (m + 1) W), W = n / M.  The event pool is indexed
+    through idx: a data row's shard holds the pool rows its tasks name, in
+    task order, and its idx is renumbered to them (the contiguous P("data")
+    cut itself where the pool holds the chunk's own rows in order, as the
+    JAX test's does).  Returns the Sharded arguments, in order, with the
+    bank as a dict of Sharded tables."""
+    D, M = mesh.ids.shape
+    rows = _cuts(idx.shape[0], D, "tasks")
+    states = _cuts(next(iter(bank.values())).shape[-1], M, "states")
+
+    def by_data(x):
+        return Sharded(mesh, ("data",), [
+            [x[rows[d]].to(dev) for dev in devs]
+            for d, devs in enumerate(mesh.devices)])
+
+    pool = [by_data(x[idx]) for x in (pool_mean, pool_stdv, pool_start)]
+    local_idx = Sharded(mesh, ("data",), [
+        [torch.arange(idx.shape[0] // D, device=dev) for dev in devs]
+        for devs in mesh.devices])
+    placed_bank = {k: Sharded(mesh, (None, "model"), [
+        [v[:, states[m]].contiguous().to(dev) for m, dev in enumerate(devs)]
+        for devs in mesh.devices]) for k, v in bank.items()}
+    return (*pool, local_idx, by_data(drifts), placed_bank,
+            by_data(model_idx), by_data(pm_params), by_data(stp),
+            by_data(lengths))

@@ -437,7 +437,8 @@ N_STATES = 4096
 #: beta + lse)
 CELL_OPS = {
     "viterbi_forward_path": 28.6875, "viterbi_forward_score": 28.6875,
-    "viterbi_forward_chunk": 28.6875, "fwbw_forward": 36.6875,
+    "viterbi_forward_chunk": 28.6875, "viterbi_forward_slice": 28.6875,
+    "fwbw_forward": 36.6875,
     "fwbw_grouped_backward": 37.6875, "em_backward": 77.6875,
     "viterbi_generic_forward_path": 82.0,
     "viterbi_generic_forward_score": 61.0,
@@ -511,6 +512,49 @@ def seqpar_bound(B: int, T: int) -> dict:
     t_ops = (fo + to) / H100_F32_OPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def viterbi_forward_slice_counts(B: int, T: int, ranks: int = 2) -> tuple:
+    """K1m: T launches of one rank of `ranks`, each one step of its W =
+    n / ranks states (a launch reads its inputs anew: the gathered column
+    of all n states, the step's event and the lengths, the rank's 9 (B, W)
+    tables; it writes its alpha slice and W backpointer bytes a read); K1's
+    operations for W states.  The column's exchange is counted apart
+    (statepar_exchange_bytes)."""
+    n, W = N_STATES, N_STATES // ranks
+    return (T * (4 * B * n + 16 * B + 36 * B * W + 5 * B * W),
+            CELL_OPS["viterbi_forward_slice"] * B * T * W)
+
+
+def viterbi_traceback_slices_counts(B: int, T: int, ranks: int = 2) -> tuple:
+    """K2m: K2's work (the gathered final column, a backpointer byte per
+    event, lengths, path0, logp and the packed codes; the end argmax),
+    whichever rank's slice a byte lies in.  The bytes it reads from the
+    peers' slices are counted apart (statepar_exchange_bytes)."""
+    return viterbi_traceback_counts(B, T)
+
+
+def statepar_exchange_bytes(B: int, T: int, ranks: int,
+                            walk_remote_rows: int = 0) -> dict:
+    """The bytes a state-parallel decode of one data row (B reads of T
+    events over `ranks` ranks) moves between its ranks: "column", K1m's
+    all-gather, each rank receiving the ranks - 1 other slices (4 B W
+    bytes each) of every event's column; "walk", K2m's reads of
+    backpointer bytes in another rank's slice than the walking rank's (one
+    byte each; walk_remote_rows, counted from the run's paths by
+    walk_remote_rows())."""
+    W = N_STATES // ranks
+    return {"column": T * ranks * (ranks - 1) * 4 * B * W,
+            "walk": walk_remote_rows}
+
+
+def walk_remote_rows(paths, lengths, ranks: int) -> int:
+    """The backpointer rows K2m's walk reads outside the first rank's
+    slice: over each read's events t = 1 .. length - 1, those whose state
+    paths[b][t] lies in another rank's slice (W = n / ranks states each;
+    paths are numpy or torch arrays)."""
+    W = N_STATES // ranks
+    return int(sum(int((p[1:L] >= W).sum()) for p, L in zip(paths, lengths)))
 
 
 def fwbw_forward_counts(B: int, T: int) -> tuple:
@@ -659,6 +703,8 @@ KERNEL_COUNTS = {
     "viterbi_forward_chunk": viterbi_forward_chunk_counts,
     "viterbi_traceback_chunk": viterbi_traceback_chunk_counts,
     "viterbi_traceback_chunk_states": viterbi_traceback_chunk_states_counts,
+    "viterbi_forward_slice": viterbi_forward_slice_counts,
+    "viterbi_traceback_slices": viterbi_traceback_slices_counts,
     "fwbw_forward": fwbw_forward_counts,
     "em_backward": em_backward_counts,
     "viterbi_generic_forward_path": viterbi_generic_forward_path_counts,
@@ -684,34 +730,44 @@ TABLE_KERNELS = ("viterbi_generic_forward_path",
                  "fwbw_resident", "fwbw_custom", "fwbw_custom_resident")
 
 
-def kernel_counts(name: str, B: int, T: int, deg: int = 21) -> tuple:
+#: the kernels of a state-parallel decode, counted for one rank of `ranks`
+RANK_KERNELS = ("viterbi_forward_slice", "viterbi_traceback_slices")
+
+
+def kernel_counts(name: str, B: int, T: int, deg: int = 21,
+                  ranks: int = 2) -> tuple:
     """(bytes, float32 ops) of one call of kernel `name` on B rows of T
-    events (a chunk kernel: T is the chunk's events; K8: B rows of n = 4096
-    lanes, T steps of FMA_K FMAs; K10: a (B, T) output) at n = 4096 states,
-    a loaded table of `deg` slots."""
+    events (a chunk kernel: T is the chunk's events; K1m: T launches, T = 1
+    one step; K8: B rows of n = 4096 lanes, T steps of FMA_K FMAs; K10: a
+    (B, T) output) at n = 4096 states, a loaded table of `deg` slots, the
+    states split over `ranks` ranks."""
     fn = KERNEL_COUNTS[name]
-    return fn(B, T, deg=deg) if name in TABLE_KERNELS else fn(B, T)
+    if name in TABLE_KERNELS:
+        return fn(B, T, deg=deg)
+    return fn(B, T, ranks=ranks) if name in RANK_KERNELS else fn(B, T)
 
 
-def kernel_bound(name: str, B: int, T: int, deg: int = 21) -> dict:
+def kernel_bound(name: str, B: int, T: int, deg: int = 21,
+                 ranks: int = 2) -> dict:
     """{"bound_ms", "bound_by"}: the least time the card could take for one
     call of kernel `name` (shapes as `kernel_counts`): the larger of the
     bytes it must move (each input read once, each output written once; a
     traceback reads one backpointer byte per event) over the HBM rate, and
     its float32 operations over the float32 rate."""
-    nbytes, ops = kernel_counts(name, B, T, deg)
+    nbytes, ops = kernel_counts(name, B, T, deg, ranks)
     t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, ops / H100_F32_OPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def kernel_shares(name: str, B: int, T: int, ms: float,
-                  fma_peak_ops_per_s: float | None = None) -> dict:
+                  fma_peak_ops_per_s: float | None = None,
+                  ranks: int = 2) -> dict:
     """A kernel's achieved float32 operations per second (its count from
     `kernel_counts` over a measured `ms` per call), and that rate's share
     of the H100's 67 TFLOP/s and of a K8 peak measured at the same B x T
     (None without one)."""
-    rate = kernel_counts(name, B, T)[1] / (ms / 1e3)
+    rate = kernel_counts(name, B, T, ranks=ranks)[1] / (ms / 1e3)
     return {"f32_ops_per_s": rate,
             "share_of_f32_spec": rate / H100_F32_OPS_PER_S,
             "share_of_k8_peak": (rate / fma_peak_ops_per_s

@@ -795,3 +795,52 @@ def test_generic_traceback_ring_cases_on_the_card(card, tmp_path, case):
         fa, bps, ln = _random_walk_inputs(card, len(lengths), T, lengths,
                                           deg, 18)
         _k6b_check(ops, fa, bps, ln, "ring", (case, what))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_statepar_kernels_bit_equal_on_the_card(card, inputs):
+    """K1m and K2m, the decode with the 4096 states split over M = 2 and 4
+    ranks on cuda:0 (a stream each; parallel/statepar.py), against their
+    plain versions over the same ranks and against K1 + K2, path and
+    score-only, every output as bits: on reads of lengths 0, 1, T-1 and T
+    (clean) and on _nan_decode_inputs (NaN events, a NaN stay entry, a NaN
+    model entry); one data row of all reads, then two rows of half.  T M
+    launches of K1m and one of K2m a row."""
+    from nanocall_tpu_torch.parallel import statepar
+
+    if inputs == "clean":
+        gt, model, ev = _grouped_inputs(card, [40, 0, 1, 39, 17, 40], 40, 9)
+    else:
+        gt, model, ev = _nan_decode_inputs(card)
+    B, T = ev["mean"].shape
+    full = hmm.viterbi_decode_grouped(gt, model, ev)
+    score = hmm.viterbi_decode_grouped(gt, model, ev, with_path=False)
+    torch.cuda.synchronize()
+    for M in (2, 4):
+        for n_rows in (1, 2):
+            b = B // n_rows
+            rows = [statepar.split_states(
+                hmm.GroupedTrans(*(x[i * b:(i + 1) * b] for x in gt[:3]),
+                                 K=6),
+                hmm.ModelArrays(*(x[i * b:(i + 1) * b] for x in model)),
+                {k: v[i * b:(i + 1) * b] for k, v in ev.items()},
+                [card] * M) for i in range(n_rows)]
+            for with_path, ref in ((True, full), (False, score)):
+                want = statepar.viterbi_decode_statepar_plain(rows, with_path)
+                n0 = (hmm.forward_slice_kernel.launches,
+                      hmm.traceback_slices_kernel.launches)
+                got = statepar.viterbi_decode_statepar(rows, with_path)
+                torch.cuda.synchronize()
+                assert (hmm.forward_slice_kernel.launches - n0[0],
+                        hmm.traceback_slices_kernel.launches - n0[1]) == \
+                    (n_rows * T * M, n_rows if with_path else 0)
+                for key in ref:
+                    what = (inputs, M, n_rows, with_path, key)
+                    g = torch.cat([o[key] for o in got])
+                    w = torch.cat([o[key] for o in want])
+                    assert g.device == card, what
+                    assert torch.equal(_bits(g), _bits(w)), what
+                    assert torch.equal(_bits(g), _bits(ref[key])), what
+    if inputs == "NaN":
+        assert torch.isnan(full["logp"]).any()

@@ -166,7 +166,8 @@ def test_package_source_names_no_jax():
     assert {pkg / "simulate.py", pkg / "roofline.py", pkg / "ops" / "fma.py",
             pkg / "ops" / "repro.py", pkg / "shapes.py",
             pkg / "parallel" / "seqpar.py", pkg / "parallel" / "mesh.py",
-            pkg / "parallel" / "multihost.py"} <= set(files)
+            pkg / "parallel" / "multihost.py",
+            pkg / "parallel" / "statepar.py"} <= set(files)
     tools = sorted((ROOT / "tools").glob("torch_*.py"))
     assert {t.name for t in tools} >= {"torch_decode_times.py",
                                        "torch_reshape_repro.py"}
@@ -202,8 +203,9 @@ def test_measurement_path_and_repro_run_on_cpu_without_importing_jax():
 
 def test_parallel_path_runs_on_cpu_without_importing_jax():
     """K9's plain version over 2 CPU ranks, a decode chunk over the data
-    sharder of 2 CPU devices, shapes.py and multihost's file partition in a
-    fresh interpreter: no jax and no nanocall_tpu."""
+    sharder of 2 CPU devices and placed on a 2 x 2 CPU mesh (the plain
+    state-parallel decode, parallel/statepar.py), shapes.py and multihost's
+    file partition in a fresh interpreter: no jax and no nanocall_tpu."""
     proc = _run_python(
         "import sys, torch\n"
         "from nanocall_tpu_torch import basecall, convert, shapes\n"
@@ -232,6 +234,13 @@ def test_parallel_path_runs_on_cpu_without_importing_jax():
         " torch.tensor([[0.1, 0.3]] * B), ev['length'],"
         " sharder=mesh.DataSharder(devices=[cpu] * 2))\n"
         "assert torch.equal(mesh.join(shards)['logp'], out['logp'])\n"
+        "placed = mesh.shard_pooled_decode_inputs(mesh.make_mesh(4, 2,"
+        " devices=[cpu] * 4), ev['mean'], stdv, torch.zeros(B, T),"
+        " torch.arange(B), torch.zeros(B), bank,"
+        " torch.zeros(B, dtype=torch.int32), pm,"
+        " torch.tensor([[0.1, 0.3]] * B), ev['length'])\n"
+        "rows = basecall.decode_chunk_pooled(*placed)\n"
+        "assert torch.equal(mesh.join(rows)['logp'], out['logp'])\n"
         "assert shapes.path_chunk_cap(Config(), 8192, 2) == 256\n"
         "assert multihost.partition_files(['a', 'b', 'c'], 1, 2) == ['c']\n"
         "rc = 0\n"

@@ -573,19 +573,22 @@ def test_ring_kernel_source_states_its_shared_memory():
 
 
 def test_end_argmax_has_one_implementation():
-    """K2's, K6b's ring and K6b's streaming kernels take their end argmax
-    from common.cuh (end_argmax_partials, a barrier, end_argmax), and no
+    """K2's, K2m's, K6b's ring and K6b's streaming kernels take their end
+    argmax from common.cuh (end_argmax_partials, or end_argmax_partials_at
+    for K2m's states in the ranks' slices, a barrier, end_argmax), and no
     kernel source holds a second copy of its rule or its shuffles."""
     common = _csrc("common.cuh")
     for name in ("void take_better(", "void warp_argmax(",
-                 "void end_argmax_partials(", "void end_argmax("):
+                 "void end_argmax_partials(", "void end_argmax_partials_at(",
+                 "void end_argmax("):
         assert name in common, name
-    for name, kernels in (("viterbi_traceback.cu", 2),
+    for name, kernels in (("viterbi_traceback.cu", 3),
                           ("viterbi_generic.cu", 1)):
         src = _csrc(name)
         assert "void take_better(" not in src, name
         assert "__shfl_down_sync" not in src, name
-        assert src.count("end_argmax_partials(") == kernels, name
+        assert (src.count("end_argmax_partials(")
+                + src.count("end_argmax_partials_at(")) == kernels, name
         assert src.count("end_argmax(w_best, w_idx, ") == kernels, name
 
 

@@ -390,11 +390,15 @@ def run_turns(other: str) -> int:
 
 #: the time loops of K1 (path, score-only; one runtime-switched instance
 #: before the redesign), K3's forward chunk, K4, K5, K6d and K6c's
-#: streaming kernel, by kernel name marker
-CENSUS_LOOPS = (("K1 path", ("viterbi_forward_kernelILb0ELb1E",
+#: streaming kernel, by kernel name marker, the first one the tree has
+#: (since K1m, K1's kernel has a third template argument)
+CENSUS_LOOPS = (("K1 path", ("viterbi_forward_kernelILb0ELb1ELb0E",
+                             "viterbi_forward_kernelILb0ELb1E",
                              "viterbi_forward_kernelILb0E")),
-                ("K1 score", ("viterbi_forward_kernelILb0ELb0E",)),
-                ("K3 forward chunk", ("viterbi_forward_kernelILb1ELb1E",
+                ("K1 score", ("viterbi_forward_kernelILb0ELb0ELb0E",
+                              "viterbi_forward_kernelILb0ELb0E")),
+                ("K3 forward chunk", ("viterbi_forward_kernelILb1ELb1ELb0E",
+                                      "viterbi_forward_kernelILb1ELb1E",
                                       "viterbi_forward_kernelILb1E")),
                 ("K4", ("fwbw_forward_kernel",)),
                 ("K5", ("em_backward_kernel",)),

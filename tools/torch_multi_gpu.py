@@ -14,7 +14,15 @@ It needs two cards or more (it exits 2 with fewer) and
    cuda:0 (chip_smoke.check_seqpar), with both times; then at 4 x 40,960
    with n_blocks 1 and D against K3's decode on cuda:0, with K9's time over
    the cards beside its time with every rank on cuda:0 and K3's;
-3. runs chip_smoke.py's 24 simulated reads through basecall.run_pipeline,
+3. decodes chip_smoke.py's path chunk (128 x 8,192, pooled_inputs)
+   through basecall.decode_chunk_pooled placed by
+   parallel.mesh.shard_pooled_decode_inputs on (data, model) meshes of
+   distinct cards: (1, 2), and with four cards (2, 2) from make_mesh's
+   default device list: path0, codes and logp bit-equal to the unplaced
+   decode on cuda:0 (K1 + K2), K2m reading the peers' backpointer slices
+   over peer access; each mesh's wall beside the same mesh with every
+   rank on cuda:0 and K1 + K2's;
+4. runs chip_smoke.py's 24 simulated reads through basecall.run_pipeline,
    untrained and trained, over the default data sharder (every card:
    basecall.default_sharder) and over cuda:0 alone: FASTA byte-equal, stats
    within rtol 2e-3, every card allocated memory in the sharded runs; the
@@ -105,8 +113,56 @@ def run_seqpar(models, cards, card_line: str) -> dict:
     return out
 
 
+def run_mesh(models, cards, card_line: str) -> dict:
+    """Phase 3: the state-parallel decode across cards."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import basecall
+    from nanocall_tpu_torch.parallel import mesh
+
+    B, T = chip_smoke.B_MESH, chip_smoke.T_MESH
+    args = chip_smoke.pooled_inputs(models, cards[0], B, T,
+                                    np.random.default_rng(2027))
+    [ref] = basecall.decode_chunk_pooled(*args)
+    ref = {k: v.cpu() for k, v in ref.items()}
+
+    def wall(placed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = basecall.decode_chunk_pooled(*placed)
+        for i in range(len(cards)):
+            torch.cuda.synchronize(i)
+        return time.perf_counter() - t0, out
+
+    k1k2_s, _ = wall(args)
+    out = {"k1k2_s": k1k2_s}
+    for D, M in ((1, 2), (2, 2)):
+        if D * M > len(cards):
+            continue
+        grid = (mesh.make_mesh(D * M, model_axis=M) if D * M == 4
+                else mesh.make_mesh(D * M, model_axis=M, devices=cards))
+        assert grid.shape == {"data": D, "model": M}, grid.shape
+        s, got = wall(mesh.shard_pooled_decode_inputs(grid, *args))
+        assert [o["codes"].device for o in got] == [row[0] for row in
+                                                    grid.devices]
+        got = mesh.join(got)
+        for k in ("path0", "codes", "logp"):
+            assert torch.equal(chip_smoke.bits(got[k]),
+                               chip_smoke.bits(ref[k])), (D, M, k)
+        one = mesh.make_mesh(D * M, model_axis=M,
+                             devices=[cards[0]] * (D * M))
+        s_one, _ = wall(mesh.shard_pooled_decode_inputs(one, *args))
+        out[f"mesh_{D}x{M}_s"], out[f"mesh_{D}x{M}_one_card_s"] = s, s_one
+        print(f"mesh ({D}, {M}) over {D * M} cards, B={B} T={T}: path0, "
+              f"codes and logp bit-equal to K1 + K2 on cuda:0; {s:.3f} s of "
+              f"wall vs {s_one:.3f} s with every rank on cuda:0 and K1 + K2 "
+              f"{k1k2_s:.3f} s [{card_line}]")
+    return out
+
+
 def run_sharded(models, cards, card_line: str) -> dict:
-    """Phase 3: the pipeline over every card against cuda:0 alone."""
+    """Phase 4: the pipeline over every card against cuda:0 alone."""
     import numpy as np
     import torch
 
@@ -166,10 +222,11 @@ def main() -> int:
     models = cli.init_models(chip_smoke.smoke_config())
     check_current_device(models, n)
     seq = run_seqpar(models, cards, card_line)
+    mesh_walls = run_mesh(models, cards, card_line)
     walls = run_sharded(models, cards, card_line)
     print(card_line)
     print(json.dumps({"ok": True, "cards": n, "seqpar": seq,
-                      "pipeline_wall_s": walls}))
+                      "mesh": mesh_walls, "pipeline_wall_s": walls}))
     return 0
 
 
