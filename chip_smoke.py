@@ -10,13 +10,16 @@ from the root of a checkout.  It
   2. builds the CUDA kernels from nanocall_tpu_torch/csrc and prints the
      build seconds, ptxas' register / spill report, the FFMA count of
      K8's SASS (cuobjdump -sass), and a static census of the time loops of
-     K1 (path and score-only), K3's forward chunk, K4, K5 and K6d:
-     instructions per state and step, by class (step_loop_sass), of the
-     traceback walks of K2, K3 and K9 (walk_loop_sass), and of the resident
-     K6c's and K6e's two time loops (barrier_loops_sass): K4's and K6d's
-     loops must hold at most 2 block barriers, K2's walk and K6b's ring
-     walk no global load (their rows and K6b's from-state table come from
-     shared memory; K6b stores its path), the resident K6c's loops no
+     K1 (path and score-only), K3's forward chunk, K1m's eight instances,
+     K4, K5 and K6d: instructions per state and step, by class
+     (step_loop_sass), of the traceback walks of K2, K2m, K3 and K9
+     (walk_loop_sass), and of the resident K6c's and K6e's two time loops
+     (barrier_loops_sass): K4's and K6d's loops must hold at most 2 block
+     barriers, K1m's read the column by at least 4 strong loads and
+     spill nothing,
+     K2's, K2m's and K6b's ring walks no global load (their rows and K6b's
+     from-state table come from shared memory; K6b stores its path), the
+     resident K6c's loops no
      global load but the stored emissions' (no slot-table byte), the
      resident K6e's forward loop 3 block barriers and its backward loop 1,
      and no slot-table byte from global memory;
@@ -89,20 +92,26 @@ from the root of a checkout.  It
      (16 launches of each kernel); then the mesh's state axis
      (parallel.mesh.make_mesh, shard_pooled_decode_inputs and
      parallel.statepar: K1m and K2m, K1 and K2 with the 4096 states split
-     over the ranks of a data row, every rank on the one card on a stream
-     of its own): at 16 x 2048 over 2 and 4 ranks, path and score-only,
-     on the clean and the NaN inputs above, bit-equal to K1 + K2 and
-     (with backpointers, 2 ranks) to the plain versions, with K1m's time
-     per launch (one step of one rank; host enqueue and device time) and
-     K2m's per call against their plain versions' at 2 ranks; then the
-     path chunk, 128 reads x 8,192
-     events through basecall.decode_chunk_pooled placed on (data, model)
-     meshes of (1, 2), (1, 4) and (2, 2): path0, codes and logp (and the
+     over the ranks of a data row, every rank on the one card): at 16 x
+     2048 over 2 and 4 ranks, path and score-only, on the clean and the
+     NaN inputs above, bit-equal to K1 + K2 and (with backpointers, 2
+     ranks) to the plain versions; on the NaN inputs at 2 ranks, one K1m
+     launch (a wave of all 16 reads, both ranks) against its plain version
+     (column buffers and backpointers as bits) with its time (CUDA events
+     around each launch, and the host's enqueue; and how many of 5
+     launches torch.profiler records), and K2m on its output against its
+     plain version and K2's ring; then the path chunk, 128 reads x 8,192 events
+     through basecall.decode_chunk_pooled placed on (data, model) meshes
+     of (1, 2), (1, 4) and (2, 2): path0, codes and logp (and the
      score-only logp) bit-equal to the unplaced decode (K1 + K2), each
-     mesh's decode counted as the mesh path (T M launches of K1m and one of
-     K2m a data row), its wall and host enqueue seconds beside K1 + K2's,
-     its peak device memory, each rank's backpointer bytes and the bytes
-     its ranks exchange (roofline.statepar_exchange_bytes);
+     mesh's decode counted as the mesh path (one K1m launch a wave and
+     data row, statepar.plan_waves on the card's resident blocks, and one
+     K2m a data row), its wall, host enqueue and device seconds and K1m's
+     and K2m's device time beside K1 + K2's, its bound, its peak device
+     memory, each rank's backpointer bytes and the bytes its ranks read
+     from each other (roofline.statepar_exchange_bytes); and K2m against
+     K2's ring at 128 x 8192 over 2, 4 and 64 ranks, in turns, as drawn
+     and at full lengths;
   6. runs the EM kernels at the EM chunk's full width: n = 4096, 128
      training groups x 4 = 512 rows of T = 128 events, packed by
      nanocall_tpu_torch.basecall.pack_train_batch from the simulated reads
@@ -197,6 +206,7 @@ no CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -257,6 +267,9 @@ MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
 B_MESH, T_MESH = 128, 8192
 MESH_KERNELS = ("viterbi_forward_slice", "viterbi_traceback_slices")
 MESH_RANKS = (2, 4)
+#: the ranks K2m is timed at against K2's ring at the path chunk (64: a
+#: row of 64 copies of 64 bytes, the most ranks the kernels take)
+K2M_RANKS = (2, 4, 64)
 #: kernels each host's half of the multi-host emulation must launch (its
 #: reads may hold no contest, so no score-only chunk)
 HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
@@ -751,13 +764,17 @@ def check_statepar(gt, model, ev) -> dict:
     clean inputs and on nan_inputs', bit-equal (as bits) to K1 + K2 and,
     with backpointers at 2 ranks, to its plain version
     (statepar.viterbi_decode_statepar_plain, the same schedule over the
-    plain K1m and K2m); then, at 2 ranks, one K1m
-    launch (event T/2 of rank 1, from the gathered column of a decode's
-    final alphas) against its plain version, and K2m on a decode's column
-    and slices against its plain version (tolerance 0).  Returns the two
-    kernels' records: K1m's "ms" is its device time per launch
-    (torch.profiler), with the host's enqueue per launch and the CUDA-event
-    time per launch back to back beside it."""
+    plain K1m and K2m); then, at 2 ranks on nan_inputs', one K1m launch
+    (the wave of all B reads, both ranks) against its plain version on the
+    same ranks (every rank's column buffer, both parities, and its
+    backpointers as bits), and K2m on that wave's final slices and
+    backpointer slices against its plain version and against K2's ring on
+    the same rows whole (tolerance 0).  Returns the two kernels' records:
+    K1m's "ms" is a launch's device time (launch_spans: CUDA events around
+    each of 5 launches, its counters zeroed before each), with the host's
+    enqueue a launch beside it; K2m's "k2_ms" is K2's time on the same
+    rows.  Prints how many of 5 K1m launches torch.profiler records, and
+    their device time (profiled_launches)."""
     import torch
 
     from nanocall_tpu_torch.ops import hmm
@@ -784,52 +801,123 @@ def check_statepar(gt, model, ev) -> dict:
                     assert torch.equal(bits(got[k]), bits(ref[k])), \
                         f"{tag} differs from K1 + K2"
 
-    # the single kernels at 2 ranks, on a decode's own column and slices
-    B, T = ev["mean"].shape
-    parts = statepar.split_states(gt, model, ev, [dev] * 2)
-    fa, bps = hmm.viterbi_forward_grouped(gt, model, ev)
-    col = torch.stack([fa[:, :2048], fa[:, 2048:]]).contiguous()
-    slices = [bps[..., :2048].contiguous(), bps[..., 2048:].contiguous()]
-    del bps
-    p, t = parts[1], T // 2
-    outs = [(torch.empty((B, 2048), device=dev),
-             torch.empty((B, 2048), dtype=torch.uint8, device=dev))
-            for _ in range(2)]
+    # the single kernels at 2 ranks on the NaN inputs
+    g, m, e = nan_inputs(gt, model, ev)
+    B, T = e["mean"].shape
+    ranks = [statepar._wave_rank(p, True)
+             for p in statepar.split_states(g, m, e, [dev] * 2)]
+    plain = [r._replace(col=r.col.clone(), bps=r.bps.clone()) for r in ranks]
 
-    def k1m(out=outs[0]):
-        hmm.forward_slice_kernel(p.gt, p.model, p.ev, col, t, 2048, *out)
-
-    def k1m_plain(out=outs[1]):
-        hmm.viterbi_forward_slice_plain(p.gt, p.model, p.ev, col, t, 2048,
-                                        *out)
+    def k1m():
+        for r in ranks:
+            r.flags.zero_()
+        hmm.forward_wave_kernel(ranks, [0, 1], 0, B)
 
     k1m()
-    k1m_plain()
+    plain_ms, _ = cuda_ms_once(
+        lambda: hmm.viterbi_forward_wave_plain(plain, 0, B))
     torch.cuda.synchronize()
-    assert torch.equal(bits(outs[0][0]), bits(outs[1][0])), \
-        "K1m alpha differs from plain"
-    assert torch.equal(outs[0][1], outs[1][1]), "K1m bps differ from plain"
-    split = launch_split(k1m, 200)
-    lengths = ev["length"]
-    tb_k = hmm.traceback_slices_kernel(6, col, slices, lengths)
-    plain_ms, tb_p = cuda_ms_once(lambda: hmm.viterbi_traceback_slices_plain(
-        6, col, slices, lengths))
+    for rk, rp in zip(ranks, plain):
+        assert torch.equal(bits(rk.col), bits(rp.col)), \
+            "K1m column slices differ from plain"
+        assert torch.equal(rk.bps, rp.bps), "K1m bps differ from plain"
+    k1m_spans = launch_spans(k1m, "forward_wave_kernel", dev, 5)
+    print(f"torch.profiler over 5 K1m launches: "
+          f"{profiled_launches(k1m, 'viterbi_forward_wave_kernel', 5)} "
+          f"(events, device ms) recorded [{smi_line()}]")
+    final = [r.col[(T - 1) % 2] for r in ranks]
+    slices = [r.bps for r in ranks]
+    lengths = e["length"]
+    tb_k = hmm.traceback_slices_kernel(6, final, slices, lengths)
+    tb_plain_ms, tb_p = cuda_ms_once(
+        lambda: hmm.viterbi_traceback_slices_plain(6, final, slices, lengths))
+    fa, bps = hmm.gather_column(final), torch.cat(slices, dim=2)
+    tb_2 = hmm.traceback_kernel(6, fa, bps, lengths)
     torch.cuda.synchronize()
-    for what, a, b in zip(("path0", "codes", "logp"), tb_k, tb_p):
+    for what, a, b, c in zip(("path0", "codes", "logp"), tb_k, tb_p, tb_2):
         assert torch.equal(bits(a), bits(b)), f"K2m {what} differs from plain"
+        assert torch.equal(bits(a), bits(c)), f"K2m {what} differs from K2"
     return {
         "viterbi_forward_slice": {
-            "max_abs_err": max_err(outs[0][0], outs[1][0]),
-            "ms": (split["device_us"] / 1e3 if split["device_us"]
-                   else cuda_ms(k1m, 200)),
-            "event_ms": cuda_ms(k1m, 200), "host_us": split["host_us"],
-            "device_us": split["device_us"],
-            "plain_ms": cuda_ms(k1m_plain, 3), "shape": [B, 1], "ranks": 2},
+            "max_abs_err": max(max_err(rk.col, rp.col)
+                               for rk, rp in zip(ranks, plain)),
+            "ms": 1e3 * k1m_spans["device_s"] / 5,
+            "host_us": 1e6 * k1m_spans["host_s"] / 5, "plain_ms": plain_ms,
+            "shape": [B, T], "ranks": 2},
         "viterbi_traceback_slices": {
             "max_abs_err": max_err(tb_k[2], tb_p[2]),
             "ms": cuda_ms(lambda: hmm.traceback_slices_kernel(
-                6, col, slices, lengths), 3),
-            "plain_ms": plain_ms, "shape": [B, T], "ranks": 2}}
+                6, final, slices, lengths), 3),
+            "k2_ms": cuda_ms(lambda: hmm.traceback_kernel(
+                6, fa, bps, lengths), 3),
+            "plain_ms": tb_plain_ms, "shape": [B, T], "ranks": 2}}
+
+
+#: cycles torch.cuda._sleep holds a stream before a timed launch (about
+#: 1 ms at the H100's 1.98 GHz): the launch is enqueued before it ends, so
+#: the host's enqueue does not fall between the launch's events
+HOLD_CYCLES = 2_000_000
+
+
+def launch_spans(fn, name: str, device, reps: int = 1) -> dict:
+    """The launches of kernel wrapper hmm.<name> in `reps` calls of `fn`,
+    each timed alone by CUDA events recorded on `device`'s current stream
+    just before and after it, the stream held busy first (HOLD_CYCLES), so
+    that the span is the device's time for the launch and not the host's
+    enqueue: {"device_s" (summed), "host_s" (the wrapper calls' host
+    clock, summed), "launches"}.  The wrapper is swapped for the calls
+    (its own counter is left as it was)."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    orig = getattr(hmm, name)
+    spans, host = [], []
+
+    def timed(*args, **kw):
+        stream = torch.cuda.current_stream(device)
+        with torch.cuda.device(device):
+            torch.cuda._sleep(HOLD_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        host.append(time.perf_counter() - t0)
+        stop.record(stream)
+        spans.append((start, stop))
+        return out
+
+    timed.launches = 0
+    torch.cuda.synchronize()
+    setattr(hmm, name, timed)
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        setattr(hmm, name, orig)
+    return {"device_s": sum(a.elapsed_time(b) for a, b in spans) / 1e3,
+            "host_s": sum(host), "launches": len(spans)}
+
+
+def profiled_launches(fn, marker: str, reps: int) -> tuple:
+    """(events, device ms) that torch.profiler records for the kernels
+    whose name contains `marker` over `reps` calls of `fn`: K1m's
+    cooperative launches are checked against their count by it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and marker in e.key]
+    return (sum(e.count for e in ev),
+            sum(e.self_device_time_total for e in ev) / 1e3)
 
 
 def pooled_inputs(models, device, B: int, T: int, rng) -> tuple:
@@ -876,51 +964,70 @@ def run_mesh(models, device, card: str, rng) -> dict:
     every rank on `device`, basecall.decode_chunk_pooled on the arguments
     placed by mesh.shard_pooled_decode_inputs, path then score-only, each
     pair of decodes counted as the mesh path (every kernel count set to 0
-    just before, read just after).  path0, codes and logp bit-equal to the
-    unplaced decode's.  Returns {"launches" (summed over the meshes),
-    "meshes": {(D, M): record}, "k1k2_s"}."""
-    import numpy as np
+    just before, read just after): one K1m launch a wave and data row
+    (statepar.plan_waves on the card's resident blocks) and one K2m a data
+    row.  path0, codes and logp bit-equal to the unplaced decode's.  Each
+    decode's wall, host enqueue and device time (CUDA events), K1m's and
+    K2m's device time (launch_spans: CUDA events around each launch of one
+    more path decode each) and peak
+    memory beside K1 + K2's; then K2m against K2's ring on the rows of the
+    unplaced decode split over K2M_RANKS ranks, in turns (K2, K2m, K2m,
+    K2), as drawn and at full lengths.  Returns {"launches" (summed over the
+    meshes), "meshes": {(D, M): record}, "k1k2": record, "walks": {M:
+    record}}."""
     import torch
 
-    from nanocall_tpu_torch import basecall, native, roofline
-    from nanocall_tpu_torch.ops import kernels
-    from nanocall_tpu_torch.parallel import mesh
+    from nanocall_tpu_torch import basecall, roofline
+    from nanocall_tpu_torch.ops import hmm, kernels
+    from nanocall_tpu_torch.parallel import mesh, statepar
 
     args = pooled_inputs(models, device, B_MESH, T_MESH, rng)
+
+    def timed(fn):
+        """(result, wall s, host enqueue s, device s, peak bytes) of one
+        call, from a synchronized card."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        stop.record()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (out, wall, enqueue, start.elapsed_time(stop) / 1e3,
+                torch.cuda.max_memory_allocated() - base)
+
     [ref] = basecall.decode_chunk_pooled(*args)
     [ref_s] = basecall.decode_chunk_pooled(*args, with_path=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    basecall.decode_chunk_pooled(*args)
-    torch.cuda.synchronize()
-    k1k2_s = time.perf_counter() - t0
+    _, wall, enqueue, dev_s, peak = timed(
+        lambda: basecall.decode_chunk_pooled(*args))
+    k1k2 = {"wall_s": wall, "enqueue_s": enqueue, "device_s": dev_s,
+            "peak_gib": peak / 2**30}
+    print(f"K1 + K2 (unplaced) at B={B_MESH} T={T_MESH}: {wall:.4f} s of "
+          f"wall, {enqueue:.4f} s host enqueue, {dev_s:.4f} s device, peak "
+          f"{peak / 2**30:.3f} GiB [{card}]")
     lengths = args[-1].cpu().numpy()
-    path0, codes = ref["path0"].cpu().numpy(), ref["codes"].cpu().numpy()
-    paths = [native.path_from_packed_codes(int(path0[b]), codes[b], int(L),
-                                           6) if L else np.zeros(0, np.int32)
-             for b, L in enumerate(lengths)]
     total = {k.name: 0 for k in kernels.KERNELS}
     meshes = {}
     for D, M in MESH_SHAPES:
         grid = mesh.make_mesh(D * M, model_axis=M, devices=[device] * (D * M))
         placed = mesh.shard_pooled_decode_inputs(grid, *args)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
+        b = B_MESH // D
+        waves = {w: len(statepar.plan_waves(b, [device] * M, {
+            device: hmm.forward_wave_resident(device, w)})[device])
+            for w in (True, False)}
         kernels.reset_launches()
-        t0 = time.perf_counter()
-        out = basecall.decode_chunk_pooled(*placed)
-        enqueue = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() - base
-        t0 = time.perf_counter()
-        out_s = basecall.decode_chunk_pooled(*placed, with_path=False)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        out, wall, enqueue, dev_s, peak = timed(
+            lambda: basecall.decode_chunk_pooled(*placed))
+        out_s, wall_s, enqueue_s, dev_s_s, _ = timed(
+            lambda: basecall.decode_chunk_pooled(*placed, with_path=False))
         launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
-        assert launches["viterbi_forward_slice"] == 2 * D * M * T_MESH, \
-            launches
+        assert launches["viterbi_forward_slice"] == \
+            D * (waves[True] + waves[False]), (launches, waves)
         assert launches["viterbi_traceback_slices"] == D, launches
         assert len(out) == D and all(o["codes"].device == device
                                      for o in out)
@@ -932,28 +1039,85 @@ def run_mesh(models, device, card: str, rng) -> dict:
             f"mesh {(D, M)} score-only logp differs"
         for k, v in launches.items():
             total[k] += v
-        b = B_MESH // D
+        del out, out_s, got, got_s
+        k1m_t = launch_spans(lambda: basecall.decode_chunk_pooled(*placed),
+                             "forward_wave_kernel", device)
+        k2m_t = launch_spans(lambda: basecall.decode_chunk_pooled(*placed),
+                             "traceback_slices_kernel", device)
+        assert (k1m_t["launches"], k2m_t["launches"]) == \
+            (D * waves[True], D), (k1m_t, k2m_t)
+        k1m_us, k2m_us = 1e6 * k1m_t["device_s"], 1e6 * k2m_t["device_s"]
         ex = roofline.statepar_exchange_bytes(b, T_MESH, M)
-        remote = sum(roofline.walk_remote_rows(
-            paths[d * b:(d + 1) * b], lengths[d * b:(d + 1) * b], M)
+        walk = sum(roofline.statepar_exchange_bytes(
+            b, T_MESH, M, roofline.walk_rows(
+                lengths[d * b:(d + 1) * b], T_MESH))["walk"]
             for d in range(D))
-        rec = {"wall_s": wall, "enqueue_s": enqueue, "score_wall_s": wall_s,
-               "peak_gib": peak / 2**30,
+        bound = (D * roofline.kernel_bound("viterbi_forward_slice", b,
+                                           T_MESH)["bound_ms"]
+                 + D * roofline.kernel_bound("viterbi_traceback_slices", b,
+                                             T_MESH)["bound_ms"])
+        rec = {"wall_s": wall, "enqueue_s": enqueue, "device_s": dev_s,
+               "score_wall_s": wall_s, "score_enqueue_s": enqueue_s,
+               "score_device_s": dev_s_s, "k1m_device_s": k1m_us / 1e6,
+               "k2m_device_s": k2m_us / 1e6, "peak_gib": peak / 2**30,
+               "waves_a_row": waves, "k1m_launches_a_decode": D * waves[True],
+               "bound_ms": bound,
                "bp_slice_bytes": b * (T_MESH - 1) * (4096 // M),
                "column_exchange_bytes": D * ex["column"],
-               "walk_remote_rows": remote}
+               "walk_peer_bytes": walk}
         meshes[(D, M)] = rec
         print(f"mesh {(D, M)} (data, model) on one card: B={B_MESH} "
               f"T={T_MESH}, path0, codes and logp (and score-only logp) "
-              f"bit-equal to K1 + K2; decode {wall:.3f} s of wall "
-              f"({enqueue:.3f} s host enqueue) vs K1 + K2 {k1k2_s:.3f} s, "
-              f"score-only {wall_s:.3f} s; peak device memory "
-              f"{rec['peak_gib']:.3f} GiB; backpointer slice "
-              f"{rec['bp_slice_bytes'] / 2**30:.3f} GiB a rank; column "
-              f"exchange {rec['column_exchange_bytes'] / 1e9:.3f} GB, walk "
-              f"rows in other ranks' slices {remote}; launches "
+              f"bit-equal to K1 + K2; path decode {wall:.4f} s of wall "
+              f"({enqueue:.4f} s host enqueue, {dev_s:.4f} s device; K1m "
+              f"{k1m_us / 1e6:.4f} s in {D * waves[True]} launches, K2m "
+              f"{k2m_us / 1e3:.3f} ms in {D}) vs K1 + K2 {k1k2['wall_s']:.4f} "
+              f"s; score-only {wall_s:.4f} s ({enqueue_s:.4f} s enqueue, "
+              f"{dev_s_s:.4f} s device); bound {bound:.3f} ms (K1m + K2m, "
+              f"roofline.kernel_bound); peak device memory "
+              f"{rec['peak_gib']:.3f} GiB vs K1 + K2 {k1k2['peak_gib']:.3f}; "
+              f"backpointer slice {rec['bp_slice_bytes'] / 2**30:.3f} GiB a "
+              f"rank; peers' column slices read {ex['column'] * D / 1e9:.3f} "
+              f"GB, the walks' copies from peers' slices {walk / 1e9:.3f} GB;"
+              f" waves a row {waves}; launches "
               f"{ {k: launches[k] for k in MESH_KERNELS} } [{card}]")
-    return {"launches": total, "meshes": meshes, "k1k2_s": k1k2_s}
+    walks = {}
+    model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
+    ev = basecall.pooled_ev_batch(*args[:5], args[9])
+    gt = hmm.make_grouped_trans_device(args[8][:, 0], args[8][:, 1], 6)
+    fa, bps = hmm.viterbi_forward_grouped(gt, model, ev)
+    del model, ev, gt
+    full = torch.full_like(args[-1], T_MESH)
+    for M in K2M_RANKS:
+        W = 4096 // M
+        column = [fa[:, m * W:(m + 1) * W].contiguous() for m in range(M)]
+        slices = [bps[..., m * W:(m + 1) * W].contiguous() for m in range(M)]
+        rec = {}
+        for what, ln in (("drawn", args[-1]), ("full", full)):
+            got = hmm.traceback_slices_kernel(6, column, slices, ln)
+            want = hmm.traceback_kernel(6, fa, bps, ln)
+            torch.cuda.synchronize()
+            for k, a, c in zip(("path0", "codes", "logp"), got, want):
+                assert torch.equal(bits(a), bits(c)), \
+                    f"K2m {k} differs from K2 at {M} ranks, {what} lengths"
+            calls = {"K2": lambda ln=ln: hmm.traceback_kernel(6, fa, bps, ln),
+                     "K2m": lambda ln=ln: hmm.traceback_slices_kernel(
+                         6, column, slices, ln)}
+            turns = {"K2": [], "K2m": []}
+            for who in ("K2", "K2m", "K2m", "K2"):
+                turns[who].append(cuda_ms(calls[who], 5))
+            rec[what] = turns
+        walks[M] = rec
+        bound = roofline.kernel_bound("viterbi_traceback_slices", B_MESH,
+                                      T_MESH)["bound_ms"]
+        print(f"K2m vs K2's ring at B={B_MESH} T={T_MESH} over {M} ranks, "
+              f"bit-equal, ms in turns (K2, K2m, K2m, K2): as drawn "
+              f"{rec['drawn']}, full lengths {rec['full']}; K2m bound "
+              f"{bound:.4f} ms [{card}]")
+        del column, slices
+    del fa, bps
+    return {"launches": total, "meshes": meshes, "k1k2": k1k2,
+            "walks": walks}
 
 
 def load_trans_table(device, p_stay: float = TRANS_P_STAY,
@@ -1797,6 +1961,16 @@ def natural_loops(ins: list) -> list:
     return loops
 
 
+def time_loop(marker: str) -> tuple:
+    """(sass_lines, the indices of its time loop) of the first kernel whose
+    name contains `marker`: its largest natural loop that holds a block
+    barrier."""
+    ins = sass_lines(marker)
+    return ins, max((lp for lp in natural_loops(ins)
+                     if any(_opcode(ins[k][1]) == "BAR" for k in lp)),
+                    key=len)
+
+
 def step_loop_sass(marker: str) -> dict:
     """A static census of the time loop of the first kernel of the built
     library whose name contains `marker`: the largest natural loop that
@@ -1807,9 +1981,7 @@ def step_loop_sass(marker: str) -> dict:
     ("shfl"), shared loads ("lds") and stores ("sts"), global loads
     ("ldg") and stores ("stg"), local loads and stores (spills, "local"),
     MUFU ("mufu") and float adds, multiplies and FMAs ("ffma")}."""
-    ins = sass_lines(marker)
-    body = max((lp for lp in natural_loops(ins)
-                if any(_opcode(ins[k][1]) == "BAR" for k in lp)), key=len)
+    ins, body = time_loop(marker)
     ops = [_opcode(ins[k][1]) for k in body]
     out = {"instructions": len(body), "per_state": len(body) / 4}
     for key, names in (("bar", ("BAR",)), ("shfl", ("SHFL",)),
@@ -1821,13 +1993,20 @@ def step_loop_sass(marker: str) -> dict:
     return out
 
 
-#: the time loops of the redesigned K1 (its five instances: K1 path and
-#: score-only, K3's forward chunk, K1m path and score-only), K4, K5 and K6d
-STEP_LOOPS = (("K1 path", "viterbi_forward_kernelILb0ELb1ELb0E"),
-              ("K1 score", "viterbi_forward_kernelILb0ELb0ELb0E"),
-              ("K3 forward chunk", "viterbi_forward_kernelILb1ELb1ELb0E"),
-              ("K1m path", "viterbi_forward_kernelILb0ELb1ELb1E"),
-              ("K1m score", "viterbi_forward_kernelILb0ELb0ELb1E"),
+#: K1m's eight instances: path and score-only, the exchange at gpu scope
+#: (every rank of the row on one card) and at system scope (across cards),
+#: two states a thread (slices of 2048) or one (1024 and narrower)
+K1M_LOOPS = tuple(
+    (f"K1m {kind}{', system scope' if sys else ''}, {own} a thread",
+     f"viterbi_forward_wave_kernelILb{int(kind == 'path')}ELb{sys}"
+     f"ELi{own}EE")
+    for kind in ("path", "score") for sys in (0, 1) for own in (2, 1))
+#: the time loops of the redesigned K1 (K1 path and score-only, K3's
+#: forward chunk, K1m's eight instances), K4, K5 and K6d
+STEP_LOOPS = (("K1 path", "viterbi_forward_kernelILb0ELb1EE"),
+              ("K1 score", "viterbi_forward_kernelILb0ELb0EE"),
+              ("K3 forward chunk", "viterbi_forward_kernelILb1ELb1EE"),
+              *K1M_LOOPS,
               ("K4", "fwbw_forward_kernel"),
               ("K5", "em_backward_kernel"),
               ("K6d", "fwbw_backward_kernel"))
@@ -1890,9 +2069,28 @@ def check_sass_claims() -> dict:
     with 3 block barriers (the norm's max and sums, the new beta) and
     global loads only of the step's 3 event values, the backward with 1
     barrier and loads only of the 8 stored alpha and beta values of a
-    thread's states: no 16-bit load, no slot-table byte.  Returns {"K4",
-    "K6d": step_loop_sass, "K2 walk", "K6b ring walk": walk_loop_sass,
-    "K6c resident", "K6e resident": {instance: [loop records]}}."""
+    thread's states: no 16-bit load, no slot-table byte; each K1m
+    instance's time loop reads the column by strong global loads
+    (ld.relaxed: L1 bypassed, never the non-coherent path), at least 4 (a
+    thread's states), and spills nothing (no local load or store), and
+    K2m's walk, on K2's ring, makes no global load.  Returns {"K4",
+    "K6d": step_loop_sass, "K2 walk", "K2m walk", "K6b ring walk":
+    walk_loop_sass, "K6c resident", "K6e resident": {instance: [loop
+    records]}, K1m's instances: {global and local load and store opcode:
+    count in the time loop}}."""
+    k1m = {}
+    for what, marker in K1M_LOOPS:
+        ins, body = time_loop(marker)
+        ops = collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", ins[k][1]).split()[0] for k in body)
+        k1m[what] = {op: n for op, n in ops.items()
+                     if op.startswith(("LDG", "LDL", "STL"))}
+        assert sum(n for op, n in k1m[what].items() if "STRONG" in op) >= 4, \
+            (what, k1m[what])
+        assert not any(op.startswith(("LDL", "STL")) for op in k1m[what]), \
+            (what, k1m[what])
+    k2m = walk_loop_sass("viterbi_traceback_slices_kernel")
+    assert k2m["lds"] >= 1 and k2m["ldg"] == 0, k2m
     k4 = step_loop_sass("fwbw_forward_kernel")
     assert k4["bar"] * 4 <= 2, k4
     k6d = step_loop_sass("fwbw_backward_kernel")
@@ -1918,8 +2116,9 @@ def check_sass_claims() -> dict:
         assert bwd["bar"] == 1 and bwd["ldg"] <= 8, (name, loops)
         assert not fwd["ldg_16"] and not bwd["ldg_16"], (name, loops)
     assert len(k6e) == 2, "not both resident K6e instances in the library"
-    return {"K4": k4, "K6d": k6d, "K2 walk": k2, "K6b ring walk": k6b,
-            "K6c resident": k6c, "K6e resident": k6e}
+    return {"K4": k4, "K6d": k6d, "K2 walk": k2, "K2m walk": k2m,
+            "K6b ring walk": k6b, "K6c resident": k6c, "K6e resident": k6e,
+            **k1m}
 
 
 def run_measure(device) -> dict:
@@ -2557,6 +2756,12 @@ def main() -> int:
         print(f"{what} SASS: {census[what]['bar'] * 4:g} block barriers in "
               f"its time loop (at most 2)")
     print(f"K2 SASS, its walk loop: {census['K2 walk']} (no global load)")
+    print(f"K2m SASS, its walk loop on K2's ring: {census['K2m walk']} (no "
+          f"global load)")
+    for what, _ in K1M_LOOPS:
+        print(f"{what} SASS, the global and local loads and stores of its "
+              f"time loop: {census[what]} (the column by strong loads; no "
+              f"spill)")
     for name in kernel_instances("viterbi_traceback_chunk_kernel"):
         print(f"K3 / K9 traceback chunk SASS ({name}), its walk loop: "
               f"{walk_loop_sass(name)}")
@@ -2684,13 +2889,12 @@ def main() -> int:
     sp = check_statepar(*kernel_inputs(models, device, B_KERNEL, T_KERNEL,
                                        mesh_rng))
     for name, r in sp.items():
-        extra = (f" (host enqueue {r['host_us']:.2f} us, device "
-                 f"{r['device_us']:.3f} us, CUDA events back to back "
-                 f"{r['event_ms']:.4f} ms a launch)" if "host_us" in r
-                 else "")
-        print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} over 2 ranks "
-              f"bit-equal to plain; {r['ms']:.4f} ms{extra} vs plain "
-              f"{r['plain_ms']:.3f} ms [{card}]")
+        extra = (f" a launch by CUDA events around each (host enqueue "
+                 f"{r['host_us']:.2f} us)" if "host_us" in r
+                 else f" (K2's ring on the same rows {r['k2_ms']:.4f} ms)")
+        print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} over 2 ranks, NaN "
+              f"inputs, bit-equal to plain; {r['ms']:.4f} ms{extra} vs "
+              f"plain {r['plain_ms']:.3f} ms [{card}]")
     print(f"K1m + K2m at B={B_KERNEL} T={T_KERNEL} over {MESH_RANKS} ranks "
           f"on one card, path and score-only, clean and with NaN events, a "
           f"NaN stay entry and a NaN model entry: bit-equal to K1 + K2 and "
@@ -2815,16 +3019,14 @@ def main() -> int:
                 "launches": sum(r[k.name] for r in runs.values()),
                 "launches_by_run": {w: r[k.name] for w, r in runs.items()},
                 "library_ms": None, **recs[k.name],
-                **roofline.kernel_bound(k.name, *recs[k.name]["shape"],
-                                        ranks=recs[k.name].get("ranks", 2))}
+                **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
                for k in kernels.KERNELS]
     assert len(records) == 23 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])
         r.update(roofline.kernel_shares(r["name"], *shape, r["ms"],
-                                        measure["peaks"].get(shape),
-                                        ranks=r.get("ranks", 2)))
+                                        measure["peaks"].get(shape)))
         k8 = (f"{100 * r['share_of_k8_peak']:.2f}% of the K8 peak at that "
               f"shape" if r["share_of_k8_peak"] is not None
               else "K8 not measured at that shape")

@@ -52,22 +52,46 @@
 // (B, ev_stride) event rows in place, and runs the one step body, so
 // chunked and full scans are bit-identical by construction.
 //
-// K1m, the third instance (SLICE = true), is K1 with the 4096 states split
-// over M ranks (the production decode under nanocall_tpu/parallel/
+// K1m (viterbi_forward_wave_kernel) is K1 with the 4096 states split over M
+// = 2 .. 64 ranks (the production decode under nanocall_tpu/parallel/
 // mesh.py:103 shard_pooled_decode_inputs, whose 'model' axis cuts the
-// bank's states; parallel/statepar.py drives it).  A launch is one step of
-// one rank: it reads the whole column of event t - 1, gathered from every
-// rank's slice (state j's step and skip predecessors 1024 r + (j >> 2) and
-// 256 r + (j >> 4) lie in every slice), takes K1's column maxima over all
-// of it, and runs K1's step body only for its own destination states
-// (W = 4096 / M of them; thread c keeps those of its four states 1024 r +
-// c that lie in the slice), so it is bit-identical to K1 by construction.
-// Its tables, emissions and bp bytes are the slice's: (B, W) rows, and a
-// bp row of W bytes stored as W / 4 words.  What bounds K1m: a launch per
-// step and rank, and the host that enqueues them and the column's
-// exchange (M (M - 1) slice copies a step); on the card, K1's step issue
-// for W states plus the column (16 KB a read) and the rank's 9 tables
-// (36 W bytes a read) loaded again every step.
+// bank's states; parallel/statepar.py drives it).  A block is one (read,
+// rank) pair and runs all T events through the same step body as K1
+// (forward_body, inlined into both kernels), so it is bit-identical to K1
+// by construction.  Each rank owns a (2, B, W) column buffer, its slice of
+// column t at parity t & 1, and a step counter a read; a table of the M
+// ranks' addresses (WaveRank) comes with the launch, and the entry copies
+// what the exchange needs into shared memory (Exchange), so that none of
+// it occupies a register through the time loop.  A thread steps only the
+// states of its four 1024 r + c that lie in the rank's slice (W / 1024 of
+// them, a template constant: 2 at W = 2048, else 1, and at W < 1024 only
+// the threads whose c lies in the slice), and holds only their tables
+// and alpha: with K1's 36 table registers cut to 18 or 9 the loop spills
+// nothing under the 64 registers of 1024 threads.  Each step it reads the
+// column of event t - 1 at all four of its states in place from the ranks'
+// buffers (state j's step and skip predecessors 1024 r + (j >> 2) and 256
+// r + (j >> 4) lie in every slice), takes K1's column maxima and tie keys
+// over it, and steps its own states.  A step: a block barrier (its slice
+// of column t - 1 is stored), thread 0 publishes t by a release store,
+// warp 0 polls the peers' counters of the read with acquire loads until
+// each reaches t, a block barrier, then the column is read by relaxed
+// (L1-bypassing) loads, never the non-coherent path.  The double buffer
+// needs no second signal: a rank overwrites parity p at step t + 2 only
+// after its peers published t + 2, which each did after its loads of
+// column t.  One launch runs a wave of reads for the ranks of a data row on
+// one card, as one cooperative grid: every block of a wave must be
+// resident at once, since a block waits on its peers, so the host cuts the
+// reads into waves of at most the card's resident blocks
+// (statepar.plan_waves; one block an SM: 132 on an H100), and a grid too
+// large for the card fails to launch.  A card's waves go on one stream in
+// order.  Across cards the peers' slices and counters are read over peer
+// access and the instance takes system scope (SYS) for its loads, release
+// and acquire; on one card, gpu scope.  A poll that waits longer than the
+// launch's timeout records (t, read, rank, peer) in a host-mapped word and
+// traps: a fault in the exchange fails the decode, never hangs it.  What
+// bounds K1m: K1's step issue for W states plus the exchange's latency a
+// step (two block barriers, a release and an acquire round trip through
+// L2, the 16 KB column of a read from L2).
 //
 // What bounds K1: issue on the read's one SM: about 107 instructions per
 // state and step without backpointers, 148 with (chip_smoke.py's census of
@@ -118,108 +142,199 @@ struct __align__(8) MaxKey {
   int key;
 };
 
-// CHUNK = false: K1, events [0, t1) with t0 = 0; CHUNK = true: one chunk.
-// kPath: write backpointers.  SLICE = true: K1m, one step t = t0 (t1 = t0
-// + 1) for the rank that holds the states [slice_lo, slice_lo + W), W = 1
-// << slice_shift: it reads alpha of event t - 1 from carry_alpha, the
-// gathered column (N / W, B, W) whose slice m holds the states [m W, (m +
-// 1) W), and its (B, W) tables; it writes alpha of event t at its states
-// to final_alpha (B, W) and their bp bytes to bps, event t's (B, W) row.
-// At t = 0 it writes alpha = emission - log(n) at its states.
-template <bool CHUNK, bool kPath, bool SLICE = false>
-__global__ void __launch_bounds__(THREADS, 1)
-viterbi_forward_kernel(const float* __restrict__ ev_mean,
-                       const float* __restrict__ ev_stdv,
-                       const float* __restrict__ ev_log_stdv,
-                       const int32_t* __restrict__ length, int B,
-                       int ev_stride, int ev_t0, int t0, int t1,
-                       const float* __restrict__ carry_alpha,
-                       const float* __restrict__ stay,
-                       const float* __restrict__ step,
-                       const float* __restrict__ skip,
-                       const float* __restrict__ level_mean,
-                       const float* __restrict__ level_stdv,
-                       const float* __restrict__ log_level_stdv,
-                       const float* __restrict__ sd_mean,
-                       const float* __restrict__ sd_lambda,
-                       const float* __restrict__ log_sd_lambda, float log2pi,
-                       float log_n, float* __restrict__ final_alpha,
-                       uint8_t* __restrict__ bps, int slice_lo,
-                       int slice_shift) {
+// The ranks of a K1m launch: one entry a rank of the data row (the M
+// entries, then the ranks this launch runs, as int64), in device memory of
+// the launch's card; every pointer on the rank's own card.
+struct WaveRank {
+  const float* ev_mean;  // (B, T) events and (B,) lengths, the row's
+  const float* ev_stdv;
+  const float* ev_log_stdv;
+  const int32_t* length;
+  // (B, W): stay, step, skip, level_mean, level_stdv, log_level_stdv,
+  // sd_mean, sd_lambda, log_sd_lambda of the rank's states
+  const float* tab[9];
+  float* col;        // (2, B, W): its slice of column t at parity t & 1
+  uint8_t* bps;      // (T - 1, B, W), or nullptr (score-only)
+  int32_t* flags;    // (B,): t once its slice of column t - 1 is stored
+};
+constexpr int MAX_RANKS = 64;
+
+// The exchange's memory operations, at gpu scope (every rank of the row on
+// one card) or system scope (SYS: across cards).
+template <bool SYS>
+__device__ __forceinline__ float ld_column(const float* p) {
+  float v;
+  if (SYS)
+    asm volatile("ld.relaxed.sys.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  else
+    asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+template <bool SYS>
+__device__ __forceinline__ int ld_flag(const int32_t* p) {
+  int v;
+  if (SYS)
+    asm volatile("ld.acquire.sys.global.b32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+template <bool SYS>
+__device__ __forceinline__ void st_flag(int32_t* p, int v) {
+  if (SYS)
+    asm volatile("st.release.sys.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+                 : "memory");
+  else
+    asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// K1m's exchange, in shared memory so that none of it stays in a register
+// through the time loop: the M ranks' column buffers and counters at read
+// b, the block's rank and slice, and the wait's timeout and record.
+struct Exchange {
+  float* col[MAX_RANKS];
+  int32_t* flag[MAX_RANKS];
+  int32_t* timed_out;
+  long long timeout_ns;
+  int ranks, rank, read;
+};
+
+// Until every peer's counter reaches t (warp 0; lane p waits on rank p, p
+// + 32); after the timeout, records (t, read, rank, peer) in the host-
+// mapped word and traps.
+template <bool SYS>
+__device__ __forceinline__ void wait_peers(const Exchange& x, int t,
+                                           int lane) {
+  for (int p = lane; p < x.ranks; p += 32) {
+    if (p == x.rank || ld_flag<SYS>(x.flag[p]) >= t) continue;
+    const unsigned long long t_start = global_ns();
+    while (ld_flag<SYS>(x.flag[p]) < t) {
+      if ((long long)(global_ns() - t_start) > x.timeout_ns) {
+        volatile int32_t* rec = x.timed_out;
+        rec[1] = x.read;
+        rec[2] = x.rank;
+        rec[3] = p;
+        rec[0] = t;
+        __threadfence_system();
+        __trap();
+      }
+    }
+  }
+}
+
+// The body of K1, K3's chunk and K1m, inlined into each kernel.
+// CHUNK = false: events [0, t1) with t0 = 0; CHUNK = true: one chunk.
+// kPath: write backpointers.  OWN: the states a thread steps, 1024 r + c
+// for r = r0 .. r0 + OWN - 1: 4 (K1, K3: all, r0 = 0), or K1m's (SLICE)
+// block of read b for the rank that holds the states [slice_lo, slice_lo
+// + W), W = 1 << slice_shift: 2 at W = 2048, else 1 (at W < 1024 only
+// where c lies in the slice), r0 = slice_lo >> 10.  A K1m block holds the
+// tables and the alpha of its states only, and reads the column's four
+// states a thread from the ranks' buffers (its own among them) each step;
+// its tables, bps and final column are the rank's (B, W) slices, and the
+// exchange `x` (filled by the caller, behind a block barrier) names the
+// ranks' columns and counters.  SYS: the exchange at system scope.
+template <bool CHUNK, bool kPath, int OWN, bool SYS>
+__device__ __forceinline__ void forward_body(
+    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
+    const float* __restrict__ ev_log_stdv,
+    const int32_t* __restrict__ length, int B, int ev_stride, int ev_t0,
+    int t0, int t1, const float* __restrict__ carry_alpha,
+    const float* __restrict__ stay, const float* __restrict__ step,
+    const float* __restrict__ skip, const float* __restrict__ level_mean,
+    const float* __restrict__ level_stdv,
+    const float* __restrict__ log_level_stdv,
+    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
+    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
+    float* __restrict__ final_alpha, uint8_t* __restrict__ bps, int b,
+    int slice_lo, int slice_shift, const Exchange* x) {
+  constexpr bool SLICE = OWN < 4;
   __shared__ MaxKey s4[2][P4N];
   __shared__ MaxKey s16[2][P16N];
   __shared__ uint32_t stage[kPath ? 2 : 1][kPath ? P4N : 1];
 
-  const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int q = lane >> 3, k = lane & 7;
   const int c16 = warp * 8 + k;  // the thread's column of the 16 x 256 view
   const int c = q * N16 + c16;   // and of the 4 x 1024 view
   const size_t rowb = (size_t)b * N;
-  // SLICE: the thread's states 1024 r + c that lie in the rank's slice, and
-  // each one's index in the rank's (B, W) rows; else all four, in (B, N)
   const int W = SLICE ? 1 << slice_shift : N;
-  bool own[4];
-  size_t at[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = r * N4 + c;
-    own[r] = !SLICE || (unsigned)(j - slice_lo) < (unsigned)W;
-    at[r] = SLICE ? (size_t)b * W + (j - slice_lo) : rowb + j;
-  }
+  const int r0 = SLICE ? slice_lo >> 10 : 0;
+  // the thread steps its states (none where a slice of W < 1024 misses c)
+  const bool mine =
+      !SLICE || W >= N4 || (unsigned)(c - (slice_lo & (N4 - 1))) < (unsigned)W;
+  // state 1024 r + c's index in the rank's (B, W) rows, or in (B, N)
+  auto at = [&](int r) {
+    return SLICE ? (size_t)b * W + (r * N4 + c - slice_lo)
+                 : rowb + r * N4 + c;
+  };
 
-  float r_stay[4], r_step[4], r_skip[4], r_lm[4], r_ls[4], r_nlls[4],
-      r_sm[4], r_slam[4], r_c1[4];
+  float r_stay[OWN], r_step[OWN], r_skip[OWN], r_lm[OWN], r_ls[OWN],
+      r_nlls[OWN], r_sm[OWN], r_slam[OWN], r_c1[OWN];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    if (!own[r]) {
-      r_stay[r] = r_step[r] = r_skip[r] = r_lm[r] = r_ls[r] = r_nlls[r] =
-          r_sm[r] = r_slam[r] = r_c1[r] = 0.0f;
+  for (int i = 0; i < OWN; ++i) {
+    if (!mine) {
+      r_stay[i] = r_step[i] = r_skip[i] = r_lm[i] = r_ls[i] = r_nlls[i] =
+          r_sm[i] = r_slam[i] = r_c1[i] = 0.0f;
       continue;
     }
-    const size_t j = at[r];
-    r_stay[r] = stay[j];
-    r_step[r] = step[j];
-    r_skip[r] = skip[j];
-    r_lm[r] = level_mean[j];
-    r_ls[r] = level_stdv[j];
-    r_nlls[r] = -log_level_stdv[j];
-    r_sm[r] = sd_mean[j];
-    r_slam[r] = sd_lambda[j];
-    r_c1[r] = log_sd_lambda[j] - log2pi;
+    const size_t j = at(r0 + i);
+    r_stay[i] = stay[j];
+    r_step[i] = step[j];
+    r_skip[i] = skip[j];
+    r_lm[i] = level_mean[j];
+    r_ls[i] = level_stdv[j];
+    r_nlls[i] = -log_level_stdv[j];
+    r_sm[i] = sd_mean[j];
+    r_slam[i] = sd_lambda[j];
+    r_c1[i] = log_sd_lambda[j] - log2pi;
   }
   // event t of read b: column t - ev_t0 of its row
   const float* evm = ev_mean + (size_t)b * ev_stride - ev_t0;
   const float* evs = ev_stdv + (size_t)b * ev_stride - ev_t0;
   const float* evl = ev_log_stdv + (size_t)b * ev_stride - ev_t0;
   const int len = length[b];
-  // bp row of event t: bps[t - row0] (SLICE: bps is the step's row)
-  const int row0 = CHUNK || SLICE ? t0 : 1;
+  // bp row of event t: bps[t - row0]
+  const int row0 = CHUNK ? t0 : 1;
 
-  float a[4];
+  // ao: the alpha of the thread's states; a: the column the step reads at
+  // its four states 1024 r + c (K1: ao itself)
+  float ao[OWN], a[4];
+  // SLICE: the rank's slice of column tc (parity tc & 1) at its states
+  auto store_column = [&](int tc) {
+    float* dst = x->col[x->rank] + (size_t)(tc & 1) * B * W;
+    if (mine) {
+#pragma unroll
+      for (int i = 0; i < OWN; ++i) dst[(r0 + i) * N4 + c - slice_lo] = ao[i];
+    }
+  };
   int t = t0;
   if (t0 == 0) {
-    const float x = evm[0], y = evs[0], ly3 = 3.0f * evl[0];
+    const float xe = evm[0], y = evs[0], ly3 = 3.0f * evl[0];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[r] = own[r] ? emission_pre(x, y, ly3, r_lm[r], r_ls[r], r_nlls[r],
-                                   r_sm[r], r_slam[r], r_c1[r], log2pi) -
-                          log_n
-                    : 0.0f;
+    for (int i = 0; i < OWN; ++i)
+      ao[i] = mine ? emission_pre(xe, y, ly3, r_lm[i], r_ls[i], r_nlls[i],
+                                  r_sm[i], r_slam[i], r_c1[i], log2pi) -
+                         log_n
+                   : 0.0f;
     if (CHUNK && kPath) reinterpret_cast<uint32_t*>(bps + rowb)[tid] = 0u;
+    if (SLICE) store_column(0);
     t = 1;
-  } else if (SLICE) {
-    // every state of the gathered column: the maxima need them all
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = r * N4 + c;
-      a[r] = carry_alpha[((size_t)(j >> slice_shift) * B + b) * W +
-                         (j & (W - 1))];
-    }
   } else {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = carry_alpha[rowb + r * N4 + c];
+    for (int i = 0; i < OWN; ++i) ao[i] = carry_alpha[rowb + i * N4 + c];
   }
 
   // the staged bp bytes of step `ts` (parity `par`) to its row
@@ -250,7 +365,27 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
   }
   int par = 0;
   for (; t < t1; ++t) {
-    const float x = xn, y = yn, ly3 = 3.0f * lyn;
+    if (SLICE) {
+      // publish column t - 1 (every thread's slice stored), wait for the
+      // peers' slices of it, then read the column in place
+      __syncthreads();
+      if (tid == 0) st_flag<SYS>(x->flag[x->rank], t);
+      if (warp == 0) {
+        __syncwarp();
+        wait_peers<SYS>(*x, t, lane);
+      }
+      __syncthreads();
+      const size_t off = (size_t)((t - 1) & 1) * B * W;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = r * N4 + c;
+        a[r] = ld_column<SYS>(x->col[j >> slice_shift] + off + (j & (W - 1)));
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = ao[r % OWN];
+    }
+    const float xe = xn, y = yn, ly3 = 3.0f * lyn;
     if (t + 1 < t1) {
       xn = evm[t + 1];
       yn = evs[t + 1];
@@ -306,34 +441,103 @@ viterbi_forward_kernel(const float* __restrict__ ev_mean,
     const MaxKey* r16 = s16[par] + o16;
     uint8_t* st =
         kPath ? reinterpret_cast<uint8_t*>(stage[par]) + ost : nullptr;
+    if (mine) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      if (!own[r]) continue;
-      const MaxKey v4 = r4[r * R4];
-      const MaxKey v16 = r16[r * R16];
-      const float v0 = r_stay[r] + a[r];
-      const float v1 = r_step[r] + v4.m;
-      const float v2 = r_skip[r] + v16.m;
-      const float best = amax(amax(v0, v1), v2);
-      if (kPath) {
-        const int k0 = v0 == best ? kj + (r << 18) : NOKEY;
-        const int k1 = v1 == best ? v4.key + kq + (r << 16) : NOKEY;
-        const int k2 = v2 == best ? v16.key + kh + (r << 14) : NOKEY;
-        st[r * 4 * R4] = (uint8_t)min(min(k0, k1), k2);
+      for (int i = 0; i < OWN; ++i) {
+        const int r = r0 + i;
+        const MaxKey v4 = r4[r * R4];
+        const MaxKey v16 = r16[r * R16];
+        const float v0 = r_stay[i] + ao[i];
+        const float v1 = r_step[i] + v4.m;
+        const float v2 = r_skip[i] + v16.m;
+        const float best = amax(amax(v0, v1), v2);
+        if (kPath) {
+          const int k0 = v0 == best ? kj + (r << 18) : NOKEY;
+          const int k1 = v1 == best ? v4.key + kq + (r << 16) : NOKEY;
+          const int k2 = v2 == best ? v16.key + kh + (r << 14) : NOKEY;
+          st[r * 4 * R4] = (uint8_t)min(min(k0, k1), k2);
+        }
+        const float em = emission_pre(xe, y, ly3, r_lm[i], r_ls[i],
+                                      r_nlls[i], r_sm[i], r_slam[i],
+                                      r_c1[i], log2pi);
+        if (active) ao[i] = best + em;
       }
-      const float em = emission_pre(x, y, ly3, r_lm[r], r_ls[r], r_nlls[r],
-                                    r_sm[r], r_slam[r], r_c1[r], log2pi);
-      if (active) a[r] = best + em;
     }
+    if (SLICE) store_column(t);
     par ^= 1;
   }
   if (kPath && t1 > first) {
     __syncthreads();
     store_stage(t1 - 1, par ^ 1);
   }
+  if (!SLICE) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-    if (own[r]) final_alpha[at[r]] = a[r];
+    for (int i = 0; i < OWN; ++i) final_alpha[at(i)] = ao[i];
+  }
+}
+
+// K1 (CHUNK = false: events [0, t1), t0 = 0) and K3's forward chunk
+// (CHUNK = true), one block a read.
+template <bool CHUNK, bool kPath>
+__global__ void __launch_bounds__(THREADS, 1)
+viterbi_forward_kernel(const float* __restrict__ ev_mean,
+                       const float* __restrict__ ev_stdv,
+                       const float* __restrict__ ev_log_stdv,
+                       const int32_t* __restrict__ length, int B,
+                       int ev_stride, int ev_t0, int t0, int t1,
+                       const float* __restrict__ carry_alpha,
+                       const float* __restrict__ stay,
+                       const float* __restrict__ step,
+                       const float* __restrict__ skip,
+                       const float* __restrict__ level_mean,
+                       const float* __restrict__ level_stdv,
+                       const float* __restrict__ log_level_stdv,
+                       const float* __restrict__ sd_mean,
+                       const float* __restrict__ sd_lambda,
+                       const float* __restrict__ log_sd_lambda, float log2pi,
+                       float log_n, float* __restrict__ final_alpha,
+                       uint8_t* __restrict__ bps) {
+  forward_body<CHUNK, kPath, 4, false>(
+      ev_mean, ev_stdv, ev_log_stdv, length, B, ev_stride, ev_t0, t0, t1,
+      carry_alpha, stay, step, skip, level_mean, level_stdv, log_level_stdv,
+      sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps,
+      blockIdx.x, 0, 12, nullptr);
+}
+
+// K1m: events [0, T) of read wave_lo + blockIdx.x for the rank named by
+// entry blockIdx.y of the launch's ranks (after the M = N >> slice_shift
+// entries of `wave`), which holds the states [rank W, (rank + 1) W), W =
+// 1 << slice_shift: OWN = 2 at W = 2048, 1 at W <= 1024.
+template <bool kPath, bool SYS, int OWN>
+__global__ void __launch_bounds__(THREADS, 1)
+viterbi_forward_wave_kernel(const WaveRank* __restrict__ wave, int B, int T,
+                            int wave_lo, int slice_shift, float log2pi,
+                            float log_n, long long timeout_ns,
+                            int32_t* timed_out) {
+  __shared__ Exchange x;
+  const int ranks = N >> slice_shift;
+  const int rank =
+      (int)reinterpret_cast<const long long*>(wave + ranks)[blockIdx.y];
+  const int b = wave_lo + blockIdx.x;
+  const int tid = threadIdx.x;
+  if (tid < ranks) {
+    x.col[tid] = wave[tid].col + (size_t)b * (1 << slice_shift);
+    x.flag[tid] = wave[tid].flags + b;
+  }
+  if (tid == 0) {
+    x.timed_out = timed_out;
+    x.timeout_ns = timeout_ns;
+    x.ranks = ranks;
+    x.rank = rank;
+    x.read = b;
+  }
+  __syncthreads();
+  const WaveRank& e = wave[rank];
+  forward_body<false, kPath, OWN, SYS>(
+      e.ev_mean, e.ev_stdv, e.ev_log_stdv, e.length, B, T, 0, 0, T, nullptr,
+      e.tab[0], e.tab[1], e.tab[2], e.tab[3], e.tab[4], e.tab[5], e.tab[6],
+      e.tab[7], e.tab[8], log2pi, log_n, nullptr, e.bps, b,
+      rank << slice_shift, slice_shift, &x);
 }
 
 }  // namespace
@@ -355,7 +559,7 @@ extern "C" int nc_viterbi_forward(
     kernel<<<B, nc::THREADS, 0, (cudaStream_t)stream>>>(
         ev_mean, ev_stdv, ev_log_stdv, length, B, T, 0, 0, T, nullptr, stay,
         step, skip, level_mean, level_stdv, log_level_stdv, sd_mean,
-        sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps, 0, 12);
+        sd_lambda, log_sd_lambda, log2pi, log_n, final_alpha, bps);
   }
   return (int)cudaGetLastError();
 }
@@ -381,54 +585,99 @@ extern "C" int nc_viterbi_forward_chunk(
             ev_mean, ev_stdv, ev_log_stdv, length, B, ev_stride, ev_t0, t0,
             t1, carry_alpha, stay, step, skip, level_mean, level_stdv,
             log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
-            final_alpha, bps, 0, 12);
+            final_alpha, bps);
   }
   return (int)cudaGetLastError();
 }
 
-// K1m's column exchange: `bytes` from src on src_device to dst on
-// dst_device, on `stream` of dst_device (peer to peer across cards, with or
-// without peer access).  Returns the copy's enqueue error.
-extern "C" int nc_copy_async(void* dst, int dst_device, const void* src,
-                             int src_device, size_t bytes, void* stream) {
-  const nc::DeviceGuard guard(dst_device);
-  if (guard.err != cudaSuccess) return (int)guard.err;
-  return (int)(dst_device == src_device
-                   ? cudaMemcpyAsync(dst, src, bytes,
-                                     cudaMemcpyDeviceToDevice,
-                                     (cudaStream_t)stream)
-                   : cudaMemcpyPeerAsync(dst, dst_device, src, src_device,
-                                         bytes, (cudaStream_t)stream));
+namespace {
+
+using WaveKernel = decltype(&viterbi_forward_wave_kernel<true, false, 2>);
+
+// K1m's instance: with backpointers or not, gpu or system scope, two
+// states a thread (W = 2048) or one
+template <int OWN>
+WaveKernel wave_kernel(int with_path, int sys) {
+  if (with_path)
+    return sys ? viterbi_forward_wave_kernel<true, true, OWN>
+               : viterbi_forward_wave_kernel<true, false, OWN>;
+  return sys ? viterbi_forward_wave_kernel<false, true, OWN>
+             : viterbi_forward_wave_kernel<false, false, OWN>;
 }
 
-// K1m: event t's step for the rank of the states [slice_lo, slice_lo + W),
-// W = 1 << slice_shift (64 <= W <= 4096, slice_lo a multiple of W): column
-// (N / W, B, W) is the gathered alpha of event t - 1 (unread at t = 0),
-// the tables (B, W) the rank's, alpha_out (B, W) its alpha of event t;
-// bps (B, W), or nullptr for the score-only instance, gets event t's
-// backpointers (t >= 1).  Events (B, T) are read in place.
-extern "C" int nc_viterbi_forward_slice(
-    const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
-    const int32_t* length, int B, int T, int t, const float* column,
-    const float* stay, const float* step, const float* skip,
-    const float* level_mean, const float* level_stdv,
-    const float* log_level_stdv, const float* sd_mean, const float* sd_lambda,
-    const float* log_sd_lambda, float log2pi, float log_n, float* alpha_out,
-    uint8_t* bps, int slice_lo, int slice_shift, int device, void* stream) {
+WaveKernel wave_kernel(int with_path, int sys, int slice_shift) {
+  return slice_shift == 11 ? wave_kernel<2>(with_path, sys)
+                           : wave_kernel<1>(with_path, sys);
+}
+
+}  // namespace
+
+// K1m's wave: the most blocks of its instances (with_path, sys, of any
+// slice width) that one card holds at once (blocks an SM at 1024 threads
+// times the SMs) into *blocks; an error where the card has no cooperative
+// launch.
+extern "C" int nc_viterbi_forward_wave_resident(int with_path, int sys,
+                                                int device, int* blocks) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  if (slice_shift < 6 || slice_shift > 12 || t < 0 || t >= T ||
-      slice_lo < 0 || slice_lo >= nc::N ||
-      (slice_lo & ((1 << slice_shift) - 1)))
+  int coop = 0, sms = 0, per_sm = 0, per_sm_1 = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, wave_kernel(with_path, sys, 11), nc::THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm_1, wave_kernel(with_path, sys, 10), nc::THREADS, 0);
+  *blocks = (per_sm < per_sm_1 ? per_sm : per_sm_1) * sms;
+  return (int)err;
+}
+
+// K1m: events 0 .. T - 1 of the reads [lo, lo + n_reads) for n_local
+// ranks of a data row, one cooperative grid (n_reads, n_local) on
+// `stream`.  `ranks` (device memory of this card) holds the row's M = 4096
+// >> slice_shift WaveRank entries, then the n_local ranks to run as int64;
+// the entries' (B, W) tables, (2, B, W) columns, (T - 1, B, W) bps (or
+// nullptr: score-only, with_path = 0) and (B,) counters (zero before the
+// first wave) lie on their ranks' cards, reachable from this one (peer
+// access).  sys: the exchange at system scope (ranks of the row on other
+// cards).  timed_out: 4 int32 of host-mapped memory, where a block that
+// waits on a peer longer than timeout_ns records (t, read, rank, peer)
+// before it traps.  Returns the launch's error: a grid larger than the card
+// holds at once is refused (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int nc_viterbi_forward_wave(const void* ranks, int n_local, int B,
+                                       int T, int lo, int n_reads,
+                                       int slice_shift, int with_path,
+                                       int sys, float log2pi, float log_n,
+                                       long long timeout_ns,
+                                       int32_t* timed_out, int device,
+                                       void* stream) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (slice_shift < 6 || slice_shift > 11 || T < 1 || lo < 0 ||
+      n_reads < 1 || lo + n_reads > B || n_local < 1 ||
+      n_local > (nc::N >> slice_shift) || timed_out == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (B > 0) {
-    auto kernel = bps != nullptr ? viterbi_forward_kernel<false, true, true>
-                                 : viterbi_forward_kernel<false, false, true>;
-    kernel<<<B, nc::THREADS, 0, (cudaStream_t)stream>>>(
-        ev_mean, ev_stdv, ev_log_stdv, length, B, T, 0, t, t + 1, column,
-        stay, step, skip, level_mean, level_stdv, log_level_stdv, sd_mean,
-        sd_lambda, log_sd_lambda, log2pi, log_n, alpha_out, bps, slice_lo,
-        slice_shift);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_reads, n_local);
+  cfg.blockDim = dim3(nc::THREADS);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, wave_kernel(with_path, sys, slice_shift),
+      static_cast<const WaveRank*>(ranks),
+      B, T, lo, slice_shift, log2pi, log_n, timeout_ns, timed_out);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clears it
+    return (int)err;
   }
   return (int)cudaGetLastError();
 }

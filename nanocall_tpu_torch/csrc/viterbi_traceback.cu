@@ -98,17 +98,27 @@
 // over M ranks (parallel/statepar.py; the production decode under
 // nanocall_tpu/parallel/mesh.py:103 shard_pooled_decode_inputs): rank m
 // holds the backpointer bytes of the states [m W, (m + 1) W), W = 4096 /
-// M, as (T - 1, B, W) rows, and the final alpha comes as the gathered
-// column (M, B, W).  A block per read takes K2's end argmax (common.cuh's
-// helper: the same NaN and tie rules) over the column, and thread 0 walks
-// K2's events with K2's predecessor rule and code packing, reading event
-// t's byte at state s from the slice of rank s / W through a table of the
-// M slices' addresses.  So path0, codes and logp are K2's.  The walk is a
-// plain dependent load an event (no ring: a row of one rank holds only W
-// of the 4096 states, and the walk's rank changes from event to event);
-// across cards it reads the peers' slices over NVLink, which needs peer
-// access.  What bounds it: T dependent round trips a read (≈ 410 ns each
-// from the card's own memory, as K2's walk took before its row ring).
+// M, as (T - 1, B, W) rows, and its (B, W) slice of the final column.  It
+// is K2's kernel on K2's walk_ring, with a table of the ranks' 2 M
+// addresses (final slices, then backpointer slices): the block takes K2's
+// end argmax (common.cuh's helper: the same NaN and tie rules) over the
+// column's slices, and the producer assembles each 4096-byte row in the
+// ring from M bulk copies of W bytes, slice m's row to bytes [m W, (m + 1)
+// W) of the stage (the stage's `full` barrier still expects cnt x 4096
+// bytes), so the walker reads whole rows from shared memory with K2's
+// predecessor rule and code packing, unchanged: path0, codes and logp are
+// K2's.  The producer is a warp: lane 0 expects the stage's bytes, then
+// the lanes share its cnt x M copies (one thread issuing them took 1.68 /
+// 2.40 ms at 128 x 8192 over 2 / 4 ranks on an H100, as drawn or at full
+// lengths: about 44 ns a copy on the longest read's walk, against the
+// warp's 1.36 / 1.39 ms at full lengths and K2's 1.36).  W
+// >= 64 keeps every copy 16-byte sized and aligned; at 64 ranks a row is
+// 64 copies of 64 bytes, and the copies' issue bounds the walk (15.2 ms
+// there; not designed for).  Across cards the copies read the peers'
+// slices over peer access; whether cp.async.bulk reads a peer card's
+// memory is not established (one card cannot show it:
+// tools/torch_multi_gpu.py's mesh phase is the check).  What bounds it:
+// K2's rows streamed, (length - 1) x 4096 bytes a read.
 //
 // What bounds K9 as a whole: K3's forward operations (one chunk kernel per
 // rank and block) and this walk, over D * M launches of each half for D
@@ -152,6 +162,10 @@ constexpr int TABLE_RING_STATIC = 512;
 // the producer, issues every copy; another, the walker, only waits on
 // `full` and arrives on `empty`, so no proxy fence or copy ever stalls the
 // walk behind its own stores.
+// SLICES (K2m): a row is split over the M = N >> shift ranks' slices, W =
+// 1 << shift bytes each; row j of slice m is at slices[m] + first - j *
+// stride (slices: a table in shared memory), and src is unused.
+template <bool SLICES = false>
 struct Ring {
   uint8_t* buf;        // stages * STAGE_BYTES of shared memory
   uint64_t* full;      // one mbarrier a stage
@@ -160,6 +174,9 @@ struct Ring {
   const uint8_t* src;  // the walk's first row
   size_t stride;       // bytes between the rows of events t and t + 1
   int n;               // rows of the walk
+  const uint8_t* const* slices = nullptr;
+  size_t first = 0;
+  int shift = 0;
 
   __device__ __forceinline__ int quads() const {
     return (n + RING_ROWS - 1) / RING_ROWS;
@@ -170,21 +187,39 @@ struct Ring {
     const int j0 = q * RING_ROWS;
     const int cnt = min(RING_ROWS, n - j0);
     const uint32_t bar = nc::smem_addr(full + st);
-    nc::mbar_expect(bar, cnt * N);
+    if (!SLICES || (threadIdx.x & 31) == 0) nc::mbar_expect(bar, cnt * N);
     const uint32_t dst = nc::smem_addr(buf) + st * STAGE_BYTES;
-    const uint8_t* row = src - (size_t)j0 * stride;
-    for (int r = 0; r < cnt; ++r, row -= stride)
-      nc::bulk_copy(dst + r * N, row, N, bar);
+    if constexpr (SLICES) {
+      // the producer warp's lanes share the stage's cnt x M copies, after
+      // lane 0's expected bytes
+      __syncwarp();
+      const int lane = threadIdx.x & 31;
+      const int rs = 12 - shift;  // log2 M
+      for (int i = lane; i < cnt << rs; i += 32) {
+        const int r = i >> rs, m = i & ((1 << rs) - 1);
+        nc::bulk_copy(dst + r * N + (m << shift),
+                      slices[m] + first - (size_t)(j0 + r) * stride,
+                      1u << shift, bar);
+      }
+    } else {
+      const uint8_t* row = src - (size_t)j0 * stride;
+      for (int r = 0; r < cnt; ++r, row -= stride)
+        nc::bulk_copy(dst + r * N, row, N, bar);
+    }
   }
 
   // The producer, before a block barrier that publishes the mbarriers:
-  // initialise them and start the copies of the first stages.
+  // initialise them and start the copies of the first stages.  (SLICES:
+  // the producer is a warp, whose lane 0 does what the one thread does
+  // else; every lane runs start and produce.)
   __device__ __forceinline__ void start() const {
-    for (int st = 0; st < stages; ++st) {
-      nc::mbar_init(nc::smem_addr(full + st), 1);
-      nc::mbar_init(nc::smem_addr(empty + st), 1);
+    if (!SLICES || (threadIdx.x & 31) == 0) {
+      for (int st = 0; st < stages; ++st) {
+        nc::mbar_init(nc::smem_addr(full + st), 1);
+        nc::mbar_init(nc::smem_addr(empty + st), 1);
+      }
+      nc::fence_mbarrier_init();
     }
-    nc::fence_mbarrier_init();
     for (int q = 0; q < stages && q < quads(); ++q) fill(q, q);
   }
 
@@ -207,11 +242,11 @@ struct Ring {
 
 // The ring for the walk over events t_top .. t_top - n + 1 of one read;
 // event t's row at bp_b + (t - row0) * stride.
-__device__ __forceinline__ Ring make_ring(uint8_t* buf, uint64_t* full,
-                                          uint64_t* empty, int stages,
-                                          const uint8_t* __restrict__ bp_b,
-                                          size_t stride, int row0, int t_top,
-                                          int n) {
+__device__ __forceinline__ Ring<> make_ring(uint8_t* buf, uint64_t* full,
+                                            uint64_t* empty, int stages,
+                                            const uint8_t* __restrict__ bp_b,
+                                            size_t stride, int row0,
+                                            int t_top, int n) {
   return {buf, full, empty, stages,
           n > 0 ? bp_b + (size_t)(t_top - row0) * stride : bp_b, stride, n};
 }
@@ -244,9 +279,10 @@ struct TableFrom {
 // byte k, and sink(t, s_eff, code) takes each event's state and its K2
 // code (group << 4 | s_eff & 15).  Returns the state before the last event
 // walked.
-template <class Sink, class From = GroupedFrom>
-__device__ __forceinline__ int walk_ring(const Ring& ring, int t_top, int s,
-                                         Sink sink, From from = From()) {
+template <class Sink, class From = GroupedFrom, bool SLICES = false>
+__device__ __forceinline__ int walk_ring(const Ring<SLICES>& ring, int t_top,
+                                         int s, Sink sink,
+                                         From from = From()) {
   int st = 0;
   uint32_t parity = 0;
   for (int j = 0; j < ring.n; j += RING_ROWS) {
@@ -339,9 +375,9 @@ viterbi_traceback_kernel(const float* __restrict__ final_alpha,
   const int len = length[b];
   // the walk's rows: events min(len, T) - 1 .. 1 (row t - 1 of bps)
   const Extent ex = extent(0, T, len, 0, 0);
-  const Ring ring = make_ring(ring_buf, full, empty, stages,
-                              bps + (size_t)b * N, (size_t)B * N, 1, ex.t_top,
-                              ex.n);
+  const Ring<> ring = make_ring(ring_buf, full, empty, stages,
+                                bps + (size_t)b * N, (size_t)B * N, 1,
+                                ex.t_top, ex.n);
   if (tid == PRODUCER) ring.start();
 
   // the code groups past the last real code (and every group of a read
@@ -387,9 +423,9 @@ viterbi_traceback_chunk_kernel(const int32_t* __restrict__ end_state,
   const int len = length[b];
   const int carry = state[b];
   const Extent ex = extent(t0, t1, len, end_state[b], carry);
-  const Ring ring = make_ring(ring_buf, full, empty, stages,
-                              bps + (size_t)b * N, (size_t)B * N, t0,
-                              ex.t_top, ex.n);
+  const Ring<> ring = make_ring(ring_buf, full, empty, stages,
+                                bps + (size_t)b * N, (size_t)B * N, t0,
+                                ex.t_top, ex.n);
   if (tid == PRODUCER) ring.start();
   if (STATES) {
     // events past the read's end (event 0 aside) pass the carry through
@@ -440,9 +476,9 @@ viterbi_generic_traceback_ring_kernel(const float* __restrict__ final_alpha,
   const int len = length[b];
   // the walk's rows: events min(len, T) - 1 .. 1 (row t - 1 of bps)
   const Extent ex = extent(0, T, len, 0, 0);
-  const Ring ring = make_ring(ring_buf, full, empty, stages,
-                              bps + (size_t)b * N, (size_t)B * N, 1, ex.t_top,
-                              ex.n);
+  const Ring<> ring = make_ring(ring_buf, full, empty, stages,
+                                bps + (size_t)b * N, (size_t)B * N, 1,
+                                ex.t_top, ex.n);
   uint8_t* table = ring_buf + stages * STAGE_BYTES;
   const uint32_t tbar = nc::smem_addr(&table_bar);
   if (tid == PRODUCER) {
@@ -487,30 +523,42 @@ viterbi_generic_traceback_ring_kernel(const float* __restrict__ final_alpha,
   out[0] = (uint16_t)s;
 }
 
-// K2m: a block per read; slices (M of them, M = N >> slice_shift <=
-// MAX_SLICES) are the ranks' (T - 1, B, W) backpointer rows, column the
-// gathered final alpha (M, B, W).
+// K2m: a block per read; table holds the M = N >> slice_shift ranks'
+// (B, W) slices of the final column, then their (T - 1, B, W) backpointer
+// rows (16-byte aligned).
 constexpr int MAX_SLICES = 64;
 
 __global__ void __launch_bounds__(THREADS)
-viterbi_traceback_slices_kernel(const float* __restrict__ column,
-                                const uint8_t* const* __restrict__ slices,
+viterbi_traceback_slices_kernel(const void* const* __restrict__ table,
                                 const int32_t* __restrict__ length, int B,
                                 int T, int code_bytes, int slice_shift,
-                                int32_t* __restrict__ path0,
+                                int stages, int32_t* __restrict__ path0,
                                 uint8_t* __restrict__ codes,
                                 float* __restrict__ logp) {
+  extern __shared__ __align__(128) uint8_t ring_buf[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
   __shared__ const uint8_t* s_slices[MAX_SLICES];
   __shared__ float w_best[THREADS / 32];
   __shared__ int w_idx[THREADS / 32];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int W = 1 << slice_shift;
+  const int W = 1 << slice_shift, M = N >> slice_shift;
   const int len = length[b];
-  // the walk's events: min(len, T) - 1 .. 1, as K2's
+  // the walk's rows: events min(len, T) - 1 .. 1 (row t - 1 of each slice)
   const Extent ex = extent(0, T, len, 0, 0);
-  if (tid < (N >> slice_shift)) s_slices[tid] = slices[tid];
+  const size_t stride = (size_t)B * W;
+  Ring<true> ring{ring_buf, full, empty, stages, nullptr, stride, ex.n};
+  ring.slices = s_slices;
+  ring.first = ex.n > 0 ? (size_t)(ex.t_top - 1) * stride + (size_t)b * W : 0;
+  ring.shift = slice_shift;
+  if (tid >= PRODUCER && tid < PRODUCER + 32) {
+    // the producer warp alone reads the slice table
+    for (int m = tid - PRODUCER; m < M; m += 32)
+      s_slices[m] = static_cast<const uint8_t*>(table[M + m]);
+    __syncwarp();
+    ring.start();
+  }
 
   uint8_t* out = codes + (size_t)b * code_bytes;
   for (int i = 3 * (ex.n > 0 ? ((ex.t_top - 1) >> 2) + 1 : 0) + tid;
@@ -519,10 +567,11 @@ viterbi_traceback_slices_kernel(const float* __restrict__ column,
 
   // the thread's 4 states 4 tid .. 4 tid + 3 lie in one rank's slice
   const int j0 = 4 * tid;
-  end_argmax_partials_at(
-      column + ((size_t)(j0 >> slice_shift) * B + b) * W + (j0 & (W - 1)),
-      tid, w_best, w_idx);
-  __syncthreads();  // also publishes the slice table
+  end_argmax_partials_at(static_cast<const float*>(table[j0 >> slice_shift]) +
+                             (size_t)b * W + (j0 & (W - 1)),
+                         tid, w_best, w_idx);
+  __syncthreads();  // also publishes the ring's mbarriers
+  if (tid >= PRODUCER && tid < PRODUCER + 32) ring.produce();
   if (tid >= 32) return;
   float best;
   int idx;
@@ -530,18 +579,7 @@ viterbi_traceback_slices_kernel(const float* __restrict__ column,
   if (tid != 0) return;
 
   logp[b] = best;
-  const size_t row = (size_t)B * W;
-  PackCodes<false> sink{out, 1, 0, T};
-  const GroupedFrom from{};
-  int s = idx;
-  for (int t = ex.t_top; t > ex.t_top - ex.n; --t) {
-    const int s_eff = s;
-    const uint8_t* col_b = s_slices[s_eff >> slice_shift] + (size_t)b * W;
-    const int k = col_b[(size_t)(t - 1) * row + (s_eff & (W - 1))];
-    s = from(k, s_eff);
-    sink(t, s_eff, ((k >> 6) << 4) | (s_eff & 15));
-  }
-  path0[b] = s;
+  path0[b] = walk_ring(ring, ex.t_top, idx, PackCodes<false>{out, 1, 0, T});
 }
 
 // The ring's stages for B blocks of `threads`: the most that fit the blocks
@@ -669,13 +707,12 @@ extern "C" int nc_viterbi_generic_traceback_ring(
   return (int)cudaGetLastError();
 }
 
-// K2m: slices is a device array of the M = 4096 >> slice_shift ranks'
-// backpointer rows (T - 1, B, 4096 / M) (6 <= slice_shift <= 12), on this
-// card or on peers it can reach (nc_enable_peer_access); column (M, B,
-// 4096 / M) the gathered final alpha.  Returns cudaGetLastError() after
-// the launch.
-extern "C" int nc_viterbi_traceback_slices(const float* column,
-                                           const void* slices,
+// K2m: table is a device array of the M = 4096 >> slice_shift ranks' (B,
+// 4096 / M) final slices, then their (T - 1, B, 4096 / M) backpointer rows
+// (16-byte aligned; 6 <= slice_shift <= 12), on this card or on peers it
+// can reach (nc_enable_peer_access).  Returns cudaGetLastError() after the
+// launch.
+extern "C" int nc_viterbi_traceback_slices(const void* table,
                                            const int32_t* length, int B,
                                            int T, int code_bytes,
                                            int slice_shift, int32_t* path0,
@@ -684,15 +721,21 @@ extern "C" int nc_viterbi_traceback_slices(const float* column,
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (slice_shift < 6 || slice_shift > 12) return (int)cudaErrorInvalidValue;
-  if (B > 0)
-    viterbi_traceback_slices_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        column, static_cast<const uint8_t* const*>(slices), length, B, T,
-        code_bytes, slice_shift, path0, codes, logp);
+  if (B > 0) {
+    const int stages = ring_stages(B, THREADS, device);
+    const cudaError_t err =
+        set_ring_smem(viterbi_traceback_slices_kernel, stages);
+    if (err != cudaSuccess) return (int)err;
+    viterbi_traceback_slices_kernel<<<B, THREADS, stages * STAGE_BYTES,
+                                      (cudaStream_t)stream>>>(
+        static_cast<const void* const*>(table), length, B, T, code_bytes,
+        slice_shift, stages, path0, codes, logp);
+  }
   return (int)cudaGetLastError();
 }
 
-// Lets kernels on `device` read the memory of `peer` (K2m's walk across
-// cards); a pair already enabled is not an error.
+// Lets kernels on `device` read the memory of `peer` (K1m's exchange and
+// K2m's copies across cards); a pair already enabled is not an error.
 extern "C" int nc_enable_peer_access(int device, int peer) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;

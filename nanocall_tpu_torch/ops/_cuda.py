@@ -121,15 +121,15 @@ def load():
         lib.nc_viterbi_forward_chunk.restype = ci
         lib.nc_viterbi_forward_chunk.argtypes = (
             [vp] * 4 + [ci] * 5 + [vp] * 10 + [cf, cf] + [vp, vp] + [ci, vp])
-        lib.nc_viterbi_forward_slice.restype = ci
-        lib.nc_viterbi_forward_slice.argtypes = (
-            [vp] * 4 + [ci] * 3 + [vp] * 10 + [cf, cf] + [vp, vp] + [ci, ci]
-            + [ci, vp])
+        lib.nc_viterbi_forward_wave.restype = ci
+        lib.nc_viterbi_forward_wave.argtypes = (
+            [vp] + [ci] * 8 + [cf, cf] + [ctypes.c_longlong, vp] + [ci, vp])
+        lib.nc_viterbi_forward_wave_resident.restype = ci
+        lib.nc_viterbi_forward_wave_resident.argtypes = [
+            ci, ci, ci, ctypes.POINTER(ci)]
         lib.nc_viterbi_traceback_slices.restype = ci
         lib.nc_viterbi_traceback_slices.argtypes = (
-            [vp] * 3 + [ci] * 4 + [vp] * 3 + [ci, vp])
-        lib.nc_copy_async.restype = ci
-        lib.nc_copy_async.argtypes = [vp, ci, vp, ci, ctypes.c_size_t, vp]
+            [vp] * 2 + [ci] * 4 + [vp] * 3 + [ci, vp])
         lib.nc_enable_peer_access.restype = ci
         lib.nc_enable_peer_access.argtypes = [ci, ci]
         lib.nc_viterbi_traceback_chunk.restype = ci
@@ -211,32 +211,20 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
-def copy_async(dst: torch.Tensor, src: torch.Tensor, stream) -> None:
-    """Copy the contiguous src into the contiguous dst of as many bytes,
-    on the CUDA stream `stream` of dst's card (from another card peer to
-    peer), without PyTorch's barrier on the source card's current stream:
-    the caller orders the copy by events (parallel/statepar.py's column
-    exchange)."""
-    check(load().nc_copy_async(dst.data_ptr(), dst.device.index,
-                               src.data_ptr(), src.device.index,
-                               src.numel() * src.element_size(),
-                               stream.cuda_stream),
-          "column copy")
-
-
 _peers: set = set()
 
 
 def enable_peer_access(dev, peer) -> None:
     """Let kernels on the CUDA device `dev` read the memory of `peer`
-    (K2m's walk over the ranks' slices across cards); raises where the
-    two cards cannot reach each other.  Nothing to do on one card."""
+    (K1m's column exchange and K2m's copies of the ranks' slices across
+    cards); raises where the two cards cannot reach each other.  Nothing to
+    do on one card."""
     a, b = torch.device(dev).index, torch.device(peer).index
     if a == b or (a, b) in _peers:
         return
     if not torch.cuda.can_device_access_peer(a, b):
         raise RuntimeError(f"cuda:{a} cannot access the memory of cuda:{b}: "
-                           f"the state-parallel traceback needs peer access")
+                           f"the state-parallel decode needs peer access")
     check(load().nc_enable_peer_access(a, b),
           f"peer access cuda:{a} -> cuda:{b}")
     _peers.add((a, b))

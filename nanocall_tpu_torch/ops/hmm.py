@@ -20,8 +20,8 @@ Kernels and their plain versions, side by side below:
                             vs viterbi_forward_grouped_chunk_plain
       viterbi_traceback.cu  traceback_chunk_kernel
                             vs viterbi_traceback_grouped_chunk_plain
-  K1m viterbi_forward.cu    forward_slice_kernel
-                            vs viterbi_forward_slice_plain
+  K1m viterbi_forward.cu    forward_wave_kernel
+                            vs viterbi_forward_wave_plain
   K2m viterbi_traceback.cu  traceback_slices_kernel
                             vs viterbi_traceback_slices_plain
       (parallel/statepar.py: K1 and K2 with the states split over ranks)
@@ -71,6 +71,7 @@ its sums, and jnp.log and torch.log differ in the last bit on some inputs.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -597,35 +598,54 @@ def viterbi_decode_grouped(gt: GroupedTrans, model: ModelArrays, ev: dict,
 # ---------------------------------------------------------------------------
 # K1m, K2m: K1 and K2 with the states split over M ranks (the state axis of
 # parallel/statepar.py).  Rank m holds the states [m W, (m + 1) W), W =
-# n / M: its (B, W) tables, its alpha slice and its (T - 1, B, W)
-# backpointer bytes.  A step reads the whole previous column, gathered from
-# every rank as an (M, B, W) tensor whose slice m is rank m's.
+# n / M: its (B, W) tables, a (2, B, W) column buffer (its slice of the
+# column of event t at parity t % 2), B step counters and its (T - 1, B, W)
+# backpointer bytes.  A step reads the whole previous column in place from
+# every rank's buffer.
 # ---------------------------------------------------------------------------
 
 
-def gather_column(column: torch.Tensor) -> torch.Tensor:
-    """The gathered (M, B, W) column as (B, M W) states in order."""
-    M, B, W = column.shape
-    return column.permute(1, 0, 2).reshape(B, M * W)
+class WaveRank(NamedTuple):
+    """One rank of a data row, on the rank's device: its (B, W) tables and
+    scaled model, the row's (B, T) events and (B,) lengths, its column
+    buffer col (2, B, W) float32, its backpointers bps (T - 1, B, W) uint8
+    (None: score-only) and its step counters flags (B,) int32, zero before
+    the decode (K1m's exchange; the plain version leaves them)."""
+
+    gt: GroupedTrans
+    model: ModelArrays
+    ev: dict
+    col: torch.Tensor
+    bps: torch.Tensor | None
+    flags: torch.Tensor
+
+
+def gather_column(column, device=None) -> torch.Tensor:
+    """A column's M slices, an (M, B, W) tensor or M (B, W) tensors on any
+    devices, as (B, M W) states in order, on `device` (the first slice's
+    by default)."""
+    device = column[0].device if device is None else device
+    return torch.cat([c.to(device) for c in column], dim=1)
 
 
 def viterbi_forward_slice_plain(gt: GroupedTrans, model: ModelArrays,
                                 ev: dict, column, t: int, lo: int,
                                 alpha_out, bp_out=None) -> None:
-    """Plain version of K1m: event t's alpha at the states [lo, lo + W) of
-    one rank into alpha_out (B, W), and at t >= 1 their backpointers into
-    bp_out (B, W) uint8 (None: score-only).  gt and model hold the rank's
-    (B, W) tables, ev the (B, T) events and lengths whole; column (M, B, W)
-    is the gathered alpha of event t - 1 (unread at t = 0).  The step of
-    viterbi_forward_grouped_plain for these states: -log(n) at t = 0 takes
-    n = M W, all the states."""
-    M, _, W = column.shape
+    """One rank's step, the plain version of K1m's step body: event t's
+    alpha at the states [lo, lo + W) into alpha_out (B, W), and at t >= 1
+    their backpointers into bp_out (B, W) uint8 (None: score-only).  gt
+    and model hold the rank's (B, W) tables, ev the (B, T) events and
+    lengths whole; column is the alpha of event t - 1 as its M slices (an
+    (M, B, W) tensor or M (B, W) tensors on any devices, read in place;
+    unread at t = 0).  The step of viterbi_forward_grouped_plain for these
+    states: -log(n) at t = 0 takes n = M W, all the states."""
+    M, W = len(column), column[0].shape[-1]
     mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
     if t == 0:
         alpha_out.copy_(log_emission(model, mean[:, 0], stdv[:, 0],
                                      log_stdv[:, 0]) - math.log(M * W))
         return
-    alpha = gather_column(column)
+    alpha = gather_column(column, mean.device)
     best, bp = _grouped_step_core(gt, alpha, lo)
     em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
     alpha_out.copy_(torch.where((t < ev["length"])[:, None], best + em,
@@ -634,10 +654,29 @@ def viterbi_forward_slice_plain(gt: GroupedTrans, model: ModelArrays,
         bp_out.copy_(bp)
 
 
-def _slice_shift(column) -> int:
-    """log2 of the slice width W of a gathered (M, B, W) column, for the
-    kernels: 4096 states in slices of a power of two from 64 to 4096."""
-    M, _, W = column.shape
+def viterbi_forward_wave_plain(ranks, lo: int, hi: int) -> None:
+    """Plain version of K1m: events 0 .. T - 1 of the reads [lo, hi) for
+    every rank of a data row (ranks: its M WaveRanks in rank order).  Each
+    step, every rank runs viterbi_forward_slice_plain on the peers' slices
+    of the previous column, read in place from their col[(t - 1) % 2], into
+    its col[t % 2] and bps[t - 1].  The steps run one after another, so the
+    counters are left as they are."""
+    rows = slice(lo, hi)
+    T, W = ranks[0].ev["mean"].shape[1], ranks[0].col.shape[-1]
+    parts = [(GroupedTrans(*(x[rows] for x in r.gt[:3]), K=r.gt.K),
+              ModelArrays(*(x[rows] for x in r.model)),
+              {k: v[rows] for k, v in r.ev.items()}) for r in ranks]
+    for t in range(T):
+        column = [r.col[(t - 1) % 2, rows] for r in ranks]
+        for m, (r, (gt, model, ev)) in enumerate(zip(ranks, parts)):
+            viterbi_forward_slice_plain(
+                gt, model, ev, column, t, m * W, r.col[t % 2, rows],
+                r.bps[t - 1, rows] if r.bps is not None and t else None)
+
+
+def _slice_shift(M: int, W: int) -> int:
+    """log2 of the slice width W of M slices, for the kernels: 4096 states
+    in slices of a power of two from 64 to 4096."""
     shift = W.bit_length() - 1
     if M * W != 4096 or W != 1 << shift or W < 64:
         raise ValueError(f"the CUDA kernels take 4096 states in 1 to 64 "
@@ -645,46 +684,115 @@ def _slice_shift(column) -> int:
     return shift
 
 
-def forward_slice_kernel(gt: GroupedTrans, model: ModelArrays, ev: dict,
-                         column, t: int, lo: int, alpha_out,
-                         bp_out=None) -> None:
-    """K1m on the card (K1's kernel, one step of one rank): as
-    viterbi_forward_slice_plain; bp_out None launches the score-only
-    instance."""
-    mean = ev["mean"]
-    dev = mean.device
-    B, T = mean.shape
-    if gt.K != 6:
-        raise ValueError(f"the CUDA forward kernel takes K=6, got K={gt.K}")
-    shift = _slice_shift(column)
-    M, W = column.shape[0], column.shape[2]
-    if not 0 <= t < T or lo % W or not 0 <= lo < M * W:
-        raise ValueError(f"no step {t} of {T} events for the states from "
-                         f"{lo} in slices of {W}")
-    _check_events(ev, B, T, dev)
-    tables = (gt.stay_lp, gt.step_lp, gt.skip_lp, *model)
-    _check_tables(tables, B, W, dev)
-    _check("column", column, torch.float32, (M, B, W), dev)
-    _check("alpha_out", alpha_out, torch.float32, (B, W), dev)
-    if bp_out is not None:
-        _check("bp_out", bp_out, torch.uint8, (B, W), dev)
-        if bp_out.data_ptr() % 4:  # stored a 32-bit word a thread
-            raise ValueError("bp_out is not 4-byte aligned")
-    _require_cuda(dev, "viterbi forward slice")
-    lib = _cuda.load()
-    err = lib.nc_viterbi_forward_slice(
-        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, t, column.data_ptr(),
-        *(x.data_ptr() for x in tables), LOG_2PI, math.log(M * W),
-        alpha_out.data_ptr(),
-        bp_out.data_ptr() if bp_out is not None and t else None, lo, shift,
-        *_cuda.target(dev),
-    )
-    _cuda.check(err, "viterbi_forward_slice kernel launch")
-    _cuda.count_launch(forward_slice_kernel)
+#: seconds a K1m block waits on a peer's counter before it records the
+#: wait (wave_timeout) and traps: a fault in the exchange fails the decode
+WAVE_TIMEOUT_S = 10.0
+#: the host-mapped record of a K1m wait that timed out, (t, read, rank,
+#: peer), zero while none did; made at the first launch
+_timed_out = None
+#: forward_wave_resident's answers, by (card index, with_path, sys)
+_resident: dict = {}
 
 
-forward_slice_kernel.launches = 0
+def wave_timeout():
+    """(t, read, rank, peer) of the K1m wait that timed out in this process
+    (the card's context is lost then), or None."""
+    rec = _timed_out
+    if rec is None or int(rec[0]) == 0:
+        return None
+    return tuple(int(x) for x in rec.tolist())
+
+
+def forward_wave_resident(dev, with_path: bool, sys: bool = False) -> int:
+    """The most blocks of K1m's instance (with_path; sys: the exchange
+    across cards) that the CUDA device `dev` holds at once: a wave's grid,
+    reads times the card's ranks, must not exceed it."""
+    key = (torch.device(dev).index, bool(with_path), bool(sys))
+    if key not in _resident:
+        blocks = ctypes.c_int(0)
+        _cuda.check(_cuda.load().nc_viterbi_forward_wave_resident(
+            int(with_path), int(sys), key[0], ctypes.byref(blocks)),
+            "viterbi_forward_wave occupancy")
+        _resident[key] = blocks.value
+    return _resident[key]
+
+
+def _check_wave_rank(m: int, r: WaveRank, B: int, T: int, W: int,
+                     with_path: bool) -> None:
+    dev = r.ev["mean"].device
+    if r.gt.K != 6:
+        raise ValueError(f"the CUDA forward kernel takes K=6, got K={r.gt.K}")
+    if (r.bps is not None) != with_path:
+        raise ValueError("the ranks' backpointers are given for some ranks "
+                         "only")
+    _check_events(r.ev, B, T, dev)
+    _check_tables((r.gt.stay_lp, r.gt.step_lp, r.gt.skip_lp, *r.model), B, W,
+                  dev)
+    _check(f"ranks[{m}].col", r.col, torch.float32, (2, B, W), dev)
+    _check(f"ranks[{m}].flags", r.flags, torch.int32, (B,), dev)
+    if with_path:
+        _check(f"ranks[{m}].bps", r.bps, torch.uint8, (T - 1, B, W), dev)
+        if r.bps.data_ptr() % 4:  # stored a 32-bit word a thread
+            raise ValueError(f"ranks[{m}].bps is not 4-byte aligned")
+
+
+def forward_wave_kernel(ranks, local, lo: int, hi: int) -> None:
+    """K1m on the card: viterbi_forward_wave_plain's work for the ranks
+    `local` (indices into `ranks`, all on one card; 2 to 64 ranks in all)
+    over the reads [lo, hi), one cooperative launch on that card's current
+    stream, whose grid (hi - lo reads x len(local) ranks) must fit the card
+    at once (forward_wave_resident), or the launch raises.  The ranks not in
+    `local` run their blocks of the same reads in a launch of their own
+    card (statepar orders the cards' launches); their slices and counters
+    are read over peer access.  A block waits WAVE_TIMEOUT_S on a peer at
+    most.  Raises if a wave of this process timed out (wave_timeout)."""
+    global _timed_out
+    M = len(ranks)
+    if not 2 <= M <= 64:
+        raise ValueError(f"the CUDA K1m takes 2 to 64 ranks; got {M}")
+    if not local:
+        raise ValueError("no ranks to launch")
+    B, T = ranks[0].ev["mean"].shape
+    W = ranks[0].col.shape[-1]
+    shift = _slice_shift(M, W)
+    dev = ranks[local[0]].ev["mean"].device
+    _require_cuda(dev, "viterbi forward wave")
+    with_path = ranks[0].bps is not None
+    for m, r in enumerate(ranks):
+        _require_cuda(r.ev["mean"].device, "viterbi forward wave")
+        _check_wave_rank(m, r, B, T, W, with_path)
+    if any(ranks[m].ev["mean"].device != dev for m in local):
+        raise ValueError("the launch's ranks lie on more than one card")
+    if not 0 <= lo < hi <= B:
+        raise ValueError(f"no wave of reads [{lo}, {hi}) of {B}")
+    if wave_timeout() is not None:
+        raise RuntimeError(f"a K1m wave timed out: (t, read, rank, peer) = "
+                           f"{wave_timeout()}")
+    if _timed_out is None:
+        _timed_out = torch.zeros(4, dtype=torch.int32).pin_memory()
+    sys = any(r.ev["mean"].device != dev for r in ranks)
+    vals = []
+    for r in ranks:
+        vals += [r.ev["mean"].data_ptr(), r.ev["stdv"].data_ptr(),
+                 r.ev["log_stdv"].data_ptr(), r.ev["length"].data_ptr(),
+                 *(x.data_ptr() for x in (*r.gt[:3], *r.model)),
+                 r.col.data_ptr(),
+                 r.bps.data_ptr() if with_path and r.bps.numel() else 0,
+                 r.flags.data_ptr()]
+    vals += list(local)
+    # pinned, so that the copy does not wait on the card
+    table = torch.tensor(vals, dtype=torch.int64).pin_memory().to(
+        dev, non_blocking=True)
+    err = _cuda.load().nc_viterbi_forward_wave(
+        table.data_ptr(), len(local), B, T, lo, hi - lo, shift,
+        int(with_path), int(sys), LOG_2PI, math.log(M * W),
+        int(WAVE_TIMEOUT_S * 1e9), _timed_out.data_ptr(),
+        *_cuda.target(dev))
+    _cuda.check(err, "viterbi_forward_wave kernel launch")
+    _cuda.count_launch(forward_wave_kernel)
+
+
+forward_wave_kernel.launches = 0
 
 
 def _slice_byte(bp_slices, W: int):
@@ -700,50 +808,54 @@ def _slice_byte(bp_slices, W: int):
 
 
 def viterbi_traceback_slices_plain(K: int, column, bp_slices, lengths):
-    """Plain version of K2m: K2's end argmax and walk over the gathered
-    final column (M, B, W) and the M ranks' backpointer slices
-    bp_slices[m] (T - 1, B, W) uint8, rank m's holding the states [m W,
-    (m + 1) W): (path0, codes, logp) on the column's device, K2's."""
-    W = column.shape[2]
-    return _grouped_walk_plain(K, gather_column(column),
+    """Plain version of K2m: K2's end argmax and walk over the M ranks'
+    slices of the final column (an (M, B, W) tensor or M (B, W) tensors)
+    and their backpointer slices bp_slices[m] (T - 1, B, W) uint8, rank m's
+    holding the states [m W, (m + 1) W), on any devices: (path0, codes,
+    logp) on lengths' device, K2's."""
+    W = column[0].shape[-1]
+    return _grouped_walk_plain(K, gather_column(column, lengths.device),
                                bp_slices[0].shape[0],
                                _slice_byte(bp_slices, W), lengths)
 
 
 def traceback_slices_kernel(K: int, column, bp_slices, lengths):
-    """K2m on the card: as viterbi_traceback_slices_plain, launched on the
-    column's card; a slice on another card is read there in place (peer
-    access, or a RuntimeError)."""
-    dev = column.device
-    shift = _slice_shift(column)
-    M, B, W = column.shape
+    """K2m on the card: as viterbi_traceback_slices_plain, launched on
+    lengths' card (K2's row ring, each row assembled from the ranks'
+    slices); a slice on another card is read there in place (peer access,
+    or a RuntimeError)."""
+    dev = lengths.device
+    _require_cuda(dev, "viterbi traceback slices")
+    M, W = len(column), column[0].shape[-1]
+    shift = _slice_shift(M, W)
+    B = column[0].shape[0]
     if K != 6:
         raise ValueError(f"the CUDA traceback kernel takes K=6, got K={K}")
     if len(bp_slices) != M:
         raise ValueError(f"{len(bp_slices)} backpointer slices for {M} ranks")
     Tm = bp_slices[0].shape[0]
-    _check("column", column, torch.float32, (M, B, W), dev)
     _check("lengths", lengths, torch.int32, (B,), dev)
-    for m, sl in enumerate(bp_slices):
-        _check(f"bp_slices[{m}]", sl, torch.uint8, (Tm, B, W), sl.device)
-    _require_cuda(dev, "viterbi traceback slices")
-    for sl in bp_slices:
+    for m, (c, sl) in enumerate(zip(column, bp_slices)):
+        _require_cuda(c.device, "viterbi traceback slices")
         _require_cuda(sl.device, "viterbi traceback slices")
+        _check(f"column[{m}]", c, torch.float32, (B, W), c.device)
+        _check(f"bp_slices[{m}]", sl, torch.uint8, (Tm, B, W), sl.device)
+        _check_rows_aligned(sl)
+        _cuda.enable_peer_access(dev, c.device)
         _cuda.enable_peer_access(dev, sl.device)
     code_bytes = 3 * (-(-Tm // 4))
     path0 = torch.empty(B, dtype=torch.int32, device=dev)
     codes = torch.empty((B, code_bytes), dtype=torch.uint8, device=dev)
     logp = torch.empty(B, dtype=torch.float32, device=dev)
     # pinned, so that the copy does not wait on the card
-    ptrs = torch.tensor([sl.data_ptr() for sl in bp_slices],
-                        dtype=torch.int64).pin_memory().to(dev,
-                                                           non_blocking=True)
-    lib = _cuda.load()
-    err = lib.nc_viterbi_traceback_slices(
-        column.data_ptr(), ptrs.data_ptr(), lengths.data_ptr(), B, Tm + 1,
-        code_bytes, shift, path0.data_ptr(),
-        codes.data_ptr() if codes.numel() else None, logp.data_ptr(),
-        *_cuda.target(dev),
+    table = torch.tensor(
+        [c.data_ptr() for c in column]
+        + [sl.data_ptr() if sl.numel() else 0 for sl in bp_slices],
+        dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    err = _cuda.load().nc_viterbi_traceback_slices(
+        table.data_ptr(), lengths.data_ptr(), B, Tm + 1, code_bytes, shift,
+        path0.data_ptr(), codes.data_ptr() if codes.numel() else None,
+        logp.data_ptr(), *_cuda.target(dev),
     )
     _cuda.check(err, "viterbi_traceback_slices kernel launch")
     _cuda.count_launch(traceback_slices_kernel)

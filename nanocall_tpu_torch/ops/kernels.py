@@ -40,7 +40,7 @@ KERNELS = (
     Kernel("viterbi_traceback_chunk_states", hmm.traceback_chunk_states_kernel,
            "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
            "nanocall_tpu/parallel/seqpar.py:40"),
-    Kernel("viterbi_forward_slice", hmm.forward_slice_kernel,
+    Kernel("viterbi_forward_slice", hmm.forward_wave_kernel,
            "nanocall_tpu_torch/csrc/viterbi_forward.cu",
            "nanocall_tpu/parallel/mesh.py:103"),
     Kernel("viterbi_traceback_slices", hmm.traceback_slices_kernel,

@@ -20,9 +20,10 @@ production decode's inputs on it: the batch over 'data', the bank's
 4096-state axis over 'model'.  basecall.decode_chunk_pooled takes the
 placed arguments and decodes each data row with its states split over the
 row's ranks (parallel/statepar.py: K1m and K2m); where GSPMD inserts the
-collectives in JAX, the ranks all-gather the alpha column each step.  The
-JAX package's multi-chip entry point runs them (__graft_entry__.py:98-172,
-dryrun_multichip), as does tests/test_sharding.py.  Not ported yet:
+collectives in JAX, each rank reads the alpha column's other slices in
+place from its peers each step.  The JAX package's multi-chip entry point
+runs them (__graft_entry__.py:98-172, dryrun_multichip), as does
+tests/test_sharding.py.  Not ported yet:
 shard_decode_inputs (the generic decode, K6a + K6b) and shard_train_inputs
 (the EM round, K4 + K5) on the state axis (ROADMAP.md queue 1).
 """

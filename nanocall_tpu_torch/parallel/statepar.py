@@ -5,46 +5,52 @@ mesh: nanocall_tpu/parallel/mesh.py:103 shard_pooled_decode_inputs places
 the bank's 4096-state axis over 'model', and GSPMD splits the scaled
 models, the emissions and the grouped recursion by state and inserts the
 collectives.  Here one process drives every rank, as parallel/seqpar.py
-does for K9: rank m of a data row runs on its device, on a CUDA stream of
-its own, holds the states [m W, (m + 1) W), W = 4096 / M, and of them only:
-its (B, W) tables and scaled model (it scales only its slice of the bank),
-its alpha slice and its (T - 1, B, W) backpointer bytes, B T W bytes, a
-1/M share of the decode's backpointers.  A device may appear more than once
-(M ranks on one card each get their own stream).
+does for K9: rank m of a data row runs on its device, holds the states
+[m W, (m + 1) W), W = 4096 / M, and of them only: its (B, W) tables and
+scaled model (it scales only its slice of the bank), a (2, B, W) column
+buffer, B step counters and its (T - 1, B, W) backpointer bytes, B T W
+bytes, a 1/M share of the decode's backpointers (hmm.WaveRank).  A device
+may appear more than once; the ranks of a card share its current stream.
 
-Schedule, per event t (the JAX scan unrolled on the host):
+Schedule (K1m's design: csrc/viterbi_forward.cu's header):
 
-  - each rank runs K1m (K1's kernel, one step of its states) on the whole
-    column of event t - 1 and writes its slice of column t into its own
-    copy of the column.  A step needs the whole previous column: state j's
-    step predecessors r 1024 + (j >> 2) and skip predecessors r 256 +
-    (j >> 4) lie in every slice;
-  - the column is all-gathered: each rank pulls the peers' slices of
-    column t into its copy (a copy on its stream, peer to peer across
-    cards, once the peer's step is done).  The copies are double-buffered by the parity of t, and a rank
-    writes its slice of column t only after every peer pulled column t - 1
-    (an event a rank and step: `pulled`), so no rank overwrites a slice
-    another still reads;
+  - the row's reads are cut into waves (plan_waves): every block of a wave,
+    its reads times the ranks a card holds, must be resident at once,
+    since a block waits on its peers; every card of the row gets the same
+    cut;
+  - each wave is one launch of K1m a card (hmm.forward_wave_kernel, a
+    cooperative grid) over all T events: each step a rank reads the whole
+    column of event t - 1 in place from the ranks' own double-buffered
+    slices (a peer's over peer access across cards; state j's step and
+    skip predecessors r 1024 + (j >> 2) and r 256 + (j >> 4) lie in every
+    slice), steps its own states, stores its slice of column t and
+    publishes a counter.  A card's waves go on its current stream in
+    order, for every row it holds;
   - after the last event, the row's first rank takes the end argmax over
-    the gathered final column and walks the ranks' slices (K2m, reading a
-    slice on another card in place), so path0, codes and logp come out on
-    the row's first device; a score-only decode takes the column's max.
+    the final column's slices and walks the ranks' backpointer slices (K2m:
+    K2's row ring, each row assembled from the M slices), so path0, codes
+    and logp come out on the row's first device; a score-only decode takes
+    the column's max.
 
 Each rank runs K1's step body for its own states from the same column, so
 the decode is bit-identical to the one-device K1 + K2 by construction.
-What bounds it: T M launches of K1m and T M (M - 1) copies a data row,
-enqueued by one host thread, against K1's one launch: the host, not the
-card.  A reduce-scatter of partial (max, first argmax) pairs, 1280 / M
-values a read and step in place of the column's 4096, is the next design.
+The host enqueues a launch a wave and card and no copy or event a step, so
+what bounds a decode is the card: K1's step for W states plus the
+exchange's latency, T times a wave.  A reduce-scatter of partial (max,
+first argmax) pairs, 1280 / M values a read and step in place of the
+column's 4096, is untried.
 
 viterbi_decode_statepar_plain runs the same schedule over the plain
-versions, on any devices; viterbi_decode_statepar takes the kernels on CUDA
-and the plain version on the CPU, and raises if a kernel fails.
+versions (hmm.viterbi_forward_wave_plain over all of a row's reads at once,
+viterbi_traceback_slices_plain), on any devices; viterbi_decode_statepar
+takes the kernels on CUDA (K1m for rows of 2 to 64 ranks; a row of one
+rank holds every state and reads no peer, and decodes by K1 + K2) and the
+plain version on the CPU, and raises if a kernel fails.
 """
 
 from __future__ import annotations
 
-import contextlib
+import collections
 from typing import NamedTuple
 
 import torch
@@ -82,48 +88,19 @@ def split_states(gt: hmm.GroupedTrans, model: hmm.ModelArrays, ev: dict,
     return parts
 
 
-class _Rank:
-    """One rank of a data row: its device, stream (None in the plain
-    version, which runs on the devices' current streams), its two column
-    copies (M, B, W) and its backpointer slice."""
-
-    def __init__(self, m: int, part: RankInputs, M: int, with_path: bool,
-                 streams: bool):
-        self.m = m
-        self.gt, self.model, self.ev = part
-        B, T = self.ev["mean"].shape
-        self.W = self.gt.stay_lp.shape[-1]
-        self.lo = m * self.W
-        self.device = self.ev["mean"].device
-        # on the device's current stream: the caller's stream waits on
-        # every rank's before it frees them (_join)
-        cols = torch.empty((2, M, B, self.W), dtype=torch.float32,
-                           device=self.device)
-        # by parity: the column copy (M, B, W), and its slice m (B, W)
-        self.cols = (cols[0], cols[1])
-        self.own = (cols[0, m], cols[1, m])
-        self.bps = (torch.empty((max(T - 1, 0), B, self.W), dtype=torch.uint8,
-                                device=self.device) if with_path else None)
-        self.stream = torch.cuda.Stream(self.device) if streams else None
-        if streams:
-            # made (or owned by the caller) on the current stream
-            self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            self.computed, self.pulled = torch.cuda.Event(), torch.cuda.Event()
-        self.peers: list = []
-
-    def ctx(self):
-        return (torch.cuda.stream(self.stream) if self.stream is not None
-                else contextlib.nullcontext())
-
-    def pull(self, peer: "_Rank", par: int) -> None:
-        """The peer's slice of the column of parity `par` into this rank's
-        copy, on this rank's stream once the peer's step is done."""
-        src, dst = peer.own[par], self.cols[par][peer.m]
-        if self.stream is None:
-            dst.copy_(src)
-            return
-        self.stream.wait_event(peer.computed)
-        _cuda.copy_async(dst, src, self.stream)
+def plan_waves(B: int, devices, resident) -> dict:
+    """The waves of a data row of B reads whose rank m lies on devices[m]:
+    {device: [(lo, hi), ...]}, the same contiguous cut of [0, B) for every
+    device of the row, each wave of at most min over the devices d of
+    resident[d] // (the row's ranks on d) reads, so that a wave's grid fits
+    each card at once.  resident: {device: blocks it holds at once}."""
+    count = collections.Counter(devices)
+    per = min(resident[d] // k for d, k in count.items())
+    if per < 1:
+        raise ValueError(f"a wave of one read does not fit: {dict(count)} "
+                         f"ranks a device, {dict(resident)} resident blocks")
+    cut = [(lo, min(lo + per, B)) for lo in range(0, B, per)]
+    return {d: list(cut) for d in count}
 
 
 def _plan(rows) -> int:
@@ -140,64 +117,84 @@ def _plan(rows) -> int:
     return Ts.pop()
 
 
+def _wave_rank(part: RankInputs, with_path: bool) -> hmm.WaveRank:
+    """A rank's part with its column buffer, backpointers and counters,
+    made on its device's current stream."""
+    B, T = part.ev["mean"].shape
+    W = part.gt.stay_lp.shape[-1]
+    dev = part.ev["mean"].device
+    return hmm.WaveRank(
+        part.gt, part.model, part.ev,
+        torch.empty((2, B, W), dtype=torch.float32, device=dev),
+        (torch.empty((max(T - 1, 0), B, W), dtype=torch.uint8, device=dev)
+         if with_path else None),
+        torch.zeros(B, dtype=torch.int32, device=dev))
+
+
+def _wait_all(cards) -> None:
+    """Every card's current stream waits on every other's."""
+    for a in cards:
+        for b in cards:
+            if a != b:
+                torch.cuda.current_stream(a).wait_stream(
+                    torch.cuda.current_stream(b))
+
+
+def _forward_kernels(ranks, with_path: bool) -> None:
+    """K1m over a data row: a launch a wave and card, each card's on its
+    current stream; across cards every card waits first for the others'
+    counters to be zeroed, and the row's first card for the others' waves
+    after the last."""
+    devices = [r.ev["mean"].device for r in ranks]
+    cards = list(dict.fromkeys(devices))
+    for a in cards:
+        for b in cards:
+            _cuda.enable_peer_access(a, b)
+    sys = len(cards) > 1
+    waves = plan_waves(ranks[0].flags.shape[0], devices, {
+        d: hmm.forward_wave_resident(d, with_path, sys) for d in cards})
+    local = {d: [m for m, x in enumerate(devices) if x == d] for d in cards}
+    if sys:
+        _wait_all(cards)
+    for i in range(len(waves[cards[0]])):
+        for d in cards:
+            hmm.forward_wave_kernel(ranks, local[d], *waves[d][i])
+    first = torch.cuda.current_stream(cards[0])
+    for d in cards[1:]:
+        first.wait_stream(torch.cuda.current_stream(d))
+
+
 def _decode(rows, with_path: bool, kernels: bool) -> list:
     """The schedule of the module docstring over K1m and K2m (kernels) or
-    their plain versions, every data row's ranks stepping together."""
+    their plain versions (all of a row's reads in one wave: the plain
+    version steps them one after another)."""
     T = _plan(rows)
-    step = (hmm.forward_slice_kernel if kernels
-            else hmm.viterbi_forward_slice_plain)
     traceback = (hmm.traceback_slices_kernel if kernels
                  else hmm.viterbi_traceback_slices_plain)
-    groups = [[_Rank(m, p, len(parts), with_path, kernels)
-               for m, p in enumerate(parts)] for parts in rows]
-    for g in groups:
-        for r in g:
-            r.peers = [p for p in g if p is not r]
-    ranks = [r for g in groups for r in g]
-    for t in range(T):
-        par = t % 2
-        for r in ranks:
-            with r.ctx():
-                if kernels and t:
-                    # the slice it writes now, peers pulled at t - 2
-                    for p in r.peers:
-                        r.stream.wait_event(p.pulled)
-                step(r.gt, r.model, r.ev, r.cols[1 - par], t, r.lo,
-                     r.own[par],
-                     r.bps[t - 1] if r.bps is not None and t else None)
-                if kernels:
-                    r.computed.record(r.stream)
-        for r in ranks:
-            for p in r.peers:
-                r.pull(p, par)
-            if kernels:
-                r.pulled.record(r.stream)
-    if kernels:
-        _join(ranks)
+    groups = [[_wave_rank(p, with_path) for p in parts] for parts in rows]
+    for ranks in groups:
+        if kernels:
+            _forward_kernels(ranks, with_path)
+        else:
+            hmm.viterbi_forward_wave_plain(ranks, 0, ranks[0].flags.shape[0])
     out = []
-    for g in groups:
-        final = g[0].cols[(T - 1) % 2]
+    for ranks in groups:
+        final = [r.col[(T - 1) % 2] for r in ranks]
+        lengths = ranks[0].ev["length"]
         if with_path:
-            path0, codes, logp = traceback(
-                g[0].gt.K, final, [r.bps for r in g], g[0].ev["length"])
+            path0, codes, logp = traceback(ranks[0].gt.K, final,
+                                           [r.bps for r in ranks], lengths)
             out.append({"path0": path0, "codes": codes, "logp": logp})
         else:
-            out.append({"logp": torch.amax(hmm.gather_column(final), dim=-1)})
+            out.append({"logp": torch.amax(
+                hmm.gather_column(final, lengths.device), dim=-1)})
         if kernels:
             # the peers' cards free their slices once the walk is done
-            cur = torch.cuda.current_stream(g[0].device)
-            for r in g[1:]:
-                torch.cuda.current_stream(r.device).wait_stream(cur)
+            cur = torch.cuda.current_stream(lengths.device)
+            for r in ranks[1:]:
+                torch.cuda.current_stream(r.ev["mean"].device).wait_stream(
+                    cur)
     return out
-
-
-def _join(ranks) -> None:
-    """Every used device's current stream waits on every rank's stream."""
-    devices = {r.device for r in ranks}
-    for d in devices:
-        cur = torch.cuda.current_stream(d)
-        for r in ranks:
-            cur.wait_stream(r.stream)
 
 
 def viterbi_decode_statepar_plain(rows, with_path: bool = True) -> list:
@@ -216,11 +213,16 @@ def viterbi_decode_statepar(rows, with_path: bool = True) -> list:
     two, at most 64, for the kernels).  Returns one dict a row, on its first
     rank's device: {"path0", "codes", "logp"}, or {"logp"} when with_path
     is False, bit-identical to hmm.viterbi_decode_grouped on the row's
-    whole tables.  CUDA devices run the kernels (a failed kernel raises),
-    CPU devices the plain version."""
+    whole tables.  CUDA devices run the kernels (a failed kernel raises;
+    rows of one rank run K1 + K2), CPU devices the plain version."""
     types = {p.ev["mean"].device.type for parts in rows for p in parts}
     if types == {"cpu"}:
         return viterbi_decode_statepar_plain(rows, with_path)
     if types != {"cuda"}:
         raise ValueError(f"no state-parallel decode over devices {types}")
+    if rows and all(len(parts) == 1 for parts in rows):
+        # one rank holds every state and reads no peer: K1 + K2
+        _plan(rows)
+        return [hmm.viterbi_decode_grouped(*parts[0], with_path=with_path)
+                for parts in rows]
     return _decode(rows, with_path, kernels=True)

@@ -514,19 +514,19 @@ def seqpar_bound(B: int, T: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def viterbi_forward_slice_counts(B: int, T: int, ranks: int = 2) -> tuple:
-    """K1m: T launches of one rank of `ranks`, each one step of its W =
-    n / ranks states (a launch reads its inputs anew: the gathered column
-    of all n states, the step's event and the lengths, the rank's 9 (B, W)
-    tables; it writes its alpha slice and W backpointer bytes a read); K1's
-    operations for W states.  The column's exchange is counted apart
+def viterbi_forward_slice_counts(B: int, T: int) -> tuple:
+    """K1m: the forward of one data row, whatever its ranks: K1's function
+    (the events, the 9 tables and the final column read or written once,
+    a backpointer byte per (event after the first, state), K1's operations
+    for all n states).  What the ranks read from each other, the peers'
+    slices of every column (from L2 on one card), is counted apart
     (statepar_exchange_bytes)."""
-    n, W = N_STATES, N_STATES // ranks
-    return (T * (4 * B * n + 16 * B + 36 * B * W + 5 * B * W),
-            CELL_OPS["viterbi_forward_slice"] * B * T * W)
+    n = N_STATES
+    return (_event_bytes(B, T) + 40 * B * n + (T - 1) * B * n,
+            _cell_ops("viterbi_forward_slice", B, T))
 
 
-def viterbi_traceback_slices_counts(B: int, T: int, ranks: int = 2) -> tuple:
+def viterbi_traceback_slices_counts(B: int, T: int) -> tuple:
     """K2m: K2's work (the gathered final column, a backpointer byte per
     event, lengths, path0, logp and the packed codes; the end argmax),
     whichever rank's slice a byte lies in.  The bytes it reads from the
@@ -535,26 +535,24 @@ def viterbi_traceback_slices_counts(B: int, T: int, ranks: int = 2) -> tuple:
 
 
 def statepar_exchange_bytes(B: int, T: int, ranks: int,
-                            walk_remote_rows: int = 0) -> dict:
+                            walk_rows: int = 0) -> dict:
     """The bytes a state-parallel decode of one data row (B reads of T
     events over `ranks` ranks) moves between its ranks: "column", K1m's
-    all-gather, each rank receiving the ranks - 1 other slices (4 B W
-    bytes each) of every event's column; "walk", K2m's reads of
-    backpointer bytes in another rank's slice than the walking rank's (one
-    byte each; walk_remote_rows, counted from the run's paths by
-    walk_remote_rows())."""
+    reads of the peers' slices in place, each rank reading the ranks - 1
+    other slices (4 B W bytes each) of every column it steps from (events
+    0 .. T - 2); "walk", what K2m's ring copies from the slices of the
+    ranks other than the first (the walk's card): W bytes of each of the
+    ranks - 1 slices a row, over the walk_rows rows it streams
+    (walk_rows())."""
     W = N_STATES // ranks
-    return {"column": T * ranks * (ranks - 1) * 4 * B * W,
-            "walk": walk_remote_rows}
+    return {"column": (T - 1) * ranks * (ranks - 1) * 4 * B * W,
+            "walk": walk_rows * (ranks - 1) * W}
 
 
-def walk_remote_rows(paths, lengths, ranks: int) -> int:
-    """The backpointer rows K2m's walk reads outside the first rank's
-    slice: over each read's events t = 1 .. length - 1, those whose state
-    paths[b][t] lies in another rank's slice (W = n / ranks states each;
-    paths are numpy or torch arrays)."""
-    W = N_STATES // ranks
-    return int(sum(int((p[1:L] >= W).sum()) for p, L in zip(paths, lengths)))
+def walk_rows(lengths, T: int) -> int:
+    """The backpointer rows a traceback walk streams (K2's, K2m's): events
+    min(length, T) - 1 down to 1 of each read."""
+    return int(sum(max(min(int(L), T) - 1, 0) for L in lengths))
 
 
 def fwbw_forward_counts(B: int, T: int) -> tuple:
@@ -730,44 +728,35 @@ TABLE_KERNELS = ("viterbi_generic_forward_path",
                  "fwbw_resident", "fwbw_custom", "fwbw_custom_resident")
 
 
-#: the kernels of a state-parallel decode, counted for one rank of `ranks`
-RANK_KERNELS = ("viterbi_forward_slice", "viterbi_traceback_slices")
-
-
-def kernel_counts(name: str, B: int, T: int, deg: int = 21,
-                  ranks: int = 2) -> tuple:
+def kernel_counts(name: str, B: int, T: int, deg: int = 21) -> tuple:
     """(bytes, float32 ops) of one call of kernel `name` on B rows of T
-    events (a chunk kernel: T is the chunk's events; K1m: T launches, T = 1
-    one step; K8: B rows of n = 4096 lanes, T steps of FMA_K FMAs; K10: a
-    (B, T) output) at n = 4096 states, a loaded table of `deg` slots, the
-    states split over `ranks` ranks."""
+    events (a chunk kernel: T is the chunk's events; K1m, K2m: one data
+    row's decode, whatever its ranks; K8: B rows of n = 4096 lanes, T steps
+    of FMA_K FMAs; K10: a (B, T) output) at n = 4096 states, a loaded table
+    of `deg` slots."""
     fn = KERNEL_COUNTS[name]
-    if name in TABLE_KERNELS:
-        return fn(B, T, deg=deg)
-    return fn(B, T, ranks=ranks) if name in RANK_KERNELS else fn(B, T)
+    return fn(B, T, deg=deg) if name in TABLE_KERNELS else fn(B, T)
 
 
-def kernel_bound(name: str, B: int, T: int, deg: int = 21,
-                 ranks: int = 2) -> dict:
+def kernel_bound(name: str, B: int, T: int, deg: int = 21) -> dict:
     """{"bound_ms", "bound_by"}: the least time the card could take for one
     call of kernel `name` (shapes as `kernel_counts`): the larger of the
     bytes it must move (each input read once, each output written once; a
     traceback reads one backpointer byte per event) over the HBM rate, and
     its float32 operations over the float32 rate."""
-    nbytes, ops = kernel_counts(name, B, T, deg, ranks)
+    nbytes, ops = kernel_counts(name, B, T, deg)
     t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, ops / H100_F32_OPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def kernel_shares(name: str, B: int, T: int, ms: float,
-                  fma_peak_ops_per_s: float | None = None,
-                  ranks: int = 2) -> dict:
+                  fma_peak_ops_per_s: float | None = None) -> dict:
     """A kernel's achieved float32 operations per second (its count from
     `kernel_counts` over a measured `ms` per call), and that rate's share
     of the H100's 67 TFLOP/s and of a K8 peak measured at the same B x T
     (None without one)."""
-    rate = kernel_counts(name, B, T, ranks=ranks)[1] / (ms / 1e3)
+    rate = kernel_counts(name, B, T)[1] / (ms / 1e3)
     return {"f32_ops_per_s": rate,
             "share_of_f32_spec": rate / H100_F32_OPS_PER_S,
             "share_of_k8_peak": (rate / fma_peak_ops_per_s

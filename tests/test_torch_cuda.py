@@ -10,6 +10,8 @@ chip_smoke.py runs the same checks at the main path's full shapes; these
 are small and quick.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,8 @@ from nanocall_tpu_torch import convert, events, kmer, pore_model, tools, \
 from nanocall_tpu_torch.models import load_builtin_models
 from nanocall_tpu_torch.ops import hmm
 from torch_helpers import random_block_table
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture()
@@ -800,13 +804,15 @@ def test_generic_traceback_ring_cases_on_the_card(card, tmp_path, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("inputs", ["clean", "NaN"])
 def test_statepar_kernels_bit_equal_on_the_card(card, inputs):
-    """K1m and K2m, the decode with the 4096 states split over M = 2 and 4
-    ranks on cuda:0 (a stream each; parallel/statepar.py), against their
-    plain versions over the same ranks and against K1 + K2, path and
-    score-only, every output as bits: on reads of lengths 0, 1, T-1 and T
-    (clean) and on _nan_decode_inputs (NaN events, a NaN stay entry, a NaN
-    model entry); one data row of all reads, then two rows of half.  T M
-    launches of K1m and one of K2m a row."""
+    """K1m and K2m, the decode with the 4096 states split over M = 2, 4 and
+    8 ranks on cuda:0 (parallel/statepar.py), against their plain versions
+    over the same ranks and against K1 + K2, path and score-only, every
+    output as bits: on reads of lengths 0, 1, T-1 and T (clean) and on
+    _nan_decode_inputs (NaN events, a NaN stay entry, a NaN model entry);
+    one data row of all reads, then two rows of half.  One launch of K1m a
+    wave and row (plan_waves on the card's resident blocks: one wave here)
+    and one of K2m a row; a row of one rank (M = 1) decodes by K1 + K2 and
+    launches neither."""
     from nanocall_tpu_torch.parallel import statepar
 
     if inputs == "clean":
@@ -817,7 +823,7 @@ def test_statepar_kernels_bit_equal_on_the_card(card, inputs):
     full = hmm.viterbi_decode_grouped(gt, model, ev)
     score = hmm.viterbi_decode_grouped(gt, model, ev, with_path=False)
     torch.cuda.synchronize()
-    for M in (2, 4):
+    for M in (1, 2, 4, 8):
         for n_rows in (1, 2):
             b = B // n_rows
             rows = [statepar.split_states(
@@ -827,14 +833,19 @@ def test_statepar_kernels_bit_equal_on_the_card(card, inputs):
                 {k: v[i * b:(i + 1) * b] for k, v in ev.items()},
                 [card] * M) for i in range(n_rows)]
             for with_path, ref in ((True, full), (False, score)):
+                waves = (statepar.plan_waves(b, [card] * M, {
+                    card: hmm.forward_wave_resident(card, with_path)})[card]
+                    if M > 1 else [])
                 want = statepar.viterbi_decode_statepar_plain(rows, with_path)
-                n0 = (hmm.forward_slice_kernel.launches,
+                n0 = (hmm.forward_wave_kernel.launches,
                       hmm.traceback_slices_kernel.launches)
                 got = statepar.viterbi_decode_statepar(rows, with_path)
                 torch.cuda.synchronize()
-                assert (hmm.forward_slice_kernel.launches - n0[0],
+                assert (hmm.forward_wave_kernel.launches - n0[0],
                         hmm.traceback_slices_kernel.launches - n0[1]) == \
-                    (n_rows * T * M, n_rows if with_path else 0)
+                    (n_rows * len(waves), n_rows if with_path and M > 1
+                     else 0)
+                assert len(waves) == (M > 1), waves
                 for key in ref:
                     what = (inputs, M, n_rows, with_path, key)
                     g = torch.cat([o[key] for o in got])
@@ -844,3 +855,111 @@ def test_statepar_kernels_bit_equal_on_the_card(card, inputs):
                     assert torch.equal(_bits(g), _bits(ref[key])), what
     if inputs == "NaN":
         assert torch.isnan(full["logp"]).any()
+
+
+def _wave_ranks(card, B: int, T: int, M: int, seed: int) -> list:
+    """K1m's ranks (statepar's WaveRanks, backpointers kept) of one data
+    row of B reads of T events over M ranks on `card`."""
+    from nanocall_tpu_torch.parallel import statepar
+
+    gt, model, ev = _grouped_inputs(card, [T] * B, T, seed)
+    return [statepar._wave_rank(p, True)
+            for p in statepar.split_states(gt, model, ev, [card] * M)]
+
+
+@pytest.mark.cuda
+def test_statepar_wave_too_large_raises_on_the_card(card):
+    """A K1m wave whose grid exceeds the blocks the card holds at once
+    (one read more than forward_wave_resident // M, at M = 2) is refused
+    by the cooperative launch and raises; nothing hangs and nothing is
+    counted.  The largest wave that fits runs, bit-equal to the plain
+    version."""
+    M = 2
+    per = hmm.forward_wave_resident(card, True) // M
+    ranks = _wave_ranks(card, per + 1, 3, M, 23)
+    want = [r._replace(col=r.col.clone(), bps=r.bps.clone()) for r in ranks]
+    n0 = hmm.forward_wave_kernel.launches
+    with pytest.raises(RuntimeError, match="viterbi_forward_wave"):
+        hmm.forward_wave_kernel(ranks, list(range(M)), 0, per + 1)
+    assert hmm.forward_wave_kernel.launches == n0
+    hmm.forward_wave_kernel(ranks, list(range(M)), 0, per)
+    hmm.viterbi_forward_wave_plain(want, 0, per)
+    torch.cuda.synchronize()
+    for r, w in zip(ranks, want):
+        assert torch.equal(_bits(r.col[:, :per]), _bits(w.col[:, :per]))
+        assert torch.equal(r.bps[:, :per], w.bps[:, :per])
+
+
+@pytest.mark.cuda
+def test_statepar_wave_timeout_on_the_card(card, tmp_path):
+    """A K1m wave of one read whose peer never runs (rank 0 of 2 launched
+    alone) waits out its timeout (0.5 s here), records (t, read, rank,
+    peer) = (1, 3, 0, 1) in the host-mapped word and traps: the process's
+    next synchronize raises; it does not hang.  In a process of its own,
+    whose card context the trap ends."""
+    import subprocess
+    import sys
+
+    script = tmp_path / "timeout.py"
+    script.write_text(
+        "import sys, torch\n"
+        "sys.path[:0] = [%r, %r]\n"
+        "from test_torch_cuda import _wave_ranks\n"
+        "from nanocall_tpu_torch.ops import hmm\n"
+        "card = torch.device('cuda', 0)\n"
+        "hmm.WAVE_TIMEOUT_S = 0.5\n"
+        "ranks = _wave_ranks(card, 5, 4, 2, 29)\n"
+        "torch.cuda.synchronize()\n"
+        "hmm.forward_wave_kernel(ranks, [0], 3, 4)\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', hmm.wave_timeout())\n"
+        "    sys.exit(3)\n"
+        "print('no error')\n" % (str(ROOT), str(ROOT / "tests")))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 3, (proc.stdout, proc.stderr[-2000:])
+    assert "raised (1, 3, 0, 1)" in proc.stdout, proc.stdout
+
+
+def _grouped_walk_inputs(dev, B: int, T: int, lengths, seed: int):
+    """A grouped traceback's inputs drawn at random: final alphas (B,
+    4096) and valid grouped backpointer bytes (stay 0, step 64 + [0, 4),
+    skip 128 + [0, 16)) (T-1, B, 4096), made from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    fa = convert.tensor(rng.normal(0.0, 10.0, (B, 4096)).astype(np.float32),
+                        dev)
+    kind = rng.integers(0, 3, (T - 1, B, 4096))
+    arg = rng.integers(0, 16, (T - 1, B, 4096))
+    k = np.where(kind == 0, 0, np.where(kind == 1, 64 + (arg & 3), 128 + arg))
+    bps = torch.from_numpy(k.astype(np.uint8)).to(dev)
+    return fa, bps, convert.tensor(np.asarray(lengths), dev, torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 4, 64])
+def test_traceback_slices_ring_bit_equal_on_the_card(card, M):
+    """K2m on K2's row ring, each row assembled from M slices (64 copies of
+    64 bytes a row at M = 64): path0, codes and logp bit-equal to K2's ring
+    on the whole rows (the one-device walk) and to its plain version, on
+    random final alphas and grouped backpointers of 300 reads at full
+    lengths (more blocks than SMs) and of reads of lengths 0 to T, with a
+    final alpha NaN at some states in one read."""
+    W = 4096 // M
+    for B, T, lengths in ((300, 64, [64] * 300),
+                          (9, 200, [200, 0, 1, 2, 199, 200, 57, 200, 3])):
+        fa, bps, ln = _grouped_walk_inputs(card, B, T, lengths, M + T)
+        fa[4, [7, 2000]] = float("nan")
+        column = [fa[:, m * W:(m + 1) * W].contiguous() for m in range(M)]
+        slices = [bps[..., m * W:(m + 1) * W].contiguous() for m in range(M)]
+        want = hmm.traceback_kernel(6, fa, bps, ln)
+        plain = hmm.viterbi_traceback_slices_plain(6, column, slices, ln)
+        n0 = hmm.traceback_slices_kernel.launches
+        got = hmm.traceback_slices_kernel(6, column, slices, ln)
+        torch.cuda.synchronize()
+        assert hmm.traceback_slices_kernel.launches == n0 + 1
+        for what, g, w, p in zip(("path0", "codes", "logp"), got, want,
+                                 plain):
+            assert torch.equal(_bits(g), _bits(w)), (M, B, what)
+            assert torch.equal(_bits(g), _bits(p)), (M, B, what)

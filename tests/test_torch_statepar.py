@@ -292,45 +292,137 @@ def test_slice_kernel_wrappers_refuse_cpu_tensors():
     model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
     ev = basecall.pooled_ev_batch(*args[:5], args[9])
     gt = hmm.make_grouped_trans_device(args[8][:, 0], args[8][:, 1], 6)
-    p = statepar.split_states(gt, model, ev, [CPU] * 2)[1]
+    ranks = [statepar._wave_rank(p, True)
+             for p in statepar.split_states(gt, model, ev, [CPU] * 2)]
     col = torch.zeros((2, 4, 2048))
-    n0 = (hmm.forward_slice_kernel.launches,
+    n0 = (hmm.forward_wave_kernel.launches,
           hmm.traceback_slices_kernel.launches)
     with pytest.raises(ValueError, match="CUDA"):
-        hmm.forward_slice_kernel(p.gt, p.model, p.ev, col, 1, 2048,
-                                 torch.empty((4, 2048)),
-                                 torch.empty((4, 2048), dtype=torch.uint8))
+        hmm.forward_wave_kernel(ranks, [0, 1], 0, 4)
     bps = [torch.zeros((3, 4, 2048), dtype=torch.uint8)] * 2
     with pytest.raises(ValueError, match="CUDA"):
         hmm.traceback_slices_kernel(6, col, bps, ev["length"])
-    assert (hmm.forward_slice_kernel.launches,
+    assert (hmm.forward_wave_kernel.launches,
             hmm.traceback_slices_kernel.launches) == n0
 
 
 def test_slice_kernel_counts():
-    """roofline's counts of K1m (a launch: the gathered column, the step's
-    event, the rank's 9 tables in; its alpha slice and backpointer bytes
-    out; K1's operations for its states), K2m (K2's), and the exchange:
-    the column's all-gather and the walk's rows in other ranks' slices."""
+    """roofline's counts of K1m and K2m are those of the function a data
+    row's decode computes, whatever its ranks: K1's (events, 9 tables and
+    the final column once, a backpointer byte per event after the first
+    and state; K1's operations for all n states) and K2's; the exchange
+    apart: the peers' slices read in place and the walk's ring copies from
+    the other ranks' slices.  At 128 x 8192 K1m is bound by operations,
+    1.839 ms, as K1 is."""
     B, n = 128, 4096
+    for T in (1, 8192):
+        assert roofline.kernel_counts("viterbi_forward_slice", B, T) == (
+            12 * B * T + 4 * B + 40 * B * n + (T - 1) * B * n,
+            28.6875 * B * T * n)
+        assert roofline.kernel_counts("viterbi_forward_slice", B, T) == \
+            roofline.kernel_counts("viterbi_forward_path", B, T)
+        assert roofline.kernel_counts("viterbi_traceback_slices", B, T) == \
+            roofline.kernel_counts("viterbi_traceback", B, T)
     for ranks in (1, 2, 4):
         W = n // ranks
-        got = roofline.kernel_counts("viterbi_forward_slice", B, 1,
-                                     ranks=ranks)
-        assert got == (4 * B * n + 16 * B + 41 * B * W, 28.6875 * B * W)
-        assert roofline.kernel_counts("viterbi_forward_slice", B, 8192,
-                                      ranks=ranks)[0] == 8192 * got[0]
-        assert roofline.kernel_counts("viterbi_traceback_slices", B, 8192,
-                                      ranks=ranks) == \
-            roofline.kernel_counts("viterbi_traceback", B, 8192)
         ex = roofline.statepar_exchange_bytes(B, 8192, ranks, 7)
-        assert ex == {"column": 8192 * ranks * (ranks - 1) * 4 * B * W,
-                      "walk": 7}
-    b = roofline.kernel_bound("viterbi_forward_slice", B, 1, ranks=2)
-    assert b["bound_by"] == "bytes"
+        assert ex == {"column": 8191 * ranks * (ranks - 1) * 4 * B * W,
+                      "walk": 7 * (ranks - 1) * W}
+    b = roofline.kernel_bound("viterbi_forward_slice", B, 8192)
+    assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(
-        1e3 * (4 * B * n + 16 * B + 41 * B * 2048)
-        / roofline.H100_HBM_BYTES_PER_S)
-    paths = [np.array([9, 3000, 5, 2048, 2047, 4095]), np.array([4000, 1])]
-    assert roofline.walk_remote_rows(paths, [6, 2], 2) == 3
-    assert roofline.walk_remote_rows(paths, [6, 2], 4) == 4
+        1e3 * 28.6875 * B * 8192 * n / roofline.H100_F32_OPS_PER_S)
+    assert b["bound_ms"] == pytest.approx(1.839, abs=5e-4)
+    assert roofline.walk_rows([6, 2, 0, 1, 9000], 8192) == 5 + 1 + 8191
+    assert roofline.walk_rows(torch.tensor([3, 3]), 2) == 2
+
+
+@pytest.mark.parametrize("B,devices,resident,per", [
+    (128, ["a", "a"], {"a": 132}, 66),
+    (128, ["a"] * 4, {"a": 132}, 33),
+    (64, ["a", "a"], {"a": 132}, 64),
+    (128, ["a", "b"], {"a": 132, "b": 100}, 100),
+    (128, ["a", "b", "a", "b"], {"a": 132, "b": 132}, 66),
+    (10, ["a", "b", "b"], {"a": 5, "b": 7}, 3),
+    (3, ["a"] * 64, {"a": 132}, 2),
+])
+def test_plan_waves(B, devices, resident, per):
+    """plan_waves covers every read once, in contiguous waves of at most
+    `per` reads, whose grid (reads x the row's ranks on a card) fits each
+    card's resident blocks, and cuts the same waves for every card of the
+    row; a card too small for one read raises."""
+    waves = statepar.plan_waves(B, devices, resident)
+    assert sorted(waves) == sorted(set(devices))
+    cuts = list(waves.values())
+    assert all(c == cuts[0] for c in cuts)
+    reads = [b for lo, hi in cuts[0] for b in range(lo, hi)]
+    assert reads == list(range(B))
+    assert max(hi - lo for lo, hi in cuts[0]) == min(per, B)
+    for d, cut in waves.items():
+        for lo, hi in cut:
+            assert (hi - lo) * devices.count(d) <= resident[d], (d, lo, hi)
+    with pytest.raises(ValueError):
+        statepar.plan_waves(B, devices, {d: devices.count(d) - 1
+                                         for d in devices})
+
+
+@pytest.mark.parametrize("T", [8, 9])
+@pytest.mark.parametrize("M", [2, 4, 8])
+def test_forward_wave_plain_keeps_both_parities(M, T):
+    """The plain K1m's double buffer, which the kernel's exchange reads in
+    place and chip_smoke.py compares with the kernel's whole: after a wave
+    of all reads, every rank's col[(T - 1) % 2] holds its slice of the
+    final column and col[(T - 2) % 2] its slice of the column before
+    (viterbi_forward_grouped_plain over the first T - 1 events, lengths
+    unchanged), on NaN inputs; the counters are left at 0."""
+    args = _port_args(6, T, 31 + T, nan=True)
+    model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
+    ev = basecall.pooled_ev_batch(*args[:5], args[9])
+    gt = hmm.make_grouped_trans_device(args[8][:, 0], args[8][:, 1], 6)
+    last, _ = hmm.viterbi_forward_grouped_plain(gt, model, ev)
+    before, _ = hmm.viterbi_forward_grouped_plain(gt, model, {
+        k: v if k == "length" else v[:, :T - 1] for k, v in ev.items()})
+    ranks = [statepar._wave_rank(p, False)
+             for p in statepar.split_states(gt, model, ev, [CPU] * M)]
+    hmm.viterbi_forward_wave_plain(ranks, 0, 6)
+    for t, want in ((T - 1, last), (T - 2, before)):
+        got = hmm.gather_column([r.col[t % 2] for r in ranks])
+        assert torch.equal(_bits(got), _bits(want)), (M, T, t)
+    assert torch.isnan(last).any()
+    assert all(not r.flags.any() for r in ranks)
+
+
+@pytest.mark.parametrize("M", [1, 128])
+def test_forward_wave_kernel_refuses_rank_counts(M):
+    """K1m takes 2 to 64 ranks (slices of 2048 to 64 states): a row of one
+    rank decodes by K1 + K2 (statepar), and 128 ranks would cut slices of
+    32 states; either raises before any launch, and counts nothing."""
+    args = _port_args(4, 4, 1)
+    model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
+    ev = basecall.pooled_ev_batch(*args[:5], args[9])
+    gt = hmm.make_grouped_trans_device(args[8][:, 0], args[8][:, 1], 6)
+    ranks = [statepar._wave_rank(p, True)
+             for p in statepar.split_states(gt, model, ev, [CPU] * M)]
+    n0 = hmm.forward_wave_kernel.launches
+    with pytest.raises(ValueError, match="2 to 64 ranks"):
+        hmm.forward_wave_kernel(ranks, [0], 0, 4)
+    assert hmm.forward_wave_kernel.launches == n0
+
+
+def test_forward_wave_plain_equals_the_grouped_forward():
+    """The plain K1m over two waves of a row of 2 ranks: the ranks' final
+    slices and backpointer slices joined are viterbi_forward_grouped_plain's
+    final alpha and backpointers, read by read."""
+    args = _port_args(5, 9, 21)
+    model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
+    ev = basecall.pooled_ev_batch(*args[:5], args[9])
+    gt = hmm.make_grouped_trans_device(args[8][:, 0], args[8][:, 1], 6)
+    alpha, bps = hmm.viterbi_forward_grouped_plain(gt, model, ev)
+    ranks = [statepar._wave_rank(p, True)
+             for p in statepar.split_states(gt, model, ev, [CPU] * 2)]
+    for lo, hi in ((0, 3), (3, 5)):
+        hmm.viterbi_forward_wave_plain(ranks, lo, hi)
+    assert torch.equal(_bits(hmm.gather_column([r.col[0] for r in ranks])),
+                       _bits(alpha))
+    assert torch.equal(torch.cat([r.bps for r in ranks], dim=2), bps)
+    assert all(not r.flags.any() for r in ranks)

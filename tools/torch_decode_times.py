@@ -391,7 +391,8 @@ def run_turns(other: str) -> int:
 #: the time loops of K1 (path, score-only; one runtime-switched instance
 #: before the redesign), K3's forward chunk, K4, K5, K6d and K6c's
 #: streaming kernel, by kernel name marker, the first one the tree has
-#: (since K1m, K1's kernel has a third template argument)
+#: (K1's kernel took a third template argument while K1m's one-step
+#: launch was an instance of it)
 CENSUS_LOOPS = (("K1 path", ("viterbi_forward_kernelILb0ELb1ELb0E",
                              "viterbi_forward_kernelILb0ELb1E",
                              "viterbi_forward_kernelILb0E")),

@@ -19,9 +19,12 @@ It needs two cards or more (it exits 2 with fewer) and
    parallel.mesh.shard_pooled_decode_inputs on (data, model) meshes of
    distinct cards: (1, 2), and with four cards (2, 2) from make_mesh's
    default device list: path0, codes and logp bit-equal to the unplaced
-   decode on cuda:0 (K1 + K2), K2m reading the peers' backpointer slices
-   over peer access; each mesh's wall beside the same mesh with every
-   rank on cuda:0 and K1 + K2's;
+   decode on cuda:0 (K1 + K2), with one K1m launch a wave and card (its
+   exchange at system scope: the peers' column slices and counters read
+   in place over peer access) and one K2m a data row, whose ring copies
+   the peers' backpointer slices by cp.async.bulk over peer access (the
+   check that a bulk copy reads a peer card's memory); each mesh's wall
+   beside the same mesh with every rank on cuda:0 and K1 + K2's;
 4. runs chip_smoke.py's 24 simulated reads through basecall.run_pipeline,
    untrained and trained, over the default data sharder (every card:
    basecall.default_sharder) and over cuda:0 alone: FASTA byte-equal, stats
@@ -119,7 +122,8 @@ def run_mesh(models, cards, card_line: str) -> dict:
     import torch
 
     from nanocall_tpu_torch import basecall
-    from nanocall_tpu_torch.parallel import mesh
+    from nanocall_tpu_torch.ops import hmm, kernels
+    from nanocall_tpu_torch.parallel import mesh, statepar
 
     B, T = chip_smoke.B_MESH, chip_smoke.T_MESH
     args = chip_smoke.pooled_inputs(models, cards[0], B, T,
@@ -143,7 +147,14 @@ def run_mesh(models, cards, card_line: str) -> dict:
         grid = (mesh.make_mesh(D * M, model_axis=M) if D * M == 4
                 else mesh.make_mesh(D * M, model_axis=M, devices=cards))
         assert grid.shape == {"data": D, "model": M}, grid.shape
+        kernels.reset_launches()
         s, got = wall(mesh.shard_pooled_decode_inputs(grid, *args))
+        waves = sum(len(statepar.plan_waves(B // D, row, {
+            d: hmm.forward_wave_resident(d, True, True) for d in row})[row[0]])
+            * len(set(row)) for row in grid.devices)
+        assert (hmm.forward_wave_kernel.launches,
+                hmm.traceback_slices_kernel.launches) == (waves, D), \
+            (hmm.forward_wave_kernel.launches, waves)
         assert [o["codes"].device for o in got] == [row[0] for row in
                                                     grid.devices]
         got = mesh.join(got)
