@@ -111,7 +111,25 @@ from the root of a checkout.  It
      memory, each rank's backpointer bytes and the bytes its ranks read
      from each other (roofline.statepar_exchange_bytes); and K2m against
      K2's ring at 128 x 8192 over 2, 4 and 64 ranks, in turns, as drawn
-     and at full lengths;
+     and at full lengths; then the generic decode on the state axis
+     (parallel.mesh.shard_decode_inputs and
+     parallel.statepar.viterbi_decode_placed: K6am and K6bm, K6a and K6b
+     with the 4096 states split over a data row's ranks): at 16 x 2048 on
+     the NaN inputs, one K6am launch over 2 ranks in its resident form
+     (under the loaded table) and in its streaming form (under the
+     priors' table) against its plain version (column slices and
+     backpointers as bits) and timed by CUDA events around each of 5
+     launches, K6bm on its output with the from-state table and with
+     from_idx against its plain version and K6b's ring, and K6a under
+     per-read structured tables (build_structured_batch,
+     convert.trans_ops_batch; both kernels, path and score-only) against
+     its plain version; then the path chunk's events and models, 128 x
+     8,192, decoded on (1, 2), (1, 4) and (2, 2) meshes of cuda:0 under
+     the loaded table, the priors' table and per-read tables, path and
+     score-only, each bit-equal to K6a + K6b, counted as the generic mesh
+     path (one K6am launch a wave and data row, waves from K6am's own
+     resident blocks, one K6bm a row), with K6am's and K6bm's device
+     time;
   6. runs the EM kernels at the EM chunk's full width: n = 4096, 128
      training groups x 4 = 512 rows of T = 128 events, packed by
      nanocall_tpu_torch.basecall.pack_train_batch from the simulated reads
@@ -270,6 +288,11 @@ MESH_RANKS = (2, 4)
 #: the ranks K2m is timed at against K2's ring at the path chunk (64: a
 #: row of 64 copies of 64 bytes, the most ranks the kernels take)
 K2M_RANKS = (2, 4, 64)
+#: the generic mesh phase: the kernels the placed generic decode (K6am's
+#: two forms, K6bm) must launch, and the kinetics of its per-read tables
+GENERIC_MESH_KERNELS = ("viterbi_generic_wave_resident",
+                        "viterbi_generic_wave_streaming",
+                        "viterbi_generic_traceback_slices")
 #: kernels each host's half of the multi-host emulation must launch (its
 #: reads may hold no contest, so no score-only chunk)
 HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
@@ -1118,6 +1141,250 @@ def run_mesh(models, device, card: str, rng) -> dict:
     del fa, bps
     return {"launches": total, "meshes": meshes, "k1k2": k1k2,
             "walks": walks}
+
+
+def per_read_ops(device, B: int, rng):
+    """Per-read structured tables of B reads at kinetics drawn around the
+    CLI priors (transitions.build_structured_batch,
+    convert.trans_ops_batch): every read's table packs, so K6a and K6am
+    take their resident forms."""
+    import numpy as np
+
+    from nanocall_tpu_torch import convert, transitions
+    from nanocall_tpu_torch.ops import hmm
+
+    params = np.stack([rng.uniform(0.05, 0.2, B),
+                       rng.uniform(0.2, 0.4, B)], 1)
+    ops = convert.trans_ops_batch(
+        *transitions.build_structured_batch(params, 6), 6, device)
+    assert hmm.per_read(ops) and hmm.generic_forward_route(ops) == "resident"
+    return ops
+
+
+def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
+    """K6am, K6bm and the per-read K6a at the kernel phase's shape, on
+    nan_inputs' model and events (NaN events in read 4 from event 700 on,
+    a NaN model entry in read 6): one K6am launch (the wave of all B reads,
+    2 ranks on the events' card) in its resident form under the loaded
+    table and in its streaming form under the priors' table, each against
+    its plain version on the same ranks (every rank's column buffer, both
+    parities, and its backpointers as bits) and timed by launch_spans (5
+    launches, counters zeroed before each); K6bm on the resident run's
+    final slices and backpointer slices, with the from-state table and
+    with from_idx (the rule of tables wider than 24 slots), against its
+    plain version and against K6b's ring on the same rows whole; and K6a
+    under per-read tables (resident and streaming, path and score-only)
+    against its plain version.  Returns the records of K6am's two forms and
+    K6bm; prints the per-read K6a's times."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    _, m, e = nan_inputs(gt, model, ev)
+    dev = e["mean"].device
+    B, T = e["mean"].shape
+    lengths = e["length"]
+    recs, walk = {}, None
+    for name, ops, form in (
+            ("viterbi_generic_wave_resident", trans_ops, "resident"),
+            ("viterbi_generic_wave_streaming", priors_ops, "streaming")):
+        assert hmm.generic_forward_route(ops) == form, name
+        row = statepar.split_table_states(ops, m, e, [dev] * 2)
+        ranks = [statepar._generic_wave_rank(p, True) for p in row.parts]
+        plain = [r._replace(col=r.col.clone(), bps=r.bps.clone())
+                 for r in ranks]
+        wrapper = f"generic_wave_{form}_kernel"
+
+        def k6am(ranks=ranks, wrapper=wrapper):
+            for r in ranks:
+                r.flags.zero_()
+            getattr(hmm, wrapper)(ranks, [0, 1], 0, B)
+
+        k6am()
+        plain_ms, _ = cuda_ms_once(
+            lambda: hmm.viterbi_forward_generic_wave_plain(plain, 0, B))
+        torch.cuda.synchronize()
+        for rk, rp in zip(ranks, plain):
+            assert torch.equal(bits(rk.col), bits(rp.col)), \
+                f"K6am ({form}) column slices differ from plain"
+            assert torch.equal(rk.bps, rp.bps), \
+                f"K6am ({form}) bps differ from plain"
+        spans = launch_spans(k6am, wrapper, dev, 5)
+        recs[name] = {
+            "max_abs_err": max(max_err(rk.col, rp.col)
+                               for rk, rp in zip(ranks, plain)),
+            "ms": 1e3 * spans["device_s"] / 5,
+            "host_us": 1e6 * spans["host_s"] / 5, "plain_ms": plain_ms,
+            "shape": [B, T], "ranks": 2}
+        if form == "resident":
+            walk = (row.walk, [r.col[(T - 1) % 2] for r in ranks],
+                    [r.bps for r in ranks])
+        del ranks, plain
+    table, final, slices = walk
+    fa, bps = hmm.gather_column(final), torch.cat(slices, dim=2)
+    ring = hmm.generic_traceback_ring_kernel(trans_ops, fa, bps, lengths)
+    tb_plain_ms, tb_p = cuda_ms_once(
+        lambda: hmm.viterbi_traceback_generic_slices_plain(
+            table, final, slices, lengths))
+    for rule, t in (("from-state table", table),
+                    ("from_idx", table._replace(from_states=None))):
+        tb_k = hmm.generic_traceback_slices_kernel(t, final, slices, lengths)
+        torch.cuda.synchronize()
+        for what, a, b, c in zip(("path", "logp"), tb_k, tb_p, ring):
+            assert torch.equal(bits(a), bits(b)), \
+                f"K6bm ({rule}) {what} differs from plain"
+            assert torch.equal(bits(a), bits(c)), \
+                f"K6bm ({rule}) {what} differs from K6b's ring"
+    assert torch.isnan(tb_p[1]).any(), "the NaN inputs gave no NaN logp"
+    recs["viterbi_generic_traceback_slices"] = {
+        "max_abs_err": max_err(tb_k[1], tb_p[1]),
+        "ms": cuda_ms(lambda: hmm.generic_traceback_slices_kernel(
+            table, final, slices, lengths), 3),
+        "idx_rule_ms": cuda_ms(lambda: hmm.generic_traceback_slices_kernel(
+            table._replace(from_states=None), final, slices, lengths), 3),
+        "k6b_ring_ms": cuda_ms(lambda: hmm.generic_traceback_ring_kernel(
+            trans_ops, fa, bps, lengths), 3),
+        "plain_ms": tb_plain_ms, "shape": [B, T], "ranks": 2}
+    del walk, final, slices, fa, bps
+    # K6a under per-read tables: its resident and streaming kernels
+    ops = per_read_ops(dev, B, np.random.default_rng(2027))
+    per_read = {}
+    for form, o in (("resident", ops),
+                    ("streaming", ops._replace(from_packed=None,
+                                               from_codebook=None))):
+        for with_path in (True, False):
+            p_ms, want = cuda_ms_once(lambda: hmm.viterbi_forward_plain(
+                o, m, e, with_path))
+            got = hmm.viterbi_forward(o, m, e, with_path)
+            torch.cuda.synchronize()
+            assert torch.equal(bits(got[0]), bits(want[0])), \
+                f"per-read K6a ({form}) final alpha differs from plain"
+            if with_path:
+                assert torch.equal(got[1], want[1]), \
+                    f"per-read K6a ({form}) bps differ from plain"
+            per_read[(form, with_path)] = {
+                "ms": cuda_ms(lambda: hmm.viterbi_forward(o, m, e,
+                                                          with_path), 3),
+                "plain_ms": p_ms}
+    recs["per_read_k6a"] = per_read
+    return recs
+
+
+def run_generic_mesh(models, device, card: str, rng, trans_ops,
+                     priors_ops) -> dict:
+    """The generic mesh path at the path chunk, B_MESH x T_MESH: under the
+    loaded table (K6am resident), the priors' loaded table (streaming) and
+    per-read tables of the chunk's reads (resident, per read), the unplaced
+    decode (K6a + K6b) and, on each (data, model) mesh of MESH_SHAPES with
+    every rank on `device`, statepar.viterbi_decode_placed on
+    mesh.shard_decode_inputs' placement, path then score-only, each pair
+    counted as the mesh path (every kernel count set to 0 just before,
+    read just after): one K6am launch a wave and data row
+    (statepar.plan_waves on K6am's own resident blocks) and one K6bm a data
+    row; path and logp (and the score-only logp) bit-equal to the
+    unplaced decode's.  Each decode's wall and device time, K6am's and
+    K6bm's device time (launch_spans around each launch of one more path
+    decode each).  Returns {"launches" (summed), "cells": {(table, D, M):
+    record}, "k6": {table: record}}."""
+    import torch
+
+    from nanocall_tpu_torch import basecall, roofline
+    from nanocall_tpu_torch.ops import hmm, kernels
+    from nanocall_tpu_torch.parallel import mesh, statepar
+
+    args = pooled_inputs(models, device, B_MESH, T_MESH, rng)
+    model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
+    ev = basecall.pooled_ev_batch(*args[:5], args[9])
+    del args
+    tables = {"loaded (0.14, 0.21)": trans_ops,
+              "priors' loaded (0.1, 0.3)": priors_ops,
+              "per-read": per_read_ops(device, B_MESH, rng)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                start.elapsed_time(stop) / 1e3)
+
+    total = {k.name: 0 for k in kernels.KERNELS}
+    cells, k6 = {}, {}
+    for tname, ops in tables.items():
+        form = hmm.generic_forward_route(ops)
+        wrapper = f"generic_wave_{form}_kernel"
+        ref, wall, dev_s = timed(lambda: hmm.viterbi_decode(ops, model, ev))
+        ref_s = hmm.viterbi_decode(ops, model, ev, with_path=False)
+        k6[tname] = {"wall_s": wall, "device_s": dev_s, "form": form}
+        deg = (ops.from_packed if form == "resident"
+               else ops.from_idx).shape[-2]
+        for D, M in MESH_SHAPES:
+            grid = mesh.make_mesh(D * M, model_axis=M,
+                                  devices=[device] * (D * M))
+            placed = mesh.shard_decode_inputs(grid, ops, model, ev)
+            b, W = B_MESH // D, 4096 // M
+            waves = {w: len(statepar.plan_waves(b, [device] * M, {
+                device: hmm.generic_wave_resident(
+                    device, w, False, form == "resident", deg, W)})[device])
+                for w in (True, False)}
+            kernels.reset_launches()
+            out, wall, dev_s = timed(
+                lambda: statepar.viterbi_decode_placed(*placed))
+            out_s, wall_s, dev_s_s = timed(
+                lambda: statepar.viterbi_decode_placed(*placed,
+                                                       with_path=False))
+            launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+            assert launches[f"viterbi_generic_wave_{form}"] == \
+                D * (waves[True] + waves[False]), (launches, waves)
+            assert launches["viterbi_generic_traceback_slices"] == D, \
+                launches
+            assert sum(launches.values()) == \
+                D * (waves[True] + waves[False] + 1), launches
+            got, got_s = mesh.join(out), mesh.join(out_s)
+            for k in ("path", "logp"):
+                assert torch.equal(bits(got[k]), bits(ref[k].cpu())), \
+                    f"generic mesh {tname} {(D, M)} {k} differs from K6a + K6b"
+            assert torch.equal(bits(got_s["logp"]),
+                               bits(ref_s["logp"].cpu())), \
+                f"generic mesh {tname} {(D, M)} score-only logp differs"
+            for k, v in launches.items():
+                total[k] += v
+            del out, out_s, got, got_s
+            k6am_t = launch_spans(
+                lambda: statepar.viterbi_decode_placed(*placed), wrapper,
+                device)
+            k6bm_t = launch_spans(
+                lambda: statepar.viterbi_decode_placed(*placed),
+                "generic_traceback_slices_kernel", device)
+            assert (k6am_t["launches"], k6bm_t["launches"]) == \
+                (D * waves[True], D), (k6am_t, k6bm_t)
+            ex = roofline.statepar_exchange_bytes(b, T_MESH, M)
+            rec = {"wall_s": wall, "device_s": dev_s,
+                   "score_wall_s": wall_s, "score_device_s": dev_s_s,
+                   "k6am_device_s": k6am_t["device_s"],
+                   "k6bm_device_s": k6bm_t["device_s"],
+                   "waves_a_row": waves, "form": form,
+                   "column_exchange_bytes": D * ex["column"]}
+            cells[(tname, D, M)] = rec
+            print(f"generic mesh {(D, M)} under the {tname} table ({form} "
+                  f"K6am): B={B_MESH} T={T_MESH}, path and logp (and "
+                  f"score-only logp) bit-equal to K6a + K6b; path decode "
+                  f"{wall:.4f} s of wall, {dev_s:.4f} s device (K6am "
+                  f"{k6am_t['device_s']:.4f} s in {D * waves[True]} "
+                  f"launches, K6bm {1e3 * k6bm_t['device_s']:.3f} ms in {D})"
+                  f" vs K6a + K6b {k6[tname]['device_s']:.4f} s device; "
+                  f"score-only {dev_s_s:.4f} s device; peers' column slices "
+                  f"read {D * ex['column'] / 1e9:.3f} GB; waves a row "
+                  f"{waves} [{card}]")
+            del placed
+        del ref, ref_s
+    return {"launches": total, "cells": cells, "k6": k6}
 
 
 def load_trans_table(device, p_stay: float = TRANS_P_STAY,
@@ -2903,6 +3170,28 @@ def main() -> int:
     mesh_run = run_mesh(models, device, card, mesh_rng)
     torch.cuda.empty_cache()
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gsp = check_generic_statepar(trans[2], priors[2], *kernel_inputs(
+        models, device, B_KERNEL, T_KERNEL, np.random.default_rng(2028)))
+    for (form, with_path), r in gsp.pop("per_read_k6a").items():
+        print(f"K6a under per-read tables ({form}, "
+              f"{'path' if with_path else 'score-only'}): B={B_KERNEL} "
+              f"T={T_KERNEL} NaN inputs, bit-equal to plain; {r['ms']:.3f} "
+              f"ms vs plain {r['plain_ms']:.3f} ms [{card}]")
+    for name, r in gsp.items():
+        extra = (f" a launch by CUDA events around each (host enqueue "
+                 f"{r['host_us']:.2f} us)" if "host_us" in r
+                 else f" (from_idx rule {r['idx_rule_ms']:.4f} ms, K6b's "
+                      f"ring on the same rows {r['k6b_ring_ms']:.4f} ms)")
+        print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} over 2 ranks, NaN "
+              f"inputs, bit-equal to plain; {r['ms']:.4f} ms{extra} vs "
+              f"plain {r['plain_ms']:.3f} ms [{card}]")
+    recs.update(gsp)
+    generic_mesh = run_generic_mesh(models, device, card,
+                                    np.random.default_rng(2029), trans[2],
+                                    priors[2])
+    torch.cuda.empty_cache()
+    print(f"generic mesh phase: {time.perf_counter() - t0:.1f} s")
 
     reads = simulated_reads(models, rng)
     inp = em_kernel_inputs(models, reads, device, rng)
@@ -3011,6 +3300,7 @@ def main() -> int:
             "dump": dump["launches"], "measure": measure["launches"],
             "repro": repro_launches, "seqpar": seq["launches"],
             "mesh": mesh_run["launches"],
+            "generic_mesh": generic_mesh["launches"],
             "sharded_untrained": sharded["untrained"]["launches"],
             "sharded_trained": sharded["trained"]["launches"],
             "multihost": multihost_launches}
@@ -3021,7 +3311,7 @@ def main() -> int:
                 "library_ms": None, **recs[k.name],
                 **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
                for k in kernels.KERNELS]
-    assert len(records) == 23 and all(r["launches"] for r in records), \
+    assert len(records) == 26 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])

@@ -102,6 +102,16 @@ def trans_ops(table, device) -> hmm.TransOps:
         else torch.from_numpy(states).to(device))
 
 
+def trans_ops_batch(from_logp, to_logp, K: int, device) -> hmm.TransOps:
+    """Per-read structured tables (B, 21, n) as a TransOps on `device`,
+    from the JAX package's numpy arrays (transitions.build_structured_batch,
+    as nanocall_tpu/ops/hmm.py:82 make_trans_ops_batch takes them): the
+    fixed slot maps, K6b's from-state table and, where every read's table
+    packs, the per-read resident K6a layout (hmm.make_trans_ops_batch)."""
+    return hmm.make_trans_ops_batch(tensor(from_logp, device),
+                                    tensor(to_logp, device), K)
+
+
 def write_fast_transitions(path, p_stay: float, p_skip: float,
                            K: int = 6) -> None:
     """Write the 21-neighbour table of (p_stay, p_skip) as a transitions

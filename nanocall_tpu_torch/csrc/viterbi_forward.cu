@@ -109,6 +109,7 @@
 
 #include "common.cuh"
 #include "device_guard.cuh"
+#include "wave_exchange.cuh"
 
 namespace {
 
@@ -157,81 +158,9 @@ struct WaveRank {
   uint8_t* bps;      // (T - 1, B, W), or nullptr (score-only)
   int32_t* flags;    // (B,): t once its slice of column t - 1 is stored
 };
-constexpr int MAX_RANKS = 64;
 
-// The exchange's memory operations, at gpu scope (every rank of the row on
-// one card) or system scope (SYS: across cards).
-template <bool SYS>
-__device__ __forceinline__ float ld_column(const float* p) {
-  float v;
-  if (SYS)
-    asm volatile("ld.relaxed.sys.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
-  else
-    asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
-  return v;
-}
-
-template <bool SYS>
-__device__ __forceinline__ int ld_flag(const int32_t* p) {
-  int v;
-  if (SYS)
-    asm volatile("ld.acquire.sys.global.b32 %0, [%1];"
-                 : "=r"(v) : "l"(p) : "memory");
-  else
-    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-                 : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-template <bool SYS>
-__device__ __forceinline__ void st_flag(int32_t* p, int v) {
-  if (SYS)
-    asm volatile("st.release.sys.global.b32 [%0], %1;" ::"l"(p), "r"(v)
-                 : "memory");
-  else
-    asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
-                 : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// K1m's exchange, in shared memory so that none of it stays in a register
-// through the time loop: the M ranks' column buffers and counters at read
-// b, the block's rank and slice, and the wait's timeout and record.
-struct Exchange {
-  float* col[MAX_RANKS];
-  int32_t* flag[MAX_RANKS];
-  int32_t* timed_out;
-  long long timeout_ns;
-  int ranks, rank, read;
-};
-
-// Until every peer's counter reaches t (warp 0; lane p waits on rank p, p
-// + 32); after the timeout, records (t, read, rank, peer) in the host-
-// mapped word and traps.
-template <bool SYS>
-__device__ __forceinline__ void wait_peers(const Exchange& x, int t,
-                                           int lane) {
-  for (int p = lane; p < x.ranks; p += 32) {
-    if (p == x.rank || ld_flag<SYS>(x.flag[p]) >= t) continue;
-    const unsigned long long t_start = global_ns();
-    while (ld_flag<SYS>(x.flag[p]) < t) {
-      if ((long long)(global_ns() - t_start) > x.timeout_ns) {
-        volatile int32_t* rec = x.timed_out;
-        rec[1] = x.read;
-        rec[2] = x.rank;
-        rec[3] = p;
-        rec[0] = t;
-        __threadfence_system();
-        __trap();
-      }
-    }
-  }
-}
+// The exchange's operations, Exchange and wait_peers: wave_exchange.cuh
+// (shared with K6am).
 
 // The body of K1, K3's chunk and K1m, inlined into each kernel.
 // CHUNK = false: events [0, t1) with t0 = 0; CHUNK = true: one chunk.

@@ -120,6 +120,17 @@
 // tools/torch_multi_gpu.py's mesh phase is the check).  What bounds it:
 // K2's rows streamed, (length - 1) x 4096 bytes a read.
 //
+// K6bm (viterbi_generic_traceback_slices_kernel) is K6b with the states
+// split over M ranks (the generic decode under nanocall_tpu/parallel/
+// mesh.py:75 shard_decode_inputs): K6b's ring kernel on K2m's slices.  The
+// block takes K6b's end argmax over the final column's slices, the
+// producer warp assembles each row from the M slices as K2m's, and the
+// walker follows K6b's rule: the table's uint16 from-state copy in shared
+// memory after the ring (TableFrom, tables of at most 24 slots), or for
+// wider tables the int32 from_idx read from global memory (IdxFrom, one
+// dependent load an event, as K6b's streaming kernel).  What bounds it:
+// K6b's rows streamed.
+//
 // What bounds K9 as a whole: K3's forward operations (one chunk kernel per
 // rank and block) and this walk, over D * M launches of each half for D
 // ranks and M blocks, with a pipeline fill of (D - 1) / (M + D - 1) of the
@@ -152,6 +163,8 @@ constexpr int MIN_STAGES = 2;
 // traceback_ring_smem_bytes budgets the same)
 constexpr int SMEM_PER_BLOCK = 232448;
 constexpr int TABLE_RING_STATIC = 512;
+// and K6bm's, which also holds the slice table (1 KB of static arrays)
+constexpr int SLICES_TABLE_STATIC = 1536;
 
 // The rows of one read's walk in global memory and the ring they pass
 // through.  Row j of the walk (j = 0, 1, ..) is event t_top - j, at
@@ -270,6 +283,16 @@ struct TableFrom {
   uint32_t table;  // shared address of the (deg, N) uint16 table
   __device__ __forceinline__ int operator()(int k, int s_eff) const {
     return (int)nc::lds_u16(table + 2u * (uint32_t)(k * N + s_eff));
+  }
+};
+
+// K6bm's rule under a table of more slots than leave room for the ring
+// beside its from-state table: the state before s_eff is from_idx[k,
+// s_eff], read from the (deg, N) int32 table in global memory.
+struct IdxFrom {
+  const int32_t* idx;
+  __device__ __forceinline__ int operator()(int k, int s_eff) const {
+    return __ldg(idx + (size_t)k * N + s_eff);
   }
 };
 
@@ -582,11 +605,104 @@ viterbi_traceback_slices_kernel(const void* const* __restrict__ table,
   path0[b] = walk_ring(ring, ex.t_top, idx, PackCodes<false>{out, 1, 0, T});
 }
 
+// K6bm: a block per read, K6b's ring kernel on K2m's slices: table holds
+// the M = N >> slice_shift ranks' (B, W) slices of the final column, then
+// their (T - 1, B, W) backpointer rows (16-byte aligned).  The block takes
+// K6b's end argmax over the column's slices, the producer warp assembles
+// each row from the M slices (Ring<true>), and thread 0 walks with the
+// from-state table `from` (deg, N) uint16 in shared memory after the
+// ring's stages (kTable; the producer copies it first) or the (deg, N)
+// int32 from_idx read from global memory, writing the state of every
+// event to path (B, T); the other warps write the end state past the walk.
+template <bool kTable>
+__global__ void __launch_bounds__(THREADS)
+viterbi_generic_traceback_slices_kernel(
+    const void* const* __restrict__ table,
+    const int32_t* __restrict__ length, int B, int T, int slice_shift,
+    int deg, const void* __restrict__ from, int stages,
+    uint16_t* __restrict__ path, float* __restrict__ logp) {
+  extern __shared__ __align__(128) uint8_t ring_buf[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
+  __shared__ __align__(8) uint64_t table_bar;
+  __shared__ const uint8_t* s_slices[MAX_SLICES];
+  __shared__ float w_best[THREADS / 32];
+  __shared__ int w_idx[THREADS / 32];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int W = 1 << slice_shift, M = N >> slice_shift;
+  const int len = length[b];
+  // the walk's rows: events min(len, T) - 1 .. 1 (row t - 1 of each slice)
+  const Extent ex = extent(0, T, len, 0, 0);
+  const size_t stride = (size_t)B * W;
+  Ring<true> ring{ring_buf, full, empty, stages, nullptr, stride, ex.n};
+  ring.slices = s_slices;
+  ring.first = ex.n > 0 ? (size_t)(ex.t_top - 1) * stride + (size_t)b * W : 0;
+  ring.shift = slice_shift;
+  uint8_t* tab = ring_buf + stages * STAGE_BYTES;
+  const uint32_t tbar = nc::smem_addr(&table_bar);
+  if (tid >= PRODUCER && tid < PRODUCER + 32) {
+    // the producer warp alone reads the slice table
+    for (int m = tid - PRODUCER; m < M; m += 32)
+      s_slices[m] = static_cast<const uint8_t*>(table[M + m]);
+    if (kTable && tid == PRODUCER && ex.n > 0) {
+      // the from-state table first (the walk's first event reads it)
+      nc::mbar_init_expect(tbar, deg * N * 2);
+      for (int k = 0; k < deg; ++k)
+        nc::bulk_copy(nc::smem_addr(tab + k * N * 2),
+                      static_cast<const uint16_t*>(from) + (size_t)k * N,
+                      N * 2, tbar);
+    }
+    __syncwarp();
+    ring.start();
+  }
+
+  // the thread's 4 states 4 tid .. 4 tid + 3 lie in one rank's slice
+  const int j0 = 4 * tid;
+  end_argmax_partials_at(static_cast<const float*>(table[j0 >> slice_shift]) +
+                             (size_t)b * W + (j0 & (W - 1)),
+                         tid, w_best, w_idx);
+  __syncthreads();  // also publishes the mbarriers
+  if (tid >= PRODUCER && tid < PRODUCER + 32) {
+    ring.produce();
+    return;
+  }
+  // every other warp takes the argmax over the warps' partials
+  float best;
+  int idx;
+  end_argmax(w_best, w_idx, lane, best, idx);
+  uint16_t* out = path + (size_t)b * T;
+  if (tid >= 64) {
+    // past the walk's events the path holds the end state
+    const int end_state = __shfl_sync(nc::FULL, idx, 0);
+    for (int t = max(ex.t_top + 1, 1) + tid - 64; t < T; t += THREADS - 64)
+      out[t] = (uint16_t)end_state;
+    return;
+  }
+  if (tid != 0) return;
+
+  logp[b] = best;
+  int s = idx;
+  if (ex.n > 0) {
+    auto sink = [&](int t, int s_eff, int) { out[t] = (uint16_t)s_eff; };
+    if constexpr (kTable) {
+      nc::mbar_wait(tbar, 0);
+      s = walk_ring(ring, ex.t_top, idx, sink, TableFrom{nc::smem_addr(tab)});
+    } else {
+      s = walk_ring(ring, ex.t_top, idx, sink,
+                    IdxFrom{static_cast<const int32_t*>(from)});
+    }
+  }
+  out[0] = (uint16_t)s;
+}
+
 // The ring's stages for B blocks of `threads`: the most that fit the blocks
 // an SM holds at once, at most MAX_STAGES (192 KB: one block an SM), at
 // least MIN_STAGES; with a table of table_bytes beside the ring (K6b), at
 // most what the block's shared memory has left beside it.
-int ring_stages(int B, int threads, int device, int table_bytes = 0) {
+int ring_stages(int B, int threads, int device, int table_bytes = 0,
+                int static_bytes = TABLE_RING_STATIC) {
   int sms = 132;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int by_threads = 2048 / threads;
@@ -594,7 +710,7 @@ int ring_stages(int B, int threads, int device, int table_bytes = 0) {
   if (per_sm > by_threads) per_sm = by_threads;
   int s = MAX_STAGES / per_sm;
   if (table_bytes > 0) {
-    const int fit = (SMEM_PER_BLOCK - TABLE_RING_STATIC - table_bytes) /
+    const int fit = (SMEM_PER_BLOCK - static_bytes - table_bytes) /
                     (int)STAGE_BYTES;
     if (fit < s) s = fit;
   }
@@ -730,6 +846,38 @@ extern "C" int nc_viterbi_traceback_slices(const void* table,
                                       (cudaStream_t)stream>>>(
         static_cast<const void* const*>(table), length, B, T, code_bytes,
         slice_shift, stages, path0, codes, logp);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K6bm: table as K2m's; from_rule 1: `from` is the table's (deg, N)
+// uint16 from-state copy (16-byte aligned, 1 to the most slots that leave
+// MIN_STAGES stages beside it), 0: its (deg, N) int32 from_idx (any deg of
+// 1 to 256); both on this card.  path (B, T) uint16, logp (B,).  Returns
+// cudaGetLastError() after the launch.
+extern "C" int nc_viterbi_generic_traceback_slices(
+    const void* table, const int32_t* length, int B, int T, int slice_shift,
+    int deg, const void* from, int from_rule, uint16_t* path, float* logp,
+    int device, void* stream) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  const int table_bytes = from_rule ? deg * N * 2 : 0;
+  if (slice_shift < 6 || slice_shift > 12 || deg < 1 || deg > 256 ||
+      table_bytes + MIN_STAGES * (int)STAGE_BYTES >
+          SMEM_PER_BLOCK - SLICES_TABLE_STATIC)
+    return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const int stages =
+        ring_stages(B, THREADS, device, table_bytes, SLICES_TABLE_STATIC);
+    const int smem = stages * (int)STAGE_BYTES + table_bytes;
+    auto kernel = from_rule ? viterbi_generic_traceback_slices_kernel<true>
+                            : viterbi_generic_traceback_slices_kernel<false>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
+        static_cast<const void* const*>(table), length, B, T, slice_shift,
+        deg, from, stages, path, logp);
   }
   return (int)cudaGetLastError();
 }

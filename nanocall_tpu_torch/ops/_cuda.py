@@ -34,7 +34,7 @@ SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
            "fwbw_backward.cu", "fwbw_custom.cu", "fma_chain.cu",
            "reshape_copy.cu")
 HEADERS = ("common.cuh", "beta_step.cuh", "resident_slots.cuh",
-           "device_guard.cuh")
+           "device_guard.cuh", "wave_exchange.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "nanocall_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -151,11 +151,21 @@ def load():
         lib.nc_viterbi_generic_forward.restype = ci
         lib.nc_viterbi_generic_forward.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 8 + [cf, cf] + [vp, vp]
-            + [ci, vp])
+            + [ci] + [ci, vp])
         lib.nc_viterbi_resident_forward.restype = ci
         lib.nc_viterbi_resident_forward.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 8 + [cf, cf] + [vp, vp]
+            + [ci] + [ci, vp])
+        lib.nc_viterbi_generic_wave.restype = ci
+        lib.nc_viterbi_generic_wave.argtypes = (
+            [vp] + [ci] * 11 + [cf, cf] + [ctypes.c_longlong, vp]
             + [ci, vp])
+        lib.nc_viterbi_generic_wave_resident.restype = ci
+        lib.nc_viterbi_generic_wave_resident.argtypes = [
+            ci] * 6 + [ctypes.POINTER(ci)]
+        lib.nc_viterbi_generic_traceback_slices.restype = ci
+        lib.nc_viterbi_generic_traceback_slices.argtypes = (
+            [vp] * 2 + [ci] * 4 + [vp, ci] + [vp] * 2 + [ci, vp])
         lib.nc_viterbi_generic_traceback.restype = ci
         lib.nc_viterbi_generic_traceback.argtypes = (
             [vp] * 3 + [ci, ci] + [vp] * 3 + [ci, vp])

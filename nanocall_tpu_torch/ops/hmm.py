@@ -41,6 +41,12 @@ Kernels and their plain versions, side by side below:
                             from-state table in shared memory;
                             generic_traceback_route picks)
                             vs viterbi_traceback_plain
+  K6am viterbi_generic.cu   generic_wave_resident_kernel /
+                            generic_wave_streaming_kernel
+                            vs viterbi_forward_generic_wave_plain
+  K6bm viterbi_traceback.cu generic_traceback_slices_kernel
+                            vs viterbi_traceback_generic_slices_plain
+      (parallel/statepar.py: K6a and K6b with the states split over ranks)
   K6c fwbw_generic.cu       fwbw_generic_kernel (streaming),
                             fwbw_resident_kernel (both sides' tables in
                             shared memory in turn; fwbw_route picks)
@@ -54,7 +60,8 @@ Kernels and their plain versions, side by side below:
 
 K6a-K6c and K6e run under a loaded transition table (TransOps, `--trans`,
 and the dev tools): every state's in- and out-neighbours are gathered
-through (deg, n) index tables.
+through (deg, n) index tables.  K6a and K6b also take per-read structured
+tables (make_trans_ops_batch).
 
 Each kernel wrapper counts its launches in a plain int attribute
 (`wrapper.launches`), incremented (by _cuda.count_launch, under a lock) only
@@ -146,7 +153,15 @@ class TransOps(NamedTuple):
     codebooks a slot), or None unless both sides have it; from_states: the
     from-states as a (deg, n) uint16 table for K6b's ring kernel
     (from_state_table), or None for a table of more slots than fit beside
-    its ring.  convert.trans_ops builds one."""
+    its ring.  convert.trans_ops builds one.
+
+    The per-read form (make_trans_ops_batch, JAX's make_trans_ops_batch:
+    read b decodes under its own structured table) has (B, deg, n)
+    from_logp / to_logp and, where every read's table packs, a (B, deg, n)
+    from_packed and (B, deg, RESIDENT_CODES) from_codebook; from_idx,
+    to_idx and from_states stay (deg, n), the fixed slot map every read
+    shares, and fwbw_packed is None.  The Viterbi decode (K6a, K6b) takes
+    it; the forward-backward (K6c, K6e) and the EM rounds raise."""
 
     from_idx: torch.Tensor
     from_logp: torch.Tensor
@@ -1285,11 +1300,28 @@ def logsumexp_slots(vals: torch.Tensor) -> torch.Tensor:
     return torch.where(finite, safe_m + torch.log(s), m)
 
 
-def _check_ops(ops: TransOps, dev) -> None:
+def per_read(ops: TransOps) -> bool:
+    """Whether `ops` holds a table a read (make_trans_ops_batch)."""
+    return ops.from_logp.dim() == 3
+
+
+def refuse_per_read(ops: TransOps, what: str) -> None:
+    """Raise ValueError for per-read tables where `what` takes one shared
+    table: JAX has no caller of the forward-backward or the EM rounds
+    under make_trans_ops_batch, and the port does not take them there."""
+    if per_read(ops):
+        raise ValueError(f"{what} takes one (deg, n) table for every read, "
+                         f"not per-read (B, deg, n) tables")
+
+
+def _check_ops(ops: TransOps, dev, B: int | None = None) -> None:
     """The kernels take K=6 tables of at most 256 slots, as contiguous
-    int32 / float32 (deg, 4096) tensors on the launch device."""
+    int32 / float32 (deg, 4096) tensors on the launch device; per-read
+    log-probs (B, deg, 4096) where B is given (K6a's forward)."""
     if ops.K != 6:
         raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
+    if B is None:
+        refuse_per_read(ops, "this kernel")
     for side in ("from", "to"):
         idx, logp = getattr(ops, f"{side}_idx"), getattr(ops, f"{side}_logp")
         deg = idx.shape[0]
@@ -1297,7 +1329,8 @@ def _check_ops(ops: TransOps, dev) -> None:
             raise ValueError(f"{side} table: {deg} slots, the kernels take "
                              f"1 to {MAX_SLOTS}")
         _check(f"{side}_idx", idx, torch.int32, (deg, 4096), dev)
-        _check(f"{side}_logp", logp, torch.float32, (deg, 4096), dev)
+        _check(f"{side}_logp", logp, torch.float32,
+               (B, deg, 4096) if per_read(ops) else (deg, 4096), dev)
 
 
 # K6a: generic Viterbi forward ------------------------------------------------
@@ -1308,7 +1341,8 @@ def viterbi_forward_plain(ops: TransOps, model: ModelArrays, ev: dict,
     """Plain version of K6a (nanocall_tpu/ops/hmm.py:673-711): a loop over
     events.  Per state, the max over slots of from_logp + alpha[from_idx];
     the backpointer is the slot of the lowest from-state among the maxima,
-    the lowest slot among equal from-states.  Returns (final_alpha (B, n)
+    the lowest slot among equal from-states.  Per-read (B, deg, n)
+    log-probs broadcast as JAX's do.  Returns (final_alpha (B, n)
     float32, bps (T-1, B, n) uint8 slot ids, or None when with_path is
     False)."""
     n = model.level_mean.shape[-1]
@@ -1395,22 +1429,25 @@ def generic_forward_route(ops: TransOps) -> str:
     return "streaming" if ops.from_packed is None else "resident"
 
 
-def _check_resident(ops: TransOps, dev) -> None:
+def _check_resident(ops: TransOps, dev, B: int | None = None) -> None:
     """The resident kernel takes a K=6 table's packed layout of 1 to
     MAX_RESIDENT_SLOTS slots, contiguous and 16-byte aligned (its bulk
-    copies) on the launch device."""
+    copies) on the launch device: (deg, 4096) and (deg, RESIDENT_CODES),
+    or per read (B, deg, 4096) and (B, deg, RESIDENT_CODES)."""
     if ops.K != 6:
         raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
     if ops.from_packed is None:
         raise ValueError("the resident generic forward needs the table's "
                          "packed layout (hmm.pack_slots)")
-    deg = ops.from_packed.shape[0]
+    lead = (B,) if ops.from_packed.dim() == 3 else ()
+    deg = ops.from_packed.shape[len(lead)]
     if not 1 <= deg <= MAX_RESIDENT_SLOTS:
         raise ValueError(f"packed table: {deg} slots, the resident kernel "
                          f"takes 1 to {MAX_RESIDENT_SLOTS}")
-    _check("from_packed", ops.from_packed, torch.int16, (deg, 4096), dev)
+    _check("from_packed", ops.from_packed, torch.int16, (*lead, deg, 4096),
+           dev)
     _check("from_codebook", ops.from_codebook, torch.float32,
-           (deg, RESIDENT_CODES), dev)
+           (*lead, deg, RESIDENT_CODES), dev)
     for name in ("from_packed", "from_codebook"):
         if getattr(ops, name).data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -1426,10 +1463,10 @@ def _generic_forward_kernel(ops: TransOps, model: ModelArrays, ev: dict,
         raise ValueError("the forward pass needs at least one event column")
     _check_events(ev, B, T, dev)
     if resident:
-        _check_resident(ops, dev)
+        _check_resident(ops, dev, B)
         table = (ops.from_packed, ops.from_codebook)
     else:
-        _check_ops(ops, dev)
+        _check_ops(ops, dev, B)
         table = (ops.from_idx, ops.from_logp)
     _check_tables(tuple(model), B, n, dev)
     _require_cuda(dev, "generic viterbi forward")
@@ -1441,12 +1478,12 @@ def _generic_forward_kernel(ops: TransOps, model: ModelArrays, ev: dict,
              else lib.nc_viterbi_generic_forward)
     err = entry(
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, table[0].shape[0],
+        ev["length"].data_ptr(), B, T, table[0].shape[-2],
         *(x.data_ptr() for x in table),
         *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
         final.data_ptr(),
         bps.data_ptr() if with_path and bps.numel() else None,
-        *_cuda.target(dev),
+        int(per_read(ops)), *_cuda.target(dev),
     )
     _cuda.check(err, f"viterbi_{'resident' if resident else 'generic'}"
                      f"_forward kernel launch")
@@ -1496,9 +1533,9 @@ resident_forward_score_kernel.launches = 0
 def viterbi_forward(ops: TransOps, model: ModelArrays, ev: dict,
                     with_path: bool = True):
     """K6a on the tensors' device: (final_alpha (B, n), bps (T-1, B, n)
-    uint8 slot ids or None when with_path is False).  On the card the
-    table picks the kernel (generic_forward_route); both give the plain
-    version's bits."""
+    uint8 slot ids or None when with_path is False), under one table or
+    per-read tables.  On the card the table picks the kernel
+    (generic_forward_route); both give the plain version's bits."""
     dev = ev["mean"].device
     if dev.type == "cpu":
         return viterbi_forward_plain(ops, model, ev, with_path)
@@ -1550,7 +1587,7 @@ def generic_traceback_kernel(ops: TransOps, final_alpha, bps, lengths):
     _check("final_alpha", final_alpha, torch.float32, (B, n), dev)
     _check("bps", bps, torch.uint8, (Tm, B, n), dev)
     _check("lengths", lengths, torch.int32, (B,), dev)
-    _check_ops(ops, dev)
+    _check_ops(ops, dev, B)
     _require_cuda(dev, "generic viterbi traceback")
     path = torch.empty((B, Tm + 1), dtype=torch.uint16, device=dev)
     logp = torch.empty(B, dtype=torch.float32, device=dev)
@@ -1604,6 +1641,34 @@ def from_state_table(idx):
             or idx.min() < 0 or idx.max() >= n:
         return None
     return np.ascontiguousarray(idx, np.uint16)
+
+
+def make_trans_ops_batch(from_logp, to_logp, K: int) -> TransOps:
+    """Per-read structured tables as a TransOps on from_logp's device
+    (nanocall_tpu/ops/hmm.py:82-90): from_logp / to_logp (B, 21, n)
+    float32 tensors (transitions.build_structured_batch), read b's table
+    its own; the slot maps are the fixed 21-slot layout every read shares
+    (transitions.slot_from_state; nanocall_tpu/ops/hmm.py:153-157), with
+    K6b's from-state table where it fits (from_state_table) and each
+    read's resident K6a layout where every read's table packs
+    (pack_slots, stacked)."""
+    dev = from_logp.device
+    from_idx, to_idx, _, _ = transitions._slot_maps(K)
+    layouts = [pack_slots(from_idx, t)
+               for t in from_logp.detach().cpu().numpy()]
+    packed = book = None
+    if layouts and None not in layouts:
+        packed, book = (torch.from_numpy(np.stack(x)).to(dev)
+                        for x in zip(*layouts))
+    states = from_state_table(from_idx)
+    return TransOps(
+        from_idx=torch.from_numpy(from_idx).to(dev),
+        from_logp=from_logp.to(torch.float32).contiguous(),
+        to_idx=torch.from_numpy(to_idx).to(dev),
+        to_logp=to_logp.to(dev, torch.float32).contiguous(), K=K,
+        from_packed=packed, from_codebook=book,
+        from_states=None if states is None
+        else torch.from_numpy(states).to(dev))
 
 
 def generic_traceback_route(ops: TransOps) -> str:
@@ -1688,6 +1753,320 @@ def viterbi_decode(ops: TransOps, model: ModelArrays, ev: dict,
     return {"path": path, "logp": logp}
 
 
+# K6am / K6bm: the generic decode with the states split over ranks ----------
+#
+# The generic decode (K6a + K6b) under nanocall_tpu/parallel/mesh.py:75
+# shard_decode_inputs (parallel/statepar.py drives it, on K1m's schedule).
+# Rank m holds the states [m W, (m + 1) W), W = n / M: the (deg, W) cut of
+# the table's from side (per read (B, deg, W) log-probs; the cut of the
+# resident layout where the table has one), its (B, W) scaled model, a (2,
+# B, W) column buffer, B step counters and its (T - 1, B, W) backpointer
+# bytes.  A step reads the whole previous column from every rank's buffer,
+# since a loaded table's from-states lie anywhere.
+
+
+class GenericWaveRank(NamedTuple):
+    """One rank of a data row of the generic decode, on the rank's device:
+    ops, its cut of the table (from_idx (deg, W) int32, from_logp (deg, W)
+    or per read (B, deg, W) float32, from_packed / from_codebook the cut of
+    the resident layout or None; the to side unused), its (B, W) scaled
+    model, the row's (B, T) events and (B,) lengths, its column buffer col
+    (2, B, W) float32, its backpointers bps (T - 1, B, W) uint8 (None:
+    score-only) and its step counters flags (B,) int32, zero before the
+    decode (K6am's exchange; the plain version leaves them)."""
+
+    ops: TransOps
+    model: ModelArrays
+    ev: dict
+    col: torch.Tensor
+    bps: torch.Tensor | None
+    flags: torch.Tensor
+
+
+def viterbi_forward_generic_slice_plain(ops: TransOps, model: ModelArrays,
+                                        ev: dict, column, t: int, lo: int,
+                                        alpha_out, bp_out=None) -> None:
+    """One rank's step, the plain version of K6am's step: event t's alpha at
+    the states [lo, lo + W) into alpha_out (B, W), and at t >= 1 their slot
+    backpointers into bp_out (B, W) uint8 (None: score-only).  ops and
+    model hold the rank's cut (GenericWaveRank), ev the (B, T) events and
+    lengths whole; column is the alpha of event t - 1 as its M slices (an
+    (M, B, W) tensor or M (B, W) tensors on any devices; unread at t = 0).
+    The step of viterbi_forward_plain for these states: every state's max
+    and slot run over its own slots, from the whole column."""
+    M, W = len(column), column[0].shape[-1]
+    mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    if t == 0:
+        alpha_out.copy_(log_emission(model, mean[:, 0], stdv[:, 0],
+                                     log_stdv[:, 0]) - math.log(M * W))
+        return
+    alpha = gather_column(column, mean.device)
+    vals = ops.from_logp + gather_slots(alpha, ops.from_idx)
+    best = torch.amax(vals, dim=1)
+    if bp_out is not None:
+        masked = torch.where(vals == best[:, None], ops.from_idx, _BIG)
+        bp_out.copy_(torch.argmin(masked, dim=1).to(torch.uint8))
+    em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
+    alpha_out.copy_(torch.where((t < ev["length"])[:, None], best + em,
+                                alpha[:, lo:lo + W]))
+
+
+def viterbi_forward_generic_wave_plain(ranks, lo: int, hi: int) -> None:
+    """Plain version of K6am: events 0 .. T - 1 of the reads [lo, hi) for
+    every rank of a data row (ranks: its M GenericWaveRanks in rank order),
+    each step every rank's viterbi_forward_generic_slice_plain on the
+    peers' slices of the previous column, read in place from their
+    col[(t - 1) % 2], into its col[t % 2] and bps[t - 1].  The counters are
+    left as they are."""
+    rows = slice(lo, hi)
+    T, W = ranks[0].ev["mean"].shape[1], ranks[0].col.shape[-1]
+    parts = [(r.ops._replace(from_logp=r.ops.from_logp[rows])
+              if per_read(r.ops) else r.ops,
+              ModelArrays(*(x[rows] for x in r.model)),
+              {k: v[rows] for k, v in r.ev.items()}) for r in ranks]
+    for t in range(T):
+        column = [r.col[(t - 1) % 2, rows] for r in ranks]
+        for m, (r, (ops, model, ev)) in enumerate(zip(ranks, parts)):
+            viterbi_forward_generic_slice_plain(
+                ops, model, ev, column, t, m * W, r.col[t % 2, rows],
+                r.bps[t - 1, rows] if r.bps is not None and t else None)
+
+
+#: generic_wave_resident's answers, by (card index, with_path, sys,
+#: resident, deg, W)
+_generic_resident: dict = {}
+
+
+def generic_wave_resident(dev, with_path: bool, sys: bool, resident: bool,
+                          deg: int, W: int) -> int:
+    """The most blocks of K6am's instance (with_path; sys: the exchange
+    across cards; resident, at deg slots and slices of W states, whose
+    shared memory it sets) that the CUDA device `dev` holds at once: a
+    wave's grid, reads times the card's ranks, must not exceed it."""
+    key = (torch.device(dev).index, bool(with_path), bool(sys),
+           bool(resident), int(deg), int(W))
+    if key not in _generic_resident:
+        blocks = ctypes.c_int(0)
+        _cuda.check(_cuda.load().nc_viterbi_generic_wave_resident(
+            int(with_path), int(sys), int(resident), int(deg),
+            _slice_shift(4096 // W, W), key[0], ctypes.byref(blocks)),
+            "viterbi_generic_wave occupancy")
+        _generic_resident[key] = blocks.value
+    return _generic_resident[key]
+
+
+def _check_aligned(name: str, x: torch.Tensor) -> None:
+    if x.data_ptr() % 16:  # read as 16-byte vectors or bulk copies
+        raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _check_generic_wave_rank(m: int, r: GenericWaveRank, B: int, T: int,
+                             W: int, with_path: bool, resident: bool) -> int:
+    """A rank's part as K6am takes it; returns its slot count."""
+    dev = r.ev["mean"].device
+    ops = r.ops
+    if ops.K != 6:
+        raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
+    if (r.bps is not None) != with_path:
+        raise ValueError("the ranks' backpointers are given for some ranks "
+                         "only")
+    if (generic_forward_route(ops) == "resident") != resident:
+        raise ValueError("the ranks' cuts differ in their layout")
+    _check_events(r.ev, B, T, dev)
+    _check_tables(tuple(r.model), B, W, dev)
+    lead = (B,) if per_read(ops) else ()
+    if resident:
+        deg = ops.from_packed.shape[-2]
+        if not 1 <= deg <= MAX_RESIDENT_SLOTS:
+            raise ValueError(f"packed table: {deg} slots, the resident K6am "
+                             f"takes 1 to {MAX_RESIDENT_SLOTS}")
+        _check(f"ranks[{m}].ops.from_packed", ops.from_packed, torch.int16,
+               (*lead, deg, W), dev)
+        _check(f"ranks[{m}].ops.from_codebook", ops.from_codebook,
+               torch.float32, (*lead, deg, RESIDENT_CODES), dev)
+        tables = (ops.from_packed, ops.from_codebook)
+    else:
+        deg = ops.from_idx.shape[0]
+        if not 1 <= deg <= MAX_SLOTS:
+            raise ValueError(f"table: {deg} slots, the kernels take 1 to "
+                             f"{MAX_SLOTS}")
+        _check(f"ranks[{m}].ops.from_idx", ops.from_idx, torch.int32,
+               (deg, W), dev)
+        _check(f"ranks[{m}].ops.from_logp", ops.from_logp, torch.float32,
+               (*lead, deg, W), dev)
+        tables = (ops.from_idx, ops.from_logp)
+    for name, x in zip(("table", "values"), tables):
+        _check_aligned(f"ranks[{m}].{name}", x)
+    _check(f"ranks[{m}].col", r.col, torch.float32, (2, B, W), dev)
+    _check_aligned(f"ranks[{m}].col", r.col)
+    _check(f"ranks[{m}].flags", r.flags, torch.int32, (B,), dev)
+    if with_path:
+        _check(f"ranks[{m}].bps", r.bps, torch.uint8, (T - 1, B, W), dev)
+        if r.bps.data_ptr() % 4:  # stored a 32-bit word a thread
+            raise ValueError(f"ranks[{m}].bps is not 4-byte aligned")
+    return deg
+
+
+def _generic_wave_kernel(ranks, local, lo: int, hi: int,
+                         resident: bool) -> None:
+    global _timed_out
+    M = len(ranks)
+    if not 2 <= M <= 64:
+        raise ValueError(f"the CUDA K6am takes 2 to 64 ranks; got {M}")
+    if not local:
+        raise ValueError("no ranks to launch")
+    B, T = ranks[0].ev["mean"].shape
+    W = ranks[0].col.shape[-1]
+    shift = _slice_shift(M, W)
+    dev = ranks[local[0]].ev["mean"].device
+    _require_cuda(dev, "generic viterbi forward wave")
+    with_path = ranks[0].bps is not None
+    degs, modes = set(), set()
+    for m, r in enumerate(ranks):
+        _require_cuda(r.ev["mean"].device, "generic viterbi forward wave")
+        degs.add(_check_generic_wave_rank(m, r, B, T, W, with_path,
+                                          resident))
+        modes.add(per_read(r.ops))
+    if len(degs) != 1 or len(modes) != 1:
+        raise ValueError(f"the ranks' cuts differ: slots {degs}, per-read "
+                         f"{modes}")
+    if any(ranks[m].ev["mean"].device != dev for m in local):
+        raise ValueError("the launch's ranks lie on more than one card")
+    if not 0 <= lo < hi <= B:
+        raise ValueError(f"no wave of reads [{lo}, {hi}) of {B}")
+    if wave_timeout() is not None:
+        raise RuntimeError(f"a wave timed out: (t, read, rank, peer) = "
+                           f"{wave_timeout()}")
+    if _timed_out is None:
+        _timed_out = torch.zeros(4, dtype=torch.int32).pin_memory()
+    sys = any(r.ev["mean"].device != dev for r in ranks)
+    vals = []
+    for r in ranks:
+        tables = ((r.ops.from_packed, r.ops.from_codebook) if resident
+                  else (r.ops.from_idx, r.ops.from_logp))
+        vals += [r.ev["mean"].data_ptr(), r.ev["stdv"].data_ptr(),
+                 r.ev["log_stdv"].data_ptr(), r.ev["length"].data_ptr(),
+                 *(x.data_ptr() for x in tables),
+                 *(x.data_ptr() for x in r.model), r.col.data_ptr(),
+                 r.bps.data_ptr() if with_path and r.bps.numel() else 0,
+                 r.flags.data_ptr()]
+    vals += list(local)
+    # pinned, so that the copy does not wait on the card
+    table = torch.tensor(vals, dtype=torch.int64).pin_memory().to(
+        dev, non_blocking=True)
+    err = _cuda.load().nc_viterbi_generic_wave(
+        table.data_ptr(), len(local), B, T, lo, hi - lo, shift, degs.pop(),
+        int(modes.pop()), int(with_path), int(sys), int(resident), LOG_2PI,
+        math.log(M * W), int(WAVE_TIMEOUT_S * 1e9), _timed_out.data_ptr(),
+        *_cuda.target(dev))
+    _cuda.check(err, "viterbi_generic_wave kernel launch")
+
+
+def generic_wave_resident_kernel(ranks, local, lo: int, hi: int) -> None:
+    """K6am on the card, the resident form (each rank's packed cut and its
+    codebooks in shared memory): viterbi_forward_generic_wave_plain's work
+    for the ranks `local` (indices into `ranks`, all on one card; 2 to 64
+    ranks in all) over the reads [lo, hi), one cooperative launch on that
+    card's current stream, whose grid (hi - lo reads x len(local) ranks)
+    must fit the card at once (generic_wave_resident), or the launch
+    raises.  The other ranks run their blocks of the same reads in a launch
+    of their own card; their slices and counters are read over peer
+    access.  A block waits WAVE_TIMEOUT_S on a peer at most.  Raises if a
+    wave of this process timed out (wave_timeout)."""
+    _generic_wave_kernel(ranks, local, lo, hi, resident=True)
+    _cuda.count_launch(generic_wave_resident_kernel)
+
+
+def generic_wave_streaming_kernel(ranks, local, lo: int, hi: int) -> None:
+    """K6am on the card, the streaming form (each rank's int32 / float32
+    cut read from L2 at every step): as generic_wave_resident_kernel."""
+    _generic_wave_kernel(ranks, local, lo, hi, resident=False)
+    _cuda.count_launch(generic_wave_streaming_kernel)
+
+
+generic_wave_resident_kernel.launches = 0
+generic_wave_streaming_kernel.launches = 0
+
+
+def forward_generic_wave_kernel(ranks, local, lo: int, hi: int) -> None:
+    """K6am on the card in the form the ranks' cuts take
+    (generic_forward_route: the resident one where the cut has the packed
+    layout)."""
+    if generic_forward_route(ranks[0].ops) == "resident":
+        generic_wave_resident_kernel(ranks, local, lo, hi)
+    else:
+        generic_wave_streaming_kernel(ranks, local, lo, hi)
+
+
+def viterbi_traceback_generic_slices_plain(ops: TransOps, column, bp_slices,
+                                           lengths):
+    """Plain version of K6bm: K6b's end argmax and walk
+    (viterbi_traceback_plain) over the M ranks' slices of the final column
+    (an (M, B, W) tensor or M (B, W) tensors) and their backpointer slices
+    bp_slices[m] (T - 1, B, W) uint8, on any devices; ops holds the whole
+    from side (from_idx (deg, n)) on lengths' device.  (path (B, T)
+    uint16, logp (B,)) on lengths' device."""
+    dev = lengths.device
+    return viterbi_traceback_plain(
+        ops, gather_column(column, dev),
+        torch.cat([sl.to(dev) for sl in bp_slices], dim=2), lengths)
+
+
+def generic_traceback_slices_kernel(ops: TransOps, column, bp_slices,
+                                    lengths):
+    """K6bm on the card: as viterbi_traceback_generic_slices_plain,
+    launched on lengths' card (K6b's ring kernel, each row assembled from
+    the ranks' slices), with the table's from-state table in shared memory
+    where it has one (ops.from_states, K6b's ring rule), else from_idx read
+    from global memory; a slice on another card is read there in place
+    (peer access, or a RuntimeError)."""
+    dev = lengths.device
+    _require_cuda(dev, "generic viterbi traceback slices")
+    M, W = len(column), column[0].shape[-1]
+    shift = _slice_shift(M, W)
+    B = column[0].shape[0]
+    if ops.K != 6:
+        raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
+    if len(bp_slices) != M:
+        raise ValueError(f"{len(bp_slices)} backpointer slices for {M} ranks")
+    Tm = bp_slices[0].shape[0]
+    _check("lengths", lengths, torch.int32, (B,), dev)
+    if ops.from_states is not None:
+        _check_traceback_ring(ops, dev)
+        from_t, rule = ops.from_states, 1
+    else:
+        from_t, rule = ops.from_idx, 0
+        if not 1 <= from_t.shape[0] <= MAX_SLOTS:
+            raise ValueError(f"table: {from_t.shape[0]} slots, the kernels "
+                             f"take 1 to {MAX_SLOTS}")
+        _check("from_idx", from_t, torch.int32, (from_t.shape[0], 4096), dev)
+    for m, (c, sl) in enumerate(zip(column, bp_slices)):
+        _require_cuda(c.device, "generic viterbi traceback slices")
+        _require_cuda(sl.device, "generic viterbi traceback slices")
+        _check(f"column[{m}]", c, torch.float32, (B, W), c.device)
+        _check(f"bp_slices[{m}]", sl, torch.uint8, (Tm, B, W), sl.device)
+        _check_rows_aligned(sl)
+        _cuda.enable_peer_access(dev, c.device)
+        _cuda.enable_peer_access(dev, sl.device)
+    path = torch.empty((B, Tm + 1), dtype=torch.uint16, device=dev)
+    logp = torch.empty(B, dtype=torch.float32, device=dev)
+    # pinned, so that the copy does not wait on the card
+    table = torch.tensor(
+        [c.data_ptr() for c in column]
+        + [sl.data_ptr() if sl.numel() else 0 for sl in bp_slices],
+        dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    err = _cuda.load().nc_viterbi_generic_traceback_slices(
+        table.data_ptr(), lengths.data_ptr(), B, Tm + 1, shift,
+        from_t.shape[0], from_t.data_ptr(), rule, path.data_ptr(),
+        logp.data_ptr(), *_cuda.target(dev))
+    _cuda.check(err, "viterbi_generic_traceback_slices kernel launch")
+    _cuda.count_launch(generic_traceback_slices_kernel)
+    return path, logp
+
+
+generic_traceback_slices_kernel.launches = 0
+
+
 # K6c: generic forward-backward -----------------------------------------------
 
 
@@ -1697,6 +2076,7 @@ def fwbw_plain(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     tables, loops over events.  Returns {alpha, beta, em: (B, T, n)
     float32, log_pr_data: (B,)}; alpha rows past a read's length repeat its
     last alpha, beta is 0 from t = length-1 on."""
+    refuse_per_read(ops, "the generic forward-backward")
     n = model.level_mean.shape[-1]
     mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
     lengths = ev["length"]
@@ -1816,6 +2196,7 @@ def _check_fwbw_resident(ops: TransOps, dev) -> None:
     (its bulk copies) on the launch device."""
     if ops.K != 6:
         raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
+    refuse_per_read(ops, "the resident forward-backward")
     if ops.fwbw_packed is None:
         raise ValueError("the resident generic fwbw needs the table's "
                          "packed layout of both sides (hmm.pack_fwbw_sides)")
@@ -1877,6 +2258,7 @@ def fwbw(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     log_pr_data (B,)}.  On the card the table picks the kernel
     (fwbw_route); both give the plain version's bits."""
     dev = ev["mean"].device
+    refuse_per_read(ops, "the generic forward-backward (K6c)")
     if dev.type == "cpu":
         return fwbw_plain(ops, model, ev)
     if dev.type != "cuda":
@@ -1910,6 +2292,7 @@ def fwbw_custom_plain(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
                 (t <= T-2; beta_t from t = length-1 on).
     alpha_t is stored as computed, also past a read's length.  Returns
     {alpha, beta, gamma}: (B, T, n) float32 log probabilities."""
+    refuse_per_read(ops, "the generic forward-backward")
     n = model.level_mean.shape[-1]
     mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
     lengths = ev["length"]
@@ -2020,6 +2403,7 @@ def fwbw_custom(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     card the table picks the kernel (fwbw_route, as K6c); both give the
     plain version's bits."""
     dev = ev["mean"].device
+    refuse_per_read(ops, "the custom forward-backward (K6e)")
     if dev.type == "cpu":
         return fwbw_custom_plain(ops, model, ev)
     if dev.type != "cuda":

@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels, in main-path order (K9's
 traceback chunk after K3's, then K1m and K2m, K1 and K2 with the states
 split over a mesh's ranks, the redesigned kernels of K6a, K6b, K6c and
-K6e after their streaming ones, then the measurement path's K8 and the
-repro tool's K10): each kernel's wrapper (which carries its `launches`
-counter), its source, and the JAX function it replaces."""
+K6e after their streaming ones, K6am (its two forms) and K6bm, K6a and
+K6b with the states split over a mesh's ranks, then the measurement
+path's K8 and the repro tool's K10): each kernel's wrapper (which carries
+its `launches` counter), its source, and the JAX function it replaces."""
 
 from __future__ import annotations
 
@@ -17,7 +18,10 @@ class Kernel(NamedTuple):
     wrapper: Callable  # carries the `launches` counter
     source: str  # path in the repository
     # file:line of the JAX kernel it replaces (K1m and K2m: K1's and K2's
-    # step and walk under shard_pooled_decode_inputs' state placement)
+    # step and walk under shard_pooled_decode_inputs' state placement;
+    # K6am and K6bm: K6a's and K6b's, viterbi_forward and
+    # viterbi_traceback, under shard_decode_inputs',
+    # nanocall_tpu/parallel/mesh.py:75)
     replaces: str
 
 
@@ -87,6 +91,17 @@ KERNELS = (
     Kernel("fwbw_custom_resident", hmm.fwbw_custom_resident_kernel,
            "nanocall_tpu_torch/csrc/fwbw_custom.cu",
            "nanocall_tpu/ops/hmm.py:1047"),
+    Kernel("viterbi_generic_wave_resident", hmm.generic_wave_resident_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_generic.cu",
+           "nanocall_tpu/ops/hmm.py:673"),
+    Kernel("viterbi_generic_wave_streaming",
+           hmm.generic_wave_streaming_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_generic.cu",
+           "nanocall_tpu/ops/hmm.py:673"),
+    Kernel("viterbi_generic_traceback_slices",
+           hmm.generic_traceback_slices_kernel,
+           "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
+           "nanocall_tpu/ops/hmm.py:714"),
     Kernel("fma_chain", fma.fma_chain_kernel,
            "nanocall_tpu_torch/csrc/fma_chain.cu",
            "nanocall_tpu/roofline.py:340"),

@@ -23,9 +23,12 @@ row's ranks (parallel/statepar.py: K1m and K2m); where GSPMD inserts the
 collectives in JAX, each rank reads the alpha column's other slices in
 place from its peers each step.  The JAX package's multi-chip entry point
 runs them (__graft_entry__.py:98-172, dryrun_multichip), as does
-tests/test_sharding.py.  Not ported yet:
-shard_decode_inputs (the generic decode, K6a + K6b) and shard_train_inputs
-(the EM round, K4 + K5) on the state axis (ROADMAP.md queue 1).
+tests/test_sharding.py.  shard_decode_inputs places the generic decode's
+inputs (a TransOps, a model and events; nanocall_tpu/parallel/mesh.py:75)
+the same way, under one table or per-read tables, and
+statepar.viterbi_decode_placed decodes them (K6am and K6bm).  Not ported
+yet: shard_train_inputs (the EM round, K4 + K5) on the state axis
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ import numpy as np
 import torch
 
 from .. import shapes
+from ..ops import hmm
+from . import statepar
 
 
 def indexed(device) -> torch.device:
@@ -227,3 +232,73 @@ def shard_pooled_decode_inputs(mesh: Mesh, pool_mean, pool_stdv, pool_start,
     return (*pool, local_idx, by_data(drifts), placed_bank,
             by_data(model_idx), by_data(pm_params), by_data(stp),
             by_data(lengths))
+
+
+class PlacedTable(NamedTuple):
+    """A transition table placed by shard_decode_inputs: `cut`, a TransOps
+    whose tensors are Sharded, each rank's slots of its own destination
+    states (what K6am steps from); `walk[d]`, the whole from side on data
+    row d's first device (a TransOps of from_idx (deg, n) and from_states
+    or None, the rest None), which K6bm walks."""
+
+    cut: hmm.TransOps
+    walk: list
+
+
+def shard_decode_inputs(mesh: Mesh, ops: hmm.TransOps, model, ev: dict
+                        ) -> tuple:
+    """Place the generic decode's inputs (hmm.viterbi_decode's: a loaded
+    or structured table, the scaled model, the events) on the mesh, as
+    nanocall_tpu/parallel/mesh.py:75-100 does: the events' batch over
+    'data' (P("data")); a (B, n) model over ('data', 'model'), a one-row
+    (1, n) model over 'model' (its (1, W) slices broadcast to each data
+    row's reads); the table's state axis over 'model': a shared (deg, n)
+    table as (deg, W) slices (P(None, "model")), per-read (B, deg, n)
+    tables as (B / D, deg, W) (P("data", None, "model")), from_idx and
+    to_idx as (deg, W); the resident layout's from_packed cut as its table
+    and its codebooks, which are per slot over all states, whole (per read
+    over 'data').  The whole from side for the traceback goes to each row's
+    first rank (PlacedTable.walk).  Returns (PlacedTable, model, ev): the
+    model a ModelArrays and the events a dict of Sharded arguments, which
+    statepar.viterbi_decode_placed decodes."""
+    D, M = mesh.ids.shape
+    B = ev["length"].shape[0]
+    rows = _cuts(B, D, "reads")
+    n = ops.from_idx.shape[-1]
+    states = _cuts(n, M, "states")
+
+    def place(x, spec):
+        if x is None:
+            return None
+        shards = []
+        for d, devs in enumerate(mesh.devices):
+            row = []
+            for m, dev in enumerate(devs):
+                part = x
+                for axis, name in enumerate(spec):
+                    cut = {"data": rows[d], "model": states[m]}.get(name)
+                    if cut is not None:
+                        part = part[(slice(None),) * axis + (cut,)]
+                row.append(part.contiguous().to(dev))
+            shards.append(row)
+        return Sharded(mesh, spec, shards)
+
+    table = ("data", None, "model") if hmm.per_read(ops) else (None, "model")
+    book = ("data", None, None) if hmm.per_read(ops) else (None, None)
+    cut = hmm.TransOps(
+        from_idx=place(ops.from_idx, (None, "model")),
+        from_logp=place(ops.from_logp, table),
+        to_idx=place(ops.to_idx, (None, "model")),
+        to_logp=place(ops.to_logp, table), K=ops.K,
+        from_packed=place(ops.from_packed, table),
+        from_codebook=place(ops.from_codebook, book))
+    walk = [statepar.walk_table(ops, devs[0]) for devs in mesh.devices]
+    if model.level_mean.shape[0] not in (1, B):
+        raise ValueError(f"a model of {model.level_mean.shape[0]} rows for "
+                         f"{B} reads")
+    per_row = model.level_mean.shape[0] == B and (B > 1 or D == 1)
+    placed_model = type(model)(*(
+        place(x, ("data", "model") if per_row else (None, "model"))
+        for x in model))
+    placed_ev = {k: place(v, ("data",)) for k, v in ev.items()}
+    return PlacedTable(cut, walk), placed_model, placed_ev

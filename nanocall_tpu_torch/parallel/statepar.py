@@ -46,6 +46,24 @@ viterbi_traceback_slices_plain), on any devices; viterbi_decode_statepar
 takes the kernels on CUDA (K1m for rows of 2 to 64 ranks; a row of one
 rank holds every state and reads no peer, and decodes by K1 + K2) and the
 plain version on the CPU, and raises if a kernel fails.
+
+The generic decode (hmm.viterbi_decode: K6a + K6b, under a loaded or
+structured table, one for every read or one a read) takes the same
+schedule under nanocall_tpu/parallel/mesh.py:75 shard_decode_inputs:
+split_table_states (or viterbi_decode_placed on mesh.shard_decode_inputs'
+parts) gives rank m the (deg, W) cut of the table's from side, its (B, W)
+model and the events; each wave is one K6am launch a card
+(hmm.forward_generic_wave_kernel, waves cut by plan_waves on
+hmm.generic_wave_resident, K6am's own resident blocks), in the resident
+form where the cut has the packed layout, else the streaming one; each
+step a rank loads the whole column of event t - 1, since a loaded table's
+from-states lie anywhere, and runs K6a's slot loop for its states; then
+K6bm (hmm.generic_traceback_slices_kernel: K6b's ring, each row assembled
+from the slices) walks on the row's first card with the table's whole
+from side (its from-state table in shared memory where it has one, else
+from_idx from global memory), to {"path" (B, T) uint16, "logp"}.  Each
+rank runs K6a's slot loop on the same column, so the decode is
+bit-identical to the one-device K6a + K6b, NaN bits included.
 """
 
 from __future__ import annotations
@@ -111,7 +129,7 @@ def _plan(rows) -> int:
     if len(Ts) != 1 or 0 in Ts:
         raise ValueError(f"the rows' event counts differ or are 0: {Ts}")
     for parts in rows:
-        W = {p.gt.stay_lp.shape[-1] for p in parts}
+        W = {p.model.level_mean.shape[-1] for p in parts}
         if len(W) != 1:
             raise ValueError(f"the ranks' slices differ in width: {W}")
     return Ts.pop()
@@ -140,25 +158,35 @@ def _wait_all(cards) -> None:
                     torch.cuda.current_stream(b))
 
 
-def _forward_kernels(ranks, with_path: bool) -> None:
-    """K1m over a data row: a launch a wave and card, each card's on its
-    current stream; across cards every card waits first for the others'
-    counters to be zeroed, and the row's first card for the others' waves
-    after the last."""
+def _forward_kernels(ranks, with_path: bool, generic: bool = False) -> None:
+    """K1m (K6am: generic) over a data row: a launch a wave and card, each
+    card's on its current stream; across cards every card waits first for
+    the others' counters to be zeroed, and the row's first card for the
+    others' waves after the last."""
     devices = [r.ev["mean"].device for r in ranks]
     cards = list(dict.fromkeys(devices))
     for a in cards:
         for b in cards:
             _cuda.enable_peer_access(a, b)
     sys = len(cards) > 1
-    waves = plan_waves(ranks[0].flags.shape[0], devices, {
-        d: hmm.forward_wave_resident(d, with_path, sys) for d in cards})
+    if generic:
+        ops, W = ranks[0].ops, ranks[0].col.shape[-1]
+        resident = hmm.generic_forward_route(ops) == "resident"
+        deg = (ops.from_packed if resident else ops.from_idx).shape[-2]
+        blocks = {d: hmm.generic_wave_resident(d, with_path, sys, resident,
+                                               deg, W) for d in cards}
+        launch = hmm.forward_generic_wave_kernel
+    else:
+        blocks = {d: hmm.forward_wave_resident(d, with_path, sys)
+                  for d in cards}
+        launch = hmm.forward_wave_kernel
+    waves = plan_waves(ranks[0].flags.shape[0], devices, blocks)
     local = {d: [m for m, x in enumerate(devices) if x == d] for d in cards}
     if sys:
         _wait_all(cards)
     for i in range(len(waves[cards[0]])):
         for d in cards:
-            hmm.forward_wave_kernel(ranks, local[d], *waves[d][i])
+            launch(ranks, local[d], *waves[d][i])
     first = torch.cuda.current_stream(cards[0])
     for d in cards[1:]:
         first.wait_stream(torch.cuda.current_stream(d))
@@ -226,3 +254,188 @@ def viterbi_decode_statepar(rows, with_path: bool = True) -> list:
         return [hmm.viterbi_decode_grouped(*parts[0], with_path=with_path)
                 for parts in rows]
     return _decode(rows, with_path, kernels=True)
+
+
+# ---------------------------------------------------------------------------
+# the generic decode (K6am, K6bm)
+# ---------------------------------------------------------------------------
+
+
+class GenericRankInputs(NamedTuple):
+    """One rank's part of a data row of the generic decode, on the rank's
+    device: ops, the (deg, W) cut of the table's sides at its states (per
+    read (B, deg, W) log-probs, and the cut of the resident layout where
+    the table has one; from_states None), its (B, W) scaled model, and the
+    row's (B, T) events and (B,) lengths whole."""
+
+    ops: hmm.TransOps
+    model: hmm.ModelArrays
+    ev: dict
+
+
+class GenericRow(NamedTuple):
+    """A data row of the generic decode: its ranks' parts in rank order,
+    and `walk`, the table's whole from side (from_idx, from_states) on the
+    first rank's device, which the traceback walks."""
+
+    parts: list
+    walk: hmm.TransOps
+
+
+def _cut_table(ops: hmm.TransOps, cols: slice, dev) -> hmm.TransOps:
+    """The rank's cut of a table: the states `cols` of each side's slot
+    tables and of the resident layout, the codebooks whole."""
+    def cut(x):
+        return None if x is None else x[..., cols].contiguous().to(dev)
+    return hmm.TransOps(
+        from_idx=cut(ops.from_idx), from_logp=cut(ops.from_logp),
+        to_idx=cut(ops.to_idx), to_logp=cut(ops.to_logp), K=ops.K,
+        from_packed=cut(ops.from_packed),
+        from_codebook=(None if ops.from_codebook is None
+                       else ops.from_codebook.contiguous().to(dev)))
+
+
+def walk_table(ops: hmm.TransOps, dev) -> hmm.TransOps:
+    """The whole from side of a table that K6bm walks (from_idx, and
+    from_states where the table has it), on `dev`."""
+    return hmm.TransOps(
+        from_idx=ops.from_idx.contiguous().to(dev), from_logp=None,
+        to_idx=None, to_logp=None, K=ops.K,
+        from_states=(None if ops.from_states is None
+                     else ops.from_states.contiguous().to(dev)))
+
+
+def _row_model(x: torch.Tensor, B: int) -> torch.Tensor:
+    """A rank's (B, W) model table from its (B, W) or one-row (1, W)
+    slice."""
+    return x.expand(B, -1).contiguous()
+
+
+def split_table_states(ops: hmm.TransOps, model: hmm.ModelArrays,
+                       ev: dict, devices) -> GenericRow:
+    """One data row of the generic decode: rank m gets the states [m W,
+    (m + 1) W) of the table (_cut_table) and of the (B, n) or one-row
+    (1, n) model, W = n / len(devices), and the events whole, on
+    devices[m]; the walk's table goes to devices[0]."""
+    M, n = len(devices), ops.from_idx.shape[-1]
+    if M < 1 or n % M:
+        raise ValueError(f"{n} states do not split over {M} ranks")
+    W, B = n // M, ev["length"].shape[0]
+    parts = []
+    for m, dev in enumerate(devices):
+        cols = slice(m * W, (m + 1) * W)
+        parts.append(GenericRankInputs(
+            _cut_table(ops, cols, dev),
+            hmm.ModelArrays(*(_row_model(x[:, cols], B).to(dev)
+                              for x in model)),
+            {k: v.to(dev) for k, v in ev.items()}))
+    return GenericRow(parts, walk_table(ops, devices[0]))
+
+
+def viterbi_decode_placed(ops, model, ev: dict,
+                          with_path: bool = True) -> list:
+    """The generic decode of arguments placed by mesh.shard_decode_inputs
+    (ops a mesh.PlacedTable, model a ModelArrays and ev a dict of Sharded
+    parts), the counterpart of hmm.viterbi_decode: one output a data row,
+    in order, on the row's first device ({"path" (B, T) uint16, "logp"},
+    or {"logp"}), which mesh.join joins; bit-identical to the rows of the
+    unplaced decode (viterbi_decode_generic_statepar)."""
+    cut = ops.cut
+    D, M = cut.from_idx.mesh.ids.shape
+    rows = []
+    for d in range(D):
+        parts = []
+        for m in range(M):
+            part = {k: (None if v is None else v.shards[d][m])
+                    for k, v in cut._asdict().items() if k != "K"}
+            e = {k: v.shards[d][m] for k, v in ev.items()}
+            B = e["length"].shape[0]
+            parts.append(GenericRankInputs(
+                hmm.TransOps(**part, K=cut.K),
+                hmm.ModelArrays(*(_row_model(x.shards[d][m], B)
+                                  for x in model)), e))
+        rows.append(GenericRow(parts, ops.walk[d]))
+    return viterbi_decode_generic_statepar(rows, with_path)
+
+
+def _generic_wave_rank(part: GenericRankInputs,
+                       with_path: bool) -> hmm.GenericWaveRank:
+    """A rank's part with its column buffer, backpointers and counters."""
+    B, T = part.ev["mean"].shape
+    W = part.model.level_mean.shape[-1]
+    dev = part.ev["mean"].device
+    return hmm.GenericWaveRank(
+        part.ops, part.model, part.ev,
+        torch.empty((2, B, W), dtype=torch.float32, device=dev),
+        (torch.empty((max(T - 1, 0), B, W), dtype=torch.uint8, device=dev)
+         if with_path else None),
+        torch.zeros(B, dtype=torch.int32, device=dev))
+
+
+def _decode_generic(rows, with_path: bool, kernels: bool) -> list:
+    """The schedule of the module docstring over K6am and K6bm (kernels) or
+    their plain versions (a row's reads in one wave)."""
+    T = _plan([row.parts for row in rows])
+    traceback = (hmm.generic_traceback_slices_kernel if kernels
+                 else hmm.viterbi_traceback_generic_slices_plain)
+    groups = [[_generic_wave_rank(p, with_path) for p in row.parts]
+              for row in rows]
+    for ranks in groups:
+        if kernels:
+            _forward_kernels(ranks, with_path, generic=True)
+        else:
+            hmm.viterbi_forward_generic_wave_plain(
+                ranks, 0, ranks[0].flags.shape[0])
+    out = []
+    for row, ranks in zip(rows, groups):
+        final = [r.col[(T - 1) % 2] for r in ranks]
+        lengths = ranks[0].ev["length"]
+        if with_path:
+            path, logp = traceback(row.walk, final, [r.bps for r in ranks],
+                                   lengths)
+            out.append({"path": path, "logp": logp})
+        else:
+            out.append({"logp": torch.amax(
+                hmm.gather_column(final, lengths.device), dim=-1)})
+        if kernels:
+            # the peers' cards free their slices once the walk is done
+            cur = torch.cuda.current_stream(lengths.device)
+            for r in ranks[1:]:
+                torch.cuda.current_stream(r.ev["mean"].device).wait_stream(
+                    cur)
+    return out
+
+
+def viterbi_decode_generic_statepar_plain(rows,
+                                          with_path: bool = True) -> list:
+    """The generic schedule over the plain K6am and K6bm, on any devices
+    (the plain version of viterbi_decode_generic_statepar)."""
+    return _decode_generic(rows, with_path, kernels=False)
+
+
+def viterbi_decode_generic_statepar(rows, with_path: bool = True) -> list:
+    """The generic decode with its states split over ranks, as
+    nanocall_tpu/ops/hmm.py:759 viterbi_decode runs under
+    shard_decode_inputs.
+
+    rows: one GenericRow a data row (split_table_states; 4096 / W ranks of
+    a power of two, at most 64, for the kernels).  Returns one dict a row,
+    on its first rank's device: {"path", "logp"}, or {"logp"} when
+    with_path is False, bit-identical to hmm.viterbi_decode on the row's
+    whole table.  CUDA devices run the kernels (a failed kernel, or a table
+    neither K6am form takes, raises; rows of one rank run K6a + K6b), CPU
+    devices the plain version."""
+    types = {p.ev["mean"].device.type for row in rows for p in row.parts}
+    if types == {"cpu"}:
+        return viterbi_decode_generic_statepar_plain(rows, with_path)
+    if types != {"cuda"}:
+        raise ValueError(f"no state-parallel decode over devices {types}")
+    if rows and all(len(row.parts) == 1 for row in rows):
+        # one rank holds every state and reads no peer: K6a + K6b
+        _plan([row.parts for row in rows])
+        return [hmm.viterbi_decode(
+            row.parts[0].ops._replace(from_idx=row.walk.from_idx,
+                                      from_states=row.walk.from_states),
+            row.parts[0].model, row.parts[0].ev, with_path=with_path)
+            for row in rows]
+    return _decode_generic(rows, with_path, kernels=True)

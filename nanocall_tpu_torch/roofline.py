@@ -538,12 +538,12 @@ def statepar_exchange_bytes(B: int, T: int, ranks: int,
                             walk_rows: int = 0) -> dict:
     """The bytes a state-parallel decode of one data row (B reads of T
     events over `ranks` ranks) moves between its ranks: "column", K1m's
-    reads of the peers' slices in place, each rank reading the ranks - 1
-    other slices (4 B W bytes each) of every column it steps from (events
-    0 .. T - 2); "walk", what K2m's ring copies from the slices of the
-    ranks other than the first (the walk's card): W bytes of each of the
-    ranks - 1 slices a row, over the walk_rows rows it streams
-    (walk_rows())."""
+    (or K6am's) reads of the peers' slices in place, each rank reading the
+    ranks - 1 other slices (4 B W bytes each) of every column it steps
+    from (events 0 .. T - 2); "walk", what K2m's (or K6bm's) ring copies
+    from the slices of the ranks other than the first (the walk's card): W
+    bytes of each of the ranks - 1 slices a row, over the walk_rows rows
+    it streams (walk_rows())."""
     W = N_STATES // ranks
     return {"column": (T - 1) * ranks * (ranks - 1) * 4 * B * W,
             "walk": walk_rows * (ranks - 1) * W}
@@ -716,6 +716,12 @@ KERNEL_COUNTS = {
     "fwbw_grouped_backward": fwbw_grouped_backward_counts,
     "fwbw_custom": fwbw_custom_counts,
     "fwbw_custom_resident": fwbw_custom_resident_counts,
+    # K6am and K6bm: the function a data row's generic decode computes,
+    # whatever its ranks (K6a's with backpointers, K6b's); the peers'
+    # slices they read apart (statepar_exchange_bytes)
+    "viterbi_generic_wave_resident": viterbi_resident_forward_path_counts,
+    "viterbi_generic_wave_streaming": viterbi_generic_forward_path_counts,
+    "viterbi_generic_traceback_slices": viterbi_generic_traceback_counts,
     "fma_chain": fma_chain_counts,
     "reshape_copy": reshape_copy_counts,
 }
@@ -725,7 +731,9 @@ TABLE_KERNELS = ("viterbi_generic_forward_path",
                  "viterbi_resident_forward_path",
                  "viterbi_resident_forward_score",
                  "viterbi_generic_traceback_ring", "fwbw_generic",
-                 "fwbw_resident", "fwbw_custom", "fwbw_custom_resident")
+                 "fwbw_resident", "fwbw_custom", "fwbw_custom_resident",
+                 "viterbi_generic_wave_resident",
+                 "viterbi_generic_wave_streaming")
 
 
 def kernel_counts(name: str, B: int, T: int, deg: int = 21) -> tuple:
@@ -733,7 +741,8 @@ def kernel_counts(name: str, B: int, T: int, deg: int = 21) -> tuple:
     events (a chunk kernel: T is the chunk's events; K1m, K2m: one data
     row's decode, whatever its ranks; K8: B rows of n = 4096 lanes, T steps
     of FMA_K FMAs; K10: a (B, T) output) at n = 4096 states, a loaded table
-    of `deg` slots."""
+    of `deg` slots (K6am, K6bm: one data row's generic decode, whatever its
+    ranks)."""
     fn = KERNEL_COUNTS[name]
     return fn(B, T, deg=deg) if name in TABLE_KERNELS else fn(B, T)
 

@@ -195,6 +195,50 @@ def build_structured(
     return StructuredTransitions(from_logp=from_logp, to_logp=to_logp, params=params, K=K)
 
 
+def build_structured_batch(params_batch: np.ndarray, K: int = 6):
+    """Batched structured tables for per-read trained transition params
+    (a copy of nanocall_tpu/transitions.py:202-237).
+
+    params_batch: (B, 2) float array of (p_stay, p_skip) rows.
+    Returns (from_logp, to_logp) of shape (B, 21, n) float32.
+
+    Fully vectorized over the batch (used when each read in a bucket has its
+    own trained p_stay/p_skip, mirroring the per-read custom transitions of
+    nanocall.cpp:651-661).
+    """
+    params_batch = np.asarray(params_batch, dtype=np.float64)
+    from_idx, to_idx, from_dup, to_dup = _slot_maps(K)
+    n = kmer.n_states(K)
+    states = np.arange(n, dtype=np.int64)
+    p_stay = params_batch[:, 0][:, None, None]
+    p_skip = params_batch[:, 1][:, None, None]
+    p_step = 1.0 - p_stay - p_skip
+    p_skip_1 = p_skip / (p_skip + 1.0)
+
+    def batch_prob(i, j):
+        # i, j: (21, n) int arrays; returns (B, 21, n) float64
+        p = np.zeros_like(p_stay + np.zeros((1,) + i.shape))
+        p = p + np.where(i == j, 1.0, 0.0) * p_stay
+        p = p + np.where(
+            kmer.suffix(i, K - 1, K) == kmer.prefix(j, K - 1, K), 1.0, 0.0
+        ) * (p_step / 4.0)
+        for l in range(2, K):
+            p = p + np.where(
+                kmer.suffix(i, K - l, K) == kmer.prefix(j, K - l, K), 1.0, 0.0
+            ) * (p_skip_1 ** (l - 1) / (1 << (2 * l)))
+        p = p + (p_skip_1 ** (K - 1) / (1.0 - p_skip_1)) / n
+        return p
+
+    p_from = batch_prob(from_idx,
+                        np.broadcast_to(states[None, :], from_idx.shape))
+    p_to = batch_prob(np.broadcast_to(states[None, :], to_idx.shape), to_idx)
+    from_logp = np.where(from_dup[None], -np.inf,
+                         np.log(p_from.astype(np.float32)))
+    to_logp = np.where(to_dup[None], -np.inf,
+                       np.log(p_to.astype(np.float32)))
+    return from_logp.astype(np.float32), to_logp.astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def grouped_condition_masks(K: int):
     """Static overlap-condition indicator vectors for the grouped (3-way)

@@ -963,3 +963,131 @@ def test_traceback_slices_ring_bit_equal_on_the_card(card, M):
                                  plain):
             assert torch.equal(_bits(g), _bits(w)), (M, B, what)
             assert torch.equal(_bits(g), _bits(p)), (M, B, what)
+
+
+def _generic_tables(dev, tmp_path, B: int) -> dict:
+    """The tables the generic mesh decode is held under: {name: (ops, the
+    K6am form it takes)}: the loaded (0.14, 0.21) table (resident), the
+    CLI priors' loaded table (streaming), per-read structured tables of
+    four kinetics (resident, per read), the same without their packed
+    layout (streaming, per read) and a random table of 25 slots
+    (streaming; K6bm reads its from_idx from global memory)."""
+    rng = np.random.default_rng(41)
+    params = np.array([[0.1, 0.3], [0.14, 0.21], [0.15, 0.2],
+                       [0.07, 0.35]])[np.arange(B) % 4]
+    batch = convert.trans_ops_batch(
+        *transitions.build_structured_batch(params, 6), 6, dev)
+    idx = rng.integers(0, 4096, (25, 4096)).astype(np.int32)
+    lp = np.log(rng.uniform(0.01, 1.0, (25, 4096))).astype(np.float32)
+    return {
+        "(0.14, 0.21)": (_loaded_ops(dev, tmp_path, 0.14, 0.21), "resident"),
+        "(0.1, 0.3)": (_loaded_ops(dev, tmp_path, 0.1, 0.3), "streaming"),
+        "per-read": (batch, "resident"),
+        "per-read streaming": (batch._replace(from_packed=None,
+                                              from_codebook=None),
+                               "streaming"),
+        "random 25 slots": (convert.trans_ops(transitions.SparseTransitions(
+            from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), dev),
+            "streaming"),
+    }
+
+
+def _nan_generic_inputs(dev, T: int):
+    """_k6_inputs of 6 reads with a NaN event in read 1, a NaN level mean
+    at state 3000 of read 2 and a +inf event in read 3."""
+    lengths = [T, 0, T, T, 1, T - 1]
+    _, model, ev = _k6_inputs(dev, len(lengths), T, lengths, 43)
+    ev["mean"][0, T // 2] = float("nan")
+    model.level_mean[2, 3000] = float("nan")
+    ev["mean"][3, T // 3] = float("inf")
+    return model, ev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_generic_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
+                                                        inputs):
+    """K6am and K6bm, the generic decode with the 4096 states split over M =
+    2, 4 and 8 ranks on cuda:0 (statepar.viterbi_decode_generic_statepar),
+    against their plain versions over the same ranks and against K6a + K6b
+    (hmm.viterbi_decode), path and score-only, every output as bits, under
+    _generic_tables' five tables, on clean reads of lengths 0, 1, T-1 and T
+    and on _nan_generic_inputs; one launch of K6am's form a wave and of
+    K6bm a row; a row of one rank decodes by K6a + K6b."""
+    from nanocall_tpu_torch.parallel import statepar
+
+    T = 40
+    if inputs == "clean":
+        lengths = [T, 0, 1, T - 1, 17, T]
+        _, model, ev = _k6_inputs(card, len(lengths), T, lengths, 42)
+    else:
+        model, ev = _nan_generic_inputs(card, T)
+    B = ev["length"].shape[0]
+    wrappers = {"resident": hmm.generic_wave_resident_kernel,
+                "streaming": hmm.generic_wave_streaming_kernel}
+    for name, (ops, form) in _generic_tables(card, tmp_path, B).items():
+        for with_path in (True, False):
+            ref = hmm.viterbi_decode(ops, model, ev, with_path=with_path)
+            for M in (1, 2, 4, 8):
+                rows = [statepar.split_table_states(ops, model, ev,
+                                                    [card] * M)]
+                want = statepar.viterbi_decode_generic_statepar_plain(
+                    rows, with_path)
+                n0 = (wrappers[form].launches,
+                      hmm.generic_traceback_slices_kernel.launches)
+                got = statepar.viterbi_decode_generic_statepar(rows,
+                                                               with_path)
+                torch.cuda.synchronize()
+                assert (wrappers[form].launches - n0[0],
+                        hmm.generic_traceback_slices_kernel.launches
+                        - n0[1]) == (int(M > 1), int(M > 1 and with_path))
+                for key in ref:
+                    what = (inputs, name, M, with_path, key)
+                    assert got[0][key].device == card, what
+                    assert torch.equal(_bits(got[0][key]),
+                                       _bits(want[0][key])), what
+                    assert torch.equal(_bits(got[0][key]),
+                                       _bits(ref[key])), what
+            if inputs == "NaN":
+                assert torch.isnan(ref["logp"]).any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_per_read_forward_bit_equal_on_the_card(card, tmp_path, inputs):
+    """K6a under per-read tables (a per-read stride in both kernels): the
+    resident kernel on the per-read packed layouts and the streaming one
+    without them, path and score-only, bit-equal to the plain version, and
+    K6b on its output; each read's path and logp equal to its decode
+    alone under its own table."""
+    T = 40
+    if inputs == "clean":
+        lengths = [T, 0, 1, T - 1, 17, T]
+        _, model, ev = _k6_inputs(card, len(lengths), T, lengths, 44)
+    else:
+        model, ev = _nan_generic_inputs(card, T)
+    tables = _generic_tables(card, tmp_path, ev["length"].shape[0])
+    for name in ("per-read", "per-read streaming"):
+        ops, route = tables[name]
+        assert hmm.generic_forward_route(ops) == route
+        for with_path in (True, False):
+            want = hmm.viterbi_forward_plain(ops, model, ev, with_path)
+            got = hmm.viterbi_forward(ops, model, ev, with_path)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got[0]), _bits(want[0])), name
+            if with_path:
+                assert torch.equal(got[1], want[1]), name
+        dec = hmm.viterbi_decode(ops, model, ev)
+        for b in range(ev["length"].shape[0]):
+            one = hmm.viterbi_decode(
+                ops._replace(from_logp=ops.from_logp[b],
+                             to_logp=ops.to_logp[b],
+                             from_packed=None if ops.from_packed is None
+                             else ops.from_packed[b],
+                             from_codebook=None if ops.from_codebook is None
+                             else ops.from_codebook[b]),
+                hmm.ModelArrays(*(x[b:b + 1] for x in model)),
+                {k: v[b:b + 1] for k, v in ev.items()})
+            assert torch.equal(dec["path"][b], one["path"][0]), (name, b)
+            assert torch.equal(_bits(dec["logp"][b]),
+                               _bits(one["logp"][0])), (name, b)

@@ -249,6 +249,41 @@ def test_parallel_path_runs_on_cpu_without_importing_jax():
     assert proc.stdout.splitlines()[-1] == "NOJAX_OK"
 
 
+def test_generic_mesh_path_runs_on_cpu_without_importing_jax():
+    """Per-read structured tables (transitions.build_structured_batch,
+    convert.trans_ops_batch) and the generic decode placed on a 2 x 2 CPU
+    mesh (mesh.shard_decode_inputs, statepar.viterbi_decode_placed: the
+    plain K6am and K6bm) in a fresh interpreter, equal to the unplaced
+    plain K6a + K6b: no jax and no nanocall_tpu."""
+    proc = _run_python(
+        "import sys, numpy as np, torch\n"
+        "from nanocall_tpu_torch import convert, transitions\n"
+        "from nanocall_tpu_torch.models import load_builtin_models\n"
+        "from nanocall_tpu_torch.ops import hmm\n"
+        "from nanocall_tpu_torch.parallel import mesh, statepar\n"
+        "cpu = torch.device('cpu')\n"
+        "B, T = 2, 6\n"
+        "ops = convert.trans_ops_batch(*transitions.build_structured_batch("
+        "np.array([[0.1, 0.3], [0.14, 0.21]]), 6), 6, cpu)\n"
+        "pm = load_builtin_models('r73')['r73.t.006']\n"
+        "model = hmm.make_model_arrays(*(torch.from_numpy(x) for x in ("
+        "pm.level_mean, pm.level_stdv, pm.sd_mean, pm.sd_lambda)), B=B)\n"
+        "stdv = torch.ones(B, T)\n"
+        "ev = {'mean': torch.full((B, T), 60.0), 'stdv': stdv,"
+        " 'log_stdv': torch.log(stdv),"
+        " 'length': torch.tensor([T, 4], dtype=torch.int32)}\n"
+        "want = hmm.viterbi_decode(ops, model, ev)\n"
+        "got = mesh.join(statepar.viterbi_decode_placed(*mesh."
+        "shard_decode_inputs(mesh.make_mesh(4, 2, devices=[cpu] * 4), ops,"
+        " model, ev)))\n"
+        "assert torch.equal(got['path'], want['path'])\n"
+        "assert torch.equal(got['logp'], want['logp'])\n"
+        "rc = 0\n"
+        + _ASSERT_NO_JAX)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "NOJAX_OK"
+
+
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):
     """A kernel build that fails raises; nothing falls back or is cached."""
     from nanocall_tpu_torch.ops import _cuda

@@ -573,16 +573,17 @@ def test_ring_kernel_source_states_its_shared_memory():
 
 
 def test_end_argmax_has_one_implementation():
-    """K2's, K2m's, K6b's ring and K6b's streaming kernels take their end
-    argmax from common.cuh (end_argmax_partials, or end_argmax_partials_at
-    for K2m's states in the ranks' slices, a barrier, end_argmax), and no
-    kernel source holds a second copy of its rule or its shuffles."""
+    """K2's, K2m's, K6b's ring, K6bm's and K6b's streaming kernels take
+    their end argmax from common.cuh (end_argmax_partials, or
+    end_argmax_partials_at for K2m's and K6bm's states in the ranks'
+    slices, a barrier, end_argmax), and no kernel source holds a second
+    copy of its rule or its shuffles."""
     common = _csrc("common.cuh")
     for name in ("void take_better(", "void warp_argmax(",
                  "void end_argmax_partials(", "void end_argmax_partials_at(",
                  "void end_argmax("):
         assert name in common, name
-    for name, kernels in (("viterbi_traceback.cu", 3),
+    for name, kernels in (("viterbi_traceback.cu", 4),
                           ("viterbi_generic.cu", 1)):
         src = _csrc(name)
         assert "void take_better(" not in src, name

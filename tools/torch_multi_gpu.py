@@ -25,7 +25,15 @@ It needs two cards or more (it exits 2 with fewer) and
    the peers' backpointer slices by cp.async.bulk over peer access (the
    check that a bulk copy reads a peer card's memory); each mesh's wall
    beside the same mesh with every rank on cuda:0 and K1 + K2's;
-4. runs chip_smoke.py's 24 simulated reads through basecall.run_pipeline,
+4. decodes the same chunk's events and scaled models under the loaded
+   21-neighbour table of (0.14, 0.21) (chip_smoke.load_trans_table: K6am's
+   resident form, K6bm's from-state table) through
+   statepar.viterbi_decode_placed on parallel.mesh.shard_decode_inputs'
+   placement on the same meshes: path and logp bit-equal to K6a + K6b on
+   cuda:0 (hmm.viterbi_decode), one K6am launch a wave and card (its
+   exchange at system scope) and one K6bm a data row (its ring copies the
+   peers' backpointer slices over peer access);
+5. runs chip_smoke.py's 24 simulated reads through basecall.run_pipeline,
    untrained and trained, over the default data sharder (every card:
    basecall.default_sharder) and over cuda:0 alone: FASTA byte-equal, stats
    within rtol 2e-3, every card allocated memory in the sharded runs; the
@@ -172,6 +180,61 @@ def run_mesh(models, cards, card_line: str) -> dict:
     return out
 
 
+def run_generic_mesh(models, cards, card_line: str) -> dict:
+    """Phase 4: the generic decode on the state axis across cards."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import basecall
+    from nanocall_tpu_torch.ops import hmm, kernels
+    from nanocall_tpu_torch.parallel import mesh, statepar
+
+    B, T = chip_smoke.B_MESH, chip_smoke.T_MESH
+    args = chip_smoke.pooled_inputs(models, cards[0], B, T,
+                                    np.random.default_rng(2030))
+    model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
+    ev = basecall.pooled_ev_batch(*args[:5], args[9])
+    ops = chip_smoke.load_trans_table(cards[0])[2]
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        for i in range(len(cards)):
+            torch.cuda.synchronize(i)
+        return time.perf_counter() - t0, got
+
+    k6_s, ref = wall(lambda: hmm.viterbi_decode(ops, model, ev))
+    ref = {k: v.cpu() for k, v in ref.items()}
+    out = {"k6a_k6b_s": k6_s}
+    for D, M in ((1, 2), (2, 2)):
+        if D * M > len(cards):
+            continue
+        grid = (mesh.make_mesh(D * M, model_axis=M) if D * M == 4
+                else mesh.make_mesh(D * M, model_axis=M, devices=cards))
+        placed = mesh.shard_decode_inputs(grid, ops, model, ev)
+        kernels.reset_launches()
+        s, got = wall(lambda: statepar.viterbi_decode_placed(*placed))
+        waves = sum(len(statepar.plan_waves(B // D, row, {
+            d: hmm.generic_wave_resident(d, True, True, True, 21, 4096 // M)
+            for d in row})[row[0]]) * len(set(row)) for row in grid.devices)
+        assert (hmm.generic_wave_resident_kernel.launches,
+                hmm.generic_traceback_slices_kernel.launches) == \
+            (waves, D), (hmm.generic_wave_resident_kernel.launches, waves)
+        assert [o["path"].device for o in got] == [row[0] for row in
+                                                   grid.devices]
+        got = mesh.join(got)
+        for k in ("path", "logp"):
+            assert torch.equal(chip_smoke.bits(got[k]),
+                               chip_smoke.bits(ref[k])), (D, M, k)
+        out[f"generic_mesh_{D}x{M}_s"] = s
+        print(f"generic mesh ({D}, {M}) over {D * M} cards, B={B} T={T}, "
+              f"the loaded table: path and logp bit-equal to K6a + K6b on "
+              f"cuda:0; {s:.3f} s of wall vs K6a + K6b {k6_s:.3f} s "
+              f"[{card_line}]")
+    return out
+
+
 def run_sharded(models, cards, card_line: str) -> dict:
     """Phase 4: the pipeline over every card against cuda:0 alone."""
     import numpy as np
@@ -234,10 +297,12 @@ def main() -> int:
     check_current_device(models, n)
     seq = run_seqpar(models, cards, card_line)
     mesh_walls = run_mesh(models, cards, card_line)
+    generic_walls = run_generic_mesh(models, cards, card_line)
     walls = run_sharded(models, cards, card_line)
     print(card_line)
     print(json.dumps({"ok": True, "cards": n, "seqpar": seq,
-                      "mesh": mesh_walls, "pipeline_wall_s": walls}))
+                      "mesh": mesh_walls, "generic_mesh": generic_walls,
+                      "pipeline_wall_s": walls}))
     return 0
 
 
