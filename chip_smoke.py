@@ -150,7 +150,23 @@ from the root of a checkout.  It
      resident, resident, streaming); holds each to its plain version
      (tolerance 0) and prints both times, and roofline.em_mfu_report for
      K4 + K5 from their times (against the measured K8 peak at that shape
-     and the spec);
+     and the spec); then the EM round on the mesh's state axis
+     (parallel.statepar: K4m and K5m, K4 and K5 with the 4096 states split
+     over the ranks of a data row, every rank on the one card): the whole
+     chunk one data row over 2 and 4 ranks, K4m with the alphas stored and
+     fit-only, K5m with both train flags and each alone, and both on the
+     chunk with NaN events, a NaN model entry and a +inf event, each
+     bit-equal (as bits) to its plain version over the same ranks and to
+     K4 / K5, timed by CUDA events around each launch (a pass is one
+     launch a wave: statepar.plan_waves on each kernel's own resident
+     blocks) beside K4's and K5's times and the bounds, with the bytes the
+     ranks read from each other (roofline.statepar_exchange_bytes); then
+     the port's multi-device dry run (nanocall_tpu_torch.dryrun, JAX's
+     __graft_entry__.py:68) on four ranks of the card, a 2 x 2 mesh,
+     counted as its own path: the placed EM round (K4m, K5m) bit-equal to
+     the unplaced one, the placed generic decode (K6am, K6bm), the placed
+     production decode (K1m, K2m), K9's equality and the sharded
+     pipeline's FASTA equality, with JAX's summary line;
   7. drives the pipeline end to end (nanocall_tpu_torch.basecall.
      run_pipeline, `--pore r73 -t 1`) on 24 simulated reads (1D reads of
      2,000-8,000 events and 2-strand hairpin reads of 3,000 + 3,000, drawn
@@ -207,8 +223,9 @@ from the root of a checkout.  It
      trace it writes must name the K1 and K2 kernels;
  12. prints a JSON line of the kernels (launch counts: the sum over the
      end-to-end runs, the tools, the dump, the measurement path, the
-     repro tool, K9's counted decode, the sharded runs and the two hosts'
-     runs, and each run's; each kernel's time, its plain version's,
+     repro tool, K9's counted decode, the mesh runs, the dry run, the
+     sharded runs and the two hosts' runs, and each run's; 28 kernels;
+     each kernel's time, its plain version's,
      its shape, its bound on the H100's published peaks
      (roofline.kernel_bound), its achieved float32 rate and that rate's
      share of 67 TFLOP/s and of the K8 peak at its shape, each also
@@ -293,6 +310,14 @@ K2M_RANKS = (2, 4, 64)
 GENERIC_MESH_KERNELS = ("viterbi_generic_wave_resident",
                         "viterbi_generic_wave_streaming",
                         "viterbi_generic_traceback_slices")
+#: the ranks K4m and K5m run at the EM chunk (the first is the kernels
+#: line's), and the kernels the dry run must launch
+EM_RANKS = (2, 4)
+DRYRUN_KERNELS = ("fwbw_forward_wave", "em_backward_wave",
+                  "viterbi_generic_wave_resident",
+                  "viterbi_generic_traceback_slices", "viterbi_forward_slice",
+                  "viterbi_traceback_slices", "viterbi_forward_chunk",
+                  "viterbi_traceback_chunk_states")
 #: kernels each host's half of the multi-host emulation must launch (its
 #: reads may hold no contest, so no score-only chunk)
 HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
@@ -882,8 +907,9 @@ def check_statepar(gt, model, ev) -> dict:
 HOLD_CYCLES = 2_000_000
 
 
-def launch_spans(fn, name: str, device, reps: int = 1) -> dict:
-    """The launches of kernel wrapper hmm.<name> in `reps` calls of `fn`,
+def launch_spans(fn, name: str, device, reps: int = 1, module=None) -> dict:
+    """The launches of kernel wrapper hmm.<name> (or module.<name>) in
+    `reps` calls of `fn`,
     each timed alone by CUDA events recorded on `device`'s current stream
     just before and after it, the stream held busy first (HOLD_CYCLES), so
     that the span is the device's time for the launch and not the host's
@@ -894,7 +920,8 @@ def launch_spans(fn, name: str, device, reps: int = 1) -> dict:
 
     from nanocall_tpu_torch.ops import hmm
 
-    orig = getattr(hmm, name)
+    module = hmm if module is None else module
+    orig = getattr(module, name)
     spans, host = [], []
 
     def timed(*args, **kw):
@@ -913,13 +940,13 @@ def launch_spans(fn, name: str, device, reps: int = 1) -> dict:
 
     timed.launches = 0
     torch.cuda.synchronize()
-    setattr(hmm, name, timed)
+    setattr(module, name, timed)
     try:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     finally:
-        setattr(hmm, name, orig)
+        setattr(module, name, orig)
     return {"device_s": sum(a.elapsed_time(b) for a, b in spans) / 1e3,
             "host_s": sum(host), "launches": len(spans)}
 
@@ -1781,7 +1808,7 @@ def em_kernel_inputs(models, reads, device, rng) -> dict:
         ev["strand"][0, si] = si % 2
         ev["valid"][0, si] = True
     batch = convert.train_batch(ev, mdl, pm0, st0, device)
-    return train.round_inputs(*batch, K=6)
+    return {**train.round_inputs(*batch, K=6), "batch": batch}
 
 
 def check_em_kernels(inp) -> dict:
@@ -1883,6 +1910,194 @@ def check_em_under_nan(inp) -> None:
         for what, g, w in zip(("moments", "log totals"), got, want):
             assert torch.equal(bits(g), bits(w)), \
                 f"K5 {what} under NaN, flags {flags}"
+
+
+def nan_train_batch(batch):
+    """A copy of a training batch (convert.train_batch's tensors) with
+    group 1's rows valid and of full length, NaN events in its row 1 from
+    event T / 2 on, a NaN level mean at one state of its row 2's strand's
+    model, and a +inf event in its row 3."""
+    ev, mdl, pm, st = batch
+    ev = {k: v.clone() for k, v in ev.items()}
+    mdl = {k: v.clone() for k, v in mdl.items()}
+    T = ev["mean"].shape[2]
+    ev["length"][1] = T
+    ev["valid"][1] = True
+    ev["mean"][1, 1, T // 2:] = float("nan")
+    mdl["level_mean"][1, int(ev["strand"][1, 2]), 1234] = float("nan")
+    ev["mean"][1, 3, 40] = float("inf")
+    return ev, mdl, pm, st
+
+
+def check_em_statepar(inp, card: str) -> dict:
+    """K4m and K5m, the EM round's kernels with the 4096 states split over
+    the ranks of a data row (parallel/statepar.py), at the EM chunk's full
+    width (all G_EM x 4 rows of T_EM events one data row) over EM_RANKS
+    ranks on the chunk's card: K4m (alphas stored, and the fit-only form)
+    and K5m (both train flags, and each alone) on the clean chunk, K4m and
+    K5m (both flags) on nan_train_batch's, each bit-equal (as bits) to its
+    plain version over the same ranks (hmm.fwbw_forward_wave_plain,
+    em.em_backward_wave_plain) and to K4 / K5 on the whole rows.  Each pass
+    is one launch a wave (statepar.plan_waves on each kernel's own resident
+    blocks), the counters zeroed before it; its device time is the sum of
+    its launches' (launch_spans: CUDA events around each launch, 3 passes).
+    Returns the two kernels' records at 2 ranks (their "ms" a pass,
+    "plain_ms" the plain version's pass), and prints every rank count's
+    times beside K4's and K5's and the bounds."""
+    import torch
+
+    from nanocall_tpu_torch import roofline, train
+    from nanocall_tpu_torch.ops import em, hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    dev = inp["x_unc"].device
+    recs = {}
+    for what, batch in (("clean", inp["batch"]),
+                        ("NaN", nan_train_batch(inp["batch"]))):
+        whole = train.round_inputs(*batch, K=6)
+        B, T = whole["x_unc"].shape
+        a_k, lpd_k = hmm.fwbw_forward_kernel(whole["gtf"], whole["model"],
+                                             whole["ev"])
+        flag_sets = (((True, True), (True, False), (False, True))
+                     if what == "clean" else ((True, True),))
+        for M in EM_RANKS:
+            W = 4096 // M
+            ranks = statepar.split_round_states(*batch, [dev] * M)
+            for stored in ((True, False) if what == "clean" else (True,)):
+                fk = [statepar._fwd_wave_rank(r, stored) for r in ranks]
+                fp = [statepar._fwd_wave_rank(r, stored) for r in ranks]
+
+                def k4m(fk=fk, stored=stored):
+                    for r in fk:
+                        r.flags.zero_()
+                    statepar._wave_kernels(
+                        fk, hmm.fwbw_forward_wave_kernel,
+                        lambda d, sys: hmm.fwbw_forward_wave_resident(
+                            d, sys, stored))
+
+                k4m()
+                plain_ms, _ = cuda_ms_once(
+                    lambda: hmm.fwbw_forward_wave_plain(fp, 0, B))
+                torch.cuda.synchronize()
+                for rk, rp in zip(fk, fp):
+                    tag = f"K4m {what} M={M} stored={stored}"
+                    assert torch.equal(bits(rk.lpd), bits(rp.lpd)), \
+                        f"{tag} log_pr_data differs from plain"
+                    assert torch.equal(bits(rk.lpd), bits(lpd_k)), \
+                        f"{tag} log_pr_data differs from K4"
+                    if stored:
+                        assert torch.equal(bits(rk.alphas),
+                                           bits(rp.alphas)), \
+                            f"{tag} alphas differ from plain"
+                if stored:
+                    got = torch.cat([r.alphas for r in fk], dim=2)
+                    assert torch.equal(bits(got), bits(a_k)), \
+                        f"K4m {what} M={M} alphas differ from K4"
+                    del got
+                    fwd = fk
+                spans = launch_spans(k4m, "fwbw_forward_wave_kernel", dev,
+                                     3)
+                rec = {"max_abs_err": max(max_err(rk.lpd, rp.lpd)
+                                          for rk, rp in zip(fk, fp)),
+                       "ms": 1e3 * spans["device_s"] / 3,
+                       "host_us": 1e6 * spans["host_s"] / 3,
+                       "plain_ms": plain_ms, "launches_a_pass":
+                       spans["launches"] // 3, "shape": [B, T], "ranks": M}
+                if what == "clean" and stored and M == EM_RANKS[0]:
+                    recs["fwbw_forward_wave"] = rec
+                print(f"kernel fwbw_forward_wave (K4m, {what}, "
+                      f"{'alphas stored' if stored else 'fit-only'}): "
+                      f"B={B} T={T} over {M} ranks bit-equal to plain and "
+                      f"to K4; {rec['ms']:.3f} ms a pass of "
+                      f"{rec['launches_a_pass']} launches by CUDA events "
+                      f"around each vs plain {plain_ms:.3f} ms [{card}]")
+                del fp
+            for ts, tt in flag_sets:
+                want = em.em_backward_kernel(*train.em_backward_args(
+                    whole if ts else {**whole, "W": None}, lpd_k, a_k, ts,
+                    tt))
+                bk = [statepar._em_wave_rank(r, f)
+                      for r, f in zip(ranks, fwd)]
+                bp = [statepar._em_wave_rank(r, f)
+                      for r, f in zip(ranks, fwd)]
+
+                def k5m(bk=bk, ts=ts, tt=tt, W=W):
+                    for r in bk:
+                        r.flags.zero_()
+                    statepar._wave_kernels(
+                        bk, lambda *a: em.em_backward_wave_kernel(*a, ts, tt),
+                        lambda d, sys: em.em_backward_wave_resident(
+                            d, sys, ts, W))
+
+                k5m()
+                plain_ms, _ = cuda_ms_once(
+                    lambda: em.em_backward_wave_plain(bp, 0, B, ts, tt))
+                torch.cuda.synchronize()
+                for name, g, p, w in zip(("moments", "log totals"),
+                                         (bk[0].scal, bk[0].st3),
+                                         (bp[0].scal, bp[0].st3), want):
+                    tag = f"K5m {what} M={M} flags {(ts, tt)} {name}"
+                    assert torch.equal(bits(g), bits(p)), \
+                        f"{tag} differ from plain"
+                    assert torch.equal(bits(g), bits(w)), \
+                        f"{tag} differ from K5"
+                spans = launch_spans(k5m, "em_backward_wave_kernel", dev, 3,
+                                     module=em)
+                rec = {"max_abs_err": max(max_err(bk[0].scal, bp[0].scal),
+                                          max_err(bk[0].st3, bp[0].st3)),
+                       "ms": 1e3 * spans["device_s"] / 3,
+                       "host_us": 1e6 * spans["host_s"] / 3,
+                       "plain_ms": plain_ms, "launches_a_pass":
+                       spans["launches"] // 3, "shape": [B, T], "ranks": M}
+                if what == "clean" and (ts, tt) == (True, True) and \
+                        M == EM_RANKS[0]:
+                    recs["em_backward_wave"] = rec
+                print(f"kernel em_backward_wave (K5m, {what}, flags "
+                      f"{(ts, tt)}): B={B} T={T} over {M} ranks bit-equal to "
+                      f"plain and to K5; {rec['ms']:.3f} ms a pass of "
+                      f"{rec['launches_a_pass']} launches by CUDA events "
+                      f"around each vs plain {plain_ms:.3f} ms [{card}]")
+                del bk, bp
+            del ranks, fwd
+        del a_k, whole
+        torch.cuda.empty_cache()
+    for name in ("fwbw_forward_wave", "em_backward_wave"):
+        b = roofline.kernel_bound(name, *recs[name]["shape"])
+        ex = roofline.statepar_exchange_bytes(*recs[name]["shape"],
+                                              EM_RANKS[0])
+        print(f"bound {name} at B={recs[name]['shape'][0]} "
+              f"T={recs[name]['shape'][1]}: {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}, the function's whatever the ranks); over "
+              f"{EM_RANKS[0]} ranks the peers' slices read: alpha columns "
+              f"{ex['alpha_column'] / 1e9:.3f} GB, g columns "
+              f"{ex['g_column'] / 1e9:.3f} GB, maxima {ex['maxima']} B, "
+              f"records {ex['partials']} B")
+    return recs
+
+
+def run_dryrun(device, card: str) -> dict:
+    """The port's multi-device dry run (nanocall_tpu_torch.dryrun, the
+    counterpart of __graft_entry__.py:68) on four ranks of `device`, a 2 x
+    2 mesh, counted as its own path (every kernel count set to 0 just
+    before, read just after): it must launch K4m and K5m (the placed EM
+    round, bit-equal to the unplaced one), K6am's resident form and K6bm
+    (the placed generic decode), K1m and K2m (the placed production decode)
+    and K9's kernels, and prints JAX's summary line.  Returns {"launches",
+    "wall_s", "line"}."""
+    from nanocall_tpu_torch import dryrun
+    from nanocall_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    line = dryrun.dryrun_multichip(4, devices=[device] * 4)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+    for k in DRYRUN_KERNELS:
+        assert launches[k] > 0, f"the dry run did not launch {k}"
+    assert line.endswith("seqpar_exact=True pipeline_fasta_equal=True"), line
+    print(f"dry run (dryrun_multichip(4) on one card): {wall:.1f} s; "
+          f"launches { {k: v for k, v in launches.items() if v} } [{card}]")
+    return {"launches": launches, "wall_s": wall, "line": line}
 
 
 def time_k6c_in_turns(ops, model, ev, reps: int = 3) -> dict:
@@ -2124,13 +2339,23 @@ def check_reshape_kernel(device) -> dict:
         "shape": [8, 512]}}
 
 
+#: built_sass' answers, by library path: the census reads one library's
+#: SASS dozens of times, and each cuobjdump of it takes seconds
+_sass: dict = {}
+
+
 def built_sass() -> str:
-    """The SASS of the built library, by cuobjdump -sass."""
+    """The SASS of the built library, by cuobjdump -sass (run once a
+    library)."""
     from nanocall_tpu_torch.ops import _cuda
 
-    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
-    return subprocess.run([tool, "-sass", _cuda._lib_path()],
-                          capture_output=True, text=True, check=True).stdout
+    path = _cuda._lib_path()
+    if path not in _sass:
+        tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+        _sass[path] = subprocess.run([tool, "-sass", path],
+                                     capture_output=True, text=True,
+                                     check=True).stdout
+    return _sass[path]
 
 
 def kernel_instances(marker: str) -> list:
@@ -2988,6 +3213,12 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = smi_line()
     print(card)
+    t_main = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        """The seconds since the card line, before a phase: where a run's
+        time goes, against the time limit."""
+        print(f"[{time.perf_counter() - t_main:.1f} s] {what}", flush=True)
     nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout
     print(f"device: {torch.cuda.get_device_name(0)} x"
@@ -3047,6 +3278,7 @@ def main() -> int:
     for what, marker in (("K6c streaming", "fwbw_generic_kernel"),):
         print(f"{what} SASS: {step_loop_sass(marker)}")
 
+    stamp("models, tables and the decode kernels at 16 x 2048")
     models = cli.init_models(smoke_config())
     t0 = time.perf_counter()
     trans = load_trans_table(device)
@@ -3074,6 +3306,7 @@ def main() -> int:
         print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} n=4096 bit-equal to "
               f"plain; {r['ms']:.3f} ms{turns} vs plain {r['plain_ms']:.3f} "
               f"ms [{card}]")
+    stamp("K8 and the measurement path")
     recs.update(check_fma_kernel(device))
     measure = run_measure(device)
     peak = measure["peaks"][(B_KERNEL, T_KERNEL)]
@@ -3110,6 +3343,7 @@ def main() -> int:
           f"{k10_bound['bound_ms']:.6f} ms ({k10_bound['bound_by']}) "
           f"[{card}]")
     repro_launches = run_repro_tool()
+    stamp("K3 at 16 x 2048 and the wide walks")
     check_tchunk_kernels(gt, model, ev, TC_KERNEL)
     print(f"kernel K3: B={B_KERNEL} T={T_KERNEL} Tc={TC_KERNEL} forward and "
           f"traceback chunks bit-equal to plain, the chunked decode to "
@@ -3120,6 +3354,7 @@ def main() -> int:
           f"B={B_WIDE} T={T_WIDE}, lengths 0 to T: bit-equal to their plain "
           f"versions [{card}]")
 
+    stamp("K3 at long-read width")
     gt, model, ev = kernel_inputs(models, device, B_LONG, T_LONG, rng)
     check_tchunk_vs_full_scan(gt, model, ev, TC_LONG)
     k3, decode = time_tchunk_kernels(gt, model, ev, TC_LONG)
@@ -3131,6 +3366,7 @@ def main() -> int:
           f"to K1 + K2; chunked {decode['chunked_ms']:.3f} ms, full scan "
           f"{decode['full_scan_ms']:.3f} ms [{card}]")
     recs.update(k3)
+    stamp("K9")
     t0 = time.perf_counter()
     k1k2 = hmm.viterbi_decode_grouped(*small)
     k9_bound = roofline.seqpar_bound(B_KERNEL, T_KERNEL)
@@ -3151,6 +3387,7 @@ def main() -> int:
     print(f"K9 at long-read width: {time.perf_counter() - t0:.1f} s")
     del gt, model, ev
     torch.cuda.empty_cache()
+    stamp("the mesh phase")
     t0 = time.perf_counter()
     mesh_rng = np.random.default_rng(2026)
     sp = check_statepar(*kernel_inputs(models, device, B_KERNEL, T_KERNEL,
@@ -3193,6 +3430,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"generic mesh phase: {time.perf_counter() - t0:.1f} s")
 
+    stamp("the EM kernels")
     reads = simulated_reads(models, rng)
     inp = em_kernel_inputs(models, reads, device, rng)
     em = check_em_kernels(inp)
@@ -3208,7 +3446,12 @@ def main() -> int:
           f"{em['fwbw_grouped_backward']['ms']:.3f} ms on the full chunk, "
           f"{em['fwbw_grouped_backward']['half_idle_ms']:.3f} ms on the "
           f"half-idle one [{card}]")
+    t0 = time.perf_counter()
+    em.update(check_em_statepar(inp, card))
+    print(f"EM state-axis phase: {time.perf_counter() - t0:.1f} s")
     del inp
+    torch.cuda.empty_cache()
+    dry = run_dryrun(device, card)
     for name, r in em.items():
         turns = f" (in turns: {r['ms_turns']})" if "ms_turns" in r else ""
         print(f"kernel {name}: B={4 * G_EM} T={T_EM} n=4096 bit-equal to "
@@ -3229,6 +3472,7 @@ def main() -> int:
               f"{100 * rep['hbm_utilization_vs_spec']:.2f}% of 3.35 TB/s; "
               f"binding {rep['binding_resource']} [{card}]")
 
+    stamp("the end-to-end runs")
     untrained = run_end_to_end(models, reads, device, False,
                                UNTRAINED_KERNELS)
     print_run("untrained (--no-train)", untrained, card)
@@ -3266,10 +3510,12 @@ def main() -> int:
     for k in ("viterbi_forward_path", "viterbi_traceback"):
         assert long["launches"][k] == 0, f"a long path chunk ran {k}"
     print_run("long reads, trained (default)", long, card)
+    stamp("the sharder and two hosts")
     t0 = time.perf_counter()
     sharded = run_sharded(models, reads, device, card)
     multihost_launches = run_multihost(models, reads, device, card)
     print(f"sharder and multihost phases: {time.perf_counter() - t0:.1f} s")
+    stamp("the dev tools")
     tool_runs = run_tools(models, trans[0], rng)
     for name, r in tool_runs.items():
         extra = {k: v for k, v in r.items() if k not in ("launches",
@@ -3280,6 +3526,7 @@ def main() -> int:
               f"with the -o run on {TOOLS_DUMP_EVENTS} events) [{card}]")
     print("tools: -o matrix dumps give posteriors summing to 1; -K 3 on the "
           "card raised the kernels' ValueError and launched nothing")
+    stamp("the training-data dump")
     dump = run_dump(models, reads, device)
     print(f"dump_training_data: {dump['subsequences']} subsequences in "
           f"{dump['wall_s']:.3f} s, invariants hold; launches "
@@ -3290,6 +3537,7 @@ def main() -> int:
           f"{trans_untrained['identity_mean']:.3f}; long reads "
           f"{long['identity_mean']:.3f}")
 
+    stamp("the kernels line")
     runs = {"untrained": untrained["launches"], "trained": trained["launches"],
             "trained_trans": trans_trained["launches"],
             "trained_trans_priors": priors_trained["launches"],
@@ -3301,6 +3549,7 @@ def main() -> int:
             "repro": repro_launches, "seqpar": seq["launches"],
             "mesh": mesh_run["launches"],
             "generic_mesh": generic_mesh["launches"],
+            "dryrun": dry["launches"],
             "sharded_untrained": sharded["untrained"]["launches"],
             "sharded_trained": sharded["trained"]["launches"],
             "multihost": multihost_launches}
@@ -3311,7 +3560,7 @@ def main() -> int:
                 "library_ms": None, **recs[k.name],
                 **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
                for k in kernels.KERNELS]
-    assert len(records) == 26 and all(r["launches"] for r in records), \
+    assert len(records) == 28 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])

@@ -48,12 +48,35 @@
 // barriers; then the 16 KB alpha store per read and step.  Only B of the
 // 132 SMs work when B < 132.
 //
+// K4m (fwbw_forward_wave_kernel) is K4 with the 4096 states split over M =
+// 2 .. 64 ranks (the EM round under nanocall_tpu/parallel/mesh.py:126
+// shard_train_inputs; parallel/statepar.py drives it).  A block is one
+// (read, rank) pair of a cooperative grid and runs all T events, with K1m's
+// exchange (wave_exchange.cuh): each step it publishes its counter, waits
+// for the peers', then loads the whole column of event t - 1 in place from
+// the ranks' slices (4 states a thread, relaxed loads), takes the block
+// max with its NaN vote over all of it, and computes E = exp(alpha - m)
+// into shared memory only where its states need it: its own W states, and
+// the states r 1024 + c and r 256 + c16 whose strided sums S4[c] and
+// S16[c16] its states read (at most 3 W values).  Threads 0 .. W / 4 - 1
+// own 4 contiguous states each: S4 (one a thread) and S16 (one per 4
+// threads) summed in r order from shared memory, K4's correction and
+// emission, and the store of their slice of column t, into the alphas
+// (T, B, W) or, storing none, a (2, B, W) column buffer.  After the last
+// event every rank loads the final column and takes log Pr[data] by K4's
+// pairwise tree.  So every rank computes K4's bits for its states, NaN
+// bits included.  What bounds it: K4's step for W states on W / 4
+// threads, plus the exchange's latency a step (four block barriers, a
+// release and an acquire round trip through L2, the 16 KB column of a
+// read from L2).
+//
 // Build with -fmad=false: every float operation then rounds on its own, as
 // each elementwise PyTorch op does, so the kernel is bit-identical to
 // fwbw_grouped_forward_plain in nanocall_tpu_torch/ops/hmm.py on the card.
 
 #include "common.cuh"
 #include "device_guard.cuh"
+#include "wave_exchange.cuh"
 
 namespace {
 
@@ -216,7 +239,259 @@ fwbw_forward_kernel(const float* __restrict__ ev_mean,
   }
 }
 
+// The ranks of a K4m launch (as K1m's WaveRank): one entry a rank of the
+// data row (the M entries, then the ranks this launch runs, as int64), in
+// device memory of the launch's card; every pointer on the rank's own card.
+struct FwdWaveRank {
+  const float* ev_mean;  // (B, T) events and (B,) lengths, the row's
+  const float* ev_stdv;
+  const float* ev_log_stdv;
+  const int32_t* length;
+  // (B, W) of the rank's states: e_stay, e_step, e_skip, level_mean,
+  // level_stdv, log_level_stdv, sd_mean, sd_lambda, log_sd_lambda; then
+  // the (W,) flag bytes (null in a peer's entry: never read)
+  const float* tab[9];
+  const uint8_t* sflags;
+  float* col;      // (T, B, W) alphas, or (2, B, W): column t at t & 1
+  float* lpd;      // (B,) log Pr[data]
+  int32_t* flags;  // (B,): t once its slice of column t - 1 is stored
+};
+
+// K4m: events [0, T) of read wave_lo + blockIdx.x for the rank named by
+// entry blockIdx.y of the launch's ranks (after the M = N >> slice_shift
+// entries of `wave`), which holds the states [rank W, (rank + 1) W), W =
+// 1 << slice_shift.  stored: col holds the alphas (T, B, W), else a (2, B,
+// W) column buffer.
+template <bool SYS>
+__global__ void __launch_bounds__(THREADS, 1)
+fwbw_forward_wave_kernel(const FwdWaveRank* __restrict__ wave, int B, int T,
+                         int wave_lo, int slice_shift, int stored,
+                         float log2pi, float log_n, long long timeout_ns,
+                         int32_t* timed_out) {
+  __shared__ Exchange x;
+  __shared__ __align__(16) float sE[N];  // exp(alpha - m) where needed
+  __shared__ float sMax[WARPS];
+  __shared__ float sSum[WARPS];
+
+  const int ranks = N >> slice_shift;
+  const int W = 1 << slice_shift, W4 = W >> 2;
+  const int rank =
+      (int)reinterpret_cast<const long long*>(wave + ranks)[blockIdx.y];
+  const int b = wave_lo + blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const FwdWaveRank& e = wave[rank];
+  if (tid < ranks) {
+    x.col[tid] = wave[tid].col + (size_t)b * W;
+    x.flag[tid] = wave[tid].flags + b;
+  }
+  if (tid == 0) {
+    x.timed_out = timed_out;
+    x.timeout_ns = timeout_ns;
+    x.ranks = ranks;
+    x.rank = rank;
+    x.read = b;
+  }
+  const int lo = rank << slice_shift;
+  // the thread's own states lo + 4 tid .. + 3, and the sums they read:
+  // S4 at c4 = (lo >> 2) + tid, S16 at c4 >> 2
+  const bool mine = tid < W4;
+  const int u = mine ? tid : 0;
+  const int c4 = (lo >> 2) + u, c16 = c4 >> 2;
+  const size_t colstride = (size_t)B * W;
+  const size_t row = (size_t)b * W + 4 * u;
+
+  float r_stay[4], r_step[4], r_skip[4], r_lm[4], r_ls[4], r_nlls[4],
+      r_sm[4], r_slam[4], r_c1[4];
+  uint32_t fl = 0;
+  if (mine) {
+    float v[4];
+    unpack4(r_stay, load4(e.tab[0] + row));
+    unpack4(r_step, load4(e.tab[1] + row));
+    unpack4(r_skip, load4(e.tab[2] + row));
+    unpack4(r_lm, load4(e.tab[3] + row));
+    unpack4(r_ls, load4(e.tab[4] + row));
+    unpack4(v, load4(e.tab[5] + row));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r_nlls[i] = -v[i];
+    unpack4(r_sm, load4(e.tab[6] + row));
+    unpack4(r_slam, load4(e.tab[7] + row));
+    unpack4(v, load4(e.tab[8] + row));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r_c1[i] = v[i] - log2pi;
+    fl = *reinterpret_cast<const uint32_t*>(e.sflags + 4 * u);
+  }
+  const float* evm = e.ev_mean + (size_t)b * T;
+  const float* evs = e.ev_stdv + (size_t)b * T;
+  const float* evl = e.ev_log_stdv + (size_t)b * T;
+  const int len = e.length[b];
+  float* const own = e.col + row;
+  auto slot = [&](int t) { return (size_t)(stored ? t : (t & 1)); };
+
+  float a[4];
+  if (mine) {
+    const float x0 = evm[0], y0 = evs[0], ly3 = 3.0f * evl[0];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = emission_pre(x0, y0, ly3, r_lm[i], r_ls[i], r_nlls[i], r_sm[i],
+                          r_slam[i], r_c1[i], log2pi) -
+             log_n;
+    store4(own, a);
+  }
+  // the whole column of event tc, 4 states a thread (4 tid ..), each warp's
+  // NaN-propagating max of it into sMax
+  const int j0 = 4 * tid;
+  float c[4];
+  auto load_column = [&](int tc) {
+    const float* src =
+        x.col[j0 >> slice_shift] + slot(tc) * colstride + (j0 & (W - 1));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = ld_column<SYS>(src + i);
+    const float mx = warp_max_nan4(c);
+    if (lane == 0) sMax[warp] = mx;
+  };
+  auto publish_and_wait = [&](int t) {
+    __syncthreads();  // every thread's slice of column t - 1 stored
+    if (tid == 0) st_flag<SYS>(x.flag[x.rank], t);
+    if (warp == 0) {
+      __syncwarp();
+      wait_peers<SYS>(x, t, lane);
+    }
+    __syncthreads();
+  };
+
+  for (int t = 1; t < T; ++t) {
+    const float xe = evm[t], ye = evs[t], ly = evl[t];
+    publish_and_wait(t);
+    load_column(t - 1);
+    __syncthreads();
+    const float m = warp_max_nan(sMax[lane], sMax[lane] != sMax[lane]);
+    // exp only where the rank's states read it: their own E, and the rows
+    // of their S4 and S16 columns
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = j0 + i;
+      const bool need = (unsigned)(s - lo) < (unsigned)W ||
+                        (unsigned)((s & (N4 - 1)) - (lo >> 2)) <
+                            (unsigned)W4 ||
+                        (unsigned)((s & (N16 - 1)) - (lo >> 4)) <
+                            (unsigned)(W >> 4);
+      if (need) sE[s] = expf(c[i] - m);
+    }
+    __syncthreads();
+    if (!mine) continue;
+    const float s4 = ((sE[c4] + sE[N4 + c4]) + sE[2 * N4 + c4]) +
+                     sE[3 * N4 + c4];
+    float s16 = sE[c16];
+#pragma unroll
+    for (int r16 = 1; r16 < 16; ++r16) s16 = s16 + sE[r16 * N16 + c16];
+    const bool active = t < len;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float E = sE[lo + 4 * u + i];
+      const unsigned f = (fl >> (8 * i)) & 0xffu;
+      const float hE = (f & F_H) ? E : 0.0f;
+      const float p2E = (f & F_P2) ? E : 0.0f;
+      const float s5S4 = (f & F_S5) ? s4 : 0.0f;
+      const float total = (r_stay[i] * E + r_step[i] * (s4 - hE)) +
+                          r_skip[i] * ((s16 - p2E) - s5S4);
+      const float em = emission_pre(xe, ye, 3.0f * ly, r_lm[i], r_ls[i],
+                                    r_nlls[i], r_sm[i], r_slam[i], r_c1[i],
+                                    log2pi);
+      if (active) a[i] = (em + m) + logf(total);
+    }
+    store4(own + slot(t) * colstride, a);
+  }
+
+  // log_pr_data from the whole final column: K4's max, then the pairwise
+  // tree over 4 contiguous states a thread, the warp, the warps
+  publish_and_wait(T);
+  load_column(T - 1);
+  __syncthreads();
+  const float mfin = warp_max_nan(sMax[lane], sMax[lane] != sMax[lane]);
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = expf(c[i] - mfin);
+  const float ws = warp_tree_sum(quad_sum(v));
+  if (lane == 0) sSum[warp] = ws;
+  __syncthreads();
+  if (warp == 0) {
+    const float s = warp_tree_sum(sSum[lane]);
+    if (lane == 0) e.lpd[b] = mfin + logf(s);
+  }
+}
+
+using FwdWaveKernel = decltype(&fwbw_forward_wave_kernel<false>);
+
+FwdWaveKernel fwd_wave_kernel(int sys) {
+  return sys ? fwbw_forward_wave_kernel<true>
+             : fwbw_forward_wave_kernel<false>;
+}
+
 }  // namespace
+
+// K4m's wave: the most blocks of its instance (sys) that one card holds at
+// once (blocks an SM at 1024 threads times the SMs) into *blocks; an error
+// where the card has no cooperative launch.
+extern "C" int nc_fwbw_forward_wave_resident(int sys, int device,
+                                             int* blocks) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  *blocks = 0;
+  int coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fwd_wave_kernel(sys), nc::THREADS, 0);
+  *blocks = per_sm * sms;
+  return (int)err;
+}
+
+// K4m: events 0 .. T - 1 of the reads [lo, lo + n_reads) for n_local ranks
+// of a data row, one cooperative grid (n_reads, n_local) on `stream`.
+// `ranks` (device memory of this card) holds the row's M = 4096 >>
+// slice_shift FwdWaveRank entries, then the n_local ranks to run as int64;
+// the entries' (B, W) tables (16-byte aligned), columns and (B,) counters
+// (zero before the launch) lie on their ranks' cards, reachable from this
+// one (peer access).  stored: the columns are (T, B, W) alphas, else (2,
+// B, W) buffers.  sys: the exchange at system scope.  timed_out: as K1m's.
+// Returns the launch's error: a grid larger than the card holds at once is
+// refused (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int nc_fwbw_forward_wave(const void* ranks, int n_local, int B,
+                                    int T, int lo, int n_reads,
+                                    int slice_shift, int stored, int sys,
+                                    float log2pi, float log_n,
+                                    long long timeout_ns, int32_t* timed_out,
+                                    int device, void* stream) {
+  const nc::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (slice_shift < 6 || slice_shift > 11 || T < 1 || lo < 0 ||
+      n_reads < 1 || lo + n_reads > B || n_local < 1 ||
+      n_local > (nc::N >> slice_shift) || timed_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_reads, n_local);
+  cfg.blockDim = dim3(nc::THREADS);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fwd_wave_kernel(sys), static_cast<const FwdWaveRank*>(ranks), B,
+      T, lo, slice_shift, stored, log2pi, log_n, timeout_ns, timed_out);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clears it
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
 
 // Plain C entry for ctypes.  alphas == nullptr stores no per-step alphas
 // (only log_pr_data).  Returns cudaGetLastError() after the launch.

@@ -30,6 +30,10 @@ Kernels and their plain versions, side by side below:
                             viterbi_traceback_grouped_chunk_plain
                             (compact=False)
   K4  fwbw_forward.cu       fwbw_forward_kernel vs fwbw_grouped_forward_plain
+  K4m fwbw_forward.cu       fwbw_forward_wave_kernel
+                            vs fwbw_forward_wave_plain
+      (parallel/statepar.py: K4 with the states split over ranks; K5m,
+      its backward half, is in ops/em.py)
   K6a viterbi_generic.cu    generic_forward_path_kernel /
                             generic_forward_score_kernel (streaming),
                             resident_forward_path_kernel /
@@ -761,46 +765,21 @@ def forward_wave_kernel(ranks, local, lo: int, hi: int) -> None:
     card (statepar orders the cards' launches); their slices and counters
     are read over peer access.  A block waits WAVE_TIMEOUT_S on a peer at
     most.  Raises if a wave of this process timed out (wave_timeout)."""
-    global _timed_out
-    M = len(ranks)
-    if not 2 <= M <= 64:
-        raise ValueError(f"the CUDA K1m takes 2 to 64 ranks; got {M}")
-    if not local:
-        raise ValueError("no ranks to launch")
-    B, T = ranks[0].ev["mean"].shape
-    W = ranks[0].col.shape[-1]
-    shift = _slice_shift(M, W)
-    dev = ranks[local[0]].ev["mean"].device
-    _require_cuda(dev, "viterbi forward wave")
+    B, T, W, shift, dev, sys = _wave_setup(ranks, local, lo, hi, "K1m")
     with_path = ranks[0].bps is not None
-    for m, r in enumerate(ranks):
-        _require_cuda(r.ev["mean"].device, "viterbi forward wave")
-        _check_wave_rank(m, r, B, T, W, with_path)
-    if any(ranks[m].ev["mean"].device != dev for m in local):
-        raise ValueError("the launch's ranks lie on more than one card")
-    if not 0 <= lo < hi <= B:
-        raise ValueError(f"no wave of reads [{lo}, {hi}) of {B}")
-    if wave_timeout() is not None:
-        raise RuntimeError(f"a K1m wave timed out: (t, read, rank, peer) = "
-                           f"{wave_timeout()}")
-    if _timed_out is None:
-        _timed_out = torch.zeros(4, dtype=torch.int32).pin_memory()
-    sys = any(r.ev["mean"].device != dev for r in ranks)
     vals = []
-    for r in ranks:
+    for m, r in enumerate(ranks):
+        _check_wave_rank(m, r, B, T, W, with_path)
         vals += [r.ev["mean"].data_ptr(), r.ev["stdv"].data_ptr(),
                  r.ev["log_stdv"].data_ptr(), r.ev["length"].data_ptr(),
                  *(x.data_ptr() for x in (*r.gt[:3], *r.model)),
                  r.col.data_ptr(),
                  r.bps.data_ptr() if with_path and r.bps.numel() else 0,
                  r.flags.data_ptr()]
-    vals += list(local)
-    # pinned, so that the copy does not wait on the card
-    table = torch.tensor(vals, dtype=torch.int64).pin_memory().to(
-        dev, non_blocking=True)
+    table = _rank_table(vals, local, dev)
     err = _cuda.load().nc_viterbi_forward_wave(
         table.data_ptr(), len(local), B, T, lo, hi - lo, shift,
-        int(with_path), int(sys), LOG_2PI, math.log(M * W),
+        int(with_path), int(sys), LOG_2PI, math.log(len(ranks) * W),
         int(WAVE_TIMEOUT_S * 1e9), _timed_out.data_ptr(),
         *_cuda.target(dev))
     _cuda.check(err, "viterbi_forward_wave kernel launch")
@@ -1266,6 +1245,275 @@ def fwbw_grouped_forward(gtf: GroupedTransFull, model: ModelArrays, ev: dict,
     if dev.type != "cuda":
         raise ValueError(f"no grouped fwbw forward for device {dev}")
     return fwbw_forward_kernel(gtf, model, ev, with_alphas)
+
+
+def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.logaddexp of two tensors of one shape.  On the CPU its kernel
+    takes the last elements of a tensor (past a multiple of two vectors) by
+    a scalar path that may differ from its vector path in the last bit, so
+    that a row's bits would depend on where the row lies in its batch, and
+    a state-parallel round's on how the batch is cut; there both are
+    padded to a multiple of 64 elements first, so that every element takes
+    the vector path."""
+    if a.device.type != "cpu":
+        return torch.logaddexp(a, b)
+    n = a.numel()
+    pad = -n % 64
+    out = torch.logaddexp(*(torch.cat([x.reshape(-1), x.new_zeros(pad)])
+                            for x in (a, b)))
+    return out[:n].reshape(a.shape)
+
+
+def combine_rank_sums(parts) -> torch.Tensor:
+    """The M ranks' partial sums (M tensors of one shape, M a power of
+    two) added pairwise in rank order, adjacent pairs first, as tree_sum
+    adds over a row: where part m is the tree_sum of the contiguous states
+    [m W, (m + 1) W), a whole subtree of the row's tree, the result is the
+    row's tree_sum bit for bit."""
+    return tree_sum(torch.stack(list(parts), dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# K4m: K4 with the states split over M ranks (the EM round on the state
+# axis, parallel/statepar.py).  Rank m holds the states [m W, (m + 1) W), W
+# = n / M: its (B, W) tables, its (T, B, W) slice of the alphas (or, storing
+# none, a (2, B, W) column buffer), B step counters and its copy of
+# log Pr[data].  A step reads the whole previous column in place from every
+# rank's slice: the max runs over all n states, and the strided sums S4 and
+# S16 of a rank's states reach into every slice.
+# ---------------------------------------------------------------------------
+
+
+class FwdWaveRank(NamedTuple):
+    """One rank of a data row of the EM forward, on the rank's device: its
+    (B, W) cut of the grouped tables (GroupedTransFull; K4m reads the from
+    side) and of the scaled model, the row's (B, T) events and (B,)
+    lengths whole, alphas (T, B, W) float32 (its slice of K4's alphas) or
+    None, col (2, B, W) float32 (the column of event t at parity t % 2)
+    when alphas is None, lpd (B,) float32 (log Pr[data], every rank's
+    copy) and its step counters flags (B,) int32, zero before each launch
+    (K4m's exchange; the plain version leaves them)."""
+
+    gtf: GroupedTransFull
+    model: ModelArrays
+    ev: dict
+    alphas: torch.Tensor | None
+    col: torch.Tensor | None
+    lpd: torch.Tensor
+    flags: torch.Tensor
+
+
+def _column_of(r: FwdWaveRank, t: int) -> torch.Tensor:
+    """A rank's (B, W) slice of the alpha column of event t."""
+    return r.alphas[t] if r.alphas is not None else r.col[t % 2]
+
+
+def fwbw_forward_slice_plain(gtf: GroupedTransFull, model: ModelArrays,
+                             ev: dict, column, t: int, lo: int,
+                             alpha_out) -> None:
+    """One rank's step, the plain version of K4m's step: event t's alpha at
+    the states [lo, lo + W) into alpha_out (B, W).  gtf and model hold the
+    rank's (B, W) cut, ev the (B, T) events and lengths whole; column is
+    the alpha of event t - 1 as its M slices (M (B, W) tensors on any
+    devices, read in place; unread at t = 0).  The step of
+    fwbw_grouped_forward_plain for these states: the max over all n = M W
+    states, the strided sums of exp(alpha - max) over every slice in r
+    order, -log(n) at t = 0."""
+    M, W = len(column), column[0].shape[-1]
+    n = M * W
+    mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    if t == 0:
+        alpha_out.copy_(log_emission(model, mean[:, 0], stdv[:, 0],
+                                     log_stdv[:, 0]) - math.log(n))
+        return
+    cols = slice(lo, lo + W)
+    m_ = {k: v[cols] for k, v in correction_masks(gtf.K, mean.device).items()}
+    e_stay, e_step, e_skip = _fwd_exp_tables(gtf)
+    alpha = gather_column(column, mean.device)
+    m = torch.amax(alpha, dim=-1, keepdim=True)
+    E = torch.exp(alpha - m)
+    S4 = strided_sum(E, 4).repeat_interleave(4, dim=1)[:, cols]
+    S16 = strided_sum(E, 16).repeat_interleave(16, dim=1)[:, cols]
+    E = E[:, cols]
+    total = (e_stay * E + e_step * (S4 - m_["H"] * E)
+             + e_skip * (S16 - m_["P2mH"] * E - m_["S5"] * S4))
+    em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
+    alpha_out.copy_(torch.where((t < ev["length"])[:, None],
+                                em + m + torch.log(total), alpha[:, cols]))
+
+
+def log_pr_data_plain(column, device=None) -> torch.Tensor:
+    """log Pr[data] (B,) of a final alpha column given as its M slices, as
+    fwbw_grouped_forward_plain takes it from the whole column: the max,
+    then the tree sum of exp(alpha - max) over all n states."""
+    alpha = gather_column(column, device)
+    mfin = torch.amax(alpha, dim=-1)
+    return mfin + torch.log(tree_sum(torch.exp(alpha - mfin[:, None])))
+
+
+def fwbw_forward_wave_plain(ranks, lo: int, hi: int) -> None:
+    """Plain version of K4m: events 0 .. T - 1 of the reads [lo, hi) for
+    every rank of a data row (ranks: its M FwdWaveRanks in rank order).
+    Each step, every rank runs fwbw_forward_slice_plain on the peers'
+    slices of the previous column, read in place, into its slice of
+    column t (alphas[t], or col[t % 2]); after the last, every rank's lpd
+    takes log Pr[data] from the whole final column.  The counters are left
+    as they are."""
+    rows = slice(lo, hi)
+    T = ranks[0].ev["mean"].shape[1]
+    W = ranks[0].model.level_mean.shape[-1]
+    parts = [(GroupedTransFull(*(x[rows] for x in r.gtf[:5]), K=r.gtf.K),
+              ModelArrays(*(x[rows] for x in r.model)),
+              {k: v[rows] for k, v in r.ev.items()}) for r in ranks]
+    for t in range(T):
+        column = [_column_of(r, max(t - 1, 0))[rows] for r in ranks]
+        for m, (r, (gtf, model, ev)) in enumerate(zip(ranks, parts)):
+            fwbw_forward_slice_plain(gtf, model, ev, column, t, m * W,
+                                     _column_of(r, t)[rows])
+    final = [_column_of(r, T - 1)[rows] for r in ranks]
+    for r in ranks:
+        r.lpd[rows] = log_pr_data_plain(final, r.lpd.device)
+
+
+#: fwbw_forward_wave_resident's answers, by (card index, sys, stored)
+_fwd_resident: dict = {}
+
+
+def fwbw_forward_wave_resident(dev, sys: bool = False,
+                               stored: bool = True) -> int:
+    """The most blocks of K4m's instance (sys: the exchange across cards;
+    stored: with the alphas) that the CUDA device `dev` holds at once: a
+    wave's grid, reads times the card's ranks, must not exceed it."""
+    key = (torch.device(dev).index, bool(sys), bool(stored))
+    if key not in _fwd_resident:
+        blocks = ctypes.c_int(0)
+        _cuda.check(_cuda.load().nc_fwbw_forward_wave_resident(
+            int(sys), key[0], ctypes.byref(blocks)),
+            "fwbw_forward_wave occupancy")
+        _fwd_resident[key] = blocks.value
+    return _fwd_resident[key]
+
+
+def _check_fwd_wave_rank(m: int, r: FwdWaveRank, B: int, T: int,
+                         W: int, stored: bool) -> None:
+    dev = r.ev["mean"].device
+    if r.gtf.K != 6:
+        raise ValueError(f"the CUDA fwbw forward kernel takes K=6, got "
+                         f"K={r.gtf.K}")
+    if (r.alphas is not None) != stored:
+        raise ValueError("the ranks' alphas are given for some ranks only")
+    _check_events(r.ev, B, T, dev)
+    _check_tables((*r.gtf[:3], *r.model), B, W, dev)
+    if stored:
+        _check(f"ranks[{m}].alphas", r.alphas, torch.float32, (T, B, W), dev)
+        _check_aligned(f"ranks[{m}].alphas", r.alphas)
+    else:
+        _check(f"ranks[{m}].col", r.col, torch.float32, (2, B, W), dev)
+        _check_aligned(f"ranks[{m}].col", r.col)
+    _check(f"ranks[{m}].lpd", r.lpd, torch.float32, (B,), dev)
+    _check(f"ranks[{m}].flags", r.flags, torch.int32, (B,), dev)
+
+
+def _wave_setup(ranks, local, lo: int, hi: int, what: str):
+    """The checks every wave wrapper (K1m, K6am, K4m, K5m: `what`) makes
+    before its launch: 2 to 64 ranks, the launch's ranks on one CUDA card,
+    every rank on a CUDA card, a wave of reads, no earlier wave timed out.
+    Returns (B, T, W, slice shift, the launch's card, sys: whether a rank
+    lies on another card), with the host-mapped timeout record made."""
+    global _timed_out
+    M = len(ranks)
+    if not 2 <= M <= 64:
+        raise ValueError(f"the CUDA {what} takes 2 to 64 ranks; got {M}")
+    if not local:
+        raise ValueError("no ranks to launch")
+    B, T = ranks[0].ev["mean"].shape
+    W = ranks[0].model.level_mean.shape[-1]
+    shift = _slice_shift(M, W)
+    dev = ranks[local[0]].ev["mean"].device
+    _require_cuda(dev, what)
+    for r in ranks:
+        _require_cuda(r.ev["mean"].device, what)
+    if any(ranks[m].ev["mean"].device != dev for m in local):
+        raise ValueError("the launch's ranks lie on more than one card")
+    if not 0 <= lo < hi <= B:
+        raise ValueError(f"no wave of reads [{lo}, {hi}) of {B}")
+    if T < 1:
+        raise ValueError("the pass needs at least one event column")
+    if wave_timeout() is not None:
+        raise RuntimeError(f"a wave timed out: (t, read, rank, peer) = "
+                           f"{wave_timeout()}")
+    if _timed_out is None:
+        _timed_out = torch.zeros(4, dtype=torch.int32).pin_memory()
+    sys = any(r.ev["mean"].device != dev for r in ranks)
+    return B, T, W, shift, dev, sys
+
+
+#: wave_state_bytes' answers, by (card index, backward, rank, W)
+_state_bytes: dict = {}
+
+
+def wave_state_bytes(dev, m: int, W: int, backward: bool):
+    """The per-state bytes of rank m's states [m W, (m + 1) W) on the CUDA
+    device `dev`, made once there, so that a wave launch copies nothing
+    from the host: K4m's flag bytes (FWD_FLAG_BITS), or for K5m (pattern,
+    flag bytes of GROUPED_BWD_FLAG_BITS, to which the wrapper adds the
+    rank's transition-training subset)."""
+    key = (torch.device(dev).index, bool(backward), int(m), int(W))
+    if key not in _state_bytes:
+        cols = slice(m * W, (m + 1) * W)
+        masks = {k: v[cols] for k, v in correction_masks(6, dev).items()}
+        if backward:
+            _state_bytes[key] = (
+                torch.from_numpy(bwd_patterns(6)[0][cols].copy()).to(dev),
+                mask_flags(masks, GROUPED_BWD_FLAG_BITS))
+        else:
+            _state_bytes[key] = mask_flags(masks, FWD_FLAG_BITS)
+    return _state_bytes[key]
+
+
+def _rank_table(vals: list, local, dev) -> torch.Tensor:
+    """The launch's rank entries and local ranks as int64 on `dev`, copied
+    from pinned memory, so that the copy does not wait on the card."""
+    return torch.tensor([*vals, *local], dtype=torch.int64).pin_memory().to(
+        dev, non_blocking=True)
+
+
+def fwbw_forward_wave_kernel(ranks, local, lo: int, hi: int) -> None:
+    """K4m on the card: fwbw_forward_wave_plain's work for the ranks
+    `local` (indices into `ranks`, all on one card; 2 to 64 ranks in all)
+    over the reads [lo, hi), one cooperative launch on that card's current
+    stream, whose grid (hi - lo reads x len(local) ranks) must fit the card
+    at once (fwbw_forward_wave_resident), or the launch raises.  The other
+    ranks run their blocks of the same reads in a launch of their own card;
+    their slices and counters are read over peer access.  A block waits
+    WAVE_TIMEOUT_S on a peer at most.  Raises if a wave of this process
+    timed out (wave_timeout)."""
+    B, T, W, shift, dev, sys = _wave_setup(ranks, local, lo, hi, "K4m")
+    stored = ranks[0].alphas is not None
+    vals, keep = [], []
+    for m, r in enumerate(ranks):
+        _check_fwd_wave_rank(m, r, B, T, W, stored)
+        if m in local:
+            # made on the launch's stream and held until it is enqueued
+            keep += [*_fwd_exp_tables(r.gtf), *r.model,
+                     wave_state_bytes(dev, m, W, backward=False)]
+            tables = [x.data_ptr() for x in keep[-10:]]
+        else:  # a peer's tables are never read by this launch
+            tables = [0] * 10
+        vals += [r.ev["mean"].data_ptr(), r.ev["stdv"].data_ptr(),
+                 r.ev["log_stdv"].data_ptr(), r.ev["length"].data_ptr(),
+                 *tables, (r.alphas if stored else r.col).data_ptr(),
+                 r.lpd.data_ptr(), r.flags.data_ptr()]
+    table = _rank_table(vals, local, dev)
+    err = _cuda.load().nc_fwbw_forward_wave(
+        table.data_ptr(), len(local), B, T, lo, hi - lo, shift, int(stored),
+        int(sys), LOG_2PI, math.log(len(ranks) * W),
+        int(WAVE_TIMEOUT_S * 1e9), _timed_out.data_ptr(), *_cuda.target(dev))
+    _cuda.check(err, "fwbw_forward_wave kernel launch")
+    _cuda.count_launch(fwbw_forward_wave_kernel)
+
+
+fwbw_forward_wave_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1909,37 +2157,16 @@ def _check_generic_wave_rank(m: int, r: GenericWaveRank, B: int, T: int,
 
 def _generic_wave_kernel(ranks, local, lo: int, hi: int,
                          resident: bool) -> None:
-    global _timed_out
-    M = len(ranks)
-    if not 2 <= M <= 64:
-        raise ValueError(f"the CUDA K6am takes 2 to 64 ranks; got {M}")
-    if not local:
-        raise ValueError("no ranks to launch")
-    B, T = ranks[0].ev["mean"].shape
-    W = ranks[0].col.shape[-1]
-    shift = _slice_shift(M, W)
-    dev = ranks[local[0]].ev["mean"].device
-    _require_cuda(dev, "generic viterbi forward wave")
+    B, T, W, shift, dev, sys = _wave_setup(ranks, local, lo, hi, "K6am")
     with_path = ranks[0].bps is not None
     degs, modes = set(), set()
     for m, r in enumerate(ranks):
-        _require_cuda(r.ev["mean"].device, "generic viterbi forward wave")
         degs.add(_check_generic_wave_rank(m, r, B, T, W, with_path,
                                           resident))
         modes.add(per_read(r.ops))
     if len(degs) != 1 or len(modes) != 1:
         raise ValueError(f"the ranks' cuts differ: slots {degs}, per-read "
                          f"{modes}")
-    if any(ranks[m].ev["mean"].device != dev for m in local):
-        raise ValueError("the launch's ranks lie on more than one card")
-    if not 0 <= lo < hi <= B:
-        raise ValueError(f"no wave of reads [{lo}, {hi}) of {B}")
-    if wave_timeout() is not None:
-        raise RuntimeError(f"a wave timed out: (t, read, rank, peer) = "
-                           f"{wave_timeout()}")
-    if _timed_out is None:
-        _timed_out = torch.zeros(4, dtype=torch.int32).pin_memory()
-    sys = any(r.ev["mean"].device != dev for r in ranks)
     vals = []
     for r in ranks:
         tables = ((r.ops.from_packed, r.ops.from_codebook) if resident
@@ -1950,14 +2177,12 @@ def _generic_wave_kernel(ranks, local, lo: int, hi: int,
                  *(x.data_ptr() for x in r.model), r.col.data_ptr(),
                  r.bps.data_ptr() if with_path and r.bps.numel() else 0,
                  r.flags.data_ptr()]
-    vals += list(local)
-    # pinned, so that the copy does not wait on the card
-    table = torch.tensor(vals, dtype=torch.int64).pin_memory().to(
-        dev, non_blocking=True)
+    table = _rank_table(vals, local, dev)
     err = _cuda.load().nc_viterbi_generic_wave(
         table.data_ptr(), len(local), B, T, lo, hi - lo, shift, degs.pop(),
         int(modes.pop()), int(with_path), int(sys), int(resident), LOG_2PI,
-        math.log(M * W), int(WAVE_TIMEOUT_S * 1e9), _timed_out.data_ptr(),
+        math.log(len(ranks) * W), int(WAVE_TIMEOUT_S * 1e9),
+        _timed_out.data_ptr(),
         *_cuda.target(dev))
     _cuda.check(err, "viterbi_generic_wave kernel launch")
 

@@ -2,9 +2,10 @@
 traceback chunk after K3's, then K1m and K2m, K1 and K2 with the states
 split over a mesh's ranks, the redesigned kernels of K6a, K6b, K6c and
 K6e after their streaming ones, K6am (its two forms) and K6bm, K6a and
-K6b with the states split over a mesh's ranks, then the measurement
-path's K8 and the repro tool's K10): each kernel's wrapper (which carries
-its `launches` counter), its source, and the JAX function it replaces."""
+K6b with the states split over a mesh's ranks, K4m and K5m, K4 and K5
+with the states split over a mesh's ranks, then the measurement path's K8
+and the repro tool's K10): each kernel's wrapper (which carries its
+`launches` counter), its source, and the JAX function it replaces."""
 
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ class Kernel(NamedTuple):
     # step and walk under shard_pooled_decode_inputs' state placement;
     # K6am and K6bm: K6a's and K6b's, viterbi_forward and
     # viterbi_traceback, under shard_decode_inputs',
-    # nanocall_tpu/parallel/mesh.py:75)
+    # nanocall_tpu/parallel/mesh.py:75; K4m and K5m: K4's and K5's,
+    # fwbw_grouped_forward and _fused_bwd_mstats, under
+    # shard_train_inputs', nanocall_tpu/parallel/mesh.py:126)
     replaces: str
 
 
@@ -102,6 +105,12 @@ KERNELS = (
            hmm.generic_traceback_slices_kernel,
            "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
            "nanocall_tpu/ops/hmm.py:714"),
+    Kernel("fwbw_forward_wave", hmm.fwbw_forward_wave_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_forward.cu",
+           "nanocall_tpu/ops/hmm.py:890"),
+    Kernel("em_backward_wave", em.em_backward_wave_kernel,
+           "nanocall_tpu_torch/csrc/em_backward.cu",
+           "nanocall_tpu/train.py:159"),
     Kernel("fma_chain", fma.fma_chain_kernel,
            "nanocall_tpu_torch/csrc/fma_chain.cu",
            "nanocall_tpu/roofline.py:340"),

@@ -26,9 +26,11 @@ runs them (__graft_entry__.py:98-172, dryrun_multichip), as does
 tests/test_sharding.py.  shard_decode_inputs places the generic decode's
 inputs (a TransOps, a model and events; nanocall_tpu/parallel/mesh.py:75)
 the same way, under one table or per-read tables, and
-statepar.viterbi_decode_placed decodes them (K6am and K6bm).  Not ported
-yet: shard_train_inputs (the EM round, K4 + K5) on the state axis
-(ROADMAP.md queue 1).
+statepar.viterbi_decode_placed decodes them (K6am and K6bm).
+shard_train_inputs places a training batch (nanocall_tpu/parallel/
+mesh.py:126): the groups over 'data', the models' state axis over 'model';
+statepar.train_one_round_placed runs the fused EM round on it (K4m and
+K5m).
 """
 
 from __future__ import annotations
@@ -302,3 +304,37 @@ def shard_decode_inputs(mesh: Mesh, ops: hmm.TransOps, model, ev: dict
         for x in model))
     placed_ev = {k: place(v, ("data",)) for k, v in ev.items()}
     return PlacedTable(cut, walk), placed_model, placed_ev
+
+
+def shard_train_inputs(mesh: Mesh, ev: dict, models: dict, pm_params,
+                       st_params) -> tuple:
+    """Place a training batch (train.train_one_round's arguments:
+    (G, S, T) and (G, S) events, (G, 2, n) models, (G, 6) pm_params,
+    (G, 2, 2) st_params) on the mesh, as nanocall_tpu/parallel/mesh.py:
+    126-137 does: the groups over 'data' (P("data"): contiguous rows, whole
+    over 'model'); each model table over ('data', None, 'model'), a
+    (G / D, 2, W) cut a rank, rank m holding the states [m W, (m + 1) W),
+    W = n / M.  A model bank (a (G,) 'model_idx' beside (n_models, 2, n)
+    tables) raises ValueError, as JAX's placement cannot put a (G,) array
+    under the tables' 3-D spec either.  Returns (ev, models, pm_params,
+    st_params) as Sharded arguments (dicts of them for ev and models),
+    which statepar.train_one_round_placed runs."""
+    if "model_idx" in models:
+        raise ValueError("shard_train_inputs places per-group (G, 2, n) "
+                         "models; a model bank (model_idx) has no placement "
+                         "on the state axis")
+    D, M = mesh.ids.shape
+    rows = _cuts(pm_params.shape[0], D, "groups")
+    states = _cuts(next(iter(models.values())).shape[-1], M, "states")
+
+    def by_data(x):
+        return Sharded(mesh, ("data",), [
+            [x[rows[d]].contiguous().to(dev) for dev in devs]
+            for d, devs in enumerate(mesh.devices)])
+
+    placed_models = {k: Sharded(mesh, ("data", None, "model"), [
+        [v[rows[d], :, states[m]].contiguous().to(dev)
+         for m, dev in enumerate(devs)]
+        for d, devs in enumerate(mesh.devices)]) for k, v in models.items()}
+    return ({k: by_data(v) for k, v in ev.items()}, placed_models,
+            by_data(pm_params), by_data(st_params))

@@ -1,4 +1,5 @@
-"""State-parallel grouped Viterbi decode over a list of devices (K1m, K2m).
+"""State-parallel grouped Viterbi decode and EM round over a list of
+devices (K1m, K2m; K6am, K6bm; K4m, K5m).
 
 The port of the production decode on the 'model' axis of a (data, model)
 mesh: nanocall_tpu/parallel/mesh.py:103 shard_pooled_decode_inputs places
@@ -64,6 +65,25 @@ from side (its from-state table in shared memory where it has one, else
 from_idx from global memory), to {"path" (B, T) uint16, "logp"}.  Each
 rank runs K6a's slot loop on the same column, so the decode is
 bit-identical to the one-device K6a + K6b, NaN bits included.
+
+The fused EM round (train.train_one_round: K4, K5 and the M-steps) takes
+the state axis under nanocall_tpu/parallel/mesh.py:126 shard_train_inputs:
+train_one_round_placed gives rank m its cut of train.round_inputs (the
+scaled models and state weights of its states; the grouped tables and the
+subset built whole and cut; the whole tables' codebooks), and
+em_round_statepar runs a data row: K4m (hmm.fwbw_forward_wave_kernel, a
+launch a wave and card; waves cut by plan_waves on K4m's own resident
+blocks), each step every rank reading the whole alpha column in place
+from the ranks' slices of the alphas, which it stores a 1/M share of;
+then K5m (em.em_backward_wave_kernel, its own waves), each step every
+rank publishing g = em(t + 1) + beta of its states, running K5's
+recursion on the whole g column, and taking its states' statistics as
+subtrees of K5's pairwise sums (the masked maxima over all states by a
+second exchange); the row's first rank combines the ranks' per-step
+partials pairwise in rank order and folds them in K5's order.  The
+M-steps run in plain torch on the row's first device, on the row's
+groups.  So the round is bit-identical to the unplaced one, NaN bits
+included; a row of one rank runs K4 + K5.
 """
 
 from __future__ import annotations
@@ -73,7 +93,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import _cuda, hmm
+from .. import train
+from ..ops import _cuda, em, hmm
 
 
 class RankInputs(NamedTuple):
@@ -158,29 +179,20 @@ def _wait_all(cards) -> None:
                     torch.cuda.current_stream(b))
 
 
-def _forward_kernels(ranks, with_path: bool, generic: bool = False) -> None:
-    """K1m (K6am: generic) over a data row: a launch a wave and card, each
-    card's on its current stream; across cards every card waits first for
-    the others' counters to be zeroed, and the row's first card for the
-    others' waves after the last."""
+def _wave_kernels(ranks, launch, resident) -> None:
+    """One launch a wave and card over a data row's ranks (launch(ranks,
+    local, lo, hi)), the waves cut by plan_waves from resident(card, sys);
+    across cards every card waits first for the others' counters to be
+    zeroed, and the row's first card for the others' waves after the
+    last."""
     devices = [r.ev["mean"].device for r in ranks]
     cards = list(dict.fromkeys(devices))
     for a in cards:
         for b in cards:
             _cuda.enable_peer_access(a, b)
     sys = len(cards) > 1
-    if generic:
-        ops, W = ranks[0].ops, ranks[0].col.shape[-1]
-        resident = hmm.generic_forward_route(ops) == "resident"
-        deg = (ops.from_packed if resident else ops.from_idx).shape[-2]
-        blocks = {d: hmm.generic_wave_resident(d, with_path, sys, resident,
-                                               deg, W) for d in cards}
-        launch = hmm.forward_generic_wave_kernel
-    else:
-        blocks = {d: hmm.forward_wave_resident(d, with_path, sys)
-                  for d in cards}
-        launch = hmm.forward_wave_kernel
-    waves = plan_waves(ranks[0].flags.shape[0], devices, blocks)
+    waves = plan_waves(ranks[0].flags.shape[0], devices,
+                       {d: resident(d, sys) for d in cards})
     local = {d: [m for m, x in enumerate(devices) if x == d] for d in cards}
     if sys:
         _wait_all(cards)
@@ -190,6 +202,23 @@ def _forward_kernels(ranks, with_path: bool, generic: bool = False) -> None:
     first = torch.cuda.current_stream(cards[0])
     for d in cards[1:]:
         first.wait_stream(torch.cuda.current_stream(d))
+
+
+def _forward_kernels(ranks, with_path: bool, generic: bool = False) -> None:
+    """K1m (K6am: generic) over a data row (_wave_kernels), the waves cut on
+    the kernel's resident blocks (K6am's at the ranks' slot count, in the
+    form their cut takes)."""
+    if generic:
+        ops, W = ranks[0].ops, ranks[0].col.shape[-1]
+        resident = hmm.generic_forward_route(ops) == "resident"
+        deg = (ops.from_packed if resident else ops.from_idx).shape[-2]
+        _wave_kernels(ranks, hmm.forward_generic_wave_kernel,
+                      lambda d, sys: hmm.generic_wave_resident(
+                          d, with_path, sys, resident, deg, W))
+    else:
+        _wave_kernels(ranks, hmm.forward_wave_kernel,
+                      lambda d, sys: hmm.forward_wave_resident(d, with_path,
+                                                               sys))
 
 
 def _decode(rows, with_path: bool, kernels: bool) -> list:
@@ -439,3 +468,180 @@ def viterbi_decode_generic_statepar(rows, with_path: bool = True) -> list:
             row.parts[0].model, row.parts[0].ev, with_path=with_path)
             for row in rows]
     return _decode_generic(rows, with_path, kernels=True)
+
+
+# ---------------------------------------------------------------------------
+# the EM round (K4m, K5m)
+# ---------------------------------------------------------------------------
+
+
+def split_round_states(ev: dict, models: dict, pm_params, st_params,
+                       devices, K: int = 6,
+                       train_scaling: bool = True) -> list:
+    """One data row's ranks of a fused EM round (train_one_round's
+    arguments for the row's groups): rank m gets train.round_inputs of
+    the states [m W, (m + 1) W), W = n / len(devices), built on
+    devices[m] from its cut of the (G, 2, n) models (or of a bank's
+    tables, its model_idx whole) and the row's events and parameters
+    whole."""
+    M, n = len(devices), models["level_mean"].shape[-1]
+    if M < 1 or n % M:
+        raise ValueError(f"{n} states do not split over {M} ranks")
+    W = n // M
+    out = []
+    for m, dev in enumerate(devices):
+        cols = slice(m * W, (m + 1) * W)
+        out.append(train.round_inputs(
+            {k: v.to(dev) for k, v in ev.items()},
+            {k: (v if k == "model_idx" else v[..., cols].contiguous())
+             .to(dev) for k, v in models.items()},
+            pm_params.to(dev), st_params.to(dev), K, train_scaling,
+            states=cols))
+    return out
+
+
+def _fwd_wave_rank(inp: dict, stored: bool) -> hmm.FwdWaveRank:
+    """A rank's cut of round_inputs with K4m's outputs and counters."""
+    B, T = inp["ev"]["mean"].shape
+    W = inp["model"].level_mean.shape[-1]
+    dev = inp["ev"]["mean"].device
+
+    def buf(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    return hmm.FwdWaveRank(
+        inp["gtf"], inp["model"], inp["ev"],
+        buf(T, B, W) if stored else None, None if stored else buf(2, B, W),
+        buf(B), torch.zeros(B, dtype=torch.int32, device=dev))
+
+
+def _em_wave_rank(inp: dict, fwd: hmm.FwdWaveRank) -> em.EMWaveRank:
+    """A rank's cut of round_inputs with K4m's alphas and lpd, K5m's
+    exchange buffers, counters and outputs."""
+    B, T = inp["ev"]["mean"].shape
+    W = inp["model"].level_mean.shape[-1]
+    dev = inp["ev"]["mean"].device
+
+    def buf(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    return em.EMWaveRank(
+        inp["gtf"], inp["books"], inp["model"], inp["ev"], fwd.lpd,
+        fwd.alphas, inp["W"], inp["x_unc"], inp["t_start"], inp["valid"],
+        inp["subset"], inp["p_stay_seq"], inp["p_skip_seq"], buf(2, B, W),
+        buf(B, 3), buf(B, T, em.NRED_WAVE),
+        torch.zeros(B, dtype=torch.int32, device=dev), buf(B, 14),
+        buf(B, 3))
+
+
+def em_round_statepar(rows, train_scaling: bool = True,
+                      train_transitions: bool = True) -> list:
+    """The E-step of a fused EM round with its states split over ranks, as
+    nanocall_tpu/train.py:326 train_one_round runs under
+    shard_train_inputs: K4m (the alphas stored when a train flag is set),
+    then K5m.
+
+    rows: one list a data row of its ranks' cuts of train.round_inputs
+    (states=, rank m the states [m W, (m + 1) W), on its device; 4096 / W
+    ranks of a power of two, at most 64, for the kernels).  Returns one
+    (lpd (B,), scal (B, 14), st3 (B, 3)) a row on its first rank's device,
+    bit-identical to K4's log Pr[data] and K5's statistics on the row's
+    whole inputs; scal and st3 are None when neither flag is set.  CUDA
+    devices run the kernels (a failed kernel raises; rows of one rank run
+    K4 + K5), CPU devices the plain versions."""
+    train_any = train_scaling or train_transitions
+    types = {inp["ev"]["mean"].device.type for ranks in rows
+             for inp in ranks}
+    if types not in ({"cpu"}, {"cuda"}):
+        raise ValueError(f"no state-parallel EM round over devices {types}")
+    kernels = types == {"cuda"}
+    out = []
+    for ranks in rows:
+        if kernels and len(ranks) == 1:
+            # one rank holds every state and reads no peer: K4 + K5
+            inp = ranks[0]
+            alphas, lpd = hmm.fwbw_grouped_forward(
+                inp["gtf"], inp["model"], inp["ev"], with_alphas=train_any)
+            stats = (em.fused_bwd_mstats(
+                inp["gtf"], inp["model"], inp["ev"], lpd, alphas, inp["W"],
+                inp["x_unc"], inp["t_start"], inp["valid"], inp["subset"],
+                inp["p_stay_seq"], inp["p_skip_seq"], train_scaling,
+                train_transitions) if train_any else (None, None))
+            out.append((lpd, *stats))
+            continue
+        B = ranks[0]["ev"]["mean"].shape[0]
+        fwd = [_fwd_wave_rank(inp, train_any) for inp in ranks]
+        if kernels:
+            _wave_kernels(fwd, hmm.fwbw_forward_wave_kernel,
+                          lambda d, sys: hmm.fwbw_forward_wave_resident(
+                              d, sys, train_any))
+        else:
+            hmm.fwbw_forward_wave_plain(fwd, 0, B)
+        if not train_any:
+            out.append((fwd[0].lpd, None, None))
+            continue
+        bwd = [_em_wave_rank(inp, f) for inp, f in zip(ranks, fwd)]
+        W = fwd[0].model.level_mean.shape[-1]
+        if kernels:
+            _wave_kernels(
+                bwd, lambda *a: em.em_backward_wave_kernel(
+                    *a, train_scaling, train_transitions),
+                lambda d, sys: em.em_backward_wave_resident(
+                    d, sys, train_scaling, W))
+        else:
+            em.em_backward_wave_plain(bwd, 0, B, train_scaling,
+                                      train_transitions)
+        out.append((fwd[0].lpd, bwd[0].scal, bwd[0].st3))
+        if kernels:
+            # the peers' cards free their slices once the fold is done
+            cur = torch.cuda.current_stream(fwd[0].lpd.device)
+            for r in bwd[1:]:
+                torch.cuda.current_stream(r.lpd.device).wait_stream(cur)
+    return out
+
+
+def train_one_round_placed(ev: dict, models: dict, pm_params, st_params,
+                           K: int = 6, train_drift: bool = True,
+                           train_scaling: bool = True,
+                           train_transitions: bool = True,
+                           default_ops=None, default_priors=None) -> list:
+    """One fused EM round of arguments placed by mesh.shard_train_inputs
+    (ev and models dicts of Sharded parts, pm_params and st_params
+    Sharded), the counterpart of train.train_one_round under
+    nanocall_tpu/parallel/mesh.py:126: each rank builds its cut of
+    train.round_inputs from its parts (the scaled models and W of its
+    states; the grouped tables and subset built whole and cut), each data
+    row runs em_round_statepar (K4m, then K5m with a train flag set), and
+    the row's M-steps run in plain torch on its first device
+    (train.fused_round_outputs, on the row's groups).  Returns one
+    {fit, new_pm_params, done, new_st_params} a data row, in order, on
+    the row's first device, bit-identical to the rows of the unplaced
+    round.  The legacy round under a loaded table (default_ops) and a
+    model bank are not placed: both raise ValueError."""
+    if default_ops is not None:
+        raise ValueError("the legacy EM round under a loaded table "
+                         "(default_ops) is not ported to the mesh's state "
+                         "axis yet (ROADMAP.md, queue 1)")
+    if "model_idx" in models:
+        raise ValueError("a model bank (model_idx) is not placed on the "
+                         "state axis: place per-group (G, 2, n) models")
+    grid = pm_params.mesh.ids.shape
+    rows, args = [], []
+    for d in range(grid[0]):
+        ranks = []
+        for m in range(grid[1]):
+            e = {k: v.shards[d][m] for k, v in ev.items()}
+            mdl = {k: v.shards[d][m] for k, v in models.items()}
+            W = mdl["level_mean"].shape[-1]
+            ranks.append(train.round_inputs(
+                e, mdl, pm_params.shards[d][m], st_params.shards[d][m], K,
+                train_scaling, states=slice(m * W, (m + 1) * W)))
+        rows.append(ranks)
+        args.append(({k: v.shards[d][0] for k, v in ev.items()},
+                     pm_params.shards[d][0], st_params.shards[d][0],
+                     ranks[0]["valid"]))
+    stats = em_round_statepar(rows, train_scaling, train_transitions)
+    return [train.fused_round_outputs(e, pm, st, valid, lpd, scal, st3,
+                                      train_drift, train_scaling,
+                                      train_transitions)
+            for (e, pm, st, valid), (lpd, scal, st3) in zip(args, stats)]

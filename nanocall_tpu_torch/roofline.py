@@ -536,17 +536,29 @@ def viterbi_traceback_slices_counts(B: int, T: int) -> tuple:
 
 def statepar_exchange_bytes(B: int, T: int, ranks: int,
                             walk_rows: int = 0) -> dict:
-    """The bytes a state-parallel decode of one data row (B reads of T
-    events over `ranks` ranks) moves between its ranks: "column", K1m's
-    (or K6am's) reads of the peers' slices in place, each rank reading the
-    ranks - 1 other slices (4 B W bytes each) of every column it steps
-    from (events 0 .. T - 2); "walk", what K2m's (or K6bm's) ring copies
-    from the slices of the ranks other than the first (the walk's card): W
-    bytes of each of the ranks - 1 slices a row, over the walk_rows rows
-    it streams (walk_rows())."""
+    """The bytes a state-parallel decode or EM round of one data row (B
+    reads of T events over `ranks` ranks) moves between its ranks:
+    "column", K1m's (or K6am's) reads of the peers' slices in place, each
+    rank reading the ranks - 1 other slices (4 B W bytes each) of every
+    column it steps from (events 0 .. T - 2); "walk", what K2m's (or
+    K6bm's) ring copies from the slices of the ranks other than the first
+    (the walk's card): W bytes of each of the ranks - 1 slices a row, over
+    the walk_rows rows it streams (walk_rows()).  The EM round's (K4m,
+    K5m): "alpha_column", K4m's reads of the peers' alpha slices, the
+    columns of events 0 .. T - 2 it steps from and the final one it takes
+    log Pr[data] from; "g_column", K5m's reads of the peers' g slices, one
+    column a step (T - 1 steps); "maxima", K5m's reads of the peers' 3
+    partial maxima a read and step (with train_transitions); "partials",
+    the first rank's reads of the peers' per-step records (9 float32 a
+    read and event) for the fold."""
     W = N_STATES // ranks
-    return {"column": (T - 1) * ranks * (ranks - 1) * 4 * B * W,
-            "walk": walk_rows * (ranks - 1) * W}
+    column = ranks * (ranks - 1) * 4 * B * W
+    return {"column": (T - 1) * column,
+            "walk": walk_rows * (ranks - 1) * W,
+            "alpha_column": T * column,
+            "g_column": (T - 1) * column,
+            "maxima": (T - 1) * ranks * (ranks - 1) * 12 * B,
+            "partials": (ranks - 1) * 36 * B * T}
 
 
 def walk_rows(lengths, T: int) -> int:
@@ -722,6 +734,12 @@ KERNEL_COUNTS = {
     "viterbi_generic_wave_resident": viterbi_resident_forward_path_counts,
     "viterbi_generic_wave_streaming": viterbi_generic_forward_path_counts,
     "viterbi_generic_traceback_slices": viterbi_generic_traceback_counts,
+    # K4m and K5m: the function a data row's EM round computes, whatever
+    # its ranks (K4's with the alphas stored, K5's with both statistics);
+    # the peers' slices, maxima and records they read apart
+    # (statepar_exchange_bytes)
+    "fwbw_forward_wave": fwbw_forward_counts,
+    "em_backward_wave": em_backward_counts,
     "fma_chain": fma_chain_counts,
     "reshape_copy": reshape_copy_counts,
 }

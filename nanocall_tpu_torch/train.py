@@ -136,19 +136,27 @@ def _sum_seqs(v: torch.Tensor, G: int) -> torch.Tensor:
 
 def round_inputs(ev: dict, models: dict, pm_params: torch.Tensor,
                  st_params: torch.Tensor, K: int = 6,
-                 train_scaling: bool = True) -> dict:
+                 train_scaling: bool = True, states: slice | None = None
+                 ) -> dict:
     """The per-row inputs of one EM round's kernels, built in plain torch
     from a batch of G groups (nanocall_tpu/train.py:374-477): the G*S rows'
     grouped tables `gtf` and scaled models `model` by strand, the
     drift-corrected events `ev` {mean, stdv, log_stdv, length}, and K5's
     extra inputs (W, x_unc, t_start, valid, subset, p_stay_seq,
     p_skip_seq); W (B, 6, n) is the unscaled models' state weights, None
-    without train_scaling.  Arguments as train_one_round's."""
+    without train_scaling.  Arguments as train_one_round's.
+
+    states: a rank's cut on the mesh's state axis, the states [lo, hi) of
+    the 4^K: `models` then hold those states only ((G, 2, hi - lo) each),
+    and the grouped tables and the subset, which depend on the global state
+    index, are built whole and cut to them; "books" holds the whole tables'
+    codebooks (hmm.bwd_codebooks), which K5m reads."""
     G, S, T = ev["mean"].shape
     if "model_idx" in models:
         idx = models["model_idx"].long()
         models = {k: models[k][idx] for k in BANK_FIELDS}
     n = models["level_mean"].shape[-1]
+    cols = slice(None) if states is None else states
 
     # scaled models (fill_train_data, hpp:101-114; pore_model.scale_arrays)
     p = pm_params[:, None, :]
@@ -188,10 +196,10 @@ def round_inputs(ev: dict, models: dict, pm_params: torch.Tensor,
         W = torch.stack([w_s0, w_s1, w_s2, w_l0, w_l1, w_l2], dim=1)
     else:
         W = None
-    return {
-        "gtf": hmm.GroupedTransFull(
-            stay_lp=sel(stay_t), step_lp=sel(step_t), skip_lp=sel(skip_t),
-            step_to_lp=sel(step_to_t), skip_to_lp=sel(skip_to_t), K=K),
+    whole = (stay_t, step_t, skip_t, step_to_t, skip_to_t)
+    out = {
+        "gtf": hmm.GroupedTransFull(*(sel(x[..., cols]) for x in whole),
+                                    K=K),
         "model": hmm.ModelArrays(
             level_mean=sel(lm_s), level_stdv=ls_seq,
             log_level_stdv=torch.log(ls_seq), sd_mean=sel(sm_s),
@@ -203,10 +211,21 @@ def round_inputs(ev: dict, models: dict, pm_params: torch.Tensor,
         "x_unc": rows(ev["mean"]),
         "t_start": rows(ev["start"]),
         "valid": rows(ev["valid"]),
-        "subset": torch.from_numpy(st_train_mask(K) > 0).to(pm_params.device),
+        "subset": torch.from_numpy(st_train_mask(K)[cols] > 0).to(
+            pm_params.device),
         "p_stay_seq": rows(torch.gather(st_params[..., 0], 1, strand)),
         "p_skip_seq": rows(torch.gather(st_params[..., 1], 1, strand)),
     }
+    if states is not None:
+        N = whole[0].shape[-1]
+
+        def sel_all(a):  # (G, 2, N) -> (B, N)
+            return torch.gather(a, 1, strand[:, :, None].expand(G, S, N)) \
+                .reshape(B, N)
+
+        out["books"] = hmm.bwd_codebooks(hmm.GroupedTransFull(
+            *(sel_all(x) for x in whole), K=K))[1]
+    return out
 
 
 def em_backward_args(inp: dict, lpd, alphas, train_scaling: bool,
@@ -449,41 +468,70 @@ def train_one_round(ev: dict, models: dict, pm_params: torch.Tensor,
     new_st_params (G, 2, 2)}; fit is the summed log Pr[data] of the valid
     rows under the current parameters."""
     G, S, T = ev["mean"].shape
-    dev = pm_params.device
     inp = round_inputs(ev, models, pm_params, st_params, K, train_scaling)
     train_any = train_scaling or train_transitions
-    out = {"new_pm_params": pm_params,
-           "done": torch.zeros(G, dtype=torch.bool, device=dev),
-           "new_st_params": st_params}
     if default_ops is None:
         alphas, lpd = hmm.fwbw_grouped_forward(inp["gtf"], inp["model"],
                                                inp["ev"],
                                                with_alphas=train_any)
-        out["fit"] = _sum_seqs(torch.where(inp["valid"], lpd, 0.0), G)
-        if not train_any:
-            return out
-        scal, st3 = em.fused_bwd_mstats(*em_backward_args(
-            inp, lpd, alphas, train_scaling, train_transitions))
+        scal = st3 = None
+        if train_any:
+            scal, st3 = em.fused_bwd_mstats(*em_backward_args(
+                inp, lpd, alphas, train_scaling, train_transitions))
         del alphas
-        acc = {k: _sum_seqs(scal[:, i], G)
-               for i, k in enumerate(em.SCAL_NAMES)}
-        seq_masks = [ev["strand"] == st for st in (0, 1)]
-        totals = [tuple(_masked_lse(st3[:, q].reshape(G, S), m, 1)
-                        for q in range(3)) for m in seq_masks]
-    else:
-        fb = _legacy_estep(inp, default_ops, default_priors)
-        out["fit"] = _sum_seqs(
-            torch.where(inp["valid"], fb["log_pr_data"], 0.0), G)
-        acc = _legacy_moments(fb, inp, G) if train_scaling else None
-        totals = (_legacy_st_totals(fb, inp, ev["strand"], G)
-                  if train_transitions else None)
-        del fb
-    if train_scaling:
+        return fused_round_outputs(ev, pm_params, st_params, inp["valid"],
+                                   lpd, scal, st3, train_drift,
+                                   train_scaling, train_transitions)
+    fb = _legacy_estep(inp, default_ops, default_priors)
+    out = _untrained_outputs(pm_params, st_params, _sum_seqs(
+        torch.where(inp["valid"], fb["log_pr_data"], 0.0), G))
+    acc = _legacy_moments(fb, inp, G) if train_scaling else None
+    totals = (_legacy_st_totals(fb, inp, ev["strand"], G)
+              if train_transitions else None)
+    del fb
+    return _msteps(out, acc, totals, ev, pm_params, st_params, train_drift)
+
+
+def _untrained_outputs(pm_params, st_params, fit) -> dict:
+    """A round's outputs before its M-steps: the parameters unchanged."""
+    return {"new_pm_params": pm_params,
+            "done": torch.zeros(pm_params.shape[0], dtype=torch.bool,
+                                device=pm_params.device),
+            "new_st_params": st_params, "fit": fit}
+
+
+def _msteps(out: dict, acc, totals, ev, pm_params, st_params,
+            train_drift: bool) -> dict:
+    """out with the M-steps of the statistics given (acc: the scaling
+    moments, totals: the transition log totals; None: not trained)."""
+    if acc is not None:
         out["new_pm_params"], out["done"] = _scaling_mstep(acc, pm_params,
                                                            train_drift)
-    if train_transitions:
+    if totals is not None:
         out["new_st_params"] = _st_mstep(totals, ev, st_params)
     return out
+
+
+def fused_round_outputs(ev: dict, pm_params, st_params, valid, lpd, scal,
+                        st3, train_drift: bool, train_scaling: bool,
+                        train_transitions: bool) -> dict:
+    """The fused round's outputs from its kernels' per-row results for G
+    groups (ev, pm_params and st_params as train_one_round's): fit from
+    log Pr[data] lpd (G*S,) of the valid rows, and the M-steps from K5's
+    scal (G*S, 14) and st3 (G*S, 3) (None: the round only scores).  The
+    placed round (parallel/statepar.py) runs it on each data row's
+    groups."""
+    G, S = ev["mean"].shape[:2]
+    out = _untrained_outputs(pm_params, st_params,
+                             _sum_seqs(torch.where(valid, lpd, 0.0), G))
+    if scal is None:
+        return out
+    acc = ({k: _sum_seqs(scal[:, i], G) for i, k in enumerate(em.SCAL_NAMES)}
+           if train_scaling else None)
+    totals = ([tuple(_masked_lse(st3[:, q].reshape(G, S),
+                                 ev["strand"] == st, 1) for q in range(3))
+               for st in (0, 1)] if train_transitions else None)
+    return _msteps(out, acc, totals, ev, pm_params, st_params, train_drift)
 
 
 # ---------------------------------------------------------------------------

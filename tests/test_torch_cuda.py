@@ -1091,3 +1091,124 @@ def test_per_read_forward_bit_equal_on_the_card(card, tmp_path, inputs):
             assert torch.equal(dec["path"][b], one["path"][0]), (name, b)
             assert torch.equal(_bits(dec["logp"][b]),
                                _bits(one["logp"][0])), (name, b)
+
+
+def _train_batch(dev, G: int, T: int, nan: bool, seed: int):
+    """A training batch of G groups of 4 rows on `dev` (the r73 pair of
+    models, events of random states of the scaled models, varied scaling
+    and transitions): rows of length 0, 1, T - 1 and T in group 0, an
+    invalid row in group 1; with `nan`, group 2 of full length with a NaN
+    event in one row, a NaN level mean at one state of its template model
+    and a +inf event in another row."""
+    rng = np.random.default_rng(seed)
+    S = 4
+    ms = load_builtin_models("r73")
+    pair = (ms["r73.t.006"], ms["r73.c.p1.006"])
+    mdl = {f: np.stack([np.stack([getattr(p, f) for p in pair])] * G)
+           .astype(np.float32)
+           for f in ("level_mean", "level_stdv", "sd_mean", "sd_lambda")}
+    pm = np.tile(np.array([1, 0, 0, 1, 1, 1], np.float32), (G, 1))
+    pm[:, 0] = rng.uniform(0.95, 1.05, G)
+    pm[:, 1] = rng.uniform(-1.0, 1.0, G)
+    pm[:, 2] = rng.uniform(-0.01, 0.01, G)
+    st = np.stack([rng.uniform(0.05, 0.2, (G, 2)),
+                   rng.uniform(0.2, 0.4, (G, 2))], -1).astype(np.float32)
+    strand = np.tile(np.array([0, 0, 1, 1], np.int32), (G, 1))
+    lm = mdl["level_mean"][np.arange(G)[:, None, None], strand[:, :, None],
+                           rng.integers(0, 4096, (G, S, T))]
+    mean = (lm * pm[:, 0, None, None] + pm[:, 1, None, None]
+            + rng.normal(0.0, 1.0, (G, S, T))).astype(np.float32)
+    stdv = rng.uniform(0.6, 1.8, (G, S, T)).astype(np.float32)
+    ev = {"mean": mean, "stdv": stdv, "log_stdv": np.log(stdv),
+          "start": np.cumsum(rng.uniform(0.01, 0.03, (G, S, T)), -1)
+          .astype(np.float32),
+          "length": rng.integers(T // 2, T + 1, (G, S)).astype(np.int32),
+          "strand": strand, "valid": np.ones((G, S), bool)}
+    ev["length"][0] = [0, 1, T - 1, T]
+    ev["valid"][1, 2] = False
+    if nan:
+        ev["length"][2] = T
+        ev["mean"][2, 1, T // 2] = np.nan
+        mdl["level_mean"][2, 0, 1234] = np.nan
+        ev["mean"][2, 3, 3] = np.inf
+    return convert.train_batch(ev, mdl, pm, st, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_train_statepar_kernels_bit_equal_on_the_card(card, inputs):
+    """K4m and K5m, the EM round's kernels with the 4096 states split over
+    M = 2, 4 and 8 ranks on cuda:0 (parallel/statepar.py), against their
+    plain versions over the same ranks and against K4 + K5, every output as
+    bits: K4m with the alphas stored and without, K5m with both train
+    flags and each alone, on rows of lengths 0, 1, T-1 and T and an
+    invalid row (clean) and on NaN / +inf inputs; one launch of each a
+    wave (one wave here).  Then the placed round
+    (statepar.train_one_round_placed on mesh.shard_train_inputs) on (1, M)
+    and (2, M) meshes of cuda:0 against the unplaced round, with both
+    flags, each alone and neither."""
+    from nanocall_tpu_torch import train
+    from nanocall_tpu_torch.ops import em
+    from nanocall_tpu_torch.parallel import mesh, statepar
+
+    batch = _train_batch(card, 4, 24, inputs == "NaN", 17)
+    inp = train.round_inputs(*batch, K=6)
+    B = inp["x_unc"].shape[0]
+    alphas, lpd = hmm.fwbw_grouped_forward(inp["gtf"], inp["model"],
+                                           inp["ev"])
+    for M in (2, 4, 8):
+        W = 4096 // M
+        ranks = statepar.split_round_states(*batch, [card] * M)
+        for stored in (True, False):
+            fk = [statepar._fwd_wave_rank(r, stored) for r in ranks]
+            fp = [statepar._fwd_wave_rank(r, stored) for r in ranks]
+            n0 = hmm.fwbw_forward_wave_kernel.launches
+            statepar._wave_kernels(
+                fk, hmm.fwbw_forward_wave_kernel,
+                lambda d, sys: hmm.fwbw_forward_wave_resident(d, sys,
+                                                              stored))
+            hmm.fwbw_forward_wave_plain(fp, 0, B)
+            torch.cuda.synchronize()
+            assert hmm.fwbw_forward_wave_kernel.launches - n0 == 1
+            for rk, rp in zip(fk, fp):
+                what = (inputs, M, stored)
+                assert torch.equal(_bits(rk.lpd), _bits(rp.lpd)), what
+                assert torch.equal(_bits(rk.lpd), _bits(lpd)), what
+                if stored:
+                    assert torch.equal(_bits(rk.alphas), _bits(rp.alphas))
+            if stored:
+                got = torch.cat([r.alphas for r in fk], dim=2)
+                assert torch.equal(_bits(got), _bits(alphas)), (inputs, M)
+                fwd = fk
+        for ts, tt in ((True, True), (True, False), (False, True)):
+            want = em.em_backward_kernel(*train.em_backward_args(
+                inp if ts else {**inp, "W": None}, lpd, alphas, ts, tt))
+            bk = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
+            bp = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
+            n0 = em.em_backward_wave_kernel.launches
+            statepar._wave_kernels(
+                bk, lambda *a: em.em_backward_wave_kernel(*a, ts, tt),
+                lambda d, sys: em.em_backward_wave_resident(d, sys, ts, W))
+            em.em_backward_wave_plain(bp, 0, B, ts, tt)
+            torch.cuda.synchronize()
+            assert em.em_backward_wave_kernel.launches - n0 == 1
+            for g, p, w in zip((bk[0].scal, bk[0].st3),
+                               (bp[0].scal, bp[0].st3), want):
+                what = (inputs, M, ts, tt)
+                assert torch.equal(_bits(g), _bits(p)), what
+                assert torch.equal(_bits(g), _bits(w)), what
+        for D in (1, 2):
+            grid = mesh.make_mesh(D * M, model_axis=M,
+                                  devices=[card] * (D * M))
+            placed = mesh.shard_train_inputs(grid, *batch)
+            for ts, tt in ((True, True), (True, False), (False, True),
+                           (False, False)):
+                kw = dict(train_scaling=ts, train_transitions=tt)
+                want = train.train_one_round(*batch, K=6, **kw)
+                got = mesh.join(statepar.train_one_round_placed(*placed,
+                                                                **kw))
+                for k, v in want.items():
+                    assert torch.equal(_bits(got[k]), _bits(v.cpu())), \
+                        (inputs, M, D, ts, tt, k)
+    if inputs == "NaN":
+        assert torch.isnan(lpd).any()

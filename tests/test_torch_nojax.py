@@ -284,6 +284,45 @@ def test_generic_mesh_path_runs_on_cpu_without_importing_jax():
     assert proc.stdout.splitlines()[-1] == "NOJAX_OK"
 
 
+def test_placed_em_round_and_dryrun_run_on_cpu_without_importing_jax():
+    """The EM round placed on a 2 x 2 CPU mesh (mesh.shard_train_inputs,
+    statepar.train_one_round_placed: the plain K4m and K5m), bit-equal to
+    the unplaced round, and the port's dry run over 4 CPU devices
+    (nanocall_tpu_torch.dryrun: all five of its steps) in a fresh
+    interpreter: no jax and no nanocall_tpu."""
+    proc = _run_python(
+        "import sys, numpy as np, torch\n"
+        "from nanocall_tpu_torch import dryrun, train\n"
+        "from nanocall_tpu_torch.models import load_builtin_models\n"
+        "from nanocall_tpu_torch.parallel import mesh, statepar\n"
+        "cpu = torch.device('cpu')\n"
+        "G, S, T = 2, 4, 5\n"
+        "pm = load_builtin_models('r73')['r73.t.006']\n"
+        "mdl = {k: torch.from_numpy(np.tile(getattr(pm, k), (G, 2, 1)))"
+        " for k in ('level_mean', 'level_stdv', 'sd_mean', 'sd_lambda')}\n"
+        "stdv = torch.ones(G, S, T)\n"
+        "ev = {'mean': torch.full((G, S, T), 60.0), 'stdv': stdv,"
+        " 'log_stdv': torch.log(stdv),"
+        " 'start': torch.arange(T).float().expand(G, S, T) * 0.01,"
+        " 'length': torch.full((G, S), T, dtype=torch.int32),"
+        " 'strand': torch.tensor([[0, 0, 1, 1]] * G, dtype=torch.int32),"
+        " 'valid': torch.ones(G, S, dtype=torch.bool)}\n"
+        "p0 = torch.tensor([[1.0, 0, 0, 1, 1, 1]] * G)\n"
+        "s0 = torch.tensor([[[0.1, 0.3]] * 2] * G)\n"
+        "want = train.train_one_round(ev, mdl, p0, s0)\n"
+        "got = mesh.join(statepar.train_one_round_placed(*mesh."
+        "shard_train_inputs(mesh.make_mesh(4, 2, devices=[cpu] * 4), ev,"
+        " mdl, p0, s0)))\n"
+        "for k in want:\n"
+        "    assert torch.equal(got[k], want[k]), k\n"
+        "line = dryrun.dryrun_multichip(4, devices=[cpu] * 4)\n"
+        "assert line.endswith('seqpar_exact=True pipeline_fasta_equal=True')\n"
+        "rc = 0\n"
+        + _ASSERT_NO_JAX)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "NOJAX_OK"
+
+
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):
     """A kernel build that fails raises; nothing falls back or is cached."""
     from nanocall_tpu_torch.ops import _cuda

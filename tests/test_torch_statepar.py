@@ -327,7 +327,11 @@ def test_slice_kernel_counts():
         W = n // ranks
         ex = roofline.statepar_exchange_bytes(B, 8192, ranks, 7)
         assert ex == {"column": 8191 * ranks * (ranks - 1) * 4 * B * W,
-                      "walk": 7 * (ranks - 1) * W}
+                      "walk": 7 * (ranks - 1) * W,
+                      "alpha_column": 8192 * ranks * (ranks - 1) * 4 * B * W,
+                      "g_column": 8191 * ranks * (ranks - 1) * 4 * B * W,
+                      "maxima": 8191 * ranks * (ranks - 1) * 12 * B,
+                      "partials": (ranks - 1) * 36 * B * 8192}
     b = roofline.kernel_bound("viterbi_forward_slice", B, 8192)
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Check the port's multi-device path across every visible NVIDIA GPU.
 
-    python3 tools/torch_multi_gpu.py
+    python3 tools/torch_multi_gpu.py [em]
 
-It needs two cards or more (it exits 2 with fewer) and
+It needs two cards or more (it exits 2 with fewer) and runs the phases
+below (with `em`, phase 5 alone: the four-card call for the EM round on
+the state axis and the dry run, without the phases that earlier runs
+covered):
 
 1. launches K1 + K2 and K10 on every card with cuda:0 current: cuda:0
    stays current and a bare "cuda" still allocates there (the C entries
@@ -33,7 +36,18 @@ It needs two cards or more (it exits 2 with fewer) and
    cuda:0 (hmm.viterbi_decode), one K6am launch a wave and card (its
    exchange at system scope) and one K6bm a data row (its ring copies the
    peers' backpointer slices over peer access);
-5. runs chip_smoke.py's 24 simulated reads through basecall.run_pipeline,
+5. runs one fused EM round of chip_smoke.py's EM chunk (128 groups x 4
+   rows of 128 events, em_kernel_inputs, the bank's models per group)
+   through statepar.train_one_round_placed on
+   parallel.mesh.shard_train_inputs' placement on the same meshes: fit,
+   new_pm_params, done and new_st_params bit-equal to the unplaced round
+   on cuda:0 (K4 + K5), K4m and K5m launched a wave and card (their
+   exchanges at system scope: the peers' alpha and g slices, maxima,
+   records and counters read in place over peer access); each mesh's
+   wall beside the same mesh with every rank on cuda:0 and the unplaced
+   round's; then nanocall_tpu_torch.dryrun.dryrun_multichip over every
+   card (its five steps; JAX's summary line);
+6. runs chip_smoke.py's 24 simulated reads through basecall.run_pipeline,
    untrained and trained, over the default data sharder (every card:
    basecall.default_sharder) and over cuda:0 alone: FASTA byte-equal, stats
    within rtol 2e-3, every card allocated memory in the sharded runs; the
@@ -235,8 +249,78 @@ def run_generic_mesh(models, cards, card_line: str) -> dict:
     return out
 
 
+def run_em_mesh(models, cards, card_line: str) -> dict:
+    """Phase 5: the placed EM round across cards, then the dry run."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import dryrun, train
+    from nanocall_tpu_torch.ops import em, hmm, kernels
+    from nanocall_tpu_torch.parallel import mesh, statepar
+
+    reads = chip_smoke.simulated_reads(models, np.random.default_rng(2031))
+    ev, bank, pm, st = chip_smoke.em_kernel_inputs(
+        models, reads, cards[0], np.random.default_rng(2032))["batch"]
+    idx = bank["model_idx"].long()
+    mdl = {k: v[idx].contiguous() for k, v in bank.items()
+           if k != "model_idx"}
+    G = pm.shape[0]
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        for i in range(len(cards)):
+            torch.cuda.synchronize(i)
+        return time.perf_counter() - t0, got
+
+    k4k5_s, ref = wall(lambda: train.train_one_round(ev, mdl, pm, st))
+    ref = {k: v.cpu() for k, v in ref.items()}
+    out = {"k4_k5_s": k4k5_s}
+    for D, M in ((1, 2), (2, 2)):
+        if D * M > len(cards):
+            continue
+        grid = (mesh.make_mesh(D * M, model_axis=M) if D * M == 4
+                else mesh.make_mesh(D * M, model_axis=M, devices=cards))
+        placed = mesh.shard_train_inputs(grid, ev, mdl, pm, st)
+        kernels.reset_launches()
+        s, got = wall(lambda: statepar.train_one_round_placed(*placed))
+        rows = 4 * G // D
+        k4m = sum(len(statepar.plan_waves(rows, row, {
+            d: hmm.fwbw_forward_wave_resident(d, True, True)
+            for d in row})[row[0]]) * len(set(row))
+            for row in grid.devices)
+        k5m = sum(len(statepar.plan_waves(rows, row, {
+            d: em.em_backward_wave_resident(d, True, True, 4096 // M)
+            for d in row})[row[0]]) * len(set(row)) for row in grid.devices)
+        launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+        assert (launches["fwbw_forward_wave"],
+                launches["em_backward_wave"]) == (k4m, k5m), launches
+        got = mesh.join(got)
+        for k, v in ref.items():
+            assert torch.equal(chip_smoke.bits(got[k]),
+                               chip_smoke.bits(v)), (D, M, k)
+        one = mesh.make_mesh(D * M, model_axis=M,
+                             devices=[cards[0]] * (D * M))
+        s_one, _ = wall(lambda: statepar.train_one_round_placed(
+            *mesh.shard_train_inputs(one, ev, mdl, pm, st)))
+        out[f"em_mesh_{D}x{M}_s"] = s
+        out[f"em_mesh_{D}x{M}_one_card_s"] = s_one
+        print(f"EM mesh ({D}, {M}) over {D * M} cards, G={G} x 4 rows, "
+              f"T={ev['mean'].shape[2]}: fit, new_pm_params, done and "
+              f"new_st_params bit-equal to the unplaced round on cuda:0; "
+              f"{s:.3f} s of wall ({k4m} K4m and {k5m} K5m launches) vs "
+              f"{s_one:.3f} s with every rank on cuda:0 and K4 + K5 "
+              f"{k4k5_s:.3f} s [{card_line}]")
+    s, line = wall(lambda: dryrun.dryrun_multichip())
+    assert line.endswith("seqpar_exact=True pipeline_fasta_equal=True"), line
+    out["dryrun_s"] = s
+    print(f"dry run over {len(cards)} cards: {s:.1f} s [{card_line}]")
+    return out
+
+
 def run_sharded(models, cards, card_line: str) -> dict:
-    """Phase 4: the pipeline over every card against cuda:0 alone."""
+    """Phase 6: the pipeline over every card against cuda:0 alone."""
     import numpy as np
     import torch
 
@@ -278,8 +362,13 @@ def run_sharded(models, cards, card_line: str) -> dict:
     return walls
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["em"]):
+        print(f"torch_multi_gpu: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n < 2:
@@ -294,15 +383,21 @@ def main() -> int:
     _cuda.load()
     cards = [torch.device("cuda", i) for i in range(n)]
     models = cli.init_models(chip_smoke.smoke_config())
+    if argv == ["em"]:
+        em_walls = run_em_mesh(models, cards, card_line)
+        print(card_line)
+        print(json.dumps({"ok": True, "cards": n, "em_mesh": em_walls}))
+        return 0
     check_current_device(models, n)
     seq = run_seqpar(models, cards, card_line)
     mesh_walls = run_mesh(models, cards, card_line)
     generic_walls = run_generic_mesh(models, cards, card_line)
+    em_walls = run_em_mesh(models, cards, card_line)
     walls = run_sharded(models, cards, card_line)
     print(card_line)
     print(json.dumps({"ok": True, "cards": n, "seqpar": seq,
                       "mesh": mesh_walls, "generic_mesh": generic_walls,
-                      "pipeline_wall_s": walls}))
+                      "em_mesh": em_walls, "pipeline_wall_s": walls}))
     return 0
 
 
