@@ -158,9 +158,11 @@ from the root of a checkout.  It
      chunk with NaN events, a NaN model entry and a +inf event, each
      bit-equal (as bits) to its plain version over the same ranks and to
      K4 / K5, timed by CUDA events around each launch (a pass is one
-     launch a wave: statepar.plan_waves on each kernel's own resident
-     blocks) beside K4's and K5's times and the bounds, with the bytes the
-     ranks read from each other (roofline.statepar_exchange_bytes); then
+     launch: a thread block cluster a read) beside K4's and K5's times and
+     the bounds, with each kernel's blocks an SM, rounds of reads and µs
+     a step, the cooperative path's waves (statepar.plan_waves on each
+     kernel's own resident blocks, at most 4) and the bytes the ranks read
+     from each other (roofline.statepar_exchange_bytes); then
      the port's multi-device dry run (nanocall_tpu_torch.dryrun, JAX's
      __graft_entry__.py:68) on four ranks of the card, a 2 x 2 mesh,
      counted as its own path: the placed EM round (K4m, K5m) bit-equal to
@@ -313,6 +315,11 @@ GENERIC_MESH_KERNELS = ("viterbi_generic_wave_resident",
 #: the ranks K4m and K5m run at the EM chunk (the first is the kernels
 #: line's), and the kernels the dry run must launch
 EM_RANKS = (2, 4)
+#: K4m's and K5m's exchange paths, each pass run on both: (name, the
+#: wrappers' cluster argument): a cluster a read (the default on one card,
+#: None) and the cooperative grid behind counters (across cards, 16-64
+#: ranks)
+EM_PATHS = (("cluster", None), ("cooperative", False))
 DRYRUN_KERNELS = ("fwbw_forward_wave", "em_backward_wave",
                   "viterbi_generic_wave_resident",
                   "viterbi_generic_traceback_slices", "viterbi_forward_slice",
@@ -1929,6 +1936,13 @@ def nan_train_batch(batch):
     return ev, mdl, pm, st
 
 
+def paths_ms(ms: dict) -> str:
+    """K4m's or K5m's times on each exchange path: {path: (ms a pass,
+    launches a pass)} as one clause."""
+    return "; ".join(f"{path} path {t:.3f} ms a pass of {n} launches"
+                     for path, (t, n) in ms.items())
+
+
 def check_em_statepar(inp, card: str) -> dict:
     """K4m and K5m, the EM round's kernels with the 4096 states split over
     the ranks of a data row (parallel/statepar.py), at the EM chunk's full
@@ -1941,9 +1955,21 @@ def check_em_statepar(inp, card: str) -> dict:
     is one launch a wave (statepar.plan_waves on each kernel's own resident
     blocks), the counters zeroed before it; its device time is the sum of
     its launches' (launch_spans: CUDA events around each launch, 3 passes).
-    Returns the two kernels' records at 2 ranks (their "ms" a pass,
-    "plain_ms" the plain version's pass), and prints every rank count's
-    times beside K4's and K5's and the bounds."""
+    Each pass runs on both exchange paths (EM_PATHS): the cluster path (a
+    read's M ranks one thread block cluster, all the reads in one launch)
+    and the cooperative path (a grid a wave, counters in global memory),
+    each checked and timed alone.  Prints each kernel's blocks an SM at
+    each rank count from its occupancy queries: the cluster path's (the
+    reads resident at once, and the rounds of them the 512-row chunk
+    takes, checked against 4: printed, not asserted, as the card holds
+    fewer clusters of 4 than its SMs) and the cooperative path's (the waves
+    plan_waves cuts, at most 4: asserted, a read's M blocks fit an SM as
+    K4's and K5's one block does); and the cluster path's µs a step (a
+    pass's device time over its rounds times its steps: T columns for K4m,
+    T - 1 for K5m).  Returns the two kernels' records at
+    2 ranks (their "ms" a pass, "plain_ms" the plain version's pass), and
+    prints every rank count's times beside K4's and K5's and the
+    bounds."""
     import torch
 
     from nanocall_tpu_torch import roofline, train
@@ -1951,7 +1977,27 @@ def check_em_statepar(inp, card: str) -> dict:
     from nanocall_tpu_torch.parallel import statepar
 
     dev = inp["x_unc"].device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     recs = {}
+
+    def occupancy(name: str, resident, B: int, M: int) -> int:
+        """Prints the kernel's blocks an SM on both paths (resident(cluster)
+        its occupancy query), the cluster path's rounds and the cooperative
+        path's waves; returns the rounds."""
+        per = resident(True) // M
+        rounds = -(-B // per)
+        coop = resident(False)
+        waves = len(statepar.plan_waves(B, [dev] * M, {dev: coop})[dev])
+        print(f"occupancy {name} over {M} ranks, blocks of "
+              f"{max(4096 // M // 4, 32)} threads: cluster path "
+              f"{resident(True) / sms:.2f} blocks an SM, {per} reads at "
+              f"once, {B} rows in {rounds} rounds of one launch (at most 4: "
+              f"{'met' if rounds <= 4 else 'MISSED'}); cooperative path "
+              f"{coop // sms} blocks an SM, {B} rows in {waves} waves (at "
+              f"most 4: asserted)")
+        assert waves <= 4, f"{name}: {B} rows in {waves} waves"
+        return rounds
+
     for what, batch in (("clean", inp["batch"]),
                         ("NaN", nan_train_batch(inp["batch"]))):
         whole = train.round_inputs(*batch, K=6)
@@ -1964,100 +2010,135 @@ def check_em_statepar(inp, card: str) -> dict:
             W = 4096 // M
             ranks = statepar.split_round_states(*batch, [dev] * M)
             for stored in ((True, False) if what == "clean" else (True,)):
-                fk = [statepar._fwd_wave_rank(r, stored) for r in ranks]
                 fp = [statepar._fwd_wave_rank(r, stored) for r in ranks]
-
-                def k4m(fk=fk, stored=stored):
-                    for r in fk:
-                        r.flags.zero_()
-                    statepar._wave_kernels(
-                        fk, hmm.fwbw_forward_wave_kernel,
-                        lambda d, sys: hmm.fwbw_forward_wave_resident(
-                            d, sys, stored))
-
-                k4m()
                 plain_ms, _ = cuda_ms_once(
                     lambda: hmm.fwbw_forward_wave_plain(fp, 0, B))
-                torch.cuda.synchronize()
-                for rk, rp in zip(fk, fp):
-                    tag = f"K4m {what} M={M} stored={stored}"
-                    assert torch.equal(bits(rk.lpd), bits(rp.lpd)), \
-                        f"{tag} log_pr_data differs from plain"
-                    assert torch.equal(bits(rk.lpd), bits(lpd_k)), \
-                        f"{tag} log_pr_data differs from K4"
+                rounds = occupancy(
+                    "fwbw_forward_wave (K4m)",
+                    lambda c, W=W: hmm.fwbw_forward_wave_resident(
+                        dev, False, W, cluster=c), B, M)
+                ms = {}
+                for path, cluster in EM_PATHS:
+                    fk = [statepar._fwd_wave_rank(r, stored) for r in ranks]
+
+                    def k4m(fk=fk, W=W, cluster=cluster):
+                        for r in fk:
+                            r.flags.zero_()
+                        statepar._wave_kernels(
+                            fk, lambda *a: hmm.fwbw_forward_wave_kernel(
+                                *a, cluster),
+                            lambda d, sys: hmm.fwbw_forward_wave_resident(
+                                d, sys, W), clusters=cluster is None)
+
+                    k4m()
+                    torch.cuda.synchronize()
+                    tag = f"K4m {what} M={M} stored={stored} {path} path"
+                    for rk, rp in zip(fk, fp):
+                        assert torch.equal(bits(rk.lpd), bits(rp.lpd)), \
+                            f"{tag} log_pr_data differs from plain"
+                        assert torch.equal(bits(rk.lpd), bits(lpd_k)), \
+                            f"{tag} log_pr_data differs from K4"
+                        if stored:
+                            assert torch.equal(bits(rk.alphas),
+                                               bits(rp.alphas)), \
+                                f"{tag} alphas differ from plain"
                     if stored:
-                        assert torch.equal(bits(rk.alphas),
-                                           bits(rp.alphas)), \
-                            f"{tag} alphas differ from plain"
-                if stored:
-                    got = torch.cat([r.alphas for r in fk], dim=2)
-                    assert torch.equal(bits(got), bits(a_k)), \
-                        f"K4m {what} M={M} alphas differ from K4"
-                    del got
-                    fwd = fk
-                spans = launch_spans(k4m, "fwbw_forward_wave_kernel", dev,
-                                     3)
-                rec = {"max_abs_err": max(max_err(rk.lpd, rp.lpd)
-                                          for rk, rp in zip(fk, fp)),
-                       "ms": 1e3 * spans["device_s"] / 3,
-                       "host_us": 1e6 * spans["host_s"] / 3,
-                       "plain_ms": plain_ms, "launches_a_pass":
-                       spans["launches"] // 3, "shape": [B, T], "ranks": M}
+                        got = torch.cat([r.alphas for r in fk], dim=2)
+                        assert torch.equal(bits(got), bits(a_k)), \
+                            f"{tag} alphas differ from K4"
+                        del got
+                    spans = launch_spans(k4m, "fwbw_forward_wave_kernel",
+                                         dev, 3)
+                    ms[path] = (1e3 * spans["device_s"] / 3,
+                                spans["launches"] // 3)
+                    if path == "cluster":
+                        rec = {"max_abs_err": max(
+                                   max_err(rk.lpd, rp.lpd)
+                                   for rk, rp in zip(fk, fp)),
+                               "ms": ms[path][0],
+                               "host_us": 1e6 * spans["host_s"] / 3,
+                               "plain_ms": plain_ms,
+                               "launches_a_pass": ms[path][1],
+                               "shape": [B, T], "ranks": M,
+                               "us_a_step": 1e3 * ms[path][0]
+                               / (rounds * T)}
+                        if stored:
+                            fwd = fk
+                    else:
+                        del fk
                 if what == "clean" and stored and M == EM_RANKS[0]:
                     recs["fwbw_forward_wave"] = rec
                 print(f"kernel fwbw_forward_wave (K4m, {what}, "
                       f"{'alphas stored' if stored else 'fit-only'}): "
-                      f"B={B} T={T} over {M} ranks bit-equal to plain and "
-                      f"to K4; {rec['ms']:.3f} ms a pass of "
-                      f"{rec['launches_a_pass']} launches by CUDA events "
-                      f"around each vs plain {plain_ms:.3f} ms [{card}]")
+                      f"B={B} T={T} over {M} ranks, both paths bit-equal to "
+                      f"plain and to K4; {paths_ms(ms)}, by CUDA events "
+                      f"around each launch; cluster path "
+                      f"{rec['us_a_step']:.2f} µs a step; vs plain "
+                      f"{plain_ms:.3f} ms [{card}]")
                 del fp
             for ts, tt in flag_sets:
                 want = em.em_backward_kernel(*train.em_backward_args(
                     whole if ts else {**whole, "W": None}, lpd_k, a_k, ts,
                     tt))
-                bk = [statepar._em_wave_rank(r, f)
-                      for r, f in zip(ranks, fwd)]
                 bp = [statepar._em_wave_rank(r, f)
                       for r, f in zip(ranks, fwd)]
-
-                def k5m(bk=bk, ts=ts, tt=tt, W=W):
-                    for r in bk:
-                        r.flags.zero_()
-                    statepar._wave_kernels(
-                        bk, lambda *a: em.em_backward_wave_kernel(*a, ts, tt),
-                        lambda d, sys: em.em_backward_wave_resident(
-                            d, sys, ts, W))
-
-                k5m()
                 plain_ms, _ = cuda_ms_once(
                     lambda: em.em_backward_wave_plain(bp, 0, B, ts, tt))
-                torch.cuda.synchronize()
-                for name, g, p, w in zip(("moments", "log totals"),
-                                         (bk[0].scal, bk[0].st3),
-                                         (bp[0].scal, bp[0].st3), want):
-                    tag = f"K5m {what} M={M} flags {(ts, tt)} {name}"
-                    assert torch.equal(bits(g), bits(p)), \
-                        f"{tag} differ from plain"
-                    assert torch.equal(bits(g), bits(w)), \
-                        f"{tag} differ from K5"
-                spans = launch_spans(k5m, "em_backward_wave_kernel", dev, 3,
-                                     module=em)
-                rec = {"max_abs_err": max(max_err(bk[0].scal, bp[0].scal),
-                                          max_err(bk[0].st3, bp[0].st3)),
-                       "ms": 1e3 * spans["device_s"] / 3,
-                       "host_us": 1e6 * spans["host_s"] / 3,
-                       "plain_ms": plain_ms, "launches_a_pass":
-                       spans["launches"] // 3, "shape": [B, T], "ranks": M}
+                rounds = occupancy(
+                    f"em_backward_wave (K5m, train_scaling {ts})",
+                    lambda c, ts=ts, W=W: em.em_backward_wave_resident(
+                        dev, False, ts, W, cluster=c), B, M)
+                ms = {}
+                for path, cluster in EM_PATHS:
+                    bk = [statepar._em_wave_rank(r, f)
+                          for r, f in zip(ranks, fwd)]
+
+                    def k5m(bk=bk, ts=ts, tt=tt, W=W, cluster=cluster):
+                        for r in bk:
+                            r.flags.zero_()
+                        statepar._wave_kernels(
+                            bk, lambda *a: em.em_backward_wave_kernel(
+                                *a, ts, tt, cluster),
+                            lambda d, sys: em.em_backward_wave_resident(
+                                d, sys, ts, W), clusters=cluster is None)
+
+                    k5m()
+                    torch.cuda.synchronize()
+                    for name, g, p, w in zip(("moments", "log totals"),
+                                             (bk[0].scal, bk[0].st3),
+                                             (bp[0].scal, bp[0].st3), want):
+                        tag = (f"K5m {what} M={M} flags {(ts, tt)} {path} "
+                               f"path {name}")
+                        assert torch.equal(bits(g), bits(p)), \
+                            f"{tag} differ from plain"
+                        assert torch.equal(bits(g), bits(w)), \
+                            f"{tag} differ from K5"
+                    spans = launch_spans(k5m, "em_backward_wave_kernel", dev,
+                                         3, module=em)
+                    ms[path] = (1e3 * spans["device_s"] / 3,
+                                spans["launches"] // 3)
+                    if path == "cluster":
+                        rec = {"max_abs_err": max(
+                                   max_err(bk[0].scal, bp[0].scal),
+                                   max_err(bk[0].st3, bp[0].st3)),
+                               "ms": ms[path][0],
+                               "host_us": 1e6 * spans["host_s"] / 3,
+                               "plain_ms": plain_ms,
+                               "launches_a_pass": ms[path][1],
+                               "shape": [B, T], "ranks": M,
+                               "us_a_step": 1e3 * ms[path][0]
+                               / (rounds * (T - 1))}
+                    del bk
                 if what == "clean" and (ts, tt) == (True, True) and \
                         M == EM_RANKS[0]:
                     recs["em_backward_wave"] = rec
                 print(f"kernel em_backward_wave (K5m, {what}, flags "
-                      f"{(ts, tt)}): B={B} T={T} over {M} ranks bit-equal to "
-                      f"plain and to K5; {rec['ms']:.3f} ms a pass of "
-                      f"{rec['launches_a_pass']} launches by CUDA events "
-                      f"around each vs plain {plain_ms:.3f} ms [{card}]")
-                del bk, bp
+                      f"{(ts, tt)}): B={B} T={T} over {M} ranks, both paths "
+                      f"bit-equal to plain and to K5; {paths_ms(ms)}, by "
+                      f"CUDA events around each launch; cluster path "
+                      f"{rec['us_a_step']:.2f} µs a step; vs plain "
+                      f"{plain_ms:.3f} ms [{card}]")
+                del bp
             del ranks, fwd
         del a_k, whole
         torch.cuda.empty_cache()
@@ -2068,10 +2149,11 @@ def check_em_statepar(inp, card: str) -> dict:
         print(f"bound {name} at B={recs[name]['shape'][0]} "
               f"T={recs[name]['shape'][1]}: {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}, the function's whatever the ranks); over "
-              f"{EM_RANKS[0]} ranks the peers' slices read: alpha columns "
-              f"{ex['alpha_column'] / 1e9:.3f} GB, g columns "
-              f"{ex['g_column'] / 1e9:.3f} GB, maxima {ex['maxima']} B, "
-              f"records {ex['partials']} B")
+              f"{EM_RANKS[0]} ranks read from the peers: K4m's rows "
+              f"{ex['alpha_rows'] / 1e9:.3f} GB and partials "
+              f"{ex['fwd_partials']} B, K5m's block sums "
+              f"{ex['block_sums'] / 1e9:.3f} GB, maxima {ex['maxima']} B "
+              f"and records {ex['partials']} B")
     return recs
 
 

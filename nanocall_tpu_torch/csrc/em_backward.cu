@@ -52,38 +52,43 @@
 // K5m (em_backward_wave_kernel) is K5 with the 4096 states split over M =
 // 2 .. 64 ranks (the EM round under nanocall_tpu/parallel/mesh.py:126
 // shard_train_inputs; parallel/statepar.py drives it after K4m).  A block
-// is one (read, rank) pair of a cooperative grid and runs the whole reverse
-// pass, with K1m's exchange (wave_exchange.cuh).  The threads keep K5's
-// layout over the whole row, 4 contiguous states a thread; the rank's W
-// states are those of threads W / 4 rank .. W / 4 (rank + 1) - 1 (its
-// "own" threads, in its own warps).  Each step:
-//   - the own threads compute g = em(t+1) + beta for their states (the
-//     emission's 3 divisions are computed once on the row) and store them
-//     into the rank's (2, B, W) g buffer at the step's parity; the block
-//     publishes its counter and waits for the peers';
-//   - every thread loads its 4 states of the whole g column in place
-//     (relaxed loads), and the block runs K5's recursion over all of it:
-//     the max with its NaN vote, G, sum4, sum16 and log(sum4); sum16[c]
-//     and sum4[i % 1024] of a rank's states reach into every slice for W
-//     >= 256;
-//   - the own threads take beta, lp_j1 and, from their slice of K4m's
-//     alphas, the statistics of their states: the 6 post sums as the
-//     pairwise tree over the rank's contiguous states, a whole subtree of
-//     K5's; with train_transitions, each own warp's masked maxima, the
-//     rank's 3 partial maxima published by a second exchange (a counter
-//     phase of its own), the masked max over all states from the M
-//     ranks', then the subtree sums of exp(v - max);
-//   - the per-step partials go to the rank's record red (B, T, 12), their
-//     cross-warp sums at the next step, as K5's.
-// After the last step every rank publishes its counter once more; the
-// row's first rank waits for every peer, combines the M ranks' partials of
-// each step pairwise in rank order (a warp an item: the tree of
-// hmm.combine_rank_sums), which gives K5's per-step sums bit for bit, and
-// folds the 14 moments and 3 log totals over the steps in K5's order.
-// What bounds it: the block's recursion over all 4096 states a step (an
-// exp, a log a state), the own threads' emission and statistics for W
-// states, and two exchanges a step (one without train_transitions).
-//
+// is one (read, rank) pair and runs the whole reverse pass on W / 4
+// threads, 4 contiguous states a thread: K5's layout on the rank's slice,
+// so that the M blocks of a read fit an SM together (64 registers, the
+// rows in 48 W bytes of shared memory), about 132 reads at once at any
+// rank count.  A block spends only its own states' work, plus two
+// exchanges a step:
+//   1. g = em(t+1) + beta of its states; the rank's partial max of g (NaN
+//      vote) is published, with its 3 partial masked maxima of step t + 1;
+//      the step's next emissions are taken while the peers publish; m is
+//      the NaN-voted max of the M partials (exact: K5's m), and the masked
+//      maxima of step t + 1 come with it;
+//   2. G = exp(g - m); sum4 and sum16 of the rank's own blocks of 4 and 16
+//      states (every such block lies in one slice) in beta_step's float
+//      sequence, and log(sum4), are published; step t + 1's transition
+//      sums of exp(v - max) are taken while the peers publish; each thread
+//      then reads the sum4, log sum4 and sum16 its states read (sum4[j %
+//      1024], sum16[j % 256]: 12 loads) and finishes beta and its states'
+//      statistics as K5: the post sums and transition sums as subtrees of
+//      K5's pairwise tree.
+// The exchange takes one of two paths (wave_exchange.cuh).  On one card
+// with M <= 8 (CLUSTER) a read's M blocks are one thread block cluster:
+// each publishes into its own shared memory and reads its peers' over
+// distributed shared memory behind the cluster barrier (arrive before the
+// overlapped work, wait after it), and one launch takes a row's reads.
+// Else (across cards, or more ranks) a cooperative grid a wave, the
+// maxima and sums in global memory at the step's parity behind two
+// counter phases a step, read by relaxed loads (from L2, or over NVLink).
+// The per-step partials go to the rank's record red (B, T, 12), their
+// cross-warp sums at the next step.  After the last step a last exchange
+// brings step 0's masked maxima, then the records are released; the
+// row's first rank combines the M ranks' partials of each step pairwise
+// in rank order (the tree of hmm.combine_rank_sums), which gives K5's
+// per-step sums bit for bit, and folds the 14 moments and 3 log totals
+// over the steps in K5's order.  What bounds it: K5's step for W states
+// on W / 4 threads, plus two exchanges' latency a step, which the
+// emissions and the transition sums partly hide.
+
 // Build with -fmad=false: every float operation then rounds on its own, as
 // each elementwise PyTorch op does, so the kernel is bit-identical to
 // fused_bwd_mstats_plain in nanocall_tpu_torch/ops/em.py on the card.
@@ -380,12 +385,16 @@ em_backward_kernel(const float* __restrict__ ev_mean,
 // sums over the rank's states, then the 3 masked maxima over all states
 // (ops/em.py NRED_WAVE)
 constexpr int NRED_WAVE = NRED + NST;
+// K5m's published maxima a read and step: the partial max of g over the
+// rank's states, then its 3 partial masked maxima of the step before
+// (ops/em.py NMAX_WAVE)
+constexpr int NMAX_WAVE = 1 + NST;
 
 // The ranks of a K5m launch (as K1m's WaveRank): one entry a rank of the
 // data row (the M entries, then the ranks this launch runs, as int64), in
 // device memory of the launch's card; every pointer on the rank's own card.
 // The rank's own inputs (pattern, flags, log rates) are null in a peer's
-// entry: a launch reads only its peers' g, maxima, red and counters.
+// entry: a launch reads only its peers' maxima, sums, red and counters.
 struct EMWaveRank {
   const float* ev_mean;  // (B, T) drift-corrected events, (B,) lengths
   const float* ev_stdv;
@@ -403,8 +412,8 @@ struct EMWaveRank {
   const uint8_t* valid;    // (B,)
   const float* log_p_stay;   // (B,)
   const float* log_p_step4;  // (B,)
-  float* g;                // (2, B, W): g of the s-th step at s & 1
-  float* maxima;           // (B, 3): the step's partial masked maxima
+  float* maxima;           // (2, B, NMAX_WAVE): step t's at t & 1
+  float* sums;             // (2, B, 9 W / 16): step t's at t & 1
   float* red;              // (B, T, NRED_WAVE)
   int32_t* flags;          // (B,) counter
   float* scal;             // (B, 14), the first rank's
@@ -419,55 +428,70 @@ __device__ __forceinline__ float sub_tree_sum(float v, int levels) {
   return v;
 }
 
-// K5m: the reverse pass of read wave_lo + blockIdx.x for the rank named by
-// entry blockIdx.y of the launch's ranks (after the M = N >> slice_shift
-// entries of `wave`), which holds the states [rank W, (rank + 1) W), W =
-// 1 << slice_shift.  Dynamic shared memory: the rank's 6 model rows, then
-// (train_scaling) its W's 6 rows, W floats each.
-template <bool SYS>
-__global__ void __launch_bounds__(THREADS, 1)
+// K5m: the reverse pass of one read for one rank, which holds the states
+// [rank W, (rank + 1) W), W = 1 << slice_shift, on
+// slice_threads(slice_shift) threads.  The exchange: CLUSTER, the read's
+// M ranks one cluster of a grid (M, reads), the published maxima and sums
+// in shared memory (wave_exchange.cuh); else a cooperative grid (reads,
+// ranks this launch runs), block (i, j) the read wave_lo + i for the rank
+// named by entry j of the launch's ranks (after the M = N >> slice_shift
+// entries of `wave`), the maxima and sums in global memory behind
+// counters.  Dynamic shared memory: the rank's 6 model rows, then
+// (train_scaling) its W's 6 rows, W floats each; (CLUSTER) its published
+// maxima and record of block sums; then the ranks' counters, maxima, sums
+// and records at the read (M pointers each).
+template <bool SYS, bool CLUSTER>
+__global__ void __launch_bounds__(SLICE_MAX_THREADS, 2)
 em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
                         int wave_lo, int slice_shift, int train_scaling,
                         int train_transitions, float log2pi,
                         long long timeout_ns, int32_t* timed_out) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ Exchange x;
-  __shared__ float* sPeerMax[MAX_RANKS];
-  __shared__ float* sPeerRed[MAX_RANKS];
+  __shared__ WaveSync x;
   __shared__ __align__(8) uint64_t bar;
-  __shared__ __align__(16) BetaShared sh;
-  __shared__ __align__(16) float sLS4[N4];
-  __shared__ float sPart[NRED][WARPS];
-  __shared__ float sTrMax[NST][WARPS];
-  __shared__ float sTrM[NST];
+  __shared__ float sBook[BWD_BOOKS][BWD_CODES];
+  // each warp's partial sums of a step, at the step's parity: the 6 post
+  // sums, then the 3 transition sums
+  __shared__ float sPart[2][NRED][SLICE_MAX_WARPS];
+  __shared__ float sTrMax[NST][SLICE_MAX_WARPS];
+  __shared__ float sMax[SLICE_MAX_WARPS];
+  __shared__ float sM, sTrM[NST];
 
   const int ranks = N >> slice_shift;
-  const int W = 1 << slice_shift, U = W >> 2;
+  const int W = 1 << slice_shift, U = W >> 2, S = 2 * U + (U >> 2);
   const int rank =
-      (int)reinterpret_cast<const long long*>(wave + ranks)[blockIdx.y];
-  const int b = wave_lo + blockIdx.x;
+      CLUSTER ? (int)blockIdx.x
+              : (int)reinterpret_cast<const long long*>(wave + ranks)
+                    [blockIdx.y];
+  const int b = wave_lo + (int)(CLUSTER ? blockIdx.y : blockIdx.x);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const EMWaveRank& e = wave[rank];
   const uint32_t bar_addr = smem_addr(&bar);
-  // the own threads u0 .. u0 + U - 1, in nw own warps from ow0; the tree
-  // of a warp's part takes lv levels, its sum lands in lane sub_lane
-  const int u0 = (rank << slice_shift) >> 2;
-  const bool own = (unsigned)(tid - u0) < (unsigned)U;
-  const int u = own ? tid - u0 : 0;
-  const int ow0 = u0 >> 5;
+  // thread u holds the states lo + 4 u .. + 3 (own: u = tid); the nw warps'
+  // trees take lv levels in a warp, nw_lv across them
+  const int lo = rank << slice_shift;
+  const bool own = tid < U;
+  const int u = tid & (U - 1);
   const int nw = U >= 32 ? U >> 5 : 1;
-  const int lv = U >= 32 ? 5 : 31 - __clz(U);
-  const int sub_lane = U >= 32 ? 0 : (u0 & 31);
+  const int lv = U >= 32 ? 5 : slice_shift - 2;
   const int nw_lv = 31 - __clz(nw);
-  const bool own_warp = (unsigned)(warp - ow0) < (unsigned)nw;
   const size_t bw = (size_t)B * W;
+  const int rows = MODEL_ROWS + (train_scaling ? NW : 0);
+  // CLUSTER: the block's published maxima and record of block sums
+  float* const sPub = smem + rows * W;
+  float* const sRec = sPub + NMAX_WAVE;
+  int32_t** pflag = reinterpret_cast<int32_t**>(
+      smem + rows * W + (CLUSTER ? NMAX_WAVE + S : 0));
+  float** pmax = reinterpret_cast<float**>(pflag + ranks);
+  float** psum = pmax + ranks;
+  float** pred = psum + ranks;
 
-  if (tid < ranks) {
-    x.col[tid] = wave[tid].g + (size_t)b * W;
-    x.flag[tid] = wave[tid].flags + b;
-    sPeerMax[tid] = wave[tid].maxima + (size_t)b * NST;
-    sPeerRed[tid] = wave[tid].red + (size_t)b * T * NRED_WAVE;
+  for (int p = tid; p < ranks; p += blockDim.x) {
+    pflag[p] = wave[p].flags + b;
+    pmax[p] = wave[p].maxima + (size_t)b * NMAX_WAVE;
+    psum[p] = wave[p].sums + (size_t)b * S;
+    pred[p] = wave[p].red + (size_t)b * T * NRED_WAVE;
   }
   if (tid == 0) {
     x.timed_out = timed_out;
@@ -476,8 +500,7 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
     x.rank = rank;
     x.read = b;
     const uint32_t row_bytes = W * 4;
-    mbar_init_expect(bar_addr,
-                     (MODEL_ROWS + (train_scaling ? NW : 0)) * row_bytes);
+    mbar_init_expect(bar_addr, rows * row_bytes);
 #pragma unroll
     for (int k = 0; k < MODEL_ROWS; ++k)
       bulk_copy(smem_addr(smem + k * W), e.model[k] + (size_t)b * W,
@@ -486,40 +509,40 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
       bulk_copy(smem_addr(smem + MODEL_ROWS * W), e.W + (size_t)b * NW * W,
                 NW * row_bytes, bar_addr);
   }
-  if (tid < BWD_BOOKS * BWD_CODES)
-    sh.book[tid / BWD_CODES][tid % BWD_CODES] =
-        e.e_codes[(size_t)b * BWD_BOOKS * BWD_CODES + tid];
+  for (int i = tid; i < BWD_BOOKS * BWD_CODES; i += blockDim.x)
+    sBook[i / BWD_CODES][i % BWD_CODES] =
+        e.e_codes[(size_t)b * BWD_BOOKS * BWD_CODES + i];
 
-  uint32_t fl = 0, pat = 0;
-  if (own) {
-    fl = *reinterpret_cast<const uint32_t*>(e.sflags + 4 * u);
-    pat = *reinterpret_cast<const uint32_t*>(e.pattern + 4 * u);
-  }
+  const uint32_t fl = *reinterpret_cast<const uint32_t*>(e.sflags + 4 * u);
+  const uint32_t pat = *reinterpret_cast<const uint32_t*>(e.pattern + 4 * u);
   const int len = e.length[b];
   const bool ok = e.valid[b] != 0;
   const float lpd_b = e.lpd[b];
-  const float lps = own ? e.log_p_stay[b] : 0.0f;
-  const float lpst4 = own ? e.log_p_step4[b] : 0.0f;
+  const float lps = e.log_p_stay[b], lpst4 = e.log_p_step4[b];
   const float* evm = e.ev_mean + (size_t)b * T;
   const float* evs = e.ev_stdv + (size_t)b * T;
   const float* evl = e.ev_log_stdv + (size_t)b * T;
   float* redb = e.red + (size_t)b * T * NRED_WAVE;
   const float* sW = smem + MODEL_ROWS * W + 4 * u;
   const size_t arow = (size_t)b * W + 4 * u;
-  const int P = train_transitions ? 2 : 1;  // counter phases a step
+  // the sums the thread's states read: sum4 at (lo + 4 u) % 1024 .. + 3,
+  // in rank o4's record at c4, and sum16 at (lo + 4 u) % 256 .. + 3, in
+  // rank o16's at c16 (a record: sum4 of the rank's W / 4 blocks, their
+  // logs, then sum16 of its W / 16)
+  const int j4 = (lo + 4 * u) & (N4 - 1), j16 = (lo + 4 * u) & (N16 - 1);
+  const int o4 = j4 >> (slice_shift - 2), c4 = j4 & (U - 1);
+  const int o16 = j16 >> (slice_shift - 4);
+  const int c16 = 2 * U + (j16 & ((U >> 2) - 1));
+  // CLUSTER: their addresses in the owners' shared memory
+  const uint32_t a4 =
+      CLUSTER ? cluster_map(smem_addr(sRec + c4), o4) : 0u;
+  const uint32_t a16 =
+      CLUSTER ? cluster_map(smem_addr(sRec + c16), o16) : 0u;
 
   float4 a_last = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (train_scaling && own) a_last = load4(e.alphas + (T - 1) * bw + arow);
-  float4 a_cur = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (T >= 2 && own) a_cur = load4(e.alphas + (T - 2) * bw + arow);
-  float xn = 0.0f, yn = 0.0f, lyn = 0.0f;
-  if (T >= 2) {
-    xn = evm[T - 1];
-    yn = evs[T - 1];
-    lyn = evl[T - 1];
-  }
+  if (train_scaling) a_last = load4(e.alphas + (T - 1) * bw + arow);
 
-  __syncthreads();  // orders the mbarrier's init before every wait; books
+  __syncthreads();  // the mbarrier's init before every wait; the tables
   mbar_wait(bar_addr, 0);
   if (own) {
     // -log_level_stdv and log_sd_lambda - log2pi, as prepare_model_rows
@@ -530,222 +553,332 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
     *c1 = make_float4(w.x - log2pi, w.y - log2pi, w.z - log2pi,
                       w.w - log2pi);
   }
+  __syncthreads();  // the rows, before a repeating lane reads them
 
-  // the own warps' subtree sums of a value over the rank's states
-  auto part_sum = [&](float v) {
-    return sub_tree_sum(v, lv);
+  // the emissions of the thread's states at event te
+  auto emission4 = [&](int te, float (&em)[4]) {
+    const float xe = evm[te], ye = evs[te], ly3 = 3.0f * evl[te];
+    float lm[4], ls[4], nlls[4], sm[4], slam[4], c1[4];
+    unpack4(lm, lds4(smem + 0 * W + 4 * u));
+    unpack4(ls, lds4(smem + 1 * W + 4 * u));
+    unpack4(nlls, lds4(smem + 2 * W + 4 * u));
+    unpack4(sm, lds4(smem + 3 * W + 4 * u));
+    unpack4(slam, lds4(smem + 4 * W + 4 * u));
+    unpack4(c1, lds4(smem + 5 * W + 4 * u));
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      em[i] = emission_pre(xe, ye, ly3, lm[i], ls[i], nlls[i], sm[i],
+                           slam[i], c1[i], log2pi);
   };
-  // post (the thread's 4 states, 0 outside the rank's) against W: each own
-  // warp's 6 subtree sums into sPart
-  auto post_sums = [&](const float (&post)[4]) {
+  // post (the thread's 4 states) against W: each warp's 6 subtree sums of
+  // step tp into sPart
+  auto post_sums = [&](int tp, const float (&post)[4]) {
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
-      float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (own) unpack4(w, lds4(sW + k * W));
+      float w[4];
+      unpack4(w, lds4(sW + k * W));
       const float p[4] = {post[0] * w[0], post[1] * w[1], post[2] * w[2],
                           post[3] * w[3]};
-      const float s = part_sum(quad_sum(p));
-      if (lane == sub_lane) sPart[k][warp] = s;
+      const float s = sub_tree_sum(quad_sum(p), lv);
+      if (lane == 0) sPart[tp & 1][k][warp] = s;
     }
   };
-  // the cross-warp sums of step tp's partials over the own warps into
-  // red[tp]: warp k < NRED reduces row k of sPart, and warps NW.. store
-  // the step's maxima beside them
-  auto reduce_pending = [&](int tp, bool post, bool tr) {
-    const int k = warp < NRED ? warp : 0;
-    const float v = lane < nw ? sPart[k][ow0 + lane] : 0.0f;
-    const float s = sub_tree_sum(v, nw_lv);
-    if (lane == 0 && warp < NRED && (warp < NW ? post : tr)) {
-      redb[(size_t)tp * NRED_WAVE + warp] = s;
-      if (warp >= NW)
-        redb[(size_t)tp * NRED_WAVE + NRED + warp - NW] = sTrM[warp - NW];
+  // each warp's subtree sums of exp(v - max) of step tp's masked values,
+  // mm the masked maxima over every rank
+  auto transition_sums = [&](int tp, const float (&v)[NST][4],
+                             const float (&mm)[NST]) {
+#pragma unroll
+    for (int q = 0; q < NST; ++q) {
+      const float safe = isfinite(mm[q]) ? mm[q] : 0.0f;
+      float ex[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ex[i] = expf(v[q][i] - safe);
+      const float ws = sub_tree_sum(quad_sum(ex), lv);
+      if (lane == 0) sPart[tp & 1][NW + q][warp] = ws;
     }
+  };
+  // the cross-warp sums of step tp's partials into red[tp]: thread k nw +
+  // i holds warp i's partial of row k, each group of nw lanes sums its row
+  // by the pairwise tree; the rows of the transition sums store the step's
+  // masked maxima (sTrM) beside them
+  auto reduce_pending = [&](int tp, bool post, bool tr) {
+    if (warp >= ((NRED << nw_lv) + 31) >> 5) return;  // warp-uniform
+    const int k = tid >> nw_lv, i = tid & (nw - 1);
+    const float v = k < NRED ? sPart[tp & 1][k][i] : 0.0f;
+    const float s = sub_tree_sum(v, nw_lv);
+    if (i == 0 && k < NRED && (k < NW ? post : tr)) {
+      redb[(size_t)tp * NRED_WAVE + k] = s;
+      if (k >= NW)
+        redb[(size_t)tp * NRED_WAVE + NRED + k - NW] = sTrM[k - NW];
+    }
+  };
+  // warp 0: the rank's partial maxima (its max of g from the warps', then
+  // its masked maxima, when tr, of the step held), published: in its
+  // shared memory (CLUSTER), else into its maxima at `slot` with counter ph
+  auto publish_maxima = [&](float g_max, bool tr, int slot, int ph) {
+    float pub[NMAX_WAVE];
+    pub[0] = g_max;
+#pragma unroll
+    for (int q = 0; q < NST; ++q) {
+      const float vq = (tr && lane < nw) ? sTrMax[q][lane] : -INFINITY;
+      pub[1 + q] = warp_max_nan(vq, vq != vq);
+    }
+    if (lane == 0) {
+      float* dst =
+          CLUSTER ? sPub : pmax[rank] + (size_t)slot * B * NMAX_WAVE;
+#pragma unroll
+      for (int k = 0; k < NMAX_WAVE; ++k) dst[k] = pub[k];
+      if constexpr (!CLUSTER) st_flag<SYS>(pflag[rank], ph);
+    }
+  };
+  // the maxima over every rank, once counter ph is in: m (of g) and mm
+  // (masked), in every thread.  CLUSTER: each warp reads the peers' shared
+  // memory after the cluster barrier's wait; warp 0 keeps mm in sTrM for
+  // reduce_pending.  Else warp 0 reads the ranks' maxima at `slot` and
+  // passes them on by sM and sTrM across a block barrier.
+  auto take_maxima = [&](int slot, int ph, float& m, float (&mm)[NST]) {
+    float mx[NMAX_WAVE];
+    if constexpr (CLUSTER) {
+      cluster_wait();
+      cluster_max<NMAX_WAVE>(smem_addr(sPub), ranks, lane, mx);
+      if (tid == 0) {
+#pragma unroll
+        for (int q = 0; q < NST; ++q) sTrM[q] = mx[1 + q];
+      }
+    } else {
+      if (warp == 0) {
+        __syncwarp();
+        wait_ranks<SYS>(x, pflag, ph, lane);
+        ranks_max<SYS, NMAX_WAVE>(pmax, (size_t)slot * B * NMAX_WAVE,
+                                  ranks, lane, mx);
+        if (lane == 0) {
+          sM = mx[0];
+#pragma unroll
+          for (int q = 0; q < NST; ++q) sTrM[q] = mx[1 + q];
+        }
+      }
+      __syncthreads();
+      mx[0] = sM;
+#pragma unroll
+      for (int q = 0; q < NST; ++q) mx[1 + q] = sTrM[q];
+    }
+    m = mx[0];
+#pragma unroll
+    for (int q = 0; q < NST; ++q) mm[q] = mx[1 + q];
   };
 
   // t = T-1: beta = 0, no outgoing transition
-  if (train_scaling && own_warp) {
-    const float wf = ((T - 1 < len) && ok && own) ? 1.0f : 0.0f;
+  if (train_scaling) {
+    const float wf = ((T - 1 < len) && ok) ? 1.0f : 0.0f;
     float a[4], post[4];
     unpack4(a, a_last);
 #pragma unroll
     for (int i = 0; i < 4; ++i) post[i] = expf(a[i] - lpd_b) * wf;
-    post_sums(post);
+    post_sums(T - 1, post);
   }
-  int pend_t = T - 1;
-  bool pend_post = train_scaling != 0, pend_tr = false;
 
   float beta[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int step = 0;
-  for (int t = T - 2; t >= 0; --t, ++step) {
-    float4 a_nxt = a_cur;
-    const float xe = xn, ye = yn, ly3 = 3.0f * lyn;
-    if (t > 0) {
-      if (own) a_nxt = load4(e.alphas + (size_t)(t - 1) * bw + arow);
-      xn = evm[t];
-      yn = evs[t];
-      lyn = evl[t];
-    }
-    const size_t gpar = (size_t)(step & 1) * bw;
-    // g = em(t+1) + beta of the rank's states, published
-    if (own) {
-      float lm[4], ls[4], nlls[4], sm[4], slam[4], c1[4], g[4];
-      unpack4(lm, lds4(smem + 0 * W + 4 * u));
-      unpack4(ls, lds4(smem + 1 * W + 4 * u));
-      unpack4(nlls, lds4(smem + 2 * W + 4 * u));
-      unpack4(sm, lds4(smem + 3 * W + 4 * u));
-      unpack4(slam, lds4(smem + 4 * W + 4 * u));
-      unpack4(c1, lds4(smem + 5 * W + 4 * u));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        g[i] = emission_pre(xe, ye, ly3, lm[i], ls[i], nlls[i], sm[i],
-                            slam[i], c1[i], log2pi) +
-               beta[i];
-      store4(e.g + gpar + arow, g);
-    }
-    __syncthreads();
-    if (tid == 0) st_flag<SYS>(x.flag[x.rank], P * step + 1);
-    if (warp == 0) {
-      __syncwarp();
-      wait_peers<SYS>(x, P * step + 1, lane);
-    }
-    __syncthreads();
-    // the whole g column, the thread's 4 states 4 tid ..
+  float em[4];  // em(t + 1) of the thread's states
+  if (T >= 2) emission4(T - 1, em);
+  // step t + 1's masked transition values, held until the next exchange
+  // brings every rank's masked maxima
+  float v[NST][4];
+  for (int t = T - 2; t >= 0; --t) {
+    const int slot = t & 1;
+    const int ph = 2 * (T - 2 - t) + 1;  // two counter phases a step
+    const bool tr_held = train_transitions && t + 1 <= T - 2;
+    const float4 a_cur = load4(e.alphas + (size_t)t * bw + arow);
     float g[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[i] = em[i] + beta[i];
     {
-      const int j0 = 4 * tid;
-      const float* src = x.col[j0 >> slice_shift] + gpar + (j0 & (W - 1));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) g[i] = ld_column<SYS>(src + i);
+      const float mx = warp_max_nan4(g);
+      if (lane == 0) sMax[warp] = mx;
     }
-    // K5's recursion over the whole column; the pending partials' cross-
-    // warp sums after its first barrier
-    float bfull[4];
-    const float m = beta_step(
-        g, t >= len - 1, fl, pat, sh, train_transitions ? sLS4 : nullptr,
-        tid, bfull, [&] { reduce_pending(pend_t, pend_post, pend_tr); });
-    float v[NST][4];
-    if (own_warp) {
-      float a[4], lp_j1[4], e_j1[4];
-      unpack4(a, a_cur);
+    __syncthreads();  // the warps' maxima
+    // exchange 1: the rank's partial max of g and step t + 1's partial
+    // masked maxima; the next step's emissions while the peers publish
+    if (warp == 0) {
+      const float vm = lane < nw ? sMax[lane] : -INFINITY;
+      publish_maxima(warp_max_nan(vm, vm != vm), tr_held, slot, ph);
+    }
+    if constexpr (CLUSTER) cluster_arrive();
+    if (t > 0) emission4(t, em);
+    float m, mm[NST];
+    take_maxima(slot, ph, m, mm);
+    float G[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (own) beta[i] = bfull[i];
-        lp_j1[i] = (a[i] + beta[i]) - lpd_b;
-        e_j1[i] = expf(lp_j1[i]);
-      }
-      if (train_scaling) {
-        const float wf = ((t < len) && ok && own) ? 1.0f : 0.0f;
-        float post[4];
+    for (int i = 0; i < 4; ++i) G[i] = expf(g[i] - m);
+    {
+      // exchange 2: the sums of the rank's blocks, published: sum4 of the
+      // thread's 4 states, and sum16 continuing sum4 of the quad's first
+      // thread through the next 3 by shuffles, beta_step's float sequence
+      const float s4 = ((G[0] + G[1]) + G[2]) + G[3];
+      const int qi = lane & 3;
+      float s = s4;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) post[i] = e_j1[i] * wf;
-        post_sums(post);
+      for (int k = 1; k < 4; ++k) {
+        const float prev = __shfl_up_sync(FULL, s, 1);
+        if (qi == k) s = (((prev + G[0]) + G[1]) + G[2]) + G[3];
       }
+      if (own) {
+        float* rec = CLUSTER ? sRec : psum[rank] + (size_t)slot * B * S;
+        rec[u] = s4;
+        if (train_transitions) rec[U + u] = logf(s4);
+        if (qi == 3) rec[2 * U + (u >> 2)] = s;
+      }
+    }
+    if constexpr (CLUSTER) {
+      cluster_arrive();
+    } else {
+      __syncthreads();  // the rank's sums stored
+      if (tid == 0) st_flag<SYS>(pflag[rank], ph + 1);
+    }
+    // step t + 1's transition sums, while the peers publish
+    if (tr_held) transition_sums(t + 1, v, mm);
+    if constexpr (CLUSTER) {
+      cluster_wait();
+    } else if (warp == 0) {
+      __syncwarp();
+      wait_ranks<SYS>(x, pflag, ph + 1, lane);
+    }
+    // every rank's sums; the warps' transition sums, written after the
+    // cluster barrier's arrival
+    __syncthreads();
+
+    // beta of the thread's states from the sums they read
+    float T4[4], T16[4], LS4[4];
+    if constexpr (CLUSTER) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) T4[i] = ld_cluster(a4 + 4 * i);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) T16[i] = ld_cluster(a16 + 4 * i);
       if (train_transitions) {
-        const bool win = (t < len - 1) && ok && own;
-        const float safe_m = isfinite(m) ? m : 0.0f;
-        float LS4[4];
-        unpack4(LS4, lds4(sLS4 + ((4 * tid) & (N4 - 1))));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const unsigned f = (fl >> (8 * i)) & 0xffu;
-          const float lp_stay =
-              tmin(((a[i] + lps) + g[i]) - lpd_b, lp_j1[i]);
-          const float lsum4 = safe_m + LS4[i];
-          const float lp_steps = ((a[i] + lpst4) + lsum4) - lpd_b;
-          const float lp_d01 = tmin(logaddexp(lp_stay, lp_steps), lp_j1[i]);
-          const float d = e_j1[i] - expf(lp_d01);
-          const float lp_d2 = logf(d != d ? d : fmaxf(d, 0.0f));
-          const bool w = win && (f & F_SUB);
-          v[0][i] = w ? lp_j1[i] : -INFINITY;
-          v[1][i] = w ? lp_stay : -INFINITY;
-          v[2][i] = w ? lp_d2 : -INFINITY;
-        }
-#pragma unroll
-        for (int q = 0; q < NST; ++q) {
-          const float mq = warp_max_nan4(v[q]);
-          if (lane == 0) sTrMax[q][warp] = mq;
-        }
+        for (int i = 0; i < 4; ++i) LS4[i] = ld_cluster(a4 + 4 * (U + i));
       }
+    } else {
+      const float* r4 = psum[o4] + (size_t)slot * B * S + c4;
+      const float* r16 = psum[o16] + (size_t)slot * B * S + c16;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) T4[i] = ld_column<SYS>(r4 + i);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) T16[i] = ld_column<SYS>(r16 + i);
+      if (train_transitions) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) LS4[i] = ld_column<SYS>(r4 + U + i);
+      }
+    }
+    // step t + 1's cross-warp sums, while the loads are in flight
+    reduce_pending(t + 1, train_scaling != 0, tr_held);
+    const bool last = t >= len - 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned f = (fl >> (8 * i)) & 0xffu;
+      const unsigned p = (pat >> (8 * i)) & 0xffu;
+      const float hG = (f & BWD_F_H) ? G[i] : 0.0f;
+      const float p2G = (f & BWD_F_P2) ? G[i] : 0.0f;
+      const float s5T4 = (f & BWD_F_S5T) ? T4[i] : 0.0f;
+      const float total =
+          (sBook[0][p] * G[i] + sBook[1][p] * (T4[i] - hG)) +
+          sBook[2][p] * ((T16[i] - p2G) - s5T4);
+      beta[i] = last ? 0.0f : m + logf(total);
+    }
+
+    float a[4], lp_j1[4], e_j1[4];
+    unpack4(a, a_cur);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      lp_j1[i] = (a[i] + beta[i]) - lpd_b;
+      e_j1[i] = expf(lp_j1[i]);
+    }
+    if (train_scaling) {
+      const float wf = ((t < len) && ok) ? 1.0f : 0.0f;
+      float post[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) post[i] = e_j1[i] * wf;
+      post_sums(t, post);
     }
     if (train_transitions) {
-      __syncthreads();  // the own warps' maxima
-      if (warp == 0) {
-        // the rank's partial maxima, published; then every rank's
-        float mq[NST];
+      const bool win = (t < len - 1) && ok;
+      const float safe_m = isfinite(m) ? m : 0.0f;
 #pragma unroll
-        for (int q = 0; q < NST; ++q) {
-          const float vq = lane < nw ? sTrMax[q][ow0 + lane] : -INFINITY;
-          mq[q] = warp_max_nan(vq, vq != vq);
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int q = 0; q < NST; ++q) sPeerMax[x.rank][q] = mq[q];
-          st_flag<SYS>(x.flag[x.rank], P * step + 2);
-        }
-        __syncwarp();
-        wait_peers<SYS>(x, P * step + 2, lane);
-#pragma unroll
-        for (int q = 0; q < NST; ++q) {
-          float vq = -INFINITY;
-          bool nan = false;
-          for (int p = lane; p < ranks; p += 32) {
-            const float w = ld_column<SYS>(sPeerMax[p] + q);
-            vq = fmaxf(vq, w);
-            nan = nan || w != w;
-          }
-          const float mm = warp_max_nan(vq, nan);
-          if (lane == 0) sTrM[q] = mm;
-        }
+      for (int i = 0; i < 4; ++i) {
+        const unsigned f = (fl >> (8 * i)) & 0xffu;
+        const float lp_stay = tmin(((a[i] + lps) + g[i]) - lpd_b, lp_j1[i]);
+        const float lsum4 = safe_m + LS4[i];
+        const float lp_steps = ((a[i] + lpst4) + lsum4) - lpd_b;
+        const float lp_d01 = tmin(logaddexp(lp_stay, lp_steps), lp_j1[i]);
+        const float d = e_j1[i] - expf(lp_d01);
+        const float lp_d2 = logf(d != d ? d : fmaxf(d, 0.0f));
+        const bool w = win && (f & F_SUB);
+        v[0][i] = w ? lp_j1[i] : -INFINITY;
+        v[1][i] = w ? lp_stay : -INFINITY;
+        v[2][i] = w ? lp_d2 : -INFINITY;
       }
-      __syncthreads();  // the masked maxima over every rank
-      if (own_warp) {
 #pragma unroll
-        for (int q = 0; q < NST; ++q) {
-          const float mm = sTrM[q];
-          const float safe = isfinite(mm) ? mm : 0.0f;
-          float ex[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) ex[i] = own ? expf(v[q][i] - safe) : 0.0f;
-          const float ws = part_sum(quad_sum(ex));
-          if (lane == sub_lane) sPart[NW + q][warp] = ws;
-        }
+      for (int q = 0; q < NST; ++q) {
+        const float mq = warp_max_nan4(v[q]);
+        if (lane == 0) sTrMax[q][warp] = mq;
       }
     }
-    pend_t = t;
-    pend_post = train_scaling != 0;
-    pend_tr = train_transitions != 0;
-    a_cur = a_nxt;
+  }
+
+  // step 0's masked maxima over every rank (an exchange of their own), its
+  // transition sums, the last record, then the records' release: the
+  // counter once more, or the cluster barrier (after which no block reads
+  // a peer's shared memory)
+  const int ph_end = 2 * (T - 1) + 1;
+  const bool tr_last = train_transitions && T >= 2;
+  __syncthreads();
+  if (warp == 0) publish_maxima(-INFINITY, tr_last, 1, ph_end);
+  if constexpr (CLUSTER) cluster_arrive();
+  {
+    float m, mm[NST];
+    take_maxima(1, ph_end, m, mm);
+    if (tr_last) transition_sums(0, v, mm);
   }
   __syncthreads();
-  reduce_pending(pend_t, pend_post, pend_tr);
-  __syncthreads();  // the record's writes, before the counter
-  if (tid == 0) st_flag<SYS>(x.flag[x.rank], P * (T - 1) + 1);
-  if (rank != 0) return;
-  if (warp == 0) {
-    __syncwarp();
-    wait_peers<SYS>(x, P * (T - 1) + 1, lane);
+  reduce_pending(0, train_scaling != 0, tr_last);
+  if constexpr (CLUSTER) {
+    cluster_arrive();
+    cluster_wait();
+    if (rank != 0) return;
+  } else {
+    __syncthreads();  // the record's writes, before the counter
+    if (tid == 0) st_flag<SYS>(pflag[rank], ph_end + 1);
+    if (rank != 0) return;
+    if (warp == 0) {
+      __syncwarp();
+      wait_ranks<SYS>(x, pflag, ph_end + 1, lane);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // the row's first rank: each step's partials of the M ranks combined
-  // pairwise in rank order (a warp an item, lane p holding rank p's, or
-  // ranks 2p and 2p + 1 added first at 64 ranks), into its own record
+  // pairwise in rank order (a group of `lanes` lanes an item, lane p of
+  // the group holding rank p's, or ranks 2p and 2p + 1 added first at 64
+  // ranks), into its own record
   const int per_lane = ranks > 32 ? 2 : 1;
   const int lanes = ranks / per_lane;
   const int lanes_lv = 31 - __clz(lanes);
-  for (int item = warp; item < T * NRED; item += WARPS) {
+  const int groups = 32 >> lanes_lv;  // items a warp takes at once
+  const int gi = lane >> lanes_lv, gl = lane & (lanes - 1);
+  const int warps = blockDim.x >> 5;
+  for (int base = warp * groups; base < T * NRED; base += warps * groups) {
+    const int item = base + gi;
     const int t = item / NRED, k = item % NRED;
-    if (k < NW ? !train_scaling : (!train_transitions || t > T - 2))
-      continue;  // warp-uniform
+    const bool use = item < T * NRED &&
+                     (k < NW ? train_scaling != 0
+                             : (train_transitions != 0 && t <= T - 2));
     float vk = 0.0f;
-    if (lane < lanes) {
+    if (use) {
       const size_t off = (size_t)t * NRED_WAVE + k;
-      vk = ld_column<SYS>(sPeerRed[per_lane * lane] + off);
-      if (per_lane == 2)
-        vk = vk + ld_column<SYS>(sPeerRed[2 * lane + 1] + off);
+      vk = ld_column<SYS>(pred[per_lane * gl] + off);
+      if (per_lane == 2) vk = vk + ld_column<SYS>(pred[2 * gl + 1] + off);
     }
     const float s = sub_tree_sum(vk, lanes_lv);
-    if (lane == 0) {
+    if (use && gl == 0) {
       float out = s;
       if (k >= NW) {
         const float mm = redb[(size_t)t * NRED_WAVE + NRED + k - NW];
@@ -768,9 +901,9 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
         for (int k = 0; k < NW; ++k) s[k] = redb[(size_t)t * NRED_WAVE + k];
         const size_t ei = (size_t)b * T + t;
         const float cnt = ((t < len) && ok) ? 1.0f : 0.0f;
-        const float v = moment(tid, s, e.x_unc[ei], e.t_start[ei], evs[t],
-                               cnt);
-        sc = t == T - 1 ? v : sc + v;
+        const float mv = moment(tid, s, e.x_unc[ei], e.t_start[ei], evs[t],
+                                cnt);
+        sc = t == T - 1 ? mv : sc + mv;
       }
     }
     e.scal[(size_t)b * NSCAL + tid] = sc;
@@ -786,86 +919,128 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
   }
 }
 
-using EMWaveKernel = decltype(&em_backward_wave_kernel<false>);
+using EMWaveKernel = decltype(&em_backward_wave_kernel<false, false>);
 
-EMWaveKernel em_wave_kernel(int sys) {
-  return sys ? em_backward_wave_kernel<true> : em_backward_wave_kernel<false>;
+EMWaveKernel em_wave_kernel(int sys, int cluster) {
+  if (cluster) return em_backward_wave_kernel<false, true>;
+  return sys ? em_backward_wave_kernel<true, false>
+             : em_backward_wave_kernel<false, false>;
 }
 
-int em_wave_smem(int train_scaling, int slice_shift) {
-  return (MODEL_ROWS + (train_scaling ? NW : 0)) * (4 << slice_shift);
+// K5m's dynamic shared memory: the rows, (cluster) the published maxima
+// and record of block sums, then 4 pointer tables of M
+int em_wave_smem(int train_scaling, int slice_shift, int cluster) {
+  const int W = 1 << slice_shift;
+  const int published = cluster ? NMAX_WAVE + 2 * (W / 4) + W / 16 : 0;
+  return ((MODEL_ROWS + (train_scaling ? NW : 0)) * W + published) * 4 +
+         4 * (N >> slice_shift) * (int)sizeof(void*);
+}
+
+// the launch's shape: a cooperative grid (reads, ranks), or (cluster) a
+// grid (ranks, reads) of clusters of the read's M ranks
+void em_wave_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                    int n_reads, int n_local, int slice_shift, int smem,
+                    int cluster) {
+  cfg = {};
+  cfg.blockDim = dim3(nc::slice_threads(slice_shift));
+  cfg.dynamicSmemBytes = smem;
+  if (cluster) {
+    cfg.gridDim = dim3(n_local, n_reads);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n_local;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+  } else {
+    cfg.gridDim = dim3(n_reads, n_local);
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
 }
 
 }  // namespace
 
 // K5m's wave: the most blocks of its instance (sys, train_scaling, at
 // slices of 1 << slice_shift states) that one card holds at once (blocks
-// an SM at its threads and shared memory, times the SMs) into *blocks; an
-// error where the card has no cooperative launch.
+// an SM at its slice_threads and shared memory, times the SMs) into
+// *blocks; (cluster) the blocks of the clusters of M ranks it holds at
+// once.  An error where the card has no cooperative launch (or, cluster,
+// where the instance's clusters do not fit).
 extern "C" int nc_em_backward_wave_resident(int sys, int train_scaling,
-                                            int slice_shift, int device,
-                                            int* blocks) {
+                                            int slice_shift, int cluster,
+                                            int device, int* blocks) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   *blocks = 0;
-  if (slice_shift < 6 || slice_shift > 11) return (int)cudaErrorInvalidValue;
-  const EMWaveKernel kernel = em_wave_kernel(sys);
-  const int smem = em_wave_smem(train_scaling, slice_shift);
+  const int ranks = nc::N >> slice_shift;
+  if (slice_shift < 6 || slice_shift > 11 ||
+      (cluster && (sys || ranks > nc::MAX_CLUSTER)))
+    return (int)cudaErrorInvalidValue;
+  const EMWaveKernel kernel = em_wave_kernel(sys, cluster);
+  const int smem = em_wave_smem(train_scaling, slice_shift, cluster);
   int coop = 0, sms = 0, per_sm = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess && !coop && !cluster) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    em_wave_config(cfg, attr, 1, ranks, slice_shift, smem, 1);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    *blocks = clusters * ranks;
+    return (int)err;
+  }
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        nc::THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, nc::slice_threads(slice_shift), smem);
   *blocks = per_sm * sms;
   return (int)err;
 }
 
 // K5m: the reverse pass of the reads [lo, lo + n_reads) for n_local ranks
-// of a data row, one cooperative grid (n_reads, n_local) on `stream`.
+// of a data row on `stream`, blocks of slice_threads(slice_shift) threads:
+// one cooperative grid (n_reads, n_local), or (cluster: every rank of the
+// row, on this card, M <= MAX_CLUSTER) a grid of the reads' clusters.
 // `ranks` (device memory of this card) holds the row's M = 4096 >>
 // slice_shift EMWaveRank entries, then the n_local ranks to run as int64;
 // the entries' tensors lie on their ranks' cards, reachable from this one
-// (peer access); the model rows, W, alphas and g 16-byte aligned, the
+// (peer access); the model rows, W and alphas 16-byte aligned, the
 // counters zero before the launch.  sys: the exchange at system scope.
-// timed_out: as K1m's.  Returns the launch's error: a grid larger than the
-// card holds at once is refused (cudaErrorCooperativeLaunchTooLarge).
+// timed_out: as K1m's.  Returns the launch's error: a cooperative grid
+// larger than the card holds at once is refused
+// (cudaErrorCooperativeLaunchTooLarge).
 extern "C" int nc_em_backward_wave(const void* ranks, int n_local, int B,
                                    int T, int lo, int n_reads,
                                    int slice_shift, int train_scaling,
                                    int train_transitions, int sys,
-                                   float log2pi, long long timeout_ns,
-                                   int32_t* timed_out, int device,
-                                   void* stream) {
+                                   int cluster, float log2pi,
+                                   long long timeout_ns, int32_t* timed_out,
+                                   int device, void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
+  const int M = nc::N >> slice_shift;
   if (slice_shift < 6 || slice_shift > 11 || T < 1 || lo < 0 ||
-      n_reads < 1 || lo + n_reads > B || n_local < 1 ||
-      n_local > (nc::N >> slice_shift) || timed_out == nullptr ||
-      !(train_scaling || train_transitions))
+      n_reads < 1 || lo + n_reads > B || n_local < 1 || n_local > M ||
+      timed_out == nullptr || !(train_scaling || train_transitions) ||
+      (cluster && (sys || n_local != M || M > nc::MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
-  const EMWaveKernel kernel = em_wave_kernel(sys);
-  const int smem = em_wave_smem(train_scaling, slice_shift);
+  const EMWaveKernel kernel = em_wave_kernel(sys, cluster);
+  const int smem = em_wave_smem(train_scaling, slice_shift, cluster);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_reads, n_local);
-  cfg.blockDim = dim3(nc::THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  em_wave_config(cfg, attr, n_reads, n_local, slice_shift, smem, cluster);
+  cfg.stream = (cudaStream_t)stream;
   err = cudaLaunchKernelEx(&cfg, kernel,
                            static_cast<const EMWaveRank*>(ranks), B, T, lo,
                            slice_shift, train_scaling, train_transitions,

@@ -51,25 +51,32 @@
 // K4m (fwbw_forward_wave_kernel) is K4 with the 4096 states split over M =
 // 2 .. 64 ranks (the EM round under nanocall_tpu/parallel/mesh.py:126
 // shard_train_inputs; parallel/statepar.py drives it).  A block is one
-// (read, rank) pair of a cooperative grid and runs all T events, with K1m's
-// exchange (wave_exchange.cuh): each step it publishes its counter, waits
-// for the peers', then loads the whole column of event t - 1 in place from
-// the ranks' slices (4 states a thread, relaxed loads), takes the block
-// max with its NaN vote over all of it, and computes E = exp(alpha - m)
-// into shared memory only where its states need it: its own W states, and
-// the states r 1024 + c and r 256 + c16 whose strided sums S4[c] and
-// S16[c16] its states read (at most 3 W values).  Threads 0 .. W / 4 - 1
-// own 4 contiguous states each: S4 (one a thread) and S16 (one per 4
-// threads) summed in r order from shared memory, K4's correction and
-// emission, and the store of their slice of column t, into the alphas
-// (T, B, W) or, storing none, a (2, B, W) column buffer.  After the last
-// event every rank loads the final column and takes log Pr[data] by K4's
-// pairwise tree.  So every rank computes K4's bits for its states, NaN
-// bits included.  What bounds it: K4's step for W states on W / 4
-// threads, plus the exchange's latency a step (four block barriers, a
-// release and an acquire round trip through L2, the 16 KB column of a
-// read from L2).
-//
+// (read, rank) pair and runs all T events on W / 4 threads, 4 contiguous
+// states a thread, K4's nine tables of them in registers: the M blocks of
+// a read fit an SM together (64 registers), about 132 reads at once at
+// any rank count.  A block spends only its own states' work, plus one
+// exchange a step: it publishes its slice of column t - 1 with the
+// slice's partial max (NaN vote); takes the step's emissions while the
+// peers publish; m is the NaN-voted max of the M partials (K4's, exact);
+// then each thread reads only the 8 values its states' sums read, in
+// place from the ranks' slices: the 4 rows r 1024 + c4 of its S4 and 4 of
+// the 16 rows r16 256 + c16 of its S16, whose sum in r16 order runs
+// through its quad by shuffles; 12 exps a thread.  Then K4's correction
+// and emission, and the store of its slice of column t, into the alphas
+// (T, B, W) or, storing none, a (2, B, W) column buffer.  log Pr[data]:
+// each rank's subtree of K4's pairwise tree under the final max, combined
+// pairwise in rank order (hmm.combine_rank_sums).  So every rank computes
+// K4's bits for its states, NaN bits included.
+// The exchange takes one of two paths (wave_exchange.cuh).  On one card
+// with M <= 8 (CLUSTER) a read's M blocks are one thread block cluster,
+// the slice and partials also in shared memory, read over distributed
+// shared memory behind one cluster barrier a step; one launch takes a
+// row's reads.  Else (across cards, or more ranks) a cooperative grid a
+// wave, the slices and partials read in place by relaxed loads behind a
+// counter a step.  What bounds it: K4's
+// step for W states on W / 4 threads, plus the exchange's latency a step,
+// which the emissions partly hide.
+
 // Build with -fmad=false: every float operation then rounds on its own, as
 // each elementwise PyTorch op does, so the kernel is bit-identical to
 // fwbw_grouped_forward_plain in nanocall_tpu_torch/ops/hmm.py on the card.
@@ -253,37 +260,64 @@ struct FwdWaveRank {
   const float* tab[9];
   const uint8_t* sflags;
   float* col;      // (T, B, W) alphas, or (2, B, W): column t at t & 1
+  float* part;     // (3, B): partial max of column t at t & 1; partial sum
   float* lpd;      // (B,) log Pr[data]
-  int32_t* flags;  // (B,): t once its slice of column t - 1 is stored
+  int32_t* flags;  // (B,) counter
 };
 
-// K4m: events [0, T) of read wave_lo + blockIdx.x for the rank named by
-// entry blockIdx.y of the launch's ranks (after the M = N >> slice_shift
-// entries of `wave`), which holds the states [rank W, (rank + 1) W), W =
-// 1 << slice_shift.  stored: col holds the alphas (T, B, W), else a (2, B,
-// W) column buffer.
-template <bool SYS>
-__global__ void __launch_bounds__(THREADS, 1)
+// The pairwise-tree sum of the first 1 << levels lanes of each group of
+// that many in the warp, in the group's first lane
+__device__ __forceinline__ float sub_tree_sum(float v, int levels) {
+  for (int off = 1; off < (1 << levels); off <<= 1)
+    v = v + __shfl_down_sync(FULL, v, off);
+  return v;
+}
+
+// K4m: events [0, T) of one read for one rank, which holds the states
+// [rank W, (rank + 1) W), W = 1 << slice_shift, on
+// slice_threads(slice_shift) threads.  The exchange: CLUSTER, the read's M
+// ranks one cluster of a grid (M, reads), each block's slice of the column
+// and partials published in its shared memory (wave_exchange.cuh); else a
+// cooperative grid (reads, ranks this launch runs), block (i, j) the read
+// wave_lo + i for the rank named by entry j of the launch's ranks (after
+// the M = N >> slice_shift entries of `wave`), the slices and partials in
+// global memory behind counters.  stored: col holds the alphas (T, B, W),
+// else a (2, B, W) column buffer.  Dynamic shared memory: (CLUSTER)
+// the slice of column t at t & 1, the partial maxima at t & 1 and the
+// partial sum; then the ranks' counters, published columns and partials
+// at the read (M pointers each).
+template <bool SYS, bool CLUSTER>
+__global__ void __launch_bounds__(SLICE_MAX_THREADS, 2)
 fwbw_forward_wave_kernel(const FwdWaveRank* __restrict__ wave, int B, int T,
                          int wave_lo, int slice_shift, int stored,
                          float log2pi, float log_n, long long timeout_ns,
                          int32_t* timed_out) {
-  __shared__ Exchange x;
-  __shared__ __align__(16) float sE[N];  // exp(alpha - m) where needed
-  __shared__ float sMax[WARPS];
-  __shared__ float sSum[WARPS];
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WaveSync x;
+  __shared__ float sMax[SLICE_MAX_WARPS];
+  __shared__ float sSum[SLICE_MAX_WARPS];
+  __shared__ float sM;
 
   const int ranks = N >> slice_shift;
-  const int W = 1 << slice_shift, W4 = W >> 2;
+  const int W = 1 << slice_shift, U = W >> 2;
   const int rank =
-      (int)reinterpret_cast<const long long*>(wave + ranks)[blockIdx.y];
-  const int b = wave_lo + blockIdx.x;
+      CLUSTER ? (int)blockIdx.x
+              : (int)reinterpret_cast<const long long*>(wave + ranks)
+                    [blockIdx.y];
+  const int b = wave_lo + (int)(CLUSTER ? blockIdx.y : blockIdx.x);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const FwdWaveRank& e = wave[rank];
-  if (tid < ranks) {
-    x.col[tid] = wave[tid].col + (size_t)b * W;
-    x.flag[tid] = wave[tid].flags + b;
+  float* const sA = smem;
+  float* const sPub = smem + (CLUSTER ? 2 * W : 0);
+  int32_t** pflag =
+      reinterpret_cast<int32_t**>(smem + (CLUSTER ? 2 * W + 4 : 0));
+  float** pcol = reinterpret_cast<float**>(pflag + ranks);
+  float** ppart = pcol + ranks;
+  for (int p = tid; p < ranks; p += blockDim.x) {
+    pflag[p] = wave[p].flags + b;
+    pcol[p] = wave[p].col + (size_t)b * W;
+    ppart[p] = wave[p].part + b;
   }
   if (tid == 0) {
     x.timed_out = timed_out;
@@ -292,19 +326,25 @@ fwbw_forward_wave_kernel(const FwdWaveRank* __restrict__ wave, int B, int T,
     x.rank = rank;
     x.read = b;
   }
+  // thread u holds the states lo + 4 u .. + 3 (own: u = tid); the nw warps'
+  // trees take lv levels in a warp, nw_lv across them
   const int lo = rank << slice_shift;
-  // the thread's own states lo + 4 tid .. + 3, and the sums they read:
-  // S4 at c4 = (lo >> 2) + tid, S16 at c4 >> 2
-  const bool mine = tid < W4;
-  const int u = mine ? tid : 0;
-  const int c4 = (lo >> 2) + u, c16 = c4 >> 2;
+  const bool own = tid < U;
+  const int u = tid & (U - 1);
+  const int nw = U >= 32 ? U >> 5 : 1;
+  const int lv = U >= 32 ? 5 : slice_shift - 2;
+  const int nw_lv = 31 - __clz(nw);
+  // the thread's states read S4[c4] and S16[c16]: S4 sums the rows r 1024
+  // + c4 (r < 4), which the thread reads; S16 the rows r16 256 + c16 (r16 <
+  // 16), of which the thread reads r16 = 4 qi .. 4 qi + 3 and its quad the
+  // rest (the quad's 4 threads share c16)
+  const int c4 = (lo >> 2) + u, c16 = c4 >> 2, qi = lane & 3;
   const size_t colstride = (size_t)B * W;
   const size_t row = (size_t)b * W + 4 * u;
 
   float r_stay[4], r_step[4], r_skip[4], r_lm[4], r_ls[4], r_nlls[4],
       r_sm[4], r_slam[4], r_c1[4];
-  uint32_t fl = 0;
-  if (mine) {
+  {
     float v[4];
     unpack4(r_stay, load4(e.tab[0] + row));
     unpack4(r_step, load4(e.tab[1] + row));
@@ -319,173 +359,305 @@ fwbw_forward_wave_kernel(const FwdWaveRank* __restrict__ wave, int B, int T,
     unpack4(v, load4(e.tab[8] + row));
 #pragma unroll
     for (int i = 0; i < 4; ++i) r_c1[i] = v[i] - log2pi;
-    fl = *reinterpret_cast<const uint32_t*>(e.sflags + 4 * u);
   }
+  const uint32_t fl = *reinterpret_cast<const uint32_t*>(e.sflags + 4 * u);
   const float* evm = e.ev_mean + (size_t)b * T;
   const float* evs = e.ev_stdv + (size_t)b * T;
   const float* evl = e.ev_log_stdv + (size_t)b * T;
   const int len = e.length[b];
-  float* const own = e.col + row;
+  float* const own_col = e.col + row;
   auto slot = [&](int t) { return (size_t)(stored ? t : (t & 1)); };
+  __syncthreads();  // the pointer tables
 
-  float a[4];
-  if (mine) {
-    const float x0 = evm[0], y0 = evs[0], ly3 = 3.0f * evl[0];
+  float a[4], em[4];
+  // the emissions of the thread's states at event te
+  auto emission4 = [&](int te) {
+    const float xe = evm[te], ye = evs[te], ly3 = 3.0f * evl[te];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[i] = emission_pre(x0, y0, ly3, r_lm[i], r_ls[i], r_nlls[i], r_sm[i],
-                          r_slam[i], r_c1[i], log2pi) -
-             log_n;
-    store4(own, a);
-  }
-  // the whole column of event tc, 4 states a thread (4 tid ..), each warp's
-  // NaN-propagating max of it into sMax
-  const int j0 = 4 * tid;
-  float c[4];
-  auto load_column = [&](int tc) {
-    const float* src =
-        x.col[j0 >> slice_shift] + slot(tc) * colstride + (j0 & (W - 1));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[i] = ld_column<SYS>(src + i);
-    const float mx = warp_max_nan4(c);
-    if (lane == 0) sMax[warp] = mx;
+      em[i] = emission_pre(xe, ye, ly3, r_lm[i], r_ls[i], r_nlls[i], r_sm[i],
+                           r_slam[i], r_c1[i], log2pi);
   };
-  auto publish_and_wait = [&](int t) {
-    __syncthreads();  // every thread's slice of column t - 1 stored
-    if (tid == 0) st_flag<SYS>(x.flag[x.rank], t);
+  // the rank's partial max of column tc (the thread's a), published at tc
+  // & 1 with counter ph once every thread's slice of the column is stored
+  auto publish_max = [&](int tc, int ph) {
+    const float mx = warp_max_nan4(a);
+    if (lane == 0) sMax[warp] = mx;
+    __syncthreads();  // the warps' maxima; the slice of column tc stored
     if (warp == 0) {
-      __syncwarp();
-      wait_peers<SYS>(x, t, lane);
+      const float vm = lane < nw ? sMax[lane] : -INFINITY;
+      const float mp = warp_max_nan(vm, vm != vm);
+      if (lane == 0) {
+        if constexpr (CLUSTER) {
+          sPub[tc & 1] = mp;
+        } else {
+          ppart[rank][(size_t)(tc & 1) * B] = mp;
+          st_flag<SYS>(pflag[rank], ph);
+        }
+      }
     }
-    __syncthreads();
+    if constexpr (CLUSTER) cluster_arrive();
+  };
+  // every rank's, once counter ph is in (CLUSTER: after the cluster
+  // barrier, each warp from the peers' shared memory): the max of column
+  // tc
+  auto take_max = [&](int tc, int ph) {
+    float mx[1];
+    if constexpr (CLUSTER) {
+      cluster_wait();
+      cluster_max<1>(smem_addr(sPub + (tc & 1)), ranks, lane, mx);
+      return mx[0];
+    } else {
+      if (warp == 0) {
+        __syncwarp();
+        wait_ranks<SYS>(x, pflag, ph, lane);
+        ranks_max<SYS, 1>(ppart, (size_t)(tc & 1) * B, ranks, lane, mx);
+        if (lane == 0) sM = mx[0];
+      }
+      __syncthreads();
+      return sM;
+    }
   };
 
+  // the thread's slice of column t: into the column and (CLUSTER) its
+  // shared memory
+  auto store_slice = [&](int t) {
+    if (!own) return;
+    store4(own_col + slot(t) * colstride, a);
+    if constexpr (CLUSTER) store4(sA + (t & 1) * W + 4 * u, a);
+  };
+
+  emission4(0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = em[i] - log_n;
+  store_slice(0);
+
   for (int t = 1; t < T; ++t) {
-    const float xe = evm[t], ye = evs[t], ly = evl[t];
-    publish_and_wait(t);
-    load_column(t - 1);
-    __syncthreads();
-    const float m = warp_max_nan(sMax[lane], sMax[lane] != sMax[lane]);
-    // exp only where the rank's states read it: their own E, and the rows
-    // of their S4 and S16 columns
+    publish_max(t - 1, t);
+    emission4(t);  // while the peers publish
+    const float m = take_max(t - 1, t);
+    // the 8 rows the thread reads: S4's 4, then its 4 of S16's
+    float E[4], e8[8];
+    const size_t src = slot(t - 1) * colstride;
+    // the value of state s of the published column
+    auto ld_state = [&](int s) {
+      if constexpr (CLUSTER)
+        return ld_cluster(cluster_map(
+            smem_addr(sA + ((t - 1) & 1) * W + (s & (W - 1))),
+            s >> slice_shift));
+      else
+        return ld_column<SYS>(pcol[s >> slice_shift] + src + (s & (W - 1)));
+    };
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = j0 + i;
-      const bool need = (unsigned)(s - lo) < (unsigned)W ||
-                        (unsigned)((s & (N4 - 1)) - (lo >> 2)) <
-                            (unsigned)W4 ||
-                        (unsigned)((s & (N16 - 1)) - (lo >> 4)) <
-                            (unsigned)(W >> 4);
-      if (need) sE[s] = expf(c[i] - m);
+    for (int r = 0; r < 4; ++r) e8[r] = ld_state(r * N4 + c4);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) e8[4 + k] = ld_state((4 * qi + k) * N16 + c16);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) e8[k] = expf(e8[k] - m);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) E[i] = expf(a[i] - m);
+    const float s4 = ((e8[0] + e8[1]) + e8[2]) + e8[3];
+    // S16 in r16 order: the quad's first thread sums rows 0..3, each next
+    // thread continues the sum through its 4 rows; the last one's is S16
+    float s = ((e8[4] + e8[5]) + e8[6]) + e8[7];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      const float prev = __shfl_up_sync(FULL, s, 1);
+      if (qi == k) s = (((prev + e8[4]) + e8[5]) + e8[6]) + e8[7];
     }
-    __syncthreads();
-    if (!mine) continue;
-    const float s4 = ((sE[c4] + sE[N4 + c4]) + sE[2 * N4 + c4]) +
-                     sE[3 * N4 + c4];
-    float s16 = sE[c16];
-#pragma unroll
-    for (int r16 = 1; r16 < 16; ++r16) s16 = s16 + sE[r16 * N16 + c16];
+    const float s16 = __shfl_sync(FULL, s, lane | 3);
     const bool active = t < len;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float E = sE[lo + 4 * u + i];
       const unsigned f = (fl >> (8 * i)) & 0xffu;
-      const float hE = (f & F_H) ? E : 0.0f;
-      const float p2E = (f & F_P2) ? E : 0.0f;
+      const float hE = (f & F_H) ? E[i] : 0.0f;
+      const float p2E = (f & F_P2) ? E[i] : 0.0f;
       const float s5S4 = (f & F_S5) ? s4 : 0.0f;
-      const float total = (r_stay[i] * E + r_step[i] * (s4 - hE)) +
+      const float total = (r_stay[i] * E[i] + r_step[i] * (s4 - hE)) +
                           r_skip[i] * ((s16 - p2E) - s5S4);
-      const float em = emission_pre(xe, ye, 3.0f * ly, r_lm[i], r_ls[i],
-                                    r_nlls[i], r_sm[i], r_slam[i], r_c1[i],
-                                    log2pi);
-      if (active) a[i] = (em + m) + logf(total);
+      if (active) a[i] = (em[i] + m) + logf(total);
     }
-    store4(own + slot(t) * colstride, a);
+    store_slice(t);
   }
 
-  // log_pr_data from the whole final column: K4's max, then the pairwise
-  // tree over 4 contiguous states a thread, the warp, the warps
-  publish_and_wait(T);
-  load_column(T - 1);
-  __syncthreads();
-  const float mfin = warp_max_nan(sMax[lane], sMax[lane] != sMax[lane]);
-  float v[4];
+  // log Pr[data]: K4's max of the final column from the ranks' partial
+  // maxima, then K4's pairwise tree of exp(final - mfin), each rank's
+  // subtree over its states published, combined pairwise in rank order
+  // (hmm.combine_rank_sums); every rank takes it
+  publish_max(T - 1, T);
+  const float mfin = take_max(T - 1, T);
+  {
+    float v[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = expf(c[i] - mfin);
-  const float ws = warp_tree_sum(quad_sum(v));
-  if (lane == 0) sSum[warp] = ws;
+    for (int i = 0; i < 4; ++i) v[i] = expf(a[i] - mfin);
+    const float ws = sub_tree_sum(quad_sum(v), lv);
+    if (lane == 0) sSum[warp] = ws;
+  }
   __syncthreads();
-  if (warp == 0) {
-    const float s = warp_tree_sum(sSum[lane]);
-    if (lane == 0) e.lpd[b] = mfin + logf(s);
+  if constexpr (CLUSTER) {
+    if (warp == 0) {
+      const float wv = lane < nw ? sSum[lane] : 0.0f;
+      const float ps = sub_tree_sum(wv, nw_lv);
+      if (lane == 0) sPub[2] = ps;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (warp == 0) {
+      const float sv =
+          lane < ranks ? ld_cluster(cluster_map(smem_addr(sPub + 2), lane))
+                       : 0.0f;
+      const float total = sub_tree_sum(sv, 31 - __clz(ranks));
+      if (lane == 0) e.lpd[b] = mfin + logf(total);
+    }
+    // no block leaves while a peer reads its shared memory
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    if (warp == 0) {
+      const float wv = lane < nw ? sSum[lane] : 0.0f;
+      const float ps = sub_tree_sum(wv, nw_lv);
+      if (lane == 0) {
+        ppart[rank][2 * (size_t)B] = ps;
+        st_flag<SYS>(pflag[rank], T + 1);
+      }
+      __syncwarp();
+      wait_ranks<SYS>(x, pflag, T + 1, lane);
+      const int per_lane = ranks > 32 ? 2 : 1;
+      const int lanes = ranks / per_lane;
+      float sv = 0.0f;
+      if (lane < lanes) {
+        sv = ld_column<SYS>(ppart[per_lane * lane] + 2 * (size_t)B);
+        if (per_lane == 2)
+          sv = sv + ld_column<SYS>(ppart[2 * lane + 1] + 2 * (size_t)B);
+      }
+      const float total = sub_tree_sum(sv, 31 - __clz(lanes));
+      if (lane == 0) e.lpd[b] = mfin + logf(total);
+    }
   }
 }
 
-using FwdWaveKernel = decltype(&fwbw_forward_wave_kernel<false>);
+using FwdWaveKernel = decltype(&fwbw_forward_wave_kernel<false, false>);
 
-FwdWaveKernel fwd_wave_kernel(int sys) {
-  return sys ? fwbw_forward_wave_kernel<true>
-             : fwbw_forward_wave_kernel<false>;
+FwdWaveKernel fwd_wave_kernel(int sys, int cluster) {
+  if (cluster) return fwbw_forward_wave_kernel<false, true>;
+  return sys ? fwbw_forward_wave_kernel<true, false>
+             : fwbw_forward_wave_kernel<false, false>;
+}
+
+// K4m's dynamic shared memory: (cluster) the slice's 2 columns and the 4
+// partials, then 3 pointer tables of M
+int fwd_wave_smem(int slice_shift, int cluster) {
+  return (cluster ? (2 * (1 << slice_shift) + 4) * 4 : 0) +
+         3 * (N >> slice_shift) * (int)sizeof(void*);
+}
+
+// the launch's shape: a cooperative grid (reads, ranks), or (cluster) a
+// grid (ranks, reads) of clusters of the read's M ranks
+void fwd_wave_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                     int n_reads, int n_local, int slice_shift,
+                     int cluster) {
+  cfg = {};
+  cfg.blockDim = dim3(nc::slice_threads(slice_shift));
+  cfg.dynamicSmemBytes = fwd_wave_smem(slice_shift, cluster);
+  if (cluster) {
+    cfg.gridDim = dim3(n_local, n_reads);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n_local;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+  } else {
+    cfg.gridDim = dim3(n_reads, n_local);
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
 }
 
 }  // namespace
 
-// K4m's wave: the most blocks of its instance (sys) that one card holds at
-// once (blocks an SM at 1024 threads times the SMs) into *blocks; an error
-// where the card has no cooperative launch.
-extern "C" int nc_fwbw_forward_wave_resident(int sys, int device,
-                                             int* blocks) {
+// K4m's wave: the most blocks of its instance (sys) at slices of 1 << slice_shift states that one card holds at
+// once (blocks an SM at slice_threads(slice_shift) threads and its shared
+// memory, times the SMs) into *blocks; (cluster) the blocks of the clusters
+// of M ranks it holds at once.  An error where the card has no cooperative
+// launch (or, cluster, where the clusters do not fit).
+extern "C" int nc_fwbw_forward_wave_resident(int sys, int slice_shift,
+                                             int cluster,
+                                             int device, int* blocks) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   *blocks = 0;
+  const int ranks = nc::N >> slice_shift;
+  if (slice_shift < 6 || slice_shift > 11 ||
+      (cluster && (sys || ranks > nc::MAX_CLUSTER)))
+    return (int)cudaErrorInvalidValue;
+  const FwdWaveKernel kernel = fwd_wave_kernel(sys, cluster);
   int coop = 0, sms = 0, per_sm = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess && !coop && !cluster) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
+  if (err == cudaSuccess && cluster) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    fwd_wave_config(cfg, attr, 1, ranks, slice_shift, 1);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    *blocks = clusters * ranks;
+    return (int)err;
+  }
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fwd_wave_kernel(sys), nc::THREADS, 0);
+        &per_sm, kernel, nc::slice_threads(slice_shift),
+        fwd_wave_smem(slice_shift, 0));
   *blocks = per_sm * sms;
   return (int)err;
 }
 
 // K4m: events 0 .. T - 1 of the reads [lo, lo + n_reads) for n_local ranks
-// of a data row, one cooperative grid (n_reads, n_local) on `stream`.
+// of a data row on `stream`, blocks of slice_threads(slice_shift) threads:
+// one cooperative grid (n_reads, n_local), or (cluster: every rank of the
+// row, on this card, M <= MAX_CLUSTER) a grid of the reads' clusters.
 // `ranks` (device memory of this card) holds the row's M = 4096 >>
 // slice_shift FwdWaveRank entries, then the n_local ranks to run as int64;
-// the entries' (B, W) tables (16-byte aligned), columns and (B,) counters
-// (zero before the launch) lie on their ranks' cards, reachable from this
-// one (peer access).  stored: the columns are (T, B, W) alphas, else (2,
-// B, W) buffers.  sys: the exchange at system scope.  timed_out: as K1m's.
-// Returns the launch's error: a grid larger than the card holds at once is
-// refused (cudaErrorCooperativeLaunchTooLarge).
+// the entries' (B, W) tables (16-byte aligned), columns, partials and (B,)
+// counters (zero before the launch) lie on their ranks' cards, reachable
+// from this one (peer access).  stored: the columns are (T, B, W) alphas,
+// else (2, B, W) buffers.  sys: the exchange at system scope.  timed_out: as K1m's.
+// Returns the launch's error: a cooperative grid larger than the card
+// holds at once is refused (cudaErrorCooperativeLaunchTooLarge).
 extern "C" int nc_fwbw_forward_wave(const void* ranks, int n_local, int B,
                                     int T, int lo, int n_reads,
                                     int slice_shift, int stored, int sys,
-                                    float log2pi, float log_n,
-                                    long long timeout_ns, int32_t* timed_out,
-                                    int device, void* stream) {
+                                    int cluster, float log2pi,
+                                    float log_n, long long timeout_ns,
+                                    int32_t* timed_out, int device,
+                                    void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
+  const int M = nc::N >> slice_shift;
   if (slice_shift < 6 || slice_shift > 11 || T < 1 || lo < 0 ||
-      n_reads < 1 || lo + n_reads > B || n_local < 1 ||
-      n_local > (nc::N >> slice_shift) || timed_out == nullptr)
+      n_reads < 1 || lo + n_reads > B || n_local < 1 || n_local > M ||
+      timed_out == nullptr ||
+      (cluster && (sys || n_local != M || M > nc::MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_reads, n_local);
-  cfg.blockDim = dim3(nc::THREADS);
-  cfg.stream = (cudaStream_t)stream;
+  const FwdWaveKernel kernel = fwd_wave_kernel(sys, cluster);
+  cudaError_t err = cudaSuccess;
+  if (cluster)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               fwd_wave_smem(slice_shift, 1));
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, fwd_wave_kernel(sys), static_cast<const FwdWaveRank*>(ranks), B,
-      T, lo, slice_shift, stored, log2pi, log_n, timeout_ns, timed_out);
+  fwd_wave_config(cfg, attr, n_reads, n_local, slice_shift, cluster);
+  cfg.stream = (cudaStream_t)stream;
+  err = cudaLaunchKernelEx(&cfg, kernel,
+                           static_cast<const FwdWaveRank*>(ranks), B, T, lo,
+                           slice_shift, stored, log2pi, log_n, timeout_ns,
+                           timed_out);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clears it
     return (int)err;

@@ -159,7 +159,7 @@ struct WaveRank {
   int32_t* flags;    // (B,): t once its slice of column t - 1 is stored
 };
 
-// The exchange's operations, Exchange and wait_peers: wave_exchange.cuh
+// The exchange's operations, Exchange and wait_ranks: wave_exchange.cuh
 // (shared with K6am).
 
 // The body of K1, K3's chunk and K1m, inlined into each kernel.
@@ -301,7 +301,7 @@ __device__ __forceinline__ void forward_body(
       if (tid == 0) st_flag<SYS>(x->flag[x->rank], t);
       if (warp == 0) {
         __syncwarp();
-        wait_peers<SYS>(*x, t, lane);
+        wait_ranks<SYS>(*x, x->flag, t, lane);
       }
       __syncthreads();
       const size_t off = (size_t)((t - 1) & 1) * B * W;

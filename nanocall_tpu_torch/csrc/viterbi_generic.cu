@@ -612,7 +612,7 @@ viterbi_generic_wave_kernel(const GenericWaveRank* __restrict__ wave, int B,
     if (tid == 0) st_flag<SYS>(x.flag[x.rank], t);
     if (warp == 0) {
       __syncwarp();
-      wait_peers<SYS>(x, t, lane);
+      wait_ranks<SYS>(x, x.flag, t, lane);
     }
     __syncthreads();
     const float* src = x.col[j0 >> slice_shift] +

@@ -1,19 +1,22 @@
-// The column exchange of the state-parallel forward kernels, K1m
-// (viterbi_forward.cu viterbi_forward_wave_kernel) and K6am
-// (viterbi_generic.cu viterbi_generic_wave_kernel): one block a (read,
-// rank) pair of a cooperative grid, each rank owning a (2, B, W) column
-// buffer (its slice of column t at parity t & 1) and a step counter a
-// read.  A step publishes the counter by a release store, polls the peers'
-// counters with acquire loads, then reads the peers' slices in place by
-// relaxed (L1-bypassing) loads, never the non-coherent path.  On one card
-// the operations take gpu scope, across cards (SYS) system scope.  A poll
-// that waits longer than the launch's timeout records (t, read, rank,
-// peer) in a host-mapped word and traps: a fault in the exchange fails the
-// decode, never hangs it.
+// The exchange of the state-parallel kernels, K1m (viterbi_forward.cu
+// viterbi_forward_wave_kernel), K6am (viterbi_generic.cu
+// viterbi_generic_wave_kernel), K4m (fwbw_forward.cu) and K5m
+// (em_backward.cu): one block a (read, rank) pair of a cooperative grid,
+// each rank owning the buffers it publishes (K1m's and K6am's slice of
+// column t at parity t & 1; K4m's and K5m's: their sources) and a step
+// counter a read.  A step publishes the counter by a release store, polls
+// the peers' counters with acquire loads, then reads the peers' buffers in
+// place by relaxed (L1-bypassing) loads, never the non-coherent path.  On
+// one card the operations take gpu scope, across cards (SYS) system scope.
+// A poll that waits longer than the launch's timeout records (t, read,
+// rank, peer) in a host-mapped word and traps: a fault in the exchange
+// fails the pass, never hangs it.
 
 #pragma once
 
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace nc {
 
@@ -59,27 +62,45 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// The exchange, in shared memory so that none of it stays in a register
-// through the time loop: the M ranks' column buffers and counters at read
-// b, the block's rank and slice, and the wait's timeout and record.
-struct Exchange {
-  float* col[MAX_RANKS];
-  int32_t* flag[MAX_RANKS];
+// K4m's and K5m's blocks: W / 4 threads, 4 contiguous states a thread,
+// and at least a warp (a slice of 64 states: lanes 16.. repeat lanes
+// 0..15 and store nothing); 512 at 2 ranks, the most
+constexpr int SLICE_MAX_THREADS = N / 8;
+constexpr int SLICE_MAX_WARPS = SLICE_MAX_THREADS / 32;
+
+__host__ __device__ __forceinline__ int slice_threads(int slice_shift) {
+  return (1 << (slice_shift - 2)) > 32 ? 1 << (slice_shift - 2) : 32;
+}
+
+// The block's part of the exchange, in shared memory so that none of it
+// stays in a register through the time loop: the wait's timeout and
+// record, the row's rank count, the block's rank and read.  The M ranks'
+// counters and published buffers at the read are pointer tables of their
+// own: K1m's and K6am's in Exchange, K4m's and K5m's in dynamic shared
+// memory (M entries each, so that a block of a small slice keeps little).
+struct WaveSync {
   int32_t* timed_out;
   long long timeout_ns;
   int ranks, rank, read;
 };
 
-// Until every peer's counter reaches t (warp 0; lane p waits on rank p, p
-// + 32); after the timeout, records (t, read, rank, peer) in the host-
-// mapped word and traps.
+// K1m's and K6am's: the M ranks' column buffers and counters at read b
+struct Exchange : WaveSync {
+  float* col[MAX_RANKS];
+  int32_t* flag[MAX_RANKS];
+};
+
+// Until the counter of every peer p (flag[p], p != rank, p < ranks) reaches
+// t (warp 0; lane p waits on rank p, p + 32); after timeout_ns, records (t,
+// read, rank, peer) in the host-mapped word and traps.
 template <bool SYS>
-__device__ __forceinline__ void wait_peers(const Exchange& x, int t,
+__device__ __forceinline__ void wait_ranks(const WaveSync& x,
+                                           int32_t* const* flag, int t,
                                            int lane) {
   for (int p = lane; p < x.ranks; p += 32) {
-    if (p == x.rank || ld_flag<SYS>(x.flag[p]) >= t) continue;
+    if (p == x.rank || ld_flag<SYS>(flag[p]) >= t) continue;
     const unsigned long long t_start = global_ns();
-    while (ld_flag<SYS>(x.flag[p]) < t) {
+    while (ld_flag<SYS>(flag[p]) < t) {
       if ((long long)(global_ns() - t_start) > x.timeout_ns) {
         volatile int32_t* rec = x.timed_out;
         rec[1] = x.read;
@@ -91,6 +112,98 @@ __device__ __forceinline__ void wait_peers(const Exchange& x, int t,
       }
     }
   }
+}
+
+// torch.amax over the M ranks' partial maxima, K of them a rank: out[k]
+// the max of src[p][off + k] over the ranks p (warp 0, every lane), fmaxf
+// with one vote for NaN (common.cuh warp_max_nan); the K loads of a peer
+// are issued together
+template <bool SYS, int K>
+__device__ __forceinline__ void ranks_max(const float* const* src,
+                                          size_t off, int ranks, int lane,
+                                          float (&out)[K]) {
+  float v[K];
+  bool nan[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = -INFINITY;
+    nan[k] = false;
+  }
+  for (int p = lane; p < ranks; p += 32) {
+    float w[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[k] = ld_column<SYS>(src[p] + off + k);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      v[k] = fmaxf(v[k], w[k]);
+      nan[k] = nan[k] || w[k] != w[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k] = warp_max_nan(v[k], nan[k]);
+}
+
+// --- the exchange inside a thread block cluster ---------------------------
+// On one card a read's M <= MAX_CLUSTER ranks run as one cluster of M
+// blocks (K4m's and K5m's cluster path): the hardware schedules a cluster's
+// blocks at once, so they may wait on each other without a cooperative
+// grid, and each block reads what its peers publish in their shared
+// memory (distributed shared memory) behind the cluster barrier's release
+// and acquire, with no counter in global memory and no L2 round trip.
+
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+
+// this thread's arrival at the cluster barrier, releasing its writes
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+// until every thread of the cluster has arrived, acquiring their writes
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the address in block `rank`'s shared memory of this block's `addr`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// ranks_max over the cluster: out[k] the max of the K floats at `addr` in
+// the shared memory of each of the cluster's `ranks` blocks (every lane of
+// the calling warp)
+template <int K>
+__device__ __forceinline__ void cluster_max(uint32_t addr, int ranks,
+                                            int lane, float (&out)[K]) {
+  float v[K];
+  bool nan[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = -INFINITY;
+    nan[k] = false;
+  }
+  if (lane < ranks) {
+    const uint32_t a = cluster_map(addr, lane);
+    float w[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[k] = ld_cluster(a + 4 * k);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      v[k] = w[k];
+      nan[k] = w[k] != w[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k] = warp_max_nan(v[k], nan[k]);
 }
 
 }  // namespace nc

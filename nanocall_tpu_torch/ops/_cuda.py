@@ -146,16 +146,17 @@ def load():
             [vp] * 4 + [ci, ci] + [vp] * 10 + [cf, cf] + [vp, vp] + [ci, vp])
         lib.nc_fwbw_forward_wave.restype = ci
         lib.nc_fwbw_forward_wave.argtypes = (
-            [vp] + [ci] * 8 + [cf, cf] + [ctypes.c_longlong, vp] + [ci, vp])
+            [vp] + [ci] * 9 + [cf, cf] + [ctypes.c_longlong, vp]
+            + [ci, vp])
         lib.nc_fwbw_forward_wave_resident.restype = ci
         lib.nc_fwbw_forward_wave_resident.argtypes = [
-            ci, ci, ctypes.POINTER(ci)]
+            ci, ci, ci, ci, ctypes.POINTER(ci)]
         lib.nc_em_backward_wave.restype = ci
         lib.nc_em_backward_wave.argtypes = (
-            [vp] + [ci] * 9 + [cf] + [ctypes.c_longlong, vp] + [ci, vp])
+            [vp] + [ci] * 10 + [cf] + [ctypes.c_longlong, vp] + [ci, vp])
         lib.nc_em_backward_wave_resident.restype = ci
         lib.nc_em_backward_wave_resident.argtypes = [
-            ci, ci, ci, ci, ctypes.POINTER(ci)]
+            ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
         lib.nc_em_backward.restype = ci
         lib.nc_em_backward.argtypes = (
             [vp] * 4 + [ci, ci] + [vp] * 17 + [ci, ci, cf] + [vp] * 3

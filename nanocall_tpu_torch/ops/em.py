@@ -11,8 +11,10 @@ overlap-condition patterns (hmm.bwd_codebooks).
 
 K5m (em_backward_wave_kernel vs em_backward_wave_plain) is K5 with the
 states split over the ranks of a data row (parallel/statepar.py drives
-it after K4m): each rank's statistics are subtrees of K5's pairwise sums,
-and the row's first rank folds the ranks' per-step partials.
+it after K4m): each step the ranks exchange their partial maxima and the
+sums of their own blocks of 4 and 16 states, each rank's statistics are
+subtrees of K5's pairwise sums, and the row's first rank folds the ranks'
+per-step partials.
 """
 
 from __future__ import annotations
@@ -233,15 +235,27 @@ def fused_bwd_mstats(gtf, model, ev, lpd, alphas, W, x_unc, t_start, valid,
 # K5m: K5 with the states split over M ranks (the EM round on the state
 # axis, parallel/statepar.py).  Rank m holds the states [m W, (m + 1) W), W
 # = n / M: its (B, W) cut of the tables, the scaled model and W, its (T, B,
-# W) slice of K4m's alphas, a (2, B, W) buffer of g = em + beta at parity
-# s % 2 of the s-th step, its (B, 3) partial maxima and its per-step
-# partial sums red (B, T, 12).
+# W) slice of K4m's alphas, and what it publishes each step, at the step's
+# parity t % 2: its maxima (the partial max of g = em + beta over its
+# states, then its 3 partial masked maxima of the step before) and its
+# record of block sums (sum4 of its W / 4 blocks of 4 states, their logs,
+# sum16 of its W / 16 blocks of 16); and its per-step partial sums red (B,
+# T, 12).
 # ---------------------------------------------------------------------------
 
 #: the columns of K5m's per-step record red (B, T, 12): the 6 post sums
 #: over the rank's states, the 3 transition sums of exp(v - max) over them,
 #: then the 3 masked maxima over all states
 NRED_WAVE = 12
+#: K5m's published maxima a read and step: the partial max of g, then the
+#: 3 partial masked maxima of the step before
+NMAX_WAVE = 4
+
+
+def block_sums_width(W: int) -> int:
+    """The width of a rank's record of block sums at slices of W states:
+    W / 4 sums of 4, their logs, W / 16 sums of 16."""
+    return 2 * (W // 4) + W // 16
 
 
 class EMWaveRank(NamedTuple):
@@ -253,10 +267,11 @@ class EMWaveRank(NamedTuple):
     cut of the state weights W (None without train_scaling), the row's
     x_unc and t_start (B, T), valid (B,) bool, its (W,) cut of the
     transition-training subset, the row's p_stay_seq and p_skip_seq (B,);
-    then its buffers: g (2, B, W), maxima (B, 3), red (B, T, NRED_WAVE)
-    float32 and the step counters flags (B,) int32, zero before each
-    launch; and scal (B, 14), st3 (B, 3), where the row's first rank puts
-    the row's statistics (fused_bwd_mstats')."""
+    then its buffers: maxima (2, B, NMAX_WAVE), sums (2, B,
+    block_sums_width(W)), red (B, T, NRED_WAVE) float32 and the step
+    counters flags (B,) int32, zero before each launch; and scal (B, 14),
+    st3 (B, 3), where the row's first rank puts the row's statistics
+    (fused_bwd_mstats')."""
 
     gtf: hmm.GroupedTransFull
     books: torch.Tensor
@@ -271,56 +286,74 @@ class EMWaveRank(NamedTuple):
     subset: torch.Tensor
     p_stay_seq: torch.Tensor
     p_skip_seq: torch.Tensor
-    g: torch.Tensor
     maxima: torch.Tensor
+    sums: torch.Tensor
     red: torch.Tensor
     flags: torch.Tensor
     scal: torch.Tensor
     st3: torch.Tensor
 
 
-def em_backward_slice_plain(r: EMWaveRank, column, t: int, lo: int,
+def rank_block_sums(G, record, with_logs: bool) -> None:
+    """A rank's record of block sums (b, block_sums_width(W)) from its
+    slice G (b, W) of exp(g - max): sum4 of its blocks of 4 states, their
+    logs (with_logs; else left), sum16 of its blocks of 16, each added in
+    state order as fused_bwd_mstats_plain's block_sum adds them (every
+    block lies in one slice)."""
+    U = G.shape[-1] // 4
+    sum4 = hmm.block_sum(G, 4)
+    record[:, :U] = sum4
+    if with_logs:
+        record[:, U:2 * U] = torch.log(sum4)
+    record[:, 2 * U:] = hmm.block_sum(G, 16)
+
+
+def em_backward_slice_plain(r: EMWaveRank, sums, g, m, t: int, lo: int,
                             train_scaling: bool, train_transitions: bool):
-    """One rank's reverse step, the plain version of K5m's step for the
-    states [lo, lo + W) of r (its (b, ...) rows, as em_backward_wave_plain
-    cuts them): column is g = em(t + 1) + beta of every state, as its M
-    (b, W) slices on any devices.  Returns (beta (b, W) of event t; the 6
-    post sums (b, 6) over the rank's states, the pairwise tree of
-    fused_bwd_mstats_plain's sums over them, or None without
-    train_scaling; the masked transition values v (b, 3, W) whose
-    log-sum-exp over all states _step_lse takes, or None without
+    """One rank's reverse step after both exchanges, the plain version of
+    K5m's step for the states [lo, lo + W) of r (its (b, ...) rows, as
+    em_backward_wave_plain cuts them): g (b, W) is its em(t + 1) + beta, m
+    (b, 1) the max over every rank's partial max, sums the M ranks'
+    records of block sums (b, block_sums_width(W)) of the step, on any
+    devices, read in place where its states read them: sum4[j % (n / 4)]
+    (and its log) and sum16[j % (n / 16)] of state j, n = M W.  Returns
+    (beta (b, W) of event t; the 6 post sums (b, 6) over the rank's
+    states, the pairwise tree of fused_bwd_mstats_plain's sums over them,
+    or None without train_scaling; the masked transition values v (b, 3,
+    W) whose log-sum-exp over all states _step_lse takes, or None without
     train_transitions)."""
-    W = column[0].shape[-1]
+    W = g.shape[-1]
+    U, n = W // 4, len(sums) * W
     mean, lengths = r.ev["mean"], r.ev["length"]
+    dev = mean.device
     cols = slice(lo, lo + W)
     m_ = {k: v[cols] for k, v in
-          hmm.correction_masks(r.gtf.K, mean.device).items()}
+          hmm.correction_masks(r.gtf.K, dev).items()}
     e_stay, e_step_to, e_skip_to, log_p_stay, log_p_step4 = _bwd_tables(
         r.gtf, r.p_stay_seq, r.p_skip_seq)
     lpd_c = r.lpd[:, None]
-    g = hmm.gather_column(column, mean.device)
-    m = torch.amax(g, dim=-1, keepdim=True)
+    recs = [x.to(dev) for x in sums]
+    j = torch.arange(lo, lo + W, device=dev)
+    T4 = torch.cat([x[:, :U] for x in recs], dim=1)[:, j % (n // 4)]
+    T16 = torch.cat([x[:, 2 * U:] for x in recs], dim=1)[:, j % (n // 16)]
     G = torch.exp(g - m)
-    sum4 = hmm.block_sum(G, 4)
-    T4 = sum4.repeat(1, 4)[:, cols]
-    T16 = hmm.block_sum(G, 16).repeat(1, 16)[:, cols]
-    Gs = G[:, cols]
-    total = (e_stay * Gs + e_step_to * (T4 - m_["H"] * Gs)
-             + e_skip_to * (T16 - m_["P2mH"] * Gs - m_["S5T"] * T4))
+    total = (e_stay * G + e_step_to * (T4 - m_["H"] * G)
+             + e_skip_to * (T16 - m_["P2mH"] * G - m_["S5T"] * T4))
     beta = torch.where((t >= lengths - 1)[:, None], 0.0,
                        m + torch.log(total))
     alpha_t = r.alphas[t]
     lp_j1 = alpha_t + beta - lpd_c
-    sums = v = None
+    sums_t = v = None
     if train_scaling:
         w_t = ((t < lengths) & r.valid)[:, None]
-        sums = hmm.tree_sum((torch.exp(lp_j1) * w_t)[:, None, :] * r.W)
+        sums_t = hmm.tree_sum((torch.exp(lp_j1) * w_t)[:, None, :] * r.W)
     if train_transitions:
-        lp_stay = torch.minimum(alpha_t + log_p_stay[:, None] + g[:, cols]
-                                - lpd_c, lp_j1)
+        LS4 = torch.cat([x[:, U:2 * U] for x in recs],
+                        dim=1)[:, j % (n // 4)]
+        lp_stay = torch.minimum(alpha_t + log_p_stay[:, None] + g - lpd_c,
+                                lp_j1)
         safe_m = torch.where(torch.isfinite(m), m, 0.0)
-        lsum4 = safe_m + torch.log(sum4).repeat(1, 4)[:, cols]
-        lp_steps = alpha_t + log_p_step4[:, None] + lsum4 - lpd_c
+        lp_steps = alpha_t + log_p_step4[:, None] + (safe_m + LS4) - lpd_c
         lp_d01 = torch.minimum(torch.logaddexp(lp_stay, lp_steps), lp_j1)
         lp_d2 = torch.log(torch.clamp_min(torch.exp(lp_j1)
                                           - torch.exp(lp_d01), 0.0))
@@ -328,7 +361,7 @@ def em_backward_slice_plain(r: EMWaveRank, column, t: int, lo: int,
                 & r.subset[None, :])[:, None, :]
         v = torch.where(w_tr, torch.stack([lp_j1, lp_stay, lp_d2], dim=1),
                         _NEG_INF)
-    return beta, sums, v
+    return beta, sums_t, v
 
 
 def _rank_rows(r: EMWaveRank, rows: slice) -> EMWaveRank:
@@ -344,7 +377,7 @@ def _rank_rows(r: EMWaveRank, rows: slice) -> EMWaveRank:
         alphas=r.alphas[:, rows], W=cut(r.W), x_unc=r.x_unc[rows],
         t_start=r.t_start[rows], valid=r.valid[rows],
         p_stay_seq=r.p_stay_seq[rows], p_skip_seq=r.p_skip_seq[rows],
-        g=r.g[:, rows], maxima=r.maxima[rows], red=r.red[rows],
+        maxima=r.maxima[:, rows], sums=r.sums[:, rows], red=r.red[rows],
         flags=r.flags[rows], scal=r.scal[rows], st3=r.st3[rows])
 
 
@@ -383,69 +416,100 @@ def em_backward_wave_plain(ranks, lo: int, hi: int, train_scaling: bool,
                            train_transitions: bool) -> None:
     """Plain version of K5m: the reverse pass over the reads [lo, hi) for
     every rank of a data row (ranks: its M EMWaveRanks in rank order),
-    each step: every rank's g slice into g[s % 2] (s the step's number
-    from 0), every rank's em_backward_slice_plain on the peers' slices read
-    in place, its post sums into red[:, t, :6], and with train_transitions
-    the masked maxima over every rank (its own into maxima, all of them in
-    red[:, t, 9:]), then its sums of exp(v - max) into red[:, t, 6:9]; the
-    t = T - 1 term (beta = 0) first.  Then em_backward_fold_plain into the
-    first rank's scal and st3.  The counters are left as they are."""
+    publishing what the kernel publishes, each step t at parity t % 2:
+    every rank's g = em(t + 1) + beta of its states, its partial max of g
+    with its partial masked maxima of step t + 1 into maxima; from every
+    rank's, m and step t + 1's masked maxima over all states (then each
+    rank's sums of exp(v - max) of step t + 1 into red[:, t + 1, 6:9],
+    the maxima beside them); every rank's block sums of G = exp(g - m) into
+    sums; every rank's em_backward_slice_plain on the peers' records read
+    in place, its post sums into red[:, t, :6].  The t = T - 1 term (beta
+    = 0) comes first; after step 0 a last exchange of maxima brings step
+    0's.  Then em_backward_fold_plain into the first rank's scal and st3.
+    The counters are left as they are."""
     rows = slice(lo, hi)
     parts = [_rank_rows(r, rows) for r in ranks]
     T, W = parts[0].x_unc.shape[1], parts[0].alphas.shape[-1]
+    dev0 = parts[0].maxima.device
     if train_scaling:
         for p in parts:
             w = ((T - 1 < p.ev["length"]) & p.valid)[:, None]
             post = torch.exp(p.alphas[T - 1] - p.lpd[:, None]) * w
             p.red[:, T - 1, :6] = hmm.tree_sum(post[:, None, :] * p.W)
+
+    def exchange(slot: int, gs, held):
+        """Every rank's maxima at `slot`: the partial max of its g (-inf
+        after the last step) and its partial masked maxima of the held
+        step's v (-inf where none is held); returns their max over the
+        ranks (b, NMAX_WAVE) on the first rank's device."""
+        for p, g, v in zip(parts, gs, held):
+            p.maxima[slot, :, 0] = (_NEG_INF if g is None
+                                    else torch.amax(g, dim=-1))
+            p.maxima[slot, :, 1:] = (_NEG_INF if v is None
+                                     else torch.amax(v, dim=-1))
+        return hmm.ranks_amax([p.maxima[slot] for p in parts], dev0)
+
+    def transition_sums(tp: int, held, mm) -> None:
+        """Each rank's sums of exp(v - max) of step tp over its states,
+        the masked maxima mm over all states beside them."""
+        for p, v in zip(parts, held):
+            mp = mm.to(p.red.device)
+            safe = torch.where(torch.isfinite(mp), mp, 0.0)
+            p.red[:, tp, 6:9] = hmm.tree_sum(torch.exp(v - safe[..., None]))
+            p.red[:, tp, 9:] = mp
+
+    M = len(parts)
     betas = [torch.zeros_like(p.alphas[0]) for p in parts]
-    for s, t in enumerate(range(T - 2, -1, -1)):
-        for p, beta in zip(parts, betas):
-            ev = p.ev
-            p.g[s % 2] = hmm.log_emission(p.model, ev["mean"][:, t + 1],
-                                          ev["stdv"][:, t + 1],
-                                          ev["log_stdv"][:, t + 1]) + beta
-        column = [p.g[s % 2] for p in parts]
-        outs = [em_backward_slice_plain(p, column, t, m * W, train_scaling,
+    held = [None] * M
+    for t in range(T - 2, -1, -1):
+        slot = t % 2
+        gs = [hmm.log_emission(p.model, p.ev["mean"][:, t + 1],
+                               p.ev["stdv"][:, t + 1],
+                               p.ev["log_stdv"][:, t + 1]) + beta
+              for p, beta in zip(parts, betas)]
+        mx = exchange(slot, gs, held)
+        if held[0] is not None:
+            transition_sums(t + 1, held, mx[:, 1:])
+        ms = [mx[:, :1].to(p.sums.device) for p in parts]
+        for p, g, m in zip(parts, gs, ms):
+            rank_block_sums(torch.exp(g - m), p.sums[slot],
+                            train_transitions)
+        outs = [em_backward_slice_plain(p, [q.sums[slot] for q in parts],
+                                        g, m, t, k * W, train_scaling,
                                         train_transitions)
-                for m, p in enumerate(parts)]
+                for k, (p, g, m) in enumerate(zip(parts, gs, ms))]
         betas = [o[0] for o in outs]
         if train_scaling:
             for p, o in zip(parts, outs):
                 p.red[:, t, :6] = o[1]
-        if train_transitions:
-            for p, o in zip(parts, outs):
-                p.maxima.copy_(torch.amax(o[2], dim=-1))
-            mm = torch.amax(torch.stack(
-                [p.maxima.to(parts[0].maxima.device) for p in parts], -1),
-                dim=-1)
-            for p, o in zip(parts, outs):
-                mp = mm.to(p.maxima.device)
-                safe = torch.where(torch.isfinite(mp), mp, 0.0)
-                p.red[:, t, 6:9] = hmm.tree_sum(torch.exp(o[2]
-                                                          - safe[..., None]))
-                p.red[:, t, 9:] = mp
+        held = [o[2] for o in outs]
+    mx = exchange(1, [None] * M, held)
+    if held[0] is not None:
+        transition_sums(0, held, mx[:, 1:])
     em_backward_fold_plain(parts[0], [p.red for p in parts], train_scaling,
                            train_transitions)
 
 
 #: em_backward_wave_resident's answers, by (card index, sys, train_scaling,
-#: W)
+#: W, cluster)
 _wave_resident: dict = {}
 
 
-def em_backward_wave_resident(dev, sys: bool, train_scaling: bool,
-                              W: int) -> int:
+def em_backward_wave_resident(dev, sys: bool, train_scaling: bool, W: int,
+                              cluster: bool = False) -> int:
     """The most blocks of K5m's instance (sys: the exchange across cards;
     train_scaling, at slices of W states, whose shared memory it sets) that
-    the CUDA device `dev` holds at once: a wave's grid, reads times the
-    card's ranks, must not exceed it."""
-    key = (torch.device(dev).index, bool(sys), bool(train_scaling), int(W))
+    the CUDA device `dev` holds at once: a cooperative wave's grid, reads
+    times the card's ranks, must not exceed it; cluster: the blocks of the
+    most clusters of the cluster path it holds at once."""
+    key = (torch.device(dev).index, bool(sys), bool(train_scaling), int(W),
+           bool(cluster))
     if key not in _wave_resident:
         blocks = ctypes.c_int(0)
         _cuda.check(_cuda.load().nc_em_backward_wave_resident(
             int(sys), int(train_scaling), hmm._slice_shift(4096 // W, W),
-            key[0], ctypes.byref(blocks)), "em_backward_wave occupancy")
+            int(cluster), key[0], ctypes.byref(blocks)),
+            "em_backward_wave occupancy")
         _wave_resident[key] = blocks.value
     return _wave_resident[key]
 
@@ -473,9 +537,10 @@ def _check_em_wave_rank(m: int, r: EMWaveRank, B: int, T: int, W: int,
                    (B, T), dev)
     hmm._check(f"ranks[{m}].valid", r.valid, torch.bool, (B,), dev)
     hmm._check(f"ranks[{m}].subset", r.subset, torch.bool, (W,), dev)
-    hmm._check(f"ranks[{m}].g", r.g, torch.float32, (2, B, W), dev)
-    hmm._check_aligned(f"ranks[{m}].g", r.g)
-    hmm._check(f"ranks[{m}].maxima", r.maxima, torch.float32, (B, 3), dev)
+    hmm._check(f"ranks[{m}].maxima", r.maxima, torch.float32,
+               (2, B, NMAX_WAVE), dev)
+    hmm._check(f"ranks[{m}].sums", r.sums, torch.float32,
+               (2, B, block_sums_width(W)), dev)
     hmm._check(f"ranks[{m}].red", r.red, torch.float32, (B, T, NRED_WAVE),
                dev)
     hmm._check(f"ranks[{m}].flags", r.flags, torch.int32, (B,), dev)
@@ -484,21 +549,27 @@ def _check_em_wave_rank(m: int, r: EMWaveRank, B: int, T: int, W: int,
 
 
 def em_backward_wave_kernel(ranks, local, lo: int, hi: int,
-                            train_scaling: bool,
-                            train_transitions: bool) -> None:
+                            train_scaling: bool, train_transitions: bool,
+                            cluster: bool | None = None) -> None:
     """K5m on the card: em_backward_wave_plain's work for the ranks `local`
     (indices into `ranks`, all on one card; 2 to 64 ranks in all) over the
-    reads [lo, hi), one cooperative launch on that card's current stream,
-    whose grid (hi - lo reads x len(local) ranks) must fit the card at once
-    (em_backward_wave_resident), or the launch raises.  The other ranks run
-    their blocks of the same reads in a launch of their own card; their g
-    slices, maxima, records and counters are read over peer access.  The
-    row's first rank waits for every peer's last step and folds the row's
-    statistics into its scal and st3.  A block waits WAVE_TIMEOUT_S on a
-    peer at most.  At least one train flag must be set."""
+    reads [lo, hi), one launch on that card's current stream.  cluster (by
+    default hmm.wave_cluster(M, sys) where `local` holds every rank): each
+    read's M blocks one thread block cluster, any number of reads.  Else
+    one cooperative launch, whose grid (hi - lo reads x len(local) ranks)
+    must fit the card at once (em_backward_wave_resident), or the launch
+    raises; the other ranks run their blocks of the same reads in a launch
+    of their own card; their maxima, block sums, records and counters are
+    read over peer access, and a block waits WAVE_TIMEOUT_S on a peer at
+    most.  The row's first rank folds the row's statistics into its scal
+    and st3 once every peer's record is in.  At least one train flag must
+    be set."""
     if not (train_scaling or train_transitions):
         raise ValueError("K5m runs with a train flag set")
     B, T, W, shift, dev, sys = hmm._wave_setup(ranks, local, lo, hi, "K5m")
+    if cluster is None:
+        cluster = (hmm.wave_cluster(len(ranks), sys)
+                   and len(local) == len(ranks))
     vals, keep = [], []
     for m, r in enumerate(ranks):
         _check_em_wave_rank(m, r, B, T, W, train_scaling)
@@ -518,12 +589,13 @@ def em_backward_wave_kernel(ranks, local, lo: int, hi: int,
                  r.W.data_ptr() if train_scaling else 0,
                  r.alphas.data_ptr(), r.lpd.data_ptr(), r.x_unc.data_ptr(),
                  r.t_start.data_ptr(), r.valid.data_ptr(), own[2], own[3],
-                 r.g.data_ptr(), r.maxima.data_ptr(), r.red.data_ptr(),
+                 r.maxima.data_ptr(), r.sums.data_ptr(), r.red.data_ptr(),
                  r.flags.data_ptr(), r.scal.data_ptr(), r.st3.data_ptr()]
     table = hmm._rank_table(vals, local, dev)
     err = _cuda.load().nc_em_backward_wave(
         table.data_ptr(), len(local), B, T, lo, hi - lo, shift,
-        int(train_scaling), int(train_transitions), int(sys), LOG_2PI,
+        int(train_scaling), int(train_transitions), int(sys), int(cluster),
+        LOG_2PI,
         int(hmm.WAVE_TIMEOUT_S * 1e9), hmm._timed_out.data_ptr(),
         *_cuda.target(dev))
     _cuda.check(err, "em_backward_wave kernel launch")

@@ -1277,10 +1277,11 @@ def combine_rank_sums(parts) -> torch.Tensor:
 # K4m: K4 with the states split over M ranks (the EM round on the state
 # axis, parallel/statepar.py).  Rank m holds the states [m W, (m + 1) W), W
 # = n / M: its (B, W) tables, its (T, B, W) slice of the alphas (or, storing
-# none, a (2, B, W) column buffer), B step counters and its copy of
-# log Pr[data].  A step reads the whole previous column in place from every
-# rank's slice: the max runs over all n states, and the strided sums S4 and
-# S16 of a rank's states reach into every slice.
+# none, a (2, B, W) column buffer), its (3, B) partials, B step counters and
+# its copy of log Pr[data].  A step publishes the rank's slice of the
+# previous column with the slice's partial max; the max over all n states
+# is the max of the M partials, and each rank reads only the rows of the
+# strided sums S4 and S16 that its states read.
 # ---------------------------------------------------------------------------
 
 
@@ -1290,15 +1291,18 @@ class FwdWaveRank(NamedTuple):
     side) and of the scaled model, the row's (B, T) events and (B,)
     lengths whole, alphas (T, B, W) float32 (its slice of K4's alphas) or
     None, col (2, B, W) float32 (the column of event t at parity t % 2)
-    when alphas is None, lpd (B,) float32 (log Pr[data], every rank's
-    copy) and its step counters flags (B,) int32, zero before each launch
-    (K4m's exchange; the plain version leaves them)."""
+    when alphas is None, part (3, B) float32 (the partial max of its slice
+    of column t at parity t % 2, then its partial sum for log Pr[data]),
+    lpd (B,) float32 (log Pr[data], every rank's copy), its step counters
+    flags (B,) int32, zero before each launch (K4m's exchange; the plain
+    version leaves them)."""
 
     gtf: GroupedTransFull
     model: ModelArrays
     ev: dict
     alphas: torch.Tensor | None
     col: torch.Tensor | None
+    part: torch.Tensor
     lpd: torch.Tensor
     flags: torch.Tensor
 
@@ -1308,87 +1312,143 @@ def _column_of(r: FwdWaveRank, t: int) -> torch.Tensor:
     return r.alphas[t] if r.alphas is not None else r.col[t % 2]
 
 
+def ranks_amax(parts, device) -> torch.Tensor:
+    """torch.amax over the M ranks' partial maxima (M tensors of one shape,
+    on any devices), on `device`: the max over all the states, exact.  It
+    reduces the last axis, as torch.amax over a row does: on the CPU a
+    reduction over the first axis may give another NaN's bits."""
+    return torch.amax(torch.stack([x.to(device) for x in parts], dim=-1),
+                      dim=-1)
+
+
+def strided_rows(column, start: int, width: int, device) -> torch.Tensor:
+    """The (B, width) states [start, start + width) of a column given as its
+    M (B, W) slices, read in place from the one slice that holds them
+    (width divides W, start a multiple of width)."""
+    W = column[0].shape[-1]
+    off = start % W
+    return column[start // W][:, off:off + width].to(device)
+
+
 def fwbw_forward_slice_plain(gtf: GroupedTransFull, model: ModelArrays,
-                             ev: dict, column, t: int, lo: int,
+                             ev: dict, column, maxima, t: int, lo: int,
                              alpha_out) -> None:
     """One rank's step, the plain version of K4m's step: event t's alpha at
     the states [lo, lo + W) into alpha_out (B, W).  gtf and model hold the
     rank's (B, W) cut, ev the (B, T) events and lengths whole; column is
-    the alpha of event t - 1 as its M slices (M (B, W) tensors on any
-    devices, read in place; unread at t = 0).  The step of
-    fwbw_grouped_forward_plain for these states: the max over all n = M W
-    states, the strided sums of exp(alpha - max) over every slice in r
-    order, -log(n) at t = 0."""
+    the alpha of event t - 1 as its M slices and maxima the M ranks'
+    partial maxima (B,) of them (on any devices, read in place; unread at
+    t = 0).  The step of fwbw_grouped_forward_plain for these states: the
+    max over all n = M W states from the partial maxima; S4[c] of the
+    states' c = j // 4 from the rows r 1024 + c (r < 4) and S16[c16] from
+    the rows r16 256 + c16 (r16 < 16), each row's W / 4 or W / 16 values
+    read from the slice that holds them, exp(alpha - max) of each, summed
+    in r order; -log(n) at t = 0."""
     M, W = len(column), column[0].shape[-1]
     n = M * W
     mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    dev = mean.device
     if t == 0:
         alpha_out.copy_(log_emission(model, mean[:, 0], stdv[:, 0],
                                      log_stdv[:, 0]) - math.log(n))
         return
     cols = slice(lo, lo + W)
-    m_ = {k: v[cols] for k, v in correction_masks(gtf.K, mean.device).items()}
+    m_ = {k: v[cols] for k, v in correction_masks(gtf.K, dev).items()}
     e_stay, e_step, e_skip = _fwd_exp_tables(gtf)
-    alpha = gather_column(column, mean.device)
-    m = torch.amax(alpha, dim=-1, keepdim=True)
+    m = ranks_amax(maxima, dev)[:, None]
+
+    def strided(r: int, width: int):
+        s = None
+        for k in range(r):
+            e = torch.exp(strided_rows(column, k * (n // r) + lo * width // W,
+                                       width, dev) - m)
+            s = e if s is None else s + e
+        return s.repeat_interleave(W // width, dim=1)
+
+    S4, S16 = strided(4, W // 4), strided(16, W // 16)
+    alpha = column[lo // W].to(dev)
     E = torch.exp(alpha - m)
-    S4 = strided_sum(E, 4).repeat_interleave(4, dim=1)[:, cols]
-    S16 = strided_sum(E, 16).repeat_interleave(16, dim=1)[:, cols]
-    E = E[:, cols]
     total = (e_stay * E + e_step * (S4 - m_["H"] * E)
              + e_skip * (S16 - m_["P2mH"] * E - m_["S5"] * S4))
     em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
     alpha_out.copy_(torch.where((t < ev["length"])[:, None],
-                                em + m + torch.log(total), alpha[:, cols]))
-
-
-def log_pr_data_plain(column, device=None) -> torch.Tensor:
-    """log Pr[data] (B,) of a final alpha column given as its M slices, as
-    fwbw_grouped_forward_plain takes it from the whole column: the max,
-    then the tree sum of exp(alpha - max) over all n states."""
-    alpha = gather_column(column, device)
-    mfin = torch.amax(alpha, dim=-1)
-    return mfin + torch.log(tree_sum(torch.exp(alpha - mfin[:, None])))
+                                em + m + torch.log(total), alpha))
 
 
 def fwbw_forward_wave_plain(ranks, lo: int, hi: int) -> None:
     """Plain version of K4m: events 0 .. T - 1 of the reads [lo, hi) for
     every rank of a data row (ranks: its M FwdWaveRanks in rank order).
-    Each step, every rank runs fwbw_forward_slice_plain on the peers'
-    slices of the previous column, read in place, into its slice of
-    column t (alphas[t], or col[t % 2]); after the last, every rank's lpd
-    takes log Pr[data] from the whole final column.  The counters are left
-    as they are."""
+    Each step, every rank publishes its slice of the previous column's
+    partial max into part[(t - 1) % 2], then runs fwbw_forward_slice_plain
+    on the peers' slices and partial maxima, read in place, into its slice
+    of column t (alphas[t], or col[t % 2]); after the last, every rank
+    publishes its final partial max and its partial sum (part[2]: its
+    slice's tree sum of exp(alpha - max), a whole subtree of
+    fwbw_grouped_forward_plain's), and its lpd takes log Pr[data] from the
+    M partials (the sums combined by combine_rank_sums).  The counters are
+    left as they are."""
     rows = slice(lo, hi)
     T = ranks[0].ev["mean"].shape[1]
     W = ranks[0].model.level_mean.shape[-1]
     parts = [(GroupedTransFull(*(x[rows] for x in r.gtf[:5]), K=r.gtf.K),
               ModelArrays(*(x[rows] for x in r.model)),
               {k: v[rows] for k, v in r.ev.items()}) for r in ranks]
+
+    def publish_max(tc: int) -> list:
+        for r in ranks:
+            r.part[tc % 2, rows] = torch.amax(_column_of(r, tc)[rows], dim=-1)
+        return [r.part[tc % 2, rows] for r in ranks]
+
     for t in range(T):
         column = [_column_of(r, max(t - 1, 0))[rows] for r in ranks]
+        maxima = publish_max(t - 1) if t else None
         for m, (r, (gtf, model, ev)) in enumerate(zip(ranks, parts)):
-            fwbw_forward_slice_plain(gtf, model, ev, column, t, m * W,
-                                     _column_of(r, t)[rows])
-    final = [_column_of(r, T - 1)[rows] for r in ranks]
+            fwbw_forward_slice_plain(gtf, model, ev, column, maxima, t,
+                                     m * W, _column_of(r, t)[rows])
+    maxima = publish_max(T - 1)
     for r in ranks:
-        r.lpd[rows] = log_pr_data_plain(final, r.lpd.device)
+        mfin = ranks_amax(maxima, r.part.device)
+        r.part[2, rows] = tree_sum(torch.exp(_column_of(r, T - 1)[rows]
+                                             - mfin[:, None]))
+    for r in ranks:
+        dev = r.lpd.device
+        mfin = ranks_amax(maxima, dev)
+        r.lpd[rows] = mfin + torch.log(combine_rank_sums(
+            [x.part[2, rows].to(dev) for x in ranks]))
 
 
-#: fwbw_forward_wave_resident's answers, by (card index, sys, stored)
+#: the most ranks of a data row that K4m and K5m run as one thread block
+#: cluster (csrc/wave_exchange.cuh MAX_CLUSTER)
+MAX_CLUSTER = 8
+
+
+def wave_cluster(M: int, sys: bool) -> bool:
+    """Whether K4m's and K5m's launches over a data row of M ranks take the
+    cluster path by default: every rank on the launch's card (not sys) and
+    M <= MAX_CLUSTER.  Then a read's M blocks are one cluster, exchanging
+    through their shared memory, and a launch may hold any number of
+    reads; else the blocks exchange through global memory behind counters
+    in a cooperative grid that must fit the card at once."""
+    return not sys and M <= MAX_CLUSTER
+
+
+#: fwbw_forward_wave_resident's answers, by (card index, sys, W, cluster)
 _fwd_resident: dict = {}
 
 
-def fwbw_forward_wave_resident(dev, sys: bool = False,
-                               stored: bool = True) -> int:
-    """The most blocks of K4m's instance (sys: the exchange across cards;
-    stored: with the alphas) that the CUDA device `dev` holds at once: a
-    wave's grid, reads times the card's ranks, must not exceed it."""
-    key = (torch.device(dev).index, bool(sys), bool(stored))
+def fwbw_forward_wave_resident(dev, sys: bool, W: int,
+                               cluster: bool = False) -> int:
+    """The most blocks of K4m's instance (sys: the exchange across cards)
+    at slices of W states that the
+    CUDA device `dev` holds at once: a cooperative wave's grid, reads times
+    the card's ranks, must not exceed it; cluster: the blocks of the most
+    clusters of the cluster path it holds at once."""
+    key = (torch.device(dev).index, bool(sys), int(W), bool(cluster))
     if key not in _fwd_resident:
         blocks = ctypes.c_int(0)
         _cuda.check(_cuda.load().nc_fwbw_forward_wave_resident(
-            int(sys), key[0], ctypes.byref(blocks)),
+            int(sys), _slice_shift(4096 // W, W),
+            int(cluster), key[0], ctypes.byref(blocks)),
             "fwbw_forward_wave occupancy")
         _fwd_resident[key] = blocks.value
     return _fwd_resident[key]
@@ -1410,6 +1470,7 @@ def _check_fwd_wave_rank(m: int, r: FwdWaveRank, B: int, T: int,
     else:
         _check(f"ranks[{m}].col", r.col, torch.float32, (2, B, W), dev)
         _check_aligned(f"ranks[{m}].col", r.col)
+    _check(f"ranks[{m}].part", r.part, torch.float32, (3, B), dev)
     _check(f"ranks[{m}].lpd", r.lpd, torch.float32, (B,), dev)
     _check(f"ranks[{m}].flags", r.flags, torch.int32, (B,), dev)
 
@@ -1478,17 +1539,23 @@ def _rank_table(vals: list, local, dev) -> torch.Tensor:
         dev, non_blocking=True)
 
 
-def fwbw_forward_wave_kernel(ranks, local, lo: int, hi: int) -> None:
+def fwbw_forward_wave_kernel(ranks, local, lo: int, hi: int,
+                             cluster: bool | None = None) -> None:
     """K4m on the card: fwbw_forward_wave_plain's work for the ranks
     `local` (indices into `ranks`, all on one card; 2 to 64 ranks in all)
-    over the reads [lo, hi), one cooperative launch on that card's current
-    stream, whose grid (hi - lo reads x len(local) ranks) must fit the card
-    at once (fwbw_forward_wave_resident), or the launch raises.  The other
-    ranks run their blocks of the same reads in a launch of their own card;
-    their slices and counters are read over peer access.  A block waits
-    WAVE_TIMEOUT_S on a peer at most.  Raises if a wave of this process
-    timed out (wave_timeout)."""
+    over the reads [lo, hi), one launch on that card's current stream.
+    cluster (by default wave_cluster(M, sys) where `local` holds every
+    rank): each read's M blocks one thread block cluster, any number of
+    reads.  Else one cooperative launch, whose grid (hi - lo reads x
+    len(local) ranks) must fit the card at once
+    (fwbw_forward_wave_resident), or the launch raises; the other ranks run
+    their blocks of the same reads in a launch of their own card; their
+    slices, partials and counters are read over peer access, and a block
+    waits WAVE_TIMEOUT_S on a peer at most.  Raises if a wave of this
+    process timed out (wave_timeout)."""
     B, T, W, shift, dev, sys = _wave_setup(ranks, local, lo, hi, "K4m")
+    if cluster is None:
+        cluster = wave_cluster(len(ranks), sys) and len(local) == len(ranks)
     stored = ranks[0].alphas is not None
     vals, keep = [], []
     for m, r in enumerate(ranks):
@@ -1503,11 +1570,12 @@ def fwbw_forward_wave_kernel(ranks, local, lo: int, hi: int) -> None:
         vals += [r.ev["mean"].data_ptr(), r.ev["stdv"].data_ptr(),
                  r.ev["log_stdv"].data_ptr(), r.ev["length"].data_ptr(),
                  *tables, (r.alphas if stored else r.col).data_ptr(),
-                 r.lpd.data_ptr(), r.flags.data_ptr()]
+                 r.part.data_ptr(), r.lpd.data_ptr(), r.flags.data_ptr()]
     table = _rank_table(vals, local, dev)
     err = _cuda.load().nc_fwbw_forward_wave(
         table.data_ptr(), len(local), B, T, lo, hi - lo, shift, int(stored),
-        int(sys), LOG_2PI, math.log(len(ranks) * W),
+        int(sys), int(cluster), LOG_2PI,
+        math.log(len(ranks) * W),
         int(WAVE_TIMEOUT_S * 1e9), _timed_out.data_ptr(), *_cuda.target(dev))
     _cuda.check(err, "fwbw_forward_wave kernel launch")
     _cuda.count_launch(fwbw_forward_wave_kernel)

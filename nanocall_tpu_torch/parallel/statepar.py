@@ -71,16 +71,21 @@ the state axis under nanocall_tpu/parallel/mesh.py:126 shard_train_inputs:
 train_one_round_placed gives rank m its cut of train.round_inputs (the
 scaled models and state weights of its states; the grouped tables and the
 subset built whole and cut; the whole tables' codebooks), and
-em_round_statepar runs a data row: K4m (hmm.fwbw_forward_wave_kernel, a
-launch a wave and card; waves cut by plan_waves on K4m's own resident
-blocks), each step every rank reading the whole alpha column in place
-from the ranks' slices of the alphas, which it stores a 1/M share of;
-then K5m (em.em_backward_wave_kernel, its own waves), each step every
-rank publishing g = em(t + 1) + beta of its states, running K5's
-recursion on the whole g column, and taking its states' statistics as
-subtrees of K5's pairwise sums (the masked maxima over all states by a
-second exchange); the row's first rank combines the ranks' per-step
-partials pairwise in rank order and folds them in K5's order.  The
+em_round_statepar runs a data row: K4m (hmm.fwbw_forward_wave_kernel, W
+/ 4 threads a block, so that a read's M blocks fit an SM), each step
+every rank publishing its slice of the alphas, which it stores a 1/M
+share of, with the slice's partial max, and reading only the rows of the
+strided sums its states read; then K5m (em.em_backward_wave_kernel,
+blocks sized as K4m's), each step every rank publishing its partial max
+of g = em(t + 1) + beta (with its partial masked maxima of the step
+before), then the sums of its own blocks of 4 and 16 states, and taking
+its states' beta and statistics as subtrees of K5's pairwise sums; the
+row's first rank combines the ranks' per-step partials pairwise in rank
+order and folds them in K5's order.  A row on one card of at most
+hmm.MAX_CLUSTER ranks takes one launch of each, a thread block cluster a
+read (the exchange in shared memory); else a launch a wave and card,
+cut by plan_waves on each kernel's own resident blocks (the exchange in
+global memory behind counters).  The
 M-steps run in plain torch on the row's first device, on the row's
 groups.  So the round is bit-identical to the unplaced one, NaN bits
 included; a row of one rank runs K4 + K5.
@@ -179,20 +184,25 @@ def _wait_all(cards) -> None:
                     torch.cuda.current_stream(b))
 
 
-def _wave_kernels(ranks, launch, resident) -> None:
+def _wave_kernels(ranks, launch, resident, clusters: bool = False) -> None:
     """One launch a wave and card over a data row's ranks (launch(ranks,
     local, lo, hi)), the waves cut by plan_waves from resident(card, sys);
-    across cards every card waits first for the others' counters to be
-    zeroed, and the row's first card for the others' waves after the
-    last."""
+    with `clusters` (K4m, K5m), a row on one card of at most
+    hmm.MAX_CLUSTER ranks in one launch of all its reads, which the
+    kernels run as a cluster a read.  Across cards every card waits first
+    for the others' counters to be zeroed, and the row's first card for
+    the others' waves after the last."""
     devices = [r.ev["mean"].device for r in ranks]
     cards = list(dict.fromkeys(devices))
     for a in cards:
         for b in cards:
             _cuda.enable_peer_access(a, b)
     sys = len(cards) > 1
-    waves = plan_waves(ranks[0].flags.shape[0], devices,
-                       {d: resident(d, sys) for d in cards})
+    B = ranks[0].flags.shape[0]
+    if clusters and hmm.wave_cluster(len(ranks), sys):
+        waves = {cards[0]: [(0, B)]}
+    else:
+        waves = plan_waves(B, devices, {d: resident(d, sys) for d in cards})
     local = {d: [m for m, x in enumerate(devices) if x == d] for d in cards}
     if sys:
         _wait_all(cards)
@@ -501,7 +511,8 @@ def split_round_states(ev: dict, models: dict, pm_params, st_params,
 
 
 def _fwd_wave_rank(inp: dict, stored: bool) -> hmm.FwdWaveRank:
-    """A rank's cut of round_inputs with K4m's outputs and counters."""
+    """A rank's cut of round_inputs with K4m's outputs, partials and
+    counters."""
     B, T = inp["ev"]["mean"].shape
     W = inp["model"].level_mean.shape[-1]
     dev = inp["ev"]["mean"].device
@@ -512,7 +523,7 @@ def _fwd_wave_rank(inp: dict, stored: bool) -> hmm.FwdWaveRank:
     return hmm.FwdWaveRank(
         inp["gtf"], inp["model"], inp["ev"],
         buf(T, B, W) if stored else None, None if stored else buf(2, B, W),
-        buf(B), torch.zeros(B, dtype=torch.int32, device=dev))
+        buf(3, B), buf(B), torch.zeros(B, dtype=torch.int32, device=dev))
 
 
 def _em_wave_rank(inp: dict, fwd: hmm.FwdWaveRank) -> em.EMWaveRank:
@@ -528,8 +539,9 @@ def _em_wave_rank(inp: dict, fwd: hmm.FwdWaveRank) -> em.EMWaveRank:
     return em.EMWaveRank(
         inp["gtf"], inp["books"], inp["model"], inp["ev"], fwd.lpd,
         fwd.alphas, inp["W"], inp["x_unc"], inp["t_start"], inp["valid"],
-        inp["subset"], inp["p_stay_seq"], inp["p_skip_seq"], buf(2, B, W),
-        buf(B, 3), buf(B, T, em.NRED_WAVE),
+        inp["subset"], inp["p_stay_seq"], inp["p_skip_seq"],
+        buf(2, B, em.NMAX_WAVE), buf(2, B, em.block_sums_width(W)),
+        buf(B, T, em.NRED_WAVE),
         torch.zeros(B, dtype=torch.int32, device=dev), buf(B, 14),
         buf(B, 3))
 
@@ -571,23 +583,23 @@ def em_round_statepar(rows, train_scaling: bool = True,
             continue
         B = ranks[0]["ev"]["mean"].shape[0]
         fwd = [_fwd_wave_rank(inp, train_any) for inp in ranks]
+        W = fwd[0].model.level_mean.shape[-1]
         if kernels:
             _wave_kernels(fwd, hmm.fwbw_forward_wave_kernel,
                           lambda d, sys: hmm.fwbw_forward_wave_resident(
-                              d, sys, train_any))
+                              d, sys, W), clusters=True)
         else:
             hmm.fwbw_forward_wave_plain(fwd, 0, B)
         if not train_any:
             out.append((fwd[0].lpd, None, None))
             continue
         bwd = [_em_wave_rank(inp, f) for inp, f in zip(ranks, fwd)]
-        W = fwd[0].model.level_mean.shape[-1]
         if kernels:
             _wave_kernels(
                 bwd, lambda *a: em.em_backward_wave_kernel(
                     *a, train_scaling, train_transitions),
                 lambda d, sys: em.em_backward_wave_resident(
-                    d, sys, train_scaling, W))
+                    d, sys, train_scaling, W), clusters=True)
         else:
             em.em_backward_wave_plain(bwd, 0, B, train_scaling,
                                       train_transitions)

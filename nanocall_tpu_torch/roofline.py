@@ -534,6 +534,26 @@ def viterbi_traceback_slices_counts(B: int, T: int) -> tuple:
     return viterbi_traceback_counts(B, T)
 
 
+def _peer_reads(ranks: int, r: int) -> int:
+    """The values of the column that K4m's ranks read from a slice other
+    than their own a step, for the strided sum S_r (S_r[c] sums the rows k
+    n / r + c, k < r): a rank's states read S_r at its W / r columns c,
+    each of the r rows a run of W / r values in one slice."""
+    W = N_STATES // ranks
+    width = W // r
+    return sum(width for m in range(ranks) for k in range(r)
+               if (k * (N_STATES // r) + m * width) // W != m)
+
+
+def _peer_block_sums(ranks: int, r: int) -> int:
+    """The states j, over all ranks, whose block sum sum_r[j % (n / r)]
+    (of the states r c .. r c + r - 1) lies in another rank's record
+    (K5m reads one a state for r = 4 and r = 16)."""
+    W = N_STATES // ranks
+    return sum(1 for j in range(N_STATES)
+               if (j % (N_STATES // r)) * r // W != j // W)
+
+
 def statepar_exchange_bytes(B: int, T: int, ranks: int,
                             walk_rows: int = 0) -> dict:
     """The bytes a state-parallel decode or EM round of one data row (B
@@ -544,20 +564,29 @@ def statepar_exchange_bytes(B: int, T: int, ranks: int,
     K6bm's) ring copies from the slices of the ranks other than the first
     (the walk's card): W bytes of each of the ranks - 1 slices a row, over
     the walk_rows rows it streams (walk_rows()).  The EM round's (K4m,
-    K5m): "alpha_column", K4m's reads of the peers' alpha slices, the
-    columns of events 0 .. T - 2 it steps from and the final one it takes
-    log Pr[data] from; "g_column", K5m's reads of the peers' g slices, one
-    column a step (T - 1 steps); "maxima", K5m's reads of the peers' 3
-    partial maxima a read and step (with train_transitions); "partials",
-    the first rank's reads of the peers' per-step records (9 float32 a
-    read and event) for the fold."""
+    K5m), with both train flags: "alpha_rows", K4m's reads of the peers'
+    alpha slices, a step (events 1 .. T - 1) only the rows of S4 and S16
+    that a rank's states read (_peer_reads); "fwd_partials", K4m's reads
+    of the peers' partial maxima (T columns) and of their partial sums of
+    log Pr[data], a float each; "block_sums", K5m's reads of the peers'
+    records of block sums, a step (T - 1 steps) sum4, log sum4 and sum16
+    for each state whose block lies in another rank (_peer_block_sums);
+    "maxima", K5m's reads of the peers' 4 published maxima a read, at each
+    step and the last exchange; "partials", the first rank's reads of the
+    peers' per-step records (9 float32 a read and event) for the fold.
+    K4m's and K5m's reads come from the peers' shared memory on their
+    cluster path (one card), else from L2 or over NVLink."""
     W = N_STATES // ranks
     column = ranks * (ranks - 1) * 4 * B * W
+    peers = ranks * (ranks - 1) * 4 * B
     return {"column": (T - 1) * column,
             "walk": walk_rows * (ranks - 1) * W,
-            "alpha_column": T * column,
-            "g_column": (T - 1) * column,
-            "maxima": (T - 1) * ranks * (ranks - 1) * 12 * B,
+            "alpha_rows": (T - 1) * 4 * B * (_peer_reads(ranks, 4)
+                                             + _peer_reads(ranks, 16)),
+            "fwd_partials": (T + 1) * peers,
+            "block_sums": (T - 1) * 4 * B * (2 * _peer_block_sums(ranks, 4)
+                                             + _peer_block_sums(ranks, 16)),
+            "maxima": T * 4 * peers,
             "partials": (ranks - 1) * 36 * B * T}
 
 
@@ -736,7 +765,7 @@ KERNEL_COUNTS = {
     "viterbi_generic_traceback_slices": viterbi_generic_traceback_counts,
     # K4m and K5m: the function a data row's EM round computes, whatever
     # its ranks (K4's with the alphas stored, K5's with both statistics);
-    # the peers' slices, maxima and records they read apart
+    # the peers' rows, maxima, block sums and records they read apart
     # (statepar_exchange_bytes)
     "fwbw_forward_wave": fwbw_forward_counts,
     "em_backward_wave": em_backward_counts,

@@ -10,6 +10,7 @@ chip_smoke.py runs the same checks at the main path's full shapes; these
 are small and quick.
 """
 
+import itertools
 import pathlib
 
 import numpy as np
@@ -923,6 +924,48 @@ def test_statepar_wave_timeout_on_the_card(card, tmp_path):
     assert "raised (1, 3, 0, 1)" in proc.stdout, proc.stdout
 
 
+@pytest.mark.cuda
+def test_em_statepar_wave_timeout_on_the_card(card, tmp_path):
+    """test_statepar_wave_timeout_on_the_card's twin for K5m, at its second
+    counter phase: a wave of one read whose peer never runs (rank 0 of 2
+    launched alone, on K4m's alphas of both ranks), the peer's counter set
+    to 1 as if it had published its first step's maxima and no more,
+    passes the first phase, waits out its timeout (0.5 s here) at the
+    second (the block sums), records (t, read, rank, peer) = (2, 3, 0, 1)
+    and traps: the next synchronize raises; it does not hang.  In a
+    process of its own, whose card context the trap ends."""
+    import subprocess
+    import sys
+
+    script = tmp_path / "timeout.py"
+    script.write_text(
+        "import sys, torch\n"
+        "sys.path[:0] = [%r, %r]\n"
+        "from test_torch_cuda import _train_batch\n"
+        "from nanocall_tpu_torch.ops import em, hmm\n"
+        "from nanocall_tpu_torch.parallel import statepar\n"
+        "card = torch.device('cuda', 0)\n"
+        "hmm.WAVE_TIMEOUT_S = 0.5\n"
+        "batch = _train_batch(card, 2, 6, False, 31)\n"
+        "ranks = statepar.split_round_states(*batch, [card] * 2)\n"
+        "fwd = [statepar._fwd_wave_rank(r, True) for r in ranks]\n"
+        "hmm.fwbw_forward_wave_kernel(fwd, [0, 1], 0, 8)\n"
+        "bwd = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]\n"
+        "bwd[1].flags[3] = 1\n"
+        "torch.cuda.synchronize()\n"
+        "em.em_backward_wave_kernel(bwd, [0], 3, 4, True, True)\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', hmm.wave_timeout())\n"
+        "    sys.exit(3)\n"
+        "print('no error')\n" % (str(ROOT), str(ROOT / "tests")))
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 3, (proc.stdout, proc.stderr[-2000:])
+    assert "raised (2, 3, 0, 1)" in proc.stdout, proc.stdout
+
+
 def _grouped_walk_inputs(dev, B: int, T: int, lengths, seed: int):
     """A grouped traceback's inputs drawn at random: final alphas (B,
     4096) and valid grouped backpointer bytes (stay 0, step 64 + [0, 4),
@@ -1138,15 +1181,17 @@ def _train_batch(dev, G: int, T: int, nan: bool, seed: int):
 @pytest.mark.parametrize("inputs", ["clean", "NaN"])
 def test_train_statepar_kernels_bit_equal_on_the_card(card, inputs):
     """K4m and K5m, the EM round's kernels with the 4096 states split over
-    M = 2, 4 and 8 ranks on cuda:0 (parallel/statepar.py), against their
-    plain versions over the same ranks and against K4 + K5, every output as
-    bits: K4m with the alphas stored and without, K5m with both train
-    flags and each alone, on rows of lengths 0, 1, T-1 and T and an
-    invalid row (clean) and on NaN / +inf inputs; one launch of each a
-    wave (one wave here).  Then the placed round
+    M = 2, 4, 8 and 64 ranks on cuda:0 (parallel/statepar.py), against
+    their plain versions over the same ranks and against K4 + K5, every
+    output as bits: K4m with the alphas stored and without, on its default
+    path (a cluster a read up to 8 ranks) and, up to 8 ranks, on its
+    cooperative path; K5m with both train flags and each alone, on both
+    paths;
+    on rows of lengths 0, 1, T-1 and T and an invalid row (clean) and on
+    NaN / +inf inputs; one launch of each (one wave).  Then the placed round
     (statepar.train_one_round_placed on mesh.shard_train_inputs) on (1, M)
     and (2, M) meshes of cuda:0 against the unplaced round, with both
-    flags, each alone and neither."""
+    flags, each alone and neither (M < 64)."""
     from nanocall_tpu_torch import train
     from nanocall_tpu_torch.ops import em
     from nanocall_tpu_torch.parallel import mesh, statepar
@@ -1156,22 +1201,26 @@ def test_train_statepar_kernels_bit_equal_on_the_card(card, inputs):
     B = inp["x_unc"].shape[0]
     alphas, lpd = hmm.fwbw_grouped_forward(inp["gtf"], inp["model"],
                                            inp["ev"])
-    for M in (2, 4, 8):
+    for M in (2, 4, 8, 64):
         W = 4096 // M
         ranks = statepar.split_round_states(*batch, [card] * M)
-        for stored in (True, False):
+        # (stored, cluster): None the default path
+        forms = [(True, None), (False, None)]
+        if M <= hmm.MAX_CLUSTER:
+            forms += [(True, False)]
+        for stored, cluster in forms:
             fk = [statepar._fwd_wave_rank(r, stored) for r in ranks]
             fp = [statepar._fwd_wave_rank(r, stored) for r in ranks]
             n0 = hmm.fwbw_forward_wave_kernel.launches
             statepar._wave_kernels(
-                fk, hmm.fwbw_forward_wave_kernel,
-                lambda d, sys: hmm.fwbw_forward_wave_resident(d, sys,
-                                                              stored))
+                fk, lambda *a: hmm.fwbw_forward_wave_kernel(*a, cluster),
+                lambda d, sys: hmm.fwbw_forward_wave_resident(d, sys, W),
+                clusters=cluster is None)
             hmm.fwbw_forward_wave_plain(fp, 0, B)
             torch.cuda.synchronize()
             assert hmm.fwbw_forward_wave_kernel.launches - n0 == 1
             for rk, rp in zip(fk, fp):
-                what = (inputs, M, stored)
+                what = (inputs, M, stored, cluster)
                 assert torch.equal(_bits(rk.lpd), _bits(rp.lpd)), what
                 assert torch.equal(_bits(rk.lpd), _bits(lpd)), what
                 if stored:
@@ -1180,24 +1229,28 @@ def test_train_statepar_kernels_bit_equal_on_the_card(card, inputs):
                 got = torch.cat([r.alphas for r in fk], dim=2)
                 assert torch.equal(_bits(got), _bits(alphas)), (inputs, M)
                 fwd = fk
-        for ts, tt in ((True, True), (True, False), (False, True)):
+        paths = (None, False) if M <= hmm.MAX_CLUSTER else (None,)
+        for (ts, tt), cluster in itertools.product(
+                ((True, True), (True, False), (False, True)), paths):
             want = em.em_backward_kernel(*train.em_backward_args(
                 inp if ts else {**inp, "W": None}, lpd, alphas, ts, tt))
             bk = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
             bp = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
             n0 = em.em_backward_wave_kernel.launches
             statepar._wave_kernels(
-                bk, lambda *a: em.em_backward_wave_kernel(*a, ts, tt),
-                lambda d, sys: em.em_backward_wave_resident(d, sys, ts, W))
+                bk, lambda *a: em.em_backward_wave_kernel(*a, ts, tt,
+                                                          cluster),
+                lambda d, sys: em.em_backward_wave_resident(d, sys, ts, W),
+                clusters=cluster is None)
             em.em_backward_wave_plain(bp, 0, B, ts, tt)
             torch.cuda.synchronize()
             assert em.em_backward_wave_kernel.launches - n0 == 1
             for g, p, w in zip((bk[0].scal, bk[0].st3),
                                (bp[0].scal, bp[0].st3), want):
-                what = (inputs, M, ts, tt)
+                what = (inputs, M, ts, tt, cluster)
                 assert torch.equal(_bits(g), _bits(p)), what
                 assert torch.equal(_bits(g), _bits(w)), what
-        for D in (1, 2):
+        for D in ((1, 2) if M < 64 else ()):
             grid = mesh.make_mesh(D * M, model_axis=M,
                                   devices=[card] * (D * M))
             placed = mesh.shard_train_inputs(grid, *batch)

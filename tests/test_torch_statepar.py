@@ -312,8 +312,9 @@ def test_slice_kernel_counts():
     the final column once, a backpointer byte per event after the first
     and state; K1's operations for all n states) and K2's; the exchange
     apart: the peers' slices read in place and the walk's ring copies from
-    the other ranks' slices.  At 128 x 8192 K1m is bound by operations,
-    1.839 ms, as K1 is."""
+    the other ranks' slices (and the EM round's: K4m's strided rows and
+    partials, K5m's block sums and maxima, the fold's records).  At 128 x
+    8192 K1m is bound by operations, 1.839 ms, as K1 is."""
     B, n = 128, 4096
     for T in (1, 8192):
         assert roofline.kernel_counts("viterbi_forward_slice", B, T) == (
@@ -323,14 +324,20 @@ def test_slice_kernel_counts():
             roofline.kernel_counts("viterbi_forward_path", B, T)
         assert roofline.kernel_counts("viterbi_traceback_slices", B, T) == \
             roofline.kernel_counts("viterbi_traceback", B, T)
+    # the EM round's reads from the peers a step, over all ranks: K4m's
+    # values of the S4 and S16 rows, K5m's states whose blocks of 4 (and
+    # of 16) lie in another rank
+    rows, blocks = {1: 0, 2: 4096, 4: 6144}, {1: 0, 2: 2048, 4: 3072}
     for ranks in (1, 2, 4):
         W = n // ranks
         ex = roofline.statepar_exchange_bytes(B, 8192, ranks, 7)
+        peers = ranks * (ranks - 1) * 4 * B
         assert ex == {"column": 8191 * ranks * (ranks - 1) * 4 * B * W,
                       "walk": 7 * (ranks - 1) * W,
-                      "alpha_column": 8192 * ranks * (ranks - 1) * 4 * B * W,
-                      "g_column": 8191 * ranks * (ranks - 1) * 4 * B * W,
-                      "maxima": 8191 * ranks * (ranks - 1) * 12 * B,
+                      "alpha_rows": 8191 * 4 * B * rows[ranks],
+                      "fwd_partials": 8193 * peers,
+                      "block_sums": 8191 * 4 * B * 3 * blocks[ranks],
+                      "maxima": 8192 * 4 * peers,
                       "partials": (ranks - 1) * 36 * B * 8192}
     b = roofline.kernel_bound("viterbi_forward_slice", B, 8192)
     assert b["bound_by"] == "operations"

@@ -225,13 +225,15 @@ def _ranks(K: int, nan: bool, M: int, train_scaling: bool = True):
 
 
 @pytest.mark.parametrize("stored", [True, False])
-@pytest.mark.parametrize("M", [2, 4, 16])
+@pytest.mark.parametrize("M", [2, 4, 8, 16, 64])
 def test_forward_wave_plain_equals_k4(M, stored):
-    """The plain K4m over M ranks, in waves of 5 reads and the rest: every
-    rank's slices of the alphas (or, storing none, of the final column and
-    the one before) joined are the plain K4's, and every rank's
-    log Pr[data] is K4's, on the NaN inputs at K = 6; the counters are
-    left at 0."""
+    """The plain K4m over M ranks, in waves of 5 reads and the rest (each
+    rank publishing its slice with the slice's partial max, reading only
+    the rows of S4 and S16 its states read): every rank's slices of the
+    alphas (or, storing none, of the final column and the one before)
+    joined are the plain K4's, and every rank's log Pr[data] is K4's, on
+    the NaN inputs at K = 6 (a NaN event, a NaN model entry, a +inf event,
+    rows of length 0, 1, T - 1 and T); the counters are left at 0."""
     ranks, inp = _ranks(6, True, M)
     alphas, lpd = hmm.fwbw_grouped_forward_plain(inp["gtf"], inp["model"],
                                                  inp["ev"])
@@ -249,29 +251,34 @@ def test_forward_wave_plain_equals_k4(M, stored):
 
 
 def test_forward_slice_step_equals_the_k4_step():
-    """One plain K4m step per rank of 4 from the gathered column: the
-    ranks' slices joined are the plain K4's alpha after two events."""
+    """One plain K4m step per rank of 4 from the column's slices and their
+    partial maxima: the ranks' slices joined are the plain K4's alpha
+    after two events."""
     ranks, inp = _ranks(6, False, 4)
     ev = dict(inp["ev"], length=torch.full_like(inp["ev"]["length"], 2))
     alphas, _ = hmm.fwbw_grouped_forward_plain(inp["gtf"], inp["model"], ev)
     B = ev["mean"].shape[0]
     col = torch.empty((2, 4, B, 1024))
     for t in (0, 1):
+        maxima = [torch.amax(x, dim=-1) for x in col[1 - t]]
         for m, r in enumerate(ranks):
             hmm.fwbw_forward_slice_plain(r["gtf"], r["model"], ev,
-                                         list(col[1 - t]), t, m * 1024,
-                                         col[t, m])
+                                         list(col[1 - t]), maxima, t,
+                                         m * 1024, col[t, m])
     for t in (0, 1):
         assert torch.equal(_bits(hmm.gather_column(col[t])),
                            _bits(alphas[t]))
 
 
 @pytest.mark.parametrize("flags", ["both", "scaling", "transitions"])
-@pytest.mark.parametrize("M", [2, 4, 8])
+@pytest.mark.parametrize("M", [2, 4, 8, 64])
 def test_backward_wave_plain_equals_k5(M, flags):
     """The plain K5m over M ranks, in waves of 6 reads and the rest, on the
-    plain K4's alphas: the first rank's scal and st3 are the plain K5's
-    bit for bit, on the NaN inputs at K = 6."""
+    plain K4's alphas (each step every rank publishing its partial max
+    with its masked maxima of the step before, then its block sums): the
+    first rank's scal and st3 are the plain K5's bit for bit, on the NaN
+    inputs at K = 6 (a NaN event, a NaN model entry, a +inf event, rows of
+    length 0, 1, T - 1 and T, an invalid row)."""
     ts, tt = FLAGS[flags]
     ranks, inp = _ranks(6, True, M)
     if not ts:
@@ -292,6 +299,32 @@ def test_backward_wave_plain_equals_k5(M, flags):
     assert torch.equal(_bits(bwd[0].scal), _bits(want[0]))
     assert torch.equal(_bits(bwd[0].st3), _bits(want[1]))
     assert all(not r.flags.any() for r in bwd)
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 16, 32, 64])
+def test_published_block_sums_side_by_side_equal_block_sum(M):
+    """The records K5m's ranks publish (em.rank_block_sums of each rank's
+    slice of G = exp(g - max), with NaN and infinite g among the values),
+    put side by side in rank order: their sum4 parts are hmm.block_sum(G,
+    4) of the whole column and their sum16 parts hmm.block_sum(G, 16), bit
+    for bit, and their log parts torch.log of the sum4."""
+    rng = np.random.default_rng(40 + M)
+    g = torch.from_numpy(rng.normal(0.0, 8.0, (5, 4096)).astype(np.float32))
+    g[1, 9] = float("inf")
+    g[2, 3000] = float("nan")
+    g[3, :] = float("-inf")
+    G = torch.exp(g - torch.amax(g, dim=-1, keepdim=True))
+    W, U = 4096 // M, 1024 // M
+    recs = []
+    for m in range(M):
+        rec = torch.full((5, em.block_sums_width(W)), 7.0)
+        em.rank_block_sums(G[:, m * W:(m + 1) * W], rec, True)
+        recs.append(rec)
+    for part, want in ((slice(0, U), hmm.block_sum(G, 4)),
+                       (slice(U, 2 * U), torch.log(hmm.block_sum(G, 4))),
+                       (slice(2 * U, None), hmm.block_sum(G, 16))):
+        got = torch.cat([r[:, part] for r in recs], dim=1)
+        assert torch.equal(_bits(got), _bits(want))
 
 
 def test_em_round_statepar_without_train_flags_stores_no_alphas():
@@ -380,9 +413,12 @@ def test_em_slice_kernel_counts():
     row's round computes, whatever its ranks: K4's (alphas stored) and
     K5's; at the EM chunk, 512 x 128, their bounds are K4's 0.343 ms and
     K5's 0.352 ms.  What the ranks read from each other is counted apart:
-    the alpha columns (every event's, the final one for log Pr[data]),
-    the g columns (T - 1 steps), the partial maxima and the first rank's
-    reads of the per-step records."""
+    K4m's rows of S4 and S16 in the peers' slices (at 2 ranks half of
+    each rank's 4 S4 rows of 512 and 16 S16 rows of 128, T - 1 steps), its
+    partial maxima and sums (T + 1 exchanges), K5m's peers' block sums (a
+    state's sum4, log sum4 and sum16 where its block lies in the other
+    rank: half the states at 2 ranks, T - 1 steps), its 4 maxima (T
+    exchanges) and the first rank's reads of the per-step records."""
     for T in (1, 128):
         assert roofline.kernel_counts("fwbw_forward_wave", 512, T) == \
             roofline.kernel_counts("fwbw_forward", 512, T)
@@ -393,7 +429,13 @@ def test_em_slice_kernel_counts():
     assert roofline.kernel_bound("em_backward_wave", 512, 128)[
         "bound_ms"] == pytest.approx(0.352, abs=5e-4)
     ex = roofline.statepar_exchange_bytes(512, 128, 2)
-    assert ex["alpha_column"] == 128 * 2 * 4 * 512 * 2048
-    assert ex["g_column"] == 127 * 2 * 4 * 512 * 2048
-    assert ex["maxima"] == 127 * 2 * 12 * 512
+    assert ex["alpha_rows"] == 127 * 4 * 512 * 2 * (2 * 512 + 8 * 128)
+    assert ex["fwd_partials"] == 129 * 2 * 4 * 512
+    assert ex["block_sums"] == 127 * 4 * 512 * 3 * 2048
+    assert ex["maxima"] == 128 * 2 * 16 * 512
     assert ex["partials"] == 36 * 512 * 128
+    # at 4 ranks 3 of a rank's 4 S4 rows and 12 of its 16 S16 rows lie in
+    # the peers' slices; 3 in 4 states' blocks of 4 and of 16
+    ex = roofline.statepar_exchange_bytes(512, 128, 4)
+    assert ex["alpha_rows"] == 127 * 4 * 512 * 4 * (3 * 256 + 12 * 64)
+    assert ex["block_sums"] == 127 * 4 * 512 * 3 * 3072

@@ -5,7 +5,7 @@
                                         [--train] [--trans FILE] [--profile]
                                         [--long 100000] [--em] [--census]
                                         [--k4-launches] [--walks]
-                                        [--custom]
+                                        [--custom] [--em-mesh]
                                         [--tree DIR | --turns DIR]
 
 1. K8, the measured float32 peak at the decode's shape
@@ -77,6 +77,18 @@ reads x 2048 events (chip_smoke.py's inputs) and at 1 read x 4000 events
 (the smoke's run-fwbw read's length): the streaming kernel and, in a
 tree that has it, the resident one, bit-equal to each other and timed in
 turns (streaming, resident, resident, streaming).
+With --em-mesh, also the EM round on the mesh's state axis at the EM
+chunk (512 rows x T = 128, the whole chunk one data row) over 2 and 4
+ranks on one card: EM_MESH_REPS passes of statepar.em_round_statepar (both
+train flags) at each rank count, K4m's and K5m's launches each timed alone
+by CUDA events (the stream held first, as chip_smoke.launch_spans does:
+torch.profiler drops cooperative launches), beside K4 + K5 (the same
+round on one rank) in the same turns; each kernel's milliseconds a pass,
+its waves and its µs a step; in a tree whose kernels have the cluster
+path, K4m and K5m there against their cooperative path, in turns,
+bit-equal.  It
+runs in any tree that has the state axis's EM round (PR 17 on), so that
+two designs are timed in turns (--turns).
 With --train --k4-launches, also K4 on the inputs of each of its launches
 in one more trained pipeline run: milliseconds per launch.  Phase 1 also
 times K3's forward chunk (events [8192, 16384) of 4 reads, chunks of 8192)
@@ -146,6 +158,8 @@ def main() -> int:
                          "place of phase 1")
     ap.add_argument("--custom", action="store_true",
                     help="time K6e's kernels at 16 x 2048 and 1 x 4000")
+    ap.add_argument("--em-mesh", action="store_true",
+                    help="time K4m and K5m at 512 x 128 over 2 and 4 ranks")
     ap.add_argument("--tree", default="", metavar="DIR",
                     help="run on the checkout in DIR")
     ap.add_argument("--turns", default="", metavar="DIR",
@@ -236,6 +250,9 @@ def main() -> int:
 
     if args.custom:
         time_custom(models, device, card)
+
+    if args.em_mesh:
+        time_em_mesh(models, device, card)
 
     cfg = chip_smoke.smoke_config(*([] if args.train else ["--no-train"]),
                                   *trans_flags)
@@ -557,6 +574,179 @@ def time_em_kernels(models, device, card: str) -> None:
     time_k6c(inp, device, card, peak)
     del inp
     torch.cuda.empty_cache()
+
+
+#: passes of the EM round a rank count in --em-mesh
+EM_MESH_REPS = 5
+#: cycles the stream is held before each timed launch (chip_smoke's
+#: HOLD_CYCLES): the launch is enqueued before the hold ends
+EM_MESH_HOLD = 2_000_000
+
+
+def time_em_mesh(models, device, card: str) -> None:
+    """K4m and K5m (and K4 + K5 on one rank) at the EM chunk over 2 and 4
+    ranks on one card, a warm-up pass at each rank count, then
+    EM_MESH_REPS passes of statepar.em_round_statepar a rank count in
+    turns (1, 2, 4, 1, 2, 4, ...), each launch of the four wrappers timed
+    alone by CUDA events; then, where the tree's kernels take `cluster`,
+    both exchange paths in turns at 2 and 4 ranks, bit-equal."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch.ops import em, hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    rng = np.random.default_rng(15)
+    reads = chip_smoke.simulated_reads(models, rng)
+    batch = chip_smoke.em_kernel_inputs(models, reads, device, rng)["batch"]
+    B, T = batch[0]["mean"].shape[0] * batch[0]["mean"].shape[1], \
+        batch[0]["mean"].shape[2]
+    names = ((hmm, "fwbw_forward_kernel"), (em, "em_backward_kernel"),
+             (hmm, "fwbw_forward_wave_kernel"),
+             (em, "em_backward_wave_kernel"))
+    spans = {name: [] for _, name in names}
+
+    def timed(module, name):
+        orig = getattr(module, name)
+
+        def fn(*args, **kw):
+            with torch.cuda.device(device):
+                torch.cuda._sleep(EM_MESH_HOLD)
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            out = orig(*args, **kw)
+            stop.record(stream)
+            spans[name].append((start, stop))
+            return out
+        fn.launches = 0
+        return orig, fn
+
+    ranks = (1, 2, 4)
+    rows = {M: [statepar.split_round_states(*batch, [device] * M)]
+            for M in ranks}
+    per = {M: {name: [] for _, name in names} for M in ranks}
+    saved = {}
+    for module, name in names:
+        saved[name], fn = timed(module, name)
+        setattr(module, name, fn)
+    try:
+        for M in ranks:  # warm-up
+            statepar.em_round_statepar(rows[M])
+        torch.cuda.synchronize()
+        for v in spans.values():
+            v.clear()
+        for _ in range(EM_MESH_REPS):
+            for M in ranks:
+                for v in spans.values():
+                    v.clear()
+                statepar.em_round_statepar(rows[M])
+                torch.cuda.synchronize()
+                for name, v in spans.items():
+                    if v:
+                        per[M][name].append(
+                            (sum(a.elapsed_time(b) for a, b in v), len(v)))
+    finally:
+        for module, name in names:
+            setattr(module, name, saved[name])
+    k4, k5 = (sum(ms for ms, _ in per[1][n]) / EM_MESH_REPS
+              for n in ("fwbw_forward_kernel", "em_backward_kernel"))
+    k4k5 = k4 + k5
+    print(f"EM mesh B={B} T={T}: K4 + K5 on one rank {k4k5:.3f} ms a pass "
+          f"(K4 {k4:.3f}, K5 {k5:.3f}), mean of {EM_MESH_REPS} [{card}]",
+          flush=True)
+    clusters = "cluster" in inspect.signature(
+        hmm.fwbw_forward_wave_kernel).parameters
+    for M in ranks[1:]:
+        total = 0.0
+        W = 4096 // M
+        for name, steps, resident in (
+                ("fwbw_forward_wave_kernel", T,
+                 lambda: hmm.fwbw_forward_wave_resident(
+                     device, False, W, cluster=True)),
+                ("em_backward_wave_kernel", T - 1,
+                 lambda: em.em_backward_wave_resident(
+                     device, False, True, W, cluster=True))):
+            ms = [x for x, _ in per[M][name]]
+            waves = per[M][name][0][1]
+            rounds = waves
+            if clusters and waves == 1:
+                # one launch of clusters: the rounds of the reads resident
+                # at once
+                rounds = -(-B // (resident() // M))
+            mean = sum(ms) / len(ms)
+            total += mean
+            print(f"EM mesh {name} over {M} ranks: {mean:.3f} ms a pass "
+                  f"(passes {', '.join(f'{x:.3f}' for x in ms)}), {waves} "
+                  f"launches, {rounds} rounds of reads, "
+                  f"{1e3 * mean / (rounds * steps):.2f} µs a step "
+                  f"[{card}]", flush=True)
+        print(f"EM mesh K4m + K5m over {M} ranks: {total:.3f} ms a pass = "
+              f"{total / k4k5:.2f}x K4 + K5 [{card}]", flush=True)
+    if "cluster" not in inspect.signature(
+            hmm.fwbw_forward_wave_kernel).parameters:
+        return
+    # the exchange paths in turns: a cluster a read (the default on one
+    # card) and the cooperative grid (a row across cards takes it); each
+    # pass one call of _wave_kernels, the stream
+    # held while the host enqueues it
+    for M in ranks[1:]:
+        W = 4096 // M
+        fwd = {}
+        k4m = {"cluster": None, "cooperative": False}
+        k5m = ("cluster", "cooperative")
+        ms = {name: [] for name in (*k4m, *(f"K5m {n}" for n in k5m))}
+        for rep in range(2):
+            for name in (*k4m, *reversed(list(k4m))):
+                cluster = k4m[name]
+                fk = [statepar._fwd_wave_rank(r, True) for r in rows[M][0]]
+                ms[name].append(pass_ms(lambda: statepar._wave_kernels(
+                    fk, lambda *a: hmm.fwbw_forward_wave_kernel(*a, cluster),
+                    lambda d, sys: hmm.fwbw_forward_wave_resident(d, sys, W),
+                    clusters=cluster is None)))
+                fwd[name] = fk
+            for name in (*k5m, *reversed(k5m)):
+                bk = [statepar._em_wave_rank(r, f)
+                      for r, f in zip(rows[M][0], fwd["cluster"])]
+                cluster = None if name == "cluster" else False
+                ms[f"K5m {name}"].append(pass_ms(
+                    lambda: statepar._wave_kernels(
+                        bk, lambda *a: em.em_backward_wave_kernel(
+                            *a, True, True, cluster),
+                        lambda d, sys: em.em_backward_wave_resident(
+                            d, sys, True, W), clusters=cluster is None)))
+        for name in k4m:
+            got = torch.cat([r.alphas for r in fwd[name]], dim=2)
+            want = torch.cat([r.alphas for r in fwd["cluster"]], dim=2)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (M, name)
+        for name, v in ms.items():
+            kernel = name if name.startswith("K5m") else f"K4m {name}"
+            print(f"EM mesh {kernel} over {M} ranks: "
+                  f"{sum(v) / len(v):.3f} ms a pass (turns "
+                  f"{', '.join(f'{x:.3f}' for x in v)}); K4m's paths "
+                  f"bit-equal [{card}]", flush=True)
+
+
+def pass_ms(fn) -> float:
+    """The device milliseconds of the launches fn() enqueues on the current
+    stream, timed by CUDA events around the call, the stream held first
+    (10 EM_MESH_HOLD cycles) so that the host's enqueue falls inside the
+    hold."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10 * EM_MESH_HOLD)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
 
 
 def probe_em_under_nan(inp, card: str) -> None:

@@ -41,11 +41,12 @@ covered):
    through statepar.train_one_round_placed on
    parallel.mesh.shard_train_inputs' placement on the same meshes: fit,
    new_pm_params, done and new_st_params bit-equal to the unplaced round
-   on cuda:0 (K4 + K5), K4m and K5m launched a wave and card (their
-   exchanges at system scope: the peers' alpha and g slices, maxima,
-   records and counters read in place over peer access); each mesh's
-   wall beside the same mesh with every rank on cuda:0 and the unplaced
-   round's; then nanocall_tpu_torch.dryrun.dryrun_multichip over every
+   on cuda:0 (K4 + K5), K4m and K5m launched a wave and card on their
+   cooperative path (their exchanges at system scope: the peers' alpha
+   rows, maxima, block sums, records and counters read in place over
+   peer access); each mesh's wall, first and warm, beside the same mesh
+   with every rank on cuda:0 (the kernels' cluster path) and the
+   unplaced round's; then nanocall_tpu_torch.dryrun.dryrun_multichip over every
    card (its five steps; JAX's summary line);
 6. runs chip_smoke.py's 24 simulated reads through basecall.run_pipeline,
    untrained and trained, over the default data sharder (every card:
@@ -275,8 +276,10 @@ def run_em_mesh(models, cards, card_line: str) -> dict:
         return time.perf_counter() - t0, got
 
     k4k5_s, ref = wall(lambda: train.train_one_round(ev, mdl, pm, st))
+    # each round again, warm: the first call pays its kernels' first use
+    k4k5_warm, _ = wall(lambda: train.train_one_round(ev, mdl, pm, st))
     ref = {k: v.cpu() for k, v in ref.items()}
-    out = {"k4_k5_s": k4k5_s}
+    out = {"k4_k5_s": k4k5_s, "k4_k5_warm_s": k4k5_warm}
     for D, M in ((1, 2), (2, 2)):
         if D * M > len(cards):
             continue
@@ -287,7 +290,7 @@ def run_em_mesh(models, cards, card_line: str) -> dict:
         s, got = wall(lambda: statepar.train_one_round_placed(*placed))
         rows = 4 * G // D
         k4m = sum(len(statepar.plan_waves(rows, row, {
-            d: hmm.fwbw_forward_wave_resident(d, True, True)
+            d: hmm.fwbw_forward_wave_resident(d, True, 4096 // M)
             for d in row})[row[0]]) * len(set(row))
             for row in grid.devices)
         k5m = sum(len(statepar.plan_waves(rows, row, {
@@ -300,18 +303,25 @@ def run_em_mesh(models, cards, card_line: str) -> dict:
         for k, v in ref.items():
             assert torch.equal(chip_smoke.bits(got[k]),
                                chip_smoke.bits(v)), (D, M, k)
+        warm, _ = wall(lambda: statepar.train_one_round_placed(*placed))
         one = mesh.make_mesh(D * M, model_axis=M,
                              devices=[cards[0]] * (D * M))
+        placed_one = mesh.shard_train_inputs(one, ev, mdl, pm, st)
         s_one, _ = wall(lambda: statepar.train_one_round_placed(
-            *mesh.shard_train_inputs(one, ev, mdl, pm, st)))
+            *placed_one))
+        warm_one, _ = wall(lambda: statepar.train_one_round_placed(
+            *placed_one))
         out[f"em_mesh_{D}x{M}_s"] = s
+        out[f"em_mesh_{D}x{M}_warm_s"] = warm
         out[f"em_mesh_{D}x{M}_one_card_s"] = s_one
+        out[f"em_mesh_{D}x{M}_one_card_warm_s"] = warm_one
         print(f"EM mesh ({D}, {M}) over {D * M} cards, G={G} x 4 rows, "
               f"T={ev['mean'].shape[2]}: fit, new_pm_params, done and "
               f"new_st_params bit-equal to the unplaced round on cuda:0; "
-              f"{s:.3f} s of wall ({k4m} K4m and {k5m} K5m launches) vs "
-              f"{s_one:.3f} s with every rank on cuda:0 and K4 + K5 "
-              f"{k4k5_s:.3f} s [{card_line}]")
+              f"{s:.3f} s of wall, {warm:.3f} s warm ({k4m} K4m and {k5m} "
+              f"K5m launches) vs {s_one:.3f} / {warm_one:.3f} s with every "
+              f"rank on cuda:0 and K4 + K5 {k4k5_s:.3f} / {k4k5_warm:.3f} s "
+              f"[{card_line}]")
     s, line = wall(lambda: dryrun.dryrun_multichip())
     assert line.endswith("seqpar_exact=True pipeline_fasta_equal=True"), line
     out["dryrun_s"] = s
