@@ -22,7 +22,8 @@ from the root of a checkout.  It
      resident K6c's loops no
      global load but the stored emissions' (no slot-table byte), the
      resident K6e's forward loop 3 block barriers and its backward loop 1,
-     and no slot-table byte from global memory;
+     and no slot-table byte from global memory; none of K6am's 12
+     instances a local load or store, nor (ptxas) a byte of spill stores;
   3. writes the 21-neighbour transition tables of (p_stay 0.14, p_skip
      0.21) and of the CLI priors (0.1, 0.3) as transitions TSVs and loads
      them back through the port CLI's `-s/--trans` loader: loaded tables
@@ -117,9 +118,11 @@ from the root of a checkout.  It
      with the 4096 states split over a data row's ranks): at 16 x 2048 on
      the NaN inputs, one K6am launch over 2 ranks in its resident form
      (under the loaded table) and in its streaming form (under the
-     priors' table) against its plain version (column slices and
-     backpointers as bits) and timed by CUDA events around each of 5
-     launches, K6bm on its output with the from-state table and with
+     priors' table), each on both exchange paths (a thread block cluster
+     a read, and the cooperative grid forced), against its plain version
+     (column slices and backpointers as bits) and timed by CUDA events
+     around each of 5 launches, with its blocks an SM, rounds or waves and
+     µs a step, K6bm on its output with the from-state table and with
      from_idx against its plain version and K6b's ring, and K6a under
      per-read structured tables (build_structured_batch,
      convert.trans_ops_batch; both kernels, path and score-only) against
@@ -127,9 +130,10 @@ from the root of a checkout.  It
      8,192, decoded on (1, 2), (1, 4) and (2, 2) meshes of cuda:0 under
      the loaded table, the priors' table and per-read tables, path and
      score-only, each bit-equal to K6a + K6b, counted as the generic mesh
-     path (one K6am launch a wave and data row, waves from K6am's own
-     resident blocks, one K6bm a row), with K6am's and K6bm's device
-     time;
+     path (one K6am launch a data row, a cluster a read; one K6bm a row),
+     with K6am's and K6bm's device time, then K6am's cooperative path
+     (waves from K6am's own resident blocks) bit-equal and timed beside
+     it, each with its rounds or waves and µs a step;
   6. runs the EM kernels at the EM chunk's full width: n = 4096, 128
      training groups x 4 = 512 rows of T = 128 events, packed by
      nanocall_tpu_torch.basecall.pack_train_batch from the simulated reads
@@ -231,8 +235,9 @@ from the root of a checkout.  It
      its shape, its bound on the H100's published peaks
      (roofline.kernel_bound), its achieved float32 rate and that rate's
      share of 67 TFLOP/s and of the K8 peak at its shape, each also
-     printed on a line of its own), the card line, and last
-     {"ok": true, ...}.
+     printed on a line of its own; K6am's two forms also their time on
+     each exchange path and their 6 instances each, with their census and
+     ptxas spill stores), the card line, and last {"ok": true, ...}.
 
 The script imports nothing of JAX and nothing of the JAX package
 nanocall_tpu: it reaches the system only through nanocall_tpu_torch, whose
@@ -312,6 +317,11 @@ K2M_RANKS = (2, 4, 64)
 GENERIC_MESH_KERNELS = ("viterbi_generic_wave_resident",
                         "viterbi_generic_wave_streaming",
                         "viterbi_generic_traceback_slices")
+#: K6am's exchange paths, each checked and timed: (name, the wrappers'
+#: cluster argument): a cluster a read (the default on one card up to
+#: hmm.MAX_CLUSTER ranks, None) and the cooperative grid behind counters
+#: (across cards, 16-64 ranks; forced on one card by False)
+GENERIC_PATHS = (("cluster", None), ("cooperative", False))
 #: the ranks K4m and K5m run at the EM chunk (the first is the kernels
 #: line's), and the kernels the dry run must launch
 EM_RANKS = (2, 4)
@@ -1195,20 +1205,57 @@ def per_read_ops(device, B: int, rng):
     return ops
 
 
+def generic_wave_occupancy(dev, form: str, deg: int, M: int, B: int,
+                           T: int, with_path: bool = True) -> dict:
+    """K6am's occupancy on both exchange paths for B reads of T events over
+    M ranks on `dev` (hmm.generic_wave_resident: the cluster path's from
+    cudaOccupancyMaxActiveClusters): {"cluster": (blocks an SM, reads at
+    once, rounds of them) or None past hmm.MAX_CLUSTER ranks,
+    "cooperative": (blocks an SM, waves)} and a printed line."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    W, resident = 4096 // M, form == "resident"
+    out = {"cluster": None}
+    line = (f"occupancy viterbi_generic_wave ({form} K6am, "
+            f"{'path' if with_path else 'score-only'}, {deg} slots) over {M}"
+            f" ranks, blocks of {W // 2} threads:")
+    if hmm.wave_cluster(M, False):
+        blocks = hmm.generic_wave_resident(dev, with_path, False, resident,
+                                           deg, W, cluster=True)
+        per = blocks // M
+        out["cluster"] = (blocks / sms, per, -(-B // per))
+        line += (f" cluster path {blocks / sms:.2f} blocks an SM, {per} "
+                 f"reads at once, {B} reads in {out['cluster'][2]} rounds "
+                 f"of one launch;")
+    coop = hmm.generic_wave_resident(dev, with_path, False, resident, deg, W)
+    waves = len(statepar.plan_waves(B, [dev] * M, {dev: coop})[dev])
+    out["cooperative"] = (coop / sms, waves)
+    print(f"{line} cooperative path {coop // sms} blocks an SM, {B} reads "
+          f"in {waves} waves (T = {T})")
+    return out
+
+
 def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
     """K6am, K6bm and the per-read K6a at the kernel phase's shape, on
     nan_inputs' model and events (NaN events in read 4 from event 700 on,
-    a NaN model entry in read 6): one K6am launch (the wave of all B reads,
-    2 ranks on the events' card) in its resident form under the loaded
-    table and in its streaming form under the priors' table, each against
-    its plain version on the same ranks (every rank's column buffer, both
-    parities, and its backpointers as bits) and timed by launch_spans (5
-    launches, counters zeroed before each); K6bm on the resident run's
-    final slices and backpointer slices, with the from-state table and
-    with from_idx (the rule of tables wider than 24 slots), against its
-    plain version and against K6b's ring on the same rows whole; and K6a
-    under per-read tables (resident and streaming, path and score-only)
-    against its plain version.  Returns the records of K6am's two forms and
+    a NaN model entry in read 6): K6am over 2 ranks on the events' card in
+    its resident form under the loaded table and in its streaming form
+    under the priors' table, each on both exchange paths (GENERIC_PATHS:
+    one launch of the B reads' clusters, and the cooperative path forced,
+    one wave), each against its plain version on the same ranks (every
+    rank's column buffer, both parities, and its backpointers as bits) and
+    timed by launch_spans (5 launches, counters zeroed before each), with
+    its occupancy (generic_wave_occupancy) and µs a step; K6bm on the
+    resident run's final slices and backpointer slices, with the
+    from-state table and with from_idx (the rule of tables wider than 24
+    slots), against its plain version and against K6b's ring on the same
+    rows whole; and K6a under per-read tables (resident and streaming, path
+    and score-only) against its plain version.  Returns the records of
+    K6am's two forms ("ms" the cluster path's, "ms_by_path" both) and
     K6bm; prints the per-read K6a's times."""
     import numpy as np
     import torch
@@ -1226,36 +1273,49 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
             ("viterbi_generic_wave_streaming", priors_ops, "streaming")):
         assert hmm.generic_forward_route(ops) == form, name
         row = statepar.split_table_states(ops, m, e, [dev] * 2)
-        ranks = [statepar._generic_wave_rank(p, True) for p in row.parts]
-        plain = [r._replace(col=r.col.clone(), bps=r.bps.clone())
-                 for r in ranks]
-        wrapper = f"generic_wave_{form}_kernel"
-
-        def k6am(ranks=ranks, wrapper=wrapper):
-            for r in ranks:
-                r.flags.zero_()
-            getattr(hmm, wrapper)(ranks, [0, 1], 0, B)
-
-        k6am()
+        plain = [statepar._generic_wave_rank(p, True) for p in row.parts]
         plain_ms, _ = cuda_ms_once(
             lambda: hmm.viterbi_forward_generic_wave_plain(plain, 0, B))
-        torch.cuda.synchronize()
-        for rk, rp in zip(ranks, plain):
-            assert torch.equal(bits(rk.col), bits(rp.col)), \
-                f"K6am ({form}) column slices differ from plain"
-            assert torch.equal(rk.bps, rp.bps), \
-                f"K6am ({form}) bps differ from plain"
-        spans = launch_spans(k6am, wrapper, dev, 5)
-        recs[name] = {
-            "max_abs_err": max(max_err(rk.col, rp.col)
-                               for rk, rp in zip(ranks, plain)),
-            "ms": 1e3 * spans["device_s"] / 5,
-            "host_us": 1e6 * spans["host_s"] / 5, "plain_ms": plain_ms,
-            "shape": [B, T], "ranks": 2}
-        if form == "resident":
-            walk = (row.walk, [r.col[(T - 1) % 2] for r in ranks],
-                    [r.bps for r in ranks])
-        del ranks, plain
+        wrapper = f"generic_wave_{form}_kernel"
+        deg = (ops.from_packed if form == "resident"
+               else ops.from_idx).shape[-2]
+        occ = generic_wave_occupancy(dev, form, deg, 2, B, T)
+        ms, err = {}, 0.0
+        for path, cluster in GENERIC_PATHS:
+            ranks = [statepar._generic_wave_rank(p, True) for p in row.parts]
+
+            def k6am(ranks=ranks, wrapper=wrapper, cluster=cluster):
+                for r in ranks:
+                    r.flags.zero_()
+                getattr(hmm, wrapper)(ranks, [0, 1], 0, B, cluster)
+
+            k6am()
+            torch.cuda.synchronize()
+            for rk, rp in zip(ranks, plain):
+                assert torch.equal(bits(rk.col), bits(rp.col)), \
+                    f"K6am ({form}, {path} path) column slices differ " \
+                    f"from plain"
+                assert torch.equal(rk.bps, rp.bps), \
+                    f"K6am ({form}, {path} path) bps differ from plain"
+                err = max(err, max_err(rk.col, rp.col))
+            spans = launch_spans(k6am, wrapper, dev, 5)
+            ms[path] = 1e3 * spans["device_s"] / 5
+            rounds = (occ["cluster"][2] if path == "cluster"
+                      else occ["cooperative"][1])
+            print(f"kernel {name} ({path} path): B={B} T={T} over 2 ranks, "
+                  f"NaN inputs, bit-equal to plain; {ms[path]:.4f} ms a "
+                  f"launch, {1e3 * ms[path] / (rounds * (T - 1)):.2f} µs a "
+                  f"step over {rounds} rounds")
+            if path == "cluster":
+                host_us = 1e6 * spans["host_s"] / 5
+                if form == "resident":
+                    walk = (row.walk, [r.col[(T - 1) % 2] for r in ranks],
+                            [r.bps for r in ranks])
+            del ranks
+        recs[name] = {"max_abs_err": err, "ms": ms["cluster"],
+                      "ms_by_path": ms, "host_us": host_us,
+                      "plain_ms": plain_ms, "shape": [B, T], "ranks": 2}
+        del plain
     table, final, slices = walk
     fa, bps = hmm.gather_column(final), torch.cat(slices, dim=2)
     ring = hmm.generic_traceback_ring_kernel(trans_ops, fa, bps, lengths)
@@ -1315,13 +1375,15 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
     every rank on `device`, statepar.viterbi_decode_placed on
     mesh.shard_decode_inputs' placement, path then score-only, each pair
     counted as the mesh path (every kernel count set to 0 just before,
-    read just after): one K6am launch a wave and data row
-    (statepar.plan_waves on K6am's own resident blocks) and one K6bm a data
-    row; path and logp (and the score-only logp) bit-equal to the
-    unplaced decode's.  Each decode's wall and device time, K6am's and
-    K6bm's device time (launch_spans around each launch of one more path
-    decode each).  Returns {"launches" (summed), "cells": {(table, D, M):
-    record}, "k6": {table: record}}."""
+    read just after): K6am's default launches (statepar.row_waves: one
+    launch of a row's clusters, or a wave of the cooperative path a launch)
+    and one K6bm a data row; path and logp (and the score-only logp)
+    bit-equal to the unplaced decode's.  Each decode's wall and device
+    time, K6am's and K6bm's device time (launch_spans around each launch
+    of one more path decode each); then K6am's cooperative path
+    (cluster=False) on the same placement, bit-equal and timed the same
+    way; each path's rounds (or waves) and µs a step.  Returns {"launches"
+    (summed), "cells": {(table, D, M): record}, "k6": {table: record}}."""
     import torch
 
     from nanocall_tpu_torch import basecall, roofline
@@ -1363,10 +1425,11 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
                                   devices=[device] * (D * M))
             placed = mesh.shard_decode_inputs(grid, ops, model, ev)
             b, W = B_MESH // D, 4096 // M
-            waves = {w: len(statepar.plan_waves(b, [device] * M, {
-                device: hmm.generic_wave_resident(
-                    device, w, False, form == "resident", deg, W)})[device])
+            assert hmm.wave_cluster(M, False), (D, M)
+            waves = {w: len(statepar.row_waves(
+                b, [device] * M, None, clusters=True)[device])
                 for w in (True, False)}
+            occ = generic_wave_occupancy(device, form, deg, M, b, T_MESH)
             kernels.reset_launches()
             out, wall, dev_s = timed(
                 lambda: statepar.viterbi_decode_placed(*placed))
@@ -1398,24 +1461,49 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
                 "generic_traceback_slices_kernel", device)
             assert (k6am_t["launches"], k6bm_t["launches"]) == \
                 (D * waves[True], D), (k6am_t, k6bm_t)
+            coop = mesh.join(statepar.viterbi_decode_placed(*placed,
+                                                            cluster=False))
+            for k in ("path", "logp"):
+                assert torch.equal(bits(coop[k]), bits(ref[k].cpu())), \
+                    (f"generic mesh {tname} {(D, M)} {k} on the "
+                     f"cooperative path differs from K6a + K6b")
+            del coop
+            coop_t = launch_spans(
+                lambda: statepar.viterbi_decode_placed(*placed,
+                                                       cluster=False),
+                wrapper, device)
+            rounds = {"cluster": D * occ["cluster"][2],
+                      "cooperative": coop_t["launches"]}
+            step_us = {
+                "cluster": 1e6 * k6am_t["device_s"]
+                / (rounds["cluster"] * (T_MESH - 1)),
+                "cooperative": 1e6 * coop_t["device_s"]
+                / (rounds["cooperative"] * (T_MESH - 1))}
             ex = roofline.statepar_exchange_bytes(b, T_MESH, M)
             rec = {"wall_s": wall, "device_s": dev_s,
                    "score_wall_s": wall_s, "score_device_s": dev_s_s,
                    "k6am_device_s": k6am_t["device_s"],
+                   "k6am_cooperative_device_s": coop_t["device_s"],
                    "k6bm_device_s": k6bm_t["device_s"],
-                   "waves_a_row": waves, "form": form,
+                   "waves_a_row": waves, "form": form, "rounds": rounds,
+                   "us_a_step": step_us,
                    "column_exchange_bytes": D * ex["column"]}
             cells[(tname, D, M)] = rec
             print(f"generic mesh {(D, M)} under the {tname} table ({form} "
                   f"K6am): B={B_MESH} T={T_MESH}, path and logp (and "
-                  f"score-only logp) bit-equal to K6a + K6b; path decode "
-                  f"{wall:.4f} s of wall, {dev_s:.4f} s device (K6am "
-                  f"{k6am_t['device_s']:.4f} s in {D * waves[True]} "
-                  f"launches, K6bm {1e3 * k6bm_t['device_s']:.3f} ms in {D})"
-                  f" vs K6a + K6b {k6[tname]['device_s']:.4f} s device; "
-                  f"score-only {dev_s_s:.4f} s device; peers' column slices "
-                  f"read {D * ex['column'] / 1e9:.3f} GB; waves a row "
-                  f"{waves} [{card}]")
+                  f"score-only logp) bit-equal to K6a + K6b on both "
+                  f"exchange paths; path decode {wall:.4f} s of wall, "
+                  f"{dev_s:.4f} s device (K6am {k6am_t['device_s']:.4f} s "
+                  f"in {D * waves[True]} launches, "
+                  f"{step_us['cluster']:.2f} µs a step; K6bm "
+                  f"{1e3 * k6bm_t['device_s']:.3f} ms in {D}) vs K6a + K6b "
+                  f"{k6[tname]['device_s']:.4f} s device; K6am's "
+                  f"cooperative path {coop_t['device_s']:.4f} s in "
+                  f"{coop_t['launches']} launches, "
+                  f"{step_us['cooperative']:.2f} µs a step; score-only "
+                  f"{dev_s_s:.4f} s device; peers' column slices read "
+                  f"(cooperative path) {D * ex['column'] / 1e9:.3f} GB; "
+                  f"rounds {rounds} [{card}]")
             del placed
         del ref, ref_s
     return {"launches": total, "cells": cells, "k6": k6}
@@ -2630,6 +2718,51 @@ def walk_loop_sass(marker: str) -> dict:
             "ldg": ops.count("LDG"), "stg": ops.count("STG")}
 
 
+def k6am_spills() -> dict:
+    """{K6am instance: bytes of spill stores} from ptxas' report in the
+    build log of this process (empty when the library was built before,
+    else all 12 instances)."""
+    from nanocall_tpu_torch.ops import _cuda
+
+    out, name = {}, None
+    for line in _cuda.build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name and "viterbi_generic_wave_kernel" in name:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
+def k6am_instances(census: dict) -> dict:
+    """The kernels line's list of K6am's instances, by form
+    ({"viterbi_generic_wave_resident" / "_streaming": [{"instance" (the
+    mangled name), "path" (with backpointers), "exchange" ("cluster",
+    "cooperative, gpu scope" or "cooperative, system scope"),
+    "instructions", "local" (local loads and stores), "spill_stores"
+    (ptxas; None where this process did not build the library)}]}) from
+    check_sass_claims' census and k6am_spills."""
+    spills = k6am_spills()
+    out = {"viterbi_generic_wave_resident": [],
+           "viterbi_generic_wave_streaming": []}
+    for name, c in sorted(census["K6am"].items()):
+        path, sys_, resident, cluster = re.search(
+            r"viterbi_generic_wave_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+            name).groups()
+        form = "resident" if resident == "1" else "streaming"
+        out[f"viterbi_generic_wave_{form}"].append({
+            "instance": name, "path": path == "1",
+            "exchange": ("cluster" if cluster == "1" else
+                         f"cooperative, {'system' if sys_ == '1' else 'gpu'}"
+                         f" scope"),
+            "instructions": c["instructions"], "local": c["local"],
+            "spill_stores": spills.get(name)})
+    return out
+
+
 def check_sass_claims() -> dict:
     """The census claims of the kernels' headers: K4's and K6d's time loops
     hold at most 2 block barriers; K2's walk and K6b's ring walk read their
@@ -2646,11 +2779,16 @@ def check_sass_claims() -> dict:
     thread's states: no 16-bit load, no slot-table byte; each K1m
     instance's time loop reads the column by strong global loads
     (ld.relaxed: L1 bypassed, never the non-coherent path), at least 4 (a
-    thread's states), and spills nothing (no local load or store), and
+    thread's states), and spills nothing (no local load or store); none
+    of K6am's 12 instances (path and score-only, resident and streaming,
+    the cluster path and the cooperative one at gpu and system scope)
+    makes a local load or store anywhere, nor reports a byte of spill
+    stores in ptxas' output of this process's build (k6am_spills); and
     K2m's walk, on K2's ring, makes no global load.  Returns {"K4",
     "K6d": step_loop_sass, "K2 walk", "K2m walk", "K6b ring walk":
     walk_loop_sass, "K6c resident", "K6e resident": {instance: [loop
-    records]}, K1m's instances: {global and local load and store opcode:
+    records]}, "K6am": {instance: {"instructions", "local"}}, K1m's
+    instances: {global and local load and store opcode:
     count in the time loop}}."""
     k1m = {}
     for what, marker in K1M_LOOPS:
@@ -2663,6 +2801,17 @@ def check_sass_claims() -> dict:
             (what, k1m[what])
         assert not any(op.startswith(("LDL", "STL")) for op in k1m[what]), \
             (what, k1m[what])
+    k6am = {}
+    for name in kernel_instances("viterbi_generic_wave_kernel"):
+        ops = collections.Counter(_opcode(t) for _, t in sass_lines(name))
+        k6am[name] = {"instructions": sum(ops.values()),
+                      "local": ops["LDL"] + ops["STL"]}
+        assert not k6am[name]["local"], (name, k6am[name])
+    assert len(k6am) == 12, f"{len(k6am)} K6am instances, not 12"
+    spills = k6am_spills()
+    assert len(spills) in (0, 12), f"ptxas reported {len(spills)} K6am"
+    for name, spill in spills.items():
+        assert spill == 0, f"ptxas: {name} spills {spill} bytes"
     k2m = walk_loop_sass("viterbi_traceback_slices_kernel")
     assert k2m["lds"] >= 1 and k2m["ldg"] == 0, k2m
     k4 = step_loop_sass("fwbw_forward_kernel")
@@ -2692,7 +2841,7 @@ def check_sass_claims() -> dict:
     assert len(k6e) == 2, "not both resident K6e instances in the library"
     return {"K4": k4, "K6d": k6d, "K2 walk": k2, "K2m walk": k2m,
             "K6b ring walk": k6b, "K6c resident": k6c, "K6e resident": k6e,
-            **k1m}
+            "K6am": k6am, **k1m}
 
 
 def run_measure(device) -> dict:
@@ -3345,6 +3494,12 @@ def main() -> int:
     for name in kernel_instances("viterbi_traceback_chunk_kernel"):
         print(f"K3 / K9 traceback chunk SASS ({name}), its walk loop: "
               f"{walk_loop_sass(name)}")
+    spills = k6am_spills()
+    for name, c in census["K6am"].items():
+        print(f"K6am SASS ({name}): {c['instructions']} instructions, "
+              f"{c['local']} local loads and stores; ptxas: "
+              f"{spills.get(name, 'not in this build log')} bytes of spill "
+              f"stores")
     print(f"K6b ring SASS, its walk loop: {census['K6b ring walk']} (no "
           f"global load; the path's stores)")
     for name, loops in census["K6c resident"].items():
@@ -3635,13 +3790,17 @@ def main() -> int:
             "sharded_untrained": sharded["untrained"]["launches"],
             "sharded_trained": sharded["trained"]["launches"],
             "multihost": multihost_launches}
+    instances = k6am_instances(census)
     records = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces,
                 "launches": sum(r[k.name] for r in runs.values()),
                 "launches_by_run": {w: r[k.name] for w, r in runs.items()},
                 "library_ms": None, **recs[k.name],
-                **roofline.kernel_bound(k.name, *recs[k.name]["shape"])}
+                **roofline.kernel_bound(k.name, *recs[k.name]["shape"]),
+                **({"instances": instances[k.name]}
+                   if k.name in instances else {})}
                for k in kernels.KERNELS]
+    assert [len(v) for v in instances.values()] == [6, 6], instances
     assert len(records) == 28 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:

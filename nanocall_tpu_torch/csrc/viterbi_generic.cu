@@ -80,23 +80,39 @@
 // K6am (viterbi_generic_wave_kernel) is K6a with the 4096 states split
 // over M = 2 .. 64 ranks (the generic decode under nanocall_tpu/parallel/
 // mesh.py:75 shard_decode_inputs; parallel/statepar.py drives it).  A
-// block is one (read, rank) pair of a cooperative grid and runs all T
-// events, with K1m's exchange (wave_exchange.cuh): each step it publishes
-// its counter, waits for the peers', then loads the whole column of event
-// t - 1 from the ranks' double-buffered slices into shared memory (a
-// loaded table's from-states lie anywhere, so every state may be read),
-// and the threads that own its W states (4 a thread, W / 4 threads) run
-// K6a's slot loop on that column: the resident form (take its rank's
-// (deg, W) cut of the packed layout and the codebooks into shared memory
-// once, by cp.async.bulk) max_slots, whose NaN-tracking path is chosen by
-// a block vote over the whole loaded column (every peer's slice, as K6a's
-// vote covers its whole alpha), the streaming form (the (deg, W) int32 /
-// float32 cut from L2 every step) take_slot.  So every rank computes
+// block is one (read, rank) pair and runs all T events on W / 2 threads,
+// each stepping 2 of the rank's W states, so that every thread runs the
+// slot loop and a read's M blocks together take the threads of about one
+// block of K6a: 1024 threads at M = 2, 512 at 4, 256 at 8, at most 64
+// registers, so that 1, 2 and 4 blocks share an SM at the resident form's
+// 21 slots and every SM steps about 2048 states.  Each step needs the
+// whole column of event t - 1 in the block's shared memory (a loaded
+// table's from-states lie anywhere).  It comes by one of two exchanges
+// (wave_exchange.cuh).  On one card with M <= 8 (CLUSTER) a read's M
+// blocks are one thread block cluster: each thread pushes its 2 new values
+// into every block's double-buffered column in shared memory, and one
+// cluster barrier a step (arrived at after the push, waited on before the
+// next step) orders the pushes before the reads and keeps a block from
+// overwriting a buffer that a peer still reads; one launch takes a row's
+// reads.  Else (across cards, or 16 to 64 ranks) a cooperative grid a
+// wave, K1m's exchange: the slices in global memory behind a counter a
+// step, the whole column loaded from them.  Then K6a's slot loop for the
+// thread's 2 states: the resident form (its rank's (deg, W) cut of the
+// packed layout, 2 entries a 4-byte word, and the codebooks in shared
+// memory, copied once by cp.async.bulk) max_slots, whose NaN-tracking
+// path is taken where a value of the whole column or of the codebooks is
+// NaN or +inf, as K6a's vote covers its whole alpha (the cluster path: a
+// warp with such a value marks the column in every block with its push;
+// the cooperative path: a block vote over the loaded column), the
+// streaming form (the (deg, W) int32 / float32 cut read from L2 every
+// step, an int2 and a float2 a slot) take_slot.  So every rank computes
 // K6a's bits for its states, NaN bits included.  What bounds it: K6a's
-// slot loop for W states on W / 4 threads of the read's SM, plus the
-// exchange's latency a step (three block barriers, a release and an
-// acquire round trip through L2, the 16 KB column of a read from L2).
-//
+// slot loop over the SM's 2048 states, plus the exchange's latency a step
+// (the cluster barrier, which the next event's emissions partly hide; the
+// cooperative path: three block barriers, a release and an acquire round
+// trip through L2 and the 16 KB column from L2), and in the streaming
+// form the cut's bytes from L2.
+
 // Build with -fmad=false: every float operation then rounds on its own, as
 // each elementwise PyTorch op does, so the kernels are bit-identical to
 // viterbi_forward_plain / viterbi_traceback_plain in
@@ -113,20 +129,34 @@ using namespace nc;
 // codes per slot of the resident layout
 constexpr int CODES = 16;
 
-// The scaled model's 6 tables at a thread's 4 states.
+// the S = 4 or 2 floats at p (16- or 8-byte aligned), by the non-coherent
+// path
+template <int S>
+__device__ __forceinline__ void load_rows(float (&d)[S], const float* p) {
+  if constexpr (S == 4) {
+    unpack4(d, load4(p));
+  } else {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    d[0] = v.x;
+    d[1] = v.y;
+  }
+}
+
+// The scaled model's 6 tables at a thread's S states (K6a: 4, K6am: 2).
+template <int S>
 struct StateRows {
-  float lm[4], ls[4], lls[4], sm[4], slam[4], lsl[4];
+  float lm[S], ls[S], lls[S], sm[S], slam[S], lsl[S];
 
   __device__ StateRows(const float* level_mean, const float* level_stdv,
                        const float* log_level_stdv, const float* sd_mean,
                        const float* sd_lambda, const float* log_sd_lambda,
                        size_t row) {
-    unpack4(lm, load4(level_mean + row));
-    unpack4(ls, load4(level_stdv + row));
-    unpack4(lls, load4(log_level_stdv + row));
-    unpack4(sm, load4(sd_mean + row));
-    unpack4(slam, load4(sd_lambda + row));
-    unpack4(lsl, load4(log_sd_lambda + row));
+    load_rows<S>(lm, level_mean + row);
+    load_rows<S>(ls, level_stdv + row);
+    load_rows<S>(lls, log_level_stdv + row);
+    load_rows<S>(sm, sd_mean + row);
+    load_rows<S>(slam, sd_lambda + row);
+    load_rows<S>(lsl, log_sd_lambda + row);
   }
 
   __device__ __forceinline__ float em(int i, float x, float y, float ly,
@@ -156,10 +186,15 @@ __device__ __forceinline__ void take_slot(int k, float v, int id,
   }
 }
 
-// A resident table word: 4 entries (from-state in bits 0-11, code in bits
-// 12-15 of each 16), as byte offsets into alpha and into the slot's
-// codebook.
-struct Entries {
+// A resident table word of S entries (K6a: 4 in 8 bytes, K6am: 2 in 4;
+// from-state in bits 0-11, code in bits 12-15 of each 16), as byte offsets
+// into alpha and into the slot's codebook.
+template <int S>
+struct Entries;
+
+template <>
+struct Entries<4> {
+  using Word = uint2;
   uint32_t from[4], code[4];
 
   __device__ __forceinline__ explicit Entries(const uint2 w) {
@@ -174,12 +209,26 @@ struct Entries {
   }
 };
 
+template <>
+struct Entries<2> {
+  using Word = uint32_t;
+  uint32_t from[2], code[2];
+
+  __device__ __forceinline__ explicit Entries(const uint32_t w) {
+    from[0] = (w << 2) & 0x3ffc;
+    from[1] = (w >> 14) & 0x3ffc;
+    code[0] = (w >> 10) & 0x3c;
+    code[1] = (w >> 26) & 0x3c;
+  }
+};
+
 __device__ __forceinline__ float at_byte(const float* base, uint32_t ofs) {
   return *reinterpret_cast<const float*>(
       reinterpret_cast<const char*>(base) + ofs);
 }
 
-// The resident kernel's slot loop at one step, for the thread's 4 states:
+// The resident kernel's slot loop at one step, for the thread's S states
+// (K6a: 4, K6am: 2; slot k's words `stride` words on from slot 0's):
 // best and (kPath) the slot of take_slot, in fewer operations, to the same
 // bits.  The from-state comes as its byte offset into alpha, which orders
 // as the state does.  kNan: a v may be NaN.  Then a NaN only sets a flag,
@@ -187,30 +236,31 @@ __device__ __forceinline__ float at_byte(const float* base, uint32_t ofs) {
 // emission then gives the card's one NaN, as the sum of take_slot's NaN
 // does) and its slot 0, as take_slot ends.  Without kNan (no codebook
 // value and no alpha is NaN or +inf, so no v is NaN) the flags go.
-template <bool kPath, bool kNan>
-__device__ __forceinline__ void max_slots(const uint2* words,
-                                          const float* book, const float* cur,
-                                          int deg, int stride4,
-                                          float (&best)[4],
-                                          int (&bslot)[4]) {
-  uint32_t bofs[4];
-  bool nan[4];
+template <bool kPath, bool kNan, int S = 4>
+__device__ __forceinline__ void max_slots(
+    const typename Entries<S>::Word* words, const float* book,
+    const float* cur, int deg, int stride, float (&best)[S],
+    int (&bslot)[S]) {
+  uint32_t bofs[S];
+  bool nan[S];
   {
-    const Entries e(words[0]);
+    const Entries<S> e(words[0]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < S; ++i) {
       best[i] = at_byte(book, e.code[i]) + at_byte(cur, e.from[i]);
       bofs[i] = e.from[i];
       bslot[i] = 0;
       nan[i] = kNan && best[i] != best[i];
     }
   }
-#pragma unroll 3
+  // K6am's 2 states: 10 slots an unrolled pass, so the r73 tables' 20
+  // slots after the first take two (in turns against 4, 5, 6 and 20)
+#pragma unroll (S == 4 ? 3 : 10)
   for (int k = 1; k < deg; ++k) {
-    const Entries e(words[k * stride4]);
+    const Entries<S> e(words[k * stride]);
     const float* bk = book + k * CODES;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < S; ++i) {
       const float v = at_byte(bk, e.code[i]) + at_byte(cur, e.from[i]);
       if (kPath) {
         const bool take =
@@ -223,7 +273,7 @@ __device__ __forceinline__ void max_slots(const uint2* words,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < S; ++i)
     if (kNan && nan[i]) best[i] = __int_as_float(0x7fffffff);
 }
 
@@ -232,7 +282,7 @@ __device__ __forceinline__ void max_slots(const uint2* words,
 // are `width` states wide (N; K6am: the rank's W).
 template <bool kPath>
 __device__ __forceinline__ void finish_step(
-    const StateRows& rows, const float* evm, const float* evs,
+    const StateRows<4>& rows, const float* evm, const float* evs,
     const float* evl, int t, int len, float log2pi, const float (&best)[4],
     const int (&bslot)[4], float (&a)[4], uint8_t* bps, int B, int b,
     int tid, int width) {
@@ -274,8 +324,8 @@ __device__ __forceinline__ void generic_forward_body(
   const int tid = threadIdx.x;
   const size_t row = (size_t)b * N + 4 * tid;
 
-  const StateRows rows(level_mean, level_stdv, log_level_stdv, sd_mean,
-                       sd_lambda, log_sd_lambda, row);
+  const StateRows<4> rows(level_mean, level_stdv, log_level_stdv, sd_mean,
+                          sd_lambda, log_sd_lambda, row);
   const int4* fidx = reinterpret_cast<const int4*>(from_idx) + tid;
   const float4* flp =
       reinterpret_cast<const float4*>(from_logp) + tid +
@@ -402,8 +452,8 @@ __device__ __forceinline__ void resident_forward_body(
                 bar_addr);
   }
 
-  const StateRows rows(level_mean, level_stdv, log_level_stdv, sd_mean,
-                       sd_lambda, log_sd_lambda, row);
+  const StateRows<4> rows(level_mean, level_stdv, log_level_stdv, sd_mean,
+                          sd_lambda, log_sd_lambda, row);
   const float* evm = ev_mean + (size_t)b * T;
   const float* evs = ev_stdv + (size_t)b * T;
   const float* evl = ev_log_stdv + (size_t)b * T;
@@ -513,20 +563,38 @@ struct GenericWaveRank {
   int32_t* flags;  // (B,): t once its slice of column t - 1 is stored
 };
 
-// K6am: events [0, T) of read wave_lo + blockIdx.x for the rank named by
-// entry blockIdx.y of the launch's ranks (after the M = N >> slice_shift
-// entries of `wave`), which holds the states [rank W, (rank + 1) W), W =
-// 1 << slice_shift.  Each step: the exchange of K1m (wave_exchange.cuh),
-// then the block loads the whole column of event t - 1 from the ranks'
-// slices into shared memory (4 states a thread) and, RESIDENT, votes over
-// all of it whether a value is NaN or +inf; threads 0 .. W / 4 - 1 run
-// K6a's slot loop for the rank's 4 states 4 tid .. of theirs, from the
-// column, and store their slice of column t and their backpointer word.
-// Dynamic shared memory: the column (N float32), and RESIDENT the
-// codebooks (deg x CODES float32) and the rank's packed cut (deg x W
-// uint16), copied once in the prologue.  per_read: the table's
-// log-probs (or layout) are the read's own.
-template <bool kPath, bool SYS, bool RESIDENT>
+// K6am's blocks: W / 2 threads, 2 states of the rank's slice a thread
+// (slices of W >= 64 states: at least a warp); 1024 at 2 ranks, the most
+__host__ __device__ __forceinline__ int pair_threads(int slice_shift) {
+  return 1 << (slice_shift - 1);
+}
+
+// K6am: events [0, T) of one read for one rank, which holds the states
+// [rank W, (rank + 1) W), W = 1 << slice_shift, on W / 2 threads, thread
+// tid stepping the states 2 tid, 2 tid + 1 of the slice.  The exchange:
+// CLUSTER, the read's M ranks one cluster of a grid (M, reads), block (r,
+// i) the rank r of read wave_lo + i; each thread pushes its 2 values of
+// column t into column buffer t & 1 of every block of the cluster
+// (st.shared::cluster), and a warp with a NaN or +inf among its values
+// marks the column prone there (prone_at[t & 1] = t + 1); one cluster
+// barrier a step, arrived at after the push and waited on before the next
+// step reads the column; the rank's slice of the last two columns also
+// goes to its (2, B, W) buffer in global memory.  Else a cooperative grid
+// (reads, ranks this launch runs), block (i, j) the read wave_lo + i for
+// the rank named by entry j of the launch's ranks (after the M = N >>
+// slice_shift entries of `wave`), with K1m's exchange (wave_exchange.cuh):
+// each step the slice of column t - 1 published in global memory behind
+// the rank's counter, the whole column loaded from the ranks' slices and,
+// RESIDENT, a block vote over it.  Then each thread runs K6a's slot loop
+// for its 2 states from the column in shared memory: RESIDENT max_slots
+// on the rank's packed cut and the codebooks, copied once in the prologue
+// (its NaN-tracking form where a value of the column or of the codebooks
+// is NaN or +inf, as K6a's vote), else take_slot on the (deg, W) int32 /
+// float32 cut read from L2.  Dynamic shared memory: the column (CLUSTER:
+// 2 x N float32, double-buffered; else N), and RESIDENT the codebooks
+// (deg x CODES float32) and the rank's packed cut (deg x W uint16).
+// per_read: the table's log-probs (or layout) are the read's own.
+template <bool kPath, bool SYS, bool RESIDENT, bool CLUSTER>
 __global__ void __launch_bounds__(THREADS, 1)
 viterbi_generic_wave_kernel(const GenericWaveRank* __restrict__ wave, int B,
                             int T, int wave_lo, int slice_shift, int deg,
@@ -535,122 +603,191 @@ viterbi_generic_wave_kernel(const GenericWaveRank* __restrict__ wave, int B,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Exchange x;
   __shared__ __align__(8) uint64_t bar;
-  float* alpha = reinterpret_cast<float*>(smem);
-  float* book = alpha + N;
-  uint16_t* table = reinterpret_cast<uint16_t*>(book + deg * CODES);
+  // CLUSTER: t + 1 once a value of column t (buffer t & 1) is NaN or +inf
+  __shared__ int prone_at[2];
+  float* const column = reinterpret_cast<float*>(smem);
+  float* const book = column + (CLUSTER ? 2 : 1) * N;
+  uint16_t* const table = reinterpret_cast<uint16_t*>(book + deg * CODES);
 
   const int ranks = N >> slice_shift;
-  const int W = 1 << slice_shift, W4 = W >> 2;
+  const int W = 1 << slice_shift, H = W >> 1;
   const int rank =
-      (int)reinterpret_cast<const long long*>(wave + ranks)[blockIdx.y];
-  const int b = wave_lo + blockIdx.x;
+      CLUSTER ? (int)blockIdx.x
+              : (int)reinterpret_cast<const long long*>(wave + ranks)
+                    [blockIdx.y];
+  const int b = wave_lo + (int)(CLUSTER ? blockIdx.y : blockIdx.x);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const GenericWaveRank& e = wave[rank];
   const uint32_t bar_addr = smem_addr(&bar);
-  if (tid < ranks) {
-    x.col[tid] = wave[tid].col + (size_t)b * W;
-    x.flag[tid] = wave[tid].flags + b;
-  }
-  if (tid == 0) {
-    x.timed_out = timed_out;
-    x.timeout_ns = timeout_ns;
-    x.ranks = ranks;
-    x.rank = rank;
-    x.read = b;
-    if (RESIDENT) {
-      const uint32_t book_bytes = deg * CODES * 4, slot_bytes = W * 2;
-      const uint16_t* src = static_cast<const uint16_t*>(e.table) +
-                            (per_read ? (size_t)b * deg * W : 0);
-      mbar_init_expect(bar_addr, book_bytes + deg * slot_bytes);
-      bulk_copy(smem_addr(book),
-                e.values + (per_read ? (size_t)b * deg * CODES : 0),
-                book_bytes, bar_addr);
-      for (int k = 0; k < deg; ++k)
-        bulk_copy(smem_addr(table + k * W), src + (size_t)k * W, slot_bytes,
-                  bar_addr);
+  if constexpr (CLUSTER) {
+    if (tid < 2) prone_at[tid] = 0;
+  } else {
+    for (int p = tid; p < ranks; p += H) {
+      x.col[p] = wave[p].col + (size_t)b * W;
+      x.flag[p] = wave[p].flags + b;
+    }
+    if (tid == 0) {
+      x.timed_out = timed_out;
+      x.timeout_ns = timeout_ns;
+      x.ranks = ranks;
+      x.rank = rank;
+      x.read = b;
     }
   }
-  // the thread steps the rank's states 4 tid .. 4 tid + 3 of its slice
-  const bool mine = tid < W4;
-  const size_t row = (size_t)b * W + 4 * (mine ? tid : 0);
-  const StateRows rows(e.model[0], e.model[1], e.model[2], e.model[3],
-                       e.model[4], e.model[5], row);
+  if (RESIDENT && tid == 0) {
+    const uint32_t book_bytes = deg * CODES * 4, slot_bytes = W * 2;
+    const uint16_t* src = static_cast<const uint16_t*>(e.table) +
+                          (per_read ? (size_t)b * deg * W : 0);
+    mbar_init_expect(bar_addr, book_bytes + deg * slot_bytes);
+    bulk_copy(smem_addr(book),
+              e.values + (per_read ? (size_t)b * deg * CODES : 0),
+              book_bytes, bar_addr);
+    for (int k = 0; k < deg; ++k)
+      bulk_copy(smem_addr(table + k * W), src + (size_t)k * W, slot_bytes,
+                bar_addr);
+  }
+  const size_t row = (size_t)b * W + 2 * tid;
+  const StateRows<2> rows(e.model[0], e.model[1], e.model[2], e.model[3],
+                          e.model[4], e.model[5], row);
   const float* evm = e.ev_mean + (size_t)b * T;
   const float* evs = e.ev_stdv + (size_t)b * T;
   const float* evl = e.ev_log_stdv + (size_t)b * T;
   const int len = e.length[b];
   uint8_t* const bps = e.bps;
-  float* const own = e.col + (size_t)b * W + 4 * tid;
+  float* const own = e.col + row;
+  const size_t colstride = (size_t)B * W;
+  // the thread's 2 states of the column
+  const int j = (rank << slice_shift) + 2 * tid;
 
-  float a[4];
-  if (mine) {
+  float a[2], em[2];
+  // the emissions of the thread's states at event te
+  auto emission2 = [&](int te) {
+    const float xe = evm[te], ye = evs[te], le = evl[te];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = rows.em(i, evm[0], evs[0], evl[0], log2pi) - log_n;
-    store4(own, a);
+    for (int i = 0; i < 2; ++i) em[i] = rows.em(i, xe, ye, le, log2pi);
+  };
+  // the thread's slice of column tc into the rank's buffer tc & 1
+  auto store_own = [&](int tc) {
+    *reinterpret_cast<float2*>(own + (size_t)(tc & 1) * colstride) =
+        make_float2(a[0], a[1]);
+  };
+  // CLUSTER: the thread's values of column tc into every block's column
+  // buffer tc & 1, and (RESIDENT) the column marked prone where a value of
+  // the warp is NaN or +inf (lane p marking it in block p)
+  auto push = [&](int tc) {
+    const uint32_t dst = smem_addr(column + (tc & 1) * N + j);
+    for (int p = 0; p < ranks; ++p)
+      st_cluster2(cluster_map(dst, p), a[0], a[1]);
+    if (RESIDENT &&
+        __any_sync(FULL, nan_prone(a[0]) || nan_prone(a[1])) &&
+        lane < ranks)
+      st_cluster(cluster_map(smem_addr(&prone_at[tc & 1]), lane), tc + 1);
+  };
+
+  emission2(0);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) a[i] = em[i] - log_n;
+  if (!CLUSTER || T <= 2) store_own(0);
+  if constexpr (CLUSTER) {
+    // every block of the cluster runs, its prone_at zeroed; also orders the
+    // mbarrier's init before every wait
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();  // also orders the barrier's init before every wait
   }
-  __syncthreads();  // also orders the barrier's init before every wait
   bool book_prone = false;
   if (RESIDENT) {
     mbar_wait(bar_addr, 0);
-    book_prone = __syncthreads_or(tid < deg * CODES && nan_prone(book[tid]));
+    bool p = false;
+    for (int i = tid; i < deg * CODES; i += H) p = p || nan_prone(book[i]);
+    book_prone = __syncthreads_or(p);
   }
-  // the streaming cut: the thread's column of slot 0, slot k's k W / 4
-  // vectors on
-  const int4* fidx = static_cast<const int4*>(e.table) + tid;
-  const float4* flp = reinterpret_cast<const float4*>(e.values) + tid +
-                      (per_read ? (size_t)b * deg * W4 : 0);
-  // the resident cut's 4 entries of slot 0 of the thread, slot k's k W / 4
-  // words on
-  const uint2* words = reinterpret_cast<const uint2*>(table) + tid;
-  const int j0 = 4 * tid;  // the thread's 4 states of the column it loads
+  if (CLUSTER && T > 1) {
+    push(0);
+    cluster_arrive();
+  }
+  if (T > 1) emission2(1);
+  // the streaming cut: the thread's pair of slot 0, slot k's k W / 2 pairs
+  // on
+  const int2* fidx = static_cast<const int2*>(e.table) + tid;
+  const float2* flp = reinterpret_cast<const float2*>(e.values) + tid +
+                      (per_read ? (size_t)b * deg * H : 0);
+  // the resident cut's word of the thread's 2 entries of slot 0, slot k's
+  // k W / 2 words on
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(table) + tid;
   for (int t = 1; t < T; ++t) {
-    // publish column t - 1 (every thread's slice stored), wait for the
-    // peers' slices of it, then load the whole column into shared memory
-    __syncthreads();
-    if (tid == 0) st_flag<SYS>(x.flag[x.rank], t);
-    if (warp == 0) {
-      __syncwarp();
-      wait_ranks<SYS>(x, x.flag, t, lane);
-    }
-    __syncthreads();
-    const float* src = x.col[j0 >> slice_shift] +
-                       (size_t)((t - 1) & 1) * B * W + (j0 & (W - 1));
-    float c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[i] = ld_column<SYS>(src + i);
-    store4(alpha + j0, c);
-    // the vote covers the whole column, every rank's slice of it
+    const float* cur = column;
     bool prone = false;
-    if (RESIDENT)
-      prone = __syncthreads_or(any_prone(c)) || book_prone;
-    else
+    if constexpr (CLUSTER) {
+      // every block's push of column t - 1 is in
+      cluster_wait();
+      cur = column + ((t - 1) & 1) * N;
+      if (RESIDENT) prone = book_prone || prone_at[(t - 1) & 1] == t;
+    } else {
+      // publish column t - 1 (every thread's slice stored), wait for the
+      // peers' slices of it, then load the whole column into shared memory
       __syncthreads();
-    if (!mine) continue;
-    float best[4];
-    int bslot[4];
+      if (tid == 0) st_flag<SYS>(x.flag[x.rank], t);
+      if (warp == 0) {
+        __syncwarp();
+        wait_ranks<SYS>(x, x.flag, t, lane);
+      }
+      __syncthreads();
+      const size_t src = (size_t)((t - 1) & 1) * colstride;
+      bool p = false;
+      for (int i = 4 * tid; i < N; i += 4 * H) {
+        const float4 v =
+            ld_column4<SYS>(x.col[i >> slice_shift] + src + (i & (W - 1)));
+        *reinterpret_cast<float4*>(column + i) = v;
+        p = p || nan_prone(v.x) || nan_prone(v.y) || nan_prone(v.z) ||
+            nan_prone(v.w);
+      }
+      // the vote covers the whole column, every rank's slice of it
+      if (RESIDENT)
+        prone = __syncthreads_or(p) || book_prone;
+      else
+        __syncthreads();
+    }
+    float best[2];
+    int bslot[2];
     if (RESIDENT) {
       if (prone)
-        max_slots<kPath, true>(words, book, alpha, deg, W4, best, bslot);
+        max_slots<kPath, true, 2>(words, book, cur, deg, H, best, bslot);
       else
-        max_slots<kPath, false>(words, book, alpha, deg, W4, best, bslot);
+        max_slots<kPath, false, 2>(words, book, cur, deg, H, best, bslot);
     } else {
-      int bfrom[4];
+      int bfrom[2];
       for (int k = 0; k < deg; ++k) {
-        const int4 iv = __ldg(fidx + (size_t)k * W4);
-        const float4 lv = __ldg(flp + (size_t)k * W4);
-        const int id[4] = {iv.x, iv.y, iv.z, iv.w};
-        const float lp[4] = {lv.x, lv.y, lv.z, lv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          take_slot<kPath>(k, lp[i] + alpha[id[i]], id[i], best[i],
-                           bfrom[i], bslot[i]);
+        const int2 iv = __ldg(fidx + (size_t)k * H);
+        const float2 lv = __ldg(flp + (size_t)k * H);
+        take_slot<kPath>(k, lv.x + cur[iv.x], iv.x, best[0], bfrom[0],
+                         bslot[0]);
+        take_slot<kPath>(k, lv.y + cur[iv.y], iv.y, best[1], bfrom[1],
+                         bslot[1]);
       }
     }
-    finish_step<kPath>(rows, evm, evs, evl, t, len, log2pi, best, bslot, a,
-                       bps, B, b, tid, W);
-    store4(own + (size_t)(t & 1) * B * W, a);
+    // finish_step for the 2 states: alpha' (unchanged past the read's
+    // length) and the 2 slot ids
+    const bool active = t < len;
+    uint32_t packed = 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int slot = best[i] != best[i] ? 0 : bslot[i];
+      packed |= (uint32_t)slot << (8 * i);
+      if (active) a[i] = best[i] + em[i];
+    }
+    if (kPath) {
+      reinterpret_cast<uint16_t*>(bps + ((size_t)(t - 1) * B + b) * W)
+          [tid] = (uint16_t)packed;
+    }
+    if (!CLUSTER || t >= T - 2) store_own(t);
+    if (CLUSTER && t < T - 1) {
+      push(t);
+      cluster_arrive();
+    }
+    if (t + 1 < T) emission2(t + 1);  // while the peers push
   }
 }
 
@@ -758,107 +895,148 @@ extern "C" int nc_viterbi_resident_forward(
 namespace {
 
 using GenericWaveKernel =
-    decltype(&viterbi_generic_wave_kernel<true, false, true>);
+    decltype(&viterbi_generic_wave_kernel<true, false, true, false>);
 
-// K6am's instance: with backpointers or not, gpu or system scope, the
-// resident cut or the streaming one
-GenericWaveKernel generic_wave_kernel(int with_path, int sys, int resident) {
-  if (resident) {
-    if (with_path)
-      return sys ? viterbi_generic_wave_kernel<true, true, true>
-                 : viterbi_generic_wave_kernel<true, false, true>;
-    return sys ? viterbi_generic_wave_kernel<false, true, true>
-               : viterbi_generic_wave_kernel<false, false, true>;
-  }
-  if (with_path)
-    return sys ? viterbi_generic_wave_kernel<true, true, false>
-               : viterbi_generic_wave_kernel<true, false, false>;
-  return sys ? viterbi_generic_wave_kernel<false, true, false>
-             : viterbi_generic_wave_kernel<false, false, false>;
+// the exchange's instances of K6am's form: a cluster a read (one card),
+// else the cooperative grid at gpu or system scope
+template <bool kPath, bool RESIDENT>
+GenericWaveKernel wave_instance(int sys, int cluster) {
+  if (cluster)
+    return viterbi_generic_wave_kernel<kPath, false, RESIDENT, true>;
+  return sys ? viterbi_generic_wave_kernel<kPath, true, RESIDENT, false>
+             : viterbi_generic_wave_kernel<kPath, false, RESIDENT, false>;
 }
 
-// K6am's dynamic shared memory: the column, and resident the codebooks and
-// the rank's (deg, W) packed cut
-int generic_wave_smem(int resident, int deg, int slice_shift) {
-  return N * 4 + (resident ? deg * (CODES * 4 + (2 << slice_shift)) : 0);
+// K6am's instance: with backpointers or not, the resident cut or the
+// streaming one, and its exchange
+GenericWaveKernel generic_wave_kernel(int with_path, int sys, int resident,
+                                      int cluster) {
+  if (resident)
+    return with_path ? wave_instance<true, true>(sys, cluster)
+                     : wave_instance<false, true>(sys, cluster);
+  return with_path ? wave_instance<true, false>(sys, cluster)
+                   : wave_instance<false, false>(sys, cluster);
+}
+
+// K6am's dynamic shared memory: the column (cluster: both parities), and
+// resident the codebooks and the rank's (deg, W) packed cut
+int generic_wave_smem(int resident, int deg, int slice_shift, int cluster) {
+  return (cluster ? 2 : 1) * N * 4 +
+         (resident ? deg * (CODES * 4 + (2 << slice_shift)) : 0);
+}
+
+// the launch's shape: a cooperative grid (reads, ranks), or (cluster) a
+// grid (ranks, reads) of clusters of the read's M ranks
+void generic_wave_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                         int n_reads, int n_local, int slice_shift, int smem,
+                         int cluster) {
+  cfg = {};
+  cfg.blockDim = dim3(pair_threads(slice_shift));
+  cfg.dynamicSmemBytes = smem;
+  if (cluster) {
+    cfg.gridDim = dim3(n_local, n_reads);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n_local;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+  } else {
+    cfg.gridDim = dim3(n_reads, n_local);
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
 }
 
 }  // namespace
 
 // K6am's wave: the most blocks of its instance (with_path, sys, resident,
 // at deg slots and slices of 1 << slice_shift states) that one card holds
-// at once (blocks an SM at its threads and shared memory, times the SMs)
-// into *blocks; an error where the card has no cooperative launch.
+// at once (blocks an SM at W / 2 threads and its shared memory, times the
+// SMs) into *blocks; (cluster) the blocks of the clusters of M ranks it
+// holds at once (cudaOccupancyMaxActiveClusters).  An error where the card
+// has no cooperative launch (or, cluster, where the clusters do not fit).
 extern "C" int nc_viterbi_generic_wave_resident(int with_path, int sys,
                                                 int resident, int deg,
-                                                int slice_shift, int device,
-                                                int* blocks) {
+                                                int slice_shift, int cluster,
+                                                int device, int* blocks) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   *blocks = 0;
-  if (slice_shift < 6 || slice_shift > 11 || deg < 1 || deg > 256)
+  const int ranks = N >> slice_shift;
+  if (slice_shift < 6 || slice_shift > 11 || deg < 1 || deg > 256 ||
+      (cluster && (sys || ranks > nc::MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
-  const GenericWaveKernel kernel = generic_wave_kernel(with_path, sys,
-                                                       resident);
-  const int smem = generic_wave_smem(resident, deg, slice_shift);
+  const GenericWaveKernel kernel =
+      generic_wave_kernel(with_path, sys, resident, cluster);
+  const int smem = generic_wave_smem(resident, deg, slice_shift, cluster);
   int coop = 0, sms = 0, per_sm = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess && !coop && !cluster) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    generic_wave_config(cfg, attr, 1, ranks, slice_shift, smem, 1);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    *blocks = clusters * ranks;
+    return (int)err;
+  }
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, pair_threads(slice_shift), smem);
   *blocks = per_sm * sms;
   return (int)err;
 }
 
 // K6am: events 0 .. T - 1 of the reads [lo, lo + n_reads) for n_local
-// ranks of a data row, one cooperative grid (n_reads, n_local) on
-// `stream`.  `ranks` (device memory of this card) holds the row's M = 4096
-// >> slice_shift GenericWaveRank entries, then the n_local ranks to run as
-// int64; the entries' tables, (B, W) models, (2, B, W) columns, (T - 1,
-// B, W) bps (or nullptr: score-only, with_path = 0) and (B,) counters
-// (zero before the first wave) lie on their ranks' cards, reachable from
-// this one (peer access).  resident: the entries' tables are the packed
-// cut and its codebooks (16-byte aligned), of 1 to 64 slots; else the
-// int32 / float32 cut of 1 to 256.  per_read: each read's log-probs (or
-// layout) its own.  sys: the exchange at system scope.  timed_out: as K1m's.
-// Returns the launch's error: a grid larger than the card holds at once
-// is refused (cudaErrorCooperativeLaunchTooLarge).
+// ranks of a data row on `stream`, blocks of W / 2 threads: one
+// cooperative grid (n_reads, n_local), or (cluster: every rank of the row,
+// on this card, M <= MAX_CLUSTER) a grid of the reads' clusters.  `ranks`
+// (device memory of this card) holds the row's M = 4096 >> slice_shift
+// GenericWaveRank entries, then the n_local ranks to run as int64; the
+// entries' tables, (B, W) models, (2, B, W) columns, (T - 1, B, W) bps (or
+// nullptr: score-only, with_path = 0) and (B,) counters (zero before the
+// launch; the cluster path reads none) lie on their ranks' cards,
+// reachable from this one (peer access).  resident: the entries' tables
+// are the packed cut and its codebooks (16-byte aligned), of 1 to 64
+// slots; else the int32 / float32 cut of 1 to 256.  per_read: each read's
+// log-probs (or layout) its own.  sys: the exchange at system scope.
+// timed_out: as K1m's.  Returns the launch's error: a cooperative grid
+// larger than the card holds at once is refused
+// (cudaErrorCooperativeLaunchTooLarge).
 extern "C" int nc_viterbi_generic_wave(
     const void* ranks, int n_local, int B, int T, int lo, int n_reads,
     int slice_shift, int deg, int per_read, int with_path, int sys,
-    int resident, float log2pi, float log_n, long long timeout_ns,
-    int32_t* timed_out, int device, void* stream) {
+    int resident, int cluster, float log2pi, float log_n,
+    long long timeout_ns, int32_t* timed_out, int device, void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
+  const int M = N >> slice_shift;
   if (slice_shift < 6 || slice_shift > 11 || T < 1 || lo < 0 ||
-      n_reads < 1 || lo + n_reads > B || n_local < 1 ||
-      n_local > (N >> slice_shift) || timed_out == nullptr || deg < 1 ||
-      deg > (resident ? THREADS / CODES : 256))
+      n_reads < 1 || lo + n_reads > B || n_local < 1 || n_local > M ||
+      timed_out == nullptr || deg < 1 ||
+      deg > (resident ? THREADS / CODES : 256) ||
+      (cluster && (sys || n_local != M || M > nc::MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
-  const GenericWaveKernel kernel = generic_wave_kernel(with_path, sys,
-                                                       resident);
-  const int smem = generic_wave_smem(resident, deg, slice_shift);
+  const GenericWaveKernel kernel =
+      generic_wave_kernel(with_path, sys, resident, cluster);
+  const int smem = generic_wave_smem(resident, deg, slice_shift, cluster);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_reads, n_local);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  generic_wave_config(cfg, attr, n_reads, n_local, slice_shift, smem,
+                      cluster);
+  cfg.stream = (cudaStream_t)stream;
   err = cudaLaunchKernelEx(&cfg, kernel,
                            static_cast<const GenericWaveRank*>(ranks), B, T,
                            lo, slice_shift, deg, per_read, log2pi, log_n,

@@ -1,16 +1,20 @@
 // The exchange of the state-parallel kernels, K1m (viterbi_forward.cu
 // viterbi_forward_wave_kernel), K6am (viterbi_generic.cu
 // viterbi_generic_wave_kernel), K4m (fwbw_forward.cu) and K5m
-// (em_backward.cu): one block a (read, rank) pair of a cooperative grid,
-// each rank owning the buffers it publishes (K1m's and K6am's slice of
-// column t at parity t & 1; K4m's and K5m's: their sources) and a step
-// counter a read.  A step publishes the counter by a release store, polls
-// the peers' counters with acquire loads, then reads the peers' buffers in
-// place by relaxed (L1-bypassing) loads, never the non-coherent path.  On
-// one card the operations take gpu scope, across cards (SYS) system scope.
-// A poll that waits longer than the launch's timeout records (t, read,
-// rank, peer) in a host-mapped word and traps: a fault in the exchange
-// fails the pass, never hangs it.
+// (em_backward.cu), on two paths.  The cooperative path (K1m always; K6am,
+// K4m and K5m across cards or over more than MAX_CLUSTER ranks): one block
+// a (read, rank) pair of a cooperative grid, each rank owning the buffers
+// it publishes (K1m's and K6am's slice of column t at parity t & 1; K4m's
+// and K5m's: their sources) and a step counter a read.  A step publishes
+// the counter by a release store, polls the peers' counters with acquire
+// loads, then reads the peers' buffers in place by relaxed (L1-bypassing)
+// loads, never the non-coherent path.  On one card the operations take gpu
+// scope, across cards (SYS) system scope.  A poll that waits longer than
+// the launch's timeout records (t, read, rank, peer) in a host-mapped word
+// and traps: a fault in the exchange fails the pass, never hangs it.  The
+// cluster path (K6am, K4m and K5m on one card with M <= MAX_CLUSTER): a
+// read's M blocks one thread block cluster, exchanging through their
+// shared memory behind the cluster barrier (below).
 
 #pragma once
 
@@ -31,6 +35,21 @@ __device__ __forceinline__ float ld_column(const float* p) {
     asm volatile("ld.relaxed.sys.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
   else
     asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// four floats of a column slice (16-byte aligned), as ld_column
+template <bool SYS>
+__device__ __forceinline__ float4 ld_column4(const float* p) {
+  float4 v;
+  if (SYS)
+    asm volatile("ld.relaxed.sys.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "l"(p));
+  else
+    asm volatile("ld.relaxed.gpu.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "l"(p));
   return v;
 }
 
@@ -76,8 +95,9 @@ __host__ __device__ __forceinline__ int slice_threads(int slice_shift) {
 // stays in a register through the time loop: the wait's timeout and
 // record, the row's rank count, the block's rank and read.  The M ranks'
 // counters and published buffers at the read are pointer tables of their
-// own: K1m's and K6am's in Exchange, K4m's and K5m's in dynamic shared
-// memory (M entries each, so that a block of a small slice keeps little).
+// own: K1m's and K6am's (its cooperative path) in Exchange, K4m's and K5m's
+// in dynamic shared memory (M entries each, so that a block of a small
+// slice keeps little).
 struct WaveSync {
   int32_t* timed_out;
   long long timeout_ns;
@@ -145,11 +165,14 @@ __device__ __forceinline__ void ranks_max(const float* const* src,
 
 // --- the exchange inside a thread block cluster ---------------------------
 // On one card a read's M <= MAX_CLUSTER ranks run as one cluster of M
-// blocks (K4m's and K5m's cluster path): the hardware schedules a cluster's
-// blocks at once, so they may wait on each other without a cooperative
-// grid, and each block reads what its peers publish in their shared
-// memory (distributed shared memory) behind the cluster barrier's release
-// and acquire, with no counter in global memory and no L2 round trip.
+// blocks (K6am's, K4m's and K5m's cluster path): the hardware schedules a
+// cluster's blocks at once, so they may wait on each other without a
+// cooperative grid, and each block reaches its peers' shared memory
+// (distributed shared memory) behind the cluster barrier's release and
+// acquire, with no counter in global memory and no L2 round trip.  K4m and
+// K5m read what their peers publish in place (ld_cluster); K6am pushes its
+// slice into every peer's double-buffered column (st_cluster2), so that a
+// step reads only its own shared memory.
 
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 
@@ -176,6 +199,20 @@ __device__ __forceinline__ float ld_cluster(uint32_t addr) {
   asm volatile("ld.shared::cluster.f32 %0, [%1];"
                : "=f"(v) : "r"(addr) : "memory");
   return v;
+}
+
+// stores into a block's shared memory at a cluster_map address: two floats
+// (8-byte aligned), one word
+__device__ __forceinline__ void st_cluster2(uint32_t addr, float v0,
+                                            float v1) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr),
+               "f"(v0), "f"(v1)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, int v) {
+  asm volatile("st.shared::cluster.b32 [%0], %1;" ::"r"(addr), "r"(v)
+               : "memory");
 }
 
 // ranks_max over the cluster: out[k] the max of the K floats at `addr` in

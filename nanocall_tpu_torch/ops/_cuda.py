@@ -171,11 +171,11 @@ def load():
             + [ci] + [ci, vp])
         lib.nc_viterbi_generic_wave.restype = ci
         lib.nc_viterbi_generic_wave.argtypes = (
-            [vp] + [ci] * 11 + [cf, cf] + [ctypes.c_longlong, vp]
+            [vp] + [ci] * 12 + [cf, cf] + [ctypes.c_longlong, vp]
             + [ci, vp])
         lib.nc_viterbi_generic_wave_resident.restype = ci
         lib.nc_viterbi_generic_wave_resident.argtypes = [
-            ci] * 6 + [ctypes.POINTER(ci)]
+            ci] * 7 + [ctypes.POINTER(ci)]
         lib.nc_viterbi_generic_traceback_slices.restype = ci
         lib.nc_viterbi_generic_traceback_slices.argtypes = (
             [vp] * 2 + [ci] * 4 + [vp, ci] + [vp] * 2 + [ci, vp])

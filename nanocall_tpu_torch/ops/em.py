@@ -567,9 +567,7 @@ def em_backward_wave_kernel(ranks, local, lo: int, hi: int,
     if not (train_scaling or train_transitions):
         raise ValueError("K5m runs with a train flag set")
     B, T, W, shift, dev, sys = hmm._wave_setup(ranks, local, lo, hi, "K5m")
-    if cluster is None:
-        cluster = (hmm.wave_cluster(len(ranks), sys)
-                   and len(local) == len(ranks))
+    cluster = hmm.cluster_path(len(ranks), sys, len(local), cluster)
     vals, keep = [], []
     for m, r in enumerate(ranks):
         _check_em_wave_rank(m, r, B, T, W, train_scaling)

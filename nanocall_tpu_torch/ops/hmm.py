@@ -1417,19 +1417,37 @@ def fwbw_forward_wave_plain(ranks, lo: int, hi: int) -> None:
             [x.part[2, rows].to(dev) for x in ranks]))
 
 
-#: the most ranks of a data row that K4m and K5m run as one thread block
-#: cluster (csrc/wave_exchange.cuh MAX_CLUSTER)
+#: the most ranks of a data row that K4m, K5m and K6am run as one thread
+#: block cluster (csrc/wave_exchange.cuh MAX_CLUSTER)
 MAX_CLUSTER = 8
 
 
 def wave_cluster(M: int, sys: bool) -> bool:
-    """Whether K4m's and K5m's launches over a data row of M ranks take the
-    cluster path by default: every rank on the launch's card (not sys) and
-    M <= MAX_CLUSTER.  Then a read's M blocks are one cluster, exchanging
-    through their shared memory, and a launch may hold any number of
-    reads; else the blocks exchange through global memory behind counters
-    in a cooperative grid that must fit the card at once."""
+    """Whether K4m's, K5m's and K6am's launches over a data row of M ranks
+    take the cluster path by default: every rank on the launch's card (not
+    sys) and M <= MAX_CLUSTER.  Then a read's M blocks are one cluster,
+    exchanging through their shared memory, and a launch may hold any
+    number of reads; else the blocks exchange through global memory behind
+    counters in a cooperative grid that must fit the card at once."""
     return not sys and M <= MAX_CLUSTER
+
+
+def cluster_path(M: int, sys: bool, n_local: int,
+                 cluster: bool | None) -> bool:
+    """Whether a wave launch of K4m, K5m or K6am over n_local of a data
+    row's M ranks (sys: a rank lies on another card) takes the cluster
+    path: by default (None) where wave_cluster(M, sys) says and the launch
+    holds every rank.  cluster=True where that path cannot run (a launch
+    of some of the ranks, more than MAX_CLUSTER ranks, or across cards)
+    raises ValueError."""
+    if cluster is None:
+        return wave_cluster(M, sys) and n_local == M
+    if cluster and (n_local != M or not wave_cluster(M, sys)):
+        raise ValueError(
+            f"the cluster path takes one launch of every rank of a row of "
+            f"at most {MAX_CLUSTER} ranks on one card; got {n_local} of {M}"
+            f" ranks{' across cards' if sys else ''}")
+    return bool(cluster)
 
 
 #: fwbw_forward_wave_resident's answers, by (card index, sys, W, cluster)
@@ -1554,8 +1572,7 @@ def fwbw_forward_wave_kernel(ranks, local, lo: int, hi: int,
     waits WAVE_TIMEOUT_S on a peer at most.  Raises if a wave of this
     process timed out (wave_timeout)."""
     B, T, W, shift, dev, sys = _wave_setup(ranks, local, lo, hi, "K4m")
-    if cluster is None:
-        cluster = wave_cluster(len(ranks), sys) and len(local) == len(ranks)
+    cluster = cluster_path(len(ranks), sys, len(local), cluster)
     stored = ranks[0].alphas is not None
     vals, keep = [], []
     for m, r in enumerate(ranks):
@@ -2077,8 +2094,10 @@ def viterbi_decode(ops: TransOps, model: ModelArrays, ev: dict,
 # the table's from side (per read (B, deg, W) log-probs; the cut of the
 # resident layout where the table has one), its (B, W) scaled model, a (2,
 # B, W) column buffer, B step counters and its (T - 1, B, W) backpointer
-# bytes.  A step reads the whole previous column from every rank's buffer,
-# since a loaded table's from-states lie anywhere.
+# bytes.  A step needs the whole previous column, since a loaded table's
+# from-states lie anywhere: on the cluster path every rank pushes its slice
+# into its peers' shared memory, and stores only the last two columns into
+# its buffer; on the cooperative path it reads every rank's buffer.
 
 
 class GenericWaveRank(NamedTuple):
@@ -2149,24 +2168,26 @@ def viterbi_forward_generic_wave_plain(ranks, lo: int, hi: int) -> None:
 
 
 #: generic_wave_resident's answers, by (card index, with_path, sys,
-#: resident, deg, W)
+#: resident, deg, W, cluster)
 _generic_resident: dict = {}
 
 
 def generic_wave_resident(dev, with_path: bool, sys: bool, resident: bool,
-                          deg: int, W: int) -> int:
+                          deg: int, W: int, cluster: bool = False) -> int:
     """The most blocks of K6am's instance (with_path; sys: the exchange
     across cards; resident, at deg slots and slices of W states, whose
     shared memory it sets) that the CUDA device `dev` holds at once: a
-    wave's grid, reads times the card's ranks, must not exceed it."""
+    cooperative wave's grid, reads times the card's ranks, must not exceed
+    it; cluster: the blocks of the most clusters of the cluster path it
+    holds at once."""
     key = (torch.device(dev).index, bool(with_path), bool(sys),
-           bool(resident), int(deg), int(W))
+           bool(resident), int(deg), int(W), bool(cluster))
     if key not in _generic_resident:
         blocks = ctypes.c_int(0)
         _cuda.check(_cuda.load().nc_viterbi_generic_wave_resident(
             int(with_path), int(sys), int(resident), int(deg),
-            _slice_shift(4096 // W, W), key[0], ctypes.byref(blocks)),
-            "viterbi_generic_wave occupancy")
+            _slice_shift(4096 // W, W), int(cluster), key[0],
+            ctypes.byref(blocks)), "viterbi_generic_wave occupancy")
         _generic_resident[key] = blocks.value
     return _generic_resident[key]
 
@@ -2223,8 +2244,11 @@ def _check_generic_wave_rank(m: int, r: GenericWaveRank, B: int, T: int,
     return deg
 
 
-def _generic_wave_kernel(ranks, local, lo: int, hi: int,
-                         resident: bool) -> None:
+def _generic_wave_kernel(ranks, local, lo: int, hi: int, resident: bool,
+                         cluster: bool | None) -> None:
+    devices = [r.ev["mean"].device for r in ranks]
+    cluster = cluster_path(len(ranks), len(set(devices)) > 1, len(local),
+                           cluster)
     B, T, W, shift, dev, sys = _wave_setup(ranks, local, lo, hi, "K6am")
     with_path = ranks[0].bps is not None
     degs, modes = set(), set()
@@ -2248,32 +2272,38 @@ def _generic_wave_kernel(ranks, local, lo: int, hi: int,
     table = _rank_table(vals, local, dev)
     err = _cuda.load().nc_viterbi_generic_wave(
         table.data_ptr(), len(local), B, T, lo, hi - lo, shift, degs.pop(),
-        int(modes.pop()), int(with_path), int(sys), int(resident), LOG_2PI,
-        math.log(len(ranks) * W), int(WAVE_TIMEOUT_S * 1e9),
-        _timed_out.data_ptr(),
+        int(modes.pop()), int(with_path), int(sys), int(resident),
+        int(cluster), LOG_2PI, math.log(len(ranks) * W),
+        int(WAVE_TIMEOUT_S * 1e9), _timed_out.data_ptr(),
         *_cuda.target(dev))
     _cuda.check(err, "viterbi_generic_wave kernel launch")
 
 
-def generic_wave_resident_kernel(ranks, local, lo: int, hi: int) -> None:
+def generic_wave_resident_kernel(ranks, local, lo: int, hi: int,
+                                 cluster: bool | None = None) -> None:
     """K6am on the card, the resident form (each rank's packed cut and its
     codebooks in shared memory): viterbi_forward_generic_wave_plain's work
     for the ranks `local` (indices into `ranks`, all on one card; 2 to 64
-    ranks in all) over the reads [lo, hi), one cooperative launch on that
-    card's current stream, whose grid (hi - lo reads x len(local) ranks)
-    must fit the card at once (generic_wave_resident), or the launch
-    raises.  The other ranks run their blocks of the same reads in a launch
-    of their own card; their slices and counters are read over peer
-    access.  A block waits WAVE_TIMEOUT_S on a peer at most.  Raises if a
-    wave of this process timed out (wave_timeout)."""
-    _generic_wave_kernel(ranks, local, lo, hi, resident=True)
+    ranks in all) over the reads [lo, hi), one launch on that card's
+    current stream, blocks of W / 2 threads.  cluster (cluster_path: by
+    default where wave_cluster(M, sys) says and `local` holds every rank):
+    each read's M blocks one thread block cluster, exchanging through their
+    shared memory, any number of reads.  Else one cooperative launch, whose
+    grid (hi - lo reads x len(local) ranks) must fit the card at once
+    (generic_wave_resident), or the launch raises; the other ranks run
+    their blocks of the same reads in a launch of their own card; their
+    slices and counters are read over peer access, and a block waits
+    WAVE_TIMEOUT_S on a peer at most.  Raises if a wave of this process
+    timed out (wave_timeout)."""
+    _generic_wave_kernel(ranks, local, lo, hi, True, cluster)
     _cuda.count_launch(generic_wave_resident_kernel)
 
 
-def generic_wave_streaming_kernel(ranks, local, lo: int, hi: int) -> None:
+def generic_wave_streaming_kernel(ranks, local, lo: int, hi: int,
+                                  cluster: bool | None = None) -> None:
     """K6am on the card, the streaming form (each rank's int32 / float32
     cut read from L2 at every step): as generic_wave_resident_kernel."""
-    _generic_wave_kernel(ranks, local, lo, hi, resident=False)
+    _generic_wave_kernel(ranks, local, lo, hi, False, cluster)
     _cuda.count_launch(generic_wave_streaming_kernel)
 
 
@@ -2281,14 +2311,15 @@ generic_wave_resident_kernel.launches = 0
 generic_wave_streaming_kernel.launches = 0
 
 
-def forward_generic_wave_kernel(ranks, local, lo: int, hi: int) -> None:
+def forward_generic_wave_kernel(ranks, local, lo: int, hi: int,
+                                cluster: bool | None = None) -> None:
     """K6am on the card in the form the ranks' cuts take
     (generic_forward_route: the resident one where the cut has the packed
-    layout)."""
+    layout), on the exchange path `cluster` chooses (cluster_path)."""
     if generic_forward_route(ranks[0].ops) == "resident":
-        generic_wave_resident_kernel(ranks, local, lo, hi)
+        generic_wave_resident_kernel(ranks, local, lo, hi, cluster)
     else:
-        generic_wave_streaming_kernel(ranks, local, lo, hi)
+        generic_wave_streaming_kernel(ranks, local, lo, hi, cluster)
 
 
 def viterbi_traceback_generic_slices_plain(ops: TransOps, column, bp_slices,

@@ -49,16 +49,20 @@ rank holds every state and reads no peer, and decodes by K1 + K2) and the
 plain version on the CPU, and raises if a kernel fails.
 
 The generic decode (hmm.viterbi_decode: K6a + K6b, under a loaded or
-structured table, one for every read or one a read) takes the same
-schedule under nanocall_tpu/parallel/mesh.py:75 shard_decode_inputs:
+structured table, one for every read or one a read) takes the state axis
+under nanocall_tpu/parallel/mesh.py:75 shard_decode_inputs:
 split_table_states (or viterbi_decode_placed on mesh.shard_decode_inputs'
 parts) gives rank m the (deg, W) cut of the table's from side, its (B, W)
-model and the events; each wave is one K6am launch a card
-(hmm.forward_generic_wave_kernel, waves cut by plan_waves on
-hmm.generic_wave_resident, K6am's own resident blocks), in the resident
-form where the cut has the packed layout, else the streaming one; each
-step a rank loads the whole column of event t - 1, since a loaded table's
-from-states lie anywhere, and runs K6a's slot loop for its states; then
+model and the events; K6am (hmm.forward_generic_wave_kernel: the resident
+form where the cut has the packed layout, else the streaming one) runs
+K6a's slot loop for the rank's states on W / 2 threads, 2 states a
+thread, so that a read's M blocks take about one SM; each step a rank
+needs the whole column of event t - 1, since a loaded table's from-states
+lie anywhere.  A row on one card of at most hmm.MAX_CLUSTER ranks takes
+one launch of all its reads, a thread block cluster a read, each rank
+pushing its slice into its peers' shared memory; else a launch a wave and
+card, cut by plan_waves on hmm.generic_wave_resident (K6am's own resident
+blocks), the slices exchanged through global memory behind counters.  Then
 K6bm (hmm.generic_traceback_slices_kernel: K6b's ring, each row assembled
 from the slices) walks on the row's first card with the table's whole
 from side (its from-state table in shared memory where it has one, else
@@ -184,27 +188,33 @@ def _wait_all(cards) -> None:
                     torch.cuda.current_stream(b))
 
 
+def row_waves(B: int, devices, resident, clusters: bool = False) -> dict:
+    """The launches of a data row of B reads whose rank m lies on
+    devices[m]: {device: [(lo, hi), ...]}.  With `clusters` (K4m, K5m,
+    K6am), a row on one card of at most hmm.MAX_CLUSTER ranks
+    (hmm.wave_cluster) in one launch of all its reads, which the kernels
+    run as a cluster a read; else plan_waves' cut on resident(card, sys),
+    sys: the row spans cards."""
+    cards = list(dict.fromkeys(devices))
+    sys = len(cards) > 1
+    if clusters and hmm.wave_cluster(len(devices), sys):
+        return {cards[0]: [(0, B)]}
+    return plan_waves(B, devices, {d: resident(d, sys) for d in cards})
+
+
 def _wave_kernels(ranks, launch, resident, clusters: bool = False) -> None:
     """One launch a wave and card over a data row's ranks (launch(ranks,
-    local, lo, hi)), the waves cut by plan_waves from resident(card, sys);
-    with `clusters` (K4m, K5m), a row on one card of at most
-    hmm.MAX_CLUSTER ranks in one launch of all its reads, which the
-    kernels run as a cluster a read.  Across cards every card waits first
-    for the others' counters to be zeroed, and the row's first card for
-    the others' waves after the last."""
+    local, lo, hi)), the waves cut by row_waves.  Across cards every card
+    waits first for the others' counters to be zeroed, and the row's first
+    card for the others' waves after the last."""
     devices = [r.ev["mean"].device for r in ranks]
     cards = list(dict.fromkeys(devices))
     for a in cards:
         for b in cards:
             _cuda.enable_peer_access(a, b)
-    sys = len(cards) > 1
-    B = ranks[0].flags.shape[0]
-    if clusters and hmm.wave_cluster(len(ranks), sys):
-        waves = {cards[0]: [(0, B)]}
-    else:
-        waves = plan_waves(B, devices, {d: resident(d, sys) for d in cards})
+    waves = row_waves(ranks[0].flags.shape[0], devices, resident, clusters)
     local = {d: [m for m, x in enumerate(devices) if x == d] for d in cards}
-    if sys:
+    if len(cards) > 1:
         _wait_all(cards)
     for i in range(len(waves[cards[0]])):
         for d in cards:
@@ -214,17 +224,22 @@ def _wave_kernels(ranks, launch, resident, clusters: bool = False) -> None:
         first.wait_stream(torch.cuda.current_stream(d))
 
 
-def _forward_kernels(ranks, with_path: bool, generic: bool = False) -> None:
-    """K1m (K6am: generic) over a data row (_wave_kernels), the waves cut on
-    the kernel's resident blocks (K6am's at the ranks' slot count, in the
-    form their cut takes)."""
+def _forward_kernels(ranks, with_path: bool, generic: bool = False,
+                     cluster: bool | None = None) -> None:
+    """K1m (K6am: generic) over a data row (_wave_kernels).  K1m's waves
+    are cut on its resident blocks.  K6am takes its cluster path where
+    hmm.wave_cluster says, else (or with cluster False, on one card too)
+    its cooperative path, the waves cut on its own resident blocks at the
+    ranks' slot count, in the form their cut takes."""
     if generic:
         ops, W = ranks[0].ops, ranks[0].col.shape[-1]
         resident = hmm.generic_forward_route(ops) == "resident"
         deg = (ops.from_packed if resident else ops.from_idx).shape[-2]
-        _wave_kernels(ranks, hmm.forward_generic_wave_kernel,
+        _wave_kernels(ranks, lambda *a: hmm.forward_generic_wave_kernel(
+                          *a, cluster=cluster),
                       lambda d, sys: hmm.generic_wave_resident(
-                          d, with_path, sys, resident, deg, W))
+                          d, with_path, sys, resident, deg, W),
+                      clusters=cluster is None)
     else:
         _wave_kernels(ranks, hmm.forward_wave_kernel,
                       lambda d, sys: hmm.forward_wave_resident(d, with_path,
@@ -371,14 +386,15 @@ def split_table_states(ops: hmm.TransOps, model: hmm.ModelArrays,
     return GenericRow(parts, walk_table(ops, devices[0]))
 
 
-def viterbi_decode_placed(ops, model, ev: dict,
-                          with_path: bool = True) -> list:
+def viterbi_decode_placed(ops, model, ev: dict, with_path: bool = True,
+                          cluster: bool | None = None) -> list:
     """The generic decode of arguments placed by mesh.shard_decode_inputs
     (ops a mesh.PlacedTable, model a ModelArrays and ev a dict of Sharded
     parts), the counterpart of hmm.viterbi_decode: one output a data row,
     in order, on the row's first device ({"path" (B, T) uint16, "logp"},
     or {"logp"}), which mesh.join joins; bit-identical to the rows of the
-    unplaced decode (viterbi_decode_generic_statepar)."""
+    unplaced decode (viterbi_decode_generic_statepar, which takes
+    `cluster`)."""
     cut = ops.cut
     D, M = cut.from_idx.mesh.ids.shape
     rows = []
@@ -394,7 +410,7 @@ def viterbi_decode_placed(ops, model, ev: dict,
                 hmm.ModelArrays(*(_row_model(x.shards[d][m], B)
                                   for x in model)), e))
         rows.append(GenericRow(parts, ops.walk[d]))
-    return viterbi_decode_generic_statepar(rows, with_path)
+    return viterbi_decode_generic_statepar(rows, with_path, cluster)
 
 
 def _generic_wave_rank(part: GenericRankInputs,
@@ -411,9 +427,11 @@ def _generic_wave_rank(part: GenericRankInputs,
         torch.zeros(B, dtype=torch.int32, device=dev))
 
 
-def _decode_generic(rows, with_path: bool, kernels: bool) -> list:
-    """The schedule of the module docstring over K6am and K6bm (kernels) or
-    their plain versions (a row's reads in one wave)."""
+def _decode_generic(rows, with_path: bool, kernels: bool,
+                    cluster: bool | None = None) -> list:
+    """The schedule of the module docstring over K6am (on the exchange path
+    `cluster` chooses, _forward_kernels) and K6bm (kernels) or their plain
+    versions (a row's reads in one wave)."""
     T = _plan([row.parts for row in rows])
     traceback = (hmm.generic_traceback_slices_kernel if kernels
                  else hmm.viterbi_traceback_generic_slices_plain)
@@ -421,7 +439,7 @@ def _decode_generic(rows, with_path: bool, kernels: bool) -> list:
               for row in rows]
     for ranks in groups:
         if kernels:
-            _forward_kernels(ranks, with_path, generic=True)
+            _forward_kernels(ranks, with_path, generic=True, cluster=cluster)
         else:
             hmm.viterbi_forward_generic_wave_plain(
                 ranks, 0, ranks[0].flags.shape[0])
@@ -452,7 +470,8 @@ def viterbi_decode_generic_statepar_plain(rows,
     return _decode_generic(rows, with_path, kernels=False)
 
 
-def viterbi_decode_generic_statepar(rows, with_path: bool = True) -> list:
+def viterbi_decode_generic_statepar(rows, with_path: bool = True,
+                                    cluster: bool | None = None) -> list:
     """The generic decode with its states split over ranks, as
     nanocall_tpu/ops/hmm.py:759 viterbi_decode runs under
     shard_decode_inputs.
@@ -463,7 +482,8 @@ def viterbi_decode_generic_statepar(rows, with_path: bool = True) -> list:
     with_path is False, bit-identical to hmm.viterbi_decode on the row's
     whole table.  CUDA devices run the kernels (a failed kernel, or a table
     neither K6am form takes, raises; rows of one rank run K6a + K6b), CPU
-    devices the plain version."""
+    devices the plain version.  cluster: K6am's exchange path, None where
+    hmm.wave_cluster says, False the cooperative grid (cluster_path)."""
     types = {p.ev["mean"].device.type for row in rows for p in row.parts}
     if types == {"cpu"}:
         return viterbi_decode_generic_statepar_plain(rows, with_path)
@@ -477,7 +497,7 @@ def viterbi_decode_generic_statepar(rows, with_path: bool = True) -> list:
                                       from_states=row.walk.from_states),
             row.parts[0].model, row.parts[0].ev, with_path=with_path)
             for row in rows]
-    return _decode_generic(rows, with_path, kernels=True)
+    return _decode_generic(rows, with_path, kernels=True, cluster=cluster)
 
 
 # ---------------------------------------------------------------------------

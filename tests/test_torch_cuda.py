@@ -1051,12 +1051,14 @@ def _nan_generic_inputs(dev, T: int):
 def test_generic_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
                                                         inputs):
     """K6am and K6bm, the generic decode with the 4096 states split over M =
-    2, 4 and 8 ranks on cuda:0 (statepar.viterbi_decode_generic_statepar),
+    2, 4, 8 and 16 ranks on cuda:0 (statepar.viterbi_decode_generic_statepar),
     against their plain versions over the same ranks and against K6a + K6b
     (hmm.viterbi_decode), path and score-only, every output as bits, under
     _generic_tables' five tables, on clean reads of lengths 0, 1, T-1 and T
-    and on _nan_generic_inputs; one launch of K6am's form a wave and of
-    K6bm a row; a row of one rank decodes by K6a + K6b."""
+    and on _nan_generic_inputs; K6am on its default path (a cluster a read
+    up to 8 ranks) and, forced by cluster=False, on its cooperative path;
+    one launch of K6am's form a row (one wave) and of K6bm a row; a row of
+    one rank decodes by K6a + K6b."""
     from nanocall_tpu_torch.parallel import statepar
 
     T = 40
@@ -1068,24 +1070,27 @@ def test_generic_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
     B = ev["length"].shape[0]
     wrappers = {"resident": hmm.generic_wave_resident_kernel,
                 "streaming": hmm.generic_wave_streaming_kernel}
+    # (M, cluster): None the default path, False the cooperative one
+    forms = [(1, None)] + [(M, c) for M in (2, 4, 8, 16)
+                           for c in (None, False)]
     for name, (ops, form) in _generic_tables(card, tmp_path, B).items():
         for with_path in (True, False):
             ref = hmm.viterbi_decode(ops, model, ev, with_path=with_path)
-            for M in (1, 2, 4, 8):
+            for M, cluster in forms:
                 rows = [statepar.split_table_states(ops, model, ev,
                                                     [card] * M)]
                 want = statepar.viterbi_decode_generic_statepar_plain(
                     rows, with_path)
                 n0 = (wrappers[form].launches,
                       hmm.generic_traceback_slices_kernel.launches)
-                got = statepar.viterbi_decode_generic_statepar(rows,
-                                                               with_path)
+                got = statepar.viterbi_decode_generic_statepar(
+                    rows, with_path, cluster)
                 torch.cuda.synchronize()
                 assert (wrappers[form].launches - n0[0],
                         hmm.generic_traceback_slices_kernel.launches
                         - n0[1]) == (int(M > 1), int(M > 1 and with_path))
                 for key in ref:
-                    what = (inputs, name, M, with_path, key)
+                    what = (inputs, name, M, cluster, with_path, key)
                     assert got[0][key].device == card, what
                     assert torch.equal(_bits(got[0][key]),
                                        _bits(want[0][key])), what

@@ -262,7 +262,7 @@ def test_generic_slice_step_equals_the_k6a_step(tmp):
         assert torch.equal(hmm.gather_column(bp), bps[0])
 
 
-@pytest.mark.parametrize("M", [2, 8])
+@pytest.mark.parametrize("M", [2, 4, 8, 16, 64])
 def test_generic_wave_plain_keeps_both_parities(tmp, M):
     """The plain K6am's double buffer, which the kernel's exchange reads in
     place: after waves of 5 and 3 reads, every rank's col[(T - 1) % 2]
@@ -302,6 +302,64 @@ def test_generic_wave_wrappers_refuse_rank_counts(tmp, M):
                 wrapper(ranks, [0], 0, B)
         assert (hmm.generic_wave_resident_kernel.launches,
                 hmm.generic_wave_streaming_kernel.launches) == n0
+
+
+@pytest.mark.parametrize("M", [2, 4, 8, 16, 64])
+def test_generic_wave_route_takes_the_cluster_path(M):
+    """K6am's launches of a data row (statepar.row_waves with clusters, as
+    _forward_kernels takes them by default): one launch of all the reads,
+    a cluster a read, exactly where hmm.wave_cluster says (every rank on
+    one card, at most hmm.MAX_CLUSTER ranks), never asking the resident
+    blocks; else plan_waves' cut on K6am's resident blocks, as with
+    clusters off (the cooperative path forced).  The wrappers' default
+    (hmm.cluster_path, cluster None) agrees: the cluster path for a launch
+    of every rank where wave_cluster says, never for a partial launch."""
+    cards = [torch.device("cuda", i) for i in range(2)]
+    asked = []
+
+    def resident(d, sys):
+        asked.append((d, sys))
+        return 96
+    for devices in ([cards[0]] * M, [cards[m % 2] for m in range(M)]):
+        sys = len(set(devices)) > 1
+        plan = statepar.plan_waves(B, devices, {d: 96 for d in devices})
+        asked.clear()
+        got = statepar.row_waves(B, devices, resident, clusters=True)
+        if hmm.wave_cluster(M, sys):
+            assert got == {cards[0]: [(0, B)]} and not asked, (M, sys)
+        else:
+            assert got == plan and asked, (M, sys)
+        assert statepar.row_waves(B, devices, resident) == plan
+        assert hmm.cluster_path(M, sys, M, None) == hmm.wave_cluster(M, sys)
+        assert hmm.cluster_path(M, sys, M, False) is False
+        assert hmm.cluster_path(M, sys, 1, None) is False
+    assert hmm.wave_cluster(M, False) == (M <= hmm.MAX_CLUSTER)
+
+
+@pytest.mark.parametrize("M", [2, 8, 16, 64])
+def test_generic_wave_wrappers_refuse_the_cluster_path(tmp, M):
+    """cluster=True is refused where K6am's cluster path cannot run: a
+    launch of some of a row's ranks, a row of more than 8 ranks; both
+    forms raise ValueError before any launch (before the CUDA check) and
+    count nothing, and hmm.cluster_path raises across cards too."""
+    model, ev = _inputs(False)
+    for name in ("loaded", "priors"):
+        ranks = [statepar._generic_wave_rank(p, True) for p in
+                 statepar.split_table_states(_table(name, tmp), model, ev,
+                                             [CPU] * M).parts]
+        n0 = (hmm.generic_wave_resident_kernel.launches,
+              hmm.generic_wave_streaming_kernel.launches)
+        for wrapper in (hmm.generic_wave_resident_kernel,
+                        hmm.generic_wave_streaming_kernel,
+                        hmm.forward_generic_wave_kernel):
+            locals_ = [[0]] + ([list(range(M))] if M > 8 else [])
+            for local in locals_:
+                with pytest.raises(ValueError, match="cluster path"):
+                    wrapper(ranks, local, 0, B, cluster=True)
+        assert (hmm.generic_wave_resident_kernel.launches,
+                hmm.generic_wave_streaming_kernel.launches) == n0
+    with pytest.raises(ValueError, match="across cards"):
+        hmm.cluster_path(2, True, 2, True)
 
 
 def test_generic_wave_wrappers_refuse_cpu_tensors(tmp):

@@ -6,6 +6,7 @@
                                         [--long 100000] [--em] [--census]
                                         [--k4-launches] [--walks]
                                         [--custom] [--em-mesh]
+                                        [--generic-mesh]
                                         [--tree DIR | --turns DIR]
 
 1. K8, the measured float32 peak at the decode's shape
@@ -89,6 +90,20 @@ path, K4m and K5m there against their cooperative path, in turns,
 bit-equal.  It
 runs in any tree that has the state axis's EM round (PR 17 on), so that
 two designs are timed in turns (--turns).
+With --generic-mesh, also the generic decode on the mesh's state axis
+(statepar.viterbi_decode_placed on mesh.shard_decode_inputs: K6am and
+K6bm) at the path chunk (chip_smoke.pooled_inputs, 128 reads x 8192
+events) on (1, 2), (1, 4), (2, 2) and (1, 8) meshes of one card, and at
+16 x 8192 on (1, 8), under the loaded tables of (0.14, 0.21) (K6am's
+resident form) and of the CLI priors (0.1, 0.3) (its streaming form):
+K6am's device time a path decode (CUDA events around each launch, the
+stream held first, as chip_smoke.launch_spans: torch.profiler drops
+cooperative launches; GENERIC_MESH_REPS decodes), its launches and µs a
+step, and K6bm's, on each exchange path the tree has (in a tree whose
+K6am takes `cluster`: the cluster path where hmm.wave_cluster says and
+the cooperative path forced), each decode's path and logp bit-equal to
+K6a + K6b, whose kernels are timed in the same process.  It runs in any
+tree that has the state axis's generic decode (PR 16 on).
 With --train --k4-launches, also K4 on the inputs of each of its launches
 in one more trained pipeline run: milliseconds per launch.  Phase 1 also
 times K3's forward chunk (events [8192, 16384) of 4 reads, chunks of 8192)
@@ -160,6 +175,8 @@ def main() -> int:
                     help="time K6e's kernels at 16 x 2048 and 1 x 4000")
     ap.add_argument("--em-mesh", action="store_true",
                     help="time K4m and K5m at 512 x 128 over 2 and 4 ranks")
+    ap.add_argument("--generic-mesh", action="store_true",
+                    help="time K6am and K6bm at 128 x 8192 and 16 x 8192")
     ap.add_argument("--tree", default="", metavar="DIR",
                     help="run on the checkout in DIR")
     ap.add_argument("--turns", default="", metavar="DIR",
@@ -253,6 +270,9 @@ def main() -> int:
 
     if args.em_mesh:
         time_em_mesh(models, device, card)
+
+    if args.generic_mesh:
+        time_generic_mesh(models, device, card)
 
     cfg = chip_smoke.smoke_config(*([] if args.train else ["--no-train"]),
                                   *trans_flags)
@@ -729,6 +749,120 @@ def time_em_mesh(models, device, card: str) -> None:
                   f"{sum(v) / len(v):.3f} ms a pass (turns "
                   f"{', '.join(f'{x:.3f}' for x in v)}); K4m's paths "
                   f"bit-equal [{card}]", flush=True)
+
+
+#: path decodes timed a mesh and path in --generic-mesh
+GENERIC_MESH_REPS = 3
+#: --generic-mesh's cells: (reads, events, (data, model) mesh on one card)
+GENERIC_MESH_CELLS = tuple((128, 8192, m) for m in ((1, 2), (1, 4), (2, 2),
+                                                   (1, 8))) + \
+    ((16, 8192, (1, 8)),)
+
+
+def time_generic_mesh(models, device, card: str) -> None:
+    """K6am and K6bm against K6a + K6b at GENERIC_MESH_CELLS under the two
+    loaded tables (module docstring, --generic-mesh)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import basecall
+    from nanocall_tpu_torch.ops import hmm
+    from nanocall_tpu_torch.parallel import mesh, statepar
+
+    paths = ((("cluster", None), ("cooperative", False))
+             if "cluster" in inspect.signature(
+                 statepar.viterbi_decode_placed).parameters
+             else (("cooperative", None),))
+    tables = {"loaded (0.14, 0.21)": chip_smoke.load_trans_table(device)[2],
+              "priors' loaded (0.1, 0.3)": chip_smoke.load_trans_table(
+                  device, chip_smoke.PRIORS_P_STAY, chip_smoke.PRIORS_P_SKIP,
+                  "trans_priors.tsv")[2]}
+    inputs = {}
+    for B, T, _ in GENERIC_MESH_CELLS:
+        if (B, T) not in inputs:
+            args = chip_smoke.pooled_inputs(models, device, B, T,
+                                            np.random.default_rng(19))
+            inputs[(B, T)] = (
+                hmm.make_scaled_model_arrays(args[5], args[6], args[7]),
+                basecall.pooled_ev_batch(*args[:5], args[9]))
+            del args
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def events_ms(fn, reps: int) -> float:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    for tname, ops in tables.items():
+        form = hmm.generic_forward_route(ops)
+        wrapper = f"generic_wave_{form}_kernel"
+        deg = (ops.from_packed if form == "resident"
+               else ops.from_idx).shape[-2]
+        for (B, T), (model, ev) in inputs.items():
+            ref = hmm.viterbi_decode(ops, model, ev)
+            fa, bps = hmm.viterbi_forward(ops, model, ev)
+            # warmed up: the decode and the forward above hold its memory
+            k6a = events_ms(lambda: hmm.viterbi_forward(ops, model, ev), 3)
+            k6b = events_ms(lambda: hmm.viterbi_traceback(
+                ops, fa, bps, ev["length"]), 3)
+            del fa, bps
+            print(f"generic mesh B={B} T={T} under the {tname} table "
+                  f"({form}): K6a {k6a:.3f} ms + K6b {k6b:.3f} ms = "
+                  f"{k6a + k6b:.3f} ms a path decode on one card [{card}]",
+                  flush=True)
+            for B_, T_, (D, M) in GENERIC_MESH_CELLS:
+                if (B_, T_) != (B, T):
+                    continue
+                grid = mesh.make_mesh(D * M, model_axis=M,
+                                      devices=[device] * (D * M))
+                placed = mesh.shard_decode_inputs(grid, ops, model, ev)
+                W, b = 4096 // M, B // D
+                for path, cluster in paths:
+                    kw = {"cluster": cluster} if len(paths) > 1 else {}
+                    got = mesh.join(statepar.viterbi_decode_placed(
+                        *placed, **kw))
+                    for k in ("path", "logp"):
+                        assert torch.equal(chip_smoke.bits(got[k]),
+                                           chip_smoke.bits(ref[k].cpu())), \
+                            (tname, B, D, M, path, k)
+                    del got
+                    am = chip_smoke.launch_spans(
+                        lambda: statepar.viterbi_decode_placed(*placed, **kw),
+                        wrapper, device, GENERIC_MESH_REPS)
+                    bm = chip_smoke.launch_spans(
+                        lambda: statepar.viterbi_decode_placed(*placed, **kw),
+                        "generic_traceback_slices_kernel", device, 1)
+                    ms = 1e3 * am["device_s"] / GENERIC_MESH_REPS
+                    launches = am["launches"] // GENERIC_MESH_REPS
+                    rounds = launches
+                    extra = ""
+                    if path == "cluster" and hmm.wave_cluster(M, False):
+                        blocks = hmm.generic_wave_resident(
+                            device, True, False, form == "resident", deg, W,
+                            cluster=True)
+                        rounds = D * -(-b // (blocks // M))
+                        extra = (f", {blocks / sms:.2f} blocks an SM, "
+                                 f"{blocks // M} reads at once")
+                    print(f"generic mesh {(D, M)} B={B} T={T} under the "
+                          f"{tname} table ({form} K6am, {path} path): K6am "
+                          f"{ms:.3f} ms a path decode (decodes "
+                          f"{GENERIC_MESH_REPS}), {launches} launches, "
+                          f"{rounds} rounds of reads{extra}, "
+                          f"{1e3 * ms / (rounds * (T - 1)):.2f} µs a step; "
+                          f"K6bm {1e3 * bm['device_s']:.3f} ms; = "
+                          f"{ms / k6a:.2f}x K6a; path and logp bit-equal to "
+                          f"K6a + K6b [{card}]", flush=True)
+                del placed
+            del ref
+            torch.cuda.empty_cache()
 
 
 def pass_ms(fn) -> float:

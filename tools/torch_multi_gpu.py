@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Check the port's multi-device path across every visible NVIDIA GPU.
 
-    python3 tools/torch_multi_gpu.py [em]
+    python3 tools/torch_multi_gpu.py [em | generic]
 
 It needs two cards or more (it exits 2 with fewer) and runs the phases
 below (with `em`, phase 5 alone: the four-card call for the EM round on
-the state axis and the dry run, without the phases that earlier runs
+the state axis and the dry run; with `generic`, phase 4 alone: K6am's
+system-scope exchange; each without the phases that earlier runs
 covered):
 
 1. launches K1 + K2 and K10 on every card with cuda:0 current: cuda:0
@@ -30,7 +31,8 @@ covered):
    beside the same mesh with every rank on cuda:0 and K1 + K2's;
 4. decodes the same chunk's events and scaled models under the loaded
    21-neighbour table of (0.14, 0.21) (chip_smoke.load_trans_table: K6am's
-   resident form, K6bm's from-state table) through
+   resident form, K6bm's from-state table) and under the CLI priors'
+   table (K6am's streaming form) through
    statepar.viterbi_decode_placed on parallel.mesh.shard_decode_inputs'
    placement on the same meshes: path and logp bit-equal to K6a + K6b on
    cuda:0 (hmm.viterbi_decode), one K6am launch a wave and card (its
@@ -196,7 +198,9 @@ def run_mesh(models, cards, card_line: str) -> dict:
 
 
 def run_generic_mesh(models, cards, card_line: str) -> dict:
-    """Phase 4: the generic decode on the state axis across cards."""
+    """Phase 4: the generic decode on the state axis across cards, under
+    the loaded table (K6am's resident form) and the priors' table (its
+    streaming form), each mesh's decode warm and then timed."""
     import numpy as np
     import torch
 
@@ -209,7 +213,10 @@ def run_generic_mesh(models, cards, card_line: str) -> dict:
                                     np.random.default_rng(2030))
     model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
     ev = basecall.pooled_ev_batch(*args[:5], args[9])
-    ops = chip_smoke.load_trans_table(cards[0])[2]
+    tables = {"loaded": chip_smoke.load_trans_table(cards[0])[2],
+              "priors'": chip_smoke.load_trans_table(
+                  cards[0], chip_smoke.PRIORS_P_STAY,
+                  chip_smoke.PRIORS_P_SKIP, "trans_priors.tsv")[2]}
 
     def wall(fn):
         torch.cuda.synchronize()
@@ -219,34 +226,43 @@ def run_generic_mesh(models, cards, card_line: str) -> dict:
             torch.cuda.synchronize(i)
         return time.perf_counter() - t0, got
 
-    k6_s, ref = wall(lambda: hmm.viterbi_decode(ops, model, ev))
-    ref = {k: v.cpu() for k, v in ref.items()}
-    out = {"k6a_k6b_s": k6_s}
-    for D, M in ((1, 2), (2, 2)):
-        if D * M > len(cards):
-            continue
-        grid = (mesh.make_mesh(D * M, model_axis=M) if D * M == 4
-                else mesh.make_mesh(D * M, model_axis=M, devices=cards))
-        placed = mesh.shard_decode_inputs(grid, ops, model, ev)
-        kernels.reset_launches()
-        s, got = wall(lambda: statepar.viterbi_decode_placed(*placed))
-        waves = sum(len(statepar.plan_waves(B // D, row, {
-            d: hmm.generic_wave_resident(d, True, True, True, 21, 4096 // M)
-            for d in row})[row[0]]) * len(set(row)) for row in grid.devices)
-        assert (hmm.generic_wave_resident_kernel.launches,
-                hmm.generic_traceback_slices_kernel.launches) == \
-            (waves, D), (hmm.generic_wave_resident_kernel.launches, waves)
-        assert [o["path"].device for o in got] == [row[0] for row in
-                                                   grid.devices]
-        got = mesh.join(got)
-        for k in ("path", "logp"):
-            assert torch.equal(chip_smoke.bits(got[k]),
-                               chip_smoke.bits(ref[k])), (D, M, k)
-        out[f"generic_mesh_{D}x{M}_s"] = s
-        print(f"generic mesh ({D}, {M}) over {D * M} cards, B={B} T={T}, "
-              f"the loaded table: path and logp bit-equal to K6a + K6b on "
-              f"cuda:0; {s:.3f} s of wall vs K6a + K6b {k6_s:.3f} s "
-              f"[{card_line}]")
+    out = {}
+    for tname, ops in tables.items():
+        form = hmm.generic_forward_route(ops)
+        wrapper = getattr(hmm, f"generic_wave_{form}_kernel")
+        k6_s, ref = wall(lambda: hmm.viterbi_decode(ops, model, ev))
+        ref = {k: v.cpu() for k, v in ref.items()}
+        out[f"{tname}_k6a_k6b_s"] = k6_s
+        for D, M in ((1, 2), (2, 2)):
+            if D * M > len(cards):
+                continue
+            grid = (mesh.make_mesh(D * M, model_axis=M) if D * M == 4
+                    else mesh.make_mesh(D * M, model_axis=M, devices=cards))
+            placed = mesh.shard_decode_inputs(grid, ops, model, ev)
+            kernels.reset_launches()
+            first, got = wall(lambda: statepar.viterbi_decode_placed(*placed))
+            waves = sum(len(statepar.plan_waves(B // D, row, {
+                d: hmm.generic_wave_resident(d, True, True,
+                                             form == "resident", 21,
+                                             4096 // M)
+                for d in row})[row[0]]) * len(set(row))
+                for row in grid.devices)
+            assert (wrapper.launches,
+                    hmm.generic_traceback_slices_kernel.launches) == \
+                (waves, D), (wrapper.launches, waves)
+            assert [o["path"].device for o in got] == [row[0] for row in
+                                                       grid.devices]
+            got = mesh.join(got)
+            for k in ("path", "logp"):
+                assert torch.equal(chip_smoke.bits(got[k]),
+                                   chip_smoke.bits(ref[k])), (tname, D, M, k)
+            s, _ = wall(lambda: statepar.viterbi_decode_placed(*placed))
+            out[f"{tname}_generic_mesh_{D}x{M}_s"] = s
+            print(f"generic mesh ({D}, {M}) over {D * M} cards, B={B} "
+                  f"T={T}, the {tname} table ({form} K6am, cooperative "
+                  f"path at system scope): path and logp bit-equal to K6a "
+                  f"+ K6b on cuda:0; {s:.3f} s of wall warm ({first:.3f} s "
+                  f"first) vs K6a + K6b {k6_s:.3f} s [{card_line}]")
     return out
 
 
@@ -376,7 +392,7 @@ def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["em"]):
+    if argv not in ([], ["em"], ["generic"]):
         print(f"torch_multi_gpu: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -397,6 +413,12 @@ def main(argv=None) -> int:
         em_walls = run_em_mesh(models, cards, card_line)
         print(card_line)
         print(json.dumps({"ok": True, "cards": n, "em_mesh": em_walls}))
+        return 0
+    if argv == ["generic"]:
+        generic_walls = run_generic_mesh(models, cards, card_line)
+        print(card_line)
+        print(json.dumps({"ok": True, "cards": n,
+                          "generic_mesh": generic_walls}))
         return 0
     check_current_device(models, n)
     seq = run_seqpar(models, cards, card_line)
