@@ -107,12 +107,12 @@ from the root of a checkout.  It
      score-only logp) bit-equal to the unplaced decode (K1 + K2), each
      mesh's decode counted as the mesh path (one K1m launch a wave and
      data row, statepar.plan_waves on the card's resident blocks, and one
-     K2m a data row), its wall, host enqueue and device seconds and K1m's
+     K2m launch for the card's rows, on the tensor route), its wall, host enqueue and device seconds and K1m's
      and K2m's device time beside K1 + K2's, its bound, its peak device
      memory, each rank's backpointer bytes and the bytes its ranks read
      from each other (roofline.statepar_exchange_bytes); and K2m against
-     K2's ring at 128 x 8192 over 2, 4 and 64 ranks, in turns, as drawn
-     and at full lengths; then the generic decode on the state axis
+     K2's ring at 128 x 8192 over 2, 4 and 64 ranks, on both routes, in
+     turns, as drawn and at full lengths; then the generic decode on the state axis
      (parallel.mesh.shard_decode_inputs and
      parallel.statepar.viterbi_decode_placed: K6am and K6bm, K6a and K6b
      with the 4096 states split over a data row's ranks): at 16 x 2048 on
@@ -123,15 +123,17 @@ from the root of a checkout.  It
      (column slices and backpointers as bits) and timed by CUDA events
      around each of 5 launches, with its blocks an SM, rounds or waves and
      µs a step, K6bm on its output with the from-state table and with
-     from_idx against its plain version and K6b's ring, and K6a under
+     from_idx, on both routes, against its plain version and K6b's ring,
+     and K6a under
      per-read structured tables (build_structured_batch,
      convert.trans_ops_batch; both kernels, path and score-only) against
      its plain version; then the path chunk's events and models, 128 x
      8,192, decoded on (1, 2), (1, 4) and (2, 2) meshes of cuda:0 under
      the loaded table, the priors' table and per-read tables, path and
      score-only, each bit-equal to K6a + K6b, counted as the generic mesh
-     path (one K6am launch a data row, a cluster a read; one K6bm a row),
-     with K6am's and K6bm's device time, then K6am's cooperative path
+     path (one K6am launch a data row, a cluster a read; one K6bm launch
+     for the card's rows, on the tensor route), with K6am's and K6bm's
+     device time beside K6b's, then K6am's cooperative path
      (waves from K6am's own resident blocks) bit-equal and timed beside
      it, each with its rounds or waves and µs a step;
   6. runs the EM kernels at the EM chunk's full width: n = 4096, 128
@@ -833,13 +835,16 @@ def check_statepar(gt, model, ev) -> dict:
     (the wave of all B reads, both ranks) against its plain version on the
     same ranks (every rank's column buffer, both parities, and its
     backpointers as bits), and K2m on that wave's final slices and
-    backpointer slices against its plain version and against K2's ring on
-    the same rows whole (tolerance 0).  Returns the two kernels' records:
-    K1m's "ms" is a launch's device time (launch_spans: CUDA events around
-    each of 5 launches, its counters zeroed before each), with the host's
-    enqueue a launch beside it; K2m's "k2_ms" is K2's time on the same
-    rows.  Prints how many of 5 K1m launches torch.profiler records, and
-    their device time (profiled_launches)."""
+    backpointer slices, on both routes (one_allocation's layout: one tensor
+    copy a stage; the ranks' own slices: a bulk copy a row and rank),
+    against its plain version and against K2's ring on the same rows whole
+    (tolerance 0).  Returns the two kernels' records: K1m's "ms" is a
+    launch's device time (launch_spans: CUDA events around each of 5
+    launches, its counters zeroed before each), with the host's enqueue a
+    launch beside it; K2m's "ms" the tensor route's, "copies_ms" the copies
+    route's and "k2_ms" K2's time on the same rows.  Prints how many of 5
+    K1m launches torch.profiler records, and their device time
+    (profiled_launches)."""
     import torch
 
     from nanocall_tpu_torch.ops import hmm
@@ -892,16 +897,22 @@ def check_statepar(gt, model, ev) -> dict:
           f"(events, device ms) recorded [{smi_line()}]")
     final = [r.col[(T - 1) % 2] for r in ranks]
     slices = [r.bps for r in ranks]
+    one = one_allocation(slices)
     lengths = e["length"]
-    tb_k = hmm.traceback_slices_kernel(6, final, slices, lengths)
     tb_plain_ms, tb_p = cuda_ms_once(
         lambda: hmm.viterbi_traceback_slices_plain(6, final, slices, lengths))
     fa, bps = hmm.gather_column(final), torch.cat(slices, dim=2)
     tb_2 = hmm.traceback_kernel(6, fa, bps, lengths)
-    torch.cuda.synchronize()
-    for what, a, b, c in zip(("path0", "codes", "logp"), tb_k, tb_p, tb_2):
-        assert torch.equal(bits(a), bits(b)), f"K2m {what} differs from plain"
-        assert torch.equal(bits(a), bits(c)), f"K2m {what} differs from K2"
+    for route, sl in (("tensor", one), ("copies", slices)):
+        assert hmm.slices_walk_route([sl]) == route, route
+        tb_k = hmm.traceback_slices_kernel(6, final, sl, lengths, route)
+        torch.cuda.synchronize()
+        for what, a, b, c in zip(("path0", "codes", "logp"), tb_k, tb_p,
+                                 tb_2):
+            assert torch.equal(bits(a), bits(b)), \
+                f"K2m ({route} route) {what} differs from plain"
+            assert torch.equal(bits(a), bits(c)), \
+                f"K2m ({route} route) {what} differs from K2"
     return {
         "viterbi_forward_slice": {
             "max_abs_err": max(max_err(rk.col, rp.col)
@@ -912,10 +923,22 @@ def check_statepar(gt, model, ev) -> dict:
         "viterbi_traceback_slices": {
             "max_abs_err": max_err(tb_k[2], tb_p[2]),
             "ms": cuda_ms(lambda: hmm.traceback_slices_kernel(
+                6, final, one, lengths), 3),
+            "copies_ms": cuda_ms(lambda: hmm.traceback_slices_kernel(
                 6, final, slices, lengths), 3),
             "k2_ms": cuda_ms(lambda: hmm.traceback_kernel(
                 6, fa, bps, lengths), 3),
             "plain_ms": tb_plain_ms, "shape": [B, T], "ranks": 2}}
+
+
+def one_allocation(slices) -> list:
+    """A data row's M (T - 1, B, W) backpointer slices copied into one
+    (M, T - 1, B, W) allocation, as statepar lays out a row on one card:
+    its views, which K2m and K6bm walk on the tensor route
+    (hmm.slices_walk_route)."""
+    import torch
+
+    return list(torch.stack(slices))
 
 
 #: cycles torch.cuda._sleep holds a stream before a timed launch (about
@@ -932,7 +955,7 @@ def launch_spans(fn, name: str, device, reps: int = 1, module=None) -> dict:
     that the span is the device's time for the launch and not the host's
     enqueue: {"device_s" (summed), "host_s" (the wrapper calls' host
     clock, summed), "launches"}.  The wrapper is swapped for the calls
-    (its own counter is left as it was)."""
+    (its own counters are left as they were)."""
     import torch
 
     from nanocall_tpu_torch.ops import hmm
@@ -956,6 +979,7 @@ def launch_spans(fn, name: str, device, reps: int = 1, module=None) -> dict:
         return out
 
     timed.launches = 0
+    timed.routes = dict.fromkeys(getattr(orig, "routes", ()), 0)
     torch.cuda.synchronize()
     setattr(module, name, timed)
     try:
@@ -1032,14 +1056,16 @@ def run_mesh(models, device, card: str, rng) -> dict:
     placed by mesh.shard_pooled_decode_inputs, path then score-only, each
     pair of decodes counted as the mesh path (every kernel count set to 0
     just before, read just after): one K1m launch a wave and data row
-    (statepar.plan_waves on the card's resident blocks) and one K2m a data
-    row.  path0, codes and logp bit-equal to the unplaced decode's.  Each
-    decode's wall, host enqueue and device time (CUDA events), K1m's and
-    K2m's device time (launch_spans: CUDA events around each launch of one
-    more path decode each) and peak
-    memory beside K1 + K2's; then K2m against K2's ring on the rows of the
-    unplaced decode split over K2M_RANKS ranks, in turns (K2, K2m, K2m,
-    K2), as drawn and at full lengths.  Returns {"launches" (summed over the
+    (statepar.plan_waves on the card's resident blocks) and one K2m launch
+    on the card, which walks every data row on the tensor route.  path0,
+    codes and logp bit-equal to the unplaced decode's.  Each decode's wall,
+    host enqueue and device time (CUDA events), K1m's and K2m's device time
+    (launch_spans: CUDA events around each launch of one more path decode
+    each) and peak memory beside K1 + K2's; then K2m against K2's ring on
+    the rows of the unplaced decode split over K2M_RANKS ranks (one
+    allocation: the tensor route; and the copies route forced), bit-equal,
+    in turns (K2, K2m, K2m, K2; then the copies route), as drawn and at
+    full lengths.  Returns {"launches" (summed over the
     meshes), "meshes": {(D, M): record}, "k1k2": record, "walks": {M:
     record}}."""
     import torch
@@ -1095,7 +1121,10 @@ def run_mesh(models, device, card: str, rng) -> dict:
         launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
         assert launches["viterbi_forward_slice"] == \
             D * (waves[True] + waves[False]), (launches, waves)
-        assert launches["viterbi_traceback_slices"] == D, launches
+        # one walk launch a card: every data row's ranks lie on it
+        assert launches["viterbi_traceback_slices"] == 1, launches
+        assert hmm.traceback_slices_kernel.routes == {
+            "tensor": 1, "copies": 0}, hmm.traceback_slices_kernel.routes
         assert len(out) == D and all(o["codes"].device == device
                                      for o in out)
         got, got_s = mesh.join(out), mesh.join(out_s)
@@ -1112,7 +1141,7 @@ def run_mesh(models, device, card: str, rng) -> dict:
         k2m_t = launch_spans(lambda: basecall.decode_chunk_pooled(*placed),
                              "traceback_slices_kernel", device)
         assert (k1m_t["launches"], k2m_t["launches"]) == \
-            (D * waves[True], D), (k1m_t, k2m_t)
+            (D * waves[True], 1), (k1m_t, k2m_t)
         k1m_us, k2m_us = 1e6 * k1m_t["device_s"], 1e6 * k2m_t["device_s"]
         ex = roofline.statepar_exchange_bytes(b, T_MESH, M)
         walk = sum(roofline.statepar_exchange_bytes(
@@ -1138,7 +1167,7 @@ def run_mesh(models, device, card: str, rng) -> dict:
               f"bit-equal to K1 + K2; path decode {wall:.4f} s of wall "
               f"({enqueue:.4f} s host enqueue, {dev_s:.4f} s device; K1m "
               f"{k1m_us / 1e6:.4f} s in {D * waves[True]} launches, K2m "
-              f"{k2m_us / 1e3:.3f} ms in {D}) vs K1 + K2 {k1k2['wall_s']:.4f} "
+              f"{k2m_us / 1e3:.3f} ms in 1) vs K1 + K2 {k1k2['wall_s']:.4f} "
               f"s; score-only {wall_s:.4f} s ({enqueue_s:.4f} s enqueue, "
               f"{dev_s_s:.4f} s device); bound {bound:.3f} ms (K1m + K2m, "
               f"roofline.kernel_bound); peak device memory "
@@ -1158,27 +1187,35 @@ def run_mesh(models, device, card: str, rng) -> dict:
     for M in K2M_RANKS:
         W = 4096 // M
         column = [fa[:, m * W:(m + 1) * W].contiguous() for m in range(M)]
-        slices = [bps[..., m * W:(m + 1) * W].contiguous() for m in range(M)]
+        slices = one_allocation([bps[..., m * W:(m + 1) * W]
+                                 for m in range(M)])
         rec = {}
         for what, ln in (("drawn", args[-1]), ("full", full)):
-            got = hmm.traceback_slices_kernel(6, column, slices, ln)
             want = hmm.traceback_kernel(6, fa, bps, ln)
-            torch.cuda.synchronize()
-            for k, a, c in zip(("path0", "codes", "logp"), got, want):
-                assert torch.equal(bits(a), bits(c)), \
-                    f"K2m {k} differs from K2 at {M} ranks, {what} lengths"
+            for route in ("tensor", "copies"):
+                got = hmm.traceback_slices_kernel(6, column, slices, ln,
+                                                  route)
+                torch.cuda.synchronize()
+                for k, a, c in zip(("path0", "codes", "logp"), got, want):
+                    assert torch.equal(bits(a), bits(c)), \
+                        (f"K2m ({route} route) {k} differs from K2 at {M} "
+                         f"ranks, {what} lengths")
             calls = {"K2": lambda ln=ln: hmm.traceback_kernel(6, fa, bps, ln),
                      "K2m": lambda ln=ln: hmm.traceback_slices_kernel(
-                         6, column, slices, ln)}
+                         6, column, slices, ln),
+                     "K2m copies": lambda ln=ln: hmm.traceback_slices_kernel(
+                         6, column, slices, ln, "copies")}
             turns = {"K2": [], "K2m": []}
             for who in ("K2", "K2m", "K2m", "K2"):
                 turns[who].append(cuda_ms(calls[who], 5))
+            turns["K2m copies"] = [cuda_ms(calls["K2m copies"], 2)]
             rec[what] = turns
         walks[M] = rec
         bound = roofline.kernel_bound("viterbi_traceback_slices", B_MESH,
                                       T_MESH)["bound_ms"]
-        print(f"K2m vs K2's ring at B={B_MESH} T={T_MESH} over {M} ranks, "
-              f"bit-equal, ms in turns (K2, K2m, K2m, K2): as drawn "
+        print(f"K2m (tensor route) vs K2's ring at B={B_MESH} T={T_MESH} "
+              f"over {M} ranks, both routes bit-equal, ms in turns (K2, "
+              f"K2m, K2m, K2; then the copies route): as drawn "
               f"{rec['drawn']}, full lengths {rec['full']}; K2m bound "
               f"{bound:.4f} ms [{card}]")
         del column, slices
@@ -1250,13 +1287,16 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
     rank's column buffer, both parities, and its backpointers as bits) and
     timed by launch_spans (5 launches, counters zeroed before each), with
     its occupancy (generic_wave_occupancy) and µs a step; K6bm on the
-    resident run's final slices and backpointer slices, with the
-    from-state table and with from_idx (the rule of tables wider than 24
-    slots), against its plain version and against K6b's ring on the same
-    rows whole; and K6a under per-read tables (resident and streaming, path
+    resident run's final slices and backpointer slices, on both routes
+    (one_allocation's layout: one tensor copy a stage; the ranks' own
+    slices: a bulk copy a row and rank), with the from-state table and with
+    from_idx (the rule of tables wider than 24 slots), against its plain
+    version and against K6b's ring on the same rows whole; and K6a under
+    per-read tables (resident and streaming, path
     and score-only) against its plain version.  Returns the records of
     K6am's two forms ("ms" the cluster path's, "ms_by_path" both) and
-    K6bm; prints the per-read K6a's times."""
+    K6bm ("ms" the tensor route's, "copies_ms" the copies route's);
+    prints the per-read K6a's times."""
     import numpy as np
     import torch
 
@@ -1317,6 +1357,7 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
                       "plain_ms": plain_ms, "shape": [B, T], "ranks": 2}
         del plain
     table, final, slices = walk
+    one = one_allocation(slices)
     fa, bps = hmm.gather_column(final), torch.cat(slices, dim=2)
     ring = hmm.generic_traceback_ring_kernel(trans_ops, fa, bps, lengths)
     tb_plain_ms, tb_p = cuda_ms_once(
@@ -1324,24 +1365,30 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
             table, final, slices, lengths))
     for rule, t in (("from-state table", table),
                     ("from_idx", table._replace(from_states=None))):
-        tb_k = hmm.generic_traceback_slices_kernel(t, final, slices, lengths)
-        torch.cuda.synchronize()
-        for what, a, b, c in zip(("path", "logp"), tb_k, tb_p, ring):
-            assert torch.equal(bits(a), bits(b)), \
-                f"K6bm ({rule}) {what} differs from plain"
-            assert torch.equal(bits(a), bits(c)), \
-                f"K6bm ({rule}) {what} differs from K6b's ring"
+        for route, sl in (("tensor", one), ("copies", slices)):
+            assert hmm.slices_walk_route([sl]) == route, route
+            tb_k = hmm.generic_traceback_slices_kernel(t, final, sl, lengths,
+                                                       route)
+            torch.cuda.synchronize()
+            for what, a, b, c in zip(("path", "logp"), tb_k, tb_p, ring):
+                assert torch.equal(bits(a), bits(b)), \
+                    f"K6bm ({rule}, {route} route) {what} differs from plain"
+                assert torch.equal(bits(a), bits(c)), \
+                    (f"K6bm ({rule}, {route} route) {what} differs from "
+                     f"K6b's ring")
     assert torch.isnan(tb_p[1]).any(), "the NaN inputs gave no NaN logp"
     recs["viterbi_generic_traceback_slices"] = {
         "max_abs_err": max_err(tb_k[1], tb_p[1]),
         "ms": cuda_ms(lambda: hmm.generic_traceback_slices_kernel(
+            table, final, one, lengths), 3),
+        "copies_ms": cuda_ms(lambda: hmm.generic_traceback_slices_kernel(
             table, final, slices, lengths), 3),
         "idx_rule_ms": cuda_ms(lambda: hmm.generic_traceback_slices_kernel(
-            table._replace(from_states=None), final, slices, lengths), 3),
+            table._replace(from_states=None), final, one, lengths), 3),
         "k6b_ring_ms": cuda_ms(lambda: hmm.generic_traceback_ring_kernel(
             trans_ops, fa, bps, lengths), 3),
         "plain_ms": tb_plain_ms, "shape": [B, T], "ranks": 2}
-    del walk, final, slices, fa, bps
+    del walk, final, slices, one, fa, bps
     # K6a under per-read tables: its resident and streaming kernels
     ops = per_read_ops(dev, B, np.random.default_rng(2027))
     per_read = {}
@@ -1377,13 +1424,15 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
     counted as the mesh path (every kernel count set to 0 just before,
     read just after): K6am's default launches (statepar.row_waves: one
     launch of a row's clusters, or a wave of the cooperative path a launch)
-    and one K6bm a data row; path and logp (and the score-only logp)
-    bit-equal to the unplaced decode's.  Each decode's wall and device
-    time, K6am's and K6bm's device time (launch_spans around each launch
-    of one more path decode each); then K6am's cooperative path
-    (cluster=False) on the same placement, bit-equal and timed the same
-    way; each path's rounds (or waves) and µs a step.  Returns {"launches"
-    (summed), "cells": {(table, D, M): record}, "k6": {table: record}}."""
+    and one K6bm launch on the card, which walks every data row on the
+    tensor route; path and logp (and the score-only logp) bit-equal to the
+    unplaced decode's.  Each decode's wall and device time, K6am's and
+    K6bm's device time (launch_spans around each launch of one more path
+    decode each) beside K6b's on the unplaced decode's rows; then K6am's
+    cooperative path (cluster=False) on the same placement, bit-equal and
+    timed the same way; each path's rounds (or waves) and µs a step.
+    Returns {"launches" (summed), "cells": {(table, D, M): record}, "k6":
+    {table: record}}."""
     import torch
 
     from nanocall_tpu_torch import basecall, roofline
@@ -1417,7 +1466,12 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
         wrapper = f"generic_wave_{form}_kernel"
         ref, wall, dev_s = timed(lambda: hmm.viterbi_decode(ops, model, ev))
         ref_s = hmm.viterbi_decode(ops, model, ev, with_path=False)
-        k6[tname] = {"wall_s": wall, "device_s": dev_s, "form": form}
+        fa, bps = hmm.viterbi_forward(ops, model, ev)
+        k6b_ms = cuda_ms(lambda: hmm.viterbi_traceback(ops, fa, bps,
+                                                       ev["length"]), 3)
+        del fa, bps
+        k6[tname] = {"wall_s": wall, "device_s": dev_s, "form": form,
+                     "k6b_ms": k6b_ms}
         deg = (ops.from_packed if form == "resident"
                else ops.from_idx).shape[-2]
         for D, M in MESH_SHAPES:
@@ -1439,10 +1493,14 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
             launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
             assert launches[f"viterbi_generic_wave_{form}"] == \
                 D * (waves[True] + waves[False]), (launches, waves)
-            assert launches["viterbi_generic_traceback_slices"] == D, \
+            # one walk launch a card: every data row's ranks lie on it
+            assert launches["viterbi_generic_traceback_slices"] == 1, \
                 launches
+            assert hmm.generic_traceback_slices_kernel.routes == {
+                "tensor": 1, "copies": 0}, \
+                hmm.generic_traceback_slices_kernel.routes
             assert sum(launches.values()) == \
-                D * (waves[True] + waves[False] + 1), launches
+                D * (waves[True] + waves[False]) + 1, launches
             got, got_s = mesh.join(out), mesh.join(out_s)
             for k in ("path", "logp"):
                 assert torch.equal(bits(got[k]), bits(ref[k].cpu())), \
@@ -1460,7 +1518,7 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
                 lambda: statepar.viterbi_decode_placed(*placed),
                 "generic_traceback_slices_kernel", device)
             assert (k6am_t["launches"], k6bm_t["launches"]) == \
-                (D * waves[True], D), (k6am_t, k6bm_t)
+                (D * waves[True], 1), (k6am_t, k6bm_t)
             coop = mesh.join(statepar.viterbi_decode_placed(*placed,
                                                             cluster=False))
             for k in ("path", "logp"):
@@ -1496,7 +1554,8 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
                   f"{dev_s:.4f} s device (K6am {k6am_t['device_s']:.4f} s "
                   f"in {D * waves[True]} launches, "
                   f"{step_us['cluster']:.2f} µs a step; K6bm "
-                  f"{1e3 * k6bm_t['device_s']:.3f} ms in {D}) vs K6a + K6b "
+                  f"{1e3 * k6bm_t['device_s']:.3f} ms in 1 launch, K6b "
+                  f"{k6b_ms:.3f} ms on the same rows) vs K6a + K6b "
                   f"{k6[tname]['device_s']:.4f} s device; K6am's "
                   f"cooperative path {coop_t['device_s']:.4f} s in "
                   f"{coop_t['launches']} launches, "
@@ -2704,14 +2763,16 @@ def barrier_loops_sass(marker: str) -> list:
 def walk_loop_sass(marker: str) -> dict:
     """A static census of a traceback walk: the largest natural loop of the
     built kernel whose name contains `marker` that holds a shared-memory
-    load (the row ring's byte) and issues no bulk copy (the producer's),
-    every branch inside it counted (the mbarrier wait's spin among them).
+    load (the row ring's byte) and issues no bulk or tensor copy (the
+    producer's), every branch inside it counted (the mbarrier wait's spin
+    among them).
     Returns {"instructions", and the count of shared loads ("lds"), global
     loads ("ldg") and stores ("stg")}; all 0 when no loop qualifies."""
     ins = sass_lines(marker)
     body = max((lp for lp in natural_loops(ins)
                 if "LDS" in (ops := [_opcode(ins[k][1]) for k in lp])
-                and not any(o.startswith("UBLKCP") for o in ops)),
+                and not any(o.startswith(("UBLKCP", "UTMALDG"))
+                            for o in ops)),
                key=len, default=[])
     ops = [_opcode(ins[k][1]) for k in body]
     return {"instructions": len(body), "lds": ops.count("LDS"),
@@ -2783,13 +2844,16 @@ def check_sass_claims() -> dict:
     of K6am's 12 instances (path and score-only, resident and streaming,
     the cluster path and the cooperative one at gpu and system scope)
     makes a local load or store anywhere, nor reports a byte of spill
-    stores in ptxas' output of this process's build (k6am_spills); and
-    K2m's walk, on K2's ring, makes no global load.  Returns {"K4",
-    "K6d": step_loop_sass, "K2 walk", "K2m walk", "K6b ring walk":
-    walk_loop_sass, "K6c resident", "K6e resident": {instance: [loop
-    records]}, "K6am": {instance: {"instructions", "local"}}, K1m's
-    instances: {global and local load and store opcode:
-    count in the time loop}}."""
+    stores in ptxas' output of this process's build (k6am_spills); K2m's
+    walk, on K2's ring, makes no global load on either route (the tensor
+    copy's and the bulk copies' instances); and each of K6bm's four walks
+    (route by rule) stores the path, the from-state table's rule reading no
+    global memory and the from_idx rule its from_idx.  Returns {"K4",
+    "K6d": step_loop_sass, "K2 walk", "K2m walk" and "K6bm walk" (by
+    route, and by rule and route), "K6b ring walk": walk_loop_sass, "K6c
+    resident", "K6e resident": {instance: [loop records]}, "K6am":
+    {instance: {"instructions", "local"}}, K1m's instances: {global and
+    local load and store opcode: count in the time loop}}."""
     k1m = {}
     for what, marker in K1M_LOOPS:
         ins, body = time_loop(marker)
@@ -2812,8 +2876,20 @@ def check_sass_claims() -> dict:
     assert len(spills) in (0, 12), f"ptxas reported {len(spills)} K6am"
     for name, spill in spills.items():
         assert spill == 0, f"ptxas: {name} spills {spill} bytes"
-    k2m = walk_loop_sass("viterbi_traceback_slices_kernel")
-    assert k2m["lds"] >= 1 and k2m["ldg"] == 0, k2m
+    k2m = {route: walk_loop_sass(f"viterbi_traceback_slices_kernelI{t}")
+           for route, t in (("copies", "Lb0E"), ("tensor", "Lb1E"))}
+    for walk in k2m.values():
+        assert walk["lds"] >= 1 and walk["ldg"] == 0, k2m
+    # K6bm's four instances: <kTable, TENSOR>; the from_idx rule's walk
+    # reads from_idx from global memory, the table rule's does not
+    k6bm = {}
+    for rule, a in (("from_idx", "Lb0E"), ("table", "Lb1E")):
+        for route, t in (("copies", "Lb0E"), ("tensor", "Lb1E")):
+            walk = k6bm[f"{rule} {route}"] = walk_loop_sass(
+                f"viterbi_generic_traceback_slices_kernelI{a}{t}")
+            assert walk["stg"] >= 1, k6bm
+            assert (walk["lds"] >= 2 and walk["ldg"] == 0 if rule == "table"
+                    else walk["lds"] >= 1 and walk["ldg"] >= 1), k6bm
     k4 = step_loop_sass("fwbw_forward_kernel")
     assert k4["bar"] * 4 <= 2, k4
     k6d = step_loop_sass("fwbw_backward_kernel")
@@ -2840,6 +2916,7 @@ def check_sass_claims() -> dict:
         assert not fwd["ldg_16"] and not bwd["ldg_16"], (name, loops)
     assert len(k6e) == 2, "not both resident K6e instances in the library"
     return {"K4": k4, "K6d": k6d, "K2 walk": k2, "K2m walk": k2m,
+            "K6bm walk": k6bm,
             "K6b ring walk": k6b, "K6c resident": k6c, "K6e resident": k6e,
             "K6am": k6am, **k1m}
 
@@ -3485,8 +3562,10 @@ def main() -> int:
         print(f"{what} SASS: {census[what]['bar'] * 4:g} block barriers in "
               f"its time loop (at most 2)")
     print(f"K2 SASS, its walk loop: {census['K2 walk']} (no global load)")
-    print(f"K2m SASS, its walk loop on K2's ring: {census['K2m walk']} (no "
-          f"global load)")
+    print(f"K2m SASS, its walk loop on K2's ring by route: "
+          f"{census['K2m walk']} (no global load)")
+    print(f"K6bm SASS, its walk loop by from rule and route: "
+          f"{census['K6bm walk']} (the table rule no global load)")
     for what, _ in K1M_LOOPS:
         print(f"{what} SASS, the global and local loads and stores of its "
               f"time loop: {census[what]} (the column by strong loads; no "
@@ -3632,7 +3711,9 @@ def main() -> int:
     for name, r in sp.items():
         extra = (f" a launch by CUDA events around each (host enqueue "
                  f"{r['host_us']:.2f} us)" if "host_us" in r
-                 else f" (K2's ring on the same rows {r['k2_ms']:.4f} ms)")
+                 else f" on the tensor route (copies route "
+                      f"{r['copies_ms']:.4f} ms, K2's ring on the same rows "
+                      f"{r['k2_ms']:.4f} ms)")
         print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} over 2 ranks, NaN "
               f"inputs, bit-equal to plain; {r['ms']:.4f} ms{extra} vs "
               f"plain {r['plain_ms']:.3f} ms [{card}]")
@@ -3655,8 +3736,10 @@ def main() -> int:
     for name, r in gsp.items():
         extra = (f" a launch by CUDA events around each (host enqueue "
                  f"{r['host_us']:.2f} us)" if "host_us" in r
-                 else f" (from_idx rule {r['idx_rule_ms']:.4f} ms, K6b's "
-                      f"ring on the same rows {r['k6b_ring_ms']:.4f} ms)")
+                 else f" on the tensor route (copies route "
+                      f"{r['copies_ms']:.4f} ms, from_idx rule "
+                      f"{r['idx_rule_ms']:.4f} ms, K6b's ring on the same "
+                      f"rows {r['k6b_ring_ms']:.4f} ms)")
         print(f"kernel {name}: B={B_KERNEL} T={T_KERNEL} over 2 ranks, NaN "
               f"inputs, bit-equal to plain; {r['ms']:.4f} ms{extra} vs "
               f"plain {r['plain_ms']:.3f} ms [{card}]")

@@ -99,32 +99,51 @@
 // nanocall_tpu/parallel/mesh.py:103 shard_pooled_decode_inputs): rank m
 // holds the backpointer bytes of the states [m W, (m + 1) W), W = 4096 /
 // M, as (T - 1, B, W) rows, and its (B, W) slice of the final column.  It
-// is K2's kernel on K2's walk_ring, with a table of the ranks' 2 M
-// addresses (final slices, then backpointer slices): the block takes K2's
-// end argmax (common.cuh's helper: the same NaN and tie rules) over the
-// column's slices, and the producer assembles each 4096-byte row in the
-// ring from M bulk copies of W bytes, slice m's row to bytes [m W, (m + 1)
-// W) of the stage (the stage's `full` barrier still expects cnt x 4096
-// bytes), so the walker reads whole rows from shared memory with K2's
-// predecessor rule and code packing, unchanged: path0, codes and logp are
-// K2's.  The producer is a warp: lane 0 expects the stage's bytes, then
-// the lanes share its cnt x M copies (one thread issuing them took 1.68 /
-// 2.40 ms at 128 x 8192 over 2 / 4 ranks on an H100, as drawn or at full
-// lengths: about 44 ns a copy on the longest read's walk, against the
-// warp's 1.36 / 1.39 ms at full lengths and K2's 1.36).  W
-// >= 64 keeps every copy 16-byte sized and aligned; at 64 ranks a row is
-// 64 copies of 64 bytes, and the copies' issue bounds the walk (15.2 ms
-// there; not designed for).  Across cards the copies read the peers'
-// slices over peer access; whether cp.async.bulk reads a peer card's
-// memory is not established (one card cannot show it:
-// tools/torch_multi_gpu.py's mesh phase is the check).  What bounds it:
-// K2's rows streamed, (length - 1) x 4096 bytes a read.
+// is K2's kernel on K2's walk_ring, with a table of the ranks' final
+// slices: the block takes K2's end argmax (common.cuh's helper: the same
+// NaN and tie rules) over the column's slices, and each ring stage holds 4
+// whole rows of 4096 bytes, assembled from the M slices, so the walker
+// reads whole rows from shared memory with K2's predecessor rule and code
+// packing, unchanged: path0, codes and logp are K2's.  One launch walks R
+// data rows of B reads (a block a read and row).  Two routes fill a stage,
+// chosen by where the slices lie (ops/hmm.py slices_walk_route):
+//   - tensor (every rank of the launch's rows on this card, the slices
+//     views of one (R, M, T - 1, B, W) allocation: statepar lays a card's
+//     rows out so): one thread issues one cp.async.bulk.tensor a stage, a
+//     5-D box (W / 8, M, 1, 4, 1) of uint64 over the allocation (Ring's
+//     kTensor), which lands as the stage's 4 rows [slot][m W + j] in 16 KB
+//     (the map's dimensions in the stage's order, (W / 8, M, B, T - 1, R),
+//     whose strides are not monotonic: the driver takes them, so the
+//     walkers read the rows as K6b's and K2's do, with no per-state
+//     offset); the box's rows run up in t, so the walker reads slot 3 - r (a
+//     constant in its unrolled loop), and the last stage's rows below
+//     event 1 come in as zeros, counted in the stage's bytes and never
+//     read.  The issue is one instruction a stage whatever M; the tensor
+//     unit splits the box into its 4 M runs of W bytes.  At 2 to 16 ranks
+//     the walk takes K6b's / K2's ring time at 128 x 8192 on an H100
+//     (0.88-0.94 ms as drawn against the rings' 0.91-0.94); at 32 and 64
+//     ranks the runs of 128 and 64 bytes bound it (1.22 and 1.9 ms as
+//     drawn), and at 64 ranks a ring of 3 stages (tensor_stages);
+//   - copies (a row's slices on several cards): the producer warp's lanes
+//     share each stage's 4 M cp.async.bulk copies of W bytes, slice m's row
+//     to bytes [m W, (m + 1) W) of the stage (the stage's `full` barrier
+//     still expects cnt x 4096 bytes).  Their issue bounds the walk from 4
+//     ranks on (about 44 ns a copy from one thread; the warp's 1.3 / 2.2 /
+//     4.0 / 7.7-7.9 / 15.0-15.6 ms at 4 / 8 / 16 / 32 / 64 ranks as drawn
+//     at 128 x 8192 on an H100).  W >= 64 keeps every copy 16-byte sized
+//     and aligned.  Across cards
+//     the copies read the peers' slices over peer access; whether a tensor
+//     copy reads a peer card's memory is not established (one card cannot
+//     show it), so a row across cards takes this route
+//     (tools/torch_multi_gpu.py's mesh phases check it).
+// What bounds it: K2's rows streamed, (length - 1) x 4096 bytes a read.
 //
 // K6bm (viterbi_generic_traceback_slices_kernel) is K6b with the states
 // split over M ranks (the generic decode under nanocall_tpu/parallel/
-// mesh.py:75 shard_decode_inputs): K6b's ring kernel on K2m's slices.  The
-// block takes K6b's end argmax over the final column's slices, the
-// producer warp assembles each row from the M slices as K2m's, and the
+// mesh.py:75 shard_decode_inputs): K6b's ring kernel on K2m's slices and
+// routes, R rows a launch as K2m's.  The block takes K6b's end argmax over
+// the final column's slices, the producer fills the stage as K2m's (one
+// tensor copy on one card, the warp's copies across cards), and the
 // walker follows K6b's rule: the table's uint16 from-state copy in shared
 // memory after the ring (TableFrom, tables of at most 24 slots), or for
 // wider tables the int32 from_idx read from global memory (IdxFrom, one
@@ -136,8 +155,10 @@
 // ranks and M blocks, with a pipeline fill of (D - 1) / (M + D - 1) of the
 // microsteps in which some rank waits.
 
+#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include "common.cuh"
 #include "device_guard.cuh"
@@ -166,6 +187,33 @@ constexpr int TABLE_RING_STATIC = 512;
 // and K6bm's, which also holds the slice table (1 KB of static arrays)
 constexpr int SLICES_TABLE_STATIC = 1536;
 
+// One tensor copy of the box at (0, 0, b, i0, row) of the 5-D map (a
+// kernel parameter: __grid_constant__) to shared memory at dst, reported to
+// the mbarrier at bar with the box's bytes, out-of-bounds elements zeros.
+__device__ __forceinline__ void tensor_copy_box(uint32_t dst,
+                                                const CUtensorMap* map, int b,
+                                                int i0, int row,
+                                                uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(b),
+      "r"(i0), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// How a ring stage is filled: kRows (K2, K3, K9, K6b) by a bulk copy a
+// row; kSlices (K2m, K6bm across cards) by M bulk copies a row, one from
+// each rank's slice; kTensor (K2m, K6bm on one card) by one tensor copy a
+// stage from the one allocation that holds every rank's slice.
+enum Fill { kRows, kSlices, kTensor };
+
 // The rows of one read's walk in global memory and the ring they pass
 // through.  Row j of the walk (j = 0, 1, ..) is event t_top - j, at
 // src - j * stride; it goes to slot j % RING_ROWS of stage
@@ -175,10 +223,19 @@ constexpr int SLICES_TABLE_STATIC = 1536;
 // the producer, issues every copy; another, the walker, only waits on
 // `full` and arrives on `empty`, so no proxy fence or copy ever stalls the
 // walk behind its own stores.
-// SLICES (K2m): a row is split over the M = N >> shift ranks' slices, W =
-// 1 << shift bytes each; row j of slice m is at slices[m] + first - j *
-// stride (slices: a table in shared memory), and src is unused.
-template <bool SLICES = false>
+// kSlices: a row is split over the M = N >> shift ranks' slices, W = 1 <<
+// shift bytes each; row j of slice m is at slices[m] + first - j * stride
+// (slices: a table in shared memory), and src is unused.
+// kTensor: `map` describes the (R, M, T - 1, B, W) allocation as uint64
+// elements, innermost first (W / 8, M, B, T - 1, R), and one box (W / 8,
+// M, 1, RING_ROWS, 1) at (0, 0, b, i0, row) fills a stage with the rows
+// i0 .. i0 + RING_ROWS - 1 of every slice of read b, in that order, each
+// row its M slices side by side: [slot][m W + j].  The rows run up in t
+// while the walk runs down, so row j of the walk, the backpointer row
+// top - j, lands in slot RING_ROWS - 1 - j % RING_ROWS (ring_slot); rows
+// below 0 (the last stage's, below event 1) are zero-filled, never read,
+// and count in the stage's bytes.
+template <int FILL = kRows>
 struct Ring {
   uint8_t* buf;        // stages * STAGE_BYTES of shared memory
   uint64_t* full;      // one mbarrier a stage
@@ -190,6 +247,9 @@ struct Ring {
   const uint8_t* const* slices = nullptr;
   size_t first = 0;
   int shift = 0;
+  const CUtensorMap* map = nullptr;
+  int b = 0, row = 0;  // the box's read and row of the launch
+  int top = 0;         // the walk's first backpointer row (event t_top's)
 
   __device__ __forceinline__ int quads() const {
     return (n + RING_ROWS - 1) / RING_ROWS;
@@ -198,11 +258,17 @@ struct Ring {
   // the rows of stage use q (rows RING_ROWS q ..) into stage st
   __device__ __forceinline__ void fill(int q, int st) const {
     const int j0 = q * RING_ROWS;
-    const int cnt = min(RING_ROWS, n - j0);
     const uint32_t bar = nc::smem_addr(full + st);
-    if (!SLICES || (threadIdx.x & 31) == 0) nc::mbar_expect(bar, cnt * N);
     const uint32_t dst = nc::smem_addr(buf) + st * STAGE_BYTES;
-    if constexpr (SLICES) {
+    if constexpr (FILL == kTensor) {
+      nc::mbar_expect(bar, STAGE_BYTES);
+      tensor_copy_box(dst, map, b, top - j0 - (RING_ROWS - 1), row, bar);
+      return;
+    }
+    const int cnt = min(RING_ROWS, n - j0);
+    if (FILL != kSlices || (threadIdx.x & 31) == 0)
+      nc::mbar_expect(bar, cnt * N);
+    if constexpr (FILL == kSlices) {
       // the producer warp's lanes share the stage's cnt x M copies, after
       // lane 0's expected bytes
       __syncwarp();
@@ -222,11 +288,12 @@ struct Ring {
   }
 
   // The producer, before a block barrier that publishes the mbarriers:
-  // initialise them and start the copies of the first stages.  (SLICES:
+  // initialise them and start the copies of the first stages.  (kSlices:
   // the producer is a warp, whose lane 0 does what the one thread does
   // else; every lane runs start and produce.)
   __device__ __forceinline__ void start() const {
-    if (!SLICES || (threadIdx.x & 31) == 0) {
+    if (FILL != kSlices || (threadIdx.x & 31) == 0) {
+      if constexpr (FILL == kTensor) prefetch_tensor_map(map);
       for (int st = 0; st < stages; ++st) {
         nc::mbar_init(nc::smem_addr(full + st), 1);
         nc::mbar_init(nc::smem_addr(empty + st), 1);
@@ -252,6 +319,13 @@ struct Ring {
     }
   }
 };
+
+// The slot of a stage that holds row r of its RING_ROWS rows of the walk
+// (a constant in the unrolled walk).
+template <int FILL>
+__device__ __forceinline__ constexpr int ring_slot(int r) {
+  return FILL == kTensor ? RING_ROWS - 1 - r : r;
+}
 
 // The ring for the walk over events t_top .. t_top - n + 1 of one read;
 // event t's row at bp_b + (t - row0) * stride.
@@ -302,8 +376,8 @@ struct IdxFrom {
 // byte k, and sink(t, s_eff, code) takes each event's state and its K2
 // code (group << 4 | s_eff & 15).  Returns the state before the last event
 // walked.
-template <class Sink, class From = GroupedFrom, bool SLICES = false>
-__device__ __forceinline__ int walk_ring(const Ring<SLICES>& ring, int t_top,
+template <class Sink, class From = GroupedFrom, int FILL = kRows>
+__device__ __forceinline__ int walk_ring(const Ring<FILL>& ring, int t_top,
                                          int s, Sink sink,
                                          From from = From()) {
   int st = 0;
@@ -315,7 +389,8 @@ __device__ __forceinline__ int walk_ring(const Ring<SLICES>& ring, int t_top,
     for (int r = 0; r < RING_ROWS; ++r) {
       if (j + r < ring.n) {
         const int s_eff = s;
-        const int k = (int)nc::lds_u8(stage + r * N + s_eff);
+        const int k =
+            (int)nc::lds_u8(stage + ring_slot<FILL>(r) * N + s_eff);
         s = from(k, s_eff);
         sink(t_top - j - r, s_eff, ((k >> 6) << 4) | (s_eff & 15));
       }
@@ -546,16 +621,69 @@ viterbi_generic_traceback_ring_kernel(const float* __restrict__ final_alpha,
   out[0] = (uint16_t)s;
 }
 
-// K2m: a block per read; table holds the M = N >> slice_shift ranks'
-// (B, W) slices of the final column, then their (T - 1, B, W) backpointer
-// rows (16-byte aligned).
+// K2m and K6bm: a block per read b and row of the launch (block row B +
+// b); table holds the R rows' M = N >> slice_shift ranks' (B, W) slices of
+// the final column (row r's rank m at r M + m), then the rows' (B,)
+// lengths, then, on the copies route, their (T - 1, B, W) backpointer
+// slices (16-byte aligned) in the same order.  On the tensor route (TENSOR)
+// the backpointers are the one (R, M, T - 1, B, W) allocation that `map`
+// describes (Ring's kTensor).
 constexpr int MAX_SLICES = 64;
 
+// A block's ring over its row's slices: on the tensor route its box's
+// coordinates, else (kSlices) the row's slice table s_slices, which the
+// producer warp fills.
+template <bool TENSOR>
+__device__ __forceinline__ Ring<TENSOR ? kTensor : kSlices> slices_ring(
+    uint8_t* buf, uint64_t* full, uint64_t* empty, int stages,
+    const Extent& ex, int B, int slice_shift,
+    const uint8_t* const* s_slices, const CUtensorMap* map, int row,
+    int b) {
+  const size_t stride = (size_t)B << slice_shift;
+  Ring<TENSOR ? kTensor : kSlices> ring{buf,     full,   empty, stages,
+                                        nullptr, stride, ex.n};
+  if constexpr (TENSOR) {
+    ring.map = map;
+    ring.b = b;
+    ring.row = row;
+    ring.top = ex.t_top - 1;
+  } else {
+    ring.slices = s_slices;
+    ring.first = ex.n > 0 ? (size_t)(ex.t_top - 1) * stride +
+                                ((size_t)b << slice_shift)
+                          : 0;
+    ring.shift = slice_shift;
+  }
+  return ring;
+}
+
+// The producer of a slices ring: one thread on the tensor route, else the
+// producer warp, which first reads the row's slice table.
+template <bool TENSOR>
+__device__ __forceinline__ bool slices_producer(int tid) {
+  return TENSOR ? tid == PRODUCER : tid >= PRODUCER && tid < PRODUCER + 32;
+}
+
+template <bool TENSOR>
+__device__ __forceinline__ void load_slice_table(
+    const void* const* table, int R, int M, int row, int tid,
+    const uint8_t** s_slices) {
+  if (TENSOR) return;
+  for (int m = tid - PRODUCER; m < M; m += 32)
+    s_slices[m] =
+        static_cast<const uint8_t*>(table[(size_t)R * (M + 1) + row * M + m]);
+  __syncwarp();
+}
+
+// K2m: K2's end argmax over the row's final slices, its walk and code
+// packing, on the ring over the row's slices.
+template <bool TENSOR>
 __global__ void __launch_bounds__(THREADS)
-viterbi_traceback_slices_kernel(const void* const* __restrict__ table,
-                                const int32_t* __restrict__ length, int B,
-                                int T, int code_bytes, int slice_shift,
-                                int stages, int32_t* __restrict__ path0,
+viterbi_traceback_slices_kernel(__grid_constant__ const CUtensorMap map,
+                                const void* const* __restrict__ table, int R,
+                                int B, int T, int code_bytes,
+                                int slice_shift, int stages,
+                                int32_t* __restrict__ path0,
                                 uint8_t* __restrict__ codes,
                                 float* __restrict__ logp) {
   extern __shared__ __align__(128) uint8_t ring_buf[];
@@ -564,62 +692,57 @@ viterbi_traceback_slices_kernel(const void* const* __restrict__ table,
   __shared__ float w_best[THREADS / 32];
   __shared__ int w_idx[THREADS / 32];
 
-  const int b = blockIdx.x;
+  const int row = blockIdx.x / B, b = blockIdx.x - row * B;
   const int tid = threadIdx.x;
   const int W = 1 << slice_shift, M = N >> slice_shift;
-  const int len = length[b];
+  const int len = static_cast<const int32_t*>(table[R * M + row])[b];
   // the walk's rows: events min(len, T) - 1 .. 1 (row t - 1 of each slice)
   const Extent ex = extent(0, T, len, 0, 0);
-  const size_t stride = (size_t)B * W;
-  Ring<true> ring{ring_buf, full, empty, stages, nullptr, stride, ex.n};
-  ring.slices = s_slices;
-  ring.first = ex.n > 0 ? (size_t)(ex.t_top - 1) * stride + (size_t)b * W : 0;
-  ring.shift = slice_shift;
-  if (tid >= PRODUCER && tid < PRODUCER + 32) {
-    // the producer warp alone reads the slice table
-    for (int m = tid - PRODUCER; m < M; m += 32)
-      s_slices[m] = static_cast<const uint8_t*>(table[M + m]);
-    __syncwarp();
+  const auto ring = slices_ring<TENSOR>(ring_buf, full, empty, stages, ex,
+                                        B, slice_shift, s_slices, &map, row,
+                                        b);
+  if (slices_producer<TENSOR>(tid)) {
+    load_slice_table<TENSOR>(table, R, M, row, tid, s_slices);
     ring.start();
   }
 
-  uint8_t* out = codes + (size_t)b * code_bytes;
+  const size_t rb = (size_t)row * B + b;
+  uint8_t* out = codes + rb * code_bytes;
   for (int i = 3 * (ex.n > 0 ? ((ex.t_top - 1) >> 2) + 1 : 0) + tid;
        i < code_bytes; i += THREADS)
     out[i] = 0;
 
   // the thread's 4 states 4 tid .. 4 tid + 3 lie in one rank's slice
   const int j0 = 4 * tid;
-  end_argmax_partials_at(static_cast<const float*>(table[j0 >> slice_shift]) +
-                             (size_t)b * W + (j0 & (W - 1)),
-                         tid, w_best, w_idx);
+  end_argmax_partials_at(
+      static_cast<const float*>(table[row * M + (j0 >> slice_shift)]) +
+          (size_t)b * W + (j0 & (W - 1)),
+      tid, w_best, w_idx);
   __syncthreads();  // also publishes the ring's mbarriers
-  if (tid >= PRODUCER && tid < PRODUCER + 32) ring.produce();
+  if (slices_producer<TENSOR>(tid)) ring.produce();
   if (tid >= 32) return;
   float best;
   int idx;
   end_argmax(w_best, w_idx, tid, best, idx);
   if (tid != 0) return;
 
-  logp[b] = best;
-  path0[b] = walk_ring(ring, ex.t_top, idx, PackCodes<false>{out, 1, 0, T});
+  logp[rb] = best;
+  path0[rb] = walk_ring(ring, ex.t_top, idx, PackCodes<false>{out, 1, 0, T});
 }
 
-// K6bm: a block per read, K6b's ring kernel on K2m's slices: table holds
-// the M = N >> slice_shift ranks' (B, W) slices of the final column, then
-// their (T - 1, B, W) backpointer rows (16-byte aligned).  The block takes
-// K6b's end argmax over the column's slices, the producer warp assembles
-// each row from the M slices (Ring<true>), and thread 0 walks with the
-// from-state table `from` (deg, N) uint16 in shared memory after the
-// ring's stages (kTable; the producer copies it first) or the (deg, N)
-// int32 from_idx read from global memory, writing the state of every
-// event to path (B, T); the other warps write the end state past the walk.
-template <bool kTable>
+// K6bm: K6b's ring kernel on the row's slices.  The block takes K6b's end
+// argmax over the row's final slices, the producer fills the ring, and
+// thread 0 walks with the from-state table `from` (deg, N) uint16 in shared
+// memory after the ring's stages (kTable; the producer copies it first) or
+// the (deg, N) int32 from_idx read from global memory, writing the state
+// of every event to the row's path (B, T); the other warps write the end
+// state past the walk.
+template <bool kTable, bool TENSOR>
 __global__ void __launch_bounds__(THREADS)
 viterbi_generic_traceback_slices_kernel(
-    const void* const* __restrict__ table,
-    const int32_t* __restrict__ length, int B, int T, int slice_shift,
-    int deg, const void* __restrict__ from, int stages,
+    __grid_constant__ const CUtensorMap map,
+    const void* const* __restrict__ table, int R, int B, int T,
+    int slice_shift, int deg, const void* __restrict__ from, int stages,
     uint16_t* __restrict__ path, float* __restrict__ logp) {
   extern __shared__ __align__(128) uint8_t ring_buf[];
   __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
@@ -628,24 +751,20 @@ viterbi_generic_traceback_slices_kernel(
   __shared__ float w_best[THREADS / 32];
   __shared__ int w_idx[THREADS / 32];
 
-  const int b = blockIdx.x;
+  const int row = blockIdx.x / B, b = blockIdx.x - row * B;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int W = 1 << slice_shift, M = N >> slice_shift;
-  const int len = length[b];
+  const int len = static_cast<const int32_t*>(table[R * M + row])[b];
   // the walk's rows: events min(len, T) - 1 .. 1 (row t - 1 of each slice)
   const Extent ex = extent(0, T, len, 0, 0);
-  const size_t stride = (size_t)B * W;
-  Ring<true> ring{ring_buf, full, empty, stages, nullptr, stride, ex.n};
-  ring.slices = s_slices;
-  ring.first = ex.n > 0 ? (size_t)(ex.t_top - 1) * stride + (size_t)b * W : 0;
-  ring.shift = slice_shift;
+  const auto ring = slices_ring<TENSOR>(ring_buf, full, empty, stages, ex,
+                                        B, slice_shift, s_slices, &map, row,
+                                        b);
   uint8_t* tab = ring_buf + stages * STAGE_BYTES;
   const uint32_t tbar = nc::smem_addr(&table_bar);
-  if (tid >= PRODUCER && tid < PRODUCER + 32) {
-    // the producer warp alone reads the slice table
-    for (int m = tid - PRODUCER; m < M; m += 32)
-      s_slices[m] = static_cast<const uint8_t*>(table[M + m]);
+  if (slices_producer<TENSOR>(tid)) {
+    load_slice_table<TENSOR>(table, R, M, row, tid, s_slices);
     if (kTable && tid == PRODUCER && ex.n > 0) {
       // the from-state table first (the walk's first event reads it)
       nc::mbar_init_expect(tbar, deg * N * 2);
@@ -654,25 +773,26 @@ viterbi_generic_traceback_slices_kernel(
                       static_cast<const uint16_t*>(from) + (size_t)k * N,
                       N * 2, tbar);
     }
-    __syncwarp();
     ring.start();
   }
 
   // the thread's 4 states 4 tid .. 4 tid + 3 lie in one rank's slice
   const int j0 = 4 * tid;
-  end_argmax_partials_at(static_cast<const float*>(table[j0 >> slice_shift]) +
-                             (size_t)b * W + (j0 & (W - 1)),
-                         tid, w_best, w_idx);
+  end_argmax_partials_at(
+      static_cast<const float*>(table[row * M + (j0 >> slice_shift)]) +
+          (size_t)b * W + (j0 & (W - 1)),
+      tid, w_best, w_idx);
   __syncthreads();  // also publishes the mbarriers
   if (tid >= PRODUCER && tid < PRODUCER + 32) {
-    ring.produce();
+    if (slices_producer<TENSOR>(tid)) ring.produce();
     return;
   }
   // every other warp takes the argmax over the warps' partials
   float best;
   int idx;
   end_argmax(w_best, w_idx, lane, best, idx);
-  uint16_t* out = path + (size_t)b * T;
+  const size_t rb = (size_t)row * B + b;
+  uint16_t* out = path + rb * T;
   if (tid >= 64) {
     // past the walk's events the path holds the end state
     const int end_state = __shfl_sync(nc::FULL, idx, 0);
@@ -682,7 +802,7 @@ viterbi_generic_traceback_slices_kernel(
   }
   if (tid != 0) return;
 
-  logp[b] = best;
+  logp[rb] = best;
   int s = idx;
   if (ex.n > 0) {
     auto sink = [&](int t, int s_eff, int) { out[t] = (uint16_t)s_eff; };
@@ -823,60 +943,155 @@ extern "C" int nc_viterbi_generic_traceback_ring(
   return (int)cudaGetLastError();
 }
 
-// K2m: table is a device array of the M = 4096 >> slice_shift ranks' (B,
-// 4096 / M) final slices, then their (T - 1, B, 4096 / M) backpointer rows
+// The code a C entry returns when the driver refuses the slices' tensor
+// map (cuTensorMapEncodeTiled), plus the driver's CUresult.
+constexpr int MAP_REFUSED = 100000;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The tensor map of R rows' (M, Tm, B, W) backpointer slices in one
+// allocation at bps (Ring's kTensor): uint64 elements, so that a box's
+// inner extent W / 8 stays within the 256 a box allows for every W from 64
+// to 2048; dimensions innermost first (W / 8, M, B, Tm, R), the box (W /
+// 8, M, 1, RING_ROWS, 1), one ring stage.  The driver's function comes
+// through the runtime (no link against libcuda).  Returns 0, or
+// MAP_REFUSED plus the CUresult.
+static int encode_slices_map(CUtensorMap* map, const void* bps, int R, int M,
+                             int Tm, int B, int W) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return MAP_REFUSED + (int)CUDA_ERROR_NOT_FOUND;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t row_bytes = (cuuint64_t)B * W;
+  const cuuint64_t dims[5] = {(cuuint64_t)W / 8, (cuuint64_t)M,
+                              (cuuint64_t)B, (cuuint64_t)Tm, (cuuint64_t)R};
+  // bytes between neighbours along dimensions 1 .. 4
+  const cuuint64_t strides[4] = {Tm * row_bytes, (cuuint64_t)W, row_bytes,
+                                 M * Tm * row_bytes};
+  const cuuint32_t box[5] = {(cuuint32_t)W / 8, (cuuint32_t)M, 1, RING_ROWS,
+                             1};
+  const cuuint32_t steps[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT64, 5, const_cast<void*>(bps), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_REFUSED + (int)r;
+}
+
+// A tensor-route ring over runs of 64 bytes (64 ranks: a box of 256 runs)
+// takes at most this many stages: 12 stages of such boxes in flight an SM
+// walked 128 x 8192 at full lengths in 2.56 ms on an H100, 3 in 1.63 ms
+// (as drawn 1.95 and 1.91); at 16 and 32 ranks 3 stages were slower as
+// drawn, so wider runs keep ring_stages' count.
+constexpr int SMALL_RUN_STAGES = 3;
+
+static int tensor_stages(int stages, int tensor, int W) {
+  return tensor && W <= 64 && stages > SMALL_RUN_STAGES ? SMALL_RUN_STAGES
+                                                        : stages;
+}
+
+// The map of a slices walk's launch: on the tensor route the encoded map of
+// the allocation at bps, else (or with no row to walk) zeros: the kernel
+// never reads it.
+static int slices_map(CUtensorMap* map, int tensor, const void* bps, int R,
+                      int M, int T, int B, int W) {
+  *map = CUtensorMap{};
+  if (!tensor || T < 2 || B < 1) return 0;
+  return encode_slices_map(map, bps, R, M, T - 1, B, W);
+}
+
+// K2m: table is a device array of the R rows' M = 4096 >> slice_shift
+// ranks' (B, 4096 / M) final slices, the rows' (B,) lengths, then, on the
+// copies route (tensor 0), their (T - 1, B, 4096 / M) backpointer slices
 // (16-byte aligned; 6 <= slice_shift <= 12), on this card or on peers it
-// can reach (nc_enable_peer_access).  Returns cudaGetLastError() after the
-// launch.
-extern "C" int nc_viterbi_traceback_slices(const void* table,
-                                           const int32_t* length, int B,
-                                           int T, int code_bytes,
-                                           int slice_shift, int32_t* path0,
-                                           uint8_t* codes, float* logp,
-                                           int device, void* stream) {
+// can reach (nc_enable_peer_access); on the tensor route (tensor 1) bps is
+// the one (R, M, T - 1, B, 4096 / M) allocation on this card that holds
+// them (16-byte aligned).  path0 (R, B), codes (R, B, code_bytes), logp
+// (R, B).  Returns cudaGetLastError() after the launch, or the map's
+// refusal.
+extern "C" int nc_viterbi_traceback_slices(const void* table, const void* bps,
+                                           int tensor, int R, int B, int T,
+                                           int code_bytes, int slice_shift,
+                                           int32_t* path0, uint8_t* codes,
+                                           float* logp, int device,
+                                           void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  if (slice_shift < 6 || slice_shift > 12) return (int)cudaErrorInvalidValue;
+  if (slice_shift < 6 || slice_shift > 12 || R < 1)
+    return (int)cudaErrorInvalidValue;
   if (B > 0) {
-    const int stages = ring_stages(B, THREADS, device);
-    const cudaError_t err =
-        set_ring_smem(viterbi_traceback_slices_kernel, stages);
+    CUtensorMap map;
+    const int W = 1 << slice_shift;
+    const int refused = slices_map(&map, tensor, bps, R, N / W, T, B, W);
+    if (refused) return refused;
+    const int stages =
+        tensor_stages(ring_stages(R * B, THREADS, device), tensor, W);
+    auto kernel = tensor ? viterbi_traceback_slices_kernel<true>
+                      : viterbi_traceback_slices_kernel<false>;
+    const cudaError_t err = set_ring_smem(kernel, stages);
     if (err != cudaSuccess) return (int)err;
-    viterbi_traceback_slices_kernel<<<B, THREADS, stages * STAGE_BYTES,
-                                      (cudaStream_t)stream>>>(
-        static_cast<const void* const*>(table), length, B, T, code_bytes,
+    kernel<<<R * B, THREADS, stages * STAGE_BYTES, (cudaStream_t)stream>>>(
+        map, static_cast<const void* const*>(table), R, B, T, code_bytes,
         slice_shift, stages, path0, codes, logp);
   }
   return (int)cudaGetLastError();
 }
 
-// K6bm: table as K2m's; from_rule 1: `from` is the table's (deg, N)
-// uint16 from-state copy (16-byte aligned, 1 to the most slots that leave
-// MIN_STAGES stages beside it), 0: its (deg, N) int32 from_idx (any deg of
-// 1 to 256); both on this card.  path (B, T) uint16, logp (B,).  Returns
-// cudaGetLastError() after the launch.
+// K6bm: table, bps and tensor as K2m's; from_rule 1: `from` is the table's
+// (deg, N) uint16 from-state copy (16-byte aligned, 1 to the most slots
+// that leave MIN_STAGES stages beside it), 0: its (deg, N) int32 from_idx
+// (any deg of 1 to 256); both on this card.  path (R, B, T) uint16, logp
+// (R, B).  Returns cudaGetLastError() after the launch, or the map's
+// refusal.
 extern "C" int nc_viterbi_generic_traceback_slices(
-    const void* table, const int32_t* length, int B, int T, int slice_shift,
-    int deg, const void* from, int from_rule, uint16_t* path, float* logp,
-    int device, void* stream) {
+    const void* table, const void* bps, int tensor, int R, int B, int T,
+    int slice_shift, int deg, const void* from, int from_rule,
+    uint16_t* path, float* logp, int device, void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   const int table_bytes = from_rule ? deg * N * 2 : 0;
-  if (slice_shift < 6 || slice_shift > 12 || deg < 1 || deg > 256 ||
+  if (slice_shift < 6 || slice_shift > 12 || deg < 1 || deg > 256 || R < 1 ||
       table_bytes + MIN_STAGES * (int)STAGE_BYTES >
           SMEM_PER_BLOCK - SLICES_TABLE_STATIC)
     return (int)cudaErrorInvalidValue;
   if (B > 0) {
-    const int stages =
-        ring_stages(B, THREADS, device, table_bytes, SLICES_TABLE_STATIC);
+    CUtensorMap map;
+    const int W = 1 << slice_shift;
+    const int refused = slices_map(&map, tensor, bps, R, N / W, T, B, W);
+    if (refused) return refused;
+    const int stages = tensor_stages(
+        ring_stages(R * B, THREADS, device, table_bytes, SLICES_TABLE_STATIC),
+        tensor, W);
     const int smem = stages * (int)STAGE_BYTES + table_bytes;
-    auto kernel = from_rule ? viterbi_generic_traceback_slices_kernel<true>
-                            : viterbi_generic_traceback_slices_kernel<false>;
+    auto kernel =
+        from_rule
+            ? (tensor ? viterbi_generic_traceback_slices_kernel<true, true>
+                      : viterbi_generic_traceback_slices_kernel<true, false>)
+            : (tensor ? viterbi_generic_traceback_slices_kernel<false, true>
+                      : viterbi_generic_traceback_slices_kernel<false, false>);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
-        static_cast<const void* const*>(table), length, B, T, slice_shift,
+    kernel<<<R * B, THREADS, smem, (cudaStream_t)stream>>>(
+        map, static_cast<const void* const*>(table), R, B, T, slice_shift,
         deg, from, stages, path, logp);
   }
   return (int)cudaGetLastError();
@@ -896,5 +1111,12 @@ extern "C" int nc_enable_peer_access(int device, int peer) {
 }
 
 extern "C" const char* nc_error_string(int err) {
+  if (err >= MAP_REFUSED) {
+    static char msg[96];
+    snprintf(msg, sizeof msg,
+             "cuTensorMapEncodeTiled refused the slices' map: CUresult %d",
+             err - MAP_REFUSED);
+    return msg;
+  }
   return cudaGetErrorString((cudaError_t)err);
 }

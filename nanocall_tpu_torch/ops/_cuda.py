@@ -129,7 +129,7 @@ def load():
             ci, ci, ci, ctypes.POINTER(ci)]
         lib.nc_viterbi_traceback_slices.restype = ci
         lib.nc_viterbi_traceback_slices.argtypes = (
-            [vp] * 2 + [ci] * 4 + [vp] * 3 + [ci, vp])
+            [vp] * 2 + [ci] * 6 + [vp] * 3 + [ci, vp])
         lib.nc_enable_peer_access.restype = ci
         lib.nc_enable_peer_access.argtypes = [ci, ci]
         lib.nc_viterbi_traceback_chunk.restype = ci
@@ -178,7 +178,7 @@ def load():
             ci] * 7 + [ctypes.POINTER(ci)]
         lib.nc_viterbi_generic_traceback_slices.restype = ci
         lib.nc_viterbi_generic_traceback_slices.argtypes = (
-            [vp] * 2 + [ci] * 4 + [vp, ci] + [vp] * 2 + [ci, vp])
+            [vp] * 2 + [ci] * 6 + [vp, ci] + [vp] * 2 + [ci, vp])
         lib.nc_viterbi_generic_traceback.restype = ci
         lib.nc_viterbi_generic_traceback.argtypes = (
             [vp] * 3 + [ci, ci] + [vp] * 3 + [ci, vp])
@@ -226,12 +226,15 @@ def target(dev) -> tuple:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's `launches`.  Under a lock: the EM
-    sharder launches from one host thread per device, and `+=` on an
-    attribute is not atomic."""
+def count_launch(wrapper, route: str | None = None) -> None:
+    """Add one to a kernel wrapper's `launches` (and, for a wrapper of two
+    routes, to its `routes[route]`).  Under a lock: the EM sharder launches
+    from one host thread per device, and `+=` on an attribute is not
+    atomic."""
     with _count_lock:
         wrapper.launches += 1
+        if route is not None:
+            wrapper.routes[route] += 1
 
 
 _peers: set = set()

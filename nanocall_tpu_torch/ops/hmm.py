@@ -22,7 +22,11 @@ Kernels and their plain versions, side by side below:
                             vs viterbi_traceback_grouped_chunk_plain
   K1m viterbi_forward.cu    forward_wave_kernel
                             vs viterbi_forward_wave_plain
-  K2m viterbi_traceback.cu  traceback_slices_kernel
+  K2m viterbi_traceback.cu  traceback_slices_kernel (a ring stage by one
+                            tensor copy, or by a bulk copy a row and rank
+                            across cards: slices_walk_route; the stage
+                            fill's plain twins tensor_stage_plain,
+                            copies_stage_plain)
                             vs viterbi_traceback_slices_plain
       (parallel/statepar.py: K1 and K2 with the states split over ranks)
   K9  (parallel/seqpar.py, over K3's forward chunk)
@@ -48,7 +52,7 @@ Kernels and their plain versions, side by side below:
   K6am viterbi_generic.cu   generic_wave_resident_kernel /
                             generic_wave_streaming_kernel
                             vs viterbi_forward_generic_wave_plain
-  K6bm viterbi_traceback.cu generic_traceback_slices_kernel
+  K6bm viterbi_traceback.cu generic_traceback_slices_kernel (K2m's routes)
                             vs viterbi_traceback_generic_slices_plain
       (parallel/statepar.py: K6a and K6b with the states split over ranks)
   K6c fwbw_generic.cu       fwbw_generic_kernel (streaming),
@@ -813,50 +817,163 @@ def viterbi_traceback_slices_plain(K: int, column, bp_slices, lengths):
                                _slice_byte(bp_slices, W), lengths)
 
 
-def traceback_slices_kernel(K: int, column, bp_slices, lengths):
-    """K2m on the card: as viterbi_traceback_slices_plain, launched on
-    lengths' card (K2's row ring, each row assembled from the ranks'
-    slices); a slice on another card is read there in place (peer access,
-    or a RuntimeError)."""
-    dev = lengths.device
-    _require_cuda(dev, "viterbi traceback slices")
-    M, W = len(column), column[0].shape[-1]
+def slices_walk_route(bp_rows) -> str:
+    """How K2m and K6bm fill their ring from data rows' backpointer slices
+    (bp_rows: one list of M (T - 1, B, W) uint8 slices a row, in rank
+    order): "tensor" when every slice lies on one device as the view [r, m]
+    of one contiguous (R, M, T - 1, B, W) allocation, rows and ranks in
+    order (statepar allocates a card's rows so), which one tensor copy a
+    ring stage reads; else "copies", a bulk copy a row and rank (a row
+    across cards reads its peers' slices over peer access)."""
+    first = bp_rows[0][0]
+    M, size = len(bp_rows[0]), first.numel()
+    storage = first.untyped_storage().data_ptr()
+    for r, row in enumerate(bp_rows):
+        for m, x in enumerate(row):
+            if (len(row) != M or x.device != first.device
+                    or x.dtype != torch.uint8 or x.shape != first.shape
+                    or not x.is_contiguous()
+                    or x.untyped_storage().data_ptr() != storage
+                    or x.data_ptr() != first.data_ptr() + (r * M + m) * size):
+                return "copies"
+    return "tensor"
+
+
+def slices_box_coords(row: int, b: int, t_top: int, q: int) -> tuple:
+    """The coordinates, innermost first (W / 8, M, B, T - 1, R), of the box
+    that fills stage use q of read b's walk on the tensor route, as K2m and
+    K6bm compute them: rows i0 .. i0 + RING_ROWS - 1 of every slice, i0 =
+    t_top - 1 - RING_ROWS q - (RING_ROWS - 1), of the launch's row `row`;
+    t_top is the walk's first event (min(length, T) - 1)."""
+    return (0, 0, b, t_top - 1 - RING_ROWS * q - (RING_ROWS - 1), row)
+
+
+def tensor_stage_plain(block: torch.Tensor, coords) -> torch.Tensor:
+    """Plain twin of the tensor route's stage fill: the (RING_ROWS, M W)
+    uint8 stage that the box at `coords` (slices_box_coords) of the (R, M,
+    T - 1, B, W) allocation `block` lands as in shared memory: slot s holds
+    row i0 + s of every slice, side by side in rank order; a row outside
+    the tensor (i0 + s < 0: below event 1) is zeros."""
+    _, _, b, i0, r = coords
+    R, M, Tm, B, W = block.shape
+    out = torch.zeros((RING_ROWS, M * W), dtype=torch.uint8)
+    for s in range(RING_ROWS):
+        if 0 <= i0 + s < Tm:
+            out[s] = block[r, :, i0 + s, b].reshape(M * W).cpu()
+    return out
+
+
+def copies_stage_plain(bp_slices, b: int, t_top: int, q: int) -> tuple:
+    """Plain twin of the copies route's stage fill (the 1-D ring): stage
+    use q of read b's walk from event t_top down to event 1, (stage, cnt):
+    slot r < cnt holds the backpointer row t_top - 1 - RING_ROWS q - r,
+    assembled from the M slices in rank order; the other slots are left
+    (zeros here)."""
+    M, W = len(bp_slices), bp_slices[0].shape[-1]
+    j0 = RING_ROWS * q
+    cnt = min(RING_ROWS, t_top - j0)
+    out = torch.zeros((RING_ROWS, M * W), dtype=torch.uint8)
+    for r in range(cnt):
+        out[r] = torch.cat([sl[t_top - 1 - j0 - r, b].cpu()
+                            for sl in bp_slices])
+    return out, cnt
+
+
+def _slice_rows(column, bp_slices, lengths) -> tuple:
+    """(columns, bp_rows, lengths, one): a slices walk's arguments as a list
+    a row; one: a single row was given (lengths a tensor)."""
+    if isinstance(lengths, torch.Tensor):
+        return [column], [bp_slices], [lengths], True
+    return list(column), list(bp_slices), list(lengths), False
+
+
+def _slices_walk_args(columns, bp_rows, lengths, route, what: str) -> dict:
+    """The checks of a slices walk (K2m, K6bm) over data rows of B reads on
+    lengths' card, and its launch's arguments: {"dev", "R", "B", "Tm",
+    "shift", "route", "table" (the final slices, the lengths and, on the
+    copies route, the backpointer slices: device pointers, int64 on the
+    card), "bps" (the allocation's pointer on the tensor route)}."""
+    dev = lengths[0].device
+    _require_cuda(dev, what)
+    R = len(lengths)
+    if not R or len(columns) != R or len(bp_rows) != R:
+        raise ValueError(f"{len(columns)} columns and {len(bp_rows)} "
+                         f"backpointer rows for {R} lengths")
+    M, W = len(columns[0]), columns[0][0].shape[-1]
     shift = _slice_shift(M, W)
-    B = column[0].shape[0]
+    B, Tm = columns[0][0].shape[0], bp_rows[0][0].shape[0]
+    for r in range(R):
+        _check(f"lengths[{r}]", lengths[r], torch.int32, (B,), dev)
+        if len(columns[r]) != M or len(bp_rows[r]) != M:
+            raise ValueError(f"row {r}: {len(columns[r])} column and "
+                             f"{len(bp_rows[r])} backpointer slices for {M} "
+                             f"ranks")
+        for m, (c, sl) in enumerate(zip(columns[r], bp_rows[r])):
+            _require_cuda(c.device, what)
+            _require_cuda(sl.device, what)
+            _check(f"column[{r}][{m}]", c, torch.float32, (B, W), c.device)
+            _check(f"bp_slices[{r}][{m}]", sl, torch.uint8, (Tm, B, W),
+                   sl.device)
+            _check_rows_aligned(sl)
+            _cuda.enable_peer_access(dev, c.device)
+            _cuda.enable_peer_access(dev, sl.device)
+    layout = slices_walk_route(bp_rows)
+    route = layout if route is None else route
+    if route not in ("tensor", "copies"):
+        raise ValueError(f"no slices walk route {route!r}")
+    if route == "tensor" and (layout != "tensor"
+                              or bp_rows[0][0].device != dev):
+        raise ValueError("the tensor route takes the rows' slices as views "
+                         "of one (R, M, T - 1, B, W) allocation on the "
+                         "launch card (slices_walk_route)")
+    ptrs = ([c.data_ptr() for row in columns for c in row]
+            + [ln.data_ptr() for ln in lengths])
+    if route == "copies":
+        ptrs += [sl.data_ptr() if sl.numel() else 0
+                 for row in bp_rows for sl in row]
+    # pinned, so that the copy does not wait on the card
+    table = torch.tensor(ptrs, dtype=torch.int64).pin_memory().to(
+        dev, non_blocking=True)
+    return {"dev": dev, "R": R, "B": B, "Tm": Tm, "shift": shift,
+            "route": route, "table": table,
+            "bps": bp_rows[0][0].data_ptr() if route == "tensor" else None}
+
+
+def traceback_slices_kernel(K: int, column, bp_slices, lengths,
+                            route: str | None = None):
+    """K2m on the card: as viterbi_traceback_slices_plain, launched on
+    lengths' card (K2's row ring, each stage filled from the ranks'
+    slices).  One data row: column its M (B, W) final slices, bp_slices
+    its M (T - 1, B, W) backpointer slices, lengths (B,): returns (path0,
+    codes, logp).  Several rows of B reads in one launch: each argument a
+    list a row: returns a list of (path0, codes, logp).  route
+    (slices_walk_route's by default): "tensor", one tensor copy a stage
+    from the rows' one allocation on the launch card (a map the driver
+    refuses raises), or "copies", a bulk copy a row and rank, which reads a
+    slice on another card in place (peer access, or a RuntimeError)."""
     if K != 6:
         raise ValueError(f"the CUDA traceback kernel takes K=6, got K={K}")
-    if len(bp_slices) != M:
-        raise ValueError(f"{len(bp_slices)} backpointer slices for {M} ranks")
-    Tm = bp_slices[0].shape[0]
-    _check("lengths", lengths, torch.int32, (B,), dev)
-    for m, (c, sl) in enumerate(zip(column, bp_slices)):
-        _require_cuda(c.device, "viterbi traceback slices")
-        _require_cuda(sl.device, "viterbi traceback slices")
-        _check(f"column[{m}]", c, torch.float32, (B, W), c.device)
-        _check(f"bp_slices[{m}]", sl, torch.uint8, (Tm, B, W), sl.device)
-        _check_rows_aligned(sl)
-        _cuda.enable_peer_access(dev, c.device)
-        _cuda.enable_peer_access(dev, sl.device)
+    columns, bp_rows, lengths, one = _slice_rows(column, bp_slices, lengths)
+    a = _slices_walk_args(columns, bp_rows, lengths, route,
+                          "viterbi traceback slices")
+    dev, R, B, Tm = a["dev"], a["R"], a["B"], a["Tm"]
     code_bytes = 3 * (-(-Tm // 4))
-    path0 = torch.empty(B, dtype=torch.int32, device=dev)
-    codes = torch.empty((B, code_bytes), dtype=torch.uint8, device=dev)
-    logp = torch.empty(B, dtype=torch.float32, device=dev)
-    # pinned, so that the copy does not wait on the card
-    table = torch.tensor(
-        [c.data_ptr() for c in column]
-        + [sl.data_ptr() if sl.numel() else 0 for sl in bp_slices],
-        dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    path0 = torch.empty((R, B), dtype=torch.int32, device=dev)
+    codes = torch.empty((R, B, code_bytes), dtype=torch.uint8, device=dev)
+    logp = torch.empty((R, B), dtype=torch.float32, device=dev)
     err = _cuda.load().nc_viterbi_traceback_slices(
-        table.data_ptr(), lengths.data_ptr(), B, Tm + 1, code_bytes, shift,
-        path0.data_ptr(), codes.data_ptr() if codes.numel() else None,
-        logp.data_ptr(), *_cuda.target(dev),
-    )
+        a["table"].data_ptr(), a["bps"], int(a["route"] == "tensor"), R, B,
+        Tm + 1, code_bytes, a["shift"], path0.data_ptr(),
+        codes.data_ptr() if codes.numel() else None, logp.data_ptr(),
+        *_cuda.target(dev))
     _cuda.check(err, "viterbi_traceback_slices kernel launch")
-    _cuda.count_launch(traceback_slices_kernel)
-    return path0, codes, logp
+    _cuda.count_launch(traceback_slices_kernel, a["route"])
+    out = list(zip(path0, codes, logp))
+    return out[0] if one else out
 
 
 traceback_slices_kernel.launches = 0
+traceback_slices_kernel.routes = {"tensor": 0, "copies": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -2337,24 +2454,21 @@ def viterbi_traceback_generic_slices_plain(ops: TransOps, column, bp_slices,
 
 
 def generic_traceback_slices_kernel(ops: TransOps, column, bp_slices,
-                                    lengths):
+                                    lengths, route: str | None = None):
     """K6bm on the card: as viterbi_traceback_generic_slices_plain,
-    launched on lengths' card (K6b's ring kernel, each row assembled from
+    launched on lengths' card (K6b's ring kernel, each stage filled from
     the ranks' slices), with the table's from-state table in shared memory
     where it has one (ops.from_states, K6b's ring rule), else from_idx read
-    from global memory; a slice on another card is read there in place
-    (peer access, or a RuntimeError)."""
-    dev = lengths.device
+    from global memory.  One data row: column its M (B, W) final slices,
+    bp_slices its M (T - 1, B, W) backpointer slices, lengths (B,):
+    returns (path (B, T) uint16, logp (B,)).  Several rows of B reads in
+    one launch under the same table: each argument a list a row: returns a
+    list of (path, logp).  route as traceback_slices_kernel's."""
+    columns, bp_rows, lengths, one = _slice_rows(column, bp_slices, lengths)
+    dev = lengths[0].device
     _require_cuda(dev, "generic viterbi traceback slices")
-    M, W = len(column), column[0].shape[-1]
-    shift = _slice_shift(M, W)
-    B = column[0].shape[0]
     if ops.K != 6:
         raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
-    if len(bp_slices) != M:
-        raise ValueError(f"{len(bp_slices)} backpointer slices for {M} ranks")
-    Tm = bp_slices[0].shape[0]
-    _check("lengths", lengths, torch.int32, (B,), dev)
     if ops.from_states is not None:
         _check_traceback_ring(ops, dev)
         from_t, rule = ops.from_states, 1
@@ -2364,31 +2478,23 @@ def generic_traceback_slices_kernel(ops: TransOps, column, bp_slices,
             raise ValueError(f"table: {from_t.shape[0]} slots, the kernels "
                              f"take 1 to {MAX_SLOTS}")
         _check("from_idx", from_t, torch.int32, (from_t.shape[0], 4096), dev)
-    for m, (c, sl) in enumerate(zip(column, bp_slices)):
-        _require_cuda(c.device, "generic viterbi traceback slices")
-        _require_cuda(sl.device, "generic viterbi traceback slices")
-        _check(f"column[{m}]", c, torch.float32, (B, W), c.device)
-        _check(f"bp_slices[{m}]", sl, torch.uint8, (Tm, B, W), sl.device)
-        _check_rows_aligned(sl)
-        _cuda.enable_peer_access(dev, c.device)
-        _cuda.enable_peer_access(dev, sl.device)
-    path = torch.empty((B, Tm + 1), dtype=torch.uint16, device=dev)
-    logp = torch.empty(B, dtype=torch.float32, device=dev)
-    # pinned, so that the copy does not wait on the card
-    table = torch.tensor(
-        [c.data_ptr() for c in column]
-        + [sl.data_ptr() if sl.numel() else 0 for sl in bp_slices],
-        dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    a = _slices_walk_args(columns, bp_rows, lengths, route,
+                          "generic viterbi traceback slices")
+    R, B, Tm = a["R"], a["B"], a["Tm"]
+    path = torch.empty((R, B, Tm + 1), dtype=torch.uint16, device=dev)
+    logp = torch.empty((R, B), dtype=torch.float32, device=dev)
     err = _cuda.load().nc_viterbi_generic_traceback_slices(
-        table.data_ptr(), lengths.data_ptr(), B, Tm + 1, shift,
-        from_t.shape[0], from_t.data_ptr(), rule, path.data_ptr(),
-        logp.data_ptr(), *_cuda.target(dev))
+        a["table"].data_ptr(), a["bps"], int(a["route"] == "tensor"), R, B,
+        Tm + 1, a["shift"], from_t.shape[0], from_t.data_ptr(), rule,
+        path.data_ptr(), logp.data_ptr(), *_cuda.target(dev))
     _cuda.check(err, "viterbi_generic_traceback_slices kernel launch")
-    _cuda.count_launch(generic_traceback_slices_kernel)
-    return path, logp
+    _cuda.count_launch(generic_traceback_slices_kernel, a["route"])
+    out = list(zip(path, logp))
+    return out[0] if one else out
 
 
 generic_traceback_slices_kernel.launches = 0
+generic_traceback_slices_kernel.routes = {"tensor": 0, "copies": 0}
 
 
 # K6c: generic forward-backward -----------------------------------------------

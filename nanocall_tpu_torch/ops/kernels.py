@@ -123,3 +123,5 @@ KERNELS = (
 def reset_launches() -> None:
     for k in KERNELS:
         k.wrapper.launches = 0
+        for route in getattr(k.wrapper, "routes", ()):
+            k.wrapper.routes[route] = 0

@@ -31,7 +31,11 @@ Schedule (K1m's design: csrc/viterbi_forward.cu's header):
     the final column's slices and walks the ranks' backpointer slices (K2m:
     K2's row ring, each row assembled from the M slices), so path0, codes
     and logp come out on the row's first device; a score-only decode takes
-    the column's max.
+    the column's max.  The rows whose ranks all lie on one card hold their
+    slices in one (R, M, T - 1, B, W) allocation there
+    (backpointer_slices), and one K2m launch walks them all, each ring
+    stage filled by one tensor copy; a row across cards walks alone on its
+    first card, a bulk copy a row and rank (hmm.slices_walk_route).
 
 Each rank runs K1's step body for its own states from the same column, so
 the decode is bit-identical to the one-device K1 + K2 by construction.
@@ -66,8 +70,9 @@ blocks), the slices exchanged through global memory behind counters.  Then
 K6bm (hmm.generic_traceback_slices_kernel: K6b's ring, each row assembled
 from the slices) walks on the row's first card with the table's whole
 from side (its from-state table in shared memory where it has one, else
-from_idx from global memory), to {"path" (B, T) uint16, "logp"}.  Each
-rank runs K6a's slot loop on the same column, so the decode is
+from_idx from global memory), to {"path" (B, T) uint16, "logp"}: one
+launch for the rows of one table whose ranks lie on one card, as K2m's.
+Each rank runs K6a's slot loop on the same column, so the decode is
 bit-identical to the one-device K6a + K6b, NaN bits included.
 
 The fused EM round (train.train_one_round: K4, K5 and the M-steps) takes
@@ -165,17 +170,50 @@ def _plan(rows) -> int:
     return Ts.pop()
 
 
-def _wave_rank(part: RankInputs, with_path: bool) -> hmm.WaveRank:
-    """A rank's part with its column buffer, backpointers and counters,
-    made on its device's current stream."""
+def backpointer_slices(rows, T: int, keys=None) -> tuple:
+    """The ranks' (T - 1, B, W) uint8 backpointer slices of data rows, and
+    the rows each traceback launch walks.  rows: one list a row of its
+    ranks' (device, B, W); keys: a value a row (None: all equal).  The rows
+    whose ranks all lie on one device, with the same M, B, W and key, get
+    views [r, m] of one (R, M, T - 1, B, W) allocation there, in row order,
+    and are walked in one launch, each stage filled by one tensor copy
+    (hmm.slices_walk_route); a row across devices gets a tensor a rank on
+    its device and a launch of its own.  Returns (slices a row, [row
+    indices a launch])."""
+    keys = [None] * len(rows) if keys is None else keys
+    out, launches, blocks = [None] * len(rows), [], {}
+    for i, ranks in enumerate(rows):
+        devs = {dev for dev, _, _ in ranks}
+        if len(devs) == 1:
+            blocks.setdefault((*ranks[0], len(ranks), keys[i]), []).append(i)
+        else:
+            out[i] = [torch.empty((max(T - 1, 0), B, W), dtype=torch.uint8,
+                                  device=dev) for dev, B, W in ranks]
+            launches.append([i])
+    for (dev, B, W, M, _), idx in blocks.items():
+        block = torch.empty((len(idx), M, max(T - 1, 0), B, W),
+                            dtype=torch.uint8, device=dev)
+        for r, i in enumerate(idx):
+            out[i] = list(block[r])
+        launches.append(idx)
+    return out, sorted(launches)
+
+
+def _wave_rank(part: RankInputs, with_path: bool,
+               bps: torch.Tensor | None = None) -> hmm.WaveRank:
+    """A rank's part with its column buffer, backpointers (bps, or a
+    tensor of its own) and counters, made on its device's current
+    stream."""
     B, T = part.ev["mean"].shape
     W = part.gt.stay_lp.shape[-1]
     dev = part.ev["mean"].device
+    if with_path and bps is None:
+        bps = torch.empty((max(T - 1, 0), B, W), dtype=torch.uint8,
+                          device=dev)
     return hmm.WaveRank(
         part.gt, part.model, part.ev,
         torch.empty((2, B, W), dtype=torch.float32, device=dev),
-        (torch.empty((max(T - 1, 0), B, W), dtype=torch.uint8, device=dev)
-         if with_path else None),
+        bps if with_path else None,
         torch.zeros(B, dtype=torch.int32, device=dev))
 
 
@@ -246,37 +284,76 @@ def _forward_kernels(ranks, with_path: bool, generic: bool = False,
                                                                sys))
 
 
+def _walk_layout(rows, W_of, T: int, with_path: bool, keys=None) -> tuple:
+    """backpointer_slices' (slices a row, row indices a launch) for rows of
+    parts (W_of(part): its slice width); score-only, no slices and a row a
+    launch."""
+    if not with_path:
+        return [[None] * len(parts) for parts in rows], [
+            [i] for i in range(len(rows))]
+    return backpointer_slices(
+        [[(p.ev["mean"].device, p.ev["mean"].shape[0], W_of(p))
+          for p in parts] for parts in rows], T, keys)
+
+
+def _walk_rows(groups, launches, walk, with_path: bool, kernels: bool,
+               T: int) -> list:
+    """The end of the schedule for the rows' ranks (groups): with_path,
+    the walk of each launch's rows (walk(idx, rows of (final slices,
+    backpointer slices, lengths), kernels) -> an output a row; idx the
+    rows' indices), else the score, each row's output on its first device;
+    the peers' cards then wait for the walk's card (they free their slices
+    after it)."""
+    out = [None] * len(groups)
+    for idx in launches:
+        rows = [([r.col[(T - 1) % 2] for r in groups[i]],
+                 [r.bps for r in groups[i]], groups[i][0].ev["length"])
+                for i in idx]
+        if with_path:
+            for i, o in zip(idx, walk(idx, rows, kernels)):
+                out[i] = o
+        else:
+            for i, (final, _, lengths) in zip(idx, rows):
+                out[i] = {"logp": torch.amax(
+                    hmm.gather_column(final, lengths.device), dim=-1)}
+    if kernels:
+        for ranks in groups:
+            cur = torch.cuda.current_stream(ranks[0].ev["length"].device)
+            for r in ranks[1:]:
+                torch.cuda.current_stream(r.ev["mean"].device).wait_stream(
+                    cur)
+    return out
+
+
+def _walk_grouped(K: int):
+    """_walk_rows' walk for K2m (one launch of the rows) or its plain
+    version (row by row)."""
+    def walk(idx, rows, kernels):
+        if kernels:
+            outs = hmm.traceback_slices_kernel(K, *map(list, zip(*rows)))
+        else:
+            outs = [hmm.viterbi_traceback_slices_plain(K, *row)
+                    for row in rows]
+        return [{"path0": p, "codes": c, "logp": lp} for p, c, lp in outs]
+    return walk
+
+
 def _decode(rows, with_path: bool, kernels: bool) -> list:
     """The schedule of the module docstring over K1m and K2m (kernels) or
     their plain versions (all of a row's reads in one wave: the plain
-    version steps them one after another)."""
+    version steps them one after another; the walk a row at a time)."""
     T = _plan(rows)
-    traceback = (hmm.traceback_slices_kernel if kernels
-                 else hmm.viterbi_traceback_slices_plain)
-    groups = [[_wave_rank(p, with_path) for p in parts] for parts in rows]
+    bps, launches = _walk_layout(rows, lambda p: p.gt.stay_lp.shape[-1], T,
+                                 with_path)
+    groups = [[_wave_rank(p, with_path, bp) for p, bp in zip(parts, row)]
+              for parts, row in zip(rows, bps)]
     for ranks in groups:
         if kernels:
             _forward_kernels(ranks, with_path)
         else:
             hmm.viterbi_forward_wave_plain(ranks, 0, ranks[0].flags.shape[0])
-    out = []
-    for ranks in groups:
-        final = [r.col[(T - 1) % 2] for r in ranks]
-        lengths = ranks[0].ev["length"]
-        if with_path:
-            path0, codes, logp = traceback(ranks[0].gt.K, final,
-                                           [r.bps for r in ranks], lengths)
-            out.append({"path0": path0, "codes": codes, "logp": logp})
-        else:
-            out.append({"logp": torch.amax(
-                hmm.gather_column(final, lengths.device), dim=-1)})
-        if kernels:
-            # the peers' cards free their slices once the walk is done
-            cur = torch.cuda.current_stream(lengths.device)
-            for r in ranks[1:]:
-                torch.cuda.current_stream(r.ev["mean"].device).wait_stream(
-                    cur)
-    return out
+    return _walk_rows(groups, launches, _walk_grouped(groups[0][0].gt.K),
+                      with_path, kernels, T)
 
 
 def viterbi_decode_statepar_plain(rows, with_path: bool = True) -> list:
@@ -413,54 +490,68 @@ def viterbi_decode_placed(ops, model, ev: dict, with_path: bool = True,
     return viterbi_decode_generic_statepar(rows, with_path, cluster)
 
 
-def _generic_wave_rank(part: GenericRankInputs,
-                       with_path: bool) -> hmm.GenericWaveRank:
-    """A rank's part with its column buffer, backpointers and counters."""
+def _generic_wave_rank(part: GenericRankInputs, with_path: bool,
+                       bps: torch.Tensor | None = None
+                       ) -> hmm.GenericWaveRank:
+    """A rank's part with its column buffer, backpointers (bps, or a
+    tensor of its own) and counters."""
     B, T = part.ev["mean"].shape
     W = part.model.level_mean.shape[-1]
     dev = part.ev["mean"].device
+    if with_path and bps is None:
+        bps = torch.empty((max(T - 1, 0), B, W), dtype=torch.uint8,
+                          device=dev)
     return hmm.GenericWaveRank(
         part.ops, part.model, part.ev,
         torch.empty((2, B, W), dtype=torch.float32, device=dev),
-        (torch.empty((max(T - 1, 0), B, W), dtype=torch.uint8, device=dev)
-         if with_path else None),
+        bps if with_path else None,
         torch.zeros(B, dtype=torch.int32, device=dev))
+
+
+def _walk_table_key(walk: hmm.TransOps) -> tuple:
+    """Rows walked in one launch share their table: its tensors'
+    addresses."""
+    return tuple(None if x is None else (x.device, x.data_ptr())
+                 for x in (walk.from_idx, walk.from_states))
+
+
+def _walk_generic(tables: list):
+    """_walk_rows' walk for K6bm (one launch of the rows, under the first
+    row's table of `tables`, which they share) or its plain version (row by
+    row)."""
+    def walk(idx, rows, kernels):
+        if kernels:
+            outs = hmm.generic_traceback_slices_kernel(
+                tables[idx[0]], *map(list, zip(*rows)))
+        else:
+            outs = [hmm.viterbi_traceback_generic_slices_plain(tables[i],
+                                                               *row)
+                    for i, row in zip(idx, rows)]
+        return [{"path": p, "logp": lp} for p, lp in outs]
+    return walk
 
 
 def _decode_generic(rows, with_path: bool, kernels: bool,
                     cluster: bool | None = None) -> list:
     """The schedule of the module docstring over K6am (on the exchange path
     `cluster` chooses, _forward_kernels) and K6bm (kernels) or their plain
-    versions (a row's reads in one wave)."""
+    versions (a row's reads in one wave; the walk a row at a time)."""
     T = _plan([row.parts for row in rows])
-    traceback = (hmm.generic_traceback_slices_kernel if kernels
-                 else hmm.viterbi_traceback_generic_slices_plain)
-    groups = [[_generic_wave_rank(p, with_path) for p in row.parts]
-              for row in rows]
+    bps, launches = _walk_layout(
+        [row.parts for row in rows], lambda p: p.model.level_mean.shape[-1],
+        T, with_path, [_walk_table_key(row.walk) for row in rows])
+    groups = [[_generic_wave_rank(p, with_path, bp)
+               for p, bp in zip(row.parts, row_bps)]
+              for row, row_bps in zip(rows, bps)]
     for ranks in groups:
         if kernels:
             _forward_kernels(ranks, with_path, generic=True, cluster=cluster)
         else:
             hmm.viterbi_forward_generic_wave_plain(
                 ranks, 0, ranks[0].flags.shape[0])
-    out = []
-    for row, ranks in zip(rows, groups):
-        final = [r.col[(T - 1) % 2] for r in ranks]
-        lengths = ranks[0].ev["length"]
-        if with_path:
-            path, logp = traceback(row.walk, final, [r.bps for r in ranks],
-                                   lengths)
-            out.append({"path": path, "logp": logp})
-        else:
-            out.append({"logp": torch.amax(
-                hmm.gather_column(final, lengths.device), dim=-1)})
-        if kernels:
-            # the peers' cards free their slices once the walk is done
-            cur = torch.cuda.current_stream(lengths.device)
-            for r in ranks[1:]:
-                torch.cuda.current_stream(r.ev["mean"].device).wait_stream(
-                    cur)
-    return out
+    return _walk_rows(groups, launches,
+                      _walk_generic([row.walk for row in rows]), with_path,
+                      kernels, T)
 
 
 def viterbi_decode_generic_statepar_plain(rows,

@@ -812,8 +812,8 @@ def test_statepar_kernels_bit_equal_on_the_card(card, inputs):
     _nan_decode_inputs (NaN events, a NaN stay entry, a NaN model entry);
     one data row of all reads, then two rows of half.  One launch of K1m a
     wave and row (plan_waves on the card's resident blocks: one wave here)
-    and one of K2m a row; a row of one rank (M = 1) decodes by K1 + K2 and
-    launches neither."""
+    and one of K2m for the card's rows; a row of one rank (M = 1) decodes
+    by K1 + K2 and launches neither."""
     from nanocall_tpu_torch.parallel import statepar
 
     if inputs == "clean":
@@ -844,8 +844,7 @@ def test_statepar_kernels_bit_equal_on_the_card(card, inputs):
                 torch.cuda.synchronize()
                 assert (hmm.forward_wave_kernel.launches - n0[0],
                         hmm.traceback_slices_kernel.launches - n0[1]) == \
-                    (n_rows * len(waves), n_rows if with_path and M > 1
-                     else 0)
+                    (n_rows * len(waves), int(with_path and M > 1))
                 assert len(waves) == (M > 1), waves
                 for key in ref:
                     what = (inputs, M, n_rows, with_path, key)
@@ -980,32 +979,92 @@ def _grouped_walk_inputs(dev, B: int, T: int, lengths, seed: int):
     return fa, bps, convert.tensor(np.asarray(lengths), dev, torch.int32)
 
 
+def _slice_layouts(fa, bps, lengths, M: int, R: int) -> dict:
+    """The final alphas (B, 4096) and backpointers (T - 1, B, 4096) of B
+    reads cut into R data rows of B / R reads over M ranks, in each layout
+    of the slices walks: {"tensor": (columns, bp_rows, lengths) with every
+    rank's slice a view of one (R, M, T - 1, B / R, W) allocation,
+    "copies": the same with a tensor a slice}, each argument a list a
+    row."""
+    Tm, B, n = bps.shape
+    b, W = B // R, n // M
+    columns = [[fa[r * b:(r + 1) * b, m * W:(m + 1) * W].contiguous()
+                for m in range(M)] for r in range(R)]
+    block = bps.view(Tm, R, b, M, W).permute(1, 3, 0, 2, 4).contiguous()
+    rows_ln = [lengths[r * b:(r + 1) * b].contiguous() for r in range(R)]
+    return {"tensor": (columns, [list(x) for x in block], rows_ln),
+            "copies": (columns, [[x.clone() for x in row] for row in block],
+                       rows_ln)}
+
+
+#: the ranks the slices walks are held at on the card (64: 4 x 64 runs of
+#: 64 bytes a stage), and the rows a launch walks
+SLICES_RANKS = [2, 4, 8, 16, 64]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [2, 4, 64])
+@pytest.mark.parametrize("M", SLICES_RANKS)
 def test_traceback_slices_ring_bit_equal_on_the_card(card, M):
-    """K2m on K2's row ring, each row assembled from M slices (64 copies of
-    64 bytes a row at M = 64): path0, codes and logp bit-equal to K2's ring
-    on the whole rows (the one-device walk) and to its plain version, on
+    """K2m on K2's row ring, on both routes (one tensor copy a stage from
+    the rows' one allocation; a bulk copy a row and rank), one and two data
+    rows a launch: path0, codes and logp bit-equal to K2's ring on each
+    row's whole rows (the one-device walk) and to its plain version, on
     random final alphas and grouped backpointers of 300 reads at full
-    lengths (more blocks than SMs) and of reads of lengths 0 to T, with a
-    final alpha NaN at some states in one read."""
-    W = 4096 // M
+    lengths (more blocks than SMs) and of reads of lengths 0 to T, clean
+    and with a final alpha NaN at some states in one read; each launch
+    counted on its route."""
     for B, T, lengths in ((300, 64, [64] * 300),
-                          (9, 200, [200, 0, 1, 2, 199, 200, 57, 200, 3])):
-        fa, bps, ln = _grouped_walk_inputs(card, B, T, lengths, M + T)
-        fa[4, [7, 2000]] = float("nan")
-        column = [fa[:, m * W:(m + 1) * W].contiguous() for m in range(M)]
-        slices = [bps[..., m * W:(m + 1) * W].contiguous() for m in range(M)]
-        want = hmm.traceback_kernel(6, fa, bps, ln)
-        plain = hmm.viterbi_traceback_slices_plain(6, column, slices, ln)
-        n0 = hmm.traceback_slices_kernel.launches
-        got = hmm.traceback_slices_kernel(6, column, slices, ln)
-        torch.cuda.synchronize()
-        assert hmm.traceback_slices_kernel.launches == n0 + 1
-        for what, g, w, p in zip(("path0", "codes", "logp"), got, want,
-                                 plain):
-            assert torch.equal(_bits(g), _bits(w)), (M, B, what)
-            assert torch.equal(_bits(g), _bits(p)), (M, B, what)
+                          (10, 200, [200, 0, 1, 2, 199, 200, 57, 200, 3,
+                                     5])):
+        clean, bps, ln = _grouped_walk_inputs(card, B, T, lengths, M + T)
+        for inputs in ("clean", "NaN"):
+            fa = clean.clone()
+            if inputs == "NaN":
+                fa[4, [7, 2000]] = float("nan")
+            for R in (1, 2):
+                b = B // R
+                want = [hmm.traceback_kernel(6, fa[r * b:(r + 1) * b],
+                                             bps[:, r * b:(r + 1) * b]
+                                             .contiguous(),
+                                             ln[r * b:(r + 1) * b]
+                                             .contiguous())
+                        for r in range(R)]
+                for route, args in _slice_layouts(fa, bps, ln, M,
+                                                  R).items():
+                    assert hmm.slices_walk_route(args[1]) == route
+                    plain = [hmm.viterbi_traceback_slices_plain(6, *row)
+                             for row in zip(*args)]
+                    n0 = (hmm.traceback_slices_kernel.launches,
+                          hmm.traceback_slices_kernel.routes[route])
+                    got = hmm.traceback_slices_kernel(6, *args)
+                    torch.cuda.synchronize()
+                    assert (hmm.traceback_slices_kernel.launches,
+                            hmm.traceback_slices_kernel.routes[route]) == \
+                        (n0[0] + 1, n0[1] + 1)
+                    for r in range(R):
+                        for what, g, w, p in zip(("path0", "codes", "logp"),
+                                                 got[r], want[r], plain[r]):
+                            tag = (M, B, inputs, R, route, r, what)
+                            assert torch.equal(_bits(g), _bits(w)), tag
+                            assert torch.equal(_bits(g), _bits(p)), tag
+                    if R == 1:
+                        one = hmm.traceback_slices_kernel(
+                            6, args[0][0], args[1][0], args[2][0], route)
+                        for g, w in zip(one, got[0]):
+                            assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+def test_traceback_slices_tensor_route_refuses_other_layouts(card):
+    """The tensor route takes the rows' slices only as views of one
+    allocation on the launch card: slices of their own raise, and nothing
+    is counted."""
+    fa, bps, ln = _grouped_walk_inputs(card, 4, 9, [9, 3, 0, 9], 5)
+    columns, bp_rows, lengths = _slice_layouts(fa, bps, ln, 4, 1)["copies"]
+    n0 = hmm.traceback_slices_kernel.launches
+    with pytest.raises(ValueError, match="one"):
+        hmm.traceback_slices_kernel(6, columns, bp_rows, lengths, "tensor")
+    assert hmm.traceback_slices_kernel.launches == n0
 
 
 def _generic_tables(dev, tmp_path, B: int) -> dict:
@@ -1057,8 +1116,14 @@ def test_generic_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
     _generic_tables' five tables, on clean reads of lengths 0, 1, T-1 and T
     and on _nan_generic_inputs; K6am on its default path (a cluster a read
     up to 8 ranks) and, forced by cluster=False, on its cooperative path;
-    one launch of K6am's form a row (one wave) and of K6bm a row; a row of
-    one rank decodes by K6a + K6b."""
+    one launch of K6am's form a row (one wave) and of K6bm a card, two
+    rows of one table on the card walked in one launch; a row of one rank
+    decodes by K6a + K6b.  Then K6bm alone on K6a's final alphas and
+    backpointers cut over M = 2, 4, 8, 16 and 64 ranks, one and two rows a
+    launch, on both routes (one tensor copy a stage; a bulk copy a row and
+    rank) and under both from rules (the from-state table in shared memory
+    and from_idx from global memory), bit-equal to its plain version and
+    to K6b on each row's whole rows."""
     from nanocall_tpu_torch.parallel import statepar
 
     T = 40
@@ -1098,6 +1163,67 @@ def test_generic_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
                                        _bits(ref[key])), what
             if inputs == "NaN":
                 assert torch.isnan(ref["logp"]).any(), name
+        if name in ("(0.14, 0.21)", "(0.1, 0.3)", "random 25 slots"):
+            _generic_two_rows_one_walk(card, ops, model, ev, name)
+        _generic_walks_both_routes(card, ops, model, ev, (inputs, name))
+
+
+def _generic_two_rows_one_walk(card, ops, model, ev, name) -> None:
+    """Two data rows of one table over 2 and 4 ranks on the card: K6bm
+    walks both in one launch on the tensor route, path and logp bit-equal
+    to K6a + K6b."""
+    from nanocall_tpu_torch.parallel import statepar
+
+    B = ev["length"].shape[0]
+    ref = hmm.viterbi_decode(ops, model, ev)
+    half = [slice(0, B // 2), slice(B // 2, B)]
+    for M in (2, 4):
+        rows = [statepar.split_table_states(
+            ops, hmm.ModelArrays(*(x[h] for x in model)),
+            {k: v[h] for k, v in ev.items()}, [card] * M) for h in half]
+        n0 = dict(hmm.generic_traceback_slices_kernel.routes)
+        got = statepar.viterbi_decode_generic_statepar(rows)
+        torch.cuda.synchronize()
+        assert hmm.generic_traceback_slices_kernel.routes == \
+            {"tensor": n0["tensor"] + 1, "copies": n0["copies"]}, name
+        for key in ("path", "logp"):
+            g = torch.cat([o[key] for o in got])
+            assert torch.equal(_bits(g), _bits(ref[key])), (name, M, key)
+
+
+def _generic_walks_both_routes(card, ops, model, ev, what) -> None:
+    """K6bm alone on K6a's outputs cut over SLICES_RANKS ranks (the last
+    part of test_generic_statepar_kernels_bit_equal_on_the_card)."""
+    fa, bps = hmm.viterbi_forward(ops, model, ev)
+    lengths = ev["length"]
+    B = lengths.shape[0]
+    rules = [("from_idx", ops._replace(from_states=None))]
+    if ops.from_states is not None:
+        rules.append(("from-state table", ops))
+    for rule, t in rules:
+        for R in (1, 2):
+            b = B // R
+            want = [hmm.viterbi_traceback(
+                ops, fa[r * b:(r + 1) * b],
+                bps[:, r * b:(r + 1) * b].contiguous(),
+                lengths[r * b:(r + 1) * b].contiguous()) for r in range(R)]
+            for M in SLICES_RANKS:
+                for route, args in _slice_layouts(fa, bps, lengths, M,
+                                                  R).items():
+                    plain = [hmm.viterbi_traceback_generic_slices_plain(
+                        t, *row) for row in zip(*args)]
+                    n0 = hmm.generic_traceback_slices_kernel.routes[route]
+                    got = hmm.generic_traceback_slices_kernel(t, *args,
+                                                              route=route)
+                    torch.cuda.synchronize()
+                    assert hmm.generic_traceback_slices_kernel.routes[
+                        route] == n0 + 1
+                    for r in range(R):
+                        for key, g, w, p in zip(("path", "logp"), got[r],
+                                                want[r], plain[r]):
+                            tag = (*what, rule, R, M, route, r, key)
+                            assert torch.equal(_bits(g), _bits(w)), tag
+                            assert torch.equal(_bits(g), _bits(p)), tag
 
 
 @pytest.mark.cuda
@@ -1180,6 +1306,37 @@ def _train_batch(dev, G: int, T: int, nan: bool, seed: int):
         mdl["level_mean"][2, 0, 1234] = np.nan
         ev["mean"][2, 3, 3] = np.inf
     return convert.train_batch(ev, mdl, pm, st, dev)
+
+
+@pytest.mark.cuda
+def test_k4m_log_pr_data_reads_every_rank_after_its_counter_on_the_card(
+        card):
+    """K4m's log Pr[data] over 64 ranks (the cooperative path): the fold's
+    lane p waits on the counters of ranks p and p + 32 but adds the partial
+    sums of ranks 2 p and 2 p + 1, so no lane may read before every lane's
+    wait (a stale partial sum put lpd a few ULP off in about one launch in
+    ten).  Each rank's partials start as a NaN of a payload no kernel
+    makes, and 40 launches each give the plain version's lpd as bits, on
+    every rank."""
+    from nanocall_tpu_torch.parallel import statepar
+
+    M, W = 64, 64
+    batch = _train_batch(card, 4, 24, False, 17)
+    ranks = statepar.split_round_states(*batch, [card] * M)
+    want = [statepar._fwd_wave_rank(r, False) for r in ranks]
+    B = want[0].lpd.shape[0]
+    hmm.fwbw_forward_wave_plain(want, 0, B)
+    for i in range(40):
+        fk = [statepar._fwd_wave_rank(r, False) for r in ranks]
+        for f in fk:
+            f.part.view(torch.int32).fill_(0x7FBADBAD)
+        statepar._wave_kernels(
+            fk, lambda *a: hmm.fwbw_forward_wave_kernel(*a, None),
+            lambda d, sys: hmm.fwbw_forward_wave_resident(d, sys, W),
+            clusters=True)
+        torch.cuda.synchronize()
+        for m, f in enumerate(fk):
+            assert torch.equal(_bits(f.lpd), _bits(want[0].lpd)), (i, m)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,7 @@
                                         [--long 100000] [--em] [--census]
                                         [--k4-launches] [--walks]
                                         [--custom] [--em-mesh]
-                                        [--generic-mesh]
+                                        [--generic-mesh] [--slice-walks]
                                         [--tree DIR | --turns DIR]
 
 1. K8, the measured float32 peak at the decode's shape
@@ -104,6 +104,18 @@ K6am takes `cluster`: the cluster path where hmm.wave_cluster says and
 the cooperative path forced), each decode's path and logp bit-equal to
 K6a + K6b, whose kernels are timed in the same process.  It runs in any
 tree that has the state axis's generic decode (PR 16 on).
+With --slice-walks, also the state axis's walks alone at the path chunk
+(chip_smoke.pooled_inputs, 128 reads x 8192 events, as drawn and at full
+lengths) on one card: K6bm under the loaded table of (0.14, 0.21) on K6a's
+output, and K2m on K1's, cut over the ranks of SLICE_WALK_CELLS' (data,
+model) meshes as the tree's statepar lays the slices out (in a tree that
+has statepar.backpointer_slices, one allocation of the card's rows, walked
+in one launch on the tensor route; else a tensor a rank and a launch a
+row), against K6b's and K2's rings on the same rows whole (one launch),
+timed in turns (ring, walk, walk, ring; CUDA events around SLICE_WALK_REPS
+calls), bit-equal; in a tree whose wrappers take a route, the copies route
+forced too.  It runs in any tree that has the state axis's walks (PR 16
+on), so that two designs are timed in turns (--turns).
 With --train --k4-launches, also K4 on the inputs of each of its launches
 in one more trained pipeline run: milliseconds per launch.  Phase 1 also
 times K3's forward chunk (events [8192, 16384) of 4 reads, chunks of 8192)
@@ -177,6 +189,9 @@ def main() -> int:
                     help="time K4m and K5m at 512 x 128 over 2 and 4 ranks")
     ap.add_argument("--generic-mesh", action="store_true",
                     help="time K6am and K6bm at 128 x 8192 and 16 x 8192")
+    ap.add_argument("--slice-walks", action="store_true",
+                    help="time K6bm and K2m against K6b's and K2's rings "
+                         "at 128 x 8192")
     ap.add_argument("--tree", default="", metavar="DIR",
                     help="run on the checkout in DIR")
     ap.add_argument("--turns", default="", metavar="DIR",
@@ -273,6 +288,9 @@ def main() -> int:
 
     if args.generic_mesh:
         time_generic_mesh(models, device, card)
+
+    if args.slice_walks:
+        time_slice_walks(models, device, card)
 
     cfg = chip_smoke.smoke_config(*([] if args.train else ["--no-train"]),
                                   *trans_flags)
@@ -863,6 +881,110 @@ def time_generic_mesh(models, device, card: str) -> None:
                 del placed
             del ref
             torch.cuda.empty_cache()
+
+
+#: --slice-walks' (data, model) meshes on one card, and calls a turn
+SLICE_WALK_CELLS = ((1, 2), (1, 4), (1, 8), (2, 2), (1, 16), (1, 32), (1, 64))
+SLICE_WALK_REPS = 5
+
+
+def _tree_slices(bps, D: int, M: int):
+    """bps (T - 1, B, 4096) cut into D data rows over M ranks as this
+    tree's statepar lays the slices out: [row][rank] (T - 1, B / D, W)."""
+    import torch
+
+    from nanocall_tpu_torch.parallel import statepar
+
+    Tm, B, n = bps.shape
+    b, W = B // D, n // M
+    dev = bps.device
+    if hasattr(statepar, "backpointer_slices"):
+        rows, _ = statepar.backpointer_slices([[(dev, b, W)] * M] * D,
+                                              Tm + 1)
+    else:
+        rows = [[torch.empty((Tm, b, W), dtype=torch.uint8, device=dev)
+                 for _ in range(M)] for _ in range(D)]
+    for r, row in enumerate(rows):
+        for m, x in enumerate(row):
+            x.copy_(bps[:, r * b:(r + 1) * b, m * W:(m + 1) * W])
+    return rows
+
+
+def time_slice_walks(models, device, card: str) -> None:
+    """K6bm and K2m against K6b's and K2's rings at SLICE_WALK_CELLS (module
+    docstring, --slice-walks)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import basecall
+    from nanocall_tpu_torch.ops import hmm
+
+    ops = chip_smoke.load_trans_table(device)[2]
+    args = chip_smoke.pooled_inputs(models, device, 128, 8192,
+                                    np.random.default_rng(19))
+    model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
+    ev = basecall.pooled_ev_batch(*args[:5], args[9])
+    gt = hmm.make_grouped_trans_device(args[8][:, 0], args[8][:, 1], 6)
+    drawn = ev["length"]
+    full = torch.full_like(drawn, 8192)
+    B = drawn.shape[0]
+    rows_api = "route" in inspect.signature(
+        hmm.generic_traceback_slices_kernel).parameters
+    walks = {
+        "K6bm": (hmm.viterbi_forward(ops, model, ev),
+                 lambda fa, bps, ln: hmm.generic_traceback_ring_kernel(
+                     ops, fa, bps, ln),
+                 lambda *a, **kw: hmm.generic_traceback_slices_kernel(
+                     ops, *a, **kw)),
+        "K2m": (hmm.viterbi_forward_grouped(gt, model, ev),
+                lambda fa, bps, ln: hmm.traceback_kernel(6, fa, bps, ln),
+                lambda *a, **kw: hmm.traceback_slices_kernel(6, *a, **kw))}
+    del model, ev, gt
+    for name, ((fa, bps), ring, walk) in walks.items():
+        for D, M in SLICE_WALK_CELLS:
+            b, W = B // D, 4096 // M
+            slices = _tree_slices(bps, D, M)
+            for what, lengths in (("as drawn", drawn), ("full", full)):
+                cols = [[fa[r * b:(r + 1) * b, m * W:(m + 1) * W]
+                         .contiguous() for m in range(M)] for r in range(D)]
+                lns = [lengths[r * b:(r + 1) * b].contiguous()
+                       for r in range(D)]
+                calls = {"ring": lambda: ring(fa, bps, lengths)}
+                if rows_api:
+                    calls["walk"] = lambda: walk(cols, slices, lns)
+                    calls["copies"] = lambda: walk(cols, slices, lns,
+                                                   route="copies")
+                else:
+                    calls["walk"] = lambda: [walk(c, sl, ln) for c, sl, ln
+                                             in zip(cols, slices, lns)]
+                want = ring(fa, bps, lengths)
+                for call in list(calls)[1:]:
+                    got = calls[call]()
+                    for r, row in enumerate(got):
+                        for g, w in zip(row, want):
+                            assert torch.equal(
+                                chip_smoke.bits(g),
+                                chip_smoke.bits(w[r * b:(r + 1) * b])), \
+                                (name, D, M, what, call, r)
+                order = list(calls) + list(calls)[::-1]
+                turns = {k: [] for k in calls}
+                for k in order:
+                    turns[k].append(chip_smoke.cuda_ms(calls[k],
+                                                       SLICE_WALK_REPS))
+                launches = 1 if rows_api else D
+                ratio = sum(turns["walk"]) / sum(turns["ring"])
+                print(f"slice walk {name} {(D, M)} B={B} T=8192 {what}: "
+                      + "; ".join(f"{k} {sum(v) / len(v):.3f} ms (turns "
+                                  f"{', '.join(f'{x:.3f}' for x in v)})"
+                                  for k, v in turns.items())
+                      + f"; walk / ring {ratio:.3f}; {launches} walk "
+                      f"launch(es); bit-equal to the ring [{card}]",
+                      flush=True)
+            del slices
+            torch.cuda.empty_cache()
+        del fa, bps
 
 
 def pass_ms(fn) -> float:

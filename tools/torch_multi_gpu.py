@@ -5,9 +5,10 @@
 
 It needs two cards or more (it exits 2 with fewer) and runs the phases
 below (with `em`, phase 5 alone: the four-card call for the EM round on
-the state axis and the dry run; with `generic`, phase 4 alone: K6am's
-system-scope exchange; each without the phases that earlier runs
-covered):
+the state axis and the dry run; with `generic`, phases 3 and 4 alone: the
+state axis's decodes, K1m's and K6am's system-scope exchanges and the
+walks' copies route across cards; each without the phases that earlier
+runs covered):
 
 1. launches K1 + K2 and K10 on every card with cuda:0 current: cuda:0
    stays current and a bare "cuda" still allocates there (the C entries
@@ -25,10 +26,12 @@ covered):
    default device list: path0, codes and logp bit-equal to the unplaced
    decode on cuda:0 (K1 + K2), with one K1m launch a wave and card (its
    exchange at system scope: the peers' column slices and counters read
-   in place over peer access) and one K2m a data row, whose ring copies
-   the peers' backpointer slices by cp.async.bulk over peer access (the
-   check that a bulk copy reads a peer card's memory); each mesh's wall
-   beside the same mesh with every rank on cuda:0 and K1 + K2's;
+   in place over peer access) and one K2m a data row on the copies route
+   (the row's slices lie on several cards), whose ring copies the peers'
+   backpointer slices by cp.async.bulk over peer access (the check that a
+   bulk copy reads a peer card's memory); each mesh's wall beside the same
+   mesh with every rank on cuda:0 (one K2m launch, the tensor route) and
+   K1 + K2's;
 4. decodes the same chunk's events and scaled models under the loaded
    21-neighbour table of (0.14, 0.21) (chip_smoke.load_trans_table: K6am's
    resident form, K6bm's from-state table) and under the CLI priors'
@@ -36,8 +39,8 @@ covered):
    statepar.viterbi_decode_placed on parallel.mesh.shard_decode_inputs'
    placement on the same meshes: path and logp bit-equal to K6a + K6b on
    cuda:0 (hmm.viterbi_decode), one K6am launch a wave and card (its
-   exchange at system scope) and one K6bm a data row (its ring copies the
-   peers' backpointer slices over peer access);
+   exchange at system scope) and one K6bm a data row on the copies route
+   (its ring copies the peers' backpointer slices over peer access);
 5. runs one fused EM round of chip_smoke.py's EM chunk (128 groups x 4
    rows of 128 events, em_kernel_inputs, the bank's models per group)
    through statepar.train_one_round_placed on
@@ -180,6 +183,8 @@ def run_mesh(models, cards, card_line: str) -> dict:
         assert (hmm.forward_wave_kernel.launches,
                 hmm.traceback_slices_kernel.launches) == (waves, D), \
             (hmm.forward_wave_kernel.launches, waves)
+        assert hmm.traceback_slices_kernel.routes == {
+            "tensor": 0, "copies": D}, hmm.traceback_slices_kernel.routes
         assert [o["codes"].device for o in got] == [row[0] for row in
                                                     grid.devices]
         got = mesh.join(got)
@@ -250,6 +255,9 @@ def run_generic_mesh(models, cards, card_line: str) -> dict:
             assert (wrapper.launches,
                     hmm.generic_traceback_slices_kernel.launches) == \
                 (waves, D), (wrapper.launches, waves)
+            assert hmm.generic_traceback_slices_kernel.routes == {
+                "tensor": 0, "copies": D}, \
+                hmm.generic_traceback_slices_kernel.routes
             assert [o["path"].device for o in got] == [row[0] for row in
                                                        grid.devices]
             got = mesh.join(got)
@@ -415,9 +423,10 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "cards": n, "em_mesh": em_walls}))
         return 0
     if argv == ["generic"]:
+        mesh_walls = run_mesh(models, cards, card_line)
         generic_walls = run_generic_mesh(models, cards, card_line)
         print(card_line)
-        print(json.dumps({"ok": True, "cards": n,
+        print(json.dumps({"ok": True, "cards": n, "mesh": mesh_walls,
                           "generic_mesh": generic_walls}))
         return 0
     check_current_device(models, n)
