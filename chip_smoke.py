@@ -169,6 +169,19 @@ from the root of a checkout.  It
      a step, the cooperative path's waves (statepar.plan_waves on each
      kernel's own resident blocks, at most 4) and the bytes the ranks read
      from each other (roofline.statepar_exchange_bytes); then
+     the legacy EM round (under a loaded table) on the mesh's state axis
+     (statepar.train_one_round_placed(default_ops=...): K6cm, K6c with the
+     states split over a data row's ranks, for the rows at the CLI priors,
+     K4m + K6dm, K6d split so, for the others): the chunk one data row
+     over 2 and 4 ranks, the rows of some strands set to the priors, under
+     the loaded tables of (0.14, 0.21) and of the priors (0.1, 0.3) (K6cm's
+     resident form) and the first without its packed layout (its streaming
+     form), on the clean chunk and on the NaN one: K6cm's three forms and
+     K6dm on both exchange paths bit-equal (as bits) to their plain
+     versions and to K6c / K6d on the whole rows, timed by CUDA events
+     around each launch beside K6c's and K6d's times, then the placed
+     round bit-equal to the unplaced legacy round, counted as the
+     legacy_mesh path; then
      the port's multi-device dry run (nanocall_tpu_torch.dryrun, JAX's
      __graft_entry__.py:68) on four ranks of the card, a 2 x 2 mesh,
      counted as its own path: the placed EM round (K4m, K5m) bit-equal to
@@ -232,7 +245,7 @@ from the root of a checkout.  It
  12. prints a JSON line of the kernels (launch counts: the sum over the
      end-to-end runs, the tools, the dump, the measurement path, the
      repro tool, K9's counted decode, the mesh runs, the dry run, the
-     sharded runs and the two hosts' runs, and each run's; 28 kernels;
+     sharded runs and the two hosts' runs, and each run's; 31 kernels;
      each kernel's time, its plain version's,
      its shape, its bound on the H100's published peaks
      (roofline.kernel_bound), its achieved float32 rate and that rate's
@@ -337,6 +350,11 @@ DRYRUN_KERNELS = ("fwbw_forward_wave", "em_backward_wave",
                   "viterbi_generic_traceback_slices", "viterbi_forward_slice",
                   "viterbi_traceback_slices", "viterbi_forward_chunk",
                   "viterbi_traceback_chunk_states")
+#: kernels the placed legacy rounds must launch (K6cm's two forms, K4m,
+#: K6dm)
+LEGACY_MESH_KERNELS = ("fwbw_generic_wave_resident",
+                       "fwbw_generic_wave_streaming", "fwbw_forward_wave",
+                       "fwbw_grouped_backward_wave")
 #: kernels each host's half of the multi-host emulation must launch (its
 #: reads may hold no contest, so no score-only chunk)
 HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
@@ -2304,6 +2322,205 @@ def check_em_statepar(inp, card: str) -> dict:
     return recs
 
 
+#: the legacy round's kernels on the state axis, each with its one-card
+#: kernel (timed beside it): K6cm's forms by table, and K6dm
+LEGACY_FORMS = {"resident": "fwbw_resident_kernel",
+                "streaming": "fwbw_generic_kernel"}
+
+
+def legacy_batch(batch):
+    """A copy of a training batch, a model bank's tables taken per group,
+    with the strand 0 of every third group and the strand 1 of every fifth
+    at the CLI priors: those rows take K6cm in the legacy round, the rest
+    K4m + K6dm."""
+    import torch
+
+    ev, mdl, pm, st = batch
+    if "model_idx" in mdl:  # the state axis places per-group models
+        idx = mdl["model_idx"].long()
+        mdl = {k: v[idx].contiguous() for k, v in mdl.items()
+               if k != "model_idx"}
+    st = st.clone()
+    st[0::3, 0] = torch.tensor([PRIORS_P_STAY, PRIORS_P_SKIP])
+    st[1::5, 1] = torch.tensor([PRIORS_P_STAY, PRIORS_P_SKIP])
+    return ev, mdl, pm, st
+
+
+def check_legacy_statepar(inp, trans_ops, priors_ops, card: str) -> dict:
+    """The legacy EM round on the mesh's state axis at the EM chunk (all
+    its rows one data row, legacy_batch's strands at the priors) over 2 and
+    4 ranks on the chunk's card: on the clean chunk and on
+    nan_train_batch's, under the loaded tables of (0.14, 0.21) and of the
+    priors (K6cm's resident form) and the first without its packed layout
+    (its streaming form): K6cm on both exchange paths (EM_PATHS) over all
+    the rows against its plain version over the same ranks and against K6c
+    on the whole rows, K6dm (after K4m) the same against K6d, every output
+    as bits, each timed by CUDA events around each launch (launch_spans)
+    beside K6c and K6d in the same process; then the placed round
+    (statepar.train_one_round_placed on mesh.shard_train_inputs) against
+    the unplaced legacy round (train.train_one_round(default_ops=...)):
+    fit, new_pm_params, done and new_st_params as bits, every count set to
+    0 before the placed rounds and read after them (the legacy_mesh run).
+    Returns {"recs": the three kernels' records at 2 ranks (clean, the
+    (0.14, 0.21) table for K6cm's resident form), "launches"}."""
+    import torch
+
+    from nanocall_tpu_torch import roofline, train
+    from nanocall_tpu_torch.ops import em, hmm, kernels
+    from nanocall_tpu_torch.parallel import mesh, statepar
+
+    dev = inp["x_unc"].device
+    priors = (PRIORS_P_STAY, PRIORS_P_SKIP)
+    tables = {"(0.14, 0.21)": trans_ops, "(0.1, 0.3)": priors_ops,
+              "(0.14, 0.21) streaming": trans_ops._replace(fwbw_packed=None)}
+    recs, placed_cases = {}, []
+    for what, batch in (("clean", legacy_batch(inp["batch"])),
+                        ("NaN", legacy_batch(nan_train_batch(
+                            inp["batch"])))):
+        whole = train.round_inputs(*batch, K=6)
+        B, T = whole["x_unc"].shape
+        every = torch.arange(B, device=dev)
+        # K6c and K6d timed first, each after a call whose outputs are
+        # freed: the timed calls' allocations come from the cache
+        one_card = {name: (lambda ops=ops: hmm.fwbw(ops, whole["model"],
+                                                   whole["ev"]),
+                           LEGACY_FORMS[hmm.fwbw_route(ops)])
+                    for name, ops in tables.items()}
+        one_card["K6d"] = (lambda: hmm.fwbw_backward_kernel(
+            whole["gtf"], whole["model"], whole["ev"]),
+            "fwbw_backward_kernel")
+        one_ms = {}
+        for name, (fn, wrapper) in one_card.items():
+            fn()
+            one_ms[name] = 1e3 * launch_spans(fn, wrapper, dev,
+                                              3)["device_s"] / 3
+        k6d = hmm.fwbw_grouped(whole["gtf"], whole["model"], whole["ev"])
+        for M in EM_RANKS:
+            sub = [statepar._select_rank_rows(r, every) for r in
+                   statepar.split_round_states(*batch, [dev] * M)]
+            for name, ops in tables.items():
+                form = hmm.fwbw_route(ops)
+                k6c = hmm.fwbw(ops, whole["model"], whole["ev"])
+                plain_ms, plain = cuda_ms_once(
+                    lambda: statepar._fwbw_generic_row(ops, sub, False,
+                                                       None))
+                ms = {}
+                for path, cluster in EM_PATHS:
+                    tag = f"K6cm {form} {what} {name} M={M} {path} path"
+                    got = statepar._fwbw_generic_row(ops, sub, True,
+                                                     cluster)
+                    torch.cuda.synchronize()
+                    for k in ("alpha", "beta", "em", "log_pr_data"):
+                        for g, p in zip(got, plain):
+                            assert torch.equal(bits(g[k]), bits(p[k])), \
+                                f"{tag} {k} differs from plain"
+                            if k == "log_pr_data":
+                                assert torch.equal(bits(g[k]),
+                                                   bits(k6c[k])), \
+                                    f"{tag} {k} differs from K6c"
+                        if k != "log_pr_data":
+                            assert torch.equal(bits(torch.cat(
+                                [g[k] for g in got], dim=-1)),
+                                bits(k6c[k])), f"{tag} {k} differs from K6c"
+                    del got
+                    ms[path] = 1e3 * launch_spans(
+                        lambda: statepar._fwbw_generic_row(ops, sub, True,
+                                                           cluster),
+                        f"fwbw_wave_{form}_kernel", dev, 3)["device_s"] / 3
+                del k6c, plain
+                k6c_ms = one_ms[name]
+                print(f"kernel fwbw_generic_wave_{form} (K6cm, {what}, "
+                      f"{name}): B={B} T={T} over {M} ranks, both paths "
+                      f"bit-equal to plain and to K6c; cluster path "
+                      f"{ms['cluster']:.3f} ms, cooperative path "
+                      f"{ms['cooperative']:.3f} ms, by CUDA events around "
+                      f"each launch; K6c {k6c_ms:.3f} ms "
+                      f"({ms['cluster'] / k6c_ms:.2f}x); plain "
+                      f"{plain_ms:.3f} ms [{card}]")
+                key = f"fwbw_generic_wave_{form}"
+                if what == "clean" and M == EM_RANKS[0] and key not in recs:
+                    recs[key] = {"max_abs_err": 0.0, "ms": ms["cluster"],
+                                 "cooperative_ms": ms["cooperative"],
+                                 "one_card_ms": k6c_ms, "plain_ms": plain_ms,
+                                 "shape": [B, T], "ranks": M}
+            plain_ms, plain = cuda_ms_once(
+                lambda: statepar._fwbw_grouped_row(sub, False, None))
+            ms = {}
+            for path, cluster in EM_PATHS:
+                tag = f"K6dm {what} M={M} {path} path"
+                got = statepar._fwbw_grouped_row(sub, True, cluster)
+                torch.cuda.synchronize()
+                for k in ("alpha", "beta", "em", "log_pr_data"):
+                    for g, p in zip(got, plain):
+                        assert torch.equal(bits(g[k]), bits(p[k])), \
+                            f"{tag} {k} differs from plain"
+                    whole_k = (got[0][k] if k == "log_pr_data" else
+                               torch.cat([g[k] for g in got], dim=-1))
+                    assert torch.equal(bits(whole_k), bits(k6d[k])), \
+                        f"{tag} {k} differs from K4 + K6d"
+                del got
+                ms[path] = 1e3 * launch_spans(
+                    lambda: statepar._fwbw_grouped_row(sub, True, cluster),
+                    "fwbw_backward_wave_kernel", dev, 3,
+                    module=em)["device_s"] / 3
+            del plain
+            k6d_ms = one_ms["K6d"]
+            print(f"kernel fwbw_grouped_backward_wave (K6dm, {what}): B={B} "
+                  f"T={T} over {M} ranks, both paths bit-equal to plain and "
+                  f"to K6d; cluster path {ms['cluster']:.3f} ms, cooperative "
+                  f"path {ms['cooperative']:.3f} ms, by CUDA events around "
+                  f"each launch; K6d {k6d_ms:.3f} ms "
+                  f"({ms['cluster'] / k6d_ms:.2f}x); plain {plain_ms:.3f} ms "
+                  f"[{card}]")
+            if what == "clean" and M == EM_RANKS[0]:
+                recs["fwbw_grouped_backward_wave"] = {
+                    "max_abs_err": 0.0, "ms": ms["cluster"],
+                    "cooperative_ms": ms["cooperative"],
+                    "one_card_ms": k6d_ms, "plain_ms": plain_ms,
+                    "shape": [B, T], "ranks": M}
+            del sub
+            placed_cases += [(what, batch, M, name, ops)
+                             for name, ops in tables.items()
+                             if what == "clean" or M == EM_RANKS[0]]
+        del whole, k6d
+        torch.cuda.empty_cache()
+    # the placed rounds, counted: the unplaced ones first
+    want = [train.train_one_round(*batch, K=6, default_ops=ops,
+                                  default_priors=priors)
+            for _, batch, _, _, ops in placed_cases]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = [mesh.join(statepar.train_one_round_placed(
+               *mesh.shard_train_inputs(mesh.make_mesh(
+                   M, model_axis=M, devices=[dev] * M), *batch),
+               K=6, default_ops=ops, default_priors=priors))
+           for _, batch, M, _, ops in placed_cases]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+    for k in LEGACY_MESH_KERNELS:
+        assert launches[k] > 0, f"the placed legacy rounds did not launch {k}"
+    for (what, _, M, name, _), g, w in zip(placed_cases, got, want):
+        for k, v in w.items():
+            assert torch.equal(bits(g[k]), bits(v.cpu())), \
+                f"placed legacy round {what} {name} M={M}: {k} differs"
+    print(f"placed legacy round (statepar.train_one_round_placed under a "
+          f"loaded table): {len(placed_cases)} rounds at B={B} T={T} on "
+          f"(1, 2) and (1, 4) meshes of one card, clean and NaN, under the "
+          f"tables of (0.14, 0.21) (resident and streaming K6cm) and of the "
+          f"priors: fit, new_pm_params, done, new_st_params bit-equal to the "
+          f"unplaced legacy round; {wall:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+    for name in ("fwbw_generic_wave_resident", "fwbw_generic_wave_streaming",
+                 "fwbw_grouped_backward_wave"):
+        b = roofline.kernel_bound(name, *recs[name]["shape"])
+        print(f"bound {name} at B={recs[name]['shape'][0]} "
+              f"T={recs[name]['shape'][1]}: {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}, the function's whatever the ranks)")
+    return {"recs": recs, "launches": launches}
+
+
 def run_dryrun(device, card: str) -> dict:
     """The port's multi-device dry run (nanocall_tpu_torch.dryrun, the
     counterpart of __graft_entry__.py:68) on four ranks of `device`, a 2 x
@@ -3769,6 +3986,11 @@ def main() -> int:
     t0 = time.perf_counter()
     em.update(check_em_statepar(inp, card))
     print(f"EM state-axis phase: {time.perf_counter() - t0:.1f} s")
+    stamp("the legacy round on the state axis")
+    t0 = time.perf_counter()
+    legacy = check_legacy_statepar(inp, trans[2], priors[2], card)
+    em.update(legacy["recs"])
+    print(f"legacy state-axis phase: {time.perf_counter() - t0:.1f} s")
     del inp
     torch.cuda.empty_cache()
     dry = run_dryrun(device, card)
@@ -3870,6 +4092,7 @@ def main() -> int:
             "mesh": mesh_run["launches"],
             "generic_mesh": generic_mesh["launches"],
             "dryrun": dry["launches"],
+            "legacy_mesh": legacy["launches"],
             "sharded_untrained": sharded["untrained"]["launches"],
             "sharded_trained": sharded["trained"]["launches"],
             "multihost": multihost_launches}
@@ -3884,7 +4107,7 @@ def main() -> int:
                    if k.name in instances else {})}
                for k in kernels.KERNELS]
     assert [len(v) for v in instances.values()] == [6, 6], instances
-    assert len(records) == 28 and all(r["launches"] for r in records), \
+    assert len(records) == 31 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])

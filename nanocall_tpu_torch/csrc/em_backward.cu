@@ -142,6 +142,7 @@ __device__ __forceinline__ float moment(int k, const float (&s)[NW], float x,
   }
 }
 
+#ifndef NC_K6DM  // K5: not built into fwbw_backward_wave.cu
 __global__ void __launch_bounds__(THREADS, 1)
 em_backward_kernel(const float* __restrict__ ev_mean,
                    const float* __restrict__ ev_stdv,
@@ -380,6 +381,7 @@ em_backward_kernel(const float* __restrict__ ev_mean,
     st_out[(size_t)b * NST + q] = acc;
   }
 }
+#endif  // NC_K6DM
 
 // the columns of K5m's per-step record: the 6 post sums and 3 transition
 // sums over the rank's states, then the 3 masked maxima over all states
@@ -414,7 +416,8 @@ struct EMWaveRank {
   const float* log_p_step4;  // (B,)
   float* maxima;           // (2, B, NMAX_WAVE): step t's at t & 1
   float* sums;             // (2, B, 9 W / 16): step t's at t & 1
-  float* red;              // (B, T, NRED_WAVE)
+  float* red;              // (B, T, NRED_WAVE); BETAS (K6dm): the rank's
+                           // (B, T, W) slice of the betas
   int32_t* flags;          // (B,) counter
   float* scal;             // (B, 14), the first rank's
   float* st;               // (B, 3), the first rank's
@@ -440,7 +443,16 @@ __device__ __forceinline__ float sub_tree_sum(float v, int levels) {
 // (train_scaling) its W's 6 rows, W floats each; (CLUSTER) its published
 // maxima and record of block sums; then the ranks' counters, maxima, sums
 // and records at the read (M pointers each).
-template <bool SYS, bool CLUSTER>
+// BETAS (K6dm, K6d on the state axis): the same reverse pass and exchanges
+// without the statistics (train_scaling and train_transitions 0; the
+// alphas, lpd, valid and the log rates are loaded, as K5m's code loads
+// them, and unused), each step's beta of the rank's states stored into its
+// (B, T, W) slice of the betas (at `red`; 0 at T - 1), and no fold: a
+// cluster's blocks leave after one more cluster barrier, so that no peer
+// reads a block's shared memory after it has left.  They are built in
+// fwbw_backward_wave.cu (NC_K6DM), which includes this file, so that K5m's
+// instances here keep their SASS (tools/torch_sass_diff.py).
+template <bool SYS, bool CLUSTER, bool BETAS = false>
 __global__ void __launch_bounds__(SLICE_MAX_THREADS, 2)
 em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
                         int wave_lo, int slice_shift, int train_scaling,
@@ -678,6 +690,10 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
   }
 
   float beta[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (BETAS) {
+    // the thread's 4 states of the rank's slice of the read's betas
+    if (own) store4(e.red + ((size_t)b * T + T - 1) * W + 4 * u, beta);
+  }
   float em[4];  // em(t + 1) of the thread's states
   if (T >= 2) emission4(T - 1, em);
   // step t + 1's masked transition values, held until the next exchange
@@ -784,6 +800,10 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
           sBook[2][p] * ((T16[i] - p2G) - s5T4);
       beta[i] = last ? 0.0f : m + logf(total);
     }
+    if constexpr (BETAS) {
+      if (own) store4(e.red + ((size_t)b * T + t) * W + 4 * u, beta);
+      continue;
+    }
 
     float a[4], lp_j1[4], e_j1[4];
     unpack4(a, a_cur);
@@ -824,6 +844,13 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
     }
   }
 
+  if constexpr (BETAS) {
+    if constexpr (CLUSTER) {
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
+  }
   // step 0's masked maxima over every rank (an exchange of their own), its
   // transition sums, the last record, then the records' release: the
   // counter once more, or the cluster barrier (after which no block reads
@@ -921,10 +948,20 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
 
 using EMWaveKernel = decltype(&em_backward_wave_kernel<false, false>);
 
+// The instances this translation unit builds: K5m's, or (NC_K6DM,
+// fwbw_backward_wave.cu) K6dm's, which live in a unit of their own so that
+// K5m's instances keep their SASS
+#ifdef NC_K6DM
+constexpr bool kBetas = true;
+#else
+constexpr bool kBetas = false;
+#endif
+
+// the unit's instance for its exchange
 EMWaveKernel em_wave_kernel(int sys, int cluster) {
-  if (cluster) return em_backward_wave_kernel<false, true>;
-  return sys ? em_backward_wave_kernel<true, false>
-             : em_backward_wave_kernel<false, false>;
+  if (cluster) return em_backward_wave_kernel<false, true, kBetas>;
+  return sys ? em_backward_wave_kernel<true, false, kBetas>
+             : em_backward_wave_kernel<false, false, kBetas>;
 }
 
 // K5m's dynamic shared memory: the rows, (cluster) the published maxima
@@ -959,17 +996,10 @@ void em_wave_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
   cfg.numAttrs = 1;
 }
 
-}  // namespace
-
-// K5m's wave: the most blocks of its instance (sys, train_scaling, at
-// slices of 1 << slice_shift states) that one card holds at once (blocks
-// an SM at its slice_threads and shared memory, times the SMs) into
-// *blocks; (cluster) the blocks of the clusters of M ranks it holds at
-// once.  An error where the card has no cooperative launch (or, cluster,
-// where the instance's clusters do not fit).
-extern "C" int nc_em_backward_wave_resident(int sys, int train_scaling,
-                                            int slice_shift, int cluster,
-                                            int device, int* blocks) {
+// The most blocks of the unit's instance that one card holds at once, as
+// nc_em_backward_wave_resident says.
+int wave_resident(int sys, int train_scaling, int slice_shift, int cluster,
+                  int device, int* blocks) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   *blocks = 0;
@@ -1005,31 +1035,21 @@ extern "C" int nc_em_backward_wave_resident(int sys, int train_scaling,
   return (int)err;
 }
 
-// K5m: the reverse pass of the reads [lo, lo + n_reads) for n_local ranks
-// of a data row on `stream`, blocks of slice_threads(slice_shift) threads:
-// one cooperative grid (n_reads, n_local), or (cluster: every rank of the
-// row, on this card, M <= MAX_CLUSTER) a grid of the reads' clusters.
-// `ranks` (device memory of this card) holds the row's M = 4096 >>
-// slice_shift EMWaveRank entries, then the n_local ranks to run as int64;
-// the entries' tensors lie on their ranks' cards, reachable from this one
-// (peer access); the model rows, W and alphas 16-byte aligned, the
-// counters zero before the launch.  sys: the exchange at system scope.
-// timed_out: as K1m's.  Returns the launch's error: a cooperative grid
-// larger than the card holds at once is refused
-// (cudaErrorCooperativeLaunchTooLarge).
-extern "C" int nc_em_backward_wave(const void* ranks, int n_local, int B,
-                                   int T, int lo, int n_reads,
-                                   int slice_shift, int train_scaling,
-                                   int train_transitions, int sys,
-                                   int cluster, float log2pi,
-                                   long long timeout_ns, int32_t* timed_out,
-                                   int device, void* stream) {
+// The unit's launch, as nc_em_backward_wave says (K6dm: with neither
+// train flag).
+int wave_launch(const void* ranks, int n_local, int B, int T, int lo,
+                int n_reads, int slice_shift, int train_scaling,
+                int train_transitions, int sys, int cluster, float log2pi,
+                long long timeout_ns, int32_t* timed_out, int device,
+                void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   const int M = nc::N >> slice_shift;
   if (slice_shift < 6 || slice_shift > 11 || T < 1 || lo < 0 ||
       n_reads < 1 || lo + n_reads > B || n_local < 1 || n_local > M ||
-      timed_out == nullptr || !(train_scaling || train_transitions) ||
+      timed_out == nullptr ||
+      (kBetas ? train_scaling || train_transitions
+              : !(train_scaling || train_transitions)) ||
       (cluster && (sys || n_local != M || M > nc::MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
   const EMWaveKernel kernel = em_wave_kernel(sys, cluster);
@@ -1050,6 +1070,46 @@ extern "C" int nc_em_backward_wave(const void* ranks, int n_local, int B,
     return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#ifndef NC_K6DM
+// K5m's wave: the most blocks of its instance (sys, train_scaling, at
+// slices of 1 << slice_shift states) that one card holds at once (blocks
+// an SM at its slice_threads and shared memory, times the SMs) into
+// *blocks; (cluster) the blocks of the clusters of M ranks it holds at
+// once.  An error where the card has no cooperative launch (or, cluster,
+// where the instance's clusters do not fit).
+extern "C" int nc_em_backward_wave_resident(int sys, int train_scaling,
+                                            int slice_shift, int cluster,
+                                            int device, int* blocks) {
+  return wave_resident(sys, train_scaling, slice_shift, cluster, device,
+                       blocks);
+}
+
+// K5m: the reverse pass of the reads [lo, lo + n_reads) for n_local ranks
+// of a data row on `stream`, blocks of slice_threads(slice_shift) threads:
+// one cooperative grid (n_reads, n_local), or (cluster: every rank of the
+// row, on this card, M <= MAX_CLUSTER) a grid of the reads' clusters.
+// `ranks` (device memory of this card) holds the row's M = 4096 >>
+// slice_shift EMWaveRank entries, then the n_local ranks to run as int64;
+// the entries' tensors lie on their ranks' cards, reachable from this one
+// (peer access); the model rows, W and alphas 16-byte aligned, the
+// counters zero before the launch.  sys: the exchange at system scope.
+// timed_out: as K1m's.  Returns the launch's error: a cooperative grid
+// larger than the card holds at once is refused
+// (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int nc_em_backward_wave(const void* ranks, int n_local, int B,
+                                   int T, int lo, int n_reads,
+                                   int slice_shift, int train_scaling,
+                                   int train_transitions, int sys,
+                                   int cluster, float log2pi,
+                                   long long timeout_ns, int32_t* timed_out,
+                                   int device, void* stream) {
+  return wave_launch(ranks, n_local, B, T, lo, n_reads, slice_shift,
+                     train_scaling, train_transitions, sys, cluster, log2pi,
+                     timeout_ns, timed_out, device, stream);
 }
 
 // Plain C entry for ctypes.  e_codes (B, 3, 32) and pattern (4096,) are
@@ -1085,3 +1145,30 @@ extern "C" int nc_em_backward(
   }
   return (int)cudaGetLastError();
 }
+#else  // NC_K6DM
+// K6dm's wave: as K5m's, its instance without W's rows.
+extern "C" int nc_fwbw_backward_wave_resident(int sys, int slice_shift,
+                                              int cluster, int device,
+                                              int* blocks) {
+  return wave_resident(sys, 0, slice_shift, cluster, device, blocks);
+}
+
+// K6dm: the reverse pass of the reads [lo, lo + n_reads) for n_local ranks
+// of a data row, each rank storing its slice of the betas, as K5m's launch
+// (nc_em_backward_wave) without its statistics: the entries' betas (at
+// `red`, 16-byte aligned), maxima, sums, counters, model rows, codebooks,
+// pattern and flag bytes are read and written; their alphas, lpd, valid and
+// log rates are loaded and unused (they must point at memory of at least
+// (B, T, W), (B,), (B,) bytes and (B,) floats); W, x_unc, t_start, scal and
+// st are not read.
+extern "C" int nc_fwbw_backward_wave(const void* ranks, int n_local, int B,
+                                     int T, int lo, int n_reads,
+                                     int slice_shift, int sys, int cluster,
+                                     float log2pi, long long timeout_ns,
+                                     int32_t* timed_out, int device,
+                                     void* stream) {
+  return wave_launch(ranks, n_local, B, T, lo, n_reads, slice_shift, 0, 0,
+                     sys, cluster, log2pi, timeout_ns, timed_out, device,
+                     stream);
+}
+#endif  // NC_K6DM

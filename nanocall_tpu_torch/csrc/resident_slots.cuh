@@ -38,18 +38,20 @@ static_assert(N / GROUPS == N4, "state 1024 i + tid lies in block i");
 // codebook of the state's block (slot k's is k * GROUPS * CODES on), x is
 // the gathered vector.  DEG > 0: the table has DEG slots; DEG == 0: deg
 // slots, at most MAX_DEG.  The candidates are taken once into registers;
-// kNan: a candidate may be NaN (then the max is NaN-propagating).
+// kNan: a candidate may be NaN (then the max is NaN-propagating).  stride:
+// the entries of slot k lie k * stride on (N; K6cm's rank cut: its W).
 template <bool kNan, int DEG>
 __device__ __forceinline__ float lse_resident(const uint16_t* ent,
                                               const float* book,
-                                              const float* x, int deg) {
+                                              const float* x, int deg,
+                                              int stride = N) {
   constexpr int D = DEG > 0 ? DEG : MAX_DEG;
   float v[D];
   float m = 0.0f;
 #pragma unroll
   for (int k = 0; k < D; ++k) {
     if (DEG > 0 || k < deg) {
-      const uint32_t e = ent[k * N];
+      const uint32_t e = ent[k * stride];
       v[k] = book[k * GROUPS * CODES + (e >> 12)] + x[e & 0xfffu];
       // without NaN, fmaxf is the max (on a tie of +0 and -0 either zero
       // gives the same lse: v - safe and safe + log(s) with s >= 1)

@@ -31,7 +31,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
            "em_backward.cu", "viterbi_generic.cu", "fwbw_generic.cu",
-           "fwbw_backward.cu", "fwbw_custom.cu", "fma_chain.cu",
+           "fwbw_generic_wave.cu", "fwbw_backward.cu",
+           "fwbw_backward_wave.cu", "fwbw_custom.cu", "fma_chain.cu",
            "reshape_copy.cu")
 HEADERS = ("common.cuh", "beta_step.cuh", "resident_slots.cuh",
            "device_guard.cuh", "wave_exchange.cuh")
@@ -157,6 +158,19 @@ def load():
         lib.nc_em_backward_wave_resident.restype = ci
         lib.nc_em_backward_wave_resident.argtypes = [
             ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.nc_fwbw_backward_wave.restype = ci
+        lib.nc_fwbw_backward_wave.argtypes = (
+            [vp] + [ci] * 8 + [cf] + [ctypes.c_longlong, vp] + [ci, vp])
+        lib.nc_fwbw_backward_wave_resident.restype = ci
+        lib.nc_fwbw_backward_wave_resident.argtypes = [
+            ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.nc_fwbw_generic_wave.restype = ci
+        lib.nc_fwbw_generic_wave.argtypes = (
+            [vp] + [ci] * 11 + [cf, cf] + [ctypes.c_longlong, vp]
+            + [ci, vp])
+        lib.nc_fwbw_generic_wave_resident.restype = ci
+        lib.nc_fwbw_generic_wave_resident.argtypes = [
+            ci] * 6 + [ctypes.POINTER(ci)]
         lib.nc_em_backward.restype = ci
         lib.nc_em_backward.argtypes = (
             [vp] * 4 + [ci, ci] + [vp] * 17 + [ci, ci, cf] + [vp] * 3

@@ -14,7 +14,10 @@ states split over the ranks of a data row (parallel/statepar.py drives
 it after K4m): each step the ranks exchange their partial maxima and the
 sums of their own blocks of 4 and 16 states, each rank's statistics are
 subtrees of K5's pairwise sums, and the row's first rank folds the ranks'
-per-step partials.
+per-step partials.  K6dm (fwbw_backward_wave_kernel vs
+fwbw_backward_wave_plain) is K6d, the grouped backward with its betas
+stored, split so (the legacy EM round's rows off the priors): K5m's kernel
+and exchanges without the statistics.
 """
 
 from __future__ import annotations
@@ -308,6 +311,30 @@ def rank_block_sums(G, record, with_logs: bool) -> None:
     record[:, 2 * U:] = hmm.block_sum(G, 16)
 
 
+def slice_beta(gtf: hmm.GroupedTransFull, lengths, recs, g, m, t: int,
+               lo: int) -> torch.Tensor:
+    """A rank's beta of event t at its states [lo, lo + W): the step of
+    hmm.fwbw_grouped_backward_plain for these states from g (b, W) = em(t +
+    1) + beta, m (b, 1) the max over every rank's g, and recs the M ranks'
+    records of block sums of G = exp(g - m) (rank_block_sums; on this
+    rank's device): sum4[j % (n / 4)] and sum16[j % (n / 16)] of state j,
+    n = M W.  0 from t = length - 1 on."""
+    W = g.shape[-1]
+    U, n = W // 4, len(recs) * W
+    dev = g.device
+    cols = slice(lo, lo + W)
+    m_ = {k: v[cols] for k, v in hmm.correction_masks(gtf.K, dev).items()}
+    e_stay, e_step_to, e_skip_to = hmm.bwd_exp_tables(gtf)
+    j = torch.arange(lo, lo + W, device=dev)
+    T4 = torch.cat([x[:, :U] for x in recs], dim=1)[:, j % (n // 4)]
+    T16 = torch.cat([x[:, 2 * U:] for x in recs], dim=1)[:, j % (n // 16)]
+    G = torch.exp(g - m)
+    total = (e_stay * G + e_step_to * (T4 - m_["H"] * G)
+             + e_skip_to * (T16 - m_["P2mH"] * G - m_["S5T"] * T4))
+    return torch.where((t >= lengths - 1)[:, None], 0.0,
+                       m + torch.log(total))
+
+
 def em_backward_slice_plain(r: EMWaveRank, sums, g, m, t: int, lo: int,
                             train_scaling: bool, train_transitions: bool):
     """One rank's reverse step after both exchanges, the plain version of
@@ -324,23 +351,14 @@ def em_backward_slice_plain(r: EMWaveRank, sums, g, m, t: int, lo: int,
     train_transitions)."""
     W = g.shape[-1]
     U, n = W // 4, len(sums) * W
-    mean, lengths = r.ev["mean"], r.ev["length"]
-    dev = mean.device
-    cols = slice(lo, lo + W)
-    m_ = {k: v[cols] for k, v in
-          hmm.correction_masks(r.gtf.K, dev).items()}
-    e_stay, e_step_to, e_skip_to, log_p_stay, log_p_step4 = _bwd_tables(
-        r.gtf, r.p_stay_seq, r.p_skip_seq)
+    lengths = r.ev["length"]
+    dev = r.ev["mean"].device
+    _, _, _, log_p_stay, log_p_step4 = _bwd_tables(r.gtf, r.p_stay_seq,
+                                                   r.p_skip_seq)
     lpd_c = r.lpd[:, None]
     recs = [x.to(dev) for x in sums]
     j = torch.arange(lo, lo + W, device=dev)
-    T4 = torch.cat([x[:, :U] for x in recs], dim=1)[:, j % (n // 4)]
-    T16 = torch.cat([x[:, 2 * U:] for x in recs], dim=1)[:, j % (n // 16)]
-    G = torch.exp(g - m)
-    total = (e_stay * G + e_step_to * (T4 - m_["H"] * G)
-             + e_skip_to * (T16 - m_["P2mH"] * G - m_["S5T"] * T4))
-    beta = torch.where((t >= lengths - 1)[:, None], 0.0,
-                       m + torch.log(total))
+    beta = slice_beta(r.gtf, lengths, recs, g, m, t, lo)
     alpha_t = r.alphas[t]
     lp_j1 = alpha_t + beta - lpd_c
     sums_t = v = None
@@ -601,3 +619,147 @@ def em_backward_wave_kernel(ranks, local, lo: int, hi: int,
 
 
 em_backward_wave_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6dm: K6d (the grouped backward with the betas stored) with the states
+# split over M ranks, the legacy EM round's grouped rows on the state axis
+# (parallel/statepar.py).  K5m's step and exchanges without the alphas and
+# the statistics: each step every rank publishes its partial max of g =
+# em(t + 1) + beta, then its block sums of G = exp(g - max), and stores
+# its slice of beta.
+# ---------------------------------------------------------------------------
+
+
+class BetaWaveRank(NamedTuple):
+    """One rank of a data row of the grouped backward, on the rank's
+    device: its (B, W) cut of the grouped tables (gtf), the codebooks of the
+    whole tables (books (B, 3, BWD_CODES), hmm.bwd_codebooks), its (B, W)
+    scaled model, the row's (B, T) events and (B,) lengths whole; betas
+    (B, T, W) float32, its slice of K6d's betas; its exchange buffers
+    maxima (2, B, NMAX_WAVE) and sums (2, B, block_sums_width(W)) float32
+    and its step counters flags (B,) int32, zero before each launch."""
+
+    gtf: hmm.GroupedTransFull
+    books: torch.Tensor
+    model: hmm.ModelArrays
+    ev: dict
+    betas: torch.Tensor
+    maxima: torch.Tensor
+    sums: torch.Tensor
+    flags: torch.Tensor
+
+
+def fwbw_backward_wave_plain(ranks, lo: int, hi: int) -> None:
+    """Plain version of K6dm: hmm.fwbw_grouped_backward_plain's reverse
+    pass over the reads [lo, hi) for every rank of a data row (ranks: its M
+    BetaWaveRanks in rank order), publishing what the kernel publishes,
+    each step t at parity t % 2: every rank's g = em(t + 1) + beta of its
+    states and its partial max of g into maxima[..., 0]; from every rank's,
+    m, the max over all states; every rank's block sums of exp(g - m) into
+    sums (rank_block_sums, without the logs); every rank's slice_beta on
+    the peers' records read in place, into betas[:, t] (0 at T - 1).  The
+    counters are left as they are."""
+    rows = slice(lo, hi)
+    parts = [r._replace(
+        gtf=hmm.GroupedTransFull(*(x[rows] for x in r.gtf[:5]), K=r.gtf.K),
+        model=hmm.ModelArrays(*(x[rows] for x in r.model)),
+        ev={k: v[rows] for k, v in r.ev.items()}, betas=r.betas[rows],
+        maxima=r.maxima[:, rows], sums=r.sums[:, rows]) for r in ranks]
+    T, W = parts[0].betas.shape[1:]
+    for p in parts:
+        p.betas[:, T - 1] = 0.0
+    for t in range(T - 2, -1, -1):
+        slot = t % 2
+        gs = [hmm.log_emission(p.model, p.ev["mean"][:, t + 1],
+                               p.ev["stdv"][:, t + 1],
+                               p.ev["log_stdv"][:, t + 1]) + p.betas[:, t + 1]
+              for p in parts]
+        for p, g in zip(parts, gs):
+            p.maxima[slot, :, 0] = torch.amax(g, dim=-1)
+            p.maxima[slot, :, 1:] = _NEG_INF
+        ms = [hmm.ranks_amax([q.maxima[slot, :, 0] for q in parts],
+                             p.sums.device)[:, None] for p in parts]
+        for p, g, m in zip(parts, gs, ms):
+            rank_block_sums(torch.exp(g - m), p.sums[slot], False)
+        for k, (p, g, m) in enumerate(zip(parts, gs, ms)):
+            recs = [q.sums[slot].to(g.device) for q in parts]
+            p.betas[:, t] = slice_beta(p.gtf, p.ev["length"], recs, g, m, t,
+                                       k * W)
+
+
+#: fwbw_backward_wave_resident's answers, by (card index, sys, W, cluster)
+_beta_resident: dict = {}
+
+
+def fwbw_backward_wave_resident(dev, sys: bool, W: int,
+                                cluster: bool = False) -> int:
+    """The most blocks of K6dm's instance (sys: the exchange across cards;
+    slices of W states) that the CUDA device `dev` holds at once, as
+    em_backward_wave_resident."""
+    key = (torch.device(dev).index, bool(sys), int(W), bool(cluster))
+    if key not in _beta_resident:
+        blocks = ctypes.c_int(0)
+        _cuda.check(_cuda.load().nc_fwbw_backward_wave_resident(
+            int(sys), hmm._slice_shift(4096 // W, W), int(cluster), key[0],
+            ctypes.byref(blocks)), "fwbw_backward_wave occupancy")
+        _beta_resident[key] = blocks.value
+    return _beta_resident[key]
+
+
+def _check_beta_wave_rank(m: int, r: BetaWaveRank, B: int, T: int,
+                          W: int) -> None:
+    dev = r.ev["mean"].device
+    if r.gtf.K != 6:
+        raise ValueError(f"the CUDA grouped backward kernel takes K=6, got "
+                         f"K={r.gtf.K}")
+    hmm._check_events(r.ev, B, T, dev)
+    hmm._check_tables(tuple(r.model), B, W, dev)
+    hmm._check(f"ranks[{m}].books", r.books, torch.float32,
+               (B, 3, hmm.BWD_CODES), dev)
+    hmm._check(f"ranks[{m}].betas", r.betas, torch.float32, (B, T, W), dev)
+    hmm._check_aligned(f"ranks[{m}].betas", r.betas)
+    hmm._check(f"ranks[{m}].maxima", r.maxima, torch.float32,
+               (2, B, NMAX_WAVE), dev)
+    hmm._check(f"ranks[{m}].sums", r.sums, torch.float32,
+               (2, B, block_sums_width(W)), dev)
+    hmm._check(f"ranks[{m}].flags", r.flags, torch.int32, (B,), dev)
+
+
+def fwbw_backward_wave_kernel(ranks, local, lo: int, hi: int,
+                              cluster: bool | None = None) -> None:
+    """K6dm on the card: fwbw_backward_wave_plain's work for the ranks
+    `local` (indices into `ranks`, all on one card; 2 to 64 ranks in all)
+    over the reads [lo, hi), one launch on that card's current stream: K5m's
+    kernel (csrc/em_backward.cu, its BETAS instances) storing each rank's
+    betas.  cluster, the waves and the peers as em_backward_wave_kernel."""
+    B, T, W, shift, dev, sys = hmm._wave_setup(ranks, local, lo, hi, "K6dm")
+    cluster = hmm.cluster_path(len(ranks), sys, len(local), cluster)
+    vals, keep = [], []
+    for m, r in enumerate(ranks):
+        _check_beta_wave_rank(m, r, B, T, W)
+        if m in local:
+            keep += hmm.wave_state_bytes(dev, m, W, backward=True)
+            own = [x.data_ptr() for x in keep[-2:]]
+        else:  # a peer's inputs are never read by this launch
+            own = [0, 0]
+        # EMWaveRank's fields, the betas in its record's place; the kernel
+        # loads the alphas (here the betas, of their size), valid (the
+        # counters' bytes), lpd and the log rates (the maxima's floats) of
+        # a read and step, and uses none of them
+        betas, maxima = r.betas.data_ptr(), r.maxima.data_ptr()
+        vals += [r.ev["mean"].data_ptr(), r.ev["stdv"].data_ptr(),
+                 r.ev["log_stdv"].data_ptr(), r.ev["length"].data_ptr(),
+                 r.books.data_ptr(), *own, *(x.data_ptr() for x in r.model),
+                 0, betas, maxima, 0, 0, r.flags.data_ptr(), maxima, maxima,
+                 maxima, r.sums.data_ptr(), betas, r.flags.data_ptr(), 0, 0]
+    table = hmm._rank_table(vals, local, dev)
+    err = _cuda.load().nc_fwbw_backward_wave(
+        table.data_ptr(), len(local), B, T, lo, hi - lo, shift, int(sys),
+        int(cluster), LOG_2PI, int(hmm.WAVE_TIMEOUT_S * 1e9),
+        hmm._timed_out.data_ptr(), *_cuda.target(dev))
+    _cuda.check(err, "fwbw_backward_wave kernel launch")
+    _cuda.count_launch(fwbw_backward_wave_kernel)
+
+
+fwbw_backward_wave_kernel.launches = 0

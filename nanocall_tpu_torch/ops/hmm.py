@@ -59,6 +59,13 @@ Kernels and their plain versions, side by side below:
                             fwbw_resident_kernel (both sides' tables in
                             shared memory in turn; fwbw_route picks)
                             vs fwbw_plain
+  K6cm fwbw_generic_wave.cu fwbw_wave_resident_kernel /
+                            fwbw_wave_streaming_kernel
+                            (fwbw_generic_wave_kernel picks)
+                            vs fwbw_generic_wave_plain
+      (parallel/statepar.py: K6c with the states split over ranks, the
+      legacy EM round's rows at the priors; K6dm, K6d split so, is in
+      ops/em.py)
   K6d fwbw_backward.cu      fwbw_backward_kernel
                             vs fwbw_grouped_backward_plain
   K6e fwbw_custom.cu        fwbw_custom_kernel (streaming),
@@ -2696,6 +2703,273 @@ def fwbw(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     if fwbw_route(ops) == "resident":
         return fwbw_resident_kernel(ops, model, ev)
     return fwbw_generic_kernel(ops, model, ev)
+
+
+# K6cm: K6c with the states split over M ranks (the legacy EM round on the
+# state axis, parallel/statepar.py).  Rank m holds the states [m W, (m +
+# 1) W), W = n / M: its (deg, W) cut of both sides' slot tables (and of
+# the resident layout), its (B, W) scaled model and its (B, T, W) slices of
+# alpha, beta and em.  A loaded table's from- and to-states lie anywhere,
+# so every step, forward and backward, each rank needs the whole column
+# (alpha of event t - 1; g = em(t + 1) + beta): the ranks exchange it as
+# K6am does (on one card of at most MAX_CLUSTER ranks a thread block
+# cluster a read, each rank pushing its values into its peers' shared
+# memory; else a cooperative grid behind counters, the slices in the
+# ranks' (2, B, W) buffers).
+
+
+class FwbwWaveRank(NamedTuple):
+    """One rank of a data row of the generic forward-backward, on the
+    rank's device: ops, its cut of the table (from_idx, from_logp, to_idx,
+    to_logp (deg, W) at its states, and fwbw_packed the cut of K6c's
+    resident layout, each side's (deg, W) entries with its codebooks whole,
+    or None), its (B, W) scaled model, the row's (B, T) events and (B,)
+    lengths whole; its outputs alpha, beta, em (B, T, W) float32 (its
+    slices of K6c's) and lpd (B,) (log Pr[data], every rank's copy); its
+    exchange buffers col (2, B, W) float32 (its slice of the exchanged
+    column at the exchange's parity) and part (2, B) float32 (its partial
+    max and partial sum of the final alpha), and its step counters flags
+    (B,) int32, zero before each launch (K6cm's exchange; the plain
+    version leaves them)."""
+
+    ops: TransOps
+    model: ModelArrays
+    ev: dict
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    em: torch.Tensor
+    lpd: torch.Tensor
+    col: torch.Tensor
+    part: torch.Tensor
+    flags: torch.Tensor
+
+
+def cut_fwbw_table(ops: TransOps, cols: slice, dev) -> TransOps:
+    """A rank's cut of a table for K6cm: both sides' slot tables and their
+    resident layout at the states `cols`, the codebooks whole, on `dev`."""
+    refuse_per_read(ops, "the generic forward-backward on the state axis")
+
+    def cut(x):
+        return x[..., cols].contiguous().to(dev)
+
+    p = ops.fwbw_packed
+    return TransOps(
+        from_idx=cut(ops.from_idx), from_logp=cut(ops.from_logp),
+        to_idx=cut(ops.to_idx), to_logp=cut(ops.to_logp), K=ops.K,
+        fwbw_packed=None if p is None else PackedSides(
+            cut(p.from_packed), p.from_codebook.contiguous().to(dev),
+            cut(p.to_packed), p.to_codebook.contiguous().to(dev)))
+
+
+def fwbw_generic_wave_plain(ranks, lo: int, hi: int) -> None:
+    """Plain version of K6cm: fwbw_plain's forward and backward over the
+    reads [lo, hi) for every rank of a data row (ranks: its M
+    FwbwWaveRanks in rank order), each rank stepping its own states from
+    the whole column gathered from the ranks' slices: forward, em(t) and
+    alpha(t) = em + the slot log-sum-exp of from_logp + alpha(t - 1)
+    [from_idx] (alpha(t - 1) kept from t = length on; em(0) - log n at t =
+    0); log Pr[data] from the ranks' partial maxima of the final alpha and
+    their tree sums of exp(alpha - max), combined by combine_rank_sums
+    (part[0], part[1]); backward, beta = 0 at T - 1 and from t = length - 1
+    on, else the slot log-sum-exp of to_logp + g[to_idx], g = em(t + 1) +
+    beta(t + 1) of every rank.  The counters and col are left as they
+    are."""
+    rows = slice(lo, hi)
+    T = ranks[0].ev["mean"].shape[1]
+    W = ranks[0].col.shape[-1]
+    n = len(ranks) * W
+    parts = [(r.ops, ModelArrays(*(x[rows] for x in r.model)),
+              {k: v[rows] for k, v in r.ev.items()}) for r in ranks]
+    for t in range(T):
+        column = [r.alpha[rows, t - 1] for r in ranks] if t else None
+        for m, (r, (ops, model, ev)) in enumerate(zip(ranks, parts)):
+            dev = ev["mean"].device
+            em = log_emission(model, ev["mean"][:, t], ev["stdv"][:, t],
+                              ev["log_stdv"][:, t])
+            if t == 0:
+                alpha = em - math.log(n)
+            else:
+                col = gather_column(column, dev)
+                vals = ops.from_logp + gather_slots(col, ops.from_idx)
+                alpha = torch.where((t < ev["length"])[:, None],
+                                    em + logsumexp_slots(vals),
+                                    col[:, m * W:(m + 1) * W])
+            r.alpha[rows, t] = alpha
+            r.em[rows, t] = em
+    for r in ranks:
+        r.part[0, rows] = torch.amax(r.alpha[rows, T - 1], dim=-1)
+    for r in ranks:
+        mfin = ranks_amax([x.part[0, rows] for x in ranks], r.part.device)
+        r.part[1, rows] = tree_sum(torch.exp(r.alpha[rows, T - 1]
+                                             - mfin[:, None]))
+    for r in ranks:
+        dev = r.lpd.device
+        mfin = ranks_amax([x.part[0, rows] for x in ranks], dev)
+        r.lpd[rows] = mfin + torch.log(combine_rank_sums(
+            [x.part[1, rows].to(dev) for x in ranks]))
+    for r in ranks:
+        r.beta[rows, T - 1] = 0.0
+    for t in range(T - 2, -1, -1):
+        g = [r.em[rows, t + 1] + r.beta[rows, t + 1] for r in ranks]
+        for r, (ops, _, ev) in zip(ranks, parts):
+            col = gather_column(g, ev["mean"].device)
+            cand = logsumexp_slots(ops.to_logp + gather_slots(col,
+                                                              ops.to_idx))
+            r.beta[rows, t] = torch.where(
+                (t >= ev["length"] - 1)[:, None], 0.0, cand)
+
+
+#: fwbw_wave_resident's answers, by (card index, sys, resident, deg, W,
+#: cluster)
+_fwbw_wave_resident: dict = {}
+
+
+def fwbw_wave_resident(dev, sys: bool, resident: bool, deg: int, W: int,
+                       cluster: bool = False) -> int:
+    """The most blocks of K6cm's instance (sys: the exchange across cards;
+    resident, at deg slots, the larger side's, and slices of W states,
+    whose shared memory it sets) that the CUDA device `dev` holds at once:
+    a cooperative wave's grid, reads times the card's ranks, must not
+    exceed it; cluster: the blocks of the most clusters of the cluster path
+    it holds at once."""
+    key = (torch.device(dev).index, bool(sys), bool(resident), int(deg),
+           int(W), bool(cluster))
+    if key not in _fwbw_wave_resident:
+        blocks = ctypes.c_int(0)
+        _cuda.check(_cuda.load().nc_fwbw_generic_wave_resident(
+            int(sys), int(resident), int(deg), _slice_shift(4096 // W, W),
+            int(cluster), key[0], ctypes.byref(blocks)),
+            "fwbw_generic_wave occupancy")
+        _fwbw_wave_resident[key] = blocks.value
+    return _fwbw_wave_resident[key]
+
+
+def _check_fwbw_wave_rank(m: int, r: FwbwWaveRank, B: int, T: int, W: int,
+                          resident: bool) -> tuple:
+    """A rank's part as K6cm takes it; returns its (from, to) slot
+    counts."""
+    dev = r.ev["mean"].device
+    ops = r.ops
+    if ops.K != 6:
+        raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
+    refuse_per_read(ops, "the generic forward-backward on the state axis")
+    if (fwbw_route(ops) == "resident") != resident:
+        raise ValueError("the ranks' cuts differ in their layout")
+    _check_events(r.ev, B, T, dev)
+    _check_tables(tuple(r.model), B, W, dev)
+    degs = []
+    for side in ("from", "to"):
+        if resident:
+            packed = getattr(ops.fwbw_packed, f"{side}_packed")
+            book = getattr(ops.fwbw_packed, f"{side}_codebook")
+            deg = packed.shape[0]
+            if not 1 <= deg <= MAX_FWBW_RESIDENT_SLOTS:
+                raise ValueError(f"packed {side} table: {deg} slots, the "
+                                 f"resident K6cm takes 1 to "
+                                 f"{MAX_FWBW_RESIDENT_SLOTS}")
+            _check(f"ranks[{m}].{side}_packed", packed, torch.int16,
+                   (deg, W), dev)
+            _check(f"ranks[{m}].{side}_codebook", book, torch.float32,
+                   (deg, FWBW_GROUPS * RESIDENT_CODES), dev)
+            tables = (packed, book)
+        else:
+            idx, logp = (getattr(ops, f"{side}_idx"),
+                         getattr(ops, f"{side}_logp"))
+            deg = idx.shape[0]
+            if not 1 <= deg <= MAX_SLOTS:
+                raise ValueError(f"{side} table: {deg} slots, the kernels "
+                                 f"take 1 to {MAX_SLOTS}")
+            _check(f"ranks[{m}].{side}_idx", idx, torch.int32, (deg, W), dev)
+            _check(f"ranks[{m}].{side}_logp", logp, torch.float32, (deg, W),
+                   dev)
+            tables = (idx, logp)
+        for x in tables:
+            _check_aligned(f"ranks[{m}].{side} table", x)
+        degs.append(deg)
+    for name in ("alpha", "beta", "em"):
+        _check(f"ranks[{m}].{name}", getattr(r, name), torch.float32,
+               (B, T, W), dev)
+    _check(f"ranks[{m}].lpd", r.lpd, torch.float32, (B,), dev)
+    _check(f"ranks[{m}].col", r.col, torch.float32, (2, B, W), dev)
+    _check_aligned(f"ranks[{m}].col", r.col)
+    _check(f"ranks[{m}].part", r.part, torch.float32, (2, B), dev)
+    _check(f"ranks[{m}].flags", r.flags, torch.int32, (B,), dev)
+    return tuple(degs)
+
+
+def _fwbw_wave_kernel(ranks, local, lo: int, hi: int, resident: bool,
+                      cluster: bool | None) -> None:
+    B, T, W, shift, dev, sys = _wave_setup(ranks, local, lo, hi, "K6cm")
+    cluster = cluster_path(len(ranks), sys, len(local), cluster)
+    degs = {_check_fwbw_wave_rank(m, r, B, T, W, resident)
+            for m, r in enumerate(ranks)}
+    if len(degs) != 1:
+        raise ValueError(f"the ranks' cuts differ in their slots: {degs}")
+    deg_from, deg_to = degs.pop()
+    vals = []
+    for r in ranks:
+        p = r.ops.fwbw_packed
+        tables = ((p.from_packed, p.from_codebook, p.to_packed,
+                   p.to_codebook) if resident
+                  else (r.ops.from_idx, r.ops.from_logp, r.ops.to_idx,
+                        r.ops.to_logp))
+        vals += [r.ev["mean"].data_ptr(), r.ev["stdv"].data_ptr(),
+                 r.ev["log_stdv"].data_ptr(), r.ev["length"].data_ptr(),
+                 *(x.data_ptr() for x in tables),
+                 *(x.data_ptr() for x in r.model),
+                 *(x.data_ptr() for x in (r.alpha, r.beta, r.em, r.col,
+                                          r.part, r.lpd, r.flags))]
+    table = _rank_table(vals, local, dev)
+    err = _cuda.load().nc_fwbw_generic_wave(
+        table.data_ptr(), len(local), B, T, lo, hi - lo, shift, deg_from,
+        deg_to, int(sys), int(resident), int(cluster), LOG_2PI,
+        math.log(len(ranks) * W), int(WAVE_TIMEOUT_S * 1e9),
+        _timed_out.data_ptr(), *_cuda.target(dev))
+    _cuda.check(err, "fwbw_generic_wave kernel launch")
+
+
+def fwbw_wave_resident_kernel(ranks, local, lo: int, hi: int,
+                              cluster: bool | None = None) -> None:
+    """K6cm on the card, the resident form (each side's packed cut and its
+    codebooks in shared memory in turn): fwbw_generic_wave_plain's work
+    for the ranks `local` (indices into `ranks`, all on one card; 2 to 64
+    ranks in all) over the reads [lo, hi), one launch on that card's
+    current stream, blocks of W / 2 threads.  cluster (cluster_path: by
+    default where wave_cluster(M, sys) says and `local` holds every rank):
+    each read's M blocks one thread block cluster, exchanging through
+    their shared memory, any number of reads.  Else one cooperative
+    launch, whose grid (hi - lo reads x len(local) ranks) must fit the card
+    at once (fwbw_wave_resident), or the launch raises; the other ranks
+    run their blocks of the same reads in a launch of their own card; their
+    slices, partials and counters are read over peer access, and a block
+    waits WAVE_TIMEOUT_S on a peer at most.  Raises if a wave of this
+    process timed out (wave_timeout)."""
+    _fwbw_wave_kernel(ranks, local, lo, hi, True, cluster)
+    _cuda.count_launch(fwbw_wave_resident_kernel)
+
+
+def fwbw_wave_streaming_kernel(ranks, local, lo: int, hi: int,
+                               cluster: bool | None = None) -> None:
+    """K6cm on the card, the streaming form (each rank's int32 / float32
+    cut of both sides read from L2 at every step): as
+    fwbw_wave_resident_kernel."""
+    _fwbw_wave_kernel(ranks, local, lo, hi, False, cluster)
+    _cuda.count_launch(fwbw_wave_streaming_kernel)
+
+
+fwbw_wave_resident_kernel.launches = 0
+fwbw_wave_streaming_kernel.launches = 0
+
+
+def fwbw_generic_wave_kernel(ranks, local, lo: int, hi: int,
+                             cluster: bool | None = None) -> None:
+    """K6cm on the card in the form the ranks' cuts take (fwbw_route: the
+    resident one where the cut has K6c's packed layout), on the exchange
+    path `cluster` chooses (cluster_path)."""
+    if fwbw_route(ranks[0].ops) == "resident":
+        fwbw_wave_resident_kernel(ranks, local, lo, hi, cluster)
+    else:
+        fwbw_wave_streaming_kernel(ranks, local, lo, hi, cluster)
 
 
 # K6e: per-step-normalized forward-backward -----------------------------------

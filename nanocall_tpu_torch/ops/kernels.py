@@ -3,7 +3,9 @@ traceback chunk after K3's, then K1m and K2m, K1 and K2 with the states
 split over a mesh's ranks, the redesigned kernels of K6a, K6b, K6c and
 K6e after their streaming ones, K6am (its two forms) and K6bm, K6a and
 K6b with the states split over a mesh's ranks, K4m and K5m, K4 and K5
-with the states split over a mesh's ranks, then the measurement path's K8
+with the states split over a mesh's ranks, K6cm (its two forms) and K6dm,
+K6c and K6d with the states split over a mesh's ranks (the legacy EM
+round), then the measurement path's K8
 and the repro tool's K10): each kernel's wrapper (which carries its
 `launches` counter), its source, and the JAX function it replaces."""
 
@@ -24,7 +26,9 @@ class Kernel(NamedTuple):
     # viterbi_traceback, under shard_decode_inputs',
     # nanocall_tpu/parallel/mesh.py:75; K4m and K5m: K4's and K5's,
     # fwbw_grouped_forward and _fused_bwd_mstats, under
-    # shard_train_inputs', nanocall_tpu/parallel/mesh.py:126)
+    # shard_train_inputs', nanocall_tpu/parallel/mesh.py:126; K6cm and
+    # K6dm: K6c's and K6d's, fwbw and fwbw_grouped's backward scan, under
+    # the same placement)
     replaces: str
 
 
@@ -111,6 +115,15 @@ KERNELS = (
     Kernel("em_backward_wave", em.em_backward_wave_kernel,
            "nanocall_tpu_torch/csrc/em_backward.cu",
            "nanocall_tpu/train.py:159"),
+    Kernel("fwbw_generic_wave_resident", hmm.fwbw_wave_resident_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_generic_wave.cu",
+           "nanocall_tpu/ops/hmm.py:784"),
+    Kernel("fwbw_generic_wave_streaming", hmm.fwbw_wave_streaming_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_generic_wave.cu",
+           "nanocall_tpu/ops/hmm.py:784"),
+    Kernel("fwbw_grouped_backward_wave", em.fwbw_backward_wave_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_backward_wave.cu",
+           "nanocall_tpu/ops/hmm.py:1016"),
     Kernel("fma_chain", fma.fma_chain_kernel,
            "nanocall_tpu_torch/csrc/fma_chain.cu",
            "nanocall_tpu/roofline.py:340"),

@@ -1,5 +1,5 @@
 """State-parallel grouped Viterbi decode and EM round over a list of
-devices (K1m, K2m; K6am, K6bm; K4m, K5m).
+devices (K1m, K2m; K6am, K6bm; K4m, K5m; K6cm, K6dm).
 
 The port of the production decode on the 'model' axis of a (data, model)
 mesh: nanocall_tpu/parallel/mesh.py:103 shard_pooled_decode_inputs places
@@ -98,6 +98,17 @@ global memory behind counters).  The
 M-steps run in plain torch on the row's first device, on the row's
 groups.  So the round is bit-identical to the unplaced one, NaN bits
 included; a row of one rank runs K4 + K5.
+
+Under a loaded table (default_ops) the round is the legacy one
+(legacy_estep_statepar): the rows whose strand is at the CLI priors take
+K6cm (hmm.fwbw_generic_wave_kernel: K6c's forward and backward for the
+rank's states, each step's whole column exchanged as K6am exchanges it,
+since a loaded table's from- and to-states lie anywhere), the others K4m
+and K6dm (em.fwbw_backward_wave_kernel: K5m's beta step and exchanges
+without the statistics, each rank storing its betas); each rank keeps its
+(B, T, W) slices of alpha, beta and em, and train.legacy_statistics
+reduces them, each state sum a tree whose subtrees are the ranks' slices,
+so that the round is bit-identical to the unplaced legacy round.
 """
 
 from __future__ import annotations
@@ -105,6 +116,7 @@ from __future__ import annotations
 import collections
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import train
@@ -723,31 +735,178 @@ def em_round_statepar(rows, train_scaling: bool = True,
     return out
 
 
+def _select_rank_rows(inp: dict, rows: torch.Tensor) -> dict:
+    """A rank's cut of round_inputs at the given rows (on its device): the
+    E-step's tables, model, events and whole tables' codebooks."""
+    rows = rows.to(inp["x_unc"].device)
+    gtf, model, ev = train._select_rows(inp, rows)
+    return {"gtf": gtf, "model": model, "ev": ev,
+            "books": inp["books"].index_select(0, rows)}
+
+
+def _fwbw_generic_row(ops: hmm.TransOps, sub: list, kernels: bool,
+                      cluster: bool | None) -> list:
+    """K6cm (kernels; else its plain version) over the selected rows of a
+    data row (sub: a rank's _select_rank_rows each), on the exchange path
+    `cluster` chooses (hmm.cluster_path: None where hmm.wave_cluster says,
+    False the cooperative grid): {alpha, beta, em (b, T, W), log_pr_data
+    (b,)} a rank, its slices of K6c's outputs."""
+    b, T = sub[0]["ev"]["mean"].shape
+    W = sub[0]["model"].level_mean.shape[-1]
+    ranks = []
+    for m, s in enumerate(sub):
+        dev = s["ev"]["mean"].device
+
+        def buf(*shape, dev=dev):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
+
+        ranks.append(hmm.FwbwWaveRank(
+            hmm.cut_fwbw_table(ops, slice(m * W, (m + 1) * W), dev),
+            s["model"], s["ev"], buf(b, T, W), buf(b, T, W), buf(b, T, W),
+            buf(b), buf(2, b, W), buf(2, b),
+            torch.zeros(b, dtype=torch.int32, device=dev)))
+    if kernels:
+        cut = ranks[0].ops
+        resident = hmm.fwbw_route(cut) == "resident"
+        sides = (cut.fwbw_packed[::2] if resident
+                 else (cut.from_idx, cut.to_idx))
+        deg = max(x.shape[0] for x in sides)
+        _wave_kernels(ranks, lambda *a: hmm.fwbw_generic_wave_kernel(
+                          *a, cluster=cluster),
+                      lambda d, sys: hmm.fwbw_wave_resident(
+                          d, sys, resident, deg, W),
+                      clusters=cluster is None)
+    else:
+        hmm.fwbw_generic_wave_plain(ranks, 0, b)
+    return [{"alpha": r.alpha, "beta": r.beta, "em": r.em,
+             "log_pr_data": r.lpd} for r in ranks]
+
+
+def _fwbw_grouped_row(sub: list, kernels: bool,
+                      cluster: bool | None) -> list:
+    """K4m (alphas stored) then K6dm (kernels, on the exchange path
+    `cluster` chooses, as _fwbw_generic_row), or their plain versions, over
+    the selected rows of a data row, and each rank's emissions (the plain
+    log_emission pass of hmm.fwbw_grouped on its model slice): {alpha (a
+    (b, T, W) view of K4m's (T, b, W) store), beta, em, log_pr_data} a
+    rank."""
+    b, T = sub[0]["ev"]["mean"].shape
+    W = sub[0]["model"].level_mean.shape[-1]
+    fwd = [_fwd_wave_rank(s, True) for s in sub]
+    if kernels:
+        _wave_kernels(fwd, lambda *a: hmm.fwbw_forward_wave_kernel(
+                          *a, cluster=cluster),
+                      lambda d, sys: hmm.fwbw_forward_wave_resident(d, sys,
+                                                                    W),
+                      clusters=cluster is None)
+    else:
+        hmm.fwbw_forward_wave_plain(fwd, 0, b)
+    bwd = []
+    for s in sub:
+        dev = s["ev"]["mean"].device
+        bwd.append(em.BetaWaveRank(
+            s["gtf"], s["books"], s["model"], s["ev"],
+            torch.empty((b, T, W), dtype=torch.float32, device=dev),
+            torch.zeros((2, b, em.NMAX_WAVE), dtype=torch.float32,
+                        device=dev),
+            torch.zeros((2, b, em.block_sums_width(W)), dtype=torch.float32,
+                        device=dev),
+            torch.zeros(b, dtype=torch.int32, device=dev)))
+    if kernels:
+        _wave_kernels(bwd, lambda *a: em.fwbw_backward_wave_kernel(
+                          *a, cluster=cluster),
+                      lambda d, sys: em.fwbw_backward_wave_resident(d, sys,
+                                                                    W),
+                      clusters=cluster is None)
+    else:
+        em.fwbw_backward_wave_plain(bwd, 0, b)
+    out = []
+    for s, f, r in zip(sub, fwd, bwd):
+        rows = hmm.ModelArrays(*(x[:, None, :] for x in s["model"]))
+        out.append({"alpha": f.alphas.transpose(0, 1), "beta": r.betas,
+                    "em": hmm.log_emission(rows, s["ev"]["mean"],
+                                           s["ev"]["stdv"],
+                                           s["ev"]["log_stdv"]),
+                    "log_pr_data": f.lpd})
+    return out
+
+
+def legacy_estep_statepar(ranks: list, default_ops,
+                          default_priors) -> list:
+    """The E-step of the legacy EM round (train._legacy_estep) with the
+    states split over a data row's ranks (their cuts of
+    train.round_inputs, states=, rank m the states [m W, (m + 1) W)): the
+    rows whose strand is at the CLI priors take K6cm under default_ops
+    (its cut at each rank's states), every other row K4m (alphas stored)
+    and K6dm.  CUDA devices run the kernels (on the exchange path
+    hmm.wave_cluster says; a row of one rank runs K6c, K4 and K6d), CPU
+    devices the plain versions.  Returns one {alpha, beta, em (B, T, W),
+    log_pr_data (B,)} a rank, on its device: its slices of the unplaced
+    E-step's, bit for bit."""
+    types = {inp["ev"]["mean"].device.type for inp in ranks}
+    if types not in ({"cpu"}, {"cuda"}):
+        raise ValueError(f"no state-parallel EM round over devices {types}")
+    kernels = types == {"cuda"}
+    if kernels and len(ranks) == 1:
+        return [train._legacy_estep(ranks[0], default_ops, default_priors)]
+    inp0 = ranks[0]
+    pri_stay, pri_skip = (float(p) for p in np.float32(default_priors))
+    use_seq = ((inp0["p_stay_seq"] == pri_stay)
+               & (inp0["p_skip_seq"] == pri_skip))
+    B, T = inp0["x_unc"].shape
+    W = inp0["model"].level_mean.shape[-1]
+    fbs = []
+    for inp in ranks:
+        dev = inp["x_unc"].device
+        fb = {k: torch.empty((B, T, W), dtype=torch.float32, device=dev)
+              for k in ("alpha", "beta", "em")}
+        fb["log_pr_data"] = torch.empty(B, dtype=torch.float32, device=dev)
+        fbs.append(fb)
+    for generic in (True, False):
+        rows = torch.nonzero(use_seq == generic)[:, 0]
+        if not len(rows):
+            continue
+        sub = [_select_rank_rows(inp, rows) for inp in ranks]
+        outs = (_fwbw_generic_row(default_ops, sub, kernels, None)
+                if generic else _fwbw_grouped_row(sub, kernels, None))
+        for fb, o in zip(fbs, outs):
+            idx = rows.to(fb["alpha"].device)
+            for k, v in o.items():
+                fb[k].index_copy_(0, idx, v)
+        del outs, sub
+    if kernels:
+        # the peers' cards free their slices once the first card is done
+        cur = torch.cuda.current_stream(inp0["x_unc"].device)
+        for inp in ranks[1:]:
+            torch.cuda.current_stream(inp["x_unc"].device).wait_stream(cur)
+    return fbs
+
+
 def train_one_round_placed(ev: dict, models: dict, pm_params, st_params,
                            K: int = 6, train_drift: bool = True,
                            train_scaling: bool = True,
                            train_transitions: bool = True,
                            default_ops=None, default_priors=None) -> list:
-    """One fused EM round of arguments placed by mesh.shard_train_inputs
-    (ev and models dicts of Sharded parts, pm_params and st_params
-    Sharded), the counterpart of train.train_one_round under
-    nanocall_tpu/parallel/mesh.py:126: each rank builds its cut of
-    train.round_inputs from its parts (the scaled models and W of its
-    states; the grouped tables and subset built whole and cut), each data
-    row runs em_round_statepar (K4m, then K5m with a train flag set), and
-    the row's M-steps run in plain torch on its first device
-    (train.fused_round_outputs, on the row's groups).  Returns one
-    {fit, new_pm_params, done, new_st_params} a data row, in order, on
-    the row's first device, bit-identical to the rows of the unplaced
-    round.  The legacy round under a loaded table (default_ops) and a
-    model bank are not placed: both raise ValueError."""
-    if default_ops is not None:
-        raise ValueError("the legacy EM round under a loaded table "
-                         "(default_ops) is not ported to the mesh's state "
-                         "axis yet (ROADMAP.md, queue 1)")
+    """One EM round of arguments placed by mesh.shard_train_inputs (ev and
+    models dicts of Sharded parts, pm_params and st_params Sharded), the
+    counterpart of train.train_one_round under nanocall_tpu/parallel/
+    mesh.py:126: each rank builds its cut of train.round_inputs from its
+    parts (the scaled models and W of its states; the grouped tables and
+    subset built whole and cut), and each data row runs either the fused
+    round, em_round_statepar (K4m, then K5m with a train flag set) and the
+    M-steps in plain torch on its first device (train.fused_round_outputs,
+    on the row's groups), or, under a loaded table (default_ops, with the
+    CLI priors default_priors), the legacy round: legacy_estep_statepar
+    (K6cm for the rows at the priors, K4m + K6dm for the others), then
+    each rank's part of the legacy statistics
+    and the M-steps (train.legacy_round_outputs).  Returns one {fit,
+    new_pm_params, done, new_st_params} a data row, in order, on the row's
+    first device, bit-identical to the rows of the unplaced round.  A
+    model bank is not placed: it raises ValueError."""
     if "model_idx" in models:
         raise ValueError("a model bank (model_idx) is not placed on the "
                          "state axis: place per-group (G, 2, n) models")
+    legacy = default_ops is not None
     grid = pm_params.mesh.ids.shape
     rows, args = [], []
     for d in range(grid[0]):
@@ -763,6 +922,12 @@ def train_one_round_placed(ev: dict, models: dict, pm_params, st_params,
         args.append(({k: v.shards[d][0] for k, v in ev.items()},
                      pm_params.shards[d][0], st_params.shards[d][0],
                      ranks[0]["valid"]))
+    if legacy:
+        return [train.legacy_round_outputs(
+            e, pm, st, list(zip(legacy_estep_statepar(
+                ranks, default_ops, default_priors), ranks)),
+            train_drift, train_scaling, train_transitions)
+            for (e, pm, st, _), ranks in zip(args, rows)]
     stats = em_round_statepar(rows, train_scaling, train_transitions)
     return [train.fused_round_outputs(e, pm, st, valid, lpd, scal, st3,
                                       train_drift, train_scaling,

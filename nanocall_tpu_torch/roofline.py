@@ -574,8 +574,14 @@ def statepar_exchange_bytes(B: int, T: int, ranks: int,
     "maxima", K5m's reads of the peers' 4 published maxima a read, at each
     step and the last exchange; "partials", the first rank's reads of the
     peers' per-step records (9 float32 a read and event) for the fold.
-    K4m's and K5m's reads come from the peers' shared memory on their
-    cluster path (one card), else from L2 or over NVLink."""
+    The legacy round's (K6cm, K6dm): "fwbw_columns", K6cm's whole columns,
+    forward (alpha) and backward (g = em + beta), T - 1 steps each, every
+    rank reading the ranks - 1 other slices; "beta_sums", K6dm's reads of
+    the peers' sum4 and sum16 for each state whose block lies in another
+    rank (T - 1 steps); "beta_maxima", K6dm's reads of the peers' partial
+    max of g a step.  K4m's, K5m's and K6dm's reads come from the peers'
+    shared memory on their cluster path (one card; K6cm's pushed into
+    it), else from L2 or over NVLink."""
     W = N_STATES // ranks
     column = ranks * (ranks - 1) * 4 * B * W
     peers = ranks * (ranks - 1) * 4 * B
@@ -587,7 +593,11 @@ def statepar_exchange_bytes(B: int, T: int, ranks: int,
             "block_sums": (T - 1) * 4 * B * (2 * _peer_block_sums(ranks, 4)
                                              + _peer_block_sums(ranks, 16)),
             "maxima": T * 4 * peers,
-            "partials": (ranks - 1) * 36 * B * T}
+            "partials": (ranks - 1) * 36 * B * T,
+            "fwbw_columns": 2 * (T - 1) * column,
+            "beta_sums": (T - 1) * 4 * B * (_peer_block_sums(ranks, 4)
+                                            + _peer_block_sums(ranks, 16)),
+            "beta_maxima": (T - 1) * peers}
 
 
 def walk_rows(lengths, T: int) -> int:
@@ -769,6 +779,13 @@ KERNEL_COUNTS = {
     # (statepar_exchange_bytes)
     "fwbw_forward_wave": fwbw_forward_counts,
     "em_backward_wave": em_backward_counts,
+    # K6cm and K6dm: the function a data row's legacy E-step computes,
+    # whatever its ranks (K6c's, resident or streaming, and K6d's); the
+    # peers' columns, block sums and maxima they read apart
+    # (statepar_exchange_bytes)
+    "fwbw_generic_wave_resident": fwbw_resident_counts,
+    "fwbw_generic_wave_streaming": fwbw_generic_counts,
+    "fwbw_grouped_backward_wave": fwbw_grouped_backward_counts,
     "fma_chain": fma_chain_counts,
     "reshape_copy": reshape_copy_counts,
 }

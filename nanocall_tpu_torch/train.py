@@ -19,7 +19,10 @@ subsequences; a batch of G groups trains at once as G*S rows:
 Under a loaded transition table (`--trans`) a round is the legacy one
 instead: the rows at the priors E-step under the table (K6c), the others by
 the grouped kernels (K4 + K6d); both store alpha, beta and em, and the
-statistics are reduced from those tensors in plain torch.
+statistics are reduced from those tensors in plain torch, each sum over the
+states a pairwise tree (legacy_statistics), so that the ranks of the
+mesh's state axis (parallel/statepar.py) reduce their own slices and
+combine them to the same bits.
 
 None of this imports nanocall_tpu.train (which imports jax); the numpy-only
 helpers of that module are written out here.
@@ -238,19 +241,6 @@ def em_backward_args(inp: dict, lpd, alphas, train_scaling: bool,
             train_transitions)
 
 
-def _matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in full float32: TF32 off for the call, as the JAX package's
-    precision="highest" einsum (nanocall_tpu/train.py:609-612)."""
-    if a.device.type != "cuda":
-        return torch.matmul(a, b)
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return torch.matmul(a, b)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _select_rows(inp: dict, rows: torch.Tensor) -> tuple:
     """round_inputs' E-step inputs (gtf, model, ev) of the given rows."""
     def sel(x):
@@ -293,78 +283,188 @@ def _legacy_estep(inp: dict, default_ops, default_priors) -> dict:
     return out
 
 
-def _legacy_moments(fb: dict, inp: dict, G: int) -> dict:
-    """The 14 per-group scaling moments of em.SCAL_NAMES from materialized
-    posteriors (nanocall_tpu/train.py:591-640): exp(alpha + beta - lpd)
-    over the valid events, contracted with the state weights W in full
-    float32, then summed over each group's rows and events."""
+def _group_tree_sum(x: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, T, ...) values a row and event -> (G, ...) sums over each
+    group's rows and events, added in one fixed order whatever the batch
+    or its cut into data rows: the pairwise tree of hmm.tree_sum over the
+    group's (row, event) axis in row-major order, zero-padded to a power
+    of two."""
+    x = x.reshape(G, -1, *x.shape[2:])
+    L = x.shape[1]
+    pad = (1 << max(L - 1, 0).bit_length()) - L
+    if pad:
+        x = torch.cat([x, x.new_zeros((G, pad, *x.shape[2:]))], dim=1)
+    while x.shape[1] > 1:
+        x = x[:, 0::2] + x[:, 1::2]
+    return x[:, 0]
+
+
+def _group_lse(x: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, T) log values a row and event, -inf where masked -> (G,) their
+    log-sum-exp over each group's rows and events: the max (NaN-
+    propagating), the sum of exp(x - max) by _group_tree_sum, -inf for a
+    group with nothing unmasked."""
+    x = x.reshape(G, -1)
+    if not x.shape[1]:
+        return x.new_full((G,), _NEG_INF)
+    m = torch.amax(x, dim=1)
+    finite = torch.isfinite(m)
+    safe = torch.where(finite, m, 0.0)
+    s = _group_tree_sum(torch.exp(x - safe[:, None]), G)
+    return torch.where(finite, safe + torch.log(s), m)
+
+
+def _block4(x: torch.Tensor) -> torch.Tensor:
+    """(..., W) -> (..., W / 4): the sums of the contiguous blocks of 4
+    states, added in state order (hmm.block_sum on any leading axes)."""
+    xs = x.view(*x.shape[:-1], -1, 4)
+    return ((xs[..., 0] + xs[..., 1]) + xs[..., 2]) + xs[..., 3]
+
+
+def legacy_rank_moments(fb: dict, inp: dict) -> torch.Tensor:
+    """A rank's part of the legacy round's state contraction: the
+    posteriors exp(alpha + beta - lpd) of its states (fb's (B, T, W)
+    slices) against its (B, 6, W) cut of the state weights inp["W"], each
+    of the 6 summed over its states by hmm.tree_sum.  Returns (B, T, 6):
+    where the rank holds the states [m W, (m + 1) W), a whole subtree of
+    the row's tree, so that the ranks' parts combined in rank order
+    (hmm.combine_rank_sums) are the tree sum over all the states."""
+    post = fb["alpha"] + fb["beta"]
+    post.sub_(fb["log_pr_data"][:, None, None]).exp_()
+    W = inp["W"]
+    return torch.stack([hmm.tree_sum(post * W[:, k, None, :])
+                        for k in range(W.shape[1])], dim=-1)
+
+
+def legacy_moment_sums(stats: torch.Tensor, inp: dict, G: int) -> dict:
+    """The 14 per-group scaling moments of em.SCAL_NAMES from the (B, T, 6)
+    state contractions s0 s1 s2 l0 l1 l2 of every row and event
+    (nanocall_tpu/train.py:591-640): zeroed outside the valid events,
+    folded with the event's uncorrected mean, start and stdv, then summed
+    over each group's rows and events by _group_tree_sum."""
     lengths, valid = inp["ev"]["length"], inp["valid"]
-    B, T = inp["x_unc"].shape
+    T = stats.shape[1]
     t_idx = torch.arange(T, device=lengths.device)
-    w = (t_idx[None, :] < lengths[:, None]) & valid[:, None]  # (B, T)
-    post = torch.exp(fb["alpha"] + fb["beta"]
-                     - fb["log_pr_data"][:, None, None]) * w[:, :, None]
-    stats = _matmul_fp32(post, inp["W"].transpose(1, 2))  # (B, T, 6)
-    del post
-    s0, s1, s2, l0, l1, l2 = stats.unbind(-1)
+    w = ((t_idx[None, :] < lengths[:, None]) & valid[:, None]).to(
+        torch.float32)
+    s0, s1, s2, l0, l1, l2 = (stats * w[..., None]).unbind(-1)
     x, ts, y = inp["x_unc"], inp["t_start"], inp["ev"]["stdv"]
-
-    def acc(v):  # (B, T) -> (G,): each group's rows and events
-        return v.reshape(G, -1).sum(dim=1)
-
-    return {"A00": acc(s0), "A01": acc(s1), "A11": acc(s2),
-            "A02": acc(s0 * ts), "A12": acc(s1 * ts), "A22": acc(s0 * ts * ts),
-            "B0": acc(s0 * x), "B1": acc(s1 * x), "B2": acc(s0 * x * ts),
-            "D": acc(s0 * x * x), "Vn": acc(l2 * y), "Vd": acc(l1),
-            "Up": acc(l0 / y), "Ne": acc(w.to(torch.float32))}
+    vals = (s0, s1, s2, s0 * ts, s1 * ts, s0 * ts * ts, s0 * x, s1 * x,
+            s0 * x * ts, s0 * x * x, l2 * y, l1, l0 / y, w)
+    sums = _group_tree_sum(torch.stack(vals, dim=-1), G)
+    return dict(zip(("A00", "A01", "A11", "A02", "A12", "A22", "B0", "B1",
+                     "B2", "D", "Vn", "Vd", "Up", "Ne"), sums.unbind(-1)))
 
 
-def _legacy_st_totals(fb: dict, inp: dict, strand, G: int) -> list:
+def _legacy_st_totals(ranks: list, strand, G: int) -> list:
     """Per strand, the (denom, stay, skip) log totals of the transition
-    update from materialized posteriors (nanocall_tpu/train.py:700-786,
-    _train_st_params): the stay and step joints of each transition t in
-    log space over all states, masked to the training k-mers and the valid
-    transitions, each reduced over a group's rows, transitions and states.
-    strand (G, S) is each row's strand.  Returns [(denom, stay, skip) of
-    (G,) for strand 0, for strand 1]."""
-    alpha, beta, em = fb["alpha"], fb["beta"], fb["em"]
-    B, T, n = alpha.shape
-    lpd_b = fb["log_pr_data"][:, None, None]
-    a_i = alpha[:, :-1]
-    lp_j1 = a_i + beta[:, :-1] - lpd_b  # log Pr[S_t = j1]
-    p_stay, p_skip = inp["p_stay_seq"], inp["p_skip_seq"]
-    log_p_stay = torch.log(p_stay)[:, None, None]
-    log_p_step4 = (torch.log(1.0 - p_stay - p_skip)
-                   - math.log(4.0))[:, None, None]
-    g = em[:, 1:] + beta[:, 1:]
-    lp_stay = torch.minimum(a_i + log_p_stay + g - lpd_b, lp_j1)
-    # the 4 step successors of j1 are the contiguous 4-block at
-    # suffix(j1, K-1) << 2: 4-block sums of exp(g), tiled over the states
-    m_g = torch.amax(g, dim=-1, keepdim=True)
-    safe_m = torch.where(torch.isfinite(m_g), m_g, 0.0)
-    eg4 = torch.exp(g - safe_m).reshape(B, T - 1, n // 4, 4).sum(dim=-1)
-    lsum4 = safe_m + torch.log(eg4).repeat(1, 1, 4)
-    lp_steps = a_i + log_p_step4 + lsum4 - lpd_b
-    del g, eg4, lsum4
-    lp_d01 = torch.minimum(torch.logaddexp(lp_stay, lp_steps), lp_j1)
-    del lp_steps
-    lp_d2 = torch.log(torch.clamp_min(torch.exp(lp_j1) - torch.exp(lp_d01),
-                                      0.0))
-    del lp_d01
-    t_idx = torch.arange(T - 1, device=alpha.device)
-    w_tr = ((t_idx[None, :] < inp["ev"]["length"][:, None] - 1)
-            & inp["valid"][:, None])
-    w_tr = w_tr[:, :, None] & inp["subset"][None, None, :]  # (B, T-1, n)
-    totals = []
-    for st in (0, 1):
-        mask = ((strand == st).reshape(B)[:, None, None] & w_tr) \
-            .reshape(G, -1)
+    update (nanocall_tpu/train.py:700-786, _train_st_params) from the
+    ranks' materialized posteriors (legacy_statistics' `ranks`): each
+    transition t's stay and step joints in log space, the 4 step
+    successors of j1 the contiguous 4-block at suffix(j1, K-1) << 2, i.e.
+    block j1 mod n / 4 of the whole column's 4-block sums of exp(g - max
+    g).  Each (row, transition) takes its masked log-sum-exp over the
+    training k-mers as K5 does: the masked max over every state, then each
+    rank's tree_sum of exp(v - max) over its states combined in rank
+    order; then each group's (row, transition) totals of a strand by
+    _group_lse.  Exchanged between the ranks: the partial max of g, the
+    4-block sums, the masked maxima and the partial sums.  Returns
+    [(denom, stay, skip) of (G,) for strand 0, for strand 1] on the first
+    rank's device."""
+    n = sum(fb["alpha"].shape[-1] for fb, _ in ranks)
+    n4 = n // 4
+    held, gmax = [], []
+    for fb, inp in ranks:
+        alpha, beta, em = fb["alpha"], fb["beta"], fb["em"]
+        q = alpha[:, :-1] - fb["log_pr_data"][:, None, None]
+        lp_j1 = q + beta[:, :-1]  # log Pr[S_t = j1]
+        g = em[:, 1:] + beta[:, 1:]
+        log_p_stay = torch.log(inp["p_stay_seq"])[:, None, None]
+        lp_stay = torch.minimum((q + log_p_stay) + g, lp_j1)
+        gmax.append(torch.amax(g, dim=-1))
+        held.append([q, lp_j1, g, lp_stay])
+    # the max of g over every state, then each rank's 4-block sums (g's
+    # place then holds the safe max)
+    eg4 = []
+    for h in held:
+        m_g = hmm.ranks_amax(gmax, h[2].device)
+        safe_m = torch.where(torch.isfinite(m_g), m_g, 0.0)
+        eg4.append(_block4(h[2].sub_(safe_m[..., None]).exp_()))
+        h[2] = safe_m
+    lo, vals, vmax = 0, [], []
+    for r, (fb, inp) in enumerate(ranks):
+        q, lp_j1, safe_m, lp_stay = held[r]
+        held[r] = None
+        W = q.shape[-1]
+        dev = q.device
+        leg4 = torch.log(torch.cat([x.to(dev) for x in eg4], dim=-1))
+        p_stay, p_skip = inp["p_stay_seq"], inp["p_skip_seq"]
+        log_p_step4 = (torch.log(1.0 - p_stay - p_skip)
+                       - math.log(4.0))[:, None, None]
+        lp_steps = q.add_(log_p_step4 + safe_m[..., None])
+        if W >= n4:  # the rank's states read every block, W / n4 times
+            lp_steps.view(*q.shape[:2], W // n4, n4).add_(
+                leg4[:, :, None, :])
+        else:
+            lp_steps.add_(leg4[..., lo % n4:lo % n4 + W])
+        lp_d01 = torch.minimum(hmm.logaddexp(lp_stay, lp_steps), lp_j1)
+        del lp_steps
+        lp_d2 = torch.exp(lp_j1).sub_(lp_d01.exp_()).clamp_min_(0.0).log_()
+        del lp_d01
+        v = [x.masked_fill_(~inp["subset"], _NEG_INF)
+             for x in (lp_j1, lp_stay, lp_d2)]
+        vals.append(v)
+        vmax.append(torch.stack([torch.amax(x, dim=-1) for x in v], dim=-1))
+        lo += W
+    # the masked maxima over every state, then each rank's sums
+    dev0 = ranks[0][1]["x_unc"].device
+    parts = []
+    for v in vals:
+        mm = hmm.ranks_amax(vmax, v[0].device)
+        safe = torch.where(torch.isfinite(mm), mm, 0.0)
+        parts.append(torch.stack([
+            hmm.tree_sum(x.sub_(safe[..., q, None]).exp_())
+            for q, x in enumerate(v)], dim=-1).to(dev0))
+        v.clear()
+    mm = hmm.ranks_amax(vmax, dev0)
+    safe = torch.where(torch.isfinite(mm), mm, 0.0)
+    lt = torch.where(torch.isfinite(mm),
+                     safe + torch.log(hmm.combine_rank_sums(parts)), mm)
+    inp0 = ranks[0][1]
+    T1 = lt.shape[1]
+    t_idx = torch.arange(T1, device=dev0)
+    w_tr = ((t_idx[None, :] < inp0["ev"]["length"][:, None] - 1)
+            & inp0["valid"][:, None])
+    lt = torch.where(w_tr[..., None], lt, _NEG_INF)
+    rows = strand.reshape(-1).to(dev0)
+    return [tuple(_group_lse(torch.where((rows == st)[:, None], lt[..., q],
+                                         _NEG_INF), G) for q in range(3))
+            for st in (0, 1)]
 
-        def red(x):
-            return _masked_lse(x.reshape(G, -1), mask, 1)
 
-        totals.append((red(lp_j1), red(lp_stay), red(lp_d2)))
-    return totals
+def legacy_statistics(ranks: list, strand, G: int, train_scaling: bool,
+                      train_transitions: bool) -> tuple:
+    """The legacy round's statistics (nanocall_tpu/train.py:591-640,
+    :700-786) from the materialized posteriors of a data row's ranks:
+    ranks, one (fb, inp) a rank in rank order, fb its {alpha, beta, em}
+    (B, T, W) slices of the states [m W, (m + 1) W) and the row's
+    log_pr_data (B,) on its device, inp its cut of round_inputs
+    (states=; the whole row for one rank).  The state reductions are
+    trees whose subtrees are the ranks' slices (legacy_rank_moments,
+    _legacy_st_totals), so that the statistics are the same bits however
+    many ranks hold the states.  strand (G, S) is each row's strand.
+    Returns (the 14 moments (G,) each, or None without train_scaling; the
+    strands' log totals, or None without train_transitions), on the first
+    rank's device."""
+    acc = totals = None
+    if train_scaling:
+        dev0 = ranks[0][1]["x_unc"].device
+        acc = legacy_moment_sums(hmm.combine_rank_sums(
+            [legacy_rank_moments(fb, inp).to(dev0) for fb, inp in ranks]),
+            ranks[0][1], G)
+    if train_transitions:
+        totals = _legacy_st_totals(ranks, strand, G)
+    return acc, totals
 
 
 def _scaling_mstep(acc: dict, pm_params, train_drift: bool):
@@ -462,12 +562,11 @@ def train_one_round(ev: dict, models: dict, pm_params: torch.Tensor,
     the round is the legacy one: each row E-steps under the loaded table
     while its strand is at the priors and by the grouped tables otherwise
     (_legacy_estep), and the statistics are reduced from the materialized
-    alpha, beta and em.
+    alpha, beta and em (legacy_statistics, one rank holding every state).
 
     Returns {fit (G,), new_pm_params (G, 6), done (G,) bool,
     new_st_params (G, 2, 2)}; fit is the summed log Pr[data] of the valid
     rows under the current parameters."""
-    G, S, T = ev["mean"].shape
     inp = round_inputs(ev, models, pm_params, st_params, K, train_scaling)
     train_any = train_scaling or train_transitions
     if default_ops is None:
@@ -483,12 +582,26 @@ def train_one_round(ev: dict, models: dict, pm_params: torch.Tensor,
                                    lpd, scal, st3, train_drift,
                                    train_scaling, train_transitions)
     fb = _legacy_estep(inp, default_ops, default_priors)
+    return legacy_round_outputs(ev, pm_params, st_params, [(fb, inp)],
+                                train_drift, train_scaling,
+                                train_transitions)
+
+
+def legacy_round_outputs(ev: dict, pm_params, st_params, ranks: list,
+                         train_drift: bool, train_scaling: bool,
+                         train_transitions: bool) -> dict:
+    """The legacy round's outputs for G groups (ev, pm_params and st_params
+    as train_one_round's) from the E-step of their rows held by `ranks`
+    (legacy_statistics'; one rank holding every state for the unplaced
+    round): fit from the first rank's log Pr[data] of the valid rows, the
+    M-steps from legacy_statistics.  The placed round
+    (parallel/statepar.py) runs it on each data row's groups."""
+    G = pm_params.shape[0]
+    fb0, inp0 = ranks[0]
     out = _untrained_outputs(pm_params, st_params, _sum_seqs(
-        torch.where(inp["valid"], fb["log_pr_data"], 0.0), G))
-    acc = _legacy_moments(fb, inp, G) if train_scaling else None
-    totals = (_legacy_st_totals(fb, inp, ev["strand"], G)
-              if train_transitions else None)
-    del fb
+        torch.where(inp0["valid"], fb0["log_pr_data"], 0.0), G))
+    acc, totals = legacy_statistics(ranks, ev["strand"], G, train_scaling,
+                                    train_transitions)
     return _msteps(out, acc, totals, ev, pm_params, st_params, train_drift)
 
 

@@ -1427,3 +1427,93 @@ def test_train_statepar_kernels_bit_equal_on_the_card(card, inputs):
                         (inputs, M, D, ts, tt, k)
     if inputs == "NaN":
         assert torch.isnan(lpd).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_legacy_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
+                                                       inputs):
+    """K6cm and K6dm, the legacy EM round's kernels with the 4096 states
+    split over M = 2, 4, 8 and 64 ranks on cuda:0 (parallel/statepar.py),
+    against their plain versions over the same ranks and against K6c and
+    K6d on the whole rows, every output as bits: K6cm in its resident form
+    under the loaded tables of (0.14, 0.21) and of the CLI priors (0.1,
+    0.3) and in its streaming form (the (0.14, 0.21) table without its
+    packed layout), K6dm after K4m, each on its default path (a cluster a
+    read up to 8 ranks) and, up to 8 ranks, on its cooperative path; on
+    rows of lengths 0, 1, T-1 and T and an invalid row (clean) and on NaN
+    / +inf inputs; one launch of each (one wave).  Then the placed legacy
+    round (statepar.train_one_round_placed(default_ops=...)) on (1, M) and
+    (2, M) meshes of cuda:0 against the unplaced one, with rows at the
+    priors and off them in every data row (M < 64)."""
+    from nanocall_tpu_torch import train
+    from nanocall_tpu_torch.ops import em
+    from nanocall_tpu_torch.parallel import mesh, statepar
+
+    priors = (0.1, 0.3)
+    ev, mdl, pm, st = _train_batch(card, 4, 24, inputs == "NaN", 17)
+    st = st.clone()
+    st[0, 0] = st[3, 0] = st[2, 1] = torch.tensor(priors)
+    batch = (ev, mdl, pm, st)
+    inp = train.round_inputs(*batch, K=6)
+    B = inp["x_unc"].shape[0]
+    loaded = _loaded_ops(card, tmp_path, 0.14, 0.21)
+    tables = {"(0.14, 0.21)": loaded,
+              "(0.1, 0.3)": _loaded_ops(card, tmp_path, *priors),
+              "streaming": loaded._replace(fwbw_packed=None)}
+    k6c = {name: hmm.fwbw(ops, inp["model"], inp["ev"])
+           for name, ops in tables.items()}
+    k6d = hmm.fwbw_grouped(inp["gtf"], inp["model"], inp["ev"])
+    every = torch.arange(B, device=card)
+    for M in (2, 4, 8, 64):
+        ranks = statepar.split_round_states(*batch, [card] * M)
+        sub = [statepar._select_rank_rows(r, every) for r in ranks]
+        paths = (None, False) if M <= hmm.MAX_CLUSTER else (None,)
+        for (name, ops), cluster in itertools.product(tables.items(), paths):
+            wrapper = (hmm.fwbw_wave_streaming_kernel if name == "streaming"
+                       else hmm.fwbw_wave_resident_kernel)
+            n0 = wrapper.launches
+            got = statepar._fwbw_generic_row(ops, sub, True, cluster)
+            plain = statepar._fwbw_generic_row(ops, sub, False, cluster)
+            torch.cuda.synchronize()
+            assert wrapper.launches - n0 == 1
+            what = (inputs, M, name, cluster)
+            for k in ("alpha", "beta", "em", "log_pr_data"):
+                for g, p in zip(got, plain):
+                    assert torch.equal(_bits(g[k]), _bits(p[k])), (what, k)
+            for k in ("alpha", "beta", "em"):
+                whole = torch.cat([g[k] for g in got], dim=-1)
+                assert torch.equal(_bits(whole), _bits(k6c[name][k])), \
+                    (what, k)
+            for g in got:
+                assert torch.equal(_bits(g["log_pr_data"]),
+                                   _bits(k6c[name]["log_pr_data"])), what
+        for cluster in paths:
+            n0 = em.fwbw_backward_wave_kernel.launches
+            got = statepar._fwbw_grouped_row(sub, True, cluster)
+            plain = statepar._fwbw_grouped_row(sub, False, cluster)
+            torch.cuda.synchronize()
+            assert em.fwbw_backward_wave_kernel.launches - n0 == 1
+            for k in ("alpha", "beta", "em", "log_pr_data"):
+                for g, p in zip(got, plain):
+                    assert torch.equal(_bits(g[k]), _bits(p[k])), \
+                        (inputs, M, cluster, k)
+                whole = (got[0][k] if k == "log_pr_data"
+                         else torch.cat([g[k] for g in got], dim=-1))
+                assert torch.equal(_bits(whole), _bits(k6d[k])), \
+                    (inputs, M, cluster, k)
+        for D in ((1, 2) if M < 64 else ()):
+            grid = mesh.make_mesh(D * M, model_axis=M,
+                                  devices=[card] * (D * M))
+            placed = mesh.shard_train_inputs(grid, *batch)
+            for ts, tt in ((True, True), (False, False)):
+                kw = dict(train_scaling=ts, train_transitions=tt,
+                          default_ops=loaded, default_priors=priors)
+                want = train.train_one_round(*batch, K=6, **kw)
+                got = mesh.join(statepar.train_one_round_placed(*placed,
+                                                                **kw))
+                for k, v in want.items():
+                    assert torch.equal(_bits(got[k]), _bits(v.cpu())), \
+                        (inputs, M, D, ts, tt, k)
+    if inputs == "NaN":
+        assert torch.isnan(k6c["(0.14, 0.21)"]["log_pr_data"]).any()

@@ -338,7 +338,11 @@ def test_slice_kernel_counts():
                       "fwd_partials": 8193 * peers,
                       "block_sums": 8191 * 4 * B * 3 * blocks[ranks],
                       "maxima": 8192 * 4 * peers,
-                      "partials": (ranks - 1) * 36 * B * 8192}
+                      "partials": (ranks - 1) * 36 * B * 8192,
+                      "fwbw_columns": 2 * 8191 * ranks * (ranks - 1) * 4
+                      * B * W,
+                      "beta_sums": 8191 * 4 * B * 2 * blocks[ranks],
+                      "beta_maxima": 8191 * peers}
     b = roofline.kernel_bound("viterbi_forward_slice", B, 8192)
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(

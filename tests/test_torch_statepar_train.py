@@ -376,16 +376,18 @@ def test_wave_wrappers_refuse_cpu_tensors():
 
 
 def test_placed_round_refuses_default_ops_and_a_bank():
-    """The legacy round under a loaded table is not placed (it raises,
-    naming ROADMAP.md, where it is queued), and neither is a model bank:
-    shard_train_inputs and train_one_round_placed raise on model_idx."""
+    """A model bank is not placed: shard_train_inputs and
+    train_one_round_placed raise on model_idx, with or without a loaded
+    table (the legacy round under one is placed since: see
+    test_torch_statepar_legacy.py)."""
     ev, mdl, pm, st = _torch_batch(3, False)
     grid = _cpu_mesh(2, 2)
     placed = mesh.shard_train_inputs(grid, ev, mdl, pm, st)
     ops = convert.trans_ops(ttrans.build_structured(K=3), CPU)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        statepar.train_one_round_placed(*placed, K=3, default_ops=ops,
-                                        default_priors=(0.1, 0.3))
+    with pytest.raises(ValueError, match="model bank"):
+        statepar.train_one_round_placed(
+            placed[0], {**placed[1], "model_idx": torch.zeros(4)},
+            *placed[2:], K=3, default_ops=ops, default_priors=(0.1, 0.3))
     bank = {k: v[:2] for k, v in mdl.items()}
     bank["model_idx"] = torch.tensor([1, 0, 1, 0], dtype=torch.int32)
     with pytest.raises(ValueError, match="model bank"):

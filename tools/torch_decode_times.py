@@ -6,6 +6,7 @@
                                         [--long 100000] [--em] [--census]
                                         [--k4-launches] [--walks]
                                         [--custom] [--em-mesh]
+                                        [--legacy-mesh]
                                         [--generic-mesh] [--slice-walks]
                                         [--tree DIR | --turns DIR]
 
@@ -90,6 +91,19 @@ path, K4m and K5m there against their cooperative path, in turns,
 bit-equal.  It
 runs in any tree that has the state axis's EM round (PR 17 on), so that
 two designs are timed in turns (--turns).
+With --legacy-mesh, also the legacy EM round's kernels on the mesh's
+state axis at the EM chunk (512 rows x T = 128, the whole chunk one data
+row) over 2 and 4 ranks on one card: K6cm (the generic forward-backward,
+statepar._fwbw_generic_row) in its resident form under the loaded tables
+of (0.14, 0.21) and of the CLI priors (0.1, 0.3) and in its streaming form
+(the (0.14, 0.21) table without its packed layout), against K6c on the
+whole rows, and K6dm (the grouped backward, after K4m) against K6d, each
+on both exchange paths (a cluster a read, the cooperative grid), timed in
+turns (K6c or K6d, then each rank count and path, then the same
+reversed; LEGACY_MESH_REPS rounds), each call's launches timed alone by
+CUDA events (chip_smoke.launch_spans: the stream held first); every
+output bit-equal to K6c's or K6d's.  It runs in a tree that has the
+legacy round on the state axis (PR 21 on).
 With --generic-mesh, also the generic decode on the mesh's state axis
 (statepar.viterbi_decode_placed on mesh.shard_decode_inputs: K6am and
 K6bm) at the path chunk (chip_smoke.pooled_inputs, 128 reads x 8192
@@ -143,6 +157,7 @@ Every line carries the card's nvidia-smi name and power limit.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import re
 import subprocess
@@ -187,6 +202,9 @@ def main() -> int:
                     help="time K6e's kernels at 16 x 2048 and 1 x 4000")
     ap.add_argument("--em-mesh", action="store_true",
                     help="time K4m and K5m at 512 x 128 over 2 and 4 ranks")
+    ap.add_argument("--legacy-mesh", action="store_true",
+                    help="time K6cm and K6dm against K6c and K6d at 512 x "
+                         "128 over 2 and 4 ranks")
     ap.add_argument("--generic-mesh", action="store_true",
                     help="time K6am and K6bm at 128 x 8192 and 16 x 8192")
     ap.add_argument("--slice-walks", action="store_true",
@@ -285,6 +303,9 @@ def main() -> int:
 
     if args.em_mesh:
         time_em_mesh(models, device, card)
+
+    if args.legacy_mesh:
+        time_legacy_mesh(models, device, card)
 
     if args.generic_mesh:
         time_generic_mesh(models, device, card)
@@ -767,6 +788,136 @@ def time_em_mesh(models, device, card: str) -> None:
                   f"{sum(v) / len(v):.3f} ms a pass (turns "
                   f"{', '.join(f'{x:.3f}' for x in v)}); K4m's paths "
                   f"bit-equal [{card}]", flush=True)
+
+
+#: rounds of turns in --legacy-mesh
+LEGACY_MESH_REPS = 2
+
+
+def time_legacy_mesh(models, device, card: str) -> None:
+    """K6cm (three forms) and K6dm at the EM chunk over 2 and 4 ranks on
+    both exchange paths, against K6c and K6d on the whole rows, in turns
+    (the module docstring's --legacy-mesh), bit-equal."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import roofline, train
+    from nanocall_tpu_torch.ops import em, hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    rng = np.random.default_rng(15)
+    reads = chip_smoke.simulated_reads(models, rng)
+    batch = chip_smoke.em_kernel_inputs(models, reads, device, rng)["batch"]
+    inp = train.round_inputs(*batch, K=6)
+    B, T = inp["x_unc"].shape
+    every = torch.arange(B, device=device)
+    loaded = chip_smoke.load_trans_table(device)[2]
+    priors = chip_smoke.load_trans_table(
+        device, chip_smoke.PRIORS_P_STAY, chip_smoke.PRIORS_P_SKIP,
+        "trans_priors.tsv")[2]
+    forms = {"resident (0.14, 0.21)": loaded,
+             "resident (0.1, 0.3)": priors,
+             "streaming (0.14, 0.21)": loaded._replace(fwbw_packed=None)}
+    subs = {M: [statepar._select_rank_rows(r, every)
+                for r in statepar.split_round_states(*batch, [device] * M)]
+            for M in (2, 4)}
+    paths = (("cluster", None), ("cooperative", False))
+
+    def spans(fn, name, module=hmm) -> float:
+        return 1e3 * chip_smoke.launch_spans(fn, name, device, 1,
+                                             module)["device_s"]
+
+    def bits(x):
+        return x.view(torch.int32)
+
+    calls = {}  # name: (fn, timed wrapper, module, steps, resident, M)
+    for form, ops in forms.items():
+        resident = form.startswith("resident")
+        wrapper = ("fwbw_wave_resident_kernel" if resident
+                   else "fwbw_wave_streaming_kernel")
+        calls[f"K6c {form}"] = (
+            lambda ops=ops: hmm.fwbw(ops, inp["model"], inp["ev"]),
+            "fwbw_resident_kernel" if resident else "fwbw_generic_kernel",
+            hmm, 2 * (T - 1), resident, 1)
+        for M, (path, cluster) in itertools.product((2, 4), paths):
+            calls[f"K6cm {form} over {M} ranks, {path}"] = (
+                lambda ops=ops, M=M, cluster=cluster:
+                statepar._fwbw_generic_row(ops, subs[M], True, cluster),
+                wrapper, hmm, 2 * (T - 1), resident, M)
+    calls["K6d"] = (lambda: hmm.fwbw_backward_kernel(
+        inp["gtf"], inp["model"], inp["ev"]), "fwbw_backward_kernel", hmm,
+        T - 1, False, 1)
+    for M, (path, cluster) in itertools.product((2, 4), paths):
+        calls[f"K6dm over {M} ranks, {path}"] = (
+            lambda M=M, cluster=cluster: statepar._fwbw_grouped_row(
+                subs[M], True, cluster),
+            "fwbw_backward_wave_kernel", em, T - 1, False, M)
+    # bit-equality once, and a warm-up
+    want = {form: hmm.fwbw(ops, inp["model"], inp["ev"])
+            for form, ops in forms.items()}
+    k6d = hmm.fwbw_backward_kernel(inp["gtf"], inp["model"], inp["ev"])
+    for name, (fn, *_) in calls.items():
+        out = fn()
+        torch.cuda.synchronize()
+        if name.startswith("K6cm"):
+            w = want[name[5:name.index(" over")]]
+            for k in ("alpha", "beta", "em"):
+                got = torch.cat([o[k] for o in out], dim=-1)
+                assert torch.equal(bits(got), bits(w[k])), (name, k)
+            for o in out:
+                assert torch.equal(bits(o["log_pr_data"]),
+                                   bits(w["log_pr_data"])), name
+        elif name.startswith("K6dm"):
+            got = torch.cat([o["beta"] for o in out], dim=-1)
+            assert torch.equal(bits(got), bits(k6d)), name
+        del out
+    del want, k6d
+    # a warm-up round: the timed calls' allocations come from the cache
+    for fn, *_ in calls.values():
+        fn()
+    ms = {name: [] for name in calls}
+    order = list(calls)
+    for _ in range(LEGACY_MESH_REPS):
+        for name in (*order, *reversed(order)):
+            fn, wrapper, module, *_ = calls[name]
+            ms[name].append(spans(fn, wrapper, module))
+    base = {}
+    for name, (_, wrapper, _, steps, resident, M) in calls.items():
+        v = ms[name]
+        mean = sum(v) / len(v)
+        if M == 1:
+            base[name.split(" ", 1)[1] if " " in name else ""] = mean
+            bname = ("fwbw_resident" if resident else "fwbw_generic") \
+                if name.startswith("K6c ") else "fwbw_grouped_backward"
+            b = roofline.kernel_bound(bname, B, T)
+            print(f"legacy mesh {name} B={B} T={T}: {mean:.3f} ms a call "
+                  f"(turns {', '.join(f'{x:.3f}' for x in v)}); bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]",
+                  flush=True)
+            continue
+        W = 4096 // M
+        if name.startswith("K6cm"):
+            form = name[5:name.index(" over")]
+            ref = base[form]
+            deg = 21
+            rounds = -(-B // (hmm.fwbw_wave_resident(
+                device, False, resident, deg, W, cluster=True) // M))
+        else:
+            ref = base[""]
+            rounds = -(-B // (em.fwbw_backward_wave_resident(
+                device, False, W, cluster=True) // M))
+        step = (f", {1e3 * mean / (rounds * steps):.2f} µs a step over "
+                f"{rounds} rounds of reads" if "cluster" in name else "")
+        print(f"legacy mesh {name} B={B} T={T}: {mean:.3f} ms a call "
+              f"(turns {', '.join(f'{x:.3f}' for x in v)}) = "
+              f"{mean / ref:.2f}x the one-card kernel{step}; bit-equal to "
+              f"it [{card}]", flush=True)
+    for M in (2, 4):
+        ex = roofline.statepar_exchange_bytes(B, T, M)
+        print(f"legacy mesh over {M} ranks read from the peers: K6cm's "
+              f"columns {ex['fwbw_columns'] / 1e9:.3f} GB, K6dm's block sums "
+              f"{ex['beta_sums'] / 1e9:.3f} GB and maxima "
+              f"{ex['beta_maxima']} B [{card}]", flush=True)
 
 
 #: path decodes timed a mesh and path in --generic-mesh

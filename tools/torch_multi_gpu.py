@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Check the port's multi-device path across every visible NVIDIA GPU.
 
-    python3 tools/torch_multi_gpu.py [em | generic]
+    python3 tools/torch_multi_gpu.py [em | legacy | generic]
 
 It needs two cards or more (it exits 2 with fewer) and runs the phases
 below (with `em`, phase 5 alone: the four-card call for the EM round on
-the state axis and the dry run; with `generic`, phases 3 and 4 alone: the
+the state axis and the dry run; with `legacy`, phase 5b alone: the legacy
+round on the state axis; with `generic`, phases 3 and 4 alone: the
 state axis's decodes, K1m's and K6am's system-scope exchanges and the
 walks' copies route across cards; each without the phases that earlier
 runs covered):
@@ -53,6 +54,17 @@ runs covered):
    with every rank on cuda:0 (the kernels' cluster path) and the
    unplaced round's; then nanocall_tpu_torch.dryrun.dryrun_multichip over every
    card (its five steps; JAX's summary line);
+5b. runs one legacy EM round (under a loaded table) of the same chunk, the
+   strands chip_smoke.legacy_batch sets at the CLI priors, through
+   statepar.train_one_round_placed(default_ops=...) on (1, 2) and, with
+   four cards, (1, 4) meshes of distinct cards, under the loaded table of
+   (0.14, 0.21) (K6cm's resident form) and the same without its packed
+   layout (its streaming form): fit, new_pm_params, done and
+   new_st_params bit-equal to the unplaced legacy round on cuda:0 (K6c,
+   K4 + K6d), K6cm, K4m and K6dm launched a wave and card on their
+   cooperative path (their exchanges at system scope); each mesh's wall,
+   first and warm, beside the same mesh with every rank on cuda:0 and the
+   unplaced round's;
 6. runs chip_smoke.py's 24 simulated reads through basecall.run_pipeline,
    untrained and trained, over the default data sharder (every card:
    basecall.default_sharder) and over cuda:0 alone: FASTA byte-equal, stats
@@ -353,6 +365,79 @@ def run_em_mesh(models, cards, card_line: str) -> dict:
     return out
 
 
+def run_legacy_mesh(models, cards, card_line: str) -> dict:
+    """Phase 5b: the placed legacy round across cards."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import train
+    from nanocall_tpu_torch.ops import kernels
+    from nanocall_tpu_torch.parallel import mesh, statepar
+
+    reads = chip_smoke.simulated_reads(models, np.random.default_rng(2031))
+    ev, mdl, pm, st = chip_smoke.legacy_batch(chip_smoke.em_kernel_inputs(
+        models, reads, cards[0], np.random.default_rng(2032))["batch"])
+    loaded = chip_smoke.load_trans_table(cards[0])[2]
+    priors = (chip_smoke.PRIORS_P_STAY, chip_smoke.PRIORS_P_SKIP)
+    G = pm.shape[0]
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        for i in range(len(cards)):
+            torch.cuda.synchronize(i)
+        return time.perf_counter() - t0, got
+
+    out = {}
+    for form, ops in (("resident", loaded),
+                      ("streaming", loaded._replace(fwbw_packed=None))):
+        kw = dict(default_ops=ops, default_priors=priors)
+        s_ref, ref = wall(lambda: train.train_one_round(ev, mdl, pm, st,
+                                                        **kw))
+        warm_ref, _ = wall(lambda: train.train_one_round(ev, mdl, pm, st,
+                                                         **kw))
+        ref = {k: v.cpu() for k, v in ref.items()}
+        for M in (2, 4):
+            if M > len(cards):
+                continue
+            grid = mesh.make_mesh(M, model_axis=M, devices=cards[:M])
+            placed = mesh.shard_train_inputs(grid, ev, mdl, pm, st)
+            kernels.reset_launches()
+            s, got = wall(lambda: statepar.train_one_round_placed(*placed,
+                                                                  **kw))
+            launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+            for k in (f"fwbw_generic_wave_{form}", "fwbw_forward_wave",
+                      "fwbw_grouped_backward_wave"):
+                assert launches[k] >= M, (form, M, launches)
+            got = mesh.join(got)
+            for k, v in ref.items():
+                assert torch.equal(chip_smoke.bits(got[k]),
+                                   chip_smoke.bits(v)), (form, M, k)
+            warm, _ = wall(lambda: statepar.train_one_round_placed(*placed,
+                                                                   **kw))
+            placed_one = mesh.shard_train_inputs(mesh.make_mesh(
+                M, model_axis=M, devices=[cards[0]] * M), ev, mdl, pm, st)
+            s_one, _ = wall(lambda: statepar.train_one_round_placed(
+                *placed_one, **kw))
+            warm_one, _ = wall(lambda: statepar.train_one_round_placed(
+                *placed_one, **kw))
+            out[f"legacy_{form}_1x{M}"] = {
+                "s": s, "warm_s": warm, "one_card_s": s_one,
+                "one_card_warm_s": warm_one, "unplaced_s": s_ref,
+                "unplaced_warm_s": warm_ref}
+            print(f"legacy mesh (1, {M}) over {M} cards, K6cm {form}, "
+                  f"G={G} x 4 rows, T={ev['mean'].shape[2]}: fit, "
+                  f"new_pm_params, done and new_st_params bit-equal to the "
+                  f"unplaced legacy round on cuda:0; {s:.3f} s of wall, "
+                  f"{warm:.3f} s warm (launches "
+                  f"{ {k: v for k, v in launches.items() if v} }) vs "
+                  f"{s_one:.3f} / {warm_one:.3f} s with every rank on "
+                  f"cuda:0 and the unplaced round {s_ref:.3f} / "
+                  f"{warm_ref:.3f} s [{card_line}]")
+    return out
+
+
 def run_sharded(models, cards, card_line: str) -> dict:
     """Phase 6: the pipeline over every card against cuda:0 alone."""
     import numpy as np
@@ -400,7 +485,7 @@ def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["em"], ["generic"]):
+    if argv not in ([], ["em"], ["legacy"], ["generic"]):
         print(f"torch_multi_gpu: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -422,6 +507,12 @@ def main(argv=None) -> int:
         print(card_line)
         print(json.dumps({"ok": True, "cards": n, "em_mesh": em_walls}))
         return 0
+    if argv == ["legacy"]:
+        legacy_walls = run_legacy_mesh(models, cards, card_line)
+        print(card_line)
+        print(json.dumps({"ok": True, "cards": n,
+                          "legacy_mesh": legacy_walls}))
+        return 0
     if argv == ["generic"]:
         mesh_walls = run_mesh(models, cards, card_line)
         generic_walls = run_generic_mesh(models, cards, card_line)
@@ -434,11 +525,13 @@ def main(argv=None) -> int:
     mesh_walls = run_mesh(models, cards, card_line)
     generic_walls = run_generic_mesh(models, cards, card_line)
     em_walls = run_em_mesh(models, cards, card_line)
+    legacy_walls = run_legacy_mesh(models, cards, card_line)
     walls = run_sharded(models, cards, card_line)
     print(card_line)
     print(json.dumps({"ok": True, "cards": n, "seqpar": seq,
                       "mesh": mesh_walls, "generic_mesh": generic_walls,
-                      "em_mesh": em_walls, "pipeline_wall_s": walls}))
+                      "em_mesh": em_walls, "legacy_mesh": legacy_walls,
+                      "pipeline_wall_s": walls}))
     return 0
 
 

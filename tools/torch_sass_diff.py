@@ -6,7 +6,12 @@ Builds (or reuses) each checkout's kernel library, disassembles both with
 whether the instructions are the same (addresses and encodings dropped,
 the anonymous namespace's per-build hash taken out of the names).  With
 --diff FILE it writes the differing instructions of each kernel that
-differs.  Needs nvcc and cuobjdump (the CUDA toolkit):
+differs.  --rename PATTERN=REPLACEMENT (a regular expression, repeatable)
+rewrites the new checkout's kernel names first, so that an instance whose
+template gained a parameter is held against its old self (K5m's
+em_backward_wave_kernel<SYS, CLUSTER> against <SYS, CLUSTER, false>:
+--rename '(em_backward_wave_kernelILb.ELb.E)Lb0E=\1').  Needs nvcc and
+cuobjdump (the CUDA toolkit):
 
     python3 tools/torch_sass_diff.py OLD_CHECKOUT NEW_CHECKOUT [--diff FILE]
 """
@@ -73,8 +78,13 @@ def main(argv=None) -> int:
     ap.add_argument("old")
     ap.add_argument("new")
     ap.add_argument("--diff", default="", metavar="FILE")
+    ap.add_argument("--rename", action="append", default=[],
+                    metavar="PATTERN=REPLACEMENT")
     args = ap.parse_args(argv)
     a, b = kernels(args.old), kernels(args.new)
+    for rule in args.rename:
+        pattern, repl = rule.split("=", 1)
+        b = {re.sub(pattern, repl, f): ins for f, ins in b.items()}
     lines = []
     for f in sorted(set(a) | set(b)):
         fa, fb = a.get(f, []), b.get(f, [])
