@@ -11,7 +11,8 @@ from the root of a checkout.  It
      build seconds, ptxas' register / spill report, the FFMA count of
      K8's SASS (cuobjdump -sass), and a static census of the time loops of
      K1 (path and score-only), K3's forward chunk, K1m's eight instances,
-     K4, K5 and K6d: instructions per state and step, by class
+     K4, K5, K6d and the streaming K6c's and K6e's (one table and per
+     read): instructions per state and step, by class
      (step_loop_sass), of the traceback walks of K2, K2m, K3 and K9
      (walk_loop_sass), and of the resident K6c's and K6e's two time loops
      (barrier_loops_sass): K4's and K6d's loops must hold at most 2 block
@@ -19,9 +20,10 @@ from the root of a checkout.  It
      spill nothing,
      K2's, K2m's and K6b's ring walks no global load (their rows and K6b's
      from-state table come from shared memory; K6b stores its path), the
-     resident K6c's loops no
+     resident K6c's loops (its one-table and per-read instances) no
      global load but the stored emissions' (no slot-table byte), the
-     resident K6e's forward loop 3 block barriers and its backward loop 1,
+     resident K6e's (both instances) forward loop 3 block barriers and its
+     backward loop 1,
      and no slot-table byte from global memory; none of K6am's 12
      instances a local load or store, nor (ptxas) a byte of spill stores;
   3. writes the 21-neighbour transition tables of (p_stay 0.14, p_skip
@@ -156,7 +158,18 @@ from the root of a checkout.  It
      resident, resident, streaming); holds each to its plain version
      (tolerance 0) and prints both times, and roofline.em_mfu_report for
      K4 + K5 from their times (against the measured K8 peak at that shape
-     and the spec); then the EM round on the mesh's state axis
+     and the spec); then the forward-backward under per-read structured
+     tables (run_per_read_fwbw: hmm.fwbw and hmm.fwbw_custom at 16 x 2048
+     and hmm.fwbw at the EM chunk, under per_read_tables' tables with each
+     read's packed sides and without them, counted as the per_read_fwbw
+     path, which must launch the four per-read instances of K6c and K6e
+     and none of their one-table twins), each instance bit-equal (as bits)
+     to its plain version, clean and on NaN / +inf inputs, at 16 x 2048
+     and K6c also at the EM chunk, and each read bit-equal to the read
+     alone through the one-table kernel of the same form under its own
+     table; each timed in turns with its one-table twin under the loaded
+     table (K6c at the EM chunk, K6e at 16 x 2048 and at one read of 4,000
+     events); then the EM round on the mesh's state axis
      (parallel.statepar: K4m and K5m, K4 and K5 with the 4096 states split
      over the ranks of a data row, every rank on the one card): the whole
      chunk one data row over 2 and 4 ranks, K4m with the alphas stored and
@@ -245,7 +258,8 @@ from the root of a checkout.  It
  12. prints a JSON line of the kernels (launch counts: the sum over the
      end-to-end runs, the tools, the dump, the measurement path, the
      repro tool, K9's counted decode, the mesh runs, the dry run, the
-     sharded runs and the two hosts' runs, and each run's; 31 kernels;
+     per-read fwbw path, the sharded runs and the two hosts' runs, and
+     each run's; 35 kernels;
      each kernel's time, its plain version's,
      its shape, its bound on the H100's published peaks
      (roofline.kernel_bound), its achieved float32 rate and that rate's
@@ -355,6 +369,17 @@ DRYRUN_KERNELS = ("fwbw_forward_wave", "em_backward_wave",
 LEGACY_MESH_KERNELS = ("fwbw_generic_wave_resident",
                        "fwbw_generic_wave_streaming", "fwbw_forward_wave",
                        "fwbw_grouped_backward_wave")
+#: the per-read fwbw path (hmm.fwbw and hmm.fwbw_custom under per-read
+#: tables): the per-read instance of K6c and K6e in each form by name,
+#: with its function, its form (the route its tables take) and its
+#: one-table twin; the path must launch all four and no twin
+PER_READ_FWBW = {
+    "fwbw_generic_per_read": ("fwbw", "streaming", "fwbw_generic"),
+    "fwbw_resident_per_read": ("fwbw", "resident", "fwbw_resident"),
+    "fwbw_custom_per_read": ("fwbw_custom", "streaming", "fwbw_custom"),
+    "fwbw_custom_resident_per_read": ("fwbw_custom", "resident",
+                                      "fwbw_custom_resident"),
+}
 #: kernels each host's half of the multi-host emulation must launch (its
 #: reads may hold no contest, so no score-only chunk)
 HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
@@ -1242,11 +1267,12 @@ def run_mesh(models, device, card: str, rng) -> dict:
             "walks": walks}
 
 
-def per_read_ops(device, B: int, rng):
+def per_read_tables(device, B: int, rng) -> tuple:
     """Per-read structured tables of B reads at kinetics drawn around the
     CLI priors (transitions.build_structured_batch,
-    convert.trans_ops_batch): every read's table packs, so K6a and K6am
-    take their resident forms."""
+    convert.trans_ops_batch), and the (B, 2) kinetics: every read's table
+    packs, so K6a and K6am take their resident forms, and so do K6c and
+    K6e (both sides)."""
     import numpy as np
 
     from nanocall_tpu_torch import convert, transitions
@@ -1257,7 +1283,9 @@ def per_read_ops(device, B: int, rng):
     ops = convert.trans_ops_batch(
         *transitions.build_structured_batch(params, 6), 6, device)
     assert hmm.per_read(ops) and hmm.generic_forward_route(ops) == "resident"
-    return ops
+    assert hmm.fwbw_route(ops) == "resident"
+    return ops, params
+
 
 
 def generic_wave_occupancy(dev, form: str, deg: int, M: int, B: int,
@@ -1408,7 +1436,7 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
         "plain_ms": tb_plain_ms, "shape": [B, T], "ranks": 2}
     del walk, final, slices, one, fa, bps
     # K6a under per-read tables: its resident and streaming kernels
-    ops = per_read_ops(dev, B, np.random.default_rng(2027))
+    ops = per_read_tables(dev, B, np.random.default_rng(2027))[0]
     per_read = {}
     for form, o in (("resident", ops),
                     ("streaming", ops._replace(from_packed=None,
@@ -1463,7 +1491,7 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
     del args
     tables = {"loaded (0.14, 0.21)": trans_ops,
               "priors' loaded (0.1, 0.3)": priors_ops,
-              "per-read": per_read_ops(device, B_MESH, rng)}
+              "per-read": per_read_tables(device, B_MESH, rng)[0]}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2689,6 +2717,153 @@ def check_fwbw_kernels(inp, ops, priors_ops) -> dict:
     return with_shape(recs, ev)
 
 
+def run_per_read_fwbw(models, device, card: str, inp, trans_ops,
+                      rng) -> dict:
+    """The per-read fwbw path and its checks.  Per-read structured tables
+    (per_read_tables) of the kernel phase's B_KERNEL x T_KERNEL reads and
+    of the EM chunk's rows (inp), the resident form with each read's
+    packed sides and the streaming one without them.  The path, counted
+    (every kernel count set to 0 just before, read just after): hmm.fwbw
+    and hmm.fwbw_custom at 16 x 2048 and hmm.fwbw at the EM chunk, each in
+    both forms: it must launch the four per-read instances
+    (PER_READ_FWBW) and none of their one-table twins.  Then, outside the
+    count, each instance against its plain version (every output as bits,
+    tolerance 0) on the clean inputs and on nan_fwbw_inputs' copies (NaN
+    events, a +inf event, a NaN model entry), at 16 x 2048 and K6c also at
+    the EM chunk, and each read's outputs against the read alone through
+    the one-table kernel of the same form under its own table
+    (convert.trans_ops of build_structured at its kinetics), as bits.
+    Then each instance timed in turns with its one-table twin (the loaded
+    table `trans_ops`, or it without its packed layout) on the same
+    events: K6c at the EM chunk, K6e at 16 x 2048 and at one read of
+    TOOLS_EVENTS (run-fwbw's).  Returns {"launches": the path's counts,
+    "recs": {kernel name: record}}."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch import convert, roofline, transitions
+    from nanocall_tpu_torch.ops import hmm, kernels
+
+    wrappers = {k.name: k.wrapper for k in kernels.KERNELS}
+    _, model, ev = kernel_inputs(models, device, B_KERNEL, T_KERNEL, rng)
+    em_model, em_ev = inp["model"], inp["ev"]
+    B_em = em_ev["mean"].shape[0]
+    ops16, params16 = per_read_tables(device, B_KERNEL, rng)
+    t0 = time.perf_counter()
+    ops_em, params_em = per_read_tables(device, B_em, rng)
+    pack_s = time.perf_counter() - t0
+
+    def form(ops, f):
+        return ops if f == "resident" else ops._replace(fwbw_packed=None)
+
+    def run(name, ops, m, e):
+        fn, f, _ = PER_READ_FWBW[name]
+        return getattr(hmm, fn)(form(ops, f), m, e)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for name, (fn, _, _) in PER_READ_FWBW.items():
+        run(name, ops16, model, ev)
+        if fn == "fwbw":
+            run(name, ops_em, em_model, em_ev)
+    torch.cuda.synchronize()
+    launches = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+    for name, (_, _, twin) in PER_READ_FWBW.items():
+        assert launches[name] >= 1, f"the per-read fwbw path ran no {name}"
+        assert launches[twin] == 0, f"the per-read fwbw path ran {twin}"
+
+    t_alone = time.perf_counter()
+    alone16, alone_em = ([convert.trans_ops(transitions.build_structured(
+        transitions.TransitionParams(*p), 6), device) for p in params]
+        for params in (params16, params_em))
+    t_alone = time.perf_counter() - t_alone
+    errs, plain_ms = {}, {}
+    small = f"{B_KERNEL} x {T_KERNEL}"
+    cases = [(small, ops16, alone16, model, ev),
+             (f"{small}, NaN", ops16, alone16,
+              *nan_fwbw_inputs(model, ev, (4, 5, 6))),
+             ("EM chunk", ops_em, alone_em, em_model, em_ev),
+             ("EM chunk, NaN", ops_em, alone_em,
+              *nan_fwbw_inputs(em_model, em_ev, (5, 7, 6)))]
+    for what, ops, alone, m, e in cases:
+        for fn, plain in (("fwbw", hmm.fwbw_plain),
+                          ("fwbw_custom", hmm.fwbw_custom_plain)):
+            if fn == "fwbw_custom" and what.startswith("EM"):
+                continue
+            plain_ms[fn, what], want = cuda_ms_once(
+                lambda: plain(ops, m, e))
+            if "NaN" in what:
+                key = "gamma" if fn == "fwbw_custom" else "alpha"
+                assert torch.isnan(want[key]).any(), (fn, what)
+            for name, (fn_, f, twin) in PER_READ_FWBW.items():
+                if fn_ != fn:
+                    continue
+                got = run(name, ops, m, e)
+                torch.cuda.synchronize()
+                for k in want:
+                    assert torch.equal(bits(got[k]), bits(want[k])), \
+                        f"{name} {k} differs from plain ({what})"
+                    errs[name, what, k] = max_err(got[k], want[k])
+                for b, one in enumerate(alone):
+                    solo = wrappers[twin](
+                        form(one, f),
+                        hmm.ModelArrays(*(x[b:b + 1] for x in m)),
+                        {k: v[b:b + 1] for k, v in e.items()})
+                    for k in want:
+                        assert torch.equal(bits(got[k][b]),
+                                           bits(solo[k][0])), \
+                            (f"{name} {k} of read {b} differs from the "
+                             f"read alone through {twin} ({what})")
+                del got
+            del want
+    worst = {n: max(v for k, v in errs.items() if k[0] == n)
+             for n in PER_READ_FWBW}
+    print(f"per-read fwbw: {B_em} reads' tables packed in {pack_s:.2f} s, "
+          f"{B_KERNEL + B_em} one-table TransOps built in {t_alone:.2f} s; "
+          f"max |kernel - plain| over every output, clean and NaN: {worst}")
+
+    # one read of TOOLS_EVENTS events: kernel_inputs' first read, of full
+    # length
+    _, m4, e4 = kernel_inputs(models, device, 4, TOOLS_EVENTS, rng)
+    solo_model = hmm.ModelArrays(*(x[:1].contiguous() for x in m4))
+    solo_ev = {k: v[:1].contiguous() for k, v in e4.items()}
+    assert int(solo_ev["length"][0]) == TOOLS_EVENTS
+    ops1 = per_read_tables(device, 1, rng)[0]
+    recs = {}
+    for name, (fn, f, twin) in PER_READ_FWBW.items():
+        shapes = ([("EM chunk", ops_em, em_model, em_ev)] if fn == "fwbw"
+                  else [(small, ops16, model, ev),
+                        ("1 read", ops1, solo_model, solo_ev)])
+        rec = None
+        for what, ops, m, e in shapes:
+            turns = time_in_turns({
+                name: lambda: wrappers[name](form(ops, f), m, e),
+                twin: lambda: wrappers[twin](form(trans_ops, f), m, e)})
+            B, T = e["mean"].shape
+            r = {"ms": turns[name]["ms"], "ms_turns": turns[name]["ms_turns"],
+                 "one_table_ms": turns[twin]["ms"],
+                 "one_table_ms_turns": turns[twin]["ms_turns"],
+                 "shape": [B, T]}
+            bound = roofline.kernel_bound(name, B, T)
+            print(f"kernel {name} (per-read {f} "
+                  f"{'K6c' if fn == 'fwbw' else 'K6e'}): B={B} T={T} "
+                  f"bit-equal to plain and each read to its one-table run; "
+                  f"{r['ms']:.3f} ms (turns {r['ms_turns']}) vs the "
+                  f"one-table {twin} {r['one_table_ms']:.3f} ms (turns "
+                  f"{r['one_table_ms_turns']}), "
+                  f"{r['ms'] / r['one_table_ms']:.3f}x; bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
+                  f"[{card}]")
+            if rec is None:
+                rec = r
+            else:
+                rec["one_read"] = r
+        rec["plain_ms"] = plain_ms[fn, shapes[0][0]]
+        rec["max_abs_err"] = worst[name]
+        recs[name] = rec
+    return {"launches": launches, "recs": recs}
+
+
 def check_fma_kernel(device) -> dict:
     """K8 against its plain version on the same card at B_KERNEL rows of
     n = 4096 lanes, T_KERNEL steps of roofline.FMA_K FMAs, on
@@ -3116,22 +3291,24 @@ def check_sass_claims() -> dict:
     k6b = walk_loop_sass("viterbi_generic_traceback_ring_kernel")
     assert k6b["lds"] >= 2 and k6b["ldg"] == 0 and k6b["stg"] >= 1, k6b
     k6c = {}
-    for name in kernel_instances("fwbw_resident_kernel"):
+    for name in (kernel_instances("fwbw_resident_kernel")
+                 + kernel_instances("fwbw_resident_batch_kernel")):
         loops = k6c[name] = barrier_loops_sass(name)
         assert len(loops) == 2, (name, loops)
         for lp in loops:
             assert lp["bar"] >= 1 and lp["ldg"] <= 4 and not lp["ldg_16"], \
                 (name, loops)
-    assert k6c, "no resident K6c in the built library"
+    assert len(k6c) == 4, "not the 4 resident K6c instances in the library"
     k6e = {}
-    for name in kernel_instances("fwbw_custom_resident_kernel"):
+    for name in (kernel_instances("fwbw_custom_resident_kernel")
+                 + kernel_instances("fwbw_custom_resident_batch_kernel")):
         loops = k6e[name] = barrier_loops_sass(name)
         assert len(loops) == 2, (name, loops)
         (fwd, bwd) = loops
         assert fwd["bar"] == 3 and fwd["ldg"] <= 3, (name, loops)
         assert bwd["bar"] == 1 and bwd["ldg"] <= 8, (name, loops)
         assert not fwd["ldg_16"] and not bwd["ldg_16"], (name, loops)
-    assert len(k6e) == 2, "not both resident K6e instances in the library"
+    assert len(k6e) == 4, "not the 4 resident K6e instances in the library"
     return {"K4": k4, "K6d": k6d, "K2 walk": k2, "K2m walk": k2m,
             "K6bm walk": k6bm,
             "K6b ring walk": k6b, "K6c resident": k6c, "K6e resident": k6e,
@@ -3808,7 +3985,11 @@ def main() -> int:
             print(f"K6e resident SASS ({name}), {what} time loop (its state "
                   f"loop counted once): {lp}; {lp['bar']} block barriers, "
                   f"no slot-table byte from global memory")
-    for what, marker in (("K6c streaming", "fwbw_generic_kernel"),):
+    for what, marker in (
+            ("K6c streaming", "fwbw_generic_kernel"),
+            ("K6c streaming per read", "fwbw_generic_batch_kernel"),
+            ("K6e streaming", "fwbw_custom_kernel"),
+            ("K6e streaming per read", "fwbw_custom_batch_kernel")):
         print(f"{what} SASS: {step_loop_sass(marker)}")
 
     stamp("models, tables and the decode kernels at 16 x 2048")
@@ -3983,6 +4164,12 @@ def main() -> int:
           f"{em['fwbw_grouped_backward']['ms']:.3f} ms on the full chunk, "
           f"{em['fwbw_grouped_backward']['half_idle_ms']:.3f} ms on the "
           f"half-idle one [{card}]")
+    stamp("the per-read forward-backward")
+    t0 = time.perf_counter()
+    per_read_fwbw = run_per_read_fwbw(models, device, card, inp, trans[2],
+                                      np.random.default_rng(2030))
+    recs.update(per_read_fwbw["recs"])
+    print(f"per-read fwbw phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     em.update(check_em_statepar(inp, card))
     print(f"EM state-axis phase: {time.perf_counter() - t0:.1f} s")
@@ -4093,6 +4280,7 @@ def main() -> int:
             "generic_mesh": generic_mesh["launches"],
             "dryrun": dry["launches"],
             "legacy_mesh": legacy["launches"],
+            "per_read_fwbw": per_read_fwbw["launches"],
             "sharded_untrained": sharded["untrained"]["launches"],
             "sharded_trained": sharded["trained"]["launches"],
             "multihost": multihost_launches}
@@ -4107,7 +4295,7 @@ def main() -> int:
                    if k.name in instances else {})}
                for k in kernels.KERNELS]
     assert [len(v) for v in instances.values()] == [6, 6], instances
-    assert len(records) == 31 and all(r["launches"] for r in records), \
+    assert len(records) == 35 and all(r["launches"] for r in records), \
         {r["name"]: r["launches"] for r in records}
     for r in records:
         shape = tuple(r["shape"])

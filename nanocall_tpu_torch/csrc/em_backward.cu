@@ -875,9 +875,12 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
     __syncthreads();  // the record's writes, before the counter
     if (tid == 0) st_flag<SYS>(pflag[rank], ph_end + 1);
     if (rank != 0) return;
+    // lane l of warp 0 acquires the ranks that lane l of each group reads
+    // below (wait_fold_ranks); the block barrier orders those acquires
+    // before every warp's reads
     if (warp == 0) {
       __syncwarp();
-      wait_ranks<SYS>(x, pflag, ph_end + 1, lane);
+      wait_fold_ranks<SYS>(x, pflag, ph_end + 1, lane);
     }
     __syncthreads();
   }

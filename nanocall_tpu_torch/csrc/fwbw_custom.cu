@@ -73,6 +73,12 @@
 // tools/torch_decode_times.py --custom, NVIDIA H100 80GB HBM3, 700 W, in
 // turns.)
 //
+// Per-read tables (ops/hmm.py make_trans_ops_batch): as K6c's kernels
+// (fwbw_generic.cu), each kernel has a second instance (*_batch_kernel)
+// whose block b takes its read's own log-probs (streaming) or packed
+// layout and codebooks (resident) of both sides; from_idx / to_idx are
+// every read's, and the one-table instances compile as before.
+//
 // Build with -fmad=false: every float operation then rounds on its own, as
 // each elementwise PyTorch op does, so both kernels are bit-identical to
 // fwbw_custom_plain in nanocall_tpu_torch/ops/hmm.py on the card.
@@ -105,23 +111,24 @@ __device__ __forceinline__ void block_norm(const float (&x)[4],
   for (int i = 0; i < 4; ++i) out[i] = x[i] - c;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-fwbw_custom_kernel(const float* __restrict__ ev_mean,
-                   const float* __restrict__ ev_stdv,
-                   const float* __restrict__ ev_log_stdv,
-                   const int32_t* __restrict__ length, int B, int T,
-                   int deg_from, const int32_t* __restrict__ from_idx,
-                   const float* __restrict__ from_logp, int deg_to,
-                   const int32_t* __restrict__ to_idx,
-                   const float* __restrict__ to_logp,
-                   const float* __restrict__ level_mean,
-                   const float* __restrict__ level_stdv,
-                   const float* __restrict__ log_level_stdv,
-                   const float* __restrict__ sd_mean,
-                   const float* __restrict__ sd_lambda,
-                   const float* __restrict__ log_sd_lambda, float log2pi,
-                   float log_n, float* __restrict__ alphas,
-                   float* __restrict__ betas, float* __restrict__ gammas) {
+// K6e's streaming body, inlined into its two kernels.  kBatch: per-read
+// slot log-probs, from_logp / to_logp (B, deg, N), of which read b takes
+// its own (deg, N) tables; from_idx / to_idx (deg, N) are every read's.
+template <bool kBatch>
+__device__ __forceinline__ void fwbw_custom_body(
+    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
+    const float* __restrict__ ev_log_stdv,
+    const int32_t* __restrict__ length, int B, int T, int deg_from,
+    const int32_t* __restrict__ from_idx,
+    const float* __restrict__ from_logp, int deg_to,
+    const int32_t* __restrict__ to_idx, const float* __restrict__ to_logp,
+    const float* __restrict__ level_mean,
+    const float* __restrict__ level_stdv,
+    const float* __restrict__ log_level_stdv,
+    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
+    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
+    float* __restrict__ alphas, float* __restrict__ betas,
+    float* __restrict__ gammas) {
   __shared__ float sx[N];
   __shared__ float sMax[WARPS];
   __shared__ float sSum[WARPS];
@@ -139,9 +146,11 @@ fwbw_custom_kernel(const float* __restrict__ ev_mean,
   unpack4(r_slam, load4(sd_lambda + row));
   unpack4(r_lsl, load4(log_sd_lambda + row));
   const int4* fidx = reinterpret_cast<const int4*>(from_idx) + tid;
-  const float4* flp = reinterpret_cast<const float4*>(from_logp) + tid;
+  const float4* flp = reinterpret_cast<const float4*>(from_logp) + tid +
+                      (kBatch ? (size_t)b * deg_from * N4 : 0);
   const int4* tidx = reinterpret_cast<const int4*>(to_idx) + tid;
-  const float4* tlp = reinterpret_cast<const float4*>(to_logp) + tid;
+  const float4* tlp = reinterpret_cast<const float4*>(to_logp) + tid +
+                      (kBatch ? (size_t)b * deg_to * N4 : 0);
   const float* evm = ev_mean + (size_t)b * T;
   const float* evs = ev_stdv + (size_t)b * T;
   const float* evl = ev_log_stdv + (size_t)b * T;
@@ -212,6 +221,54 @@ fwbw_custom_kernel(const float* __restrict__ ev_mean,
   }
 }
 
+// The streaming K6e under one table for every read.
+__global__ void __launch_bounds__(THREADS, 1)
+fwbw_custom_kernel(const float* __restrict__ ev_mean,
+                   const float* __restrict__ ev_stdv,
+                   const float* __restrict__ ev_log_stdv,
+                   const int32_t* __restrict__ length, int B, int T,
+                   int deg_from, const int32_t* __restrict__ from_idx,
+                   const float* __restrict__ from_logp, int deg_to,
+                   const int32_t* __restrict__ to_idx,
+                   const float* __restrict__ to_logp,
+                   const float* __restrict__ level_mean,
+                   const float* __restrict__ level_stdv,
+                   const float* __restrict__ log_level_stdv,
+                   const float* __restrict__ sd_mean,
+                   const float* __restrict__ sd_lambda,
+                   const float* __restrict__ log_sd_lambda, float log2pi,
+                   float log_n, float* __restrict__ alphas,
+                   float* __restrict__ betas, float* __restrict__ gammas) {
+  fwbw_custom_body<false>(
+      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
+      from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
+      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
+      alphas, betas, gammas);
+}
+
+// The streaming K6e under per-read log-probs (B, deg, N).
+__global__ void __launch_bounds__(THREADS, 1)
+fwbw_custom_batch_kernel(
+    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
+    const float* __restrict__ ev_log_stdv,
+    const int32_t* __restrict__ length, int B, int T, int deg_from,
+    const int32_t* __restrict__ from_idx,
+    const float* __restrict__ from_logp, int deg_to,
+    const int32_t* __restrict__ to_idx, const float* __restrict__ to_logp,
+    const float* __restrict__ level_mean,
+    const float* __restrict__ level_stdv,
+    const float* __restrict__ log_level_stdv,
+    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
+    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
+    float* __restrict__ alphas, float* __restrict__ betas,
+    float* __restrict__ gammas) {
+  fwbw_custom_body<true>(
+      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
+      from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
+      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
+      alphas, betas, gammas);
+}
+
 // norm(x) of the resident mapping (the thread's states 1024 i + tid):
 // the max, then the four blocks' pairwise trees of exp(x - m), each over
 // the warp's lanes then the 32 warps (sSum[i] holds block i's warp sums),
@@ -243,28 +300,24 @@ __device__ __forceinline__ void block_norm_resident(const float (&x)[4],
 // Dynamic shared memory as K6c's resident kernel: the gathered vector
 // (2 x N float32, double-buffered), then one side's codebooks and packed
 // table (resident_slots.cuh), deg the larger side's.  DEG > 0: both sides
-// have DEG slots.
-template <int DEG>
-__global__ void __launch_bounds__(THREADS, 1)
-fwbw_custom_resident_kernel(const float* __restrict__ ev_mean,
-                            const float* __restrict__ ev_stdv,
-                            const float* __restrict__ ev_log_stdv,
-                            const int32_t* __restrict__ length, int B, int T,
-                            int deg_from,
-                            const uint16_t* __restrict__ from_packed,
-                            const float* __restrict__ from_book, int deg_to,
-                            const uint16_t* __restrict__ to_packed,
-                            const float* __restrict__ to_book,
-                            const float* __restrict__ level_mean,
-                            const float* __restrict__ level_stdv,
-                            const float* __restrict__ log_level_stdv,
-                            const float* __restrict__ sd_mean,
-                            const float* __restrict__ sd_lambda,
-                            const float* __restrict__ log_sd_lambda,
-                            float log2pi, float log_n,
-                            float* __restrict__ alphas,
-                            float* __restrict__ betas,
-                            float* __restrict__ gammas) {
+// have DEG slots.  The body, inlined into K6e's two resident kernels.
+// kBatch: per-read layouts, packed (B, deg, N) and codebooks (B, deg,
+// GROUPS x CODES) a side, of which read b copies its own.
+template <int DEG, bool kBatch>
+__device__ __forceinline__ void fwbw_custom_resident_body(
+    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
+    const float* __restrict__ ev_log_stdv,
+    const int32_t* __restrict__ length, int B, int T, int deg_from,
+    const uint16_t* __restrict__ from_packed,
+    const float* __restrict__ from_book, int deg_to,
+    const uint16_t* __restrict__ to_packed,
+    const float* __restrict__ to_book, const float* __restrict__ level_mean,
+    const float* __restrict__ level_stdv,
+    const float* __restrict__ log_level_stdv,
+    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
+    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
+    float* __restrict__ alphas, float* __restrict__ betas,
+    float* __restrict__ gammas) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
   __shared__ float sMax[WARPS];
@@ -284,7 +337,11 @@ fwbw_custom_resident_kernel(const float* __restrict__ ev_mean,
   // the from side into shared memory (resident_slots.cuh)
   if (tid == 0) {
     mbar_init_expect(bar_addr, side_bytes(deg_from));
-    copy_side(book, table, deg_from, from_packed, from_book, bar_addr);
+    copy_side(book, table, deg_from,
+              from_packed + (kBatch ? (size_t)b * deg_from * N : 0),
+              from_book + (kBatch ? (size_t)b * deg_from * GROUPS * CODES
+                                  : 0),
+              bar_addr);
   }
 
   // the model rows of the thread's states, the emission's loop-invariant
@@ -372,7 +429,10 @@ fwbw_custom_resident_kernel(const float* __restrict__ ev_mean,
   if (tid == 0) {
     fence_proxy_async();
     mbar_expect(bar_addr, side_bytes(deg_to));
-    copy_side(book, table, deg_to, to_packed, to_book, bar_addr);
+    copy_side(book, table, deg_to,
+              to_packed + (kBatch ? (size_t)b * deg_to * N : 0),
+              to_book + (kBatch ? (size_t)b * deg_to * GROUPS * CODES : 0),
+              bar_addr);
   }
 
   // backward: gm = gamma_{t+1}, from gamma_{T-1} = beta_{T-1}; for
@@ -415,9 +475,64 @@ fwbw_custom_resident_kernel(const float* __restrict__ ev_mean,
   }
 }
 
+// The resident K6e under one table's layout for every read.
+template <int DEG>
+__global__ void __launch_bounds__(THREADS, 1)
+fwbw_custom_resident_kernel(const float* __restrict__ ev_mean,
+                            const float* __restrict__ ev_stdv,
+                            const float* __restrict__ ev_log_stdv,
+                            const int32_t* __restrict__ length, int B, int T,
+                            int deg_from,
+                            const uint16_t* __restrict__ from_packed,
+                            const float* __restrict__ from_book, int deg_to,
+                            const uint16_t* __restrict__ to_packed,
+                            const float* __restrict__ to_book,
+                            const float* __restrict__ level_mean,
+                            const float* __restrict__ level_stdv,
+                            const float* __restrict__ log_level_stdv,
+                            const float* __restrict__ sd_mean,
+                            const float* __restrict__ sd_lambda,
+                            const float* __restrict__ log_sd_lambda,
+                            float log2pi, float log_n,
+                            float* __restrict__ alphas,
+                            float* __restrict__ betas,
+                            float* __restrict__ gammas) {
+  fwbw_custom_resident_body<DEG, false>(
+      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_packed,
+      from_book, deg_to, to_packed, to_book, level_mean, level_stdv,
+      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
+      alphas, betas, gammas);
+}
+
+// The resident K6e under per-read layouts.
+template <int DEG>
+__global__ void __launch_bounds__(THREADS, 1)
+fwbw_custom_resident_batch_kernel(
+    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
+    const float* __restrict__ ev_log_stdv,
+    const int32_t* __restrict__ length, int B, int T, int deg_from,
+    const uint16_t* __restrict__ from_packed,
+    const float* __restrict__ from_book, int deg_to,
+    const uint16_t* __restrict__ to_packed,
+    const float* __restrict__ to_book, const float* __restrict__ level_mean,
+    const float* __restrict__ level_stdv,
+    const float* __restrict__ log_level_stdv,
+    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
+    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
+    float* __restrict__ alphas, float* __restrict__ betas,
+    float* __restrict__ gammas) {
+  fwbw_custom_resident_body<DEG, true>(
+      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_packed,
+      from_book, deg_to, to_packed, to_book, level_mean, level_stdv,
+      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
+      alphas, betas, gammas);
+}
+
 }  // namespace
 
-// Plain C entry for ctypes.  Returns cudaGetLastError() after the launch.
+// Plain C entry for ctypes.  per_read: from_logp / to_logp (B, deg, N),
+// read b's tables its own (from_idx / to_idx are every read's).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int nc_fwbw_custom(
     const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
     const int32_t* length, int B, int T, int deg_from,
@@ -426,11 +541,12 @@ extern "C" int nc_fwbw_custom(
     const float* level_stdv, const float* log_level_stdv,
     const float* sd_mean, const float* sd_lambda, const float* log_sd_lambda,
     float log2pi, float log_n, float* alphas, float* betas, float* gammas,
-    int device, void* stream) {
+    int per_read, int device, void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && T > 0) {
-    fwbw_custom_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+    auto kernel = per_read ? fwbw_custom_batch_kernel : fwbw_custom_kernel;
+    kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
         ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
         from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
         log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
@@ -441,8 +557,9 @@ extern "C" int nc_fwbw_custom(
 
 // The resident kernel: each side's `packed` (deg, N) uint16 and `book`
 // (deg, GROUPS * CODES) float32 as ops/hmm.py pack_fwbw_sides lays them
-// out, all 16-byte aligned, 1 to MAX_DEG slots a side.  Its dynamic shared
-// memory is set for every launch.
+// out (per_read: (B, deg, N) and (B, deg, GROUPS * CODES), read b's its
+// own), all 16-byte aligned, 1 to MAX_DEG slots a side.  Its dynamic
+// shared memory is set for every launch.
 extern "C" int nc_fwbw_custom_resident(
     const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
     const int32_t* length, int B, int T, int deg_from,
@@ -451,8 +568,8 @@ extern "C" int nc_fwbw_custom_resident(
     const float* level_mean, const float* level_stdv,
     const float* log_level_stdv, const float* sd_mean,
     const float* sd_lambda, const float* log_sd_lambda, float log2pi,
-    float log_n, float* alphas, float* betas, float* gammas, int device,
-    void* stream) {
+    float log_n, float* alphas, float* betas, float* gammas, int per_read,
+    int device, void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (deg_from < 1 || deg_from > MAX_DEG || deg_to < 1 || deg_to > MAX_DEG)
@@ -460,9 +577,12 @@ extern "C" int nc_fwbw_custom_resident(
   if (B > 0 && T > 0) {
     const int deg = deg_from > deg_to ? deg_from : deg_to;
     const int smem = 2 * nc::N * 4 + deg * (GROUPS * CODES * 4 + nc::N * 2);
-    auto kernel = deg_from == 21 && deg_to == 21
-                      ? fwbw_custom_resident_kernel<21>
-                      : fwbw_custom_resident_kernel<0>;
+    const bool r73 = deg_from == 21 && deg_to == 21;
+    auto kernel =
+        per_read ? (r73 ? fwbw_custom_resident_batch_kernel<21>
+                        : fwbw_custom_resident_batch_kernel<0>)
+                 : (r73 ? fwbw_custom_resident_kernel<21>
+                        : fwbw_custom_resident_kernel<0>);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;

@@ -521,10 +521,7 @@ fwbw_forward_wave_kernel(const FwdWaveRank* __restrict__ wave, int B, int T,
         st_flag<SYS>(pflag[rank], T + 1);
       }
       __syncwarp();
-      wait_ranks<SYS>(x, pflag, T + 1, lane);
-      // lane p waited on ranks p and p + 32, and reads ranks 2 p and 2 p +
-      // 1 at 64 ranks: every lane's acquire comes before any lane's read
-      __syncwarp();
+      wait_fold_ranks<SYS>(x, pflag, T + 1, lane);
       const int per_lane = ranks > 32 ? 2 : 1;
       const int lanes = ranks / per_lane;
       float sv = 0.0f;

@@ -72,6 +72,18 @@
 // slot and state (3 shared loads, the entry's cut, the max, the precise
 // expf and the sums).  Only B of the 132 SMs work when B < 132.
 //
+// Per-read tables (ops/hmm.py make_trans_ops_batch, JAX's
+// make_trans_ops_batch: read b runs under its own kinetics): each kernel
+// has a second instance (*_batch_kernel) whose block b takes its read's
+// own (deg, N) log-probs of both sides (streaming) or packed layout and
+// codebooks of both sides (resident), at b deg N (b deg GROUPS CODES)
+// from the start of the (B, ...) tables; from_idx / to_idx are every
+// read's.  The bodies are shared and inlined, so the one-table instances
+// compile as before.  What it changes: the resident kernels copy each
+// side once a pass, as before, from distinct addresses; the streaming
+// kernels' blocks no longer share one table in L2 (132 blocks x 344 KB of
+// log-probs a side is about the L2's 50 MB).
+//
 // Build with -fmad=false: every float operation then rounds on its own, as
 // each elementwise PyTorch op does, so both kernels are bit-identical to
 // fwbw_plain in nanocall_tpu_torch/ops/hmm.py on the card.
@@ -83,24 +95,24 @@ namespace {
 
 using namespace nc;
 
-__global__ void __launch_bounds__(THREADS, 1)
-fwbw_generic_kernel(const float* __restrict__ ev_mean,
-                    const float* __restrict__ ev_stdv,
-                    const float* __restrict__ ev_log_stdv,
-                    const int32_t* __restrict__ length, int B, int T,
-                    int deg_from, const int32_t* __restrict__ from_idx,
-                    const float* __restrict__ from_logp, int deg_to,
-                    const int32_t* __restrict__ to_idx,
-                    const float* __restrict__ to_logp,
-                    const float* __restrict__ level_mean,
-                    const float* __restrict__ level_stdv,
-                    const float* __restrict__ log_level_stdv,
-                    const float* __restrict__ sd_mean,
-                    const float* __restrict__ sd_lambda,
-                    const float* __restrict__ log_sd_lambda, float log2pi,
-                    float log_n, float* __restrict__ alphas,
-                    float* __restrict__ betas, float* __restrict__ ems,
-                    float* __restrict__ lpd) {
+// K6c's streaming body, inlined into its two kernels.  kBatch: per-read
+// slot log-probs, from_logp / to_logp (B, deg, N), of which read b takes
+// its own (deg, N) tables; from_idx / to_idx (deg, N) are every read's.
+template <bool kBatch>
+__device__ __forceinline__ void fwbw_generic_body(
+    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
+    const float* __restrict__ ev_log_stdv,
+    const int32_t* __restrict__ length, int B, int T, int deg_from,
+    const int32_t* __restrict__ from_idx,
+    const float* __restrict__ from_logp, int deg_to,
+    const int32_t* __restrict__ to_idx, const float* __restrict__ to_logp,
+    const float* __restrict__ level_mean,
+    const float* __restrict__ level_stdv,
+    const float* __restrict__ log_level_stdv,
+    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
+    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
+    float* __restrict__ alphas, float* __restrict__ betas,
+    float* __restrict__ ems, float* __restrict__ lpd) {
   __shared__ float sx[N];
   __shared__ float sMax[WARPS];
   __shared__ float sSum[WARPS];
@@ -118,9 +130,11 @@ fwbw_generic_kernel(const float* __restrict__ ev_mean,
   unpack4(r_slam, load4(sd_lambda + row));
   unpack4(r_lsl, load4(log_sd_lambda + row));
   const int4* fidx = reinterpret_cast<const int4*>(from_idx) + tid;
-  const float4* flp = reinterpret_cast<const float4*>(from_logp) + tid;
+  const float4* flp = reinterpret_cast<const float4*>(from_logp) + tid +
+                      (kBatch ? (size_t)b * deg_from * N4 : 0);
   const int4* tidx = reinterpret_cast<const int4*>(to_idx) + tid;
-  const float4* tlp = reinterpret_cast<const float4*>(to_logp) + tid;
+  const float4* tlp = reinterpret_cast<const float4*>(to_logp) + tid +
+                      (kBatch ? (size_t)b * deg_to * N4 : 0);
   const float* evm = ev_mean + (size_t)b * T;
   const float* evs = ev_stdv + (size_t)b * T;
   const float* evl = ev_log_stdv + (size_t)b * T;
@@ -202,31 +216,79 @@ fwbw_generic_kernel(const float* __restrict__ ev_mean,
   }
 }
 
+// The streaming K6c under one table for every read.
+__global__ void __launch_bounds__(THREADS, 1)
+fwbw_generic_kernel(const float* __restrict__ ev_mean,
+                    const float* __restrict__ ev_stdv,
+                    const float* __restrict__ ev_log_stdv,
+                    const int32_t* __restrict__ length, int B, int T,
+                    int deg_from, const int32_t* __restrict__ from_idx,
+                    const float* __restrict__ from_logp, int deg_to,
+                    const int32_t* __restrict__ to_idx,
+                    const float* __restrict__ to_logp,
+                    const float* __restrict__ level_mean,
+                    const float* __restrict__ level_stdv,
+                    const float* __restrict__ log_level_stdv,
+                    const float* __restrict__ sd_mean,
+                    const float* __restrict__ sd_lambda,
+                    const float* __restrict__ log_sd_lambda, float log2pi,
+                    float log_n, float* __restrict__ alphas,
+                    float* __restrict__ betas, float* __restrict__ ems,
+                    float* __restrict__ lpd) {
+  fwbw_generic_body<false>(
+      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
+      from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
+      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
+      alphas, betas, ems, lpd);
+}
+
+// The streaming K6c under per-read log-probs (B, deg, N).
+__global__ void __launch_bounds__(THREADS, 1)
+fwbw_generic_batch_kernel(
+    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
+    const float* __restrict__ ev_log_stdv,
+    const int32_t* __restrict__ length, int B, int T, int deg_from,
+    const int32_t* __restrict__ from_idx,
+    const float* __restrict__ from_logp, int deg_to,
+    const int32_t* __restrict__ to_idx, const float* __restrict__ to_logp,
+    const float* __restrict__ level_mean,
+    const float* __restrict__ level_stdv,
+    const float* __restrict__ log_level_stdv,
+    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
+    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
+    float* __restrict__ alphas, float* __restrict__ betas,
+    float* __restrict__ ems, float* __restrict__ lpd) {
+  fwbw_generic_body<true>(
+      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
+      from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
+      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
+      alphas, betas, ems, lpd);
+}
+
 // Dynamic shared memory: the gathered vector (2 x N float32,
 // double-buffered), the codebooks (deg x GROUPS x CODES float32), the
 // packed table (deg x N uint16), deg the larger side's; one side at a time.
 // Thread tid holds the states 1024 i + tid, i < 4 (block i of the
 // codebooks): a warp's entry reads are 64 contiguous bytes and its
 // codebook reads one block's 16 words.  DEG > 0: both sides have DEG slots.
-template <int DEG>
-__global__ void __launch_bounds__(THREADS, 1)
-fwbw_resident_kernel(const float* __restrict__ ev_mean,
-                     const float* __restrict__ ev_stdv,
-                     const float* __restrict__ ev_log_stdv,
-                     const int32_t* __restrict__ length, int B, int T,
-                     int deg_from, const uint16_t* __restrict__ from_packed,
-                     const float* __restrict__ from_book, int deg_to,
-                     const uint16_t* __restrict__ to_packed,
-                     const float* __restrict__ to_book,
-                     const float* __restrict__ level_mean,
-                     const float* __restrict__ level_stdv,
-                     const float* __restrict__ log_level_stdv,
-                     const float* __restrict__ sd_mean,
-                     const float* __restrict__ sd_lambda,
-                     const float* __restrict__ log_sd_lambda, float log2pi,
-                     float log_n, float* __restrict__ alphas,
-                     float* __restrict__ betas, float* __restrict__ ems,
-                     float* __restrict__ lpd) {
+// The body, inlined into K6c's two resident kernels.  kBatch: per-read
+// layouts, packed (B, deg, N) and codebooks (B, deg, GROUPS x CODES) a
+// side, of which read b copies its own.
+template <int DEG, bool kBatch>
+__device__ __forceinline__ void fwbw_resident_body(
+    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
+    const float* __restrict__ ev_log_stdv,
+    const int32_t* __restrict__ length, int B, int T, int deg_from,
+    const uint16_t* __restrict__ from_packed,
+    const float* __restrict__ from_book, int deg_to,
+    const uint16_t* __restrict__ to_packed,
+    const float* __restrict__ to_book, const float* __restrict__ level_mean,
+    const float* __restrict__ level_stdv,
+    const float* __restrict__ log_level_stdv,
+    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
+    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
+    float* __restrict__ alphas, float* __restrict__ betas,
+    float* __restrict__ ems, float* __restrict__ lpd) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
   __shared__ float sMax[WARPS];
@@ -246,7 +308,11 @@ fwbw_resident_kernel(const float* __restrict__ ev_mean,
   // the from side into shared memory (resident_slots.cuh)
   if (tid == 0) {
     mbar_init_expect(bar_addr, side_bytes(deg_from));
-    copy_side(book, table, deg_from, from_packed, from_book, bar_addr);
+    copy_side(book, table, deg_from,
+              from_packed + (kBatch ? (size_t)b * deg_from * N : 0),
+              from_book + (kBatch ? (size_t)b * deg_from * GROUPS * CODES
+                                  : 0),
+              bar_addr);
   }
 
   const int len = length[b];
@@ -338,7 +404,10 @@ fwbw_resident_kernel(const float* __restrict__ ev_mean,
   if (tid == 0) {
     fence_proxy_async();
     mbar_expect(bar_addr, side_bytes(deg_to));
-    copy_side(book, table, deg_to, to_packed, to_book, bar_addr);
+    copy_side(book, table, deg_to,
+              to_packed + (kBatch ? (size_t)b * deg_to * N : 0),
+              to_book + (kBatch ? (size_t)b * deg_to * GROUPS * CODES : 0),
+              bar_addr);
   }
   {
     const float mx = warp_amax(amax(amax(a[0], a[1]), amax(a[2], a[3])));
@@ -386,9 +455,62 @@ fwbw_resident_kernel(const float* __restrict__ ev_mean,
   }
 }
 
+// The resident K6c under one table's layout for every read.
+template <int DEG>
+__global__ void __launch_bounds__(THREADS, 1)
+fwbw_resident_kernel(const float* __restrict__ ev_mean,
+                     const float* __restrict__ ev_stdv,
+                     const float* __restrict__ ev_log_stdv,
+                     const int32_t* __restrict__ length, int B, int T,
+                     int deg_from, const uint16_t* __restrict__ from_packed,
+                     const float* __restrict__ from_book, int deg_to,
+                     const uint16_t* __restrict__ to_packed,
+                     const float* __restrict__ to_book,
+                     const float* __restrict__ level_mean,
+                     const float* __restrict__ level_stdv,
+                     const float* __restrict__ log_level_stdv,
+                     const float* __restrict__ sd_mean,
+                     const float* __restrict__ sd_lambda,
+                     const float* __restrict__ log_sd_lambda, float log2pi,
+                     float log_n, float* __restrict__ alphas,
+                     float* __restrict__ betas, float* __restrict__ ems,
+                     float* __restrict__ lpd) {
+  fwbw_resident_body<DEG, false>(
+      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_packed,
+      from_book, deg_to, to_packed, to_book, level_mean, level_stdv,
+      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
+      alphas, betas, ems, lpd);
+}
+
+// The resident K6c under per-read layouts.
+template <int DEG>
+__global__ void __launch_bounds__(THREADS, 1)
+fwbw_resident_batch_kernel(
+    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
+    const float* __restrict__ ev_log_stdv,
+    const int32_t* __restrict__ length, int B, int T, int deg_from,
+    const uint16_t* __restrict__ from_packed,
+    const float* __restrict__ from_book, int deg_to,
+    const uint16_t* __restrict__ to_packed,
+    const float* __restrict__ to_book, const float* __restrict__ level_mean,
+    const float* __restrict__ level_stdv,
+    const float* __restrict__ log_level_stdv,
+    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
+    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
+    float* __restrict__ alphas, float* __restrict__ betas,
+    float* __restrict__ ems, float* __restrict__ lpd) {
+  fwbw_resident_body<DEG, true>(
+      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_packed,
+      from_book, deg_to, to_packed, to_book, level_mean, level_stdv,
+      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
+      alphas, betas, ems, lpd);
+}
+
 }  // namespace
 
-// Plain C entry for ctypes.  Returns cudaGetLastError() after the launch.
+// Plain C entry for ctypes.  per_read: from_logp / to_logp (B, deg, N),
+// read b's tables its own (from_idx / to_idx are every read's).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int nc_fwbw_generic(
     const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
     const int32_t* length, int B, int T, int deg_from,
@@ -397,11 +519,12 @@ extern "C" int nc_fwbw_generic(
     const float* level_stdv, const float* log_level_stdv,
     const float* sd_mean, const float* sd_lambda, const float* log_sd_lambda,
     float log2pi, float log_n, float* alphas, float* betas, float* ems,
-    float* lpd, int device, void* stream) {
+    float* lpd, int per_read, int device, void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B > 0 && T > 0) {
-    fwbw_generic_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+    auto kernel = per_read ? fwbw_generic_batch_kernel : fwbw_generic_kernel;
+    kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
         ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
         from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
         log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
@@ -412,7 +535,8 @@ extern "C" int nc_fwbw_generic(
 
 // The resident kernel: each side's `packed` (deg, N) uint16 and `book`
 // (deg, GROUPS * CODES) float32 as ops/hmm.py pack_slots lays them out with
-// groups = GROUPS, all 16-byte aligned, 1 to MAX_DEG slots a side.  Its
+// groups = GROUPS (per_read: (B, deg, N) and (B, deg, GROUPS * CODES), read
+// b's its own), all 16-byte aligned, 1 to MAX_DEG slots a side.  Its
 // dynamic shared memory is set for every launch.
 extern "C" int nc_fwbw_resident(
     const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
@@ -423,7 +547,7 @@ extern "C" int nc_fwbw_resident(
     const float* log_level_stdv, const float* sd_mean,
     const float* sd_lambda, const float* log_sd_lambda, float log2pi,
     float log_n, float* alphas, float* betas, float* ems, float* lpd,
-    int device, void* stream) {
+    int per_read, int device, void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (deg_from < 1 || deg_from > MAX_DEG || deg_to < 1 || deg_to > MAX_DEG)
@@ -433,8 +557,12 @@ extern "C" int nc_fwbw_resident(
     const int smem = 2 * nc::N * 4 + deg * (GROUPS * CODES * 4 + nc::N * 2);
     // the r73 tables' 21 slots a side: the slot loops without bounds tests
     // (the header: 1.2x faster than <0> on them)
-    auto kernel = deg_from == 21 && deg_to == 21 ? fwbw_resident_kernel<21>
-                                                 : fwbw_resident_kernel<0>;
+    const bool r73 = deg_from == 21 && deg_to == 21;
+    auto kernel =
+        per_read
+            ? (r73 ? fwbw_resident_batch_kernel<21>
+                   : fwbw_resident_batch_kernel<0>)
+            : (r73 ? fwbw_resident_kernel<21> : fwbw_resident_kernel<0>);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;

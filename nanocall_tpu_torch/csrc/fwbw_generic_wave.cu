@@ -452,10 +452,7 @@ fwbw_generic_wave_kernel(const FwbwWaveRank* __restrict__ wave, int B,
       if (tid == 0) st_flag<SYS>(x.flag[x.rank], T + 1);
       if (warp == 0) {
         __syncwarp();
-        wait_ranks<SYS>(x, x.flag, T + 1, lane);
-        // lane l waits on ranks l and l + 32 but reads 2 l and 2 l + 1 at
-        // 64 ranks: every lane's wait before any read
-        __syncwarp();
+        wait_fold_ranks<SYS>(x, x.flag, T + 1, lane);
       }
     }
     if (warp == 0) {

@@ -110,27 +110,50 @@ struct Exchange : WaveSync {
   int32_t* flag[MAX_RANKS];
 };
 
-// Until the counter of every peer p (flag[p], p != rank, p < ranks) reaches
-// t (warp 0; lane p waits on rank p, p + 32); after timeout_ns, records (t,
-// read, rank, peer) in the host-mapped word and traps.
+// Until the counter of peer p (flag[p]) reaches t; after timeout_ns,
+// records (t, read, rank, peer) in the host-mapped word and traps.
+template <bool SYS>
+__device__ __forceinline__ void wait_rank(const WaveSync& x,
+                                          int32_t* const* flag, int p,
+                                          int t) {
+  if (ld_flag<SYS>(flag[p]) >= t) return;
+  const unsigned long long t_start = global_ns();
+  while (ld_flag<SYS>(flag[p]) < t) {
+    if ((long long)(global_ns() - t_start) > x.timeout_ns) {
+      volatile int32_t* rec = x.timed_out;
+      rec[1] = x.read;
+      rec[2] = x.rank;
+      rec[3] = p;
+      rec[0] = t;
+      __threadfence_system();
+      __trap();
+    }
+  }
+}
+
+// Until the counter of every peer p (p != rank, p < ranks) reaches t
+// (warp 0; lane p waits on rank p, p + 32).
 template <bool SYS>
 __device__ __forceinline__ void wait_ranks(const WaveSync& x,
                                            int32_t* const* flag, int t,
                                            int lane) {
-  for (int p = lane; p < x.ranks; p += 32) {
-    if (p == x.rank || ld_flag<SYS>(flag[p]) >= t) continue;
-    const unsigned long long t_start = global_ns();
-    while (ld_flag<SYS>(flag[p]) < t) {
-      if ((long long)(global_ns() - t_start) > x.timeout_ns) {
-        volatile int32_t* rec = x.timed_out;
-        rec[1] = x.read;
-        rec[2] = x.rank;
-        rec[3] = p;
-        rec[0] = t;
-        __threadfence_system();
-        __trap();
-      }
-    }
+  for (int p = lane; p < x.ranks; p += 32)
+    if (p != x.rank) wait_rank<SYS>(x, flag, p, t);
+}
+
+// The wait of a fold of one value a rank (log Pr[data]'s partial sums, K5m's
+// records) that warp 0 adds pairwise in rank order: lane l reads rank l,
+// or ranks 2 l and 2 l + 1 at more than 32 ranks, and waits on the
+// counters of those peers, so that each lane's acquire precedes its own
+// reads.
+template <bool SYS>
+__device__ __forceinline__ void wait_fold_ranks(const WaveSync& x,
+                                                int32_t* const* flag, int t,
+                                                int lane) {
+  const int per_lane = x.ranks > 32 ? 2 : 1;
+  for (int q = 0; q < per_lane; ++q) {
+    const int p = per_lane * lane + q;
+    if (p < x.ranks && p != x.rank) wait_rank<SYS>(x, flag, p, t);
   }
 }
 

@@ -202,19 +202,19 @@ def load():
         lib.nc_fwbw_generic.restype = ci
         lib.nc_fwbw_generic.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
-            + [vp] * 4 + [ci, vp])
+            + [vp] * 4 + [ci] + [ci, vp])
         lib.nc_fwbw_resident.restype = ci
         lib.nc_fwbw_resident.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
-            + [vp] * 4 + [ci, vp])
+            + [vp] * 4 + [ci] + [ci, vp])
         lib.nc_fwbw_custom.restype = ci
         lib.nc_fwbw_custom.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
-            + [vp] * 3 + [ci, vp])
+            + [vp] * 3 + [ci] + [ci, vp])
         lib.nc_fwbw_custom_resident.restype = ci
         lib.nc_fwbw_custom_resident.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
-            + [vp] * 3 + [ci, vp])
+            + [vp] * 3 + [ci] + [ci, vp])
         lib.nc_fwbw_backward.restype = ci
         lib.nc_fwbw_backward.argtypes = (
             [vp] * 4 + [ci, ci] + [vp] * 9 + [cf] + [vp] + [ci, vp])

@@ -147,7 +147,8 @@ class GroupedTransFull(NamedTuple):
 class PackedSides(NamedTuple):
     """Both sides of a table in the resident K6c's layout (pack_slots with
     groups = FWBW_GROUPS): (deg, 4096) int16 entries and (deg, FWBW_GROUPS
-    * RESIDENT_CODES) float32 codebooks a side."""
+    * RESIDENT_CODES) float32 codebooks a side; per-read tables
+    (make_trans_ops_batch) carry a leading B, read b's layout its own."""
 
     from_packed: torch.Tensor
     from_codebook: torch.Tensor
@@ -171,12 +172,15 @@ class TransOps(NamedTuple):
     its ring.  convert.trans_ops builds one.
 
     The per-read form (make_trans_ops_batch, JAX's make_trans_ops_batch:
-    read b decodes under its own structured table) has (B, deg, n)
-    from_logp / to_logp and, where every read's table packs, a (B, deg, n)
-    from_packed and (B, deg, RESIDENT_CODES) from_codebook; from_idx,
+    read b runs under its own structured table) has (B, deg, n) from_logp
+    / to_logp and, where every read's table packs, a (B, deg, n)
+    from_packed and (B, deg, RESIDENT_CODES) from_codebook, and where
+    every read's two sides pack, fwbw_packed of (B, deg, n) entries and
+    (B, deg, FWBW_GROUPS * RESIDENT_CODES) codebooks a side; from_idx,
     to_idx and from_states stay (deg, n), the fixed slot map every read
-    shares, and fwbw_packed is None.  The Viterbi decode (K6a, K6b) takes
-    it; the forward-backward (K6c, K6e) and the EM rounds raise."""
+    shares.  The Viterbi decode (K6a, K6b) and the forward-backward (K6c,
+    K6e) take it; the forward-backward on the mesh's state axis (K6cm)
+    raises (refuse_per_read)."""
 
     from_idx: torch.Tensor
     from_logp: torch.Tensor
@@ -1764,21 +1768,19 @@ def per_read(ops: TransOps) -> bool:
 
 def refuse_per_read(ops: TransOps, what: str) -> None:
     """Raise ValueError for per-read tables where `what` takes one shared
-    table: JAX has no caller of the forward-backward or the EM rounds
-    under make_trans_ops_batch, and the port does not take them there."""
+    table: the forward-backward on the mesh's state axis (K6cm), which
+    JAX runs only in the legacy EM round, under one loaded table."""
     if per_read(ops):
         raise ValueError(f"{what} takes one (deg, n) table for every read, "
                          f"not per-read (B, deg, n) tables")
 
 
-def _check_ops(ops: TransOps, dev, B: int | None = None) -> None:
+def _check_ops(ops: TransOps, dev, B: int) -> None:
     """The kernels take K=6 tables of at most 256 slots, as contiguous
     int32 / float32 (deg, 4096) tensors on the launch device; per-read
-    log-probs (B, deg, 4096) where B is given (K6a's forward)."""
+    log-probs (B, deg, 4096) of the events' B."""
     if ops.K != 6:
         raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
-    if B is None:
-        refuse_per_read(ops, "this kernel")
     for side in ("from", "to"):
         idx, logp = getattr(ops, f"{side}_idx"), getattr(ops, f"{side}_logp")
         deg = idx.shape[0]
@@ -2106,24 +2108,33 @@ def make_trans_ops_batch(from_logp, to_logp, K: int) -> TransOps:
     float32 tensors (transitions.build_structured_batch), read b's table
     its own; the slot maps are the fixed 21-slot layout every read shares
     (transitions.slot_from_state; nanocall_tpu/ops/hmm.py:153-157), with
-    K6b's from-state table where it fits (from_state_table) and each
-    read's resident K6a layout where every read's table packs
-    (pack_slots, stacked)."""
+    K6b's from-state table where it fits (from_state_table), each read's
+    resident K6a layout where every read's table packs (pack_slots,
+    stacked) and each read's resident K6c / K6e layout of both sides where
+    every read's two sides pack (pack_fwbw_sides, stacked)."""
     dev = from_logp.device
     from_idx, to_idx, _, _ = transitions._slot_maps(K)
-    layouts = [pack_slots(from_idx, t)
-               for t in from_logp.detach().cpu().numpy()]
-    packed = book = None
-    if layouts and None not in layouts:
-        packed, book = (torch.from_numpy(np.stack(x)).to(dev)
-                        for x in zip(*layouts))
+    flp = from_logp.detach().cpu().numpy()
+    tlp = to_logp.detach().cpu().numpy()
+
+    def stacked(layouts):
+        """Each array of the reads' layouts stacked on `dev`, or Nones
+        unless every read has one (and there is a read)."""
+        if not layouts or None in layouts:
+            return None
+        return [torch.from_numpy(np.stack(x)).to(dev) for x in zip(*layouts)]
+
+    packed = stacked([pack_slots(from_idx, t) for t in flp]) or (None, None)
+    sides = stacked([pack_fwbw_sides(from_idx, f, to_idx, t)
+                     for f, t in zip(flp, tlp)])
     states = from_state_table(from_idx)
     return TransOps(
         from_idx=torch.from_numpy(from_idx).to(dev),
         from_logp=from_logp.to(torch.float32).contiguous(),
         to_idx=torch.from_numpy(to_idx).to(dev),
         to_logp=to_logp.to(dev, torch.float32).contiguous(), K=K,
-        from_packed=packed, from_codebook=book,
+        from_packed=packed[0], from_codebook=packed[1],
+        fwbw_packed=None if sides is None else PackedSides(*sides),
         from_states=None if states is None
         else torch.from_numpy(states).to(dev))
 
@@ -2512,8 +2523,8 @@ def fwbw_plain(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     keep_emissions): exact log-space forward and backward over the slot
     tables, loops over events.  Returns {alpha, beta, em: (B, T, n)
     float32, log_pr_data: (B,)}; alpha rows past a read's length repeat its
-    last alpha, beta is 0 from t = length-1 on."""
-    refuse_per_read(ops, "the generic forward-backward")
+    last alpha, beta is 0 from t = length-1 on.  Per-read (B, deg, n)
+    log-probs broadcast as JAX's do."""
     n = model.level_mean.shape[-1]
     mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
     lengths = ev["length"]
@@ -2583,7 +2594,8 @@ def fwbw_route(ops: TransOps) -> str:
     the table:
     "resident" (a side's table in shared memory at a time) when it has both
     sides' packed layout, which convert.trans_ops gives every table that
-    fits, else "streaming" (the tables read from L2 at every step)."""
+    fits (make_trans_ops_batch per-read tables whose reads all fit), else
+    "streaming" (the tables read from L2 at every step)."""
     return "streaming" if ops.fwbw_packed is None else "resident"
 
 
@@ -2594,71 +2606,56 @@ def _fwbw_outputs(B: int, T: int, n: int, dev) -> dict:
     return out
 
 
-def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
-    """K6c on the card, the streaming kernel: the forward and the backward
-    pass in one launch, {alpha, beta, em (B, T, n), log_pr_data (B,)} as the
-    plain version."""
-    mean = ev["mean"]
-    dev = mean.device
-    B, T = mean.shape
-    n = 4096
-    if T < 1:
-        raise ValueError("forward-backward needs at least one event column")
-    _check_events(ev, B, T, dev)
-    _check_ops(ops, dev)
-    _check_tables(tuple(model), B, n, dev)
-    _require_cuda(dev, "generic fwbw")
-    out = _fwbw_outputs(B, T, n, dev)
-    lib = _cuda.load()
-    err = lib.nc_fwbw_generic(
-        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, ops.from_idx.shape[0],
-        ops.from_idx.data_ptr(), ops.from_logp.data_ptr(),
-        ops.to_idx.shape[0], ops.to_idx.data_ptr(), ops.to_logp.data_ptr(),
-        *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
-        *(out[k].data_ptr() for k in ("alpha", "beta", "em", "log_pr_data")),
-        *_cuda.target(dev),
-    )
-    _cuda.check(err, "fwbw_generic kernel launch")
-    _cuda.count_launch(fwbw_generic_kernel)
-    return out
-
-
-fwbw_generic_kernel.launches = 0
-
-
-def _check_fwbw_resident(ops: TransOps, dev) -> None:
-    """The resident K6c takes a K=6 table's packed layout of both sides, 1
-    to MAX_FWBW_RESIDENT_SLOTS slots a side, contiguous and 16-byte aligned
-    (its bulk copies) on the launch device."""
+def _check_fwbw_resident(ops: TransOps, dev, B: int) -> None:
+    """The resident K6c and K6e take a K=6 table's packed layout of both
+    sides, 1 to MAX_FWBW_RESIDENT_SLOTS slots a side, contiguous and
+    16-byte aligned (their bulk copies) on the launch device: (deg, 4096)
+    int16 entries and (deg, FWBW_GROUPS * RESIDENT_CODES) codebooks a side,
+    or per read (B, deg, 4096) and (B, deg, FWBW_GROUPS * RESIDENT_CODES)
+    of the events' B (each read's slice then starts 16-byte aligned too:
+    deg 8192 and deg 256 bytes on)."""
     if ops.K != 6:
         raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
-    refuse_per_read(ops, "the resident forward-backward")
     if ops.fwbw_packed is None:
         raise ValueError("the resident generic fwbw needs the table's "
                          "packed layout of both sides (hmm.pack_fwbw_sides)")
     width = FWBW_GROUPS * RESIDENT_CODES
+    lead = (B,) if per_read(ops) else ()
     for side in ("from", "to"):
         packed = getattr(ops.fwbw_packed, f"{side}_packed")
         book = getattr(ops.fwbw_packed, f"{side}_codebook")
-        deg = packed.shape[0]
+        deg = packed.shape[-2]
         if not 1 <= deg <= MAX_FWBW_RESIDENT_SLOTS:
             raise ValueError(f"packed {side} table: {deg} slots, the "
                              f"resident fwbw takes 1 to "
                              f"{MAX_FWBW_RESIDENT_SLOTS}")
-        _check(f"{side}_packed", packed, torch.int16, (deg, 4096), dev)
-        _check(f"{side}_codebook", book, torch.float32, (deg, width), dev)
+        _check(f"{side}_packed", packed, torch.int16, (*lead, deg, 4096),
+               dev)
+        _check(f"{side}_codebook", book, torch.float32, (*lead, deg, width),
+               dev)
         for name, x in ((f"{side}_packed", packed),
                         (f"{side}_codebook", book)):
             if x.data_ptr() % 16:
                 raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def fwbw_resident_kernel(ops: TransOps, model: ModelArrays,
-                         ev: dict) -> dict:
-    """K6c on the card, the resident kernel (each side's packed table in
-    shared memory in turn): {alpha, beta, em (B, T, n), log_pr_data (B,)}
-    as the plain version."""
+#: the C entries of K6c's and K6e's kernels by (resident, custom), and
+#: what their wrappers call them
+_FWBW_ENTRIES = {
+    (False, False): ("nc_fwbw_generic", "generic fwbw"),
+    (True, False): ("nc_fwbw_resident", "resident generic fwbw"),
+    (False, True): ("nc_fwbw_custom", "custom fwbw"),
+    (True, True): ("nc_fwbw_custom_resident", "resident custom fwbw"),
+}
+
+
+def _fwbw_launch(ops: TransOps, model: ModelArrays, ev: dict,
+                 resident: bool, custom: bool) -> dict:
+    """One launch of K6c (custom: K6e) on the card, its resident or its
+    streaming kernel, under one table or per-read tables (the kernel's
+    per-read instance), once every shape is checked: K6c's {alpha, beta, em
+    (B, T, n), log_pr_data (B,)} or K6e's {alpha, beta, gamma}, as the
+    plain version.  The wrappers below call it and count the launch."""
     mean = ev["mean"]
     dev = mean.device
     B, T = mean.shape
@@ -2666,36 +2663,96 @@ def fwbw_resident_kernel(ops: TransOps, model: ModelArrays,
     if T < 1:
         raise ValueError("forward-backward needs at least one event column")
     _check_events(ev, B, T, dev)
-    _check_fwbw_resident(ops, dev)
+    if resident:
+        _check_fwbw_resident(ops, dev, B)
+        table = tuple(ops.fwbw_packed)
+    else:
+        _check_ops(ops, dev, B)
+        table = (ops.from_idx, ops.from_logp, ops.to_idx, ops.to_logp)
     _check_tables(tuple(model), B, n, dev)
-    _require_cuda(dev, "resident generic fwbw")
-    p = ops.fwbw_packed
-    out = _fwbw_outputs(B, T, n, dev)
-    lib = _cuda.load()
-    err = lib.nc_fwbw_resident(
+    entry, what = _FWBW_ENTRIES[(resident, custom)]
+    _require_cuda(dev, what)
+    if custom:
+        out, keys = _custom_outputs(B, T, n, dev), ("alpha", "beta", "gamma")
+    else:
+        out, keys = (_fwbw_outputs(B, T, n, dev),
+                     ("alpha", "beta", "em", "log_pr_data"))
+    err = getattr(_cuda.load(), entry)(
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, p.from_packed.shape[0],
-        p.from_packed.data_ptr(), p.from_codebook.data_ptr(),
-        p.to_packed.shape[0], p.to_packed.data_ptr(),
-        p.to_codebook.data_ptr(),
+        ev["length"].data_ptr(), B, T, table[0].shape[-2],
+        table[0].data_ptr(), table[1].data_ptr(), table[2].shape[-2],
+        table[2].data_ptr(), table[3].data_ptr(),
         *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
-        *(out[k].data_ptr() for k in ("alpha", "beta", "em", "log_pr_data")),
-        *_cuda.target(dev),
+        *(out[k].data_ptr() for k in keys),
+        int(per_read(ops)), *_cuda.target(dev),
     )
-    _cuda.check(err, "fwbw_resident kernel launch")
+    _cuda.check(err, f"{entry[3:]} kernel launch")
+    return out
+
+
+def _require_per_read(ops: TransOps, what: str) -> None:
+    if not per_read(ops):
+        raise ValueError(f"{what} takes per-read (B, deg, n) tables "
+                         f"(make_trans_ops_batch), not one (deg, n) table")
+
+
+def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
+    """K6c on the card, the streaming kernel: the forward and the backward
+    pass in one launch, {alpha, beta, em (B, T, n), log_pr_data (B,)} as the
+    plain version.  Per-read tables take the per-read instance
+    (fwbw_generic_per_read_kernel)."""
+    if per_read(ops):
+        return fwbw_generic_per_read_kernel(ops, model, ev)
+    out = _fwbw_launch(ops, model, ev, resident=False, custom=False)
+    _cuda.count_launch(fwbw_generic_kernel)
+    return out
+
+
+def fwbw_generic_per_read_kernel(ops: TransOps, model: ModelArrays,
+                                 ev: dict) -> dict:
+    """K6c's streaming kernel under per-read tables (its per-read instance:
+    block b reads read b's (deg, n) log-probs of both sides)."""
+    _require_per_read(ops, "the per-read streaming fwbw")
+    out = _fwbw_launch(ops, model, ev, resident=False, custom=False)
+    _cuda.count_launch(fwbw_generic_per_read_kernel)
+    return out
+
+
+def fwbw_resident_kernel(ops: TransOps, model: ModelArrays,
+                         ev: dict) -> dict:
+    """K6c on the card, the resident kernel (each side's packed table in
+    shared memory in turn): {alpha, beta, em (B, T, n), log_pr_data (B,)}
+    as the plain version.  Per-read tables take the per-read instance
+    (fwbw_resident_per_read_kernel)."""
+    if per_read(ops):
+        return fwbw_resident_per_read_kernel(ops, model, ev)
+    out = _fwbw_launch(ops, model, ev, resident=True, custom=False)
     _cuda.count_launch(fwbw_resident_kernel)
     return out
 
 
+def fwbw_resident_per_read_kernel(ops: TransOps, model: ModelArrays,
+                                  ev: dict) -> dict:
+    """K6c's resident kernel under per-read tables (its per-read instance:
+    block b copies read b's packed layout of each side)."""
+    _require_per_read(ops, "the per-read resident fwbw")
+    out = _fwbw_launch(ops, model, ev, resident=True, custom=False)
+    _cuda.count_launch(fwbw_resident_per_read_kernel)
+    return out
+
+
+fwbw_generic_kernel.launches = 0
+fwbw_generic_per_read_kernel.launches = 0
 fwbw_resident_kernel.launches = 0
+fwbw_resident_per_read_kernel.launches = 0
 
 
 def fwbw(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     """K6c on the tensors' device: {alpha, beta, em (B, T, n),
-    log_pr_data (B,)}.  On the card the table picks the kernel
-    (fwbw_route); both give the plain version's bits."""
+    log_pr_data (B,)}, under one table or per-read tables.  On the card
+    the table picks the kernel (fwbw_route), and per-read tables its
+    per-read instance; all give the plain version's bits."""
     dev = ev["mean"].device
-    refuse_per_read(ops, "the generic forward-backward (K6c)")
     if dev.type == "cpu":
         return fwbw_plain(ops, model, ev)
     if dev.type != "cuda":
@@ -2994,9 +3051,9 @@ def fwbw_custom_plain(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
       gamma_{T-1} = beta_{T-1},
       gamma_t = beta_t + lse(to_logp + (gamma_{t+1} - alpha_{t+1})[to_idx])
                 (t <= T-2; beta_t from t = length-1 on).
-    alpha_t is stored as computed, also past a read's length.  Returns
-    {alpha, beta, gamma}: (B, T, n) float32 log probabilities."""
-    refuse_per_read(ops, "the generic forward-backward")
+    alpha_t is stored as computed, also past a read's length.  Per-read
+    (B, deg, n) log-probs broadcast as JAX's do.  Returns {alpha, beta,
+    gamma}: (B, T, n) float32 log probabilities."""
     n = model.level_mean.shape[-1]
     mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
     lengths = ev["length"]
@@ -3036,78 +3093,60 @@ def _custom_outputs(B: int, T: int, n: int, dev) -> dict:
 
 def fwbw_custom_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     """K6e on the card, the streaming kernel: both passes in one launch,
-    {alpha, beta, gamma} (B, T, n) as the plain version."""
-    mean = ev["mean"]
-    dev = mean.device
-    B, T = mean.shape
-    n = 4096
-    if T < 1:
-        raise ValueError("forward-backward needs at least one event column")
-    _check_events(ev, B, T, dev)
-    _check_ops(ops, dev)
-    _check_tables(tuple(model), B, n, dev)
-    _require_cuda(dev, "custom fwbw")
-    out = _custom_outputs(B, T, n, dev)
-    lib = _cuda.load()
-    err = lib.nc_fwbw_custom(
-        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, ops.from_idx.shape[0],
-        ops.from_idx.data_ptr(), ops.from_logp.data_ptr(),
-        ops.to_idx.shape[0], ops.to_idx.data_ptr(), ops.to_logp.data_ptr(),
-        *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
-        *(out[k].data_ptr() for k in ("alpha", "beta", "gamma")),
-        *_cuda.target(dev),
-    )
-    _cuda.check(err, "fwbw_custom kernel launch")
+    {alpha, beta, gamma} (B, T, n) as the plain version.  Per-read tables
+    take the per-read instance (fwbw_custom_per_read_kernel)."""
+    if per_read(ops):
+        return fwbw_custom_per_read_kernel(ops, model, ev)
+    out = _fwbw_launch(ops, model, ev, resident=False, custom=True)
     _cuda.count_launch(fwbw_custom_kernel)
     return out
 
 
-fwbw_custom_kernel.launches = 0
+def fwbw_custom_per_read_kernel(ops: TransOps, model: ModelArrays,
+                                ev: dict) -> dict:
+    """K6e's streaming kernel under per-read tables (its per-read
+    instance)."""
+    _require_per_read(ops, "the per-read streaming custom fwbw")
+    out = _fwbw_launch(ops, model, ev, resident=False, custom=True)
+    _cuda.count_launch(fwbw_custom_per_read_kernel)
+    return out
 
 
 def fwbw_custom_resident_kernel(ops: TransOps, model: ModelArrays,
                                 ev: dict) -> dict:
     """K6e on the card, the resident kernel (each side's packed table in
     shared memory in turn, K6c's layout): {alpha, beta, gamma} (B, T, n) as
-    the plain version."""
-    mean = ev["mean"]
-    dev = mean.device
-    B, T = mean.shape
-    n = 4096
-    if T < 1:
-        raise ValueError("forward-backward needs at least one event column")
-    _check_events(ev, B, T, dev)
-    _check_fwbw_resident(ops, dev)
-    _check_tables(tuple(model), B, n, dev)
-    _require_cuda(dev, "resident custom fwbw")
-    p = ops.fwbw_packed
-    out = _custom_outputs(B, T, n, dev)
-    lib = _cuda.load()
-    err = lib.nc_fwbw_custom_resident(
-        mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, p.from_packed.shape[0],
-        p.from_packed.data_ptr(), p.from_codebook.data_ptr(),
-        p.to_packed.shape[0], p.to_packed.data_ptr(),
-        p.to_codebook.data_ptr(),
-        *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
-        *(out[k].data_ptr() for k in ("alpha", "beta", "gamma")),
-        *_cuda.target(dev),
-    )
-    _cuda.check(err, "fwbw_custom_resident kernel launch")
+    the plain version.  Per-read tables take the per-read instance
+    (fwbw_custom_resident_per_read_kernel)."""
+    if per_read(ops):
+        return fwbw_custom_resident_per_read_kernel(ops, model, ev)
+    out = _fwbw_launch(ops, model, ev, resident=True, custom=True)
     _cuda.count_launch(fwbw_custom_resident_kernel)
     return out
 
 
+def fwbw_custom_resident_per_read_kernel(ops: TransOps, model: ModelArrays,
+                                         ev: dict) -> dict:
+    """K6e's resident kernel under per-read tables (its per-read
+    instance)."""
+    _require_per_read(ops, "the per-read resident custom fwbw")
+    out = _fwbw_launch(ops, model, ev, resident=True, custom=True)
+    _cuda.count_launch(fwbw_custom_resident_per_read_kernel)
+    return out
+
+
+fwbw_custom_kernel.launches = 0
+fwbw_custom_per_read_kernel.launches = 0
 fwbw_custom_resident_kernel.launches = 0
+fwbw_custom_resident_per_read_kernel.launches = 0
 
 
 def fwbw_custom(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
-    """K6e on the tensors' device: {alpha, beta, gamma (B, T, n)}.  On the
-    card the table picks the kernel (fwbw_route, as K6c); both give the
-    plain version's bits."""
+    """K6e on the tensors' device: {alpha, beta, gamma (B, T, n)}, under one
+    table or per-read tables.  On the card the table picks the kernel
+    (fwbw_route, as K6c), and per-read tables its per-read instance; all
+    give the plain version's bits."""
     dev = ev["mean"].device
-    refuse_per_read(ops, "the custom forward-backward (K6e)")
     if dev.type == "cpu":
         return fwbw_custom_plain(ops, model, ev)
     if dev.type != "cuda":

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels, in main-path order (K9's
 traceback chunk after K3's, then K1m and K2m, K1 and K2 with the states
 split over a mesh's ranks, the redesigned kernels of K6a, K6b, K6c and
-K6e after their streaming ones, K6am (its two forms) and K6bm, K6a and
+K6e after their streaming ones, then K6c's and K6e's per-read instances
+(streaming and resident), K6am (its two forms) and K6bm, K6a and
 K6b with the states split over a mesh's ranks, K4m and K5m, K4 and K5
 with the states split over a mesh's ranks, K6cm (its two forms) and K6dm,
 K6c and K6d with the states split over a mesh's ranks (the legacy EM
@@ -96,6 +97,19 @@ KERNELS = (
            "nanocall_tpu_torch/csrc/fwbw_custom.cu",
            "nanocall_tpu/ops/hmm.py:1047"),
     Kernel("fwbw_custom_resident", hmm.fwbw_custom_resident_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_custom.cu",
+           "nanocall_tpu/ops/hmm.py:1047"),
+    Kernel("fwbw_generic_per_read", hmm.fwbw_generic_per_read_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_generic.cu",
+           "nanocall_tpu/ops/hmm.py:784"),
+    Kernel("fwbw_resident_per_read", hmm.fwbw_resident_per_read_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_generic.cu",
+           "nanocall_tpu/ops/hmm.py:784"),
+    Kernel("fwbw_custom_per_read", hmm.fwbw_custom_per_read_kernel,
+           "nanocall_tpu_torch/csrc/fwbw_custom.cu",
+           "nanocall_tpu/ops/hmm.py:1047"),
+    Kernel("fwbw_custom_resident_per_read",
+           hmm.fwbw_custom_resident_per_read_kernel,
            "nanocall_tpu_torch/csrc/fwbw_custom.cu",
            "nanocall_tpu/ops/hmm.py:1047"),
     Kernel("viterbi_generic_wave_resident", hmm.generic_wave_resident_kernel,

@@ -727,6 +727,43 @@ def fwbw_custom_resident_counts(B: int, T: int, deg: int = 21) -> tuple:
             + 20 * T * B * n, _cell_ops("fwbw_custom", B, T))
 
 
+def fwbw_generic_per_read_counts(B: int, T: int, deg: int = 21) -> tuple:
+    """K6c's streaming kernel under per-read tables: K6c's work with each
+    read's own log-probs of both sides (B x 2 x deg x n float32) beside
+    the shared int32 slot maps (2 x deg x n)."""
+    n = N_STATES
+    return (_event_bytes(B, T) + 24 * B * n + 8 * deg * n
+            + 8 * B * deg * n + 12 * T * B * n,
+            _cell_ops("fwbw_generic", B, T))
+
+
+def fwbw_resident_per_read_counts(B: int, T: int, deg: int = 21) -> tuple:
+    """K6c's resident kernel under per-read tables: each read's packed
+    layout of both sides (2 bytes per slot entry and 4 codebooks of 16
+    float32 per slot)."""
+    n = N_STATES
+    return (_event_bytes(B, T) + 24 * B * n + 2 * B * deg * (2 * n + 256)
+            + 12 * T * B * n, _cell_ops("fwbw_resident", B, T))
+
+
+def fwbw_custom_per_read_counts(B: int, T: int, deg: int = 21) -> tuple:
+    """K6e's streaming kernel under per-read tables (as
+    fwbw_generic_per_read_counts)."""
+    n = N_STATES
+    return (_event_bytes(B, T) + 24 * B * n + 8 * deg * n
+            + 8 * B * deg * n + 20 * T * B * n,
+            _cell_ops("fwbw_custom", B, T))
+
+
+def fwbw_custom_resident_per_read_counts(B: int, T: int,
+                                         deg: int = 21) -> tuple:
+    """K6e's resident kernel under per-read tables (as
+    fwbw_resident_per_read_counts)."""
+    n = N_STATES
+    return (_event_bytes(B, T) + 24 * B * n + 2 * B * deg * (2 * n + 256)
+            + 20 * T * B * n, _cell_ops("fwbw_custom", B, T))
+
+
 #: K8's FMAs per step wherever the port measures its peak: K1's step's work
 FMA_K = matched_fma_k(N_STATES)
 
@@ -767,6 +804,10 @@ KERNEL_COUNTS = {
     "fwbw_grouped_backward": fwbw_grouped_backward_counts,
     "fwbw_custom": fwbw_custom_counts,
     "fwbw_custom_resident": fwbw_custom_resident_counts,
+    "fwbw_generic_per_read": fwbw_generic_per_read_counts,
+    "fwbw_resident_per_read": fwbw_resident_per_read_counts,
+    "fwbw_custom_per_read": fwbw_custom_per_read_counts,
+    "fwbw_custom_resident_per_read": fwbw_custom_resident_per_read_counts,
     # K6am and K6bm: the function a data row's generic decode computes,
     # whatever its ranks (K6a's with backpointers, K6b's); the peers'
     # slices they read apart (statepar_exchange_bytes)
@@ -796,6 +837,8 @@ TABLE_KERNELS = ("viterbi_generic_forward_path",
                  "viterbi_resident_forward_score",
                  "viterbi_generic_traceback_ring", "fwbw_generic",
                  "fwbw_resident", "fwbw_custom", "fwbw_custom_resident",
+                 "fwbw_generic_per_read", "fwbw_resident_per_read",
+                 "fwbw_custom_per_read", "fwbw_custom_resident_per_read",
                  "viterbi_generic_wave_resident",
                  "viterbi_generic_wave_streaming")
 

@@ -68,12 +68,16 @@ def _edge_lengths(T: int, extra=()) -> list:
         + list(extra)
 
 
+#: a NaN payload that no kernel makes
+POISON = 0x7FBADBAD
+
+
 def _guarded_call(monkeypatch, wrapper, ops, model, ev, what) -> dict:
     """`wrapper`'s outputs written into rows 1 .. B of (B + 2, T, n)
     buffers filled with a NaN of a payload no kernel makes (through
     hmm._custom_outputs); fails if the kernel wrote row 0 or B + 1."""
     B, T = ev["mean"].shape
-    bufs = {k: torch.full((B + 2, T, 4096), 0x7FBADBAD, dtype=torch.int32,
+    bufs = {k: torch.full((B + 2, T, 4096), POISON, dtype=torch.int32,
                           device=ev["mean"].device).view(torch.float32)
             for k in ("alpha", "beta", "gamma")}
     out = {k: v[1:B + 1] for k, v in bufs.items()}
@@ -84,7 +88,7 @@ def _guarded_call(monkeypatch, wrapper, ops, model, ev, what) -> dict:
     assert got is out, what
     for k, v in bufs.items():
         for row in (0, B + 1):
-            assert bool((v[row].view(torch.int32) == 0x7FBADBAD).all()), \
+            assert bool((v[row].view(torch.int32) == POISON).all()), \
                 (what, k, f"guard row {row} written")
     return out
 
@@ -1267,6 +1271,85 @@ def test_per_read_forward_bit_equal_on_the_card(card, tmp_path, inputs):
                                _bits(one["logp"][0])), (name, b)
 
 
+#: K6c's and K6e's per-read kernel wrappers by (function, form), with the
+#: one-table wrapper of the same form and the plain version
+PER_READ_FWBW = {
+    ("fwbw", "resident"): (hmm.fwbw_resident_per_read_kernel,
+                           hmm.fwbw_resident_kernel, hmm.fwbw_plain),
+    ("fwbw", "streaming"): (hmm.fwbw_generic_per_read_kernel,
+                            hmm.fwbw_generic_kernel, hmm.fwbw_plain),
+    ("fwbw_custom", "resident"): (hmm.fwbw_custom_resident_per_read_kernel,
+                                  hmm.fwbw_custom_resident_kernel,
+                                  hmm.fwbw_custom_plain),
+    ("fwbw_custom", "streaming"): (hmm.fwbw_custom_per_read_kernel,
+                                   hmm.fwbw_custom_kernel,
+                                   hmm.fwbw_custom_plain),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_per_read_fwbw_bit_equal_on_the_card(card, inputs, monkeypatch):
+    """K6c and K6e under per-read structured tables (transitions.
+    build_structured_batch, convert.trans_ops_batch), each kernel's
+    per-read instance: the resident ones on the per-read packed layouts of
+    both sides and the streaming ones without them, through hmm.fwbw and
+    hmm.fwbw_custom (one launch of the per-read wrapper counted, none of
+    the one-table one), every output bit-equal to the plain version; K6e's
+    again into outputs between guard rows, which it leaves as they were;
+    lengths 0, 1, 2, T-1 and T among the reads (K6E_EDGE_LENGTHS), clean
+    and with NaN events in one read from its middle on, a +inf event in
+    another and a NaN model entry at one state of a third.  Then each
+    read's outputs bit-equal to the read alone through the one-table
+    kernel of the same form, under its own table (convert.trans_ops of
+    build_structured at its kinetics)."""
+    T = 40
+    lengths = _edge_lengths(T, (T, T, T, 17))
+    B = len(lengths)
+    _, model, ev = _k6_inputs(card, B, T, lengths, 45)
+    if inputs == "NaN":
+        _nan_fwbw_events(ev, (8, 10))
+        model.level_mean[9, 99] = float("nan")
+    rng = np.random.default_rng(46)
+    params = np.stack([rng.uniform(0.05, 0.2, B),
+                       rng.uniform(0.2, 0.4, B)], 1)
+    batch = convert.trans_ops_batch(
+        *transitions.build_structured_batch(params, 6), 6, card)
+    alone = [convert.trans_ops(transitions.build_structured(
+        transitions.TransitionParams(*p), 6), card) for p in params]
+    forms = {"resident": batch,
+             "streaming": batch._replace(fwbw_packed=None)}
+    for (fn, form), (per, one, plain) in PER_READ_FWBW.items():
+        ops = forms[form]
+        assert hmm.fwbw_route(ops) == form
+        want = plain(ops, model, ev)
+        n0, n1 = per.launches, one.launches
+        got = getattr(hmm, fn)(ops, model, ev)
+        torch.cuda.synchronize()
+        what = (fn, form)
+        assert (per.launches - n0, one.launches - n1) == (1, 0), what
+        if inputs == "NaN":
+            k = "gamma" if fn == "fwbw_custom" else "alpha"
+            assert torch.isnan(want[k][8]).any(), what
+            assert torch.isnan(want[k][9]).any(), what
+        for k in want:
+            assert torch.equal(_bits(got[k]), _bits(want[k])), (what, k)
+        if fn == "fwbw_custom":
+            out = _guarded_call(monkeypatch, per, ops, model, ev, what)
+            for k in want:
+                assert torch.equal(_bits(out[k]), _bits(want[k])), \
+                    (what, k, "guarded")
+        for b, o in enumerate(alone):
+            o = o if form == "resident" else o._replace(fwbw_packed=None)
+            assert hmm.fwbw_route(o) == form
+            solo = one(o, hmm.ModelArrays(*(x[b:b + 1] for x in model)),
+                       {k: v[b:b + 1] for k, v in ev.items()})
+            torch.cuda.synchronize()
+            for k in want:
+                assert torch.equal(_bits(got[k][b]), _bits(solo[k][0])), \
+                    (what, b, k)
+
+
 def _train_batch(dev, G: int, T: int, nan: bool, seed: int):
     """A training batch of G groups of 4 rows on `dev` (the r73 pair of
     models, events of random states of the scaled models, varied scaling
@@ -1308,16 +1391,24 @@ def _train_batch(dev, G: int, T: int, nan: bool, seed: int):
     return convert.train_batch(ev, mdl, pm, st, dev)
 
 
+#: the rank counts of the state-axis card tests, each a case of its own
+#: (the 64-rank folds alone: -k "64")
+STATEPAR_RANKS = (2, 4, 8, 64)
 @pytest.mark.cuda
 def test_k4m_log_pr_data_reads_every_rank_after_its_counter_on_the_card(
-        card):
-    """K4m's log Pr[data] over 64 ranks (the cooperative path): the fold's
-    lane p waits on the counters of ranks p and p + 32 but adds the partial
-    sums of ranks 2 p and 2 p + 1, so no lane may read before every lane's
-    wait (a stale partial sum put lpd a few ULP off in about one launch in
-    ten).  Each rank's partials start as a NaN of a payload no kernel
-    makes, and 40 launches each give the plain version's lpd as bits, on
-    every rank."""
+        card, tmp_path):
+    """The 64-rank folds (the cooperative path) of K4m's and K6cm's log
+    Pr[data] and of K5m's statistics, which add one partial a rank
+    pairwise in rank order: lane l adds ranks 2 l and 2 l + 1, and must
+    read them only after its own wait on their counters
+    (wave_exchange.cuh wait_fold_ranks; a stale partial sum once put lpd a
+    few ULP off, in about one launch in ten).  Each rank's partials (K4m's
+    and K6cm's part, K5m's per-step records) start as a NaN of a payload
+    no kernel makes, and 40 launches of each give the plain version's
+    outputs as bits, on every rank: K4m's lpd, K5m's statistics with both
+    train flags, K6cm's (resident, under the loaded table of (0.14, 0.21))
+    alpha, beta, em and lpd."""
+    from nanocall_tpu_torch.ops import em
     from nanocall_tpu_torch.parallel import statepar
 
     M, W = 64, 64
@@ -1329,7 +1420,7 @@ def test_k4m_log_pr_data_reads_every_rank_after_its_counter_on_the_card(
     for i in range(40):
         fk = [statepar._fwd_wave_rank(r, False) for r in ranks]
         for f in fk:
-            f.part.view(torch.int32).fill_(0x7FBADBAD)
+            f.part.view(torch.int32).fill_(POISON)
         statepar._wave_kernels(
             fk, lambda *a: hmm.fwbw_forward_wave_kernel(*a, None),
             lambda d, sys: hmm.fwbw_forward_wave_resident(d, sys, W),
@@ -1337,13 +1428,60 @@ def test_k4m_log_pr_data_reads_every_rank_after_its_counter_on_the_card(
         torch.cuda.synchronize()
         for m, f in enumerate(fk):
             assert torch.equal(_bits(f.lpd), _bits(want[0].lpd)), (i, m)
+    # K5m on the plain forward's stored alphas
+    fwd = [statepar._fwd_wave_rank(r, True) for r in ranks]
+    hmm.fwbw_forward_wave_plain(fwd, 0, B)
+    bp = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
+    em.em_backward_wave_plain(bp, 0, B, True, True)
+    for i in range(40):
+        bk = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
+        for r in bk:
+            r.red.view(torch.int32).fill_(POISON)
+        statepar._wave_kernels(
+            bk, lambda *a: em.em_backward_wave_kernel(*a, True, True, None),
+            lambda d, sys: em.em_backward_wave_resident(d, sys, True, W),
+            clusters=True)
+        torch.cuda.synchronize()
+        for g, p in zip((bk[0].scal, bk[0].st3), (bp[0].scal, bp[0].st3)):
+            assert torch.equal(_bits(g), _bits(p)), ("K5m", i)
+    # K6cm: its ranks built as statepar._fwbw_generic_row builds them
+    ops = _loaded_ops(card, tmp_path, 0.14, 0.21)
+    every = torch.arange(B, device=card)
+    sub = [statepar._select_rank_rows(r, every) for r in ranks]
+    T = sub[0]["ev"]["mean"].shape[1]
+    plain = statepar._fwbw_generic_row(ops, sub, False, None)
+
+    def buf(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=card)
+
+    for i in range(40):
+        rows = []
+        for m, s in enumerate(sub):
+            rows.append(hmm.FwbwWaveRank(
+                hmm.cut_fwbw_table(ops, slice(m * W, (m + 1) * W), card),
+                s["model"], s["ev"], buf(B, T, W), buf(B, T, W),
+                buf(B, T, W), buf(B), buf(2, B, W),
+                torch.full((2, B), POISON, dtype=torch.int32,
+                           device=card).view(torch.float32),
+                torch.zeros(B, dtype=torch.int32, device=card)))
+        statepar._wave_kernels(
+            rows, lambda *a: hmm.fwbw_generic_wave_kernel(*a, cluster=None),
+            lambda d, sys: hmm.fwbw_wave_resident(d, sys, True, 21, W),
+            clusters=True)
+        torch.cuda.synchronize()
+        for m, (r, p) in enumerate(zip(rows, plain)):
+            for k, g in (("alpha", r.alpha), ("beta", r.beta),
+                         ("em", r.em), ("log_pr_data", r.lpd)):
+                assert torch.equal(_bits(g), _bits(p[k])), ("K6cm", i, m, k)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", STATEPAR_RANKS)
 @pytest.mark.parametrize("inputs", ["clean", "NaN"])
-def test_train_statepar_kernels_bit_equal_on_the_card(card, inputs):
+def test_train_statepar_kernels_bit_equal_on_the_card(card, inputs, M):
     """K4m and K5m, the EM round's kernels with the 4096 states split over
-    M = 2, 4, 8 and 64 ranks on cuda:0 (parallel/statepar.py), against
+    M = 2, 4, 8 or 64 ranks (a case each) on cuda:0 (parallel/statepar.py),
+    against
     their plain versions over the same ranks and against K4 + K5, every
     output as bits: K4m with the alphas stored and without, on its default
     path (a cluster a read up to 8 ranks) and, up to 8 ranks, on its
@@ -1363,78 +1501,79 @@ def test_train_statepar_kernels_bit_equal_on_the_card(card, inputs):
     B = inp["x_unc"].shape[0]
     alphas, lpd = hmm.fwbw_grouped_forward(inp["gtf"], inp["model"],
                                            inp["ev"])
-    for M in (2, 4, 8, 64):
-        W = 4096 // M
-        ranks = statepar.split_round_states(*batch, [card] * M)
-        # (stored, cluster): None the default path
-        forms = [(True, None), (False, None)]
-        if M <= hmm.MAX_CLUSTER:
-            forms += [(True, False)]
-        for stored, cluster in forms:
-            fk = [statepar._fwd_wave_rank(r, stored) for r in ranks]
-            fp = [statepar._fwd_wave_rank(r, stored) for r in ranks]
-            n0 = hmm.fwbw_forward_wave_kernel.launches
-            statepar._wave_kernels(
-                fk, lambda *a: hmm.fwbw_forward_wave_kernel(*a, cluster),
-                lambda d, sys: hmm.fwbw_forward_wave_resident(d, sys, W),
-                clusters=cluster is None)
-            hmm.fwbw_forward_wave_plain(fp, 0, B)
-            torch.cuda.synchronize()
-            assert hmm.fwbw_forward_wave_kernel.launches - n0 == 1
-            for rk, rp in zip(fk, fp):
-                what = (inputs, M, stored, cluster)
-                assert torch.equal(_bits(rk.lpd), _bits(rp.lpd)), what
-                assert torch.equal(_bits(rk.lpd), _bits(lpd)), what
-                if stored:
-                    assert torch.equal(_bits(rk.alphas), _bits(rp.alphas))
+    W = 4096 // M
+    ranks = statepar.split_round_states(*batch, [card] * M)
+    # (stored, cluster): None the default path
+    forms = [(True, None), (False, None)]
+    if M <= hmm.MAX_CLUSTER:
+        forms += [(True, False)]
+    for stored, cluster in forms:
+        fk = [statepar._fwd_wave_rank(r, stored) for r in ranks]
+        fp = [statepar._fwd_wave_rank(r, stored) for r in ranks]
+        n0 = hmm.fwbw_forward_wave_kernel.launches
+        statepar._wave_kernels(
+            fk, lambda *a: hmm.fwbw_forward_wave_kernel(*a, cluster),
+            lambda d, sys: hmm.fwbw_forward_wave_resident(d, sys, W),
+            clusters=cluster is None)
+        hmm.fwbw_forward_wave_plain(fp, 0, B)
+        torch.cuda.synchronize()
+        assert hmm.fwbw_forward_wave_kernel.launches - n0 == 1
+        for rk, rp in zip(fk, fp):
+            what = (inputs, M, stored, cluster)
+            assert torch.equal(_bits(rk.lpd), _bits(rp.lpd)), what
+            assert torch.equal(_bits(rk.lpd), _bits(lpd)), what
             if stored:
-                got = torch.cat([r.alphas for r in fk], dim=2)
-                assert torch.equal(_bits(got), _bits(alphas)), (inputs, M)
-                fwd = fk
-        paths = (None, False) if M <= hmm.MAX_CLUSTER else (None,)
-        for (ts, tt), cluster in itertools.product(
-                ((True, True), (True, False), (False, True)), paths):
-            want = em.em_backward_kernel(*train.em_backward_args(
-                inp if ts else {**inp, "W": None}, lpd, alphas, ts, tt))
-            bk = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
-            bp = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
-            n0 = em.em_backward_wave_kernel.launches
-            statepar._wave_kernels(
-                bk, lambda *a: em.em_backward_wave_kernel(*a, ts, tt,
-                                                          cluster),
-                lambda d, sys: em.em_backward_wave_resident(d, sys, ts, W),
-                clusters=cluster is None)
-            em.em_backward_wave_plain(bp, 0, B, ts, tt)
-            torch.cuda.synchronize()
-            assert em.em_backward_wave_kernel.launches - n0 == 1
-            for g, p, w in zip((bk[0].scal, bk[0].st3),
-                               (bp[0].scal, bp[0].st3), want):
-                what = (inputs, M, ts, tt, cluster)
-                assert torch.equal(_bits(g), _bits(p)), what
-                assert torch.equal(_bits(g), _bits(w)), what
-        for D in ((1, 2) if M < 64 else ()):
-            grid = mesh.make_mesh(D * M, model_axis=M,
-                                  devices=[card] * (D * M))
-            placed = mesh.shard_train_inputs(grid, *batch)
-            for ts, tt in ((True, True), (True, False), (False, True),
-                           (False, False)):
-                kw = dict(train_scaling=ts, train_transitions=tt)
-                want = train.train_one_round(*batch, K=6, **kw)
-                got = mesh.join(statepar.train_one_round_placed(*placed,
-                                                                **kw))
-                for k, v in want.items():
-                    assert torch.equal(_bits(got[k]), _bits(v.cpu())), \
-                        (inputs, M, D, ts, tt, k)
+                assert torch.equal(_bits(rk.alphas), _bits(rp.alphas))
+        if stored:
+            got = torch.cat([r.alphas for r in fk], dim=2)
+            assert torch.equal(_bits(got), _bits(alphas)), (inputs, M)
+            fwd = fk
+    paths = (None, False) if M <= hmm.MAX_CLUSTER else (None,)
+    for (ts, tt), cluster in itertools.product(
+            ((True, True), (True, False), (False, True)), paths):
+        want = em.em_backward_kernel(*train.em_backward_args(
+            inp if ts else {**inp, "W": None}, lpd, alphas, ts, tt))
+        bk = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
+        bp = [statepar._em_wave_rank(r, f) for r, f in zip(ranks, fwd)]
+        n0 = em.em_backward_wave_kernel.launches
+        statepar._wave_kernels(
+            bk, lambda *a: em.em_backward_wave_kernel(*a, ts, tt,
+                                                      cluster),
+            lambda d, sys: em.em_backward_wave_resident(d, sys, ts, W),
+            clusters=cluster is None)
+        em.em_backward_wave_plain(bp, 0, B, ts, tt)
+        torch.cuda.synchronize()
+        assert em.em_backward_wave_kernel.launches - n0 == 1
+        for g, p, w in zip((bk[0].scal, bk[0].st3),
+                           (bp[0].scal, bp[0].st3), want):
+            what = (inputs, M, ts, tt, cluster)
+            assert torch.equal(_bits(g), _bits(p)), what
+            assert torch.equal(_bits(g), _bits(w)), what
+    for D in ((1, 2) if M < 64 else ()):
+        grid = mesh.make_mesh(D * M, model_axis=M,
+                              devices=[card] * (D * M))
+        placed = mesh.shard_train_inputs(grid, *batch)
+        for ts, tt in ((True, True), (True, False), (False, True),
+                       (False, False)):
+            kw = dict(train_scaling=ts, train_transitions=tt)
+            want = train.train_one_round(*batch, K=6, **kw)
+            got = mesh.join(statepar.train_one_round_placed(*placed,
+                                                            **kw))
+            for k, v in want.items():
+                assert torch.equal(_bits(got[k]), _bits(v.cpu())), \
+                    (inputs, M, D, ts, tt, k)
     if inputs == "NaN":
         assert torch.isnan(lpd).any()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", STATEPAR_RANKS)
 @pytest.mark.parametrize("inputs", ["clean", "NaN"])
 def test_legacy_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
-                                                       inputs):
+                                                       inputs, M):
     """K6cm and K6dm, the legacy EM round's kernels with the 4096 states
-    split over M = 2, 4, 8 and 64 ranks on cuda:0 (parallel/statepar.py),
+    split over M = 2, 4, 8 or 64 ranks (a case each) on cuda:0
+    (parallel/statepar.py),
     against their plain versions over the same ranks and against K6c and
     K6d on the whole rows, every output as bits: K6cm in its resident form
     under the loaded tables of (0.14, 0.21) and of the CLI priors (0.1,
@@ -1465,55 +1604,54 @@ def test_legacy_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
            for name, ops in tables.items()}
     k6d = hmm.fwbw_grouped(inp["gtf"], inp["model"], inp["ev"])
     every = torch.arange(B, device=card)
-    for M in (2, 4, 8, 64):
-        ranks = statepar.split_round_states(*batch, [card] * M)
-        sub = [statepar._select_rank_rows(r, every) for r in ranks]
-        paths = (None, False) if M <= hmm.MAX_CLUSTER else (None,)
-        for (name, ops), cluster in itertools.product(tables.items(), paths):
-            wrapper = (hmm.fwbw_wave_streaming_kernel if name == "streaming"
-                       else hmm.fwbw_wave_resident_kernel)
-            n0 = wrapper.launches
-            got = statepar._fwbw_generic_row(ops, sub, True, cluster)
-            plain = statepar._fwbw_generic_row(ops, sub, False, cluster)
-            torch.cuda.synchronize()
-            assert wrapper.launches - n0 == 1
-            what = (inputs, M, name, cluster)
-            for k in ("alpha", "beta", "em", "log_pr_data"):
-                for g, p in zip(got, plain):
-                    assert torch.equal(_bits(g[k]), _bits(p[k])), (what, k)
-            for k in ("alpha", "beta", "em"):
-                whole = torch.cat([g[k] for g in got], dim=-1)
-                assert torch.equal(_bits(whole), _bits(k6c[name][k])), \
-                    (what, k)
-            for g in got:
-                assert torch.equal(_bits(g["log_pr_data"]),
-                                   _bits(k6c[name]["log_pr_data"])), what
-        for cluster in paths:
-            n0 = em.fwbw_backward_wave_kernel.launches
-            got = statepar._fwbw_grouped_row(sub, True, cluster)
-            plain = statepar._fwbw_grouped_row(sub, False, cluster)
-            torch.cuda.synchronize()
-            assert em.fwbw_backward_wave_kernel.launches - n0 == 1
-            for k in ("alpha", "beta", "em", "log_pr_data"):
-                for g, p in zip(got, plain):
-                    assert torch.equal(_bits(g[k]), _bits(p[k])), \
-                        (inputs, M, cluster, k)
-                whole = (got[0][k] if k == "log_pr_data"
-                         else torch.cat([g[k] for g in got], dim=-1))
-                assert torch.equal(_bits(whole), _bits(k6d[k])), \
+    ranks = statepar.split_round_states(*batch, [card] * M)
+    sub = [statepar._select_rank_rows(r, every) for r in ranks]
+    paths = (None, False) if M <= hmm.MAX_CLUSTER else (None,)
+    for (name, ops), cluster in itertools.product(tables.items(), paths):
+        wrapper = (hmm.fwbw_wave_streaming_kernel if name == "streaming"
+                   else hmm.fwbw_wave_resident_kernel)
+        n0 = wrapper.launches
+        got = statepar._fwbw_generic_row(ops, sub, True, cluster)
+        plain = statepar._fwbw_generic_row(ops, sub, False, cluster)
+        torch.cuda.synchronize()
+        assert wrapper.launches - n0 == 1
+        what = (inputs, M, name, cluster)
+        for k in ("alpha", "beta", "em", "log_pr_data"):
+            for g, p in zip(got, plain):
+                assert torch.equal(_bits(g[k]), _bits(p[k])), (what, k)
+        for k in ("alpha", "beta", "em"):
+            whole = torch.cat([g[k] for g in got], dim=-1)
+            assert torch.equal(_bits(whole), _bits(k6c[name][k])), \
+                (what, k)
+        for g in got:
+            assert torch.equal(_bits(g["log_pr_data"]),
+                               _bits(k6c[name]["log_pr_data"])), what
+    for cluster in paths:
+        n0 = em.fwbw_backward_wave_kernel.launches
+        got = statepar._fwbw_grouped_row(sub, True, cluster)
+        plain = statepar._fwbw_grouped_row(sub, False, cluster)
+        torch.cuda.synchronize()
+        assert em.fwbw_backward_wave_kernel.launches - n0 == 1
+        for k in ("alpha", "beta", "em", "log_pr_data"):
+            for g, p in zip(got, plain):
+                assert torch.equal(_bits(g[k]), _bits(p[k])), \
                     (inputs, M, cluster, k)
-        for D in ((1, 2) if M < 64 else ()):
-            grid = mesh.make_mesh(D * M, model_axis=M,
-                                  devices=[card] * (D * M))
-            placed = mesh.shard_train_inputs(grid, *batch)
-            for ts, tt in ((True, True), (False, False)):
-                kw = dict(train_scaling=ts, train_transitions=tt,
-                          default_ops=loaded, default_priors=priors)
-                want = train.train_one_round(*batch, K=6, **kw)
-                got = mesh.join(statepar.train_one_round_placed(*placed,
-                                                                **kw))
-                for k, v in want.items():
-                    assert torch.equal(_bits(got[k]), _bits(v.cpu())), \
-                        (inputs, M, D, ts, tt, k)
+            whole = (got[0][k] if k == "log_pr_data"
+                     else torch.cat([g[k] for g in got], dim=-1))
+            assert torch.equal(_bits(whole), _bits(k6d[k])), \
+                (inputs, M, cluster, k)
+    for D in ((1, 2) if M < 64 else ()):
+        grid = mesh.make_mesh(D * M, model_axis=M,
+                              devices=[card] * (D * M))
+        placed = mesh.shard_train_inputs(grid, *batch)
+        for ts, tt in ((True, True), (False, False)):
+            kw = dict(train_scaling=ts, train_transitions=tt,
+                      default_ops=loaded, default_priors=priors)
+            want = train.train_one_round(*batch, K=6, **kw)
+            got = mesh.join(statepar.train_one_round_placed(*placed,
+                                                            **kw))
+            for k, v in want.items():
+                assert torch.equal(_bits(got[k]), _bits(v.cpu())), \
+                    (inputs, M, D, ts, tt, k)
     if inputs == "NaN":
         assert torch.isnan(k6c["(0.14, 0.21)"]["log_pr_data"]).any()

@@ -96,12 +96,19 @@ def test_table_kernels_count_their_slots():
     streaming kernel), 2 per state and a 64-byte codebook for the packed
     from side (K6a's resident kernel), 2 per state and four 64-byte
     codebooks for each packed side (K6c's and K6e's resident kernels), 2
-    per state for the uint16 from-states (K6b's ring kernel); each
+    per state for the uint16 from-states (K6b's ring kernel); under per-read
+    tables (at 8 reads) the shared int32 slot maps once and each read's
+    float32 log-probs of both sides, or each read's packed sides; each
     redesigned kernel does its streaming twin's operations."""
     for name in roofline.TABLE_KERNELS:
         b21, b42 = (roofline.kernel_counts(name, 8, 64, deg=d)[0]
                     for d in (21, 42))
-        per_slot = (2 * (2 * 4096 + 256)
+        per_slot = (8 * 2 * (2 * 4096 + 256)
+                    if name in ("fwbw_resident_per_read",
+                                "fwbw_custom_resident_per_read")
+                    else 8 * 4096 + 8 * 8 * 4096
+                    if name.endswith("_per_read")
+                    else 2 * (2 * 4096 + 256)
                     if name in ("fwbw_resident", "fwbw_custom_resident")
                     else 2 * 4096 + 64 if "resident" in name
                     else 2 * 4096 if name.endswith("_ring")
@@ -119,6 +126,28 @@ def test_table_kernels_count_their_slots():
     assert roofline.kernel_counts("viterbi_generic_traceback_ring", 128,
                                   8192)[1] == \
         roofline.kernel_counts("viterbi_generic_traceback", 128, 8192)[1]
+
+
+@pytest.mark.parametrize("name", ["fwbw_generic", "fwbw_resident",
+                                  "fwbw_custom", "fwbw_custom_resident"])
+def test_per_read_fwbw_counts_each_read_table(name):
+    """K6c's and K6e's per-read instances count each read's own table:
+    the streaming ones B x 2 sides x deg x 4096 float32 log-probs in place
+    of the one table's 2 x deg x 4096 (the int32 slot maps stay shared),
+    the resident ones B copies of the one table's packed sides; the same
+    operations.  At one read a per-read instance moves what its one-table
+    twin moves."""
+    n, deg = 4096, 21
+    for B, T in ((512, 128), (16, 2048), (1, 4000)):
+        one, per = (roofline.kernel_counts(k, B, T)
+                    for k in (name, f"{name}_per_read"))
+        assert per[1] == one[1]
+        extra = ((B - 1) * 2 * deg * (2 * n + 256) if "resident" in name
+                 else (B - 1) * 2 * deg * n * 4)
+        assert per[0] - one[0] == extra, (B, T)
+    bound = roofline.kernel_bound(f"{name}_per_read", 512, 128)
+    nbytes, ops = roofline.kernel_counts(f"{name}_per_read", 512, 128)
+    assert bound["bound_ms"] == 1e3 * max(nbytes / 3.35e12, ops / 67e12)
 
 
 def test_em_backward_counts_what_k5_moves():

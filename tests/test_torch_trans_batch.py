@@ -3,7 +3,9 @@ transitions.build_structured_batch, hmm.make_trans_ops_batch /
 convert.trans_ops_batch and the generic Viterbi decode (K6a + K6b, their
 plain versions) under (B, 21, n) tables, against nanocall_tpu's
 build_structured_batch and make_trans_ops_batch (tests/test_hmm.py:142
-test_per_batch_transition_tables) and against each read's decode alone.
+test_per_batch_transition_tables) and against each read's decode alone;
+the state axis's forward-backward (K6cm) refusing them.  The
+forward-backward (K6c, K6e) under them: tests/test_torch_fwbw_batch.py.
 
 Tolerances: build_structured_batch is numpy in both packages, so its
 tables are equal (-inf entries included); against JAX's decode, paths
@@ -68,7 +70,8 @@ def test_trans_ops_batch_layout(K):
     """make_trans_ops_batch keeps the (B, 21, n) log-probs, the fixed slot
     maps and K6b's from-state table shared by every read; at n = 4096 each
     read's resident K6a layout is pack_slots' of its own table (every
-    structured table packs), at n = 64 there is none."""
+    structured table packs; its K6c layout of both sides too:
+    tests/test_torch_fwbw_batch.py), at n = 64 there is none."""
     ops_j, ops = _batch_ops(K)
     np.testing.assert_array_equal(ops.from_logp.numpy(),
                                   np.asarray(ops_j.from_logp))
@@ -78,10 +81,11 @@ def test_trans_ops_batch_layout(K):
                                   ttransitions.slot_from_state(K))
     np.testing.assert_array_equal(ops.to_idx.numpy(),
                                   ttransitions._slot_maps(K)[1])
-    assert hmm.per_read(ops) and ops.fwbw_packed is None
+    assert hmm.per_read(ops)
     if K == 3:
-        assert ops.from_packed is ops.from_states is None
+        assert ops.from_packed is ops.from_states is ops.fwbw_packed is None
         return
+    assert hmm.fwbw_route(ops) == "resident"
     assert hmm.generic_forward_route(ops) == "resident"
     assert ops.from_packed.shape == (CASES[K][0], 21, 4096)
     assert ops.from_codebook.shape == (CASES[K][0], 21, hmm.RESIDENT_CODES)
@@ -141,20 +145,27 @@ def test_per_read_decode_bit_equal_to_each_read_alone(K):
         assert torch.equal(_bits(got["logp"][b]), _bits(solo["logp"][0])), b
 
 
-def test_forward_backward_refuses_per_read_tables():
-    """K6c and K6e, their plain versions and their kernels, take one table
-    for every read: per-read tables raise ValueError before any launch
-    (JAX has no caller of them under make_trans_ops_batch)."""
+def test_state_axis_fwbw_refuses_per_read_tables():
+    """K6cm, the forward-backward on the mesh's state axis, takes one table
+    for every read (JAX runs fwbw there only in the legacy EM round, under
+    one loaded table): a rank's cut of per-read tables
+    (hmm.cut_fwbw_table) and a rank of them (hmm._check_fwbw_wave_rank, the
+    wrappers' check) raise ValueError before any launch."""
     _, ops = _batch_ops(6)
     B, T, lengths = CASES[6]
     _, (_, m_t, ev_t), _ = _rows(6, np.random.default_rng(80), B, T,
                                  lengths)
-    for call in (hmm.fwbw, hmm.fwbw_plain, hmm.fwbw_custom,
-                 hmm.fwbw_custom_plain, hmm.fwbw_generic_kernel,
-                 hmm.fwbw_resident_kernel, hmm.fwbw_custom_kernel,
-                 hmm.fwbw_custom_resident_kernel):
+    with pytest.raises(ValueError, match="per-read"):
+        hmm.cut_fwbw_table(ops, slice(0, 2048), CPU)
+    W = 2048
+    rank = hmm.FwbwWaveRank(
+        ops, hmm.ModelArrays(*(x[:, :W].contiguous() for x in m_t)), ev_t,
+        *(torch.empty((B, T, W)) for _ in range(3)), torch.empty(B),
+        torch.empty((2, B, W)), torch.empty((2, B)),
+        torch.zeros(B, dtype=torch.int32))
+    for resident in (True, False):
         with pytest.raises(ValueError, match="per-read"):
-            call(ops, m_t, ev_t)
+            hmm._check_fwbw_wave_rank(0, rank, B, T, W, resident)
     for k in kernels.KERNELS:
         assert k.wrapper.launches == 0, k.name
 
