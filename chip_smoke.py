@@ -2374,6 +2374,91 @@ def legacy_batch(batch):
     return ev, mdl, pm, st
 
 
+#: the edge rows' lengths (rows 0 .. 3 of the batch: one block at 4 reads a
+#: block, two at 2) and their count (no count of reads a block divides it)
+LEGACY_EDGE_LENGTHS = (0, 1, 2, "T")
+LEGACY_EDGE_ROWS = 13
+
+
+def check_legacy_edge_rows(batch, tables, card: str) -> None:
+    """K6cm's blocks of several reads and K6dm on edge rows, over 2 and 4
+    ranks on the batch's card: the first LEGACY_EDGE_ROWS rows of
+    nan_train_batch's copy of `batch` (so a block holds fewer reads at the
+    row's end), rows 0 .. 3 of lengths 0, 1, 2 and T and NaN and +inf
+    inputs in rows 5 .. 7, whose blocks hold clean rows; K6cm under each of
+    `tables` (its resident and streaming forms) on both exchange paths at
+    its own reads a block (hmm.fwbw_wave_reads) and forced to 1, 2 and 4
+    where they fit, K6dm on both paths: every output bit-equal to the plain
+    version over the same ranks and to K6c's and K6d's on the same rows."""
+    import torch
+
+    from nanocall_tpu_torch import train
+    from nanocall_tpu_torch.ops import hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    ev, mdl, pm, st = nan_train_batch(batch)
+    T = ev["mean"].shape[2]
+    ev["length"][0] = torch.tensor([{"T": T}.get(L, L)
+                                    for L in LEGACY_EDGE_LENGTHS])
+    batch = (ev, mdl, pm, st)
+    dev = ev["mean"].device
+    rows = torch.arange(LEGACY_EDGE_ROWS, device=dev)
+    gtf, model, ev_rows = train._select_rows(train.round_inputs(*batch, K=6),
+                                             rows)
+    reads_of = hmm.fwbw_wave_reads
+    k6d = hmm.fwbw_grouped_backward(gtf, model, ev_rows)
+    runs = 0
+    for M in EM_RANKS:
+        W = 4096 // M
+        sub = [statepar._select_rank_rows(r, rows)
+               for r in statepar.split_round_states(*batch, [dev] * M)]
+        for name, ops in tables.items():
+            resident = hmm.fwbw_route(ops) == "resident"
+            k6c = hmm.fwbw(ops, model, ev_rows)
+            plain = statepar._fwbw_generic_row(ops, sub, False, None)
+            for path, cluster in EM_PATHS:
+                on = cluster is None
+                counts = {reads_of(W, 21, resident, on)} | {
+                    R for R in (1, 2, 4) if R <= 4096 // W and
+                    hmm.fwbw_wave_smem(R, W, 21, resident, on)
+                    <= hmm.FWBW_WAVE_SMEM}
+                for R in sorted(counts):
+                    hmm.fwbw_wave_reads = lambda *a, R=R, **k: R
+                    try:
+                        got = statepar._fwbw_generic_row(ops, sub, True,
+                                                         cluster)
+                        torch.cuda.synchronize()
+                    finally:
+                        hmm.fwbw_wave_reads = reads_of
+                    tag = f"K6cm edge rows {name} M={M} {path} path R={R}"
+                    for k in ("alpha", "beta", "em", "log_pr_data"):
+                        for g, p in zip(got, plain):
+                            assert torch.equal(bits(g[k]), bits(p[k])), \
+                                f"{tag} {k} differs from plain"
+                        whole = (got[0][k] if k == "log_pr_data" else
+                                 torch.cat([g[k] for g in got], dim=-1))
+                        assert torch.equal(bits(whole), bits(k6c[k])), \
+                            f"{tag} {k} differs from K6c"
+                    runs += 1
+        plain = statepar._fwbw_grouped_row(sub, False, None)
+        for path, cluster in EM_PATHS:
+            got = statepar._fwbw_grouped_row(sub, True, cluster)
+            torch.cuda.synchronize()
+            for g, p in zip(got, plain):
+                assert torch.equal(bits(g["beta"]), bits(p["beta"])), \
+                    f"K6dm edge rows M={M} {path} path differs from plain"
+            assert torch.equal(bits(torch.cat([g["beta"] for g in got], -1)),
+                               bits(k6d)), \
+                f"K6dm edge rows M={M} {path} path differs from K6d"
+            runs += 1
+    assert torch.isnan(k6d).any()
+    print(f"legacy edge rows: {LEGACY_EDGE_ROWS} rows of lengths "
+          f"{LEGACY_EDGE_LENGTHS} first, NaN and +inf in rows 5 .. 7, over "
+          f"{EM_RANKS} ranks: {runs} launches of K6cm (every form, path and "
+          f"reads a block that fits) and K6dm, each bit-equal to its plain "
+          f"version and to K6c / K6d [{card}]")
+
+
 def check_legacy_statepar(inp, trans_ops, priors_ops, card: str) -> dict:
     """The legacy EM round on the mesh's state axis at the EM chunk (all
     its rows one data row, legacy_batch's strands at the priors) over 2 and
@@ -2401,6 +2486,7 @@ def check_legacy_statepar(inp, trans_ops, priors_ops, card: str) -> dict:
     priors = (PRIORS_P_STAY, PRIORS_P_SKIP)
     tables = {"(0.14, 0.21)": trans_ops, "(0.1, 0.3)": priors_ops,
               "(0.14, 0.21) streaming": trans_ops._replace(fwbw_packed=None)}
+    check_legacy_edge_rows(legacy_batch(inp["batch"]), tables, card)
     recs, placed_cases = {}, []
     for what, batch in (("clean", legacy_batch(inp["batch"])),
                         ("NaN", legacy_batch(nan_train_batch(

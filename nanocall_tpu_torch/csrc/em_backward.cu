@@ -142,7 +142,6 @@ __device__ __forceinline__ float moment(int k, const float (&s)[NW], float x,
   }
 }
 
-#ifndef NC_K6DM  // K5: not built into fwbw_backward_wave.cu
 __global__ void __launch_bounds__(THREADS, 1)
 em_backward_kernel(const float* __restrict__ ev_mean,
                    const float* __restrict__ ev_stdv,
@@ -381,7 +380,6 @@ em_backward_kernel(const float* __restrict__ ev_mean,
     st_out[(size_t)b * NST + q] = acc;
   }
 }
-#endif  // NC_K6DM
 
 // the columns of K5m's per-step record: the 6 post sums and 3 transition
 // sums over the rank's states, then the 3 masked maxima over all states
@@ -416,8 +414,7 @@ struct EMWaveRank {
   const float* log_p_step4;  // (B,)
   float* maxima;           // (2, B, NMAX_WAVE): step t's at t & 1
   float* sums;             // (2, B, 9 W / 16): step t's at t & 1
-  float* red;              // (B, T, NRED_WAVE); BETAS (K6dm): the rank's
-                           // (B, T, W) slice of the betas
+  float* red;              // (B, T, NRED_WAVE)
   int32_t* flags;          // (B,) counter
   float* scal;             // (B, 14), the first rank's
   float* st;               // (B, 3), the first rank's
@@ -443,16 +440,7 @@ __device__ __forceinline__ float sub_tree_sum(float v, int levels) {
 // (train_scaling) its W's 6 rows, W floats each; (CLUSTER) its published
 // maxima and record of block sums; then the ranks' counters, maxima, sums
 // and records at the read (M pointers each).
-// BETAS (K6dm, K6d on the state axis): the same reverse pass and exchanges
-// without the statistics (train_scaling and train_transitions 0; the
-// alphas, lpd, valid and the log rates are loaded, as K5m's code loads
-// them, and unused), each step's beta of the rank's states stored into its
-// (B, T, W) slice of the betas (at `red`; 0 at T - 1), and no fold: a
-// cluster's blocks leave after one more cluster barrier, so that no peer
-// reads a block's shared memory after it has left.  They are built in
-// fwbw_backward_wave.cu (NC_K6DM), which includes this file, so that K5m's
-// instances here keep their SASS (tools/torch_sass_diff.py).
-template <bool SYS, bool CLUSTER, bool BETAS = false>
+template <bool SYS, bool CLUSTER>
 __global__ void __launch_bounds__(SLICE_MAX_THREADS, 2)
 em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
                         int wave_lo, int slice_shift, int train_scaling,
@@ -690,10 +678,6 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
   }
 
   float beta[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if constexpr (BETAS) {
-    // the thread's 4 states of the rank's slice of the read's betas
-    if (own) store4(e.red + ((size_t)b * T + T - 1) * W + 4 * u, beta);
-  }
   float em[4];  // em(t + 1) of the thread's states
   if (T >= 2) emission4(T - 1, em);
   // step t + 1's masked transition values, held until the next exchange
@@ -800,10 +784,6 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
           sBook[2][p] * ((T16[i] - p2G) - s5T4);
       beta[i] = last ? 0.0f : m + logf(total);
     }
-    if constexpr (BETAS) {
-      if (own) store4(e.red + ((size_t)b * T + t) * W + 4 * u, beta);
-      continue;
-    }
 
     float a[4], lp_j1[4], e_j1[4];
     unpack4(a, a_cur);
@@ -844,13 +824,6 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
     }
   }
 
-  if constexpr (BETAS) {
-    if constexpr (CLUSTER) {
-      cluster_arrive();
-      cluster_wait();
-    }
-    return;
-  }
   // step 0's masked maxima over every rank (an exchange of their own), its
   // transition sums, the last record, then the records' release: the
   // counter once more, or the cluster barrier (after which no block reads
@@ -951,20 +924,11 @@ em_backward_wave_kernel(const EMWaveRank* __restrict__ wave, int B, int T,
 
 using EMWaveKernel = decltype(&em_backward_wave_kernel<false, false>);
 
-// The instances this translation unit builds: K5m's, or (NC_K6DM,
-// fwbw_backward_wave.cu) K6dm's, which live in a unit of their own so that
-// K5m's instances keep their SASS
-#ifdef NC_K6DM
-constexpr bool kBetas = true;
-#else
-constexpr bool kBetas = false;
-#endif
-
-// the unit's instance for its exchange
+// K5m's instance for its exchange
 EMWaveKernel em_wave_kernel(int sys, int cluster) {
-  if (cluster) return em_backward_wave_kernel<false, true, kBetas>;
-  return sys ? em_backward_wave_kernel<true, false, kBetas>
-             : em_backward_wave_kernel<false, false, kBetas>;
+  if (cluster) return em_backward_wave_kernel<false, true>;
+  return sys ? em_backward_wave_kernel<true, false>
+             : em_backward_wave_kernel<false, false>;
 }
 
 // K5m's dynamic shared memory: the rows, (cluster) the published maxima
@@ -1038,8 +1002,7 @@ int wave_resident(int sys, int train_scaling, int slice_shift, int cluster,
   return (int)err;
 }
 
-// The unit's launch, as nc_em_backward_wave says (K6dm: with neither
-// train flag).
+// The unit's launch, as nc_em_backward_wave says.
 int wave_launch(const void* ranks, int n_local, int B, int T, int lo,
                 int n_reads, int slice_shift, int train_scaling,
                 int train_transitions, int sys, int cluster, float log2pi,
@@ -1051,8 +1014,7 @@ int wave_launch(const void* ranks, int n_local, int B, int T, int lo,
   if (slice_shift < 6 || slice_shift > 11 || T < 1 || lo < 0 ||
       n_reads < 1 || lo + n_reads > B || n_local < 1 || n_local > M ||
       timed_out == nullptr ||
-      (kBetas ? train_scaling || train_transitions
-              : !(train_scaling || train_transitions)) ||
+      !(train_scaling || train_transitions) ||
       (cluster && (sys || n_local != M || M > nc::MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
   const EMWaveKernel kernel = em_wave_kernel(sys, cluster);
@@ -1077,7 +1039,6 @@ int wave_launch(const void* ranks, int n_local, int B, int T, int lo,
 
 }  // namespace
 
-#ifndef NC_K6DM
 // K5m's wave: the most blocks of its instance (sys, train_scaling, at
 // slices of 1 << slice_shift states) that one card holds at once (blocks
 // an SM at its slice_threads and shared memory, times the SMs) into
@@ -1148,30 +1109,3 @@ extern "C" int nc_em_backward(
   }
   return (int)cudaGetLastError();
 }
-#else  // NC_K6DM
-// K6dm's wave: as K5m's, its instance without W's rows.
-extern "C" int nc_fwbw_backward_wave_resident(int sys, int slice_shift,
-                                              int cluster, int device,
-                                              int* blocks) {
-  return wave_resident(sys, 0, slice_shift, cluster, device, blocks);
-}
-
-// K6dm: the reverse pass of the reads [lo, lo + n_reads) for n_local ranks
-// of a data row, each rank storing its slice of the betas, as K5m's launch
-// (nc_em_backward_wave) without its statistics: the entries' betas (at
-// `red`, 16-byte aligned), maxima, sums, counters, model rows, codebooks,
-// pattern and flag bytes are read and written; their alphas, lpd, valid and
-// log rates are loaded and unused (they must point at memory of at least
-// (B, T, W), (B,), (B,) bytes and (B,) floats); W, x_unc, t_start, scal and
-// st are not read.
-extern "C" int nc_fwbw_backward_wave(const void* ranks, int n_local, int B,
-                                     int T, int lo, int n_reads,
-                                     int slice_shift, int sys, int cluster,
-                                     float log2pi, long long timeout_ns,
-                                     int32_t* timed_out, int device,
-                                     void* stream) {
-  return wave_launch(ranks, n_local, B, T, lo, n_reads, slice_shift, 0, 0,
-                     sys, cluster, log2pi, timeout_ns, timed_out, device,
-                     stream);
-}
-#endif  // NC_K6DM

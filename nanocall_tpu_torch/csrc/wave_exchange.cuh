@@ -14,7 +14,9 @@
 // and traps: a fault in the exchange fails the pass, never hangs it.  The
 // cluster path (K6am, K4m and K5m on one card with M <= MAX_CLUSTER): a
 // read's M blocks one thread block cluster, exchanging through their
-// shared memory behind the cluster barrier (below).
+// shared memory behind the cluster barrier (below); K6cm and K6dm
+// (fwbw_generic_wave.cu, fwbw_backward_wave.cu) push into it onto the
+// receiver's mbarrier instead (st_async, mbar_wait_cluster).
 
 #pragma once
 
@@ -237,6 +239,64 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, int v) {
   asm volatile("st.shared::cluster.b32 [%0], %1;" ::"r"(addr), "r"(v)
                : "memory");
 }
+
+// --- pushes completing on the receiver's mbarrier (K6cm, K6dm) ------------
+// A block that pushes into a peer's shared memory by st.async reports the
+// bytes to the peer's mbarrier (both at cluster_map addresses of the peer);
+// the peer arms its mbarrier for the bytes of an exchange (mbar_rearm) and
+// waits on it alone, so that no step ends at a rendezvous of the whole
+// cluster.  The complete_tx of st.async releases at cluster scope,
+// mbar_wait_cluster acquires at cluster scope.
+//
+// NC_BARRIER (defined only by tools/torch_decode_times.py
+// --legacy-exchange, which times the two in turns) swaps in the exchange
+// this one replaced: a push a plain store into the peer's shared memory,
+// the wait a cluster barrier of every thread, nothing armed.  Every thread
+// of every block calls the waits of K6cm and K6dm, so the swap keeps their
+// results.
+
+#ifdef NC_BARRIER
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t) {
+  st_cluster(addr, __float_as_int(v));
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t, uint32_t) {
+  __syncwarp();
+  cluster_arrive();
+  cluster_wait();
+}
+
+__device__ __forceinline__ void mbar_rearm(uint32_t, uint32_t) {}
+#else
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];" ::"r"(addr),
+      "f"(v), "r"(mbar)
+      : "memory");
+}
+
+// until the phase of parity `parity` of this block's mbarrier at `bar` has
+// completed, acquiring the pushes that completed it at cluster scope
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// thread 0's arming of its mbarrier at `bar` for an exchange of `bytes`
+__device__ __forceinline__ void mbar_rearm(uint32_t bar, uint32_t bytes) {
+  mbar_expect(bar, bytes);
+}
+#endif
 
 // ranks_max over the cluster: out[k] the max of the K floats at `addr` in
 // the shared memory of each of the cluster's `ranks` blocks (every lane of

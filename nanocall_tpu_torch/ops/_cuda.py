@@ -166,11 +166,11 @@ def load():
             ci, ci, ci, ci, ctypes.POINTER(ci)]
         lib.nc_fwbw_generic_wave.restype = ci
         lib.nc_fwbw_generic_wave.argtypes = (
-            [vp] + [ci] * 11 + [cf, cf] + [ctypes.c_longlong, vp]
+            [vp] + [ci] * 15 + [cf, cf] + [ctypes.c_longlong, vp]
             + [ci, vp])
         lib.nc_fwbw_generic_wave_resident.restype = ci
         lib.nc_fwbw_generic_wave_resident.argtypes = [
-            ci] * 6 + [ctypes.POINTER(ci)]
+            ci] * 10 + [ctypes.POINTER(ci)]
         lib.nc_em_backward.restype = ci
         lib.nc_em_backward.argtypes = (
             [vp] * 4 + [ci, ci] + [vp] * 17 + [ci, ci, cf] + [vp] * 3

@@ -16,8 +16,9 @@ sums of their own blocks of 4 and 16 states, each rank's statistics are
 subtrees of K5's pairwise sums, and the row's first rank folds the ranks'
 per-step partials.  K6dm (fwbw_backward_wave_kernel vs
 fwbw_backward_wave_plain) is K6d, the grouped backward with its betas
-stored, split so (the legacy EM round's rows off the priors): K5m's kernel
-and exchanges without the statistics.
+stored, split so (the legacy EM round's rows off the priors): a kernel of
+its own on K6d's beta step, its two exchanges a step pushed into every
+rank's shared memory on the cluster path.
 """
 
 from __future__ import annotations
@@ -624,10 +625,10 @@ em_backward_wave_kernel.launches = 0
 # ---------------------------------------------------------------------------
 # K6dm: K6d (the grouped backward with the betas stored) with the states
 # split over M ranks, the legacy EM round's grouped rows on the state axis
-# (parallel/statepar.py).  K5m's step and exchanges without the alphas and
-# the statistics: each step every rank publishes its partial max of g =
-# em(t + 1) + beta, then its block sums of G = exp(g - max), and stores
-# its slice of beta.
+# (parallel/statepar.py).  K6d's step on the rank's slice
+# (csrc/fwbw_backward_wave.cu): each step every rank publishes its partial
+# max of g = em(t + 1) + beta, then its block sums of G = exp(g - max),
+# and stores its slice of beta.
 # ---------------------------------------------------------------------------
 
 
@@ -730,9 +731,11 @@ def fwbw_backward_wave_kernel(ranks, local, lo: int, hi: int,
                               cluster: bool | None = None) -> None:
     """K6dm on the card: fwbw_backward_wave_plain's work for the ranks
     `local` (indices into `ranks`, all on one card; 2 to 64 ranks in all)
-    over the reads [lo, hi), one launch on that card's current stream: K5m's
-    kernel (csrc/em_backward.cu, its BETAS instances) storing each rank's
-    betas.  cluster, the waves and the peers as em_backward_wave_kernel."""
+    over the reads [lo, hi), one launch on that card's current stream
+    (csrc/fwbw_backward_wave.cu), each rank storing its betas.  cluster,
+    the waves and the peers as em_backward_wave_kernel; the cluster path
+    pushes the maxima and sums into the blocks' shared memory and reads
+    neither maxima, sums nor counters."""
     B, T, W, shift, dev, sys = hmm._wave_setup(ranks, local, lo, hi, "K6dm")
     cluster = hmm.cluster_path(len(ranks), sys, len(local), cluster)
     vals, keep = [], []
@@ -743,16 +746,11 @@ def fwbw_backward_wave_kernel(ranks, local, lo: int, hi: int,
             own = [x.data_ptr() for x in keep[-2:]]
         else:  # a peer's inputs are never read by this launch
             own = [0, 0]
-        # EMWaveRank's fields, the betas in its record's place; the kernel
-        # loads the alphas (here the betas, of their size), valid (the
-        # counters' bytes), lpd and the log rates (the maxima's floats) of
-        # a read and step, and uses none of them
-        betas, maxima = r.betas.data_ptr(), r.maxima.data_ptr()
         vals += [r.ev["mean"].data_ptr(), r.ev["stdv"].data_ptr(),
                  r.ev["log_stdv"].data_ptr(), r.ev["length"].data_ptr(),
                  r.books.data_ptr(), *own, *(x.data_ptr() for x in r.model),
-                 0, betas, maxima, 0, 0, r.flags.data_ptr(), maxima, maxima,
-                 maxima, r.sums.data_ptr(), betas, r.flags.data_ptr(), 0, 0]
+                 r.betas.data_ptr(), r.maxima.data_ptr(),
+                 r.sums.data_ptr(), r.flags.data_ptr()]
     table = hmm._rank_table(vals, local, dev)
     err = _cuda.load().nc_fwbw_backward_wave(
         table.data_ptr(), len(local), B, T, lo, hi - lo, shift, int(sys),

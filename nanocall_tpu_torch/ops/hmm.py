@@ -1828,6 +1828,8 @@ def viterbi_forward_plain(ops: TransOps, model: ModelArrays, ev: dict,
 RESIDENT_CODES = 16
 #: shared memory one block may use on Hopper (bytes)
 SMEM_PER_BLOCK = 232448
+#: shared memory of one SM of Hopper (bytes)
+SMEM_PER_SM = 233472
 #: the resident kernel's static shared memory: its mbarrier
 _RESIDENT_STATIC_SMEM = 8
 
@@ -2768,11 +2770,82 @@ def fwbw(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
 # the resident layout), its (B, W) scaled model and its (B, T, W) slices of
 # alpha, beta and em.  A loaded table's from- and to-states lie anywhere,
 # so every step, forward and backward, each rank needs the whole column
-# (alpha of event t - 1; g = em(t + 1) + beta): the ranks exchange it as
-# K6am does (on one card of at most MAX_CLUSTER ranks a thread block
-# cluster a read, each rank pushing its values into its peers' shared
-# memory; else a cooperative grid behind counters, the slices in the
-# ranks' (2, B, W) buffers).
+# (alpha of event t - 1; g = em(t + 1) + beta).  A block takes
+# fwbw_wave_reads reads of the row under its rank's one cut; the ranks
+# exchange the columns on one card of at most MAX_CLUSTER ranks as a
+# thread block cluster a read group, each rank pushing its values into its
+# peers' shared memory onto their mbarriers; else a cooperative grid
+# behind counters, the slices in the ranks' (2, B, W) buffers.
+
+#: the most reads a K6cm block takes (csrc/fwbw_generic_wave.cu MAX_READS)
+FWBW_WAVE_MAX_READS = 8
+#: K6cm's static shared memory, rounded up: the cooperative exchange's
+#: pointer tables, its mbarriers, the per-warp partials of 8 reads
+_FWBW_WAVE_STATIC_SMEM = 6144
+#: the dynamic shared memory a K6cm block may take
+FWBW_WAVE_SMEM = SMEM_PER_BLOCK - _FWBW_WAVE_STATIC_SMEM
+
+
+def fwbw_wave_smem(reads: int, W: int, deg: int, resident: bool,
+                   cluster: bool) -> int:
+    """K6cm's dynamic shared memory for `reads` reads a block at slices of
+    W states (csrc/fwbw_generic_wave.cu fwbw_wave_smem): each read's
+    column of n float32 and 32 / reads more, a bank shift (both parities
+    on the cluster path), the vote words (cluster and resident: 32 a read
+    and parity), each thread's two buffers of its 4 states' em, and
+    resident the codebooks and cut of the larger side's deg slots."""
+    cols = (2 if cluster else 1) * reads * (4096 + 32 // reads) * 4
+    votes = 2 * 32 * reads * 4 if cluster and resident else 0
+    ems = 2 * 4 * 4 * reads * W // 4
+    cut = deg * (4 * FWBW_GROUPS * RESIDENT_CODES + 2 * W) if resident else 0
+    return cols + votes + ems + cut
+
+
+def fwbw_wave_reads(W: int, deg: int, resident: bool, cluster: bool) -> int:
+    """K6cm's reads a block, R, at slices of W states and deg slots (the
+    larger side's), in its resident or streaming form on the cluster or
+    the cooperative path, a block holding R W / 4 threads (at least a
+    warp).  The cooperative path: the most reads, a power of two up to
+    FWBW_WAVE_MAX_READS and n / W, whose fwbw_wave_smem fits FWBW_WAVE_SMEM
+    (one rendezvous behind the counters a step serves them all).  The
+    cluster path: the fewest where two such blocks share an SM's shared
+    memory (SMEM_PER_SM, each with its static share and the runtime's 1
+    KiB), so that the SMs take whole clusters and the blocks hide each
+    other's waits; else (a block of one read fills its SM, as the resident
+    cut of 2048 states does) the most, so that the one cut serves them
+    all.  0 when no block fits (the wrappers then refuse the cut)."""
+    def fits(R):
+        return fwbw_wave_smem(R, W, deg, resident, cluster) <= FWBW_WAVE_SMEM
+
+    R = 1
+    while R * W // 4 < 32:
+        R *= 2
+    if not fits(R):
+        return 0
+    share = fwbw_wave_smem(R, W, deg, resident, cluster) \
+        + _FWBW_WAVE_STATIC_SMEM + 1024
+    if cluster and 2 * share <= SMEM_PER_SM:
+        return R
+    while (2 * R <= min(FWBW_WAVE_MAX_READS, 4096 // W)
+           and fits(2 * R)):
+        R *= 2
+    return R
+
+
+def fwbw_wave_grid(n_reads: int, M: int, reads: int, cluster: bool,
+                   n_local: int | None = None) -> dict:
+    """The shape of a K6cm launch over n_reads reads of a row of M ranks
+    at `reads` reads a block, as the launch takes it (nc_fwbw_generic_wave
+    refuses any other): {"grid": (x, y), "block": threads, "cluster":
+    blocks a cluster or None}: on the cluster path (M, read groups),
+    clusters of the group's M ranks; else a cooperative grid (read groups,
+    the n_local ranks of the launch's card)."""
+    groups = -(-n_reads // reads)
+    block = reads * (4096 // M) // 4
+    if cluster:
+        return {"grid": (M, groups), "block": block, "cluster": M}
+    return {"grid": (groups, M if n_local is None else n_local),
+            "block": block, "cluster": None}
 
 
 class FwbwWaveRank(NamedTuple):
@@ -2877,7 +2950,7 @@ def fwbw_generic_wave_plain(ranks, lo: int, hi: int) -> None:
 
 
 #: fwbw_wave_resident's answers, by (card index, sys, resident, deg, W,
-#: cluster)
+#: cluster, reads a block)
 _fwbw_wave_resident: dict = {}
 
 
@@ -2885,20 +2958,36 @@ def fwbw_wave_resident(dev, sys: bool, resident: bool, deg: int, W: int,
                        cluster: bool = False) -> int:
     """The most blocks of K6cm's instance (sys: the exchange across cards;
     resident, at deg slots, the larger side's, and slices of W states,
-    whose shared memory it sets) that the CUDA device `dev` holds at once:
-    a cooperative wave's grid, reads times the card's ranks, must not
-    exceed it; cluster: the blocks of the most clusters of the cluster path
-    it holds at once."""
+    at fwbw_wave_reads reads a block, whose shared memory it sets) that the
+    CUDA device `dev` holds at once: a cooperative wave's grid, read
+    groups times the card's ranks, must not exceed it; cluster: the blocks
+    of the most clusters of the cluster path it holds at once."""
+    reads = _fwbw_wave_fit(W, deg, resident, cluster)
     key = (torch.device(dev).index, bool(sys), bool(resident), int(deg),
-           int(W), bool(cluster))
+           int(W), bool(cluster), reads)
     if key not in _fwbw_wave_resident:
         blocks = ctypes.c_int(0)
+        M = 4096 // W
+        shape = fwbw_wave_grid(reads, M, reads, cluster)
         _cuda.check(_cuda.load().nc_fwbw_generic_wave_resident(
-            int(sys), int(resident), int(deg), _slice_shift(4096 // W, W),
+            int(sys), int(resident), int(deg), _slice_shift(M, W),
+            reads.bit_length() - 1, *shape["grid"], shape["block"],
             int(cluster), key[0], ctypes.byref(blocks)),
             "fwbw_generic_wave occupancy")
         _fwbw_wave_resident[key] = blocks.value
     return _fwbw_wave_resident[key]
+
+
+def _fwbw_wave_fit(W: int, deg: int, resident: bool, cluster: bool) -> int:
+    """fwbw_wave_reads, or ValueError where no block fits the cut."""
+    reads = fwbw_wave_reads(W, deg, resident, cluster)
+    if not reads:
+        raise ValueError(
+            f"K6cm: a {'resident' if resident else 'streaming'} cut of "
+            f"{deg} slots at slices of {W} states does not fit a block's "
+            f"shared memory on the {'cluster' if cluster else 'cooperative'}"
+            f" path")
+    return reads
 
 
 def _check_fwbw_wave_rank(m: int, r: FwbwWaveRank, B: int, T: int, W: int,
@@ -2963,6 +3052,8 @@ def _fwbw_wave_kernel(ranks, local, lo: int, hi: int, resident: bool,
     if len(degs) != 1:
         raise ValueError(f"the ranks' cuts differ in their slots: {degs}")
     deg_from, deg_to = degs.pop()
+    reads = _fwbw_wave_fit(W, max(deg_from, deg_to), resident, cluster)
+    shape = fwbw_wave_grid(hi - lo, len(ranks), reads, cluster, len(local))
     vals = []
     for r in ranks:
         p = r.ops.fwbw_packed
@@ -2978,7 +3069,8 @@ def _fwbw_wave_kernel(ranks, local, lo: int, hi: int, resident: bool,
                                           r.part, r.lpd, r.flags))]
     table = _rank_table(vals, local, dev)
     err = _cuda.load().nc_fwbw_generic_wave(
-        table.data_ptr(), len(local), B, T, lo, hi - lo, shift, deg_from,
+        table.data_ptr(), len(local), B, T, lo, hi - lo, shift,
+        reads.bit_length() - 1, *shape["grid"], shape["block"], deg_from,
         deg_to, int(sys), int(resident), int(cluster), LOG_2PI,
         math.log(len(ranks) * W), int(WAVE_TIMEOUT_S * 1e9),
         _timed_out.data_ptr(), *_cuda.target(dev))
@@ -2991,16 +3083,17 @@ def fwbw_wave_resident_kernel(ranks, local, lo: int, hi: int,
     codebooks in shared memory in turn): fwbw_generic_wave_plain's work
     for the ranks `local` (indices into `ranks`, all on one card; 2 to 64
     ranks in all) over the reads [lo, hi), one launch on that card's
-    current stream, blocks of W / 2 threads.  cluster (cluster_path: by
-    default where wave_cluster(M, sys) says and `local` holds every rank):
-    each read's M blocks one thread block cluster, exchanging through
-    their shared memory, any number of reads.  Else one cooperative
-    launch, whose grid (hi - lo reads x len(local) ranks) must fit the card
-    at once (fwbw_wave_resident), or the launch raises; the other ranks
-    run their blocks of the same reads in a launch of their own card; their
-    slices, partials and counters are read over peer access, and a block
-    waits WAVE_TIMEOUT_S on a peer at most.  Raises if a wave of this
-    process timed out (wave_timeout)."""
+    current stream, R = fwbw_wave_reads reads a block of R W / 4 threads
+    (fwbw_wave_grid); a cut that fits no block raises ValueError.  cluster
+    (cluster_path: by default where wave_cluster(M, sys) says and `local`
+    holds every rank): each read group's M blocks one thread block
+    cluster, pushing into each other's shared memory, any number of reads.
+    Else one cooperative launch, whose grid (read groups x len(local)
+    ranks) must fit the card at once (fwbw_wave_resident), or the launch
+    raises; the other ranks run their blocks of the same reads in a launch
+    of their own card; their slices, partials and counters are read over
+    peer access, and a block waits WAVE_TIMEOUT_S on a peer at most.
+    Raises if a wave of this process timed out (wave_timeout)."""
     _fwbw_wave_kernel(ranks, local, lo, hi, True, cluster)
     _cuda.count_launch(fwbw_wave_resident_kernel)
 

@@ -102,13 +102,16 @@ included; a row of one rank runs K4 + K5.
 Under a loaded table (default_ops) the round is the legacy one
 (legacy_estep_statepar): the rows whose strand is at the CLI priors take
 K6cm (hmm.fwbw_generic_wave_kernel: K6c's forward and backward for the
-rank's states, each step's whole column exchanged as K6am exchanges it,
-since a loaded table's from- and to-states lie anywhere), the others K4m
-and K6dm (em.fwbw_backward_wave_kernel: K5m's beta step and exchanges
-without the statistics, each rank storing its betas); each rank keeps its
-(B, T, W) slices of alpha, beta and em, and train.legacy_statistics
-reduces them, each state sum a tree whose subtrees are the ranks' slices,
-so that the round is bit-identical to the unplaced legacy round.
+rank's states, hmm.fwbw_wave_reads reads a block under the rank's one cut,
+each step's whole column exchanged, since a loaded table's from- and
+to-states lie anywhere: pushed into the peers' shared memory onto their
+mbarriers on one card, else behind counters), the others K4m and K6dm
+(em.fwbw_backward_wave_kernel: K6d's beta step, its partial maxima and
+block sums exchanged the same ways, each rank storing its betas); each
+rank keeps its (B, T, W) slices of alpha, beta and em, and
+train.legacy_statistics reduces them, each state sum a tree whose
+subtrees are the ranks' slices, so that the round is bit-identical to the
+unplaced legacy round.
 """
 
 from __future__ import annotations
@@ -153,14 +156,16 @@ def split_states(gt: hmm.GroupedTrans, model: hmm.ModelArrays, ev: dict,
     return parts
 
 
-def plan_waves(B: int, devices, resident) -> dict:
+def plan_waves(B: int, devices, resident, reads: int = 1) -> dict:
     """The waves of a data row of B reads whose rank m lies on devices[m]:
     {device: [(lo, hi), ...]}, the same contiguous cut of [0, B) for every
-    device of the row, each wave of at most min over the devices d of
-    resident[d] // (the row's ranks on d) reads, so that a wave's grid fits
-    each card at once.  resident: {device: blocks it holds at once}."""
+    device of the row, each wave of at most `reads` (a block's reads: K6cm
+    takes several) times min over the devices d of resident[d] // (the
+    row's ranks on d) reads, so that a wave's grid fits each card at once
+    and every wave but the last holds whole blocks of reads.  resident:
+    {device: blocks it holds at once}."""
     count = collections.Counter(devices)
-    per = min(resident[d] // k for d, k in count.items())
+    per = min(resident[d] // k for d, k in count.items()) * reads
     if per < 1:
         raise ValueError(f"a wave of one read does not fit: {dict(count)} "
                          f"ranks a device, {dict(resident)} resident blocks")
@@ -238,31 +243,37 @@ def _wait_all(cards) -> None:
                     torch.cuda.current_stream(b))
 
 
-def row_waves(B: int, devices, resident, clusters: bool = False) -> dict:
+def row_waves(B: int, devices, resident, clusters: bool = False,
+              reads: int = 1) -> dict:
     """The launches of a data row of B reads whose rank m lies on
     devices[m]: {device: [(lo, hi), ...]}.  With `clusters` (K4m, K5m,
-    K6am), a row on one card of at most hmm.MAX_CLUSTER ranks
+    K6am, K6cm, K6dm), a row on one card of at most hmm.MAX_CLUSTER ranks
     (hmm.wave_cluster) in one launch of all its reads, which the kernels
-    run as a cluster a read; else plan_waves' cut on resident(card, sys),
-    sys: the row spans cards."""
+    run as a cluster a read (K6cm: a read group); else plan_waves' cut on
+    resident(card, sys) blocks of `reads` reads, sys: the row spans
+    cards."""
     cards = list(dict.fromkeys(devices))
     sys = len(cards) > 1
     if clusters and hmm.wave_cluster(len(devices), sys):
         return {cards[0]: [(0, B)]}
-    return plan_waves(B, devices, {d: resident(d, sys) for d in cards})
+    return plan_waves(B, devices, {d: resident(d, sys) for d in cards},
+                      reads)
 
 
-def _wave_kernels(ranks, launch, resident, clusters: bool = False) -> None:
+def _wave_kernels(ranks, launch, resident, clusters: bool = False,
+                  reads: int = 1) -> None:
     """One launch a wave and card over a data row's ranks (launch(ranks,
-    local, lo, hi)), the waves cut by row_waves.  Across cards every card
-    waits first for the others' counters to be zeroed, and the row's first
-    card for the others' waves after the last."""
+    local, lo, hi)), the waves cut by row_waves (blocks of `reads` reads
+    on the cooperative path).  Across cards every card waits first for the
+    others' counters to be zeroed, and the row's first card for the
+    others' waves after the last."""
     devices = [r.ev["mean"].device for r in ranks]
     cards = list(dict.fromkeys(devices))
     for a in cards:
         for b in cards:
             _cuda.enable_peer_access(a, b)
-    waves = row_waves(ranks[0].flags.shape[0], devices, resident, clusters)
+    waves = row_waves(ranks[0].flags.shape[0], devices, resident, clusters,
+                      reads)
     local = {d: [m for m, x in enumerate(devices) if x == d] for d in cards}
     if len(cards) > 1:
         _wait_all(cards)
@@ -749,7 +760,8 @@ def _fwbw_generic_row(ops: hmm.TransOps, sub: list, kernels: bool,
     """K6cm (kernels; else its plain version) over the selected rows of a
     data row (sub: a rank's _select_rank_rows each), on the exchange path
     `cluster` chooses (hmm.cluster_path: None where hmm.wave_cluster says,
-    False the cooperative grid): {alpha, beta, em (b, T, W), log_pr_data
+    False the cooperative grid, its waves of whole blocks of
+    hmm.fwbw_wave_reads reads): {alpha, beta, em (b, T, W), log_pr_data
     (b,)} a rank, its slices of K6c's outputs."""
     b, T = sub[0]["ev"]["mean"].shape
     W = sub[0]["model"].level_mean.shape[-1]
@@ -775,7 +787,8 @@ def _fwbw_generic_row(ops: hmm.TransOps, sub: list, kernels: bool,
                           *a, cluster=cluster),
                       lambda d, sys: hmm.fwbw_wave_resident(
                           d, sys, resident, deg, W),
-                      clusters=cluster is None)
+                      clusters=cluster is None,
+                      reads=hmm.fwbw_wave_reads(W, deg, resident, False))
     else:
         hmm.fwbw_generic_wave_plain(ranks, 0, b)
     return [{"alpha": r.alpha, "beta": r.beta, "em": r.em,

@@ -1655,3 +1655,97 @@ def test_legacy_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
                     (inputs, M, D, ts, tt, k)
     if inputs == "NaN":
         assert torch.isnan(k6c["(0.14, 0.21)"]["log_pr_data"]).any()
+
+
+#: the rank counts of the block-reads card test (16 and 64: the cooperative
+#: path alone)
+BLOCK_READS_RANKS = (2, 4, 8, 16, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", BLOCK_READS_RANKS)
+def test_legacy_statepar_block_reads_bit_equal_on_the_card(card, tmp_path,
+                                                           monkeypatch, M):
+    """K6cm's blocks of several reads and K6dm on their edge rows, over M =
+    2, 4, 8, 16 or 64 ranks on cuda:0: 13 of the NaN batch's 16 rows (a
+    count that 2, 4 and 8 reads a block do not divide: the last group holds
+    fewer reads than a block), its first group of lengths 0, 1, 2 and T
+    (one block at 4 reads a block, two at 2), a NaN event, a NaN model
+    entry and a +inf event in rows whose blocks hold clean rows too; K6cm
+    in its resident form under the loaded tables of (0.14, 0.21) and of the
+    CLI priors (0.1, 0.3) and in its streaming form, on the cluster path
+    (up to 8 ranks) and the cooperative path, each at its own reads a
+    block (hmm.fwbw_wave_reads) and forced to 1, 2 and 4 where they fit,
+    K6dm after K4m on both paths, one launch each: every output bit-equal
+    to the plain version over the same ranks and, joined, to K6c's and
+    K6d's on the same rows."""
+    from nanocall_tpu_torch import train
+    from nanocall_tpu_torch.ops import em
+    from nanocall_tpu_torch.parallel import statepar
+
+    T = 24
+    ev, mdl, pm, st = _train_batch(card, 4, T, True, 23)
+    ev = dict(ev)
+    ev["length"] = ev["length"].clone()
+    ev["length"][0] = torch.tensor([0, 1, 2, T])
+    batch = (ev, mdl, pm, st)
+    inp = train.round_inputs(*batch, K=6)
+    rows = torch.arange(13, device=card)
+    W = 4096 // M
+    loaded = _loaded_ops(card, tmp_path, 0.14, 0.21)
+    tables = {"(0.14, 0.21)": loaded,
+              "(0.1, 0.3)": _loaded_ops(card, tmp_path, 0.1, 0.3),
+              "streaming": loaded._replace(fwbw_packed=None)}
+    sub = [statepar._select_rank_rows(r, rows)
+           for r in statepar.split_round_states(*batch, [card] * M)]
+    gtf, model, ev13 = train._select_rows(inp, rows)
+    paths = (None, False) if M <= hmm.MAX_CLUSTER else (False,)
+    reads_of = hmm.fwbw_wave_reads
+    for name, ops in tables.items():
+        resident = name != "streaming"
+        k6c = hmm.fwbw(ops, model, ev13)
+        plain = statepar._fwbw_generic_row(ops, sub, False, None)
+        assert torch.isnan(k6c["log_pr_data"]).any(), name
+        for cluster in paths:
+            on = cluster is None
+            own = reads_of(W, 21, resident, on)
+            counts = {own} | {R for R in (1, 2, 4)
+                              if R * W // 4 >= 32 and R <= 4096 // W
+                              and hmm.fwbw_wave_smem(R, W, 21, resident, on)
+                              <= hmm.FWBW_WAVE_SMEM}
+            for reads in sorted(counts):
+                assert reads == 1 or 13 % reads
+                monkeypatch.setattr(hmm, "fwbw_wave_reads",
+                                    lambda *a, reads=reads, **k: reads)
+                wrapper = (hmm.fwbw_wave_resident_kernel if resident
+                           else hmm.fwbw_wave_streaming_kernel)
+                n0 = wrapper.launches
+                got = statepar._fwbw_generic_row(ops, sub, True, cluster)
+                torch.cuda.synchronize()
+                monkeypatch.undo()
+                assert wrapper.launches - n0 == 1
+                what = (M, name, cluster, reads)
+                for k in ("alpha", "beta", "em", "log_pr_data"):
+                    for g, p in zip(got, plain):
+                        assert torch.equal(_bits(g[k]), _bits(p[k])), \
+                            (what, k)
+                        if k == "log_pr_data":
+                            assert torch.equal(_bits(g[k]), _bits(k6c[k])), \
+                                what
+                    if k != "log_pr_data":
+                        assert torch.equal(
+                            _bits(torch.cat([g[k] for g in got], -1)),
+                            _bits(k6c[k])), (what, k)
+    k6d = hmm.fwbw_grouped_backward(gtf, model, ev13)
+    plain = statepar._fwbw_grouped_row(sub, False, None)
+    for cluster in paths:
+        n0 = em.fwbw_backward_wave_kernel.launches
+        got = statepar._fwbw_grouped_row(sub, True, cluster)
+        torch.cuda.synchronize()
+        assert em.fwbw_backward_wave_kernel.launches - n0 == 1
+        for g, p in zip(got, plain):
+            assert torch.equal(_bits(g["beta"]), _bits(p["beta"])), \
+                (M, cluster)
+        assert torch.equal(_bits(torch.cat([g["beta"] for g in got], -1)),
+                           _bits(k6d)), (M, cluster)
+        assert torch.isnan(k6d).any()

@@ -319,3 +319,113 @@ def test_legacy_wave_kernel_counts():
     ex = roofline.statepar_exchange_bytes(512, 128, 4)
     assert ex["fwbw_columns"] == 2 * 127 * 12 * 4 * 512 * 1024
     assert ex["beta_sums"] == 127 * 4 * 512 * 2 * 3072
+
+
+#: fwbw_wave_reads' cases, worked by hand: (W, deg, resident, cluster, R).
+#: A resident cut of 2048 states and 21 slots takes 91,392 bytes (21 x
+#: (256 + 4096)); a block of one read beside it 33,024 of column (2 x
+#: 4128 floats on the cluster path), 256 of vote words and 16,384 of em
+#: buffers: 141,056, with the static 6,144 and the runtime's 1,024 more
+#: than half an SM's 233,472, so the cluster path takes 2 reads (190,464
+#: bytes).  At 1024 states one read takes 89,856 bytes and two blocks
+#: share an SM: 1 read.  The cooperative path takes the most that fit:
+#: 4 reads at 1024 states (146,816 bytes), 8 at 512 (190,848), 2 at 2048
+#: (157,056; n / W = 2).  64 states: a block of a warp is 2 reads.  A cut
+#: of 50 slots (217,600 bytes) fits no block.
+FWBW_WAVE_READS_CASES = (
+    (2048, 21, True, True, 2), (1024, 21, True, True, 1),
+    (512, 21, True, True, 1), (64, 21, True, True, 2),
+    (2048, 21, False, True, 1), (1024, 21, False, True, 1),
+    (2048, 21, True, False, 2), (1024, 21, True, False, 4),
+    (512, 21, True, False, 8), (64, 21, True, False, 8),
+    (2048, 21, False, False, 2), (512, 21, False, False, 8),
+    (2048, 50, True, True, 0), (2048, 50, True, False, 0),
+)
+
+
+@pytest.mark.parametrize("W,deg,resident,cluster,R", FWBW_WAVE_READS_CASES)
+def test_fwbw_wave_reads_hand_computed(W, deg, resident, cluster, R):
+    """K6cm's reads a block (hmm.fwbw_wave_reads) from the slice's width,
+    the cut's slots, its form and the exchange path, against the cases
+    worked by hand above, and the shared memory it counts
+    (hmm.fwbw_wave_smem) at the hand-computed sizes."""
+    assert hmm.fwbw_wave_reads(W, deg, resident, cluster) == R
+    if R:
+        assert R * W // 4 >= 32
+        assert hmm.fwbw_wave_smem(R, W, deg, resident, cluster) <= \
+            hmm.FWBW_WAVE_SMEM
+
+
+def test_fwbw_wave_smem_hand_computed():
+    """hmm.fwbw_wave_smem at the byte counts of the comment above: the
+    columns (a bank shift of 32 / R floats a read), the vote words, the em
+    buffers and the cut; against a block's budget (hmm.FWBW_WAVE_SMEM,
+    226,304 bytes) and half an SM, the boundaries fwbw_wave_reads
+    draws."""
+    assert hmm.FWBW_WAVE_SMEM == 232448 - 6144
+    assert hmm.fwbw_wave_smem(1, 2048, 21, True, True) == 141056
+    assert hmm.fwbw_wave_smem(2, 2048, 21, True, True) == 190464
+    assert hmm.fwbw_wave_smem(1, 1024, 21, True, True) == 89856
+    assert hmm.fwbw_wave_smem(4, 1024, 21, True, False) == 146816
+    assert hmm.fwbw_wave_smem(8, 512, 21, True, False) == 190848
+    assert hmm.fwbw_wave_smem(2, 2048, 21, False, False) == 65664
+    assert hmm.fwbw_wave_smem(1, 2048, 50, True, False) == 217600 + 16384 \
+        + 16512 > hmm.FWBW_WAVE_SMEM
+    # a block of one read at 2048 states: more than half an SM (2 reads)
+    assert 2 * (141056 + 6144 + 1024) > hmm.SMEM_PER_SM
+    assert 2 * (89856 + 6144 + 1024) <= hmm.SMEM_PER_SM
+    # the cooperative path's next count past the most that fit
+    assert hmm.fwbw_wave_smem(8, 1024, 21, True, False) > hmm.FWBW_WAVE_SMEM
+
+
+@pytest.mark.parametrize("n_reads,M,R,cluster,n_local,grid,block", [
+    (13, 2, 2, True, None, (2, 7), 1024),
+    (512, 2, 2, True, None, (2, 256), 1024),
+    (512, 4, 1, True, None, (4, 512), 256),
+    (13, 4, 4, False, 4, (4, 4), 1024),
+    (13, 64, 8, False, 32, (2, 32), 128),
+    (8, 8, 8, False, None, (1, 8), 1024),
+])
+def test_fwbw_wave_grid_hand_computed(n_reads, M, R, cluster, n_local, grid,
+                                      block):
+    """K6cm's launch shape (hmm.fwbw_wave_grid): on the cluster path a grid
+    (M, read groups) of clusters of M blocks, else a cooperative grid (read
+    groups, the launch's ranks); R W / 4 threads a block; a last group of
+    fewer reads than R still takes a block."""
+    got = hmm.fwbw_wave_grid(n_reads, M, R, cluster, n_local)
+    assert got == {"grid": grid, "block": block,
+                   "cluster": M if cluster else None}
+
+
+def test_plan_waves_blocks_of_reads():
+    """statepar.plan_waves with `reads` reads a block: a wave holds (the
+    card's resident blocks // its ranks) x reads reads, so its grid of
+    read groups fits the card, and every wave but the last whole blocks;
+    one card of 4 ranks holding 10 blocks at 4 reads a block: waves of 8
+    reads; two cards (2 ranks each) holding 5 and 9 blocks at 2 reads a
+    block: waves of 4."""
+    a, b = torch.device("cpu", 0), torch.device("cpu", 1)
+    assert statepar.plan_waves(13, [a] * 4, {a: 10}, 4) == {
+        a: [(0, 8), (8, 13)]}
+    assert statepar.plan_waves(13, [a, a, b, b], {a: 5, b: 9}, 2) == {
+        a: [(0, 4), (4, 8), (8, 12), (12, 13)],
+        b: [(0, 4), (4, 8), (8, 12), (12, 13)]}
+    assert statepar.plan_waves(13, [a] * 4, {a: 10}) == {
+        a: [(0, 2), (2, 4), (4, 6), (6, 8), (8, 10), (10, 12), (12, 13)]}
+    assert statepar.row_waves(13, [a] * 4, lambda d, sys: 10, False, 4) \
+        == {a: [(0, 8), (8, 13)]}
+
+
+@pytest.mark.parametrize("cluster", [True, False])
+def test_legacy_wave_wrapper_refuses_a_cut_that_fits_no_block(cluster):
+    """A resident cut whose slots fit no block's shared memory (50 slots a
+    side at 2048 states: 217,600 bytes of cut alone) is refused with
+    ValueError by K6cm's wave wrapper (hmm.fwbw_wave_resident, which plans
+    every launch's waves) before it asks the card, on either path, and by
+    the launch's fit check (hmm._fwbw_wave_fit); a cut of 21 slots fits."""
+    with pytest.raises(ValueError, match="does not fit"):
+        hmm.fwbw_wave_resident(torch.device("cpu"), False, True, 50, 2048,
+                               cluster=cluster)
+    with pytest.raises(ValueError, match="does not fit"):
+        hmm._fwbw_wave_fit(2048, 50, True, cluster)
+    assert hmm._fwbw_wave_fit(2048, 21, True, cluster) == 2

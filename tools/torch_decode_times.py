@@ -103,7 +103,21 @@ turns (K6c or K6d, then each rank count and path, then the same
 reversed; LEGACY_MESH_REPS rounds), each call's launches timed alone by
 CUDA events (chip_smoke.launch_spans: the stream held first); every
 output bit-equal to K6c's or K6d's.  It runs in a tree that has the
-legacy round on the state axis (PR 21 on).
+legacy round on the state axis.  In a tree whose K6cm takes
+several reads a block (hmm.fwbw_wave_reads), K6cm's resident and
+streaming forms under (0.14, 0.21) on the cluster path over 2, 4 and 8
+ranks and on the cooperative path over 2 and 4 at each other count of 1,
+2, 4 and 8 reads a block that fits, in the same turns; in a tree whose kernels have the SPLIT instances (NC_SPLIT), then
+the split of a cluster step (split_legacy_mesh): K6cm's and K6dm's
+kernels built once more with NC_SPLIT (their clock64() stamps) into a
+library of their own, one call of each form over 2 and 4 ranks, and the
+cycles of thread 0 of every block in the wait, the slot loop (K6dm: the
+beta step's own work) and the push, a step.
+With --legacy-exchange, K6cm's resident and streaming forms and K6dm on
+the cluster path over 2 and 4 ranks with each step's exchange on
+mbarriers against the same kernels built with NC_BARRIER (the exchange a
+plain store into the peers and a cluster barrier), in turns, bit-equal
+(time_legacy_exchange).
 With --generic-mesh, also the generic decode on the mesh's state axis
 (statepar.viterbi_decode_placed on mesh.shard_decode_inputs: K6am and
 K6bm) at the path chunk (chip_smoke.pooled_inputs, 128 reads x 8192
@@ -205,6 +219,10 @@ def main() -> int:
     ap.add_argument("--legacy-mesh", action="store_true",
                     help="time K6cm and K6dm against K6c and K6d at 512 x "
                          "128 over 2 and 4 ranks")
+    ap.add_argument("--legacy-exchange", action="store_true",
+                    help="time K6cm's and K6dm's exchange on mbarriers "
+                         "against a cluster barrier at 512 x 128 over 2 "
+                         "and 4 ranks")
     ap.add_argument("--generic-mesh", action="store_true",
                     help="time K6am and K6bm at 128 x 8192 and 16 x 8192")
     ap.add_argument("--slice-walks", action="store_true",
@@ -306,6 +324,9 @@ def main() -> int:
 
     if args.legacy_mesh:
         time_legacy_mesh(models, device, card)
+
+    if args.legacy_exchange:
+        time_legacy_exchange(models, device, card)
 
     if args.generic_mesh:
         time_generic_mesh(models, device, card)
@@ -794,23 +815,22 @@ def time_em_mesh(models, device, card: str) -> None:
 LEGACY_MESH_REPS = 2
 
 
-def time_legacy_mesh(models, device, card: str) -> None:
-    """K6cm (three forms) and K6dm at the EM chunk over 2 and 4 ranks on
-    both exchange paths, against K6c and K6d on the whole rows, in turns
-    (the module docstring's --legacy-mesh), bit-equal."""
+def legacy_mesh_inputs(models, device):
+    """The EM chunk of --legacy-mesh (512 x 128, seed 15): the round's
+    batch, its inputs, K6cm's three forms (resident under (0.14, 0.21) and
+    the CLI priors' (0.1, 0.3), streaming under (0.14, 0.21)) and the
+    ranks' rows over 2 and 4 ranks."""
     import numpy as np
     import torch
 
-    from nanocall_tpu_torch import roofline, train
-    from nanocall_tpu_torch.ops import em, hmm
+    from nanocall_tpu_torch import train
     from nanocall_tpu_torch.parallel import statepar
 
     rng = np.random.default_rng(15)
     reads = chip_smoke.simulated_reads(models, rng)
     batch = chip_smoke.em_kernel_inputs(models, reads, device, rng)["batch"]
     inp = train.round_inputs(*batch, K=6)
-    B, T = inp["x_unc"].shape
-    every = torch.arange(B, device=device)
+    every = torch.arange(inp["x_unc"].shape[0], device=device)
     loaded = chip_smoke.load_trans_table(device)[2]
     priors = chip_smoke.load_trans_table(
         device, chip_smoke.PRIORS_P_STAY, chip_smoke.PRIORS_P_SKIP,
@@ -821,6 +841,22 @@ def time_legacy_mesh(models, device, card: str) -> None:
     subs = {M: [statepar._select_rank_rows(r, every)
                 for r in statepar.split_round_states(*batch, [device] * M)]
             for M in (2, 4)}
+    return batch, inp, forms, subs
+
+
+def time_legacy_mesh(models, device, card: str) -> None:
+    """K6cm (three forms) and K6dm at the EM chunk over 2 and 4 ranks on
+    both exchange paths, against K6c and K6d on the whole rows, in turns
+    (the module docstring's --legacy-mesh), bit-equal."""
+    import torch
+
+    from nanocall_tpu_torch import roofline
+    from nanocall_tpu_torch.ops import em, hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    batch, inp, forms, subs = legacy_mesh_inputs(models, device)
+    B, T = inp["x_unc"].shape
+    every = torch.arange(B, device=device)
     paths = (("cluster", None), ("cooperative", False))
 
     def spans(fn, name, module=hmm) -> float:
@@ -831,6 +867,23 @@ def time_legacy_mesh(models, device, card: str) -> None:
         return x.view(torch.int32)
 
     calls = {}  # name: (fn, timed wrapper, module, steps, resident, M)
+    blocks = hasattr(hmm, "fwbw_wave_reads")  # K6cm's reads a block
+
+    def forced(fn, reads: int):
+        """fn with K6cm at `reads` reads a block."""
+        def run():
+            keep = hmm.fwbw_wave_reads
+            hmm.fwbw_wave_reads = lambda *a, **k: reads
+            try:
+                return fn()
+            finally:
+                hmm.fwbw_wave_reads = keep
+        return run
+
+    if blocks:
+        subs[8] = [statepar._select_rank_rows(r, every) for r in
+                   statepar.split_round_states(*batch, [device] * 8)]
+
     for form, ops in forms.items():
         resident = form.startswith("resident")
         wrapper = ("fwbw_wave_resident_kernel" if resident
@@ -844,6 +897,24 @@ def time_legacy_mesh(models, device, card: str) -> None:
                 lambda ops=ops, M=M, cluster=cluster:
                 statepar._fwbw_generic_row(ops, subs[M], True, cluster),
                 wrapper, hmm, 2 * (T - 1), resident, M)
+        for M, (path, cluster) in itertools.product(
+                (2, 4, 8) if blocks and form != "resident (0.1, 0.3)"
+                else (), paths):
+            W = 4096 // M
+            on = cluster is None
+            for reads in (1, 2, 4, 8):
+                if ((reads == hmm.fwbw_wave_reads(W, 21, resident, on)
+                     and M != 8) or 4096 // W < reads or hmm.fwbw_wave_smem(
+                            reads, W, 21, resident, on)
+                        > hmm.FWBW_WAVE_SMEM
+                        or (M == 8 and not on)):
+                    continue
+                calls[f"K6cm {form} over {M} ranks, {path}, {reads} reads "
+                      f"a block"] = (
+                    forced(lambda ops=ops, M=M, cluster=cluster:
+                           statepar._fwbw_generic_row(ops, subs[M], True,
+                                                      cluster), reads),
+                    wrapper, hmm, 2 * (T - 1), resident, M)
     calls["K6d"] = (lambda: hmm.fwbw_backward_kernel(
         inp["gtf"], inp["model"], inp["ev"]), "fwbw_backward_kernel", hmm,
         T - 1, False, 1)
@@ -900,8 +971,24 @@ def time_legacy_mesh(models, device, card: str) -> None:
             form = name[5:name.index(" over")]
             ref = base[form]
             deg = 21
-            rounds = -(-B // (hmm.fwbw_wave_resident(
-                device, False, resident, deg, W, cluster=True) // M))
+            if not blocks:
+                reads = 1
+            elif "reads a block" in name:
+                reads = int(name.split(", ")[-1].split()[0])
+            else:
+                reads = hmm.fwbw_wave_reads(W, deg, resident, True)
+            keep = getattr(hmm, "fwbw_wave_reads", None)
+            if blocks:
+                hmm.fwbw_wave_reads = lambda *a, **k: reads
+            try:
+                clusters = hmm.fwbw_wave_resident(
+                    device, False, resident, deg, W, cluster=True) // M
+            finally:
+                if blocks:
+                    hmm.fwbw_wave_reads = keep
+            groups = (hmm.fwbw_wave_grid(B, M, reads, True)["grid"][1]
+                      if blocks else B)
+            rounds = -(-groups // clusters)
         else:
             ref = base[""]
             rounds = -(-B // (em.fwbw_backward_wave_resident(
@@ -918,6 +1005,179 @@ def time_legacy_mesh(models, device, card: str) -> None:
               f"columns {ex['fwbw_columns'] / 1e9:.3f} GB, K6dm's block sums "
               f"{ex['beta_sums'] / 1e9:.3f} GB and maxima "
               f"{ex['beta_maxima']} B [{card}]", flush=True)
+    with open(os.path.join(os.path.dirname(hmm.__file__), os.pardir, "csrc",
+                           "fwbw_generic_wave.cu")) as fh:
+        if "NC_SPLIT" in fh.read():
+            split_legacy_mesh(forms, subs, ms, device, card)
+
+
+#: the SPLIT build's C entries (csrc/fwbw_generic_wave.cu and
+#: fwbw_backward_wave.cu with NC_SPLIT): K6cm's and K6dm's launches and
+#: their cycle counters
+SPLIT_ENTRIES = ("nc_fwbw_generic_wave", "nc_fwbw_generic_wave_resident",
+                 "nc_fwbw_backward_wave", "nc_fwbw_backward_wave_resident")
+SPLIT_COUNTERS = ("nc_fwbw_generic_wave_split", "nc_fwbw_backward_wave_split")
+
+
+def variant_library(define: str = "NC_SPLIT"):
+    """K6cm's and K6dm's sources built with `define` (NC_SPLIT: their
+    cluster instances stamped; NC_BARRIER: their exchange a cluster
+    barrier) into a library of their own under the checkout's build
+    directory, with the main library's argument types."""
+    import ctypes
+
+    from nanocall_tpu_torch.ops import _cuda
+
+    main = _cuda.load()
+    out = os.path.join(_cuda.BUILD_DIR, define.lower())
+    os.makedirs(out, exist_ok=True)
+    srcs = ("fwbw_generic_wave.cu", "fwbw_backward_wave.cu")
+    objs = [os.path.join(out, f"{s}.o") for s in srcs]
+    lib = os.path.join(out, f"libnc_{define.lower()}_{os.getpid()}.so")
+    nvcc = _cuda._nvcc()
+    _cuda._run_all([nvcc, *_cuda.NVCC_FLAGS, f"-D{define}", "-c", "-o", o,
+                    os.path.join(_cuda.CSRC, s)] for s, o in zip(srcs, objs))
+    _cuda._run_all([[nvcc, *_cuda.ARCH, "-shared", "-o", lib, *objs]])
+    split = ctypes.CDLL(lib)
+    for name in SPLIT_ENTRIES:
+        getattr(split, name).restype = getattr(main, name).restype
+        getattr(split, name).argtypes = getattr(main, name).argtypes
+    for name in SPLIT_COUNTERS if define == "NC_SPLIT" else ():
+        getattr(split, name).restype = ctypes.c_int
+        getattr(split, name).argtypes = [ctypes.c_int, ctypes.c_void_p]
+    return main, split
+
+
+class _SplitLibrary:
+    """The main kernel library with K6cm's and K6dm's entries taken from
+    a variant build (variant_library)."""
+
+    def __init__(self, main, split):
+        self.main, self.split = main, split
+
+    def __getattr__(self, name):
+        lib = self.split if name in SPLIT_ENTRIES else self.main
+        return getattr(lib, name)
+
+
+def split_legacy_mesh(forms, subs, ms, device, card: str) -> None:
+    """The split of a cluster step of K6cm (the resident form under
+    (0.14, 0.21), the streaming form) and of K6dm over 2 and 4 ranks: one
+    warm call, then one stamped call each, its cycles in thread 0 of every
+    block summed over the blocks and divided by their steps; the shares of
+    a step beside the step's µs of the timed turns (`ms`)."""
+    import ctypes
+
+    import torch
+
+    from nanocall_tpu_torch.ops import _cuda, hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    main, split = variant_library()
+    counts = (ctypes.c_ulonglong * 4)()
+    dev = torch.device(device).index or 0
+    hmm._fwbw_wave_resident.clear()
+    _cuda._lib = _SplitLibrary(main, split)
+    try:
+        cases = []
+        for M in (2, 4):
+            for form in ("resident (0.14, 0.21)", "streaming (0.14, 0.21)"):
+                cases.append((f"K6cm {form} over {M} ranks, cluster",
+                              SPLIT_COUNTERS[0], ("wait", "slot loop",
+                                                  "push"),
+                              lambda ops=forms[form], M=M:
+                              statepar._fwbw_generic_row(ops, subs[M], True,
+                                                         None)))
+            cases.append((f"K6dm over {M} ranks, cluster", SPLIT_COUNTERS[1],
+                          ("beta step", "push", "wait"),
+                          lambda M=M: statepar._fwbw_grouped_row(
+                              subs[M], True, None)))
+        for name, counter, parts, fn in cases:
+            fn()
+            torch.cuda.synchronize()
+            _cuda.check(getattr(split, counter)(dev, counts), counter)
+            fn()
+            torch.cuda.synchronize()
+            _cuda.check(getattr(split, counter)(dev, counts), counter)
+            steps = max(counts[3], 1)
+            cyc = [counts[i] / steps for i in range(3)]
+            total = sum(cyc)
+            v = ms.get(name, [])
+            mean = sum(v) / len(v) if v else float("nan")
+            shares = ", ".join(f"{p} {c:.0f} cycles ({100 * c / total:.1f}%)"
+                               for p, c in zip(parts, cyc))
+            print(f"split {name}: a step of thread 0 of each block, {shares}"
+                  f"; the unstamped call {mean:.3f} ms in the turns; "
+                  f"{counts[3]} block steps [{card}]", flush=True)
+    finally:
+        _cuda._lib = main
+        hmm._fwbw_wave_resident.clear()
+
+
+def time_legacy_exchange(models, device, card: str) -> None:
+    """K6cm (resident and streaming under (0.14, 0.21)) and K6dm on the
+    cluster path over 2 and 4 ranks at the EM chunk, each step's exchange
+    on mbarriers (the kernel library) against the same kernels built with
+    NC_BARRIER (a push a plain store into the peers, the wait a cluster
+    barrier), in turns (mbarrier, barrier, barrier, mbarrier;
+    LEGACY_MESH_REPS rounds), each call's launches of the kernel timed
+    alone by CUDA events (chip_smoke.launch_spans); the two builds'
+    outputs bit-equal."""
+    import torch
+
+    from nanocall_tpu_torch.ops import _cuda, em, hmm
+    from nanocall_tpu_torch.parallel import statepar
+
+    _, inp, forms, subs = legacy_mesh_inputs(models, device)
+    B, T = inp["x_unc"].shape
+    main, variant = variant_library("NC_BARRIER")
+    libs = {"mbarrier": main, "barrier": _SplitLibrary(main, variant)}
+    calls = {}  # name: (fn, the kernel's wrapper, its module)
+    for M in (2, 4):
+        for form in ("resident (0.14, 0.21)", "streaming (0.14, 0.21)"):
+            calls[f"K6cm {form} over {M} ranks"] = (
+                lambda ops=forms[form], M=M:
+                statepar._fwbw_generic_row(ops, subs[M], True, None),
+                f"fwbw_wave_{form.split()[0]}_kernel", hmm)
+        calls[f"K6dm over {M} ranks"] = (
+            lambda M=M: statepar._fwbw_grouped_row(subs[M], True, None),
+            "fwbw_backward_wave_kernel", em)
+
+    def use(name):
+        _cuda._lib = libs[name]
+        hmm._fwbw_wave_resident.clear()
+        em._beta_resident.clear()
+
+    def bits(out):
+        return [o[k].view(torch.int32) for o in out for k in sorted(o)
+                if torch.is_tensor(o[k]) and o[k].dtype == torch.float32]
+
+    ms = {name: {lib: [] for lib in libs} for name in calls}
+    try:
+        for name, (fn, *_) in calls.items():
+            got = {}
+            for lib in libs:
+                use(lib)
+                got[lib] = bits(fn())  # also the warm-up
+            assert all(torch.equal(x, y) for x, y in
+                       zip(got["mbarrier"], got["barrier"])), name
+        del got
+        for _ in range(LEGACY_MESH_REPS):
+            for name, (fn, wrapper, module) in calls.items():
+                for lib in ("mbarrier", "barrier", "barrier", "mbarrier"):
+                    use(lib)
+                    ms[name][lib].append(1e3 * chip_smoke.launch_spans(
+                        fn, wrapper, device, 1, module)["device_s"])
+    finally:
+        use("mbarrier")
+    for name, v in ms.items():
+        mean = {lib: sum(x) / len(x) for lib, x in v.items()}
+        turns = "; ".join(f"{lib} {mean[lib]:.3f} ms (turns "
+                          f"{', '.join(f'{x:.3f}' for x in runs)})"
+                          for lib, runs in v.items())
+        print(f"legacy exchange {name}, cluster B={B} T={T}: {turns}; "
+              f"barrier / mbarrier {mean['barrier'] / mean['mbarrier']:.3f}"
+              f"; bit-equal [{card}]", flush=True)
 
 
 #: path decodes timed a mesh and path in --generic-mesh
