@@ -29,14 +29,16 @@ from the root of a checkout.  It
   3. writes the 21-neighbour transition tables of (p_stay 0.14, p_skip
      0.21) and of the CLI priors (0.1, 0.3) as transitions TSVs and loads
      them back through the port CLI's `-s/--trans` loader: loaded tables
-     of the r73 width, in-degree 21 (K6a resident under the first,
-     streaming under the priors'; K6c resident under both);
+     of the r73 width, in-degree 21 (K6a resident under both, at one
+     codebook a slot under the first and at 4 under the priors', whose
+     slots hold 17 log-probs; K6c resident under both);
   4. runs each decode kernel on the card at the decode's full width
      (n = 4096 states, B = 16 reads of up to T = 2048 events, lengths from
      0 to T, per-read scaling and transitions): the grouped K1 (path and
-     score-only) and K2, and under the loaded table the generic K6a's two
-     kernels (streaming and resident, path and score-only, timed in turns:
-     streaming, resident, resident, streaming), K6b's two kernels
+     score-only) and K2, and under the loaded table and again under the
+     priors' table the generic K6a's two kernels (streaming, on the table
+     without its K6a layout, and resident, path and score-only, timed in
+     turns: streaming, resident, resident, streaming), K6b's two kernels
      (streaming, and the ring the table takes; timed in turns) and K6e's
      two (the per-step-normalized forward-backward of `run-fwbw
      --custom-fwbw`: alpha, beta and gamma of 3 x 0.54 GB; the resident
@@ -51,13 +53,16 @@ from the root of a checkout.  It
      bit-equal to their plain versions, and on them K2 (path0, codes,
      logp; the NaN stay entry's read ends on a final alpha that is NaN at
      some states) bit-equal to its plain version and K3's decode bit-equal
-     to K1 + K2; then K6a through viterbi_forward under
-     a random table of 24 slots x 16 log-probs (the resident kernel's
-     widest layout), under the in-memory 21-neighbour pairs, whose
-     slots hold up to 17 log-probs (the streaming kernel), and under a
-     random table of 25 slots (both streaming kernels), each bit-equal
-     to the plain version, with K6b (the ring, but the streaming kernel
-     under the 25 slots) on its output; then
+     to K1 + K2; then K6a through viterbi_forward under both loaded
+     tables with NaN and +inf events, under the priors' table with a NaN
+     in block 3's codebook, under a random table of 24 slots x 16
+     log-probs (the resident kernel's widest layout), under the in-memory
+     21-neighbour pairs, whose slots hold up to 17 log-probs (resident at
+     4 codebooks a slot), under a random table of 17 log-probs in one
+     block of 1024 states (the streaming kernel) and under a random table
+     of 25 slots (both streaming kernels), each bit-equal to the plain
+     version, with K6b (the ring, but the streaming kernel under the 25
+     slots) on its output; then
      K3, the chunked-time decode's forward and traceback
      kernels, at the same shape in chunks of 600 events (a short last
      chunk): each chunk's outputs against the plain versions (tolerance 0)
@@ -119,8 +124,10 @@ from the root of a checkout.  It
      parallel.statepar.viterbi_decode_placed: K6am and K6bm, K6a and K6b
      with the 4096 states split over a data row's ranks): at 16 x 2048 on
      the NaN inputs, one K6am launch over 2 ranks in its resident form
-     (under the loaded table) and in its streaming form (under the
-     priors' table), each on both exchange paths (a thread block cluster
+     (under the loaded table, and under the priors' table, a rank's cut
+     holding the codebooks of its 2 blocks) and in its streaming form
+     (under the priors' table without its K6a layout), each on both
+     exchange paths (a thread block cluster
      a read, and the cooperative grid forced), against its plain version
      (column slices and backpointers as bits) and timed by CUDA events
      around each of 5 launches, with its blocks an SM, rounds or waves and
@@ -128,10 +135,13 @@ from the root of a checkout.  It
      from_idx, on both routes, against its plain version and K6b's ring,
      and K6a under
      per-read structured tables (build_structured_batch,
-     convert.trans_ops_batch; both kernels, path and score-only) against
+     convert.trans_ops_batch; the resident kernel at one and at 4
+     codebooks a slot, the streaming one, path and score-only) against
      its plain version; then the path chunk's events and models, 128 x
      8,192, decoded on (1, 2), (1, 4) and (2, 2) meshes of cuda:0 under
-     the loaded table, the priors' table and per-read tables, path and
+     the loaded table, the priors' table (resident) and per-read tables,
+     and on (1, 2) under the priors' table without its K6a layout
+     (streaming), path and
      score-only, each bit-equal to K6a + K6b, counted as the generic mesh
      path (one K6am launch a data row, a cluster a read; one K6bm launch
      for the card's rows, on the tensor route), with K6am's and K6bm's
@@ -207,7 +217,7 @@ from the root of a checkout.  It
      by nanocall_tpu_torch.simulate.simulate_read and fed as
      in-memory event arrays through nanocall_tpu_torch.ingest, since fast5
      reading needs h5py) and writes FASTA and stats with the port CLI's
-     writer into build/chip_smoke/, five times: untrained (`--no-train`;
+     writer into build/chip_smoke/, in each of these runs: untrained (`--no-train`;
      K1 path and score-only, K2); the default trained run (EM training,
      then the decode; K4, K5, K1, K2); trained under the loaded table and
      under the priors' loaded table (`-s`: legacy EM rounds with K4, K6d
@@ -216,7 +226,10 @@ from the root of a checkout.  It
      every task at the priors, so K6a's resident kernel path and
      score-only, and K6b's ring), then that run again with the table's
      packed layout and its from-state table taken away (K6a's and K6b's
-     streaming kernels; FASTA byte-equal).  Each
+     streaming kernels; FASTA byte-equal); and untrained under the
+     priors' table (K6a's resident kernel at 4 codebooks a slot, K6b's
+     ring), then again with its K6a layout taken away (K6a's streaming
+     kernels; FASTA byte-equal).  Each
      run checks one FASTA record per decoded strand, identity to the
      simulated truth above 0.6, and that each of its kernels launched; a
      trained run also checks that every trained 1D read's best candidate
@@ -386,8 +399,9 @@ HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
 #: the loaded table's kinetics: not the CLI priors (0.1, 0.3), so a task
 #: routed to the wrong kernel would decode under other transitions
 TRANS_P_STAY, TRANS_P_SKIP = 0.14, 0.21
-#: the CLI priors: their loaded table holds 17 log-probs in some slots, so
-#: K6a takes its streaming kernel under it, and K6c its resident one
+#: the CLI priors: their loaded table holds 17 log-probs in some slots but
+#: at most 16 in a block of 1024 states, so K6a takes its resident kernel
+#: under it at 4 codebooks a slot, and K6c its resident one
 PRIORS_P_STAY, PRIORS_P_SKIP = 0.1, 0.3
 #: the dev tools' read, and the shorter read of their -o matrix dumps
 TOOLS_EVENTS, TOOLS_DUMP_EVENTS = 4000, 200
@@ -1287,11 +1301,45 @@ def per_read_tables(device, B: int, rng) -> tuple:
     return ops, params
 
 
+def four_codebook_tables(device, B: int, rng):
+    """per_read_tables' tables with an offset of g 2^-10 in block g of 1024
+    states of every odd read's from side: those reads hold more than 16
+    log-probs in a slot but at most 16 in a block, so the batch's K6a
+    layout takes 4 codebooks a slot for every read."""
+    import numpy as np
+
+    from nanocall_tpu_torch import convert, transitions
+    from nanocall_tpu_torch.ops import hmm
+
+    params = np.stack([rng.uniform(0.05, 0.2, B),
+                       rng.uniform(0.2, 0.4, B)], 1)
+    flp, tlp = transitions.build_structured_batch(params, 6)
+    flp[1::2] += (np.arange(4096) // 1024 * 2.0 ** -10).astype(np.float32)
+    ops = convert.trans_ops_batch(flp, tlp, 6, device)
+    assert hmm.resident_groups(ops) == hmm.FWBW_GROUPS
+    return ops
+
+
+def rank_groups(ops, M: int) -> int:
+    """The codebooks a slot of a rank's cut of `ops`' K6a layout over M
+    ranks (hmm.resident_book_rows), 1 without the layout."""
+    from nanocall_tpu_torch.ops import hmm
+
+    if ops.from_packed is None:
+        return 1
+    deg = ops.from_packed.shape[-2]
+    rows = hmm.resident_book_rows(hmm.resident_groups(ops), deg,
+                                  slice(0, 4096 // M))
+    return (rows.stop - rows.start) // deg
+
+
 
 def generic_wave_occupancy(dev, form: str, deg: int, M: int, B: int,
-                           T: int, with_path: bool = True) -> dict:
+                           T: int, with_path: bool = True,
+                           groups: int = 1) -> dict:
     """K6am's occupancy on both exchange paths for B reads of T events over
-    M ranks on `dev` (hmm.generic_wave_resident: the cluster path's from
+    M ranks on `dev`, `groups` codebooks a slot in a rank's cut
+    (hmm.generic_wave_resident: the cluster path's from
     cudaOccupancyMaxActiveClusters): {"cluster": (blocks an SM, reads at
     once, rounds of them) or None past hmm.MAX_CLUSTER ranks,
     "cooperative": (blocks an SM, waves)} and a printed line."""
@@ -1304,17 +1352,20 @@ def generic_wave_occupancy(dev, form: str, deg: int, M: int, B: int,
     W, resident = 4096 // M, form == "resident"
     out = {"cluster": None}
     line = (f"occupancy viterbi_generic_wave ({form} K6am, "
-            f"{'path' if with_path else 'score-only'}, {deg} slots) over {M}"
+            f"{'path' if with_path else 'score-only'}, {deg} slots, "
+            f"{groups} codebooks a slot in a rank's cut) over {M}"
             f" ranks, blocks of {W // 2} threads:")
     if hmm.wave_cluster(M, False):
         blocks = hmm.generic_wave_resident(dev, with_path, False, resident,
-                                           deg, W, cluster=True)
+                                           deg, W, cluster=True,
+                                           groups=groups)
         per = blocks // M
         out["cluster"] = (blocks / sms, per, -(-B // per))
         line += (f" cluster path {blocks / sms:.2f} blocks an SM, {per} "
                  f"reads at once, {B} reads in {out['cluster'][2]} rounds "
                  f"of one launch;")
-    coop = hmm.generic_wave_resident(dev, with_path, False, resident, deg, W)
+    coop = hmm.generic_wave_resident(dev, with_path, False, resident, deg, W,
+                                     groups=groups)
     waves = len(statepar.plan_waves(B, [dev] * M, {dev: coop})[dev])
     out["cooperative"] = (coop / sms, waves)
     print(f"{line} cooperative path {coop // sms} blocks an SM, {B} reads "
@@ -1326,8 +1377,10 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
     """K6am, K6bm and the per-read K6a at the kernel phase's shape, on
     nan_inputs' model and events (NaN events in read 4 from event 700 on,
     a NaN model entry in read 6): K6am over 2 ranks on the events' card in
-    its resident form under the loaded table and in its streaming form
-    under the priors' table, each on both exchange paths (GENERIC_PATHS:
+    its resident form under the loaded table (one codebook a slot) and the
+    priors' table (4 codebooks a slot, a rank's cut 2 of them) and in its
+    streaming form under the priors' table without its K6a layout, each on
+    both exchange paths (GENERIC_PATHS:
     one launch of the B reads' clusters, and the cooperative path forced,
     one wave), each against its plain version on the same ranks (every
     rank's column buffer, both parities, and its backpointers as bits) and
@@ -1338,9 +1391,10 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
     slices: a bulk copy a row and rank), with the from-state table and with
     from_idx (the rule of tables wider than 24 slots), against its plain
     version and against K6b's ring on the same rows whole; and K6a under
-    per-read tables (resident and streaming, path
-    and score-only) against its plain version.  Returns the records of
-    K6am's two forms ("ms" the cluster path's, "ms_by_path" both) and
+    per-read tables (resident at one and at 4 codebooks a slot, and
+    streaming, path and score-only) against its plain version.  Returns
+    the records of K6am's two forms ("ms" the cluster path's, "ms_by_path"
+    both, and the resident form's "priors" under the priors' table) and
     K6bm ("ms" the tensor route's, "copies_ms" the copies route's);
     prints the per-read K6a's times."""
     import numpy as np
@@ -1354,9 +1408,14 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
     B, T = e["mean"].shape
     lengths = e["length"]
     recs, walk = {}, None
-    for name, ops, form in (
-            ("viterbi_generic_wave_resident", trans_ops, "resident"),
-            ("viterbi_generic_wave_streaming", priors_ops, "streaming")):
+    for label, name, ops, form in (
+            ("the loaded table", "viterbi_generic_wave_resident", trans_ops,
+             "resident"),
+            ("the priors' table", "viterbi_generic_wave_resident",
+             priors_ops, "resident"),
+            ("the priors' table without its K6a layout",
+             "viterbi_generic_wave_streaming", without_layout(priors_ops),
+             "streaming")):
         assert hmm.generic_forward_route(ops) == form, name
         row = statepar.split_table_states(ops, m, e, [dev] * 2)
         plain = [statepar._generic_wave_rank(p, True) for p in row.parts]
@@ -1365,7 +1424,8 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
         wrapper = f"generic_wave_{form}_kernel"
         deg = (ops.from_packed if form == "resident"
                else ops.from_idx).shape[-2]
-        occ = generic_wave_occupancy(dev, form, deg, 2, B, T)
+        groups = rank_groups(ops, 2)
+        occ = generic_wave_occupancy(dev, form, deg, 2, B, T, groups=groups)
         ms, err = {}, 0.0
         for path, cluster in GENERIC_PATHS:
             ranks = [statepar._generic_wave_rank(p, True) for p in row.parts]
@@ -1388,19 +1448,24 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
             ms[path] = 1e3 * spans["device_s"] / 5
             rounds = (occ["cluster"][2] if path == "cluster"
                       else occ["cooperative"][1])
-            print(f"kernel {name} ({path} path): B={B} T={T} over 2 ranks, "
-                  f"NaN inputs, bit-equal to plain; {ms[path]:.4f} ms a "
-                  f"launch, {1e3 * ms[path] / (rounds * (T - 1)):.2f} µs a "
-                  f"step over {rounds} rounds")
+            print(f"kernel {name} ({path} path) under {label} ({groups} "
+                  f"codebooks a slot in a rank's cut): B={B} T={T} over 2 "
+                  f"ranks, NaN inputs, bit-equal to plain; {ms[path]:.4f} "
+                  f"ms a launch, {1e3 * ms[path] / (rounds * (T - 1)):.2f} "
+                  f"µs a step over {rounds} rounds")
             if path == "cluster":
                 host_us = 1e6 * spans["host_s"] / 5
-                if form == "resident":
+                if form == "resident" and walk is None:
                     walk = (row.walk, [r.col[(T - 1) % 2] for r in ranks],
                             [r.bps for r in ranks])
             del ranks
-        recs[name] = {"max_abs_err": err, "ms": ms["cluster"],
-                      "ms_by_path": ms, "host_us": host_us,
-                      "plain_ms": plain_ms, "shape": [B, T], "ranks": 2}
+        if name in recs:
+            recs[name]["priors"] = {"ms_by_path": ms, "plain_ms": plain_ms,
+                                    "max_abs_err": err}
+        else:
+            recs[name] = {"max_abs_err": err, "ms": ms["cluster"],
+                          "ms_by_path": ms, "host_us": host_us,
+                          "plain_ms": plain_ms, "shape": [B, T], "ranks": 2}
         del plain
     table, final, slices = walk
     one = one_allocation(slices)
@@ -1435,12 +1500,14 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
             trans_ops, fa, bps, lengths), 3),
         "plain_ms": tb_plain_ms, "shape": [B, T], "ranks": 2}
     del walk, final, slices, one, fa, bps
-    # K6a under per-read tables: its resident and streaming kernels
+    # K6a under per-read tables: its resident kernel at one and at 4
+    # codebooks a slot, and its streaming kernel
     ops = per_read_tables(dev, B, np.random.default_rng(2027))[0]
     per_read = {}
     for form, o in (("resident", ops),
-                    ("streaming", ops._replace(from_packed=None,
-                                               from_codebook=None))):
+                    ("resident at 4 codebooks a slot", four_codebook_tables(
+                        dev, B, np.random.default_rng(2031))),
+                    ("streaming", without_layout(ops))):
         for with_path in (True, False):
             p_ms, want = cuda_ms_once(lambda: hmm.viterbi_forward_plain(
                 o, m, e, with_path))
@@ -1462,11 +1529,14 @@ def check_generic_statepar(trans_ops, priors_ops, gt, model, ev) -> dict:
 def run_generic_mesh(models, device, card: str, rng, trans_ops,
                      priors_ops) -> dict:
     """The generic mesh path at the path chunk, B_MESH x T_MESH: under the
-    loaded table (K6am resident), the priors' loaded table (streaming) and
-    per-read tables of the chunk's reads (resident, per read), the unplaced
-    decode (K6a + K6b) and, on each (data, model) mesh of MESH_SHAPES with
-    every rank on `device`, statepar.viterbi_decode_placed on
-    mesh.shard_decode_inputs' placement, path then score-only, each pair
+    loaded table (K6am resident, one codebook a slot), the priors' loaded
+    table (resident, 4 codebooks a slot, each rank's cut its blocks'),
+    per-read tables of the chunk's reads (resident, per read) and, on the
+    first mesh only, the priors' table without its K6a layout (streaming),
+    the unplaced decode (K6a + K6b) and, on each (data, model) mesh of
+    MESH_SHAPES with every rank on `device`,
+    statepar.viterbi_decode_placed on mesh.shard_decode_inputs'
+    placement, path then score-only, each pair
     counted as the mesh path (every kernel count set to 0 just before,
     read just after): K6am's default launches (statepar.row_waves: one
     launch of a row's clusters, or a wave of the cooperative path a launch)
@@ -1489,9 +1559,13 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
     model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
     ev = basecall.pooled_ev_batch(*args[:5], args[9])
     del args
-    tables = {"loaded (0.14, 0.21)": trans_ops,
-              "priors' loaded (0.1, 0.3)": priors_ops,
-              "per-read": per_read_tables(device, B_MESH, rng)[0]}
+    assert hmm.generic_forward_route(priors_ops) == "resident"
+    tables = {"loaded (0.14, 0.21)": (trans_ops, MESH_SHAPES),
+              "priors' loaded (0.1, 0.3)": (priors_ops, MESH_SHAPES),
+              "priors' without its K6a layout": (without_layout(priors_ops),
+                                                 MESH_SHAPES[:1]),
+              "per-read": (per_read_tables(device, B_MESH, rng)[0],
+                           MESH_SHAPES)}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1507,7 +1581,7 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
 
     total = {k.name: 0 for k in kernels.KERNELS}
     cells, k6 = {}, {}
-    for tname, ops in tables.items():
+    for tname, (ops, shapes) in tables.items():
         form = hmm.generic_forward_route(ops)
         wrapper = f"generic_wave_{form}_kernel"
         ref, wall, dev_s = timed(lambda: hmm.viterbi_decode(ops, model, ev))
@@ -1520,7 +1594,7 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
                      "k6b_ms": k6b_ms}
         deg = (ops.from_packed if form == "resident"
                else ops.from_idx).shape[-2]
-        for D, M in MESH_SHAPES:
+        for D, M in shapes:
             grid = mesh.make_mesh(D * M, model_axis=M,
                                   devices=[device] * (D * M))
             placed = mesh.shard_decode_inputs(grid, ops, model, ev)
@@ -1529,7 +1603,8 @@ def run_generic_mesh(models, device, card: str, rng, trans_ops,
             waves = {w: len(statepar.row_waves(
                 b, [device] * M, None, clusters=True)[device])
                 for w in (True, False)}
-            occ = generic_wave_occupancy(device, form, deg, M, b, T_MESH)
+            occ = generic_wave_occupancy(device, form, deg, M, b, T_MESH,
+                                         groups=rank_groups(ops, M))
             kernels.reset_launches()
             out, wall, dev_s = timed(
                 lambda: statepar.viterbi_decode_placed(*placed))
@@ -1620,8 +1695,8 @@ def load_trans_table(device, p_stay: float = TRANS_P_STAY,
     TSV build/chip_smoke/<name> and loaded back by the port CLI's `-s`
     loader: (the TSV path, the loaded table, its TransOps on `device`).
     K6c takes its resident kernel under the table of (TRANS_P_STAY,
-    TRANS_P_SKIP) and of the priors; K6a its resident kernel under the
-    former and its streaming one under the priors'."""
+    TRANS_P_SKIP) and of the priors; so does K6a, at one codebook a slot
+    under the former and at 4 (hmm.FWBW_GROUPS) under the priors'."""
     from nanocall_tpu_torch import cli, convert
     from nanocall_tpu_torch.ops import hmm
 
@@ -1632,8 +1707,8 @@ def load_trans_table(device, p_stay: float = TRANS_P_STAY,
     ops = convert.trans_ops(table, device)
     assert tuple(ops.from_idx.shape) == (21, 4096), ops.from_idx.shape
     priors = (p_stay, p_skip) == (PRIORS_P_STAY, PRIORS_P_SKIP)
-    assert hmm.generic_forward_route(ops) == (
-        "streaming" if priors else "resident")
+    assert hmm.generic_forward_route(ops) == "resident"
+    assert hmm.resident_groups(ops) == (hmm.FWBW_GROUPS if priors else 1)
     assert hmm.fwbw_route(ops) == "resident"
     return path, table, ops
 
@@ -1647,11 +1722,19 @@ K6A = {"viterbi_generic_forward_path": ("generic_forward_path_kernel", True),
                                           False)}
 
 
+def without_layout(ops):
+    """`ops` with its K6a layout taken away (the streaming K6a's table)."""
+    return ops._replace(from_packed=None, from_codebook=None)
+
+
 def k6a_call(name: str, ops, model, ev):
-    """(final_alpha, bps or None) of K6a's kernel `name`."""
+    """(final_alpha, bps or None) of K6a's kernel `name`; the streaming
+    kernels on `ops` without its K6a layout."""
     from nanocall_tpu_torch.ops import hmm
 
     wrapper, path = K6A[name]
+    if "generic" in name:
+        ops = without_layout(ops)
     out = getattr(hmm, wrapper)(ops, model, ev)
     return out if path else (out, None)
 
@@ -1696,12 +1779,12 @@ K6B = {"viterbi_generic_traceback": "generic_traceback_kernel",
 
 
 def check_generic_kernels(ops, model, ev, sample=None) -> dict:
-    """K6a's two kernels (streaming and resident, path and score-only) and
-    K6b's two (streaming and the ring, which the table takes) against their
-    plain versions on the same card under the loaded table: bit-equal
-    outputs (tolerance 0); K6a's kernels timed in turns (time_k6a_in_turns,
-    with `sample`), K6b's too (streaming, ring, ring, streaming).  Returns
-    {kernel name: record}."""
+    """K6a's two kernels (streaming, on the table without its K6a layout,
+    and resident, path and score-only) and K6b's two (streaming and the
+    ring, which the table takes) against their plain versions on the same
+    card under a loaded table: bit-equal outputs (tolerance 0); K6a's
+    kernels timed in turns (time_k6a_in_turns, with `sample`), K6b's too
+    (streaming, ring, ring, streaming).  Returns {kernel name: record}."""
     import torch
 
     from nanocall_tpu_torch.ops import hmm
@@ -1743,24 +1826,57 @@ def check_generic_kernels(ops, model, ev, sample=None) -> dict:
     return with_shape(recs, ev)
 
 
+def random_block_table(rng, deg: int, values: int, groups: int) -> tuple:
+    """(from_idx, from_logp) numpy arrays of a (deg, 4096) table: random
+    from-states and, in every (slot, block of 4096 / groups states),
+    `values` distinct log-probs (one of them -inf padding) on random
+    states."""
+    import numpy as np
+
+    n = 4096
+    w = n // groups
+    idx = rng.integers(0, n, (deg, n)).astype(np.int32)
+    lp = np.empty((deg, n), np.float32)
+    for g in range(groups):
+        pool = np.log(rng.uniform(0.01, 1.0, (deg, values))).astype(
+            np.float32)
+        pool[:, 0] = -np.inf
+        pick = np.concatenate([np.tile(np.arange(values), (deg, 1)),
+                               rng.integers(0, values, (deg, w - values))], 1)
+        lp[:, g * w:(g + 1) * w] = np.take_along_axis(
+            pool, rng.permuted(pick, axis=1), axis=1)
+    return idx, lp
+
+
+def sparse_ops(idx, lp, device):
+    """TransOps of a table given by its from side (to side the same)."""
+    from nanocall_tpu_torch import convert, transitions
+
+    return convert.trans_ops(transitions.SparseTransitions(
+        from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), device)
+
+
 def random_resident_table(device, seed: int = 5):
     """A TransOps of RANDOM_DEG slots, RANDOM_VALUES distinct log-probs
     (one of them -inf padding) in every slot, on random from-states, made
     from a numpy seed: the resident kernel's widest layout."""
     import numpy as np
 
-    from nanocall_tpu_torch import convert, transitions
+    return sparse_ops(*random_block_table(np.random.default_rng(seed),
+                                          RANDOM_DEG, RANDOM_VALUES, 1),
+                      device)
 
-    rng = np.random.default_rng(seed)
-    deg, values, n = RANDOM_DEG, RANDOM_VALUES, 4096
-    idx = rng.integers(0, n, (deg, n)).astype(np.int32)
-    pool = np.log(rng.uniform(0.01, 1.0, (deg, values))).astype(np.float32)
-    pool[:, 0] = -np.inf
-    pick = np.concatenate([np.tile(np.arange(values), (deg, 1)),
-                           rng.integers(0, values, (deg, n - values))], 1)
-    lp = np.take_along_axis(pool, rng.permuted(pick, axis=1), axis=1)
-    return convert.trans_ops(transitions.SparseTransitions(
-        from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), device)
+
+def random_block17_ops(device, seed: int = 17):
+    """TransOps of a random table of 21 slots (random_block_table: 16
+    log-probs in every block of 1024 states) with a 17th log-prob in block 3
+    of slot 5, made from a numpy seed: no K6a layout at 1 or 4 codebooks a
+    slot, so K6a streams."""
+    import numpy as np
+
+    idx, lp = random_block_table(np.random.default_rng(seed), 21, 16, 4)
+    lp[5, 3072 + int(np.argmax(lp[5, 3072:]))] = np.float32(-1e-3)
+    return sparse_ops(idx, lp, device)
 
 
 def random_table_ops(device, deg: int, seed: int):
@@ -1777,19 +1893,45 @@ def random_table_ops(device, deg: int, seed: int):
         from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), device)
 
 
-def check_table_routes(ops, model, ev, device) -> None:
+def nan_block3_ops(table, device):
+    """TransOps of the loaded table `table` (a SparseTransitions) with a NaN
+    log-prob at state 3500 (block 3 of 1024 states) of the first slot whose
+    block 3 holds at most 15 log-probs: the priors' table keeps its layout
+    at 4 codebooks a slot, with a NaN in block 3's codebook of that slot."""
+    import numpy as np
+
+    from nanocall_tpu_torch import convert, transitions
+    from nanocall_tpu_torch.ops import hmm
+
+    lp = np.array(table.from_logp, np.float32)
+    k = next(k for k in range(lp.shape[0])
+             if len(np.unique(lp[k, 3072:].view(np.int32))) <= 15)
+    lp[k, 3500] = np.float32(np.nan)
+    ops = convert.trans_ops(transitions.SparseTransitions(
+        from_idx=table.from_idx, from_logp=lp, to_idx=table.to_idx,
+        to_logp=table.to_logp, K=6), device)
+    assert hmm.resident_groups(ops) == hmm.FWBW_GROUPS
+    return ops
+
+
+def check_table_routes(ops, priors, model, ev, device) -> None:
     """viterbi_forward against its plain version (tolerance 0: the final
     alpha's bits and the backpointers, path and score-only) where the
     resident kernel's NaN tracking and the other kernel run, and
     viterbi_traceback (K6b) on its output against the plain version (path,
-    logp as bits): under the loaded table `ops` with a NaN event in one
-    read (NaN alphas from there on, and NaN final alphas) and a +inf one at
-    the start of another (alphas of -inf: every slot ties); under a random
+    logp as bits): under the loaded table `ops` and the priors' loaded
+    table (priors: load_trans_table's triple; its K6a layout at 4
+    codebooks a slot) with a NaN event in one read (NaN alphas from there
+    on, and NaN final alphas) and a +inf one at the start of another
+    (alphas of -inf: every slot ties); under the priors' table with a NaN
+    in block 3's codebook (nan_block3_ops); under a random
     table of the resident layout's widest (random_resident_table: 24
     slots, K6b's ring at 2 stages); under the 21-neighbour table of
     (TRANS_P_STAY, TRANS_P_SKIP) as sparse pairs in memory, whose slots
     hold up to 17 distinct log-probs (no text round trip merges them), so
-    K6a takes its streaming kernel; and under a random table of 25 slots,
+    K6a's layout takes 4 codebooks a slot; under a random table of 17
+    log-probs in one block of 1024 states (random_block17_ops), so K6a
+    takes its streaming kernel; and under a random table of 25 slots,
     whose from-state table does not fit beside K6b's ring: both streaming
     kernels."""
     import torch
@@ -1805,10 +1947,16 @@ def check_table_routes(ops, model, ev, device) -> None:
     ev_nan["mean"][5, 0] = float("inf")
     for what, ops_, ev_, route, k6b in (
             ("loaded, NaN and +inf events", ops, ev_nan, "resident", "ring"),
+            ("priors' loaded, NaN and +inf events", priors[2], ev_nan,
+             "resident", "ring"),
+            ("priors' loaded, a NaN in block 3's codebook",
+             nan_block3_ops(priors[1], device), ev, "resident", "ring"),
             (f"random {RANDOM_DEG} slots x {RANDOM_VALUES} values",
              random_resident_table(device), ev, "resident", "ring"),
             ("in-memory 21-neighbour pairs", convert.trans_ops(pairs, device),
-             ev, "streaming", "ring"),
+             ev, "resident", "ring"),
+            ("random 16 log-probs a block, 17 in one",
+             random_block17_ops(device), ev, "streaming", "ring"),
             ("random 25 slots", random_table_ops(device, 25, 25), ev,
              "streaming", "streaming")):
         assert hmm.generic_forward_route(ops_) == route, what
@@ -1834,8 +1982,11 @@ def check_table_routes(ops, model, ev, device) -> None:
         assert wrapper.launches == n0 + 1, what
         assert torch.equal(path_k, path_p), what
         assert torch.equal(bits(logp_k), bits(logp_p)), what
-        print(f"kernel K6a ({route}) under the {what} table (most distinct "
-              f"log-probs in a slot: {max(counts.values())}; NaN final "
+        groups = (f"{hmm.resident_groups(ops_)} codebooks a slot"
+                   if route == "resident" else "no K6a layout")
+        print(f"kernel K6a ({route}, {groups}) under the {what} table (most "
+              f"distinct log-probs in a slot: {max(counts.values())}; NaN "
+              f"final "
               f"alphas: {int(torch.isnan(fa_p).sum())}): B={B_KERNEL} "
               f"T={T_KERNEL} path and score-only bit-equal to plain, and "
               f"K6b ({k6b}) on its output")
@@ -3099,11 +3250,16 @@ def resident_sass() -> dict:
     """Instructions per slot and state in the slot loops of K6a's resident
     kernel (each instance's fastest loop: the body of a backward branch
     that reads table words, LDS.64, one per slot and thread), all of them
-    and those on the integer and compare pipe (ALU_OPS):
-    {"path" / "score": {"per_slot_state", "alu_per_slot_state"}}."""
+    and those on the integer and compare pipe (ALU_OPS), at one and at 4
+    codebooks a slot: {"path" / "score" / "path, 4 codebooks" / "score, 4
+    codebooks": {"per_slot_state", "alu_per_slot_state"}}."""
     out = {}
-    for kind, marker in (("path", "viterbi_resident_forward_kernelILb1"),
-                         ("score", "viterbi_resident_forward_kernelILb0")):
+    for kind, marker in (
+            ("path", "viterbi_resident_forward_kernelILb1ELi1E"),
+            ("score", "viterbi_resident_forward_kernelILb0ELi1E"),
+            ("path, 4 codebooks", "viterbi_resident_forward_kernelILb1ELi4E"),
+            ("score, 4 codebooks",
+             "viterbi_resident_forward_kernelILb0ELi4E")):
         ins = sass_lines(marker)
         at = {a: i for i, (a, _) in enumerate(ins)}
         loops = []
@@ -3855,13 +4011,16 @@ def stats_close(a_path: str, b_path: str, rtol: float) -> None:
                 (ra, rb)
 
 
-def run_trans_streaming(models, reads, device, trans) -> dict:
-    """The untrained run under the loaded table again, with its TransOps
-    built without the packed layout and the from-state table
-    (convert.trans_ops wrapped for the run): K6a's and K6b's streaming
-    kernels decode it.  The resident run (the one before) launched no
-    streaming K6a or K6b, this one no resident K6a or ring K6b, and the
-    two FASTA files are byte-equal.  Returns the run's result."""
+def run_trans_streaming(models, reads, device, trans,
+                        tag: str = "untrained_trans",
+                        states: bool = True) -> dict:
+    """The untrained run `tag` under the loaded table `trans` again, with
+    its TransOps built without the K6a layout and (states) the from-state
+    table (convert.trans_ops wrapped for the run): K6a's streaming kernels
+    decode it, and K6b's streaming kernel (states) or its ring.  The
+    resident run (the one before) launched no streaming K6a or K6b, this
+    one no resident K6a (nor, states, the ring K6b), and the two FASTA
+    files are byte-equal.  Returns the run's result."""
     from unittest import mock
 
     from nanocall_tpu_torch import convert
@@ -3869,20 +4028,23 @@ def run_trans_streaming(models, reads, device, trans) -> dict:
     make = convert.trans_ops
 
     def bare(table, dev):
-        return make(table, dev)._replace(from_packed=None, from_codebook=None,
-                                         from_states=None)
+        ops = without_layout(make(table, dev))
+        return ops._replace(from_states=None) if states else ops
 
+    must = (STREAMING_KERNELS if states else
+            (*STREAMING_KERNELS[:2], "viterbi_generic_traceback_ring"))
     with mock.patch.object(convert, "trans_ops", bare):
-        r = run_end_to_end(models, reads, device, False, STREAMING_KERNELS,
-                           trans, tag="untrained_trans_streaming")
+        r = run_end_to_end(models, reads, device, False, must, trans,
+                           tag=f"{tag}_streaming")
     for k in ("viterbi_resident_forward_path",
               "viterbi_resident_forward_score",
-              "viterbi_generic_traceback_ring"):
+              *(("viterbi_generic_traceback_ring",) if states else ())):
         assert r["launches"][k] == 0, f"the streaming run launched {k}"
     out = os.path.join(ROOT, "build", "chip_smoke")
-    with open(os.path.join(out, "untrained_trans.fa"), "rb") as a, \
-            open(os.path.join(out, "untrained_trans_streaming.fa"), "rb") as b:
-        assert a.read() == b.read(), "the streaming run's FASTA differs"
+    with open(os.path.join(out, f"{tag}.fa"), "rb") as a, \
+            open(os.path.join(out, f"{tag}_streaming.fa"), "rb") as b:
+        assert a.read() == b.read(), f"{tag}: the streaming run's FASTA " \
+            f"differs"
     return r
 
 
@@ -4088,7 +4250,9 @@ def main() -> int:
           f"({TRANS_P_STAY}, {TRANS_P_SKIP}) and the priors "
           f"({PRIORS_P_STAY}, {PRIORS_P_SKIP}) written and loaded back in "
           f"{time.perf_counter() - t0:.2f} s; from_idx "
-          f"{tuple(trans[2].from_idx.shape)}; K6a resident / streaming, K6c "
+          f"{tuple(trans[2].from_idx.shape)}; K6a resident under both (at "
+          f"{hmm.resident_groups(trans[2])} and "
+          f"{hmm.resident_groups(priors[2])} codebooks a slot), K6c "
           f"resident under both")
     rng = np.random.default_rng(2024)
     gt, model, ev = kernel_inputs(models, device, B_KERNEL, T_KERNEL, rng)
@@ -4099,7 +4263,16 @@ def main() -> int:
           f"a NaN model entry: bit-equal to their plain versions, K3's "
           f"decode to K1 + K2 [{card}]")
     recs.update(check_generic_kernels(trans[2], model, ev))
-    check_table_routes(trans[2], model, ev, device)
+    for name, r in check_generic_kernels(priors[2], model, ev).items():
+        if name not in K6A:
+            continue
+        recs[name]["priors_ms"] = r["ms"]
+        print(f"kernel {name} under the priors' loaded table (K6a's layout "
+              f"at {hmm.resident_groups(priors[2])} codebooks a slot; the "
+              f"streaming kernel on it without the layout): B={B_KERNEL} "
+              f"T={T_KERNEL} bit-equal to plain; {r['ms']:.3f} ms (in turns: "
+              f"{r['ms_turns']}) vs plain {r['plain_ms']:.3f} ms [{card}]")
+    check_table_routes(trans[2], priors, model, ev, device)
     recs.update(check_custom_kernel(trans[2], model, ev))
     for name, r in recs.items():
         turns = f" (in turns: {r['ms_turns']})" if "ms_turns" in r else ""
@@ -4318,6 +4491,21 @@ def main() -> int:
     trans_streaming = run_trans_streaming(models, reads, device, trans)
     print_run("untrained under the loaded table without its packed layout "
               "(FASTA byte-equal)", trans_streaming, card)
+    priors_untrained = run_end_to_end(models, reads, device, False,
+                                      TRANS_UNTRAINED_KERNELS, priors,
+                                      tag="untrained_trans_priors")
+    for k in STREAMING_KERNELS:
+        assert priors_untrained["launches"][k] == 0, \
+            f"the -s run under the priors' table launched {k}"
+    print_run(f"untrained under the loaded table of the priors (-s "
+              f"--no-train; K6a's layout at "
+              f"{hmm.resident_groups(priors[2])} codebooks a slot)",
+              priors_untrained, card)
+    priors_streaming = run_trans_streaming(models, reads, device, priors,
+                                           "untrained_trans_priors",
+                                           states=False)
+    print_run("untrained under the loaded table of the priors without its "
+              "K6a layout (FASTA byte-equal)", priors_streaming, card)
     long_reads = simulated_reads(models, rng, specs=LONG_READS,
                                  prefix="long")
     long = run_end_to_end(models, long_reads, device, True, LONG_KERNELS,
@@ -4358,6 +4546,8 @@ def main() -> int:
             "trained_trans_priors": priors_trained["launches"],
             "untrained_trans": trans_untrained["launches"],
             "untrained_trans_streaming": trans_streaming["launches"],
+            "untrained_trans_priors": priors_untrained["launches"],
+            "untrained_trans_priors_streaming": priors_streaming["launches"],
             "long": long["launches"], "traced": traced["launches"],
             **{name: r["launches"] for name, r in tool_runs.items()},
             "dump": dump["launches"], "measure": measure["launches"],

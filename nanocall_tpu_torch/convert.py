@@ -69,9 +69,10 @@ def trans_ops(table, device) -> hmm.TransOps:
     SparseTransitions (a loaded `--trans` table, transitions.load_tsv) or a
     StructuredTransitions, whose slot maps are the fixed 21-slot layout
     (transitions.slot_from_state; nanocall_tpu/ops/hmm.py:153-157), with
-    the from side's resident K6a layout (hmm.pack_slots), both sides'
-    resident K6c / K6e layout (hmm.pack_fwbw_sides) and K6b's uint16
-    from-state table (hmm.from_state_table) where the table has them.
+    the from side's resident K6a layout (hmm.resident_layout: one codebook
+    a slot, else hmm.FWBW_GROUPS), both sides' resident K6c / K6e layout
+    (hmm.pack_fwbw_sides) and K6b's uint16 from-state table
+    (hmm.from_state_table) where the table has them.
     Raises ValueError for a table with more than hmm.MAX_SLOTS
     predecessors of a state, which a uint8 backpointer cannot name."""
     if isinstance(table, transitions.StructuredTransitions):
@@ -84,7 +85,7 @@ def trans_ops(table, device) -> hmm.TransOps:
         raise ValueError(
             f"transition table with in-degree {deg}: the Viterbi "
             f"backpointers hold at most {hmm.MAX_SLOTS} slots")
-    layout = hmm.pack_slots(from_idx, table.from_logp)
+    layout = hmm.resident_layout(from_idx, table.from_logp)
     packed, book = ((None, None) if layout is None else
                     (torch.from_numpy(x).to(device) for x in layout))
     sides = hmm.pack_fwbw_sides(from_idx, table.from_logp, to_idx,
@@ -107,7 +108,8 @@ def trans_ops_batch(from_logp, to_logp, K: int, device) -> hmm.TransOps:
     from the JAX package's numpy arrays (transitions.build_structured_batch,
     as nanocall_tpu/ops/hmm.py:82 make_trans_ops_batch takes them): the
     fixed slot maps, K6b's from-state table and, where every read's table
-    packs, the per-read resident K6a layout (hmm.make_trans_ops_batch)."""
+    packs, the per-read resident K6a layout at the codebooks a slot the
+    reads need (hmm.make_trans_ops_batch)."""
     return hmm.make_trans_ops_batch(tensor(from_logp, device),
                                     tensor(to_logp, device), K)
 

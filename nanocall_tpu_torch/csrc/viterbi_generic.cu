@@ -40,21 +40,29 @@
 //
 // The resident kernel (viterbi_resident_forward_kernel) holds the whole
 // table in shared memory.  A table has that layout (ops/hmm.py
-// pack_slots, one codebook a slot) when every slot holds at most 16
-// distinct float32 bit patterns and the from-states fit 12 bits
-// (n = 4096): entry [k, j] is 16
-// bits, the from-state in the low 12 and a code into slot k's codebook of
-// 16 float32 values in the high 4.  At deg slots the block holds 2 deg n B
-// of table, 64 deg B of codebooks and two 16 KiB alpha buffers: at most
-// 24 slots fit the 227 KB of one block (168 KiB + 1.3 KiB at the r73
-// tables' 21).  The prologue copies table and codebooks with cp.async.bulk
-// into shared memory, completing on an mbarrier, while the threads compute
-// the first emission; no table byte crosses L2 after it.  A step reads per
-// slot one 8-byte word of a thread's 4 entries, cuts them into byte
-// offsets into alpha and the codebook, and gathers both.  alpha is
-// double-buffered, so a step needs one barrier, which also reduces whether
-// a new alpha is NaN or +inf: only then (or when the codebooks hold NaN or
-// +inf) can a v be NaN, and only then does the step track NaN (max_slots).
+// resident_layout) at G codebooks a slot, one per block of n / G states,
+// G = 1 or 4 (the fewest that packs), when every (slot, block) holds at
+// most 16 distinct float32 bit patterns and the from-states fit 12 bits
+// (n = 4096): entry [k, j] is 16 bits, the from-state in the low 12 and a
+// code into the codebook of (slot k, j's block) of 16 float32 values in
+// the high 4; the codebooks are block-major, (G, deg, 16).  The loaded
+// table of the CLI priors (0.1, 0.3) holds 17 values in some slots but at
+// most 16 in a block of 1024 states, so it takes G = 4.  A thread's 4
+// states lie in one block, so its codebook base moves once, before the
+// time loop, and the slot loop is the same at every G; G is a template
+// argument, so the G = 1 instances keep the one-codebook kernel's slot
+// loop, whose codebook base is a constant.  At deg slots the
+// block holds 2 deg n B of table, 64 G deg B of codebooks and two 16 KiB
+// alpha buffers: at most 24 slots fit the 227 KB of one block at G = 1, 23
+// at G = 4 (168 KiB + 1.3 or 5.3 KiB at the r73 tables' 21).  The
+// prologue copies table and codebooks with cp.async.bulk into shared
+// memory, completing on an mbarrier, while the threads compute the first
+// emission; no table byte crosses L2 after it.  A step reads per slot one
+// 8-byte word of a thread's 4 entries, cuts them into byte offsets into
+// alpha and the codebook, and gathers both.  alpha is double-buffered, so
+// a step needs one barrier, which also reduces whether a new alpha is NaN
+// or +inf: only then (or when a codebook holds NaN or +inf) can a v be
+// NaN, and only then does the step track NaN (max_slots).
 //
 // What bounds the resident kernel: issue, and the 16-lane integer and
 // compare pipe, on the read's one SM.  Per slot and state its loop issues
@@ -72,8 +80,9 @@
 // Per-read tables (ops/hmm.py make_trans_ops_batch, JAX's
 // make_trans_ops_batch): each forward kernel has a second instance
 // (*_batch_kernel) whose block b takes its read's own (deg, N) log-probs
-// (streaming) or packed layout and codebooks (resident), at b deg N (b deg
-// CODES) from the start of the (B, ...) tables; from_idx is every read's.
+// (streaming) or packed layout and codebooks (resident), at b deg N (b G
+// deg CODES) from the start of the (B, ...) tables, G the same for every
+// read; from_idx is every read's.
 // The bodies are shared and inlined, so the one-table instances compile
 // as before.
 //
@@ -105,7 +114,13 @@
 // warp with such a value marks the column in every block with its push;
 // the cooperative path: a block vote over the loaded column), the
 // streaming form (the (deg, W) int32 / float32 cut read from L2 every
-// step, an int2 and a float2 a slot) take_slot.  So every rank computes
+// step, an int2 and a float2 a slot) take_slot.  The rank's cut of a
+// layout at G codebooks a slot holds the codebooks of the blocks its W
+// states lie in (ops/hmm.py resident_book_rows): one block's where W <=
+// n / G, else W G / n; a thread's 2 states lie in one of them, so it
+// takes its codebook base once, as K6a.  Cut so, a rank's codebooks take
+// 64 deg B at M >= 4 at either G, and the blocks an SM hold what they held
+// with one codebook a slot.  So every rank computes
 // K6a's bits for its states, NaN bits included.  What bounds it: K6a's
 // slot loop over the SM's 2048 states, plus the exchange's latency a step
 // (the cluster barrier, which the next event's emissions partly hide; the
@@ -413,11 +428,11 @@ viterbi_generic_forward_batch_kernel(
 }
 
 // K6a's resident body, inlined into its two kernels.  Dynamic shared
-// memory: alpha (2 x N float32, double-buffered), the codebooks (deg x
-// CODES float32), the packed table (deg x N uint16).  kBatch: per-read
-// layouts, packed (B, deg, N) and codebook (B, deg, CODES), of which read
-// b copies its own.
-template <bool kPath, bool kBatch>
+// memory: alpha (2 x N float32, double-buffered), the codebooks (G x deg
+// x CODES float32, block-major), the packed table (deg x N uint16).
+// kBatch: per-read layouts, packed (B, deg, N) and codebook (B, G, deg,
+// CODES), of which read b copies its own.
+template <bool kPath, bool kBatch, int G>
 __device__ __forceinline__ void resident_forward_body(
     const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
     const float* __restrict__ ev_log_stdv,
@@ -431,9 +446,10 @@ __device__ __forceinline__ void resident_forward_body(
     float* __restrict__ final_alpha, uint8_t* __restrict__ bps) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
+  const int book_floats = G * deg * CODES;
   float* alpha = reinterpret_cast<float*>(smem);
   float* book = alpha + 2 * N;
-  uint16_t* table = reinterpret_cast<uint16_t*>(book + deg * CODES);
+  uint16_t* table = reinterpret_cast<uint16_t*>(book + book_floats);
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -441,11 +457,11 @@ __device__ __forceinline__ void resident_forward_body(
   const uint32_t bar_addr = smem_addr(&bar);
 
   if (tid == 0) {
-    const uint32_t book_bytes = deg * CODES * 4, slot_bytes = N * 2;
+    const uint32_t book_bytes = book_floats * 4, slot_bytes = N * 2;
     const uint16_t* src = packed + (kBatch ? (size_t)b * deg * N : 0);
     mbar_init_expect(bar_addr, book_bytes + deg * slot_bytes);
     bulk_copy(smem_addr(book),
-              codebook + (kBatch ? (size_t)b * deg * CODES : 0), book_bytes,
+              codebook + (kBatch ? (size_t)b * book_floats : 0), book_bytes,
               bar_addr);
     for (int k = 0; k < deg; ++k)
       bulk_copy(smem_addr(table + k * N), src + (size_t)k * N, slot_bytes,
@@ -467,21 +483,27 @@ __device__ __forceinline__ void resident_forward_body(
   }
   __syncthreads();  // also orders the barrier's init before every wait
   mbar_wait(bar_addr, 0);
-  const bool book_prone = __syncthreads_or(
-      tid < deg * CODES && nan_prone(book[tid]));
+  // every codebook (more values than threads at G = 4)
+  bool p = false;
+  for (int i = tid; i < book_floats; i += THREADS)
+    p = p || nan_prone(book[i]);
+  const bool book_prone = __syncthreads_or(p);
   bool alpha_prone = __syncthreads_or(any_prone(a));
 
   // the thread's 4 entries of slot 0; slot k's are k * N4 words on
   const uint2* words = reinterpret_cast<const uint2*>(table) + tid;
+  // slot 0's codebook of the block of N / G states that the thread's 4
+  // states lie in; slot k's is k * CODES on
+  const float* mine = G == 1 ? book : book + tid * G / THREADS * deg * CODES;
   float* cur = alpha;
   float* nxt = alpha + N;
   for (int t = 1; t < T; ++t) {
     float best[4];
     int bslot[4];
     if (book_prone || alpha_prone)
-      max_slots<kPath, true>(words, book, cur, deg, N4, best, bslot);
+      max_slots<kPath, true>(words, mine, cur, deg, N4, best, bslot);
     else
-      max_slots<kPath, false>(words, book, cur, deg, N4, best, bslot);
+      max_slots<kPath, false>(words, mine, cur, deg, N4, best, bslot);
     finish_step<kPath>(rows, evm, evs, evl, t, len, log2pi, best, bslot, a,
                        bps, B, b, tid, N);
     // nxt was last read in step t-1, which every thread has left: the
@@ -495,8 +517,9 @@ __device__ __forceinline__ void resident_forward_body(
   store4(final_alpha + row, a);
 }
 
-// The resident K6a under one table's layout for every read.
-template <bool kPath>
+// The resident K6a under one table's layout for every read, G codebooks
+// a slot.
+template <bool kPath, int G>
 __global__ void __launch_bounds__(THREADS, 1)
 viterbi_resident_forward_kernel(const float* __restrict__ ev_mean,
                                 const float* __restrict__ ev_stdv,
@@ -514,14 +537,14 @@ viterbi_resident_forward_kernel(const float* __restrict__ ev_mean,
                                 float log2pi, float log_n,
                                 float* __restrict__ final_alpha,
                                 uint8_t* __restrict__ bps) {
-  resident_forward_body<kPath, false>(
+  resident_forward_body<kPath, false, G>(
       ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg, packed, codebook,
       level_mean, level_stdv, log_level_stdv, sd_mean, sd_lambda,
       log_sd_lambda, log2pi, log_n, final_alpha, bps);
 }
 
-// The resident K6a under per-read layouts.
-template <bool kPath>
+// The resident K6a under per-read layouts, G codebooks a slot.
+template <bool kPath, int G>
 __global__ void __launch_bounds__(THREADS, 1)
 viterbi_resident_forward_batch_kernel(
     const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
@@ -534,7 +557,7 @@ viterbi_resident_forward_batch_kernel(
     const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
     const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
     float* __restrict__ final_alpha, uint8_t* __restrict__ bps) {
-  resident_forward_body<kPath, true>(
+  resident_forward_body<kPath, true, G>(
       ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg, packed, codebook,
       level_mean, level_stdv, log_level_stdv, sd_mean, sd_lambda,
       log_sd_lambda, log2pi, log_n, final_alpha, bps);
@@ -550,9 +573,9 @@ struct GenericWaveRank {
   const float* ev_log_stdv;
   const int32_t* length;
   // the rank's cut of the table: (deg, W) from_idx int32 and from_logp
-  // float32, or (RESIDENT) the (deg, W) packed uint16 and the (deg,
-  // CODES) codebook; per read, from_logp, packed and codebook carry a
-  // leading B
+  // float32, or (RESIDENT) the (deg, W) packed uint16 and the (groups,
+  // deg, CODES) codebooks of the blocks its states lie in; per read,
+  // from_logp, packed and codebook carry a leading B
   const void* table;
   const float* values;
   // (B, W): level_mean, level_stdv, log_level_stdv, sd_mean, sd_lambda,
@@ -592,22 +615,25 @@ __host__ __device__ __forceinline__ int pair_threads(int slice_shift) {
 // is NaN or +inf, as K6a's vote), else take_slot on the (deg, W) int32 /
 // float32 cut read from L2.  Dynamic shared memory: the column (CLUSTER:
 // 2 x N float32, double-buffered; else N), and RESIDENT the codebooks
-// (deg x CODES float32) and the rank's packed cut (deg x W uint16).
-// per_read: the table's log-probs (or layout) are the read's own.
+// (groups x deg x CODES float32: the cut's blocks of W / groups states,
+// block-major) and the rank's packed cut (deg x W uint16).  per_read: the
+// table's log-probs (or layout) are the read's own.
 template <bool kPath, bool SYS, bool RESIDENT, bool CLUSTER>
 __global__ void __launch_bounds__(THREADS, 1)
 viterbi_generic_wave_kernel(const GenericWaveRank* __restrict__ wave, int B,
                             int T, int wave_lo, int slice_shift, int deg,
-                            int per_read, float log2pi, float log_n,
-                            long long timeout_ns, int32_t* timed_out) {
+                            int groups, int per_read, float log2pi,
+                            float log_n, long long timeout_ns,
+                            int32_t* timed_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Exchange x;
   __shared__ __align__(8) uint64_t bar;
   // CLUSTER: t + 1 once a value of column t (buffer t & 1) is NaN or +inf
   __shared__ int prone_at[2];
+  const int book_floats = groups * deg * CODES;
   float* const column = reinterpret_cast<float*>(smem);
   float* const book = column + (CLUSTER ? 2 : 1) * N;
-  uint16_t* const table = reinterpret_cast<uint16_t*>(book + deg * CODES);
+  uint16_t* const table = reinterpret_cast<uint16_t*>(book + book_floats);
 
   const int ranks = N >> slice_shift;
   const int W = 1 << slice_shift, H = W >> 1;
@@ -636,12 +662,12 @@ viterbi_generic_wave_kernel(const GenericWaveRank* __restrict__ wave, int B,
     }
   }
   if (RESIDENT && tid == 0) {
-    const uint32_t book_bytes = deg * CODES * 4, slot_bytes = W * 2;
+    const uint32_t book_bytes = book_floats * 4, slot_bytes = W * 2;
     const uint16_t* src = static_cast<const uint16_t*>(e.table) +
                           (per_read ? (size_t)b * deg * W : 0);
     mbar_init_expect(bar_addr, book_bytes + deg * slot_bytes);
     bulk_copy(smem_addr(book),
-              e.values + (per_read ? (size_t)b * deg * CODES : 0),
+              e.values + (per_read ? (size_t)b * book_floats : 0),
               book_bytes, bar_addr);
     for (int k = 0; k < deg; ++k)
       bulk_copy(smem_addr(table + k * W), src + (size_t)k * W, slot_bytes,
@@ -701,7 +727,7 @@ viterbi_generic_wave_kernel(const GenericWaveRank* __restrict__ wave, int B,
   if (RESIDENT) {
     mbar_wait(bar_addr, 0);
     bool p = false;
-    for (int i = tid; i < deg * CODES; i += H) p = p || nan_prone(book[i]);
+    for (int i = tid; i < book_floats; i += H) p = p || nan_prone(book[i]);
     book_prone = __syncthreads_or(p);
   }
   if (CLUSTER && T > 1) {
@@ -715,8 +741,11 @@ viterbi_generic_wave_kernel(const GenericWaveRank* __restrict__ wave, int B,
   const float2* flp = reinterpret_cast<const float2*>(e.values) + tid +
                       (per_read ? (size_t)b * deg * H : 0);
   // the resident cut's word of the thread's 2 entries of slot 0, slot k's
-  // k W / 2 words on
+  // k W / 2 words on, and slot 0's codebook of the block of W / groups
+  // states that the thread's 2 states lie in, slot k's k CODES on
   const uint32_t* words = reinterpret_cast<const uint32_t*>(table) + tid;
+  const float* mine =
+      book + ((2 * tid * groups) >> slice_shift) * deg * CODES;
   for (int t = 1; t < T; ++t) {
     const float* cur = column;
     bool prone = false;
@@ -754,9 +783,9 @@ viterbi_generic_wave_kernel(const GenericWaveRank* __restrict__ wave, int B,
     int bslot[2];
     if (RESIDENT) {
       if (prone)
-        max_slots<kPath, true, 2>(words, book, cur, deg, H, best, bslot);
+        max_slots<kPath, true, 2>(words, mine, cur, deg, H, best, bslot);
       else
-        max_slots<kPath, false, 2>(words, book, cur, deg, H, best, bslot);
+        max_slots<kPath, false, 2>(words, mine, cur, deg, H, best, bslot);
     } else {
       int bfrom[2];
       for (int k = 0; k < deg; ++k) {
@@ -860,27 +889,44 @@ extern "C" int nc_viterbi_generic_forward(
   return (int)cudaGetLastError();
 }
 
-// The resident kernel: `packed` (deg, N) uint16 and `codebook` (deg,
-// CODES) float32 as ops/hmm.py pack_slots lays them out (per_read: (B,
-// deg, N) and (B, deg, CODES), read b's its own), both 16-byte aligned.
-// Its dynamic shared memory is set for every launch.
+namespace {
+
+// the resident K6a's instance at G codebooks a slot: with backpointers or
+// not, one table or per-read layouts
+template <int G>
+decltype(&viterbi_resident_forward_kernel<true, 1>) resident_forward_instance(
+    bool with_path, int per_read) {
+  if (per_read)
+    return with_path ? viterbi_resident_forward_batch_kernel<true, G>
+                     : viterbi_resident_forward_batch_kernel<false, G>;
+  return with_path ? viterbi_resident_forward_kernel<true, G>
+                   : viterbi_resident_forward_kernel<false, G>;
+}
+
+}  // namespace
+
+// The resident kernel: `packed` (deg, N) uint16 and `codebook` (groups,
+// deg, CODES) float32 as ops/hmm.py resident_layout lays them out
+// (per_read: (B, deg, N) and (B, groups, deg, CODES), read b's its own),
+// both 16-byte aligned; groups 1 or 4, each an instance of its own.  Its
+// dynamic shared memory is set for every launch.
 extern "C" int nc_viterbi_resident_forward(
     const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
-    const int32_t* length, int B, int T, int deg, const uint16_t* packed,
-    const float* codebook, const float* level_mean, const float* level_stdv,
-    const float* log_level_stdv, const float* sd_mean, const float* sd_lambda,
+    const int32_t* length, int B, int T, int deg, int groups,
+    const uint16_t* packed, const float* codebook, const float* level_mean,
+    const float* level_stdv, const float* log_level_stdv,
+    const float* sd_mean, const float* sd_lambda,
     const float* log_sd_lambda, float log2pi, float log_n, float* final_alpha,
     uint8_t* bps, int per_read, int device, void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
+  if (deg < 1 || (groups != 1 && groups != 4))
+    return (int)cudaErrorInvalidValue;
   if (B > 0 && T > 0) {
     auto kernel =
-        per_read
-            ? (bps != nullptr ? viterbi_resident_forward_batch_kernel<true>
-                              : viterbi_resident_forward_batch_kernel<false>)
-            : (bps != nullptr ? viterbi_resident_forward_kernel<true>
-                              : viterbi_resident_forward_kernel<false>);
-    const int smem = 2 * N * 4 + deg * (CODES * 4 + N * 2);
+        groups == 1 ? resident_forward_instance<1>(bps != nullptr, per_read)
+                    : resident_forward_instance<4>(bps != nullptr, per_read);
+    const int smem = 2 * N * 4 + deg * (groups * CODES * 4 + N * 2);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -919,10 +965,18 @@ GenericWaveKernel generic_wave_kernel(int with_path, int sys, int resident,
 }
 
 // K6am's dynamic shared memory: the column (cluster: both parities), and
-// resident the codebooks and the rank's (deg, W) packed cut
-int generic_wave_smem(int resident, int deg, int slice_shift, int cluster) {
+// resident the cut's codebooks (`groups` a slot) and the rank's (deg, W)
+// packed cut
+int generic_wave_smem(int resident, int deg, int groups, int slice_shift,
+                      int cluster) {
   return (cluster ? 2 : 1) * N * 4 +
-         (resident ? deg * (CODES * 4 + (2 << slice_shift)) : 0);
+         (resident ? deg * (groups * CODES * 4 + (2 << slice_shift)) : 0);
+}
+
+// a rank's cut holds 1 to 4 codebooks a slot, blocks of at least 2 states
+bool wave_groups_ok(int resident, int groups, int slice_shift) {
+  return !resident || ((groups == 1 || groups == 2 || groups == 4) &&
+                       (1 << slice_shift) >= 2 * groups);
 }
 
 // the launch's shape: a cooperative grid (reads, ranks), or (cluster) a
@@ -951,25 +1005,29 @@ void generic_wave_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
 }  // namespace
 
 // K6am's wave: the most blocks of its instance (with_path, sys, resident,
-// at deg slots and slices of 1 << slice_shift states) that one card holds
-// at once (blocks an SM at W / 2 threads and its shared memory, times the
-// SMs) into *blocks; (cluster) the blocks of the clusters of M ranks it
-// holds at once (cudaOccupancyMaxActiveClusters).  An error where the card
-// has no cooperative launch (or, cluster, where the clusters do not fit).
+// at deg slots of `groups` codebooks in the cut and slices of 1 <<
+// slice_shift states) that one card holds at once (blocks an SM at W / 2
+// threads and its shared memory, times the SMs) into *blocks; (cluster)
+// the blocks of the clusters of M ranks it holds at once
+// (cudaOccupancyMaxActiveClusters).  An error where the card has no
+// cooperative launch (or, cluster, where the clusters do not fit).
 extern "C" int nc_viterbi_generic_wave_resident(int with_path, int sys,
                                                 int resident, int deg,
-                                                int slice_shift, int cluster,
-                                                int device, int* blocks) {
+                                                int groups, int slice_shift,
+                                                int cluster, int device,
+                                                int* blocks) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   *blocks = 0;
   const int ranks = N >> slice_shift;
   if (slice_shift < 6 || slice_shift > 11 || deg < 1 || deg > 256 ||
+      !wave_groups_ok(resident, groups, slice_shift) ||
       (cluster && (sys || ranks > nc::MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
   const GenericWaveKernel kernel =
       generic_wave_kernel(with_path, sys, resident, cluster);
-  const int smem = generic_wave_smem(resident, deg, slice_shift, cluster);
+  const int smem =
+      generic_wave_smem(resident, deg, groups, slice_shift, cluster);
   int coop = 0, sms = 0, per_sm = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -1006,16 +1064,17 @@ extern "C" int nc_viterbi_generic_wave_resident(int with_path, int sys,
 // nullptr: score-only, with_path = 0) and (B,) counters (zero before the
 // launch; the cluster path reads none) lie on their ranks' cards,
 // reachable from this one (peer access).  resident: the entries' tables
-// are the packed cut and its codebooks (16-byte aligned), of 1 to 64
-// slots; else the int32 / float32 cut of 1 to 256.  per_read: each read's
-// log-probs (or layout) its own.  sys: the exchange at system scope.
+// are the packed cut and its codebooks (16-byte aligned; `groups` a slot,
+// the blocks of the cut's states), of 1 to 64 slots; else the int32 /
+// float32 cut of 1 to 256.  per_read: each read's log-probs (or layout)
+// its own.  sys: the exchange at system scope.
 // timed_out: as K1m's.  Returns the launch's error: a cooperative grid
 // larger than the card holds at once is refused
 // (cudaErrorCooperativeLaunchTooLarge).
 extern "C" int nc_viterbi_generic_wave(
     const void* ranks, int n_local, int B, int T, int lo, int n_reads,
-    int slice_shift, int deg, int per_read, int with_path, int sys,
-    int resident, int cluster, float log2pi, float log_n,
+    int slice_shift, int deg, int groups, int per_read, int with_path,
+    int sys, int resident, int cluster, float log2pi, float log_n,
     long long timeout_ns, int32_t* timed_out, int device, void* stream) {
   const nc::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
@@ -1024,11 +1083,13 @@ extern "C" int nc_viterbi_generic_wave(
       n_reads < 1 || lo + n_reads > B || n_local < 1 || n_local > M ||
       timed_out == nullptr || deg < 1 ||
       deg > (resident ? THREADS / CODES : 256) ||
+      !wave_groups_ok(resident, groups, slice_shift) ||
       (cluster && (sys || n_local != M || M > nc::MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
   const GenericWaveKernel kernel =
       generic_wave_kernel(with_path, sys, resident, cluster);
-  const int smem = generic_wave_smem(resident, deg, slice_shift, cluster);
+  const int smem =
+      generic_wave_smem(resident, deg, groups, slice_shift, cluster);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1039,8 +1100,8 @@ extern "C" int nc_viterbi_generic_wave(
   cfg.stream = (cudaStream_t)stream;
   err = cudaLaunchKernelEx(&cfg, kernel,
                            static_cast<const GenericWaveRank*>(ranks), B, T,
-                           lo, slice_shift, deg, per_read, log2pi, log_n,
-                           timeout_ns, timed_out);
+                           lo, slice_shift, deg, groups, per_read, log2pi,
+                           log_n, timeout_ns, timed_out);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clears it
     return (int)err;

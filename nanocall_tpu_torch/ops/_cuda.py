@@ -181,15 +181,15 @@ def load():
             + [ci] + [ci, vp])
         lib.nc_viterbi_resident_forward.restype = ci
         lib.nc_viterbi_resident_forward.argtypes = (
-            [vp] * 4 + [ci, ci, ci] + [vp] * 8 + [cf, cf] + [vp, vp]
+            [vp] * 4 + [ci] * 4 + [vp] * 8 + [cf, cf] + [vp, vp]
             + [ci] + [ci, vp])
         lib.nc_viterbi_generic_wave.restype = ci
         lib.nc_viterbi_generic_wave.argtypes = (
-            [vp] + [ci] * 12 + [cf, cf] + [ctypes.c_longlong, vp]
+            [vp] + [ci] * 13 + [cf, cf] + [ctypes.c_longlong, vp]
             + [ci, vp])
         lib.nc_viterbi_generic_wave_resident.restype = ci
         lib.nc_viterbi_generic_wave_resident.argtypes = [
-            ci] * 7 + [ctypes.POINTER(ci)]
+            ci] * 8 + [ctypes.POINTER(ci)]
         lib.nc_viterbi_generic_traceback_slices.restype = ci
         lib.nc_viterbi_generic_traceback_slices.argtypes = (
             [vp] * 2 + [ci] * 6 + [vp, ci] + [vp] * 2 + [ci, vp])

@@ -163,24 +163,26 @@ class TransOps(NamedTuple):
     from_idx[k, j] (int32) with log-prob from_logp[k, j] (float32); source
     i's slot k goes to to_idx[k, i] with to_logp[k, i].  Padded slots have
     log-prob -inf and index 0.  from_packed / from_codebook: the from side
-    in the resident K6a's layout (pack_slots, one codebook a slot),
-    computed once per table, or None for a table without one; fwbw_packed:
-    both sides in the resident K6c's and K6e's layout (FWBW_GROUPS
-    codebooks a slot), or None unless both sides have it; from_states: the
-    from-states as a (deg, n) uint16 table for K6b's ring kernel
-    (from_state_table), or None for a table of more slots than fit beside
-    its ring.  convert.trans_ops builds one.
+    in the resident K6a's layout (resident_layout: (deg, n) int16 entries
+    and (G deg, RESIDENT_CODES) float32 codebooks, block-major, G of
+    RESIDENT_GROUPS codebooks a slot, which resident_groups reads from the
+    shapes), computed once per table, or None for a table without one;
+    fwbw_packed: both sides in the resident K6c's and K6e's layout
+    (FWBW_GROUPS codebooks a slot), or None unless both sides have it;
+    from_states: the from-states as a (deg, n) uint16 table for K6b's ring
+    kernel (from_state_table), or None for a table of more slots than fit
+    beside its ring.  convert.trans_ops builds one.
 
     The per-read form (make_trans_ops_batch, JAX's make_trans_ops_batch:
     read b runs under its own structured table) has (B, deg, n) from_logp
     / to_logp and, where every read's table packs, a (B, deg, n)
-    from_packed and (B, deg, RESIDENT_CODES) from_codebook, and where
-    every read's two sides pack, fwbw_packed of (B, deg, n) entries and
-    (B, deg, FWBW_GROUPS * RESIDENT_CODES) codebooks a side; from_idx,
-    to_idx and from_states stay (deg, n), the fixed slot map every read
-    shares.  The Viterbi decode (K6a, K6b) and the forward-backward (K6c,
-    K6e) take it; the forward-backward on the mesh's state axis (K6cm)
-    raises (refuse_per_read)."""
+    from_packed and (B, G deg, RESIDENT_CODES) from_codebook (one G for
+    every read), and where every read's two sides pack, fwbw_packed of (B,
+    deg, n) entries and (B, deg, FWBW_GROUPS * RESIDENT_CODES) codebooks a
+    side; from_idx, to_idx and from_states stay (deg, n), the fixed slot
+    map every read shares.  The Viterbi decode (K6a, K6b) and the
+    forward-backward (K6c, K6e) take it; the forward-backward on the mesh's
+    state axis (K6cm) raises (refuse_per_read)."""
 
     from_idx: torch.Tensor
     from_logp: torch.Tensor
@@ -1826,6 +1828,14 @@ def viterbi_forward_plain(ops: TransOps, model: ModelArrays, ev: dict,
 #: codes per slot of the resident layout: a 4-bit code into the slot's
 #: codebook of float32 log-probs
 RESIDENT_CODES = 16
+#: codebooks per slot of K6c's resident layout, one per block of 1024
+#: states: the fewest for which both sides of the loaded tables of the CLI
+#: priors (0.1, 0.3) and of (0.14, 0.21) pack (tests/test_torch_packed.py)
+FWBW_GROUPS = 4
+#: the codebooks a slot K6a's resident layout may take, in the order tried:
+#: one, else FWBW_GROUPS (the loaded table of the CLI priors and 5 more of
+#: the 15 `--fast` tables of tests/test_torch_packed_groups.py need 4)
+RESIDENT_GROUPS = (1, FWBW_GROUPS)
 #: shared memory one block may use on Hopper (bytes)
 SMEM_PER_BLOCK = 232448
 #: shared memory of one SM of Hopper (bytes)
@@ -1834,16 +1844,24 @@ SMEM_PER_SM = 233472
 _RESIDENT_STATIC_SMEM = 8
 
 
-def resident_smem_bytes(deg: int, n: int = 4096) -> int:
-    """The resident K6a's dynamic shared memory at `deg` slots: two float32
-    alpha buffers, the codebooks and the 16-bit table."""
-    return 2 * 4 * n + deg * (4 * RESIDENT_CODES + 2 * n)
+def resident_smem_bytes(deg: int, n: int = 4096, groups: int = 1) -> int:
+    """The resident K6a's dynamic shared memory at `deg` slots of `groups`
+    codebooks: two float32 alpha buffers, the codebooks and the 16-bit
+    table."""
+    return 2 * 4 * n + deg * (4 * groups * RESIDENT_CODES + 2 * n)
 
 
-#: the most slots whose resident layout fits one block's shared memory: 24
-MAX_RESIDENT_SLOTS = ((SMEM_PER_BLOCK - _RESIDENT_STATIC_SMEM
-                       - resident_smem_bytes(0))
-                      // (resident_smem_bytes(1) - resident_smem_bytes(0)))
+def max_resident_slots(groups: int = 1) -> int:
+    """The most slots whose resident K6a layout of `groups` codebooks a slot
+    fits one block's shared memory: 24 at one, 23 at FWBW_GROUPS."""
+    per_slot = (resident_smem_bytes(1, groups=groups)
+                - resident_smem_bytes(0, groups=groups))
+    return ((SMEM_PER_BLOCK - _RESIDENT_STATIC_SMEM - resident_smem_bytes(0))
+            // per_slot)
+
+
+#: the most slots of the one-codebook layout: 24
+MAX_RESIDENT_SLOTS = max_resident_slots(1)
 
 
 def pack_slots(idx, logp, groups: int = 1,
@@ -1860,7 +1878,8 @@ def pack_slots(idx, logp, groups: int = 1,
     backpointers are slot ids.  None unless the table is 4096 wide, has 1 to
     `max_slots` slots and states in [0, 4096), and every (slot, block) holds
     at most RESIDENT_CODES distinct bit patterns.  groups = 1 is K6a's
-    layout, FWBW_GROUPS K6c's."""
+    one-codebook layout, FWBW_GROUPS K6c's (resident_layout orders K6a's
+    codebooks by block)."""
     idx = np.asarray(idx).astype(np.int64)
     bits = np.ascontiguousarray(logp, np.float32).view(np.int32)
     deg, n = idx.shape
@@ -1882,33 +1901,77 @@ def pack_slots(idx, logp, groups: int = 1,
             book.reshape(deg, groups * RESIDENT_CODES).view(np.float32))
 
 
+def resident_layout(idx, logp, groups: int | None = None):
+    """K6a's resident layout of a (deg, 4096) slot table (host arrays), or
+    None: pack_slots at the fewest codebooks a slot of RESIDENT_GROUPS that
+    packs the table, within max_resident_slots of that count (`groups`
+    forces one count), as (packed (deg, 4096) int16, codebook (G deg,
+    RESIDENT_CODES) float32) numpy arrays, the codebooks block-major: row
+    g deg + k is slot k's codebook of the block of states [g 4096 / G, (g +
+    1) 4096 / G).  A thread's states lie in one block, so the kernels move
+    its codebook base once and keep slot k's codebook k RESIDENT_CODES on.
+    At G = 1 these are pack_slots' arrays, byte for byte."""
+    for g in ((groups,) if groups else RESIDENT_GROUPS):
+        layout = pack_slots(idx, logp, g, max_resident_slots(g))
+        if layout is not None:
+            packed, book = layout
+            deg = packed.shape[0]
+            return packed, np.ascontiguousarray(
+                book.reshape(deg, g, RESIDENT_CODES).transpose(1, 0, 2)
+            ).reshape(g * deg, RESIDENT_CODES)
+    return None
+
+
+def resident_groups(ops: TransOps) -> int:
+    """The codebooks a slot of `ops`' resident K6a layout (or of a rank's
+    cut of it): the codebook's rows over the packed table's slots."""
+    return ops.from_codebook.shape[-2] // ops.from_packed.shape[-2]
+
+
+def resident_book_rows(groups: int, deg: int, cols: slice,
+                       n: int = 4096) -> slice:
+    """The codebook rows of K6a's resident layout (`groups` codebooks of
+    `deg` slots, block-major) that the states `cols` read: those of the
+    blocks the states lie in, one block when they lie in one."""
+    g0 = cols.start * groups // n
+    g1 = -(-cols.stop * groups // n)
+    return slice(g0 * deg, g1 * deg)
+
+
 def generic_forward_route(ops: TransOps) -> str:
     """Which K6a kernel runs on the card under `ops`, fixed by the table:
     "resident" (the table in shared memory) when it has the packed layout,
-    which convert.trans_ops gives every table that fits, else "streaming"
-    (the table read from L2 at every step)."""
+    which convert.trans_ops gives every table that fits (resident_layout),
+    else "streaming" (the table read from L2 at every step)."""
     return "streaming" if ops.from_packed is None else "resident"
 
 
 def _check_resident(ops: TransOps, dev, B: int | None = None) -> None:
-    """The resident kernel takes a K=6 table's packed layout of 1 to
-    MAX_RESIDENT_SLOTS slots, contiguous and 16-byte aligned (its bulk
-    copies) on the launch device: (deg, 4096) and (deg, RESIDENT_CODES),
-    or per read (B, deg, 4096) and (B, deg, RESIDENT_CODES)."""
+    """The resident kernel takes a K=6 table's packed layout at G of
+    RESIDENT_GROUPS codebooks a slot and 1 to max_resident_slots(G) slots,
+    contiguous and 16-byte aligned (its bulk copies) on the launch device:
+    (deg, 4096) and (G deg, RESIDENT_CODES), or per read (B, deg, 4096)
+    and (B, G deg, RESIDENT_CODES)."""
     if ops.K != 6:
         raise ValueError(f"the CUDA generic kernels take K=6, got K={ops.K}")
     if ops.from_packed is None:
         raise ValueError("the resident generic forward needs the table's "
-                         "packed layout (hmm.pack_slots)")
+                         "packed layout (hmm.resident_layout)")
     lead = (B,) if ops.from_packed.dim() == 3 else ()
     deg = ops.from_packed.shape[len(lead)]
-    if not 1 <= deg <= MAX_RESIDENT_SLOTS:
+    groups = resident_groups(ops)
+    if groups not in RESIDENT_GROUPS:
+        raise ValueError(f"packed table: codebooks of shape "
+                         f"{tuple(ops.from_codebook.shape)} for {deg} slots, "
+                         f"the resident kernel takes {RESIDENT_GROUPS} a slot")
+    if not 1 <= deg <= max_resident_slots(groups):
         raise ValueError(f"packed table: {deg} slots, the resident kernel "
-                         f"takes 1 to {MAX_RESIDENT_SLOTS}")
+                         f"takes 1 to {max_resident_slots(groups)} at "
+                         f"{groups} codebooks a slot")
     _check("from_packed", ops.from_packed, torch.int16, (*lead, deg, 4096),
            dev)
     _check("from_codebook", ops.from_codebook, torch.float32,
-           (*lead, deg, RESIDENT_CODES), dev)
+           (*lead, groups * deg, RESIDENT_CODES), dev)
     for name in ("from_packed", "from_codebook"):
         if getattr(ops, name).data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -1926,9 +1989,11 @@ def _generic_forward_kernel(ops: TransOps, model: ModelArrays, ev: dict,
     if resident:
         _check_resident(ops, dev, B)
         table = (ops.from_packed, ops.from_codebook)
+        groups = (resident_groups(ops),)
     else:
         _check_ops(ops, dev, B)
         table = (ops.from_idx, ops.from_logp)
+        groups = ()
     _check_tables(tuple(model), B, n, dev)
     _require_cuda(dev, "generic viterbi forward")
     final = torch.empty((B, n), dtype=torch.float32, device=dev)
@@ -1939,7 +2004,7 @@ def _generic_forward_kernel(ops: TransOps, model: ModelArrays, ev: dict,
              else lib.nc_viterbi_generic_forward)
     err = entry(
         mean.data_ptr(), ev["stdv"].data_ptr(), ev["log_stdv"].data_ptr(),
-        ev["length"].data_ptr(), B, T, table[0].shape[-2],
+        ev["length"].data_ptr(), B, T, table[0].shape[-2], *groups,
         *(x.data_ptr() for x in table),
         *(x.data_ptr() for x in model), LOG_2PI, math.log(n),
         final.data_ptr(),
@@ -2111,9 +2176,11 @@ def make_trans_ops_batch(from_logp, to_logp, K: int) -> TransOps:
     its own; the slot maps are the fixed 21-slot layout every read shares
     (transitions.slot_from_state; nanocall_tpu/ops/hmm.py:153-157), with
     K6b's from-state table where it fits (from_state_table), each read's
-    resident K6a layout where every read's table packs (pack_slots,
-    stacked) and each read's resident K6c / K6e layout of both sides where
-    every read's two sides pack (pack_fwbw_sides, stacked)."""
+    resident K6a layout where every read's table packs (resident_layout
+    at one count of codebooks a slot for every read, the fewest at which
+    all pack: the most any read needs; stacked) and each read's resident
+    K6c / K6e layout of both sides where every read's two sides pack
+    (pack_fwbw_sides, stacked)."""
     dev = from_logp.device
     from_idx, to_idx, _, _ = transitions._slot_maps(K)
     flp = from_logp.detach().cpu().numpy()
@@ -2126,7 +2193,9 @@ def make_trans_ops_batch(from_logp, to_logp, K: int) -> TransOps:
             return None
         return [torch.from_numpy(np.stack(x)).to(dev) for x in zip(*layouts)]
 
-    packed = stacked([pack_slots(from_idx, t) for t in flp]) or (None, None)
+    packed = next((p for p in (
+        stacked([resident_layout(from_idx, t, g) for t in flp])
+        for g in RESIDENT_GROUPS) if p), (None, None))
     sides = stacked([pack_fwbw_sides(from_idx, f, to_idx, t)
                      for f, t in zip(flp, tlp)])
     states = from_state_table(from_idx)
@@ -2229,23 +2298,27 @@ def viterbi_decode(ops: TransOps, model: ModelArrays, ev: dict,
 # shard_decode_inputs (parallel/statepar.py drives it, on K1m's schedule).
 # Rank m holds the states [m W, (m + 1) W), W = n / M: the (deg, W) cut of
 # the table's from side (per read (B, deg, W) log-probs; the cut of the
-# resident layout where the table has one), its (B, W) scaled model, a (2,
-# B, W) column buffer, B step counters and its (T - 1, B, W) backpointer
-# bytes.  A step needs the whole previous column, since a loaded table's
-# from-states lie anywhere: on the cluster path every rank pushes its slice
-# into its peers' shared memory, and stores only the last two columns into
-# its buffer; on the cooperative path it reads every rank's buffer.
+# resident layout where the table has one: its entries at the rank's
+# states and the codebooks of the blocks they lie in), its (B, W) scaled
+# model, a (2, B, W) column buffer, B step counters and its (T - 1, B, W)
+# backpointer bytes.  A step needs the whole previous column, since a
+# loaded table's from-states lie anywhere: on the cluster path every rank
+# pushes its slice into its peers' shared memory, and stores only the last
+# two columns into its buffer; on the cooperative path it reads every
+# rank's buffer.
 
 
 class GenericWaveRank(NamedTuple):
     """One rank of a data row of the generic decode, on the rank's device:
     ops, its cut of the table (from_idx (deg, W) int32, from_logp (deg, W)
     or per read (B, deg, W) float32, from_packed / from_codebook the cut of
-    the resident layout or None; the to side unused), its (B, W) scaled
-    model, the row's (B, T) events and (B,) lengths, its column buffer col
-    (2, B, W) float32, its backpointers bps (T - 1, B, W) uint8 (None:
-    score-only) and its step counters flags (B,) int32, zero before the
-    decode (K6am's exchange; the plain version leaves them)."""
+    the resident layout or None: the (deg, W) entries and the codebook rows
+    of the blocks its states lie in, resident_book_rows; the to side
+    unused), its (B, W) scaled model, the row's (B, T) events and (B,)
+    lengths, its column buffer col (2, B, W) float32, its backpointers bps
+    (T - 1, B, W) uint8 (None: score-only) and its step counters flags
+    (B,) int32, zero before the decode (K6am's exchange; the plain version
+    leaves them)."""
 
     ops: TransOps
     model: ModelArrays
@@ -2305,24 +2378,25 @@ def viterbi_forward_generic_wave_plain(ranks, lo: int, hi: int) -> None:
 
 
 #: generic_wave_resident's answers, by (card index, with_path, sys,
-#: resident, deg, W, cluster)
+#: resident, deg, W, cluster, groups)
 _generic_resident: dict = {}
 
 
 def generic_wave_resident(dev, with_path: bool, sys: bool, resident: bool,
-                          deg: int, W: int, cluster: bool = False) -> int:
+                          deg: int, W: int, cluster: bool = False,
+                          groups: int = 1) -> int:
     """The most blocks of K6am's instance (with_path; sys: the exchange
-    across cards; resident, at deg slots and slices of W states, whose
-    shared memory it sets) that the CUDA device `dev` holds at once: a
-    cooperative wave's grid, reads times the card's ranks, must not exceed
-    it; cluster: the blocks of the most clusters of the cluster path it
-    holds at once."""
+    across cards; resident, at deg slots, `groups` codebook rows a slot in
+    the rank's cut and slices of W states, whose shared memory it sets)
+    that the CUDA device `dev` holds at once: a cooperative wave's grid,
+    reads times the card's ranks, must not exceed it; cluster: the blocks
+    of the most clusters of the cluster path it holds at once."""
     key = (torch.device(dev).index, bool(with_path), bool(sys),
-           bool(resident), int(deg), int(W), bool(cluster))
+           bool(resident), int(deg), int(W), bool(cluster), int(groups))
     if key not in _generic_resident:
         blocks = ctypes.c_int(0)
         _cuda.check(_cuda.load().nc_viterbi_generic_wave_resident(
-            int(with_path), int(sys), int(resident), int(deg),
+            int(with_path), int(sys), int(resident), int(deg), int(groups),
             _slice_shift(4096 // W, W), int(cluster), key[0],
             ctypes.byref(blocks)), "viterbi_generic_wave occupancy")
         _generic_resident[key] = blocks.value
@@ -2334,9 +2408,18 @@ def _check_aligned(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
+def cut_groups(W: int) -> tuple:
+    """The codebook rows a slot that a rank's cut of K6a's resident layout
+    holds at slices of W states (resident_book_rows), for each count of
+    RESIDENT_GROUPS: one block's, or the W / 1024 blocks of a slice that
+    spans several."""
+    return tuple(sorted({max(1, W * g // 4096) for g in RESIDENT_GROUPS}))
+
+
 def _check_generic_wave_rank(m: int, r: GenericWaveRank, B: int, T: int,
-                             W: int, with_path: bool, resident: bool) -> int:
-    """A rank's part as K6am takes it; returns its slot count."""
+                             W: int, with_path: bool, resident: bool) -> tuple:
+    """A rank's part as K6am takes it; returns its slot count and (resident)
+    its cut's codebook rows a slot (else 1)."""
     dev = r.ev["mean"].device
     ops = r.ops
     if ops.K != 6:
@@ -2349,15 +2432,22 @@ def _check_generic_wave_rank(m: int, r: GenericWaveRank, B: int, T: int,
     _check_events(r.ev, B, T, dev)
     _check_tables(tuple(r.model), B, W, dev)
     lead = (B,) if per_read(ops) else ()
+    groups = 1
     if resident:
         deg = ops.from_packed.shape[-2]
         if not 1 <= deg <= MAX_RESIDENT_SLOTS:
             raise ValueError(f"packed table: {deg} slots, the resident K6am "
                              f"takes 1 to {MAX_RESIDENT_SLOTS}")
+        groups = resident_groups(ops)
+        if groups not in cut_groups(W):
+            raise ValueError(
+                f"ranks[{m}]: codebooks of shape "
+                f"{tuple(ops.from_codebook.shape)} for {deg} slots; a cut "
+                f"of {W} states holds {cut_groups(W)} codebooks a slot")
         _check(f"ranks[{m}].ops.from_packed", ops.from_packed, torch.int16,
                (*lead, deg, W), dev)
         _check(f"ranks[{m}].ops.from_codebook", ops.from_codebook,
-               torch.float32, (*lead, deg, RESIDENT_CODES), dev)
+               torch.float32, (*lead, groups * deg, RESIDENT_CODES), dev)
         tables = (ops.from_packed, ops.from_codebook)
     else:
         deg = ops.from_idx.shape[0]
@@ -2378,7 +2468,7 @@ def _check_generic_wave_rank(m: int, r: GenericWaveRank, B: int, T: int,
         _check(f"ranks[{m}].bps", r.bps, torch.uint8, (T - 1, B, W), dev)
         if r.bps.data_ptr() % 4:  # stored a 32-bit word a thread
             raise ValueError(f"ranks[{m}].bps is not 4-byte aligned")
-    return deg
+    return deg, groups
 
 
 def _generic_wave_kernel(ranks, local, lo: int, hi: int, resident: bool,
@@ -2394,8 +2484,9 @@ def _generic_wave_kernel(ranks, local, lo: int, hi: int, resident: bool,
                                           resident))
         modes.add(per_read(r.ops))
     if len(degs) != 1 or len(modes) != 1:
-        raise ValueError(f"the ranks' cuts differ: slots {degs}, per-read "
-                         f"{modes}")
+        raise ValueError(f"the ranks' cuts differ: (slots, codebooks a "
+                         f"slot) {degs}, per-read {modes}")
+    deg, groups = degs.pop()
     vals = []
     for r in ranks:
         tables = ((r.ops.from_packed, r.ops.from_codebook) if resident
@@ -2408,7 +2499,7 @@ def _generic_wave_kernel(ranks, local, lo: int, hi: int, resident: bool,
                  r.flags.data_ptr()]
     table = _rank_table(vals, local, dev)
     err = _cuda.load().nc_viterbi_generic_wave(
-        table.data_ptr(), len(local), B, T, lo, hi - lo, shift, degs.pop(),
+        table.data_ptr(), len(local), B, T, lo, hi - lo, shift, deg, groups,
         int(modes.pop()), int(with_path), int(sys), int(resident),
         int(cluster), LOG_2PI, math.log(len(ranks) * W),
         int(WAVE_TIMEOUT_S * 1e9), _timed_out.data_ptr(),
@@ -2556,10 +2647,6 @@ def fwbw_plain(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
     return {"alpha": alphas, "beta": betas, "em": ems, "log_pr_data": lpd}
 
 
-#: codebooks per slot of K6c's resident layout, one per block of 1024
-#: states: the fewest for which both sides of the loaded tables of the CLI
-#: priors (0.1, 0.3) and of (0.14, 0.21) pack (tests/test_torch_packed.py)
-FWBW_GROUPS = 4
 #: the resident K6c's static shared memory: its mbarrier and two (32,)
 #: float32 arrays of per-warp partials
 _FWBW_RESIDENT_STATIC_SMEM = 8 + 2 * 4 * 32

@@ -258,9 +258,11 @@ def shard_decode_inputs(mesh: Mesh, ops: hmm.TransOps, model, ev: dict
     table as (deg, W) slices (P(None, "model")), per-read (B, deg, n)
     tables as (B / D, deg, W) (P("data", None, "model")), from_idx and
     to_idx as (deg, W); the resident layout's from_packed cut as its table
-    and its codebooks, which are per slot over all states, whole (per read
-    over 'data').  The whole from side for the traceback goes to each row's
-    first rank (PlacedTable.walk).  Returns (PlacedTable, model, ev): the
+    and its codebooks (per read over 'data') cut over 'model' to the
+    blocks of states each rank's lie in (hmm.resident_book_rows: one
+    block's, or a slice's blocks where it spans several).  The whole from
+    side for the traceback goes to each row's first rank
+    (PlacedTable.walk).  Returns (PlacedTable, model, ev): the
     model a ModelArrays and the events a dict of Sharded arguments, which
     statepar.viterbi_decode_placed decodes."""
     D, M = mesh.ids.shape
@@ -269,7 +271,7 @@ def shard_decode_inputs(mesh: Mesh, ops: hmm.TransOps, model, ev: dict
     n = ops.from_idx.shape[-1]
     states = _cuts(n, M, "states")
 
-    def place(x, spec):
+    def place(x, spec, model_cuts=states):
         if x is None:
             return None
         shards = []
@@ -278,7 +280,7 @@ def shard_decode_inputs(mesh: Mesh, ops: hmm.TransOps, model, ev: dict
             for m, dev in enumerate(devs):
                 part = x
                 for axis, name in enumerate(spec):
-                    cut = {"data": rows[d], "model": states[m]}.get(name)
+                    cut = {"data": rows[d], "model": model_cuts[m]}.get(name)
                     if cut is not None:
                         part = part[(slice(None),) * axis + (cut,)]
                 row.append(part.contiguous().to(dev))
@@ -286,14 +288,19 @@ def shard_decode_inputs(mesh: Mesh, ops: hmm.TransOps, model, ev: dict
         return Sharded(mesh, spec, shards)
 
     table = ("data", None, "model") if hmm.per_read(ops) else (None, "model")
-    book = ("data", None, None) if hmm.per_read(ops) else (None, None)
+    book = ("data", "model", None) if hmm.per_read(ops) else ("model", None)
+    book_rows = None
+    if ops.from_codebook is not None:
+        book_rows = [hmm.resident_book_rows(
+            hmm.resident_groups(ops), ops.from_packed.shape[-2], s, n)
+            for s in states]
     cut = hmm.TransOps(
         from_idx=place(ops.from_idx, (None, "model")),
         from_logp=place(ops.from_logp, table),
         to_idx=place(ops.to_idx, (None, "model")),
         to_logp=place(ops.to_logp, table), K=ops.K,
         from_packed=place(ops.from_packed, table),
-        from_codebook=place(ops.from_codebook, book))
+        from_codebook=place(ops.from_codebook, book, book_rows))
     walk = [statepar.walk_table(ops, devs[0]) for devs in mesh.devices]
     if model.level_mean.shape[0] not in (1, B):
         raise ValueError(f"a model of {model.level_mean.shape[0]} rows for "

@@ -296,10 +296,12 @@ def _forward_kernels(ranks, with_path: bool, generic: bool = False,
         ops, W = ranks[0].ops, ranks[0].col.shape[-1]
         resident = hmm.generic_forward_route(ops) == "resident"
         deg = (ops.from_packed if resident else ops.from_idx).shape[-2]
+        groups = hmm.resident_groups(ops) if resident else 1
         _wave_kernels(ranks, lambda *a: hmm.forward_generic_wave_kernel(
                           *a, cluster=cluster),
                       lambda d, sys: hmm.generic_wave_resident(
-                          d, with_path, sys, resident, deg, W),
+                          d, with_path, sys, resident, deg, W,
+                          groups=groups),
                       clusters=cluster is None)
     else:
         _wave_kernels(ranks, hmm.forward_wave_kernel,
@@ -438,15 +440,20 @@ class GenericRow(NamedTuple):
 
 def _cut_table(ops: hmm.TransOps, cols: slice, dev) -> hmm.TransOps:
     """The rank's cut of a table: the states `cols` of each side's slot
-    tables and of the resident layout, the codebooks whole."""
+    tables and of the resident layout, and the layout's codebooks of the
+    blocks those states lie in (hmm.resident_book_rows)."""
     def cut(x):
         return None if x is None else x[..., cols].contiguous().to(dev)
+    book = None
+    if ops.from_codebook is not None:
+        rows = hmm.resident_book_rows(hmm.resident_groups(ops),
+                                      ops.from_packed.shape[-2], cols,
+                                      ops.from_packed.shape[-1])
+        book = ops.from_codebook[..., rows, :].contiguous().to(dev)
     return hmm.TransOps(
         from_idx=cut(ops.from_idx), from_logp=cut(ops.from_logp),
         to_idx=cut(ops.to_idx), to_logp=cut(ops.to_logp), K=ops.K,
-        from_packed=cut(ops.from_packed),
-        from_codebook=(None if ops.from_codebook is None
-                       else ops.from_codebook.contiguous().to(dev)))
+        from_packed=cut(ops.from_packed), from_codebook=book)
 
 
 def walk_table(ops: hmm.TransOps, dev) -> hmm.TransOps:

@@ -35,7 +35,8 @@ def card():
 
 def _k6_inputs(dev, B: int, T: int, lengths, seed: int):
     """The 21-neighbour table of (0.14, 0.21) as sparse pairs in memory
-    (17 distinct log-probs in some slots: no packed layout), per-read
+    (17 distinct log-probs in some slots, at most 16 in a block of 1024
+    states: K6a's layout at 4 codebooks a slot), per-read
     scaled r73 models and noisy events of random states, on `dev`."""
     rng = np.random.default_rng(seed)
     ops = convert.trans_ops(transitions.sparse_from_pairs(
@@ -173,7 +174,9 @@ def test_resident_forward_bit_equal_on_the_card(card, tmp_path):
     the 21-neighbour table of (0.14, 0.21) written as a TSV and loaded back
     (`-s`), lengths 0, 1, T-1 and T among the reads; viterbi_forward takes
     it for that table, one launch each; the streaming kernel gives the same
-    bits."""
+    bits.  The in-memory table of the same kinetics (17 log-probs in a
+    slot) takes the resident kernel at 4 codebooks a slot, and the
+    streaming one without its K6a layout, both bit-equal to plain."""
     lengths = [2048, 0, 1, 2047] + list(
         np.random.default_rng(4).integers(2, 2048, 12))
     _, model, ev = _k6_inputs(card, 16, 2048, lengths, 4)
@@ -197,15 +200,20 @@ def test_resident_forward_bit_equal_on_the_card(card, tmp_path):
         assert torch.equal(got, fa_p)
     assert torch.equal(bps_k, bps_p) and torch.equal(bps_g, bps_p)
     # the in-memory table of the same kinetics has 17 values in a slot:
-    # viterbi_forward takes the streaming kernel there
+    # viterbi_forward takes the resident kernel at 4 codebooks a slot
+    # there, and the streaming one on it without its K6a layout
     ops17, _, _ = _k6_inputs(card, 1, 1, [1], 4)
-    assert hmm.generic_forward_route(ops17) == "streaming"
+    assert hmm.generic_forward_route(ops17) == "resident"
+    assert hmm.resident_groups(ops17) == 4
     fa_p, bps_p = hmm.viterbi_forward_plain(ops17, model, ev, True)
-    n0 = hmm.generic_forward_path_kernel.launches
-    fa_g, bps_g = hmm.viterbi_forward(ops17, model, ev)
-    torch.cuda.synchronize()
-    assert hmm.generic_forward_path_kernel.launches == n0 + 1
-    assert torch.equal(fa_g, fa_p) and torch.equal(bps_g, bps_p)
+    for o, wrapper in ((ops17, hmm.resident_forward_path_kernel),
+                       (ops17._replace(from_packed=None, from_codebook=None),
+                        hmm.generic_forward_path_kernel)):
+        n0 = wrapper.launches
+        fa_g, bps_g = hmm.viterbi_forward(o, model, ev)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1
+        assert torch.equal(fa_g, fa_p) and torch.equal(bps_g, bps_p)
     # a NaN event in one read (the resident kernel tracks NaN from there)
     # and a +inf one starting another (alphas of -inf: every slot ties)
     ev["mean"][0, 100] = float("nan")
@@ -218,6 +226,46 @@ def test_resident_forward_bit_equal_on_the_card(card, tmp_path):
     for got in (fa_k, fa_s):
         assert torch.equal(got.view(torch.int32), fa_p.view(torch.int32))
     assert torch.equal(bps_k, bps_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_resident_forward_four_codebooks_on_the_card(card, tmp_path,
+                                                     inputs):
+    """K6a's resident kernel under the CLI priors' loaded table, whose
+    layout takes 4 codebooks a slot (a thread's codebooks those of its
+    block of 1024 states), path and score-only, bit-equal to its plain
+    version (final alpha as bits, backpointers) at 16 x 2048, lengths 0,
+    1, T-1 and T among the reads, one launch each through viterbi_forward;
+    the streaming kernel on the table without its layout gives the same
+    bits.  NaN: a NaN and a +inf event, and the table with a NaN in block
+    3's codebook."""
+    lengths = [2048, 0, 1, 2047] + list(
+        np.random.default_rng(5).integers(2, 2048, 12))
+    _, model, ev = _k6_inputs(card, 16, 2048, lengths, 5)
+    tables = {"priors": _loaded_ops(card, tmp_path, 0.1, 0.3)}
+    if inputs == "NaN":
+        ev["mean"][0, 100] = float("nan")
+        ev["mean"][5, 0] = float("inf")
+        tables["NaN in block 3"] = _nan_in_block3(card, tmp_path)
+    for name, ops in tables.items():
+        assert hmm.generic_forward_route(ops) == "resident"
+        assert hmm.resident_groups(ops) == 4
+        fa_p, bps_p = hmm.viterbi_forward_plain(ops, model, ev, True)
+        n0 = (hmm.resident_forward_path_kernel.launches,
+              hmm.resident_forward_score_kernel.launches)
+        fa_k, bps_k = hmm.viterbi_forward(ops, model, ev)
+        fa_s, _ = hmm.viterbi_forward(ops, model, ev, with_path=False)
+        bare = ops._replace(from_packed=None, from_codebook=None)
+        fa_g, bps_g = hmm.viterbi_forward(bare, model, ev)
+        torch.cuda.synchronize()
+        assert (hmm.resident_forward_path_kernel.launches,
+                hmm.resident_forward_score_kernel.launches) == (
+                    n0[0] + 1, n0[1] + 1), name
+        for got in (fa_k, fa_s, fa_g):
+            assert torch.equal(_bits(got), _bits(fa_p)), name
+        assert torch.equal(bps_k, bps_p) and torch.equal(bps_g, bps_p), name
+        assert torch.isnan(fa_p).any() == (inputs == "NaN"), name
 
 
 @pytest.mark.cuda
@@ -1071,13 +1119,52 @@ def test_traceback_slices_tensor_route_refuses_other_layouts(card):
     assert hmm.traceback_slices_kernel.launches == n0
 
 
+def _nan_in_block3(dev, tmp_path):
+    """The CLI priors' loaded table with a NaN log-prob at a state of block
+    3 (states 3072-4095) in a slot whose block holds room for it: its K6a
+    layout still takes 4 codebooks a slot, the NaN in block 3's codebook."""
+    path = tmp_path / "s_priors_nan.tsv"
+    transitions.save_tsv(transitions.build_structured(
+        transitions.TransitionParams(0.1, 0.3), 6), path)
+    st = transitions.load_tsv(str(path), 6)
+    lp = np.array(st.from_logp, np.float32)
+    k = next(k for k in range(lp.shape[0])
+             if len(np.unique(lp[k, 3072:].view(np.int32))) <= 15)
+    lp[k, 3500] = np.float32(np.nan)
+    ops = convert.trans_ops(transitions.SparseTransitions(
+        from_idx=st.from_idx, from_logp=lp, to_idx=st.to_idx,
+        to_logp=st.to_logp, K=6), dev)
+    assert hmm.resident_groups(ops) == 4
+    book = ops.from_codebook[3 * lp.shape[0] + k]
+    assert torch.isnan(book).any()
+    return ops
+
+
+def _mixed_batch_ops(dev, B: int):
+    """Per-read structured tables of four kinetics whose odd reads carry an
+    offset of g 2^-10 in block g of 1024 states: those reads need 4
+    codebooks a slot, the others one, so the batch packs at 4."""
+    params = np.array([[0.1, 0.3], [0.14, 0.21], [0.15, 0.2],
+                       [0.07, 0.35]])[np.arange(B) % 4]
+    flp, tlp = transitions.build_structured_batch(params, 6)
+    flp[1::2] += (np.arange(4096) // 1024 * 2.0 ** -10).astype(np.float32)
+    ops = convert.trans_ops_batch(flp, tlp, 6, dev)
+    assert hmm.resident_groups(ops) == 4
+    return ops
+
+
 def _generic_tables(dev, tmp_path, B: int) -> dict:
     """The tables the generic mesh decode is held under: {name: (ops, the
-    K6am form it takes)}: the loaded (0.14, 0.21) table (resident), the
-    CLI priors' loaded table (streaming), per-read structured tables of
+    K6am form it takes)}: the loaded (0.14, 0.21) table (resident, one
+    codebook a slot), the CLI priors' loaded table (resident at 4
+    codebooks a slot), it with a NaN in block 3's codebook (resident) and
+    without its packed layout (streaming), per-read structured tables of
     four kinetics (resident, per read), the same without their packed
-    layout (streaming, per read) and a random table of 25 slots
-    (streaming; K6bm reads its from_idx from global memory)."""
+    layout (streaming, per read), per-read tables of which half need 4
+    codebooks a slot (resident, per read, at 4), a random table of 25
+    slots (streaming; K6bm reads its from_idx from global memory) and a
+    random table of 16 log-probs a block of 1024 states but 17 in one
+    (streaming: no layout at 1 or 4 codebooks a slot)."""
     rng = np.random.default_rng(41)
     params = np.array([[0.1, 0.3], [0.14, 0.21], [0.15, 0.2],
                        [0.07, 0.35]])[np.arange(B) % 4]
@@ -1085,16 +1172,29 @@ def _generic_tables(dev, tmp_path, B: int) -> dict:
         *transitions.build_structured_batch(params, 6), 6, dev)
     idx = rng.integers(0, 4096, (25, 4096)).astype(np.int32)
     lp = np.log(rng.uniform(0.01, 1.0, (25, 4096))).astype(np.float32)
+    idx17, lp17 = random_block_table(rng, 21, 16, 4)
+    lp17[5, 3072 + int(np.argmax(lp17[5, 3072:]))] = np.float32(-1e-3)
+    priors = _loaded_ops(dev, tmp_path, 0.1, 0.3)
     return {
         "(0.14, 0.21)": (_loaded_ops(dev, tmp_path, 0.14, 0.21), "resident"),
-        "(0.1, 0.3)": (_loaded_ops(dev, tmp_path, 0.1, 0.3), "streaming"),
+        "(0.1, 0.3)": (priors, "resident"),
+        "(0.1, 0.3) NaN in block 3": (_nan_in_block3(dev, tmp_path),
+                                      "resident"),
+        "(0.1, 0.3) streaming": (priors._replace(from_packed=None,
+                                                 from_codebook=None),
+                                 "streaming"),
         "per-read": (batch, "resident"),
         "per-read streaming": (batch._replace(from_packed=None,
                                               from_codebook=None),
                                "streaming"),
+        "per-read at 4 codebooks": (_mixed_batch_ops(dev, B), "resident"),
         "random 25 slots": (convert.trans_ops(transitions.SparseTransitions(
             from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), dev),
             "streaming"),
+        "random 17 values in a block": (convert.trans_ops(
+            transitions.SparseTransitions(from_idx=idx17, from_logp=lp17,
+                                          to_idx=idx17, to_logp=lp17, K=6),
+            dev), "streaming"),
     }
 
 
@@ -1118,8 +1218,10 @@ def test_generic_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
     against their plain versions over the same ranks and against K6a + K6b
     (hmm.viterbi_decode), path and score-only, every output as bits, under
     _generic_tables' five tables, on clean reads of lengths 0, 1, T-1 and T
-    and on _nan_generic_inputs; K6am on its default path (a cluster a read
-    up to 8 ranks) and, forced by cluster=False, on its cooperative path;
+    and on _nan_generic_inputs (every table's K6a layout at 1 and at 4
+    codebooks a slot, each rank's cut holding its blocks' codebooks); K6am
+    on its default path (a cluster a read up to 8 ranks) and, forced by
+    cluster=False, on its cooperative path;
     one launch of K6am's form a row (one wave) and of K6bm a card, two
     rows of one table on the card walked in one launch; a row of one rank
     decodes by K6a + K6b.  Then K6bm alone on K6a's final alphas and
@@ -1143,6 +1245,7 @@ def test_generic_statepar_kernels_bit_equal_on_the_card(card, tmp_path,
     forms = [(1, None)] + [(M, c) for M in (2, 4, 8, 16)
                            for c in (None, False)]
     for name, (ops, form) in _generic_tables(card, tmp_path, B).items():
+        assert hmm.generic_forward_route(ops) == form, name
         for with_path in (True, False):
             ref = hmm.viterbi_decode(ops, model, ev, with_path=with_path)
             for M, cluster in forms:
@@ -1234,10 +1337,11 @@ def _generic_walks_both_routes(card, ops, model, ev, what) -> None:
 @pytest.mark.parametrize("inputs", ["clean", "NaN"])
 def test_per_read_forward_bit_equal_on_the_card(card, tmp_path, inputs):
     """K6a under per-read tables (a per-read stride in both kernels): the
-    resident kernel on the per-read packed layouts and the streaming one
-    without them, path and score-only, bit-equal to the plain version, and
-    K6b on its output; each read's path and logp equal to its decode
-    alone under its own table."""
+    resident kernel on the per-read packed layouts (at 1 codebook a slot,
+    and at 4 where half the reads need 4) and the streaming one without
+    them, path and score-only, bit-equal to the plain version, and K6b on
+    its output; each read's path and logp equal to its decode alone under
+    its own table."""
     T = 40
     if inputs == "clean":
         lengths = [T, 0, 1, T - 1, 17, T]
@@ -1245,7 +1349,7 @@ def test_per_read_forward_bit_equal_on_the_card(card, tmp_path, inputs):
     else:
         model, ev = _nan_generic_inputs(card, T)
     tables = _generic_tables(card, tmp_path, ev["length"].shape[0])
-    for name in ("per-read", "per-read streaming"):
+    for name in ("per-read", "per-read streaming", "per-read at 4 codebooks"):
         ops, route = tables[name]
         assert hmm.generic_forward_route(ops) == route
         for with_path in (True, False):

@@ -7,8 +7,10 @@ bits, a code into a 16-entry float32 codebook in the high 4) with G
 codebooks per slot, one per block of 4096 / G states, when every (slot,
 block) holds at most 16 distinct float32 bit patterns and deg fits one
 block's 232,448 B of shared memory beside two buffers of the gathered
-vector.  K6a takes the from side at G = 1 (hmm.MAX_RESIDENT_SLOTS = 24
-slots), K6c both sides at G = hmm.FWBW_GROUPS = 4
+vector.  K6a takes the from side at the fewest G of hmm.RESIDENT_GROUPS
+that packs it (G = 1: hmm.MAX_RESIDENT_SLOTS = 24 slots; G = 4: 23; the
+CLI priors' loaded table takes G = 4, tests/test_torch_packed_groups.py),
+K6c both sides at G = hmm.FWBW_GROUPS = 4
 (hmm.MAX_FWBW_RESIDENT_SLOTS = 23).  The layout must give back the indices
 and log-probs bit for bit (tolerance 0, -inf padding and NaN by their bit
 patterns), and which kernel runs on the card is a function of the table
@@ -54,7 +56,7 @@ def loaded21(tmp_path_factory):
 @pytest.fixture(scope="module")
 def loaded_priors(tmp_path_factory):
     """The loaded table of the CLI priors (0.1, 0.3): 17 log-probs in some
-    slots, so no K6a layout at G = 1."""
+    slots, so no K6a layout at G = 1 (K6a takes it at G = 4)."""
     return _loaded(tmp_path_factory, 0.1, 0.3)
 
 
@@ -243,8 +245,11 @@ def test_kernel_source_states_the_layout():
                            "viterbi_generic.cu")) as fh:
         src = fh.read()
     assert f"constexpr int CODES = {hmm.RESIDENT_CODES};" in src
-    assert "const int smem = 2 * N * 4 + deg * (CODES * 4 + N * 2);" in src
+    assert ("const int smem = 2 * N * 4 + deg * (groups * CODES * 4 + N * "
+            "2);") in src
     assert hmm.resident_smem_bytes(21) == 2 * N * 4 + 21 * (16 * 4 + N * 2)
+    assert hmm.resident_smem_bytes(21, groups=4) == 2 * N * 4 + 21 * (
+        4 * 16 * 4 + N * 2)
 
 
 # K6c's layout: FWBW_GROUPS codebooks per slot, both sides --------------------
@@ -279,9 +284,11 @@ def test_fwbw_layout_rebuilds_both_sides(table, request):
     fewer = [hmm.pack_slots(*sides[s], 2, hmm.MAX_FWBW_RESIDENT_SLOTS)
              for s in sides]
     assert (None in fewer) == (table == "loaded_priors")
-    # the priors' table has no K6a layout (17 log-probs in a slot)
-    assert hmm.generic_forward_route(ops) == (
-        "streaming" if table == "loaded_priors" else "resident")
+    # both have a K6a layout: the priors' table at 4 codebooks a slot (17
+    # log-probs in a slot), the other at one
+    assert hmm.generic_forward_route(ops) == "resident"
+    assert hmm.resident_groups(ops) == (
+        4 if table == "loaded_priors" else 1)
 
 
 @pytest.mark.parametrize("case", ["loaded", "random 24 x 16",
@@ -492,8 +499,9 @@ def test_from_state_table_equals_from_idx(loaded21, loaded_priors):
     """convert.trans_ops gives K6b's uint16 from-state table, equal to
     from_idx, to the structured 21-slot table, the loaded tables of
     (0.14, 0.21) and of the CLI priors (whose slots hold 17 log-probs, so
-    K6a's layout misses it) and a random table of 24 slots of random
-    log-probs: it holds no log-prob, so every table that small has it."""
+    K6a's one-codebook layout misses it) and a random table of 24 slots of
+    random log-probs: it holds no log-prob, so every table that small has
+    it."""
     rng = np.random.default_rng(22)
     idx = rng.integers(0, N, (24, N)).astype(np.int32)
     lp = np.log(rng.uniform(0.01, 1.0, (24, N))).astype(np.float32)
@@ -501,7 +509,8 @@ def test_from_state_table_equals_from_idx(loaded21, loaded_priors):
               "(0.14, 0.21)": convert.trans_ops(loaded21, CPU),
               "priors": convert.trans_ops(loaded_priors, CPU),
               "random 24 slots": convert.trans_ops(_sparse(idx, lp), CPU)}
-    assert tables["priors"].from_packed is None
+    assert hmm.resident_groups(tables["priors"]) == hmm.FWBW_GROUPS
+    assert tables["random 24 slots"].from_packed is None
     for what, ops in tables.items():
         st = ops.from_states
         assert st is not None, what

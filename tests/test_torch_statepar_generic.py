@@ -33,7 +33,8 @@ CPU = torch.device("cpu")
 MESHES = [(1, 1), (1, 2), (1, 4), (2, 2), (4, 2)]
 #: the tables: the structured (21, n) table of (0.14, 0.21) (resident
 #: layout), it loaded from a TSV (resident), the CLI priors' loaded table
-#: (17 log-probs in some slots: streaming), a random table of 25 slots
+#: (17 log-probs in some slots: resident at 4 codebooks a slot, each rank
+#: cut to its blocks' codebooks), a random table of 25 slots
 #: (streaming; no from-state table for K6bm's ring) and per-read
 #: structured tables
 TABLES = ("structured", "loaded", "priors", "random25", "per-read")
@@ -108,7 +109,9 @@ def test_table_routes():
 
 def test_loaded_table_routes(tmp):
     assert hmm.generic_forward_route(_table("loaded", tmp)) == "resident"
-    assert hmm.generic_forward_route(_table("priors", tmp)) == "streaming"
+    assert hmm.generic_forward_route(_table("priors", tmp)) == "resident"
+    assert hmm.resident_groups(_table("loaded", tmp)) == 1
+    assert hmm.resident_groups(_table("priors", tmp)) == hmm.FWBW_GROUPS
     assert _table("priors", tmp).from_states is not None
 
 

@@ -2,7 +2,8 @@
 """Time the port's decode and pipeline on one NVIDIA GPU at main-path shapes.
 
     python3 tools/torch_decode_times.py [--B 128] [--T 8192] [--reads 256]
-                                        [--train] [--trans FILE] [--profile]
+                                        [--train] [--trans FILE]
+                                        [--trans-only] [--profile]
                                         [--long 100000] [--em] [--census]
                                         [--k4-launches] [--walks]
                                         [--custom] [--em-mesh]
@@ -23,7 +24,10 @@
    (streaming and, in a tree that has it, the ring: streaming, ring, ring,
    streaming) on K6a's output as drawn and with every length T, bit-equal
    to each other, with the rows the ring streams and their time at 3.35
-   TB/s.  For each kernel: its
+   TB/s (a tree that gives the table no K6a layout, as before K6a took 4
+   codebooks a slot under the CLI priors' table: its streaming kernels
+   alone, time_k6a_streaming; --trans-only: K6a and K6b without K1, K2 and
+   K3).  For each kernel: its
    bound, its achieved
    float32 operations per second (roofline.kernel_shares: its count
    over its time) and that rate's share of the H100's 67 TFLOP/s and of
@@ -123,7 +127,8 @@ With --generic-mesh, also the generic decode on the mesh's state axis
 K6bm) at the path chunk (chip_smoke.pooled_inputs, 128 reads x 8192
 events) on (1, 2), (1, 4), (2, 2) and (1, 8) meshes of one card, and at
 16 x 8192 on (1, 8), under the loaded tables of (0.14, 0.21) (K6am's
-resident form) and of the CLI priors (0.1, 0.3) (its streaming form):
+resident form) and of the CLI priors (0.1, 0.3) (its resident form at 4
+codebooks a slot; before that layout, its streaming form):
 K6am's device time a path decode (CUDA events around each launch, the
 stream held first, as chip_smoke.launch_spans: torch.profiler drops
 cooperative launches; GENERIC_MESH_REPS decodes), its launches and µs a
@@ -202,6 +207,9 @@ def main() -> int:
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--trans", default="", metavar="FILE",
                     help="run under this transitions table (-s FILE)")
+    ap.add_argument("--trans-only", action="store_true",
+                    help="with --trans, phase 1 times K6a and K6b alone "
+                         "(no K1, K2, K3)")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--long", type=int, default=0)
     ap.add_argument("--em", action="store_true")
@@ -276,14 +284,21 @@ def main() -> int:
               f"[{card}]", flush=True)
         gt, model, ev = chip_smoke.kernel_inputs(
             models, device, args.B, args.T, np.random.default_rng(11))
-        recs = chip_smoke.check_kernels(gt, model, ev)
+        only = args.trans_only and table is not None
+        recs = {} if only else chip_smoke.check_kernels(gt, model, ev)
         if table is not None:
             from nanocall_tpu_torch import convert
 
-            recs.update(chip_smoke.check_generic_kernels(
-                convert.trans_ops(table, device), model, ev,
-                sample=chip_smoke.smi_line))
-            for name in chip_smoke.K6A:
+            ops = convert.trans_ops(table, device)
+            if hmm.generic_forward_route(ops) == "resident":
+                recs.update(chip_smoke.check_generic_kernels(
+                    ops, model, ev, sample=chip_smoke.smi_line))
+                k6a = chip_smoke.K6A
+            else:
+                k6a = time_k6a_streaming(ops, model, ev, recs)
+            print(f"K6a under {args.trans}: this tree's route "
+                  f"{hmm.generic_forward_route(ops)} [{card}]", flush=True)
+            for name in k6a:
                 r = recs[name]
                 turns = ", ".join(f"{ms:.3f} ms [{smi}]" for ms, smi in
                                   zip(r["ms_turns"], r["samples"]))
@@ -300,16 +315,17 @@ def main() -> int:
                   f"{100 * sh['share_of_f32_spec']:.2f}% of 67 TFLOP/s, "
                   f"{100 * sh['share_of_k8_peak']:.2f}% of the measured K8 "
                   f"peak {peak / 1e12:.3f} TFLOP/s [{card}]", flush=True)
-        time_chunk_and_probe_nan(models, device, card)
-        decode_s = (recs["viterbi_forward_path"]["ms"]
-                    + recs["viterbi_traceback"]["ms"]) / 1e3
-        rep = roofline.mfu_report(args.B, args.T, 4096, decode_s, peak)
-        print(f"mfu_report decode (K1 + K2) B={args.B} T={args.T}: "
-              f"{decode_s * 1e3:.3f} ms, "
-              f"{rep['achieved_vpu_ops_per_s'] / 1e12:.3f} TFLOP/s, "
-              f"{100 * rep['mfu_vs_h100_f32_spec']:.2f}% of 67 TFLOP/s, "
-              f"{100 * rep['mfu_vs_measured_fma_peak']:.2f}% of the "
-              f"measured K8 peak [{card}]", flush=True)
+        if not only:
+            time_chunk_and_probe_nan(models, device, card)
+            decode_s = (recs["viterbi_forward_path"]["ms"]
+                        + recs["viterbi_traceback"]["ms"]) / 1e3
+            rep = roofline.mfu_report(args.B, args.T, 4096, decode_s, peak)
+            print(f"mfu_report decode (K1 + K2) B={args.B} T={args.T}: "
+                  f"{decode_s * 1e3:.3f} ms, "
+                  f"{rep['achieved_vpu_ops_per_s'] / 1e12:.3f} TFLOP/s, "
+                  f"{100 * rep['mfu_vs_h100_f32_spec']:.2f}% of 67 TFLOP/s, "
+                  f"{100 * rep['mfu_vs_measured_fma_peak']:.2f}% of the "
+                  f"measured K8 peak [{card}]", flush=True)
         del gt, model, ev
         torch.cuda.empty_cache()
 
@@ -462,6 +478,35 @@ def main() -> int:
                   f"identity {ident:.3f}; launches {launched()} [{card}]",
                   flush=True)
     return 0
+
+
+def time_k6a_streaming(ops, model, ev, recs: dict) -> tuple:
+    """K6a's streaming kernels (path and score-only) under a table to which
+    the tree gives no K6a layout, bit-equal to the plain version and timed
+    in turns (path, score, score, path) with the card's nvidia-smi line
+    beside each time, into recs; returns their names."""
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    names = ("viterbi_generic_forward_path", "viterbi_generic_forward_score")
+    plain = {n: chip_smoke.cuda_ms_once(lambda w=(n == names[0]):
+                                        hmm.viterbi_forward_plain(
+                                            ops, model, ev, w))
+             for n in names}
+    for n in names:
+        got = chip_smoke.k6a_call(n, ops, model, ev)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], plain[n][1][0]), n
+        if got[1] is not None:
+            assert torch.equal(got[1], plain[n][1][1]), n
+    timed = chip_smoke.time_in_turns(
+        {n: (lambda n=n: chip_smoke.k6a_call(n, ops, model, ev))
+         for n in names}, sample=chip_smoke.smi_line)
+    for n in names:
+        recs[n] = {**timed[n], "plain_ms": plain[n][0],
+                   "max_abs_err": 0.0}
+    return names
 
 
 def run_turns(other: str) -> int:
@@ -1274,9 +1319,14 @@ def time_generic_mesh(models, device, card: str) -> None:
                     rounds = launches
                     extra = ""
                     if path == "cluster" and hmm.wave_cluster(M, False):
+                        # a tree whose K6a layout takes several codebooks a
+                        # slot: the rank's cut holds those of its blocks
+                        groups = ({"groups": max(1, W * hmm.resident_groups(
+                            ops) // 4096)} if form == "resident" and hasattr(
+                                hmm, "resident_groups") else {})
                         blocks = hmm.generic_wave_resident(
                             device, True, False, form == "resident", deg, W,
-                            cluster=True)
+                            cluster=True, **groups)
                         rounds = D * -(-b // (blocks // M))
                         extra = (f", {blocks / sms:.2f} blocks an SM, "
                                  f"{blocks // M} reads at once")

@@ -36,7 +36,8 @@ runs covered):
 4. decodes the same chunk's events and scaled models under the loaded
    21-neighbour table of (0.14, 0.21) (chip_smoke.load_trans_table: K6am's
    resident form, K6bm's from-state table) and under the CLI priors'
-   table (K6am's streaming form) through
+   table (resident at 4 codebooks a slot, and without its K6a layout:
+   K6am's streaming form) through
    statepar.viterbi_decode_placed on parallel.mesh.shard_decode_inputs'
    placement on the same meshes: path and logp bit-equal to K6a + K6b on
    cuda:0 (hmm.viterbi_decode), one K6am launch a wave and card (its
@@ -216,8 +217,10 @@ def run_mesh(models, cards, card_line: str) -> dict:
 
 def run_generic_mesh(models, cards, card_line: str) -> dict:
     """Phase 4: the generic decode on the state axis across cards, under
-    the loaded table (K6am's resident form) and the priors' table (its
-    streaming form), each mesh's decode warm and then timed."""
+    the loaded table (K6am's resident form, one codebook a slot), the
+    priors' table (resident, 4 codebooks a slot) and the priors' table
+    without its K6a layout (its streaming form), each mesh's decode warm
+    and then timed."""
     import numpy as np
     import torch
 
@@ -230,10 +233,12 @@ def run_generic_mesh(models, cards, card_line: str) -> dict:
                                     np.random.default_rng(2030))
     model = hmm.make_scaled_model_arrays(args[5], args[6], args[7])
     ev = basecall.pooled_ev_batch(*args[:5], args[9])
+    priors = chip_smoke.load_trans_table(
+        cards[0], chip_smoke.PRIORS_P_STAY, chip_smoke.PRIORS_P_SKIP,
+        "trans_priors.tsv")[2]
     tables = {"loaded": chip_smoke.load_trans_table(cards[0])[2],
-              "priors'": chip_smoke.load_trans_table(
-                  cards[0], chip_smoke.PRIORS_P_STAY,
-                  chip_smoke.PRIORS_P_SKIP, "trans_priors.tsv")[2]}
+              "priors'": priors,
+              "priors' streaming": chip_smoke.without_layout(priors)}
 
     def wall(fn):
         torch.cuda.synchronize()
@@ -259,9 +264,9 @@ def run_generic_mesh(models, cards, card_line: str) -> dict:
             kernels.reset_launches()
             first, got = wall(lambda: statepar.viterbi_decode_placed(*placed))
             waves = sum(len(statepar.plan_waves(B // D, row, {
-                d: hmm.generic_wave_resident(d, True, True,
-                                             form == "resident", 21,
-                                             4096 // M)
+                d: hmm.generic_wave_resident(
+                    d, True, True, form == "resident", 21, 4096 // M,
+                    groups=chip_smoke.rank_groups(ops, M))
                 for d in row})[row[0]]) * len(set(row))
                 for row in grid.devices)
             assert (wrapper.launches,
