@@ -393,6 +393,21 @@ PER_READ_FWBW = {
     "fwbw_custom_resident_per_read": ("fwbw_custom", "resident",
                                       "fwbw_custom_resident"),
 }
+#: the streaming K6c and K6e checked alone: reads and events, and the slot
+#: counts of its random tables (one slot, the loaded tables' 21, more than
+#: the resident layout's 23)
+B_STREAM, T_STREAM = 11, 40
+STREAM_DEGS = (1, 21, 40)
+#: the streaming instances by name: (function, per-read tables)
+STREAM_FWBW = {"fwbw_generic": ("fwbw", False),
+               "fwbw_generic_per_read": ("fwbw", True),
+               "fwbw_custom": ("fwbw_custom", False),
+               "fwbw_custom_per_read": ("fwbw_custom", True)}
+#: kernels the trained run under the loaded table must launch with K6c's
+#: packed layout taken away (the streaming K6c for the rows at the priors)
+TRANS_TRAINED_STREAMING_KERNELS = ("fwbw_forward", "fwbw_grouped_backward",
+                                   "fwbw_generic", "viterbi_forward_path",
+                                   "viterbi_traceback")
 #: kernels each host's half of the multi-host emulation must launch (its
 #: reads may hold no contest, so no score-only chunk)
 HOST_KERNELS = ("viterbi_forward_path", "viterbi_traceback")
@@ -1893,6 +1908,23 @@ def random_table_ops(device, deg: int, seed: int):
         from_idx=idx, from_logp=lp, to_idx=idx, to_logp=lp, K=6), device)
 
 
+def random_stream_ops(device, deg: int, seed: int, reads: int = 0):
+    """random_table_ops' table (no packed layout of any kind) with, reads >
+    0, per-read (reads, deg, 4096) log-probs of its own on both sides over
+    its slot maps, made from a numpy seed."""
+    import numpy as np
+
+    from nanocall_tpu_torch import convert
+
+    ops = random_table_ops(device, deg, seed)
+    if not reads:
+        return ops
+    rng = np.random.default_rng(seed + 1)
+    lp = [convert.tensor(np.log(rng.uniform(0.01, 1.0, (reads, deg, 4096)))
+                         .astype(np.float32), device) for _ in range(2)]
+    return ops._replace(from_logp=lp[0], to_logp=lp[1])
+
+
 def nan_block3_ops(table, device):
     """TransOps of the loaded table `table` (a SparseTransitions) with a NaN
     log-prob at state 3500 (block 3 of 1024 states) of the first slot whose
@@ -2108,6 +2140,74 @@ def check_custom_kernel(ops, model, ev) -> dict:
         r.update(plain_ms=plain_ms["clean"], max_abs_err=max(
             v for k, v in errs.items() if k[0] == name))
     return with_shape(recs, ev)
+
+
+def check_stream_kernels(models, device, card: str) -> dict:
+    """The streaming K6c and K6e, each of the four instances (STREAM_FWBW)
+    against its plain version on the card: B_STREAM reads of T_STREAM
+    events (lengths 0, 1, 2, T - 1 and T among them), under random tables
+    of STREAM_DEGS slots (random_stream_ops: one table; per read, each
+    read's own log-probs), clean and on nan_fwbw_inputs' copy (NaN events,
+    a +inf event, a NaN model entry): every output as bits, tolerance 0,
+    written between guard rows that no block may touch.
+    Returns {name: max |kernel - plain|}."""
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    wrappers = {k: getattr(hmm, f"{k}_kernel") for k in STREAM_FWBW}
+    _, model, ev = kernel_inputs(models, device, B_STREAM, T_STREAM,
+                                 np.random.default_rng(31))
+    ev = {k: v.clone() for k, v in ev.items()}
+    T = T_STREAM
+    ev["length"][:6] = ev["length"].new_tensor([T, 0, 1, 2, T - 1, T])
+    B = B_STREAM
+    errs = {name: 0.0 for name in STREAM_FWBW}
+    for deg in STREAM_DEGS:
+        tables = {False: random_stream_ops(device, deg, 40 + deg),
+                  True: random_stream_ops(device, deg, 40 + deg, B)}
+        for what, (m, e) in (("clean", (model, ev)), ("NaN", nan_fwbw_inputs(
+                model, ev, (6, 7, 8)))):
+            for name, (fn, per) in STREAM_FWBW.items():
+                ops = tables[per]
+                assert hmm.fwbw_route(ops) == "streaming"
+                want = (hmm.fwbw_plain if fn == "fwbw"
+                        else hmm.fwbw_custom_plain)(ops, m, e)
+                if what == "NaN":
+                    key = "gamma" if fn == "fwbw_custom" else "alpha"
+                    assert torch.isnan(want[key][6]).any(), (name, deg)
+                alloc = "_custom_outputs" if fn == "fwbw_custom" \
+                    else "_fwbw_outputs"
+                bufs = {k: torch.full((B + 2, *v.shape[1:]), GUARD,
+                                      dtype=torch.int32, device=device)
+                        .view(torch.float32) for k, v in want.items()}
+                out = {k: v[1:B + 1] for k, v in bufs.items()}
+                orig = getattr(hmm, alloc)
+                setattr(hmm, alloc, lambda *_: out)
+                try:
+                    got = wrappers[name](ops, m, e)
+                finally:
+                    setattr(hmm, alloc, orig)
+                torch.cuda.synchronize()
+                case = f"{name} at {deg} slots, {what}"
+                assert got is out, case
+                for k in want:
+                    assert torch.equal(bits(got[k]), bits(want[k])), \
+                        f"{case}: {k} differs from plain"
+                    errs[name] = max(errs[name], max_err(got[k], want[k]))
+                for k, v in bufs.items():
+                    for row in (0, B + 1):
+                        assert bool((v[row].view(torch.int32)
+                                     == GUARD).all()), \
+                            f"{case}: {k}'s guard row {row} was written"
+                del got, out, bufs, want
+    for name, e in errs.items():
+        print(f"kernel {name} (streaming): B={B} T={T} under random "
+              f"tables of {STREAM_DEGS} slots, clean and NaN: bit-equal to "
+              f"plain, guard rows untouched; max |kernel - plain| {e} "
+              f"[{card}]")
+    return errs
 
 
 def max_err(a, b) -> float:
@@ -3432,6 +3532,32 @@ def k6am_spills() -> dict:
     return out
 
 
+def stream_ptxas() -> dict:
+    """{streaming instance (STREAM_FWBW's names): {"registers", "spill_
+    stores"}} from ptxas' report in the build log of this process (empty
+    when the library was built before)."""
+    from nanocall_tpu_torch.ops import _cuda
+
+    functions = {f"{name}_kernel".replace("_per_read_kernel",
+                                          "_batch_kernel"): name
+                 for name in STREAM_FWBW}
+    out, name = {}, None
+    for line in _cuda.build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = next((n for f, n in functions.items()
+                         if re.search(rf"\d{f}E", m.group(1))), None)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name] = {"spill_stores": int(m.group(1))}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
 def k6am_instances(census: dict) -> dict:
     """The kernels line's list of K6am's instances, by form
     ({"viterbi_generic_wave_resident" / "_streaming": [{"instance" (the
@@ -4048,6 +4174,36 @@ def run_trans_streaming(models, reads, device, trans,
     return r
 
 
+def run_trans_trained_streaming(models, reads, device, trans) -> dict:
+    """The trained run under the loaded table `trans` again, its TransOps
+    built without K6c's packed layout (convert.trans_ops wrapped for the
+    run): the legacy EM round's rows at the priors take the streaming K6c
+    (fwbw_generic, never fwbw_resident), and the FASTA is byte-equal to the
+    resident run's (trained_trans, the run before).  Returns the run's
+    result."""
+    from unittest import mock
+
+    from nanocall_tpu_torch import convert
+
+    make = convert.trans_ops
+
+    def bare(table, dev):
+        return make(table, dev)._replace(fwbw_packed=None)
+
+    with mock.patch.object(convert, "trans_ops", bare):
+        r = run_end_to_end(models, reads, device, True,
+                           TRANS_TRAINED_STREAMING_KERNELS, trans,
+                           tag="trained_trans_streaming")
+    assert r["launches"]["fwbw_resident"] == 0, \
+        "the trained run without K6c's layout launched fwbw_resident"
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    with open(os.path.join(out, "trained_trans.fa"), "rb") as a, \
+            open(os.path.join(out, "trained_trans_streaming.fa"), "rb") as b:
+        assert a.read() == b.read(), \
+            "the trained run's FASTA differs under the streaming K6c"
+    return r
+
+
 def run_sharded(models, reads, device, card: str) -> dict:
     """The untrained and the trained runs of the reads again over a data
     sharder of two shards on the one card (DataSharder(devices=[cuda:0,
@@ -4221,6 +4377,10 @@ def main() -> int:
               f"{c['local']} local loads and stores; ptxas: "
               f"{spills.get(name, 'not in this build log')} bytes of spill "
               f"stores")
+    stream_regs = stream_ptxas()
+    for name, r in stream_regs.items():
+        print(f"kernel {name} (streaming), ptxas: {r['registers']} "
+              f"registers, {r['spill_stores']} bytes of spill stores")
     print(f"K6b ring SASS, its walk loop: {census['K6b ring walk']} (no "
           f"global load; the path's stores)")
     for name, loops in census["K6c resident"].items():
@@ -4429,6 +4589,10 @@ def main() -> int:
                                       np.random.default_rng(2030))
     recs.update(per_read_fwbw["recs"])
     print(f"per-read fwbw phase: {time.perf_counter() - t0:.1f} s")
+    stamp("the streaming K6c and K6e under random tables")
+    t0 = time.perf_counter()
+    stream = check_stream_kernels(models, device, card)
+    print(f"streaming fwbw phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     em.update(check_em_statepar(inp, card))
     print(f"EM state-axis phase: {time.perf_counter() - t0:.1f} s")
@@ -4446,6 +4610,9 @@ def main() -> int:
               f"plain; {r['ms']:.3f} ms{turns} vs plain {r['plain_ms']:.3f} "
               f"ms [{card}]")
     recs.update(em)
+    for name, e in stream.items():
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], e)
+        recs[name].update(stream_regs.get(name, {}))
     torch.cuda.empty_cache()
     em_s = (em["fwbw_forward"]["ms"] + em["em_backward"]["ms"]) / 1e3
     for against, pk in (("the measured K8 peak at the EM chunk",
@@ -4481,6 +4648,11 @@ def main() -> int:
               priors_trained, card)
     for r in (trans_trained, priors_trained):
         assert r["launches"]["fwbw_generic"] == 0, r["launches"]
+    trans_trained_streaming = run_trans_trained_streaming(
+        models, reads, device, trans)
+    print_run("trained under the loaded table without K6c's layout "
+              "(the streaming K6c; FASTA byte-equal)",
+              trans_trained_streaming, card)
     trans_untrained = run_end_to_end(models, reads, device, False,
                                      TRANS_UNTRAINED_KERNELS, trans)
     for k in ("viterbi_generic_forward_path", "viterbi_generic_forward_score",
@@ -4543,6 +4715,7 @@ def main() -> int:
     stamp("the kernels line")
     runs = {"untrained": untrained["launches"], "trained": trained["launches"],
             "trained_trans": trans_trained["launches"],
+            "trained_trans_streaming": trans_trained_streaming["launches"],
             "trained_trans_priors": priors_trained["launches"],
             "untrained_trans": trans_untrained["launches"],
             "untrained_trans_streaming": trans_streaming["launches"],

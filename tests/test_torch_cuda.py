@@ -1454,6 +1454,90 @@ def test_per_read_fwbw_bit_equal_on_the_card(card, inputs, monkeypatch):
                     (what, b, k)
 
 
+def _random_stream_ops(dev, deg: int, seed: int, reads: int = 0):
+    """A table of `deg` slots a side of random states and log-probs (no
+    packed layout: the streaming K6c and K6e take it), from a numpy seed;
+    with reads > 0, per-read (reads, deg, n) log-probs over its slot
+    maps."""
+    rng = np.random.default_rng(seed)
+    lead = (reads,) if reads else ()
+    sides = []
+    for _ in range(2):
+        idx = rng.integers(0, 4096, (deg, 4096)).astype(np.int32)
+        lp = np.log(rng.uniform(0.01, 1.0, (*lead, deg, 4096))).astype(
+            np.float32)
+        sides.append((idx, lp))
+    (fi, fl), (ti, tl) = sides
+    ops = convert.trans_ops(transitions.SparseTransitions(
+        from_idx=fi, from_logp=fl[0] if reads else fl, to_idx=ti,
+        to_logp=tl[0] if reads else tl, K=6), dev)
+    if reads:
+        ops = ops._replace(from_logp=convert.tensor(fl, dev),
+                           to_logp=convert.tensor(tl, dev))
+    assert hmm.fwbw_route(ops) == "streaming"
+    return ops
+
+
+#: the streaming K6c and K6e: their one-table and per-read wrappers, the
+#: plain version and the function that allocates the outputs
+STREAM_FWBW = {
+    "fwbw": (hmm.fwbw_generic_kernel, hmm.fwbw_generic_per_read_kernel,
+             hmm.fwbw_plain, "_fwbw_outputs"),
+    "fwbw_custom": (hmm.fwbw_custom_kernel, hmm.fwbw_custom_per_read_kernel,
+                    hmm.fwbw_custom_plain, "_custom_outputs"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_streaming_fwbw_bit_equal_on_the_card(card, inputs, monkeypatch):
+    """The streaming K6c and K6e, one table and per read, through
+    hmm.fwbw and hmm.fwbw_custom: B = 11 reads of lengths 0, 1, 2, T-1, T
+    and others, under random tables of 1, 21 and 40 slots, clean and with
+    NaN events in one read from its middle on, a +inf event in another
+    and a NaN model entry at one state of a third: every output bit-equal
+    to the plain version, written into buffers between guard rows, which
+    the kernel leaves as they were; one launch counted on the instance's
+    wrapper."""
+    T = 24
+    lengths = [T, 0, 1, 2, T - 1, T, T, 5, T, 13, T]
+    B = len(lengths)
+    _, model, ev = _k6_inputs(card, B, T, lengths, 71)
+    if inputs == "NaN":
+        _nan_fwbw_events(ev, (5, 6))
+        model.level_mean[8, 99] = float("nan")
+    for deg in (1, 21, 40):
+        for per_read in (False, True):
+            ops = _random_stream_ops(card, deg, 80 + deg, B if per_read else 0)
+            for fn, (one, per, plain, alloc) in STREAM_FWBW.items():
+                wrapper = per if per_read else one
+                what = (fn, deg, per_read, inputs)
+                want = plain(ops, model, ev)
+                if inputs == "NaN":
+                    k = "gamma" if fn == "fwbw_custom" else "alpha"
+                    assert torch.isnan(want[k][5]).any(), what
+                bufs = {k: torch.full((B + 2, *v.shape[1:]), POISON,
+                                      dtype=torch.int32,
+                                      device=card).view(torch.float32)
+                        for k, v in want.items()}
+                out = {k: v[1:B + 1] for k, v in bufs.items()}
+                n0 = wrapper.launches
+                with monkeypatch.context() as m:
+                    m.setattr(hmm, alloc, lambda *_: out)
+                    got = getattr(hmm, fn)(ops, model, ev)
+                torch.cuda.synchronize()
+                assert got is out, what
+                assert wrapper.launches == n0 + 1, what
+                for k in want:
+                    assert torch.equal(_bits(got[k]), _bits(want[k])), \
+                        (what, k)
+                for k, v in bufs.items():
+                    for row in (0, B + 1):
+                        assert bool((v[row].view(torch.int32)
+                                     == POISON).all()), \
+                            (what, k, f"guard row {row} written")
+
+
 def _train_batch(dev, G: int, T: int, nan: bool, seed: int):
     """A training batch of G groups of 4 rows on `dev` (the r73 pair of
     models, events of random states of the scaled models, varied scaling

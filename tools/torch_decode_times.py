@@ -9,6 +9,7 @@
                                         [--custom] [--em-mesh]
                                         [--legacy-mesh]
                                         [--generic-mesh] [--slice-walks]
+                                        [--stream] [--no-fwbw-layout]
                                         [--tree DIR | --turns DIR]
 
 1. K8, the measured float32 peak at the decode's shape
@@ -149,6 +150,21 @@ timed in turns (ring, walk, walk, ring; CUDA events around SLICE_WALK_REPS
 calls), bit-equal; in a tree whose wrappers take a route, the copies route
 forced too.  It runs in any tree that has the state axis's walks (PR 16
 on), so that two designs are timed in turns (--turns).
+With --stream, also the streaming K6c and K6e (time_stream): K6c at 512
+x 128 and 1 x 4000, K6e at 16 x 2048 and 1 x 4000
+(chip_smoke.kernel_inputs), under the loaded table of (0.14, 0.21)
+without its packed layout, under a seeded random 21-slot table
+(chip_smoke.random_table_ops), and under per-read tables
+(chip_smoke.per_read_tables without their layout: the per-read
+instances); CUDA events around STREAM_REPS calls, a digest of every
+output's bits (equal digests: equal outputs, across trees too), ptxas'
+registers and spill of the four streaming instances (from the build log
+of a fresh build, where the tree's smoke reads it), and the table bytes
+each block reads from L2 (2 (T - 1) (deg_from + deg_to) slot rows of
+int32 states and float32 log-probs, 32 KB each, a read).
+With --no-fwbw-layout, the pipeline run's TransOps lose K6c's packed layout
+(convert.trans_ops wrapped): with --trans FILE --train, the legacy EM
+round's rows at the priors take the streaming K6c.
 With --train --k4-launches, also K4 on the inputs of each of its launches
 in one more trained pipeline run: milliseconds per launch.  Phase 1 also
 times K3's forward chunk (events [8192, 16384) of 4 reads, chunks of 8192)
@@ -236,6 +252,11 @@ def main() -> int:
     ap.add_argument("--slice-walks", action="store_true",
                     help="time K6bm and K2m against K6b's and K2's rings "
                          "at 128 x 8192")
+    ap.add_argument("--stream", action="store_true",
+                    help="time the streaming K6c and K6e")
+    ap.add_argument("--no-fwbw-layout", action="store_true",
+                    help="the pipeline run's tables without K6c's packed "
+                         "layout")
     ap.add_argument("--tree", default="", metavar="DIR",
                     help="run on the checkout in DIR")
     ap.add_argument("--turns", default="", metavar="DIR",
@@ -349,6 +370,16 @@ def main() -> int:
 
     if args.slice_walks:
         time_slice_walks(models, device, card)
+
+    if args.stream:
+        time_stream(models, device, card)
+
+    if args.no_fwbw_layout:
+        from nanocall_tpu_torch import convert
+
+        make = convert.trans_ops
+        convert.trans_ops = lambda table, dev: make(table, dev)._replace(
+            fwbw_packed=None)
 
     cfg = chip_smoke.smoke_config(*([] if args.train else ["--no-train"]),
                                   *trans_flags)
@@ -1854,6 +1885,68 @@ def time_custom(models, device, card: str) -> None:
         del model, ev
         torch.cuda.empty_cache()
 
+
+#: time_stream's cases: (function, B, T, tables), the tables among
+#: "loaded" (the (0.14, 0.21) table without its packed layout), "random"
+#: (a seeded random 21-slot table) and "per read" (per-read structured
+#: tables without their layout)
+STREAM_CASES = (("fwbw", 512, 128, ("loaded", "random", "per read")),
+                ("fwbw", 1, 4000, ("loaded", "random")),
+                ("fwbw_custom", 16, 2048, ("loaded", "per read")),
+                ("fwbw_custom", 1, 4000, ("loaded", "per read")))
+STREAM_REPS = 3
+
+
+def time_stream(models, device, card: str) -> None:
+    """The streaming K6c and K6e at STREAM_CASES (module docstring,
+    --stream)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from nanocall_tpu_torch.ops import hmm
+
+    # ptxas' registers and spill, where the tree's smoke reads them
+    for name, r in getattr(chip_smoke, "stream_ptxas", dict)().items():
+        print(f"ptxas {name}: {r} [{card}]", flush=True)
+    loaded = chip_smoke.load_trans_table(device)[2]._replace(
+        fwbw_packed=None)
+    random21 = chip_smoke.random_table_ops(device, 21, 21)
+    for fn, B, T, names in STREAM_CASES:
+        _, model, ev = chip_smoke.kernel_inputs(
+            models, device, max(B, 4), T, np.random.default_rng(19))
+        if B < 4:
+            model = hmm.ModelArrays(*(x[:B].contiguous() for x in model))
+            ev = {k: v[:B].contiguous() for k, v in ev.items()}
+        tables = {"loaded": loaded, "random": random21}
+        if "per read" in names:
+            tables["per read"] = chip_smoke.per_read_tables(
+                device, B, np.random.default_rng(23))[0]._replace(
+                    fwbw_packed=None)
+        wrapper = (hmm.fwbw_generic_kernel if fn == "fwbw"
+                   else hmm.fwbw_custom_kernel)
+        for name in names:
+            ops = tables[name]
+            deg = ops.from_idx.shape[0] + ops.to_idx.shape[0]
+
+            def call():
+                return wrapper(ops, model, ev)
+
+            out = call()
+            torch.cuda.synchronize()
+            digest = hashlib.sha1(b"".join(
+                out[k].contiguous().view(torch.int32).cpu().numpy()
+                .tobytes() for k in sorted(out))).hexdigest()[:12]
+            del out
+            ms = chip_smoke.cuda_ms(call, STREAM_REPS)
+            # every block reads each slot's two 16 KB rows twice a step
+            l2 = 2 * (T - 1) * deg * 32768 * B
+            print(f"stream {fn} {name} B={B} T={T}: {ms:.3f} ms; outputs "
+                  f"{digest}; table bytes read from L2 {l2 / 1e9:.3f} GB "
+                  f"[{card}]", flush=True)
+        del model, ev, tables
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     sys.exit(main())
