@@ -2084,7 +2084,8 @@ def check_custom_kernel(ops, model, ev) -> dict:
     """K6e's two kernels against their plain version on the same card:
     alpha, beta and gamma bit-equal (tolerance 0, compared as bits).  The
     resident kernel (which hmm.fwbw_custom takes under the loaded table:
-    its <21> instance) and the streaming one on the inputs, on
+    its <21> instance) and the streaming one (the one-card split, which
+    ignores the packed layout) on the inputs, on
     nan_fwbw_inputs' copies of them (NaN events, a +inf event, a NaN model
     entry) and on edge_length_inputs' (reads of length 0, 1 and 2 first,
     every kernel's outputs between guard rows); the resident kernel's <0>
@@ -2143,14 +2144,15 @@ def check_custom_kernel(ops, model, ev) -> dict:
 
 
 def check_stream_kernels(models, device, card: str) -> dict:
-    """The streaming K6c and K6e, each of the four instances (STREAM_FWBW)
-    against its plain version on the card: B_STREAM reads of T_STREAM
-    events (lengths 0, 1, 2, T - 1 and T among them), under random tables
-    of STREAM_DEGS slots (random_stream_ops: one table; per read, each
-    read's own log-probs), clean and on nan_fwbw_inputs' copy (NaN events,
-    a +inf event, a NaN model entry): every output as bits, tolerance 0,
-    written between guard rows that no block may touch.
-    Returns {name: max |kernel - plain|}."""
+    """The streaming K6c and K6e (the one-card split), each of the four
+    instances (STREAM_FWBW) in every form the route takes (each S of
+    hmm.FWBW_SPLIT_STATES) against its plain version on the card: B_STREAM
+    reads of T_STREAM events (lengths 0, 1, 2, T - 1 and T among them),
+    under random tables of STREAM_DEGS slots (random_stream_ops: one
+    table; per read, each read's own log-probs), clean and on
+    nan_fwbw_inputs' copy (NaN events, a +inf event, a NaN model entry):
+    every output as bits, tolerance 0, written between guard rows that no
+    block may touch.  Returns {name: max |kernel - plain|}."""
     import numpy as np
     import torch
 
@@ -2179,34 +2181,37 @@ def check_stream_kernels(models, device, card: str) -> dict:
                     assert torch.isnan(want[key][6]).any(), (name, deg)
                 alloc = "_custom_outputs" if fn == "fwbw_custom" \
                     else "_fwbw_outputs"
-                bufs = {k: torch.full((B + 2, *v.shape[1:]), GUARD,
-                                      dtype=torch.int32, device=device)
-                        .view(torch.float32) for k, v in want.items()}
-                out = {k: v[1:B + 1] for k, v in bufs.items()}
-                orig = getattr(hmm, alloc)
-                setattr(hmm, alloc, lambda *_: out)
-                try:
-                    got = wrappers[name](ops, m, e)
-                finally:
-                    setattr(hmm, alloc, orig)
-                torch.cuda.synchronize()
-                case = f"{name} at {deg} slots, {what}"
-                assert got is out, case
-                for k in want:
-                    assert torch.equal(bits(got[k]), bits(want[k])), \
-                        f"{case}: {k} differs from plain"
-                    errs[name] = max(errs[name], max_err(got[k], want[k]))
-                for k, v in bufs.items():
-                    for row in (0, B + 1):
-                        assert bool((v[row].view(torch.int32)
-                                     == GUARD).all()), \
-                            f"{case}: {k}'s guard row {row} was written"
-                del got, out, bufs, want
+                for S in hmm.FWBW_SPLIT_STATES:
+                    bufs = {k: torch.full((B + 2, *v.shape[1:]), GUARD,
+                                          dtype=torch.int32, device=device)
+                            .view(torch.float32) for k, v in want.items()}
+                    out = {k: v[1:B + 1] for k, v in bufs.items()}
+                    orig = getattr(hmm, alloc)
+                    setattr(hmm, alloc, lambda *_: out)
+                    try:
+                        got = wrappers[name](ops, m, e, S)
+                    finally:
+                        setattr(hmm, alloc, orig)
+                    torch.cuda.synchronize()
+                    case = f"{name} (S = {S}) at {deg} slots, {what}"
+                    assert got is out, case
+                    for k in want:
+                        assert torch.equal(bits(got[k]), bits(want[k])), \
+                            f"{case}: {k} differs from plain"
+                        errs[name] = max(errs[name],
+                                         max_err(got[k], want[k]))
+                    for k, v in bufs.items():
+                        for row in (0, B + 1):
+                            assert bool((v[row].view(torch.int32)
+                                         == GUARD).all()), \
+                                f"{case}: {k}'s guard row {row} was written"
+                    del got, out, bufs
+                del want
     for name, e in errs.items():
-        print(f"kernel {name} (streaming): B={B} T={T} under random "
-              f"tables of {STREAM_DEGS} slots, clean and NaN: bit-equal to "
-              f"plain, guard rows untouched; max |kernel - plain| {e} "
-              f"[{card}]")
+        print(f"kernel {name} (streaming, the one-card split): B={B} T={T} "
+              f"under random tables of {STREAM_DEGS} slots, clean and NaN, "
+              f"S = {hmm.FWBW_SPLIT_STATES}: bit-equal to plain, guard rows "
+              f"untouched; max |kernel - plain| {e} [{card}]")
     return errs
 
 
@@ -3073,8 +3078,9 @@ def run_per_read_fwbw(models, device, card: str, inp, trans_ops,
     Then each instance timed in turns with its one-table twin (the loaded
     table `trans_ops`, or it without its packed layout) on the same
     events: K6c at the EM chunk, K6e at 16 x 2048 and at one read of
-    TOOLS_EVENTS (run-fwbw's).  Returns {"launches": the path's counts,
-    "recs": {kernel name: record}}."""
+    TOOLS_EVENTS (run-fwbw's; there each instance and its twin against
+    the plain version too, as bits).  Returns {"launches": the path's
+    counts, "recs": {kernel name: record}}."""
     import numpy as np
     import torch
 
@@ -3181,6 +3187,20 @@ def run_per_read_fwbw(models, device, card: str, inp, trans_ops,
                  "one_table_ms": turns[twin]["ms"],
                  "one_table_ms_turns": turns[twin]["ms_turns"],
                  "shape": [B, T]}
+            if what == "1 read":
+                # held against the plain version at this shape too, the
+                # instance and its one-table twin
+                plain = getattr(hmm, f"{fn}_plain")
+                r["max_abs_err"] = 0.0
+                for w, o in ((name, ops), (twin, trans_ops)):
+                    got = wrappers[w](form(o, f), m, e)
+                    want = plain(form(o, f), m, e)
+                    for k in want:
+                        assert torch.equal(bits(got[k]), bits(want[k])), \
+                            f"{w} {k} differs from plain ({what})"
+                        r["max_abs_err"] = max(r["max_abs_err"],
+                                               max_err(got[k], want[k]))
+                    del got, want
             bound = roofline.kernel_bound(name, B, T)
             print(f"kernel {name} (per-read {f} "
                   f"{'K6c' if fn == 'fwbw' else 'K6e'}): B={B} T={T} "
@@ -3533,29 +3553,34 @@ def k6am_spills() -> dict:
 
 
 def stream_ptxas() -> dict:
-    """{streaming instance (STREAM_FWBW's names): {"registers", "spill_
-    stores"}} from ptxas' report in the build log of this process (empty
-    when the library was built before)."""
+    """{streaming instance (STREAM_FWBW's names): [{"states", "registers",
+    "spill_stores"}] of its forms (csrc/fwbw_split.cu fwbw_split_kernel<
+    FORM, S, BATCH>: FORM 1 K6c, 2 K6e)} from ptxas' report in the build
+    log of this process (empty when the library was built before)."""
     from nanocall_tpu_torch.ops import _cuda
 
-    functions = {f"{name}_kernel".replace("_per_read_kernel",
-                                          "_batch_kernel"): name
-                 for name in STREAM_FWBW}
-    out, name = {}, None
+    names = {(1, 0): "fwbw_generic", (1, 1): "fwbw_generic_per_read",
+             (2, 0): "fwbw_custom", (2, 1): "fwbw_custom_per_read"}
+    out, cur = {}, None
     for line in _cuda.build_log.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
+        m = re.search(r"Function properties for \S*fwbw_split_kernelILi(\d)"
+                      r"ELi(\d)ELb(\d)E", line)
         if m:
-            name = next((n for f, n in functions.items()
-                         if re.search(rf"\d{f}E", m.group(1))), None)
+            form, states, batch = map(int, m.groups())
+            cur = {"states": states}
+            out.setdefault(names[form, batch], []).append(cur)
+            continue
+        if "Function properties for" in line:
+            cur = None
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            out[name] = {"spill_stores": int(m.group(1))}
+        if m and cur is not None:
+            cur["spill_stores"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out[name]["registers"] = int(m.group(1))
-            name = None
-    return out
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return {k: sorted(v, key=lambda r: r["states"]) for k, v in out.items()}
 
 
 def k6am_instances(census: dict) -> dict:
@@ -4321,10 +4346,13 @@ def main() -> int:
     print(card)
     t_main = time.perf_counter()
 
+    phases = []
+
     def stamp(what: str) -> None:
         """The seconds since the card line, before a phase: where a run's
         time goes, against the time limit."""
-        print(f"[{time.perf_counter() - t_main:.1f} s] {what}", flush=True)
+        phases.append((what, time.perf_counter()))
+        print(f"[{phases[-1][1] - t_main:.1f} s] {what}", flush=True)
     nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout
     print(f"device: {torch.cuda.get_device_name(0)} x"
@@ -4378,9 +4406,12 @@ def main() -> int:
               f"{spills.get(name, 'not in this build log')} bytes of spill "
               f"stores")
     stream_regs = stream_ptxas()
-    for name, r in stream_regs.items():
-        print(f"kernel {name} (streaming), ptxas: {r['registers']} "
-              f"registers, {r['spill_stores']} bytes of spill stores")
+    for name, insts in stream_regs.items():
+        for r in insts:
+            print(f"kernel {name} (streaming, the one-card split, "
+                  f"{r['states']} states a thread), ptxas: "
+                  f"{r.get('registers')} registers, "
+                  f"{r.get('spill_stores')} bytes of spill stores")
     print(f"K6b ring SASS, its walk loop: {census['K6b ring walk']} (no "
           f"global load; the path's stores)")
     for name, loops in census["K6c resident"].items():
@@ -4393,12 +4424,6 @@ def main() -> int:
             print(f"K6e resident SASS ({name}), {what} time loop (its state "
                   f"loop counted once): {lp}; {lp['bar']} block barriers, "
                   f"no slot-table byte from global memory")
-    for what, marker in (
-            ("K6c streaming", "fwbw_generic_kernel"),
-            ("K6c streaming per read", "fwbw_generic_batch_kernel"),
-            ("K6e streaming", "fwbw_custom_kernel"),
-            ("K6e streaming per read", "fwbw_custom_batch_kernel")):
-        print(f"{what} SASS: {step_loop_sass(marker)}")
 
     stamp("models, tables and the decode kernels at 16 x 2048")
     models = cli.init_models(smoke_config())
@@ -4612,7 +4637,8 @@ def main() -> int:
     recs.update(em)
     for name, e in stream.items():
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], e)
-        recs[name].update(stream_regs.get(name, {}))
+        if name in stream_regs:
+            recs[name]["instances"] = stream_regs[name]
     torch.cuda.empty_cache()
     em_s = (em["fwbw_forward"]["ms"] + em["em_backward"]["ms"]) / 1e3
     for against, pk in (("the measured K8 peak at the EM chunk",
@@ -4713,6 +4739,10 @@ def main() -> int:
           f"{long['identity_mean']:.3f}")
 
     stamp("the kernels line")
+    spans = [("the build and the SASS census", phases[0][1] - t_main)] + [
+        (a[0], b[1] - a[1]) for a, b in zip(phases, phases[1:])]
+    print("phase seconds: " + "; ".join(f"{w} {sec:.1f}" for w, sec in spans)
+          + f" (of {phases[-1][1] - t_main:.1f} s)")
     runs = {"untrained": untrained["launches"], "trained": trained["launches"],
             "trained_trans": trans_trained["launches"],
             "trained_trans_streaming": trans_trained_streaming["launches"],

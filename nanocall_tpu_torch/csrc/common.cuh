@@ -180,48 +180,6 @@ __device__ __forceinline__ void end_argmax(const float* w_best,
   warp_argmax(best, idx);
 }
 
-// lse over the deg slots of lp[k, j] + x[idx[k, j]] for the thread's 4
-// states (idx / lp point at the thread's column of slot 0 of a (deg, n)
-// table; x in shared memory), in ops/hmm.py logsumexp_slots' order:
-//   m = max over k (NaN-propagating); safe = isfinite(m) ? m : 0
-//   s = sum over k = 0, 1, .., deg-1 (in that order) of exp(v[k] - safe)
-//   lse = isfinite(m) ? safe + log(s) : m
-// The table is read twice, once for the max and once for the sum, so that
-// the sum runs in the plain version's order (K6c and K6e).
-__device__ __forceinline__ void lse_slots(const int4* idx, const float4* lp,
-                                          int deg, const float* x,
-                                          float (&out)[4]) {
-  float m[4];
-  for (int k = 0; k < deg; ++k) {
-    const int4 iv = __ldg(idx + (size_t)k * N4);
-    const float4 lv = __ldg(lp + (size_t)k * N4);
-    const int id[4] = {iv.x, iv.y, iv.z, iv.w};
-    const float l[4] = {lv.x, lv.y, lv.z, lv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float v = l[i] + x[id[i]];
-      m[i] = k == 0 ? v : amax(m[i], v);
-    }
-  }
-  float safe[4], s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) safe[i] = isfinite(m[i]) ? m[i] : 0.0f;
-  for (int k = 0; k < deg; ++k) {
-    const int4 iv = __ldg(idx + (size_t)k * N4);
-    const float4 lv = __ldg(lp + (size_t)k * N4);
-    const int id[4] = {iv.x, iv.y, iv.z, iv.w};
-    const float l[4] = {lv.x, lv.y, lv.z, lv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float e = expf((l[i] + x[id[i]]) - safe[i]);
-      s[i] = k == 0 ? e : s[i] + e;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    out[i] = isfinite(m[i]) ? safe[i] + logf(s[i]) : m[i];
-}
-
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }

@@ -1,10 +1,11 @@
 // K6e: per-step-normalized forward-backward under a loaded transition table
-// (the dev tool `run-fwbw --custom-fwbw`), in two kernels chosen by the
-// table (the streaming and the resident one, ops/hmm.py fwbw_route).
+// (the dev tool `run-fwbw --custom-fwbw`), the resident kernel (a table
+// with K6c's packed layout, ops/hmm.py fwbw_route).  A table that streams
+// takes the one-card split (fwbw_split.cu).
 //
 // Replaces nanocall_tpu/ops/hmm.py fwbw_custom (Forward_Backward_Custom.hpp,
 // with log_emission inlined), two lax.scan bodies that XLA compiled for the
-// TPU.  With lse(v) the slot log-sum-exp of K6c (common.cuh lse_slots) and
+// TPU.  With lse(v) the slot log-sum-exp of K6c (fwbw_generic.cu) and
 //   norm(x) = x - (m + log(s)),  m = max over the n = 4096 states of x
 //             (NaN-propagating, no -inf guard),  s = sum of exp(x - m) as
 //             the pairwise tree of ops/hmm.py tree_sum,
@@ -19,21 +20,12 @@
 // for t = T-2 .. 0.  alpha, beta and gamma (B, T, n) are stored for every t,
 // alpha_t as computed also past the read's length.
 //
-// Both kernels: one block per read, 1024 threads, both passes in one launch
-// with the time loops inside the block; the gathered vector (beta forward,
-// gamma - alpha backward) lives in shared memory; em(t) is computed per
-// step from the 6 model rows held in registers (K6e has no em output).
-// The backward reads alpha_{t+1} and beta_t back from the outputs: each
-// thread reads only the states it stored, so they need no barrier.
-//
-// The streaming kernel (fwbw_custom_kernel; 4 contiguous states a thread)
-// takes any table of 1..256 slots and reads the int32 / float32 slot tables
-// from L2 by lse_slots, twice per step.  norm adds two block reductions per
-// forward step, the max and the tree sum, each over the 32 warps' partials
-// in shared memory; every warp reduces the partials itself, so each
-// reduction costs one barrier.  What bounds it: per step, 2 x deg x 32 KB
-// of table reads from L2 per read (177 ms at 16 reads x 2048 events on an
-// NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py).
+// One block per read, 1024 threads, both passes in one launch with the
+// time loops inside the block; the gathered vector (beta forward, gamma -
+// alpha backward) lives in shared memory; em(t) is computed per step from
+// the 6 model rows held in registers (K6e has no em output).  The backward
+// reads alpha_{t+1} and beta_t back from the outputs: each thread reads
+// only the states it stored, so they need no barrier.
 //
 // The resident kernel (fwbw_custom_resident_kernel) is K6c's resident
 // design (resident_slots.cuh: the layout of ops/hmm.py pack_fwbw_sides, 4
@@ -73,14 +65,14 @@
 // tools/torch_decode_times.py --custom, NVIDIA H100 80GB HBM3, 700 W, in
 // turns.)
 //
-// Per-read tables (ops/hmm.py make_trans_ops_batch): as K6c's kernels
-// (fwbw_generic.cu), each kernel has a second instance (*_batch_kernel)
-// whose block b takes its read's own log-probs (streaming) or packed
-// layout and codebooks (resident) of both sides; from_idx / to_idx are
-// every read's, and the one-table instances compile as before.
+// Per-read tables (ops/hmm.py make_trans_ops_batch): as K6c's resident
+// kernel (fwbw_generic.cu), the kernel has a second instance
+// (fwbw_custom_resident_batch_kernel) whose block b takes its read's own
+// packed layout and codebooks of both sides; from_idx / to_idx are every
+// read's, and the one-table instances compile as before.
 //
 // Build with -fmad=false: every float operation then rounds on its own, as
-// each elementwise PyTorch op does, so both kernels are bit-identical to
+// each elementwise PyTorch op does, so the kernel is bit-identical to
 // fwbw_custom_plain in nanocall_tpu_torch/ops/hmm.py on the card.
 
 #include "device_guard.cuh"
@@ -89,185 +81,6 @@
 namespace {
 
 using namespace nc;
-
-// norm(x) over the block's 4096 states, for the thread's 4 of them; sMax and
-// sSum hold the warps' partial maxima and sums.  Every thread must call it.
-__device__ __forceinline__ void block_norm(const float (&x)[4],
-                                           float (&out)[4], float* sMax,
-                                           float* sSum, int lane, int warp) {
-  const float wm = warp_amax(amax(amax(x[0], x[1]), amax(x[2], x[3])));
-  if (lane == 0) sMax[warp] = wm;
-  __syncthreads();
-  const float m = warp_amax(sMax[lane]);
-  float e[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) e[i] = expf(x[i] - m);
-  const float ws = warp_tree_sum(quad_sum(e));
-  if (lane == 0) sSum[warp] = ws;
-  __syncthreads();
-  const float s = __shfl_sync(FULL, warp_tree_sum(sSum[lane]), 0);
-  const float c = m + logf(s);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) out[i] = x[i] - c;
-}
-
-// K6e's streaming body, inlined into its two kernels.  kBatch: per-read
-// slot log-probs, from_logp / to_logp (B, deg, N), of which read b takes
-// its own (deg, N) tables; from_idx / to_idx (deg, N) are every read's.
-template <bool kBatch>
-__device__ __forceinline__ void fwbw_custom_body(
-    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
-    const float* __restrict__ ev_log_stdv,
-    const int32_t* __restrict__ length, int B, int T, int deg_from,
-    const int32_t* __restrict__ from_idx,
-    const float* __restrict__ from_logp, int deg_to,
-    const int32_t* __restrict__ to_idx, const float* __restrict__ to_logp,
-    const float* __restrict__ level_mean,
-    const float* __restrict__ level_stdv,
-    const float* __restrict__ log_level_stdv,
-    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
-    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
-    float* __restrict__ alphas, float* __restrict__ betas,
-    float* __restrict__ gammas) {
-  __shared__ float sx[N];
-  __shared__ float sMax[WARPS];
-  __shared__ float sSum[WARPS];
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const size_t row = (size_t)b * N + 4 * tid;
-
-  float r_lm[4], r_ls[4], r_lls[4], r_sm[4], r_slam[4], r_lsl[4];
-  unpack4(r_lm, load4(level_mean + row));
-  unpack4(r_ls, load4(level_stdv + row));
-  unpack4(r_lls, load4(log_level_stdv + row));
-  unpack4(r_sm, load4(sd_mean + row));
-  unpack4(r_slam, load4(sd_lambda + row));
-  unpack4(r_lsl, load4(log_sd_lambda + row));
-  const int4* fidx = reinterpret_cast<const int4*>(from_idx) + tid;
-  const float4* flp = reinterpret_cast<const float4*>(from_logp) + tid +
-                      (kBatch ? (size_t)b * deg_from * N4 : 0);
-  const int4* tidx = reinterpret_cast<const int4*>(to_idx) + tid;
-  const float4* tlp = reinterpret_cast<const float4*>(to_logp) + tid +
-                      (kBatch ? (size_t)b * deg_to * N4 : 0);
-  const float* evm = ev_mean + (size_t)b * T;
-  const float* evs = ev_stdv + (size_t)b * T;
-  const float* evl = ev_log_stdv + (size_t)b * T;
-  const int len = length[b];
-  // (b, t, 4 tid) of a (B, T, n) output
-  auto at = [&](float* base, int t) {
-    return base + ((size_t)b * T + t) * N + 4 * tid;
-  };
-  auto em_at = [&](int t, float (&em)[4]) {
-    const float x = evm[t], y = evs[t], ly = evl[t];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      em[i] = emission(x, y, ly, r_lm[i], r_ls[i], r_lls[i], r_sm[i],
-                       r_slam[i], r_lsl[i], log2pi);
-  };
-
-  // forward: a = alpha_t, bt = beta_t (the carry)
-  float a[4], bt[4], em[4], x[4];
-  em_at(0, em);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    a[i] = -log_n;
-    x[i] = em[i] + a[i];
-  }
-  block_norm(x, bt, sMax, sSum, lane, warp);
-  store4(at(alphas, 0), a);
-  store4(at(betas, 0), bt);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) sx[4 * tid + i] = bt[i];
-  __syncthreads();
-  for (int t = 1; t < T; ++t) {
-    lse_slots(fidx, flp, deg_from, sx, a);
-    em_at(t, em);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = em[i] + a[i];
-    float nb[4];
-    // its barriers also order every thread's gathers from sx before the
-    // stores into sx below
-    block_norm(x, nb, sMax, sSum, lane, warp);
-    if (t < len) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) bt[i] = nb[i];
-    }
-    store4(at(alphas, t), a);
-    store4(at(betas, t), bt);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sx[4 * tid + i] = bt[i];
-    __syncthreads();
-  }
-
-  // backward: gm = gamma_t, from gamma_{T-1} = beta_{T-1}
-  float gm[4] = {bt[0], bt[1], bt[2], bt[3]};
-  store4(at(gammas, T - 1), gm);
-  for (int t = T - 2; t >= 0; --t) {
-    float an[4], bb[4];
-    unpack4(an, *reinterpret_cast<const float4*>(at(alphas, t + 1)));
-    unpack4(bb, *reinterpret_cast<const float4*>(at(betas, t)));
-    __syncthreads();  // the previous step's gathers from sx are done
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sx[4 * tid + i] = gm[i] - an[i];
-    __syncthreads();
-    float r[4];
-    lse_slots(tidx, tlp, deg_to, sx, r);
-    const bool last = t >= len - 1;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) gm[i] = last ? bb[i] : bb[i] + r[i];
-    store4(at(gammas, t), gm);
-  }
-}
-
-// The streaming K6e under one table for every read.
-__global__ void __launch_bounds__(THREADS, 1)
-fwbw_custom_kernel(const float* __restrict__ ev_mean,
-                   const float* __restrict__ ev_stdv,
-                   const float* __restrict__ ev_log_stdv,
-                   const int32_t* __restrict__ length, int B, int T,
-                   int deg_from, const int32_t* __restrict__ from_idx,
-                   const float* __restrict__ from_logp, int deg_to,
-                   const int32_t* __restrict__ to_idx,
-                   const float* __restrict__ to_logp,
-                   const float* __restrict__ level_mean,
-                   const float* __restrict__ level_stdv,
-                   const float* __restrict__ log_level_stdv,
-                   const float* __restrict__ sd_mean,
-                   const float* __restrict__ sd_lambda,
-                   const float* __restrict__ log_sd_lambda, float log2pi,
-                   float log_n, float* __restrict__ alphas,
-                   float* __restrict__ betas, float* __restrict__ gammas) {
-  fwbw_custom_body<false>(
-      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
-      from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
-      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
-      alphas, betas, gammas);
-}
-
-// The streaming K6e under per-read log-probs (B, deg, N).
-__global__ void __launch_bounds__(THREADS, 1)
-fwbw_custom_batch_kernel(
-    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
-    const float* __restrict__ ev_log_stdv,
-    const int32_t* __restrict__ length, int B, int T, int deg_from,
-    const int32_t* __restrict__ from_idx,
-    const float* __restrict__ from_logp, int deg_to,
-    const int32_t* __restrict__ to_idx, const float* __restrict__ to_logp,
-    const float* __restrict__ level_mean,
-    const float* __restrict__ level_stdv,
-    const float* __restrict__ log_level_stdv,
-    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
-    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
-    float* __restrict__ alphas, float* __restrict__ betas,
-    float* __restrict__ gammas) {
-  fwbw_custom_body<true>(
-      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
-      from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
-      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
-      alphas, betas, gammas);
-}
 
 // norm(x) of the resident mapping (the thread's states 1024 i + tid):
 // the max, then the four blocks' pairwise trees of exp(x - m), each over
@@ -529,31 +342,6 @@ fwbw_custom_resident_batch_kernel(
 }
 
 }  // namespace
-
-// Plain C entry for ctypes.  per_read: from_logp / to_logp (B, deg, N),
-// read b's tables its own (from_idx / to_idx are every read's).  Returns
-// cudaGetLastError() after the launch.
-extern "C" int nc_fwbw_custom(
-    const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
-    const int32_t* length, int B, int T, int deg_from,
-    const int32_t* from_idx, const float* from_logp, int deg_to,
-    const int32_t* to_idx, const float* to_logp, const float* level_mean,
-    const float* level_stdv, const float* log_level_stdv,
-    const float* sd_mean, const float* sd_lambda, const float* log_sd_lambda,
-    float log2pi, float log_n, float* alphas, float* betas, float* gammas,
-    int per_read, int device, void* stream) {
-  const nc::DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return (int)guard.err;
-  if (B > 0 && T > 0) {
-    auto kernel = per_read ? fwbw_custom_batch_kernel : fwbw_custom_kernel;
-    kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
-        from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
-        log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
-        alphas, betas, gammas);
-  }
-  return (int)cudaGetLastError();
-}
 
 // The resident kernel: each side's `packed` (deg, N) uint16 and `book`
 // (deg, GROUPS * CODES) float32 as ops/hmm.py pack_fwbw_sides lays them

@@ -1,5 +1,7 @@
 // K6c: exact log-space forward-backward under a loaded transition table,
-// in two kernels chosen by the table (the streaming and the resident one).
+// the resident kernel (a table with K6c's packed layout; ops/hmm.py
+// fwbw_route).  A table that streams takes the one-card split
+// (fwbw_split.cu).
 //
 // Replaces nanocall_tpu/ops/hmm.py fwbw (+ _logsumexp_slots and
 // log_emission, inlined), two lax.scan bodies that XLA compiled for the
@@ -19,19 +21,9 @@
 // log_pr_data = mfin + log(sum_j exp(final[j] - mfin)), the sum as the
 // pairwise tree of ops/hmm.py tree_sum.
 //
-// Both kernels: one block per read, 1024 threads x 4 states, both passes
-// in one launch with the time loops inside the block; the gathered vector
-// (alpha forward, g backward) lives in shared memory.
-//
-// The streaming kernel (fwbw_generic_kernel; 4 contiguous states a thread)
-// takes any table of 1..256
-// slots and reads the int32 / float32 slot tables from L2 (int4 + float4 per
-// slot and thread, coalesced over the states), twice per step, once for the
-// max and once for the sum (common.cuh lse_slots), with two barriers a step
-// around one gathered vector.  The 6 scaled-model tables sit in registers
-// and the backward recomputes em(t+1) from them (the same bits as the
-// stored em).  What bounds it: per step, 2 x deg x 32 KB of table reads from
-// L2 per read (about 4 TB/s of L2 over the card: L2-bound).
+// One block per read, 1024 threads x 4 states, both passes in one launch
+// with the time loops inside the block; the gathered vector (alpha
+// forward, g backward) lives in shared memory.
 //
 // The resident kernel (fwbw_resident_kernel) holds a whole side's table in
 // shared memory; its layout, side copy and slot arithmetic are
@@ -73,19 +65,16 @@
 // expf and the sums).  Only B of the 132 SMs work when B < 132.
 //
 // Per-read tables (ops/hmm.py make_trans_ops_batch, JAX's
-// make_trans_ops_batch: read b runs under its own kinetics): each kernel
-// has a second instance (*_batch_kernel) whose block b takes its read's
-// own (deg, N) log-probs of both sides (streaming) or packed layout and
-// codebooks of both sides (resident), at b deg N (b deg GROUPS CODES)
-// from the start of the (B, ...) tables; from_idx / to_idx are every
-// read's.  The bodies are shared and inlined, so the one-table instances
-// compile as before.  What it changes: the resident kernels copy each
-// side once a pass, as before, from distinct addresses; the streaming
-// kernels' blocks no longer share one table in L2 (132 blocks x 344 KB of
-// log-probs a side is about the L2's 50 MB).
+// make_trans_ops_batch: read b runs under its own kinetics): the kernel
+// has a second instance (fwbw_resident_batch_kernel) whose block b takes
+// its read's own packed layout and codebooks of both sides, at b deg N (b
+// deg GROUPS CODES) from the start of the (B, ...) tables; from_idx /
+// to_idx are every read's.  The body is shared and inlined, so the
+// one-table instances compile as before; each side is copied once a pass,
+// as before, from distinct addresses.
 //
 // Build with -fmad=false: every float operation then rounds on its own, as
-// each elementwise PyTorch op does, so both kernels are bit-identical to
+// each elementwise PyTorch op does, so the kernel is bit-identical to
 // fwbw_plain in nanocall_tpu_torch/ops/hmm.py on the card.
 
 #include "device_guard.cuh"
@@ -94,176 +83,6 @@
 namespace {
 
 using namespace nc;
-
-// K6c's streaming body, inlined into its two kernels.  kBatch: per-read
-// slot log-probs, from_logp / to_logp (B, deg, N), of which read b takes
-// its own (deg, N) tables; from_idx / to_idx (deg, N) are every read's.
-template <bool kBatch>
-__device__ __forceinline__ void fwbw_generic_body(
-    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
-    const float* __restrict__ ev_log_stdv,
-    const int32_t* __restrict__ length, int B, int T, int deg_from,
-    const int32_t* __restrict__ from_idx,
-    const float* __restrict__ from_logp, int deg_to,
-    const int32_t* __restrict__ to_idx, const float* __restrict__ to_logp,
-    const float* __restrict__ level_mean,
-    const float* __restrict__ level_stdv,
-    const float* __restrict__ log_level_stdv,
-    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
-    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
-    float* __restrict__ alphas, float* __restrict__ betas,
-    float* __restrict__ ems, float* __restrict__ lpd) {
-  __shared__ float sx[N];
-  __shared__ float sMax[WARPS];
-  __shared__ float sSum[WARPS];
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const size_t row = (size_t)b * N + 4 * tid;
-
-  float r_lm[4], r_ls[4], r_lls[4], r_sm[4], r_slam[4], r_lsl[4];
-  unpack4(r_lm, load4(level_mean + row));
-  unpack4(r_ls, load4(level_stdv + row));
-  unpack4(r_lls, load4(log_level_stdv + row));
-  unpack4(r_sm, load4(sd_mean + row));
-  unpack4(r_slam, load4(sd_lambda + row));
-  unpack4(r_lsl, load4(log_sd_lambda + row));
-  const int4* fidx = reinterpret_cast<const int4*>(from_idx) + tid;
-  const float4* flp = reinterpret_cast<const float4*>(from_logp) + tid +
-                      (kBatch ? (size_t)b * deg_from * N4 : 0);
-  const int4* tidx = reinterpret_cast<const int4*>(to_idx) + tid;
-  const float4* tlp = reinterpret_cast<const float4*>(to_logp) + tid +
-                      (kBatch ? (size_t)b * deg_to * N4 : 0);
-  const float* evm = ev_mean + (size_t)b * T;
-  const float* evs = ev_stdv + (size_t)b * T;
-  const float* evl = ev_log_stdv + (size_t)b * T;
-  const int len = length[b];
-  // (b, t, 4 tid) of a (B, T, n) output
-  auto at = [&](float* base, int t) {
-    return base + ((size_t)b * T + t) * N + 4 * tid;
-  };
-  auto em_at = [&](int t, float (&em)[4]) {
-    const float x = evm[t], y = evs[t], ly = evl[t];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      em[i] = emission(x, y, ly, r_lm[i], r_ls[i], r_lls[i], r_sm[i],
-                       r_slam[i], r_lsl[i], log2pi);
-  };
-
-  // forward
-  float a[4], em[4];
-  em_at(0, em);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    a[i] = em[i] - log_n;
-    sx[4 * tid + i] = a[i];
-  }
-  store4(at(alphas, 0), a);
-  store4(at(ems, 0), em);
-  __syncthreads();
-  for (int t = 1; t < T; ++t) {
-    float r[4];
-    lse_slots(fidx, flp, deg_from, sx, r);
-    em_at(t, em);
-    if (t < len) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = em[i] + r[i];
-    }
-    store4(at(alphas, t), a);
-    store4(at(ems, t), em);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sx[4 * tid + i] = a[i];
-    __syncthreads();
-  }
-
-  // log_pr_data of the final alpha
-  {
-    const float mx = warp_amax(amax(amax(a[0], a[1]), amax(a[2], a[3])));
-    if (lane == 0) sMax[warp] = mx;
-    __syncthreads();
-    float mfin = sMax[0];
-#pragma unroll 8
-    for (int w = 1; w < WARPS; ++w) mfin = amax(mfin, sMax[w]);
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = expf(a[i] - mfin);
-    const float ws = warp_tree_sum(quad_sum(v));
-    if (lane == 0) sSum[warp] = ws;
-    __syncthreads();
-    if (warp == 0) {
-      const float s = warp_tree_sum(sSum[lane]);
-      if (lane == 0) lpd[b] = mfin + logf(s);
-    }
-  }
-
-  // backward
-  float beta[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  store4(at(betas, T - 1), beta);
-  for (int t = T - 2; t >= 0; --t) {
-    em_at(t + 1, em);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sx[4 * tid + i] = em[i] + beta[i];
-    __syncthreads();
-    float r[4];
-    lse_slots(tidx, tlp, deg_to, sx, r);
-    const bool last = t >= len - 1;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) beta[i] = last ? 0.0f : r[i];
-    store4(at(betas, t), beta);
-  }
-}
-
-// The streaming K6c under one table for every read.
-__global__ void __launch_bounds__(THREADS, 1)
-fwbw_generic_kernel(const float* __restrict__ ev_mean,
-                    const float* __restrict__ ev_stdv,
-                    const float* __restrict__ ev_log_stdv,
-                    const int32_t* __restrict__ length, int B, int T,
-                    int deg_from, const int32_t* __restrict__ from_idx,
-                    const float* __restrict__ from_logp, int deg_to,
-                    const int32_t* __restrict__ to_idx,
-                    const float* __restrict__ to_logp,
-                    const float* __restrict__ level_mean,
-                    const float* __restrict__ level_stdv,
-                    const float* __restrict__ log_level_stdv,
-                    const float* __restrict__ sd_mean,
-                    const float* __restrict__ sd_lambda,
-                    const float* __restrict__ log_sd_lambda, float log2pi,
-                    float log_n, float* __restrict__ alphas,
-                    float* __restrict__ betas, float* __restrict__ ems,
-                    float* __restrict__ lpd) {
-  fwbw_generic_body<false>(
-      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
-      from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
-      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
-      alphas, betas, ems, lpd);
-}
-
-// The streaming K6c under per-read log-probs (B, deg, N).
-__global__ void __launch_bounds__(THREADS, 1)
-fwbw_generic_batch_kernel(
-    const float* __restrict__ ev_mean, const float* __restrict__ ev_stdv,
-    const float* __restrict__ ev_log_stdv,
-    const int32_t* __restrict__ length, int B, int T, int deg_from,
-    const int32_t* __restrict__ from_idx,
-    const float* __restrict__ from_logp, int deg_to,
-    const int32_t* __restrict__ to_idx, const float* __restrict__ to_logp,
-    const float* __restrict__ level_mean,
-    const float* __restrict__ level_stdv,
-    const float* __restrict__ log_level_stdv,
-    const float* __restrict__ sd_mean, const float* __restrict__ sd_lambda,
-    const float* __restrict__ log_sd_lambda, float log2pi, float log_n,
-    float* __restrict__ alphas, float* __restrict__ betas,
-    float* __restrict__ ems, float* __restrict__ lpd) {
-  fwbw_generic_body<true>(
-      ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
-      from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
-      log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
-      alphas, betas, ems, lpd);
-}
 
 // Dynamic shared memory: the gathered vector (2 x N float32,
 // double-buffered), the codebooks (deg x GROUPS x CODES float32), the
@@ -507,31 +326,6 @@ fwbw_resident_batch_kernel(
 }
 
 }  // namespace
-
-// Plain C entry for ctypes.  per_read: from_logp / to_logp (B, deg, N),
-// read b's tables its own (from_idx / to_idx are every read's).  Returns
-// cudaGetLastError() after the launch.
-extern "C" int nc_fwbw_generic(
-    const float* ev_mean, const float* ev_stdv, const float* ev_log_stdv,
-    const int32_t* length, int B, int T, int deg_from,
-    const int32_t* from_idx, const float* from_logp, int deg_to,
-    const int32_t* to_idx, const float* to_logp, const float* level_mean,
-    const float* level_stdv, const float* log_level_stdv,
-    const float* sd_mean, const float* sd_lambda, const float* log_sd_lambda,
-    float log2pi, float log_n, float* alphas, float* betas, float* ems,
-    float* lpd, int per_read, int device, void* stream) {
-  const nc::DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return (int)guard.err;
-  if (B > 0 && T > 0) {
-    auto kernel = per_read ? fwbw_generic_batch_kernel : fwbw_generic_kernel;
-    kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        ev_mean, ev_stdv, ev_log_stdv, length, B, T, deg_from, from_idx,
-        from_logp, deg_to, to_idx, to_logp, level_mean, level_stdv,
-        log_level_stdv, sd_mean, sd_lambda, log_sd_lambda, log2pi, log_n,
-        alphas, betas, ems, lpd);
-  }
-  return (int)cudaGetLastError();
-}
 
 // The resident kernel: each side's `packed` (deg, N) uint16 and `book`
 // (deg, GROUPS * CODES) float32 as ops/hmm.py pack_slots lays them out with

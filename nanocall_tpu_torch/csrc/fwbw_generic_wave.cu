@@ -77,8 +77,8 @@
 //     stride).  A warp's lanes step states of one block of 1024 at a time:
 //     its codebook reads fall in one block's 16 words.  Else
 //     (streaming) the (deg, W) int32 / float32 cut read from L2 twice a
-//     step (the max, then the sum), as K6c's streaming kernel reads the
-//     whole table.
+//     step (the max, then the sum), as the one-card split (fwbw_split.cu)
+//     reads its cut.
 //   - The NaN vote that lets the resident form take fmaxf is per block:
 //     on the cluster path the OR of the warps' vote words of the exchange
 //     (a warp's word set when one of its values is NaN or +inf), on the
@@ -107,6 +107,10 @@
 // exchange's latency twice a step; in the streaming form the cut's bytes
 // from L2.
 //
+// The body (fwbw_wave_body.cuh, FORM_WAVE) is shared with the one-card
+// split of the streaming K6c and K6e (fwbw_split.cu), which runs it over
+// the (B, T, 4096) outputs in place.
+//
 // The SPLIT instances (built only by tools/torch_decode_times.py
 // --legacy-mesh, with NC_SPLIT defined) stamp clock64() around a cluster
 // step's wait, slot loop and push in thread 0 of every block and add the
@@ -118,159 +122,12 @@
 // hmm.py on the card.
 
 #include "device_guard.cuh"
-#include "resident_slots.cuh"
-#include "wave_exchange.cuh"
+#include "fwbw_wave_body.cuh"
 
 namespace {
 
-using namespace nc;
-
-// the most reads a block takes (ops/hmm.py FWBW_WAVE_MAX_READS)
-constexpr int MAX_READS = 8;
-
-// The ranks of a K6cm launch (as K6am's GenericWaveRank): one entry a rank
-// of the data row (the M entries, then the ranks this launch runs, as
-// int64), in device memory of the launch's card; every pointer on the
-// rank's own card.
-struct FwbwWaveRank {
-  const float* ev_mean;  // (B, T) events and (B,) lengths, the row's
-  const float* ev_stdv;
-  const float* ev_log_stdv;
-  const int32_t* length;
-  // the rank's cut of each side: RESIDENT the (deg, W) packed uint16 and
-  // the (deg, GROUPS * CODES) codebooks, else (deg, W) int32 / float32
-  const void* from_table;
-  const float* from_values;
-  const void* to_table;
-  const float* to_values;
-  // (B, W): level_mean, level_stdv, log_level_stdv, sd_mean, sd_lambda,
-  // log_sd_lambda of the rank's states
-  const float* model[6];
-  float* alpha;    // (B, T, W): the rank's slices of the outputs
-  float* beta;
-  float* em;
-  float* col;      // (2, B, W): its slice of exchange k at k & 1
-  float* part;     // (2, B): its partial max and sum of the final alpha
-  float* lpd;      // (B,)
-  int32_t* flags;  // (B,): the counter (a read group's first read's)
-};
-
-// cycles of the SPLIT instances: wait, slot loop, push, steps stamped
-__device__ unsigned long long k6cm_split[4];
-
-// the pairwise-tree sum of the first 1 << levels lanes, in lane 0
-__device__ __forceinline__ float lane_tree_sum(float v, int levels) {
-  for (int off = 1; off < (1 << levels); off <<= 1)
-    v = v + __shfl_down_sync(FULL, v, off);
-  return v;
-}
-
-// the lanes of the warp that hold read r of a block of R reads (lanes r,
-// r + R, ..)
-__device__ __forceinline__ unsigned read_lanes(int R, int r) {
-  return (0xffffffffu / ((1u << R) - 1u)) << r;
-}
-
-// lse over the deg slots of lp[k] + x[idx[k]] of one state of a (deg, W)
-// int32 / float32 cut (idx, lp at the state's entry of slot 0, slot k's
-// k * stride on), in common.cuh lse_slots' order: the max
-// (NaN-propagating), then the slot-ordered sum of exp(v - safe)
-__device__ __forceinline__ float lse_streaming(const int32_t* idx,
-                                               const float* lp, int deg,
-                                               int stride, const float* x) {
-  float m = 0.0f;
-  for (int k = 0; k < deg; ++k) {
-    const float v = __ldg(lp + (size_t)k * stride) +
-                    x[__ldg(idx + (size_t)k * stride)];
-    m = k == 0 ? v : amax(m, v);
-  }
-  const float safe = isfinite(m) ? m : 0.0f;
-  float s = 0.0f;
-  for (int k = 0; k < deg; ++k) {
-    const float e = expf((__ldg(lp + (size_t)k * stride) +
-                          x[__ldg(idx + (size_t)k * stride)]) -
-                         safe);
-    s = k == 0 ? e : s + e;
-  }
-  return isfinite(m) ? safe + logf(s) : m;
-}
-
-// The lse of a thread's 4 states of the resident cut, the slice's states
-// s, s + Q, s + 2 Q, s + 3 Q (ent at state s's entry of slot 0, book at
-// slot 0's codebooks, lo the slice's first state in the column: state s +
-// i Q reads the codebook of its block of 1024, which every lane of the
-// warp shares), one state at a time: the loop is not unrolled, so the
-// results rotate through out[] (static indices: registers), as
-// resident_slots.cuh lse4_states.
-template <bool kNan, int DEG>
-__device__ __forceinline__ void lse4_cut(const uint16_t* ent,
-                                         const float* book, int lo, int Q,
-                                         const float* x, int deg, int stride,
-                                         float (&out)[4]) {
-#pragma unroll 1
-  for (int i = 0; i < 4; ++i) {
-    const float r = lse_resident<kNan, DEG>(
-        ent + i * Q, book + ((lo + i * Q) >> 10) * CODES, x, deg, stride);
-    out[0] = out[1];
-    out[1] = out[2];
-    out[2] = out[3];
-    out[3] = r;
-  }
-}
-
-// The bytes of a side's cut: its codebooks and its (deg, W) entries.
-__host__ __device__ __forceinline__ uint32_t cut_bytes(int deg, int W) {
-  return (uint32_t)(deg * (GROUPS * CODES * 4 + W * 2));
-}
-
-// The floats of the column buffers of R reads (CLUSTER: both parities),
-// read r's column_stride(R) r on: N floats and 32 / R more, so that the R
-// lanes of a warp that gather one index of their R reads' columns (and the
-// 32 / R consecutive indices of a read's lanes) fall in distinct banks;
-// then (CLUSTER and RESIDENT) the vote words of both parities: 32 R a
-// parity (the M ranks' R W / 128 warps), then the threads' em buffers.
-__host__ __device__ __forceinline__ int column_stride(int R) {
-  return N + 32 / R;
-}
-
-__host__ __device__ __forceinline__ int column_floats(int R, bool cluster) {
-  return (cluster ? 2 : 1) * R * column_stride(R);
-}
-
-__host__ __device__ __forceinline__ int vote_words(int R, bool cluster,
-                                                   bool resident) {
-  return cluster && resident ? 2 * 32 * R : 0;
-}
-
-// the em buffers of the block's threads: 4 floats a thread and parity
-__host__ __device__ __forceinline__ int em_floats(int threads) {
-  return 2 * 4 * threads;
-}
-
-// 4 bytes from global memory into shared memory, asynchronously
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-// until this thread's cp.async copies are in
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// K6cm: both passes of R = 1 << lg_reads reads for one rank, which holds
-// the states [rank W, (rank + 1) W), W = 1 << slice_shift, on R W / 4
-// threads.  Read group g holds the reads wave_lo + g R .. (those below
-// wave_hi).  The exchange: CLUSTER, a group's M ranks one cluster of a
-// grid (M, groups), block (r, g) the rank r of group g; else a cooperative
-// grid (groups, ranks this launch runs), block (g, j) group g for the rank
-// named by entry j of the launch's ranks (after the M = N >> slice_shift
-// entries of `wave`).  Dynamic shared memory: the columns (column_floats),
-// the vote words (vote_words), the em buffers (em_floats), then RESIDENT
-// the codebooks (deg x GROUPS x
-// CODES float32) and the rank's cut (deg x W uint16), deg the larger
-// side's.  DEG > 0: both sides have DEG slots.
+// K6cm: both passes of R = 1 << lg_reads reads for one rank (the body's
+// FORM_WAVE, fwbw_wave_body.cuh).
 template <bool SYS, bool RESIDENT, bool CLUSTER, int DEG, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 fwbw_generic_wave_kernel(const FwbwWaveRank* __restrict__ wave, int B,
@@ -278,494 +135,9 @@ fwbw_generic_wave_kernel(const FwbwWaveRank* __restrict__ wave, int B,
                          int lg_reads, int deg_from, int deg_to,
                          float log2pi, float log_n, long long timeout_ns,
                          int32_t* timed_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Exchange x;
-  __shared__ __align__(8) uint64_t bar;
-  // CLUSTER: exchange k's completion in buffer k & 1
-  __shared__ __align__(8) uint64_t xbar[2];
-  // the warps' partials of each read (and of each of a thread's 4 states)
-  __shared__ float sWarp[MAX_READS * 4][WARPS];
-  // CLUSTER: each read's partial max and sum of the final alpha
-  __shared__ float sPub[2][MAX_READS];
-  __shared__ float sM[MAX_READS];
-  const int deg_max = deg_from > deg_to ? deg_from : deg_to;
-  const int ranks = N >> slice_shift;
-  const int R = 1 << lg_reads;
-  const int W = 1 << slice_shift;
-  const int tid = threadIdx.x;
-  const int nthreads = (W >> 2) << lg_reads;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  const int r = tid & (R - 1), u = tid >> lg_reads;
-  const int Q = W >> 2, CS = column_stride(R);
-  float* const column = reinterpret_cast<float*>(smem);
-  float* const votes = column + column_floats(R, CLUSTER);
-  float* const emb = votes + vote_words(R, CLUSTER, RESIDENT);
-  float* const book = emb + em_floats(nthreads);
-  uint16_t* const table =
-      reinterpret_cast<uint16_t*>(book + deg_max * GROUPS * CODES);
-  const int rank =
-      CLUSTER ? (int)blockIdx.x
-              : (int)reinterpret_cast<const long long*>(wave + ranks)
-                    [blockIdx.y];
-  const int b0 = wave_lo + ((int)(CLUSTER ? blockIdx.y : blockIdx.x)
-                            << lg_reads);
-  const int nr = min(R, wave_hi - b0);  // the group's reads
-  const bool real = r < nr;
-  const int b = real ? b0 + r : b0;
-  const FwbwWaveRank& e = wave[rank];
-  const uint32_t bar_addr = smem_addr(&bar);
-  // the thread's first state in the column (its state i lies i Q on)
-  const int j = (rank << slice_shift) + u;
-  const size_t colstride = (size_t)B * W;
-  // CLUSTER: an exchange's bytes into each block; the last exchange
-  const uint32_t xbytes = (uint32_t)(nr * N * 4) +
-                          (RESIDENT ? 32u * 4u * (uint32_t)R : 0u);
-  const int last_k = 2 * T - 3;
-  if constexpr (CLUSTER) {
-    if (tid == 0) {
-      mbar_init(smem_addr(&xbar[0]), 1);
-      mbar_init(smem_addr(&xbar[1]), 1);
-      fence_mbarrier_init();
-      if (T > 1) {
-        mbar_expect(smem_addr(&xbar[0]), xbytes);
-        mbar_expect(smem_addr(&xbar[1]), xbytes);
-      }
-    }
-  } else {
-    for (int p = tid; p < ranks; p += nthreads) {
-      x.col[p] = wave[p].col;
-      x.flag[p] = wave[p].flags + b0;
-    }
-    if (tid == 0) {
-      x.timed_out = timed_out;
-      x.timeout_ns = timeout_ns;
-      x.ranks = ranks;
-      x.rank = rank;
-      x.read = b0;
-    }
-  }
-  // one side's cut into shared memory, reported to the mbarrier
-  auto copy_cut = [&](int deg, const void* packed, const float* cb) {
-    bulk_copy(smem_addr(book), cb, deg * GROUPS * CODES * 4, bar_addr);
-    for (int k = 0; k < deg; ++k)
-      bulk_copy(smem_addr(table + k * W),
-                static_cast<const uint16_t*>(packed) + (size_t)k * W, W * 2,
-                bar_addr);
-  };
-  if (RESIDENT && tid == 0) {
-    mbar_init_expect(bar_addr, cut_bytes(deg_from, W));
-    copy_cut(deg_from, e.from_table, e.from_values);
-  }
-
-  const int len = real ? e.length[b] : 0;
-  // the thread's first state of row t of a (B, T, W) output
-  auto at = [&](float* base, int t) {
-    return base + ((size_t)b * T + t) * W + u;
-  };
-  auto store = [&](float* p, const float (&v)[4]) {
-    if (real) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i * Q] = v[i];
-    }
-  };
-  // the stored em of row t, read back by this thread a step ahead into
-  // its em buffer t & 1 by cp.async (from L2: this launch wrote it), so
-  // that no register holds it through the slot loop
-  auto fetch_em = [&](int t) {
-    if (real) {
-      const uint32_t dst = smem_addr(emb + ((t & 1) * nthreads + tid) * 4);
-      const float* src = at(e.em, t);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) cp_async4(dst + 4 * i, src + i * Q);
-    }
-  };
-  // em of row t, fetched before (0 in a lane past the row's end)
-  auto take_em = [&](int t, float (&v)[4]) {
-    if (real) {
-      cp_async_wait_all();
-      unpack4(v, *reinterpret_cast<const float4*>(
-                     emb + ((t & 1) * nthreads + tid) * 4));
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = 0.0f;
-    }
-  };
-
-  // every em(t) of the thread's states, stored; alpha(0)
-  float a[4];
-  {
-    const size_t row = (size_t)b * W + u;
-    float m[6][4];
-#pragma unroll
-    for (int q = 0; q < 6; ++q)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) m[q][i] = __ldg(e.model[q] + row + i * Q);
-    const float* evm = e.ev_mean + (size_t)b * T;
-    const float* evs = e.ev_stdv + (size_t)b * T;
-    const float* evl = e.ev_log_stdv + (size_t)b * T;
-    for (int t = 0; t < (real ? T : 1); ++t) {
-      const float xe = evm[t], ye = evs[t], le = evl[t];
-      float em[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        em[i] = emission(xe, ye, le, m[0][i], m[1][i], m[2][i], m[3][i],
-                         m[4][i], m[5][i], log2pi);
-      store(at(e.em, t), em);
-      if (t == 0) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = em[i] - log_n;
-      }
-    }
-  }
-
-  // CLUSTER: the thread's 4 values of exchange k into every block's
-  // column buffer k & 1 of its read, and (RESIDENT) the warp's vote word
-  // (lane p pushing it into block p)
-  auto push = [&](int k, const float (&v)[4]) {
-    const int q = k & 1;
-    const uint32_t mb = smem_addr(&xbar[q]);
-    if (real) {
-      const uint32_t dst = smem_addr(column + (q * R + r) * CS + j);
-      for (int p = 0; p < ranks; ++p) {
-        const uint32_t d = cluster_map(dst, p), m = cluster_map(mb, p);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st_async(d + 4 * i * Q, v[i], m);
-      }
-    }
-    if constexpr (RESIDENT) {
-      const bool pr =
-          __any_sync(FULL, nan_prone(v[0]) || nan_prone(v[1]) ||
-                               nan_prone(v[2]) || nan_prone(v[3]));
-      if (lane < ranks)
-        st_async(cluster_map(smem_addr(votes + q * 32 * R + rank * nwarps +
-                                       warp),
-                             lane),
-                 pr ? 1.0f : 0.0f, cluster_map(mb, lane));
-    }
-  };
-  // CLUSTER: until exchange k is in (its mbarrier's phase k >> 1), thread
-  // 0 then arming the buffer for exchange k + 2; RESIDENT: whether a vote
-  // word of it is set.  The warp passes the wait together, so that a lane
-  // past the row's end (which pushes nothing and, streaming, meets no other
-  // warp-wide call a step) cannot fall a phase behind its warp's lanes
-  auto take = [&](int k) -> bool {
-    const int q = k & 1;
-    const uint32_t mb = smem_addr(&xbar[q]);
-    mbar_wait_cluster(mb, (k >> 1) & 1);
-    __syncwarp();
-    if (tid == 0 && k + 2 <= last_k) mbar_rearm(mb, xbytes);
-    if constexpr (RESIDENT) {
-      bool p = false;
-      for (int i = lane; i < 32 * R; i += 32)
-        p = p || votes[q * 32 * R + i] != 0.0f;
-      return __any_sync(FULL, p);
-    }
-    return false;
-  };
-  // cooperative: the thread's 4 values of exchange k into the rank's
-  // buffer k & 1
-  auto store_own = [&](int k, const float (&v)[4]) {
-    store(e.col + (size_t)(k & 1) * colstride + (size_t)b * W + u, v);
-  };
-  // cooperative: publish the rank's slices of exchange k (every thread's
-  // stored) behind counter value c, wait for the peers', load the group's
-  // whole columns into shared memory; RESIDENT: whether a value of them is
-  // NaN or +inf (the vote covers every rank's slices)
-  auto exchange = [&](int k, int c) -> bool {
-    __syncthreads();
-    if (tid == 0) st_flag<SYS>(x.flag[x.rank], c);
-    if (warp == 0) {
-      __syncwarp();
-      wait_ranks<SYS>(x, x.flag, c, lane);
-    }
-    __syncthreads();
-    const size_t src = (size_t)(k & 1) * colstride + (size_t)b0 * W;
-    bool p = false;
-    for (int i = 4 * tid; i < nr * N; i += 4 * nthreads) {
-      const int ii = i & (N - 1);
-      const float4 v = ld_column4<SYS>(x.col[ii >> slice_shift] + src +
-                                       (size_t)(i >> 12) * W +
-                                       (ii & (W - 1)));
-      *reinterpret_cast<float4*>(column + (i >> 12) * CS + ii) = v;
-      p = p || nan_prone(v.x) || nan_prone(v.y) || nan_prone(v.z) ||
-          nan_prone(v.w);
-    }
-    if (RESIDENT) return __syncthreads_or(p) != 0;
-    __syncthreads();
-    return false;
-  };
-  // the slot log-sum-exp of the thread's 4 states from the column `cur`
-  // over one side (RESIDENT: the cut in shared memory, nan its vote; else
-  // the (deg, W) cut `idx` / `lp` from L2)
-  auto lse4 = [&](bool nan, const float* cur, int deg, const void* idx,
-                  const float* lp, float (&out)[4]) {
-    if constexpr (RESIDENT) {
-      if (nan)
-        lse4_cut<true, DEG>(table + u, book, rank << slice_shift, Q, cur,
-                            deg, W, out);
-      else
-        lse4_cut<false, DEG>(table + u, book, rank << slice_shift, Q, cur,
-                             deg, W, out);
-    } else {
-      const int32_t* id = static_cast<const int32_t*>(idx) + u;
-#pragma unroll 1
-      for (int i = 0; i < 4; ++i) {
-        const float v =
-            lse_streaming(id + i * Q, lp + u + i * Q, deg, W, cur);
-        out[0] = out[1];
-        out[1] = out[2];
-        out[2] = out[3];
-        out[3] = v;
-      }
-    }
-  };
-  // whether a side's codebooks in shared memory hold NaN or +inf
-  auto book_vote = [&](int deg) {
-    bool p = false;
-    for (int i = tid; i < deg * GROUPS * CODES; i += nthreads)
-      p = p || nan_prone(book[i]);
-    return __syncthreads_or(p) != 0;
-  };
-  // SPLIT: cycles of thread 0's wait, slot loop and push
-  unsigned long long c_wait = 0, c_slot = 0, c_push = 0;
-  auto stamp = [&]() -> long long { return SPLIT ? clock64() : 0; };
-
-  // forward: exchange k = t - 1 brings column t - 1
-  store(at(e.alpha, 0), a);
-  if (!CLUSTER && T > 1) store_own(0, a);
-  if constexpr (CLUSTER) {
-    // every block of the cluster runs, its mbarriers initialised and armed;
-    // also orders the cut's mbarrier's init before every wait
-    cluster_arrive();
-    cluster_wait();
-  } else {
-    __syncthreads();  // also orders the mbarrier's init before every wait
-  }
-  bool side_prone = false;
-  if (RESIDENT) {
-    mbar_wait(bar_addr, 0);
-    side_prone = book_vote(deg_from);
-  }
-  if (CLUSTER && T > 1) push(0, a);
-  // em(t) is fetched for the steps t < len that use it
-  if (1 < len) fetch_em(1);
-  for (int t = 1; t < T; ++t) {
-    const int k = t - 1;
-    const long long s0 = stamp();
-    const float* cur;
-    bool prone;
-    if constexpr (CLUSTER) {
-      prone = take(k) || side_prone;
-      cur = column + ((k & 1) * R + r) * CS;
-    } else {
-      prone = exchange(k, k + 1) || side_prone;
-      cur = column + r * CS;
-    }
-    const long long s1 = stamp();
-    if (t < len) {
-      float res[4];
-      lse4(prone, cur, deg_from, e.from_table, e.from_values, res);
-      float em[4];
-      take_em(t, em);
-      if (t + 1 < len) fetch_em(t + 1);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = em[i] + res[i];
-    }
-    store(at(e.alpha, t), a);
-    const long long s2 = stamp();
-    if (t < T - 1) {
-      if constexpr (CLUSTER)
-        push(t, a);
-      else
-        store_own(t, a);
-    }
-    if constexpr (SPLIT) {
-      c_wait += s1 - s0;
-      c_slot += s2 - s1;
-      c_push += stamp() - s2;
-    }
-  }
-
-  // the to side into the same region (every read of the from side ended at
-  // the barrier), while the ranks reduce log_pr_data: the partial maxima,
-  // their max, then the partial tree sums of exp(final - max), for each of
-  // the group's reads
-  __syncthreads();
-  if (RESIDENT && tid == 0) {
-    fence_proxy_async();
-    mbar_expect(bar_addr, cut_bytes(deg_to, W));
-    copy_cut(deg_to, e.to_table, e.to_values);
-  }
-  {
-    // the warp's partial max of each read (lanes r, r + R, ..), in lane r
-    const bool nan = a[0] != a[0] || a[1] != a[1] || a[2] != a[2] ||
-                     a[3] != a[3];
-    const unsigned nan_lanes = __ballot_sync(FULL, nan);
-    float mx = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
-    for (int off = 16; off >= R; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-    if (lane < R)
-      sWarp[4 * lane][warp] =
-          (nan_lanes & read_lanes(R, lane)) ? __int_as_float(0x7fffffff)
-                                            : mx;
-    __syncthreads();
-    for (int rr = warp; rr < R; rr += nwarps) {
-      const float vm = lane < nwarps ? sWarp[4 * rr][lane] : -INFINITY;
-      const float pm = warp_max_nan(vm, vm != vm);
-      if (lane == 0) {
-        if (CLUSTER)
-          sPub[0][rr] = pm;
-        else if (rr < nr)
-          e.part[b0 + rr] = pm;
-      }
-    }
-    if constexpr (CLUSTER) {
-      cluster_arrive();
-      cluster_wait();
-      for (int rr = warp; rr < R; rr += nwarps) {
-        float out[1];
-        cluster_max<1>(smem_addr(&sPub[0][rr]), ranks, lane, out);
-        if (lane == 0) sM[rr] = out[0];
-      }
-    } else {
-      __syncthreads();
-      if (tid == 0) st_flag<SYS>(x.flag[x.rank], T);
-      if (warp == 0) {
-        __syncwarp();
-        wait_ranks<SYS>(x, x.flag, T, lane);
-        for (int rr = 0; rr < nr; ++rr) {
-          float v = -INFINITY;
-          bool nan = false;
-          for (int p = lane; p < ranks; p += 32) {
-            const float w = ld_column<SYS>(wave[p].part + b0 + rr);
-            v = fmaxf(v, w);
-            nan = nan || w != w;
-          }
-          const float mm = warp_max_nan(v, nan);
-          if (lane == 0) sM[rr] = mm;
-        }
-      }
-    }
-    __syncthreads();
-    const float mfin = sM[r];
-    // state i of the threads: the subtree of the slice's states [i Q, (i +
-    // 1) Q), over its read's lanes, then the warps; then the 4 subtrees
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float ws = expf(a[i] - mfin);
-      for (int off = R; off < 32; off <<= 1)
-        ws = ws + __shfl_down_sync(FULL, ws, off);
-      if (lane < R) sWarp[4 * lane + i][warp] = ws;
-    }
-    __syncthreads();
-    for (int rr = warp; rr < R; rr += nwarps) {
-      float sub[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sub[i] = lane_tree_sum(lane < nwarps ? sWarp[4 * rr + i][lane] : 0.0f,
-                               31 - __clz(nwarps));
-      const float s = (sub[0] + sub[1]) + (sub[2] + sub[3]);
-      if (lane == 0) {
-        if (CLUSTER)
-          sPub[1][rr] = s;
-        else if (rr < nr)
-          e.part[B + b0 + rr] = s;
-      }
-    }
-    if constexpr (CLUSTER) {
-      cluster_arrive();
-      cluster_wait();
-    } else {
-      __syncthreads();
-      if (tid == 0) st_flag<SYS>(x.flag[x.rank], T + 1);
-      if (warp == 0) {
-        __syncwarp();
-        wait_fold_ranks<SYS>(x, x.flag, T + 1, lane);
-      }
-    }
-    if (warp == 0) {
-      // each read's M partial sums pairwise in rank order (at 64 ranks a
-      // lane adds ranks 2l and 2l + 1 first)
-      const int per_lane = ranks > 32 ? 2 : 1;
-      const int lanes = ranks / per_lane;
-      for (int rr = 0; rr < nr; ++rr) {
-        float v = 0.0f;
-        if (lane < lanes) {
-          if constexpr (CLUSTER) {
-            v = ld_cluster(cluster_map(smem_addr(&sPub[1][rr]), lane));
-          } else {
-            v = ld_column<SYS>(wave[per_lane * lane].part + B + b0 + rr);
-            if (per_lane == 2)
-              v = v + ld_column<SYS>(wave[2 * lane + 1].part + B + b0 + rr);
-          }
-        }
-        const float s = lane_tree_sum(v, 31 - __clz(lanes));
-        if (lane == 0) e.lpd[b0 + rr] = sM[rr] + logf(s);
-      }
-    }
-  }
-
-  // backward: exchange k = 2 T - 3 - t brings g of event t + 1
-  if (RESIDENT) {
-    mbar_wait(bar_addr, 1);
-    side_prone = book_vote(deg_to);
-  }
-  float beta[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  store(at(e.beta, T - 1), beta);
-  // g of event t + 1 counts only where t < len - 1: em(t + 1) is fetched
-  // for t + 1 < len, else g is beta's 0
-  if (T - 1 < len) fetch_em(T - 1);
-  for (int t = T - 2; t >= 0; --t) {
-    const int k = 2 * T - 3 - t;
-    float g[4];
-    if (t + 1 < len) take_em(t + 1, g);
-    if (t < len) fetch_em(t);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) g[i] = t + 1 < len ? g[i] + beta[i] : 0.0f;
-    const long long s0 = stamp();
-    const float* cur;
-    bool prone;
-    if constexpr (CLUSTER) {
-      push(k, g);
-    } else {
-      store_own(k, g);
-    }
-    const long long s1 = stamp();
-    if constexpr (CLUSTER) {
-      prone = take(k) || side_prone;
-      cur = column + ((k & 1) * R + r) * CS;
-    } else {
-      prone = exchange(k, k + 3) || side_prone;
-      cur = column + r * CS;
-    }
-    const long long s2 = stamp();
-    if (t >= len - 1) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) beta[i] = 0.0f;
-    } else {
-      lse4(prone, cur, deg_to, e.to_table, e.to_values, beta);
-    }
-    store(at(e.beta, t), beta);
-    if constexpr (SPLIT) {
-      c_push += s1 - s0;
-      c_wait += s2 - s1;
-      c_slot += stamp() - s2;
-    }
-  }
-  if constexpr (CLUSTER) {
-    // no block leaves while a peer may still write its shared memory
-    cluster_arrive();
-    cluster_wait();
-  }
-  if constexpr (SPLIT) {
-    if (tid == 0) {
-      atomicAdd(&k6cm_split[0], c_wait);
-      atomicAdd(&k6cm_split[1], c_slot);
-      atomicAdd(&k6cm_split[2], c_push);
-      atomicAdd(&k6cm_split[3], 2ull * (T - 1));
-    }
-  }
+  fwbw_wave_body<SYS, RESIDENT, CLUSTER, DEG, SPLIT, FORM_WAVE, 4, false>(
+      wave, B, T, wave_lo, wave_hi, slice_shift, lg_reads, deg_from, deg_to,
+      log2pi, log_n, timeout_ns, timed_out);
 }
 
 using FwbwWaveKernel =

@@ -31,11 +31,11 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 SOURCES = ("viterbi_forward.cu", "viterbi_traceback.cu", "fwbw_forward.cu",
            "em_backward.cu", "viterbi_generic.cu", "fwbw_generic.cu",
-           "fwbw_generic_wave.cu", "fwbw_backward.cu",
+           "fwbw_generic_wave.cu", "fwbw_split.cu", "fwbw_backward.cu",
            "fwbw_backward_wave.cu", "fwbw_custom.cu", "fma_chain.cu",
            "reshape_copy.cu")
 HEADERS = ("common.cuh", "beta_step.cuh", "resident_slots.cuh",
-           "device_guard.cuh", "wave_exchange.cuh")
+           "device_guard.cuh", "wave_exchange.cuh", "fwbw_wave_body.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "nanocall_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -171,6 +171,11 @@ def load():
         lib.nc_fwbw_generic_wave_resident.restype = ci
         lib.nc_fwbw_generic_wave_resident.argtypes = [
             ci] * 10 + [ctypes.POINTER(ci)]
+        lib.nc_fwbw_split.restype = ci
+        lib.nc_fwbw_split.argtypes = (
+            [vp] + [ci] * 7 + [cf, cf] + [ci, vp])
+        lib.nc_fwbw_split_clusters.restype = ci
+        lib.nc_fwbw_split_clusters.argtypes = [ci] * 4 + [ctypes.POINTER(ci)]
         lib.nc_em_backward.restype = ci
         lib.nc_em_backward.argtypes = (
             [vp] * 4 + [ci, ci] + [vp] * 17 + [ci, ci, cf] + [vp] * 3
@@ -199,18 +204,10 @@ def load():
         lib.nc_viterbi_generic_traceback_ring.restype = ci
         lib.nc_viterbi_generic_traceback_ring.argtypes = (
             [vp] * 3 + [ci, ci, ci] + [vp] * 3 + [ci, vp])
-        lib.nc_fwbw_generic.restype = ci
-        lib.nc_fwbw_generic.argtypes = (
-            [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
-            + [vp] * 4 + [ci] + [ci, vp])
         lib.nc_fwbw_resident.restype = ci
         lib.nc_fwbw_resident.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
             + [vp] * 4 + [ci] + [ci, vp])
-        lib.nc_fwbw_custom.restype = ci
-        lib.nc_fwbw_custom.argtypes = (
-            [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]
-            + [vp] * 3 + [ci] + [ci, vp])
         lib.nc_fwbw_custom_resident.restype = ci
         lib.nc_fwbw_custom_resident.argtypes = (
             [vp] * 4 + [ci, ci, ci] + [vp] * 2 + [ci] + [vp] * 8 + [cf, cf]

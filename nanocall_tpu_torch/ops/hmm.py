@@ -55,8 +55,9 @@ Kernels and their plain versions, side by side below:
   K6bm viterbi_traceback.cu generic_traceback_slices_kernel (K2m's routes)
                             vs viterbi_traceback_generic_slices_plain
       (parallel/statepar.py: K6a and K6b with the states split over ranks)
-  K6c fwbw_generic.cu       fwbw_generic_kernel (streaming),
-                            fwbw_resident_kernel (both sides' tables in
+  K6c fwbw_split.cu         fwbw_generic_kernel (streaming: a read's
+                            states over a cluster of 8 blocks),
+      fwbw_generic.cu       fwbw_resident_kernel (both sides' tables in
                             shared memory in turn; fwbw_route picks)
                             vs fwbw_plain
   K6cm fwbw_generic_wave.cu fwbw_wave_resident_kernel /
@@ -68,8 +69,8 @@ Kernels and their plain versions, side by side below:
       ops/em.py)
   K6d fwbw_backward.cu      fwbw_backward_kernel
                             vs fwbw_grouped_backward_plain
-  K6e fwbw_custom.cu        fwbw_custom_kernel (streaming),
-                            fwbw_custom_resident_kernel (K6c's resident
+  K6e fwbw_split.cu         fwbw_custom_kernel (streaming, as K6c's),
+      fwbw_custom.cu        fwbw_custom_resident_kernel (K6c's resident
                             tables; fwbw_route picks) vs fwbw_custom_plain
   (K5, the fused EM backward, is in ops/em.py; ops/kernels.py lists them all.)
 
@@ -2684,7 +2685,8 @@ def fwbw_route(ops: TransOps) -> str:
     "resident" (a side's table in shared memory at a time) when it has both
     sides' packed layout, which convert.trans_ops gives every table that
     fits (make_trans_ops_batch per-read tables whose reads all fit), else
-    "streaming" (the tables read from L2 at every step)."""
+    "streaming" (the tables read from L2 at every step, by the one-card
+    split)."""
     return "streaming" if ops.fwbw_packed is None else "resident"
 
 
@@ -2728,27 +2730,22 @@ def _check_fwbw_resident(ops: TransOps, dev, B: int) -> None:
                 raise ValueError(f"{name} is not 16-byte aligned")
 
 
-#: the C entries of K6c's and K6e's kernels by (resident, custom), and
-#: what their wrappers call them
+#: the C entries of K6c's and K6e's resident kernels by custom, and what
+#: their wrappers call them
 _FWBW_ENTRIES = {
-    (False, False): ("nc_fwbw_generic", "generic fwbw"),
-    (True, False): ("nc_fwbw_resident", "resident generic fwbw"),
-    (False, True): ("nc_fwbw_custom", "custom fwbw"),
-    (True, True): ("nc_fwbw_custom_resident", "resident custom fwbw"),
+    False: ("nc_fwbw_resident", "resident generic fwbw"),
+    True: ("nc_fwbw_custom_resident", "resident custom fwbw"),
 }
 
 
-def _fwbw_launch(ops: TransOps, model: ModelArrays, ev: dict,
-                 resident: bool, custom: bool) -> dict:
-    """One launch of K6c (custom: K6e) on the card, its resident or its
-    streaming kernel, under one table or per-read tables (the kernel's
-    per-read instance), once every shape is checked: K6c's {alpha, beta, em
-    (B, T, n), log_pr_data (B,)} or K6e's {alpha, beta, gamma}, as the
-    plain version.  The wrappers below call it and count the launch."""
+def _check_fwbw(ops: TransOps, model: ModelArrays, ev: dict,
+                resident: bool, what: str) -> tuple:
+    """The checks of every K6c and K6e launch (what: the kernel's name
+    for the error): events, the table (its packed layout, resident), the
+    model rows, a CUDA device.  Returns (B, T, the four table tensors)."""
     mean = ev["mean"]
     dev = mean.device
     B, T = mean.shape
-    n = 4096
     if T < 1:
         raise ValueError("forward-backward needs at least one event column")
     _check_events(ev, B, T, dev)
@@ -2758,9 +2755,23 @@ def _fwbw_launch(ops: TransOps, model: ModelArrays, ev: dict,
     else:
         _check_ops(ops, dev, B)
         table = (ops.from_idx, ops.from_logp, ops.to_idx, ops.to_logp)
-    _check_tables(tuple(model), B, n, dev)
-    entry, what = _FWBW_ENTRIES[(resident, custom)]
+    _check_tables(tuple(model), B, 4096, dev)
     _require_cuda(dev, what)
+    return B, T, table
+
+
+def _fwbw_resident_launch(ops: TransOps, model: ModelArrays, ev: dict,
+                          custom: bool) -> dict:
+    """One launch of K6c's (custom: K6e's) resident kernel on the card,
+    under one table or per-read tables (the kernel's per-read instance),
+    once every shape is checked: K6c's {alpha, beta, em (B, T, n),
+    log_pr_data (B,)} or K6e's {alpha, beta, gamma}, as the plain version.
+    The wrappers below call it and count the launch."""
+    mean = ev["mean"]
+    dev = mean.device
+    n = 4096
+    entry, what = _FWBW_ENTRIES[custom]
+    B, T, table = _check_fwbw(ops, model, ev, True, what)
     if custom:
         out, keys = _custom_outputs(B, T, n, dev), ("alpha", "beta", "gamma")
     else:
@@ -2785,24 +2796,28 @@ def _require_per_read(ops: TransOps, what: str) -> None:
                          f"(make_trans_ops_batch), not one (deg, n) table")
 
 
-def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
-    """K6c on the card, the streaming kernel: the forward and the backward
-    pass in one launch, {alpha, beta, em (B, T, n), log_pr_data (B,)} as the
-    plain version.  Per-read tables take the per-read instance
+def fwbw_generic_kernel(ops: TransOps, model: ModelArrays, ev: dict,
+                        states: int | None = None) -> dict:
+    """K6c on the card under a table that streams, the one-card split
+    (csrc/fwbw_split.cu) with `states` a thread (by default
+    fwbw_stream_split's): the forward and the backward pass in one launch,
+    {alpha, beta, em (B, T, n), log_pr_data (B,)} as the plain version.
+    Per-read tables take the per-read instance
     (fwbw_generic_per_read_kernel)."""
     if per_read(ops):
-        return fwbw_generic_per_read_kernel(ops, model, ev)
-    out = _fwbw_launch(ops, model, ev, resident=False, custom=False)
+        return fwbw_generic_per_read_kernel(ops, model, ev, states)
+    out = _fwbw_split_launch(ops, model, ev, states, custom=False)
     _cuda.count_launch(fwbw_generic_kernel)
     return out
 
 
 def fwbw_generic_per_read_kernel(ops: TransOps, model: ModelArrays,
-                                 ev: dict) -> dict:
-    """K6c's streaming kernel under per-read tables (its per-read instance:
-    block b reads read b's (deg, n) log-probs of both sides)."""
+                                 ev: dict, states: int | None = None) -> dict:
+    """fwbw_generic_kernel under per-read tables (its per-read instance:
+    read b's (deg, n) log-probs of both sides, every read's from_idx and
+    to_idx)."""
     _require_per_read(ops, "the per-read streaming fwbw")
-    out = _fwbw_launch(ops, model, ev, resident=False, custom=False)
+    out = _fwbw_split_launch(ops, model, ev, states, custom=False)
     _cuda.count_launch(fwbw_generic_per_read_kernel)
     return out
 
@@ -2815,7 +2830,7 @@ def fwbw_resident_kernel(ops: TransOps, model: ModelArrays,
     (fwbw_resident_per_read_kernel)."""
     if per_read(ops):
         return fwbw_resident_per_read_kernel(ops, model, ev)
-    out = _fwbw_launch(ops, model, ev, resident=True, custom=False)
+    out = _fwbw_resident_launch(ops, model, ev, custom=False)
     _cuda.count_launch(fwbw_resident_kernel)
     return out
 
@@ -2825,7 +2840,7 @@ def fwbw_resident_per_read_kernel(ops: TransOps, model: ModelArrays,
     """K6c's resident kernel under per-read tables (its per-read instance:
     block b copies read b's packed layout of each side)."""
     _require_per_read(ops, "the per-read resident fwbw")
-    out = _fwbw_launch(ops, model, ev, resident=True, custom=False)
+    out = _fwbw_resident_launch(ops, model, ev, custom=False)
     _cuda.count_launch(fwbw_resident_per_read_kernel)
     return out
 
@@ -3209,6 +3224,226 @@ def fwbw_generic_wave_kernel(ranks, local, lo: int, hi: int,
         fwbw_wave_streaming_kernel(ranks, local, lo, hi, cluster)
 
 
+# K6c and K6e streaming on one card: a read's states cut over a cluster ------
+# (csrc/fwbw_split.cu).  Block c of a read's cluster of C steps the states
+# [c W, (c + 1) W), W = n / C, S states a thread, reading its cut of the
+# table and of the model in place at column offset c W and writing its
+# columns of the (B, T, n) outputs through their row stride; the gathered
+# column is exchanged every step as K6cm's cluster path exchanges it.  The
+# plain versions below compute the same arithmetic over C cuts (and S
+# subtrees of a cut's sums); fwbw_stream_split picks S.
+
+#: the blocks a read (C) of the kernel, and the states a thread (S) it
+#: takes.  Chosen by the times of C = 2, 4, 8, S = 1, 2, 4 and 1, 2, 4 reads
+#: a block against the kernel of one block of 1024 threads a read, in
+#: turns (tools/torch_decode_times.py --stream, NVIDIA H100 80GB HBM3,
+#: 700 W): C = 8 with S = 1 the fastest up to 48 reads (3.9-7.8x the kernel
+#: of one block a read), S = 2 from 96 reads (at 512 x 128 the best form or
+#: within 3% of it); more reads a block lost everywhere (1.15-1.51x)
+FWBW_SPLIT_CUTS = 8
+FWBW_SPLIT_STATES = (1, 2)
+#: the most reads fwbw_stream_split gives one state a thread
+FWBW_SPLIT_FEW_READS = 48
+
+
+def fwbw_stream_split(B: int) -> int:
+    """The states a thread (S of FWBW_SPLIT_STATES) of the one-card split
+    for a streaming K6c or K6e launch over B reads: one up to
+    FWBW_SPLIT_FEW_READS reads (eight SMs a read, each thread one state),
+    else two."""
+    return 1 if B <= FWBW_SPLIT_FEW_READS else 2
+
+
+def _split_cuts(ops: TransOps, model: ModelArrays, C: int) -> list:
+    """The C cuts of a table and of the scaled model: ((deg, W) slot tables,
+    per-read (B, deg, W) log-probs as they are, no packed layout), (B, W)
+    model rows."""
+    W = 4096 // C
+    out = []
+    for c in range(C):
+        cols = slice(c * W, (c + 1) * W)
+        out.append((TransOps(from_idx=ops.from_idx[:, cols],
+                             from_logp=ops.from_logp[..., cols],
+                             to_idx=ops.to_idx[:, cols],
+                             to_logp=ops.to_logp[..., cols], K=ops.K),
+                    ModelArrays(*(x[:, cols] for x in model))))
+    return out
+
+
+def split_sum(x: torch.Tensor, C: int, S: int) -> torch.Tensor:
+    """tree_sum over the last dim of (B, n) as the one-card split adds it:
+    each of the C cuts' S subtrees of n / (C S) states by tree_sum, a cut's
+    S sums pairwise ((s0 + s1) + (s2 + s3) at S = 4), then the C cuts'
+    sums by combine_rank_sums: tree_sum's bits, since each is a subtree."""
+    n = x.shape[-1]
+    Q = n // (C * S)
+    parts = []
+    for c in range(C):
+        sub = [tree_sum(x[..., (c * S + i) * Q:(c * S + i + 1) * Q])
+               for i in range(S)]
+        while len(sub) > 1:
+            sub = [sub[i] + sub[i + 1] for i in range(0, len(sub), 2)]
+        parts.append(sub[0])
+    return combine_rank_sums(parts)
+
+
+def fwbw_split_plain(ops: TransOps, model: ModelArrays, ev: dict, C: int,
+                     S: int = 4) -> dict:
+    """Plain version of the one-card split of K6c (fwbw_generic_kernel)
+    over C cuts, S states a thread: fwbw_generic_wave_plain over the C
+    cuts of the table and the model (one table or per-read log-probs), the
+    ranks' slices joined, and log Pr[data] as block 0 folds it: the C cuts'
+    partial maxima of the final alpha (ranks_amax), each cut's S subtree
+    sums of exp(alpha - max) folded pairwise, the C sums by
+    combine_rank_sums.  {alpha, beta, em (B, T, n), log_pr_data (B,)} as
+    fwbw_plain, bit for bit."""
+    B, T = ev["mean"].shape
+    dev = ev["mean"].device
+    W = 4096 // C
+    ranks = []
+    for cut, m in _split_cuts(ops, model, C):
+        ranks.append(FwbwWaveRank(
+            ops=cut, model=m, ev=ev,
+            **{k: torch.empty((B, T, W), dtype=torch.float32, device=dev)
+               for k in ("alpha", "beta", "em")},
+            lpd=torch.empty(B, dtype=torch.float32, device=dev),
+            col=torch.empty((2, B, W), dtype=torch.float32, device=dev),
+            part=torch.empty((2, B), dtype=torch.float32, device=dev),
+            flags=torch.zeros(B, dtype=torch.int32, device=dev)))
+    fwbw_generic_wave_plain(ranks, 0, B)
+    out = {k: torch.cat([getattr(r, k) for r in ranks], dim=-1)
+           for k in ("alpha", "beta", "em")}
+    final = out["alpha"][:, T - 1]
+    mfin = ranks_amax([torch.amax(final[:, c * W:(c + 1) * W], dim=-1)
+                       for c in range(C)], dev)
+    out["log_pr_data"] = mfin + torch.log(
+        split_sum(torch.exp(final - mfin[:, None]), C, S))
+    return out
+
+
+def split_normalizer(x: torch.Tensor, C: int, S: int) -> torch.Tensor:
+    """K6e's log-normaliser of x (B, n) as the one-card split folds it: m
+    the max of the C cuts' partial maxima, then m + log of split_sum of
+    exp(x - m); x - split_normalizer(x) is log_normalize(x), bit for bit."""
+    W = x.shape[-1] // C
+    m = ranks_amax([torch.amax(x[:, c * W:(c + 1) * W], dim=-1)
+                    for c in range(C)], x.device)
+    return m + torch.log(split_sum(torch.exp(x - m[:, None]), C, S))
+
+
+def fwbw_custom_split_plain(ops: TransOps, model: ModelArrays, ev: dict,
+                            C: int, S: int = 4) -> dict:
+    """Plain version of the one-card split of K6e (fwbw_custom_kernel) over
+    C cuts, S states a thread: fwbw_custom_plain's recursions with each step's
+    normalisation folded over the C cuts (split_normalizer), and the
+    gathered beta formed as the kernel forms it, from the exchanged column
+    x = em + alpha and its normaliser c: beta[j] = x[j] - c (a read's
+    frozen beta with c = 0 past its end).  {alpha, beta, gamma} (B, T, n)
+    as fwbw_custom_plain, bit for bit."""
+    n = model.level_mean.shape[-1]
+    mean, stdv, log_stdv = ev["mean"], ev["stdv"], ev["log_stdv"]
+    lengths = ev["length"]
+    B, T = mean.shape
+    dev = mean.device
+    out = {k: torch.empty((B, T, n), dtype=torch.float32, device=dev)
+           for k in ("alpha", "beta", "gamma")}
+    alphas, betas, gammas = out["alpha"], out["beta"], out["gamma"]
+    alpha = torch.full((B, n), -math.log(n), dtype=torch.float32, device=dev)
+    col = log_emission(model, mean[:, 0], stdv[:, 0], log_stdv[:, 0]) + alpha
+    c = split_normalizer(col, C, S)
+    beta = col - c[:, None]
+    alphas[:, 0], betas[:, 0] = alpha, beta
+    t_alpha = torch.clamp(lengths, min=1)
+    for t in range(1, T):
+        gathered = gather_slots(col, ops.from_idx) - c[:, None, None]
+        alpha = torch.where((t <= t_alpha)[:, None],
+                            logsumexp_slots(ops.from_logp + gathered), alpha)
+        live = (t < lengths)[:, None]
+        em = log_emission(model, mean[:, t], stdv[:, t], log_stdv[:, t])
+        col = torch.where(live, em + alpha, beta)
+        cn = split_normalizer(col, C, S)
+        beta = torch.where(live, col - cn[:, None], beta)
+        c = torch.where(live[:, 0], cn, 0.0)
+        alphas[:, t], betas[:, t] = alpha, beta
+    gamma = beta
+    gammas[:, T - 1] = gamma
+    for t in range(T - 2, -1, -1):
+        g = gamma - alphas[:, t + 1]
+        cand = betas[:, t] + logsumexp_slots(ops.to_logp
+                                             + gather_slots(g, ops.to_idx))
+        gamma = torch.where((t >= lengths - 1)[:, None], betas[:, t], cand)
+        gammas[:, t] = gamma
+    return out
+
+
+#: fwbw_split_clusters' answers, by (card index, S, custom, per_read)
+_split_clusters: dict = {}
+
+
+def fwbw_split_clusters(dev, S: int, custom: bool, per_read: bool) -> int:
+    """The most clusters of the one-card split's instance of S states a
+    thread that the CUDA device `dev` holds at once
+    (cudaOccupancyMaxActiveClusters; its shared memory set there).  The
+    launch raises where it is 0."""
+    key = (torch.device(dev).index, S, bool(custom), bool(per_read))
+    if key not in _split_clusters:
+        clusters = ctypes.c_int(0)
+        _cuda.check(_cuda.load().nc_fwbw_split_clusters(
+            S.bit_length() - 1, int(custom), int(per_read), key[0],
+            ctypes.byref(clusters)), "fwbw_split occupancy")
+        _split_clusters[key] = clusters.value
+    return _split_clusters[key]
+
+
+def _fwbw_split_launch(ops: TransOps, model: ModelArrays, ev: dict,
+                       states: int | None, custom: bool) -> dict:
+    """One launch of the streaming K6c (custom: K6e), the one-card split,
+    with `states` a thread (FWBW_SPLIT_STATES; None: fwbw_stream_split's),
+    once every shape is checked: K6c's {alpha, beta, em, log_pr_data} or
+    K6e's {alpha, beta, gamma}, as the plain version; K6e's emissions go
+    to a scratch tensor.  The wrappers below call it and count the
+    launch."""
+    what = "custom fwbw" if custom else "generic fwbw"
+    if states is not None and states not in FWBW_SPLIT_STATES:
+        raise ValueError(f"{what}: {states} states a thread, the one-card "
+                         f"split takes {FWBW_SPLIT_STATES}")
+    B, T, table = _check_fwbw(ops, model, ev, False, what)
+    S = fwbw_stream_split(B) if states is None else states
+    dev = ev["mean"].device
+    n = 4096
+    C = FWBW_SPLIT_CUTS
+    W = n // C
+    per = per_read(ops)
+    if not fwbw_split_clusters(dev, S, custom, per):
+        raise RuntimeError(f"{what}: no cluster of {C} blocks of {W // S} "
+                           f"threads fits the card")
+    if custom:
+        out = _custom_outputs(B, T, n, dev)
+        em = torch.empty((B, T, n), dtype=torch.float32, device=dev)
+        outs = (out["alpha"], out["beta"], em, out["gamma"])
+        lpd = 0
+    else:
+        out = _fwbw_outputs(B, T, n, dev)
+        outs = (out["alpha"], out["beta"], out["em"], None)
+        lpd = out["log_pr_data"].data_ptr()
+    vals = []
+    for c in range(C):
+        off = 4 * c * W
+        vals += [ev["mean"].data_ptr(), ev["stdv"].data_ptr(),
+                 ev["log_stdv"].data_ptr(), ev["length"].data_ptr(),
+                 *(x.data_ptr() + off for x in table),
+                 *(x.data_ptr() + off for x in model),
+                 *(x.data_ptr() + off for x in outs[:3]),
+                 outs[3].data_ptr() + off if custom else 0, 0, lpd, 0]
+    ranks = _rank_table(vals, [], dev)
+    err = _cuda.load().nc_fwbw_split(
+        ranks.data_ptr(), B, T, S.bit_length() - 1, table[0].shape[-2],
+        table[2].shape[-2], int(custom), int(per), LOG_2PI, math.log(n),
+        *_cuda.target(dev))
+    _cuda.check(err, f"{what} split kernel launch")
+    return out
+
+
 # K6e: per-step-normalized forward-backward -----------------------------------
 
 
@@ -3271,23 +3506,26 @@ def _custom_outputs(B: int, T: int, n: int, dev) -> dict:
             for k in ("alpha", "beta", "gamma")}
 
 
-def fwbw_custom_kernel(ops: TransOps, model: ModelArrays, ev: dict) -> dict:
-    """K6e on the card, the streaming kernel: both passes in one launch,
-    {alpha, beta, gamma} (B, T, n) as the plain version.  Per-read tables
-    take the per-read instance (fwbw_custom_per_read_kernel)."""
+def fwbw_custom_kernel(ops: TransOps, model: ModelArrays, ev: dict,
+                       states: int | None = None) -> dict:
+    """K6e on the card under a table that streams, the one-card split
+    (csrc/fwbw_split.cu) with `states` a thread (by default
+    fwbw_stream_split's): both passes in one launch, {alpha, beta, gamma}
+    (B, T, n) as the plain version.  Per-read tables take the per-read
+    instance (fwbw_custom_per_read_kernel)."""
     if per_read(ops):
-        return fwbw_custom_per_read_kernel(ops, model, ev)
-    out = _fwbw_launch(ops, model, ev, resident=False, custom=True)
+        return fwbw_custom_per_read_kernel(ops, model, ev, states)
+    out = _fwbw_split_launch(ops, model, ev, states, custom=True)
     _cuda.count_launch(fwbw_custom_kernel)
     return out
 
 
 def fwbw_custom_per_read_kernel(ops: TransOps, model: ModelArrays,
-                                ev: dict) -> dict:
-    """K6e's streaming kernel under per-read tables (its per-read
+                                ev: dict, states: int | None = None) -> dict:
+    """fwbw_custom_kernel under per-read tables (its per-read
     instance)."""
     _require_per_read(ops, "the per-read streaming custom fwbw")
-    out = _fwbw_launch(ops, model, ev, resident=False, custom=True)
+    out = _fwbw_split_launch(ops, model, ev, states, custom=True)
     _cuda.count_launch(fwbw_custom_per_read_kernel)
     return out
 
@@ -3300,7 +3538,7 @@ def fwbw_custom_resident_kernel(ops: TransOps, model: ModelArrays,
     (fwbw_custom_resident_per_read_kernel)."""
     if per_read(ops):
         return fwbw_custom_resident_per_read_kernel(ops, model, ev)
-    out = _fwbw_launch(ops, model, ev, resident=True, custom=True)
+    out = _fwbw_resident_launch(ops, model, ev, custom=True)
     _cuda.count_launch(fwbw_custom_resident_kernel)
     return out
 
@@ -3310,7 +3548,7 @@ def fwbw_custom_resident_per_read_kernel(ops: TransOps, model: ModelArrays,
     """K6e's resident kernel under per-read tables (its per-read
     instance)."""
     _require_per_read(ops, "the per-read resident custom fwbw")
-    out = _fwbw_launch(ops, model, ev, resident=True, custom=True)
+    out = _fwbw_resident_launch(ops, model, ev, custom=True)
     _cuda.count_launch(fwbw_custom_resident_per_read_kernel)
     return out
 

@@ -85,7 +85,7 @@ KERNELS = (
            "nanocall_tpu_torch/csrc/viterbi_traceback.cu",
            "nanocall_tpu/ops/hmm.py:714"),
     Kernel("fwbw_generic", hmm.fwbw_generic_kernel,
-           "nanocall_tpu_torch/csrc/fwbw_generic.cu",
+           "nanocall_tpu_torch/csrc/fwbw_split.cu",
            "nanocall_tpu/ops/hmm.py:784"),
     Kernel("fwbw_resident", hmm.fwbw_resident_kernel,
            "nanocall_tpu_torch/csrc/fwbw_generic.cu",
@@ -94,19 +94,19 @@ KERNELS = (
            "nanocall_tpu_torch/csrc/fwbw_backward.cu",
            "nanocall_tpu/ops/hmm.py:1016"),
     Kernel("fwbw_custom", hmm.fwbw_custom_kernel,
-           "nanocall_tpu_torch/csrc/fwbw_custom.cu",
+           "nanocall_tpu_torch/csrc/fwbw_split.cu",
            "nanocall_tpu/ops/hmm.py:1047"),
     Kernel("fwbw_custom_resident", hmm.fwbw_custom_resident_kernel,
            "nanocall_tpu_torch/csrc/fwbw_custom.cu",
            "nanocall_tpu/ops/hmm.py:1047"),
     Kernel("fwbw_generic_per_read", hmm.fwbw_generic_per_read_kernel,
-           "nanocall_tpu_torch/csrc/fwbw_generic.cu",
+           "nanocall_tpu_torch/csrc/fwbw_split.cu",
            "nanocall_tpu/ops/hmm.py:784"),
     Kernel("fwbw_resident_per_read", hmm.fwbw_resident_per_read_kernel,
            "nanocall_tpu_torch/csrc/fwbw_generic.cu",
            "nanocall_tpu/ops/hmm.py:784"),
     Kernel("fwbw_custom_per_read", hmm.fwbw_custom_per_read_kernel,
-           "nanocall_tpu_torch/csrc/fwbw_custom.cu",
+           "nanocall_tpu_torch/csrc/fwbw_split.cu",
            "nanocall_tpu/ops/hmm.py:1047"),
     Kernel("fwbw_custom_resident_per_read",
            hmm.fwbw_custom_resident_per_read_kernel,

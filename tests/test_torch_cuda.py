@@ -1538,6 +1538,61 @@ def test_streaming_fwbw_bit_equal_on_the_card(card, inputs, monkeypatch):
                             (what, k, f"guard row {row} written")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["clean", "NaN"])
+def test_fwbw_split_forms_bit_equal_on_the_card(card, inputs, monkeypatch):
+    """The streaming K6c and K6e (the one-card split) in every form the
+    route takes (S of hmm.FWBW_SPLIT_STATES states a thread, whatever the
+    read count), one table and per read, at B = 11 reads of lengths 0, 1,
+    2, T - 1, T and others under random tables of 1, 21 and 40 slots,
+    clean and with NaN events, a +inf event and a NaN model entry: every
+    output bit-equal to fwbw_plain / fwbw_custom_plain (and to the split's
+    own plain version at (C, S) = (FWBW_SPLIT_CUTS, S)), written into
+    buffers between guard rows that no block touches; one launch counted a
+    call."""
+    T = 24
+    lengths = [T, 0, 1, 2, T - 1, T, T, 5, T, 13, T]
+    B = len(lengths)
+    _, model, ev = _k6_inputs(card, B, T, lengths, 72)
+    if inputs == "NaN":
+        _nan_fwbw_events(ev, (5, 6))
+        model.level_mean[8, 99] = float("nan")
+    for deg in (1, 21, 40):
+        for per_read in (False, True):
+            ops = _random_stream_ops(card, deg, 90 + deg, B if per_read else 0)
+            for fn, (one, per, plain, alloc) in STREAM_FWBW.items():
+                wrapper = per if per_read else one
+                want = plain(ops, model, ev)
+                for S in hmm.FWBW_SPLIT_STATES:
+                    what = (fn, deg, per_read, inputs, S)
+                    split = (hmm.fwbw_custom_split_plain if fn == "fwbw_custom"
+                             else hmm.fwbw_split_plain)(
+                        ops, model, ev, hmm.FWBW_SPLIT_CUTS, S)
+                    for k in want:
+                        assert torch.equal(_bits(split[k]), _bits(want[k])), \
+                            (what, k, "plain split")
+                    bufs = {k: torch.full((B + 2, *v.shape[1:]), POISON,
+                                          dtype=torch.int32,
+                                          device=card).view(torch.float32)
+                            for k, v in want.items()}
+                    out = {k: v[1:B + 1] for k, v in bufs.items()}
+                    n0 = wrapper.launches
+                    with monkeypatch.context() as m:
+                        m.setattr(hmm, alloc, lambda *_: out)
+                        got = one(ops, model, ev, S)
+                    torch.cuda.synchronize()
+                    assert got is out, what
+                    assert wrapper.launches == n0 + 1, what
+                    for k in want:
+                        assert torch.equal(_bits(got[k]), _bits(want[k])), \
+                            (what, k)
+                    for k, v in bufs.items():
+                        for row in (0, B + 1):
+                            assert bool((v[row].view(torch.int32)
+                                         == POISON).all()), \
+                                (what, k, f"guard row {row} written")
+
+
 def _train_batch(dev, G: int, T: int, nan: bool, seed: int):
     """A training batch of G groups of 4 rows on `dev` (the r73 pair of
     models, events of random states of the scaled models, varied scaling

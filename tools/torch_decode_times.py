@@ -156,12 +156,17 @@ x 128 and 1 x 4000, K6e at 16 x 2048 and 1 x 4000
 without its packed layout, under a seeded random 21-slot table
 (chip_smoke.random_table_ops), and under per-read tables
 (chip_smoke.per_read_tables without their layout: the per-read
-instances); CUDA events around STREAM_REPS calls, a digest of every
-output's bits (equal digests: equal outputs, across trees too), ptxas'
-registers and spill of the four streaming instances (from the build log
-of a fresh build, where the tree's smoke reads it), and the table bytes
-each block reads from L2 (2 (T - 1) (deg_from + deg_to) slot rows of
-int32 states and float32 log-probs, 32 KB each, a read).
+instances); the route's call and, in a tree that has the one-card split
+(hmm.FWBW_SPLIT_STATES), each of its forms (S states a thread), each
+call's outputs bit-equal to the route's; CUDA events around STREAM_REPS
+calls, a digest of the route's outputs' bits (equal digests: equal
+outputs, across trees too), ptxas' registers and spill of the four
+streaming instances (from the build log of a fresh build, where the
+tree's smoke reads it), and the table bytes a kernel of one block a read
+reads from L2 (2 (T - 1) (deg_from + deg_to) slot rows of int32 states
+and float32 log-probs, 32 KB each, a read).  With --stream-slots, the
+same under seeded random tables of 1, 2, 4 and 8 slots at 48, 192 and
+512 reads.
 With --no-fwbw-layout, the pipeline run's TransOps lose K6c's packed layout
 (convert.trans_ops wrapped): with --trans FILE --train, the legacy EM
 round's rows at the priors take the streaming K6c.
@@ -211,6 +216,7 @@ KERNEL_FUNCTIONS = ("viterbi_forward_kernel", "viterbi_traceback_kernel",
                     "viterbi_generic_traceback_kernel",
                     "viterbi_generic_traceback_ring_kernel",
                     "fwbw_generic_kernel", "fwbw_resident_kernel",
+                    "fwbw_split_kernel",
                     "fwbw_backward_kernel", "fwbw_custom_kernel",
                     "fwbw_custom_resident_kernel")
 
@@ -254,6 +260,9 @@ def main() -> int:
                          "at 128 x 8192")
     ap.add_argument("--stream", action="store_true",
                     help="time the streaming K6c and K6e")
+    ap.add_argument("--stream-slots", action="store_true",
+                    help="time the streaming K6c and K6e under tables of "
+                         "1 to 8 slots")
     ap.add_argument("--no-fwbw-layout", action="store_true",
                     help="the pipeline run's tables without K6c's packed "
                          "layout")
@@ -373,6 +382,8 @@ def main() -> int:
 
     if args.stream:
         time_stream(models, device, card)
+    if args.stream_slots:
+        time_stream(models, device, card, STREAM_SLOT_CASES)
 
     if args.no_fwbw_layout:
         from nanocall_tpu_torch import convert
@@ -1888,18 +1899,34 @@ def time_custom(models, device, card: str) -> None:
 
 #: time_stream's cases: (function, B, T, tables), the tables among
 #: "loaded" (the (0.14, 0.21) table without its packed layout), "random"
-#: (a seeded random 21-slot table) and "per read" (per-read structured
-#: tables without their layout)
-STREAM_CASES = (("fwbw", 512, 128, ("loaded", "random", "per read")),
-                ("fwbw", 1, 4000, ("loaded", "random")),
+#: (a seeded random 21-slot table), "random 1" (a seeded random table of
+#: one slot) and "per read" (per-read structured tables without their
+#: layout); the reads between one and 512 and K6e at 512 x 128 bound the
+#: route's choice (hmm.fwbw_stream_split)
+STREAM_CASES = (("fwbw", 512, 128, ("loaded", "random", "per read",
+                                    "random 1")),
+                ("fwbw", 1, 4000, ("loaded", "random", "random 1")),
+                ("fwbw", 24, 128, ("loaded",)),
+                ("fwbw", 48, 128, ("loaded",)),
+                ("fwbw", 96, 128, ("loaded", "per read")),
+                ("fwbw", 192, 128, ("loaded",)),
                 ("fwbw_custom", 16, 2048, ("loaded", "per read")),
-                ("fwbw_custom", 1, 4000, ("loaded", "per read")))
+                ("fwbw_custom", 1, 4000, ("loaded", "per read")),
+                ("fwbw_custom", 64, 512, ("loaded",)),
+                ("fwbw_custom", 512, 128, ("loaded", "per read")))
+#: --stream-slots' cases: tables of few slots (seeded random tables of d
+#: slots, "random d"), where the slot loop is short beside the split's
+#: exchange
+STREAM_SLOT_CASES = tuple(
+    [(fn, B, 128, tuple(f"random {d}" for d in (1, 2, 4, 8)))
+     for fn in ("fwbw", "fwbw_custom") for B in (48, 192, 512)]
+    + [("fwbw", 512, 128, ("per read",))])
 STREAM_REPS = 3
 
 
-def time_stream(models, device, card: str) -> None:
+def time_stream(models, device, card: str, cases=STREAM_CASES) -> None:
     """The streaming K6c and K6e at STREAM_CASES (module docstring,
-    --stream)."""
+    --stream), or at `cases`."""
     import hashlib
 
     import numpy as np
@@ -1913,38 +1940,60 @@ def time_stream(models, device, card: str) -> None:
     loaded = chip_smoke.load_trans_table(device)[2]._replace(
         fwbw_packed=None)
     random21 = chip_smoke.random_table_ops(device, 21, 21)
-    for fn, B, T, names in STREAM_CASES:
+    for fn, B, T, names in cases:
         _, model, ev = chip_smoke.kernel_inputs(
             models, device, max(B, 4), T, np.random.default_rng(19))
         if B < 4:
             model = hmm.ModelArrays(*(x[:B].contiguous() for x in model))
             ev = {k: v[:B].contiguous() for k, v in ev.items()}
-        tables = {"loaded": loaded, "random": random21}
+        tables = {"loaded": loaded, "random": random21,
+                  **{f"random {d}": chip_smoke.random_table_ops(device, d, d)
+                     for d in (1, 2, 4, 8)}}
         if "per read" in names:
-            tables["per read"] = chip_smoke.per_read_tables(
-                device, B, np.random.default_rng(23))[0]._replace(
-                    fwbw_packed=None)
+            # under few slots, per-read log-probs of one random slot
+            tables["per read"] = (
+                chip_smoke.random_stream_ops(device, 1, 1, B)
+                if cases is STREAM_SLOT_CASES
+                else chip_smoke.per_read_tables(
+                    device, B, np.random.default_rng(23))[0]._replace(
+                        fwbw_packed=None))
         wrapper = (hmm.fwbw_generic_kernel if fn == "fwbw"
                    else hmm.fwbw_custom_kernel)
         for name in names:
             ops = tables[name]
             deg = ops.from_idx.shape[0] + ops.to_idx.shape[0]
-
-            def call():
-                return wrapper(ops, model, ev)
-
-            out = call()
+            # the route's call, then (in a tree that has the one-card
+            # split) each of its forms
+            calls = {"route": lambda: wrapper(ops, model, ev)}
+            if hasattr(hmm, "FWBW_SPLIT_STATES"):
+                for S in hmm.FWBW_SPLIT_STATES:
+                    calls[f"split S={S}"] = (
+                        lambda S=S: wrapper(ops, model, ev, S))
+                print(f"stream {fn} {name} B={B} T={T}: the route takes "
+                      f"S={hmm.fwbw_stream_split(B)} [{card}]", flush=True)
+            ref = calls["route"]()
             torch.cuda.synchronize()
             digest = hashlib.sha1(b"".join(
-                out[k].contiguous().view(torch.int32).cpu().numpy()
-                .tobytes() for k in sorted(out))).hexdigest()[:12]
-            del out
-            ms = chip_smoke.cuda_ms(call, STREAM_REPS)
-            # every block reads each slot's two 16 KB rows twice a step
-            l2 = 2 * (T - 1) * deg * 32768 * B
-            print(f"stream {fn} {name} B={B} T={T}: {ms:.3f} ms; outputs "
-                  f"{digest}; table bytes read from L2 {l2 / 1e9:.3f} GB "
-                  f"[{card}]", flush=True)
+                ref[k].contiguous().view(torch.int32).cpu().numpy()
+                .tobytes() for k in sorted(ref))).hexdigest()[:12]
+            for what, call in calls.items():
+                out = call()
+                torch.cuda.synchronize()
+                # every other call's outputs as bits against the route's
+                assert all(torch.equal(out[k].view(torch.int32),
+                                       ref[k].view(torch.int32))
+                           for k in ref), (fn, name, what, "outputs differ")
+                del out
+                ms = chip_smoke.cuda_ms(call, STREAM_REPS)
+                # one block a read reads each slot's two 16 KB rows twice a
+                # step
+                l2 = 2 * (T - 1) * deg * 32768 * B
+                tag = "" if what == "route" else f" {what}"
+                print(f"stream {fn} {name}{tag} B={B} T={T}: {ms:.3f} ms; "
+                      f"outputs {digest}; table bytes read from L2 by one "
+                      f"block a read {l2 / 1e9:.3f} GB [{card}]",
+                      flush=True)
+            del ref
         del model, ev, tables
         torch.cuda.empty_cache()
 
